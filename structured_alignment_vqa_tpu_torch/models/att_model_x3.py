@@ -28,6 +28,7 @@ from structured_alignment_vqa_tpu_torch.ops.attention import (
     MultiHeadAttention,
 )
 from structured_alignment_vqa_tpu_torch.ops.layers import (
+    Dropout,
     Embedding,
     FeedForward,
     Linear,
@@ -113,9 +114,10 @@ class _Branch(nn.Module):
         pe = Embedding(pe_table_size, h, zeros_pad=False, scale=False, dtype=dt, device=device)
         # the visual branch's PE sits in a Sequential with its dropout
         self.syb_positional_encoding = (
-            nn.Sequential(pe, nn.Dropout(cfg.dropout_rate)) if pe_dropout else pe
+            nn.Sequential(pe, Dropout(cfg.dropout_rate)) if pe_dropout else pe
         )
-        self.fea_dropout = nn.Dropout(cfg.dropout_rate)
+        self.pe_dropout = pe_dropout
+        self.fea_dropout = Dropout(cfg.dropout_rate)
         for i in range(cfg.num_blocks):
             self.add_module(f"enc_self_attention_{i}", GraphGuidedAttention(
                 h, cfg.num_heads, dtype=dt, device=device))
@@ -124,7 +126,7 @@ class _Branch(nn.Module):
                                  device=device)
         self.dec_positional_encoding = Embedding(pe_table_size, h, zeros_pad=False,
                                                  scale=False, dtype=dt, device=device)
-        self.dec_dropout = nn.Dropout(cfg.dropout_rate)
+        self.dec_dropout = Dropout(cfg.dropout_rate)
         for i in range(cfg.num_blocks):
             self.add_module(f"dec_self_attention_{i}", MultiHeadAttention(
                 h, cfg.num_heads, causality=True, dtype=dt, device=device))
@@ -132,7 +134,8 @@ class _Branch(nn.Module):
                 h, cfg.num_heads, dtype=dt, device=device))
             self.add_module(f"dec_feed_forward_{i}", FeedForward(h, (4 * h, h), dt, device))
 
-    def forward(self, modality_fea, modality_mask, modality_graph, q_ids, q_graph, q_mask):
+    def forward(self, modality_fea, modality_mask, modality_graph, q_ids, q_graph, q_mask,
+                generator: Optional[torch.Generator] = None):
         cfg = self.cfg
         dt = cfg.compute_dtype
         b = modality_fea.shape[0]
@@ -141,7 +144,12 @@ class _Branch(nn.Module):
         fea = self.syb_mlp2(torch.cat([modality_fea.to(dt), q_fea], dim=1))
         size = fea.shape[1]
         pos_ids = torch.arange(size, device=fea.device).expand(b, size)
-        fea = self.fea_dropout(fea + self.syb_positional_encoding(pos_ids))
+        if self.pe_dropout:
+            pe_table, pe_drop = self.syb_positional_encoding
+            pe = pe_drop(pe_table(pos_ids), generator)
+        else:
+            pe = self.syb_positional_encoding(pos_ids)
+        fea = self.fea_dropout(fea + pe, generator)
 
         graph_diag, graph_cross, graph, dec_mask = build_stage_graphs(
             modality_mask, q_mask, q_graph, modality_graph,
@@ -155,7 +163,7 @@ class _Branch(nn.Module):
 
         dec_ids = torch.full((b, 1), BOS_ID, dtype=torch.long, device=fea.device)
         dec = self.dec_emb(dec_ids) + self.dec_positional_encoding(torch.zeros_like(dec_ids))
-        dec = self.dec_dropout(dec)
+        dec = self.dec_dropout(dec, generator)
         for i in range(cfg.num_blocks):
             dec = getattr(self, f"dec_self_attention_{i}")(dec, dec, dec)
             dec = getattr(self, f"dec_vanilla_attention_{i}")(dec, fea, fea, dec_mask)
@@ -169,8 +177,9 @@ class VisualEncoder(_Branch):
     def __init__(self, cfg: ModelConfig, glove: Optional[GloVeEmbed] = None, device=None):
         super().__init__(cfg, cfg.maxlen, pe_dropout=True, glove=glove, device=device)
 
-    def forward(self, vis_fea, vis_mask, q_ids, q_graph, q_mask):
-        return super().forward(vis_fea, vis_mask, None, q_ids, q_graph, q_mask)
+    def forward(self, vis_fea, vis_mask, q_ids, q_graph, q_mask,
+                generator: Optional[torch.Generator] = None):
+        return super().forward(vis_fea, vis_mask, None, q_ids, q_graph, q_mask, generator)
 
 
 class SymbolicEncoder(_Branch):
@@ -228,13 +237,19 @@ class MILNCEModule(nn.Module):
         return self.ipt_mlp(new_macro), mil_obj, mil_rel
 
 
-def _head(cfg: ModelConfig, fin: int, device=None) -> nn.Sequential:
+class _Head(nn.Sequential):
     """Linear -> ReLU -> Dropout -> Linear classifier (``cls.0`` / ``cls.3``)."""
-    dt = cfg.compute_dtype
-    return nn.Sequential(
-        Linear(fin, cfg.hidden_size, dt, device), nn.ReLU(), nn.Dropout(cfg.dropout_rate),
-        Linear(cfg.hidden_size, cfg.num_classes, dt, device),
-    )
+
+    def __init__(self, cfg: ModelConfig, fin: int, device=None):
+        dt = cfg.compute_dtype
+        super().__init__(
+            Linear(fin, cfg.hidden_size, dt, device), nn.ReLU(), Dropout(cfg.dropout_rate),
+            Linear(cfg.hidden_size, cfg.num_classes, dt, device),
+        )
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        hidden, relu, drop, out = self
+        return out(drop(relu(hidden(x)), generator))
 
 
 class AttModelX3(nn.Module):
@@ -256,11 +271,14 @@ class AttModelX3(nn.Module):
         self.MIL_NCE = MILNCEModule(cfg, glove=shared, device=dev)
         self.att_vis_grid = VisualEncoder(cfg, glove=shared, device=dev)
         self.att_syb = SymbolicEncoder(cfg, glove=shared, device=dev)
-        self.cls = _head(cfg, 2 * cfg.hidden_size, dev)
-        self.cls_vis = _head(cfg, cfg.hidden_size, dev)
-        self.cls_syb = _head(cfg, cfg.hidden_size, dev)
+        self.cls = _Head(cfg, 2 * cfg.hidden_size, dev)
+        self.cls_vis = _Head(cfg, cfg.hidden_size, dev)
+        self.cls_syb = _Head(cfg, cfg.hidden_size, dev)
 
-    def forward(self, batch: VQABatch):
+    def forward(self, batch: VQABatch, generator: Optional[torch.Generator] = None):
+        """In train mode every dropout mask is drawn from ``generator`` (on
+        the batch's device; ``None`` means torch's default generator). In
+        eval mode, or at dropout rate 0, no mask is drawn."""
         if batch.vis_seg is not None or batch.n_pack != 1:
             raise NotImplementedError("packed batches (ROADMAP Queue 1 item 10) are not ported yet")
         new_macro, mil_obj, mil_rel = self.MIL_NCE(
@@ -268,12 +286,12 @@ class AttModelX3(nn.Module):
             batch.micro_pos_obj, batch.micro_neg_obj, batch.micro_obj_mask,
         )
         fea_vis = self.att_vis_grid(batch.vis_fea, batch.vis_mask, batch.q_ipt,
-                                    batch.q_graph, batch.q_mask)[:, 0]
+                                    batch.q_graph, batch.q_mask, generator)[:, 0]
         fea_syb = self.att_syb(new_macro, batch.macro_mask, batch.macro_graph,
-                               batch.q_ipt, batch.q_graph, batch.q_mask)[:, 0]
-        logits_vis = self.cls_vis(fea_vis)
-        logits_syb = self.cls_syb(fea_syb)
-        logits_concat = self.cls(torch.cat([fea_syb, fea_vis], dim=-1))
+                               batch.q_ipt, batch.q_graph, batch.q_mask, generator)[:, 0]
+        logits_vis = self.cls_vis(fea_vis, generator)
+        logits_syb = self.cls_syb(fea_syb, generator)
+        logits_concat = self.cls(torch.cat([fea_syb, fea_vis], dim=-1), generator)
         return logits_concat, logits_vis, logits_syb, mil_obj, mil_rel
 
 

@@ -7,7 +7,9 @@ Counterpart of the TPU package's ``ops/pallas_ffn.py`` (``_kernel``, entry
 On CUDA tensors :func:`fused_ffn` launches the kernel of ``csrc/ffn.cu``;
 on CPU tensors it runs :func:`ffn_ln_plain`, the same function in plain
 PyTorch, rounding where the kernel rounds: the hidden activation is cast to
-x's dtype before the second product and the residual is added in f32.
+x's dtype before the second product and the residual is added in f32. The
+backward on either device is autograd of :func:`ffn_ln_plain`, as the TPU
+package's is autodiff of its composite.
 Weights are in ``nn.Linear`` layout: w1 (4C, C), w2 (C, 4C).
 """
 
@@ -79,26 +81,42 @@ def _launch(x, w1, b1, w2, b2, gamma, beta) -> torch.Tensor:
 
 
 class _FusedFFN(torch.autograd.Function):
-    """The kernel as an autograd node; its backward is not ported yet (the
-    TPU package differentiates the composite, ROADMAP Queue 1 item 6)."""
+    """K3 as an autograd node.
+
+    The forward launches the kernel on CUDA tensors (the plain version on
+    CPU tensors) and saves only its inputs. The TPU package has no backward
+    kernel for K3: its backward is the VJP of the composite
+    (``ops/pallas_ffn.py:106-107``). So is this one: the backward recomputes
+    :func:`ffn_ln_plain` on the saved inputs under ``torch.enable_grad()``
+    and takes ``torch.autograd.grad`` of it, its products running on cuBLAS
+    as XLA's do. This is the backward pass, not a forward that falls back.
+    """
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, gamma, beta):
+        ctx.save_for_backward(x, w1, b1, w2, b2, gamma, beta)
+        if not use_kernel(x):
+            return ffn_ln_plain(x, w1, b1, w2, b2, gamma, beta)
         return _launch(x, w1, b1, w2, b2, gamma, beta)
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError("the FFN backward (ROADMAP Queue 1 item 6) is not ported yet")
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            out = ffn_ln_plain(*inputs)
+            grads = iter(torch.autograd.grad(out, wanted, grad_out))
+        return tuple(next(grads) if t.requires_grad else None for t in inputs)
 
 
 def fused_ffn(x, w1, b1, w2, b2, gamma, beta):
-    """``LN(W2 relu(W1 x + b1) + b2 + x)`` over the last axis of ``x``.
+    """``LN(W2 relu(W1 x + b1) + b2 + x)`` over the last axis of ``x``,
+    differentiable.
 
     x (..., C); w1 (H, C), b1 (H,), w2 (C, H), b2 (C,) in x's dtype; gamma
     and beta (C,) float32.
     """
-    if not use_kernel(x):
-        return ffn_ln_plain(x, w1, b1, w2, b2, gamma, beta)
     return _FusedFFN.apply(x, w1, b1, w2, b2, gamma, beta)
 
 

@@ -1,7 +1,9 @@
-"""Fused graph-guided attention + residual + LayerNorm (K1).
+"""Fused graph-guided attention + residual + LayerNorm (K1) and its backward (K2).
 
 Counterpart of the TPU package's ``ops/pallas_attention.py`` (``_kernel``,
-entry ``fused_graph_attention_ln``). Per batch element, every head:
+entry ``fused_graph_attention_ln``) and ``ops/pallas_attention_bwd.py``
+(``_bwd_kernel``, entry ``fused_attention_bwd``). Per batch element, every
+head:
 
     S = Q K^T / sqrt(dh) -> fill masked keys with -2^32+1 -> softmax
       -> x graph (shared across heads) -> l1 or sum_eps renorm
@@ -9,12 +11,13 @@ entry ``fused_graph_attention_ln``). Per batch element, every head:
     out = LN(acc + residual)   (reference LN: eps on the unbiased std)
 
 On CUDA tensors :func:`fused_graph_attention_ln` launches the kernel of
-``csrc/graph_attention.cu``; on CPU tensors it runs
-:func:`graph_attention_ln_plain`, the same function in plain PyTorch,
-rounding where the kernel rounds: the weights are cast to V's dtype before
-the product and the residual is added to the f32 accumulator. The kernel
-takes Tq != Tk (the decoder's one-query cross-attention) and at most
-``MAX_KEYS`` keys; longer sequences are the flash kernel's (K4), not ported.
+``csrc/graph_attention.cu`` and its backward launches the kernel of
+``csrc/graph_attention_bwd.cu``; on CPU tensors they run
+:func:`graph_attention_ln_plain` and :func:`graph_attention_ln_bwd_plain`,
+the same functions in plain PyTorch, rounding where the kernels round. The
+kernels take Tq != Tk (the decoder's one-query cross-attention) and at most
+``MAX_KEYS`` keys; longer sequences are the flash kernels' (K4-K6), not
+ported.
 """
 
 from __future__ import annotations
@@ -25,15 +28,17 @@ import torch
 
 from structured_alignment_vqa_tpu_torch.ops import _build
 from structured_alignment_vqa_tpu_torch.ops.dispatch import use_kernel
-from structured_alignment_vqa_tpu_torch.ops.layers import NEG_MASK_VALUE, layer_norm
+from structured_alignment_vqa_tpu_torch.ops.layers import LN_EPS, NEG_MASK_VALUE, layer_norm
 
 # F.normalize(p=1) clamps the norm at 1e-12; the graph-mask variant adds 1e-7.
 L1_NORM_EPS = 1e-12
 SUM_NORM_EPS = 1e-7
 RENORMS = ("l1", "sum_eps")
 MAX_KEYS = 512
-Q_TILE = 16          # query rows per block (csrc/graph_attention.cu)
+MAX_HEAD_DIM = 128   # the backward's register accumulators (csrc/graph_attention_bwd.cu)
+Q_TILE = 16          # query rows per block (csrc/graph_attention.cu, K2's first launch)
 KEY_CHUNK = 64       # keys staged in shared memory at a time
+N_STATS = 8          # floats per (batch, head, query row) passed between K2's launches
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on Hopper
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -62,15 +67,102 @@ def graph_attention_ln_plain(q, k, v, key_mask, query_mask, graph, residual,
     return layer_norm(acc + residual.float(), gamma, beta).to(q.dtype)
 
 
+def graph_attention_ln_bwd_plain(q, k, v, key_mask, query_mask, graph, residual,
+                                 gamma, beta, dy, num_heads: int, renorm: str = "l1"):
+    """Plain PyTorch version of the backward kernel.
+
+    Returns ``(dq, dk, dv, dresidual, dgamma, dbeta)``: the first four in
+    q's dtype, dgamma and dbeta float32. The formulas are the hand-derived
+    ones of the TPU package's ``pallas_attention_bwd.py:53-163``: the
+    forward is recomputed from the inputs, the LayerNorm backward gives dO,
+    then per head dV = A^T dO, dA = dO V^T and the renorm and softmax
+    backwards give dS (0 on masked keys). The recomputed output casts the
+    weights to V's dtype, as the forward does; dV takes the f32 weights and
+    dA the f32 V.
+    """
+    if renorm not in RENORMS:
+        raise ValueError(f"unknown renorm mode: {renorm!r}")
+    b, tq, c = q.shape
+    tk = k.shape[1]
+    dh = c // num_heads
+    scale = 1.0 / dh ** 0.5
+
+    def heads(x, t):
+        return x.reshape(b, t, num_heads, dh).transpose(1, 2)
+
+    def merge(x, t):
+        return x.transpose(1, 2).reshape(b, t, c)
+
+    qh, kh, vh = heads(q.float(), tq), heads(k.float(), tk), heads(v, tk)
+    key_fill = key_mask.reshape(b, 1, 1, tk) == 0
+    qcol = query_mask.float().reshape(b, 1, tq, 1)
+    gr = graph.float().unsqueeze(1)
+
+    # the forward, recomputed
+    scores = torch.matmul(qh, kh.transpose(-1, -2)) * scale
+    p = torch.softmax(scores.masked_fill(key_fill, NEG_MASK_VALUE), dim=-1)
+    g = p * gr
+    rsum = g.sum(dim=-1, keepdim=True)             # g >= 0: sum |g| == sum g
+    if renorm == "l1":
+        r = rsum.clamp_min(L1_NORM_EPS)
+        live = (rsum > L1_NORM_EPS).float()
+    else:
+        r = rsum + SUM_NORM_EPS
+        live = torch.ones_like(rsum)
+    a = g / r * qcol
+    x = merge(torch.matmul(a.to(v.dtype).float(), vh.float()), tq) + residual.float()
+
+    # LayerNorm backward (eps on the unbiased std; no d-std term on constant rows)
+    xm = x - x.mean(dim=-1, keepdim=True)
+    var = xm.square().sum(dim=-1, keepdim=True) / max(c - 1, 1)
+    nonzero = var > 0.0
+    s = torch.where(nonzero, torch.sqrt(torch.where(nonzero, var, torch.ones_like(var))),
+                    torch.zeros_like(var))
+    inv = 1.0 / (s + LN_EPS)
+    dy32 = dy.float()
+    dbeta = dy32.sum(dim=(0, 1))
+    dgamma = (dy32 * (xm * inv)).sum(dim=(0, 1))
+    dxh = dy32 * gamma.float()
+    ssum = (dxh * xm).sum(dim=-1, keepdim=True)
+    dx = (dxh - dxh.mean(dim=-1, keepdim=True)) * inv - torch.where(
+        nonzero, xm * (ssum * inv * inv) / (max(c - 1, 1) * torch.where(nonzero, s, 1.0)),
+        torch.zeros_like(xm))
+
+    # attention backward, all heads at once
+    do = heads(dx, tq)
+    dv = torch.matmul(a.transpose(-1, -2), do)
+    dn = torch.matmul(do, vh.float().transpose(-1, -2)) * qcol
+    inner = (dn * g).sum(dim=-1, keepdim=True)
+    if renorm == "l1":
+        dg = dn / r - live * torch.sign(g) * inner / (r * r)
+    else:
+        dg = dn / r - inner / (r * r)
+    dp = dg * gr
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    ds = ds.masked_fill(key_fill, 0.0) * scale
+    dq = torch.matmul(ds, kh)
+    dk = torch.matmul(ds.transpose(-1, -2), qh)
+    dt = q.dtype
+    return (merge(dq, tq).to(dt), merge(dk, tk).to(dt), merge(dv, tk).to(dt), dx.to(dt),
+            dgamma, dbeta)
+
+
 def smem_bytes(tq: int, tk: int, c: int, num_heads: int) -> int:
-    """Dynamic shared memory of one block (must match the kernel's layout)."""
+    """Dynamic shared memory of one K1 block (must match the kernel's layout)."""
     rows = min(Q_TILE, tq)
     dh = c // num_heads
     return 4 * (rows * c + rows * tk + rows * dh + KEY_CHUNK * (dh + 1))
 
 
+def smem_bytes_bwd(tq: int, tk: int, c: int, num_heads: int) -> int:
+    """Dynamic shared memory of one block of K2's first launch (the larger)."""
+    rows = min(Q_TILE, tq)
+    dh = c // num_heads
+    return 4 * (rows * c + 2 * rows * tk + rows * dh + KEY_CHUNK * (dh + 1) + rows * N_STATS)
+
+
 def _check(q, k, v, key_mask, query_mask, graph, residual, gamma, beta,
-           num_heads: int, renorm: str) -> None:
+           num_heads: int, renorm: str, dy=None) -> None:
     if q.dtype not in _DTYPES:
         raise TypeError(f"q/k/v/residual must be float32 or bfloat16, got {q.dtype}")
     if renorm not in RENORMS:
@@ -93,6 +185,8 @@ def _check(q, k, v, key_mask, query_mask, graph, residual, gamma, beta,
         "graph": (graph, (b, tq, tk), torch.float32),
         "gamma": (gamma, (c,), torch.float32), "beta": (beta, (c,), torch.float32),
     }
+    if dy is not None:
+        want["dy"] = (dy, (b, tq, c), q.dtype)
     for name, (t, shape, dtype) in want.items():
         if tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(f"{name}: expected {shape} {dtype}, got {tuple(t.shape)} {t.dtype}")
@@ -100,8 +194,11 @@ def _check(q, k, v, key_mask, query_mask, graph, residual, gamma, beta,
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if smem_bytes(tq, tk, c, num_heads) > SMEM_LIMIT:
-        raise ValueError(f"shapes need {smem_bytes(tq, tk, c, num_heads)} bytes of shared memory")
+    need = (smem_bytes if dy is None else smem_bytes_bwd)(tq, tk, c, num_heads)
+    if need > SMEM_LIMIT:
+        raise ValueError(f"shapes need {need} bytes of shared memory")
+    if dy is not None and c // num_heads > MAX_HEAD_DIM:
+        raise ValueError(f"head width {c // num_heads} > {MAX_HEAD_DIM}")
 
 
 def _launch(q, k, v, key_mask, query_mask, graph, residual, gamma, beta,
@@ -128,33 +225,95 @@ def _launch(q, k, v, key_mask, query_mask, graph, residual, gamma, beta,
     return out
 
 
+def _launch_bwd(q, k, v, key_mask, query_mask, graph, residual, gamma, beta, dy,
+                num_heads: int, renorm: str):
+    _check(q, k, v, key_mask, query_mask, graph, residual, gamma, beta, num_heads, renorm, dy)
+    lib = _build.library("graph_attention_bwd")
+    fn = lib.savqa_graph_attention_ln_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    b, tq, c = q.shape
+    tk = k.shape[1]
+    tiles = -(-tq // min(Q_TILE, tq))
+    dq, dres = torch.empty_like(q), torch.empty_like(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    # scratch passed from the first launch to the second: dO in f32 and
+    # per-(batch, head, row) softmax and renorm statistics; per-block
+    # dgamma/dbeta partials, summed here
+    partials = torch.empty(b * tiles, 2, c, dtype=torch.float32, device=q.device)
+    do = torch.empty(b, tq, c, dtype=torch.float32, device=q.device)
+    stats = torch.empty(b, num_heads, tq, N_STATS, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        status = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(),
+            query_mask.data_ptr(), graph.data_ptr(), residual.data_ptr(),
+            gamma.data_ptr(), dy.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dres.data_ptr(),
+            partials.data_ptr(), do.data_ptr(), stats.data_ptr(),
+            b, tq, tk, c, num_heads, RENORMS.index(renorm), _DTYPES[q.dtype],
+            1.0 / (c // num_heads) ** 0.5, stream,
+        )
+    _build.check(status, "graph_attention_ln_bwd kernel")
+    fused_graph_attention_ln_bwd.launches += 1
+    sums = partials.sum(dim=0)
+    return dq, dk, dv, dres, sums[0], sums[1]
+
+
+def fused_graph_attention_ln_bwd(q, k, v, key_mask, query_mask, graph, residual,
+                                 gamma, beta, dy, num_heads: int, renorm: str = "l1"):
+    """Backward of :func:`fused_graph_attention_ln` given ``dy``, the
+    gradient of its output: ``(dq, dk, dv, dresidual, dgamma, dbeta)``.
+
+    On CUDA tensors one call launches K2 (two kernels of
+    ``csrc/graph_attention_bwd.cu``, counted once); on CPU tensors it runs
+    :func:`graph_attention_ln_bwd_plain`.
+    """
+    if not use_kernel(q):
+        return graph_attention_ln_bwd_plain(q, k, v, key_mask, query_mask, graph, residual,
+                                            gamma, beta, dy, num_heads, renorm)
+    return _launch_bwd(q, k, v, key_mask, query_mask, graph, residual, gamma, beta,
+                       dy.contiguous(), num_heads, renorm)
+
+
+fused_graph_attention_ln_bwd.launches = 0
+
+
 class _FusedGraphAttentionLN(torch.autograd.Function):
-    """The kernel as an autograd node. Its backward is the TPU package's K2
-    (``ops/pallas_attention_bwd.py``), which this slice does not port."""
+    """K1 as an autograd node whose backward is K2.
+
+    The forward saves its inputs only: the backward recomputes the forward,
+    as the TPU kernel does, so nothing of size (B, H, Tq, Tk) is kept."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_mask, query_mask, graph, residual, gamma, beta,
                 num_heads, renorm):
+        ctx.save_for_backward(q, k, v, key_mask, query_mask, graph, residual, gamma, beta)
+        ctx.num_heads, ctx.renorm = num_heads, renorm
+        if not use_kernel(q):
+            return graph_attention_ln_plain(q, k, v, key_mask, query_mask, graph, residual,
+                                            gamma, beta, num_heads, renorm)
         return _launch(q, k, v, key_mask, query_mask, graph, residual, gamma, beta,
                        num_heads, renorm)
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError(
-            "the graph-attention backward kernel (K2, ROADMAP Queue 2) is not ported yet")
+        q, k, v, key_mask, query_mask, graph, residual, gamma, beta = ctx.saved_tensors
+        dq, dk, dv, dres, dgamma, dbeta = fused_graph_attention_ln_bwd(
+            q, k, v, key_mask, query_mask, graph, residual, gamma, beta, grad_out,
+            ctx.num_heads, ctx.renorm)
+        return dq, dk, dv, None, None, None, dres, dgamma, dbeta, None, None
 
 
 def fused_graph_attention_ln(q, k, v, key_mask, query_mask, graph, residual,
                              gamma, beta, num_heads: int, renorm: str = "l1"):
-    """Graph attention + residual + reference LayerNorm.
+    """Graph attention + residual + reference LayerNorm, differentiable.
 
     q: (B, Tq, C); k, v: (B, Tk, C); residual: (B, Tq, C), all one dtype;
     key_mask (B, Tk), query_mask (B, Tq), graph (B, Tq, Tk), gamma and beta
-    (C,) float32. Returns (B, Tq, C) in q's dtype.
+    (C,) float32. Returns (B, Tq, C) in q's dtype. The masks and the graph
+    get no gradient.
     """
-    if not use_kernel(q):
-        return graph_attention_ln_plain(q, k, v, key_mask, query_mask, graph, residual,
-                                        gamma, beta, num_heads, renorm)
     return _FusedGraphAttentionLN.apply(q, k, v, key_mask, query_mask, graph, residual,
                                        gamma, beta, num_heads, renorm)
 

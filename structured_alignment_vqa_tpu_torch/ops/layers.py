@@ -7,6 +7,7 @@ Reference numerics kept on purpose:
 * The feed-forward block is Linear(d->4d)+ReLU -> Linear(4d->d) with residual
   and post-LayerNorm; on CUDA tensors it is one kernel (``ops/fused_ffn.py``).
 * Embedding optionally zeroes row 0 on every lookup and scales by sqrt(d).
+* Dropout draws its mask from a ``torch.Generator`` the caller passes in.
 
 Parameters are kept in float32 and cast to the compute dtype where they are
 used, as ``nn.Dense(dtype=...)`` does in the TPU package.
@@ -15,7 +16,7 @@ used, as ``nn.Dense(dtype=...)`` does in the TPU package.
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -42,6 +43,44 @@ def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                       torch.zeros_like(var))
     out = gamma * (x32 - mean) / (std + epsilon) + beta
     return out.to(x.dtype)
+
+
+def label_smoothing(one_hot: torch.Tensor, epsilon: float = 0.1) -> torch.Tensor:
+    """``(1 - eps) * y + eps / K`` over the last axis (reference ``modules.py:461-463``)."""
+    k = one_hot.shape[-1]
+    return (1.0 - epsilon) * one_hot + epsilon / k
+
+
+def dropout(x: torch.Tensor, p: float, training: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout with the mask drawn from ``generator``, as flax's
+    ``nn.Dropout``: kept entries are divided by ``1 - p`` held in x's dtype
+    (flax's weakly typed ``keep_prob``), the rest are 0.
+
+    In eval mode or at ``p == 0`` no mask is drawn and ``generator`` is
+    left as it was.
+    """
+    if not training or p == 0.0:
+        return x
+    keep = 1.0 - p
+    mask = torch.bernoulli(torch.full(x.shape, keep, device=x.device), generator=generator)
+    scale = torch.tensor(keep, dtype=x.dtype, device=x.device)
+    return torch.where(mask.bool(), x / scale, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class Dropout(nn.Module):
+    """Dropout whose ``forward`` takes the generator to draw its mask from.
+
+    It holds no parameters; it takes the place of ``nn.Dropout`` (whose mask
+    comes from the global generator) in the reference's module layout.
+    """
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
+        return dropout(x, self.p, self.training, generator)
 
 
 class Linear(nn.Linear):

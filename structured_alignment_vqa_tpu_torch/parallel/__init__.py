@@ -1,0 +1,8 @@
+from structured_alignment_vqa_tpu_torch.parallel.train_step import (
+    TrainState,
+    adam,
+    make_eval_step,
+    make_train_step,
+)
+
+__all__ = ["TrainState", "adam", "make_eval_step", "make_train_step"]

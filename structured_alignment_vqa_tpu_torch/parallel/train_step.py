@@ -1,0 +1,154 @@
+"""Train and eval steps (counterpart of the TPU package's
+``parallel/train_step.py``), single device, dense parameters.
+
+One training step is what the reference's batch loop does
+(``main_itp_ddp_tar_super_node.py:268-366``):
+
+  forward (dropout from the caller's generator) -> ensemble smoothed CE
+  (+ MIL-NCE) -> backward -> Adam update
+
+On the card the forward launches K1 and K3 and the backward launches K2 (the
+graph attention's backward); K3's backward is autograd of its composite, as
+in the TPU package. The data-parallel reduction, the mesh and the sparse
+GloVe-table optimizer are not part of this slice (ROADMAP Queue 1 items 14
+and 15).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Iterable, Optional
+
+import torch
+from torch import nn
+
+from structured_alignment_vqa_tpu_torch.data.batch import VQABatch
+from structured_alignment_vqa_tpu_torch.models.config import ModelConfig
+from structured_alignment_vqa_tpu_torch.train.losses import (
+    batch_metrics,
+    ensemble_smoothed_ce,
+    mil_nce_loss,
+)
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model (which holds the parameters), its optimizer and the number
+    of steps taken. ``step`` counts skipped steps too, as the TPU package's
+    ``TrainState.step`` does; the optimizer counts applied updates only."""
+
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+
+
+def adam(params: Iterable[nn.Parameter], lr: float = 1e-4,
+         warmup_steps: int = 0) -> torch.optim.Adam:
+    """torch.optim.Adam with the reference's settings (``main:206``): betas
+    (0.9, 0.999), eps 1e-8.
+
+    ``warmup_steps`` > 0 ramps the learning rate linearly from 0 to ``lr``
+    over the first ``warmup_steps`` applied updates, as
+    ``optax.linear_schedule(0, lr, warmup_steps)`` does in the TPU package:
+    update n (counting from 0) uses ``lr * min(n, warmup_steps) /
+    warmup_steps``. The schedule lives in the parameter group (``peak_lr``,
+    ``warmup_steps``, ``updates``), so it is saved with the optimizer's
+    state_dict; :func:`make_train_step` applies it.
+    """
+    opt = torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    for group in opt.param_groups:
+        group.update(peak_lr=lr, warmup_steps=warmup_steps, updates=0)
+    return opt
+
+
+def _schedule_lr(optimizer: torch.optim.Optimizer) -> None:
+    for group in optimizer.param_groups:
+        warmup = group.get("warmup_steps", 0)
+        if warmup:
+            group["lr"] = group["peak_lr"] * min(group["updates"], warmup) / warmup
+
+
+def _count_update(optimizer: torch.optim.Optimizer) -> None:
+    for group in optimizer.param_groups:
+        if "updates" in group:
+            group["updates"] += 1
+
+
+def _all_finite(grads) -> torch.Tensor:
+    """A 0-d bool tensor: every element of every gradient is finite."""
+    return torch.stack([torch.isfinite(g).all() for g in grads]).all()
+
+
+def _objective(model: nn.Module, cfg: ModelConfig, batch: VQABatch, generator,
+               with_milnce: bool, smooth_eps: float) -> Dict[str, torch.Tensor]:
+    lc, lv, ls, mil_obj, mil_rel = model(batch, generator)
+    ce, log_sm = ensemble_smoothed_ce(lc, lv, ls, batch.answer, batch.sample_valid, smooth_eps)
+    mil = mil_nce_loss(mil_obj, mil_rel, cfg.only_obj)
+    loss = ce + mil if with_milnce else ce
+    n_correct, n = batch_metrics(log_sm, batch.answer, batch.sample_valid)
+    return {"loss": loss, "ce": ce, "mil_nce_loss": mil, "n_correct": n_correct, "n": n}
+
+
+def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, cfg: ModelConfig,
+                    with_milnce: bool = True, smooth_eps: float = 0.1,
+                    skip_nonfinite: bool = True,
+                    sparse_table: bool = False) -> Callable[..., Dict[str, torch.Tensor]]:
+    """Return ``step(state, batch, generator) -> metrics``.
+
+    The step puts the model in train mode; every dropout mask is drawn from
+    ``generator`` (on the batch's device), so the same generator state gives
+    the same step. ``metrics`` holds 0-d tensors: ``loss``, ``ce``,
+    ``mil_nce_loss``, ``n_correct``, ``n`` and ``skipped``.
+
+    ``skip_nonfinite``: a step with any non-finite gradient applies no update:
+    the parameters and the Adam state (its moments and its step count) stay
+    as they were, and ``skipped`` is 1, as the TPU package's ``lax.cond``
+    does. Deciding that costs one read of a flag by the host per step.
+    """
+    if sparse_table:
+        raise NotImplementedError(
+            "sparse_table (the sparse GloVe-table optimizer, ROADMAP Queue 1 item 14) "
+            "is not ported yet")
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def step(state: TrainState, batch: VQABatch,
+             generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        if state.model is not model or state.optimizer is not optimizer:
+            raise ValueError("state holds another model or optimizer than this step's")
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        metrics = _objective(model, cfg, batch, generator, with_milnce, smooth_eps)
+        metrics["loss"].backward()
+        apply = True
+        if skip_nonfinite:
+            apply = bool(_all_finite([p.grad for p in params if p.grad is not None]))
+        if apply:
+            _schedule_lr(optimizer)
+            optimizer.step()
+            _count_update(optimizer)
+        state.step += 1
+        out = {k: v.detach() for k, v in metrics.items()}
+        out["skipped"] = torch.tensor(0.0 if apply else 1.0, device=out["loss"].device)
+        return out
+
+    return step
+
+
+def make_eval_step(model: nn.Module, cfg: ModelConfig, with_milnce: bool = True,
+                   smooth_eps: float = 0.1) -> Callable[[TrainState, VQABatch], Dict]:
+    """Return ``eval(state, batch) -> metric sums``: ``loss_sum`` and
+    ``mil_sum`` (each the batch mean times ``n``), ``n_correct`` and ``n``,
+    so that a caller can add them up over batches (reference eval loop,
+    ``main:42-142``). The model runs in eval mode: no dropout, no mask drawn.
+    """
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: VQABatch) -> Dict[str, torch.Tensor]:
+        if state.model is not model:
+            raise ValueError("state holds another model than this eval step's")
+        model.eval()
+        m = _objective(model, cfg, batch, None, with_milnce, smooth_eps)
+        return {"loss_sum": m["loss"] * m["n"], "mil_sum": m["mil_nce_loss"] * m["n"],
+                "n_correct": m["n_correct"], "n": m["n"]}
+
+    return eval_step

@@ -83,6 +83,7 @@ def test_kernel_wrappers_on_cpu_tensors_never_build(monkeypatch):
     from structured_alignment_vqa_tpu_torch.ops.fused_ffn import fused_ffn
     from structured_alignment_vqa_tpu_torch.ops.fused_graph_attention import (
         fused_graph_attention_ln,
+        fused_graph_attention_ln_bwd,
     )
 
     def refuse(name):
@@ -90,8 +91,12 @@ def test_kernel_wrappers_on_cpu_tensors_never_build(monkeypatch):
 
     monkeypatch.setattr(_build, "library", refuse)
     c = 16
-    x = torch.randn(2, 5, c)
-    fused_ffn(x, torch.randn(4 * c, c), torch.zeros(4 * c), torch.randn(c, 4 * c),
-              torch.zeros(c), torch.ones(c), torch.zeros(c))
-    fused_graph_attention_ln(x, x, x, torch.ones(2, 5), torch.ones(2, 5), torch.ones(2, 5, 5),
-                             x, torch.ones(c), torch.zeros(c), 2, "l1")
+    x = torch.randn(2, 5, c, requires_grad=True)
+    y = fused_ffn(x, torch.randn(4 * c, c), torch.zeros(4 * c), torch.randn(c, 4 * c),
+                  torch.zeros(c), torch.ones(c), torch.zeros(c))
+    masks = (torch.ones(2, 5), torch.ones(2, 5), torch.ones(2, 5, 5))
+    z = fused_graph_attention_ln(y, y, y, *masks, y, torch.ones(c), torch.zeros(c), 2, "l1")
+    z.sum().backward()                      # K2's and K3's backward on CPU tensors
+    assert x.grad is not None
+    fused_graph_attention_ln_bwd(x.detach(), x.detach(), x.detach(), *masks, x.detach(),
+                                 torch.ones(c), torch.zeros(c), torch.ones(2, 5, c), 2, "l1")

@@ -108,3 +108,69 @@ def test_masked_logsumexp_matches_jax(rng, axis):
     want = jax_mil.masked_logsumexp(jnp.asarray(x), jnp.asarray(valid), axis=axis)
     got = masked_logsumexp(torch.from_numpy(x), torch.from_numpy(valid), dim=axis)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+
+
+def test_feed_forward_grad_matches_jax(rng):
+    """The FFN's backward (autograd of K3's plain composite, the TPU
+    package's VJP of its composite) against jax.grad, input and params."""
+    import jax
+
+    c = 16
+    x = rng.standard_normal((2, 9, c)).astype(np.float32)
+    dy = rng.standard_normal((2, 9, c)).astype(np.float32)
+    p = {
+        "fc1": {"kernel": rng.standard_normal((c, 4 * c)).astype(np.float32) * 0.3,
+                "bias": rng.standard_normal(4 * c).astype(np.float32) * 0.1},
+        "fc2": {"kernel": rng.standard_normal((4 * c, c)).astype(np.float32) * 0.2,
+                "bias": rng.standard_normal(c).astype(np.float32) * 0.1},
+        "ln": {"gamma": (1 + 0.1 * rng.standard_normal(c)).astype(np.float32),
+               "beta": (0.1 * rng.standard_normal(c)).astype(np.float32)},
+    }
+    jmod = jax_layers.FeedForward(c, (4 * c, c))
+    gp, gx = jax.grad(lambda p_, x_: jnp.sum(jmod.apply({"params": p_}, x_) * dy),
+                      argnums=(0, 1))(p, jnp.asarray(x))
+    ffn = layers.FeedForward(c, (4 * c, c), device="cpu")
+    ffn.load_state_dict({
+        "conv1.0.weight": torch.from_numpy(p["fc1"]["kernel"].T.copy()),
+        "conv1.0.bias": torch.from_numpy(p["fc1"]["bias"]),
+        "conv2.weight": torch.from_numpy(p["fc2"]["kernel"].T.copy()),
+        "conv2.bias": torch.from_numpy(p["fc2"]["bias"]),
+        "normalization.gamma": torch.from_numpy(p["ln"]["gamma"]),
+        "normalization.beta": torch.from_numpy(p["ln"]["beta"]),
+    })
+    xt = torch.from_numpy(x).requires_grad_(True)
+    (ffn(xt) * torch.from_numpy(dy)).sum().backward()
+    pairs = [(xt.grad, gx), (ffn.conv1[0].weight.grad.T, gp["fc1"]["kernel"]),
+             (ffn.conv1[0].bias.grad, gp["fc1"]["bias"]),
+             (ffn.conv2.weight.grad.T, gp["fc2"]["kernel"]), (ffn.conv2.bias.grad, gp["fc2"]["bias"]),
+             (ffn.normalization.gamma.grad, gp["ln"]["gamma"]),
+             (ffn.normalization.beta.grad, gp["ln"]["beta"])]
+    for got, want in pairs:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_scales_kept_entries_as_flax_does(rng, dtype):
+    """Kept entries become x / (1 - p) in x's dtype, the rest 0: flax
+    nn.Dropout's ``where(mask, x / keep, 0)`` on the same mask."""
+    x = torch.from_numpy(rng.standard_normal((64, 32)).astype(np.float32) + 3.0).to(dtype)
+    out = layers.dropout(x, 0.3, True, torch.Generator().manual_seed(0))
+    kept = out != 0
+    assert 0.6 < kept.float().mean().item() < 0.8
+    xj = jnp.asarray(x.float().numpy()).astype(jnp.bfloat16 if dtype == torch.bfloat16
+                                                else jnp.float32)
+    want = jnp.where(jnp.asarray(kept.numpy()), xj / 0.7, 0).astype(jnp.float32)
+    np.testing.assert_array_equal(out.float().numpy(), np.asarray(want))
+    again = layers.dropout(x, 0.3, True, torch.Generator().manual_seed(0))
+    assert torch.equal(out, again)
+
+
+def test_dropout_draws_nothing_in_eval_or_at_rate_zero():
+    x = torch.randn(4, 8)
+    gen = torch.Generator().manual_seed(1)
+    state = gen.get_state()
+    assert layers.dropout(x, 0.5, False, gen) is x
+    assert layers.dropout(x, 0.0, True, gen) is x
+    drop = layers.Dropout(0.5).eval()
+    assert drop(x, gen) is x
+    assert torch.equal(gen.get_state(), state)
