@@ -32,9 +32,33 @@ Phases, each of which must pass:
    within tolerance; ten steps on one batch without dropout, whose loss
    must fall; a batch with a NaN feature, which must be skipped leaving the
    params and the Adam state bitwise as they were; and the device-time
-   breakdown of one step.
+   breakdown of one step;
+8. K4 (the flash graph attention) against its plain PyTorch version, bf16
+   and f32, both renorms, every ``emit``, at B 4, C 512, 8 heads:
+   self-attention at L 1,536 with ragged valid lengths and at L 1,506 + 30
+   with both parts' tails padded, one-query cross-attention into 1,536 keys
+   and an odd shape (Tq 200, Tk 700); the inputs hold masked keys, a fully
+   masked 64-key tile, all-zero graph rows and a fully masked sample;
+9. K5 and K6 (its backward: dQ, and dK with dV) on the same inputs against
+   their plain versions; in f32 also against torch.autograd of the eager
+   ``attention_core``;
+10. the obj+rel model at full width (``only_obj=False``, maxlen 1600,
+    hidden_size_mil 64, 310 relations, otherwise as above) serving five
+    requests of 4 questions at bucket (lv, ls, lq) = (36, 1506, 30), the
+    symbolic encoder at L 1,536: 12 K1 + 12 K4 + 24 K3 launches per forward
+    counted, finite answers, f32 kernels against plain versions; one request
+    of 8 as information;
+11. obj+rel training (dropout 0.5, Adam at lr 1e-4, bs 4): one warm-up and
+    five timed steps, 12 K1 + 12 K2 + 12 K4 + 12 K5 + 12 K6 + 24 K3 launches
+    per step counted, finite losses, none skipped, ``MIL_NCE.R`` moved; one
+    f32 step with the kernels against one with the plain versions; a step
+    with ``remat_blocks`` against one without (same loss and gradients) and
+    the peak memory of both; the device-time breakdown of a step and of a
+    request.
 
-It prints one JSON line of kernels, the card's line, and last
+``--phases a,b`` (of card, k1, k3, k2, serving, training, k4, k56,
+objrel_serving, objrel_training) runs only those, for work on one kernel,
+and then prints no last line. It prints one JSON line of kernels, the card's line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero without
 that last line; so does a machine without a CUDA device.
 """
@@ -87,6 +111,19 @@ K2_PER_STEP = 24      # the backward of every K1 launch
 # the reference MIL_NCE), and the decoder's 1-token self-attention never
 # reads its Q and K projections (softmax over one key is 1)
 NO_GRAD_PARAMS = r"^MIL_NCE\.marco_mlp\.|\.dec_self_attention_\d+\.[QK]_proj\."
+# the obj+rel point: bs 4, bucket (lv, ls, lq) = (36, 1506, 30). The visual
+# encoder runs at L 66 (K1, K2), the symbolic one at L 1,536 (K4, K5, K6)
+REL_B, REL_LV, REL_LS, REL_LQ = 4, 36, 1506, 30
+REL_L = REL_LS + REL_LQ
+REL_FORWARD = {"K1": 12, "K4": 12, "K3": 24, "K2": 0, "K5": 0, "K6": 0}
+REL_STEP = {"K1": 12, "K2": 12, "K4": 12, "K5": 12, "K6": 12, "K3": 24}
+# with remat_blocks each of the 12 encoder blocks runs its forward once more
+REL_STEP_REMAT = {"K1": 18, "K2": 12, "K4": 18, "K5": 12, "K6": 12, "K3": 36}
+# K4's statistics m, z, b (f32 on both sides, sums in another order), and a
+# remat step against a plain one (the same kernels; only the embedding
+# tables' gradients are summed with atomics, in an order that can change)
+STATS_TOL = 1e-4
+REMAT_TOL = 1e-5
 
 failures: list = []
 
@@ -125,13 +162,19 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# (label, Tq, Tk, batch): the obj-only shapes at bs 128, then the obj+rel
+# model's visual branch at bs 4 (20 blocks of K1 on 132 SMs)
+K1_SHAPES = (("self L=66", 66, 66, B), ("self L=128", 128, 128, B),
+             ("cross Tq=1 Lk=66", 1, 66, B), ("cross Tq=1 Lk=128", 1, 128, B),
+             ("self L=66 B=4", 66, 66, REL_B), ("cross Tq=1 Lk=66 B=4", 1, 66, REL_B))
+
+
 def k1_phase(gen) -> dict:
     from structured_alignment_vqa_tpu_torch.ops import fused_graph_attention as k1
 
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
-        for label, tq, tk in (("self L=66", 66, 66), ("self L=128", 128, 128),
-                              ("cross Tq=1 Lk=66", 1, 66), ("cross Tq=1 Lk=128", 1, 128)):
+        for label, tq, tk, B in K1_SHAPES:
             dev = "cuda"
             n_keys = torch.randint(1, tk + 1, (B,), generator=gen, device=dev)
             key_mask = (torch.arange(tk, device=dev)[None] < n_keys[:, None]).float()
@@ -168,7 +211,7 @@ def k3_phase(gen) -> dict:
 
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
-        for n in (16384, 8448, 128):
+        for n in (16384, 8448, 128, REL_B * REL_L, REL_B * (REL_LV + REL_LQ), REL_B):
             dev = "cuda"
             x = torch.randn(n, C, generator=gen, device=dev).to(dtype)
             w1 = (torch.randn(HIDDEN, C, generator=gen, device=dev) / C ** 0.5).to(dtype)
@@ -195,7 +238,7 @@ def k3_phase(gen) -> dict:
     return {r["label"] + str(r["dtype"]): r for r in rows}
 
 
-def k2_inputs(gen, tq: int, tk: int, dtype):
+def k2_inputs(gen, tq: int, tk: int, dtype, B: int = B):
     """K1's arguments and a dy at (B, Tq, Tk, C): masked keys and, for
     self-attention, the first third of the rows with an all-zero graph
     (as the encoder's stage-1 graph on its modality rows)."""
@@ -228,9 +271,8 @@ def k2_phase(gen) -> dict:
     names = ("dq", "dk", "dv", "dresidual", "dgamma", "dbeta")
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
-        for label, tq, tk in (("self L=66", 66, 66), ("self L=128", 128, 128),
-                              ("cross Tq=1 Lk=66", 1, 66), ("cross Tq=1 Lk=128", 1, 128)):
-            args, dy = k2_inputs(gen, tq, tk, dtype)
+        for label, tq, tk, B in K1_SHAPES:
+            args, dy = k2_inputs(gen, tq, tk, dtype, B)
             err = rel = 0.0
             for renorm in ("l1", "sum_eps"):
                 got = k1.fused_graph_attention_ln_bwd(*args, dy, HEADS, renorm)
@@ -268,36 +310,216 @@ def k2_phase(gen) -> dict:
     return {r["label"] + str(r["dtype"]): r for r in rows}
 
 
+# (label, Tq, Tk): the symbolic encoder's self-attention, the decoder's one
+# query into it, and a shape that fills no tile
+FLASH_SHAPES = (("self L=1536", REL_L, REL_L), ("self L=1506+30", REL_L, REL_L),
+                ("cross Tq=1 Lk=1536", 1, REL_L), ("odd Tq=200 Tk=700", 200, 700))
+
+
+def flash_inputs(gen, label: str, tq: int, tk: int, dtype):
+    """K4's arguments at (REL_B, Tq, Tk, C), as the model makes them: keys
+    valid up to a ragged length per sample ("1506+30": both the modality
+    part and the question part end in padding), keys 64-127 of sample 1
+    masked as a whole tile, every key (and query) of the last sample masked,
+    and the first third of the self-attention rows with an all-zero graph
+    (the encoder's stage-1 graph on its modality rows)."""
+    dev = "cuda"
+    b = REL_B
+    pos = torch.arange(tk, device=dev)[None]
+    if label == "self L=1506+30":
+        n_mod = torch.randint(REL_LS * 3 // 5, REL_LS + 1, (b, 1), generator=gen, device=dev)
+        n_q = torch.randint(1, REL_LQ + 1, (b, 1), generator=gen, device=dev)
+        key_mask = ((pos < n_mod) | ((pos >= REL_LS) & (pos < REL_LS + n_q))).float()
+    else:
+        n_keys = torch.randint(tk // 2, tk + 1, (b, 1), generator=gen, device=dev)
+        key_mask = (pos < n_keys).float()
+    key_mask[1, 64:128] = 0.0
+    key_mask[b - 1] = 0.0
+    query_mask = key_mask.clone() if tq == tk else torch.ones(b, tq, device=dev)
+    graph = (torch.rand(b, tq, tk, generator=gen, device=dev) < 0.3).float()
+    if tq == tk:
+        graph[:, : tq // 3] = 0.0
+    q, k, v = (torch.relu(torch.randn(b, t, C, generator=gen, device=dev)).to(dtype)
+               for t in (tq, tk, tk))
+    # padding rows of the model are relu(bias), not 0: nothing is zeroed here
+    return q, k, v, key_mask, query_mask, graph
+
+
+def k4_phase(gen) -> dict:
+    from structured_alignment_vqa_tpu_torch.ops import flash_graph_attention as fl
+
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, tq, tk in FLASH_SHAPES:
+            args = flash_inputs(gen, label, tq, tk, dtype)
+            err = 0.0
+            for renorm in ("l1", "sum_eps"):
+                for emit in fl.EMITS:
+                    got = fl.flash_graph_attention(*args, HEADS, renorm, emit)
+                    want = fl.flash_graph_attention_plain(*args, HEADS, renorm, emit)
+                    torch.cuda.synchronize()
+                    if emit == "out":
+                        got, want = (got,), (want,)
+                    names = ("a" if emit == "partial" else "out", "m", "z", "b")
+                    for name, g, w in zip(names, got, want):
+                        finite = bool(torch.isfinite(g.float()).all())
+                        if name == "out":
+                            e = (g.float() - w.float()).abs().max().item()
+                            err = max(err, e)
+                            ok, tol, how = e <= TOL[dtype], TOL[dtype], "max|kernel-plain|"
+                        elif name == "m":   # the fill value on fully masked rows, else O(10)
+                            e = (g - w).abs().max().item()
+                            ok, tol, how = e <= 1e-3, 1e-3, "max|kernel-plain|"
+                        else:   # f32 outputs; a carries weights rounded to V's dtype
+                            e = rel_err(g, w)
+                            tol = K2_TOL[dtype] if name == "a" else STATS_TOL
+                            ok, how = e <= tol, "max|kernel-plain|/max|plain|"
+                        check(ok and finite, f"K4 {label} {dtype} {renorm} emit={emit} {name}: "
+                              f"{how} {e:.3g} <= {tol:g}")
+            ms = time_ms(lambda: fl.flash_graph_attention(*args, HEADS, "l1"))
+            stats_ms = time_ms(lambda: fl.flash_graph_attention(*args, HEADS, "l1", "stats"))
+            plain_ms = time_ms(lambda: fl.flash_graph_attention_plain(*args, HEADS, "l1"), iters=5)
+            # reads q (Tq), k and v (Tk); writes out (Tq)
+            size = torch.finfo(dtype).bits // 8
+            nbytes = size * REL_B * C * (2 * tq + 2 * tk) + 4 * REL_B * (tq * tk + tq + tk)
+            bound_ms, bound_by = bound(nbytes, 4.0 * REL_B * tq * tk * C, dtype)
+            library_ms, library_err = sdpa_yardstick(args)
+            print(f"K4 {label} {dtype}: kernel {ms:.4f} ms (emit=stats {stats_ms:.4f}), plain "
+                  f"{plain_ms:.4f} ms, SDPA with the graph as a boolean mask {library_ms:.4f} ms "
+                  f"(max|K4 - SDPA| on rows with a neighbour {library_err:.3g}), bound "
+                  f"{bound_ms * 1e3:.2f} us ({bound_by})", flush=True)
+            rows.append(dict(label=label, dtype=dtype, err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
+            del args
+            torch.cuda.empty_cache()
+    return {r["label"] + str(r["dtype"]): r for r in rows}
+
+
+def sdpa_yardstick(args) -> tuple:
+    """One library call beside K4, timed and used nowhere in the port:
+    ``scaled_dot_product_attention`` with ``graph > 0 and key unmasked`` as a
+    boolean mask. For a 0/1 graph it is K4's l1 output on every row that has
+    an unmasked neighbour (the renorm of softmax x graph is the softmax over
+    the neighbours); on other rows it gives NaN where K4 gives 0 or the
+    fill-value average. Returns (ms, max |K4 - SDPA| over the rows both
+    define)."""
+    import torch.nn.functional as F
+
+    from structured_alignment_vqa_tpu_torch.ops import flash_graph_attention as fl
+
+    q, k, v, key_mask, query_mask, graph = args
+    b, tq, c = q.shape
+    dh = c // HEADS
+    qh, kh, vh = (t.reshape(b, t.shape[1], HEADS, dh).transpose(1, 2) for t in (q, k, v))
+    mask = ((graph > 0) & (key_mask[:, None, :] > 0))[:, None]
+    call = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+    ms = time_ms(call)
+    lib = call().transpose(1, 2).reshape(b, tq, c).float()
+    ours = fl.flash_graph_attention(*args, HEADS, "l1").float()
+    rows = mask[:, 0].any(dim=-1) & (query_mask > 0)
+    err = (lib - ours)[rows].abs().max().item() if bool(rows.any()) else 0.0
+    return ms, err
+
+
+def k56_phase(gen) -> dict:
+    from structured_alignment_vqa_tpu_torch.ops import attention
+    from structured_alignment_vqa_tpu_torch.ops import flash_graph_attention as fl
+
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, tq, tk in FLASH_SHAPES:
+            args = flash_inputs(gen, label, tq, tk, dtype)
+            q, k, v, key_mask, query_mask, graph = args
+            dy = torch.randn(REL_B, tq, C, generator=gen, device="cuda").to(dtype)
+            errs = {"K5": 0.0, "K6": 0.0}
+            abs_errs = {"K5": 0.0, "K6": 0.0}
+            for renorm in ("sum_eps", "l1"):      # l1 last: the timings below use its inputs
+                out, m, z, bsum = fl.flash_graph_attention(*args, HEADS, renorm, "stats")
+                d_out, delta = fl.masked_grad_and_delta(out, dy, query_mask, HEADS)
+                bwd = (q, k, v, key_mask, graph, m, z, bsum, delta, d_out, HEADS, renorm)
+                got = (fl.flash_bwd_dq(*bwd), *fl.flash_bwd_dkv(*bwd))
+                want = (fl.flash_bwd_dq_plain(*bwd), *fl.flash_bwd_dkv_plain(*bwd))
+                torch.cuda.synchronize()
+                for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                    e = rel_err(g, w)
+                    key = "K5" if name == "dq" else "K6"
+                    errs[key] = max(errs[key], e)
+                    abs_errs[key] = max(abs_errs[key], (g.float() - w.float()).abs().max().item())
+                    check(e <= K2_TOL[dtype] and bool(torch.isfinite(g.float()).all()),
+                          f"{key} {label} {dtype} {renorm} {name}: max|kernel-plain|/max|plain| "
+                          f"{e:.3g} <= {K2_TOL[dtype]:g}")
+                del want
+                if dtype == torch.float32:
+                    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+                    ref, _ = attention.attention_core(*leaves, key_mask, query_mask, HEADS,
+                                                      graph=graph, renorm=renorm)
+                    auto = torch.autograd.grad(ref, leaves, dy)
+                    e = max(rel_err(g, a) for g, a in zip(got, auto))
+                    check(e <= K2_AUTOGRAD_TOL,
+                          f"K5/K6 {label} f32 {renorm}: max|kernel-autograd|/max|autograd| "
+                          f"{e:.3g} <= {K2_AUTOGRAD_TOL:g}")
+                    del leaves, ref, auto
+            size = torch.finfo(dtype).bits // 8
+            stats_bytes = 4 * REL_B * (tq * tk + tk + 4 * HEADS * tq)
+            for key, fn, plain, n_products, nbytes in (
+                # K5 reads q, dO (Tq), k, v (Tk), writes dq (Tq); three products
+                ("K5", fl.flash_bwd_dq, fl.flash_bwd_dq_plain, 3,
+                 size * REL_B * C * (3 * tq + 2 * tk) + stats_bytes),
+                # K6 reads the same, writes dk and dv (Tk); four products
+                ("K6", fl.flash_bwd_dkv, fl.flash_bwd_dkv_plain, 4,
+                 size * REL_B * C * (2 * tq + 4 * tk) + stats_bytes),
+            ):
+                ms = time_ms(lambda: fn(*bwd))
+                plain_ms = time_ms(lambda: plain(*bwd), iters=5)
+                bound_ms, bound_by = bound(nbytes, 2.0 * n_products * REL_B * tq * tk * C, dtype)
+                print(f"{key} {label} {dtype}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                      f"bound {bound_ms * 1e3:.2f} us ({bound_by})", flush=True)
+                rows.append(dict(kernel=key, label=label, dtype=dtype, err=abs_errs[key],
+                                 rel_err=errs[key], ms=ms,
+                                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by))
+            del args, bwd, got
+            torch.cuda.empty_cache()
+    return {r["kernel"] + r["label"] + str(r["dtype"]): r for r in rows}
+
+
 @contextlib.contextmanager
 def plain_path():
     """Replace each kernel wrapper, where the model calls it, by its plain
     PyTorch version: the same model then runs without a kernel on the same
-    CUDA tensors, and autograd of the plain graph attention takes K2's place
-    in the backward. The package has no such switch; only this comparison
-    does."""
+    CUDA tensors, and autograd of the plain graph attentions takes the place
+    of K2, K5 and K6 in the backward. The package has no such switch; only
+    this comparison does."""
     from structured_alignment_vqa_tpu_torch.ops import attention, fused_ffn
+    from structured_alignment_vqa_tpu_torch.ops.flash_graph_attention import (
+        flash_graph_attention_plain,
+    )
     from structured_alignment_vqa_tpu_torch.ops.fused_graph_attention import (
         graph_attention_ln_plain,
     )
 
     with mock.patch.object(attention, "fused_graph_attention_ln", graph_attention_ln_plain), \
+            mock.patch.object(attention, "flash_graph_attention", flash_graph_attention_plain), \
             mock.patch.object(fused_ffn, "fused_ffn", fused_ffn.ffn_ln_plain):
         yield
 
 
-def launch_counts() -> dict:
+def counted_wrappers() -> dict:
+    """The wrapper that counts each kernel's launches."""
+    from structured_alignment_vqa_tpu_torch.ops import flash_graph_attention as fl
     from structured_alignment_vqa_tpu_torch.ops import fused_ffn, fused_graph_attention as k1
 
-    return {"K1": k1.fused_graph_attention_ln.launches,
-            "K2": k1.fused_graph_attention_ln_bwd.launches, "K3": fused_ffn.fused_ffn.launches}
+    return {"K1": k1.fused_graph_attention_ln, "K2": k1.fused_graph_attention_ln_bwd,
+            "K3": fused_ffn.fused_ffn, "K4": fl.flash_graph_attention, "K5": fl.flash_bwd_dq,
+            "K6": fl.flash_bwd_dkv}
+
+
+def launch_counts() -> dict:
+    return {key: fn.launches for key, fn in counted_wrappers().items()}
 
 
 def reset_launch_counts() -> None:
-    from structured_alignment_vqa_tpu_torch.ops import fused_ffn, fused_graph_attention as k1
-
-    k1.fused_graph_attention_ln.launches = 0
-    k1.fused_graph_attention_ln_bwd.launches = 0
-    fused_ffn.fused_ffn.launches = 0
+    for fn in counted_wrappers().values():
+        fn.launches = 0
 
 
 def profile_device(fn, what: str) -> None:
@@ -321,13 +543,17 @@ def profile_device(fn, what: str) -> None:
         n, us = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
     busy = sum(us for _, us in by_name.values())
-    groups = {"K1 graph_attention_ln": 0.0, "K2 graph_attention_ln_bwd": 0.0, "K3 ffn_ln": 0.0,
-              "gemm": 0.0, "other": 0.0}
+    markers = (("K2 graph_attention_ln_bwd", "graph_attention_ln_bwd_"),
+               ("K1 graph_attention_ln", "graph_attention_ln_kernel"),
+               ("K3 ffn_ln", "ffn_ln_"),
+               ("K5 flash_graph_attention_bwd_dq", "flash_graph_attention_bwd_dq"),
+               ("K6 flash_graph_attention_bwd_dkv", "flash_graph_attention_bwd_dkv"),
+               ("K4 flash_graph_attention", "flash_graph_attention_kernel"))
+    groups = {key: 0.0 for key, _ in markers}
+    groups.update(gemm=0.0, other=0.0)
     for name, (_, us) in by_name.items():
-        key = ("K2 graph_attention_ln_bwd" if "graph_attention_ln_bwd_" in name
-               else "K1 graph_attention_ln" if "graph_attention_ln_kernel" in name
-               else "K3 ffn_ln" if "ffn_ln_" in name
-               else "gemm" if "gemm" in name.lower() else "other")
+        key = next((key for key, mark in markers if mark in name),
+                   "gemm" if "gemm" in name.lower() else "other")
         groups[key] += us
     print(f"profile: {what}, wall {wall_us / 1e3:.3f} ms (profiler on), device busy "
           f"{busy / 1e3:.3f} ms, idle share {1 - busy / wall_us:.3f}, {len(kernels)} kernels")
@@ -378,7 +604,8 @@ def serving_phase(card: str) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = launch_counts()
-    for key, per in (("K1", K1_PER_FORWARD), ("K3", K3_PER_FORWARD), ("K2", 0)):
+    for key, per in (("K1", K1_PER_FORWARD), ("K3", K3_PER_FORWARD), ("K2", 0), ("K4", 0),
+                     ("K5", 0), ("K6", 0)):
         check(launches[key] == per * REQUESTS,
               f"serving: {key} launched {launches[key]} times in {REQUESTS} forwards "
               f"(want {per} each)")
@@ -437,53 +664,84 @@ def same_snapshot(a: list, b: list) -> bool:
         torch.equal(x, y) if torch.is_tensor(x) else x == y for x, y in zip(a, b))
 
 
-def f32_step_against_plain() -> None:
-    """One f32 training step at full width with the kernels and one with the
-    plain versions, from the same weights and the same generator seed (so
-    the same dropout masks): the loss and every parameter's gradient."""
+def one_step(cfg, batch, plain: bool = False, seed: int = 3) -> tuple:
+    """One training step from the weights of ``seed`` and a fixed dropout
+    generator: (loss, {name: gradient}, launches by kernel)."""
     from structured_alignment_vqa_tpu_torch.parallel import TrainState, adam, make_train_step
 
-    cfg = full_config(compute_dtype=torch.float32)
-    batch = full_batches(cfg, 1)[0]
-    grads, losses = [], []
-    for plain in (False, True):
-        model = random_model(cfg, seed=3)
-        opt = adam(model.parameters(), lr=1e-4)
-        step = make_train_step(model, opt, cfg)
-        gen = torch.Generator(device="cuda").manual_seed(11)
-        before = launch_counts()
-        with plain_path() if plain else contextlib.nullcontext():
-            metrics = step(TrainState(model, opt), batch, gen)
-        torch.cuda.synchronize()
-        moved = {k: launch_counts()[k] - before[k] for k in before}
-        want = {k: 0 for k in moved} if plain else {"K1": K1_PER_FORWARD, "K2": K2_PER_STEP,
-                                                    "K3": K3_PER_FORWARD}
-        check(moved == want, f"train f32 {'plain' if plain else 'kernel'} step: launches "
-              f"{moved} == {want}")
-        losses.append(metrics["loss"].item())
-        grads.append({n: p.grad for n, p in model.named_parameters()})
-        del model, opt, step
-    err_loss = abs(losses[0] - losses[1]) / abs(losses[1])
-    check(err_loss <= LOSS_TOL_F32, f"train f32: loss kernel {losses[0]:.7g} plain {losses[1]:.7g}, "
-          f"relative difference {err_loss:.3g} <= {LOSS_TOL_F32:g}")
+    model = random_model(cfg, seed=seed)
+    opt = adam(model.parameters(), lr=1e-4)
+    step = make_train_step(model, opt, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    before = launch_counts()
+    with plain_path() if plain else contextlib.nullcontext():
+        metrics = step(TrainState(model, opt), batch, gen)
+    torch.cuda.synchronize()
+    moved = {k: launch_counts()[k] - before[k] for k in before}
+    return metrics["loss"].item(), {n: p.grad for n, p in model.named_parameters()}, moved
+
+
+def steady_step_memory(cfg, batch) -> tuple:
+    """Memory of a training step once Adam's moments exist: (bytes held
+    between steps: the parameters and the moments; peak bytes the second
+    step allocates on top of them: gradients and activations)."""
+    from structured_alignment_vqa_tpu_torch.parallel import TrainState, adam, make_train_step
+
+    model = random_model(cfg, seed=3)
+    opt = adam(model.parameters(), lr=1e-4)
+    state = TrainState(model, opt)
+    step = make_train_step(model, opt, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    step(state, batch, gen)
+    opt.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    kept = sum(p.numel() * p.element_size() for p in model.parameters())
+    kept += sum(t.numel() * t.element_size() for per_param in opt.state.values()
+                for t in per_param.values() if torch.is_tensor(t))
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    step(state, batch, gen)
+    torch.cuda.synchronize()
+    return kept, torch.cuda.max_memory_allocated() - held
+
+
+def compare_steps(what: str, a: tuple, b: tuple, loss_tol: float, grad_tol: float) -> None:
+    """The loss of step ``a`` relative to step ``b``'s, and each gradient by
+    the norm of its difference over its own norm."""
+    err_loss = abs(a[0] - b[0]) / abs(b[0])
+    check(err_loss <= loss_tol, f"{what}: loss {a[0]:.7g} against {b[0]:.7g}, "
+          f"relative difference {err_loss:.3g} <= {loss_tol:g}")
     errs = {}
-    for name, g in grads[0].items():
-        w = grads[1][name]
+    for name, g in a[1].items():
+        w = b[1][name]
         if g is None or w is None:
             if (g is None) != (w is None):
-                check(False, f"train f32: {name} has a gradient on one path only")
+                check(False, f"{what}: {name} has a gradient on one path only")
             continue
         norm = w.float().norm().item()
         diff = (g - w).float().norm().item()
         errs[name] = (diff / norm if norm > 0 else diff, rel_err(g, w),
                       bool(torch.isfinite(g).all()))
     worst = max(errs, key=lambda n: errs[n][0])
-    check(all(e[2] for e in errs.values()) and errs[worst][0] <= GRAD_TOL_F32,
-          f"train f32: {len(errs)} finite gradients, worst |kernel-plain|/|plain| "
-          f"{errs[worst][0]:.3g} ({worst}) <= {GRAD_TOL_F32:g}")
+    check(all(e[2] for e in errs.values()) and errs[worst][0] <= grad_tol,
+          f"{what}: {len(errs)} finite gradients, worst |difference|/|gradient| "
+          f"{errs[worst][0]:.3g} ({worst}) <= {grad_tol:g}")
     for name in sorted(errs, key=lambda n: -errs[n][0])[:4]:
         print(f"  {name}: norm-relative {errs[name][0]:.3g}, max-relative {errs[name][1]:.3g}",
               flush=True)
+
+
+def f32_step_against_plain(cfg, batch, want: dict, what: str = "train f32") -> None:
+    """One f32 training step at full width with the kernels and one with the
+    plain versions, from the same weights and the same generator seed (so
+    the same dropout masks): the loss and every parameter's gradient."""
+    kernel = one_step(cfg, batch)
+    check(kernel[2] == {**{k: 0 for k in kernel[2]}, **want},
+          f"{what} kernel step: launches {kernel[2]} == {want}")
+    plain = one_step(cfg, batch, plain=True)
+    check(not any(plain[2].values()), f"{what} plain step: launched no kernel ({plain[2]})")
+    compare_steps(f"{what}, kernels against plain versions", kernel, plain, LOSS_TOL_F32,
+                  GRAD_TOL_F32)
 
 
 def training_phase(card: str) -> dict:
@@ -506,7 +764,8 @@ def training_phase(card: str) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = launch_counts()
-    for key, per in (("K1", K1_PER_FORWARD), ("K2", K2_PER_STEP), ("K3", K3_PER_FORWARD)):
+    for key, per in (("K1", K1_PER_FORWARD), ("K2", K2_PER_STEP), ("K3", K3_PER_FORWARD),
+                     ("K4", 0), ("K5", 0), ("K6", 0)):
         check(launches[key] == per * TRAIN_STEPS,
               f"train: {key} launched {launches[key]} times in {TRAIN_STEPS} steps "
               f"(want {per} each)")
@@ -527,7 +786,9 @@ def training_phase(card: str) -> dict:
     del model, opt, state, step
     torch.cuda.empty_cache()
 
-    f32_step_against_plain()
+    cfg32 = full_config(compute_dtype=torch.float32)
+    f32_step_against_plain(cfg32, full_batches(cfg32, 1)[0],
+                           {"K1": K1_PER_FORWARD, "K2": K2_PER_STEP, "K3": K3_PER_FORWARD})
     torch.cuda.empty_cache()
 
     # overfit one batch without dropout; then a poisoned batch is skipped
@@ -552,14 +813,245 @@ def training_phase(card: str) -> dict:
     return launches
 
 
-def main() -> int:
+def rel_config(**kw):
+    """The production obj+rel point: ``only_obj=False``, maxlen 1600,
+    hidden_size_mil 64, 310 relation categories; the rest as ``full_config``."""
+    return full_config(only_obj=False, maxlen=1600, hidden_size_mil=64, **kw)
+
+
+def rel_batches(cfg, n: int, batch: int = REL_B):
+    """Synthetic obj+rel batches at bucket (lv, ls, lq) = (36, 1506, 30).
+    ``synthetic_arrays`` gives each sample at most 74 macro nodes; a scene
+    graph with relations has many more, so each sample's macro nodes are
+    extended to 900-1,506 (ids, validity square and a sparse adjacency,
+    from the seed) and the relation records stay as drawn (32 slots)."""
+    import numpy as np
+
+    from structured_alignment_vqa_tpu_torch.data.synthetic import (
+        batch_from_arrays,
+        synthetic_arrays,
+    )
+
+    out = []
+    for seed in range(n):
+        arrays = synthetic_arrays(cfg, batch, lv=REL_LV, lq=REL_LQ, ls=REL_LS, n_rel=32, seed=seed)
+        rng = np.random.default_rng(1000 + seed)
+        for i in range(batch):
+            had = int(arrays["macro_mask"][i, :, 0].sum())
+            n_macro = int(rng.integers(REL_LS * 3 // 5, REL_LS + 1))
+            arrays["macro_ipt"][i, had:n_macro] = rng.integers(1, cfg.vocab_size - 4,
+                                                               size=n_macro - had)
+            arrays["macro_mask"][i, :n_macro, :n_macro] = 1
+            arrays["macro_graph"][i, :n_macro, :n_macro] = rng.random((n_macro, n_macro)) < 0.02
+        out.append(batch_from_arrays(arrays))
+    return out
+
+
+def rel_serving_phase(card: str) -> dict:
+    from structured_alignment_vqa_tpu_torch.train.predict import make_predict_step
+
+    cfg = rel_config()
+    model = random_model(cfg)
+    batches = rel_batches(cfg, REQUESTS)
+    predict = make_predict_step(model)
+    predict(batches[0])          # warm-up request
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    answers = [predict(b) for b in batches]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    for key, per in REL_FORWARD.items():
+        check(launches[key] == per * REQUESTS,
+              f"obj+rel serving: {key} launched {launches[key]} times in {REQUESTS} forwards "
+              f"(want {per} each)")
+    ok = all(a.shape == (REL_B,) and int(a.min()) >= 0 and int(a.max()) < cfg.num_classes
+             for a in answers)
+    check(ok, f"obj+rel serving: {REQUESTS} x {REL_B} answers in [0, {cfg.num_classes})")
+    print(f"obj+rel serving bf16 bs {REL_B}: {REQUESTS} requests in {seconds:.4f} s = "
+          f"{REQUESTS * REL_B / seconds:.1f} pairs/s, {seconds / REQUESTS * 1e3:.2f} ms per "
+          f"request on {card} (information only)", flush=True)
+    profile_device(lambda: predict(batches[0]), f"one obj+rel bs-{REL_B} request")
+
+    with torch.inference_mode():
+        lc, lv, ls, mil_obj, mil_rel = model(batches[0])
+    check(all(torch.isfinite(t.float()).all().item() for t in (lc, lv, ls, mil_obj, mil_rel))
+          and lc.shape == (REL_B, cfg.num_classes) and mil_rel.item() != 0.0,
+          f"obj+rel serving bf16: finite logits of shape ({REL_B}, {cfg.num_classes}), "
+          f"mil_rel {mil_rel.item():.5f}")
+
+    wide = rel_batches(cfg, 1, batch=2 * REL_B)[0]
+    predict(wide)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(REQUESTS):
+        predict(wide)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    print(f"obj+rel serving bf16 bs {2 * REL_B}: {REQUESTS} requests in {seconds:.4f} s = "
+          f"{REQUESTS * 2 * REL_B / seconds:.1f} pairs/s on {card} (information only)", flush=True)
+    del wide
+
+    # the same weights in f32: kernels against plain versions, both on the card
+    model32 = random_model(cfg.replace(compute_dtype=torch.float32))
+    model32.load_state_dict(model.state_dict())
+    predict32 = make_predict_step(model32)
+    with torch.inference_mode():
+        kernel_out = model32.eval()(batches[0])
+        kernel_answers = predict32(batches[0])
+        before = launch_counts()
+        with plain_path():
+            plain_out = model32(batches[0])
+            plain_answers = predict32(batches[0])
+        check(before == launch_counts(), "obj+rel serving: the plain path launched no kernel")
+    diff = max((a - b).abs().max().item() for a, b in zip(kernel_out[:3], plain_out[:3]))
+    finite = all(torch.isfinite(t).all().item() for t in kernel_out)
+    check(finite and diff <= LOGIT_TOL_F32,
+          f"obj+rel serving f32: max|logits kernel - plain| {diff:.3g} <= {LOGIT_TOL_F32:g}")
+    same = (kernel_answers == plain_answers).float().mean().item()
+    check(same == 1.0, f"obj+rel serving f32: answers kernel == plain for {same:.4f} of {REL_B}")
+    return launches
+
+
+def rel_training_phase(card: str) -> dict:
+    from structured_alignment_vqa_tpu_torch.parallel import TrainState, adam, make_train_step
+
+    cfg = rel_config()
+    model = random_model(cfg)
+    opt = adam(model.parameters(), lr=1e-4)
+    state = TrainState(model, opt)
+    step = make_train_step(model, opt, cfg)
+    batches = rel_batches(cfg, TRAIN_STEPS)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    step(state, batches[0], gen)           # warm-up step
+    torch.cuda.synchronize()
+    before = [p.detach().clone() for p in model.parameters()]
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = [step(state, b, gen) for b in batches]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    for key, per in REL_STEP.items():
+        check(launches[key] == per * TRAIN_STEPS,
+              f"obj+rel train: {key} launched {launches[key]} times in {TRAIN_STEPS} steps "
+              f"(want {per} each)")
+    losses = [m["loss"].item() for m in metrics]
+    skipped = sum(m["skipped"].item() for m in metrics)
+    check(all(torch.isfinite(torch.tensor(losses))) and skipped == 0,
+          f"obj+rel train bf16: losses {['%.5f' % x for x in losses]} finite, {skipped:g} skipped")
+    still = sorted(n for (n, p), a in zip(model.named_parameters(), before) if torch.equal(a, p))
+    no_grad = sorted(n for n, p in model.named_parameters() if p.grad is None)
+    check(still == no_grad and all(re.search(NO_GRAD_PARAMS, n) for n in still)
+          and "MIL_NCE.R" not in still,
+          f"obj+rel train bf16: every parameter with a gradient moved, MIL_NCE.R among them; "
+          f"the {len(still)} without one are the detached MIL_NCE.marco_mlp and the decoder's "
+          "unused 1-token Q/K projections")
+    del before
+    print(f"obj+rel train bf16 bs {REL_B}: {TRAIN_STEPS} steps in {seconds:.4f} s = "
+          f"{TRAIN_STEPS / seconds:.3f} steps/s, {TRAIN_STEPS * REL_B / seconds:.1f} samples/s "
+          f"on {card} (information only)", flush=True)
+    profile_device(lambda: step(state, batches[0], gen), f"one obj+rel bs-{REL_B} training step")
+    del model, opt, state, step
+    torch.cuda.empty_cache()
+
+    cfg32 = rel_config(compute_dtype=torch.float32)
+    batch = batches[0]
+    f32_step_against_plain(cfg32, batch, REL_STEP, "obj+rel train f32")
+    torch.cuda.empty_cache()
+
+    # remat_blocks: the same step, each encoder block's forward run again in
+    # the backward; bf16, as training runs
+    plain_step = one_step(cfg, batch)
+    remat_step = one_step(cfg.replace(remat_blocks=True), batch)
+    check(remat_step[2] == REL_STEP_REMAT,
+          f"obj+rel train remat: launches {remat_step[2]} == {REL_STEP_REMAT}")
+    compare_steps("obj+rel train bf16, remat_blocks against none", remat_step, plain_step,
+                  REMAT_TOL, REMAT_TOL)
+    same = all(g is None or torch.equal(g, plain_step[1][n]) for n, g in remat_step[1].items())
+    print(f"obj+rel train bf16 bs {REL_B}: remat gradients bitwise equal to those without: "
+          f"{same} (information only)", flush=True)
+    del plain_step, remat_step
+    torch.cuda.empty_cache()
+    mib = 2.0 ** 20
+    for what, c in (("no remat", cfg), ("remat_blocks", cfg.replace(remat_blocks=True))):
+        held, extra = steady_step_memory(c, batch)
+        print(f"obj+rel train bf16 bs {REL_B}, {what}: {held / mib:.1f} MiB held between steps "
+              f"(parameters and Adam's moments), a step's peak {extra / mib:.1f} MiB on top "
+              f"(gradients and activations) on {card} (information only)", flush=True)
+        torch.cuda.empty_cache()
+    return launches
+
+
+PHASES = ("k1", "k3", "k2", "serving", "training", "k4", "k56", "objrel_serving",
+          "objrel_training")
+PORT = "structured_alignment_vqa_tpu_torch/csrc/"
+TPU = "structured_alignment_vqa_tpu/ops/"
+BF16 = str(torch.bfloat16)
+# key, name, source, TPU kernel, main path, row of its phase at the main
+# path's shape, that shape, tolerance of the row's comparison
+KERNELS = (
+    ("K1", "graph_attention_ln", "graph_attention.cu", "pallas_attention.py:55", "serving",
+     ("k1", "self L=128" + BF16), "bf16 B=128 L=128 C=512 H=8", TOL[torch.bfloat16]),
+    ("K2", "graph_attention_ln_bwd", "graph_attention_bwd.cu", "pallas_attention_bwd.py:53",
+     "training", ("k2", "self L=128" + BF16), "bf16 B=128 L=128 C=512 H=8",
+     K2_TOL[torch.bfloat16]),
+    ("K3", "ffn_ln", "ffn.cu", "pallas_ffn.py:27", "serving",
+     ("k3", "rows=16384" + BF16), "bf16 rows=16384 C=512 hidden=2048", TOL[torch.bfloat16]),
+    ("K4", "flash_graph_attention", "flash_graph_attention.cu", "pallas_flash_attention.py:78",
+     "objrel_serving", ("k4", "self L=1536" + BF16), "bf16 B=4 L=1536 C=512 H=8",
+     TOL[torch.bfloat16]),
+    ("K5", "flash_graph_attention_bwd_dq", "flash_graph_attention_bwd.cu",
+     "pallas_flash_attention.py:367", "objrel_training", ("k56", "K5self L=1536" + BF16),
+     "bf16 B=4 L=1536 C=512 H=8", K2_TOL[torch.bfloat16]),
+    ("K6", "flash_graph_attention_bwd_dkv", "flash_graph_attention_bwd.cu",
+     "pallas_flash_attention.py:398", "objrel_training", ("k56", "K6self L=1536" + BF16),
+     "bf16 B=4 L=1536 C=512 H=8", K2_TOL[torch.bfloat16]),
+)
+
+
+def kernel_lines(rows: dict, by_path: dict) -> list:
+    kernels = []
+    for key, name, src, replaces, path, (phase, row), shape, tol in KERNELS:
+        main_row = rows[phase][row]
+        mine = {k: r for k, r in rows[phase].items() if r.get("kernel", key) == key}
+        entry = {
+            "name": name, "route": "cuda", "source": PORT + src, "replaces": TPU + replaces,
+            "launches": by_path[path][key], "max_abs_err": main_row["err"],
+            "tolerance": tol, "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+            "library_ms": main_row.get("library_ms"), "shape": shape,
+            "launches_by_path": {p: counts[key] for p, counts in by_path.items()},
+        }
+        entry["max_abs_err_all_cases"] = max(r["err"] for r in mine.values())
+        if "rel_err" in main_row:   # held relative to each output's max
+            entry["max_rel_err"] = main_row["rel_err"]
+            entry["max_rel_err_all_cases"] = max(r["rel_err"] for r in mine.values())
+        kernels.append(entry)
+    return kernels
+
+
+def main(argv: list) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    phases = PHASES
+    if argv[:1] == ["--phases"] and len(argv) == 2:
+        phases = tuple(argv[1].split(","))
+        if not set(phases) <= set(PHASES):
+            print(f"chip_smoke: phases are {PHASES}", file=sys.stderr)
+            return 2
+    elif argv:
+        print("usage: chip_smoke.py [--phases a,b,...]", file=sys.stderr)
+        return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from structured_alignment_vqa_tpu_torch.ops import _build
 
+    t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card} ({torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda})", flush=True)
@@ -573,45 +1065,30 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    k1_rows = k1_phase(gen)
-    k3_rows = k3_phase(gen)
-    k2_rows = k2_phase(gen)
-    by_path = {"serving": serving_phase(card), "training": training_phase(card)}
+    kernel_phases = {"k1": k1_phase, "k3": k3_phase, "k2": k2_phase, "k4": k4_phase,
+                     "k56": k56_phase}
+    path_phases = {"serving": serving_phase, "training": training_phase,
+                   "objrel_serving": rel_serving_phase, "objrel_training": rel_training_phase}
+    rows, by_path = {}, {}
+    for phase in phases:
+        t0 = time.perf_counter()
+        if phase in kernel_phases:
+            rows[phase] = kernel_phases[phase](gen)
+        else:
+            by_path[phase] = path_phases[phase](card)
+        torch.cuda.empty_cache()
+        print(f"phase {phase}: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
 
-    main_rows = {"K1": (k1_rows, k1_rows["self L=128" + str(torch.bfloat16)]),
-                 "K2": (k2_rows, k2_rows["self L=128" + str(torch.bfloat16)]),
-                 "K3": (k3_rows, k3_rows["rows=16384" + str(torch.bfloat16)])}
-    kernels = []
-    for key, name, src, replaces, path, shape, tol in (
-        ("K1", "graph_attention_ln", "structured_alignment_vqa_tpu_torch/csrc/graph_attention.cu",
-         "structured_alignment_vqa_tpu/ops/pallas_attention.py:55", "serving",
-         "bf16 B=128 L=128 C=512 H=8", TOL[torch.bfloat16]),
-        ("K2", "graph_attention_ln_bwd",
-         "structured_alignment_vqa_tpu_torch/csrc/graph_attention_bwd.cu",
-         "structured_alignment_vqa_tpu/ops/pallas_attention_bwd.py:53", "training",
-         "bf16 B=128 L=128 C=512 H=8", K2_TOL[torch.bfloat16]),
-        ("K3", "ffn_ln", "structured_alignment_vqa_tpu_torch/csrc/ffn.cu",
-         "structured_alignment_vqa_tpu/ops/pallas_ffn.py:27", "serving",
-         "bf16 rows=16384 C=512 hidden=2048", TOL[torch.bfloat16]),
-    ):
-        rows, main_row = main_rows[key]
-        kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": by_path[path][key], "max_abs_err": main_row["err"],
-            "tolerance": tol, "ms": main_row["ms"],
-            "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
-            "bound_by": main_row["bound_by"], "library_ms": None, "shape": shape,
-            "max_abs_err_all_cases": max(r["err"] for r in rows.values()),
-            "launches_by_path": {p: counts[key] for p, counts in by_path.items()},
-        })
-        if "rel_err" in main_row:   # K2's tolerance is relative to each output's max
-            kernels[-1]["max_rel_err"] = main_row["rel_err"]
     if failures:
         print(f"chip_smoke: {len(failures)} check(s) failed:", file=sys.stderr)
         for f in failures:
             print("  " + f, file=sys.stderr)
         return 1
-    print(json.dumps({"kernels": kernels}))
+    if phases != PHASES:
+        print(f"chip_smoke: phases {phases} passed; run without arguments for the full check")
+        return 0
+    print(json.dumps({"kernels": kernel_lines(rows, by_path)}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -620,4 +1097,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,9 +1,9 @@
-"""AttModelX3, obj-only and unpacked (counterpart of the TPU package's
-``models/att_model_x3.py``).
+"""AttModelX3, obj-only and obj+rel, unpacked (counterpart of the TPU
+package's ``models/att_model_x3.py``).
 
 * ``VisualEncoder``   <- reference ``AttModel_vis_grid``
 * ``SymbolicEncoder`` <- reference ``AttModel_syb``
-* ``MILNCEModule``    <- reference ``MIL_NCE`` (object branch)
+* ``MILNCEModule``    <- reference ``MIL_NCE`` (object and relation branches)
 * ``AttModelX3``      <- reference ``AttModel`` with the concat head
 
 Modules carry the reference's torch state-dict names
@@ -19,6 +19,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from structured_alignment_vqa_tpu_torch.data.batch import VQABatch
 from structured_alignment_vqa_tpu_torch.device import resolve_device
@@ -34,7 +35,11 @@ from structured_alignment_vqa_tpu_torch.ops.layers import (
     Linear,
     linear_relu,
 )
-from structured_alignment_vqa_tpu_torch.ops.mil_nce import mil_nce_obj_objective
+from structured_alignment_vqa_tpu_torch.ops.mil_nce import (
+    compact_softmax_gather,
+    mil_nce_obj_objective,
+    mil_nce_rel_objective,
+)
 
 BOS_ID = 2  # decoder input token
 
@@ -134,6 +139,12 @@ class _Branch(nn.Module):
                 h, cfg.num_heads, dtype=dt, device=device))
             self.add_module(f"dec_feed_forward_{i}", FeedForward(h, (4 * h, h), dt, device))
 
+    def _enc_block(self, i: int, fea, graph):
+        """Encoder block ``i``: graph-guided self-attention, then the FFN.
+        It draws no dropout mask, so recomputing it replays no generator."""
+        fea = getattr(self, f"enc_self_attention_{i}")(fea, fea, fea, graph)
+        return getattr(self, f"enc_feed_forward_{i}")(fea)
+
     def forward(self, modality_fea, modality_mask, modality_graph, q_ids, q_graph, q_mask,
                 generator: Optional[torch.Generator] = None):
         cfg = self.cfg
@@ -158,8 +169,12 @@ class _Branch(nn.Module):
         for i in range(cfg.num_blocks):
             g = (graph_diag if i < cfg.stage1_blocks
                  else graph_cross if i < cfg.stage2_blocks else graph)
-            fea = getattr(self, f"enc_self_attention_{i}")(fea, fea, fea, g)
-            fea = getattr(self, f"enc_feed_forward_{i}")(fea)
+            if cfg.remat_blocks and torch.is_grad_enabled():
+                # keep only the block's input; its activations are computed
+                # again in the backward (the TPU package's nn.remat)
+                fea = checkpoint(self._enc_block, i, fea, g, use_reentrant=False)
+            else:
+                fea = self._enc_block(i, fea, g)
 
         dec_ids = torch.full((b, 1), BOS_ID, dtype=torch.long, device=fea.device)
         dec = self.dec_emb(dec_ids) + self.dec_positional_encoding(torch.zeros_like(dec_ids))
@@ -191,7 +206,8 @@ class SymbolicEncoder(_Branch):
 
 
 class MILNCEModule(nn.Module):
-    """Structured alignment, object branch: MIL-NCE grounding + super-node rewrite."""
+    """Structured alignment: MIL-NCE grounding + super-node rewrite, object
+    branch and, unless ``cfg.only_obj``, relation branch."""
 
     def __init__(self, cfg: ModelConfig, glove: Optional[GloVeEmbed] = None, device=None):
         super().__init__()
@@ -204,11 +220,18 @@ class MILNCEModule(nn.Module):
         self.vis_mlp = linear_relu(cfg.vis_fea_dim, h, dt, device)
         self.ipt_mlp = linear_relu(h, cfg.vis_fea_dim, dt, device)
         self.compute_dtype = dt
+        self.only_obj = cfg.only_obj
+        if not cfg.only_obj:
+            # one bilinear form per relation category, kept and used in float32
+            self.R = nn.Parameter(torch.empty(cfg.num_relations, h, h, device=device))
+            nn.init.xavier_normal_(self.R)
 
     def forward(self, vis_fea, macro_ipt, macro_obj_loc, micro_pos_obj, micro_neg_obj,
-                micro_obj_mask):
+                micro_obj_mask, micro_pos_rel=None, micro_pos_rel_loc=None,
+                micro_neg_rel_loc=None):
         """Returns ``(new_macro (B, Ls, vis_fea_dim), mil_obj, mil_rel)``;
-        ``mil_rel`` is 0 on the obj-only path."""
+        ``mil_rel`` is 0 on the obj-only path, which ignores the relation
+        arguments."""
         b, ls = macro_ipt.shape
         glove = self.syb_emb
 
@@ -233,8 +256,69 @@ class MILNCEModule(nn.Module):
         padded = torch.cat([new_macro, new_macro.new_zeros(b, 1, new_macro.shape[2])], dim=1)
         padded = padded.index_put((rows, safe_loc), new_obj_fea.to(padded.dtype))
         new_macro = padded[:, :ls]
-        mil_rel = torch.zeros((), dtype=torch.float32, device=mil_obj.device)
+        if self.only_obj:
+            mil_rel = torch.zeros((), dtype=torch.float32, device=mil_obj.device)
+        else:
+            new_macro, mil_rel = self._relation_branch(
+                new_macro, new_obj_fea, micro_pos_rel, micro_pos_rel_loc, micro_neg_rel_loc)
         return self.ipt_mlp(new_macro), mil_obj, mil_rel
+
+    def _relation_branch(self, new_macro, new_obj_fea, micro_pos_rel, micro_pos_rel_loc,
+                         micro_neg_rel_loc):
+        """Relation MIL-NCE + super-node relation rewrite (reference
+        ``AttModel_x3.py:382-439``).
+
+        The reference computes the full (B, num_relations, O, O) bilinear
+        tensor x_i^T R_r x_j and gathers a few entries; as in the TPU
+        package the entries are gathered first and contracted one by one.
+        Loc records are [obj_i, obj_j, rel_cat, macro_loc, micro_loc], -1 in
+        padding rows.
+        """
+        b, k = micro_pos_rel.shape
+        ls = new_macro.shape[1]
+        n_obj = new_obj_fea.shape[1]
+        n_rel = self.R.shape[0]
+        bi = torch.arange(b, device=new_macro.device)[:, None]
+
+        rel_fea = self.syb_mlp(self.syb_emb(micro_pos_rel))       # (B, K, h)
+
+        def gathered_bilinear(loc):
+            xi = new_obj_fea[bi, loc[..., 0].clamp(0, n_obj - 1)].float()   # (B, K, h)
+            xj = new_obj_fea[bi, loc[..., 1].clamp(0, n_obj - 1)].float()
+            r_k = self.R[loc[..., 2].clamp(0, n_rel - 1)]                   # (B, K, h, h)
+            return torch.einsum("bkh,bkhg,bkg->bk", xi, r_k, xj)
+
+        pos_valid = micro_pos_rel_loc[..., 3] >= 0
+        neg_valid = micro_neg_rel_loc[..., 3] >= 0
+        pos_scores = gathered_bilinear(micro_pos_rel_loc)
+        neg_scores = gathered_bilinear(micro_neg_rel_loc)
+        mil_rel = mil_nce_rel_objective(pos_scores.reshape(-1), pos_valid.reshape(-1),
+                                        neg_scores.reshape(-1), neg_valid.reshape(-1))
+
+        # zero every positive-relation macro row, then add the softmax-weighted
+        # relation embeddings; invalid records go to a spare row that is dropped
+        macro_loc = micro_pos_rel_loc[..., 3]
+        micro_loc = micro_pos_rel_loc[..., 4]
+        safe_loc = torch.where(pos_valid, macro_loc, torch.full_like(macro_loc, ls))
+        rows = bi.expand_as(safe_loc)
+        row_zero = new_macro.new_zeros(b, ls + 1).index_put(
+            (rows, safe_loc), new_macro.new_ones(()))[:, :ls]
+        new_macro = new_macro * (1.0 - row_zero[..., None])
+
+        weights = compact_softmax_gather(
+            pos_scores.reshape(-1), pos_valid.reshape(-1),
+            torch.where(pos_valid, micro_loc, torch.full_like(micro_loc, -1)).reshape(-1),
+        ).reshape(b, k)
+        contrib = weights[..., None].to(new_macro.dtype) * rel_fea[bi, micro_loc.clamp(0, k - 1)]
+        contrib = torch.where(pos_valid[..., None], contrib, torch.zeros_like(contrib))
+        # several records may name one macro row. Their contributions are
+        # summed in float32 (index_put with accumulate sorts the indices on
+        # the card, so the order and the bits are the same on every run) and
+        # rounded once; the rows they land on were zeroed just above.
+        added = torch.zeros(b, ls + 1, new_macro.shape[2], dtype=torch.float32,
+                            device=new_macro.device).index_put(
+            (rows, safe_loc), contrib.float(), accumulate=True)[:, :ls]
+        return new_macro + added.to(new_macro.dtype), mil_rel
 
 
 class _Head(nn.Sequential):
@@ -284,6 +368,7 @@ class AttModelX3(nn.Module):
         new_macro, mil_obj, mil_rel = self.MIL_NCE(
             batch.vis_fea, batch.macro_ipt, batch.macro_obj_loc,
             batch.micro_pos_obj, batch.micro_neg_obj, batch.micro_obj_mask,
+            batch.micro_pos_rel, batch.micro_pos_rel_loc, batch.micro_neg_rel_loc,
         )
         fea_vis = self.att_vis_grid(batch.vis_fea, batch.vis_mask, batch.q_ipt,
                                     batch.q_graph, batch.q_mask, generator)[:, 0]
@@ -299,15 +384,16 @@ class AttModelX3(nn.Module):
 def init_random_(model: nn.Module, generator: torch.Generator, noise: float = 0.05) -> None:
     """Random weights from ``generator``, off the LayerNorm knife edge.
 
-    Tables and matrices get a normal draw at xavier scale
-    (std sqrt(2 / (fan_in + fan_out))). Vectors get ``noise`` times a
+    Tables, matrices and the relation tensor get a normal draw at xavier
+    scale (std sqrt(2 / (fan_in + fan_out))). Vectors get ``noise`` times a
     standard normal on top of their init: LayerNorm gamma 1 + noise*N, beta
     and biases noise*N, so no post-LN row sums to exactly 0.
     ``generator`` must live on the parameters' device.
     """
     for name, p in model.named_parameters():
         draw = torch.randn(p.shape, generator=generator, device=p.device)
-        if p.dim() == 2:
-            p.copy_(draw * (2.0 / (p.shape[0] + p.shape[1])) ** 0.5)
+        if p.dim() >= 2:
+            fan_in, fan_out = nn.init._calculate_fan_in_and_fan_out(p)
+            p.copy_(draw * (2.0 / (fan_in + fan_out)) ** 0.5)
         else:
             p.copy_((1.0 if name.endswith("gamma") else 0.0) + noise * draw)

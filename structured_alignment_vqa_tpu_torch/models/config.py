@@ -6,7 +6,8 @@ counterpart: the port launches its kernels on every CUDA tensor and runs
 their plain versions on CPU tensors. ``mcb_out``, ``dropout_rate_mcb`` and
 ``seq_impl`` arrive with the MCB head and sequence parallelism.
 
-This slice serves the obj-only unpacked model. Settings it does not cover
+The port covers the unpacked model, obj-only and obj+rel (``only_obj=False``,
+with ``remat_blocks``). Settings it does not cover
 raise ``NotImplementedError`` naming the ROADMAP item that ports them
 (:meth:`ModelConfig.check_supported`).
 """
@@ -58,7 +59,7 @@ class ModelConfig:
 
     compute_dtype: torch.dtype = torch.float32
     share_glove: bool = False    # one GloVe table instead of three copies
-    remat_blocks: bool = False
+    remat_blocks: bool = False   # recompute each encoder block in the backward
     seq_axis: "str | None" = None
     int8_serving: bool = False
 
@@ -72,12 +73,10 @@ class ModelConfig:
             raise ValueError("stage boundaries must satisfy 0 < s1 <= s2 <= num_blocks")
 
     def check_supported(self) -> None:
-        """Raise for the settings this slice of the port does not cover."""
+        """Raise for the settings the port does not cover yet."""
         unsupported = (
             (self.int8_serving, "int8_serving (ROADMAP Queue 1 item 13)"),
             (self.use_mcb, "use_mcb (ROADMAP Queue 1 item 12)"),
-            (not self.only_obj, "only_obj=False (ROADMAP Queue 1 item 11)"),
-            (self.remat_blocks, "remat_blocks (ROADMAP Queue 1 item 11)"),
             (self.seq_axis is not None, "seq_axis (ROADMAP Queue 1 item 16)"),
         )
         for bad, what in unsupported:

@@ -71,12 +71,15 @@ def _branch_entries(src: str, num_blocks: int) -> List[Tuple[str, Tuple[str, ...
 
 
 def name_map(num_blocks: int) -> List[Tuple[str, Tuple[str, ...], bool]]:
-    """(torch name, JAX param path, transpose) of the obj-only concat-head model."""
+    """(torch name, JAX param path, transpose) of the concat-head model.
+    ``MIL_NCE.R`` exists only with ``only_obj=False``; a tree without it
+    gives a state_dict without it."""
     entries = _branch_entries("att_vis_grid", num_blocks) + _branch_entries("att_syb", num_blocks)
     entries.append(("MIL_NCE.syb_emb.weight", ("mil_nce", "syb_emb", "table"), False))
     for mod in ("marco_mlp", "syb_mlp", "vis_mlp", "ipt_mlp"):
         entries.append((f"MIL_NCE.{mod}.0.weight", ("mil_nce", mod, "kernel"), True))
         entries.append((f"MIL_NCE.{mod}.0.bias", ("mil_nce", mod, "bias"), False))
+    entries.append(("MIL_NCE.R", ("mil_nce", "R"), False))
     for head in ("cls", "cls_vis", "cls_syb"):
         entries.append((f"{head}.0.weight", (f"{head}_hidden", "kernel"), True))
         entries.append((f"{head}.0.bias", (f"{head}_hidden", "bias"), False))
@@ -97,8 +100,8 @@ def _get(tree: dict, path) -> Optional[np.ndarray]:
 def state_dict_from_jax(params: Dict, num_blocks: int) -> Dict[str, torch.Tensor]:
     """The port's state_dict (float32 CPU tensors) from a JAX ``params`` tree.
 
-    ``params`` is ``variables["params"]`` of the TPU package's obj-only
-    ``AttModelX3`` with the concat head.
+    ``params`` is ``variables["params"]`` of the TPU package's ``AttModelX3``
+    with the concat head, obj-only or obj+rel.
     """
     out: Dict[str, np.ndarray] = {}
     for tname, path, transpose in name_map(num_blocks):

@@ -21,7 +21,8 @@ from typing import Dict
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-SOURCES = ("graph_attention", "graph_attention_bwd", "ffn")
+SOURCES = ("graph_attention", "graph_attention_bwd", "ffn", "flash_graph_attention",
+           "flash_graph_attention_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

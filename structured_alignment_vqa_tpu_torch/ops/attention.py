@@ -10,10 +10,13 @@ head h owns channels [h*dh, (h+1)*dh); key and query masks are
 with -2^32+1; scores, softmax and renorm are float32.
 
 Dispatch: graph attention with an l1 or sum_eps renorm and no causal mask
-goes through
+goes, for any Tq, through
 :func:`~structured_alignment_vqa_tpu_torch.ops.fused_graph_attention.fused_graph_attention_ln`
-(the CUDA kernel on the card, its plain version on the CPU) for any Tq and
-Tk; everything else runs :func:`attention_core` in eager PyTorch. The
+while Tk <= ``MAX_KEYS`` (512), and above that through
+:func:`~structured_alignment_vqa_tpu_torch.ops.flash_graph_attention.flash_graph_attention`
+followed by the eager residual + LayerNorm (the CUDA kernels on the card,
+their plain versions on the CPU); everything else runs
+:func:`attention_core` in eager PyTorch. The
 1-token self-attention of the decoder computes no attention at all and
 reduces to ``query_mask * V(x)``.
 """
@@ -25,8 +28,10 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from structured_alignment_vqa_tpu_torch.ops.flash_graph_attention import flash_graph_attention
 from structured_alignment_vqa_tpu_torch.ops.fused_graph_attention import (
     L1_NORM_EPS,
+    MAX_KEYS,
     SUM_NORM_EPS,
     fused_graph_attention_ln,
 )
@@ -135,9 +140,15 @@ class _AttentionBase(nn.Module):
         q, k, v = self.Q_proj(queries), self.K_proj(keys), self.V_proj(values)
         key_mask, query_mask = content_mask(keys), content_mask(queries)
         if graph is not None and renorm is not None and not self.causality:
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+            graph = graph.float().contiguous()
+            if keys.shape[1] > MAX_KEYS:
+                # long sequences: the K-blocked kernels, then residual + LayerNorm
+                out = flash_graph_attention(q, k, v, key_mask, query_mask, graph,
+                                            self.num_heads, renorm)
+                return self._finish(out, queries)
             return fused_graph_attention_ln(
-                q.contiguous(), k.contiguous(), v.contiguous(), key_mask, query_mask,
-                graph.float().contiguous(), queries.to(q.dtype).contiguous(),
+                q, k, v, key_mask, query_mask, graph, queries.to(q.dtype).contiguous(),
                 self.normalization.gamma, self.normalization.beta, self.num_heads, renorm,
             )
 

@@ -1,0 +1,350 @@
+"""Flash-style (K-blocked) graph-guided attention for long sequences: the
+forward (K4) and its backward (K5: dQ, K6: dK and dV).
+
+Counterpart of the TPU package's ``ops/pallas_flash_attention.py``
+(``_kernel``, ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``, entry
+``flash_graph_attention``). :func:`fused_graph_attention_ln` holds a whole
+(rows, Tk) score tile on chip and takes at most 512 keys; the obj+rel
+model's symbolic encoder runs at 1,536. Here the keys stream past a running
+maximum m, and with
+
+    e_j = exp(s_j - m),  z = sum e_j,  b = sum e_j g_j,  a = sum e_j g_j v_j
+
+the softmax normaliser cancels between the weights and their renorm:
+
+    l1:      out = a / max(b, 1e-12 z)
+    sum_eps: out = a / (b + 1e-7 z)
+
+so one pass suffices and no (Tq, Tk) tensor reaches device memory. The
+backward recomputes score tiles from the saved per-row m, z, b (the formulas
+are in :func:`flash_graph_attention_bwd_plain`). Residual and LayerNorm are
+not part of these kernels; the attention module applies them.
+
+On CUDA tensors the wrappers launch the kernels of
+``csrc/flash_graph_attention.cu`` and ``csrc/flash_graph_attention_bwd.cu``;
+on CPU tensors they run the plain PyTorch versions beside them, which round
+where the kernels round. Keys are exactly the Tk given (the TPU wrapper pads
+them to its tile with masked keys, which add to z on rows whose real keys
+are all masked; ``out`` and the gradients are the same).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from structured_alignment_vqa_tpu_torch.ops import _build
+from structured_alignment_vqa_tpu_torch.ops.dispatch import use_kernel
+from structured_alignment_vqa_tpu_torch.ops.fused_graph_attention import (
+    L1_NORM_EPS,
+    RENORMS,
+    SUM_NORM_EPS,
+)
+from structured_alignment_vqa_tpu_torch.ops.layers import NEG_MASK_VALUE
+
+EMITS = ("out", "stats", "partial")
+MAX_HEAD_DIM = 128   # the kernels' register accumulators
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _heads(x, num_heads: int):
+    """(B, T, C) -> (B, H, T, C/H), head h owning channels [h*dh, (h+1)*dh)."""
+    b, t, c = x.shape
+    return x.reshape(b, t, num_heads, c // num_heads).transpose(1, 2)
+
+
+def _merge(x):
+    b, h, t, d = x.shape
+    return x.transpose(1, 2).reshape(b, t, h * d)
+
+
+def _masked_scores(q, k, key_mask, num_heads: int):
+    dh = q.shape[-1] // num_heads
+    scores = torch.matmul(_heads(q.float(), num_heads),
+                          _heads(k.float(), num_heads).transpose(-1, -2)) * (1.0 / dh ** 0.5)
+    return scores.masked_fill(key_mask[:, None, None, :] == 0, NEG_MASK_VALUE)
+
+
+def flash_graph_attention_plain(q, k, v, key_mask, query_mask, graph, num_heads: int,
+                                renorm: str = "l1", emit: str = "out"):
+    """Plain PyTorch version of K4.
+
+    ``emit="out"``: out (B, Tq, C) in q's dtype. ``"stats"``: ``(out, m, z,
+    b)`` with the per-row statistics (B, H, Tq) float32. ``"partial"``:
+    ``(a, m, z, b)`` with the raw accumulator a (B, H, Tq, C/H) float32, no
+    division and no query mask. The weights e*g are rounded to V's dtype
+    before they meet V, as in the kernel; sums are float32.
+    """
+    if renorm not in RENORMS:
+        raise ValueError(f"unknown renorm mode: {renorm!r}")
+    if emit not in EMITS:
+        raise ValueError(f"unknown emit mode: {emit!r}")
+    scores = _masked_scores(q, k, key_mask, num_heads)
+    m = scores.amax(dim=-1)
+    e = torch.exp(scores - m[..., None])
+    eg = e * graph.float()[:, None]
+    z, bsum = e.sum(dim=-1), eg.sum(dim=-1)
+    a = torch.matmul(eg.to(v.dtype).float(), _heads(v.float(), num_heads))
+    if emit == "partial":
+        return a, m, z, bsum
+    if renorm == "l1":
+        denom = torch.maximum(bsum, L1_NORM_EPS * z)
+    else:
+        denom = bsum + SUM_NORM_EPS * z
+    out = a / denom[..., None] * query_mask.float()[:, None, :, None]
+    out = _merge(out).to(q.dtype)
+    return out if emit == "out" else (out, m, z, bsum)
+
+
+def masked_grad_and_delta(out, dy, query_mask, num_heads: int):
+    """What the backward kernels take in place of dy: ``dO = dy * query_mask``
+    in float32, ``delta = sum_dh(dO * out)`` per (batch, head, row) from that
+    float32 dO, and only then dO rounded to out's dtype."""
+    d_out = dy.float() * query_mask.float()[:, :, None]
+    delta = _heads(d_out * out.float(), num_heads).sum(dim=-1)
+    return d_out.to(out.dtype).contiguous(), delta.contiguous()
+
+
+def _ds_and_n(q, k, v, key_mask, graph, m, z, bsum, delta, d_out, num_heads: int, renorm: str):
+    """The (B, H, Tq, Tk) tiles of the backward: dS (scaled, 0 on masked
+    keys) and the renormalised weights n, from the saved statistics."""
+    dh = q.shape[-1] // num_heads
+    scores = _masked_scores(q, k, key_mask, num_heads)
+    e = torch.exp(scores - m[..., None])
+    zc, bc, dc = z[..., None], bsum[..., None], delta[..., None]
+    p = e / zc
+    g = graph.float()[:, None]
+    dn = torch.matmul(_heads(d_out.float(), num_heads),
+                      _heads(v.float(), num_heads).transpose(-1, -2))
+    if renorm == "l1":
+        # >= is max()'s tie: at b == eps*z the forward divides by b, so the row is live
+        live = (bc >= L1_NORM_EPS * zc).float()
+        n = e * g / torch.maximum(bc, L1_NORM_EPS * zc)
+        ds = n * (dn - live * dc) - p * ((1.0 - live) * dc)
+    else:
+        denom = bc + SUM_NORM_EPS * zc
+        n = e * g / denom
+        ds = n * (dn - dc) - p * (dc * SUM_NORM_EPS * zc / denom)
+    ds = ds.masked_fill(key_mask[:, None, None, :] == 0, 0.0) * (1.0 / dh ** 0.5)
+    return ds, n
+
+
+def flash_bwd_dq_plain(q, k, v, key_mask, graph, m, z, bsum, delta, d_out, num_heads: int,
+                       renorm: str = "l1"):
+    """Plain PyTorch version of K5: dQ = dS K, in q's dtype."""
+    ds, _ = _ds_and_n(q, k, v, key_mask, graph, m, z, bsum, delta, d_out, num_heads, renorm)
+    return _merge(torch.matmul(ds, _heads(k.float(), num_heads))).to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, key_mask, graph, m, z, bsum, delta, d_out, num_heads: int,
+                        renorm: str = "l1"):
+    """Plain PyTorch version of K6: dK = dS^T Q and dV = N^T dO, in k's dtype."""
+    ds, n = _ds_and_n(q, k, v, key_mask, graph, m, z, bsum, delta, d_out, num_heads, renorm)
+    dk = torch.matmul(ds.transpose(-1, -2), _heads(q.float(), num_heads))
+    dv = torch.matmul(n.transpose(-1, -2), _heads(d_out.float(), num_heads))
+    return _merge(dk).to(k.dtype), _merge(dv).to(v.dtype)
+
+
+def flash_graph_attention_bwd_plain(q, k, v, key_mask, query_mask, graph, out, m, z, bsum, dy,
+                                    num_heads: int, renorm: str = "l1"):
+    """Plain PyTorch version of the whole backward: ``(dq, dk, dv)`` from the
+    forward's ``emit="stats"`` results and ``dy``, the gradient of ``out``.
+
+    The hand-derived formulas of the TPU package's ``_ds_tile``: with the
+    final weights n = e*g/D, p = e/z and delta_i = dO_i . out_i,
+
+        l1:      dS = n (dN - live*delta) - p (1 - live) delta,  live = [b >= 1e-12 z]
+        sum_eps: dS = n (dN - delta) - p delta 1e-7 z / (b + 1e-7 z)
+
+    with dN = dO V^T, dS zero on masked keys and scaled by 1/sqrt(dh) once;
+    dQ = dS K, dK = dS^T Q, dV = N^T dO. dO, V, K and Q enter every product
+    widened to float32.
+    """
+    if renorm not in RENORMS:
+        raise ValueError(f"unknown renorm mode: {renorm!r}")
+    d_out, delta = masked_grad_and_delta(out, dy, query_mask, num_heads)
+    args = (q, k, v, key_mask, graph, m, z, bsum, delta, d_out, num_heads, renorm)
+    return (flash_bwd_dq_plain(*args), *flash_bwd_dkv_plain(*args))
+
+
+def _check(q, k, v, key_mask, graph, num_heads: int, renorm: str, extra: dict) -> None:
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"q/k/v must be float32 or bfloat16, got {q.dtype}")
+    if renorm not in RENORMS:
+        raise ValueError(f"unknown renorm mode: {renorm!r}")
+    if q.dim() != 3 or k.dim() != 3:
+        raise ValueError("q, k, v must be (B, T, C)")
+    b, tq, c = q.shape
+    tk = k.shape[1]
+    if c % num_heads:
+        raise ValueError("C must be divisible by num_heads")
+    dh = c // num_heads
+    if dh % 4 or dh > MAX_HEAD_DIM:
+        raise ValueError(f"head width {dh} must be a multiple of 4 and at most {MAX_HEAD_DIM}")
+    want = {
+        "q": (q, (b, tq, c), q.dtype), "k": (k, (b, tk, c), q.dtype),
+        "v": (v, (b, tk, c), q.dtype),
+        "key_mask": (key_mask, (b, tk), torch.float32),
+        "graph": (graph, (b, tq, tk), torch.float32),
+    }
+    for name, t in extra.items():
+        if name == "query_mask":
+            want[name] = (t, (b, tq), torch.float32)
+        elif name == "d_out":
+            want[name] = (t, (b, tq, c), q.dtype)
+        else:                                   # m, z, b, delta
+            want[name] = (t, (b, num_heads, tq), torch.float32)
+    for name, (t, shape, dtype) in want.items():
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name}: expected {shape} {dtype}, got {tuple(t.shape)} {t.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _launch_forward(q, k, v, key_mask, query_mask, graph, num_heads: int, renorm: str,
+                    emit: str):
+    if emit not in EMITS:
+        raise ValueError(f"unknown emit mode: {emit!r}")
+    _check(q, k, v, key_mask, graph, num_heads, renorm, {"query_mask": query_mask})
+    fn = _build.library("flash_graph_attention").savqa_flash_graph_attention
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    b, tq, c = q.shape
+    tk = k.shape[1]
+    dev = q.device
+    if emit == "partial":
+        out = torch.empty(b, num_heads, tq, c // num_heads, dtype=torch.float32, device=dev)
+    else:
+        out = torch.empty_like(q)
+    stats = [None] * 3 if emit == "out" else [
+        torch.empty(b, num_heads, tq, dtype=torch.float32, device=dev) for _ in range(3)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(),
+            query_mask.data_ptr(), graph.data_ptr(), out.data_ptr(),
+            *(None if s is None else s.data_ptr() for s in stats),
+            b, tq, tk, c, num_heads, RENORMS.index(renorm), EMITS.index(emit),
+            _DTYPES[q.dtype], 1.0 / (c // num_heads) ** 0.5, stream,
+        )
+    _build.check(status, "flash_graph_attention kernel")
+    flash_graph_attention.launches += 1
+    return out if emit == "out" else (out, *stats)
+
+
+def _launch_backward(entry: str, counted, n_out: int, q, k, v, key_mask, graph, m, z, bsum,
+                     delta, d_out, num_heads: int, renorm: str):
+    _check(q, k, v, key_mask, graph, num_heads, renorm,
+           {"m": m, "z": z, "b": bsum, "delta": delta, "d_out": d_out})
+    fn = getattr(_build.library("flash_graph_attention_bwd"), entry)
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * (10 + n_out) + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_void_p])
+    b, tq, c = q.shape
+    outs = [torch.empty_like(q)] if n_out == 1 else [torch.empty_like(k), torch.empty_like(v)]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        status = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), graph.data_ptr(),
+            m.data_ptr(), z.data_ptr(), bsum.data_ptr(), delta.data_ptr(), d_out.data_ptr(),
+            *(o.data_ptr() for o in outs),
+            b, tq, k.shape[1], c, num_heads, RENORMS.index(renorm), _DTYPES[q.dtype],
+            1.0 / (c // num_heads) ** 0.5, stream,
+        )
+    _build.check(status, f"{entry} kernel")
+    counted.launches += 1
+    return outs
+
+
+def flash_bwd_dq(q, k, v, key_mask, graph, m, z, bsum, delta, d_out, num_heads: int,
+                 renorm: str = "l1"):
+    """K5: dQ (B, Tq, C) in q's dtype from the saved statistics, ``delta``
+    and the masked, rounded ``d_out`` of :func:`masked_grad_and_delta`."""
+    if not use_kernel(q):
+        return flash_bwd_dq_plain(q, k, v, key_mask, graph, m, z, bsum, delta, d_out,
+                                  num_heads, renorm)
+    return _launch_backward("savqa_flash_graph_attention_bwd_dq", flash_bwd_dq, 1, q, k, v,
+                            key_mask, graph, m, z, bsum, delta, d_out, num_heads, renorm)[0]
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, key_mask, graph, m, z, bsum, delta, d_out, num_heads: int,
+                  renorm: str = "l1"):
+    """K6: ``(dK, dV)`` (B, Tk, C) in k's dtype; arguments as :func:`flash_bwd_dq`."""
+    if not use_kernel(q):
+        return flash_bwd_dkv_plain(q, k, v, key_mask, graph, m, z, bsum, delta, d_out,
+                                   num_heads, renorm)
+    return tuple(_launch_backward("savqa_flash_graph_attention_bwd_dkv", flash_bwd_dkv, 2, q, k,
+                                  v, key_mask, graph, m, z, bsum, delta, d_out, num_heads,
+                                  renorm))
+
+
+flash_bwd_dkv.launches = 0
+
+
+def flash_graph_attention_bwd(q, k, v, key_mask, query_mask, graph, out, m, z, bsum, dy,
+                              num_heads: int, renorm: str = "l1"):
+    """``(dq, dk, dv)`` from the forward's ``emit="stats"`` results and
+    ``dy``: delta and the masked dO in torch, then K5, then K6 (their plain
+    versions on CPU tensors)."""
+    d_out, delta = masked_grad_and_delta(out, dy, query_mask, num_heads)
+    args = (q, k, v, key_mask, graph, m, z, bsum, delta, d_out, num_heads, renorm)
+    return (flash_bwd_dq(*args), *flash_bwd_dkv(*args))
+
+
+def _forward(q, k, v, key_mask, query_mask, graph, num_heads: int, renorm: str, emit: str):
+    if not use_kernel(q):
+        return flash_graph_attention_plain(q, k, v, key_mask, query_mask, graph, num_heads,
+                                           renorm, emit)
+    return _launch_forward(q, k, v, key_mask, query_mask, graph, num_heads, renorm, emit)
+
+
+class _FlashGraphAttention(torch.autograd.Function):
+    """K4 as an autograd node whose backward is K5 then K6.
+
+    When a gradient is needed the forward emits the per-row statistics and
+    saves them with its inputs and its output (nothing of size (Tq, Tk));
+    otherwise it emits the output alone."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, query_mask, graph, num_heads, renorm):
+        ctx.num_heads, ctx.renorm = num_heads, renorm
+        if not any(ctx.needs_input_grad[:3]):
+            return _forward(q, k, v, key_mask, query_mask, graph, num_heads, renorm, "out")
+        out, m, z, bsum = _forward(q, k, v, key_mask, query_mask, graph, num_heads, renorm,
+                                   "stats")
+        ctx.save_for_backward(q, k, v, key_mask, query_mask, graph, out, m, z, bsum)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, key_mask, query_mask, graph, out, m, z, bsum = ctx.saved_tensors
+        dq, dk, dv = flash_graph_attention_bwd(q, k, v, key_mask, query_mask, graph, out, m, z,
+                                               bsum, grad_out, ctx.num_heads, ctx.renorm)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_graph_attention(q, k, v, key_mask, query_mask, graph, num_heads: int,
+                          renorm: str = "l1", emit: str = "out"):
+    """K-blocked graph attention without residual or LayerNorm.
+
+    q (B, Tq, C); k, v (B, Tk, C), one dtype (float32 or bfloat16); key_mask
+    (B, Tk), query_mask (B, Tq), graph (B, Tq, Tk) float32, all contiguous.
+    ``emit="out"`` returns out (B, Tq, C) in q's dtype and is differentiable
+    in q, k and v (the masks and the graph get no gradient). ``"stats"``
+    returns ``(out, m, z, b)`` and ``"partial"`` the raw ``(a, m, z, b)``, as
+    :func:`flash_graph_attention_plain`; neither records a gradient.
+    """
+    if emit == "out":
+        return _FlashGraphAttention.apply(q, k, v, key_mask, query_mask, graph, num_heads,
+                                          renorm)
+    return _forward(q.detach(), k.detach(), v.detach(), key_mask, query_mask, graph, num_heads,
+                    renorm, emit)
+
+
+flash_graph_attention.launches = 0

@@ -16,8 +16,9 @@ On CUDA tensors :func:`fused_graph_attention_ln` launches the kernel of
 :func:`graph_attention_ln_plain` and :func:`graph_attention_ln_bwd_plain`,
 the same functions in plain PyTorch, rounding where the kernels round. The
 kernels take Tq != Tk (the decoder's one-query cross-attention) and at most
-``MAX_KEYS`` keys; longer sequences are the flash kernels' (K4-K6), not
-ported.
+``MAX_KEYS`` keys; longer sequences are the flash kernels' (K4-K6,
+``ops/flash_graph_attention.py``), which the attention modules call above
+that.
 """
 
 from __future__ import annotations
@@ -173,8 +174,8 @@ def _check(q, k, v, key_mask, query_mask, graph, residual, gamma, beta,
     tk = k.shape[1]
     if tk > MAX_KEYS:
         raise NotImplementedError(
-            f"{tk} keys > {MAX_KEYS}: long sequences need the flash kernel "
-            "(K4, ROADMAP Queue 2), which is not ported yet")
+            f"{tk} keys > {MAX_KEYS}: long sequences go through the flash kernel "
+            "(K4, ops/flash_graph_attention.py), as the attention modules send them")
     if c % num_heads:
         raise ValueError("C must be divisible by num_heads")
     want = {

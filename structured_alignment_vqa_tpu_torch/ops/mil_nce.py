@@ -1,6 +1,10 @@
-"""MIL-NCE math for the object branch (counterpart of the TPU package's
-``ops/mil_nce.py``). The relation branch (``mil_nce_rel_objective``,
-``compact_softmax_gather``) is ROADMAP Queue 1 item 11.
+"""MIL-NCE math for the object and relation branches (counterpart of the TPU
+package's ``ops/mil_nce.py``).
+
+The reference gathers only the *valid* candidate scores into ragged vectors
+and runs logsumexp and softmax over them. As in the TPU package, every slot
+is kept and invalid ones are masked to -inf, which is the same because
+exp(-inf) = 0; so shapes do not depend on the data.
 """
 
 from __future__ import annotations
@@ -34,3 +38,49 @@ def mil_nce_obj_objective(pos_scores: torch.Tensor, neg_scores: torch.Tensor) ->
     numerator = torch.logsumexp(torch.cat([pos_c, eps_block], dim=1), dim=2)
     denominator = torch.logsumexp(torch.cat([pos_c, neg_c], dim=1), dim=2)
     return (numerator - denominator).mean()
+
+
+def mil_nce_rel_objective(pos_scores: torch.Tensor, pos_valid: torch.Tensor,
+                          neg_scores: torch.Tensor, neg_valid: torch.Tensor) -> torch.Tensor:
+    """Relation-branch MIL-NCE (reference ``AttModel_x3.py:403-414``).
+
+    ``pos_scores``/``neg_scores``: flattened (B*R,) gathered bilinear scores;
+    ``pos_valid``/``neg_valid``: matching booleans (loc >= 0 slots). Returns
+    ``logsumexp(valid pos) - logsumexp(valid pos U valid neg)`` with each
+    valid score clamped at eps. With no valid record at all both terms are
+    -inf and the result is NaN while its gradient is zero (invalid slots are
+    selected away), as in the TPU package: such a batch logs a NaN loss and
+    still takes its step from the other terms.
+    """
+    pos_c = pos_scores.float().clamp_min(MIL_EPS)
+    neg_c = neg_scores.float().clamp_min(MIL_EPS)
+    lse_pos = masked_logsumexp(pos_c, pos_valid)
+    lse_all = masked_logsumexp(torch.cat([pos_c, neg_c]), torch.cat([pos_valid, neg_valid]))
+    return lse_pos - lse_all
+
+
+def compact_softmax_gather(scores: torch.Tensor, valid: torch.Tensor,
+                           gather_idx: torch.Tensor) -> torch.Tensor:
+    """Softmax over the compacted valid scores, then a lookup by raw index
+    (reference ``AttModel_x3.py:420-427``).
+
+    The reference builds the vector of valid positive scores in batch-major
+    order, softmaxes it over *all* positives of the batch jointly, and reads
+    entry ``micro_rel_loc`` of that compacted vector for each positive.
+
+    ``scores`` (M,) raw scores in batch-major flattening, ``valid`` (M,)
+    booleans, ``gather_idx`` (M,) indices into the compacted vector. Returns
+    (M,) float32 weights; an index outside [0, M) or beyond the number of
+    valid entries gives 0.
+    """
+    m = scores.shape[0]
+    clamped = scores.float().clamp_min(MIL_EPS)
+    sm = torch.softmax(torch.where(valid, clamped, torch.full_like(clamped, -torch.inf)), dim=0)
+    ranks = torch.cumsum(valid.long(), dim=0) - 1
+    # invalid slots go to a spare slot m that is cut off; each valid slot
+    # has its own rank, so no two writes meet and the order cannot matter
+    scatter_to = torch.where(valid, ranks, torch.full_like(ranks, m))
+    compact = torch.zeros(m + 1, dtype=sm.dtype, device=sm.device).scatter(0, scatter_to, sm)[:m]
+    in_range = (gather_idx >= 0) & (gather_idx < m)
+    out = compact[gather_idx.clamp(0, m - 1)]
+    return torch.where(in_range, out, torch.zeros_like(out))

@@ -7,9 +7,10 @@ One training step is what the reference's batch loop does
   forward (dropout from the caller's generator) -> ensemble smoothed CE
   (+ MIL-NCE) -> backward -> Adam update
 
-On the card the forward launches K1 and K3 and the backward launches K2 (the
-graph attention's backward); K3's backward is autograd of its composite, as
-in the TPU package. The data-parallel reduction, the mesh and the sparse
+On the card the forward launches K1 (K4 above 512 keys) and K3 and the
+backward launches K2 (K5 and K6), the graph attentions' backwards; K3's
+backward is autograd of its composite, as in the TPU package. The
+data-parallel reduction, the mesh and the sparse
 GloVe-table optimizer are not part of this slice (ROADMAP Queue 1 items 14
 and 15).
 """

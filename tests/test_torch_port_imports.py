@@ -100,3 +100,29 @@ def test_kernel_wrappers_on_cpu_tensors_never_build(monkeypatch):
     assert x.grad is not None
     fused_graph_attention_ln_bwd(x.detach(), x.detach(), x.detach(), *masks, x.detach(),
                                  torch.ones(c), torch.zeros(c), torch.ones(2, 5, c), 2, "l1")
+
+
+def test_flash_wrappers_on_cpu_tensors_never_build(monkeypatch):
+    from structured_alignment_vqa_tpu_torch.ops import _build
+    from structured_alignment_vqa_tpu_torch.ops import flash_graph_attention as flash
+
+    def refuse(name):
+        raise AssertionError(f"built {name} for a CPU tensor")
+
+    monkeypatch.setattr(_build, "library", refuse)
+    q = torch.rand(2, 5, 16, requires_grad=True)
+    masks = (torch.ones(2, 5), torch.ones(2, 5), torch.ones(2, 5, 5))
+    out = flash.flash_graph_attention(q, q, q, *masks, 2, "l1")
+    out.sum().backward()                    # K5's and K6's plain versions
+    assert q.grad is not None
+    assert len(flash.flash_graph_attention(q, q, q, *masks, 2, "sum_eps", emit="partial")) == 4
+    assert (flash.flash_graph_attention.launches, flash.flash_bwd_dq.launches,
+            flash.flash_bwd_dkv.launches) == (0, 0, 0)
+
+
+def test_every_cuda_source_is_registered_for_the_build():
+    from structured_alignment_vqa_tpu_torch.ops import _build
+
+    on_disk = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
+    assert on_disk == sorted(_build.SOURCES)
+    assert {"flash_graph_attention", "flash_graph_attention_bwd"} <= set(on_disk)

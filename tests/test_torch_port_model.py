@@ -36,6 +36,7 @@ TINY = dict(
     hidden_size=16, hidden_size_mil=8, num_blocks=3, num_heads=2, dropout_rate=0.0,
     maxlen=32, maxlen_q=8, maxlen_v=6, topn=2, stage1_blocks=1, stage2_blocks=2,
 )
+OBJ_REL = dict(TINY, only_obj=False)
 
 
 @pytest.fixture(autouse=True)
@@ -103,16 +104,43 @@ def test_tiny_forward_and_answers_match_jax(share_glove):
 
 @pytest.mark.parametrize("share_glove", [False, True], ids=["tables", "shared"])
 def test_convert_equals_export_state_dict(share_glove):
-    jmodel, params, _, model, _ = build_pair(TINY, share_glove, False)
+    _assert_convert_equals_export(TINY, share_glove)
+
+
+def _assert_convert_equals_export(kw, share_glove):
+    jmodel, params, _, model, _ = build_pair(kw, share_glove, False)
     params = jax.device_get(params)
-    ours = state_dict_from_jax(params, TINY["num_blocks"])
-    theirs = export_state_dict({"params": params}, TINY["num_blocks"], ddp_prefix=False)
+    ours = state_dict_from_jax(params, kw["num_blocks"])
+    theirs = export_state_dict({"params": params}, kw["num_blocks"], ddp_prefix=False,
+                               only_obj=kw.get("only_obj", True))
     assert sorted(ours) == sorted(theirs)
     for k in ours:
         np.testing.assert_array_equal(ours[k].numpy(), theirs[k].numpy(), err_msg=k)
-    AttModelX3(ModelConfig(share_glove=share_glove, **TINY), device="cpu").load_state_dict(
+    AttModelX3(ModelConfig(share_glove=share_glove, **kw), device="cpu").load_state_dict(
         theirs, strict=True)
     assert sorted(model.state_dict()) == sorted(theirs)
+    return ours
+
+
+def test_convert_carries_the_relation_tensor():
+    """obj+rel: ``MIL_NCE.R`` goes over untransposed; obj-only has none."""
+    ours = _assert_convert_equals_export(OBJ_REL, True)
+    assert tuple(ours["MIL_NCE.R"].shape) == (TINY["num_relations"], 8, 8)
+    assert "MIL_NCE.R" not in AttModelX3(ModelConfig(**TINY), device="cpu").state_dict()
+
+
+def test_tiny_obj_rel_forward_and_answers_match_jax():
+    """only_obj=False at a short bucket: the relation branch feeds the
+    symbolic encoder and mil_rel is live; K1's plain version serves every
+    graph attention (the flash path is test_torch_port_mil_nce_rel.py's)."""
+    pair = build_pair(OBJ_REL, True, False)
+    assert_forward_matches(*pair)
+    jmodel, params, jb, model, batch = pair
+    want = jax.jit(jmodel.apply)({"params": params}, jb)[4]
+    with torch.no_grad():
+        got = model(batch)[4]
+    np.testing.assert_allclose(got.item(), float(want), atol=LOGIT_ATOL, rtol=0)
+    assert got.item() != 0.0
 
 
 @pytest.mark.parametrize("use_dec_mask", [True, False])
@@ -171,12 +199,25 @@ def test_batch_fields_match_jax_batch_and_move_with_to():
 
 
 @pytest.mark.parametrize("cfg_kw", [
-    dict(int8_serving=True), dict(use_mcb=True), dict(only_obj=False),
-    dict(remat_blocks=True), dict(seq_axis="seq"),
+    dict(int8_serving=True), dict(use_mcb=True), dict(seq_axis="seq"),
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_settings_raise(cfg_kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         AttModelX3(ModelConfig(**TINY, **cfg_kw), device="cpu")
+
+
+@pytest.mark.parametrize("cfg_kw", [
+    dict(only_obj=False), dict(remat_blocks=True), dict(only_obj=False, remat_blocks=True),
+], ids=lambda kw: "+".join(kw))
+def test_ported_settings_build_and_run(cfg_kw):
+    cfg = ModelConfig(**TINY, **cfg_kw)
+    model = AttModelX3(cfg, device="cpu")
+    assert hasattr(model.MIL_NCE, "R") == (not cfg.only_obj)
+    batch = batch_from_arrays(synthetic_arrays(cfg, 2, lv=4, lq=5, ls=10, seed=1), "cpu")
+    out = model(batch)
+    assert all(torch.isfinite(t).all() for t in out[:4])
+    out[0].sum().backward()
+    assert model.cls[3].weight.grad is not None
 
 
 def test_packed_batch_raises():

@@ -209,6 +209,41 @@ def test_twenty_steps_track_jax_make_train_step():
                                    err_msg=name)
 
 
+def test_obj_rel_steps_track_jax_make_train_step():
+    """only_obj=False: six Adam steps over three batches; the loss carries
+    -mil_rel (``mil_nce_loss`` with ``only_obj=False``) and ``MIL_NCE.R``
+    trains. Each step's loss, ce and MIL term and the final params within
+    1e-4 of the JAX step's."""
+    kw = dict(TINY, only_obj=False)
+    jmodel, jparams, _, model, _ = build_pair(kw, True, False)
+    cfg = ModelConfig(share_glove=True, **kw)
+    # seeds whose relation records are not all padding (mil_rel finite)
+    arrays = [a for a in _batches(cfg, 6) if (a["micro_pos_rel_loc"][..., 3] >= 0).any()][:3]
+    assert len(arrays) == 3
+    tx = jax_adam(1e-3)
+    jstate = JaxState(step=jnp.zeros((), jnp.int32), params=jparams,
+                      opt_state=tx.init(jparams))
+    jstep = jax_train_step(jmodel, tx, jmodel.cfg)
+    opt = adam(model.parameters(), lr=1e-3)
+    state = TrainState(model, opt)
+    step = make_train_step(model, opt, cfg)
+    r_before = model.MIL_NCE.R.detach().clone()
+    for i in range(6):
+        a = arrays[i % len(arrays)]
+        jstate, jm = jstep(jstate, jax_batch(a), jax.random.key(1))
+        m = step(state, batch_from_arrays(a, "cpu"))
+        assert m["skipped"].item() == float(jm["skipped"]) == 0.0
+        for key in ("loss", "ce", "mil_nce_loss"):
+            np.testing.assert_allclose(m[key].item(), float(jm[key]), atol=STEP_LOSS_ATOL,
+                                       rtol=0, err_msg=f"step {i} {key}")
+    assert not torch.equal(model.MIL_NCE.R, r_before)
+    want = state_dict_from_jax(jax.device_get(jstate.params), kw["num_blocks"])
+    got = model.state_dict()
+    for name, w in want.items():
+        np.testing.assert_allclose(got[name].numpy(), w.numpy(), atol=PARAM_ATOL, rtol=0,
+                                   err_msg=name)
+
+
 def test_warmup_matches_optax_linear_schedule():
     sched = optax.linear_schedule(0.0, 1e-3, 4)
     p = torch.nn.Parameter(torch.ones(2))
