@@ -17,7 +17,10 @@ Phases, each of which must pass:
 4. K3 (FFN + LayerNorm) the same way at 16,384, 8,448 and 128 rows;
 5. K2 (the backward of K1) against its plain PyTorch version at K1's
    shapes, bf16 and f32, both renorms, with all-zero graph rows and masked
-   keys; in f32 also against torch.autograd of K1's plain version;
+   keys; in f32 also against torch.autograd of K1's plain version; each line
+   says which kernels the shape took (tensor-core or SIMT), one bf16 shape
+   with a head width of 8 must take the SIMT kernels and still match, and
+   one with 65 keys checks the tensor-core kernels' unaligned graph loads;
 6. the serving forward at full width (hidden 512, 6 blocks, 8 heads, 1,843
    classes, 407,000-row shared GloVe table, bf16, random weights from a seed)
    on five requests of 128 questions, bucket (lv, lq, ls) = (36, 30, 98):
@@ -38,7 +41,12 @@ Phases, each of which must pass:
    self-attention at L 1,536 with ragged valid lengths and at L 1,506 + 30
    with both parts' tails padded, one-query cross-attention into 1,536 keys
    and an odd shape (Tq 200, Tk 700); the inputs hold masked keys, a fully
-   masked 64-key tile, all-zero graph rows and a fully masked sample;
+   masked 64-key tile, all-zero graph rows and a fully masked sample; the
+   one-query shape, the odd shape and Tq 70 into 1,536 keys (two query
+   tiles) must go through the key split and its merge kernel in bf16, and a
+   bf16 shape with a head width of 8 through the SIMT kernel; each line says
+   which kernel and split the shape took; a bf16 shape with 701 keys checks
+   the tensor-core kernel's unaligned graph copies;
 9. K5 and K6 (its backward: dQ, and dK with dV) on the same inputs against
    their plain versions; in f32 also against torch.autograd of the eager
    ``attention_core``;
@@ -124,8 +132,28 @@ REL_STEP_REMAT = {"K1": 18, "K2": 12, "K4": 18, "K5": 12, "K6": 12, "K3": 36}
 # tables' gradients are summed with atomics, in an order that can change)
 STATS_TOL = 1e-4
 REMAT_TOL = 1e-5
+# ms per launch of the SIMT K4 and K2 these shapes ran before their bf16
+# paths moved to the tensor cores (this script, H100 80GB HBM3 at 700 W),
+# printed beside the new time; by (kernel, shape label, dtype)
+PREVIOUS_MS = {
+    ("K4", "self L=1536", torch.bfloat16): 1.1309,
+    ("K4", "cross Tq=1 Lk=1536", torch.bfloat16): 0.2123,
+    ("K4", "self L=1536", torch.float32): 1.1177,
+    ("K2", "self L=128", torch.bfloat16): 3.6730,
+    ("K2", "self L=66", torch.bfloat16): 1.6143,
+    ("K2", "cross Tq=1 Lk=128", torch.bfloat16): 0.4108,
+    ("K2", "cross Tq=1 Lk=66", torch.bfloat16): 0.2760,
+    ("K2", "self L=66 B=4", torch.bfloat16): 0.4166,
+    ("K2", "cross Tq=1 Lk=66 B=4", torch.bfloat16): 0.1863,
+    ("K2", "self L=128", torch.float32): 3.7098,
+}
 
 failures: list = []
+
+
+def previous(kernel: str, label: str, dtype) -> str:
+    ms = PREVIOUS_MS.get((kernel, label, dtype))
+    return "" if ms is None else f" (previous_ms {ms:.4f})"
 
 
 def check(ok: bool, what: str) -> None:
@@ -265,27 +293,49 @@ def rel_err(got, want) -> float:
     return (got.float() - want.float()).abs().max().item() / (scale if scale > 0 else 1.0)
 
 
+def k2_against_plain(label: str, args, dy, heads: int, renorm: str) -> tuple:
+    """K2 against its plain version, output by output: (kernel outputs, the
+    largest relative and the largest absolute error)."""
+    from structured_alignment_vqa_tpu_torch.ops import fused_graph_attention as k1
+
+    dtype = args[0].dtype
+    got = k1.fused_graph_attention_ln_bwd(*args, dy, heads, renorm)
+    want = k1.graph_attention_ln_bwd_plain(*args, dy, heads, renorm)
+    torch.cuda.synchronize()
+    rel = err = 0.0
+    for name, g, w in zip(("dq", "dk", "dv", "dresidual", "dgamma", "dbeta"), got, want):
+        e = rel_err(g, w)
+        tol = K2_TOL[dtype] if g.dtype == torch.bfloat16 else K2_TOL[torch.float32]
+        check(e <= tol and bool(torch.isfinite(g).all()),
+              f"K2 {label} {dtype} {renorm} {name}: max|kernel-plain|/max|plain| "
+              f"{e:.3g} <= {tol:g}")
+        rel = max(rel, e)
+        err = max(err, (g.float() - w.float()).abs().max().item())
+    return got, rel, err
+
+
 def k2_phase(gen) -> dict:
     from structured_alignment_vqa_tpu_torch.ops import fused_graph_attention as k1
 
-    names = ("dq", "dk", "dv", "dresidual", "dgamma", "dbeta")
+    # a head width of 8 (64 heads) is no multiple of 16: bf16 takes the SIMT kernels
+    args, dy = k2_inputs(gen, 66, 66, torch.bfloat16, REL_B)
+    path = k1.kernel_path(torch.bfloat16, C // 64)
+    check(path == "simt", f"K2 self L=66 B=4 heads=64 bf16: head width {C // 64} takes the "
+          f"{path} kernels")
+    for renorm in ("l1", "sum_eps"):
+        k2_against_plain("self L=66 B=4 heads=64", args, dy, 64, renorm)
+
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         for label, tq, tk, B in K1_SHAPES:
             args, dy = k2_inputs(gen, tq, tk, dtype, B)
+            path = k1.kernel_path(dtype, C // HEADS)
+            want_path = "tensor-core" if dtype == torch.bfloat16 else "simt"
+            check(path == want_path, f"K2 {label} {dtype}: takes the {path} kernels")
             err = rel = 0.0
             for renorm in ("l1", "sum_eps"):
-                got = k1.fused_graph_attention_ln_bwd(*args, dy, HEADS, renorm)
-                want = k1.graph_attention_ln_bwd_plain(*args, dy, HEADS, renorm)
-                torch.cuda.synchronize()
-                for name, g, w in zip(names, got, want):
-                    e = rel_err(g, w)
-                    tol = K2_TOL[dtype] if g.dtype == torch.bfloat16 else K2_TOL[torch.float32]
-                    check(e <= tol and bool(torch.isfinite(g).all()),
-                          f"K2 {label} {dtype} {renorm} {name}: max|kernel-plain|/max|plain| "
-                          f"{e:.3g} <= {tol:g}")
-                    rel = max(rel, e)
-                    err = max(err, (g.float() - w.float()).abs().max().item())
+                got, r, e = k2_against_plain(label, args, dy, HEADS, renorm)
+                rel, err = max(rel, r), max(err, e)
                 if dtype == torch.float32:
                     leaves = [a.detach().clone().requires_grad_(i in (0, 1, 2, 6, 7, 8))
                               for i, a in enumerate(args)]
@@ -303,10 +353,16 @@ def k2_phase(gen) -> dict:
             nbytes = (size * B * C * (5 * tq + 4 * tk) + 4 * B * (tq + tk + tq * tk) + 12 * C)
             # recomputed QK^T and AV, then dV, dA, dQ and dK: 6 products of 2 B Tq Tk C
             bound_ms, bound_by = bound(nbytes, 12.0 * B * tq * tk * C, dtype)
-            print(f"K2 {label} {dtype}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"bound {bound_ms * 1e3:.2f} us ({bound_by})", flush=True)
+            print(f"K2 {label} {dtype}: {path} kernels {ms:.4f} ms{previous('K2', label, dtype)}, "
+                  f"plain {plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by})",
+                  flush=True)
             rows.append(dict(label=label, dtype=dtype, err=err, rel_err=rel, ms=ms,
                              plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by))
+    # 65 keys: two adjacent graph entries are not 8-byte aligned, so the
+    # tensor-core kernels load them one by one
+    args, dy = k2_inputs(gen, 65, 65, torch.bfloat16, REL_B)
+    for renorm in ("l1", "sum_eps"):
+        k2_against_plain("self L=65 B=4", args, dy, HEADS, renorm)
     return {r["label"] + str(r["dtype"]): r for r in rows}
 
 
@@ -314,6 +370,11 @@ def k2_phase(gen) -> dict:
 # query into it, and a shape that fills no tile
 FLASH_SHAPES = (("self L=1536", REL_L, REL_L), ("self L=1506+30", REL_L, REL_L),
                 ("cross Tq=1 Lk=1536", 1, REL_L), ("odd Tq=200 Tk=700", 200, 700))
+# K4 only: two query tiles that do not fill the card, so the keys are split
+K4_SPLIT_SHAPE = ("split Tq=70 Tk=1536", 70, REL_L)
+# bf16 shapes whose blocks do not fill the card: the key split and its merge
+# kernel must take them
+K4_SPLIT_LABELS = ("cross Tq=1 Lk=1536", "odd Tq=200 Tk=700", K4_SPLIT_SHAPE[0])
 
 
 def flash_inputs(gen, label: str, tq: int, tk: int, dtype):
@@ -345,37 +406,58 @@ def flash_inputs(gen, label: str, tq: int, tk: int, dtype):
     return q, k, v, key_mask, query_mask, graph
 
 
+def k4_against_plain(label: str, args, heads: int) -> float:
+    """K4 against its plain version over both renorms and every emit; the
+    largest absolute error of ``out``."""
+    from structured_alignment_vqa_tpu_torch.ops import flash_graph_attention as fl
+
+    dtype = args[0].dtype
+    err = 0.0
+    for renorm in ("l1", "sum_eps"):
+        for emit in fl.EMITS:
+            got = fl.flash_graph_attention(*args, heads, renorm, emit)
+            want = fl.flash_graph_attention_plain(*args, heads, renorm, emit)
+            torch.cuda.synchronize()
+            if emit == "out":
+                got, want = (got,), (want,)
+            names = ("a" if emit == "partial" else "out", "m", "z", "b")
+            for name, g, w in zip(names, got, want):
+                finite = bool(torch.isfinite(g.float()).all())
+                if name == "out":
+                    e = (g.float() - w.float()).abs().max().item()
+                    err = max(err, e)
+                    ok, tol, how = e <= TOL[dtype], TOL[dtype], "max|kernel-plain|"
+                elif name == "m":   # the fill value on fully masked rows, else O(10)
+                    e = (g - w).abs().max().item()
+                    ok, tol, how = e <= 1e-3, 1e-3, "max|kernel-plain|"
+                else:   # f32 outputs; a carries weights rounded to V's dtype
+                    e = rel_err(g, w)
+                    tol = K2_TOL[dtype] if name == "a" else STATS_TOL
+                    ok, how = e <= tol, "max|kernel-plain|/max|plain|"
+                check(ok and finite, f"K4 {label} {dtype} {renorm} emit={emit} {name}: "
+                      f"{how} {e:.3g} <= {tol:g}")
+    return err
+
+
 def k4_phase(gen) -> dict:
     from structured_alignment_vqa_tpu_torch.ops import flash_graph_attention as fl
 
+    # a head width of 8 (64 heads) is no multiple of 16: bf16 takes the SIMT kernel
+    label, tq, tk = FLASH_SHAPES[3]
+    path = fl.kernel_path(torch.bfloat16, C // 64)
+    check(path == "simt", f"K4 {label} heads=64 bf16: head width {C // 64} takes the {path} kernel")
+    k4_against_plain(f"{label} heads=64", flash_inputs(gen, label, tq, tk, torch.bfloat16), 64)
+
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
-        for label, tq, tk in FLASH_SHAPES:
+        for label, tq, tk in FLASH_SHAPES + (K4_SPLIT_SHAPE,):
             args = flash_inputs(gen, label, tq, tk, dtype)
-            err = 0.0
-            for renorm in ("l1", "sum_eps"):
-                for emit in fl.EMITS:
-                    got = fl.flash_graph_attention(*args, HEADS, renorm, emit)
-                    want = fl.flash_graph_attention_plain(*args, HEADS, renorm, emit)
-                    torch.cuda.synchronize()
-                    if emit == "out":
-                        got, want = (got,), (want,)
-                    names = ("a" if emit == "partial" else "out", "m", "z", "b")
-                    for name, g, w in zip(names, got, want):
-                        finite = bool(torch.isfinite(g.float()).all())
-                        if name == "out":
-                            e = (g.float() - w.float()).abs().max().item()
-                            err = max(err, e)
-                            ok, tol, how = e <= TOL[dtype], TOL[dtype], "max|kernel-plain|"
-                        elif name == "m":   # the fill value on fully masked rows, else O(10)
-                            e = (g - w).abs().max().item()
-                            ok, tol, how = e <= 1e-3, 1e-3, "max|kernel-plain|"
-                        else:   # f32 outputs; a carries weights rounded to V's dtype
-                            e = rel_err(g, w)
-                            tol = K2_TOL[dtype] if name == "a" else STATS_TOL
-                            ok, how = e <= tol, "max|kernel-plain|/max|plain|"
-                        check(ok and finite, f"K4 {label} {dtype} {renorm} emit={emit} {name}: "
-                              f"{how} {e:.3g} <= {tol:g}")
+            path = fl.kernel_path(dtype, C // HEADS)
+            n_split = fl.key_split(REL_B, HEADS, tq, tk)[0] if path == "tensor-core" else 1
+            check(path == ("tensor-core" if dtype == torch.bfloat16 else "simt")
+                  and (n_split > 1) == (path == "tensor-core" and label in K4_SPLIT_LABELS),
+                  f"K4 {label} {dtype}: takes the {path} kernel, keys in {n_split} shard(s)")
+            err = k4_against_plain(label, args, HEADS)
             ms = time_ms(lambda: fl.flash_graph_attention(*args, HEADS, "l1"))
             stats_ms = time_ms(lambda: fl.flash_graph_attention(*args, HEADS, "l1", "stats"))
             plain_ms = time_ms(lambda: fl.flash_graph_attention_plain(*args, HEADS, "l1"), iters=5)
@@ -384,7 +466,8 @@ def k4_phase(gen) -> dict:
             nbytes = size * REL_B * C * (2 * tq + 2 * tk) + 4 * REL_B * (tq * tk + tq + tk)
             bound_ms, bound_by = bound(nbytes, 4.0 * REL_B * tq * tk * C, dtype)
             library_ms, library_err = sdpa_yardstick(args)
-            print(f"K4 {label} {dtype}: kernel {ms:.4f} ms (emit=stats {stats_ms:.4f}), plain "
+            print(f"K4 {label} {dtype}: {path} kernel, {n_split} key shard(s), {ms:.4f} ms"
+                  f"{previous('K4', label, dtype)} (emit=stats {stats_ms:.4f}), plain "
                   f"{plain_ms:.4f} ms, SDPA with the graph as a boolean mask {library_ms:.4f} ms "
                   f"(max|K4 - SDPA| on rows with a neighbour {library_err:.3g}), bound "
                   f"{bound_ms * 1e3:.2f} us ({bound_by})", flush=True)
@@ -392,6 +475,10 @@ def k4_phase(gen) -> dict:
                              bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
             del args
             torch.cuda.empty_cache()
+    # 701 keys: the graph's rows are not 16-byte aligned, so the tensor-core
+    # kernel copies its tiles 4 bytes at a time
+    k4_against_plain("odd keys Tq=70 Tk=701",
+                     flash_inputs(gen, "odd keys", 70, 701, torch.bfloat16), HEADS)
     return {r["label"] + str(r["dtype"]): r for r in rows}
 
 
@@ -548,7 +635,9 @@ def profile_device(fn, what: str) -> None:
                ("K3 ffn_ln", "ffn_ln_"),
                ("K5 flash_graph_attention_bwd_dq", "flash_graph_attention_bwd_dq"),
                ("K6 flash_graph_attention_bwd_dkv", "flash_graph_attention_bwd_dkv"),
-               ("K4 flash_graph_attention", "flash_graph_attention_kernel"))
+               ("K4 flash_graph_attention", "flash_graph_attention_kernel"),
+               ("K4 flash_graph_attention", "flash_graph_attention_tc_kernel"),
+               ("K4 flash_graph_attention", "merge_partials_kernel"))
     groups = {key: 0.0 for key, _ in markers}
     groups.update(gemm=0.0, other=0.0)
     for name, (_, us) in by_name.items():

@@ -18,42 +18,73 @@
 // from m = -inf, where alpha = exp(-inf) = 0. While every key seen so far is
 // masked, m is the fill value and each masked key counts exp(0) = 1; the
 // first real key raises m and alpha underflows to exactly 0 and wipes them.
+// Keys are exactly the Tk given: a ragged last step gets s = -inf, so it adds
+// nothing to z (the TPU wrapper pads with masked keys, which add to z on rows
+// whose real keys are all masked; out is the same).
 //
 // emit 0 ("out"):     out (B, Tq, C) in q's type.
 // emit 1 ("stats"):   out, and m, z, b (B, H, Tq) f32 for the backward (K5, K6).
 // emit 2 ("partial"): the raw a (B, H, Tq, dh) f32 and m, z, b: no division,
 //                     no query mask (a caller merges partials over key shards).
 //
-// What bounds it on an H100: operations. At the obj+rel shapes (B 4, L 1,536,
-// C 512, 8 heads, bf16) it reads q, k, v and the f32 graph and writes out:
-// ~50 MB, 15 us at 3.35 TB/s, against 4 B Tq Tk C = 19.3 GFLOP, 20 us at the
-// bf16 tensor-core peak and 288 us at the f32 rate these FMAs run at.
+// What bounds it on an H100: at the obj+rel shapes (B 4, L 1,536, C 512,
+// 8 heads, bf16) it reads q, k, v and the f32 graph and writes out: ~50 MB,
+// 15 us at 3.35 TB/s, against 4 B Tq Tk C = 19.3 GFLOP, 20 us at the bf16
+// tensor-core peak. Below that floor the pace is set by what every block
+// pulls through L2: its K and V (Tk x dh, once per 64 query rows) and its
+// graph rows (64 x Tk f32, once per head), ~300 MB each per launch.
 //
-// Design. One block of 256 threads owns (batch, head, tile of 64 query rows)
-// and walks the keys 64 at a time: the loop inside the block takes the place
-// of the TPU grid's sequential k-tile dimension, and m, z, b and a live in
-// registers across it. Q (once), then each K and V chunk, are staged in
-// shared memory as f32. The threads form a 16 x 16 grid: thread (ty, tx)
-// owns query rows 4 ty .. 4 ty + 3 and, of the scores, keys tx + 16 c, of
-// the output, channels tx + 16 i. It computes its 4 x 4 scores from float4
-// reads (rows padded to dh + 4 floats: aligned and free of bank conflicts),
-// reduces each row's maximum and sums over the 16 lanes that share the row
-// with shuffles, writes its rounded weights to a (64, 64) tile in shared
-// memory and, after a barrier, adds that tile times V into its 4 x dh/16
-// accumulators. The graph is read straight from device memory, 64 bytes per
-// row and half-warp, once per head. Keys are exactly the Tk given: a ragged
-// last chunk is filled with s = -inf, so it adds nothing to z (the TPU
-// wrapper pads with masked keys, which add to z on rows whose real keys are
-// all masked; out is the same). Tq != Tk runs through the same code; row
-// groups past the end of a short tile (the decoder's one query) skip the
-// products. Up to head width 64 the registers are capped at 128 a thread
-// (__launch_bounds__), so that two blocks share an SM and one block's loads
-// overlap the other's products. The products are plain FMAs on CUDA cores;
-// tensor cores (wgmma) and TMA are later work.
+// Design of the bf16 path (head widths that are multiples of 16): the shape
+// of FlashAttention-2 with this model's graph and renorm.
+// * One warp owns 16 query rows; a block of 4 warps owns 64 (6 or 8 warps
+//   with 96 or 128 rows measured 3% faster at most). The grid is (head,
+//   q-tile x key split, batch): the 8 heads of one (batch, q-tile) are
+//   neighbours, so the graph rows the first of them pulls from device memory
+//   are L2 hits for the others.
+// * Both products run on the tensor cores (mma.sync m16n8k16, bf16 operands,
+//   f32 accumulators). S = Q K^T of a 64-key step lands in the warp's
+//   accumulator fragments; mask, running maximum, e, e g and the row sums
+//   are computed on those fragments (a row lives in the 4 lanes of a quad:
+//   two shuffles for the maximum; z and b stay per-lane partial sums until
+//   the end). The rounded e g fragments, packed to bf16 pairs, are the A
+//   operand of the second product as they are: no weight tile in shared
+//   memory and no barrier between the products. a (16 x dh a warp) stays in
+//   accumulator fragments and is scaled by alpha in place.
+// * K and V tiles are staged as bf16 with cp.async (16 bytes a thread) into
+//   a ring of two stages: the copies of step j + 1 are issued right after
+//   the one barrier of step j and overlap its products (three stages leave
+//   room for two blocks an SM, not three, and measured slower: what hides
+//   the copies is the other blocks' warps). Rows are padded by
+//   16 bytes so ldmatrix (.trans for V) is free of bank conflicts. Q is
+//   loaded once and kept in registers as A fragments. The key mask of a step
+//   (64 floats) travels with the tile.
+// * The f32 graph tile of a step (64 rows x 64 keys) travels with them,
+//   cp.async 16 bytes a thread (4 bytes when Tk is no multiple of 4), and is
+//   read from shared memory in the fragment's own pattern (two adjacent
+//   floats per 8-wide block; rows padded to 72 floats keep those reads off
+//   each other's banks). Reading it from device memory in that pattern
+//   instead took as long as everything else in the kernel together: 32 loads
+//   of 8 x 32 bytes a step and lane, and 32 registers to keep them in flight.
+// * A key split for few query rows: when (q-tiles x heads x batch) does not
+//   fill the card (the decoder's one query into 1,536 keys: 32 blocks), the
+//   caller splits the key steps over blockIdx.y; each block writes its raw
+//   (a, m, z, b) to f32 scratch and merge_partials_kernel combines them
+//   (m = max m_i, c_i = exp(m_i - m), sums of c_i (z_i, b_i, a_i), in shard
+//   order: no atomics, the same bits every run) and applies renorm, query
+//   mask and emit.
+// * A zero-padded head: a head width of 48, 80, ... runs in the next
+//   instantiation (16, 32, 64, 128) with its upper channels staged as zeros.
+//
+// f32 inputs, and bf16 with a head width that is not a multiple of 16, take
+// the SIMT kernel below (f32 FMAs on CUDA cores from f32 tiles in shared
+// memory, one block of 256 threads per (batch, head, 64 query rows), no key
+// split): TF32 products would not hold the 1e-4 the f32 path is checked to.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
+
+#include "mma_sm90.cuh"
 
 namespace {
 
@@ -74,6 +105,16 @@ template <> __device__ __forceinline__ float from_float<float>(float x) { return
 template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
+
+// ---- the SIMT kernel (f32; bf16 with a head width that is no multiple of 16) ----
+//
+// One block of 256 threads owns (batch, head, tile of 64 query rows) and
+// walks the keys 64 at a time; Q, K and V are staged in shared memory as
+// f32. The threads form a 16 x 16 grid: thread (ty, tx) owns query rows
+// 4 ty .. 4 ty + 3 and, of the scores, keys tx + 16 c, of the output,
+// channels tx + 16 i. Its rounded weights go through a (64, 64) tile in
+// shared memory to the second product; the graph is read from device
+// memory, 64 bytes per row and half-warp.
 
 // Reductions over the 16 lanes that share a query row (a half-warp).
 __device__ __forceinline__ float row_sum(float x) {
@@ -291,20 +332,397 @@ cudaError_t launch(int dh, Args... args) {
   return launch_ndh<T, 8>(args...);
 }
 
+
+// ---- the tensor-core kernel (bf16, head width a multiple of 16) ----
+
+using bf16 = __nv_bfloat16;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kTcStages = 2;   // stages of the ring of (K, V, graph, key mask) tiles
+using savqa::fast_exp2;
+using savqa::cp_async16;
+using savqa::cp_async4;
+using savqa::cp_async_commit;
+using savqa::cp_async_wait;
+using savqa::frag_a_row;
+using savqa::frag_b_row;
+using savqa::frag_bt_row;
+using savqa::ldmatrix_x4;
+using savqa::ldmatrix_x4_trans;
+using savqa::mma_bf16;
+using savqa::pack_bf16;
+using savqa::quad_max;
+using savqa::quad_sum;
+using savqa::stage_head_tile;
+
+// Shared memory, kTcStages stages of: Ks, Vs (kBK, DH + 8) bf16 | Gs (BQ,
+// kBK + 8) f32 | kms (kBK) f32. The Q tile (BQ, DH + 8) bf16 lands in the last
+// stage's room, is read into registers once, and gives the room up.
+// With n_split > 1 block (h, qt * n_split + sp, b) walks the key steps
+// [sp * steps_per_split, (sp + 1) * steps_per_split) and writes raw
+// partials at shard sp of a_out (n_split, B, H, Tq, dh) and m_out, z_out,
+// b_out (n_split, B, H, Tq), whatever emit says.
+template <int DH, int WARPS>
+__global__ void __launch_bounds__(WARPS * 32, DH <= 64 ? 384 / (WARPS * 32) : 1)
+flash_graph_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                const bf16* __restrict__ v, const float* __restrict__ key_mask,
+                                const float* __restrict__ query_mask,
+                                const float* __restrict__ graph, bf16* __restrict__ out,
+                                float* __restrict__ a_out, float* __restrict__ m_out,
+                                float* __restrict__ z_out, float* __restrict__ b_out, int Tq,
+                                int Tk, int C, int H, int dh, int renorm, int emit, float scale,
+                                int n_split, int steps_per_split) {
+  constexpr int kBQt = WARPS * 16;
+  constexpr int kThr = WARPS * 32;
+  constexpr int kLd = DH + 8;
+  constexpr int kKD = DH / 16;   // 16-deep blocks of the head width
+  constexpr int kND = DH / 8;    // 8-wide accumulator blocks of the output
+  constexpr int kNS = kBK / 8;   // 8-wide accumulator blocks of the scores
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kLdG = kBK + 8;   // row stride of the graph tile: float2 reads hit 32 banks
+  constexpr int kStageBytes = 2 * kBK * kLd * 2 + (kBQt * kLdG + kBK) * 4;
+  static_assert(kBQt * kLd * 2 <= kStageBytes, "the Q tile fits a stage");
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw + (kTcStages - 1) * kStageBytes);
+
+  const int h = blockIdx.x;
+  const int qt = blockIdx.y / n_split;
+  const int sp = blockIdx.y - qt * n_split;
+  const int b = blockIdx.z;
+  const int q0 = qt * kBQt;
+  const int c0 = h * dh;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int n_steps = (Tk + kBK - 1) / kBK;
+  const int step_lo = sp * steps_per_split;
+  const int step_hi = min(n_steps, step_lo + steps_per_split);
+  const bool active = q0 + warp * 16 < Tq;   // this warp holds a real row
+  const bool graph_quads = (Tk & 3) == 0;    // four adjacent graph entries are 16-byte aligned
+  const float scale2 = scale * kLog2e;
+
+  const bf16* qb = q + (size_t)b * Tq * C;
+  const bf16* kb = k + (size_t)b * Tk * C;
+  const bf16* vb = v + (size_t)b * Tk * C;
+  const float* km = key_mask + (size_t)b * Tk;
+  const int row_a = q0 + warp * 16 + g;   // this lane's two query rows
+  const int row_b = row_a + 8;
+
+  const float* gtile = graph + ((size_t)b * Tq + q0) * Tk;
+  auto load_step = [&](int step) {
+    unsigned char* base = smem_raw + ((step - step_lo) % kTcStages) * kStageBytes;
+    const int j0 = step * kBK;
+    bf16* Ks = reinterpret_cast<bf16*>(base);
+    stage_head_tile<DH, kThr>(Ks, kb, j0, Tk, kBK, C, c0, dh);
+    stage_head_tile<DH, kThr>(Ks + kBK * kLd, vb, j0, Tk, kBK, C, c0, dh);
+    // the graph tile of the block's rows: zeros past Tq and past Tk
+    float* Gs = reinterpret_cast<float*>(Ks + 2 * kBK * kLd);
+    if (graph_quads) {
+      for (int i = tid; i < kBQt * (kBK / 4); i += kThr) {
+        const int r = i / (kBK / 4), j = j0 + (i - r * (kBK / 4)) * 4;
+        const bool valid = q0 + r < Tq && j < Tk;
+        cp_async16(Gs + r * kLdG + (j - j0), valid ? gtile + (size_t)r * Tk + j : graph, valid);
+      }
+    } else {
+      for (int i = tid; i < kBQt * kBK; i += kThr) {
+        const int r = i / kBK, j = j0 + (i - r * kBK);
+        const bool valid = q0 + r < Tq && j < Tk;
+        cp_async4(Gs + r * kLdG + (j - j0), valid ? gtile + (size_t)r * Tk + j : graph, valid);
+      }
+    }
+    float* kms = Gs + kBQt * kLdG;
+    for (int j = tid; j < kBK; j += kThr)
+      cp_async4(kms + j, km + (j0 + j < Tk ? j0 + j : 0), j0 + j < Tk);
+  };
+
+  stage_head_tile<DH, kThr>(Qs, qb, q0, Tq, kBQt, C, c0, dh);
+  for (int i = 0; i < kTcStages - 1; ++i) {   // one group of copies a step, empty past the end
+    if (step_lo + i < step_hi) load_step(step_lo + i);
+    cp_async_commit();
+  }
+  cp_async_wait<kTcStages - 2>();
+  __syncthreads();   // Q and the first step's tiles have landed
+  uint32_t qf[kKD][4];
+  if (active) {
+#pragma unroll
+    for (int kd = 0; kd < kKD; ++kd)
+      ldmatrix_x4(qf[kd], frag_a_row(Qs, kLd, warp * 16, kd * 16, lane));
+  }
+
+  float o[kND][4];
+  float m_a = -INFINITY, m_b = -INFINITY, z_a = 0.f, z_b = 0.f, b_a = 0.f, b_b = 0.f;
+#pragma unroll
+  for (int i = 0; i < kND; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+
+  for (int step = step_lo; step < step_hi; ++step) {
+    cp_async_wait<kTcStages - 2>();
+    __syncthreads();   // this step's tiles have landed; the readers of the previous step's
+                       // stage (the first time: of Q) are done, and it takes the next copies
+    if (step + kTcStages - 1 < step_hi) load_step(step + kTcStages - 1);
+    cp_async_commit();
+    if (!active) continue;
+    const unsigned char* base = smem_raw + ((step - step_lo) % kTcStages) * kStageBytes;
+    const int j0 = step * kBK;
+    const bf16* Ks = reinterpret_cast<const bf16*>(base);
+    const bf16* Vs = Ks + kBK * kLd;
+    const float* Gs = reinterpret_cast<const float*>(Vs + kBK * kLd);
+    const float* kmask = Gs + kBQt * kLdG;
+    const float* g_a = Gs + (warp * 16 + g) * kLdG + 2 * t;   // this lane's two graph rows
+    const float* g_b = g_a + 8 * kLdG;
+
+    // S = Q K^T: 16 rows x 64 keys a warp
+    float s[kNS][4];
+#pragma unroll
+    for (int nb = 0; nb < kNS; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < kKD; ++kd) {
+#pragma unroll
+      uint32_t kf[kNS / 2][4];
+#pragma unroll
+      for (int nb = 0; nb < kNS; nb += 2)
+        ldmatrix_x4(kf[nb / 2], frag_b_row(Ks, kLd, nb * 8, kd * 16, lane));
+#pragma unroll
+      for (int nb = 0; nb < kNS; nb += 2) {
+        mma_bf16(s[nb], qf[kd], kf[nb / 2][0], kf[nb / 2][1]);
+        mma_bf16(s[nb + 1], qf[kd], kf[nb / 2][2], kf[nb / 2][3]);
+      }
+    }
+
+    // mask and the running maximum of both rows. Scores live in units of
+    // log 2 (x = s scale log2(e), so e = 2^(x - m)); a masked key is the fill
+    // value itself in those units, which keeps rows without a real key at
+    // uniform weights and lets the epilogue give back the fill value exactly.
+    // x = s * mul + fill is one FMA per score: (scale log2(e), 0) on a real
+    // key, (0, fill) on a masked one, (0, -inf) past the last key.
+    const bool ragged = j0 + kBK > Tk;
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int nb = 0; nb < kNS; ++nb) {
+      const int jl = nb * 8 + 2 * t;
+      const float2 kmv = *reinterpret_cast<const float2*>(kmask + jl);
+      float mul0 = kmv.x != 0.f ? scale2 : 0.f, fill0 = kmv.x != 0.f ? 0.f : kNegMask;
+      float mul1 = kmv.y != 0.f ? scale2 : 0.f, fill1 = kmv.y != 0.f ? 0.f : kNegMask;
+      if (ragged) {
+        if (j0 + jl >= Tk) { mul0 = 0.f; fill0 = -INFINITY; }
+        if (j0 + jl + 1 >= Tk) { mul1 = 0.f; fill1 = -INFINITY; }
+      }
+      s[nb][0] = fmaf(s[nb][0], mul0, fill0);
+      s[nb][1] = fmaf(s[nb][1], mul1, fill1);
+      s[nb][2] = fmaf(s[nb][2], mul0, fill0);
+      s[nb][3] = fmaf(s[nb][3], mul1, fill1);
+      mx_a = fmaxf(mx_a, fmaxf(s[nb][0], s[nb][1]));
+      mx_b = fmaxf(mx_b, fmaxf(s[nb][2], s[nb][3]));
+    }
+    const float mn_a = fmaxf(m_a, quad_max(mx_a));
+    const float mn_b = fmaxf(m_b, quad_max(mx_b));
+    const float alpha_a = fast_exp2(m_a - mn_a);
+    const float alpha_b = fast_exp2(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+
+    // e, e g and the row sums; s becomes e g
+    float sz_a = 0.f, sz_b = 0.f, sb_a = 0.f, sb_b = 0.f;
+#pragma unroll
+    for (int nb = 0; nb < kNS; ++nb) {
+      const float2 ga = *reinterpret_cast<const float2*>(g_a + nb * 8);
+      const float2 gb = *reinterpret_cast<const float2*>(g_b + nb * 8);
+      const float gr[4] = {ga.x, ga.y, gb.x, gb.y};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float e = fast_exp2(s[nb][c] - (c < 2 ? mn_a : mn_b));
+        const float eg = e * gr[c];
+        s[nb][c] = eg;
+        if (c < 2) { sz_a += e; sb_a += eg; } else { sz_b += e; sb_b += eg; }
+      }
+    }
+    z_a = z_a * alpha_a + sz_a;
+    z_b = z_b * alpha_b + sz_b;
+    b_a = b_a * alpha_a + sb_a;
+    b_b = b_b * alpha_b + sb_b;
+#pragma unroll
+    for (int i = 0; i < kND; ++i) {
+      o[i][0] *= alpha_a; o[i][1] *= alpha_a;
+      o[i][2] *= alpha_b; o[i][3] *= alpha_b;
+    }
+
+    // a += round(e g) V: the score fragments are the A operand as they are
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      uint32_t pf[4];
+      pf[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pf[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pf[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pf[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      uint32_t vf[kND / 2][4];
+#pragma unroll
+      for (int nd = 0; nd < kND; nd += 2)
+        ldmatrix_x4_trans(vf[nd / 2], frag_bt_row(Vs, kLd, kk * 16, nd * 8, lane));
+#pragma unroll
+      for (int nd = 0; nd < kND; nd += 2) {
+        mma_bf16(o[nd], pf, vf[nd / 2][0], vf[nd / 2][1]);
+        mma_bf16(o[nd + 1], pf, vf[nd / 2][2], vf[nd / 2][3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if (!active) return;
+
+  z_a = quad_sum(z_a);
+  z_b = quad_sum(z_b);
+  b_a = quad_sum(b_a);
+  b_b = quad_sum(b_b);
+  const bool raw = n_split > 1 || emit == 2;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = half == 0 ? row_a : row_b;
+    if (row >= Tq) continue;
+    // back to natural units; the fill value comes back as it went in
+    const float m2 = half == 0 ? m_a : m_b;
+    const float mr = m2 == kNegMask ? kNegMask : m2 * kLn2;
+    const float zr = half == 0 ? z_a : z_b;
+    const float br = half == 0 ? b_a : b_b;
+    const size_t stat_at = (((size_t)sp * gridDim.z + b) * H + h) * Tq + row;
+    if ((raw || emit == 1) && t == 0) {
+      m_out[stat_at] = mr;
+      z_out[stat_at] = zr;
+      b_out[stat_at] = br;
+    }
+    const float denom = renorm == 0 ? fmaxf(br, kL1Eps * zr) : br + kSumEps * zr;
+    const float qm = query_mask[(size_t)b * Tq + row];
+#pragma unroll
+    for (int i = 0; i < kND; ++i) {
+      const int d = i * 8 + 2 * t;
+      if (d >= dh) continue;
+      const float x = o[i][2 * half], y = o[i][2 * half + 1];
+      if (raw) {
+        *reinterpret_cast<float2*>(a_out + stat_at * dh + d) = make_float2(x, y);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(out + ((size_t)b * Tq + row) * C + c0 + d) =
+            __floats2bfloat162_rn(x / denom * qm, y / denom * qm);
+      }
+    }
+  }
+}
+
+// Combines the raw partials of n_split key shards, one thread per (batch,
+// head, row, channel): m = max m_i, c_i = exp(m_i - m) (0 for a shard that
+// saw no key, m_i = -inf), z, b, a = sum c_i (z_i, b_i, a_i) in shard order;
+// then renorm, query mask and emit as the unsplit kernel.
+__global__ void __launch_bounds__(256)
+merge_partials_kernel(const float* __restrict__ a_part, const float* __restrict__ m_part,
+                      const float* __restrict__ z_part, const float* __restrict__ b_part,
+                      const float* __restrict__ query_mask, bf16* __restrict__ out,
+                      float* __restrict__ a_out, float* __restrict__ m_out,
+                      float* __restrict__ z_out, float* __restrict__ b_out, int n_split, int B,
+                      int H, int Tq, int dh, int renorm, int emit) {
+  const size_t n_rows = (size_t)B * H * Tq;
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n_rows * dh) return;
+  const size_t r = idx / dh;
+  const int d = (int)(idx - r * dh);
+  float m = -INFINITY;
+  for (int i = 0; i < n_split; ++i) m = fmaxf(m, m_part[i * n_rows + r]);
+  float z = 0.f, bs = 0.f, a = 0.f;
+  for (int i = 0; i < n_split; ++i) {
+    const float mi = m_part[i * n_rows + r];
+    const float c = mi == -INFINITY ? 0.f : expf(mi - m);
+    z += c * z_part[i * n_rows + r];
+    bs += c * b_part[i * n_rows + r];
+    a += c * a_part[(i * n_rows + r) * dh + d];
+  }
+  if (emit != 0 && d == 0) {
+    m_out[r] = m;
+    z_out[r] = z;
+    b_out[r] = bs;
+  }
+  if (emit == 2) {
+    a_out[idx] = a;
+    return;
+  }
+  const int row = (int)(r % Tq);
+  const int h = (int)((r / Tq) % H);
+  const int b = (int)(r / ((size_t)Tq * H));
+  const float denom = renorm == 0 ? fmaxf(bs, kL1Eps * z) : bs + kSumEps * z;
+  const float qm = query_mask[(size_t)b * Tq + row];
+  out[((size_t)b * Tq + row) * H * dh + h * dh + d] = __float2bfloat16_rn(a / denom * qm);
+}
+
+struct TcArgs {
+  const bf16 *q, *k, *v;
+  const float *key_mask, *query_mask, *graph;
+  void* out;
+  float *m_out, *z_out, *b_out, *scratch_a, *scratch_stats;
+  int B, Tq, Tk, C, H, renorm, emit, n_split, steps_per_split;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <int DH, int WARPS>
+cudaError_t launch_tc(const TcArgs& p) {
+  constexpr int kBQt = WARPS * 16;
+  const size_t smem = kTcStages * (sizeof(bf16) * 2 * kBK * (DH + 8) +
+                                   sizeof(float) * (kBQt * (kBK + 8) + kBK));
+  auto kernel = flash_graph_attention_tc_kernel<DH, WARPS>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int dh = p.C / p.H;
+  const int q_tiles = (p.Tq + kBQt - 1) / kBQt;
+  const dim3 grid(p.H, q_tiles * p.n_split, p.B);
+  const size_t n_rows = (size_t)p.B * p.H * p.Tq;
+  const bool split = p.n_split > 1;
+  // unsplit: out or the raw a go where the caller wants them; split: to scratch
+  bf16* out = p.emit == 2 ? nullptr : static_cast<bf16*>(p.out);
+  float* a_out = p.emit == 2 ? static_cast<float*>(p.out) : nullptr;
+  float* sm = p.scratch_stats;
+  kernel<<<grid, WARPS * 32, smem, p.stream>>>(
+      p.q, p.k, p.v, p.key_mask, p.query_mask, p.graph, out, split ? p.scratch_a : a_out,
+      split ? sm : p.m_out, split ? sm + p.n_split * n_rows : p.z_out,
+      split ? sm + 2 * p.n_split * n_rows : p.b_out, p.Tq, p.Tk, p.C, p.H, dh, p.renorm, p.emit,
+      p.scale, p.n_split, p.steps_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !split) return err;
+  const size_t total = n_rows * dh;
+  merge_partials_kernel<<<(unsigned)((total + 255) / 256), 256, 0, p.stream>>>(
+      p.scratch_a, sm, sm + p.n_split * n_rows, sm + 2 * p.n_split * n_rows, p.query_mask, out,
+      a_out, p.m_out, p.z_out, p.b_out, p.n_split, p.B, p.H, p.Tq, dh, p.renorm, p.emit);
+  return cudaGetLastError();
+}
+
+constexpr int kTcWarps = 4;   // 64 query rows a block
+
+cudaError_t launch_tc_dh(const TcArgs& p) {
+  const int dh = p.C / p.H;
+  if (dh <= 16) return launch_tc<16, kTcWarps>(p);
+  if (dh <= 32) return launch_tc<32, kTcWarps>(p);
+  if (dh <= 64) return launch_tc<64, kTcWarps>(p);
+  return launch_tc<128, kTcWarps>(p);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. renorm: 0 = l1, 1 = sum_eps.
 // emit: 0 = out, 1 = out + m, z, b, 2 = raw a (B, H, Tq, dh) f32 + m, z, b.
 // The head width C / H must be a multiple of 4 and at most 128. m, z and b
-// may be null with emit 0. Returns cudaGetLastError() after the launch.
+// may be null with emit 0. bf16 with a head width that is a multiple of 16
+// takes the tensor-core kernel (64 query rows a block), with the key steps
+// (64 keys each) split into n_split shards of
+// steps_per_split steps, none of them empty; with n_split > 1 scratch_a
+// (n_split, B, H, Tq, dh) and scratch_stats (3, n_split, B, H, Tq) f32 hold
+// the partials between the two launches. Every other call takes the SIMT
+// kernel, which has no split (n_split must be 1). Returns
+// cudaGetLastError() after the launch.
 extern "C" int savqa_flash_graph_attention(const void* q, const void* k, const void* v,
                                            const void* key_mask, const void* query_mask,
                                            const void* graph, void* out, void* m_out,
-                                           void* z_out, void* b_out, int B, int Tq, int Tk,
-                                           int C, int H, int renorm, int emit, int dtype,
-                                           float scale, void* stream) {
+                                           void* z_out, void* b_out, void* scratch_a,
+                                           void* scratch_stats, int B, int Tq, int Tk, int C,
+                                           int H, int renorm, int emit, int dtype, int n_split,
+                                           int steps_per_split, float scale, void* stream) {
   if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || C % H != 0 || (C / H) % 4 != 0 ||
-      C / H > kMaxDh || (renorm != 0 && renorm != 1) || emit < 0 || emit > 2)
+      C / H > kMaxDh || (renorm != 0 && renorm != 1) || emit < 0 || emit > 2 || n_split < 1)
     return (int)cudaErrorInvalidValue;
   const auto* km = static_cast<const float*>(key_mask);
   const auto* qm = static_cast<const float*>(query_mask);
@@ -313,6 +731,19 @@ extern "C" int savqa_flash_graph_attention(const void* q, const void* k, const v
   auto* zo = static_cast<float*>(z_out);
   auto* bo = static_cast<float*>(b_out);
   auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && (C / H) % 16 == 0) {
+    const int n_steps = (Tk + kBK - 1) / kBK;
+    if (steps_per_split < 1 ||
+        (n_split - 1) * steps_per_split >= n_steps || n_split * steps_per_split < n_steps ||
+        (n_split > 1 && (scratch_a == nullptr || scratch_stats == nullptr)))
+      return (int)cudaErrorInvalidValue;
+    const TcArgs p{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                   static_cast<const bf16*>(v), km, qm, g, out, mo, zo, bo,
+                   static_cast<float*>(scratch_a), static_cast<float*>(scratch_stats),
+                   B, Tq, Tk, C, H, renorm, emit, n_split, steps_per_split, scale, s};
+    return (int)launch_tc_dh(p);
+  }
+  if (n_split != 1) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return (int)launch<float>(C / H, q, k, v, km, qm, g, out, mo, zo, bo, B, Tq, Tk, C, H,
                               renorm, emit, scale, s);

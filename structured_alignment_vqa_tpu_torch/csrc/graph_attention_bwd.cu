@@ -15,40 +15,73 @@
 //              dxh = dy gamma; dx = (dxh - mean dxh) inv
 //                                  - [var > 0] xm (sum dxh xm) inv^2 / ((C-1) s)
 //              dresidual = dO = dx
-//   attention: dV = A^T dO (f32 A); dA = dO V^T (f32 V); dN = dA qmask_i
+//   attention: dV = A^T dO; dA = dO V^T; dN = dA qmask_i
 //              dG = dN / r - live sign(G) (sum dN G) / r^2  (sum_eps: no live, no sign)
 //              dP = dG graph; dS = P (dP - sum dP P), 0 on masked keys, * scale
 //              dQ = dS K; dK = dS^T Q
+// Every product takes its operands in the inputs' type T and sums in f32: A
+// is rounded to T once (for O and for dV alike), dO once after the LayerNorm
+// backward (dresidual is that value) and dS once after the softmax backward.
+// In f32 these roundings do nothing.
 //
 // What bounds it on an H100: bytes. At the training shapes (B 128, C 512,
 // L 128, bf16) it must read q, k, v, residual, dy (bf16), the f32 graph and
 // the masks and write dq, dk, dv and dresidual: ~160 MB, ~48 us at 3.35 TB/s,
 // against ~12 B Tq Tk C = 13 GFLOP (13 us at the bf16 tensor-core peak). In
-// f32 the operations bound it (67 TFLOP/s outside the tensor cores).
+// f32 the operations bound it (67 TFLOP/s outside the tensor cores). Far
+// above either bound, what sets the time of the bf16 path is the length of
+// one block's chain of dependent steps in the rows launch (below).
 //
 // Design: two launches, the dq / dkv split of the TPU package's flash
 // backward (K5 / K6), because dK and dV sum over every query row and blocks
-// cannot share a sum.
-// * K2a, one block of 256 threads per (batch, tile of up to 16 query rows),
-//   all heads, as K1. It recomputes the forward output of all heads into
-//   shared memory (the LayerNorm backward needs whole rows), runs the
-//   LayerNorm backward (dresidual, dO, per-block dgamma/dbeta partials summed
-//   by the wrapper), then per head recomputes P, forms dA, dN, dG, dP and dS
-//   in shared memory and writes dQ. It stores dO in f32 and, per (batch,
-//   head, row), the softmax max and sum, r, live, sum dN G and sum dP P.
-// * K2b, one block per (batch, head, tile of 32 keys). It walks the query
-//   rows 16 at a time, recomputes P, G and A from those statistics (the same
-//   score arithmetic as K2a, so the same P), and accumulates dV += A^T dO and
-//   dK += dS^T Q in registers. No atomics: every sum comes out the same on
-//   every run.
+// cannot share a sum. No atomics: every sum comes out the same on every run.
 // Rows whose graph is all zero (the encoder's stage-1 graph on modality rows)
 // have r = 1e-12 and dN / r ~ 1e12 dN; that stays in f32 and is multiplied
-// by the graph (0) before anything else. The products are plain FMAs on CUDA
-// cores, as in K1; tensor cores (wgmma) and TMA are later work.
+// by G (0) before anything else.
+//
+// The bf16 path (head widths that are multiples of 16): all six products on
+// the tensor cores (mma.sync m16n8k16, f32 accumulators, csrc/mma_sm90.cuh),
+// operands as bf16 tiles in shared memory filled by cp.async.
+// * Rows launch, one block of 2 warps per (batch, 32 query rows), all heads,
+//   16 rows a warp; two blocks share an SM (x - mean of whole rows must stay
+//   on chip for the LayerNorm backward: 32 x C f32 is the largest tile).
+//   Nothing of size (rows, Tk) is kept: each pass over the keys rebuilds the
+//   64-key score fragments from Q K^T on the tensor cores and the row's
+//   maximum and sum. Per head, section 1: pass A gets m, z and sum e g
+//   online, pass B forms A, rounds it and accumulates O = A V into the f32
+//   row tile. Section 2 is the LayerNorm backward (8 lanes a row, 16-byte
+//   accesses), which leaves dO as bf16 in shared memory. Per head, section
+//   3: pass C gets s1 = sum dA G and s2 = sum |G|, which give both row sums
+//   of the renorm and softmax backwards (inner = qmask s1, sum dP P = c1 s1
+//   - c2 s2); pass E forms dS, rounds it and accumulates dQ = dS K. K and V
+//   tiles stream through a two-stage ring; up to 128 keys the ring holds a
+//   head's K and V whole and the second pass of a section reads them in
+//   place. The ring and the dO tile take turns in the room the row tile and
+//   the first ring leave free. A ragged last step skips its empty 8-key
+//   blocks. The decoder's one-query calls run here too: a block's time is
+//   its chain of steps whatever its rows, and it measured shorter than the
+//   SIMT rows launch.
+// * Keys launch, one block of 4 warps per (batch, head, 64 keys), 16 keys a
+//   warp: K and V stay in registers as A operands, the query rows stream
+//   past 64 at a time with their per-row constants (m, 1 / z, qmask / r,
+//   c2, sum dP P from the rows launch) and dO (the bf16 dresidual), and dV
+//   += A^T dO and dK += dS^T Q accumulate in fragments.
+//
+// f32, and bf16 with another head width, take the SIMT kernels (TF32 would
+// not hold the 1e-4 the f32 path is checked to):
+// * Rows launch, one block of 256 threads per (batch, tile of up to 16 query
+//   rows), all heads, as K1: the forward output of all heads into shared
+//   memory, the LayerNorm backward, then per head P, dA, dS in shared memory
+//   and dQ; dO goes to the keys launch in f32 with, per (batch, head, row),
+//   the softmax max and sum, r, live, sum dN G and sum dP P.
+// * Keys launch, one block per (batch, head, tile of 32 keys), the query
+//   rows 16 at a time, dV and dK in registers. Plain FMAs on CUDA cores.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
+
+#include "mma_sm90.cuh"
 
 namespace {
 
@@ -272,10 +305,11 @@ graph_attention_ln_bwd_rows_kernel(
     const float coef = nonzero ? ssum * inv * inv / ((float)max(C - 1, 1) * sd) : 0.f;
     for (int c = lane; c < C; c += 32) {
       const float dxh = to_float(dyb[(size_t)r * C + c]) * gamma[c];
-      const float dx = (dxh - mean_dxh) * inv - xr[c] * coef;
-      xr[c] = dx;
-      dob[(size_t)r * C + c] = dx;
-      dres[((size_t)b * Tq + row0 + r) * C + c] = from_float<T>(dx);
+      // dO enters the products in T: rounded once, here; dresidual is that value
+      const T dxt = from_float<T>((dxh - mean_dxh) * inv - xr[c] * coef);
+      xr[c] = to_float(dxt);
+      dob[(size_t)r * C + c] = to_float(dxt);
+      dres[((size_t)b * Tq + row0 + r) * C + c] = dxt;
     }
   }
   __syncthreads();  // acc holds dO
@@ -337,7 +371,7 @@ graph_attention_ln_bwd_rows_kernel(
       }
       dpp = warp_sum(dpp);
       for (int j = lane; j < Tk; j += 32)
-        dr[j] = km[j] == 0.f ? 0.f : pr[j] * (dr[j] - dpp) * scale;
+        dr[j] = km[j] == 0.f ? 0.f : to_float(from_float<T>(pr[j] * (dr[j] - dpp) * scale));
       if (lane == 0) {
         float* out = stats + (((size_t)b * H + h) * Tq + row0 + r) * kStats;
         out[0] = st[0];
@@ -444,9 +478,10 @@ graph_attention_ln_bwd_keys_kernel(
       const float gj = graph[((size_t)b * Tq + r0 + r) * Tk + j0 + j];
       const float g = pj * gj;
       const float qmr = qmc[r];
-      aw[r * (kKTile + 1) + j] = g / sr[2] * qmr;
+      aw[r * (kKTile + 1) + j] = to_float(from_float<T>(g / sr[2] * qmr));
       const float dp = d_graph_weight(da * qmr, g, sr[2], sr[3], sr[4], renorm) * gj;
-      sw[r * (kKTile + 1) + j] = masked ? 0.f : pj * (dp - sr[5]) * scale;
+      sw[r * (kKTile + 1) + j] =
+          masked ? 0.f : to_float(from_float<T>(pj * (dp - sr[5]) * scale));
     }
     __syncthreads();
 #pragma unroll
@@ -514,19 +549,757 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* key
   return cudaGetLastError();
 }
 
+
+// ---- the tensor-core kernels (bf16, head width a multiple of 16) ----
+
+using bf16 = __nv_bfloat16;
+using savqa::cp_async16;
+using savqa::cp_async_commit;
+using savqa::cp_async_wait;
+using savqa::fast_exp2;
+using savqa::frag_a_row;
+using savqa::frag_b_row;
+using savqa::frag_bt_row;
+using savqa::ldmatrix_x4;
+using savqa::ldmatrix_x4_trans;
+using savqa::load_graph_frag;
+using savqa::mma_bf16;
+using savqa::pack_bf16;
+using savqa::quad_max;
+using savqa::quad_sum;
+using savqa::stage_head_tile;
+
+constexpr int kTcRows = 32;       // rows launch: query rows per block, 16 a warp
+constexpr int kTcRowThreads = 64;
+constexpr int kTcKeys = 64;       // keys launch: keys per block, 16 a warp
+constexpr int kTcKeyThreads = 128;
+constexpr int kStep = 64;         // keys (rows launch) or query rows (keys launch) per step
+constexpr int kNS = kStep / 8;    // 8-wide accumulator blocks of a step
+constexpr float kLog2e = 1.4426950408889634f;
+// per (batch, head, row) constants the rows launch hands to the keys launch
+// (kStats floats): m in units of log 2, 1 / z, c1 = qmask / r,
+// c2 = live inner / r^2 (sum_eps: inner / r^2), dpp = sum dP P
+enum { kStM = 0, kStInvZ = 1, kStC1 = 2, kStC2 = 3, kStDpp = 4 };
+
+// Sum over the 8 lanes that share a row in the LayerNorm backward.
+__device__ __forceinline__ float group8_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  return x + __shfl_xor_sync(0xffffffffu, x, 4);
+}
+
+// Eight consecutive values (32- or 16-byte aligned) to and from registers.
+__device__ __forceinline__ void load8(float (&x)[8], const float* p) {
+  const float4 lo = *reinterpret_cast<const float4*>(p);
+  const float4 hi = *reinterpret_cast<const float4*>(p + 4);
+  x[0] = lo.x; x[1] = lo.y; x[2] = lo.z; x[3] = lo.w;
+  x[4] = hi.x; x[5] = hi.y; x[6] = hi.z; x[7] = hi.w;
+}
+
+__device__ __forceinline__ void load8(float (&x)[8], const bf16* p) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {   // a bf16 is the upper half of an f32
+    x[2 * i] = __uint_as_float(w[i] << 16);
+    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ void store8(float* p, const float (&x)[8]) {
+  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(x[4], x[5], x[6], x[7]);
+}
+
+// acc (16 x 64 a warp) = A B^T for one step: A the warp's 16 x DH fragments,
+// B the rows of a (kStep, DH + 8) tile. Only the first n_real rows of the
+// tile are real (a ragged last step): 8-wide blocks past them are skipped
+// and left at zero.
+template <int DH>
+__device__ __forceinline__ void step_product(float (&acc)[kNS][4],
+                                             const uint32_t (&af)[DH / 16][4], const bf16* tile,
+                                             int lane, int n_real) {
+#pragma unroll
+  for (int nb = 0; nb < kNS; ++nb) acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
+#pragma unroll
+  for (int kd = 0; kd < DH / 16; ++kd) {
+    uint32_t bfr[kNS / 2][4];
+#pragma unroll
+    for (int nb = 0; nb < kNS; nb += 2)
+      if (nb * 8 < n_real)
+        ldmatrix_x4(bfr[nb / 2], frag_b_row(tile, DH + 8, nb * 8, kd * 16, lane));
+#pragma unroll
+    for (int nb = 0; nb < kNS; nb += 2) {
+      if (nb * 8 < n_real) {
+        mma_bf16(acc[nb], af[kd], bfr[nb / 2][0], bfr[nb / 2][1]);
+        mma_bf16(acc[nb + 1], af[kd], bfr[nb / 2][2], bfr[nb / 2][3]);
+      }
+    }
+  }
+}
+
+// out (16 x DH a warp) += W B for one step: W (16 x 64) the step's weights,
+// rounded to bf16 here, B the (kStep, DH + 8) tile, of which the first
+// n_real rows are real (W is zero past them).
+template <int DH>
+__device__ __forceinline__ void step_accumulate(float (&out)[DH / 8][4],
+                                                const float (&w)[kNS][4], const bf16* tile,
+                                                int lane, int n_real) {
+#pragma unroll
+  for (int kk = 0; kk < kStep / 16; ++kk) {
+    if (kk * 16 >= n_real) continue;
+    uint32_t wf[4];
+    wf[0] = pack_bf16(w[2 * kk][0], w[2 * kk][1]);
+    wf[1] = pack_bf16(w[2 * kk][2], w[2 * kk][3]);
+    wf[2] = pack_bf16(w[2 * kk + 1][0], w[2 * kk + 1][1]);
+    wf[3] = pack_bf16(w[2 * kk + 1][2], w[2 * kk + 1][3]);
+    uint32_t bfr[DH / 16][4];
+#pragma unroll
+    for (int nd = 0; nd < DH / 8; nd += 2)
+      ldmatrix_x4_trans(bfr[nd / 2], frag_bt_row(tile, DH + 8, kk * 16, nd * 8, lane));
+#pragma unroll
+    for (int nd = 0; nd < DH / 8; nd += 2) {
+      mma_bf16(out[nd], wf, bfr[nd / 2][0], bfr[nd / 2][1]);
+      mma_bf16(out[nd + 1], wf, bfr[nd / 2][2], bfr[nd / 2][3]);
+    }
+  }
+}
+
+// One pass of the rows launch over the keys of head c0, 64 at a time,
+// through a two-stage ring of (K, V) tiles filled with cp.async: the copies
+// of step j + 1 overlap body(j, Ks, Vs). With `with_q` the head's Q tile is
+// staged too and has landed before body(0, ..). Up to 128 keys the ring
+// holds every tile of the head, and a later pass over the same head reads
+// them where they are (`load` false: no copy and no barrier).
+template <int DH, typename Body>
+__device__ __forceinline__ void key_pass(bf16* ring, bf16* Qs, const bf16* qb, const bf16* kb,
+                                         const bf16* vb, int row0, int Tq, int Tk, int C, int c0,
+                                         int dh, bool with_q, bool with_v, bool load_tiles,
+                                         Body body) {
+  constexpr int kLd = DH + 8;
+  const int n_steps = (Tk + kStep - 1) / kStep;
+  if (!load_tiles) {
+    for (int step = 0; step < n_steps; ++step) {
+      const bf16* Ks = ring + (step & 1) * 2 * kStep * kLd;
+      body(step, Ks, Ks + kStep * kLd);
+    }
+    return;
+  }
+  auto load = [&](int step) {
+    bf16* Ks = ring + (step & 1) * 2 * kStep * kLd;
+    stage_head_tile<DH, kTcRowThreads>(Ks, kb, step * kStep, Tk, kStep, C, c0, dh);
+    if (with_v)
+      stage_head_tile<DH, kTcRowThreads>(Ks + kStep * kLd, vb, step * kStep, Tk, kStep, C, c0, dh);
+  };
+  __syncthreads();   // the previous pass's readers of the ring and of Qs are done
+  if (with_q) stage_head_tile<DH, kTcRowThreads>(Qs, qb, row0, Tq, kTcRows, C, c0, dh);
+  load(0);
+  cp_async_commit();
+  for (int step = 0; step < n_steps; ++step) {
+    cp_async_wait<0>();
+    __syncthreads();   // this step's tiles have landed; the other stage's readers are done
+    if (step + 1 < n_steps) load(step + 1);
+    cp_async_commit();
+    const bf16* Ks = ring + (step & 1) * 2 * kStep * kLd;
+    body(step, Ks, Ks + kStep * kLd);
+  }
+  cp_async_wait<0>();
+}
+
+// Rows launch. Shared memory:
+//   X: acc (32, C + 8) f32 in sections 1-2, the (K, V) ring in section 3
+//   Y: the (K, V) ring in section 1, dO (32, C + 8) bf16 in sections 2-3
+//   Qs (32, DH + 8) bf16 | kmul, kfill (ceil(Tk / 64) * 64) f32
+//   | hstat (H, 32, 4) f32 | rowst (32, 4) f32
+template <int DH>
+__global__ void __launch_bounds__(kTcRowThreads)
+graph_attention_ln_bwd_rows_tc_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const float* __restrict__ key_mask, const float* __restrict__ query_mask,
+    const float* __restrict__ graph, const bf16* __restrict__ residual,
+    const float* __restrict__ gamma, const bf16* __restrict__ dy, bf16* __restrict__ dq,
+    bf16* __restrict__ dres, float* __restrict__ partials, float* __restrict__ stats, int Tq,
+    int Tk, int C, int H, int dh, int renorm, float scale, int x_bytes, int y_bytes) {
+  constexpr int kLd = DH + 8;
+  constexpr int kKD = DH / 16;
+  constexpr int kND = DH / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ldc = C + 8;
+  const int n_steps = (Tk + kStep - 1) / kStep;
+  float* acc = reinterpret_cast<float*>(smem_raw);
+  bf16* dOs = reinterpret_cast<bf16*>(smem_raw + x_bytes);
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw + x_bytes + y_bytes);
+  float* kmul = reinterpret_cast<float*>(Qs + kTcRows * kLd);
+  float* kfill = kmul + n_steps * kStep;
+  float* hstat = kfill + n_steps * kStep;
+  float* rowst = hstat + H * kTcRows * 4;
+
+  const int b = blockIdx.y;
+  const int row0 = blockIdx.x * kTcRows;
+  const int rows = min(kTcRows, Tq - row0);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int lrow_a = warp * 16 + g;   // this lane's two rows within the tile
+  const int lrow_b = lrow_a + 8;
+  const bool real_a = lrow_a < rows, real_b = lrow_b < rows;
+  const bool active = warp * 16 < rows;   // this warp holds a real row
+  const bool graph_pairs = (Tk & 1) == 0;
+  const float scale2 = scale * kLog2e;
+  const bool resident = n_steps <= 2;   // the ring holds all K and V of a head
+
+  const bf16* qb = q + (size_t)b * Tq * C;
+  const bf16* kb = k + (size_t)b * Tk * C;
+  const bf16* vb = v + (size_t)b * Tk * C;
+  const float* graph_a = graph + ((size_t)b * Tq + row0 + (real_a ? lrow_a : 0)) * Tk;
+  const float* graph_b = graph + ((size_t)b * Tq + row0 + (real_b ? lrow_b : 0)) * Tk;
+  const float qm_a = real_a ? query_mask[(size_t)b * Tq + row0 + lrow_a] : 0.f;
+  const float qm_b = real_b ? query_mask[(size_t)b * Tq + row0 + lrow_b] : 0.f;
+  const bf16* rb = residual + ((size_t)b * Tq + row0) * C;
+  const bf16* dyb = dy + ((size_t)b * Tq + row0) * C;
+
+  // x = s * kmul + kfill is the masked score in units of log 2: (scale
+  // log2(e), 0) on a real key, (0, fill) on a masked one, (0, -inf) past Tk
+  for (int j = tid; j < n_steps * kStep; j += kTcRowThreads) {
+    const bool in = j < Tk;
+    const bool keep = in && key_mask[(size_t)b * Tk + j] != 0.f;
+    kmul[j] = keep ? scale2 : 0.f;
+    kfill[j] = keep ? 0.f : in ? kNegMask : -INFINITY;
+  }
+
+  uint32_t qf[kKD][4];
+  auto load_q = [&]() {
+#pragma unroll
+    for (int kd = 0; kd < kKD; ++kd)
+      ldmatrix_x4(qf[kd], frag_a_row(Qs, kLd, warp * 16, kd * 16, lane));
+  };
+  // the step's masked scores (log 2 units) from Q K^T
+  auto scores = [&](float (&s)[kNS][4], const bf16* Ks, int step) {
+    step_product<DH>(s, qf, Ks, lane, Tk - step * kStep);
+#pragma unroll
+    for (int nb = 0; nb < kNS; ++nb) {
+      const int j = step * kStep + nb * 8 + 2 * t;
+      const float2 mul = *reinterpret_cast<const float2*>(kmul + j);
+      const float2 fill = *reinterpret_cast<const float2*>(kfill + j);
+      s[nb][0] = fmaf(s[nb][0], mul.x, fill.x);
+      s[nb][1] = fmaf(s[nb][1], mul.y, fill.y);
+      s[nb][2] = fmaf(s[nb][2], mul.x, fill.x);
+      s[nb][3] = fmaf(s[nb][3], mul.y, fill.y);
+    }
+  };
+  auto graph_step = [&](float (&gr)[kNS][4], int step) {
+    load_graph_frag<kNS>(gr, graph_a, graph_b, step * kStep + 2 * t, Tk, real_a, real_b,
+                         graph_pairs);
+  };
+
+  // ---- 1. the forward output of every head, as K1 computes it ----
+  bf16* ring = dOs;
+  for (int h = 0; h < H; ++h) {
+    const int c0 = h * dh;
+    // pass A: the softmax maximum m and sum z, and b = sum e g, online
+    float m_a = -INFINITY, m_b = -INFINITY, z_a = 0.f, z_b = 0.f, b_a = 0.f, b_b = 0.f;
+    key_pass<DH>(ring, Qs, qb, kb, vb, row0, Tq, Tk, C, c0, dh, true, resident, true,
+                 [&](int step, const bf16* Ks, const bf16*) {
+      if (!active) return;
+      if (step == 0) load_q();
+      float gr[kNS][4], s[kNS][4];
+      graph_step(gr, step);
+      scores(s, Ks, step);
+      const int nk = Tk - step * kStep;   // real keys of this step (more than 64: all)
+      float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+      for (int nb = 0; nb < kNS; ++nb) {
+        if (nb * 8 >= nk) continue;
+        mx_a = fmaxf(mx_a, fmaxf(s[nb][0], s[nb][1]));
+        mx_b = fmaxf(mx_b, fmaxf(s[nb][2], s[nb][3]));
+      }
+      const float mn_a = fmaxf(m_a, quad_max(mx_a)), mn_b = fmaxf(m_b, quad_max(mx_b));
+      const float alpha_a = fast_exp2(m_a - mn_a), alpha_b = fast_exp2(m_b - mn_b);
+      m_a = mn_a;
+      m_b = mn_b;
+      float sz_a = 0.f, sz_b = 0.f, sb_a = 0.f, sb_b = 0.f;
+#pragma unroll
+      for (int nb = 0; nb < kNS; ++nb) {
+        if (nb * 8 >= nk) continue;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float e = fast_exp2(s[nb][c] - (c < 2 ? mn_a : mn_b));
+          if (c < 2) { sz_a += e; sb_a += e * gr[nb][c]; } else { sz_b += e; sb_b += e * gr[nb][c]; }
+        }
+      }
+      z_a = z_a * alpha_a + sz_a;
+      z_b = z_b * alpha_b + sz_b;
+      b_a = b_a * alpha_a + sb_a;
+      b_b = b_b * alpha_b + sb_b;
+    });
+    float iz_a = 0.f, iz_b = 0.f, c1_a = 0.f, c1_b = 0.f;
+    if (active) {
+      iz_a = 1.f / quad_sum(z_a);
+      iz_b = 1.f / quad_sum(z_b);
+      const float rs_a = quad_sum(b_a) * iz_a, rs_b = quad_sum(b_b) * iz_b;   // sum of P graph
+      const float r_a = renorm == 0 ? fmaxf(rs_a, kL1Eps) : rs_a + kSumEps;
+      const float r_b = renorm == 0 ? fmaxf(rs_b, kL1Eps) : rs_b + kSumEps;
+      const float live_a = renorm == 0 ? (rs_a > kL1Eps ? 1.f : 0.f) : 1.f;
+      const float live_b = renorm == 0 ? (rs_b > kL1Eps ? 1.f : 0.f) : 1.f;
+      c1_a = qm_a / r_a;
+      c1_b = qm_b / r_b;
+      if (t == 0) {
+        float* st = hstat + (h * kTcRows + lrow_a) * 4;
+        st[0] = m_a; st[1] = iz_a; st[2] = c1_a; st[3] = live_a / (r_a * r_a);
+        st = hstat + (h * kTcRows + lrow_b) * 4;
+        st[0] = m_b; st[1] = iz_b; st[2] = c1_b; st[3] = live_b / (r_b * r_b);
+      }
+    }
+    // pass B: O = A V with A = P graph / r * qmask rounded to V's type
+    float o[kND][4];
+#pragma unroll
+    for (int i = 0; i < kND; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+    key_pass<DH>(ring, Qs, qb, kb, vb, row0, Tq, Tk, C, c0, dh, false, true, !resident,
+                 [&](int step, const bf16* Ks, const bf16* Vs) {
+      if (!active) return;
+      const int nk = Tk - step * kStep;
+      float gr[kNS][4], s[kNS][4];
+      graph_step(gr, step);
+      scores(s, Ks, step);
+#pragma unroll
+      for (int nb = 0; nb < kNS; ++nb) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if (nb * 8 >= nk) { s[nb][c] = 0.f; continue; }
+          const float p = fast_exp2(s[nb][c] - (c < 2 ? m_a : m_b)) * (c < 2 ? iz_a : iz_b);
+          s[nb][c] = p * gr[nb][c] * (c < 2 ? c1_a : c1_b);
+        }
+      }
+      step_accumulate<DH>(o, s, Vs, lane, nk);
+    });
+    if (active) {
+#pragma unroll
+      for (int i = 0; i < kND; ++i) {
+        const int d = i * 8 + 2 * t;
+        if (d >= dh) continue;
+        *reinterpret_cast<float2*>(acc + lrow_a * ldc + c0 + d) = make_float2(o[i][0], o[i][1]);
+        *reinterpret_cast<float2*>(acc + lrow_b * ldc + c0 + d) = make_float2(o[i][2], o[i][3]);
+      }
+    }
+  }
+  __syncthreads();   // acc of every head complete; the ring is free
+
+  // ---- 2. LayerNorm backward: acc becomes x - mean; dO, rounded, goes to dOs ----
+  // Eight lanes share a row, four rows a warp at a time; a lane owns the
+  // 8-channel chunks sub, sub + 8, ... of its row (16-byte loads and stores).
+  const int sub = lane & 7;
+  const int n_chunks = C / 8;
+  constexpr int kRowsAtOnce = kTcRowThreads / 8;
+  for (int r = tid >> 3; r < kTcRows; r += kRowsAtOnce) {
+    const bool real = r < rows;
+    float* xr = acc + r * ldc;
+    float s = 0.f;
+    for (int ch = sub; ch < n_chunks; ch += 8) {
+      float x[8], res[8];
+      load8(x, xr + ch * 8);
+      if (real) load8(res, rb + (size_t)r * C + ch * 8);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        x[i] = real ? x[i] + res[i] : 0.f;
+        s += x[i];
+      }
+      store8(xr + ch * 8, x);
+    }
+    const float mean = group8_sum(s) / (float)C;
+    float ss = 0.f;
+    for (int ch = sub; ch < n_chunks; ch += 8) {
+      float x[8];
+      load8(x, xr + ch * 8);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        x[i] -= mean;
+        ss += x[i] * x[i];
+      }
+      store8(xr + ch * 8, x);
+    }
+    const float var = group8_sum(ss) / (float)max(C - 1, 1);
+    const float sd = var > 0.f ? sqrtf(var) : 0.f;
+    if (sub == 0) {
+      rowst[r * 4 + 0] = 1.f / (sd + kLnEps);
+      rowst[r * 4 + 1] = sd;
+      rowst[r * 4 + 2] = var > 0.f ? 1.f : 0.f;
+    }
+  }
+  __syncthreads();
+  // per-block dgamma / dbeta partials, one column per thread
+  float* part = partials + ((size_t)b * gridDim.x + blockIdx.x) * 2 * C;
+  for (int c = tid; c < C; c += kTcRowThreads) {
+    float sg = 0.f, sb = 0.f;
+    for (int r = 0; r < rows; ++r) {
+      const float gy = to_float(dyb[(size_t)r * C + c]);
+      sb += gy;
+      sg += gy * (acc[r * ldc + c] * rowst[r * 4 + 0]);
+    }
+    part[c] = sg;
+    part[C + c] = sb;
+  }
+  for (int r = tid >> 3; r < kTcRows; r += kRowsAtOnce) {
+    const bool real = r < rows;   // rows past the end of the tile enter the products as zeros
+    bf16* dor = dOs + r * ldc;
+    const float* xr = acc + r * ldc;
+    const float inv = rowst[r * 4 + 0];
+    const float sd = rowst[r * 4 + 1];
+    const bool nonzero = rowst[r * 4 + 2] != 0.f;
+    float sum_dxh = 0.f, ssum = 0.f;
+    for (int ch = sub; ch < n_chunks && real; ch += 8) {
+      float gy[8], ga[8], x[8];
+      load8(gy, dyb + (size_t)r * C + ch * 8);
+      load8(ga, gamma + ch * 8);
+      load8(x, xr + ch * 8);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float dxh = gy[i] * ga[i];
+        sum_dxh += dxh;
+        ssum += dxh * x[i];
+      }
+    }
+    const float mean_dxh = group8_sum(sum_dxh) / (float)C;
+    ssum = group8_sum(ssum);
+    const float coef = real && nonzero ? ssum * inv * inv / ((float)max(C - 1, 1) * sd) : 0.f;
+    for (int ch = sub; ch < n_chunks; ch += 8) {
+      float dx[8];
+      if (real) {
+        float gy[8], ga[8], x[8];
+        load8(gy, dyb + (size_t)r * C + ch * 8);
+        load8(ga, gamma + ch * 8);
+        load8(x, xr + ch * 8);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) dx[i] = (gy[i] * ga[i] - mean_dxh) * inv - x[i] * coef;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) dx[i] = 0.f;
+      }
+      // dO enters the products as bf16: rounded once, here; dresidual is that value
+      const uint4 packed = make_uint4(pack_bf16(dx[0], dx[1]), pack_bf16(dx[2], dx[3]),
+                                      pack_bf16(dx[4], dx[5]), pack_bf16(dx[6], dx[7]));
+      *reinterpret_cast<uint4*>(dor + ch * 8) = packed;
+      if (real)
+        *reinterpret_cast<uint4*>(dres + ((size_t)b * Tq + row0 + r) * C + ch * 8) = packed;
+    }
+  }
+  __syncthreads();   // dOs complete; acc is dead and its room becomes the ring
+
+  // ---- 3. per head: dA, dS and dQ; the row constants for the keys launch ----
+  ring = reinterpret_cast<bf16*>(smem_raw);
+  for (int h = 0; h < H; ++h) {
+    const int c0 = h * dh;
+    const float* st_a = hstat + (h * kTcRows + lrow_a) * 4;
+    const float* st_b = hstat + (h * kTcRows + lrow_b) * 4;
+    const float m_a = st_a[0], iz_a = st_a[1], c1_a = st_a[2];
+    const float m_b = st_b[0], iz_b = st_b[1], c1_b = st_b[2];
+    uint32_t dof[kKD][4];
+#pragma unroll
+    for (int kd = 0; kd < kKD; ++kd) {
+      if (kd * 16 < dh) {
+        ldmatrix_x4(dof[kd], frag_a_row(dOs, ldc, warp * 16, c0 + kd * 16, lane));
+      } else {   // a zero-padded head: no channels of the next head
+        dof[kd][0] = dof[kd][1] = dof[kd][2] = dof[kd][3] = 0u;
+      }
+    }
+    // p = P, gq = P graph and da = dO V^T of one step
+    auto tiles = [&](float (&p)[kNS][4], float (&gq)[kNS][4], float (&da)[kNS][4],
+                     const bf16* Ks, const bf16* Vs, int step) {
+      const int nk = Tk - step * kStep;
+      graph_step(gq, step);
+      scores(p, Ks, step);
+      step_product<DH>(da, dof, Vs, lane, nk);
+#pragma unroll
+      for (int nb = 0; nb < kNS; ++nb) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if (nb * 8 >= nk) { p[nb][c] = gq[nb][c] = 0.f; continue; }   // da is zero there
+          p[nb][c] = fast_exp2(p[nb][c] - (c < 2 ? m_a : m_b)) * (c < 2 ? iz_a : iz_b);
+          gq[nb][c] *= p[nb][c];
+        }
+      }
+    };
+    // pass C: s1 = sum dA G and s2 = sum sign(G) G (sum_eps: sum G) give both
+    // row sums of the renorm and softmax backwards, regrouped:
+    //   inner = sum dN G = qmask s1
+    //   dpp = sum dP P = sum (dN / r - corr / r^2) G = c1 s1 - c2 s2
+    float s1_a = 0.f, s1_b = 0.f, s2_a = 0.f, s2_b = 0.f;
+    key_pass<DH>(ring, Qs, qb, kb, vb, row0, Tq, Tk, C, c0, dh, true, true, true,
+                 [&](int step, const bf16* Ks, const bf16* Vs) {
+      if (!active) return;
+      if (step == 0) load_q();
+      float p[kNS][4], gq[kNS][4], da[kNS][4];
+      tiles(p, gq, da, Ks, Vs, step);
+#pragma unroll
+      for (int nb = 0; nb < kNS; ++nb) {
+        if (nb * 8 >= Tk - step * kStep) continue;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float sg = renorm == 0 ? fabsf(gq[nb][c]) : gq[nb][c];
+          if (c < 2) { s1_a += da[nb][c] * gq[nb][c]; s2_a += sg; }
+          else { s1_b += da[nb][c] * gq[nb][c]; s2_b += sg; }
+        }
+      }
+    });
+    float c2_a = 0.f, c2_b = 0.f, dpp_a = 0.f, dpp_b = 0.f;
+    if (active) {
+      s1_a = quad_sum(s1_a);
+      s1_b = quad_sum(s1_b);
+      c2_a = qm_a * s1_a * st_a[3];
+      c2_b = qm_b * s1_b * st_b[3];
+      dpp_a = c1_a * s1_a - c2_a * quad_sum(s2_a);
+      dpp_b = c1_b * s1_b - c2_b * quad_sum(s2_b);
+    }
+    // pass E: dS = P (dP - dpp), 0 on masked keys, scaled; dQ = dS K
+    float dqa[kND][4];
+#pragma unroll
+    for (int i = 0; i < kND; ++i) dqa[i][0] = dqa[i][1] = dqa[i][2] = dqa[i][3] = 0.f;
+    key_pass<DH>(ring, Qs, qb, kb, vb, row0, Tq, Tk, C, c0, dh, false, true, !resident,
+                 [&](int step, const bf16* Ks, const bf16* Vs) {
+      if (!active) return;
+      float p[kNS][4], gq[kNS][4], da[kNS][4];
+      tiles(p, gq, da, Ks, Vs, step);
+#pragma unroll
+      for (int nb = 0; nb < kNS; ++nb) {
+        if (nb * 8 >= Tk - step * kStep) continue;   // p, gq and da are zero there
+        const int j = step * kStep + nb * 8 + 2 * t;
+        const float2 mul = *reinterpret_cast<const float2*>(kmul + j);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float corr = (c < 2 ? c2_a : c2_b) * (renorm == 0 ? sign_of(gq[nb][c]) : 1.f);
+          // P dP = (dN / r - corr / r^2) G
+          const float pdp = (da[nb][c] * (c < 2 ? c1_a : c1_b) - corr) * gq[nb][c];
+          const float keep = (c & 1 ? mul.y : mul.x) != 0.f ? scale : 0.f;
+          da[nb][c] = (pdp - p[nb][c] * (c < 2 ? dpp_a : dpp_b)) * keep;
+        }
+      }
+      step_accumulate<DH>(dqa, da, Ks, lane, Tk - step * kStep);
+    });
+    if (active) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        if (!(half == 0 ? real_a : real_b)) continue;
+        const int row = row0 + (half == 0 ? lrow_a : lrow_b);
+#pragma unroll
+        for (int i = 0; i < kND; ++i) {
+          const int d = i * 8 + 2 * t;
+          if (d >= dh) continue;
+          *reinterpret_cast<__nv_bfloat162*>(dq + ((size_t)b * Tq + row) * C + c0 + d) =
+              __floats2bfloat162_rn(dqa[i][2 * half], dqa[i][2 * half + 1]);
+        }
+        if (t == 0) {
+          float* out = stats + (((size_t)b * H + h) * Tq + row) * kStats;
+          out[kStM] = half == 0 ? m_a : m_b;
+          out[kStInvZ] = half == 0 ? iz_a : iz_b;
+          out[kStC1] = half == 0 ? c1_a : c1_b;
+          out[kStC2] = half == 0 ? c2_a : c2_b;
+          out[kStDpp] = half == 0 ? dpp_a : dpp_b;
+          out[5] = out[6] = out[7] = 0.f;
+        }
+      }
+    }
+  }
+}
+
+// Keys launch, one block of 4 warps per (batch, head, 64 keys), 16 keys a
+// warp: K and V fragments stay in registers as A operands; the query rows
+// stream past 64 at a time (Q, dO and the row constants through a two-stage
+// cp.async ring) and dK, dV accumulate in fragments.
+// Shared memory: Ks, Vs (64, DH + 8) bf16 | per stage Qc, dOc (64, DH + 8)
+// bf16, two stages | per stage st (64, kStats) f32, two stages
+template <int DH>
+__global__ void __launch_bounds__(kTcKeyThreads)
+graph_attention_ln_bwd_keys_tc_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const float* __restrict__ key_mask, const float* __restrict__ graph,
+    const bf16* __restrict__ d_out, const float* __restrict__ stats, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int Tq, int Tk, int C, int H, int dh, int renorm, float scale) {
+  constexpr int kLd = DH + 8;
+  constexpr int kKD = DH / 16;
+  constexpr int kND = DH / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + kTcKeys * kLd;
+  bf16* ring = Vs + kTcKeys * kLd;
+  float* sts = reinterpret_cast<float*>(ring + 4 * kStep * kLd);
+
+  const int j0 = blockIdx.x * kTcKeys;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int c0 = h * dh;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int key_a = j0 + warp * 16 + g;   // this lane's two keys
+  const int key_b = key_a + 8;
+  const bool active = j0 + warp * 16 < Tk;
+  const float scale2 = scale * kLog2e;
+  const int n_steps = (Tq + kStep - 1) / kStep;
+
+  const bf16* qb = q + (size_t)b * Tq * C;
+  const bf16* dob = d_out + (size_t)b * Tq * C;
+  const float* stb = stats + ((size_t)b * H + h) * Tq * kStats;
+  const float* gb = graph + (size_t)b * Tq * Tk;
+  const bool keep_a = key_a < Tk && key_mask[(size_t)b * Tk + key_a] != 0.f;
+  const bool keep_b = key_b < Tk && key_mask[(size_t)b * Tk + key_b] != 0.f;
+
+  auto load = [&](int step) {
+    bf16* Qc = ring + (step & 1) * 2 * kStep * kLd;
+    stage_head_tile<DH, kTcKeyThreads>(Qc, qb, step * kStep, Tq, kStep, C, c0, dh);
+    stage_head_tile<DH, kTcKeyThreads>(Qc + kStep * kLd, dob, step * kStep, Tq, kStep, C, c0, dh);
+    // the rows' constants: kStats floats a row, two 16-byte copies; zeros past Tq
+    for (int i = tid; i < kStep * 2; i += kTcKeyThreads) {
+      const int r = step * kStep + (i >> 1);
+      const bool valid = r < Tq;
+      cp_async16(sts + (step & 1) * kStep * kStats + i * 4,
+                 stb + (size_t)(valid ? r : 0) * kStats + (i & 1) * 4, valid);
+    }
+  };
+
+  stage_head_tile<DH, kTcKeyThreads>(Ks, k + (size_t)b * Tk * C, j0, Tk, kTcKeys, C, c0, dh);
+  stage_head_tile<DH, kTcKeyThreads>(Vs, v + (size_t)b * Tk * C, j0, Tk, kTcKeys, C, c0, dh);
+  load(0);
+  cp_async_commit();
+
+  uint32_t kf[kKD][4], vf[kKD][4];
+  float dka[kND][4], dva[kND][4];
+#pragma unroll
+  for (int i = 0; i < kND; ++i) {
+    dka[i][0] = dka[i][1] = dka[i][2] = dka[i][3] = 0.f;
+    dva[i][0] = dva[i][1] = dva[i][2] = dva[i][3] = 0.f;
+  }
+
+  for (int step = 0; step < n_steps; ++step) {
+    cp_async_wait<0>();
+    __syncthreads();   // this step's tiles have landed; the other stage's readers are done
+    if (step + 1 < n_steps) load(step + 1);
+    cp_async_commit();
+    if (!active) continue;
+    if (step == 0) {
+#pragma unroll
+      for (int kd = 0; kd < kKD; ++kd) {
+        ldmatrix_x4(kf[kd], frag_a_row(Ks, kLd, warp * 16, kd * 16, lane));
+        ldmatrix_x4(vf[kd], frag_a_row(Vs, kLd, warp * 16, kd * 16, lane));
+      }
+    }
+    const bf16* Qc = ring + (step & 1) * 2 * kStep * kLd;
+    const bf16* dOc = Qc + kStep * kLd;
+    const float* st = sts + (step & 1) * kStep * kStats;
+    const int r0 = step * kStep;
+
+    // graph[row][key] of this lane's fragment entries (rows along the
+    // columns: 2t, 2t + 1 of each 8-wide block), in flight during the products
+    float gr[kNS][4];
+#pragma unroll
+    for (int nb = 0; nb < kNS; ++nb) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int row = r0 + nb * 8 + 2 * t + (c & 1);
+        const int key = c < 2 ? key_a : key_b;
+        gr[nb][c] = row < Tq && key < Tk ? __ldg(gb + (size_t)row * Tk + key) : 0.f;
+      }
+    }
+    const int nr = Tq - r0;   // real query rows of this step (more than 64: all)
+    float w[kNS][4], da[kNS][4];
+    step_product<DH>(w, kf, Qc, lane, nr);     // S^T = K Q^T: 16 keys x 64 rows
+    step_product<DH>(da, vf, dOc, lane, nr);   // dA^T = V dO^T
+#pragma unroll
+    for (int nb = 0; nb < kNS; ++nb) {
+      if (nb * 8 >= nr) continue;   // w and da are zero there
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float* rc = st + (nb * 8 + 2 * t + (c & 1)) * kStats;   // zeros past Tq
+        const bool keep = c < 2 ? keep_a : keep_b;
+        const float x = keep ? w[nb][c] * scale2 : kNegMask;
+        const float p = fast_exp2(x - rc[kStM]) * rc[kStInvZ];
+        const float gq = p * gr[nb][c];
+        const float corr = renorm == 0 ? rc[kStC2] * sign_of(gq) : rc[kStC2];
+        const float pdp = (da[nb][c] * rc[kStC1] - corr) * gq;
+        w[nb][c] = gq * rc[kStC1];                                      // A
+        da[nb][c] = keep ? (pdp - p * rc[kStDpp]) * scale : 0.f;        // dS
+      }
+    }
+    step_accumulate<DH>(dva, w, dOc, lane, nr);   // dV += A^T dO
+    step_accumulate<DH>(dka, da, Qc, lane, nr);   // dK += dS^T Q
+  }
+  cp_async_wait<0>();
+  if (!active) return;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = half == 0 ? key_a : key_b;
+    if (key >= Tk) continue;
+#pragma unroll
+    for (int i = 0; i < kND; ++i) {
+      const int d = i * 8 + 2 * t;
+      if (d >= dh) continue;
+      const size_t at = ((size_t)b * Tk + key) * C + c0 + d;
+      *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+          __floats2bfloat162_rn(dka[i][2 * half], dka[i][2 * half + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+          __floats2bfloat162_rn(dva[i][2 * half], dva[i][2 * half + 1]);
+    }
+  }
+}
+
+inline size_t round16(size_t n) { return (n + 15) / 16 * 16; }
+
+template <int DH>
+cudaError_t launch_tc(const bf16* q, const bf16* k, const bf16* v, const float* key_mask,
+                      const float* query_mask, const float* graph, const bf16* residual,
+                      const float* gamma, const bf16* dy, bf16* dq, bf16* dk, bf16* dv,
+                      bf16* dres, float* partials, float* stats, int B, int Tq, int Tk, int C,
+                      int H, int renorm, float scale, cudaStream_t stream) {
+  const int dh = C / H;
+  const int n_steps = (Tk + kStep - 1) / kStep;
+  const size_t ring = sizeof(bf16) * 4 * kStep * (DH + 8);
+  const size_t x_bytes = round16(max(sizeof(float) * kTcRows * (C + 8), ring));
+  const size_t y_bytes = round16(max(sizeof(bf16) * kTcRows * (C + 8), ring));
+  const size_t smem_a = x_bytes + y_bytes + sizeof(bf16) * kTcRows * (DH + 8) +
+                        sizeof(float) * (2 * n_steps * kStep + (H + 1) * kTcRows * 4);
+  auto rows_kernel = graph_attention_ln_bwd_rows_tc_kernel<DH>;
+  cudaError_t err = cudaFuncSetAttribute(
+      rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_a);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_a((Tq + kTcRows - 1) / kTcRows, B);
+  rows_kernel<<<grid_a, kTcRowThreads, smem_a, stream>>>(
+      q, k, v, key_mask, query_mask, graph, residual, gamma, dy, dq, dres, partials, stats, Tq,
+      Tk, C, H, dh, renorm, scale, (int)x_bytes, (int)y_bytes);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const size_t smem_b = sizeof(bf16) * (2 * kTcKeys + 4 * kStep) * (DH + 8) +
+                        sizeof(float) * 2 * kStep * kStats;
+  auto keys_kernel = graph_attention_ln_bwd_keys_tc_kernel<DH>;
+  err = cudaFuncSetAttribute(keys_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_b);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_b((Tk + kTcKeys - 1) / kTcKeys, H, B);
+  // dO is dresidual: the rows launch wrote it rounded to bf16
+  keys_kernel<<<grid_b, kTcKeyThreads, smem_b, stream>>>(
+      q, k, v, key_mask, graph, dres, stats, dk, dv, Tq, Tk, C, H, dh, renorm, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. renorm: 0 = l1, 1 = sum_eps.
-// partials: (B * ceil(Tq / min(16, Tq)), 2, C) f32, per-block dgamma / dbeta.
-// dout: (B, Tq, C) f32 and stats: (B, H, Tq, 8) f32 are scratch passed
-// between the two launches. Returns cudaGetLastError() after the launches.
+// tensor_cores != 0 (bf16 with a head width that is a multiple of 16 only)
+// takes the tensor-core kernels, 32 query rows a block in the rows launch;
+// 0 the SIMT kernels, min(16, Tq) rows a block.
+// partials: (B * ceil(Tq / rows a block), 2, C) f32, per-block dgamma / dbeta.
+// stats: (B, H, Tq, 8) f32 and, for the SIMT kernels only, dout: (B, Tq, C)
+// f32 are scratch passed between the two launches (the tensor-core keys
+// launch reads dO from dres). Returns cudaGetLastError() after the launches.
 extern "C" int savqa_graph_attention_ln_bwd(
     const void* q, const void* k, const void* v, const void* key_mask, const void* query_mask,
     const void* graph, const void* residual, const void* gamma, const void* dy, void* dq,
     void* dk, void* dv, void* dres, void* partials, void* dout, void* stats, int B, int Tq,
-    int Tk, int C, int H, int renorm, int dtype, float scale, void* stream) {
+    int Tk, int C, int H, int renorm, int dtype, int tensor_cores, float scale, void* stream) {
   if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || C % H != 0 || C / H > kMaxDh ||
-      (renorm != 0 && renorm != 1))
+      (renorm != 0 && renorm != 1) || (tensor_cores && (dtype != 1 || (C / H) % 16 != 0)))
     return (int)cudaErrorInvalidValue;
   const auto* km = static_cast<const float*>(key_mask);
   const auto* qm = static_cast<const float*>(query_mask);
@@ -536,6 +1309,17 @@ extern "C" int savqa_graph_attention_ln_bwd(
   auto* dout_f = static_cast<float*>(dout);
   auto* st = static_cast<float*>(stats);
   auto s = static_cast<cudaStream_t>(stream);
+  const int dh = C / H;
+  if (tensor_cores) {
+    auto run = dh <= 16 ? launch_tc<16> : dh <= 32 ? launch_tc<32> : dh <= 64 ? launch_tc<64>
+                                                                               : launch_tc<128>;
+    return (int)run(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                    static_cast<const bf16*>(v), km, qm, g, static_cast<const bf16*>(residual),
+                    ga, static_cast<const bf16*>(dy), static_cast<bf16*>(dq),
+                    static_cast<bf16*>(dk), static_cast<bf16*>(dv), static_cast<bf16*>(dres), pa,
+                    st, B, Tq, Tk, C, H, renorm, scale, s);
+  }
+  if (dout == nullptr) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return (int)launch<float>(q, k, v, km, qm, g, residual, ga, dy, dq, dk, dv, dres, pa, dout_f,
                               st, B, Tq, Tk, C, H, renorm, scale, s);

@@ -1,11 +1,11 @@
 """Build the CUDA sources under ``csrc/`` with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` becomes ``build/lib<name>-<hash>.so`` at the root of
-the checkout, keyed by a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is. The first call
-builds every missing library at once, one nvcc process per source, all
-started together. Each library exposes a plain C interface; every function
-returns ``cudaGetLastError()`` after its launch.
+the checkout, keyed by a hash of the source, the headers under ``csrc/`` and
+the flags, so an edited source is rebuilt and an unchanged one is loaded as
+it is. The first call builds every missing library at once, one nvcc process
+per source, all started together. Each library exposes a plain C interface;
+every function returns ``cudaGetLastError()`` after its launch.
 """
 
 from __future__ import annotations
@@ -42,7 +42,9 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

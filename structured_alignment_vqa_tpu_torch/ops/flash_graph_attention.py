@@ -26,6 +26,19 @@ on CPU tensors they run the plain PyTorch versions beside them, which round
 where the kernels round. Keys are exactly the Tk given (the TPU wrapper pads
 them to its tile with masked keys, which add to z on rows whose real keys
 are all masked; ``out`` and the gradients are the same).
+
+K4 has two kernels (``dispatch.kernel_path``). bfloat16 with a head width
+that is a multiple of 16 runs on the tensor cores: ``mma.sync`` for both products on
+bf16 tiles that ``cp.async`` streams through a two-stage ring, one warp per
+16 query rows, the weights passed from the first product to the second in
+registers. When the query tiles do not fill the card (the decoder's one
+query into 1,536 keys) the keys are split over more blocks
+(:func:`key_split`); each writes its raw ``(a, m, z, b)`` to scratch and a
+second small kernel merges them (:func:`merge_partials_plain` is its plain
+version). One call counts as one launch whatever the split. float32, and
+bfloat16 with any other head width, keep the SIMT kernel (f32 FMAs, no
+split): TF32 products would not hold the 1e-4 the float32 path is checked
+to. K5 and K6 are SIMT kernels.
 """
 
 from __future__ import annotations
@@ -35,7 +48,7 @@ import ctypes
 import torch
 
 from structured_alignment_vqa_tpu_torch.ops import _build
-from structured_alignment_vqa_tpu_torch.ops.dispatch import use_kernel
+from structured_alignment_vqa_tpu_torch.ops.dispatch import kernel_path, use_kernel
 from structured_alignment_vqa_tpu_torch.ops.fused_graph_attention import (
     L1_NORM_EPS,
     RENORMS,
@@ -45,6 +58,9 @@ from structured_alignment_vqa_tpu_torch.ops.layers import NEG_MASK_VALUE
 
 EMITS = ("out", "stats", "partial")
 MAX_HEAD_DIM = 128   # the kernels' register accumulators
+KEY_STEP = 64        # keys a block walks per step (both K4 kernels)
+TC_Q_TILE = 64       # query rows per block of the tensor-core kernel (kTcWarps x 16)
+SM_COUNT = 132       # streaming multiprocessors of an H100
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -88,13 +104,47 @@ def flash_graph_attention_plain(q, k, v, key_mask, query_mask, graph, num_heads:
     a = torch.matmul(eg.to(v.dtype).float(), _heads(v.float(), num_heads))
     if emit == "partial":
         return a, m, z, bsum
+    out = _renormalise(a, z, bsum, query_mask, renorm, q.dtype)
+    return out if emit == "out" else (out, m, z, bsum)
+
+
+def _renormalise(a, z, bsum, query_mask, renorm: str, dtype):
+    """out (B, Tq, C) from the raw accumulator and the row sums."""
     if renorm == "l1":
         denom = torch.maximum(bsum, L1_NORM_EPS * z)
     else:
         denom = bsum + SUM_NORM_EPS * z
     out = a / denom[..., None] * query_mask.float()[:, None, :, None]
-    out = _merge(out).to(q.dtype)
-    return out if emit == "out" else (out, m, z, bsum)
+    return _merge(out).to(dtype)
+
+
+def merge_partials_plain(a, m, z, bsum):
+    """Plain PyTorch version of the kernel that merges K4's key shards.
+
+    ``a`` (S, B, H, Tq, dh) and ``m``, ``z``, ``bsum`` (S, B, H, Tq) hold the
+    ``emit="partial"`` results of S shards of the keys; returns the
+    ``(a, m, z, b)`` of all keys together: ``m = max m_i``, ``c_i = exp(m_i
+    - m)``, sums of ``c_i (z_i, b_i, a_i)`` in shard order. A shard that saw
+    no key has ``m_i = -inf`` and counts nothing.
+    """
+    m_all = m.amax(dim=0)
+    c = torch.where(torch.isinf(m) & (m < 0), torch.zeros_like(m), torch.exp(m - m_all))
+    return (a * c[..., None]).sum(dim=0), m_all, (z * c).sum(dim=0), (bsum * c).sum(dim=0)
+
+
+def key_split(batch: int, num_heads: int, tq: int, tk: int) -> tuple:
+    """``(n_split, steps_per_split)`` of the tensor-core kernel: how many
+    shards the ``ceil(tk / 64)`` key steps are cut into, and the steps of
+    each. A pure function of the shapes: 1 shard when the (batch, head,
+    64-row query tile) blocks alone cover the card's 132 SMs, else enough
+    shards for about two blocks an SM, none of them empty."""
+    blocks = batch * num_heads * -(-tq // TC_Q_TILE)
+    steps = -(-tk // KEY_STEP)
+    if blocks >= SM_COUNT:
+        return 1, steps
+    want = min(steps, -(-2 * SM_COUNT // blocks))
+    per = -(-steps // want)
+    return -(-steps // per), per
 
 
 def masked_grad_and_delta(out, dy, query_mask, num_heads: int):
@@ -211,10 +261,18 @@ def _launch_forward(q, k, v, key_mask, query_mask, graph, num_heads: int, renorm
     _check(q, k, v, key_mask, graph, num_heads, renorm, {"query_mask": query_mask})
     fn = _build.library("flash_graph_attention").savqa_flash_graph_attention
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
     b, tq, c = q.shape
     tk = k.shape[1]
     dev = q.device
+    dh = c // num_heads
+    n_split, per = 1, -(-tk // KEY_STEP)
+    if kernel_path(q.dtype, dh) == "tensor-core":
+        n_split, per = key_split(b, num_heads, tq, tk)
+    scratch = [None, None]
+    if n_split > 1:    # the shards' raw a and m, z, b between the two kernels
+        scratch = [torch.empty(n_split, b, num_heads, tq, dh, dtype=torch.float32, device=dev),
+                   torch.empty(3, n_split, b, num_heads, tq, dtype=torch.float32, device=dev)]
     if emit == "partial":
         out = torch.empty(b, num_heads, tq, c // num_heads, dtype=torch.float32, device=dev)
     else:
@@ -226,9 +284,9 @@ def _launch_forward(q, k, v, key_mask, query_mask, graph, num_heads: int, renorm
         status = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(),
             query_mask.data_ptr(), graph.data_ptr(), out.data_ptr(),
-            *(None if s is None else s.data_ptr() for s in stats),
+            *(None if s is None else s.data_ptr() for s in stats + scratch),
             b, tq, tk, c, num_heads, RENORMS.index(renorm), EMITS.index(emit),
-            _DTYPES[q.dtype], 1.0 / (c // num_heads) ** 0.5, stream,
+            _DTYPES[q.dtype], n_split, per, 1.0 / dh ** 0.5, stream,
         )
     _build.check(status, "flash_graph_attention kernel")
     flash_graph_attention.launches += 1

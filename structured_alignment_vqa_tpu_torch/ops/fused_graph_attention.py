@@ -19,6 +19,19 @@ kernels take Tq != Tk (the decoder's one-query cross-attention) and at most
 ``MAX_KEYS`` keys; longer sequences are the flash kernels' (K4-K6,
 ``ops/flash_graph_attention.py``), which the attention modules call above
 that.
+
+K2 has two pairs of kernels (``dispatch.kernel_path``), each a rows launch
+(the forward recomputed, the LayerNorm backward, dQ and per-row constants)
+and a keys launch (dK and dV summed over every query row, no atomics),
+counted as one. bfloat16 with a head width that is a multiple of 16 runs
+all six products on the tensor cores (``mma.sync`` on bf16 tiles that
+``cp.async`` streams through two-stage rings): 32 query rows a block, the
+scores rebuilt from per-row maximum and sum in every pass over the keys
+instead of kept, dO handed to the keys launch as the bf16 dresidual. The
+decoder's one-query calls take them too: a block is a chain of latencies
+whatever its rows, and theirs measured shorter than the SIMT kernels'.
+float32 and other head widths keep the SIMT kernels (TF32 would not hold
+the float32 path's 1e-4).
 """
 
 from __future__ import annotations
@@ -28,7 +41,7 @@ import ctypes
 import torch
 
 from structured_alignment_vqa_tpu_torch.ops import _build
-from structured_alignment_vqa_tpu_torch.ops.dispatch import use_kernel
+from structured_alignment_vqa_tpu_torch.ops.dispatch import kernel_path, use_kernel
 from structured_alignment_vqa_tpu_torch.ops.layers import LN_EPS, NEG_MASK_VALUE, layer_norm
 
 # F.normalize(p=1) clamps the norm at 1e-12; the graph-mask variant adds 1e-7.
@@ -40,6 +53,7 @@ MAX_HEAD_DIM = 128   # the backward's register accumulators (csrc/graph_attentio
 Q_TILE = 16          # query rows per block (csrc/graph_attention.cu, K2's first launch)
 KEY_CHUNK = 64       # keys staged in shared memory at a time
 N_STATS = 8          # floats per (batch, head, query row) passed between K2's launches
+BWD_TC_ROWS = 32     # query rows per block of K2's tensor-core rows launch
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on Hopper
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -77,9 +91,14 @@ def graph_attention_ln_bwd_plain(q, k, v, key_mask, query_mask, graph, residual,
     ones of the TPU package's ``pallas_attention_bwd.py:53-163``: the
     forward is recomputed from the inputs, the LayerNorm backward gives dO,
     then per head dV = A^T dO, dA = dO V^T and the renorm and softmax
-    backwards give dS (0 on masked keys). The recomputed output casts the
-    weights to V's dtype, as the forward does; dV takes the f32 weights and
-    dA the f32 V.
+    backwards give dS (0 on masked keys).
+
+    Every product takes its operands in q's dtype and sums in float32, as
+    the tensor-core kernel does: the weights A are rounded to V's dtype once
+    (for the recomputed output, as in the forward, and for dV alike), dO
+    once after the LayerNorm backward (dresidual is that rounded value), and
+    dS once after the softmax backward, before dQ = dS K and dK = dS^T Q. In
+    float32 none of these roundings does anything.
     """
     if renorm not in RENORMS:
         raise ValueError(f"unknown renorm mode: {renorm!r}")
@@ -110,8 +129,8 @@ def graph_attention_ln_bwd_plain(q, k, v, key_mask, query_mask, graph, residual,
     else:
         r = rsum + SUM_NORM_EPS
         live = torch.ones_like(rsum)
-    a = g / r * qcol
-    x = merge(torch.matmul(a.to(v.dtype).float(), vh.float()), tq) + residual.float()
+    a = (g / r * qcol).to(v.dtype).float()
+    x = merge(torch.matmul(a, vh.float()), tq) + residual.float()
 
     # LayerNorm backward (eps on the unbiased std; no d-std term on constant rows)
     xm = x - x.mean(dim=-1, keepdim=True)
@@ -130,7 +149,8 @@ def graph_attention_ln_bwd_plain(q, k, v, key_mask, query_mask, graph, residual,
         torch.zeros_like(xm))
 
     # attention backward, all heads at once
-    do = heads(dx, tq)
+    dx = dx.to(q.dtype)
+    do = heads(dx.float(), tq)
     dv = torch.matmul(a.transpose(-1, -2), do)
     dn = torch.matmul(do, vh.float().transpose(-1, -2)) * qcol
     inner = (dn * g).sum(dim=-1, keepdim=True)
@@ -140,11 +160,11 @@ def graph_attention_ln_bwd_plain(q, k, v, key_mask, query_mask, graph, residual,
         dg = dn / r - inner / (r * r)
     dp = dg * gr
     ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
-    ds = ds.masked_fill(key_fill, 0.0) * scale
+    ds = (ds.masked_fill(key_fill, 0.0) * scale).to(q.dtype).float()
     dq = torch.matmul(ds, kh)
     dk = torch.matmul(ds.transpose(-1, -2), qh)
     dt = q.dtype
-    return (merge(dq, tq).to(dt), merge(dk, tk).to(dt), merge(dv, tk).to(dt), dx.to(dt),
+    return (merge(dq, tq).to(dt), merge(dk, tk).to(dt), merge(dv, tk).to(dt), dx,
             dgamma, dbeta)
 
 
@@ -160,6 +180,26 @@ def smem_bytes_bwd(tq: int, tk: int, c: int, num_heads: int) -> int:
     rows = min(Q_TILE, tq)
     dh = c // num_heads
     return 4 * (rows * c + 2 * rows * tk + rows * dh + KEY_CHUNK * (dh + 1) + rows * N_STATS)
+
+
+def bwd_row_tile(dtype, head_dim: int, tq: int) -> int:
+    """Query rows per block of K2's rows launch (one dgamma/dbeta partial each)."""
+    if kernel_path(dtype, head_dim) == "tensor-core":
+        return BWD_TC_ROWS
+    return min(Q_TILE, tq)
+
+
+def smem_bytes_bwd_tc(tk: int, c: int, num_heads: int) -> int:
+    """Dynamic shared memory of one block of K2's tensor-core rows launch
+    (must match ``launch_tc`` in ``csrc/graph_attention_bwd.cu``)."""
+    dh = c // num_heads
+    width = next(w for w in (16, 32, 64, 128) if dh <= w) + 8
+    ring = 2 * 4 * KEY_CHUNK * width
+    steps = -(-tk // KEY_CHUNK)
+    x_bytes = -(-max(4 * BWD_TC_ROWS * (c + 8), ring) // 16) * 16
+    y_bytes = -(-max(2 * BWD_TC_ROWS * (c + 8), ring) // 16) * 16
+    return (x_bytes + y_bytes + 2 * BWD_TC_ROWS * width
+            + 4 * (2 * steps * KEY_CHUNK + (num_heads + 1) * BWD_TC_ROWS * 4))
 
 
 def _check(q, k, v, key_mask, query_mask, graph, residual, gamma, beta,
@@ -195,11 +235,16 @@ def _check(q, k, v, key_mask, query_mask, graph, residual, gamma, beta,
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    need = (smem_bytes if dy is None else smem_bytes_bwd)(tq, tk, c, num_heads)
-    if need > SMEM_LIMIT:
-        raise ValueError(f"shapes need {need} bytes of shared memory")
     if dy is not None and c // num_heads > MAX_HEAD_DIM:
         raise ValueError(f"head width {c // num_heads} > {MAX_HEAD_DIM}")
+    if dy is None:
+        need = smem_bytes(tq, tk, c, num_heads)
+    elif kernel_path(q.dtype, c // num_heads) == "tensor-core":
+        need = smem_bytes_bwd_tc(tk, c, num_heads)
+    else:
+        need = smem_bytes_bwd(tq, tk, c, num_heads)
+    if need > SMEM_LIMIT:
+        raise ValueError(f"shapes need {need} bytes of shared memory")
 
 
 def _launch(q, k, v, key_mask, query_mask, graph, residual, gamma, beta,
@@ -232,17 +277,22 @@ def _launch_bwd(q, k, v, key_mask, query_mask, graph, residual, gamma, beta, dy,
     lib = _build.library("graph_attention_bwd")
     fn = lib.savqa_graph_attention_ln_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
     b, tq, c = q.shape
     tk = k.shape[1]
-    tiles = -(-tq // min(Q_TILE, tq))
+    dh = c // num_heads
+    tensor_cores = kernel_path(q.dtype, dh) == "tensor-core"
+    tiles = -(-tq // bwd_row_tile(q.dtype, dh, tq))
     dq, dres = torch.empty_like(q), torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    # scratch passed from the first launch to the second: dO in f32 and
-    # per-(batch, head, row) softmax and renorm statistics; per-block
-    # dgamma/dbeta partials, summed here
+    # scratch passed from the first launch to the second: per-(batch, head,
+    # row) softmax and renorm constants and, for the SIMT kernels, dO widened
+    # to f32 (the tensor-core keys launch reads the bf16 dresidual);
+    # per-block dgamma/dbeta partials, summed here
     partials = torch.empty(b * tiles, 2, c, dtype=torch.float32, device=q.device)
-    do = torch.empty(b, tq, c, dtype=torch.float32, device=q.device)
+    do = None
+    if not tensor_cores:
+        do = torch.empty(b, tq, c, dtype=torch.float32, device=q.device)
     stats = torch.empty(b, num_heads, tq, N_STATS, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -251,9 +301,9 @@ def _launch_bwd(q, k, v, key_mask, query_mask, graph, residual, gamma, beta, dy,
             query_mask.data_ptr(), graph.data_ptr(), residual.data_ptr(),
             gamma.data_ptr(), dy.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dres.data_ptr(),
-            partials.data_ptr(), do.data_ptr(), stats.data_ptr(),
+            partials.data_ptr(), None if do is None else do.data_ptr(), stats.data_ptr(),
             b, tq, tk, c, num_heads, RENORMS.index(renorm), _DTYPES[q.dtype],
-            1.0 / (c // num_heads) ** 0.5, stream,
+            int(tensor_cores), 1.0 / dh ** 0.5, stream,
         )
     _build.check(status, "graph_attention_ln_bwd kernel")
     fused_graph_attention_ln_bwd.launches += 1

@@ -1,0 +1,238 @@
+"""What surrounds the port's two tensor-core kernels (K4's forward, K2) and
+runs on the CPU: the merge of K4's key shards, the rules that pick a kernel
+and a key split, the scratch shapes, and the rounding points K2's plain
+version shares with its tensor-core kernels.
+
+The merge: ``merge_partials_plain`` over 2, 3 and 5 key shards of
+``flash_graph_attention_plain(..., emit="partial")`` against the unsplit
+call, and against a fold of the JAX package's ``ring_attention._merge``; all
+float32, 1e-6 of each output's largest magnitude (sums in another order).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from structured_alignment_vqa_tpu.ops.pallas_attention_bwd import fused_attention_bwd
+from structured_alignment_vqa_tpu.ops.ring_attention import _merge as jax_merge
+from structured_alignment_vqa_tpu_torch.ops import flash_graph_attention as flash
+from structured_alignment_vqa_tpu_torch.ops import fused_graph_attention as k1
+
+TOL = 1e-6
+HEADS = 2
+
+
+@pytest.fixture(autouse=True)
+def _threads():
+    torch.set_num_threads(1)
+
+
+def flash_inputs(rng, b=2, tq=7, tk=40, c=16):
+    """K4's arguments, float32: sample 0 has every key of the second shard
+    of five (keys 8-15) masked, sample 1 row 0 has an all-zero graph (a dead
+    row), row 1 of sample 0 is a padded query."""
+    q, k, v = (torch.from_numpy(np.maximum(rng.standard_normal((b, t, c)), 0).astype(np.float32))
+               for t in (tq, tk, tk))
+    key_mask = torch.from_numpy((rng.random((b, tk)) > 0.2).astype(np.float32))
+    key_mask[0, 8:16] = 0.0
+    query_mask = torch.ones(b, tq)
+    query_mask[0, 1] = 0.0
+    graph = torch.from_numpy((rng.random((b, tq, tk)) > 0.5).astype(np.float32))
+    graph[1, 0] = 0.0
+    return q, k, v, key_mask, query_mask, graph
+
+
+def shard_partials(args, bounds):
+    """``emit="partial"`` of each key range [lo, hi), stacked; an empty range
+    is a shard that saw no key: a = z = b = 0, m = -inf."""
+    q, k, v, key_mask, query_mask, graph = args
+    parts = []
+    for lo, hi in bounds:
+        if lo == hi:
+            b, tq, c = q.shape
+            zero = torch.zeros(b, HEADS, tq)
+            parts.append((torch.zeros(b, HEADS, tq, c // HEADS), zero - float("inf"), zero, zero))
+        else:
+            parts.append(flash.flash_graph_attention_plain(
+                q, k[:, lo:hi].contiguous(), v[:, lo:hi].contiguous(),
+                key_mask[:, lo:hi].contiguous(), query_mask, graph[:, :, lo:hi].contiguous(),
+                HEADS, "l1", "partial"))
+    return tuple(torch.stack(x) for x in zip(*parts))
+
+
+def close(got, want, name, tol=TOL):
+    scale = max(float(want.abs().max()), 1.0)
+    err = float((got - want).abs().max())
+    assert err <= tol * scale, (name, err, scale)
+
+
+SHARDS = {2: ((0, 24), (24, 40)), 3: ((0, 8), (8, 16), (16, 40)),
+          5: ((0, 8), (8, 16), (16, 24), (24, 32), (32, 40)),
+          "empty": ((0, 16), (16, 16), (16, 40))}
+
+
+@pytest.mark.parametrize("renorm", flash.RENORMS)
+@pytest.mark.parametrize("shards", list(SHARDS), ids=str)
+def test_merged_shards_equal_the_unsplit_call(rng, shards, renorm):
+    """Shard 2 of 3 and of 5 is fully masked in sample 0 (its m is the fill
+    value and the merge wipes it); "empty" holds a shard that saw no key."""
+    args = flash_inputs(rng)
+    a, m, z, bsum = flash.merge_partials_plain(*shard_partials(args, SHARDS[shards]))
+    want = flash.flash_graph_attention_plain(*args, HEADS, renorm, "partial")
+    for name, g, w in zip(("a", "m", "z", "b"), (a, m, z, bsum), want):
+        close(g, w, name)
+    assert float(bsum[1, :, 0].abs().max()) == 0.0          # the dead row stays dead
+    out = flash._renormalise(a, z, bsum, args[4], renorm, torch.float32)
+    close(out, flash.flash_graph_attention_plain(*args, HEADS, renorm), "out")
+    assert float(out[0, 1].abs().max()) == 0.0 and float(out[1, 0].abs().max()) == 0.0
+
+
+def test_merge_of_empty_shards_only_is_empty():
+    a, m, z, bsum = flash.merge_partials_plain(
+        torch.zeros(2, 1, 1, 3, 4), torch.full((2, 1, 1, 3), -float("inf")),
+        torch.zeros(2, 1, 1, 3), torch.zeros(2, 1, 1, 3))
+    assert torch.isinf(m).all() and not torch.isnan(a).any()
+    assert float(z.abs().max()) == 0.0 and float(bsum.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("n_shards", [2, 3, 5])
+def test_merge_matches_the_jax_ring_merge(rng, n_shards):
+    """numpy inputs from a seed through both merges: the port's in one
+    N-way step, the JAX package's pairwise, folded over the shards."""
+    shape = (n_shards, 2, HEADS, 5)
+    m = rng.standard_normal(shape).astype(np.float32) * 3
+    m[0, 0, 0, 0] = -(2.0 ** 32)                 # a fully masked shard
+    z = rng.random(shape).astype(np.float32) + 0.5
+    bsum = rng.random(shape).astype(np.float32)
+    a = rng.standard_normal(shape + (4,)).astype(np.float32)
+    got = flash.merge_partials_plain(*(torch.from_numpy(x) for x in (a, m, z, bsum)))
+    # _merge broadcasts its factors over a's last axis: stats carry a trailing 1
+    acc = tuple(jnp.asarray(x[0])[..., None] for x in (m, z, bsum)) + (jnp.asarray(a[0]),)
+    for i in range(1, n_shards):
+        acc = jax_merge(*acc, *(jnp.asarray(x[i])[..., None] for x in (m, z, bsum)),
+                        jnp.asarray(a[i]))
+    want = (acc[3], acc[0][..., 0], acc[1][..., 0], acc[2][..., 0])
+    for name, g, w in zip(("a", "m", "z", "b"), got, want):
+        close(g, torch.from_numpy(np.array(w)), name)
+
+
+@pytest.mark.parametrize("batch,heads,tq,tk,want", [
+    (4, 8, 1, 1536, (8, 3)),        # the decoder's one query: 32 blocks -> 256
+    (4, 8, 70, 1536, (5, 5)),       # two q-tiles, still under the card
+    (4, 8, 1536, 1536, (1, 24)),    # the encoder: 768 blocks, no split
+    (1, 1, 1, 64, (1, 1)),          # one step cannot be split
+    (1, 1, 1, 6400, (100, 1)),      # never more shards than steps
+    (4, 8, 200, 700, (3, 4)),
+])
+def test_key_split_is_a_pure_function_of_the_shapes(batch, heads, tq, tk, want):
+    assert flash.key_split(batch, heads, tq, tk) == want
+    assert flash.key_split(batch, heads, tq, tk) == want        # and says so twice
+
+
+@pytest.mark.parametrize("tk", [1, 63, 64, 65, 700, 1536, 4096])
+@pytest.mark.parametrize("blocks", [(1, 1, 1), (4, 8, 1), (2, 8, 100), (16, 8, 64)])
+def test_key_split_leaves_no_shard_empty(blocks, tk):
+    batch, heads, tq = blocks
+    n_split, per = flash.key_split(batch, heads, tq, tk)
+    steps = -(-tk // flash.KEY_STEP)
+    assert n_split >= 1 and per >= 1
+    assert (n_split - 1) * per < steps <= n_split * per          # the kernel's own guard
+    if batch * heads * -(-tq // flash.TC_Q_TILE) >= flash.SM_COUNT:
+        assert n_split == 1
+
+
+@pytest.mark.parametrize("dtype,head_dim,want", [
+    (torch.bfloat16, 64, "tensor-core"), (torch.bfloat16, 16, "tensor-core"),
+    (torch.bfloat16, 48, "tensor-core"), (torch.bfloat16, 8, "simt"),
+    (torch.bfloat16, 40, "simt"), (torch.float32, 64, "simt"),
+])
+def test_k4_kernel_path(dtype, head_dim, want):
+    """f32 keeps the SIMT kernel (TF32 would break 1e-4); so does a bf16
+    head width that is no multiple of 16."""
+    assert flash.kernel_path(dtype, head_dim) == want
+
+
+@pytest.mark.parametrize("dtype,head_dim,tq,want,tile", [
+    (torch.bfloat16, 64, 128, "tensor-core", 32), (torch.bfloat16, 64, 66, "tensor-core", 32),
+    (torch.bfloat16, 48, 16, "tensor-core", 32), (torch.bfloat16, 64, 1, "tensor-core", 32),
+    (torch.bfloat16, 24, 128, "simt", 16), (torch.bfloat16, 8, 1, "simt", 1),
+    (torch.float32, 64, 128, "simt", 16), (torch.float32, 64, 9, "simt", 9),
+])
+def test_k2_kernel_path_and_row_tile(dtype, head_dim, tq, want, tile):
+    """The row tile sets the number of dgamma/dbeta partials the rows launch
+    writes, so the wrapper alone decides the path and tells the kernel."""
+    assert k1.kernel_path(dtype, head_dim) == want
+    assert k1.bwd_row_tile(dtype, head_dim, tq) == tile
+
+
+def test_k2_tensor_core_shared_memory_leaves_two_blocks_an_sm():
+    """At the model's shapes (C 512, 8 heads, up to 128 keys) two blocks of
+    the rows launch share an SM's 227 KB (each also pays 1 KB of reserve);
+    at 512 keys the block still fits."""
+    assert 2 * (k1.smem_bytes_bwd_tc(128, 512, 8) + 1024) <= k1.SMEM_LIMIT
+    assert k1.smem_bytes_bwd_tc(512, 512, 8) <= k1.SMEM_LIMIT
+    bf = torch.zeros(1, 32, 4096, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="shared memory"):
+        k1._check(bf, bf, bf, torch.ones(1, 32), torch.ones(1, 32), torch.ones(1, 32, 32), bf,
+                  torch.ones(4096), torch.zeros(4096), 32, "l1", dy=bf)
+
+
+def bwd_inputs(rng, b=2, t=9, c=16):
+    x = rng.standard_normal((b, t, c)).astype(np.float32)
+    res = rng.standard_normal((b, t, c)).astype(np.float32)
+    q = np.maximum(res * 0.5 + 0.1, 0).astype(np.float32)
+    k = np.maximum(x * 0.3 - 0.05, 0).astype(np.float32)
+    v = np.maximum(x, 0).astype(np.float32)
+    km = np.ones((b, t), np.float32)
+    km[0, -2:] = 0.0
+    qm = (rng.random((b, t)) > 0.15).astype(np.float32)
+    graph = (rng.random((b, t, t)) > 0.4).astype(np.float32)
+    graph[-1, 0] = 0.0
+    gamma = (1 + 0.1 * rng.standard_normal(c)).astype(np.float32)
+    beta = (0.1 * rng.standard_normal(c)).astype(np.float32)
+    dy = rng.standard_normal((b, t, c)).astype(np.float32)
+    return (q, k, v, km, qm, graph, res, gamma, beta), dy
+
+
+@pytest.mark.parametrize("renorm", k1.RENORMS)
+def test_k2_plain_bf16_rounding_points_against_the_jax_kernel(rng, renorm):
+    """K2's plain version rounds dO, dS and the weights A to bf16 before the
+    products that take them (the tensor-core kernels multiply bf16
+    operands); the JAX kernel keeps the three in f32. Each rounding moves an
+    operand by at most 2^-9 of its magnitude, and every output is a sum of
+    products of such operands, rounded to bf16 once more: the outputs stay
+    within one bf16 ulp (2^-7) of each output's largest magnitude. dgamma
+    and dbeta never see the three roundings: 1e-5."""
+    args, dy = bwd_inputs(rng)
+    t = [torch.from_numpy(a) for a in args]
+    j = [jnp.asarray(a) for a in args]
+    for i in (0, 1, 2, 6):
+        t[i] = t[i].bfloat16()
+        j[i] = j[i].astype(jnp.bfloat16)
+    got = k1.graph_attention_ln_bwd_plain(*t, torch.from_numpy(dy).bfloat16(), 4, renorm)
+    want = fused_attention_bwd(*j, jnp.asarray(dy).astype(jnp.bfloat16), 4, renorm,
+                               interpret=True)
+    for name, g, w in zip(("dq", "dk", "dv", "dresidual", "dgamma", "dbeta"), got, want):
+        w = torch.from_numpy(np.array(w.astype(jnp.float32)))
+        if name in ("dgamma", "dbeta"):
+            assert g.dtype == torch.float32
+            assert float((g - w).abs().max()) <= 1e-5, name
+        else:
+            assert g.dtype == torch.bfloat16
+            close(g.float(), w, name, tol=2.0 ** -7)
+
+
+def test_k2_plain_rounds_nothing_in_f32(rng):
+    """The rounding points are casts to q's dtype: in float32 the plain
+    backward is the unrounded formula, bit for bit what autograd's operands
+    see (held to autograd at 1e-5 in test_torch_port_attention_bwd)."""
+    args, dy = bwd_inputs(rng)
+    t = [torch.from_numpy(a) for a in args]
+    got = k1.graph_attention_ln_bwd_plain(*t, torch.from_numpy(dy), 4, "l1")
+    leaves = [x.clone().requires_grad_(i in (0, 1, 2, 6, 7, 8)) for i, x in enumerate(t)]
+    out = k1.graph_attention_ln_plain(*leaves, 4, "l1")
+    want = torch.autograd.grad(out, [leaves[i] for i in (0, 1, 2, 6, 7, 8)], torch.from_numpy(dy))
+    for name, g, w in zip(("dq", "dk", "dv", "dresidual", "dgamma", "dbeta"), got, want):
+        assert g.dtype == torch.float32
+        close(g, w, name, tol=1e-5)
