@@ -49,7 +49,11 @@ Phases, each of which must pass:
    the tensor-core kernel's unaligned graph copies;
 9. K5 and K6 (its backward: dQ, and dK with dV) on the same inputs against
    their plain versions; in f32 also against torch.autograd of the eager
-   ``attention_core``;
+   ``attention_core``; each line says which kernels the shape took and how
+   many key shards K5 took; the one-query shape must go through K5's key
+   split and its sum kernel in bf16, a bf16 shape with a head width of 8
+   through the SIMT kernels, and a bf16 shape with 701 keys checks the
+   tensor-core kernels' unaligned graph copies;
 10. the obj+rel model at full width (``only_obj=False``, maxlen 1600,
     hidden_size_mil 64, 310 relations, otherwise as above) serving five
     requests of 4 questions at bucket (lv, ls, lq) = (36, 1506, 30), the
@@ -132,9 +136,9 @@ REL_STEP_REMAT = {"K1": 18, "K2": 12, "K4": 18, "K5": 12, "K6": 12, "K3": 36}
 # tables' gradients are summed with atomics, in an order that can change)
 STATS_TOL = 1e-4
 REMAT_TOL = 1e-5
-# ms per launch of the SIMT K4 and K2 these shapes ran before their bf16
-# paths moved to the tensor cores (this script, H100 80GB HBM3 at 700 W),
-# printed beside the new time; by (kernel, shape label, dtype)
+# ms per launch of the SIMT K4, K2, K5 and K6 these shapes ran before their
+# bf16 paths moved to the tensor cores (this script, H100 80GB HBM3 at
+# 700 W), printed beside the new time; by (kernel, shape label, dtype)
 PREVIOUS_MS = {
     ("K4", "self L=1536", torch.bfloat16): 1.1309,
     ("K4", "cross Tq=1 Lk=1536", torch.bfloat16): 0.2123,
@@ -146,6 +150,12 @@ PREVIOUS_MS = {
     ("K2", "self L=66 B=4", torch.bfloat16): 0.4166,
     ("K2", "cross Tq=1 Lk=66 B=4", torch.bfloat16): 0.1863,
     ("K2", "self L=128", torch.float32): 3.7098,
+    ("K5", "self L=1536", torch.bfloat16): 1.8865,
+    ("K5", "cross Tq=1 Lk=1536", torch.bfloat16): 0.2748,
+    ("K5", "self L=1536", torch.float32): 2.0625,
+    ("K6", "self L=1536", torch.bfloat16): 2.4198,
+    ("K6", "cross Tq=1 Lk=1536", torch.bfloat16): 0.1070,
+    ("K6", "self L=1536", torch.float32): 2.4403,
 }
 
 failures: list = []
@@ -453,7 +463,7 @@ def k4_phase(gen) -> dict:
         for label, tq, tk in FLASH_SHAPES + (K4_SPLIT_SHAPE,):
             args = flash_inputs(gen, label, tq, tk, dtype)
             path = fl.kernel_path(dtype, C // HEADS)
-            n_split = fl.key_split(REL_B, HEADS, tq, tk)[0] if path == "tensor-core" else 1
+            n_split = fl.kernel_key_split(dtype, C // HEADS, REL_B, HEADS, tq, tk)[0]
             check(path == ("tensor-core" if dtype == torch.bfloat16 else "simt")
                   and (n_split > 1) == (path == "tensor-core" and label in K4_SPLIT_LABELS),
                   f"K4 {label} {dtype}: takes the {path} kernel, keys in {n_split} shard(s)")
@@ -508,44 +518,71 @@ def sdpa_yardstick(args) -> tuple:
     return ms, err
 
 
-def k56_phase(gen) -> dict:
+def k56_against_plain(label: str, args, dy, heads: int) -> tuple:
+    """K5 and K6 against their plain versions over both renorms, and in f32
+    against torch.autograd of the eager ``attention_core``: the largest
+    relative and absolute error of each, and the l1 arguments of the
+    backward for timing."""
     from structured_alignment_vqa_tpu_torch.ops import attention
     from structured_alignment_vqa_tpu_torch.ops import flash_graph_attention as fl
+
+    q, k, v, key_mask, query_mask, graph = args
+    dtype = q.dtype
+    errs = {"K5": 0.0, "K6": 0.0}
+    abs_errs = {"K5": 0.0, "K6": 0.0}
+    for renorm in ("sum_eps", "l1"):      # l1 last: the timings use its inputs
+        out, m, z, bsum = fl.flash_graph_attention(*args, heads, renorm, "stats")
+        d_out, delta = fl.masked_grad_and_delta(out, dy, query_mask, heads)
+        bwd = (q, k, v, key_mask, graph, m, z, bsum, delta, d_out, heads, renorm)
+        got = (fl.flash_bwd_dq(*bwd), *fl.flash_bwd_dkv(*bwd))
+        want = (fl.flash_bwd_dq_plain(*bwd), *fl.flash_bwd_dkv_plain(*bwd))
+        torch.cuda.synchronize()
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            e = rel_err(g, w)
+            key = "K5" if name == "dq" else "K6"
+            errs[key] = max(errs[key], e)
+            abs_errs[key] = max(abs_errs[key], (g.float() - w.float()).abs().max().item())
+            check(e <= K2_TOL[dtype] and bool(torch.isfinite(g.float()).all()),
+                  f"{key} {label} {dtype} {renorm} {name}: max|kernel-plain|/max|plain| "
+                  f"{e:.3g} <= {K2_TOL[dtype]:g}")
+        del want
+        if dtype == torch.float32:
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            ref, _ = attention.attention_core(*leaves, key_mask, query_mask, heads, graph=graph,
+                                              renorm=renorm)
+            auto = torch.autograd.grad(ref, leaves, dy)
+            e = max(rel_err(g, a) for g, a in zip(got, auto))
+            check(e <= K2_AUTOGRAD_TOL,
+                  f"K5/K6 {label} f32 {renorm}: max|kernel-autograd|/max|autograd| "
+                  f"{e:.3g} <= {K2_AUTOGRAD_TOL:g}")
+            del leaves, ref, auto
+    return errs, abs_errs, bwd
+
+
+def k56_phase(gen) -> dict:
+    from structured_alignment_vqa_tpu_torch.ops import flash_graph_attention as fl
+
+    # a head width of 8 (64 heads) is no multiple of 16: bf16 takes the SIMT kernels
+    label, tq, tk = FLASH_SHAPES[3]
+    path = fl.kernel_path(torch.bfloat16, C // 64)
+    check(path == "simt", f"K5/K6 {label} heads=64 bf16: head width {C // 64} takes the {path} "
+          "kernels")
+    args = flash_inputs(gen, label, tq, tk, torch.bfloat16)
+    dy = torch.randn(REL_B, tq, C, generator=gen, device="cuda").to(torch.bfloat16)
+    k56_against_plain(f"{label} heads=64", args, dy, 64)
 
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         for label, tq, tk in FLASH_SHAPES:
             args = flash_inputs(gen, label, tq, tk, dtype)
-            q, k, v, key_mask, query_mask, graph = args
             dy = torch.randn(REL_B, tq, C, generator=gen, device="cuda").to(dtype)
-            errs = {"K5": 0.0, "K6": 0.0}
-            abs_errs = {"K5": 0.0, "K6": 0.0}
-            for renorm in ("sum_eps", "l1"):      # l1 last: the timings below use its inputs
-                out, m, z, bsum = fl.flash_graph_attention(*args, HEADS, renorm, "stats")
-                d_out, delta = fl.masked_grad_and_delta(out, dy, query_mask, HEADS)
-                bwd = (q, k, v, key_mask, graph, m, z, bsum, delta, d_out, HEADS, renorm)
-                got = (fl.flash_bwd_dq(*bwd), *fl.flash_bwd_dkv(*bwd))
-                want = (fl.flash_bwd_dq_plain(*bwd), *fl.flash_bwd_dkv_plain(*bwd))
-                torch.cuda.synchronize()
-                for name, g, w in zip(("dq", "dk", "dv"), got, want):
-                    e = rel_err(g, w)
-                    key = "K5" if name == "dq" else "K6"
-                    errs[key] = max(errs[key], e)
-                    abs_errs[key] = max(abs_errs[key], (g.float() - w.float()).abs().max().item())
-                    check(e <= K2_TOL[dtype] and bool(torch.isfinite(g.float()).all()),
-                          f"{key} {label} {dtype} {renorm} {name}: max|kernel-plain|/max|plain| "
-                          f"{e:.3g} <= {K2_TOL[dtype]:g}")
-                del want
-                if dtype == torch.float32:
-                    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-                    ref, _ = attention.attention_core(*leaves, key_mask, query_mask, HEADS,
-                                                      graph=graph, renorm=renorm)
-                    auto = torch.autograd.grad(ref, leaves, dy)
-                    e = max(rel_err(g, a) for g, a in zip(got, auto))
-                    check(e <= K2_AUTOGRAD_TOL,
-                          f"K5/K6 {label} f32 {renorm}: max|kernel-autograd|/max|autograd| "
-                          f"{e:.3g} <= {K2_AUTOGRAD_TOL:g}")
-                    del leaves, ref, auto
+            path = fl.kernel_path(dtype, C // HEADS)
+            n_split = fl.kernel_key_split(dtype, C // HEADS, REL_B, HEADS, tq, tk)[0]
+            check(path == ("tensor-core" if dtype == torch.bfloat16 else "simt")
+                  and (n_split > 1) == (path == "tensor-core" and label in K4_SPLIT_LABELS),
+                  f"K5/K6 {label} {dtype}: take the {path} kernels, K5's keys in {n_split} "
+                  "shard(s)")
+            errs, abs_errs, bwd = k56_against_plain(label, args, dy, HEADS)
             size = torch.finfo(dtype).bits // 8
             stats_bytes = 4 * REL_B * (tq * tk + tk + 4 * HEADS * tq)
             for key, fn, plain, n_products, nbytes in (
@@ -559,13 +596,20 @@ def k56_phase(gen) -> dict:
                 ms = time_ms(lambda: fn(*bwd))
                 plain_ms = time_ms(lambda: plain(*bwd), iters=5)
                 bound_ms, bound_by = bound(nbytes, 2.0 * n_products * REL_B * tq * tk * C, dtype)
-                print(f"{key} {label} {dtype}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                      f"bound {bound_ms * 1e3:.2f} us ({bound_by})", flush=True)
+                shards = f", {n_split} key shard(s)" if key == "K5" else ""
+                print(f"{key} {label} {dtype}: {path} kernel{shards}, {ms:.4f} ms"
+                      f"{previous(key, label, dtype)}, plain {plain_ms:.4f} ms, bound "
+                      f"{bound_ms * 1e3:.2f} us ({bound_by})", flush=True)
                 rows.append(dict(kernel=key, label=label, dtype=dtype, err=abs_errs[key],
                                  rel_err=errs[key], ms=ms,
                                  plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by))
-            del args, bwd, got
+            del args, bwd
             torch.cuda.empty_cache()
+    # 701 keys: the graph's rows are not 16-byte aligned, so the tensor-core
+    # kernels copy their graph tiles 4 bytes at a time
+    args = flash_inputs(gen, "odd keys", 70, 701, torch.bfloat16)
+    dy = torch.randn(REL_B, 70, C, generator=gen, device="cuda").to(torch.bfloat16)
+    k56_against_plain("odd keys Tq=70 Tk=701", args, dy, HEADS)
     return {r["kernel"] + r["label"] + str(r["dtype"]): r for r in rows}
 
 

@@ -25,17 +25,79 @@
 // zero (the encoder's stage-1 graph on its modality rows) have b = 0 < eps z:
 // they are dead rows, n = 0 and dS = -p delta.
 //
+// bf16 rounds two more values than the TPU kernels, which multiply in f32:
+// n and dS are rounded to bf16 once, as the operands of the second products
+// (dQ = dS K, dK = dS^T Q, dV = N^T dO), by the tensor-core kernels, the
+// bf16 SIMT kernels and the plain versions alike. In f32 nothing is rounded.
+//
 // What bounds them on an H100: operations. At the obj+rel shapes (B 4,
 // L 1,536, C 512, 8 heads, bf16) K5 does three products of 2 B Tq Tk C
 // (QK^T, dO V^T, dS K) = 29 GFLOP and K6 four (QK^T, dO V^T, N^T dO, dS^T Q)
 // = 39 GFLOP, against ~50 MB read and written by each: 29 and 39 us at the
-// bf16 tensor-core peak, 433 and 577 us at the f32 rate these FMAs run at.
+// bf16 tensor-core peak, 433 and 577 us at the f32 rate of CUDA cores.
+// Below that floor what every block pulls through L2 sets the pace, as in
+// K4: its stream of (Q, dO) or (K, V) tiles and its f32 graph tiles.
 //
-// Design, as K4's: blocks of 256 threads in a 16 x 16 grid, 64 x 64 score
-// tiles computed from float4 reads of f32 tiles staged in shared memory,
-// every product a plain FMA on CUDA cores in f32 (dO, V, K and Q are widened
-// first, as the TPU kernels widen them). No atomics anywhere, so every run
-// gives the same bits.
+// The bf16 path (head widths that are multiples of 16): FlashAttention-2's
+// backward with n in the place of the softmax probabilities. Every product
+// runs on the tensor cores (mma.sync m16n8k16, bf16 operands, f32
+// accumulators, csrc/mma_sm90.cuh); tiles are staged as bf16 by cp.async
+// (16 bytes a thread, rows padded by 16 bytes for ldmatrix) through a ring
+// of two stages, whose copies for step j + 1 are issued right after the one
+// barrier of step j and overlap its products. Scores are recomputed in units
+// of log 2 as K4 takes them (ex2.approx): e = 2^(s scale log2(e) - m log2(e))
+// on a real key and 2^((fill - m) log2(e)) on a masked one, which is exactly
+// 2^0 = 1 on a row whose keys are all masked (m = fill), as in the plain
+// version. n and dS are formed on the accumulator fragments, packed to bf16
+// pairs and used as the A operand of the next product as they are: nothing
+// of size (rows, keys) goes through shared memory. No atomics: every run
+// gives the same bits. Heads are the fastest grid axis, so a graph tile one
+// head's block pulls from device memory is an L2 hit for the other heads.
+// * K6: one block of 4 warps per (batch, head, 64 keys), 16 keys a warp. K
+//   and V are read once into registers as A fragments (staged in the second
+//   stage's room, which they give up before its first copy). The block walks
+//   the query rows 64 at a time; a step's stage holds Q and dO (bf16), the
+//   f32 graph tile (64 rows x 64 keys, rows padded to 68 floats: a lane
+//   reads a column, query rows 2t, 2t + 1 at key g, and the 32 lanes of a
+//   warp hit 32 banks) and the rows' terms, formed once a row: thread r loads
+//   row r's m, z, b, delta a step ahead and writes its terms into the stage
+//   before the barrier that opens the step. A warp walks the step in four
+//   sub-steps of 16 rows: S^T = K Q^T and dN^T = V dO^T land in fragments of
+//   16 keys x 16 rows, then dV += n^T dO and dK += dS^T Q read dO and Q with
+//   ldmatrix .trans. dK and dV (16 x dh each) stay in registers.
+// * K5: one block of 4 warps per (batch, head, 64 query rows), 16 rows a
+//   warp: K4's shape with a third product. Q and dO are read once into
+//   registers as A fragments, each lane holds the terms of its two rows, and
+//   the ring carries K, V, the f32 graph tile (rows padded to 72 floats:
+//   float2 reads along the keys, as K4) and the key mask. A warp walks a
+//   step in two sub-steps of 32 keys: S = Q K^T and dN = dO V^T on
+//   fragments, dS formed on them, dQ += dS K with K read by ldmatrix .trans;
+//   dQ (16 x dh a warp) stays in registers.
+// * Three blocks an SM (12 warps) up to head width 64: 74-76 KB of shared
+//   memory a block, and the sub-steps keep the registers within the 168 a
+//   thread that three blocks leave (no spills). What hides the copies is the
+//   other blocks' warps, as in K4 (bf16, B 4, L 1,536, H100 80GB HBM3 at
+//   700 W; chip_smoke.py and scripts/k56_knockouts.py): K6 took 0.465 ms
+//   with every lane forming the terms of its 16 rows itself, 0.37 with the
+//   terms formed once a row, 0.35 / 0.32 in whole / half steps at two
+//   blocks an SM, 0.24 in quarter steps at three; K5 0.175 in whole steps at
+//   two blocks, 0.155 in half steps at three.
+// * A key split for K5 when its query tiles do not fill the card (the
+//   decoder's one query into 1,536 keys: 32 blocks), by the rule K4 uses
+//   (ops/flash_graph_attention.py:key_split): block (h, q-tile x n_split +
+//   shard, b) walks its shard of the key steps and writes its f32 partial
+//   dQ to scratch; flash_graph_attention_bwd_dq_sum_kernel adds the shards
+//   in shard order and rounds to bf16. Partials of dQ simply add: no
+//   rescaling, no atomics, the same bits every run.
+// * A head width of 48, 80, ... runs in the next instantiation (16, 32, 64,
+//   128) with its upper channels staged as zeros.
+//
+// f32 inputs, and bf16 with a head width that is no multiple of 16, take the
+// SIMT kernels below (TF32 products would not hold the 1e-4 the f32 path is
+// checked to): blocks of 256 threads in a 16 x 16 grid, 64 x 64 score tiles
+// computed from float4 reads of f32 tiles staged in shared memory, every
+// product a plain FMA on CUDA cores in f32 (dO, V, K and Q are widened
+// first, as the TPU kernels widen them).
 // * K5: one block per (batch, head, tile of 64 query rows), walking the keys
 //   64 at a time. Thread (ty, tx) owns rows 4 ty .. 4 ty + 3; it computes S
 //   and dN for keys tx + 16 c together, turns them into dS with its rows'
@@ -53,12 +115,14 @@
 // Tq != Tk and ragged tiles run through the same code: rows and keys past
 // the end are staged as zeros and their n and dS are set to 0. Up to head
 // width 64 the registers are capped at 128 a thread (__launch_bounds__): at
-// 138, K6 had one block an SM and took 3.65 ms where it now takes 2.40 (bf16,
+// 138, K6 had one block an SM and took 3.65 ms where it then took 2.40 (bf16,
 // B 4, L 1,536, H100 80GB HBM3 at 700 W).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
+
+#include "mma_sm90.cuh"
 
 namespace {
 
@@ -232,7 +296,7 @@ flash_graph_attention_bwd_dq_kernel(
           if (row < rows && j < nk)
             ds_entry(s[r][c], dn[r][c], gb[(size_t)row * Tk + j0 + j], kms[j] == 0.f, rt[r],
                      scale, &n, &ds);
-          Ss[row * kLdP + j] = ds;
+          Ss[row * kLdP + j] = to_float(from_float<T>(ds));   // the bf16 operand
         }
       }
     }
@@ -380,8 +444,8 @@ flash_graph_attention_bwd_dkv_kernel(
           float n = 0.f, ds = 0.f;
           if (row < nr && j < nk)
             ds_entry(s[i][c], dn[i][c], Ns[row * kLdP + j], kms[j] == 0.f, t, scale, &n, &ds);
-          Ns[row * kLdP + j] = n;
-          Ss[row * kLdP + j] = ds;
+          Ns[row * kLdP + j] = to_float(from_float<T>(n));    // the bf16 operands
+          Ss[row * kLdP + j] = to_float(from_float<T>(ds));
         }
       }
     }
@@ -485,24 +549,507 @@ cudaError_t launch_dkv(int dh, Args... args) {
   return launch_dkv_ndh<T, 8>(args...);
 }
 
+// ---- the tensor-core kernels (bf16, head width a multiple of 16) ----
+
+using bf16 = __nv_bfloat16;
+using savqa::accumulate_ab;
+using savqa::cp_async16;
+using savqa::cp_async4;
+using savqa::cp_async_commit;
+using savqa::cp_async_wait;
+using savqa::fast_exp2;
+using savqa::frag_a_row;
+using savqa::ldmatrix_x4;
+using savqa::product_abt;
+using savqa::stage_head_tile;
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kTcThreads = 128;   // 4 warps, 16 rows (K5) or keys (K6) each
+constexpr int kTile = 64;         // rows or keys of a block, keys or rows of a step
+// Blocks an SM up to head width 64 (which caps a thread's registers at
+// 65,536 / (128 blocks): 168 for three), and the query rows (K6) or keys
+// (K5) of the sub-steps a warp walks a step in: only a sub-step's score
+// fragments are live at a time.
+constexpr int kDkvBlocks = 3;
+constexpr int kDkvSub = kTile / 4;
+constexpr int kDqBlocks = 3;
+constexpr int kDqSub = kTile / 2;
+
+// A query row's terms in the units the tensor-core kernels use: scores in
+// units of log 2, 1 / D and c2 / z in place of the divisions. 32 bytes, so
+// K6's table of them is read 16 bytes at a time.
+struct __align__(16) TcRowTerms {
+  float m2, fill2, inv_d, c1, c2_z, unused[3];
+};
+
+__device__ __forceinline__ TcRowTerms tc_row_terms(float m, float z, float b, float delta,
+                                                   int renorm) {
+  const RowTerms r = row_terms(m, z, b, delta, renorm);
+  TcRowTerms t;
+  t.m2 = m * kLog2e;
+  t.fill2 = (kNegMask - m) * kLog2e;   // exactly 0 where every key is masked (m = fill)
+  t.inv_d = 1.f / r.D;
+  t.c1 = r.c1;
+  t.c2_z = r.c2 / z;
+  return t;
+}
+
+// One entry: the raw score and dN in, n and the scaled dS (0 on a masked key) out.
+__device__ __forceinline__ void tc_entry(float raw, float dn, float g, bool keep,
+                                         const TcRowTerms& t, float scale2, float scale,
+                                         float& n, float& ds) {
+  const float e = fast_exp2(keep ? fmaf(raw, scale2, -t.m2) : t.fill2);
+  n = e * g * t.inv_d;
+  ds = keep ? (n * (dn - t.c1) - e * t.c2_z) * scale : 0.f;
+}
+
+// The f32 (rows, 64 keys) graph tile of rows [r0, r0 + 64) and keys
+// [j0, j0 + 64) into Gs (row stride LDG), zeros past Tq and past Tk;
+// 16-byte copies when Tk is a multiple of 4 (then four adjacent entries are
+// 16-byte aligned), else 4-byte ones.
+template <int LDG>
+__device__ __forceinline__ void stage_graph_tile(float* Gs, const float* __restrict__ gb, int r0,
+                                                 int j0, int Tq, int Tk, const float* any) {
+  if ((Tk & 3) == 0) {
+    for (int i = threadIdx.x; i < kTile * (kTile / 4); i += kTcThreads) {
+      const int r = i / (kTile / 4), j = (i - r * (kTile / 4)) * 4;
+      const bool valid = r0 + r < Tq && j0 + j < Tk;
+      cp_async16(Gs + r * LDG + j, valid ? gb + (size_t)(r0 + r) * Tk + j0 + j : any, valid);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kTile * kTile; i += kTcThreads) {
+      const int r = i / kTile, j = i - r * kTile;
+      const bool valid = r0 + r < Tq && j0 + j < Tk;
+      cp_async4(Gs + r * LDG + j, valid ? gb + (size_t)(r0 + r) * Tk + j0 + j : any, valid);
+    }
+  }
+}
+
+// Bytes of one stage of the rings.
+template <int DH>
+__host__ __device__ constexpr int dkv_stage_bytes() {   // Qc, dOc (64, DH + 8) bf16 | Gs (64, 68) | terms (64)
+  return 2 * kTile * (DH + 8) * 2 + kTile * (kTile + 4) * 4 + kTile * sizeof(TcRowTerms);
+}
+
+template <int DH>
+__host__ __device__ constexpr int dq_stage_bytes() {    // Ks, Vs (64, DH + 8) bf16 | Gs (64, 72) | key mask (64)
+  return 2 * kTile * (DH + 8) * 2 + (kTile * (kTile + 8) + kTile) * 4;
+}
+
+// K6, one block per (head, 64 keys, batch). Shared memory: two stages of
+// dkv_stage_bytes; K and V (64, DH + 8) bf16 land in the second stage's room
+// first and are read into registers before its first copy.
+template <int DH>
+__global__ void __launch_bounds__(kTcThreads, DH <= 64 ? kDkvBlocks : 1)
+flash_graph_attention_bwd_dkv_tc_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const float* __restrict__ key_mask, const float* __restrict__ graph,
+    const float* __restrict__ m_in, const float* __restrict__ z_in,
+    const float* __restrict__ b_in, const float* __restrict__ delta,
+    const bf16* __restrict__ dout, bf16* __restrict__ dk, bf16* __restrict__ dv, int Tq, int Tk,
+    int C, int H, int dh, int renorm, float scale) {
+  constexpr int kLd = DH + 8;
+  constexpr int kKD = DH / 16;
+  constexpr int kND = DH / 8;
+  constexpr int kLdG = kTile + 4;   // (2t rows) x 68 = 8t banks apart: a column read hits 32 banks
+  constexpr int kStage = dkv_stage_bytes<DH>();
+  constexpr int kNSub = kDkvSub / 8;   // 8-wide accumulator blocks of a sub-step
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+
+  const int h = blockIdx.x;
+  const int j0 = blockIdx.y * kTile;
+  const int b = blockIdx.z;
+  const int c0 = h * dh;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int key_a = j0 + warp * 16 + g;   // this lane's two keys
+  const int key_b = key_a + 8;
+  const bool active = j0 + warp * 16 < Tk;
+  const bool keep_a = key_a < Tk && key_mask[(size_t)b * Tk + key_a] != 0.f;
+  const bool keep_b = key_b < Tk && key_mask[(size_t)b * Tk + key_b] != 0.f;
+  const float scale2 = scale * kLog2e;
+  const int n_steps = (Tq + kTile - 1) / kTile;
+
+  const bf16* qb = q + (size_t)b * Tq * C;
+  const bf16* dob = dout + (size_t)b * Tq * C;
+  const float* gb = graph + (size_t)b * Tq * Tk;
+  const size_t stat0 = ((size_t)b * H + h) * Tq;
+
+  auto load_step = [&](int step) {
+    unsigned char* base = smem_raw + (step & 1) * kStage;
+    const int r0 = step * kTile;
+    bf16* Qc = reinterpret_cast<bf16*>(base);
+    stage_head_tile<DH, kTcThreads>(Qc, qb, r0, Tq, kTile, C, c0, dh);
+    stage_head_tile<DH, kTcThreads>(Qc + kTile * kLd, dob, r0, Tq, kTile, C, c0, dh);
+    stage_graph_tile<kLdG>(reinterpret_cast<float*>(Qc + 2 * kTile * kLd), gb, r0, j0, Tq, Tk,
+                           graph);
+  };
+  auto terms_of = [&](int step) {
+    return reinterpret_cast<TcRowTerms*>(smem_raw + (step & 1) * kStage + 2 * kTile * kLd * 2 +
+                                         kTile * kLdG * 4);
+  };
+  // Thread r < 64 forms the terms of row r of a step: it loads the row's
+  // statistics a step ahead and writes the terms into the step's stage
+  // before the barrier that opens the step (rows past Tq get harmless ones).
+  float row_m = 0.f, row_z = 1.f, row_b = 1.f, row_delta = 0.f;
+  auto load_row_stats = [&](int step) {
+    const int r = step * kTile + tid;
+    if (tid < kTile && r < Tq) {
+      row_m = m_in[stat0 + r];
+      row_z = z_in[stat0 + r];
+      row_b = b_in[stat0 + r];
+      row_delta = delta[stat0 + r];
+    } else {
+      row_m = 0.f, row_z = 1.f, row_b = 1.f, row_delta = 0.f;
+    }
+  };
+  auto store_terms = [&](int step) {
+    if (tid < kTile) terms_of(step)[tid] = tc_row_terms(row_m, row_z, row_b, row_delta, renorm);
+  };
+
+  bf16* KVs = reinterpret_cast<bf16*>(smem_raw + kStage);
+  stage_head_tile<DH, kTcThreads>(KVs, k + (size_t)b * Tk * C, j0, Tk, kTile, C, c0, dh);
+  stage_head_tile<DH, kTcThreads>(KVs + kTile * kLd, v + (size_t)b * Tk * C, j0, Tk, kTile, C,
+                                  c0, dh);
+  load_step(0);
+  cp_async_commit();
+  load_row_stats(0);
+  store_terms(0);
+  cp_async_wait<0>();
+  __syncthreads();   // K, V, the first step's tiles and its terms have landed
+  uint32_t kf[kKD][4], vf[kKD][4];
+  if (active) {
+#pragma unroll
+    for (int kd = 0; kd < kKD; ++kd) {
+      ldmatrix_x4(kf[kd], frag_a_row(KVs, kLd, warp * 16, kd * 16, lane));
+      ldmatrix_x4(vf[kd], frag_a_row(KVs + kTile * kLd, kLd, warp * 16, kd * 16, lane));
+    }
+  }
+
+  float dka[kND][4], dva[kND][4];
+#pragma unroll
+  for (int i = 0; i < kND; ++i) {
+    dka[i][0] = dka[i][1] = dka[i][2] = dka[i][3] = 0.f;
+    dva[i][0] = dva[i][1] = dva[i][2] = dva[i][3] = 0.f;
+  }
+
+  for (int step = 0; step < n_steps; ++step) {
+    cp_async_wait<0>();
+    __syncthreads();   // this step's tiles and terms have landed; the readers of the other
+                       // stage (the first time: of K and V) are done, and it takes the next
+    const bool more = step + 1 < n_steps;
+    if (more) load_step(step + 1);
+    cp_async_commit();
+    if (more) load_row_stats(step + 1);
+    if (active) {
+      const unsigned char* base = smem_raw + (step & 1) * kStage;
+      const bf16* Qc = reinterpret_cast<const bf16*>(base);
+      const bf16* dOc = Qc + kTile * kLd;
+      // graph[row][key_a] at g_col[row * kLdG], graph[row][key_b] 8 floats on
+      const float* g_col = reinterpret_cast<const float*>(dOc + kTile * kLd) + warp * 16 + g;
+      const TcRowTerms* terms = terms_of(step);
+      const int nr = Tq - step * kTile;           // real rows of this step (more than 64: all)
+
+#pragma unroll
+      for (int sub = 0; sub < kTile / kDkvSub; ++sub) {
+        const int h0 = sub * kDkvSub;
+        if (h0 >= nr) continue;
+        const bf16* Qh = Qc + h0 * kLd;
+        const bf16* dOh = dOc + h0 * kLd;
+        float s[kNSub][4], dn[kNSub][4];
+        product_abt<DH, kNSub>(s, kf, Qh, lane, nr - h0);     // S^T = K Q^T: 16 keys x 16 rows
+        product_abt<DH, kNSub>(dn, vf, dOh, lane, nr - h0);   // dN^T = V dO^T
+        // entries cc and cc + 2 of block nb: keys a and b at query row h0 + nb 8 + 2t + cc
+#pragma unroll
+        for (int nb = 0; nb < kNSub; ++nb) {
+#pragma unroll
+          for (int cc = 0; cc < 2; ++cc) {
+            const int r = h0 + nb * 8 + 2 * t + cc;
+            if (r >= nr) {   // no row: n = dS = 0
+              s[nb][cc] = s[nb][cc + 2] = dn[nb][cc] = dn[nb][cc + 2] = 0.f;
+              continue;
+            }
+            const TcRowTerms rt = terms[r];
+            tc_entry(s[nb][cc], dn[nb][cc], g_col[r * kLdG], keep_a, rt, scale2, scale,
+                     s[nb][cc], dn[nb][cc]);
+            tc_entry(s[nb][cc + 2], dn[nb][cc + 2], g_col[r * kLdG + 8], keep_b, rt, scale2,
+                     scale, s[nb][cc + 2], dn[nb][cc + 2]);
+          }
+        }
+        accumulate_ab<DH, kNSub>(dva, s, dOh, lane, nr - h0);   // dV += n^T dO
+        accumulate_ab<DH, kNSub>(dka, dn, Qh, lane, nr - h0);   // dK += dS^T Q
+      }
+    }
+    if (more) store_terms(step + 1);
+  }
+  cp_async_wait<0>();
+  if (!active) return;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = half == 0 ? key_a : key_b;
+    if (key >= Tk) continue;
+#pragma unroll
+    for (int i = 0; i < kND; ++i) {
+      const int d = i * 8 + 2 * t;
+      if (d >= dh) continue;
+      const size_t at = ((size_t)b * Tk + key) * C + c0 + d;
+      *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+          __floats2bfloat162_rn(dka[i][2 * half], dka[i][2 * half + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+          __floats2bfloat162_rn(dva[i][2 * half], dva[i][2 * half + 1]);
+    }
+  }
+}
+
+// K5, one block per (head, 64 query rows x key shard, batch). Shared memory:
+// two stages of dq_stage_bytes; the Q and dO tiles (64, DH + 8) bf16 land in
+// the second stage's room first and are read into registers before its
+// first copy. With n_split > 1 block (h, qt * n_split + sp, b) walks the key
+// steps [sp * steps_per_split, (sp + 1) * steps_per_split) and writes its
+// f32 partial dQ at shard sp of dq_part (n_split, B, Tq, C).
+template <int DH>
+__global__ void __launch_bounds__(kTcThreads, DH <= 64 ? kDqBlocks : 1)
+flash_graph_attention_bwd_dq_tc_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const float* __restrict__ key_mask, const float* __restrict__ graph,
+    const float* __restrict__ m_in, const float* __restrict__ z_in,
+    const float* __restrict__ b_in, const float* __restrict__ delta,
+    const bf16* __restrict__ dout, bf16* __restrict__ dq, float* __restrict__ dq_part, int Tq,
+    int Tk, int C, int H, int dh, int renorm, float scale, int n_split, int steps_per_split) {
+  constexpr int kLd = DH + 8;
+  constexpr int kKD = DH / 16;
+  constexpr int kND = DH / 8;
+  constexpr int kLdG = kTile + 8;   // float2 reads along the keys hit 32 banks (as K4)
+  constexpr int kStage = dq_stage_bytes<DH>();
+  constexpr int kNSub = kDqSub / 8;   // 8-wide accumulator blocks of a sub-step
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+
+  const int h = blockIdx.x;
+  const int qt = blockIdx.y / n_split;
+  const int sp = blockIdx.y - qt * n_split;
+  const int b = blockIdx.z;
+  const int q0 = qt * kTile;
+  const int c0 = h * dh;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int n_steps = (Tk + kTile - 1) / kTile;
+  const int step_lo = sp * steps_per_split;
+  const int step_hi = min(n_steps, step_lo + steps_per_split);
+  const bool active = q0 + warp * 16 < Tq;
+  const int row_a = q0 + warp * 16 + g;   // this lane's two query rows
+  const int row_b = row_a + 8;
+  const float scale2 = scale * kLog2e;
+
+  const bf16* kb = k + (size_t)b * Tk * C;
+  const bf16* vb = v + (size_t)b * Tk * C;
+  const float* km = key_mask + (size_t)b * Tk;
+  const float* gb = graph + (size_t)b * Tq * Tk;
+
+  auto load_step = [&](int step) {
+    unsigned char* base = smem_raw + ((step - step_lo) & 1) * kStage;
+    const int j0 = step * kTile;
+    bf16* Ks = reinterpret_cast<bf16*>(base);
+    stage_head_tile<DH, kTcThreads>(Ks, kb, j0, Tk, kTile, C, c0, dh);
+    stage_head_tile<DH, kTcThreads>(Ks + kTile * kLd, vb, j0, Tk, kTile, C, c0, dh);
+    float* Gs = reinterpret_cast<float*>(Ks + 2 * kTile * kLd);
+    stage_graph_tile<kLdG>(Gs, gb, q0, j0, Tq, Tk, graph);
+    float* kms = Gs + kTile * kLdG;
+    for (int j = tid; j < kTile; j += kTcThreads)
+      cp_async4(kms + j, km + (j0 + j < Tk ? j0 + j : 0), j0 + j < Tk);
+  };
+
+  bf16* QDs = reinterpret_cast<bf16*>(smem_raw + kStage);
+  stage_head_tile<DH, kTcThreads>(QDs, q + (size_t)b * Tq * C, q0, Tq, kTile, C, c0, dh);
+  stage_head_tile<DH, kTcThreads>(QDs + kTile * kLd, dout + (size_t)b * Tq * C, q0, Tq, kTile,
+                                  C, c0, dh);
+  if (step_lo < step_hi) load_step(step_lo);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();   // Q, dO and the first step's tiles have landed
+  uint32_t qf[kKD][4], df[kKD][4];
+  if (active) {
+#pragma unroll
+    for (int kd = 0; kd < kKD; ++kd) {
+      ldmatrix_x4(qf[kd], frag_a_row(QDs, kLd, warp * 16, kd * 16, lane));
+      ldmatrix_x4(df[kd], frag_a_row(QDs + kTile * kLd, kLd, warp * 16, kd * 16, lane));
+    }
+  }
+  TcRowTerms rt[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = half == 0 ? row_a : row_b;
+    const size_t at = ((size_t)b * H + h) * Tq + (row < Tq ? row : 0);
+    rt[half] = tc_row_terms(m_in[at], z_in[at], b_in[at], delta[at], renorm);
+  }
+
+  float acc[kND][4];
+#pragma unroll
+  for (int i = 0; i < kND; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  for (int step = step_lo; step < step_hi; ++step) {
+    cp_async_wait<0>();
+    __syncthreads();   // this step's tiles have landed; the readers of the other stage (the
+                       // first time: of Q and dO) are done, and it takes the next copies
+    if (step + 1 < step_hi) load_step(step + 1);
+    cp_async_commit();
+    if (!active) continue;
+    const unsigned char* base = smem_raw + ((step - step_lo) & 1) * kStage;
+    const bf16* Ks = reinterpret_cast<const bf16*>(base);
+    const bf16* Vs = Ks + kTile * kLd;
+    const float* Gs = reinterpret_cast<const float*>(Vs + kTile * kLd);
+    const float* kmask = Gs + kTile * kLdG;
+    const float* g_a = Gs + (warp * 16 + g) * kLdG;   // this lane's two graph rows
+    const float* g_b = g_a + 8 * kLdG;
+
+#pragma unroll
+    for (int sub = 0; sub < kTile / kDqSub; ++sub) {
+      const int k0 = sub * kDqSub;
+      const bf16* Kh = Ks + k0 * kLd;
+      float s[kNSub][4], dn[kNSub][4];
+      product_abt<DH, kNSub>(s, qf, Kh, lane, kDqSub);                // S = Q K^T: 16 rows a warp
+      product_abt<DH, kNSub>(dn, df, Vs + k0 * kLd, lane, kDqSub);   // dN = dO V^T
+      // entries 0, 1 (row a) and 2, 3 (row b) of block nb: keys k0 + nb 8 + 2t, + 1
+#pragma unroll
+      for (int nb = 0; nb < kNSub; ++nb) {
+        const int jl = k0 + nb * 8 + 2 * t;
+        const float2 kmv = *reinterpret_cast<const float2*>(kmask + jl);
+        const float2 ga = *reinterpret_cast<const float2*>(g_a + jl);
+        const float2 gbv = *reinterpret_cast<const float2*>(g_b + jl);
+        const float gr[4] = {ga.x, ga.y, gbv.x, gbv.y};
+        const bool keep[2] = {kmv.x != 0.f, kmv.y != 0.f};   // 0 past Tk
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float n;
+          tc_entry(s[nb][c], dn[nb][c], gr[c], keep[c & 1], rt[c >> 1], scale2, scale, n,
+                   s[nb][c]);
+        }
+      }
+      accumulate_ab<DH, kNSub>(acc, s, Kh, lane, kDqSub);   // dQ += dS K
+    }
+  }
+  cp_async_wait<0>();
+  if (!active) return;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = half == 0 ? row_a : row_b;
+    if (row >= Tq) continue;
+#pragma unroll
+    for (int i = 0; i < kND; ++i) {
+      const int d = i * 8 + 2 * t;
+      if (d >= dh) continue;
+      const float x = acc[i][2 * half], y = acc[i][2 * half + 1];
+      const size_t at = ((size_t)b * Tq + row) * C + c0 + d;
+      if (n_split > 1)
+        *reinterpret_cast<float2*>(dq_part + (size_t)sp * gridDim.z * Tq * C + at) =
+            make_float2(x, y);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(dq + at) = __floats2bfloat162_rn(x, y);
+    }
+  }
+}
+
+// dQ = the sum of n_split f32 partials (n_split, n), added in shard order
+// and rounded to bf16; one thread an element.
+__global__ void __launch_bounds__(256)
+flash_graph_attention_bwd_dq_sum_kernel(const float* __restrict__ dq_part, bf16* __restrict__ dq,
+                                        int n_split, size_t n) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float acc = dq_part[i];
+  for (int sp = 1; sp < n_split; ++sp) acc += dq_part[(size_t)sp * n + i];
+  dq[i] = __float2bfloat16_rn(acc);
+}
+
+struct TcArgs {
+  const bf16 *q, *k, *v, *dout;
+  const float *key_mask, *graph, *m, *z, *b, *delta;
+  bf16 *dq, *dk, *dv;
+  float* scratch;
+  int B, Tq, Tk, C, H, renorm, n_split, steps_per_split;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <int DH>
+cudaError_t launch_dkv_tc(const TcArgs& p) {
+  const int smem = 2 * dkv_stage_bytes<DH>();
+  auto kernel = flash_graph_attention_bwd_dkv_tc_kernel<DH>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.H, (p.Tk + kTile - 1) / kTile, p.B);
+  kernel<<<grid, kTcThreads, smem, p.stream>>>(p.q, p.k, p.v, p.key_mask, p.graph, p.m, p.z, p.b,
+                                               p.delta, p.dout, p.dk, p.dv, p.Tq, p.Tk, p.C, p.H,
+                                               p.C / p.H, p.renorm, p.scale);
+  return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t launch_dq_tc(const TcArgs& p) {
+  const int smem = 2 * dq_stage_bytes<DH>();
+  auto kernel = flash_graph_attention_bwd_dq_tc_kernel<DH>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.H, (p.Tq + kTile - 1) / kTile * p.n_split, p.B);
+  kernel<<<grid, kTcThreads, smem, p.stream>>>(p.q, p.k, p.v, p.key_mask, p.graph, p.m, p.z, p.b,
+                                               p.delta, p.dout, p.dq, p.scratch, p.Tq, p.Tk, p.C,
+                                               p.H, p.C / p.H, p.renorm, p.scale, p.n_split,
+                                               p.steps_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || p.n_split == 1) return err;
+  const size_t n = (size_t)p.B * p.Tq * p.C;
+  flash_graph_attention_bwd_dq_sum_kernel<<<(unsigned)((n + 255) / 256), 256, 0, p.stream>>>(
+      p.scratch, p.dq, p.n_split, n);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dkv_tc_dh(const TcArgs& p) {
+  const int dh = p.C / p.H;
+  if (dh <= 16) return launch_dkv_tc<16>(p);
+  if (dh <= 32) return launch_dkv_tc<32>(p);
+  if (dh <= 64) return launch_dkv_tc<64>(p);
+  return launch_dkv_tc<128>(p);
+}
+
+cudaError_t launch_dq_tc_dh(const TcArgs& p) {
+  const int dh = p.C / p.H;
+  if (dh <= 16) return launch_dq_tc<16>(p);
+  if (dh <= 32) return launch_dq_tc<32>(p);
+  if (dh <= 64) return launch_dq_tc<64>(p);
+  return launch_dq_tc<128>(p);
+}
+
 bool bad_shape(int B, int Tq, int Tk, int C, int H, int renorm) {
   return B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || C % H != 0 || (C / H) % 4 != 0 ||
          C / H > kMaxDh || (renorm != 0 && renorm != 1);
 }
+
+bool tensor_cores(int dtype, int C, int H) { return dtype == 1 && (C / H) % 16 == 0; }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. renorm: 0 = l1, 1 = sum_eps.
 // q, dout, dq (B, Tq, C) and k, v, dk, dv (B, Tk, C) in that type; key_mask
 // (B, Tk), graph (B, Tq, Tk), m, z, b, delta (B, H, Tq) f32. The head width
-// C / H must be a multiple of 4 and at most 128. Each returns
-// cudaGetLastError() after its launch.
+// C / H must be a multiple of 4 and at most 128. bf16 with a head width
+// that is a multiple of 16 takes the tensor-core kernels, every other call
+// the SIMT kernels. Each returns cudaGetLastError() after its launches.
+//
+// K5 on the tensor cores splits the key steps (64 keys each) into n_split
+// shards of steps_per_split steps, none of them empty; with n_split > 1
+// scratch (n_split, B, Tq, C) f32 holds the partials between its two
+// launches. The SIMT kernel has no split (n_split must be 1).
 extern "C" int savqa_flash_graph_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* key_mask, const void* graph,
     const void* m_in, const void* z_in, const void* b_in, const void* delta, const void* dout,
-    void* dq, int B, int Tq, int Tk, int C, int H, int renorm, int dtype, float scale,
-    void* stream) {
-  if (bad_shape(B, Tq, Tk, C, H, renorm)) return (int)cudaErrorInvalidValue;
+    void* dq, void* scratch, int B, int Tq, int Tk, int C, int H, int renorm, int dtype,
+    int n_split, int steps_per_split, float scale, void* stream) {
+  if (bad_shape(B, Tq, Tk, C, H, renorm) || n_split < 1) return (int)cudaErrorInvalidValue;
   const auto* km = static_cast<const float*>(key_mask);
   const auto* g = static_cast<const float*>(graph);
   const auto* mi = static_cast<const float*>(m_in);
@@ -510,6 +1057,19 @@ extern "C" int savqa_flash_graph_attention_bwd_dq(
   const auto* bi = static_cast<const float*>(b_in);
   const auto* de = static_cast<const float*>(delta);
   auto s = static_cast<cudaStream_t>(stream);
+  if (tensor_cores(dtype, C, H)) {
+    const int n_steps = (Tk + kTile - 1) / kTile;
+    if (steps_per_split < 1 || (n_split - 1) * steps_per_split >= n_steps ||
+        n_split * steps_per_split < n_steps || (n_split > 1 && scratch == nullptr))
+      return (int)cudaErrorInvalidValue;
+    const TcArgs p{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                   static_cast<const bf16*>(v), static_cast<const bf16*>(dout), km, g, mi, zi,
+                   bi, de, static_cast<bf16*>(dq), nullptr, nullptr,
+                   static_cast<float*>(scratch), B, Tq, Tk, C, H, renorm, n_split,
+                   steps_per_split, scale, s};
+    return (int)launch_dq_tc_dh(p);
+  }
+  if (n_split != 1) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return (int)launch_dq<float>(C / H, q, k, v, km, g, mi, zi, bi, de, dout, dq, B, Tq, Tk, C,
                                  H, renorm, scale, s);
@@ -532,6 +1092,13 @@ extern "C" int savqa_flash_graph_attention_bwd_dkv(
   const auto* bi = static_cast<const float*>(b_in);
   const auto* de = static_cast<const float*>(delta);
   auto s = static_cast<cudaStream_t>(stream);
+  if (tensor_cores(dtype, C, H)) {
+    const TcArgs p{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                   static_cast<const bf16*>(v), static_cast<const bf16*>(dout), km, g, mi, zi,
+                   bi, de, nullptr, static_cast<bf16*>(dk), static_cast<bf16*>(dv), nullptr, B,
+                   Tq, Tk, C, H, renorm, 1, 1, scale, s};
+    return (int)launch_dkv_tc_dh(p);
+  }
   if (dtype == 0)
     return (int)launch_dkv<float>(C / H, q, k, v, km, g, mi, zi, bi, de, dout, dk, dv, B, Tq,
                                   Tk, C, H, renorm, scale, s);

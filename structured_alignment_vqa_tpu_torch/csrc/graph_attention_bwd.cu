@@ -553,18 +553,16 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* key
 // ---- the tensor-core kernels (bf16, head width a multiple of 16) ----
 
 using bf16 = __nv_bfloat16;
+using savqa::accumulate_ab;
 using savqa::cp_async16;
 using savqa::cp_async_commit;
 using savqa::cp_async_wait;
 using savqa::fast_exp2;
 using savqa::frag_a_row;
-using savqa::frag_b_row;
-using savqa::frag_bt_row;
 using savqa::ldmatrix_x4;
-using savqa::ldmatrix_x4_trans;
 using savqa::load_graph_frag;
-using savqa::mma_bf16;
 using savqa::pack_bf16;
+using savqa::product_abt;
 using savqa::quad_max;
 using savqa::quad_sum;
 using savqa::stage_head_tile;
@@ -609,60 +607,6 @@ __device__ __forceinline__ void load8(float (&x)[8], const bf16* p) {
 __device__ __forceinline__ void store8(float* p, const float (&x)[8]) {
   *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
   *reinterpret_cast<float4*>(p + 4) = make_float4(x[4], x[5], x[6], x[7]);
-}
-
-// acc (16 x 64 a warp) = A B^T for one step: A the warp's 16 x DH fragments,
-// B the rows of a (kStep, DH + 8) tile. Only the first n_real rows of the
-// tile are real (a ragged last step): 8-wide blocks past them are skipped
-// and left at zero.
-template <int DH>
-__device__ __forceinline__ void step_product(float (&acc)[kNS][4],
-                                             const uint32_t (&af)[DH / 16][4], const bf16* tile,
-                                             int lane, int n_real) {
-#pragma unroll
-  for (int nb = 0; nb < kNS; ++nb) acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
-#pragma unroll
-  for (int kd = 0; kd < DH / 16; ++kd) {
-    uint32_t bfr[kNS / 2][4];
-#pragma unroll
-    for (int nb = 0; nb < kNS; nb += 2)
-      if (nb * 8 < n_real)
-        ldmatrix_x4(bfr[nb / 2], frag_b_row(tile, DH + 8, nb * 8, kd * 16, lane));
-#pragma unroll
-    for (int nb = 0; nb < kNS; nb += 2) {
-      if (nb * 8 < n_real) {
-        mma_bf16(acc[nb], af[kd], bfr[nb / 2][0], bfr[nb / 2][1]);
-        mma_bf16(acc[nb + 1], af[kd], bfr[nb / 2][2], bfr[nb / 2][3]);
-      }
-    }
-  }
-}
-
-// out (16 x DH a warp) += W B for one step: W (16 x 64) the step's weights,
-// rounded to bf16 here, B the (kStep, DH + 8) tile, of which the first
-// n_real rows are real (W is zero past them).
-template <int DH>
-__device__ __forceinline__ void step_accumulate(float (&out)[DH / 8][4],
-                                                const float (&w)[kNS][4], const bf16* tile,
-                                                int lane, int n_real) {
-#pragma unroll
-  for (int kk = 0; kk < kStep / 16; ++kk) {
-    if (kk * 16 >= n_real) continue;
-    uint32_t wf[4];
-    wf[0] = pack_bf16(w[2 * kk][0], w[2 * kk][1]);
-    wf[1] = pack_bf16(w[2 * kk][2], w[2 * kk][3]);
-    wf[2] = pack_bf16(w[2 * kk + 1][0], w[2 * kk + 1][1]);
-    wf[3] = pack_bf16(w[2 * kk + 1][2], w[2 * kk + 1][3]);
-    uint32_t bfr[DH / 16][4];
-#pragma unroll
-    for (int nd = 0; nd < DH / 8; nd += 2)
-      ldmatrix_x4_trans(bfr[nd / 2], frag_bt_row(tile, DH + 8, kk * 16, nd * 8, lane));
-#pragma unroll
-    for (int nd = 0; nd < DH / 8; nd += 2) {
-      mma_bf16(out[nd], wf, bfr[nd / 2][0], bfr[nd / 2][1]);
-      mma_bf16(out[nd + 1], wf, bfr[nd / 2][2], bfr[nd / 2][3]);
-    }
-  }
 }
 
 // One pass of the rows launch over the keys of head c0, 64 at a time,
@@ -777,7 +721,7 @@ graph_attention_ln_bwd_rows_tc_kernel(
   };
   // the step's masked scores (log 2 units) from Q K^T
   auto scores = [&](float (&s)[kNS][4], const bf16* Ks, int step) {
-    step_product<DH>(s, qf, Ks, lane, Tk - step * kStep);
+    product_abt<DH, kNS>(s, qf, Ks, lane, Tk - step * kStep);
 #pragma unroll
     for (int nb = 0; nb < kNS; ++nb) {
       const int j = step * kStep + nb * 8 + 2 * t;
@@ -872,7 +816,7 @@ graph_attention_ln_bwd_rows_tc_kernel(
           s[nb][c] = p * gr[nb][c] * (c < 2 ? c1_a : c1_b);
         }
       }
-      step_accumulate<DH>(o, s, Vs, lane, nk);
+      accumulate_ab<DH, kNS>(o, s, Vs, lane, nk);
     });
     if (active) {
 #pragma unroll
@@ -1009,7 +953,7 @@ graph_attention_ln_bwd_rows_tc_kernel(
       const int nk = Tk - step * kStep;
       graph_step(gq, step);
       scores(p, Ks, step);
-      step_product<DH>(da, dof, Vs, lane, nk);
+      product_abt<DH, kNS>(da, dof, Vs, lane, nk);
 #pragma unroll
       for (int nb = 0; nb < kNS; ++nb) {
 #pragma unroll
@@ -1074,7 +1018,7 @@ graph_attention_ln_bwd_rows_tc_kernel(
           da[nb][c] = (pdp - p[nb][c] * (c < 2 ? dpp_a : dpp_b)) * keep;
         }
       }
-      step_accumulate<DH>(dqa, da, Ks, lane, Tk - step * kStep);
+      accumulate_ab<DH, kNS>(dqa, da, Ks, lane, Tk - step * kStep);
     });
     if (active) {
 #pragma unroll
@@ -1204,8 +1148,8 @@ graph_attention_ln_bwd_keys_tc_kernel(
     }
     const int nr = Tq - r0;   // real query rows of this step (more than 64: all)
     float w[kNS][4], da[kNS][4];
-    step_product<DH>(w, kf, Qc, lane, nr);     // S^T = K Q^T: 16 keys x 64 rows
-    step_product<DH>(da, vf, dOc, lane, nr);   // dA^T = V dO^T
+    product_abt<DH, kNS>(w, kf, Qc, lane, nr);     // S^T = K Q^T: 16 keys x 64 rows
+    product_abt<DH, kNS>(da, vf, dOc, lane, nr);   // dA^T = V dO^T
 #pragma unroll
     for (int nb = 0; nb < kNS; ++nb) {
       if (nb * 8 >= nr) continue;   // w and da are zero there
@@ -1222,8 +1166,8 @@ graph_attention_ln_bwd_keys_tc_kernel(
         da[nb][c] = keep ? (pdp - p * rc[kStDpp]) * scale : 0.f;        // dS
       }
     }
-    step_accumulate<DH>(dva, w, dOc, lane, nr);   // dV += A^T dO
-    step_accumulate<DH>(dka, da, Qc, lane, nr);   // dK += dS^T Q
+    accumulate_ab<DH, kNS>(dva, w, dOc, lane, nr);   // dV += A^T dO
+    accumulate_ab<DH, kNS>(dka, da, Qc, lane, nr);   // dK += dS^T Q
   }
   cp_async_wait<0>();
   if (!active) return;

@@ -1,5 +1,6 @@
 // Warp-level building blocks of the tensor-core kernels (K4's forward,
-// K2's two launches): inline PTX for bf16 mma.sync, ldmatrix and cp.async.
+// K2's two launches, K5 and K6): inline PTX for bf16 mma.sync, ldmatrix and
+// cp.async, and the two tile products built on them.
 //
 // Fragment layout of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4; every
 // 32-bit register holds two bf16 values, the lower column or k index in the
@@ -165,6 +166,58 @@ __device__ __forceinline__ void load_graph_frag(float (&g)[NB][4],
         const bool in = j + (c & 1) < n_keys && (c < 2 ? real_a : real_b);
         g[nb][c] = in ? __ldg((c < 2 ? graph_a : graph_b) + j + (c & 1)) : 0.f;
       }
+    }
+  }
+}
+
+// acc (16 x 8 NB a warp) = A B^T: A the warp's 16 x DH operand in fragments,
+// B the first 8 NB rows of a row-major (rows, DH + 8) bf16 tile. Only the
+// first n_real rows of the tile are real: 8-wide blocks past them are
+// skipped and left at zero.
+template <int DH, int NB>
+__device__ __forceinline__ void product_abt(float (&acc)[NB][4], const uint32_t (&af)[DH / 16][4],
+                                            const __nv_bfloat16* tile, int lane, int n_real) {
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb) acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
+#pragma unroll
+  for (int kd = 0; kd < DH / 16; ++kd) {
+    uint32_t bfr[NB / 2][4];
+#pragma unroll
+    for (int nb = 0; nb < NB; nb += 2)
+      if (nb * 8 < n_real) ldmatrix_x4(bfr[nb / 2], frag_b_row(tile, DH + 8, nb * 8, kd * 16, lane));
+#pragma unroll
+    for (int nb = 0; nb < NB; nb += 2) {
+      if (nb * 8 < n_real) {
+        mma_bf16(acc[nb], af[kd], bfr[nb / 2][0], bfr[nb / 2][1]);
+        mma_bf16(acc[nb + 1], af[kd], bfr[nb / 2][2], bfr[nb / 2][3]);
+      }
+    }
+  }
+}
+
+// out (16 x DH a warp) += W B: W (16 x 8 NB) accumulator fragments, rounded
+// to bf16 here and used as the A operand as they are, B the first 8 NB rows
+// of a row-major (rows, DH + 8) bf16 tile, of which the first n_real are
+// real (16-deep blocks past them are skipped: W is zero there).
+template <int DH, int NB>
+__device__ __forceinline__ void accumulate_ab(float (&out)[DH / 8][4], const float (&w)[NB][4],
+                                              const __nv_bfloat16* tile, int lane, int n_real) {
+#pragma unroll
+  for (int kk = 0; kk < NB / 2; ++kk) {
+    if (kk * 16 >= n_real) continue;
+    uint32_t wf[4];
+    wf[0] = pack_bf16(w[2 * kk][0], w[2 * kk][1]);
+    wf[1] = pack_bf16(w[2 * kk][2], w[2 * kk][3]);
+    wf[2] = pack_bf16(w[2 * kk + 1][0], w[2 * kk + 1][1]);
+    wf[3] = pack_bf16(w[2 * kk + 1][2], w[2 * kk + 1][3]);
+    uint32_t bfr[DH / 16][4];
+#pragma unroll
+    for (int nd = 0; nd < DH / 8; nd += 2)
+      ldmatrix_x4_trans(bfr[nd / 2], frag_bt_row(tile, DH + 8, kk * 16, nd * 8, lane));
+#pragma unroll
+    for (int nd = 0; nd < DH / 8; nd += 2) {
+      mma_bf16(out[nd], wf, bfr[nd / 2][0], bfr[nd / 2][1]);
+      mma_bf16(out[nd + 1], wf, bfr[nd / 2][2], bfr[nd / 2][3]);
     }
   }
 }

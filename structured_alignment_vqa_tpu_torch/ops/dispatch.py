@@ -2,9 +2,9 @@
 
 A wrapper runs its plain PyTorch version on CPU tensors and launches its
 CUDA kernel on CUDA tensors; there is no switch between the two. A launch
-that fails raises: nothing falls back to the plain version. K4's forward and
-K2 each have two CUDA kernels, and :func:`kernel_path` says which one a call
-takes.
+that fails raises: nothing falls back to the plain version. K2, K4's
+forward and its backward K5 and K6 each have two CUDA kernels, and
+:func:`kernel_path` says which one a call takes.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ def use_kernel(x: torch.Tensor) -> bool:
 
 
 def kernel_path(dtype, head_dim: int) -> str:
-    """Which of its CUDA kernels K4's forward or K2 takes: ``"tensor-core"``
+    """Which of its CUDA kernels K2, K4, K5 or K6 takes: ``"tensor-core"``
     (``mma.sync`` on bf16 tiles) for bfloat16 with a head width that is a
     multiple of 16, else ``"simt"`` (f32 FMAs): TF32 products would not hold
     the 1e-4 the float32 path is checked to."""

@@ -27,18 +27,21 @@ where the kernels round. Keys are exactly the Tk given (the TPU wrapper pads
 them to its tile with masked keys, which add to z on rows whose real keys
 are all masked; ``out`` and the gradients are the same).
 
-K4 has two kernels (``dispatch.kernel_path``). bfloat16 with a head width
-that is a multiple of 16 runs on the tensor cores: ``mma.sync`` for both products on
-bf16 tiles that ``cp.async`` streams through a two-stage ring, one warp per
-16 query rows, the weights passed from the first product to the second in
-registers. When the query tiles do not fill the card (the decoder's one
-query into 1,536 keys) the keys are split over more blocks
-(:func:`key_split`); each writes its raw ``(a, m, z, b)`` to scratch and a
-second small kernel merges them (:func:`merge_partials_plain` is its plain
-version). One call counts as one launch whatever the split. float32, and
-bfloat16 with any other head width, keep the SIMT kernel (f32 FMAs, no
-split): TF32 products would not hold the 1e-4 the float32 path is checked
-to. K5 and K6 are SIMT kernels.
+K4, K5 and K6 each have two kernels (``dispatch.kernel_path``). bfloat16
+with a head width that is a multiple of 16 runs on the tensor cores:
+``mma.sync`` for every product on bf16 tiles that ``cp.async`` streams
+through a two-stage ring, one warp per 16 query rows (K4, K5) or 16 keys
+(K6), the weights or dS passed from one product to the next in registers
+(K5 and K6 round dS and n to bf16 there; the plain versions round them
+alike). When the query tiles do not fill the card (the decoder's one query
+into 1,536 keys) K4 and K5 split the keys over more blocks
+(:func:`key_split`); each block writes its raw ``(a, m, z, b)`` (K4) or its
+f32 partial dQ (K5) to scratch and a second small kernel merges them
+(:func:`merge_partials_plain` and :func:`sum_dq_shards_plain` are their
+plain versions). One call counts as one launch whatever the split.
+float32, and bfloat16 with any other head width, keep the SIMT kernels (f32
+FMAs, no split): TF32 products would not hold the 1e-4 the float32 path is
+checked to.
 """
 
 from __future__ import annotations
@@ -147,6 +150,16 @@ def key_split(batch: int, num_heads: int, tq: int, tk: int) -> tuple:
     return -(-steps // per), per
 
 
+def kernel_key_split(dtype, head_dim: int, batch: int, num_heads: int, tq: int,
+                     tk: int) -> tuple:
+    """``(n_split, steps_per_split)`` a K4 or K5 call takes: :func:`key_split`
+    on the tensor-core kernels (K5's blocks and steps are K4's: 64 query
+    rows, 64 keys), one shard of every step on the SIMT kernels."""
+    if kernel_path(dtype, head_dim) == "tensor-core":
+        return key_split(batch, num_heads, tq, tk)
+    return 1, -(-tk // KEY_STEP)
+
+
 def masked_grad_and_delta(out, dy, query_mask, num_heads: int):
     """What the backward kernels take in place of dy: ``dO = dy * query_mask``
     in float32, ``delta = sum_dh(dO * out)`` per (batch, head, row) from that
@@ -182,15 +195,29 @@ def _ds_and_n(q, k, v, key_mask, graph, m, z, bsum, delta, d_out, num_heads: int
 
 def flash_bwd_dq_plain(q, k, v, key_mask, graph, m, z, bsum, delta, d_out, num_heads: int,
                        renorm: str = "l1"):
-    """Plain PyTorch version of K5: dQ = dS K, in q's dtype."""
+    """Plain PyTorch version of K5: dQ = dS K, in q's dtype, with dS rounded
+    to q's dtype first (the operand the kernels multiply)."""
     ds, _ = _ds_and_n(q, k, v, key_mask, graph, m, z, bsum, delta, d_out, num_heads, renorm)
+    ds = ds.to(q.dtype).float()
     return _merge(torch.matmul(ds, _heads(k.float(), num_heads))).to(q.dtype)
+
+
+def sum_dq_shards_plain(parts, dtype):
+    """Plain PyTorch version of the kernel that sums K5's key shards: the
+    f32 partials ``parts`` (S, B, Tq, C) added in shard order, then rounded
+    to ``dtype``."""
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    return total.to(dtype)
 
 
 def flash_bwd_dkv_plain(q, k, v, key_mask, graph, m, z, bsum, delta, d_out, num_heads: int,
                         renorm: str = "l1"):
-    """Plain PyTorch version of K6: dK = dS^T Q and dV = N^T dO, in k's dtype."""
+    """Plain PyTorch version of K6: dK = dS^T Q and dV = N^T dO, in k's
+    dtype, with dS and n rounded to q's dtype first."""
     ds, n = _ds_and_n(q, k, v, key_mask, graph, m, z, bsum, delta, d_out, num_heads, renorm)
+    ds, n = ds.to(q.dtype).float(), n.to(q.dtype).float()
     dk = torch.matmul(ds.transpose(-1, -2), _heads(q.float(), num_heads))
     dv = torch.matmul(n.transpose(-1, -2), _heads(d_out.float(), num_heads))
     return _merge(dk).to(k.dtype), _merge(dv).to(v.dtype)
@@ -209,7 +236,8 @@ def flash_graph_attention_bwd_plain(q, k, v, key_mask, query_mask, graph, out, m
 
     with dN = dO V^T, dS zero on masked keys and scaled by 1/sqrt(dh) once;
     dQ = dS K, dK = dS^T Q, dV = N^T dO. dO, V, K and Q enter every product
-    widened to float32.
+    widened to float32; dS and n are rounded to q's dtype before the second
+    products, as the kernels take them (in float32 that rounds nothing).
     """
     if renorm not in RENORMS:
         raise ValueError(f"unknown renorm mode: {renorm!r}")
@@ -266,9 +294,7 @@ def _launch_forward(q, k, v, key_mask, query_mask, graph, num_heads: int, renorm
     tk = k.shape[1]
     dev = q.device
     dh = c // num_heads
-    n_split, per = 1, -(-tk // KEY_STEP)
-    if kernel_path(q.dtype, dh) == "tensor-core":
-        n_split, per = key_split(b, num_heads, tq, tk)
+    n_split, per = kernel_key_split(q.dtype, dh, b, num_heads, tq, tk)
     scratch = [None, None]
     if n_split > 1:    # the shards' raw a and m, z, b between the two kernels
         scratch = [torch.empty(n_split, b, num_heads, tq, dh, dtype=torch.float32, device=dev),
@@ -293,28 +319,41 @@ def _launch_forward(q, k, v, key_mask, query_mask, graph, num_heads: int, renorm
     return out if emit == "out" else (out, *stats)
 
 
-def _launch_backward(entry: str, counted, n_out: int, q, k, v, key_mask, graph, m, z, bsum,
-                     delta, d_out, num_heads: int, renorm: str):
-    _check(q, k, v, key_mask, graph, num_heads, renorm,
-           {"m": m, "z": z, "b": bsum, "delta": delta, "d_out": d_out})
+def _call_backward(entry: str, outs: list, ints: list, q, k, v, key_mask, graph, m, z, bsum,
+                   delta, d_out, num_heads: int, renorm: str) -> None:
+    """One call of a C entry of ``flash_graph_attention_bwd.cu``: the ten
+    inputs and ``outs`` (pointers, None for a null one), the shapes and
+    ``ints``, the scale and the stream."""
     fn = getattr(_build.library("flash_graph_attention_bwd"), entry)
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * (10 + n_out) + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_void_p])
+    pointers = [q, k, v, key_mask, graph, m, z, bsum, delta, d_out, *outs]
     b, tq, c = q.shape
-    outs = [torch.empty_like(q)] if n_out == 1 else [torch.empty_like(k), torch.empty_like(v)]
+    ints = [b, tq, k.shape[1], c, num_heads, RENORMS.index(renorm), _DTYPES[q.dtype], *ints]
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * len(pointers) + [ctypes.c_int] * len(ints)
+                   + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        status = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), graph.data_ptr(),
-            m.data_ptr(), z.data_ptr(), bsum.data_ptr(), delta.data_ptr(), d_out.data_ptr(),
-            *(o.data_ptr() for o in outs),
-            b, tq, k.shape[1], c, num_heads, RENORMS.index(renorm), _DTYPES[q.dtype],
-            1.0 / (c // num_heads) ** 0.5, stream,
-        )
+        status = fn(*(None if t is None else t.data_ptr() for t in pointers), *ints,
+                    1.0 / (c // num_heads) ** 0.5, stream)
     _build.check(status, f"{entry} kernel")
-    counted.launches += 1
-    return outs
+
+
+def _check_dq_scratch(scratch, n_split: int, per: int, q, tk: int) -> None:
+    """What K5's launch needs of its split: shards that cover the key steps
+    with none empty, and with more than one shard an f32 scratch of
+    (n_split, B, Tq, C) on q's device for the partials."""
+    steps = -(-tk // KEY_STEP)
+    if n_split < 1 or per < 1 or not (n_split - 1) * per < steps <= n_split * per:
+        raise ValueError(f"{n_split} shard(s) of {per} step(s) do not cover {steps} key steps")
+    if n_split == 1:
+        if scratch is not None:
+            raise ValueError("one shard takes no scratch")
+        return
+    shape = (n_split, *q.shape)
+    if (scratch is None or tuple(scratch.shape) != shape or scratch.dtype != torch.float32
+            or scratch.device != q.device or not scratch.is_contiguous()):
+        got = None if scratch is None else (tuple(scratch.shape), scratch.dtype, scratch.device)
+        raise ValueError(f"scratch: expected {shape} float32 contiguous on {q.device}, got {got}")
 
 
 def flash_bwd_dq(q, k, v, key_mask, graph, m, z, bsum, delta, d_out, num_heads: int,
@@ -324,8 +363,20 @@ def flash_bwd_dq(q, k, v, key_mask, graph, m, z, bsum, delta, d_out, num_heads: 
     if not use_kernel(q):
         return flash_bwd_dq_plain(q, k, v, key_mask, graph, m, z, bsum, delta, d_out,
                                   num_heads, renorm)
-    return _launch_backward("savqa_flash_graph_attention_bwd_dq", flash_bwd_dq, 1, q, k, v,
-                            key_mask, graph, m, z, bsum, delta, d_out, num_heads, renorm)[0]
+    args = (q, k, v, key_mask, graph, m, z, bsum, delta, d_out, num_heads, renorm)
+    _check(q, k, v, key_mask, graph, num_heads, renorm,
+           {"m": m, "z": z, "b": bsum, "delta": delta, "d_out": d_out})
+    b, tq, c = q.shape
+    tk = k.shape[1]
+    n_split, per = kernel_key_split(q.dtype, c // num_heads, b, num_heads, tq, tk)
+    scratch = None   # the shards' f32 partial dQ between the two kernels
+    if n_split > 1:
+        scratch = torch.empty(n_split, b, tq, c, dtype=torch.float32, device=q.device)
+    _check_dq_scratch(scratch, n_split, per, q, tk)
+    dq = torch.empty_like(q)
+    _call_backward("savqa_flash_graph_attention_bwd_dq", [dq, scratch], [n_split, per], *args)
+    flash_bwd_dq.launches += 1
+    return dq
 
 
 flash_bwd_dq.launches = 0
@@ -337,9 +388,13 @@ def flash_bwd_dkv(q, k, v, key_mask, graph, m, z, bsum, delta, d_out, num_heads:
     if not use_kernel(q):
         return flash_bwd_dkv_plain(q, k, v, key_mask, graph, m, z, bsum, delta, d_out,
                                    num_heads, renorm)
-    return tuple(_launch_backward("savqa_flash_graph_attention_bwd_dkv", flash_bwd_dkv, 2, q, k,
-                                  v, key_mask, graph, m, z, bsum, delta, d_out, num_heads,
-                                  renorm))
+    _check(q, k, v, key_mask, graph, num_heads, renorm,
+           {"m": m, "z": z, "b": bsum, "delta": delta, "d_out": d_out})
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _call_backward("savqa_flash_graph_attention_bwd_dkv", [dk, dv], [], q, k, v, key_mask, graph,
+                   m, z, bsum, delta, d_out, num_heads, renorm)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
 
 
 flash_bwd_dkv.launches = 0
