@@ -13,8 +13,15 @@ Phases, each of which must pass:
 3. K1 (graph attention + LayerNorm) against its plain PyTorch version on the
    card, bf16 and f32, at the serving shapes: B 128, C 512, 8 heads,
    self-attention at L 66 and 128, one-query cross-attention into 66 and
-   128 keys, both renorms;
-4. K3 (FFN + LayerNorm) the same way at 16,384, 8,448 and 128 rows;
+   128 keys, both renorms, and at the obj+rel shapes (B 4); each line says
+   which kernel the shape took (tensor-core or SIMT); a bf16 shape with a
+   head width of 8 must take the SIMT kernel, one with 65 keys checks the
+   tensor-core kernel's unaligned graph loads, one has a sample whose keys
+   are all masked, one walks 300 keys in five steps;
+4. K3 (FFN + LayerNorm) the same way at 16,384, 8,448 and 128 rows and at
+   obj+rel's 6,144, 264 and 4 rows; each line says how many shards of the
+   hidden width the bf16 kernel took; 1,000 rows checks a ragged last
+   64-row tile;
 5. K2 (the backward of K1) against its plain PyTorch version at K1's
    shapes, bf16 and f32, both renorms, with all-zero graph rows and masked
    keys; in f32 also against torch.autograd of K1's plain version; each line
@@ -136,10 +143,23 @@ REL_STEP_REMAT = {"K1": 18, "K2": 12, "K4": 18, "K5": 12, "K6": 12, "K3": 36}
 # tables' gradients are summed with atomics, in an order that can change)
 STATS_TOL = 1e-4
 REMAT_TOL = 1e-5
-# ms per launch of the SIMT K4, K2, K5 and K6 these shapes ran before their
-# bf16 paths moved to the tensor cores (this script, H100 80GB HBM3 at
-# 700 W), printed beside the new time; by (kernel, shape label, dtype)
+# ms per launch of K4, K2, K5 and K6 (SIMT) and of K1 (SIMT) and K3 (the
+# WMMA kernel) these shapes ran before their bf16 paths were redesigned for
+# the tensor cores (this script, H100 80GB HBM3 at 700 W), printed beside
+# the new time; by (kernel, shape label, dtype)
 PREVIOUS_MS = {
+    ("K1", "self L=66", torch.bfloat16): 0.4282,
+    ("K1", "self L=128", torch.bfloat16): 0.9538,
+    ("K1", "cross Tq=1 Lk=66", torch.bfloat16): 0.0794,
+    ("K1", "cross Tq=1 Lk=128", torch.bfloat16): 0.1364,
+    ("K1", "self L=66 B=4", torch.bfloat16): 0.1493,
+    ("K1", "cross Tq=1 Lk=66 B=4", torch.bfloat16): 0.0767,
+    ("K3", "rows=16384", torch.bfloat16): 0.7532,
+    ("K3", "rows=8448", torch.bfloat16): 0.3902,
+    ("K3", "rows=128", torch.bfloat16): 0.1922,
+    ("K3", "rows=6144", torch.bfloat16): 0.3851,
+    ("K3", "rows=264", torch.bfloat16): 0.1992,
+    ("K3", "rows=4", torch.bfloat16): 0.1836,
     ("K4", "self L=1536", torch.bfloat16): 1.1309,
     ("K4", "cross Tq=1 Lk=1536", torch.bfloat16): 0.2123,
     ("K4", "self L=1536", torch.float32): 1.1177,
@@ -207,38 +227,74 @@ K1_SHAPES = (("self L=66", 66, 66, B), ("self L=128", 128, 128, B),
              ("self L=66 B=4", 66, 66, REL_B), ("cross Tq=1 Lk=66 B=4", 1, 66, REL_B))
 
 
+def k1_inputs(gen, tq: int, tk: int, dtype, B: int = B, all_masked: bool = False):
+    """K1's arguments at (B, Tq, Tk, C): keys valid up to a ragged length per
+    sample (with ``all_masked``, every key of sample 0 masked)."""
+    dev = "cuda"
+    n_keys = torch.randint(1, tk + 1, (B,), generator=gen, device=dev)
+    key_mask = (torch.arange(tk, device=dev)[None] < n_keys[:, None]).float()
+    if all_masked:
+        key_mask[0] = 0.0
+    query_mask = key_mask[:, :tq].contiguous() if tq == tk else torch.ones(B, tq, device=dev)
+    graph = (torch.rand(B, tq, tk, generator=gen, device=dev) < 0.3).float()
+    graph = graph * query_mask[:, :, None] * key_mask[:, None, :]
+    q, k, v = (torch.relu(torch.randn(B, t, C, generator=gen, device=dev)).to(dtype)
+               for t in (tq, tk, tk))
+    res = torch.randn(B, tq, C, generator=gen, device=dev).to(dtype)
+    gamma = 1 + 0.05 * torch.randn(C, generator=gen, device=dev)
+    beta = 0.05 * torch.randn(C, generator=gen, device=dev)
+    return q, k, v, key_mask, query_mask, graph, res, gamma, beta
+
+
+def k1_against_plain(label: str, args, heads: int) -> float:
+    """K1 against its plain version over both renorms: the largest error."""
+    from structured_alignment_vqa_tpu_torch.ops import fused_graph_attention as k1
+
+    dtype = args[0].dtype
+    err = 0.0
+    for renorm in ("l1", "sum_eps"):
+        got = k1.fused_graph_attention_ln(*args, heads, renorm)
+        want = k1.graph_attention_ln_plain(*args, heads, renorm)
+        torch.cuda.synchronize()
+        err = max(err, (got.float() - want.float()).abs().max().item())
+        check(bool(torch.isfinite(got.float()).all()), f"K1 {label} {dtype} {renorm}: finite")
+    check(err <= TOL[dtype], f"K1 {label} {dtype}: max|kernel-plain| {err:.3g} <= {TOL[dtype]:g}")
+    return err
+
+
 def k1_phase(gen) -> dict:
     from structured_alignment_vqa_tpu_torch.ops import fused_graph_attention as k1
+
+    # a head width of 8 (64 heads) is no multiple of 16: bf16 takes the SIMT kernel
+    path = k1.kernel_path(torch.bfloat16, C // 64)
+    check(path == "simt", f"K1 self L=66 B=4 heads=64 bf16: head width {C // 64} takes the "
+          f"{path} kernel")
+    k1_against_plain("self L=66 B=4 heads=64", k1_inputs(gen, 66, 66, torch.bfloat16, REL_B), 64)
+    # 65 keys: two adjacent graph entries are not 8-byte aligned, so the
+    # tensor-core kernel loads them one by one; sample 0 has every key masked
+    # (each key then weighs exp(0) = 1 in the softmax, as in the plain version)
+    k1_against_plain("self L=65 B=4", k1_inputs(gen, 65, 65, torch.bfloat16, REL_B), HEADS)
+    k1_against_plain("self L=128 B=4 all keys of sample 0 masked",
+                     k1_inputs(gen, 128, 128, torch.bfloat16, REL_B, all_masked=True), HEADS)
+    k1_against_plain("cross Tq=1 Lk=300 B=4 (5 key steps)",
+                     k1_inputs(gen, 1, 300, torch.bfloat16, REL_B), HEADS)
 
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         for label, tq, tk, B in K1_SHAPES:
-            dev = "cuda"
-            n_keys = torch.randint(1, tk + 1, (B,), generator=gen, device=dev)
-            key_mask = (torch.arange(tk, device=dev)[None] < n_keys[:, None]).float()
-            query_mask = key_mask[:, :tq].contiguous() if tq == tk else torch.ones(B, tq, device=dev)
-            graph = (torch.rand(B, tq, tk, generator=gen, device=dev) < 0.3).float()
-            graph = graph * query_mask[:, :, None] * key_mask[:, None, :]
-            q, k, v = (torch.relu(torch.randn(B, t, C, generator=gen, device=dev)).to(dtype)
-                       for t in (tq, tk, tk))
-            res = torch.randn(B, tq, C, generator=gen, device=dev).to(dtype)
-            gamma = 1 + 0.05 * torch.randn(C, generator=gen, device=dev)
-            beta = 0.05 * torch.randn(C, generator=gen, device=dev)
-            args = (q, k, v, key_mask, query_mask, graph, res, gamma, beta, HEADS)
-            err = 0.0
-            for renorm in ("l1", "sum_eps"):
-                got = k1.fused_graph_attention_ln(*args, renorm)
-                want = k1.graph_attention_ln_plain(*args, renorm)
-                torch.cuda.synchronize()
-                err = max(err, (got.float() - want.float()).abs().max().item())
-            check(err <= TOL[dtype], f"K1 {label} {dtype}: max|kernel-plain| {err:.3g} <= {TOL[dtype]:g}")
-            ms = time_ms(lambda: k1.fused_graph_attention_ln(*args, "l1"))
-            plain_ms = time_ms(lambda: k1.graph_attention_ln_plain(*args, "l1"))
+            args = k1_inputs(gen, tq, tk, dtype, B)
+            path = k1.kernel_path(dtype, C // HEADS)
+            want_path = "tensor-core" if dtype == torch.bfloat16 else "simt"
+            check(path == want_path, f"K1 {label} {dtype}: takes the {path} kernel")
+            err = k1_against_plain(label, args, HEADS)
+            ms = time_ms(lambda: k1.fused_graph_attention_ln(*args, HEADS, "l1"))
+            plain_ms = time_ms(lambda: k1.graph_attention_ln_plain(*args, HEADS, "l1"))
             size = torch.finfo(dtype).bits // 8
             nbytes = (size * B * C * (3 * tq + 2 * tk) + 4 * B * (tq + tk + tq * tk) + 8 * C)
             bound_ms, bound_by = bound(nbytes, 4.0 * B * tq * tk * C, dtype)
-            print(f"K1 {label} {dtype}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"bound {bound_ms * 1e3:.2f} us ({bound_by})", flush=True)
+            print(f"K1 {label} {dtype}: {path} kernel {ms:.4f} ms{previous('K1', label, dtype)}, "
+                  f"plain {plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by})",
+                  flush=True)
             rows.append(dict(label=label, dtype=dtype, err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by))
     return {r["label"] + str(r["dtype"]): r for r in rows}
@@ -249,7 +305,8 @@ def k3_phase(gen) -> dict:
 
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
-        for n in (16384, 8448, 128, REL_B * REL_L, REL_B * (REL_LV + REL_LQ), REL_B):
+        # 1,000 rows: no multiple of the bf16 kernel's 64-row tile
+        for n in (16384, 8448, 128, REL_B * REL_L, REL_B * (REL_LV + REL_LQ), REL_B, 1000):
             dev = "cuda"
             x = torch.randn(n, C, generator=gen, device=dev).to(dtype)
             w1 = (torch.randn(HIDDEN, C, generator=gen, device=dev) / C ** 0.5).to(dtype)
@@ -263,13 +320,20 @@ def k3_phase(gen) -> dict:
             want = k3.ffn_ln_plain(*args)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
-            check(err <= TOL[dtype], f"K3 rows={n} {dtype}: max|kernel-plain| {err:.3g} <= {TOL[dtype]:g}")
+            n_split = k3.kernel_ffn_split(dtype, n, C, HIDDEN)[0]
+            path = "tensor-core" if dtype == torch.bfloat16 else "simt"
+            check(err <= TOL[dtype] and bool(torch.isfinite(got.float()).all()),
+                  f"K3 rows={n} {dtype}: {path} kernel, hidden width in {n_split} shard(s), "
+                  f"max|kernel-plain| {err:.3g} <= {TOL[dtype]:g}")
+            if n == 1000:
+                continue
             ms = time_ms(lambda: k3.fused_ffn(*args))
             plain_ms = time_ms(lambda: k3.ffn_ln_plain(*args))
             size = torch.finfo(dtype).bits // 8
             nbytes = size * (2 * n * C + 2 * C * HIDDEN + HIDDEN + C) + 8 * C
             bound_ms, bound_by = bound(nbytes, 4.0 * n * C * HIDDEN, dtype)
-            print(f"K3 rows={n} {dtype}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            print(f"K3 rows={n} {dtype}: {path} kernel, {n_split} shard(s), {ms:.4f} ms"
+                  f"{previous('K3', f'rows={n}', dtype)}, plain {plain_ms:.4f} ms, "
                   f"bound {bound_ms * 1e3:.2f} us ({bound_by})", flush=True)
             rows.append(dict(label=f"rows={n}", dtype=dtype, err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by))
@@ -277,24 +341,14 @@ def k3_phase(gen) -> dict:
 
 
 def k2_inputs(gen, tq: int, tk: int, dtype, B: int = B):
-    """K1's arguments and a dy at (B, Tq, Tk, C): masked keys and, for
-    self-attention, the first third of the rows with an all-zero graph
-    (as the encoder's stage-1 graph on its modality rows)."""
-    dev = "cuda"
-    n_keys = torch.randint(1, tk + 1, (B,), generator=gen, device=dev)
-    key_mask = (torch.arange(tk, device=dev)[None] < n_keys[:, None]).float()
-    query_mask = key_mask[:, :tq].contiguous() if tq == tk else torch.ones(B, tq, device=dev)
-    graph = (torch.rand(B, tq, tk, generator=gen, device=dev) < 0.3).float()
-    graph = graph * query_mask[:, :, None] * key_mask[:, None, :]
+    """K1's arguments (``k1_inputs``) and a dy; for self-attention the first
+    third of the rows get an all-zero graph (as the encoder's stage-1 graph
+    on its modality rows)."""
+    args = k1_inputs(gen, tq, tk, dtype, B)
     if tq == tk:
-        graph[:, : tq // 3] = 0.0
-    q, k, v = (torch.relu(torch.randn(B, t, C, generator=gen, device=dev)).to(dtype)
-               for t in (tq, tk, tk))
-    res = torch.randn(B, tq, C, generator=gen, device=dev).to(dtype)
-    gamma = 1 + 0.05 * torch.randn(C, generator=gen, device=dev)
-    beta = 0.05 * torch.randn(C, generator=gen, device=dev)
-    dy = torch.randn(B, tq, C, generator=gen, device=dev).to(dtype)
-    return (q, k, v, key_mask, query_mask, graph, res, gamma, beta), dy
+        args[5][:, : tq // 3] = 0.0
+    dy = torch.randn(B, tq, C, generator=gen, device="cuda").to(dtype)
+    return args, dy
 
 
 def rel_err(got, want) -> float:
@@ -676,6 +730,8 @@ def profile_device(fn, what: str) -> None:
     busy = sum(us for _, us in by_name.values())
     markers = (("K2 graph_attention_ln_bwd", "graph_attention_ln_bwd_"),
                ("K1 graph_attention_ln", "graph_attention_ln_kernel"),
+               ("K1 graph_attention_ln", "graph_attention_ln_tc_kernel"),
+               ("K1 graph_attention_ln", "graph_attention_ln_epilogue_kernel"),
                ("K3 ffn_ln", "ffn_ln_"),
                ("K5 flash_graph_attention_bwd_dq", "flash_graph_attention_bwd_dq"),
                ("K6 flash_graph_attention_bwd_dkv", "flash_graph_attention_bwd_dkv"),
@@ -684,9 +740,12 @@ def profile_device(fn, what: str) -> None:
                ("K4 flash_graph_attention", "merge_partials_kernel"))
     groups = {key: 0.0 for key, _ in markers}
     groups.update(gemm=0.0, other=0.0)
+    def is_gemm(name: str) -> bool:   # cuBLAS's bf16 kernels on Hopper may be nvjet_*
+        return any(mark in name.lower() for mark in ("gemm", "nvjet", "cublas"))
+
     for name, (_, us) in by_name.items():
         key = next((key for key, mark in markers if mark in name),
-                   "gemm" if "gemm" in name.lower() else "other")
+                   "gemm" if is_gemm(name) else "other")
         groups[key] += us
     print(f"profile: {what}, wall {wall_us / 1e3:.3f} ms (profiler on), device busy "
           f"{busy / 1e3:.3f} ms, idle share {1 - busy / wall_us:.3f}, {len(kernels)} kernels")
@@ -1193,9 +1252,8 @@ def main(argv: list) -> int:
     built = _build.build_all()
     print(f"build: {built or 'nothing to build'} in {time.perf_counter() - t0:.1f} s", flush=True)
     for name in _build.SOURCES:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+        for line in _build.register_lines(_build.build_log(name)):
+            print(f"  {name}: {line}")
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
     kernel_phases = {"k1": k1_phase, "k3": k3_phase, "k2": k2_phase, "k4": k4_phase,

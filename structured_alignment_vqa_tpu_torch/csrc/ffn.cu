@@ -12,28 +12,25 @@
 // What bounds it on an H100: operations. At 16,384 rows, C 512, bf16 it does
 // 6.9e10 operations on ~37 MB (about 1,900 per byte, far above the ~295
 // ridge); at the decoder's 128 rows the 4 MB of weights bound it instead.
+// Far above either bound, what sets the bf16 path's time is the weight
+// bytes every block streams from L2 and the shared-memory traffic of
+// mma.sync's small tiles.
 //
-// Design. One block of 256 threads owns a tile of 32 rows and walks the
-// hidden width in chunks of 64: the chunk h = relu(x W1[chunk]^T + b1) is
-// built in shared memory and is never written to device memory, then
-// y += h W2[:, chunk]^T is accumulated on chip, so the residual and the
-// LayerNorm finish in the block. Every block reads both weight matrices once
-// (from L2 after the first blocks).
+// Design. A block owns a tile of rows and walks the hidden width in chunks
+// of 64: the chunk h = relu(x W1[chunk]^T + b1) is built on chip and never
+// written to device memory, then y += h W2[:, chunk]^T is accumulated on
+// chip, so the residual and the LayerNorm finish in the block. Every block
+// reads both weight matrices once (from L2 after the first blocks).
 //
-// bf16 runs on the tensor cores (mma.sync through WMMA, 16x16x16 tiles, f32
-// accumulation): x and the weight chunks are copied into shared memory with
-// cp.async, the next W1 chunk streaming in while the current W2 chunk is
-// multiplied and the other way round; each warp keeps its (32, C/8) slice of
-// y in accumulator fragments. float32 has no tensor-core form that keeps
-// f32 products, so it runs on CUDA cores: FMAs from shared-memory slices
-// of W1 and W2, y in registers (each warp 4 whole rows). wgmma, TMA and a
-// split of the hidden width across blocks for small row counts are later
-// work.
+// bf16 runs on the tensor cores (below). float32 has no tensor-core form
+// that keeps f32 products, so it runs on CUDA cores: one block of 256
+// threads per 32 rows, FMAs from shared-memory slices of W1 and W2, y in
+// registers (each warp 4 whole rows). wgmma and TMA are not used.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
-#include <cuda_pipeline.h>
-#include <mma.h>
+
+#include "mma_sm90.cuh"
 
 namespace {
 
@@ -183,165 +180,339 @@ ffn_ln_f32_kernel(const float* __restrict__ x, const float* __restrict__ w1,
 }
 
 // ------------------------------------------------------------------- bf16
+//
+// One block of 8 warps owns 64 rows and walks its hidden chunks of 64 (all
+// of them, or one shard of them, below). Per chunk:
+//   1. h = relu(x W1[chunk]^T + b1): warp (rg, hh) = (warp / 2, warp % 2)
+//      forms rows 16 rg .. 16 rg + 15 x hidden 32 hh .. 32 hh + 31 with
+//      mma.sync m16n8k16 (x and the W1 chunk from shared memory through
+//      ldmatrix), adds b1 and rounds to bf16 on its accumulator fragments,
+//      and writes them to the 64 x 64 bf16 tile hs (the only round trip of
+//      h: 8 KB in shared memory, never f32);
+//   2. y += h W2[:, chunk]^T: warp w owns all 64 rows x columns
+//      [w C/8, (w+1) C/8) of y in accumulator fragments (128 registers at
+//      C 512), so every hs fragment it loads feeds C/64 products.
+// The W1 chunk (64 x C) and the W2 chunk (C x 64) stream in by cp.async, the
+// next W1 chunk while the current W2 chunk is multiplied and the other way
+// round. 64 rows a block read the 4 MB of weights half as often per row as
+// 32 did (2 GiB -> 1 GiB through L2 at 16,384 rows); 218 KB of shared
+// memory and ~170 registers a thread leave one block an SM.
+//
+// Few rows (the decoders' 128 and 4, obj+rel's 264): the row tiles alone
+// leave most SMs idle and each block's chunks are one serial chain, so the
+// wrapper splits the hidden chunks into n_split shards (ffn_split in
+// ops/fused_ffn.py, a pure function of the shapes): block (tile, shard)
+// writes its f32 partial y of real rows to scratch and ffn_ln_shard_sum_kernel
+// sums the shards in shard order (no atomics: every run sums alike), adds
+// b2 and x and runs the LayerNorm. Unsplit, the block adds b2 and x to its
+// fragments and runs the LayerNorm itself, the row sums of its 8 warps
+// exchanged through shared memory.
 
-namespace wmma = nvcuda::wmma;
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+using bf16 = __nv_bfloat16;
+using savqa::cp_async16;
+using savqa::cp_async_commit;
+using savqa::cp_async_wait;
+using savqa::frag_a_row;
+using savqa::frag_b_row;
+using savqa::ldmatrix_x4;
+using savqa::mma_bf16;
+using savqa::pack_bf16;
+using savqa::quad_sum;
 
-// Shared memory of the bf16 kernel, in bytes. Strides are padded by 16
-// bytes (bf16) or 16 bytes (f32) against bank conflicts; every tile a WMMA
-// call touches starts on a 32-byte boundary.
+constexpr int kTcRows = 64;     // rows per block
+constexpr int kTcHidden = 64;   // hidden chunk
+
+// Shared memory of the tensor-core kernel, in bytes. Row strides are an odd
+// number of 16-byte units, which keeps ldmatrix free of bank conflicts.
 template <int C>
-struct Bf16Smem {
-  static constexpr int XS = C + 8;          // x tile and W1 chunk (rows of C)
-  static constexpr int W2S = kHidden + 8;   // W2 chunk: one row of 64 per output column
-  static constexpr int HS = kHidden + 8;    // hidden chunk, rounded to bf16
-  static constexpr int HF = kHidden + 4;    // hidden chunk, f32 before the bias
-  static constexpr int YS = C + 4;          // f32 output tile, over the W1 buffer at the end
+struct TcSmem {
+  static constexpr int XS = C + 8;           // x tile and W1 chunk: rows of C
+  static constexpr int W2S = kTcHidden + 8;  // W2 chunk: one row of 64 per output column
+  static constexpr int HS = kTcHidden + 8;   // hidden chunk, bf16
   static constexpr size_t x = 0;
-  static constexpr size_t w1 = x + 2 * kRows * XS;
-  static constexpr size_t w2 = w1 + 2 * kHidden * XS;
-  static constexpr size_t hf = w2 + 2 * C * W2S;
-  static constexpr size_t hs = hf + 4 * kRows * HF;
-  static constexpr size_t bytes = hs + 2 * kRows * HS;
-  static_assert(4 * kRows * YS <= 2 * kHidden * XS, "the output tile must fit the W1 buffer");
+  static constexpr size_t w1 = x + 2 * kTcRows * XS;
+  static constexpr size_t w2 = w1 + 2 * kTcHidden * XS;
+  static constexpr size_t h = w2 + 2 * C * W2S;
+  static constexpr size_t red = h + 2 * kTcRows * HS;   // per warp and row: a LayerNorm partial sum
+  static constexpr size_t bytes = red + 4 * kWarps * kTcRows;
 };
 
 template <int C>
-__global__ void __launch_bounds__(kThreads)
-ffn_ln_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-                   const bf16* __restrict__ b1, const bf16* __restrict__ w2,
-                   const bf16* __restrict__ b2, const float* __restrict__ gamma,
-                   const float* __restrict__ beta, bf16* __restrict__ out, int N, int Hd) {
-  using S = Bf16Smem<C>;
-  constexpr int kVec = 8;              // bf16 values per 16-byte copy
-  constexpr int kWarpCols = C / kWarps;
-  constexpr int kColFrags = kWarpCols / 16;
-  extern __shared__ __align__(128) unsigned char bf16_smem[];
-  bf16* xs = reinterpret_cast<bf16*>(bf16_smem + S::x);
-  bf16* w1s = reinterpret_cast<bf16*>(bf16_smem + S::w1);
-  bf16* w2s = reinterpret_cast<bf16*>(bf16_smem + S::w2);
-  float* hf = reinterpret_cast<float*>(bf16_smem + S::hf);
-  bf16* hs = reinterpret_cast<bf16*>(bf16_smem + S::hs);
-  float* ys = reinterpret_cast<float*>(bf16_smem + S::w1);
+__global__ void __launch_bounds__(kThreads, 1)
+ffn_ln_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+                 const bf16* __restrict__ b1, const bf16* __restrict__ w2,
+                 const bf16* __restrict__ b2, const float* __restrict__ gamma,
+                 const float* __restrict__ beta, bf16* __restrict__ out,
+                 float* __restrict__ partial, int N, int Hd, int per_split) {
+  using S = TcSmem<C>;
+  constexpr int kNW = C / kWarps;   // output columns per warp
+  constexpr int kNB = kNW / 8;      // their 8-wide blocks
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* xs = reinterpret_cast<bf16*>(tc_smem + S::x);
+  bf16* w1s = reinterpret_cast<bf16*>(tc_smem + S::w1);
+  bf16* w2s = reinterpret_cast<bf16*>(tc_smem + S::w2);
+  bf16* hs = reinterpret_cast<bf16*>(tc_smem + S::h);
+  float* red = reinterpret_cast<float*>(tc_smem + S::red);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int row0 = blockIdx.x * kRows;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int row0 = blockIdx.x * kTcRows;
+  const int j_begin = blockIdx.y * per_split;
+  const int j_end = min(Hd / kTcHidden, j_begin + per_split);
 
-  auto load_w1 = [&](int j0) {  // W1[j0:j0+64, :]
-    for (int i = tid; i < kHidden * C / kVec; i += kThreads) {
-      const int r = i / (C / kVec), c = (i - r * (C / kVec)) * kVec;
-      __pipeline_memcpy_async(w1s + r * S::XS + c, w1 + (size_t)(j0 + r) * C + c, 16);
+  auto load_w1 = [&](int j) {   // W1[64 j : 64 j + 64, :]
+    for (int i = tid; i < kTcHidden * (C / 8); i += kThreads) {
+      const int r = i / (C / 8), c = (i - r * (C / 8)) * 8;
+      cp_async16(w1s + r * S::XS + c, w1 + (size_t)(j * kTcHidden + r) * C + c, true);
     }
   };
-  auto load_w2 = [&](int j0) {  // W2[:, j0:j0+64]
-    for (int i = tid; i < C * kHidden / kVec; i += kThreads) {
-      const int n = i / (kHidden / kVec), k = (i - n * (kHidden / kVec)) * kVec;
-      __pipeline_memcpy_async(w2s + n * S::W2S + k, w2 + (size_t)n * Hd + j0 + k, 16);
+  auto load_w2 = [&](int j) {   // W2[:, 64 j : 64 j + 64]
+    for (int i = tid; i < C * (kTcHidden / 8); i += kThreads) {
+      const int n = i >> 3, k = (i & 7) * 8;
+      cp_async16(w2s + n * S::W2S + k, w2 + (size_t)n * Hd + j * kTcHidden + k, true);
     }
   };
-
-  for (int i = tid; i < kRows * C / kVec; i += kThreads) {  // rows past N are zero
-    const int r = i / (C / kVec), c = (i - r * (C / kVec)) * kVec;
-    bf16* dst = xs + r * S::XS + c;
-    if (row0 + r < N)
-      __pipeline_memcpy_async(dst, x + (size_t)(row0 + r) * C + c, 16);
-    else
-      *reinterpret_cast<int4*>(dst) = make_int4(0, 0, 0, 0);
+  for (int i = tid; i < kTcRows * (C / 8); i += kThreads) {   // rows past N are zeros
+    const int r = i / (C / 8), c = (i - r * (C / 8)) * 8;
+    const bool valid = row0 + r < N;
+    cp_async16(xs + r * S::XS + c, valid ? x + (size_t)(row0 + r) * C + c : x, valid);
   }
-  load_w1(0);
-  __pipeline_commit();
+  load_w1(j_begin);
+  cp_async_commit();
 
-  // y: every warp owns all 32 rows of columns [warp * C/8, (warp + 1) * C/8)
-  FragC acc[2][kColFrags];
+  float y[4][kNB][4];
 #pragma unroll
-  for (int r = 0; r < 2; ++r)
+  for (int rb = 0; rb < 4; ++rb)
 #pragma unroll
-    for (int f = 0; f < kColFrags; ++f) wmma::fill_fragment(acc[r][f], 0.f);
-  // the warp's 16 x 16 tile of the hidden chunk
-  const int hr = 16 * (warp / 4), hc = 16 * (warp % 4);
+    for (int nb = 0; nb < kNB; ++nb) y[rb][nb][0] = y[rb][nb][1] = y[rb][nb][2] = y[rb][nb][3] = 0.f;
+  const int rg = warp >> 1, hh = warp & 1;
 
-  for (int j0 = 0; j0 < Hd; j0 += kHidden) {
-    load_w2(j0);
-    __pipeline_commit();
-    __pipeline_wait_prior(1);  // x and this W1 chunk have landed; the W2 chunk may not have
+  for (int j = j_begin; j < j_end; ++j) {
+    load_w2(j);
+    cp_async_commit();
+    cp_async_wait<1>();   // x and this W1 chunk have landed; the W2 chunk may not have
     __syncthreads();
 
-    {  // hf = x W1[j0:j0+64]^T
-      FragC h;
-      FragA a;
-      FragB b;
-      wmma::fill_fragment(h, 0.f);
-#pragma unroll 4
-      for (int k = 0; k < C; k += 16) {
-        wmma::load_matrix_sync(a, xs + hr * S::XS + k, S::XS);
-        wmma::load_matrix_sync(b, w1s + hc * S::XS + k, S::XS);
-        wmma::mma_sync(h, a, b, h);
+    {   // 1. h = relu(x W1[chunk]^T + b1), rounded to bf16, into hs
+      float hacc[4][4];
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) hacc[nb][0] = hacc[nb][1] = hacc[nb][2] = hacc[nb][3] = 0.f;
+#pragma unroll 8
+      for (int k0 = 0; k0 < C; k0 += 16) {
+        uint32_t a[4], bq[2][4];
+        ldmatrix_x4(a, frag_a_row(xs, S::XS, 16 * rg, k0, lane));
+        ldmatrix_x4(bq[0], frag_b_row(w1s, S::XS, 32 * hh, k0, lane));
+        ldmatrix_x4(bq[1], frag_b_row(w1s, S::XS, 32 * hh + 16, k0, lane));
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          mma_bf16(hacc[2 * p], a, bq[p][0], bq[p][1]);
+          mma_bf16(hacc[2 * p + 1], a, bq[p][2], bq[p][3]);
+        }
       }
-      wmma::store_matrix_sync(hf + hr * S::HF + hc, h, S::HF, wmma::mem_row_major);
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) {
+        const int col = 32 * hh + 8 * nb + 2 * t;
+        const float ba = __bfloat162float(b1[j * kTcHidden + col]);
+        const float bb = __bfloat162float(b1[j * kTcHidden + col + 1]);
+        const int ra = 16 * rg + g;
+        *reinterpret_cast<uint32_t*>(hs + ra * S::HS + col) =
+            pack_bf16(fmaxf(hacc[nb][0] + ba, 0.f), fmaxf(hacc[nb][1] + bb, 0.f));
+        *reinterpret_cast<uint32_t*>(hs + (ra + 8) * S::HS + col) =
+            pack_bf16(fmaxf(hacc[nb][2] + ba, 0.f), fmaxf(hacc[nb][3] + bb, 0.f));
+      }
     }
-    __syncthreads();  // hf complete; every warp is done with this W1 chunk
-    if (j0 + kHidden < Hd) load_w1(j0 + kHidden);
-    __pipeline_commit();  // empty after the last chunk, so the wait below stays uniform
-
-    for (int i = tid; i < kRows * kHidden; i += kThreads) {
-      const int r = i / kHidden, c = i - r * kHidden;
-      const float v = hf[r * S::HF + c] + __bfloat162float(b1[j0 + c]);
-      hs[r * S::HS + c] = __float2bfloat16_rn(fmaxf(v, 0.f));
-    }
-    __pipeline_wait_prior(1);  // this W2 chunk has landed; the next W1 chunk may not have
+    __syncthreads();   // hs complete; every warp is done with this W1 chunk
+    if (j + 1 < j_end) load_w1(j + 1);
+    cp_async_commit();   // empty after the last chunk, so the wait below stays uniform
+    cp_async_wait<1>();  // this W2 chunk has landed; the next W1 chunk may not have
     __syncthreads();
 
-    // y += h W2[:, j0:j0+64]^T
+    // 2. y += h W2[:, chunk]^T
 #pragma unroll
-    for (int k = 0; k < kHidden; k += 16) {
-      FragA a0, a1;
-      wmma::load_matrix_sync(a0, hs + k, S::HS);
-      wmma::load_matrix_sync(a1, hs + 16 * S::HS + k, S::HS);
+    for (int kk = 0; kk < kTcHidden / 16; ++kk) {
+      uint32_t a[4][4];
 #pragma unroll
-      for (int f = 0; f < kColFrags; ++f) {
-        FragB b;
-        wmma::load_matrix_sync(b, w2s + (warp * kWarpCols + 16 * f) * S::W2S + k, S::W2S);
-        wmma::mma_sync(acc[0][f], a0, b, acc[0][f]);
-        wmma::mma_sync(acc[1][f], a1, b, acc[1][f]);
+      for (int rb = 0; rb < 4; ++rb) ldmatrix_x4(a[rb], frag_a_row(hs, S::HS, 16 * rb, 16 * kk, lane));
+#pragma unroll
+      for (int p = 0; p < kNB / 2; ++p) {
+        uint32_t bq[4];
+        ldmatrix_x4(bq, frag_b_row(w2s, S::W2S, warp * kNW + 16 * p, 16 * kk, lane));
+#pragma unroll
+        for (int rb = 0; rb < 4; ++rb) {
+          mma_bf16(y[rb][2 * p], a[rb], bq[0], bq[1]);
+          mma_bf16(y[rb][2 * p + 1], a[rb], bq[2], bq[3]);
+        }
       }
     }
-    __syncthreads();  // every warp is done with hs and this W2 chunk
+    __syncthreads();   // every warp is done with hs and this W2 chunk
+  }
+  cp_async_wait<0>();
+
+  if (gridDim.y > 1) {   // one shard of the hidden width: its f32 partial y, real rows only
+    float* part = partial + ((size_t)blockIdx.y * N + row0) * C;
+#pragma unroll
+    for (int rb = 0; rb < 4; ++rb)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = 16 * rb + g + 8 * half;
+        if (row0 + r >= N) continue;
+#pragma unroll
+        for (int nb = 0; nb < kNB; ++nb)
+          *reinterpret_cast<float2*>(part + (size_t)r * C + warp * kNW + 8 * nb + 2 * t) =
+              make_float2(y[rb][nb][2 * half], y[rb][nb][2 * half + 1]);
+      }
+    return;
   }
 
-  // the W1 buffer is free (no copy in flight): y goes there as f32
+  // + b2 + x, then the LayerNorm over each row; a lane holds rows 16 rb + g
+  // and 16 rb + g + 8 (rb < 4) at 2 kNB columns of the warp's slice
 #pragma unroll
-  for (int r = 0; r < 2; ++r)
+  for (int rb = 0; rb < 4; ++rb)
 #pragma unroll
-    for (int f = 0; f < kColFrags; ++f)
-      wmma::store_matrix_sync(ys + 16 * r * S::YS + warp * kWarpCols + 16 * f, acc[r][f], S::YS,
-                              wmma::mem_row_major);
-  __syncthreads();
+    for (int nb = 0; nb < kNB; ++nb) {
+      const int col = warp * kNW + 8 * nb + 2 * t;
+      const float ba = __bfloat162float(b2[col]), bb = __bfloat162float(b2[col + 1]);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(
+            xs + (16 * rb + g + 8 * half) * S::XS + col);
+        y[rb][nb][2 * half] = (y[rb][nb][2 * half] + ba) + __low2float(xv);
+        y[rb][nb][2 * half + 1] = (y[rb][nb][2 * half + 1] + bb) + __high2float(xv);
+      }
+    }
+  // row sums of the warp's slice -> red[warp][row]; the block sums them in warp order
+  auto row_totals = [&](float (&part)[4][2], float (&total)[4][2]) {
+#pragma unroll
+    for (int rb = 0; rb < 4; ++rb)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float s = quad_sum(part[rb][half]);
+        if (t == 0) red[warp * kTcRows + 16 * rb + g + 8 * half] = s;
+      }
+    __syncthreads();
+#pragma unroll
+    for (int rb = 0; rb < 4; ++rb)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float s = 0.f;
+        for (int w = 0; w < kWarps; ++w) s += red[w * kTcRows + 16 * rb + g + 8 * half];
+        total[rb][half] = s;
+      }
+    __syncthreads();   // red is read by every lane before it is written again
+  };
+  float part[4][2], mean[4][2], sd[4][2];
+#pragma unroll
+  for (int rb = 0; rb < 4; ++rb)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float s = 0.f;
+#pragma unroll
+      for (int nb = 0; nb < kNB; ++nb) s += y[rb][nb][2 * half] + y[rb][nb][2 * half + 1];
+      part[rb][half] = s;
+    }
+  row_totals(part, mean);
+#pragma unroll
+  for (int rb = 0; rb < 4; ++rb)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      mean[rb][half] /= (float)C;
+      float s = 0.f;
+#pragma unroll
+      for (int nb = 0; nb < kNB; ++nb) {
+        const float d0 = y[rb][nb][2 * half] - mean[rb][half];
+        const float d1 = y[rb][nb][2 * half + 1] - mean[rb][half];
+        s += d0 * d0 + d1 * d1;
+      }
+      part[rb][half] = s;
+    }
+  row_totals(part, sd);
+#pragma unroll
+  for (int rb = 0; rb < 4; ++rb)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = 16 * rb + g + 8 * half;
+      const float var = sd[rb][half] / (float)(C - 1);
+      const float den = (var > 0.f ? sqrtf(var) : 0.f) + kLnEps;
+      if (row0 + r >= N) continue;
+      bf16* orow = out + (size_t)(row0 + r) * C;
+#pragma unroll
+      for (int nb = 0; nb < kNB; ++nb) {
+        const int col = warp * kNW + 8 * nb + 2 * t;
+        const float o0 = gamma[col] * (y[rb][nb][2 * half] - mean[rb][half]) / den + beta[col];
+        const float o1 =
+            gamma[col + 1] * (y[rb][nb][2 * half + 1] - mean[rb][half]) / den + beta[col + 1];
+        *reinterpret_cast<uint32_t*>(orow + col) = pack_bf16(o0, o1);
+      }
+    }
+}
 
-  // + b2 + x, then LayerNorm over the row; one warp per row
-  for (int r = warp; r < kRows; r += kWarps) {
-    if (row0 + r >= N) break;  // rows are in order: the rest are past N too
-    float* yr = ys + r * S::YS;
-    float s = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float v = (yr[c] + __bfloat162float(b2[c])) + __bfloat162float(xs[r * S::XS + c]);
-      yr[c] = v;
-      s += v;
+// The split path's second kernel: per row, y = the shards' partial sums in
+// shard order, + b2 + x, then the LayerNorm; one warp a row, a lane owning
+// the 4-column chunks 4 lane + 128 i. The loads of kAhead shards are issued
+// before any is added, so a row waits for ceil(n_split / kAhead) round trips
+// to L2 and not n_split.
+template <int C>
+__global__ void __launch_bounds__(kThreads)
+ffn_ln_shard_sum_kernel(const float* __restrict__ partial, const bf16* __restrict__ x,
+                        const bf16* __restrict__ b2, const float* __restrict__ gamma,
+                        const float* __restrict__ beta, bf16* __restrict__ out, int N,
+                        int n_split) {
+  constexpr int kChunks = C / 128;
+  constexpr int kAhead = 4;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= N) return;
+  float v[kChunks][4];
+#pragma unroll
+  for (int i = 0; i < kChunks; ++i) v[i][0] = v[i][1] = v[i][2] = v[i][3] = 0.f;
+  for (int sp0 = 0; sp0 < n_split; sp0 += kAhead) {
+    float4 p[kAhead][kChunks];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u)
+#pragma unroll
+      for (int i = 0; i < kChunks; ++i)
+        if (sp0 + u < n_split)
+          p[u][i] = *reinterpret_cast<const float4*>(
+              partial + ((size_t)(sp0 + u) * N + row) * C + 4 * lane + 128 * i);
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u)
+#pragma unroll
+      for (int i = 0; i < kChunks; ++i)
+        if (sp0 + u < n_split) {
+          v[i][0] += p[u][i].x;
+          v[i][1] += p[u][i].y;
+          v[i][2] += p[u][i].z;
+          v[i][3] += p[u][i].w;
+        }
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < kChunks; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 4 * lane + 128 * i + e;
+      v[i][e] = (v[i][e] + __bfloat162float(b2[c])) + __bfloat162float(x[(size_t)row * C + c]);
+      s += v[i][e];
     }
-    const float mean = warp_sum(s) / (float)C;
-    float ss = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float d = yr[c] - mean;
-      ss += d * d;
-    }
-    const float var = warp_sum(ss) / (float)(C - 1);
-    const float sd = var > 0.f ? sqrtf(var) : 0.f;
-    bf16* orow = out + (size_t)(row0 + r) * C;
-    for (int c = lane; c < C; c += 32)
-      orow[c] = __float2bfloat16_rn(gamma[c] * (yr[c] - mean) / (sd + kLnEps) + beta[c]);
+  const float mean = warp_sum(s) / (float)C;
+  float ss = 0.f;
+#pragma unroll
+  for (int i = 0; i < kChunks; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ss += (v[i][e] - mean) * (v[i][e] - mean);
+  const float var = warp_sum(ss) / (float)(C - 1);
+  const float sd = var > 0.f ? sqrtf(var) : 0.f;
+  bf16* orow = out + (size_t)row * C;
+#pragma unroll
+  for (int i = 0; i < kChunks; ++i) {
+    const int c = 4 * lane + 128 * i;
+    float y[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) y[e] = gamma[c + e] * (v[i][e] - mean) / (sd + kLnEps) + beta[c + e];
+    *reinterpret_cast<uint2*>(orow + c) = make_uint2(pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]));
   }
 }
 
@@ -365,45 +536,64 @@ cudaError_t launch_f32(const void* x, const void* w1, const void* b1, const void
 
 template <int C>
 cudaError_t launch_bf16(const void* x, const void* w1, const void* b1, const void* w2,
-                        const void* b2, const float* gamma, const float* beta, void* out, int N,
-                        int Hd, cudaStream_t stream) {
-  const size_t smem = Bf16Smem<C>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(ffn_ln_bf16_kernel<C>,
+                        const void* b2, const float* gamma, const float* beta, void* out,
+                        float* partial, int N, int Hd, int n_split, int per_split,
+                        cudaStream_t stream) {
+  const size_t smem = TcSmem<C>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(ffn_ln_tc_kernel<C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int blocks = (N + kRows - 1) / kRows;
-  ffn_ln_bf16_kernel<C><<<blocks, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
-      static_cast<const bf16*>(w2), static_cast<const bf16*>(b2), gamma, beta,
-      static_cast<bf16*>(out), N, Hd);
+  const auto* xb = static_cast<const bf16*>(x);
+  const auto* b2b = static_cast<const bf16*>(b2);
+  auto* ob = static_cast<bf16*>(out);
+  const dim3 grid((N + kTcRows - 1) / kTcRows, n_split);
+  ffn_ln_tc_kernel<C><<<grid, kThreads, smem, stream>>>(
+      xb, static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
+      static_cast<const bf16*>(w2), b2b, gamma, beta, ob, partial, N, Hd, per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return err;
+  ffn_ln_shard_sum_kernel<C><<<(N + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
+      partial, xb, b2b, gamma, beta, ob, N, n_split);
   return cudaGetLastError();
 }
 
 template <int C>
 cudaError_t launch(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
-                   const float* gamma, const float* beta, void* out, int N, int Hd, int dtype,
-                   cudaStream_t stream) {
+                   const float* gamma, const float* beta, void* out, float* partial, int N,
+                   int Hd, int dtype, int n_split, int per_split, cudaStream_t stream) {
   if (dtype == 0) return launch_f32<C>(x, w1, b1, w2, b2, gamma, beta, out, N, Hd, stream);
-  if (dtype == 1) return launch_bf16<C>(x, w1, b1, w2, b2, gamma, beta, out, N, Hd, stream);
+  if (dtype == 1)
+    return launch_bf16<C>(x, w1, b1, w2, b2, gamma, beta, out, partial, N, Hd, n_split,
+                          per_split, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. C must be 128, 256 or 512 and Hd a
-// multiple of 64; bf16 pointers must be 16-byte aligned. Returns
-// cudaGetLastError() after the launch (0 = success).
+// multiple of 64; bf16 pointers must be 16-byte aligned. bf16 splits the
+// Hd / 64 hidden chunks into n_split shards of per_split chunks, none empty
+// ((n_split - 1) per_split < Hd / 64 <= n_split per_split); with n_split > 1,
+// partial is (n_split, N, C) f32 scratch (else unused, may be null). f32
+// takes n_split 1. Returns cudaGetLastError() after the launches (0 =
+// success).
 extern "C" int savqa_ffn_ln(const void* x, const void* w1, const void* b1, const void* w2,
                             const void* b2, const void* gamma, const void* beta, void* out,
-                            int N, int C, int Hd, int dtype, void* stream) {
-  if (N <= 0 || Hd <= 0 || Hd % kHidden != 0) return (int)cudaErrorInvalidValue;
+                            void* partial, int N, int C, int Hd, int dtype, int n_split,
+                            int per_split, void* stream) {
+  const int chunks = Hd / kHidden;
+  if (N <= 0 || Hd <= 0 || Hd % kHidden != 0 || n_split < 1 || per_split < 1 ||
+      (n_split - 1) * per_split >= chunks || n_split * per_split < chunks ||
+      (dtype == 0 && n_split != 1) || (n_split > 1 && partial == nullptr))
+    return (int)cudaErrorInvalidValue;
   const auto* ga = static_cast<const float*>(gamma);
   const auto* be = static_cast<const float*>(beta);
+  auto* pa = static_cast<float*>(partial);
   auto s = static_cast<cudaStream_t>(stream);
   switch (C) {
-    case 128: return (int)launch<128>(x, w1, b1, w2, b2, ga, be, out, N, Hd, dtype, s);
-    case 256: return (int)launch<256>(x, w1, b1, w2, b2, ga, be, out, N, Hd, dtype, s);
-    case 512: return (int)launch<512>(x, w1, b1, w2, b2, ga, be, out, N, Hd, dtype, s);
+    case 128: return (int)launch<128>(x, w1, b1, w2, b2, ga, be, out, pa, N, Hd, dtype, n_split, per_split, s);
+    case 256: return (int)launch<256>(x, w1, b1, w2, b2, ga, be, out, pa, N, Hd, dtype, n_split, per_split, s);
+    case 512: return (int)launch<512>(x, w1, b1, w2, b2, ga, be, out, pa, N, Hd, dtype, n_split, per_split, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -16,7 +16,9 @@
 // L <= 128, bf16) it does ~47 operations per byte read (Q, K, V, residual,
 // the f32 graph, the output), below the card's ~295 bf16 ops/byte ridge.
 //
-// Design. One block of 256 threads owns (batch element, tile of up to 16
+// bf16 with a head width that is a multiple of 16 (up to 128) takes the
+// tensor-core kernels below. The SIMT kernel (f32, other head widths):
+// one block of 256 threads owns (batch element, tile of up to 16
 // query rows) and loops over all H heads, so the LayerNorm epilogue sees
 // all C channels of its rows: the (rows, C) f32 attention output stays in
 // shared memory and only the normalised row is written. Per head, K and
@@ -26,11 +28,13 @@
 // a row for the softmax, renorm and LayerNorm reductions. Keys are exactly
 // the Lk given: the kernel needs no padding, so Tq != Tk (the decoder's
 // one-query cross-attention) runs through the same code. The products are
-// plain FMAs on CUDA cores; tensor cores (wgmma) and TMA are later work.
+// plain FMAs on CUDA cores: TF32 would not hold the f32 path's 1e-4.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
+
+#include "mma_sm90.cuh"
 
 namespace {
 
@@ -192,6 +196,346 @@ graph_attention_ln_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---- the tensor-core kernels (bf16, head width a multiple of 16) ----
+//
+// Two kernels, counted as one launch of K1:
+// * graph_attention_ln_tc_kernel, one block of NW warps per (head, NW x 16
+//   query rows, batch element), 16 rows a warp, heads the fastest grid axis
+//   (the graph tile and V's rows are L2 hits for the other heads). It is
+//   section 1 of K2's tensor-core rows launch (csrc/graph_attention_bwd.cu)
+//   for one head: pass A gets the row maximum m, the sum z and b = sum e g
+//   (l1: sum e |g|) online from Q K^T on the tensor cores (mma.sync
+//   m16n8k16, csrc/mma_sm90.cuh), pass B forms A = e / z g / r qmask on the
+//   score fragments, rounds it to bf16 and accumulates O = A V, the weights
+//   going from one product to the next in registers. K and V stream through
+//   a two-stage cp.async ring, 64 keys a step; up to 128 keys the ring holds
+//   all of them and pass B reads them in place. Scores are in units of log 2
+//   with the fill value's exponent formed per row, so a row whose keys are
+//   all masked gets exp(0) = 1 for each, as the plain version does. O, f32,
+//   goes to scratch.
+// * graph_attention_ln_epilogue_kernel, one warp a row: O + residual in f32
+//   and the reference LayerNorm. (The last head block of a row tile running
+//   the LayerNorm of its 64 rows instead took 2-6x as long: 4 warps walk 64
+//   rows at the end of the kernel; scripts/k13_knockouts.py.)
+// The heads' blocks run side by side: at B 4, L 66 that is 64 blocks, where
+// blocks that walk all heads of their rows (the SIMT kernel) are 20.
+
+using bf16 = __nv_bfloat16;
+using savqa::accumulate_ab;
+using savqa::cp_async_commit;
+using savqa::cp_async_wait;
+using savqa::fast_exp2;
+using savqa::frag_a_row;
+using savqa::ldmatrix_x4;
+using savqa::load_graph_frag;
+using savqa::product_abt;
+using savqa::quad_max;
+using savqa::quad_sum;
+using savqa::stage_head_tile;
+
+constexpr int kStep = 64;         // keys a step
+constexpr int kNS = kStep / 8;    // 8-wide accumulator blocks of a step
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory: Qs (16 NW, DH + 8) bf16 | ring: two stages of K, V
+// (64, DH + 8) bf16 | kmul, kfill (ceil(Tk / 64) * 64) f32
+// Up to a head width of 64 the registers are capped for three blocks of 4
+// warps an SM (170 a thread; 209 uncapped left two): 0.0803 / 0.1205 ms
+// against 0.0942 / 0.1351 at L 66 / 128, B 128, spilling 12 bytes
+// (scripts/k13_knockouts.py, H100 80GB HBM3 at 700 W). At 128 the cap
+// would spill 800 bytes.
+template <int DH, int NW>
+__global__ void __launch_bounds__(NW * 32, DH <= 64 ? 3 : 1)
+graph_attention_ln_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                             const bf16* __restrict__ v, const float* __restrict__ key_mask,
+                             const float* __restrict__ query_mask,
+                             const float* __restrict__ graph, float* __restrict__ o, int Tq,
+                             int Tk, int C, int dh, int renorm, float scale) {
+  constexpr int kThreadsTc = NW * 32;
+  constexpr int kRowsTc = NW * 16;
+  constexpr int kLd = DH + 8;
+  constexpr int kKD = DH / 16;
+  constexpr int kND = DH / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n_steps = (Tk + kStep - 1) / kStep;
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ring = Qs + kRowsTc * kLd;
+  float* kmul = reinterpret_cast<float*>(ring + 4 * kStep * kLd);
+  float* kfill = kmul + n_steps * kStep;
+
+  const int c0 = blockIdx.x * dh;
+  const int row0 = blockIdx.y * kRowsTc;
+  const int b = blockIdx.z;
+  const int rows = min(kRowsTc, Tq - row0);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int lrow_a = warp * 16 + g;   // this lane's two rows within the tile
+  const int lrow_b = lrow_a + 8;
+  const bool real_a = lrow_a < rows, real_b = lrow_b < rows;
+  const bool active = warp * 16 < rows;   // this warp holds a real row
+  const bool graph_pairs = (Tk & 1) == 0;
+  const bool resident = n_steps <= 2;     // the ring holds every key of the head
+  const float scale2 = scale * kLog2e;
+
+  const bf16* qb = q + (size_t)b * Tq * C;
+  const bf16* kb = k + (size_t)b * Tk * C;
+  const bf16* vb = v + (size_t)b * Tk * C;
+  const float* graph_a = graph + ((size_t)b * Tq + row0 + (real_a ? lrow_a : 0)) * Tk;
+  const float* graph_b = graph + ((size_t)b * Tq + row0 + (real_b ? lrow_b : 0)) * Tk;
+  const float qm_a = real_a ? query_mask[(size_t)b * Tq + row0 + lrow_a] : 0.f;
+  const float qm_b = real_b ? query_mask[(size_t)b * Tq + row0 + lrow_b] : 0.f;
+
+  // x = s * kmul + kfill is the masked score in units of log 2: (scale
+  // log2(e), 0) on a real key, (0, fill) on a masked one, (0, -inf) past Tk
+  for (int j = tid; j < n_steps * kStep; j += kThreadsTc) {
+    const bool in = j < Tk;
+    const bool keep = in && key_mask[(size_t)b * Tk + j] != 0.f;
+    kmul[j] = keep ? scale2 : 0.f;
+    kfill[j] = keep ? 0.f : in ? kNegMask : -INFINITY;
+  }
+
+  // one pass over the keys through the ring: the copies of step j + 1
+  // overlap body(j); with `load_tiles` false the tiles are in place already
+  auto key_pass = [&](bool with_q, bool with_v, bool load_tiles, auto body) {
+    if (!load_tiles) {
+      for (int step = 0; step < n_steps; ++step) {
+        const bf16* Ks = ring + (step & 1) * 2 * kStep * kLd;
+        body(step, Ks, Ks + kStep * kLd);
+      }
+      return;
+    }
+    auto load = [&](int step) {
+      bf16* Ks = ring + (step & 1) * 2 * kStep * kLd;
+      stage_head_tile<DH, kThreadsTc>(Ks, kb, step * kStep, Tk, kStep, C, c0, dh);
+      if (with_v)
+        stage_head_tile<DH, kThreadsTc>(Ks + kStep * kLd, vb, step * kStep, Tk, kStep, C, c0, dh);
+    };
+    __syncthreads();   // the previous pass's readers of the ring are done
+    if (with_q) stage_head_tile<DH, kThreadsTc>(Qs, qb, row0, Tq, kRowsTc, C, c0, dh);
+    load(0);
+    cp_async_commit();
+    for (int step = 0; step < n_steps; ++step) {
+      cp_async_wait<0>();
+      __syncthreads();   // this step's tiles have landed; the other stage's readers are done
+      if (step + 1 < n_steps) load(step + 1);
+      cp_async_commit();
+      const bf16* Ks = ring + (step & 1) * 2 * kStep * kLd;
+      body(step, Ks, Ks + kStep * kLd);
+    }
+    cp_async_wait<0>();
+  };
+
+  uint32_t qf[kKD][4];
+  // the step's masked scores (log 2 units) from Q K^T
+  auto scores = [&](float (&s)[kNS][4], const bf16* Ks, int step) {
+    product_abt<DH, kNS>(s, qf, Ks, lane, Tk - step * kStep);
+#pragma unroll
+    for (int nb = 0; nb < kNS; ++nb) {
+      const int j = step * kStep + nb * 8 + 2 * t;
+      const float2 mul = *reinterpret_cast<const float2*>(kmul + j);
+      const float2 fill = *reinterpret_cast<const float2*>(kfill + j);
+      s[nb][0] = fmaf(s[nb][0], mul.x, fill.x);
+      s[nb][1] = fmaf(s[nb][1], mul.y, fill.y);
+      s[nb][2] = fmaf(s[nb][2], mul.x, fill.x);
+      s[nb][3] = fmaf(s[nb][3], mul.y, fill.y);
+    }
+  };
+  auto graph_step = [&](float (&gr)[kNS][4], int step) {
+    load_graph_frag<kNS>(gr, graph_a, graph_b, step * kStep + 2 * t, Tk, real_a, real_b,
+                         graph_pairs);
+  };
+
+  // pass A: the softmax maximum m and sum z, and b = sum e g (l1: sum e |g|), online
+  float m_a = -INFINITY, m_b = -INFINITY, z_a = 0.f, z_b = 0.f, b_a = 0.f, b_b = 0.f;
+  key_pass(true, resident, true, [&](int step, const bf16* Ks, const bf16*) {
+    if (!active) return;
+    if (step == 0) {
+#pragma unroll
+      for (int kd = 0; kd < kKD; ++kd)
+        ldmatrix_x4(qf[kd], frag_a_row(Qs, kLd, warp * 16, kd * 16, lane));
+    }
+    float gr[kNS][4], s[kNS][4];
+    graph_step(gr, step);
+    scores(s, Ks, step);
+    const int nk = Tk - step * kStep;   // real keys of this step (more than 64: all)
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int nb = 0; nb < kNS; ++nb) {
+      if (nb * 8 >= nk) continue;
+      mx_a = fmaxf(mx_a, fmaxf(s[nb][0], s[nb][1]));
+      mx_b = fmaxf(mx_b, fmaxf(s[nb][2], s[nb][3]));
+    }
+    const float mn_a = fmaxf(m_a, quad_max(mx_a)), mn_b = fmaxf(m_b, quad_max(mx_b));
+    const float alpha_a = fast_exp2(m_a - mn_a), alpha_b = fast_exp2(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sz_a = 0.f, sz_b = 0.f, sb_a = 0.f, sb_b = 0.f;
+#pragma unroll
+    for (int nb = 0; nb < kNS; ++nb) {
+      if (nb * 8 >= nk) continue;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float e = fast_exp2(s[nb][c] - (c < 2 ? mn_a : mn_b));
+        const float w = e * (renorm == 0 ? fabsf(gr[nb][c]) : gr[nb][c]);
+        if (c < 2) { sz_a += e; sb_a += w; } else { sz_b += e; sb_b += w; }
+      }
+    }
+    z_a = z_a * alpha_a + sz_a;
+    z_b = z_b * alpha_b + sz_b;
+    b_a = b_a * alpha_a + sb_a;
+    b_b = b_b * alpha_b + sb_b;
+  });
+  float iz_a = 0.f, iz_b = 0.f, c1_a = 0.f, c1_b = 0.f;
+  if (active) {
+    iz_a = 1.f / quad_sum(z_a);
+    iz_b = 1.f / quad_sum(z_b);
+    const float rs_a = quad_sum(b_a) * iz_a, rs_b = quad_sum(b_b) * iz_b;   // sum of P graph
+    const float r_a = renorm == 0 ? fmaxf(rs_a, kL1Eps) : rs_a + kSumEps;
+    const float r_b = renorm == 0 ? fmaxf(rs_b, kL1Eps) : rs_b + kSumEps;
+    c1_a = qm_a / r_a;
+    c1_b = qm_b / r_b;
+  }
+  // pass B: O = A V with A = P graph / r * qmask rounded to V's type
+  float acc[kND][4];
+#pragma unroll
+  for (int i = 0; i < kND; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  key_pass(false, true, !resident, [&](int step, const bf16* Ks, const bf16* Vs) {
+    if (!active) return;
+    const int nk = Tk - step * kStep;
+    float gr[kNS][4], s[kNS][4];
+    graph_step(gr, step);
+    scores(s, Ks, step);
+#pragma unroll
+    for (int nb = 0; nb < kNS; ++nb) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (nb * 8 >= nk) { s[nb][c] = 0.f; continue; }
+        const float p = fast_exp2(s[nb][c] - (c < 2 ? m_a : m_b)) * (c < 2 ? iz_a : iz_b);
+        s[nb][c] = p * gr[nb][c] * (c < 2 ? c1_a : c1_b);
+      }
+    }
+    accumulate_ab<DH, kNS>(acc, s, Vs, lane, nk);
+  });
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    if (!active || !(half == 0 ? real_a : real_b)) continue;   // no barrier follows
+    float* orow = o + ((size_t)b * Tq + row0 + (half == 0 ? lrow_a : lrow_b)) * C + c0;
+#pragma unroll
+    for (int i = 0; i < kND; ++i) {
+      const int d = i * 8 + 2 * t;
+      if (d < dh)
+        *reinterpret_cast<float2*>(orow + d) = make_float2(acc[i][2 * half], acc[i][2 * half + 1]);
+    }
+  }
+}
+
+// out = LN(o + residual), one warp a row. With C a multiple of 128 (up to
+// 1,024) a lane holds its 4-float chunks c = 4 lane + 128 i in registers
+// (one read of o and of the residual, 16-byte and 8-byte loads); other
+// widths read the row three times, from L1 after the first.
+__global__ void __launch_bounds__(kThreads)
+graph_attention_ln_epilogue_kernel(const float* __restrict__ o, const bf16* __restrict__ residual,
+                                   const float* __restrict__ gamma,
+                                   const float* __restrict__ beta, bf16* __restrict__ out,
+                                   int n_rows, int C) {
+  constexpr int kMaxChunks = 8;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= n_rows) return;
+  const float* xr = o + (size_t)row * C;
+  const bf16* rr = residual + (size_t)row * C;
+  bf16* orow = out + (size_t)row * C;
+  if (C % 128 == 0 && C <= 128 * kMaxChunks) {
+    const int n_chunks = C / 128;
+    float x[kMaxChunks][4];
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < kMaxChunks; ++i) {
+      if (i >= n_chunks) break;
+      const int c = 4 * lane + 128 * i;
+      const float4 ov = *reinterpret_cast<const float4*>(xr + c);
+      const uint2 rv = *reinterpret_cast<const uint2*>(rr + c);   // a bf16 is the upper half of an f32
+      x[i][0] = ov.x + __uint_as_float(rv.x << 16);
+      x[i][1] = ov.y + __uint_as_float(rv.x & 0xffff0000u);
+      x[i][2] = ov.z + __uint_as_float(rv.y << 16);
+      x[i][3] = ov.w + __uint_as_float(rv.y & 0xffff0000u);
+      s += x[i][0] + x[i][1] + x[i][2] + x[i][3];
+    }
+    const float mean = warp_sum(s) / (float)C;
+    float ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < kMaxChunks; ++i) {
+      if (i >= n_chunks) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ss += (x[i][e] - mean) * (x[i][e] - mean);
+    }
+    const float var = warp_sum(ss) / (float)(C - 1);
+    const float sd = var > 0.f ? sqrtf(var) : 0.f;
+#pragma unroll
+    for (int i = 0; i < kMaxChunks; ++i) {
+      if (i >= n_chunks) break;
+      const int c = 4 * lane + 128 * i;
+      float y[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) y[e] = gamma[c + e] * (x[i][e] - mean) / (sd + kLnEps) + beta[c + e];
+      *reinterpret_cast<uint2*>(orow + c) =
+          make_uint2(savqa::pack_bf16(y[0], y[1]), savqa::pack_bf16(y[2], y[3]));
+    }
+    return;
+  }
+  float s = 0.f;
+  for (int c = lane; c < C; c += 32) s += xr[c] + __bfloat162float(rr[c]);
+  const float mean = warp_sum(s) / (float)C;
+  float ss = 0.f;
+  for (int c = lane; c < C; c += 32) {
+    const float d = (xr[c] + __bfloat162float(rr[c])) - mean;
+    ss += d * d;
+  }
+  const float var = warp_sum(ss) / (float)max(C - 1, 1);
+  const float sd = var > 0.f ? sqrtf(var) : 0.f;
+  for (int c = lane; c < C; c += 32)
+    orow[c] = __float2bfloat16_rn(
+        gamma[c] * ((xr[c] + __bfloat162float(rr[c])) - mean) / (sd + kLnEps) + beta[c]);
+}
+
+inline int tc_warps(int Tq) { return Tq <= 16 ? 1 : 4; }
+
+template <int DH, int NW>
+cudaError_t launch_tc_dh(const bf16* q, const bf16* k, const bf16* v, const float* key_mask,
+                         const float* query_mask, const float* graph, const bf16* residual,
+                         const float* gamma, const float* beta, bf16* out, float* o, int B,
+                         int Tq, int Tk, int C, int H, int renorm, float scale,
+                         cudaStream_t stream) {
+  const int n_steps = (Tk + kStep - 1) / kStep;
+  const size_t smem = sizeof(bf16) * (NW * 16 + 4 * kStep) * (DH + 8) +
+                      sizeof(float) * 2 * n_steps * kStep;
+  auto kernel = graph_attention_ln_tc_kernel<DH, NW>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(H, (Tq + NW * 16 - 1) / (NW * 16), B);
+  kernel<<<grid, NW * 32, smem, stream>>>(q, k, v, key_mask, query_mask, graph, o, Tq, Tk, C,
+                                          C / H, renorm, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  graph_attention_ln_epilogue_kernel<<<(B * Tq + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
+      o, residual, gamma, beta, out, B * Tq, C);
+  return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t launch_tc(const bf16* q, const bf16* k, const bf16* v, const float* key_mask,
+                      const float* query_mask, const float* graph, const bf16* residual,
+                      const float* gamma, const float* beta, bf16* out, float* o, int B, int Tq,
+                      int Tk, int C, int H, int renorm, float scale, cudaStream_t stream) {
+  auto run = tc_warps(Tq) == 1 ? launch_tc_dh<DH, 1> : launch_tc_dh<DH, 4>;
+  return run(q, k, v, key_mask, query_mask, graph, residual, gamma, beta, out, o, B, Tq, Tk, C,
+             H, renorm, scale, stream);
+}
+
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* key_mask,
                    const float* query_mask, const float* graph, const void* residual,
@@ -216,14 +560,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* key
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. renorm: 0 = l1, 1 = sum_eps.
-// Returns cudaGetLastError() after the launch (0 = success).
+// tensor_cores != 0 (bf16 with a head width that is a multiple of 16, at
+// most 128, only) takes the tensor-core kernels, which need o: (B, Tq, C)
+// f32 scratch; 0 the SIMT kernel (o unused, may be null). Returns
+// cudaGetLastError() after the launches (0 = success).
 extern "C" int savqa_graph_attention_ln(const void* q, const void* k, const void* v,
                                         const void* key_mask, const void* query_mask,
                                         const void* graph, const void* residual,
-                                        const void* gamma, const void* beta, void* out, int B,
-                                        int Tq, int Tk, int C, int H, int renorm, int dtype,
-                                        float scale, void* stream) {
-  if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || C % H != 0 || (renorm != 0 && renorm != 1))
+                                        const void* gamma, const void* beta, void* out, void* o,
+                                        int B, int Tq, int Tk, int C, int H, int renorm,
+                                        int dtype, int tensor_cores, float scale, void* stream) {
+  if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || C % H != 0 || (renorm != 0 && renorm != 1) ||
+      (tensor_cores && (dtype != 1 || (C / H) % 16 != 0 || C / H > 128 || o == nullptr)))
     return (int)cudaErrorInvalidValue;
   const auto* km = static_cast<const float*>(key_mask);
   const auto* qm = static_cast<const float*>(query_mask);
@@ -231,6 +579,15 @@ extern "C" int savqa_graph_attention_ln(const void* q, const void* k, const void
   const auto* ga = static_cast<const float*>(gamma);
   const auto* be = static_cast<const float*>(beta);
   auto s = static_cast<cudaStream_t>(stream);
+  if (tensor_cores) {
+    const int dh = C / H;
+    auto run = dh <= 16 ? launch_tc<16> : dh <= 32 ? launch_tc<32> : dh <= 64 ? launch_tc<64>
+                                                                               : launch_tc<128>;
+    return (int)run(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                    static_cast<const bf16*>(v), km, qm, g, static_cast<const bf16*>(residual),
+                    ga, be, static_cast<bf16*>(out), static_cast<float*>(o), B, Tq, Tk, C, H,
+                    renorm, scale, s);
+  }
   if (dtype == 0)
     return (int)launch<float>(q, k, v, km, qm, g, residual, ga, be, out, B, Tq, Tk, C, H,
                               renorm, scale, s);

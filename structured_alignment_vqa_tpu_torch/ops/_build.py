@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -52,6 +53,27 @@ def build_log(name: str) -> str:
     """nvcc's output (ptxas registers, shared memory, spills) of the last build."""
     log = BUILD_DIR / f"{name}.log"
     return log.read_text() if log.exists() else ""
+
+
+def register_lines(log: str) -> list:
+    """ptxas's registers and spills per kernel from an nvcc -Xptxas -v log:
+    ``["name<template args>: Used N registers, ...; S bytes spill stores, L
+    bytes spill loads", ...]``."""
+    out, name, spills = [], "?", ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1] if "'" in line else line
+            spills = ""
+            m = re.search(r"\d+([A-Za-z]\w*?_kernel)(?:I(.*?)E)?E", mangled)
+            name = mangled if m is None else m.group(1)
+            if m is not None and m.group(2):
+                args = re.findall(r"Li(\d+)|(13__nv_bfloat16)|^(f)$", m.group(2))
+                name += "<" + ", ".join(a or ("bf16" if b else "float") for a, b, _ in args) + ">"
+        elif "spill stores" in line:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spills}")
+    return out
 
 
 def build_all() -> list:

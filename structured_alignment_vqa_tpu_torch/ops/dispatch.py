@@ -11,6 +11,9 @@ from __future__ import annotations
 
 import torch
 
+SM_COUNT = 132       # streaming multiprocessors of an H100 SXM
+SMEM_LIMIT = 232448  # bytes of shared memory a block may use on Hopper
+
 
 def use_kernel(x: torch.Tensor) -> bool:
     """True for a CUDA tensor, False for a CPU tensor; raises for any other
@@ -23,7 +26,7 @@ def use_kernel(x: torch.Tensor) -> bool:
 
 
 def kernel_path(dtype, head_dim: int) -> str:
-    """Which of its CUDA kernels K2, K4, K5 or K6 takes: ``"tensor-core"``
+    """Which of its CUDA kernels K1, K2, K4, K5 or K6 takes: ``"tensor-core"``
     (``mma.sync`` on bf16 tiles) for bfloat16 with a head width that is a
     multiple of 16, else ``"simt"`` (f32 FMAs): TF32 products would not hold
     the 1e-4 the float32 path is checked to."""

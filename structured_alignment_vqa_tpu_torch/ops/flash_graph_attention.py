@@ -51,7 +51,7 @@ import ctypes
 import torch
 
 from structured_alignment_vqa_tpu_torch.ops import _build
-from structured_alignment_vqa_tpu_torch.ops.dispatch import kernel_path, use_kernel
+from structured_alignment_vqa_tpu_torch.ops.dispatch import SM_COUNT, kernel_path, use_kernel
 from structured_alignment_vqa_tpu_torch.ops.fused_graph_attention import (
     L1_NORM_EPS,
     RENORMS,
@@ -63,7 +63,6 @@ EMITS = ("out", "stats", "partial")
 MAX_HEAD_DIM = 128   # the kernels' register accumulators
 KEY_STEP = 64        # keys a block walks per step (both K4 kernels)
 TC_Q_TILE = 64       # query rows per block of the tensor-core kernel (kTcWarps x 16)
-SM_COUNT = 132       # streaming multiprocessors of an H100
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -4,12 +4,16 @@ Counterpart of the TPU package's ``ops/pallas_ffn.py`` (``_kernel``, entry
 ``fused_ffn``): ``LN(W2 relu(W1 x + b1) + b2 + x)`` over rows, with the
 (rows, 4C) hidden activation kept on chip.
 
-On CUDA tensors :func:`fused_ffn` launches the kernel of ``csrc/ffn.cu``;
-on CPU tensors it runs :func:`ffn_ln_plain`, the same function in plain
-PyTorch, rounding where the kernel rounds: the hidden activation is cast to
-x's dtype before the second product and the residual is added in f32. The
-backward on either device is autograd of :func:`ffn_ln_plain`, as the TPU
-package's is autodiff of its composite.
+On CUDA tensors :func:`fused_ffn` launches the kernel of ``csrc/ffn.cu``
+(bf16: ``mma.sync`` tiles of 64 rows; with few rows the hidden width is
+split over blocks by :func:`ffn_split` and a second kernel sums the shards,
+counted as one launch; f32: SIMT); on CPU tensors it runs
+:func:`ffn_ln_plain`, the same function in plain PyTorch, rounding where
+the kernel rounds: the hidden activation is cast to x's dtype before the
+second product and the residual is added in f32. The
+backward on either device is autograd of :func:`ffn_ln_composite`, whose
+products run in x's dtype, as the TPU package's backward is the VJP of its
+``_composite``: both pair a kernel forward with a composite backward.
 Weights are in ``nn.Linear`` layout: w1 (4C, C), w2 (C, 4C).
 """
 
@@ -21,11 +25,12 @@ import torch
 import torch.nn.functional as F
 
 from structured_alignment_vqa_tpu_torch.ops import _build
-from structured_alignment_vqa_tpu_torch.ops.dispatch import use_kernel
+from structured_alignment_vqa_tpu_torch.ops.dispatch import SM_COUNT, SMEM_LIMIT, use_kernel
 from structured_alignment_vqa_tpu_torch.ops.layers import layer_norm
 
 WIDTHS = (128, 256, 512)   # C values the kernel is compiled for
 HIDDEN_CHUNK = 64          # the hidden width must be a multiple of this
+TC_ROWS = 64               # rows per block of the bf16 tensor-core kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -34,6 +39,56 @@ def ffn_ln_plain(x, w1, b1, w2, b2, gamma, beta):
     h = torch.relu(F.linear(x.float(), w1.float(), b1.float())).to(x.dtype)
     y = F.linear(h.float(), w2.float(), b2.float())
     return layer_norm(y + x.float(), gamma, beta).to(x.dtype)
+
+
+def ffn_ln_composite(x, w1, b1, w2, b2, gamma, beta):
+    """The TPU package's ``pallas_ffn._composite``: both products and the
+    residual in x's dtype (bf16 operands sum in f32 and round once), the
+    LayerNorm in f32. In float32 it is :func:`ffn_ln_plain` operation for
+    operation. K3's backward is autograd of this function."""
+    h = torch.relu(F.linear(x, w1, b1))
+    y = F.linear(h, w2, b2)
+    return layer_norm(y + x, gamma, beta)
+
+
+def ffn_split(rows: int, c: int, hidden: int) -> tuple:
+    """``(n_split, chunks_per_split)`` of the bf16 kernel: how many shards
+    the ``hidden / 64`` hidden chunks are cut into, and the chunks of each.
+    A pure function of the shapes (C does not change it: the row tile is 64
+    rows at every width). One shard when the 64-row tiles alone fill the
+    card's 132 SMs, else as many as there are SMs per tile, none empty."""
+    tiles = -(-rows // TC_ROWS)
+    chunks = hidden // HIDDEN_CHUNK
+    want = max(1, min(chunks, SM_COUNT // tiles))
+    per = -(-chunks // want)
+    return -(-chunks // per), per
+
+
+def kernel_ffn_split(dtype, rows: int, c: int, hidden: int) -> tuple:
+    """The split a call takes: :func:`ffn_split` on the bf16 tensor-core
+    kernel; float32's SIMT kernel walks every chunk in one block."""
+    if dtype == torch.bfloat16:
+        return ffn_split(rows, c, hidden)
+    return 1, hidden // HIDDEN_CHUNK
+
+
+def smem_bytes_tc(c: int) -> int:
+    """Dynamic shared memory of one block of the bf16 kernel (must match
+    ``TcSmem`` in ``csrc/ffn.cu``): the x tile and the W1 chunk (64 rows of
+    C + 8), the W2 chunk (C rows of 72), the hidden chunk (64 x 72), all
+    bf16, and 8 x 64 f32 row sums."""
+    return 2 * (2 * TC_ROWS * (c + 8) + c * (HIDDEN_CHUNK + 8) + TC_ROWS * (HIDDEN_CHUNK + 8)) \
+        + 4 * 8 * TC_ROWS
+
+
+def shard_sum_plain(partial, x, b2, gamma, beta):
+    """Plain PyTorch version of the split path's second kernel: the shards'
+    f32 partial ``h W2^T`` (n_split, rows, C) summed in shard order, ``+ b2
+    + x`` in f32, then the LayerNorm; (rows, C) in x's dtype."""
+    y = partial[0]
+    for part in partial[1:]:
+        y = y + part
+    return layer_norm((y + b2.float()) + x.float(), gamma, beta).to(x.dtype)
 
 
 def _check(x, w1, b1, w2, b2, gamma, beta) -> None:
@@ -65,15 +120,21 @@ def _launch(x, w1, b1, w2, b2, gamma, beta) -> torch.Tensor:
     lib = _build.library("ffn")
     fn = lib.savqa_ffn_ln
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     c = x.shape[-1]
+    rows, hidden = x.numel() // c, w1.shape[0]
+    n_split, per = kernel_ffn_split(x.dtype, rows, c, hidden)
     out = torch.empty_like(x)
+    # the shards' f32 partial y, summed by the second kernel
+    partial = (torch.empty(n_split, rows, c, dtype=torch.float32, device=x.device)
+               if n_split > 1 else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         status = fn(
             x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
             gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
-            x.numel() // c, c, w1.shape[0], _DTYPES[x.dtype], stream,
+            None if partial is None else partial.data_ptr(),
+            rows, c, hidden, _DTYPES[x.dtype], n_split, per, stream,
         )
     _build.check(status, "ffn_ln kernel")
     fused_ffn.launches += 1
@@ -84,12 +145,14 @@ class _FusedFFN(torch.autograd.Function):
     """K3 as an autograd node.
 
     The forward launches the kernel on CUDA tensors (the plain version on
-    CPU tensors) and saves only its inputs. The TPU package has no backward
-    kernel for K3: its backward is the VJP of the composite
-    (``ops/pallas_ffn.py:106-107``). So is this one: the backward recomputes
-    :func:`ffn_ln_plain` on the saved inputs under ``torch.enable_grad()``
-    and takes ``torch.autograd.grad`` of it, its products running on cuBLAS
-    as XLA's do. This is the backward pass, not a forward that falls back.
+    CPU tensors) and saves only its inputs; it adds the residual in f32, as
+    the TPU kernel does. The TPU package has no backward kernel for K3: its
+    backward is the VJP of ``_composite`` (``ops/pallas_ffn.py:88-107``).
+    So is this one: the backward recomputes :func:`ffn_ln_composite` on the
+    saved inputs under ``torch.enable_grad()`` and takes
+    ``torch.autograd.grad`` of it, its products running in x's dtype on
+    cuBLAS as XLA's do. This is the backward pass, not a forward that falls
+    back.
     """
 
     @staticmethod
@@ -105,7 +168,7 @@ class _FusedFFN(torch.autograd.Function):
                   for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
         wanted = [t for t in inputs if t.requires_grad]
         with torch.enable_grad():
-            out = ffn_ln_plain(*inputs)
+            out = ffn_ln_composite(*inputs)
             grads = iter(torch.autograd.grad(out, wanted, grad_out))
         return tuple(next(grads) if t.requires_grad else None for t in inputs)
 

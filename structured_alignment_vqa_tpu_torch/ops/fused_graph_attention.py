@@ -10,7 +10,7 @@ head:
       -> x query mask -> cast to V's dtype -> @ V (f32 accumulation)
     out = LN(acc + residual)   (reference LN: eps on the unbiased std)
 
-On CUDA tensors :func:`fused_graph_attention_ln` launches the kernel of
+On CUDA tensors :func:`fused_graph_attention_ln` launches the kernels of
 ``csrc/graph_attention.cu`` and its backward launches the kernel of
 ``csrc/graph_attention_bwd.cu``; on CPU tensors they run
 :func:`graph_attention_ln_plain` and :func:`graph_attention_ln_bwd_plain`,
@@ -19,6 +19,14 @@ kernels take Tq != Tk (the decoder's one-query cross-attention) and at most
 ``MAX_KEYS`` keys; longer sequences are the flash kernels' (K4-K6,
 ``ops/flash_graph_attention.py``), which the attention modules call above
 that.
+
+K1 has two paths (``dispatch.kernel_path``). bfloat16 with a head width
+that is a multiple of 16 (at most ``MAX_HEAD_DIM``) runs on the tensor
+cores: a kernel per (head, 64 query rows, batch element) forms O = A V with
+``mma.sync`` on bf16 tiles into f32 scratch, and a second kernel adds the
+residual and runs the LayerNorm, counted as one launch. float32 and other
+head widths take the SIMT kernel, which keeps all heads of 16 rows in one
+block.
 
 K2 has two pairs of kernels (``dispatch.kernel_path``), each a rows launch
 (the forward recomputed, the LayerNorm backward, dQ and per-row constants)
@@ -41,7 +49,7 @@ import ctypes
 import torch
 
 from structured_alignment_vqa_tpu_torch.ops import _build
-from structured_alignment_vqa_tpu_torch.ops.dispatch import kernel_path, use_kernel
+from structured_alignment_vqa_tpu_torch.ops.dispatch import SMEM_LIMIT, kernel_path, use_kernel
 from structured_alignment_vqa_tpu_torch.ops.layers import LN_EPS, NEG_MASK_VALUE, layer_norm
 
 # F.normalize(p=1) clamps the norm at 1e-12; the graph-mask variant adds 1e-7.
@@ -49,12 +57,11 @@ L1_NORM_EPS = 1e-12
 SUM_NORM_EPS = 1e-7
 RENORMS = ("l1", "sum_eps")
 MAX_KEYS = 512
-MAX_HEAD_DIM = 128   # the backward's register accumulators (csrc/graph_attention_bwd.cu)
+MAX_HEAD_DIM = 128   # register accumulators of K2 and of K1's tensor-core kernel
 Q_TILE = 16          # query rows per block (csrc/graph_attention.cu, K2's first launch)
 KEY_CHUNK = 64       # keys staged in shared memory at a time
 N_STATS = 8          # floats per (batch, head, query row) passed between K2's launches
 BWD_TC_ROWS = 32     # query rows per block of K2's tensor-core rows launch
-SMEM_LIMIT = 232448  # bytes of shared memory a block may use on Hopper
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -175,6 +182,23 @@ def smem_bytes(tq: int, tk: int, c: int, num_heads: int) -> int:
     return 4 * (rows * c + rows * tk + rows * dh + KEY_CHUNK * (dh + 1))
 
 
+def tc_warps(tq: int) -> int:
+    """Warps (16 query rows each) per block of K1's tensor-core kernel: one
+    for the decoder's few queries, else four."""
+    return 1 if tq <= 16 else 4
+
+
+def smem_bytes_tc(tq: int, tk: int, c: int, num_heads: int) -> int:
+    """Dynamic shared memory of one block of K1's tensor-core kernel (must
+    match ``launch_tc_dh`` in ``csrc/graph_attention.cu``): the Q tile and
+    two stages of K and V (64 keys), bf16 rows of the padded head width +
+    8, and two f32 key-mask rows."""
+    dh = c // num_heads
+    width = next(w for w in (16, 32, 64, 128) if dh <= w) + 8
+    steps = -(-tk // KEY_CHUNK)
+    return 2 * (16 * tc_warps(tq) + 4 * KEY_CHUNK) * width + 4 * 2 * steps * KEY_CHUNK
+
+
 def smem_bytes_bwd(tq: int, tk: int, c: int, num_heads: int) -> int:
     """Dynamic shared memory of one block of K2's first launch (the larger)."""
     rows = min(Q_TILE, tq)
@@ -235,9 +259,12 @@ def _check(q, k, v, key_mask, query_mask, graph, residual, gamma, beta,
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if dy is not None and c // num_heads > MAX_HEAD_DIM:
+    tensor_cores = kernel_path(q.dtype, c // num_heads) == "tensor-core"
+    if (dy is not None or tensor_cores) and c // num_heads > MAX_HEAD_DIM:
         raise ValueError(f"head width {c // num_heads} > {MAX_HEAD_DIM}")
-    if dy is None:
+    if dy is None and tensor_cores:
+        need = smem_bytes_tc(tq, tk, c, num_heads)
+    elif dy is None:
         need = smem_bytes(tq, tk, c, num_heads)
     elif kernel_path(q.dtype, c // num_heads) == "tensor-core":
         need = smem_bytes_bwd_tc(tk, c, num_heads)
@@ -253,18 +280,23 @@ def _launch(q, k, v, key_mask, query_mask, graph, residual, gamma, beta,
     lib = _build.library("graph_attention")
     fn = lib.savqa_graph_attention_ln
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
     b, tq, c = q.shape
     tk = k.shape[1]
+    tensor_cores = kernel_path(q.dtype, c // num_heads) == "tensor-core"
     out = torch.empty_like(q)
+    # the tensor-core path's attention output, f32, before the residual and
+    # the LayerNorm (its second kernel's input)
+    o = torch.empty(b, tq, c, dtype=torch.float32, device=q.device) if tensor_cores else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(),
             query_mask.data_ptr(), graph.data_ptr(), residual.data_ptr(),
             gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
+            None if o is None else o.data_ptr(),
             b, tq, tk, c, num_heads, RENORMS.index(renorm), _DTYPES[q.dtype],
-            1.0 / (c // num_heads) ** 0.5, stream,
+            int(tensor_cores), 1.0 / (c // num_heads) ** 0.5, stream,
         )
     _build.check(status, "graph_attention_ln kernel")
     fused_graph_attention_ln.launches += 1

@@ -1,7 +1,8 @@
-"""What surrounds the port's two tensor-core kernels (K4's forward, K2) and
-runs on the CPU: the merge of K4's key shards, the rules that pick a kernel
-and a key split, the scratch shapes, and the rounding points K2's plain
-version shares with its tensor-core kernels.
+"""What surrounds the port's tensor-core kernels (K1, K2, K3, K4's forward)
+and runs on the CPU: the merge of K4's key shards, the rules that pick a
+kernel, a key split or a hidden-width split, the shared-memory and scratch
+shapes, the sum of K3's hidden-width shards, and the rounding points K2's
+plain version shares with its tensor-core kernels.
 
 The merge: ``merge_partials_plain`` over 2, 3 and 5 key shards of
 ``flash_graph_attention_plain(..., emit="partial")`` against the unsplit
@@ -17,6 +18,7 @@ import torch
 from structured_alignment_vqa_tpu.ops.pallas_attention_bwd import fused_attention_bwd
 from structured_alignment_vqa_tpu.ops.ring_attention import _merge as jax_merge
 from structured_alignment_vqa_tpu_torch.ops import flash_graph_attention as flash
+from structured_alignment_vqa_tpu_torch.ops import fused_ffn as k3
 from structured_alignment_vqa_tpu_torch.ops import fused_graph_attention as k1
 
 TOL = 1e-6
@@ -236,3 +238,96 @@ def test_k2_plain_rounds_nothing_in_f32(rng):
     for name, g, w in zip(("dq", "dk", "dv", "dresidual", "dgamma", "dbeta"), got, want):
         assert g.dtype == torch.float32
         close(g, w, name, tol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,head_dim,tq,want,warps", [
+    (torch.bfloat16, 64, 128, "tensor-core", 4), (torch.bfloat16, 64, 1, "tensor-core", 1),
+    (torch.bfloat16, 48, 66, "tensor-core", 4), (torch.bfloat16, 16, 16, "tensor-core", 1),
+    (torch.bfloat16, 8, 66, "simt", 4), (torch.bfloat16, 40, 17, "simt", 4),
+    (torch.float32, 64, 128, "simt", 4),
+])
+def test_k1_kernel_path(dtype, head_dim, tq, want, warps):
+    """K1 takes the tensor-core kernels in bf16 at head widths that are
+    multiples of 16; f32 and other widths keep the SIMT kernel. The decoder's
+    one query takes blocks of one warp."""
+    assert k1.kernel_path(dtype, head_dim) == want
+    assert k1.tc_warps(tq) == warps
+
+
+def test_k1_tensor_core_shared_memory_leaves_four_blocks_an_sm():
+    """At the model's shapes (C 512, 8 heads, up to 128 keys) four blocks of
+    K1's tensor-core kernel (16 warps) share an SM's 227 KB, each paying 1 KB
+    of reserve; 512 keys still fit; a head wider than 128 is refused."""
+    assert 4 * (k1.smem_bytes_tc(128, 128, 512, 8) + 1024) <= k1.SMEM_LIMIT
+    assert 4 * (k1.smem_bytes_tc(66, 66, 512, 8) + 1024) <= k1.SMEM_LIMIT
+    assert k1.smem_bytes_tc(1, 512, 512, 8) <= k1.SMEM_LIMIT
+    assert k1.smem_bytes_tc(128, 128, 512, 8) == 2 * (64 + 256) * 72 + 4 * 2 * 2 * 64
+    bf = torch.zeros(1, 4, 288, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head width"):
+        k1._check(bf, bf, bf, torch.ones(1, 4), torch.ones(1, 4), torch.ones(1, 4, 4), bf,
+                  torch.ones(288), torch.zeros(288), 2, "l1")
+
+
+@pytest.mark.parametrize("rows,hidden,want", [
+    (16384, 2048, (1, 32)),     # 256 tiles of 64 rows: no split
+    (8448, 2048, (1, 32)),      # 132 tiles: one wave
+    (6144, 2048, (1, 32)),      # 96 tiles
+    (128, 2048, (32, 1)),       # the decoders: 2 tiles -> 64 blocks
+    (264, 2048, (16, 2)),       # obj+rel's decoders and visual FFN: 5 tiles -> 80 blocks
+    (4, 2048, (32, 1)),         # obj+rel's decoder: 1 tile
+    (4224, 2048, (2, 16)),      # 66 tiles: two shards fill the card
+    (64, 64, (1, 1)),           # one chunk cannot be split
+])
+def test_k3_split_is_a_pure_function_of_the_shapes(rows, hidden, want):
+    for c in k3.WIDTHS:
+        assert k3.ffn_split(rows, c, hidden) == want
+        assert k3.ffn_split(rows, c, hidden) == want          # and says so twice
+    assert k3.kernel_ffn_split(torch.float32, rows, 512, hidden) == (1, hidden // 64)
+
+
+@pytest.mark.parametrize("hidden", [64, 192, 512, 2048, 4096])
+@pytest.mark.parametrize("rows", [1, 63, 64, 65, 200, 1000, 8447, 8448, 20000])
+def test_k3_split_leaves_no_shard_empty(rows, hidden):
+    n_split, per = k3.ffn_split(rows, 512, hidden)
+    chunks = hidden // k3.HIDDEN_CHUNK
+    assert n_split >= 1 and per >= 1
+    assert (n_split - 1) * per < chunks <= n_split * per      # the kernel's own guard
+    tiles = -(-rows // k3.TC_ROWS)
+    assert tiles * n_split <= max(k3.SM_COUNT, tiles)          # never past one wave by splitting
+    if tiles >= k3.SM_COUNT // 2 + 1:
+        assert n_split == 1
+
+
+def test_k3_tensor_core_shared_memory_fits_one_block_an_sm():
+    """One block of the bf16 kernel (8 warps, 64 rows) fits the 227 KB a
+    block may use at every width the kernel is built for."""
+    for c in k3.WIDTHS:
+        assert k3.smem_bytes_tc(c) <= k3.SMEM_LIMIT
+    assert k3.smem_bytes_tc(512) == 218112
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_shard_sum_equals_the_unsplit_call(rng, dtype):
+    """The split path: each shard's f32 partial h W2^T over its hidden
+    chunks (h rounded to x's dtype, as the kernel rounds it), summed by the
+    second kernel's plain version, against the unsplit plain version. f32:
+    1e-5 (sums in another order); bf16: one output ulp below 4 (2^-6)."""
+    rows, c, hidden = 70, 128, 512
+    def draw(shape, scale, dt=dtype):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dt)
+
+    x, b1, b2 = draw((rows, c), 1.0), draw(hidden, 0.1), draw(c, 0.1)
+    w1, w2 = draw((hidden, c), c ** -0.5), draw((c, hidden), hidden ** -0.5)
+    gamma, beta = 1 + draw(c, 0.1, torch.float32), draw(c, 0.1, torch.float32)
+    n_split, per = k3.ffn_split(rows, c, hidden)
+    assert n_split > 1
+    parts = []
+    for sp in range(n_split):
+        lo, hi = 64 * per * sp, min(hidden, 64 * per * (sp + 1))
+        h = torch.relu(x.float() @ w1[lo:hi].float().T + b1[lo:hi].float()).to(dtype)
+        parts.append(h.float() @ w2[:, lo:hi].float().T)
+    got = k3.shard_sum_plain(torch.stack(parts), x, b2, gamma, beta)
+    want = k3.ffn_ln_plain(x, w1, b1, w2, b2, gamma, beta)
+    assert got.dtype == dtype
+    tol = 1e-5 if dtype == torch.float32 else 2.0 ** -6
+    assert float((got.float() - want.float()).abs().max()) <= tol
