@@ -73,10 +73,30 @@ Phases, each of which must pass:
     f32 step with the kernels against one with the plain versions; a step
     with ``remat_blocks`` against one without (same loss and gradients) and
     the peak memory of both; the device-time breakdown of a step and of a
-    request.
+    request;
+12. the predict and eval CLIs (``train.predict.main``, ``train.evaluate.main``)
+    on a fixture tree written by the port's ``write_fixture`` (128 images,
+    2,560 train and 640 val questions, 10-36 objects, 1,600 classes), the
+    obj-only model at full width built from the CLI's own flags (bf16,
+    random weights from a seed, the answer heads' biases shifted so that
+    the answers spread over the classes, saved with ``save_checkpoint``):
+    the checkpoint loads bitwise; the loader gives the same batches on
+    threads and through both caches; the reference (the same batches moved
+    synchronously) gives at least half of the classes as answers; the
+    serving loop's log-softmax rows equal the reference's within 1e-4, which
+    a row shifted by one would fail; the predict CLI on threads, on spawned
+    processes, through the sample cache and through the batch cache writes
+    one answer per valid sample, each equal to the reference's, with 24 K1
+    and 24 K3 launches per batch; the side-stream copies give every field
+    bitwise; K1 and K3 at every shape the CLIs gave them, on the model's own
+    inputs, against their plain versions; the eval CLI's loss and correct
+    count (above 0) equal the in-process ``make_eval_step`` sums within
+    1e-5; as information the loader's
+    samples/s alone, one batch's copy pinned and pageable, the CLI's
+    pairs/s, the card's idle share over 3 batches, which tar index served.
 
 ``--phases a,b`` (of card, k1, k3, k2, serving, training, k4, k56,
-objrel_serving, objrel_training) runs only those, for work on one kernel,
+objrel_serving, objrel_training, cli) runs only those, for work on one kernel,
 and then prints no last line. It prints one JSON line of kernels, the card's line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero without
 that last line; so does a machine without a CUDA device.
@@ -1178,8 +1198,353 @@ def rel_training_phase(card: str) -> dict:
     return launches
 
 
+# the cli phase: a fixture tree at the GQA-realistic ranges of the TPU
+# package's end-to-end serving script, and the obj-only model at full width
+# through the CLI's own flags (only the head is narrower: the fixture's
+# answer vocabulary)
+CLI_FIXTURE = dict(n_images=128, n_questions=2560, n_obj_range=(10, 36),
+                   n_words_range=(3, 15), n_classes=1600, class_feature_sigma=0.5,
+                   p_detector_correct=0.8, seed=0)
+CLI_FLAGS = ["--hidden_size", "512", "--num_blocks", "6", "--num_heads", "8",
+             "--hidden_size_mil", "1024", "--maxlen", "450", "--maxlen_q", "40",
+             "--maxlen_v", "100", "--topN", "5", "--vocab_size", "407000", "--glove_dim", "300",
+             "--bf16", "--share_glove", "--only_obj", "--decMask", "--with_loc",
+             "--with_MILNCE_loss", "--pred_rel", "--batch_size", str(B)]
+CLI_WORKERS = 8
+EVAL_REL_TOL = 1e-5
+# max |serving loop - synchronous reference| of the ensemble log-softmax: the
+# same kernels on the same bf16 inputs, so nothing but a wrong row shows
+LOGSM_TOL = 1e-4
+
+
+def loader_pass(loader, read=None) -> tuple:
+    """Iterate ``loader`` once, calling ``read`` on each batch: (its
+    batches, valid samples, seconds)."""
+    t0 = time.perf_counter()
+    batches = []
+    for b in loader:
+        if read is not None:
+            read(b)
+        batches.append(b)
+    seconds = time.perf_counter() - t0
+    return batches, sum(int(b.sample_valid.sum()) for b in batches), seconds
+
+
+def same_batches(a: list, b: list) -> bool:
+    import numpy as np
+
+    return len(a) == len(b) and all(
+        all(np.array_equal(getattr(x, f.name), getattr(y, f.name))
+            for f in dataclasses.fields(x) if getattr(x, f.name) is not None)
+        for x, y in zip(a, b))
+
+
+def spread_answers_(model, batch) -> None:
+    """Shift each answer head's output bias by minus its mean logits over
+    ``batch``. With random weights one class otherwise takes nearly every
+    answer (the heads' ReLU layer has a positive mean that every sample
+    shares), and an answer check then passes whatever row a sample gets."""
+    from structured_alignment_vqa_tpu_torch.models.att_model_x3 import _Head
+
+    heads = [m for m in model.modules() if isinstance(m, _Head)]
+    outs = {}
+    hooks = [m.register_forward_hook(lambda m, _, out: outs.__setitem__(m, out.float()))
+             for m in heads]
+    try:
+        with torch.inference_mode():
+            model.eval()(batch)
+    finally:
+        for h in hooks:
+            h.remove()
+    with torch.no_grad():
+        for m in heads:
+            m[-1].bias.sub_(outs[m].reshape(-1, outs[m].shape[-1]).mean(0))
+
+
+@contextlib.contextmanager
+def recorded_kernel_inputs(seen: dict):
+    """Pass every launch of K1 and K3 on to the kernel, keeping a copy of the
+    first arguments at each distinct shape (and renorm) in ``seen``, keyed
+    by kernel and shapes."""
+    from structured_alignment_vqa_tpu_torch.ops import fused_ffn as k3
+    from structured_alignment_vqa_tpu_torch.ops import fused_graph_attention as k1
+
+    def recorder(key, launch):
+        def call(*args):
+            sig = tuple(tuple(a.shape) if torch.is_tensor(a) else a for a in args)
+            if (key, sig) not in seen:
+                seen[key, sig] = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+            return launch(*args)
+        return call
+
+    with mock.patch.object(k1, "_launch", recorder("K1", k1._launch)), \
+            mock.patch.object(k3, "_launch", recorder("K3", k3._launch)):
+        yield
+
+
+def cli_kernels_against_plain(seen: dict) -> None:
+    """K1 and K3 at every shape the CLIs gave them, on the model's own
+    inputs, against their plain versions."""
+    from structured_alignment_vqa_tpu_torch.ops import fused_ffn as k3
+    from structured_alignment_vqa_tpu_torch.ops import fused_graph_attention as k1
+
+    for (key, _), args in sorted(seen.items(), key=lambda kv: str(kv[0])):
+        x = args[0]
+        with torch.inference_mode():
+            if key == "K1":
+                got = k1.fused_graph_attention_ln(*args)
+                want = k1.graph_attention_ln_plain(*args)
+                what = f"B {x.shape[0]} Tq {x.shape[1]} Tk {args[1].shape[1]} {args[-1]}"
+            else:
+                got, want = k3.fused_ffn(*args), k3.ffn_ln_plain(*args)
+                what = f"rows {x.numel() // x.shape[-1]}"
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = TOL[x.dtype]
+        check(bool(torch.isfinite(got.float()).all()) and err <= tol,
+              f"cli {key} at the CLI's shape {what} {x.dtype} (the model's own inputs): "
+              f"max|kernel-plain| {err:.3g} <= {tol:g}")
+
+
+def cli_rate(output_dir: str) -> str:
+    """The predict CLI's own throughput line from its log."""
+    import os
+
+    with open(os.path.join(output_dir, "training.log")) as f:
+        lines = [line.strip() for line in f if "predicted" in line]
+    return lines[-1].split("INFO", 1)[-1].strip() if lines else "no throughput line logged"
+
+
+def cli_phase(card: str) -> dict:
+    """The predict and eval CLIs at full obj-only width on a fixture tree,
+    against the in-process steps on the same batches."""
+    import json as _json
+    import os
+    import tempfile
+    from itertools import islice
+
+    import numpy as np
+
+    from structured_alignment_vqa_tpu_torch.data.dataset import BatchLoader, GQASuperNodeDataset
+    from structured_alignment_vqa_tpu_torch.data.fixtures import write_fixture
+    from structured_alignment_vqa_tpu_torch.data.transfer import BatchMover, host_tensors, shipped
+    from structured_alignment_vqa_tpu_torch.models import AttModelX3, init_random_
+    from structured_alignment_vqa_tpu_torch.parallel.train_step import (
+        TrainState,
+        adam,
+        make_eval_step,
+    )
+    from structured_alignment_vqa_tpu_torch.train import evaluate, predict as predict_cli
+    from structured_alignment_vqa_tpu_torch.train.main import build_parser, configs_from_args
+    from structured_alignment_vqa_tpu_torch.train.predict import (
+        ensemble_log_softmax,
+        make_predict_step,
+        serve,
+    )
+    from structured_alignment_vqa_tpu_torch.utils.checkpoint import (
+        load_params_for_eval,
+        save_checkpoint,
+    )
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data, out, ckpt = (os.path.join(tmp, d) for d in ("data", "out", "ckpt"))
+        t0 = time.perf_counter()
+        write_fixture(data, **CLI_FIXTURE)
+        print(f"cli: fixture tree ({CLI_FIXTURE['n_questions']} train questions, "
+              f"{CLI_FIXTURE['n_images']} images) written in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        argv = ["--data_dir_azure", data, "--output_dir", out] + CLI_FLAGS
+        cfg, train_dc, val_dc, _ = configs_from_args(build_parser().parse_args(argv))
+        print(f"cli: num_classes {cfg.num_classes} (the fixture's answer vocabulary + 1; "
+              f"hidden {cfg.hidden_size}, {cfg.num_blocks} blocks, {cfg.num_heads} heads, "
+              f"vocab {cfg.vocab_size} x {cfg.glove_dim}, {cfg.compute_dtype})", flush=True)
+
+        model = AttModelX3(cfg)
+        init_random_(model, torch.Generator(device="cuda").manual_seed(0))
+        t0 = time.perf_counter()
+
+        # the loader alone, in samples/s: cold on threads (a new dataset, so
+        # its image cache is cold too) and on spawned processes, warm through
+        # the sample cache, and the batch cache's second pass
+        def dataset():
+            return GQASuperNodeDataset("train", train_dc)
+
+        def loader(**kw):
+            return BatchLoader(dataset(), B, shuffle=False, drop_last=False, **kw)
+
+        host_batches, n_valid, sec = loader_pass(loader(num_threads=CLI_WORKERS))
+        rates = {"cold, threads": n_valid / sec}
+        _, n_procs, sec = loader_pass(loader(num_procs=CLI_WORKERS))
+        rates["cold, processes"] = n_procs / sec
+        sample_cache = os.path.join(tmp, "cache")
+        loader_pass(loader(num_threads=CLI_WORKERS, cache_dir=f"{sample_cache}/train"))
+        warm, _, sec = loader_pass(loader(cache_dir=f"{sample_cache}/train"))
+        rates["warm, sample cache"] = n_valid / sec
+        batch_cache = os.path.join(tmp, "batches")
+        loader_pass(loader(num_threads=CLI_WORKERS, batch_cache_dir=batch_cache))
+        # the batch cache's batches are mmap views: read each one's pages
+        # as the mover does, by the cast of its features to bf16
+        cached, _, sec = loader_pass(loader(batch_cache_dir=batch_cache),
+                                     read=lambda b: host_tensors(b, True))
+        rates["batch cache, second pass, each batch read (features cast to bf16)"] = (
+            n_valid / sec)
+        check(n_procs == n_valid and same_batches(warm, host_batches)
+              and same_batches(cached, host_batches),
+              f"cli: the loader gives the same {len(host_batches)} batches ({n_valid} valid "
+              "samples) on threads, through the sample cache and through the batch cache")
+        del warm, cached
+        spread_answers_(model, host_tensors(host_batches[0]).to("cuda"))
+        save_checkpoint(ckpt, TrainState(model, adam(model.parameters())), 1)
+        loaded = AttModelX3(cfg)
+        load_params_for_eval(ckpt, loaded)
+        same = all(torch.equal(a, b) for a, b in zip(model.state_dict().values(),
+                                                    loaded.state_dict().values()))
+        tied = loaded.att_syb.syb_emb.weight is loaded.MIL_NCE.syb_emb.weight
+        check(same and tied, "cli: the checkpoint's params load bitwise equal to the saved "
+                             "ones, the shared GloVe table tied")
+        del loaded
+        index_kind = dataset().q_tar.indexed_by
+        for what, rate in rates.items():
+            print(f"cli: loader alone, {what}: {rate:.1f} samples/s ({CLI_WORKERS} workers) "
+                  f"on {card} (information only)", flush=True)
+        print(f"cli: tar index served by the {index_kind} indexer; model, checkpoint and "
+              f"six loader passes in {time.perf_counter() - t0:.1f} s", flush=True)
+
+        # the in-process reference: the same batches moved synchronously
+        # (pageable copies, float32 features), their ensemble log-softmax
+        # and its argmax as make_predict_step takes it; K1's and K3's inputs
+        # are kept at each shape the batches give them
+        predict = make_predict_step(model)
+        want, want_rows, base, seen = {}, {}, 0, {}
+        with recorded_kernel_inputs(seen), torch.inference_mode():
+            for b in host_batches:
+                rows = ensemble_log_softmax(model.eval(), host_tensors(b).to("cuda"))
+                answers, rows = torch.argmax(rows, dim=-1).cpu().numpy(), rows.cpu().numpy()
+                for j, ok in enumerate(b.sample_valid):
+                    if ok:
+                        want[base + j], want_rows[base + j] = int(answers[j]), rows[j]
+                base += len(b.sample_valid)
+        n_distinct = len(set(want.values()))
+        check(n_distinct >= cfg.num_classes // 2,
+              f"cli: the reference gives {n_distinct} distinct answer ids among {len(want)} "
+              f"(at least half of the {cfg.num_classes} classes)")
+
+        # the serving loop the predict CLI runs (pinned copies on the side
+        # stream two batches ahead, answers read back four batches later),
+        # here returning each sample's log-softmax row, against the
+        # reference; fed from the batch cache, whose batches are mmap views
+        mover = BatchMover("cuda", bf16_features=True)
+        got_rows = {}
+        serve(torch.inference_mode()(lambda batch: ensemble_log_softmax(model, batch)),
+              shipped(loader(batch_cache_dir=batch_cache), mover),
+              lambda i, row: got_rows.__setitem__(i, np.array(row)), pipeline_depth=4)
+        order = sorted(want_rows)
+        ref = np.stack([want_rows[i] for i in order])
+        diff = (max(np.abs(got_rows[i] - want_rows[i]).max() for i in order)
+                if sorted(got_rows) == order else float("inf"))
+        shifted = np.median(np.abs(ref - np.roll(ref, 1, axis=0)).max(axis=1))
+        check(diff <= LOGSM_TOL and shifted > 100 * LOGSM_TOL,
+              f"cli: the serving loop's log-softmax rows equal the reference's within "
+              f"{diff:.3g} <= {LOGSM_TOL:g} for all {len(order)} samples (a row shifted by "
+              f"one would differ by a median {shifted:.3g} > {100 * LOGSM_TOL:g})")
+
+        t0 = time.perf_counter()
+        runs = (("threads", ["--num_workers", str(CLI_WORKERS)]),
+                ("processes", ["--num_procs", str(CLI_WORKERS)]),
+                ("sample cache, warm", ["--cache_dir", sample_cache]),
+                ("batch cache", ["--batch_cache_dir", batch_cache]))
+        n_batches = len(host_batches)
+        launches = {}
+        for what, extra in runs:
+            answers_file = os.path.join(tmp, "answers.jsonl")
+            reset_launch_counts()
+            n_out = predict_cli.main(argv + ["--weight_dir", ckpt, "--split", "train",
+                                             "--out", answers_file, "--pipeline_depth", "4",
+                                             "--warmup_batches", "2"] + extra)
+            counts = launch_counts()
+            launches = launches or counts    # the first run's, on threads
+            with open(answers_file) as f:
+                got = {r["index"]: r["answer_id"] for r in map(_json.loads, f)}
+            check(n_out == len(got) == len(want) == n_valid,
+                  f"cli predict ({what}): {len(got)} answer lines, one per valid sample "
+                  f"({n_valid})")
+            agree = sum(got.get(i) == a for i, a in want.items())
+            check(agree == len(want),
+                  f"cli predict ({what}): {agree} of {len(want)} answer ids equal the "
+                  "in-process step's on synchronously moved batches")
+            per = {k: counts[k] / n_batches for k in counts}
+            check(per["K1"] == K1_PER_FORWARD and per["K3"] == K3_PER_FORWARD
+                  and all(per[k] == 0 for k in ("K2", "K4", "K5", "K6")),
+                  f"cli predict ({what}): launches per batch {per} (want {K1_PER_FORWARD} K1, "
+                  f"{K3_PER_FORWARD} K3)")
+            print(f"cli predict ({what}): {cli_rate(out)} on {card} (information only)",
+                  flush=True)
+
+        print(f"cli: reference answers and four predict CLI runs in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        # the CLI's copies (pinned buffers, the side stream, two batches
+        # ahead of the compute) give every field of every batch bitwise
+        moved_ok = True
+        for host, ship in shipped(loader(batch_cache_dir=batch_cache), mover):
+            dev, ref = ship.ready(), host_tensors(host, True)
+            moved_ok &= all(torch.equal(getattr(dev, f.name).cpu(), getattr(ref, f.name))
+                            for f in dataclasses.fields(ref) if getattr(ref, f.name) is not None)
+        check(moved_ok, f"cli: {n_batches} batches shipped on the side stream equal their host "
+                        "arrays bitwise (features as bf16, masks int8, ids int32)")
+
+        # the copy of one batch: pinned on the side stream against pageable
+        b = host_batches[0]
+        for _ in range(2):
+            mover.ship(b).event.synchronize()
+            host_tensors(b, True).to("cuda")
+        torch.cuda.synchronize()
+        reps = 5
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            ship = mover.ship(b)
+            ship.event.synchronize()
+        pinned_ms = (time.perf_counter() - t0) / reps * 1e3
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            host_tensors(b, True).to("cuda")
+            torch.cuda.synchronize()
+        pageable_ms = (time.perf_counter() - t0) / reps * 1e3
+        print(f"cli: one batch (lv {b.vis_fea.shape[1]}, ls {b.macro_ipt.shape[1]}, lq "
+              f"{b.q_ipt.shape[1]}) of {ship.nbytes / 2 ** 20:.1f} MiB with bf16 features: "
+              f"{pinned_ms:.3f} ms pinned on the side stream, {pageable_ms:.3f} ms pageable "
+              f"(host clock, numpy to device) on {card} (information only)", flush=True)
+
+        # the card's idle share over 3 batches of the CLI's serving loop,
+        # fed from the batch cache
+        cached_loader = loader(batch_cache_dir=batch_cache)
+        profile_device(lambda: serve(predict, islice(shipped(cached_loader, mover), 3),
+                                     lambda i, a: None, pipeline_depth=4),
+                       f"3 bs-{B} batches of the predict CLI's serving loop, batch cache")
+
+        # the eval CLI against the in-process eval step over the same batches
+        eval_step = make_eval_step(model, cfg, with_milnce=True)
+        state = TrainState(model, optimizer=None)
+        sums = {"loss_sum": 0.0, "n_correct": 0.0, "n": 0.0}
+        val = BatchLoader(GQASuperNodeDataset("val", val_dc), B, shuffle=False)
+        with recorded_kernel_inputs(seen):
+            for vb in val:
+                m = eval_step(state, host_tensors(vb).to("cuda"))
+                for k in sums:
+                    sums[k] += float(m[k])
+        cli_kernels_against_plain(seen)
+        loss, acc = evaluate.main(argv + ["--weight_dir", ckpt, "--split", "val"])
+        want_loss = sums["loss_sum"] / max(sums["n"], 1.0)
+        got_correct = acc * sums["n"]
+        check(sums["n_correct"] > 0 and abs(loss - want_loss) <= EVAL_REL_TOL * abs(want_loss)
+              and abs(got_correct - sums["n_correct"]) <= EVAL_REL_TOL * max(sums["n_correct"], 1),
+              f"cli eval: loss {loss:.6f} and n_correct {got_correct:.1f} of {sums['n']:g} equal "
+              f"the in-process sums {want_loss:.6f} and {sums['n_correct']:.1f} within "
+              f"{EVAL_REL_TOL:g} relative")
+    return launches
+
+
 PHASES = ("k1", "k3", "k2", "serving", "training", "k4", "k56", "objrel_serving",
-          "objrel_training")
+          "objrel_training", "cli")
 PORT = "structured_alignment_vqa_tpu_torch/csrc/"
 TPU = "structured_alignment_vqa_tpu/ops/"
 BF16 = str(torch.bfloat16)
@@ -1259,7 +1624,8 @@ def main(argv: list) -> int:
     kernel_phases = {"k1": k1_phase, "k3": k3_phase, "k2": k2_phase, "k4": k4_phase,
                      "k56": k56_phase}
     path_phases = {"serving": serving_phase, "training": training_phase,
-                   "objrel_serving": rel_serving_phase, "objrel_training": rel_training_phase}
+                   "objrel_serving": rel_serving_phase, "objrel_training": rel_training_phase,
+                   "cli": cli_phase}
     rows, by_path = {}, {}
     for phase in phases:
         t0 = time.perf_counter()

@@ -2,8 +2,14 @@
 
 A port of ``structured_alignment_vqa_tpu`` (JAX/Pallas, the reference).
 It covers the unpacked ``AttModelX3``, obj-only and obj+rel: the serving
-forward (``models.AttModelX3`` + ``train.predict.make_predict_step``) and the
-training and eval steps (``parallel.train_step``). The TPU package's six
+forward (``models.AttModelX3`` + ``train.predict.make_predict_step``), the
+training and eval steps (``parallel.train_step``), the host data pipeline
+(``data/``: tar index, graph builder, collate, bucketed loader, sample and
+batch caches, fixtures; ``data/transfer.py`` moves batches to the card) and
+the predict and eval CLIs (``python -m
+structured_alignment_vqa_tpu_torch.train.predict`` / ``.train.evaluate``,
+with the flags of ``train.main`` and checkpoints of ``utils.checkpoint``).
+The TPU package's six
 Pallas kernels are CUDA C++ sources under ``csrc/``, built with ``nvcc`` on
 first use (``ops/_build.py``):
 

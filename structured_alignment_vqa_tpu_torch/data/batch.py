@@ -1,9 +1,23 @@
-"""The device batch (counterpart of the TPU package's ``data/batch.py``).
+"""The batch (counterpart of the TPU package's ``data/batch.py``).
 
-Field for field the reference collate outputs, as torch tensors: ids and
-indices are int64, 0/1 masks int32, features float32. ``sample_valid``
-replaces the reference's collate-time None-filtering so the batch dimension
-is fixed.
+Field for field the reference collate outputs. ``sample_valid`` replaces the
+reference's collate-time None-filtering so the batch dimension is fixed.
+
+On the host, where ``data/dataset.py:collate`` and the caches make it, a
+batch holds numpy arrays. ``data/transfer.py`` moves it to the device as
+torch tensors in the dtypes collate gives, so these arrive:
+
+* ``vis_fea``: float32, or bfloat16 when the model computes in bfloat16
+  (the model casts it to the compute dtype at both of its uses, so the
+  result is the same and half the bytes travel);
+* masks and graphs (``vis_mask``, ``q_mask``, ``q_graph``, ``macro_mask``,
+  ``macro_graph``, ``micro_obj_mask``): int8, 0/1;
+* ids, locations, ``answer`` and ``sample_valid``: int32.
+
+The model widens on the device only where an op needs it: masks to float32
+where the stage graphs are built, ``answer`` to int64 for ``one_hot``.
+Synthetic batches (``data/synthetic.py``) hold int64 ids and int32 masks;
+the model takes either.
 """
 
 from __future__ import annotations

@@ -36,10 +36,11 @@ from structured_alignment_vqa_tpu_torch.train.losses import (
 class TrainState:
     """The model (which holds the parameters), its optimizer and the number
     of steps taken. ``step`` counts skipped steps too, as the TPU package's
-    ``TrainState.step`` does; the optimizer counts applied updates only."""
+    ``TrainState.step`` does; the optimizer counts applied updates only.
+    An eval-only state holds no optimizer (``None``)."""
 
     model: nn.Module
-    optimizer: torch.optim.Optimizer
+    optimizer: Optional[torch.optim.Optimizer]
     step: int = 0
 
 

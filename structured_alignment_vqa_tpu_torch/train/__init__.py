@@ -1,3 +1,2 @@
-from structured_alignment_vqa_tpu_torch.train.predict import make_predict_step
-
-__all__ = ["make_predict_step"]
+"""Losses, the serving step and the CLI drivers: ``train.predict`` (serving),
+``train.evaluate`` (eval), ``train.main`` (the flags) and ``train.loop``."""

@@ -1,31 +1,179 @@
-"""Serving step: the ensemble log-softmax argmax (counterpart of the TPU
-package's ``train/predict.py:make_predict_step``).
+"""Batch serving: the predict step and the CLI driver, checkpoint -> answers
+(counterpart of the TPU package's ``train/predict.py``).
 
-The CLI driver that streams a question tar through the loader needs the
-host data pipeline (ROADMAP Queue 1 item 8) and is not ported yet.
+The CLI streams a question tar through the loader, runs the ensemble-argmax
+predict step on the card, and writes ``{"index", "answer_id", "answer"}``
+JSONL.
+
+Usage:
+    python -m structured_alignment_vqa_tpu_torch.train.predict \
+        --data_dir_azure /data/gqa ... --weight_dir out/checkpoints \
+        --split val --q_tar_fn_val val.tar --out answers.jsonl
+
+Runs on the CUDA card (and fails without one) unless ``--platform cpu``.
+``--int8`` (weight-only int8 serving) is ROADMAP Queue 1 item 13.
 """
 
 from __future__ import annotations
 
+import json
+import sys
+import time
+from collections import deque
 from typing import Callable
 
 import torch
 import torch.nn.functional as F
 
 from structured_alignment_vqa_tpu_torch.data.batch import VQABatch
+from structured_alignment_vqa_tpu_torch.data.dataset import BatchLoader, GQASuperNodeDataset
+from structured_alignment_vqa_tpu_torch.data.transfer import BatchMover, HostFetch, shipped
+from structured_alignment_vqa_tpu_torch.models import AttModelX3
+from structured_alignment_vqa_tpu_torch.train.main import (
+    build_parser,
+    configs_from_args,
+    device_from_args,
+    log_flags_without_effect,
+)
+from structured_alignment_vqa_tpu_torch.utils.checkpoint import load_params_for_eval
+from structured_alignment_vqa_tpu_torch.utils.logging import setup_logging
+
+
+def ensemble_log_softmax(model: torch.nn.Module, batch: VQABatch) -> torch.Tensor:
+    """(B, num_classes) float32: the sum of the three heads' log-softmaxes,
+    whose argmax is the answer."""
+    lc, lv, ls, _, _ = model(batch)
+    return (F.log_softmax(lv.float(), dim=-1)
+            + F.log_softmax(ls.float(), dim=-1)
+            + F.log_softmax(lc.float(), dim=-1))
 
 
 def make_predict_step(model: torch.nn.Module) -> Callable[[VQABatch], torch.Tensor]:
-    """Return ``predict(batch) -> (B,) answer ids``: the argmax of the sum of
-    the three heads' log-softmaxes, in float32, with the model in eval mode."""
+    """Return ``predict(batch) -> (B,) answer ids``: the argmax of
+    :func:`ensemble_log_softmax`, with the model in eval mode."""
 
     @torch.inference_mode()
     def predict(batch: VQABatch) -> torch.Tensor:
         model.eval()
-        lc, lv, ls, _, _ = model(batch)
-        log_sm = (F.log_softmax(lv.float(), dim=-1)
-                  + F.log_softmax(ls.float(), dim=-1)
-                  + F.log_softmax(lc.float(), dim=-1))
-        return torch.argmax(log_sm, dim=-1)
+        return torch.argmax(ensemble_log_softmax(model, batch), dim=-1)
 
     return predict
+
+
+def serve(predict, batches, write, pipeline_depth: int = 4, warmup_batches: int = 0) -> dict:
+    """Pipelined serving over ``batches`` of ``(host_batch, ShippedBatch)``
+    (``data/transfer.py:shipped``): while the card runs batch t, the shipper
+    thread copies batch t+1 and the host collates the next; each batch's
+    answers start their copy to pinned host memory when the batch is queued
+    and are read ``pipeline_depth`` batches later. ``write(index, row)`` is
+    called for each valid sample, in order, with its row of ``predict``'s
+    output read back (the answer id, for :func:`make_predict_step`).
+
+    Returns ``{"n_out", "seconds", "n_timed", "seconds_all"}``: the clock of
+    ``seconds`` restarts once ``warmup_batches`` batches have been drained;
+    ``seconds_all`` runs from the first batch asked of the loader to the
+    last answer written.
+    """
+    pending: deque = deque()
+    start = time.perf_counter()
+    stats = {"n_out": 0, "n_drained": 0, "n_at_t0": 0, "t0": start}
+    index = 0
+
+    def drain(fetch, valid, base):
+        preds = fetch.result()        # waits for this batch's answers alone
+        for j, ok in enumerate(valid):
+            if ok:
+                write(base + j, preds[j])
+                stats["n_out"] += 1
+        stats["n_drained"] += 1
+        if stats["n_drained"] == warmup_batches:
+            stats["t0"] = time.perf_counter()
+            stats["n_at_t0"] = stats["n_out"]
+
+    for host, ship in batches:
+        valid = host.sample_valid
+        pending.append((HostFetch(predict(ship.ready())), valid, index))
+        index += len(valid)
+        if len(pending) >= max(pipeline_depth, 1):
+            drain(*pending.popleft())
+    while pending:
+        drain(*pending.popleft())
+    end = time.perf_counter()
+    return {"n_out": stats["n_out"], "seconds": end - stats["t0"],
+            "n_timed": stats["n_out"] - stats["n_at_t0"], "seconds_all": end - start}
+
+
+def main(argv=None):
+    parser = build_parser()
+    parser.add_argument("--weight_dir", type=str, required=True)
+    parser.add_argument("--weight_epoch", type=int, default=None)
+    parser.add_argument("--split", type=str, default="val")
+    parser.add_argument("--out", type=str, default="-", help="JSONL path or - for stdout")
+    parser.add_argument("--int8", action="store_true",
+                        help="weight-only int8 serving (not ported yet: ROADMAP "
+                             "Queue 1 item 13)")
+    parser.add_argument("--batch_cache_dir", type=str, default="",
+                        help="materialized-collated-batch cache "
+                             "(data/batch_cache.py): the first pass persists "
+                             "every batch; later passes stream mmap'd arrays "
+                             "with no host compute")
+    parser.add_argument("--pipeline_depth", type=int, default=4,
+                        help="batches in flight before the oldest answers are "
+                             "read back")
+    parser.add_argument("--warmup_batches", type=int, default=0,
+                        help="restart the throughput clock after this many "
+                             "batches have drained (the answers themselves are "
+                             "still written)")
+    args = parser.parse_args(argv)
+    if args.int8:
+        raise NotImplementedError(
+            "--int8 (weight-only int8 serving, ROADMAP Queue 1 item 13) is not ported yet")
+
+    model_cfg, train_dc, val_dc, trainer_cfg = configs_from_args(args)
+    device = device_from_args(args)
+    dc = val_dc if args.split == "val" else train_dc
+    logger = setup_logging(trainer_cfg.output_dir)
+    log_flags_without_effect(args, logger)
+
+    ds = GQASuperNodeDataset(args.split, dc)
+    id2ans = {v: k for k, v in ds.ans_w2id.items()}
+    loader = BatchLoader(
+        ds, trainer_cfg.batch_size, shuffle=False, drop_last=False,
+        num_threads=trainer_cfg.num_workers, num_procs=trainer_cfg.num_procs,
+        cache_dir=f"{trainer_cfg.cache_dir}/{args.split}" if trainer_cfg.cache_dir else None,
+        batch_cache_dir=args.batch_cache_dir or None,
+    )
+
+    model = AttModelX3(model_cfg, device=device)
+    load_params_for_eval(args.weight_dir, model, args.weight_epoch)
+    predict = make_predict_step(model)
+    mover = BatchMover(device, bf16_features=model_cfg.compute_dtype == torch.bfloat16)
+
+    sink = sys.stdout if args.out == "-" else open(args.out, "w")
+
+    def write(index: int, answer) -> None:
+        aid = int(answer)
+        sink.write(json.dumps({"index": index, "answer_id": aid,
+                               "answer": id2ans.get(aid, "<other>")}) + "\n")
+
+    try:
+        stats = serve(predict, shipped(loader, mover), write,
+                      args.pipeline_depth, args.warmup_batches)
+    finally:
+        if sink is not sys.stdout:
+            sink.close()
+    n_out, n_timed, dt = stats["n_out"], stats["n_timed"], stats["seconds"]
+    logger.info(
+        "predicted %d answers%s in %.2fs (%.0f pairs/s); the whole stream in %.2fs "
+        "(%.0f pairs/s)",
+        n_out,
+        f" ({n_timed} timed after {args.warmup_batches}-batch warmup)"
+        if n_timed != n_out else "",
+        dt, n_timed / max(dt, 1e-9), stats["seconds_all"],
+        n_out / max(stats["seconds_all"], 1e-9),
+    )
+    return n_out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,117 @@
+"""Checkpoint save and resume in the port's own format (counterpart of the
+TPU package's ``utils/checkpoint.py``, which writes orbax trees).
+
+One file per epoch, ``<ckpt_dir>/epoch_<N>.pt``, written with ``torch.save``
+under a temporary name and renamed into place, so a reader never sees half a
+file. It holds:
+
+* ``params``: the model's ``state_dict`` on the CPU, under the reference
+  names the port's modules carry. A tensor that several names share (the
+  one GloVe table of ``share_glove`` fills the three
+  ``models/convert.py:GLOVE_SLOTS``) is saved once, and ``tied`` maps each
+  other name to the one saved; loading ties them again;
+* ``optimizer``: the optimizer's ``state_dict`` (Adam's moments and step
+  counts, the warmup schedule's entries);
+* ``step`` and ``epoch``.
+
+Loading a reference ``.pth`` or an orbax directory written by the TPU
+package is interop (ROADMAP Queue 1 item 18), not this module's.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from structured_alignment_vqa_tpu_torch.parallel.train_step import TrainState
+
+_NAME = re.compile(r"^epoch_(\d+)\.pt$")
+
+
+def checkpoint_path(ckpt_dir: str, epoch: int) -> str:
+    return os.path.join(ckpt_dir, f"epoch_{epoch}.pt")
+
+
+def saved_epochs(ckpt_dir: str) -> List[int]:
+    """The epochs saved under ``ckpt_dir``, oldest first."""
+    if not os.path.isdir(ckpt_dir):
+        return []
+    return sorted(int(m.group(1)) for m in map(_NAME.match, os.listdir(ckpt_dir)) if m)
+
+
+def latest_epoch(ckpt_dir: str) -> Optional[int]:
+    epochs = saved_epochs(ckpt_dir)
+    return epochs[-1] if epochs else None
+
+
+def _untied_params(model: torch.nn.Module) -> Tuple[Dict[str, torch.Tensor], Dict[str, str]]:
+    params: Dict[str, torch.Tensor] = {}
+    tied: Dict[str, str] = {}
+    first: Dict[tuple, str] = {}
+    for name, t in model.state_dict().items():
+        key = (t.device, t.data_ptr(), t.dtype, tuple(t.shape), tuple(t.stride()))
+        if key in first:
+            tied[name] = first[key]
+        else:
+            first[key] = name
+            params[name] = t.detach().to("cpu", copy=True)
+    return params, tied
+
+
+def save_checkpoint(ckpt_dir: str, state: TrainState, epoch: int,
+                    max_to_keep: Optional[int] = None) -> str:
+    """Save params, optimizer state, step and epoch as epoch ``epoch``; with
+    ``max_to_keep``, delete the oldest epochs beyond it. Returns the path."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    params, tied = _untied_params(state.model)
+    payload = {"params": params, "tied": tied, "optimizer": state.optimizer.state_dict(),
+               "step": int(state.step), "epoch": int(epoch)}
+    path = checkpoint_path(ckpt_dir, epoch)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    if max_to_keep:
+        for old in saved_epochs(ckpt_dir)[:-max_to_keep]:
+            os.unlink(checkpoint_path(ckpt_dir, old))
+    return path
+
+
+def _load(ckpt_dir: str, epoch: Optional[int]) -> Tuple[dict, int]:
+    if epoch is None:
+        epoch = latest_epoch(ckpt_dir)
+        if epoch is None:
+            raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+    payload = torch.load(checkpoint_path(ckpt_dir, epoch), map_location="cpu",
+                         weights_only=True)
+    return payload, epoch
+
+
+def _load_params(model: torch.nn.Module, payload: dict) -> None:
+    params = dict(payload["params"])
+    for alias, source in payload["tied"].items():
+        params[alias] = params[source]
+    model.load_state_dict(params)
+
+
+def restore_checkpoint(ckpt_dir: str, state: TrainState,
+                       epoch: Optional[int] = None) -> Tuple[TrainState, int]:
+    """Restore params, optimizer state and step into ``state`` (in place);
+    returns ``(state, epoch)``. ``epoch=None`` takes the latest."""
+    payload, epoch = _load(ckpt_dir, epoch)
+    _load_params(state.model, payload)
+    state.optimizer.load_state_dict(payload["optimizer"])
+    state.step = int(payload["step"])
+    return state, int(epoch)
+
+
+def load_params_for_eval(ckpt_dir: str, model: torch.nn.Module,
+                         epoch: Optional[int] = None) -> int:
+    """The eval drivers' loader: the params into ``model`` (in place);
+    returns the saved step. Eval never reads the optimizer's state, so none
+    is needed, as in the TPU package's."""
+    payload, _ = _load(ckpt_dir, epoch)
+    _load_params(model, payload)
+    return int(payload["step"])
