@@ -72,8 +72,9 @@ Phases, each of which must pass:
     per step counted, finite losses, none skipped, ``MIL_NCE.R`` moved; one
     f32 step with the kernels against one with the plain versions; a step
     with ``remat_blocks`` against one without (same loss and gradients) and
-    the peak memory of both; the device-time breakdown of a step and of a
-    request;
+    the peak memory of both; one step with the sparse GloVe-table optimizer
+    (finite, the same launches); the device-time breakdown of a step and of
+    a request;
 12. the predict and eval CLIs (``train.predict.main``, ``train.evaluate.main``)
     on a fixture tree written by the port's ``write_fixture`` (128 images,
     2,560 train and 640 val questions, 10-36 objects, 1,600 classes), the
@@ -93,10 +94,28 @@ Phases, each of which must pass:
     count (above 0) equal the in-process ``make_eval_step`` sums within
     1e-5; as information the loader's
     samples/s alone, one batch's copy pinned and pageable, the CLI's
-    pairs/s, the card's idle share over 3 batches, which tar index served.
+    pairs/s, the card's idle share over 3 batches, which tar index served;
+13. the training CLI (``train.main.main``) on the same fixture tree at full
+    obj-only width (bf16, shared table, ``--sparse_table``, MIL-NCE, bs 128,
+    ``--cache_dir --batch_replay``): one epoch, whose launches must be 24
+    K1 + 24 K2 + 24 K3 a step and 24 K1 + 24 K3 an eval batch, whose logged
+    losses must equal an in-process loop of the same step on the same
+    batches from the same weights and generator (within 1e-3 relative), and
+    whose K1, K2 and K3 calls are held against their plain versions at
+    every shape the CLI gave them; the first sparse step against a dense
+    one (the touched rows within 1e-6, the rest bitwise); then
+    ``--num_epochs 3 --checkpoint_every 2``, which must log ``resumed from
+    epoch 1`` and device-resident batches; the predict CLI, float and
+    ``--int8``, on the checkpoint and on a copy with its answers spread over
+    the classes, with the in-process predict step's answers; as information
+    the epochs' steps/s and samples/s, the CLI's idle share over 5 traced
+    steps (``--profile_steps``), float against int8 serving (pairs/s, model
+    bytes), and a dense against a sparse step at the training phase's
+    shapes (device-time breakdown, named parts of "other", memory; f32 and
+    bf16 moments).
 
 ``--phases a,b`` (of card, k1, k3, k2, serving, training, k4, k56,
-objrel_serving, objrel_training, cli) runs only those, for work on one kernel,
+objrel_serving, objrel_training, cli, train_cli) runs only those, for work on one kernel,
 and then prints no last line. It prints one JSON line of kernels, the card's line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero without
 that last line; so does a machine without a CUDA device.
@@ -113,6 +132,7 @@ import sys
 import time
 from unittest import mock
 
+import numpy as np
 import torch
 
 H100_BYTES_PER_S = 3.35e12
@@ -727,9 +747,10 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-def profile_device(fn, what: str) -> None:
+def profile_device(fn, what: str) -> dict:
     """Device time by kernel over one call of ``fn`` (torch.profiler), and
-    the device's idle share of its wall time. Information only."""
+    the device's idle share of its wall time; returns {kernel name: (calls,
+    us)}. Information only."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -742,7 +763,7 @@ def profile_device(fn, what: str) -> None:
                if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     if not kernels:
         print("profile: the profiler saw no device kernels; breakdown not measured")
-        return
+        return {}
     by_name: dict = {}
     for e in kernels:
         n, us = by_name.get(e.name, (0, 0.0))
@@ -773,6 +794,7 @@ def profile_device(fn, what: str) -> None:
         print(f"  {key}: {us / 1e3:.3f} ms ({us / busy:.3f} of device time)")
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
         print(f"  {us / 1e3:9.3f} ms  x{n:<4d} {name[:110]}")
+    return by_name
 
 
 def full_config(**kw):
@@ -894,22 +916,29 @@ def one_step(cfg, batch, plain: bool = False, seed: int = 3) -> tuple:
 
 
 def steady_step_memory(cfg, batch) -> tuple:
-    """Memory of a training step once Adam's moments exist: (bytes held
-    between steps: the parameters and the moments; peak bytes the second
-    step allocates on top of them: gradients and activations)."""
-    from structured_alignment_vqa_tpu_torch.parallel import TrainState, adam, make_train_step
+    """:func:`step_memory` of a fresh dense training step's state."""
+    from structured_alignment_vqa_tpu_torch.parallel import create_train_state, make_train_step
 
     model = random_model(cfg, seed=3)
-    opt = adam(model.parameters(), lr=1e-4)
-    state = TrainState(model, opt)
-    step = make_train_step(model, opt, cfg)
+    state = create_train_state(model, 1e-4)
+    step = make_train_step(model, state.optimizer, cfg)
     gen = torch.Generator(device="cuda").manual_seed(11)
     step(state, batch, gen)
-    opt.zero_grad(set_to_none=True)
+    return step_memory(state, step, batch, gen)
+
+
+def step_memory(state, step, batch, gen) -> tuple:
+    """Memory of a training step once Adam's moments exist (``state`` has
+    taken a step): (bytes held between steps: the parameters and the
+    moments, the sparse table's too; peak bytes the next step allocates on
+    top of them: gradients and activations)."""
+    state.optimizer.zero_grad(set_to_none=True)
     torch.cuda.synchronize()
-    kept = sum(p.numel() * p.element_size() for p in model.parameters())
-    kept += sum(t.numel() * t.element_size() for per_param in opt.state.values()
+    kept = sum(p.numel() * p.element_size() for p in state.model.parameters())
+    kept += sum(t.numel() * t.element_size() for per_param in state.optimizer.state.values()
                 for t in per_param.values() if torch.is_tensor(t))
+    if state.table_opt is not None:
+        kept += sum(t.numel() * t.element_size() for t in (state.table_opt.mu, state.table_opt.nu))
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     step(state, batch, gen)
@@ -1188,6 +1217,22 @@ def rel_training_phase(card: str) -> dict:
           f"{same} (information only)", flush=True)
     del plain_step, remat_step
     torch.cuda.empty_cache()
+    # one step with the sparse GloVe-table optimizer through the flash path
+    from structured_alignment_vqa_tpu_torch.parallel import create_train_state
+
+    model = random_model(cfg)
+    state = create_train_state(model, 1e-4, sparse_table=True)
+    step = make_train_step(model, state.optimizer, cfg, sparse_table=True)
+    before = launch_counts()
+    m = step(state, batch, torch.Generator(device="cuda").manual_seed(7))
+    torch.cuda.synchronize()
+    moved = {k: launch_counts()[k] - before[k] for k in before}
+    check(moved == REL_STEP and bool(torch.isfinite(m["loss"])) and m["skipped"].item() == 0
+          and int(state.table_opt.count) == 1,
+          f"obj+rel train bf16, sparse table: loss {m['loss'].item():.5f} finite, not "
+          f"skipped, the table's count 1, launches {moved} == {REL_STEP}")
+    del model, state, step
+    torch.cuda.empty_cache()
     mib = 2.0 ** 20
     for what, c in (("no remat", cfg), ("remat_blocks", cfg.replace(remat_blocks=True))):
         held, extra = steady_step_memory(c, batch)
@@ -1263,9 +1308,9 @@ def spread_answers_(model, batch) -> None:
 
 @contextlib.contextmanager
 def recorded_kernel_inputs(seen: dict):
-    """Pass every launch of K1 and K3 on to the kernel, keeping a copy of the
-    first arguments at each distinct shape (and renorm) in ``seen``, keyed
-    by kernel and shapes."""
+    """Pass every launch of K1, K2 and K3 on to the kernel, keeping a copy of
+    the first arguments at each distinct shape (and renorm) in ``seen``,
+    keyed by kernel and shapes."""
     from structured_alignment_vqa_tpu_torch.ops import fused_ffn as k3
     from structured_alignment_vqa_tpu_torch.ops import fused_graph_attention as k1
 
@@ -1278,31 +1323,38 @@ def recorded_kernel_inputs(seen: dict):
         return call
 
     with mock.patch.object(k1, "_launch", recorder("K1", k1._launch)), \
+            mock.patch.object(k1, "_launch_bwd", recorder("K2", k1._launch_bwd)), \
             mock.patch.object(k3, "_launch", recorder("K3", k3._launch)):
         yield
 
 
-def cli_kernels_against_plain(seen: dict) -> None:
-    """K1 and K3 at every shape the CLIs gave them, on the model's own
-    inputs, against their plain versions."""
+def cli_kernels_against_plain(seen: dict, what: str = "cli") -> None:
+    """K1, K2 and K3 at every shape the CLIs gave them, on the model's own
+    inputs, against their plain versions (K2 output by output, relative to
+    each output's max)."""
     from structured_alignment_vqa_tpu_torch.ops import fused_ffn as k3
     from structured_alignment_vqa_tpu_torch.ops import fused_graph_attention as k1
 
     for (key, _), args in sorted(seen.items(), key=lambda kv: str(kv[0])):
         x = args[0]
+        if key == "K2":
+            k2_against_plain(f"{what}, at the CLI's shape B {x.shape[0]} Tq {x.shape[1]} Tk "
+                             f"{args[1].shape[1]} (the model's own inputs)",
+                             args[:9], args[9], args[10], args[11])
+            continue
         with torch.inference_mode():
             if key == "K1":
                 got = k1.fused_graph_attention_ln(*args)
                 want = k1.graph_attention_ln_plain(*args)
-                what = f"B {x.shape[0]} Tq {x.shape[1]} Tk {args[1].shape[1]} {args[-1]}"
+                shape = f"B {x.shape[0]} Tq {x.shape[1]} Tk {args[1].shape[1]} {args[-1]}"
             else:
                 got, want = k3.fused_ffn(*args), k3.ffn_ln_plain(*args)
-                what = f"rows {x.numel() // x.shape[-1]}"
+                shape = f"rows {x.numel() // x.shape[-1]}"
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         tol = TOL[x.dtype]
         check(bool(torch.isfinite(got.float()).all()) and err <= tol,
-              f"cli {key} at the CLI's shape {what} {x.dtype} (the model's own inputs): "
+              f"{what} {key} at the CLI's shape {shape} {x.dtype} (the model's own inputs): "
               f"max|kernel-plain| {err:.3g} <= {tol:g}")
 
 
@@ -1543,8 +1595,327 @@ def cli_phase(card: str) -> dict:
     return launches
 
 
+# the train_cli phase: the training CLI at full obj-only width on the cli
+# phase's fixture tree, with the sparse table, batch replay and bf16
+TRAIN_CLI_FLAGS = CLI_FLAGS + ["--sparse_table", "--batch_replay", "--lr", "1e-4",
+                               "--seed", "0", "--log_steps", "1", "--log_steps_val", "100",
+                               "--num_workers", str(CLI_WORKERS)]
+# the CLI's logged losses against an in-process loop of the same step on the
+# same batches, relative to each loss: the same kernels, weights and dropout
+# masks; only sums the card reorders (atomics in a backward) could differ,
+# by f32 rounding that bf16 compute may round one bf16 ulp the other way
+TRAIN_CLI_LOSS_RTOL = 1e-3
+# the first sparse step against the dense one on the rows it touched: Adam's
+# first update is lr * g / (|g| + eps), the same g summed in another order
+# moves it by rounding; 1e-6 is 1% of one step at lr 1e-4
+FIRST_STEP_ATOL = 1e-6
+PROFILE_STEPS = 5
+
+
+def logged_step_losses(output_dir: str) -> list:
+    """(epoch, step, loss) of every step line of the training CLI's log."""
+    import os
+
+    pattern = re.compile(r"Epoch \[(\d+)/\d+\], Step \[(\d+)\], Loss: ([^,]+), MIL NCE Loss")
+    with open(os.path.join(output_dir, "training.log")) as f:
+        return [(int(e), int(i), float(v)) for e, i, v in pattern.findall(f.read())]
+
+
+def log_lines(output_dir: str, mark: str) -> list:
+    import os
+
+    with open(os.path.join(output_dir, "training.log")) as f:
+        return [line.split("INFO", 1)[-1].strip() for line in f if mark in line]
+
+
+def trace_idle_share(path: str) -> tuple:
+    """(device busy ms, window ms, idle share) of a Chrome trace written by
+    ``utils/profiling.py``: kernel time summed over the span of all events."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if "ts" in e and "dur" in e]
+    busy = sum(e["dur"] for e in events if e.get("cat") == "kernel")
+    span = max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)
+    return busy / 1e3, span / 1e3, 1 - busy / span
+
+
+def model_bytes(model) -> int:
+    """Bytes of the model's parameters and buffers on the card (a tensor
+    several names share counted once)."""
+    seen = {}
+    for t in list(model.parameters()) + list(model.buffers()):
+        seen[t.data_ptr()] = t.numel() * t.element_size()
+    return sum(seen.values())
+
+
+def dense_against_sparse_step(cfg, batch, card: str) -> None:
+    """One dense and one sparse step from the same weights and dropout masks:
+    the same loss, the touched table rows within FIRST_STEP_ATOL, the
+    untouched rows bitwise unchanged, every other parameter as the dense
+    step left it."""
+    from structured_alignment_vqa_tpu_torch.parallel import create_train_state, make_train_step
+    from structured_alignment_vqa_tpu_torch.parallel.sparse_table import TABLE_NAME, remap_batch
+    from structured_alignment_vqa_tpu_torch.train.loop import new_model
+
+    after = {}
+    for sparse in (False, True):
+        model = new_model(cfg, 0, "cuda")
+        state = create_train_state(model, 1e-4, sparse_table=sparse)
+        step = make_train_step(model, state.optimizer, cfg, sparse_table=sparse)
+        table0 = model.get_parameter(TABLE_NAME).detach().clone()
+        m = step(state, batch, torch.Generator(device="cuda").manual_seed(1))
+        after[sparse] = (m["loss"].item(), {n: p.detach().clone()
+                                            for n, p in model.named_parameters()})
+        del model, state, step
+        torch.cuda.empty_cache()
+    _, uids, valid = remap_batch(batch, cfg)
+    touched = uids[valid]
+    dense, sparse = after[False][1].pop(TABLE_NAME), after[True][1].pop(TABLE_NAME)
+    untouched = torch.ones(dense.shape[0], dtype=torch.bool, device="cuda")
+    untouched[touched] = False
+    err = (sparse[touched] - dense[touched]).abs().max().item()
+    moved = (sparse[touched] - table0[touched]).abs().max().item()
+    check(after[False][0] == after[True][0] and err <= FIRST_STEP_ATOL and moved > 0
+          and torch.equal(sparse[untouched], table0[untouched])
+          and torch.equal(dense[untouched], table0[untouched]),
+          f"train_cli: the first sparse step's loss {after[True][0]:.7g} equals the dense "
+          f"step's {after[False][0]:.7g}; its {len(touched)} touched rows (of "
+          f"{len(uids)} id slots) within {err:.3g} <= {FIRST_STEP_ATOL:g} of the dense "
+          f"step's (moved up to {moved:.3g}), the {int(untouched.sum())} untouched rows "
+          "bitwise unchanged")
+    rest = max((after[True][1][n] - p).abs().max().item() for n, p in after[False][1].items())
+    check(rest <= FIRST_STEP_ATOL, f"train_cli: every other parameter after the first sparse "
+          f"step within {rest:.3g} <= {FIRST_STEP_ATOL:g} of the dense step's")
+
+
+# named parts of a training step's "other" device time, by kernel name
+OTHER_PARTS = (("foreach Adam", ("multi_tensor_apply",)),
+               ("index_add_ (the sparse update's write-back)", ("indexFunc",)),
+               ("embedding backward", ("embedding", "grad_weight", "krn_partial",
+                                       "sum_and_scatter")),
+               ("the finite check's reductions", ("ReduceOp<bool",)))
+
+
+def table_other_breakdown(card: str) -> None:
+    """The device-time breakdown and the memory of one dense and one sparse
+    bf16 step at full width (1,843 classes, bs 128, bucket (36, 30, 98)):
+    how much of "other" the table's dense Adam takes. Information only."""
+    from structured_alignment_vqa_tpu_torch.parallel import create_train_state, make_train_step
+
+    cfg = full_config()
+    batch = full_batches(cfg, 1)[0]
+    mib = 2.0 ** 20
+    for what, sparse, moments in (("dense", False, torch.float32),
+                                  ("sparse, f32 moments", True, torch.float32),
+                                  ("sparse, bf16 moments", True, torch.bfloat16)):
+        model = random_model(cfg)
+        state = create_train_state(model, 1e-4, sparse_table=sparse, table_moments_dtype=moments)
+        step = make_train_step(model, state.optimizer, cfg, sparse_table=sparse)
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        step(state, batch, gen)
+        held, extra = step_memory(state, step, batch, gen)
+        print(f"train_cli: {what} bf16 bs {B}: {held / mib:.1f} MiB held between steps "
+              f"(parameters and Adam's moments), a step's peak {extra / mib:.1f} MiB on top "
+              f"(gradients and activations) on {card} (information only)", flush=True)
+        by_name = profile_device(lambda: step(state, batch, gen),
+                                 f"one {what} bs-{B} training step")
+        for part, marks in OTHER_PARTS:
+            n = sum(c for k, (c, _) in by_name.items() if any(m in k for m in marks))
+            us = sum(t for k, (_, t) in by_name.items() if any(m in k for m in marks))
+            print(f"  of which {part}: {us / 1e3:.3f} ms, {n} kernels", flush=True)
+        del model, state, step
+        torch.cuda.empty_cache()
+
+
+def train_cli_phase(card: str) -> dict:
+    """The training CLI at full obj-only width on a fixture tree: one epoch,
+    then a resumed second, against an in-process loop of its step; the
+    predict CLI (float and --int8) on the checkpoint it wrote."""
+    import os
+    import tempfile
+
+    from structured_alignment_vqa_tpu_torch.data.dataset import BatchLoader, GQASuperNodeDataset
+    from structured_alignment_vqa_tpu_torch.data.fixtures import write_fixture
+    from structured_alignment_vqa_tpu_torch.data.transfer import host_tensors
+    from structured_alignment_vqa_tpu_torch.models import AttModelX3
+    from structured_alignment_vqa_tpu_torch.ops.quant import quantize_state_dict
+    from structured_alignment_vqa_tpu_torch.parallel import (
+        TrainState,
+        adam,
+        create_train_state,
+        make_train_step,
+    )
+    from structured_alignment_vqa_tpu_torch.train import main as train_main
+    from structured_alignment_vqa_tpu_torch.train import predict as predict_cli
+    from structured_alignment_vqa_tpu_torch.train.loop import new_model
+    from structured_alignment_vqa_tpu_torch.train.predict import make_predict_step
+    from structured_alignment_vqa_tpu_torch.utils.checkpoint import (
+        checkpoint_path,
+        load_params_for_eval,
+        save_checkpoint,
+    )
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data, out, cache = (os.path.join(tmp, d) for d in ("data", "out", "cache"))
+        t0 = time.perf_counter()
+        write_fixture(data, **CLI_FIXTURE)
+        argv = (["--data_dir_azure", data, "--output_dir", out, "--cache_dir", cache]
+                + TRAIN_CLI_FLAGS)
+        cfg, train_dc, val_dc, tc = train_main.configs_from_args(
+            train_main.build_parser().parse_args(argv))
+        cfg = cfg.replace(topn=train_dc.topn, only_obj=train_dc.only_obj)
+        print(f"train_cli: fixture tree written in {time.perf_counter() - t0:.1f} s; "
+              f"{cfg.num_classes} classes, hidden {cfg.hidden_size}, {cfg.num_blocks} blocks, "
+              f"vocab {cfg.vocab_size} x {cfg.glove_dim}, {cfg.compute_dtype}, bs {B}",
+              flush=True)
+
+        # epoch 1: every K1, K2, K3 launch counted and its inputs kept
+        seen = {}
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with recorded_kernel_inputs(seen):
+            state = train_main.main(argv + ["--num_epochs", "1"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+        n_steps = state.step
+        logged = logged_step_losses(out)
+        for line in log_lines(out, "trained") + log_lines(out, "accuracy"):
+            print(f"train_cli: epoch 1: {line}", flush=True)
+        n_val = len(BatchLoader(GQASuperNodeDataset("val", val_dc), B, shuffle=False,
+                                batch_cache_dir=f"{cache}/val_batches").replay_cache())
+        forwards = 2 * n_steps + n_val     # the steps, then eval on train and on val
+        want = {"K1": K1_PER_FORWARD * forwards, "K2": K2_PER_STEP * n_steps,
+                "K3": K3_PER_FORWARD * forwards, "K4": 0, "K5": 0, "K6": 0}
+        check(launches == want and len(logged) == n_steps > 0
+              and int(state.table_opt.count) == n_steps,
+              f"train_cli: epoch 1 took {n_steps} sparse steps and eval over {n_steps} train "
+              f"and {n_val} val batches: launches {launches} == {want} (24 K1, 24 K2 and 24 "
+              "K3 a step, 24 K1 and 24 K3 an eval batch)")
+        check(all(np.isfinite(v) for _, _, v in logged),
+              f"train_cli: {len(logged)} finite step losses logged, from {logged[0][2]:.5f} to "
+              f"{logged[-1][2]:.5f}")
+        size = os.path.getsize(checkpoint_path(f"{out}/checkpoints", 1))
+        print(f"train_cli: epoch 1 (cold loader, {n_steps} steps, eval, checkpoint of "
+              f"{size / 2 ** 30:.2f} GiB) in {seconds:.1f} s on {card}", flush=True)
+        cli_kernels_against_plain(seen, "train_cli")
+        del state, seen
+        torch.cuda.empty_cache()
+
+        # the same step in-process over the same batches (the first epoch was
+        # the replay cache's build pass: the loader's shuffled epoch-0 order),
+        # from the weights and the generator the CLI starts from
+        model = new_model(cfg, tc.seed, "cuda")
+        hand = create_train_state(model, tc.lr, tc.warmup_steps, sparse_table=True)
+        step = make_train_step(model, hand.optimizer, cfg, with_milnce=tc.with_milnce,
+                               sparse_table=True)
+        gen = torch.Generator(device="cuda").manual_seed(tc.seed + 1)
+        loader = BatchLoader(GQASuperNodeDataset("train", train_dc), B, shuffle=True,
+                             seed=tc.seed, cache_dir=f"{cache}/train")
+        batches = [host_tensors(b, True).to("cuda") for b in loader]
+        mine = [step(hand, batch, gen)["loss"].item() for batch in batches]
+        diffs = [abs(a - c) / abs(c) for (_, _, a), c in zip(logged, mine)]
+        check(len(mine) == len(logged) and max(diffs) <= TRAIN_CLI_LOSS_RTOL,
+              f"train_cli: the {len(logged)} logged losses equal an in-process loop's within "
+              f"{max(diffs):.3g} <= {TRAIN_CLI_LOSS_RTOL:g} relative (bitwise: "
+              f"{sum(d == 0 for d in diffs)} of {len(diffs)})")
+        del model, hand, step
+        torch.cuda.empty_cache()
+        dense_against_sparse_step(cfg, batches[0], card)
+        del batches
+
+        # resumed: epochs 2 and 3 from device-resident batches, a checkpoint
+        # after epoch 2 only (two in all); the profile window in epoch 2, so
+        # that epoch 3's rate is free of it
+        t0 = time.perf_counter()
+        reset_launch_counts()
+        state = train_main.main(argv + ["--num_epochs", "3", "--checkpoint_every", "2",
+                                        "--profile_steps", str(PROFILE_STEPS)])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        resumed = log_lines(out, "resumed from epoch 1")
+        resident = log_lines(out, "device-resident")
+        per = launch_counts()["K2"] / max(state.step - n_steps, 1)
+        check(len(resumed) == 1 and len(resident) == 2 and per == K2_PER_STEP
+              and state.step == 3 * n_steps,
+              f"train_cli: the resumed run logs '{resumed[0] if resumed else 'nothing'}' and "
+              f"'{resident[0] if resident else 'no device-resident batches'}', takes "
+              f"{state.step - n_steps} steps with {per:g} K2 launches each")
+        for line in log_lines(out, "trained") + log_lines(out, "accuracy"):
+            print(f"train_cli: epochs 2-3: {line}", flush=True)
+        traces = os.listdir(f"{out}/profile")
+        check(len(traces) == 1, f"train_cli: --profile_steps wrote {traces}")
+        busy, window, idle = trace_idle_share(f"{out}/profile/{traces[0]}")
+        print(f"train_cli: {PROFILE_STEPS} steps of the CLI's epoch 2 (--profile_steps, "
+              f"resident batches): window {window:.3f} ms, device busy {busy:.3f} ms, idle "
+              f"share {idle:.3f} on {card} (information only)", flush=True)
+        print(f"train_cli: epochs 2-3 (resume, resident batches, {state.step - n_steps} steps, "
+              f"eval, a checkpoint) in {seconds:.1f} s", flush=True)
+        del state
+        torch.cuda.empty_cache()
+
+        # the predict CLI, float and --int8, against the in-process predict
+        # step on the same val batches: on the checkpoint the CLI wrote, and
+        # on a copy whose answer heads' biases are shifted so that the
+        # answers spread over the classes (trained this briefly, the model
+        # gives every question one answer, which any row would match)
+        ckpt = f"{out}/checkpoints"
+        model = AttModelX3(cfg)
+        load_params_for_eval(ckpt, model)
+        val = [host_tensors(b).to("cuda") for b in BatchLoader(
+            GQASuperNodeDataset("val", val_dc), B, shuffle=False, drop_last=False)]
+        spread = AttModelX3(cfg)
+        spread.load_state_dict(model.state_dict())
+        spread_answers_(spread, val[0])
+        save_checkpoint(f"{tmp}/spread", TrainState(spread, adam(spread.parameters())), 2)
+        for name, m, weights in (("trained", model, ckpt), ("spread", spread, f"{tmp}/spread")):
+            qmodel = AttModelX3(cfg.replace(int8_serving=True))
+            qmodel.load_state_dict(quantize_state_dict(m.state_dict()))
+            written = []
+            for what, mm, extra in (("float", m, []), ("int8", qmodel, ["--int8"])):
+                predict = make_predict_step(mm)
+                ref = [int(a) for b in val
+                       for a, ok in zip(predict(b).cpu(), b.sample_valid.cpu()) if ok]
+                answers = os.path.join(tmp, f"answers_{name}_{what}.jsonl")
+                logs = os.path.join(tmp, f"predict_{name}_{what}")
+                reset_launch_counts()
+                n_out = predict_cli.main(argv + ["--weight_dir", weights, "--split", "val",
+                                                 "--out", answers, "--output_dir", logs] + extra)
+                counts = launch_counts()
+                with open(answers) as f:
+                    got = [json.loads(line)["answer_id"] for line in f]
+                written.append(got)
+                check(n_out == len(got) == len(ref) > 0 and got == ref
+                      and counts["K1"] == counts["K3"] == K1_PER_FORWARD * len(val),
+                      f"train_cli: predict CLI ({what}) on the {name} checkpoint: {len(got)} "
+                      f"answers equal the in-process predict step's ({len(set(got))} "
+                      f"distinct), {counts['K1']} K1 and {counts['K3']} K3 launches over "
+                      f"{len(val)} batches")
+                if name == "trained":
+                    rate = log_lines(logs, "predicted")
+                    batches = full_batches(cfg, REQUESTS)
+                    predict(batches[0])
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for b in batches:
+                        predict(b)
+                    torch.cuda.synchronize()
+                    pairs = REQUESTS * B / (time.perf_counter() - t0)
+                    print(f"train_cli: {what} serving: model {model_bytes(mm) / 2 ** 20:.1f} MiB "
+                          f"on the card; {pairs:.1f} pairs/s over {REQUESTS} synthetic bs-{B} "
+                          f"requests; the predict CLI: {rate[-1] if rate else 'no rate logged'} "
+                          f"on {card} (information only)", flush=True)
+            agree = sum(a == b for a, b in zip(*written))
+            print(f"train_cli: {name} checkpoint: int8 answers equal float answers on {agree} "
+                  f"of {len(written[0])} val questions (information only)", flush=True)
+            del qmodel
+        del model, spread, val
+        torch.cuda.empty_cache()
+    table_other_breakdown(card)
+    return launches
+
+
 PHASES = ("k1", "k3", "k2", "serving", "training", "k4", "k56", "objrel_serving",
-          "objrel_training", "cli")
+          "objrel_training", "cli", "train_cli")
 PORT = "structured_alignment_vqa_tpu_torch/csrc/"
 TPU = "structured_alignment_vqa_tpu/ops/"
 BF16 = str(torch.bfloat16)
@@ -1625,7 +1996,7 @@ def main(argv: list) -> int:
                      "k56": k56_phase}
     path_phases = {"serving": serving_phase, "training": training_phase,
                    "objrel_serving": rel_serving_phase, "objrel_training": rel_training_phase,
-                   "cli": cli_phase}
+                   "cli": cli_phase, "train_cli": train_cli_phase}
     rows, by_path = {}, {}
     for phase in phases:
         t0 = time.perf_counter()

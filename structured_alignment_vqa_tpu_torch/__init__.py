@@ -5,10 +5,12 @@ It covers the unpacked ``AttModelX3``, obj-only and obj+rel: the serving
 forward (``models.AttModelX3`` + ``train.predict.make_predict_step``), the
 training and eval steps (``parallel.train_step``), the host data pipeline
 (``data/``: tar index, graph builder, collate, bucketed loader, sample and
-batch caches, fixtures; ``data/transfer.py`` moves batches to the card) and
-the predict and eval CLIs (``python -m
-structured_alignment_vqa_tpu_torch.train.predict`` / ``.train.evaluate``,
-with the flags of ``train.main`` and checkpoints of ``utils.checkpoint``).
+batch caches, fixtures; ``data/transfer.py`` moves batches to the card),
+the training CLI (``python -m structured_alignment_vqa_tpu_torch.train.main``,
+``train/loop.py``; the sparse GloVe-table optimizer of
+``parallel/sparse_table.py``) and the predict and eval CLIs (``.train.predict``,
+with int8 serving from ``ops/quant.py``, / ``.train.evaluate``; checkpoints
+of ``utils.checkpoint``).
 The TPU package's six
 Pallas kernels are CUDA C++ sources under ``csrc/``, built with ``nvcc`` on
 first use (``ops/_build.py``):

@@ -40,6 +40,7 @@ from structured_alignment_vqa_tpu_torch.ops.mil_nce import (
     mil_nce_obj_objective,
     mil_nce_rel_objective,
 )
+from structured_alignment_vqa_tpu_torch.ops.quant import QDense, quantized_lookup
 
 BOS_ID = 2  # decoder input token
 
@@ -89,16 +90,28 @@ def build_stage_graphs(
 
 class GloVeEmbed(nn.Module):
     """Trainable GloVe lookup (parameter ``weight``, no zero row, no scale):
-    gather, then cast to the compute dtype."""
+    gather, then cast to the compute dtype.
+
+    ``quantized``: the int8 serving layout (``ops/quant.py``), buffers
+    ``weight_q`` int8 (vocab, dim) and ``weight_scale`` float32 (vocab,);
+    only the gathered rows are dequantized."""
 
     def __init__(self, vocab_size: int, dim: int, dtype: torch.dtype = torch.float32,
-                 device=None):
+                 device=None, quantized: bool = False):
         super().__init__()
+        self.compute_dtype = dtype
+        self.quantized = quantized
+        if quantized:
+            self.register_buffer("weight_q", torch.zeros(vocab_size, dim, dtype=torch.int8,
+                                                         device=device))
+            self.register_buffer("weight_scale", torch.ones(vocab_size, device=device))
+            return
         self.weight = nn.Parameter(torch.empty(vocab_size, dim, device=device))
         nn.init.xavier_normal_(self.weight)
-        self.compute_dtype = dtype
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        if self.quantized:
+            return quantized_lookup(self.weight_q, self.weight_scale, ids, self.compute_dtype)
         return nn.functional.embedding(ids, self.weight).to(self.compute_dtype)
 
 
@@ -113,7 +126,8 @@ class _Branch(nn.Module):
         h = cfg.hidden_size
         self.cfg = cfg
         self.syb_emb = (glove if glove is not None
-                        else GloVeEmbed(cfg.vocab_size, cfg.glove_dim, dt, device))
+                        else GloVeEmbed(cfg.vocab_size, cfg.glove_dim, dt, device,
+                                        cfg.int8_serving))
         self.syb_mlp = linear_relu(cfg.glove_dim, cfg.vis_fea_dim, dt, device)
         self.syb_mlp2 = Linear(cfg.vis_fea_dim, h, dt, device)
         pe = Embedding(pe_table_size, h, zeros_pad=False, scale=False, dtype=dt, device=device)
@@ -214,7 +228,8 @@ class MILNCEModule(nn.Module):
         dt = cfg.compute_dtype
         h = cfg.hidden_size_mil
         self.syb_emb = (glove if glove is not None
-                        else GloVeEmbed(cfg.vocab_size, cfg.glove_dim, dt, device))
+                        else GloVeEmbed(cfg.vocab_size, cfg.glove_dim, dt, device,
+                                        cfg.int8_serving))
         self.marco_mlp = linear_relu(cfg.glove_dim, h, dt, device)
         self.syb_mlp = linear_relu(cfg.glove_dim, h, dt, device)
         self.vis_mlp = linear_relu(cfg.vis_fea_dim, h, dt, device)
@@ -322,13 +337,15 @@ class MILNCEModule(nn.Module):
 
 
 class _Head(nn.Sequential):
-    """Linear -> ReLU -> Dropout -> Linear classifier (``cls.0`` / ``cls.3``)."""
+    """Linear -> ReLU -> Dropout -> Linear classifier (``cls.0`` / ``cls.3``);
+    int8 ``QDense`` layers under ``int8_serving``."""
 
     def __init__(self, cfg: ModelConfig, fin: int, device=None):
         dt = cfg.compute_dtype
+        dense = QDense if cfg.int8_serving else Linear
         super().__init__(
-            Linear(fin, cfg.hidden_size, dt, device), nn.ReLU(), Dropout(cfg.dropout_rate),
-            Linear(cfg.hidden_size, cfg.num_classes, dt, device),
+            dense(fin, cfg.hidden_size, dt, device), nn.ReLU(), Dropout(cfg.dropout_rate),
+            dense(cfg.hidden_size, cfg.num_classes, dt, device),
         )
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
@@ -350,7 +367,8 @@ class AttModelX3(nn.Module):
         cfg.check_supported()
         dev = resolve_device(device)
         self.cfg = cfg
-        shared = (GloVeEmbed(cfg.vocab_size, cfg.glove_dim, cfg.compute_dtype, dev)
+        shared = (GloVeEmbed(cfg.vocab_size, cfg.glove_dim, cfg.compute_dtype, dev,
+                             cfg.int8_serving)
                   if cfg.share_glove else None)
         self.MIL_NCE = MILNCEModule(cfg, glove=shared, device=dev)
         self.att_vis_grid = VisualEncoder(cfg, glove=shared, device=dev)

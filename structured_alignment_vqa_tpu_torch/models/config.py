@@ -7,7 +7,9 @@ their plain versions on CPU tensors. ``mcb_out``, ``dropout_rate_mcb`` and
 ``seq_impl`` arrive with the MCB head and sequence parallelism.
 
 The port covers the unpacked model, obj-only and obj+rel (``only_obj=False``,
-with ``remat_blocks``). Settings it does not cover
+with ``remat_blocks``), and int8 weight-only serving (``int8_serving``: the
+GloVe tables and the heads hold int8 weights, ``ops/quant.py``; serving
+only, the params from ``quantize_state_dict``). Settings it does not cover
 raise ``NotImplementedError`` naming the ROADMAP item that ports them
 (:meth:`ModelConfig.check_supported`).
 """
@@ -75,7 +77,6 @@ class ModelConfig:
     def check_supported(self) -> None:
         """Raise for the settings the port does not cover yet."""
         unsupported = (
-            (self.int8_serving, "int8_serving (ROADMAP Queue 1 item 13)"),
             (self.use_mcb, "use_mcb (ROADMAP Queue 1 item 12)"),
             (self.seq_axis is not None, "seq_axis (ROADMAP Queue 1 item 16)"),
         )

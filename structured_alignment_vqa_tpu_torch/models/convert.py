@@ -12,6 +12,13 @@ modules carry. The name map is the port's own copy of the TPU package's
 * with ``share_glove`` the one ``glove/table`` fills all three
   ``syb_emb.weight`` slots (one shared module in the port).
 
+An ``int8_serving`` tree (the TPU package's ``quantize_params``) maps the
+same way, dtypes kept: ``.../table_q`` and ``table_scale`` become
+``...syb_emb.weight_q`` (int8) and ``weight_scale``; a head's ``kernel_q``
+(in, out) becomes ``cls*.{0,3}.weight_q`` (out, in) and ``kernel_scale``
+``weight_scale``, beside the float ``bias``. :func:`table_opt_from_jax`
+carries the sparse table's Adam state (``parallel/sparse_table.py``).
+
 This module reads numpy arrays only; it imports no JAX.
 """
 
@@ -97,21 +104,53 @@ def _get(tree: dict, path) -> Optional[np.ndarray]:
     return np.asarray(node)
 
 
+def _int8_entries(num_blocks: int) -> List[Tuple[str, Tuple[str, ...], bool]]:
+    """(torch name, JAX path, transpose) of an ``int8_serving`` tree's
+    quantized leaves: each float ``.weight`` entry of a GloVe table or a
+    head Linear gives a ``weight_q`` and a ``weight_scale``."""
+    out = []
+    for tname, path, transpose in name_map(num_blocks):
+        if path[-1] == "table":
+            out.append((tname + "_q", path[:-1] + ("table_q",), False))
+            out.append((tname + "_scale", path[:-1] + ("table_scale",), False))
+        elif tname.startswith("cls") and tname.endswith(".weight"):
+            out.append((tname + "_q", path[:-1] + ("kernel_q",), True))
+            out.append((tname + "_scale", path[:-1] + ("kernel_scale",), False))
+    return out
+
+
 def state_dict_from_jax(params: Dict, num_blocks: int) -> Dict[str, torch.Tensor]:
-    """The port's state_dict (float32 CPU tensors) from a JAX ``params`` tree.
+    """The port's state_dict (CPU tensors: float32, int8 where the tree holds
+    int8) from a JAX ``params`` tree.
 
     ``params`` is ``variables["params"]`` of the TPU package's ``AttModelX3``
-    with the concat head, obj-only or obj+rel.
+    with the concat head, obj-only or obj+rel, float or ``int8_serving``.
     """
     out: Dict[str, np.ndarray] = {}
-    for tname, path, transpose in name_map(num_blocks):
+    for tname, path, transpose in name_map(num_blocks) + _int8_entries(num_blocks):
         val = _get(params, path)
         if val is None:
             continue
         out[tname] = val.T if transpose else val
-    shared = _get(params, ("glove", "table"))
-    if shared is not None:
-        for slot in GLOVE_SLOTS:
-            out[slot] = shared
+    for leaf, suffix in (("table", ""), ("table_q", "_q"), ("table_scale", "_scale")):
+        shared = _get(params, ("glove", leaf))
+        if shared is not None:
+            for slot in GLOVE_SLOTS:
+                out[slot + suffix] = shared
     # np.array copies: JAX hands out read-only buffers, torch wants writable ones
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C")) for k, v in out.items()}
+    return {k: torch.from_numpy(np.array(v, dtype=np.int8 if v.dtype == np.int8 else np.float32,
+                                         order="C"))
+            for k, v in out.items()}
+
+
+def table_opt_from_jax(topt) -> Dict[str, torch.Tensor]:
+    """The sparse table's Adam state (``count``, ``mu``, ``nu``; the TPU
+    package's ``TableOpt``, numpy leaves) as CPU tensors, the moments in
+    their dtype (bfloat16 through float32, which holds it exactly)."""
+    def moments(a):
+        a = np.asarray(a)
+        dtype = torch.bfloat16 if a.dtype.name == "bfloat16" else torch.float32
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(dtype)
+
+    return {"count": torch.tensor(int(np.asarray(topt.count)), dtype=torch.int32),
+            "mu": moments(topt.mu), "nu": moments(topt.nu)}

@@ -18,6 +18,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -49,6 +50,29 @@ def label_smoothing(one_hot: torch.Tensor, epsilon: float = 0.1) -> torch.Tensor
     """``(1 - eps) * y + eps / K`` over the last axis (reference ``modules.py:461-463``)."""
     k = one_hot.shape[-1]
     return (1.0 - epsilon) * one_hot + epsilon / k
+
+
+def sinusoidal_position_encoding(batch: int, length: int, num_units: int,
+                                 zeros_pad: bool = True, scale: bool = True,
+                                 device=None) -> torch.Tensor:
+    """Sinusoidal PE table for positions [0, length), broadcast to (batch,
+    length, num_units) float32 (reference ``modules.py:83-116``).
+
+    ``pos / 10000**(2i/d)`` in float64, sin on even and cos on odd columns,
+    optional zeroed row 0, then float32 and the optional sqrt(d) scale, in
+    the TPU package's order. It backs the ``--sinusoid`` flag of the
+    ablation variants; the production model learns its PEs.
+    """
+    pos = np.arange(length)[:, None].astype(np.float64)
+    i = np.arange(num_units)[None, :].astype(np.float64)
+    angle = pos / np.power(10000.0, 2.0 * i / num_units)
+    table = np.where(np.arange(num_units)[None, :] % 2 == 0, np.sin(angle), np.cos(angle))
+    if zeros_pad:
+        table[0, :] = 0.0
+    out = torch.tensor(table, dtype=torch.float32, device=device)
+    if scale:
+        out = out * (num_units ** 0.5)
+    return out.expand(batch, length, num_units)
 
 
 def dropout(x: torch.Tensor, p: float, training: bool,

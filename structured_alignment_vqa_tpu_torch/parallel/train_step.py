@@ -9,10 +9,11 @@ One training step is what the reference's batch loop does
 
 On the card the forward launches K1 (K4 above 512 keys) and K3 and the
 backward launches K2 (K5 and K6), the graph attentions' backwards; K3's
-backward is autograd of its composite, as in the TPU package. The
-data-parallel reduction, the mesh and the sparse
-GloVe-table optimizer are not part of this slice (ROADMAP Queue 1 items 14
-and 15).
+backward is autograd of its composite, as in the TPU package. With
+``sparse_table`` the shared GloVe table leaves the dense Adam and takes the
+lazy sparse update of ``parallel/sparse_table.py``. The data-parallel
+reduction and the mesh are not part of this slice (ROADMAP Queue 1 item
+15).
 """
 
 from __future__ import annotations
@@ -22,9 +23,17 @@ from typing import Callable, Dict, Iterable, Optional
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from structured_alignment_vqa_tpu_torch.data.batch import VQABatch
 from structured_alignment_vqa_tpu_torch.models.config import ModelConfig
+from structured_alignment_vqa_tpu_torch.parallel.sparse_table import (
+    TABLE_NAME,
+    TableOpt,
+    init_table_opt,
+    remap_batch,
+    sparse_adam_update,
+)
 from structured_alignment_vqa_tpu_torch.train.losses import (
     batch_metrics,
     ensemble_smoothed_ce,
@@ -37,11 +46,15 @@ class TrainState:
     """The model (which holds the parameters), its optimizer and the number
     of steps taken. ``step`` counts skipped steps too, as the TPU package's
     ``TrainState.step`` does; the optimizer counts applied updates only.
-    An eval-only state holds no optimizer (``None``)."""
+    An eval-only state holds no optimizer (``None``). A state for the sparse
+    table (:func:`create_train_state`) holds the table's Adam state in
+    ``table_opt``, and its ``optimizer`` holds every parameter but the
+    table."""
 
     model: nn.Module
     optimizer: Optional[torch.optim.Optimizer]
     step: int = 0
+    table_opt: Optional[TableOpt] = None
 
 
 def adam(params: Iterable[nn.Parameter], lr: float = 1e-4,
@@ -63,6 +76,32 @@ def adam(params: Iterable[nn.Parameter], lr: float = 1e-4,
     return opt
 
 
+def shared_table(model: nn.Module) -> nn.Parameter:
+    """The one GloVe table of a ``share_glove`` model; ``ValueError`` without
+    one."""
+    if not model.cfg.share_glove:
+        raise ValueError(
+            "sparse_table requires the shared GloVe table (ModelConfig.share_glove / "
+            "--share_glove): without sharing, each encoder owns its own embedding and "
+            f"there is no single {TABLE_NAME} to segment the optimizer over")
+    return model.get_parameter(TABLE_NAME)
+
+
+def create_train_state(model: nn.Module, lr: float = 1e-4, warmup_steps: int = 0,
+                       sparse_table: bool = False,
+                       table_moments_dtype: torch.dtype = torch.float32) -> TrainState:
+    """A fresh state: :func:`adam` over the model's parameters. With
+    ``sparse_table`` Adam gets every parameter but the shared GloVe table,
+    and the table's moments live in a :class:`TableOpt` in
+    ``table_moments_dtype`` (the TPU package's ``create_train_state``)."""
+    if not sparse_table:
+        return TrainState(model, adam(model.parameters(), lr, warmup_steps))
+    table = shared_table(model)
+    rest = [p for p in model.parameters() if p is not table]
+    return TrainState(model, adam(rest, lr, warmup_steps),
+                      table_opt=init_table_opt(table.detach(), table_moments_dtype))
+
+
 def _schedule_lr(optimizer: torch.optim.Optimizer) -> None:
     for group in optimizer.param_groups:
         warmup = group.get("warmup_steps", 0)
@@ -82,8 +121,18 @@ def _all_finite(grads) -> torch.Tensor:
 
 
 def _objective(model: nn.Module, cfg: ModelConfig, batch: VQABatch, generator,
-               with_milnce: bool, smooth_eps: float) -> Dict[str, torch.Tensor]:
-    lc, lv, ls, mil_obj, mil_rel = model(batch, generator)
+               with_milnce: bool, smooth_eps: float,
+               table_rows: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """The step's metrics; ``table_rows`` runs the model with that block in
+    place of the shared GloVe table."""
+    if table_rows is None:
+        lc, lv, ls, mil_obj, mil_rel = model(batch, generator)
+    else:
+        # the three names of the table are one module's attribute: swap it
+        # once. tie_weights=True would swap it once per name and, restoring
+        # in the same order, leave the block in place of the table.
+        lc, lv, ls, mil_obj, mil_rel = functional_call(
+            model, {TABLE_NAME: table_rows}, (batch, generator), tie_weights=False)
     ce, log_sm = ensemble_smoothed_ce(lc, lv, ls, batch.answer, batch.sample_valid, smooth_eps)
     mil = mil_nce_loss(mil_obj, mil_rel, cfg.only_obj)
     loss = ce + mil if with_milnce else ce
@@ -106,12 +155,24 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, cfg: Mod
     the parameters and the Adam state (its moments and its step count) stay
     as they were, and ``skipped`` is 1, as the TPU package's ``lax.cond``
     does. Deciding that costs one read of a flag by the host per step.
+
+    ``sparse_table``: the forward runs on the (U, D) block of the table rows
+    the batch touches, a leaf that requires grad, put in place of the shared
+    ``GloVeEmbed.weight`` by ``torch.func.functional_call`` (one module
+    under ``MIL_NCE``, ``att_vis_grid`` and ``att_syb``, so all three see
+    the block), on a batch whose ids are remapped to block positions. The
+    block's gradient takes :func:`sparse_adam_update` with the optimizer's
+    own schedule (``peak_lr`` and ``warmup_steps`` of its first parameter
+    group, as :func:`adam` stores them); the guard covers it too, and its decision reaches the table's update as a
+    device flag. The state must come from ``create_train_state(...,
+    sparse_table=True)``.
     """
+    table = None
     if sparse_table:
-        raise NotImplementedError(
-            "sparse_table (the sparse GloVe-table optimizer, ROADMAP Queue 1 item 14) "
-            "is not ported yet")
-    params = [p for p in model.parameters() if p.requires_grad]
+        if cfg.int8_serving:
+            raise ValueError("sparse_table is a training path; int8 is serving-only")
+        table = shared_table(model)
+    params = [p for p in model.parameters() if p.requires_grad and p is not table]
 
     def step(state: TrainState, batch: VQABatch,
              generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
@@ -119,11 +180,27 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, cfg: Mod
             raise ValueError("state holds another model or optimizer than this step's")
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        metrics = _objective(model, cfg, batch, generator, with_milnce, smooth_eps)
-        metrics["loss"].backward()
-        apply = True
-        if skip_nonfinite:
-            apply = bool(_all_finite([p.grad for p in params if p.grad is not None]))
+        if table is None:
+            metrics = _objective(model, cfg, batch, generator, with_milnce, smooth_eps)
+            metrics["loss"].backward()
+            grads = [p.grad for p in params if p.grad is not None]
+        else:
+            if state.table_opt is None:
+                raise ValueError("sparse_table needs a state from "
+                                 "create_train_state(..., sparse_table=True)")
+            rbatch, uids, valid = remap_batch(batch, cfg)
+            rows = table.detach()[uids].requires_grad_(True)
+            metrics = _objective(model, cfg, rbatch, generator, with_milnce, smooth_eps,
+                                 table_rows=rows)
+            metrics["loss"].backward()
+            grads = [p.grad for p in params if p.grad is not None] + [rows.grad]
+        finite = _all_finite(grads) if skip_nonfinite else None
+        if table is not None:
+            group = optimizer.param_groups[0]
+            sparse_adam_update(table.data, state.table_opt, rows.grad, uids, valid,
+                               group.get("peak_lr", group["lr"]),
+                               group.get("warmup_steps", 0), apply=finite)
+        apply = True if finite is None else bool(finite)
         if apply:
             _schedule_lr(optimizer)
             optimizer.step()

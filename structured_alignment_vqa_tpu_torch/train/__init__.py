@@ -1,2 +1,3 @@
 """Losses, the serving step and the CLI drivers: ``train.predict`` (serving),
-``train.evaluate`` (eval), ``train.main`` (the flags) and ``train.loop``."""
+``train.evaluate`` (eval), ``train.main`` (the training CLI and its flags)
+and ``train.loop`` (the training loop)."""

@@ -1,21 +1,49 @@
-"""The trainer's configuration and its eval pass (counterpart of the TPU
-package's ``train/loop.py``: ``TrainerConfig`` and ``run_eval``).
+"""The training loop (counterpart of the TPU package's ``train/loop.py``).
 
-The training loop itself (``train``) and ``graft_glove`` are ROADMAP Queue 1
-item 9 and not ported yet.
+Mirrors the reference epoch structure (``main_itp_ddp_tar_super_node.py:261-428``):
+a train pass per epoch, eval on the val and train loaders, metric
+aggregation, a checkpoint per epoch; with the TPU package's substitutions
+where the port has them: save-only .pth -> checkpoints with resume (the
+dropout generator's state included), Azure ``Run.log`` -> a JSONL metric
+sink, batch replay, device-resident frozen batches, the sparse table.
+Batches reach the card through ``data/transfer.py`` (pinned copies on a
+side stream, two batches ahead), and metrics are read back ``metric_lag``
+steps late through pinned copies, so the host keeps queueing work.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import time
 from collections import deque
 from typing import Optional
 
+import numpy as np
 import torch
 
-from structured_alignment_vqa_tpu_torch.data.transfer import HostFetch
+from structured_alignment_vqa_tpu_torch.data.dataset import (
+    BatchLoader,
+    DataConfig,
+    GQASuperNodeDataset,
+)
+from structured_alignment_vqa_tpu_torch.data.transfer import BatchMover, HostFetch, shipped
+from structured_alignment_vqa_tpu_torch.device import resolve_device
+from structured_alignment_vqa_tpu_torch.models import AttModelX3, ModelConfig
+from structured_alignment_vqa_tpu_torch.models.att_model_x3 import GloVeEmbed
+from structured_alignment_vqa_tpu_torch.parallel.train_step import (
+    create_train_state,
+    make_eval_step,
+    make_train_step,
+)
+from structured_alignment_vqa_tpu_torch.utils.checkpoint import (
+    latest_epoch,
+    restore_checkpoint,
+    save_checkpoint,
+)
+from structured_alignment_vqa_tpu_torch.utils.logging import MetricLogger, setup_logging
 from structured_alignment_vqa_tpu_torch.utils.metrics import AverageMeter
+from structured_alignment_vqa_tpu_torch.utils.profiling import StepTimer, start_trace, stop_trace
 
 _METRICS = ("loss_sum", "mil_sum", "n_correct", "n")
 
@@ -23,11 +51,9 @@ _METRICS = ("loss_sum", "mil_sum", "n_correct", "n")
 @dataclasses.dataclass
 class TrainerConfig:
     """The TPU package's ``TrainerConfig``, field for field, with its
-    defaults. Several fields configure what the port does not run yet: the
-    training loop (item 9), packing (``n_pack``, ``pack_bucket``; item 10),
-    the sparse table (``sparse_table``, ``table_moments_bf16``; item 14),
-    several devices (``model_parallel``; item 15); ``resident_gb`` names the
-    TPU package's device-resident batches."""
+    defaults. Two configure what the port does not run yet: packing
+    (``n_pack``, ``pack_bucket``; ROADMAP Queue 1 item 10) and several
+    devices (``model_parallel``; item 15)."""
 
     output_dir: str = "./tmp"
     batch_size: int = 32
@@ -49,13 +75,24 @@ class TrainerConfig:
     # cross-epoch preprocessed-sample cache root (data/sample_cache.py); each
     # split gets its own subdirectory. None = rebuild each epoch.
     cache_dir: Optional[str] = None
+    # materialize epoch-0's collated train batches and replay them mmap'd in
+    # a per-epoch-shuffled order (composition frozen); needs cache_dir
     batch_replay: bool = False
+    # trace training steps [profile_start, profile_start + profile_steps) of
+    # the first epoch run into <output_dir>/profile (utils/profiling.py)
     profile_steps: int = 0
     profile_start: int = 10
+    # epochs between the val + train eval passes (the final epoch evals)
     eval_every: int = 1
+    # linear LR warmup over this many updates, then the constant LR
     warmup_steps: int = 0
+    # lazy sparse Adam for the shared GloVe table (parallel/sparse_table.py);
+    # needs share_glove
     sparse_table: bool = False
     table_moments_bf16: bool = False
+    # device memory (GB) the frozen batches of the replay and val batch
+    # caches may take on the card, shipped once and reused every epoch;
+    # 0 streams them every epoch
     resident_gb: float = 8.0
 
 
@@ -97,3 +134,242 @@ def run_eval(eval_step, state, loader, logger, log_steps, tag="", metric_lag: in
     while pending:
         drain(*pending.popleft())
     return loss_meter.avg, n_correct, n_total
+
+
+def new_model(model_cfg: ModelConfig, seed: int, device) -> AttModelX3:
+    """The model with its initial weights drawn from ``seed`` (the global
+    generators are left as they were)."""
+    device = torch.device(device)
+    with torch.random.fork_rng(devices=[device] if device.type == "cuda" else []):
+        torch.manual_seed(seed)
+        return AttModelX3(model_cfg, device=device)
+
+
+def train(
+    model_cfg: ModelConfig,
+    data_cfg: DataConfig,
+    trainer_cfg: TrainerConfig,
+    val_data_cfg: Optional[DataConfig] = None,
+    glove_table: Optional[np.ndarray] = None,
+    device=None,
+):
+    """Full training run on ``device`` (``None``: the CUDA card, raising
+    without one); returns the final ``TrainState``.
+
+    The TPU package draws a probe batch to build its parameters from; the
+    port's modules need no sample batch, so none is drawn.
+    """
+    tc = trainer_cfg
+    device = resolve_device(device)
+    logger = setup_logging(tc.output_dir)
+    metrics_out = MetricLogger(tc.output_dir)
+    logger.info("device: %s%s", device,
+                f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
+
+    train_ds = GQASuperNodeDataset("train", data_cfg)
+    val_ds = GQASuperNodeDataset("val", val_data_cfg or data_cfg)
+    model_cfg = model_cfg.replace(topn=data_cfg.topn, only_obj=data_cfg.only_obj)
+    model = new_model(model_cfg, tc.seed, device)
+
+    cache = lambda split: f"{tc.cache_dir}/{split}" if tc.cache_dir else None  # noqa: E731
+    if tc.batch_replay and not tc.cache_dir:
+        raise ValueError("batch_replay needs cache_dir for its on-disk root")
+    train_loader = BatchLoader(
+        train_ds, tc.batch_size, shuffle=True, seed=tc.seed,
+        num_threads=tc.num_workers, num_procs=tc.num_procs, n_pack=tc.n_pack,
+        pack_bucket=tc.pack_bucket, cache_dir=cache("train"),
+        batch_replay_dir=cache("train_batches") if tc.batch_replay else None,
+    )
+    # val order is fixed, so the val passes after the first stream the
+    # materialized collated batches (data/batch_cache.py)
+    val_loader = BatchLoader(
+        val_ds, tc.batch_size, shuffle=False, num_threads=tc.num_workers,
+        num_procs=tc.num_procs, tight=tc.n_pack > 1, cache_dir=cache("val"),
+        batch_cache_dir=cache("val_batches"),
+    )
+
+    state = create_train_state(
+        model, tc.lr, tc.warmup_steps, sparse_table=tc.sparse_table,
+        table_moments_dtype=torch.bfloat16 if tc.table_moments_bf16 else torch.float32)
+    if glove_table is not None:
+        graft_glove(model, glove_table)
+
+    # the dropout masks: one generator seeded from seed + 1, its state saved
+    # with each checkpoint (the TPU package folds the step into its key)
+    rng = torch.Generator(device).manual_seed(tc.seed + 1)
+    start_epoch = 0
+    ckpt_dir = f"{tc.output_dir}/checkpoints"
+    if tc.resume and latest_epoch(ckpt_dir) is not None:
+        state, start_epoch = restore_checkpoint(ckpt_dir, state, generator=rng)
+        logger.info("resumed from epoch %d", start_epoch)
+
+    train_step = make_train_step(
+        model, state.optimizer, model_cfg, with_milnce=tc.with_milnce,
+        sparse_table=tc.sparse_table)
+    eval_step = make_eval_step(model, model_cfg, with_milnce=tc.with_milnce)
+    # float32 features ship as bf16 when the model computes in bf16 (exact:
+    # the model's own cast rounds identically, data/transfer.py)
+    mover = BatchMover(device, bf16_features=model_cfg.compute_dtype == torch.bfloat16)
+    timer = StepTimer()
+
+    def device_batches(loader):
+        return (ship.ready() for _, ship in shipped(loader, mover))
+
+    # device-resident frozen batches (TrainerConfig.resident_gb): pinned the
+    # first epoch after the corresponding cache materializes
+    resident_budget = tc.resident_gb * 1e9
+    resident_train = resident_val = None
+
+    for epoch in range(start_epoch, tc.num_epochs):
+        train_loader.set_epoch(epoch)
+        if tc.batch_replay and resident_train is None and resident_budget > 0:
+            resident_train = _make_resident(train_loader, mover, resident_budget, logger)
+            if resident_train is not None:
+                resident_budget -= resident_train[1]
+        loss_meter, mil_meter = AverageMeter(), AverageMeter()
+
+        # metrics are read metric_lag steps late, when their copies to pinned
+        # memory have landed: reading the current step's would hold the host
+        # until the card finished everything queued. Log lines report the
+        # step they belong to.
+        metric_lag = 4
+        pending: deque = deque()
+
+        def drain(i, fetch):
+            loss, mil, n = (float(v) for v in fetch.result())
+            bsz = int(n)
+            if bsz:
+                loss_meter.update(loss, bsz)
+                mil_meter.update(mil, bsz)
+            sps = timer.tick()
+            if (i + 1) % tc.log_steps == 0:
+                logger.info(
+                    "Time %s, Epoch [%d/%d], Step [%d], Loss: %s, MIL NCE Loss: %s, "
+                    "Avg Loss: %s, Avg MILNCE_loss: %s, steps/s: %s",
+                    datetime.datetime.now(), epoch + 1, tc.num_epochs, i + 1,
+                    loss, mil, loss_meter.avg, mil_meter.avg, sps,
+                )
+                metrics_out.log("Avg Loss", loss_meter.avg, int(state.step))
+                metrics_out.log("Avg MILNCE_loss", mil_meter.avg, int(state.step))
+
+        if resident_train is not None:
+            batches = (resident_train[0][int(j)] for j in
+                       train_loader.replay_order(epoch, len(resident_train[0])))
+        else:
+            batches = device_batches(train_loader)
+        tracing = None
+        t0 = time.perf_counter()
+        n_steps = n_samples = 0
+        for i, batch in enumerate(batches):
+            if tc.profile_steps and epoch == start_epoch:
+                if i == tc.profile_start:
+                    tracing = start_trace()
+                elif tracing is not None and i == tc.profile_start + tc.profile_steps:
+                    stop_trace(tracing, f"{tc.output_dir}/profile")
+                    tracing = None
+            m = train_step(state, batch, rng)
+            pending.append((i, HostFetch(torch.stack(
+                [m["loss"].float(), m["mil_nce_loss"].float(), m["n"].float()]))))
+            if len(pending) > metric_lag:
+                drain(*pending.popleft())
+            n_steps += 1
+            n_samples += batch.sample_valid.shape[0]
+        while pending:
+            drain(*pending.popleft())
+        seconds = time.perf_counter() - t0
+        if tracing is not None:  # epoch shorter than the requested window
+            stop_trace(tracing, f"{tc.output_dir}/profile")
+        logger.info("Epoch [%d/%d] trained %d steps in %.3f s: %.3f steps/s, %.1f samples/s",
+                    epoch + 1, tc.num_epochs, n_steps, seconds, n_steps / max(seconds, 1e-9),
+                    n_samples / max(seconds, 1e-9))
+
+        # eval on val and train every eval_every epochs (`main:380-382`);
+        # the final epoch always evals
+        if (epoch + 1) % tc.eval_every and epoch + 1 != tc.num_epochs:
+            if (epoch + 1) % tc.checkpoint_every == 0:
+                save_checkpoint(ckpt_dir, state, epoch + 1, tc.max_checkpoints, rng)
+            continue
+        if resident_val is None and resident_budget > 0:
+            # materializes on the first (streamed) val pass, resident after
+            resident_val = _make_resident(val_loader, mover, resident_budget, logger)
+            if resident_val is not None:
+                resident_budget -= resident_val[1]
+        val_loss, val_corr, val_n = run_eval(
+            eval_step, state,
+            iter(resident_val[0]) if resident_val is not None else device_batches(val_loader),
+            logger, tc.log_steps_val, "val")
+        # train eval reuses the resident replay batches: the same content,
+        # and the order does not change the summed metrics
+        train_loss, tr_corr, tr_n = run_eval(
+            eval_step, state,
+            iter(resident_train[0]) if resident_train is not None
+            else device_batches(train_loader),
+            logger, tc.log_steps, "train")
+
+        val_acc = val_corr / max(val_n, 1)
+        train_acc = tr_corr / max(tr_n, 1)
+        logger.info(
+            "Time %s, Epoch [%d/%d], Val Loss: %s, accuracy: %s/%s = %s",
+            datetime.datetime.now(), epoch + 1, tc.num_epochs, val_loss,
+            val_corr, val_n, val_acc,
+        )
+        logger.info(
+            "Time %s, Epoch [%d/%d], Train Loss: %s, accuracy: %s/%s = %s",
+            datetime.datetime.now(), epoch + 1, tc.num_epochs, train_loss,
+            tr_corr, tr_n, train_acc,
+        )
+        metrics_out.log("Test Acc", val_acc, epoch + 1)
+        metrics_out.log("Train Acc", train_acc, epoch + 1)
+
+        if (epoch + 1) % tc.checkpoint_every == 0:
+            save_checkpoint(ckpt_dir, state, epoch + 1, tc.max_checkpoints, rng)
+
+    return state
+
+
+def _make_resident(loader: BatchLoader, mover: BatchMover, budget_bytes: float,
+                   logger) -> Optional[tuple]:
+    """Ship a loader's materialized frozen batches to the device once.
+
+    Returns ``(device batches, bytes)`` (index i = cache batch i), or None
+    when there is no valid cache yet or the batches exceed the budget.
+    Afterwards an epoch copies nothing to the device. The training step
+    writes into no batch, so resident batches serve every step and epoch.
+    """
+    cache = loader.replay_cache()
+    if cache is None or budget_bytes <= 0:
+        return None
+    total = 0
+    for i in range(len(cache)):
+        total += _device_bytes(cache.batch(i), mover.bf16_features)
+        if total > budget_bytes:
+            logger.info(
+                "resident batches over budget (%.1f GB > %.1f GB) at %d/%d; streaming",
+                total / 1e9, budget_bytes / 1e9, i + 1, len(cache),
+            )
+            return None
+    dev = [ship.ready() for _, ship in shipped(iter(cache), mover)]
+    logger.info("pinned %d frozen batches device-resident (%.2f GB)", len(dev), total / 1e9)
+    return dev, total
+
+
+def _device_bytes(batch, bf16_features: bool) -> int:
+    """Bytes of a collated batch once shipped: float32 features as bf16 when
+    the mover casts them, the other fields as collated."""
+    n = 0
+    for f in dataclasses.fields(batch):
+        v = getattr(batch, f.name)
+        if v is not None:
+            n += v.nbytes // (2 if bf16_features and f.name == "vis_fea" else 1)
+    return n
+
+
+@torch.no_grad()
+def graft_glove(model: torch.nn.Module, table: np.ndarray) -> None:
+    """Copy GloVe vectors into rows [0, n) of every GloVe table of ``model``
+    (``modules()`` yields the shared one once), the post-init counterpart of
+    ``AttModel_x3.py:38``."""
+    src = torch.from_numpy(np.asarray(table, np.float32))
+    for m in model.modules():
+        if isinstance(m, GloVeEmbed) and m.weight.shape[0] >= src.shape[0]:
+            m.weight[: src.shape[0]].copy_(src)

@@ -1,15 +1,20 @@
-"""The training CLI's flags (counterpart of the TPU package's
-``train/main.py``): ``build_parser`` accepts every flag of the TPU package's
-parser with the same defaults, including the Azure env-var defaults
-PT_DATA_DIR / PT_OUTPUT_DIR, and ``configs_from_args`` turns them into the
-port's configurations. The eval and predict CLIs build on both.
+"""The training CLI (counterpart of the TPU package's ``train/main.py``):
+``build_parser`` accepts every flag of the TPU package's parser with the
+same defaults, including the Azure env-var defaults PT_DATA_DIR /
+PT_OUTPUT_DIR, ``configs_from_args`` turns them into the port's
+configurations, and ``main`` trains (``train/loop.py:train``). The eval and
+predict CLIs build on the parser and the configurations.
+
+Usage:
+    python -m structured_alignment_vqa_tpu_torch.train.main \
+        --data_dir_azure /data/gqa --output_dir run ... --share_glove --bf16
 
 ``--platform cpu`` runs on the CPU; any other value, or none, runs on the
 CUDA card and fails without one. ``--bf16`` computes in torch.bfloat16.
 ``--use_pallas`` has no counterpart (the port launches its kernels on every
-CUDA tensor) and is logged as having no effect. Flags of what is not ported
-yet raise ``NotImplementedError`` naming their ROADMAP item. The training
-driver itself (``main``) is ROADMAP Queue 1 item 9.
+CUDA tensor); the eval and predict CLIs log it as having no effect. Flags
+of what is not ported yet raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -24,7 +29,8 @@ from structured_alignment_vqa_tpu_torch.data.dataset import DataConfig
 from structured_alignment_vqa_tpu_torch.data.vocab import load_answer_vocab
 from structured_alignment_vqa_tpu_torch.device import resolve_device
 from structured_alignment_vqa_tpu_torch.models.config import ModelConfig
-from structured_alignment_vqa_tpu_torch.train.loop import TrainerConfig
+from structured_alignment_vqa_tpu_torch.models.glove import build_glove_table
+from structured_alignment_vqa_tpu_torch.train.loop import TrainerConfig, train
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -133,13 +139,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="recompute each encoder block's activations in the "
                         "backward instead of saving them")
     p.add_argument("--sparse_table", action="store_true",
-                   help="sparse Adam for the shared GloVe table (not ported "
-                        "yet: ROADMAP Queue 1 item 14)")
+                   help="lazy sparse Adam for the shared GloVe table: only the "
+                        "rows a batch touches are read and updated (needs "
+                        "--share_glove; parallel/sparse_table.py)")
     p.add_argument("--table_moments_bf16", action="store_true",
-                   help="bfloat16 moments for the sparse table (item 14)")
+                   help="bfloat16 Adam moments for the sparse table")
     p.add_argument("--resident_gb", type=float, default=8.0,
-                   help="device-memory budget (GB) for frozen batches kept on "
-                        "the device (training driver, item 9)")
+                   help="device-memory budget (GB) for the frozen batches of "
+                        "--batch_replay and the val batch cache, shipped to the "
+                        "device once (0 streams them every epoch)")
     return p
 
 
@@ -148,9 +156,6 @@ def check_supported_flags(args) -> None:
     whose feature the port does not have yet."""
     unported = (
         (args.n_pack > 1, "--n_pack > 1 (sequence packing, ROADMAP Queue 1 item 10)"),
-        (args.sparse_table or args.table_moments_bf16,
-         "--sparse_table / --table_moments_bf16 (the sparse GloVe-table optimizer, "
-         "ROADMAP Queue 1 item 14)"),
         (args.mcb, "--mcb (the MCB head, ROADMAP Queue 1 item 12)"),
         ((args.coordinator and args.num_processes > 1) or args.model_parallel > 1,
          "--coordinator with --num_processes > 1, or --model_parallel > 1 (several "
@@ -253,12 +258,27 @@ def configs_from_args(args) -> tuple[ModelConfig, DataConfig, DataConfig, Traine
 
 
 def main(argv=None):
-    """The training driver: ROADMAP Queue 1 item 9, not ported yet."""
-    build_parser().parse_args(argv)
-    raise NotImplementedError(
-        "the training driver (train.loop.train, ROADMAP Queue 1 item 9) is not ported yet; "
-        "the eval and predict CLIs are: python -m "
-        "structured_alignment_vqa_tpu_torch.train.evaluate / .train.predict")
+    """Train from the flags; returns the final ``TrainState``. The GloVe
+    vectors come from ``--glove_path`` or else
+    ``<data_dir>/vector_cache/glove.6B.300d.{npy,txt}`` when present."""
+    args = build_parser().parse_args(argv)
+    if args.model_v != 3:
+        raise SystemExit(
+            "model_v != 3: the ablation models (the TPU package's models.variants) are "
+            "not ported yet (ROADMAP Queue 1 item 17); the training driver covers the "
+            "production v3 path (as does the reference's maintained loss branch).")
+    model_cfg, train_dc, val_dc, trainer_cfg = configs_from_args(args)
+    glove_path = args.glove_path
+    if glove_path is None:
+        for cand in ("glove.6B.300d.npy", "glove.6B.300d.txt"):
+            c = os.path.join(args.data_dir_azure, "vector_cache", cand)
+            if os.path.exists(c):
+                glove_path = c
+                break
+    glove_table = build_glove_table(glove_path=glove_path) if glove_path else None
+    device = device_from_args(args)
+    return train(model_cfg, train_dc, trainer_cfg, val_data_cfg=val_dc,
+                 glove_table=glove_table, device=device)
 
 
 if __name__ == "__main__":

@@ -11,7 +11,8 @@ Usage:
         --split val --q_tar_fn_val val.tar --out answers.jsonl
 
 Runs on the CUDA card (and fails without one) unless ``--platform cpu``.
-``--int8`` (weight-only int8 serving) is ROADMAP Queue 1 item 13.
+``--int8`` serves the checkpoint with int8 GloVe tables and heads
+(``ops/quant.py``), quantized once after loading.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from structured_alignment_vqa_tpu_torch.data.batch import VQABatch
 from structured_alignment_vqa_tpu_torch.data.dataset import BatchLoader, GQASuperNodeDataset
 from structured_alignment_vqa_tpu_torch.data.transfer import BatchMover, HostFetch, shipped
 from structured_alignment_vqa_tpu_torch.models import AttModelX3
+from structured_alignment_vqa_tpu_torch.ops.quant import quantize_state_dict
 from structured_alignment_vqa_tpu_torch.train.main import (
     build_parser,
     configs_from_args,
@@ -110,8 +112,9 @@ def main(argv=None):
     parser.add_argument("--split", type=str, default="val")
     parser.add_argument("--out", type=str, default="-", help="JSONL path or - for stdout")
     parser.add_argument("--int8", action="store_true",
-                        help="weight-only int8 serving (not ported yet: ROADMAP "
-                             "Queue 1 item 13)")
+                        help="weight-only int8 serving: quantize the GloVe "
+                             "table(s) and the classifier heads after the "
+                             "checkpoint loads (ops/quant.py)")
     parser.add_argument("--batch_cache_dir", type=str, default="",
                         help="materialized-collated-batch cache "
                              "(data/batch_cache.py): the first pass persists "
@@ -125,9 +128,6 @@ def main(argv=None):
                              "batches have drained (the answers themselves are "
                              "still written)")
     args = parser.parse_args(argv)
-    if args.int8:
-        raise NotImplementedError(
-            "--int8 (weight-only int8 serving, ROADMAP Queue 1 item 13) is not ported yet")
 
     model_cfg, train_dc, val_dc, trainer_cfg = configs_from_args(args)
     device = device_from_args(args)
@@ -146,6 +146,10 @@ def main(argv=None):
 
     model = AttModelX3(model_cfg, device=device)
     load_params_for_eval(args.weight_dir, model, args.weight_epoch)
+    if args.int8:
+        quantized = quantize_state_dict(model.state_dict())
+        model = AttModelX3(model_cfg.replace(int8_serving=True), device=device)
+        model.load_state_dict(quantized)
     predict = make_predict_step(model)
     mover = BatchMover(device, bf16_features=model_cfg.compute_dtype == torch.bfloat16)
 

@@ -12,6 +12,10 @@ file. It holds:
   other name to the one saved; loading ties them again;
 * ``optimizer``: the optimizer's ``state_dict`` (Adam's moments and step
   counts, the warmup schedule's entries);
+* ``table_opt`` (with the sparse table only): the table's Adam ``count``,
+  ``mu`` and ``nu``, the moments in their own dtype;
+* ``generator`` (when the trainer passes one): the dropout generator's
+  state, so a resumed run draws the masks an uninterrupted one would;
 * ``step`` and ``epoch``.
 
 Loading a reference ``.pth`` or an orbax directory written by the TPU
@@ -62,13 +66,21 @@ def _untied_params(model: torch.nn.Module) -> Tuple[Dict[str, torch.Tensor], Dic
 
 
 def save_checkpoint(ckpt_dir: str, state: TrainState, epoch: int,
-                    max_to_keep: Optional[int] = None) -> str:
-    """Save params, optimizer state, step and epoch as epoch ``epoch``; with
+                    max_to_keep: Optional[int] = None,
+                    generator: Optional[torch.Generator] = None) -> str:
+    """Save params, optimizer state (the sparse table's too), step and epoch
+    as epoch ``epoch``, and ``generator``'s state when given; with
     ``max_to_keep``, delete the oldest epochs beyond it. Returns the path."""
     os.makedirs(ckpt_dir, exist_ok=True)
     params, tied = _untied_params(state.model)
     payload = {"params": params, "tied": tied, "optimizer": state.optimizer.state_dict(),
                "step": int(state.step), "epoch": int(epoch)}
+    if state.table_opt is not None:
+        topt = state.table_opt
+        payload["table_opt"] = {"count": topt.count.cpu(), "mu": topt.mu.cpu(),
+                                "nu": topt.nu.cpu()}
+    if generator is not None:
+        payload["generator"] = generator.get_state()
     path = checkpoint_path(ckpt_dir, epoch)
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save(payload, tmp)
@@ -96,13 +108,28 @@ def _load_params(model: torch.nn.Module, payload: dict) -> None:
     model.load_state_dict(params)
 
 
-def restore_checkpoint(ckpt_dir: str, state: TrainState,
-                       epoch: Optional[int] = None) -> Tuple[TrainState, int]:
-    """Restore params, optimizer state and step into ``state`` (in place);
-    returns ``(state, epoch)``. ``epoch=None`` takes the latest."""
+def restore_checkpoint(ckpt_dir: str, state: TrainState, epoch: Optional[int] = None,
+                       generator: Optional[torch.Generator] = None
+                       ) -> Tuple[TrainState, int]:
+    """Restore params, optimizer state (the sparse table's too) and step
+    into ``state`` (in place), and ``generator``'s state when given and
+    saved; returns ``(state, epoch)``. ``epoch=None`` takes the latest."""
     payload, epoch = _load(ckpt_dir, epoch)
+    if (state.table_opt is None) != ("table_opt" not in payload):
+        raise ValueError(f"{checkpoint_path(ckpt_dir, epoch)} and the state disagree on "
+                         "the sparse table (--sparse_table)")
     _load_params(state.model, payload)
     state.optimizer.load_state_dict(payload["optimizer"])
+    if state.table_opt is not None:
+        for name, saved in payload["table_opt"].items():
+            mine = getattr(state.table_opt, name)
+            if saved.dtype != mine.dtype or saved.shape != mine.shape:
+                raise ValueError(f"the saved table moments are {saved.dtype} "
+                                 f"{tuple(saved.shape)}, the state's {mine.dtype} "
+                                 f"{tuple(mine.shape)} (--table_moments_bf16?)")
+            mine.copy_(saved)
+    if generator is not None and "generator" in payload:
+        generator.set_state(payload["generator"])
     state.step = int(payload["step"])
     return state, int(epoch)
 

@@ -13,8 +13,9 @@ perturbed with numpy noise (off the LayerNorm knife edge); the TPU package's
 * the per-batch ensemble log-softmaxes agree within 1e-4;
 * the two eval CLIs give losses within 1e-4 and equal accuracies;
 * the port's checkpoint round-trips; every flag of the TPU package's parser
-  parses in the port's; unported flags raise naming their ROADMAP item; and
-  without ``--platform cpu`` and without a card the CLIs raise.
+  parses in the port's; unported flags raise naming their ROADMAP item; the
+  sparse table's training flags change nothing here; and without
+  ``--platform cpu`` and without a card the CLIs raise.
 """
 
 import json
@@ -257,8 +258,6 @@ def test_every_jax_flag_parses_with_the_same_default_and_value():
 
 UNPORTED = [
     (["--n_pack", "2"], "item 10"),
-    (["--sparse_table"], "item 14"),
-    (["--table_moments_bf16"], "item 14"),
     (["--mcb"], "item 12"),
     (["--coordinator", "localhost:1234", "--num_processes", "2"], "item 15"),
     (["--model_parallel", "2"], "item 15"),
@@ -273,11 +272,21 @@ def test_unported_flags_raise_naming_their_item(world, cli, flags, item):
         main(world["args"] + ["--weight_dir", world["port_ckpt"]] + flags)
 
 
-def test_int8_and_the_training_driver_raise_naming_their_item(world):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        predict.main(world["args"] + ["--weight_dir", world["port_ckpt"], "--int8"])
-    with pytest.raises(NotImplementedError, match="item 9"):
-        port_main.main(world["args"])
+@pytest.mark.parametrize("cli", ["predict", "evaluate"])
+@pytest.mark.parametrize("flags", [["--sparse_table"], ["--table_moments_bf16"]],
+                         ids=["sparse_table", "table_moments_bf16"])
+def test_training_only_flags_change_nothing_in_the_eval_clis(world, cli, flags):
+    """The sparse table's flags configure training; the predict and eval
+    CLIs accept them and give the answers and loss they give without."""
+    args = world["args"] + ["--weight_dir", world["port_ckpt"], "--split", "train"]
+    if cli == "predict":
+        outs = [str(world["tmp"] / f"{name}.jsonl") for name in ("without", "with")]
+        predict.main(args + ["--out", outs[0]])
+        predict.main(args + flags + ["--out", outs[1]])
+        want, got = (read_jsonl(o) for o in outs)
+        assert got == want and len(got) > 0
+    else:
+        assert evaluate.main(args + flags) == evaluate.main(args)
 
 
 @pytest.mark.parametrize("cli", ["predict", "evaluate"])

@@ -199,7 +199,7 @@ def test_batch_fields_match_jax_batch_and_move_with_to():
 
 
 @pytest.mark.parametrize("cfg_kw", [
-    dict(int8_serving=True), dict(use_mcb=True), dict(seq_axis="seq"),
+    dict(use_mcb=True), dict(seq_axis="seq"),
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_settings_raise(cfg_kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -278,13 +278,6 @@ def test_poisoned_batch_is_skipped_and_changes_nothing():
     assert step(state, batch)["skipped"].item() == 0.0   # the next finite batch applies
 
 
-def test_sparse_table_is_not_ported_yet():
-    _, _, _, model, _ = build_pair(TINY, True, False)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        make_train_step(model, adam(model.parameters()), ModelConfig(share_glove=True, **TINY),
-                        sparse_table=True)
-
-
 def test_eval_step_sums_match_jax():
     jmodel, jparams, _, model, _ = build_pair(TINY, False, False)
     arrays = _batches(ModelConfig(**TINY), 1, size=5)[0]
