@@ -112,10 +112,34 @@ Phases, each of which must pass:
     steps (``--profile_steps``), float against int8 serving (pairs/s, model
     bytes), and a dense against a sparse step at the training phase's
     shapes (device-time breakdown, named parts of "other", memory; f32 and
-    bf16 moments).
+    bf16 moments);
+14. packing and the MCB head (``packed``), on a new fixture tree like the
+    cli phase's: (a) the training CLI as in 13 with ``--n_pack 4
+    --pack_bucket 1`` (packed rows of bucket (lv, ls, lq) = (100, 216, 40):
+    self-attention at L 140 and 256, the decoders' cross-attention at 4
+    queries), one epoch whose launches must be 24 K1 + 24 K2 + 24 K3 a step
+    and 24 K1 + 24 K3 an eval batch (val through the tight collate), whose
+    logged losses must equal an in-process loop's (1e-3 relative), whose
+    K1, K2 and K3 calls are held against their plain versions at every
+    shape; the predict CLI on its checkpoint (answers spread); as
+    information samples per row, the packed epoch's rates beside the
+    unpacked train_cli epoch's, device busy of a packed and an unpacked
+    step, the idle share of 5 in-process packed steps, and K1, K2 and K3
+    timed at each packed shape beside their plain versions and bounds;
+    (b) isolation: 126 rows of val samples packed first-fit, a row of
+    padding only and a row holding one sample whose region features are
+    all zero: in f32 each packed slot's logits equal its sample alone
+    through the tight collate within 1e-4 and the answers are equal; in
+    bf16 within 2^-4 of the largest logit, the plain path's error printed
+    beside; (c) the obj-only model with the MCB head (mcb_out 16,000)
+    serving five bs-128 requests (24 K1 + 24 K3 a forward, the FFT's device
+    time as information), f32 kernels against plain versions, one unpacked
+    and one packed bf16 training step (finite, ``cls_mcb`` moved, the
+    sketches bitwise unchanged), and the predict CLI ``--mcb`` on a saved
+    checkpoint against the in-process predict step.
 
 ``--phases a,b`` (of card, k1, k3, k2, serving, training, k4, k56,
-objrel_serving, objrel_training, cli, train_cli) runs only those, for work on one kernel,
+objrel_serving, objrel_training, cli, train_cli, packed) runs only those, for work on one kernel,
 and then prints no last line. It prints one JSON line of kernels, the card's line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero without
 that last line; so does a machine without a CUDA device.
@@ -1307,10 +1331,11 @@ def spread_answers_(model, batch) -> None:
 
 
 @contextlib.contextmanager
-def recorded_kernel_inputs(seen: dict):
+def recorded_kernel_inputs(seen: dict, counts: "dict | None" = None):
     """Pass every launch of K1, K2 and K3 on to the kernel, keeping a copy of
     the first arguments at each distinct shape (and renorm) in ``seen``,
-    keyed by kernel and shapes."""
+    keyed by kernel and shapes, and the number of launches at each in
+    ``counts`` when given."""
     from structured_alignment_vqa_tpu_torch.ops import fused_ffn as k3
     from structured_alignment_vqa_tpu_torch.ops import fused_graph_attention as k1
 
@@ -1319,6 +1344,8 @@ def recorded_kernel_inputs(seen: dict):
             sig = tuple(tuple(a.shape) if torch.is_tensor(a) else a for a in args)
             if (key, sig) not in seen:
                 seen[key, sig] = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+            if counts is not None:
+                counts[key, sig] = counts.get((key, sig), 0) + 1
             return launch(*args)
         return call
 
@@ -1781,6 +1808,7 @@ def train_cli_phase(card: str) -> dict:
         logged = logged_step_losses(out)
         for line in log_lines(out, "trained") + log_lines(out, "accuracy"):
             print(f"train_cli: epoch 1: {line}", flush=True)
+        EPOCH_LINES["train_cli"] = log_lines(out, "trained")[-1]
         n_val = len(BatchLoader(GQASuperNodeDataset("val", val_dc), B, shuffle=False,
                                 batch_cache_dir=f"{cache}/val_batches").replay_cache())
         forwards = 2 * n_steps + n_val     # the steps, then eval on train and on val
@@ -1914,8 +1942,388 @@ def train_cli_phase(card: str) -> dict:
     return launches
 
 
+# the packed phase: the training CLI with --n_pack 4 into bucket 1 of the
+# default buckets at maxlen 450, (lv, ls, lq) = (100, 216, 40): the visual
+# encoder at L 140, the symbolic one at L 256, the decoders at 4 queries
+PACK_FLAGS = ["--n_pack", "4", "--pack_bucket", "1"]
+PACK_SHAPE = (100, 216, 40)
+N_PACK = 4
+# a packed slot against its sample collated alone, f32 with the kernels on
+# both sides: the same model, only the softmax normalizer (the other
+# segments' keys, weighed 0 after the graph multiply) and the kernels' tile
+# order differ
+ISOLATION_TOL_F32 = 1e-4
+# the same in bf16, relative to the largest |logit|: one bf16 rounding of
+# the attention probabilities can land the other way (2^-8) and 6 blocks of
+# two encoders carry it on; a key of another segment leaking in moves a
+# logit by O(1)
+ISOLATION_RTOL_BF16 = 2 ** -4
+# the training CLI's epoch lines, by phase, to set the packed epoch beside
+# the unpacked one
+EPOCH_LINES: dict = {}
+
+
+def packed_rows(samples, n_rows: int):
+    """First-fit (the loader's rule) of ``samples`` into at most ``n_rows``
+    rows of PACK_SHAPE with N_PACK slots; returns the groups."""
+    from structured_alignment_vqa_tpu_torch.data.dataset import BatchShape
+    from structured_alignment_vqa_tpu_torch.data.packing import PackedRow
+
+    shape = BatchShape(*PACK_SHAPE)
+    rows = []
+    for s in samples:
+        if s is None or not shape.fits(s):
+            continue
+        row = next((r for r in rows if r.fits(s)), None)
+        if row is None:
+            if len(rows) == n_rows:
+                break
+            row = PackedRow(shape, N_PACK)
+            rows.append(row)
+        row.add(s)
+    return [r.samples for r in rows]
+
+
+def slot_logits(model, groups, topn: int, bf16_features: bool):
+    """The model's three logits on ``groups`` packed into rows of PACK_SHAPE
+    (B, N_PACK, C), and on each of their samples alone through the tight
+    collate at the same shape (n, C), in group order."""
+    from structured_alignment_vqa_tpu_torch.data.dataset import BatchShape
+    from structured_alignment_vqa_tpu_torch.data.packing import collate_packed
+    from structured_alignment_vqa_tpu_torch.data.transfer import host_tensors
+
+    shape = BatchShape(*PACK_SHAPE)
+
+    def run(gs, n_pack):
+        batch = host_tensors(collate_packed(gs, shape, topn, n_pack), bf16_features).to("cuda")
+        with torch.inference_mode():
+            return [t.float() for t in model.eval()(batch)[:3]]
+
+    packed = run(groups, N_PACK)
+    alone = [s for g in groups for s in (g or [])]
+    tight = [run([[s] for s in alone[i:i + B]], 1) for i in range(0, len(alone), B)]
+    tight = [torch.cat([t[h][:, 0] for t in tight]) for h in range(3)]
+    valid = torch.tensor([[k < len(g or []) for k in range(N_PACK)] for g in groups],
+                         device="cuda")
+    return [p[valid] for p in packed], tight
+
+
+def isolation_err(packed, tight, relative: bool) -> tuple:
+    """(max |packed slot - its sample alone| over the three heads, divided
+    by the largest |logit| when ``relative``; the share of equal answers)."""
+    err = max((p - t).abs().max().item() / (t.abs().max().item() if relative else 1.0)
+              for p, t in zip(packed, tight))
+
+    def answers(logits):
+        return torch.stack([torch.log_softmax(x, -1) for x in logits]).sum(0).argmax(-1)
+
+    return err, (answers(packed) == answers(tight)).float().mean().item()
+
+
+def packed_kernel_times(seen: dict, counts: dict, what: str) -> None:
+    """K1, K2 and K3 at each bf16 shape the packed CLI gave them, on the
+    model's own inputs: kernel and plain time, bound, and the launches at
+    that shape in ``what``. Information only."""
+    from structured_alignment_vqa_tpu_torch.ops import fused_ffn as k3
+    from structured_alignment_vqa_tpu_torch.ops import fused_graph_attention as k1
+
+    for (key, sig), args in sorted(seen.items(), key=lambda kv: str(kv[0])):
+        x = args[0]
+        if x.dtype != torch.bfloat16:
+            continue
+        n = counts[key, sig]
+        if key == "K3":
+            rows = x.numel() // x.shape[-1]
+            ms = time_ms(lambda: k3.fused_ffn(*args))
+            plain_ms = time_ms(lambda: k3.ffn_ln_plain(*args))
+            nbytes = 2 * (2 * rows * C + 2 * C * HIDDEN + HIDDEN + C) + 8 * C
+            bnd = bound(nbytes, 4.0 * rows * C * HIDDEN, x.dtype)
+            label = f"rows={rows}"
+        else:
+            b, tq, tk = x.shape[0], x.shape[1], args[1].shape[1]
+            if key == "K1":
+                ms = time_ms(lambda: k1.fused_graph_attention_ln(*args))
+                plain_ms = time_ms(lambda: k1.graph_attention_ln_plain(*args))
+                nbytes = 2 * b * C * (3 * tq + 2 * tk) + 4 * b * (tq + tk + tq * tk) + 8 * C
+                bnd = bound(nbytes, 4.0 * b * tq * tk * C, x.dtype)
+            else:
+                ms = time_ms(lambda: k1.fused_graph_attention_ln_bwd(*args))
+                plain_ms = time_ms(lambda: k1.graph_attention_ln_bwd_plain(*args))
+                nbytes = 2 * b * C * (5 * tq + 4 * tk) + 4 * b * (tq + tk + tq * tk) + 12 * C
+                bnd = bound(nbytes, 12.0 * b * tq * tk * C, x.dtype)
+            label = f"{'self' if tq == tk else 'cross'} B={b} Tq={tq} Tk={tk}"
+        print(f"packed: {key} {label} bf16: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bnd[0] * 1e3:.2f} us ({bnd[1]}), {n} launches in {what} on the card "
+              "(information only)", flush=True)
+
+
+def packed_phase(card: str) -> dict:
+    """Packed training through the training CLI at full obj-only width, tight
+    eval and the predict CLI on its checkpoint; isolation of packed samples
+    on the card; the MCB head serving, training and through the predict
+    CLI."""
+    import os
+    import tempfile
+
+    from structured_alignment_vqa_tpu_torch.data.dataset import (
+        BatchLoader,
+        BatchShape,
+        GQASuperNodeDataset,
+    )
+    from structured_alignment_vqa_tpu_torch.data.fixtures import write_fixture
+    from structured_alignment_vqa_tpu_torch.data.packing import collate_packed
+    from structured_alignment_vqa_tpu_torch.data.transfer import host_tensors
+    from structured_alignment_vqa_tpu_torch.models import AttModelX3
+    from structured_alignment_vqa_tpu_torch.parallel import (
+        TrainState,
+        adam,
+        create_train_state,
+        make_train_step,
+    )
+    from structured_alignment_vqa_tpu_torch.train import main as train_main
+    from structured_alignment_vqa_tpu_torch.train import predict as predict_cli
+    from structured_alignment_vqa_tpu_torch.train.loop import new_model
+    from structured_alignment_vqa_tpu_torch.train.predict import make_predict_step
+    from structured_alignment_vqa_tpu_torch.utils.checkpoint import (
+        load_params_for_eval,
+        save_checkpoint,
+    )
+    from structured_alignment_vqa_tpu_torch.utils.profiling import start_trace, stop_trace
+
+    def predict_cli_check(what, argv, weights, model, val, extra=()):
+        """The predict CLI on ``weights`` against the in-process predict step
+        of ``model`` on the same val batches."""
+        predict = make_predict_step(model)
+        ref = [int(a) for b in val for a, ok in zip(predict(b).cpu(), b.sample_valid.cpu())
+               if ok]
+        answers = os.path.join(tmp, f"answers_{what}.jsonl")
+        reset_launch_counts()
+        n_out = predict_cli.main(argv + ["--weight_dir", weights, "--split", "val", "--out",
+                                         answers, "--output_dir", os.path.join(tmp, what)]
+                                 + list(extra))
+        counts = launch_counts()
+        with open(answers) as f:
+            got = [json.loads(line)["answer_id"] for line in f]
+        check(n_out == len(got) == len(ref) > 0 and got == ref
+              and counts["K1"] == counts["K3"] == K1_PER_FORWARD * len(val),
+              f"packed: predict CLI ({what}): {len(got)} answers equal the in-process predict "
+              f"step's ({len(set(got))} distinct), {counts['K1']} K1 and {counts['K3']} K3 "
+              f"launches over {len(val)} batches")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data, out, cache = (os.path.join(tmp, d) for d in ("data", "out", "cache"))
+        write_fixture(data, **CLI_FIXTURE)
+        argv = (["--data_dir_azure", data, "--output_dir", out, "--cache_dir", cache]
+                + TRAIN_CLI_FLAGS + PACK_FLAGS)
+        cfg, train_dc, val_dc, tc = train_main.configs_from_args(
+            train_main.build_parser().parse_args(argv))
+        cfg = cfg.replace(topn=train_dc.topn, only_obj=train_dc.only_obj)
+
+        # (a) one packed epoch of the training CLI, every K1, K2, K3 launch
+        # counted and its inputs kept
+        seen, counts = {}, {}
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with recorded_kernel_inputs(seen, counts):
+            state = train_main.main(argv + ["--num_epochs", "1"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+        n_steps = state.step
+        logged = logged_step_losses(out)
+        n_val = len(BatchLoader(GQASuperNodeDataset("val", val_dc), B, shuffle=False,
+                                tight=True, batch_cache_dir=f"{cache}/val_batches"
+                                ).replay_cache())
+        forwards = 2 * n_steps + n_val     # the steps, then eval on train and on val
+        want = {"K1": K1_PER_FORWARD * forwards, "K2": K2_PER_STEP * n_steps,
+                "K3": K3_PER_FORWARD * forwards, "K4": 0, "K5": 0, "K6": 0}
+        check(launches == want and len(logged) == n_steps > 0
+              and int(state.table_opt.count) == n_steps,
+              f"packed: epoch 1 took {n_steps} packed sparse steps and eval over {n_steps} "
+              f"packed train and {n_val} tight val batches: launches {launches} == {want} (24 "
+              "K1, 24 K2 and 24 K3 a step, 24 K1 and 24 K3 an eval batch)")
+        shapes = sorted({(k, sig[0], sig[1]) for k, sig in seen if k == "K1"})
+        check({s[1][1:] for s in shapes} >= {(140, C), (256, C), (N_PACK, C)},
+              f"packed: K1 ran at {[(s[1], s[2]) for s in shapes]}: self-attention at L 140 "
+              f"and 256, the decoders' cross-attention at Tq {N_PACK}")
+        for line in log_lines(out, "trained") + log_lines(out, "accuracy"):
+            print(f"packed: epoch 1: {line}", flush=True)
+        print(f"packed: epoch 1 (cold loader, {n_steps} steps, eval, checkpoint) in "
+              f"{seconds:.1f} s on {card}", flush=True)
+        cli_kernels_against_plain(seen, "packed")
+        del state
+        torch.cuda.empty_cache()
+
+        # the same step in-process over the same batches, from the weights
+        # and the generator the CLI starts from
+        model = new_model(cfg, tc.seed, "cuda")
+        hand = create_train_state(model, tc.lr, tc.warmup_steps, sparse_table=True)
+        step = make_train_step(model, hand.optimizer, cfg, with_milnce=tc.with_milnce,
+                               sparse_table=True)
+        gen = torch.Generator(device="cuda").manual_seed(tc.seed + 1)
+        loader = BatchLoader(GQASuperNodeDataset("train", train_dc), B, shuffle=True,
+                             seed=tc.seed, n_pack=N_PACK, pack_bucket=tc.pack_bucket,
+                             cache_dir=f"{cache}/train")
+        host = list(loader)
+        batches = [host_tensors(b, True).to("cuda") for b in host]
+        mine = [step(hand, batch, gen)["loss"].item() for batch in batches]
+        diffs = [abs(a - c) / abs(c) for (_, _, a), c in zip(logged, mine)]
+        check(len(mine) == len(logged) and max(diffs) <= TRAIN_CLI_LOSS_RTOL,
+              f"packed: the {len(logged)} logged losses equal an in-process loop's within "
+              f"{max(diffs):.3g} <= {TRAIN_CLI_LOSS_RTOL:g} relative (bitwise: "
+              f"{sum(d == 0 for d in diffs)} of {len(diffs)})")
+        valid = sum(int(b.sample_valid.sum()) for b in host)
+        rows = sum(b.sample_valid.shape[0] for b in host)
+        print(f"packed: {valid} samples in {rows} rows, {valid / rows:.3f} samples a row "
+              f"(bucket {PACK_SHAPE}, up to {N_PACK}); the packed epoch: "
+              f"{log_lines(out, 'trained')[-1]}; the unpacked train_cli epoch: "
+              f"{EPOCH_LINES.get('train_cli', 'not run in this call')} on {card} "
+              "(information only)", flush=True)
+        # device busy of one packed step against one unpacked step at the
+        # training phase's bucket (36, 30, 98), then the idle share of 5
+        # in-process packed steps (the batches already on the card)
+        busy = {}
+        for what, batch, n in (("packed", batches[0], int(host[0].sample_valid.sum())),
+                               ("unpacked (36, 30, 98)", full_batches(cfg, 1)[0], B)):
+            by_name = profile_device(lambda: step(hand, batch, gen),
+                                     f"one {what} bs-{B} sparse training step")
+            busy[what] = sum(us for _, us in by_name.values()) / 1e3
+            if busy[what] > 0:
+                print(f"packed: {what} step: device busy {busy[what]:.3f} ms for {n} samples, "
+                      f"{n / busy[what]:.3f} samples per device-ms on {card} "
+                      "(information only)", flush=True)
+        torch.cuda.synchronize()
+        tracing = start_trace()
+        for batch in batches[:PROFILE_STEPS]:
+            step(hand, batch, gen)
+        torch.cuda.synchronize()
+        trace = stop_trace(tracing, os.path.join(tmp, "profile"))
+        busy_ms, window, idle = trace_idle_share(trace)
+        print(f"packed: {PROFILE_STEPS} in-process packed steps: window {window:.3f} ms, device "
+              f"busy {busy_ms:.3f} ms, idle share {idle:.3f} on {card} (information only)",
+              flush=True)
+        packed_kernel_times(seen, counts, f"the epoch ({n_steps} steps, {forwards} forwards)")
+        del model, hand, step, batches, seen
+        torch.cuda.empty_cache()
+
+        # tight eval already ran in the epoch; the predict CLI on the packed
+        # run's checkpoint, its answers spread over the classes
+        val = [host_tensors(b).to("cuda") for b in BatchLoader(
+            GQASuperNodeDataset("val", val_dc), B, shuffle=False, drop_last=False)]
+        model = AttModelX3(cfg)
+        load_params_for_eval(f"{out}/checkpoints", model)
+        spread_answers_(model, val[0])
+        save_checkpoint(f"{tmp}/spread", TrainState(model, adam(model.parameters())), 1)
+        predict_cli_check("packed-trained, spread", argv, f"{tmp}/spread", model, val)
+        del model
+        torch.cuda.empty_cache()
+
+        # (b) isolation on the card: B rows of val samples packed first-fit,
+        # then a row of padding only and a row holding one sample whose
+        # region features are all zero (its visual keys all masked) and
+        # three empty slots
+        ds = GQASuperNodeDataset("val", val_dc)
+        samples = [ds.sample(i) for i in range(len(ds))]
+        groups = packed_rows(samples, B - 2)
+        blank = next(s for s in samples if s is not None)
+        blank = dataclasses.replace(blank, vis_fea=np.zeros_like(blank.vis_fea))
+        groups += [None, [blank]]
+        n_slots = sum(len(g or []) for g in groups)
+        model = random_model(cfg.replace(compute_dtype=torch.float32))
+        err, same = isolation_err(*slot_logits(model, groups, cfg.topn, False), relative=False)
+        check(err <= ISOLATION_TOL_F32 and same == 1.0,
+              f"packed: isolation f32 with the kernels, {n_slots} samples in {len(groups)} rows "
+              f"of {PACK_SHAPE}: max|packed slot - the sample alone (tight)| {err:.3g} <= "
+              f"{ISOLATION_TOL_F32:g}, answers equal for {same:.4f}")
+        model16 = random_model(cfg)
+        model16.load_state_dict(model.state_dict())
+        errs = {}
+        for what in ("kernels", "plain"):
+            with plain_path() if what == "plain" else contextlib.nullcontext():
+                errs[what] = isolation_err(*slot_logits(model16, groups, cfg.topn, True),
+                                           relative=True)
+        check(errs["kernels"][0] <= ISOLATION_RTOL_BF16,
+              f"packed: isolation bf16, kernels: max|packed slot - alone| / max|logit| "
+              f"{errs['kernels'][0]:.3g} <= {ISOLATION_RTOL_BF16:g} (answers equal for "
+              f"{errs['kernels'][1]:.4f}); the plain path: {errs['plain'][0]:.3g} (answers "
+              f"{errs['plain'][1]:.4f})")
+        packed16 = host_tensors(collate_packed(groups, BatchShape(*PACK_SHAPE), cfg.topn,
+                                               N_PACK), True).to("cuda")
+        del model, model16
+        torch.cuda.empty_cache()
+
+        # (c) the MCB head at full width
+        mcfg = full_config(use_mcb=True)
+        model = random_model(mcfg)
+        requests = full_batches(mcfg, REQUESTS)
+        predict = make_predict_step(model)
+        predict(requests[0])
+        reset_launch_counts()
+        answers = [predict(b) for b in requests]
+        torch.cuda.synchronize()
+        mcb_launches = launch_counts()
+        check(all(a.shape == (B,) and 0 <= int(a.min()) and int(a.max()) < mcfg.num_classes
+                  for a in answers)
+              and mcb_launches["K1"] == mcb_launches["K3"] == K1_PER_FORWARD * REQUESTS,
+              f"packed: MCB serving bf16: {REQUESTS} x {B} answers in range, launches "
+              f"{mcb_launches} ({K1_PER_FORWARD} K1 and {K3_PER_FORWARD} K3 a forward)")
+        by_name = profile_device(lambda: predict(requests[0]), f"one MCB bs-{B} request")
+        fft_us = sum(us for k, (_, us) in by_name.items() if "fft" in k.lower())
+        print(f"packed: MCB request: FFT kernels {fft_us / 1e3:.3f} ms of "
+              f"{sum(us for _, us in by_name.values()) / 1e3:.3f} ms device busy on {card} "
+              "(information only)", flush=True)
+        model32 = random_model(mcfg.replace(compute_dtype=torch.float32))
+        model32.load_state_dict(model.state_dict())
+        predict32 = make_predict_step(model32)
+        with torch.inference_mode():
+            kernel = [t.float() for t in model32.eval()(requests[0])[:3]]
+            kernel_answers = predict32(requests[0])
+            with plain_path():
+                plain = [t.float() for t in model32(requests[0])[:3]]
+                plain_answers = predict32(requests[0])
+        diff = max((a - b).abs().max().item() for a, b in zip(kernel, plain))
+        check(diff <= LOGIT_TOL_F32 and bool(torch.equal(kernel_answers, plain_answers)),
+              f"packed: MCB f32: max|logits kernel - plain| {diff:.3g} <= {LOGIT_TOL_F32:g}, "
+              "answers identical")
+        del model32
+        sketches = [model.mcb.sketch1.clone(), model.mcb.sketch2.clone()]
+        head = model.cls_mcb[0].weight.detach().clone()
+        opt = adam(model.parameters(), lr=1e-4)
+        mstep = make_train_step(model, opt, mcfg)
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        for what, batch in (("unpacked", requests[0]), ("packed", None)):
+            if batch is None:   # the isolation rows, with this model's classes
+                batch = dataclasses.replace(packed16, answer=packed16.answer % mcfg.num_classes)
+            reset_launch_counts()
+            m = mstep(TrainState(model, opt), batch, gen)
+            torch.cuda.synchronize()
+            counts_step = launch_counts()
+            check(np.isfinite(m["loss"].item()) and m["skipped"].item() == 0
+                  and counts_step["K2"] == K2_PER_STEP
+                  and not torch.equal(model.cls_mcb[0].weight, head)
+                  and torch.equal(model.mcb.sketch1, sketches[0])
+                  and torch.equal(model.mcb.sketch2, sketches[1]),
+                  f"packed: one {what} MCB bf16 training step: loss {m['loss'].item():.5f} "
+                  f"finite, not skipped, {counts_step['K2']} K2 launches, cls_mcb moved, "
+                  "the sketches bitwise unchanged")
+        del model, opt, mstep, requests
+        torch.cuda.empty_cache()
+
+        # the predict CLI --mcb on a saved checkpoint of the CLI's own
+        # configuration (the fixture's classes), answers spread
+        margv = argv + ["--mcb"]
+        ccfg, _, _, _ = train_main.configs_from_args(train_main.build_parser().parse_args(margv))
+        model = random_model(ccfg.replace(topn=train_dc.topn))
+        spread_answers_(model, val[0])
+        save_checkpoint(f"{tmp}/mcb", TrainState(model, adam(model.parameters())), 1)
+        predict_cli_check("mcb", margv, f"{tmp}/mcb", model, val)
+        del model, val
+        torch.cuda.empty_cache()
+    return launches
+
+
 PHASES = ("k1", "k3", "k2", "serving", "training", "k4", "k56", "objrel_serving",
-          "objrel_training", "cli", "train_cli")
+          "objrel_training", "cli", "train_cli", "packed")
 PORT = "structured_alignment_vqa_tpu_torch/csrc/"
 TPU = "structured_alignment_vqa_tpu/ops/"
 BF16 = str(torch.bfloat16)
@@ -1996,7 +2404,7 @@ def main(argv: list) -> int:
                      "k56": k56_phase}
     path_phases = {"serving": serving_phase, "training": training_phase,
                    "objrel_serving": rel_serving_phase, "objrel_training": rel_training_phase,
-                   "cli": cli_phase, "train_cli": train_cli_phase}
+                   "cli": cli_phase, "train_cli": train_cli_phase, "packed": packed_phase}
     rows, by_path = {}, {}
     for phase in phases:
         t0 = time.perf_counter()

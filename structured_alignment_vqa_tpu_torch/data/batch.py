@@ -12,7 +12,9 @@ torch tensors in the dtypes collate gives, so these arrive:
   result is the same and half the bytes travel);
 * masks and graphs (``vis_mask``, ``q_mask``, ``q_graph``, ``macro_mask``,
   ``macro_graph``, ``micro_obj_mask``): int8, 0/1;
-* ids, locations, ``answer`` and ``sample_valid``: int32.
+* ids, locations, ``answer`` and ``sample_valid``: int32;
+* on a packed batch (``data/packing.py``), the segment ids and positions:
+  int32, and ``answer`` and ``sample_valid`` are (B, n_pack).
 
 The model widens on the device only where an op needs it: masks to float32
 where the stage graphs are built, ``answer`` to int64 for ``one_hot``.
@@ -49,7 +51,8 @@ class VQABatch:
     answer: torch.Tensor         # (B,) or (B, K) int — 0 = out-of-vocab answer
     sample_valid: torch.Tensor   # 0/1
 
-    # sequence packing (None on unpacked batches; not ported yet)
+    # sequence packing (data/packing.py; None on unpacked batches): per-token
+    # segment ids (-1 on padding) and per-segment positions
     vis_seg: Optional[torch.Tensor] = None
     macro_seg: Optional[torch.Tensor] = None
     q_seg: Optional[torch.Tensor] = None

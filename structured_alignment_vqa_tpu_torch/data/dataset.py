@@ -18,7 +18,8 @@ Host-pipeline redesign of the reference loader family:
   ``DistributedSampler`` (`main_itp_ddp_tar_super_node.py:222-225`).
 
 Batches hold numpy arrays; ``data/transfer.py`` moves them to the device.
-Sequence packing (``n_pack > 1``, ``tight=True``) is not ported yet.
+With ``n_pack > 1`` (or ``tight=True``) the loader packs samples into rows
+through ``data/packing.py``.
 """
 
 from __future__ import annotations
@@ -417,11 +418,6 @@ def _worker_sample(idx: int):
     return _WORKER_DS.sample(idx)
 
 
-def _packing_not_ported() -> NotImplementedError:
-    return NotImplementedError(
-        "sequence packing (n_pack > 1, tight=True; ROADMAP Queue 1 item 10) is not ported yet")
-
-
 class BatchLoader:
     """Thread-pool prefetching batch iterator with shape bucketing.
 
@@ -451,8 +447,6 @@ class BatchLoader:
         batch_cache_dir: Optional[str] = None,
         batch_replay_dir: Optional[str] = None,
     ):
-        if n_pack > 1 or tight:
-            raise _packing_not_ported()
         self.ds = dataset
         self.batch_size = batch_size
         self.buckets = sorted(buckets or default_buckets(dataset.cfg))
@@ -467,10 +461,28 @@ class BatchLoader:
         self.num_procs = num_procs
         self.drop_last = drop_last
         self.prefetch = prefetch
-        # kept in the batch-cache fingerprint, as in the TPU package
+        # >1: sequence packing, up to n_pack samples a row (first-fit online
+        # into open rows; data/packing.py), only_obj only. Packed samples go
+        # to ``buckets[pack_bucket]`` (default: the largest bucket) instead
+        # of the smallest bucket that fits: at the production length mix the
+        # smallest bucket's rows hold one sample each, so smallest-fit
+        # routing would leave nothing to pack. A sample too big for the pack
+        # bucket falls back to smallest-fit (its rows pack whatever still
+        # fits).
         self.n_pack = n_pack
-        self.pack_bucket = pack_bucket
-        self.tight = tight
+        self.pack_bucket = (
+            self.buckets[-1 if pack_bucket is None else pack_bucket]
+            if n_pack > 1 else None
+        )
+        # tight=True with n_pack=1: one sample a row, but through the packed
+        # collate, i.e. tight-bucket semantics (positions restart per sample,
+        # no attending of padding tokens). The eval of a packed training run
+        # uses it, so that train and eval encode a sample alike; routing
+        # stays smallest-fit.
+        self.tight = tight or n_pack > 1
+        if self.tight and not dataset.cfg.only_obj:
+            raise ValueError("sequence packing requires only_obj=True "
+                             "(the relation-MIL compacted indexing is per-sample)")
         # cross-epoch preprocessed-sample cache (data/sample_cache.py): the
         # first full pass persists every converted Sample; later epochs
         # stream mmap'd arrays instead of re-reading tars / re-building
@@ -632,7 +644,12 @@ class BatchLoader:
         idx = self._indices()
         topn = self.ds.cfg.topn
         pools: dict = {b: [] for b in self.buckets}
+        open_pools: dict = {b: [] for b in self.buckets}
         n_invalid = 0
+
+        packing = self.tight
+        if packing:
+            from structured_alignment_vqa_tpu_torch.data.packing import PackedRow, collate_packed
 
         for s in self._sample_stream(idx):
             if s is None:
@@ -642,19 +659,56 @@ class BatchLoader:
             if bucket is None:
                 n_invalid += 1
                 continue
-            pools[bucket].append(s)
-            if len(pools[bucket]) >= self.batch_size:
-                batch_samples = pools[bucket][: self.batch_size]
-                pools[bucket] = pools[bucket][self.batch_size:]
-                yield collate(batch_samples, bucket, topn)
+            if packing:
+                if self.pack_bucket is not None and self.pack_bucket.fits(s):
+                    bucket = self.pack_bucket
+                # online first-fit into the *open* rows (a row at n_pack
+                # samples leaves the scan list: the scan is the hot spot at
+                # bs 128); emit when the sample would need a
+                # (batch_size+1)-th row
+                rows = pools[bucket]
+                opens = open_pools[bucket]
+                placed = False
+                for r in opens:
+                    if r.fits(s):
+                        r.add(s)
+                        if len(r.samples) >= self.n_pack:
+                            opens.remove(r)
+                        placed = True
+                        break
+                if not placed:
+                    if len(rows) >= self.batch_size:
+                        yield collate_packed(
+                            [r.samples for r in rows], bucket, topn, self.n_pack
+                        )
+                        rows = pools[bucket] = []
+                        opens = open_pools[bucket] = []
+                    row = PackedRow(bucket, self.n_pack)
+                    row.add(s)
+                    rows.append(row)
+                    if self.n_pack > 1:
+                        opens.append(row)
+            else:
+                pools[bucket].append(s)
+                if len(pools[bucket]) >= self.batch_size:
+                    batch_samples = pools[bucket][: self.batch_size]
+                    pools[bucket] = pools[bucket][self.batch_size:]
+                    yield collate(batch_samples, bucket, topn)
         self.last_dropped = n_invalid
         if self.drop_last:
             # samples stranded in under-full pools are real samples lost to
-            # drop_last: count them
-            self.last_dropped += sum(len(pool) for pool in pools.values())
+            # drop_last: count them (a packed row holds up to n_pack)
+            for pool in pools.values():
+                for entry in pool:
+                    self.last_dropped += len(entry.samples) if packing else 1
         else:
             for bucket, pool in pools.items():
                 if not pool:
                     continue
-                pad = [None] * (self.batch_size - len(pool))
-                yield collate(pool + pad, bucket, topn)
+                if packing:
+                    groups = [r.samples for r in pool]
+                    groups += [None] * (self.batch_size - len(groups))
+                    yield collate_packed(groups, bucket, topn, self.n_pack)
+                else:
+                    pad = [None] * (self.batch_size - len(pool))
+                    yield collate(pool + pad, bucket, topn)

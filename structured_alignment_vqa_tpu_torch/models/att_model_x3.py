@@ -1,10 +1,16 @@
-"""AttModelX3, obj-only and obj+rel, unpacked (counterpart of the TPU
+"""AttModelX3, obj-only and obj+rel, packed or not (counterpart of the TPU
 package's ``models/att_model_x3.py``).
 
 * ``VisualEncoder``   <- reference ``AttModel_vis_grid``
 * ``SymbolicEncoder`` <- reference ``AttModel_syb``
 * ``MILNCEModule``    <- reference ``MIL_NCE`` (object and relation branches)
-* ``AttModelX3``      <- reference ``AttModel`` with the concat head
+* ``AttModelX3``      <- reference ``AttModel`` with the concat head or,
+  with ``use_mcb``, the MCB head (``ops/mcb.py``)
+
+A packed batch (``data/packing.py``) carries segment ids and positions:
+the stage graphs isolate its samples, the positions restart per sample,
+and the decoder runs one token per pack slot, so the logits are
+(B, n_pack, C) instead of (B, C).
 
 Modules carry the reference's torch state-dict names
 (``att_vis_grid.enc_self_attention_0.Q_proj.0.weight``, ``cls.3.weight``,
@@ -17,6 +23,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -35,6 +42,10 @@ from structured_alignment_vqa_tpu_torch.ops.layers import (
     Linear,
     linear_relu,
 )
+from structured_alignment_vqa_tpu_torch.ops.mcb import (
+    compact_bilinear_pooling,
+    count_sketch_matrix,
+)
 from structured_alignment_vqa_tpu_torch.ops.mil_nce import (
     compact_softmax_gather,
     mil_nce_obj_objective,
@@ -43,6 +54,9 @@ from structured_alignment_vqa_tpu_torch.ops.mil_nce import (
 from structured_alignment_vqa_tpu_torch.ops.quant import QDense, quantized_lookup
 
 BOS_ID = 2  # decoder input token
+# the generator the MCB head's frozen count sketches are drawn from: the TPU
+# package's ``AttModelX3.mcb_sketch_seed``, so both hold the same sketches
+MCB_SKETCH_SEED = 12345
 
 
 def build_stage_graphs(
@@ -52,13 +66,23 @@ def build_stage_graphs(
     modality_graph: Optional[torch.Tensor],
     use_dec_mask: bool,
     distinct_cross_stage: bool = False,
+    mod_seg: Optional[torch.Tensor] = None,
+    q_seg: Optional[torch.Tensor] = None,
+    n_pack: int = 1,
 ):
-    """Staged graphs over (modality ++ question) tokens, unpacked rows.
+    """Staged graphs over (modality ++ question) tokens.
 
     Returns ``(graph_diag, graph_cross, graph, dec_mask)``, float32;
-    ``dec_mask`` is (B, 1, Lm+Lq). ``modality_graph=None`` means fully
-    connected (the visual branch). By default ``graph_cross`` *is* ``graph``,
-    replicating the reference's in-place aliasing.
+    ``dec_mask`` is (B, n_pack, Lm+Lq), one row per decoder token.
+    ``modality_graph=None`` means fully connected (the visual branch). By
+    default ``graph_cross`` *is* ``graph``, replicating the reference's
+    in-place aliasing.
+
+    ``mod_seg``/``q_seg``: (B, Lm)/(B, Lq) pack-segment ids of a packed row
+    (-1 on padding). Every stage graph is then multiplied by the
+    segment-equality matrix, and decoder slot k sees segment k's tokens
+    only: the attention multiplies by the graph before its L1 renorm, so
+    the keys of other segments contribute exactly nothing.
     """
     b, lm, _ = modality_mask.shape
     lq = q_mask.shape[1]
@@ -80,11 +104,22 @@ def build_stage_graphs(
 
     graph_cross = (1.0 - mask) if distinct_cross_stage else graph
 
+    seg = None
+    if mod_seg is not None:
+        seg = torch.cat([mod_seg, q_seg], dim=1)                     # (B, size)
+        seg_eq = ((seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] >= 0)).to(f32)
+        graph_diag = graph_diag * seg_eq
+        graph = graph * seg_eq
+        graph_cross = graph_cross * seg_eq if distinct_cross_stage else graph
+
     valid = (mask.sum(dim=2) > 0).to(f32)
-    if use_dec_mask:
-        dec_mask = valid[:, None, :]
+    if not use_dec_mask:
+        dec_mask = torch.zeros(b, n_pack, size, dtype=f32, device=dev)
+    elif seg is None:
+        dec_mask = valid[:, None, :].expand(b, n_pack, size)
     else:
-        dec_mask = torch.zeros(b, 1, size, dtype=f32, device=dev)
+        slots = torch.arange(n_pack, device=dev)[None, :, None]     # (1, K, 1)
+        dec_mask = (seg[:, None, :] == slots).to(f32) * valid[:, None, :]
     return graph_diag, graph_cross, graph, dec_mask
 
 
@@ -117,7 +152,8 @@ class GloVeEmbed(nn.Module):
 
 class _Branch(nn.Module):
     """One encoder/decoder branch: three attention stages over (modality ++
-    question) tokens, then a 1-token decoder cross-attending into them."""
+    question) tokens, then a decoder of one token per pack slot (one on an
+    unpacked row) cross-attending into them."""
 
     def __init__(self, cfg: ModelConfig, pe_table_size: int, pe_dropout: bool,
                  glove: Optional[GloVeEmbed], device=None):
@@ -160,15 +196,28 @@ class _Branch(nn.Module):
         return getattr(self, f"enc_feed_forward_{i}")(fea)
 
     def forward(self, modality_fea, modality_mask, modality_graph, q_ids, q_graph, q_mask,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, mod_seg=None, q_seg=None,
+                mod_pos=None, q_pos=None, n_pack: int = 1):
+        """Returns (B, n_pack, hidden). The packing arguments (segment ids
+        and positions of the modality and question tokens) come from a
+        packed batch; ``None`` on an unpacked one."""
         cfg = self.cfg
         dt = cfg.compute_dtype
         b = modality_fea.shape[0]
+        h = cfg.hidden_size
 
         q_fea = self.syb_mlp(self.syb_emb(q_ids))
         fea = self.syb_mlp2(torch.cat([modality_fea.to(dt), q_fea], dim=1))
         size = fea.shape[1]
-        pos_ids = torch.arange(size, device=fea.device).expand(b, size)
+        if mod_pos is None:
+            pos_ids = torch.arange(size, device=fea.device).expand(b, size)
+        else:
+            # tight-bucket positions: a packed sample sees the ids it would
+            # see collated alone, its question offset by its OWN modality
+            # token count (counted from the segment ids), not the row's
+            mod_count = ((mod_seg[:, None, :] == q_seg[:, :, None])
+                         & (mod_seg[:, None, :] >= 0)).sum(dim=-1)     # (B, Lq)
+            pos_ids = torch.cat([mod_pos, q_pos + mod_count.to(q_pos.dtype)], dim=1).long()
         if self.pe_dropout:
             pe_table, pe_drop = self.syb_positional_encoding
             pe = pe_drop(pe_table(pos_ids), generator)
@@ -179,6 +228,7 @@ class _Branch(nn.Module):
         graph_diag, graph_cross, graph, dec_mask = build_stage_graphs(
             modality_mask, q_mask, q_graph, modality_graph,
             use_dec_mask=cfg.use_dec_mask, distinct_cross_stage=cfg.distinct_cross_stage,
+            mod_seg=mod_seg, q_seg=q_seg, n_pack=n_pack,
         )
         for i in range(cfg.num_blocks):
             g = (graph_diag if i < cfg.stage1_blocks
@@ -190,14 +240,18 @@ class _Branch(nn.Module):
             else:
                 fea = self._enc_block(i, fea, g)
 
-        dec_ids = torch.full((b, 1), BOS_ID, dtype=torch.long, device=fea.device)
+        # one decoder token per pack slot, each behaving as the reference's
+        # single token: self-attention runs at (B*K, 1, C), the exact 1-token
+        # path; cross-attention at (B, K, L) with the per-slot dec_mask
+        dec_ids = torch.full((b, n_pack), BOS_ID, dtype=torch.long, device=fea.device)
         dec = self.dec_emb(dec_ids) + self.dec_positional_encoding(torch.zeros_like(dec_ids))
         dec = self.dec_dropout(dec, generator)
         for i in range(cfg.num_blocks):
-            dec = getattr(self, f"dec_self_attention_{i}")(dec, dec, dec)
+            tok = dec.reshape(b * n_pack, 1, h)
+            dec = getattr(self, f"dec_self_attention_{i}")(tok, tok, tok).reshape(b, n_pack, h)
             dec = getattr(self, f"dec_vanilla_attention_{i}")(dec, fea, fea, dec_mask)
             dec = getattr(self, f"dec_feed_forward_{i}")(dec)
-        return dec  # (B, 1, hidden)
+        return dec  # (B, n_pack, hidden)
 
 
 class VisualEncoder(_Branch):
@@ -207,8 +261,9 @@ class VisualEncoder(_Branch):
         super().__init__(cfg, cfg.maxlen, pe_dropout=True, glove=glove, device=device)
 
     def forward(self, vis_fea, vis_mask, q_ids, q_graph, q_mask,
-                generator: Optional[torch.Generator] = None):
-        return super().forward(vis_fea, vis_mask, None, q_ids, q_graph, q_mask, generator)
+                generator: Optional[torch.Generator] = None, **packing):
+        return super().forward(vis_fea, vis_mask, None, q_ids, q_graph, q_mask, generator,
+                               **packing)
 
 
 class SymbolicEncoder(_Branch):
@@ -353,12 +408,38 @@ class _Head(nn.Sequential):
         return out(drop(relu(hidden(x)), generator))
 
 
+class MCB(nn.Module):
+    """The MCB fusion's two frozen count sketches (buffers ``sketch1`` and
+    ``sketch2``, the reference's ``mcb.sketch1``/``mcb.sketch2``): saved in
+    the state_dict, never trained. Drawn from
+    ``np.random.default_rng(MCB_SKETCH_SEED)``, sketch1 first, as the TPU
+    package draws them."""
+
+    def __init__(self, input_dim: int, output_dim: int, device=None):
+        super().__init__()
+        rng = np.random.default_rng(MCB_SKETCH_SEED)
+        for name in ("sketch1", "sketch2"):
+            self.register_buffer(name, torch.from_numpy(
+                count_sketch_matrix(rng, input_dim, output_dim)).to(device))
+        self.output_dim = output_dim
+
+    def forward(self, x_syb: torch.Tensor, x_vis: torch.Tensor) -> torch.Tensor:
+        return compact_bilinear_pooling(x_syb, x_vis, self.sketch1, self.sketch2,
+                                        self.output_dim)
+
+
+_PACKING_FIELDS = ("vis_seg", "macro_seg", "q_seg", "vis_pos", "macro_pos", "q_pos")
+
+
 class AttModelX3(nn.Module):
     """Top-level SA-VQA model. Returns
-    ``(logits_concat, logits_vis, logits_syb, mil_nce_obj, mil_nce_rel)``.
+    ``(logits_concat, logits_vis, logits_syb, mil_nce_obj, mil_nce_rel)``;
+    the logits are (B, C), or (B, n_pack, C) on a packed batch.
 
     ``device=None`` puts the model on the CUDA card and raises if there is
-    none; pass ``device="cpu"`` to build it on the CPU.
+    none; pass ``device="cpu"`` to build it on the CPU. With ``use_mcb`` the
+    concat head ``cls`` gives way to ``cls_mcb`` over the MCB fusion of the
+    two branches (``mcb_out`` wide).
     """
 
     def __init__(self, cfg: ModelConfig, device=None):
@@ -373,7 +454,12 @@ class AttModelX3(nn.Module):
         self.MIL_NCE = MILNCEModule(cfg, glove=shared, device=dev)
         self.att_vis_grid = VisualEncoder(cfg, glove=shared, device=dev)
         self.att_syb = SymbolicEncoder(cfg, glove=shared, device=dev)
-        self.cls = _Head(cfg, 2 * cfg.hidden_size, dev)
+        if cfg.use_mcb:
+            self.mcb = MCB(cfg.hidden_size, cfg.mcb_out, dev)
+            self.mcb_dropout = Dropout(cfg.dropout_rate_mcb)
+            self.cls_mcb = _Head(cfg, cfg.mcb_out, dev)
+        else:
+            self.cls = _Head(cfg, 2 * cfg.hidden_size, dev)
         self.cls_vis = _Head(cfg, cfg.hidden_size, dev)
         self.cls_syb = _Head(cfg, cfg.hidden_size, dev)
 
@@ -381,20 +467,36 @@ class AttModelX3(nn.Module):
         """In train mode every dropout mask is drawn from ``generator`` (on
         the batch's device; ``None`` means torch's default generator). In
         eval mode, or at dropout rate 0, no mask is drawn."""
-        if batch.vis_seg is not None or batch.n_pack != 1:
-            raise NotImplementedError("packed batches (ROADMAP Queue 1 item 10) are not ported yet")
+        packed = batch.vis_seg is not None
+        if packed != (batch.answer.ndim == 2) or any(
+                (getattr(batch, f) is None) == packed for f in _PACKING_FIELDS):
+            raise ValueError("a packed batch carries all six segment and position fields "
+                             "and (B, n_pack) answers; an unpacked one none of them and "
+                             "(B,) answers")
+        n_pack = batch.n_pack
         new_macro, mil_obj, mil_rel = self.MIL_NCE(
             batch.vis_fea, batch.macro_ipt, batch.macro_obj_loc,
             batch.micro_pos_obj, batch.micro_neg_obj, batch.micro_obj_mask,
             batch.micro_pos_rel, batch.micro_pos_rel_loc, batch.micro_neg_rel_loc,
         )
-        fea_vis = self.att_vis_grid(batch.vis_fea, batch.vis_mask, batch.q_ipt,
-                                    batch.q_graph, batch.q_mask, generator)[:, 0]
-        fea_syb = self.att_syb(new_macro, batch.macro_mask, batch.macro_graph,
-                               batch.q_ipt, batch.q_graph, batch.q_mask, generator)[:, 0]
+        fea_vis = self.att_vis_grid(
+            batch.vis_fea, batch.vis_mask, batch.q_ipt, batch.q_graph, batch.q_mask, generator,
+            mod_seg=batch.vis_seg, q_seg=batch.q_seg, mod_pos=batch.vis_pos,
+            q_pos=batch.q_pos, n_pack=n_pack)
+        fea_syb = self.att_syb(
+            new_macro, batch.macro_mask, batch.macro_graph, batch.q_ipt, batch.q_graph,
+            batch.q_mask, generator, mod_seg=batch.macro_seg, q_seg=batch.q_seg,
+            mod_pos=batch.macro_pos, q_pos=batch.q_pos, n_pack=n_pack)
+        if not packed:   # one decoder token: (B, 1, hidden) -> (B, hidden)
+            fea_vis, fea_syb = fea_vis[:, 0], fea_syb[:, 0]
         logits_vis = self.cls_vis(fea_vis, generator)
         logits_syb = self.cls_syb(fea_syb, generator)
-        logits_concat = self.cls(torch.cat([fea_syb, fea_vis], dim=-1), generator)
+        if self.cfg.use_mcb:
+            # float32 (B[, K], mcb_out), normalized over the batch axis
+            fused = self.mcb_dropout(self.mcb(fea_syb, fea_vis), generator)
+            logits_concat = self.cls_mcb(fused, generator)
+        else:
+            logits_concat = self.cls(torch.cat([fea_syb, fea_vis], dim=-1), generator)
         return logits_concat, logits_vis, logits_syb, mil_obj, mil_rel
 
 

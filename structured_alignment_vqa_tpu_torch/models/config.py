@@ -3,14 +3,15 @@
 Same defaults and ``validate()`` as the reference dataclass, with a torch
 ``compute_dtype``. The TPU package's ``use_pallas_attention`` switch has no
 counterpart: the port launches its kernels on every CUDA tensor and runs
-their plain versions on CPU tensors. ``mcb_out``, ``dropout_rate_mcb`` and
-``seq_impl`` arrive with the MCB head and sequence parallelism.
+their plain versions on CPU tensors. ``seq_impl`` arrives with sequence
+parallelism.
 
-The port covers the unpacked model, obj-only and obj+rel (``only_obj=False``,
-with ``remat_blocks``), and int8 weight-only serving (``int8_serving``: the
-GloVe tables and the heads hold int8 weights, ``ops/quant.py``; serving
-only, the params from ``quantize_state_dict``). Settings it does not cover
-raise ``NotImplementedError`` naming the ROADMAP item that ports them
+The port covers the model obj-only and obj+rel (``only_obj=False``, with
+``remat_blocks``), packed batches (obj-only), the MCB head (``use_mcb``),
+and int8 weight-only serving (``int8_serving``: the GloVe tables and the
+heads hold int8 weights, ``ops/quant.py``; serving only, the params from
+``quantize_state_dict``). Settings it does not cover raise
+``NotImplementedError`` naming the ROADMAP item that ports them
 (:meth:`ModelConfig.check_supported`).
 """
 
@@ -41,6 +42,7 @@ class ModelConfig:
     num_blocks: int = 6
     num_heads: int = 8
     dropout_rate: float = 0.5
+    dropout_rate_mcb: float = 0.1
 
     maxlen: int = 450
     maxlen_q: int = 40
@@ -49,7 +51,8 @@ class ModelConfig:
 
     only_obj: bool = True
     use_dec_mask: bool = True
-    use_mcb: bool = False
+    use_mcb: bool = False        # the MCB fusion head instead of the concat head
+    mcb_out: int = 16000
 
     # blocks [0, stage1) use graph_diag, [stage1, stage2) graph_cross,
     # [stage2, num_blocks) the full graph
@@ -76,13 +79,8 @@ class ModelConfig:
 
     def check_supported(self) -> None:
         """Raise for the settings the port does not cover yet."""
-        unsupported = (
-            (self.use_mcb, "use_mcb (ROADMAP Queue 1 item 12)"),
-            (self.seq_axis is not None, "seq_axis (ROADMAP Queue 1 item 16)"),
-        )
-        for bad, what in unsupported:
-            if bad:
-                raise NotImplementedError(f"{what} is not ported yet")
+        if self.seq_axis is not None:
+            raise NotImplementedError("seq_axis (ROADMAP Queue 1 item 16) is not ported yet")
         if self.compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, got {self.compute_dtype}")
 
@@ -106,6 +104,7 @@ def tiny_test_config(**kw) -> ModelConfig:
         topn=2,
         stage1_blocks=1,
         stage2_blocks=2,
+        mcb_out=24,
     )
     base.update(kw)
     return ModelConfig(**base)

@@ -16,8 +16,11 @@ An ``int8_serving`` tree (the TPU package's ``quantize_params``) maps the
 same way, dtypes kept: ``.../table_q`` and ``table_scale`` become
 ``...syb_emb.weight_q`` (int8) and ``weight_scale``; a head's ``kernel_q``
 (in, out) becomes ``cls*.{0,3}.weight_q`` (out, in) and ``kernel_scale``
-``weight_scale``, beside the float ``bias``. :func:`table_opt_from_jax`
-carries the sparse table's Adam state (``parallel/sparse_table.py``).
+``weight_scale``, beside the float ``bias``. A model with the MCB head
+(``use_mcb``) has ``cls_mcb`` in place of ``cls``, and its two frozen
+sketches come from the JAX ``constants`` collection as ``mcb.sketch1`` and
+``mcb.sketch2``. :func:`table_opt_from_jax` carries the sparse table's Adam
+state (``parallel/sparse_table.py``).
 
 This module reads numpy arrays only; it imports no JAX.
 """
@@ -78,16 +81,17 @@ def _branch_entries(src: str, num_blocks: int) -> List[Tuple[str, Tuple[str, ...
 
 
 def name_map(num_blocks: int) -> List[Tuple[str, Tuple[str, ...], bool]]:
-    """(torch name, JAX param path, transpose) of the concat-head model.
-    ``MIL_NCE.R`` exists only with ``only_obj=False``; a tree without it
-    gives a state_dict without it."""
+    """(torch name, JAX param path, transpose) of the model. ``MIL_NCE.R``
+    exists only with ``only_obj=False``, ``cls`` only without the MCB head
+    and ``cls_mcb`` only with it; a tree without one gives a state_dict
+    without it."""
     entries = _branch_entries("att_vis_grid", num_blocks) + _branch_entries("att_syb", num_blocks)
     entries.append(("MIL_NCE.syb_emb.weight", ("mil_nce", "syb_emb", "table"), False))
     for mod in ("marco_mlp", "syb_mlp", "vis_mlp", "ipt_mlp"):
         entries.append((f"MIL_NCE.{mod}.0.weight", ("mil_nce", mod, "kernel"), True))
         entries.append((f"MIL_NCE.{mod}.0.bias", ("mil_nce", mod, "bias"), False))
     entries.append(("MIL_NCE.R", ("mil_nce", "R"), False))
-    for head in ("cls", "cls_vis", "cls_syb"):
+    for head in ("cls", "cls_vis", "cls_syb", "cls_mcb"):
         entries.append((f"{head}.0.weight", (f"{head}_hidden", "kernel"), True))
         entries.append((f"{head}.0.bias", (f"{head}_hidden", "bias"), False))
         entries.append((f"{head}.3.weight", (f"{head}_out", "kernel"), True))
@@ -119,12 +123,16 @@ def _int8_entries(num_blocks: int) -> List[Tuple[str, Tuple[str, ...], bool]]:
     return out
 
 
-def state_dict_from_jax(params: Dict, num_blocks: int) -> Dict[str, torch.Tensor]:
+def state_dict_from_jax(params: Dict, num_blocks: int,
+                        constants: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
     """The port's state_dict (CPU tensors: float32, int8 where the tree holds
     int8) from a JAX ``params`` tree.
 
-    ``params`` is ``variables["params"]`` of the TPU package's ``AttModelX3``
-    with the concat head, obj-only or obj+rel, float or ``int8_serving``.
+    ``params`` is ``variables["params"]`` of the TPU package's ``AttModelX3``,
+    obj-only or obj+rel, float or ``int8_serving``, with the concat head or
+    the MCB head; for the MCB head ``constants`` is
+    ``variables["constants"]``, whose ``sketch1`` and ``sketch2`` become
+    ``mcb.sketch1`` and ``mcb.sketch2``.
     """
     out: Dict[str, np.ndarray] = {}
     for tname, path, transpose in name_map(num_blocks) + _int8_entries(num_blocks):
@@ -137,6 +145,10 @@ def state_dict_from_jax(params: Dict, num_blocks: int) -> Dict[str, torch.Tensor
         if shared is not None:
             for slot in GLOVE_SLOTS:
                 out[slot + suffix] = shared
+    for name in ("sketch1", "sketch2"):
+        sketch = _get(constants or {}, (name,))
+        if sketch is not None:
+            out[f"mcb.{name}"] = sketch
     # np.array copies: JAX hands out read-only buffers, torch wants writable ones
     return {k: torch.from_numpy(np.array(v, dtype=np.int8 if v.dtype == np.int8 else np.float32,
                                          order="C"))

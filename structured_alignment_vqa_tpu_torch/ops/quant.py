@@ -81,7 +81,8 @@ class QDense(nn.Module):
 # structure, as in the TPU package (so a module that merely looks like a
 # table is never quantized by mistake): the GloVe lookups (``syb_emb`` in
 # each branch; one shared module with ``share_glove``) and the classifier
-# heads' two Linears (``cls``, ``cls_vis``, ``cls_syb``: ``.0`` and ``.3``).
+# heads' two Linears (``cls`` or ``cls_mcb``, ``cls_vis``, ``cls_syb``: ``.0``
+# and ``.3``). The MCB head's frozen sketches (``mcb.sketch*``) stay float.
 GLOVE_MODULE_NAMES = frozenset({"syb_emb"})
 HEAD_PREFIX = "cls"
 

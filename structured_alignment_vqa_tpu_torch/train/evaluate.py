@@ -8,6 +8,8 @@ Usage:
         --data_dir_azure /data/gqa ... --weight_dir out/checkpoints --split val
 
 Runs on the CUDA card (and fails without one) unless ``--platform cpu``.
+``--mcb`` evaluates a model with the MCB head; ``--n_pack`` configures
+training and is ignored (an unpacked loader, as in the TPU package).
 """
 
 from __future__ import annotations

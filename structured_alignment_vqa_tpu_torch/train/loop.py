@@ -51,9 +51,11 @@ _METRICS = ("loss_sum", "mil_sum", "n_correct", "n")
 @dataclasses.dataclass
 class TrainerConfig:
     """The TPU package's ``TrainerConfig``, field for field, with its
-    defaults. Two configure what the port does not run yet: packing
-    (``n_pack``, ``pack_bucket``; ROADMAP Queue 1 item 10) and several
-    devices (``model_parallel``; item 15)."""
+    defaults. One configures what the port does not run yet: several
+    devices (``model_parallel``; ROADMAP Queue 1 item 15). ``n_pack > 1``
+    packs the training batches (``data/packing.py``; ``pack_bucket`` picks
+    their bucket, None the largest) and evaluates val through the tight
+    collate."""
 
     output_dir: str = "./tmp"
     batch_size: int = 32
@@ -236,8 +238,10 @@ def train(
         pending: deque = deque()
 
         def drain(i, fetch):
+            nonlocal n_samples
             loss, mil, n = (float(v) for v in fetch.result())
             bsz = int(n)
+            n_samples += bsz    # valid samples: a packed row holds several
             if bsz:
                 loss_meter.update(loss, bsz)
                 mil_meter.update(mil, bsz)
@@ -273,7 +277,6 @@ def train(
             if len(pending) > metric_lag:
                 drain(*pending.popleft())
             n_steps += 1
-            n_samples += batch.sample_valid.shape[0]
         while pending:
             drain(*pending.popleft())
         seconds = time.perf_counter() - t0

@@ -12,9 +12,11 @@ Usage:
 ``--platform cpu`` runs on the CPU; any other value, or none, runs on the
 CUDA card and fails without one. ``--bf16`` computes in torch.bfloat16.
 ``--use_pallas`` has no counterpart (the port launches its kernels on every
-CUDA tensor); the eval and predict CLIs log it as having no effect. Flags
-of what is not ported yet raise ``NotImplementedError`` naming their
-ROADMAP item.
+CUDA tensor); the eval and predict CLIs log it as having no effect.
+``--n_pack N --pack_bucket I`` packs up to N training samples a row;
+``--mcb`` builds the MCB head. Flags of what is not ported yet (several
+devices and hosts) raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -108,7 +110,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="capture a profiler trace over N training steps")
     p.add_argument("--n_pack", type=int, default=1,
                    help="sequence packing: up to N training samples per row "
-                        "(not ported yet: ROADMAP Queue 1 item 10)")
+                        "(data/packing.py); eval of val then uses the tight collate")
     p.add_argument("--pack_bucket", type=int, default=-1,
                    help="bucket index packed rows use (-1 = largest)")
     p.add_argument("--num_procs", type=int, default=0,
@@ -155,8 +157,6 @@ def check_supported_flags(args) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item of each flag
     whose feature the port does not have yet."""
     unported = (
-        (args.n_pack > 1, "--n_pack > 1 (sequence packing, ROADMAP Queue 1 item 10)"),
-        (args.mcb, "--mcb (the MCB head, ROADMAP Queue 1 item 12)"),
         ((args.coordinator and args.num_processes > 1) or args.model_parallel > 1,
          "--coordinator with --num_processes > 1, or --model_parallel > 1 (several "
          "devices and hosts, ROADMAP Queue 1 item 15)"),
@@ -202,6 +202,7 @@ def configs_from_args(args) -> tuple[ModelConfig, DataConfig, DataConfig, Traine
         stage2_blocks=min(4, args.num_blocks),
         num_heads=args.num_heads,
         dropout_rate=args.dropout_rate,
+        dropout_rate_mcb=args.dropout_rate_mcb,
         maxlen=args.maxlen,
         maxlen_q=args.maxlen_q,
         maxlen_v=args.maxlen_v,

@@ -12,7 +12,9 @@ Usage:
 
 Runs on the CUDA card (and fails without one) unless ``--platform cpu``.
 ``--int8`` serves the checkpoint with int8 GloVe tables and heads
-(``ops/quant.py``), quantized once after loading.
+(``ops/quant.py``), quantized once after loading. ``--mcb`` serves a model
+with the MCB head. ``--n_pack`` configures training and is ignored: the
+loader here packs nothing, as the TPU package's does not.
 """
 
 from __future__ import annotations

@@ -14,7 +14,7 @@ perturbed with numpy noise (off the LayerNorm knife edge); the TPU package's
 * the two eval CLIs give losses within 1e-4 and equal accuracies;
 * the port's checkpoint round-trips; every flag of the TPU package's parser
   parses in the port's; unported flags raise naming their ROADMAP item; the
-  sparse table's training flags change nothing here; and without
+  sparse table's and packing's training flags change nothing here; and without
   ``--platform cpu`` and without a card the CLIs raise.
 """
 
@@ -76,12 +76,14 @@ def cli_args(root, out):
     ]
 
 
-@pytest.fixture(scope="module")
-def world(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("cli")
+def build_world(tmp, extra=()):
+    """A fixture tree under ``tmp``, a JAX train state on its probe batch
+    with perturbed params, saved by the TPU package's ``save_checkpoint``,
+    and the port model holding the same weights (its constants too), saved
+    by the port's; ``extra`` flags go to both CLIs."""
     root, out = str(tmp / "data"), str(tmp / "out")
     write_fixture(root, n_images=8, n_questions=32, seed=1)
-    args = cli_args(root, out)
+    args = cli_args(root, out) + list(extra)
     jcfg, jtrain_dc, _, jtc = jax_configs(jax_build_parser().parse_args(args))
     jmodel = JaxModel(jcfg)
     probe = next(iter(JaxLoader(JaxDataset("train", jtrain_dc), jtc.batch_size, shuffle=False)))
@@ -97,12 +99,18 @@ def world(tmp_path_factory):
     pcfg, ptrain_dc, _, _ = port_main.configs_from_args(
         port_main.build_parser().parse_args(args))
     model = AttModelX3(pcfg, device="cpu")
-    model.load_state_dict(state_dict_from_jax(noisy, pcfg.num_blocks), strict=True)
+    model.load_state_dict(state_dict_from_jax(noisy, pcfg.num_blocks,
+                                              jax.device_get(state.constants)), strict=True)
     port_ckpt = str(tmp / "port_ckpt")
     ckpt.save_checkpoint(port_ckpt, TrainState(model, adam(model.parameters())), 1)
     return dict(tmp=tmp, root=root, out=out, args=args, jmodel=jmodel, params=state.params,
-                jtrain_dc=jtrain_dc, model=model.eval(), ptrain_dc=ptrain_dc,
-                jax_ckpt=jax_ckpt, port_ckpt=port_ckpt)
+                constants=state.constants, jtrain_dc=jtrain_dc, model=model.eval(),
+                ptrain_dc=ptrain_dc, jax_ckpt=jax_ckpt, port_ckpt=port_ckpt)
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    return build_world(tmp_path_factory.mktemp("cli"))
 
 
 @pytest.fixture(scope="module")
@@ -257,8 +265,6 @@ def test_every_jax_flag_parses_with_the_same_default_and_value():
 
 
 UNPORTED = [
-    (["--n_pack", "2"], "item 10"),
-    (["--mcb"], "item 12"),
     (["--coordinator", "localhost:1234", "--num_processes", "2"], "item 15"),
     (["--model_parallel", "2"], "item 15"),
 ]
@@ -273,11 +279,13 @@ def test_unported_flags_raise_naming_their_item(world, cli, flags, item):
 
 
 @pytest.mark.parametrize("cli", ["predict", "evaluate"])
-@pytest.mark.parametrize("flags", [["--sparse_table"], ["--table_moments_bf16"]],
-                         ids=["sparse_table", "table_moments_bf16"])
+@pytest.mark.parametrize("flags", [["--sparse_table"], ["--table_moments_bf16"],
+                                   ["--n_pack", "2", "--pack_bucket", "1"]],
+                         ids=["sparse_table", "table_moments_bf16", "n_pack"])
 def test_training_only_flags_change_nothing_in_the_eval_clis(world, cli, flags):
-    """The sparse table's flags configure training; the predict and eval
-    CLIs accept them and give the answers and loss they give without."""
+    """The sparse table's and packing's flags configure training; the
+    predict and eval CLIs accept them and give the answers and loss they
+    give without (their loaders pack nothing, as the TPU package's)."""
     args = world["args"] + ["--weight_dir", world["port_ckpt"], "--split", "train"]
     if cli == "predict":
         outs = [str(world["tmp"] / f"{name}.jsonl") for name in ("without", "with")]

@@ -251,8 +251,64 @@ def test_collate_dtypes_are_those_the_transfer_ships(trees):
         assert value.dtype == want, f.name
 
 
-def test_packing_is_not_ported_and_names_its_item(trees):
-    _, pds = datasets(trees[0], "obj")
-    for kw in (dict(n_pack=2), dict(tight=True)):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            port_ds.BatchLoader(pds, 4, **kw)
+@pytest.mark.parametrize("kw", [dict(n_pack=2, pack_bucket=1), dict(n_pack=3, shuffle=False,
+                                                                   drop_last=False),
+                                dict(tight=True, shuffle=False)],
+                         ids=["n_pack2", "n_pack3_no_drop_last", "tight"])
+def test_packed_loader_equals_jax_value_for_value(trees, kw):
+    """Packed rows (data/packing.py), and tight=True, batch for batch as
+    the TPU package's loader gives them; obj+rel refuses to pack on both."""
+    jds, pds = datasets(trees[0], "obj")
+    jbatches = list(jax_ds.BatchLoader(jds, 4, num_threads=2, **kw))
+    pl = port_ds.BatchLoader(pds, 4, num_threads=2, **kw)
+    pbatches = list(pl)
+    assert len(jbatches) == len(pbatches) > 0
+    for i, (jb, pb) in enumerate(zip(jbatches, pbatches)):
+        assert_same_batch(jb, pb, f"batch {i}")
+    assert pb.vis_seg is not None and pb.answer.shape == (4, kw.get("n_pack", 1))
+    _, rel = datasets(trees[0], "objrel")
+    with pytest.raises(ValueError, match="only_obj"):
+        port_ds.BatchLoader(rel, 4, **kw)
+
+
+@pytest.mark.parametrize("grid_self_connect", [False, True], ids=["plain", "grid"])
+def test_array_loader_equals_jax_value_for_value(grid_self_connect):
+    """The legacy whole-array loader (data/array_dataset.py): every array
+    value for value, OOV words as UNK (the reference's '400001'), samples
+    longer than maxlen or without region features skipped, edges out of
+    range ignored; and the shuffled batch indices with their off-by-one."""
+    from structured_alignment_vqa_tpu.data import array_dataset as jax_arrays
+    from structured_alignment_vqa_tpu_torch.data import array_dataset as port_arrays
+
+    rng = np.random.default_rng(7)
+    words = [f"w{i}" for i in range(12)]
+    de2idx = {w: 20 + i for i, w in enumerate(words[:9])}   # w9-w11 are OOV
+    de2idx["</s>"] = 5
+    en2idx = {"yes": 2, "no": 3}
+    n, maxlen = 9, 12
+    # a symbolic sentence may exceed maxlen (the sample is skipped); a visual
+    # one plus its regions must fit, in both packages as in the reference
+    sents = [" ".join(rng.choice(words, size=int(rng.integers(1, k))))
+             for k in [14] * n + [8] * n]
+    kw = dict(
+        sents_syb=sents[:n], sents_vis=sents[n:],
+        answers=[str(rng.choice(["yes", "no", "maybe"])) for _ in range(n)],
+        edges_syb=[rng.integers(0, maxlen + 3, size=(int(rng.integers(0, 4)), 2)).tolist()
+                   for _ in range(n)],
+        edges_vis=[rng.integers(0, maxlen + 3, size=(int(rng.integers(0, 4)), 2)).tolist()
+                   for _ in range(n)],
+        region_feats=[np.ones((int(rng.integers(0, 4)), 4), np.float32) for _ in range(n)],
+        q_lengths=[int(rng.integers(0, 3)) for _ in range(n)],
+        de2idx=de2idx, en2idx=en2idx, maxlen=maxlen, grid_self_connect=grid_self_connect)
+    want, got = jax_arrays.create_arrays(**kw), port_arrays.create_arrays(**kw)
+    assert 0 < got.X_syb.shape[0] < n          # some samples are skipped
+    assert (got.X_syb == port_arrays.UNK).any() and port_arrays.UNK == 400001
+    for name in ("X_syb", "X_vis", "Y"):
+        assert_same_value(getattr(want, name), getattr(got, name), name)
+    for name in ("G_syb", "G_vis"):
+        for i, (a, b) in enumerate(zip(getattr(want, name), getattr(got, name))):
+            assert_same_value(a, b, f"{name}[{i}]")
+    assert all(np.array_equal(a, b) for a, b in zip(want.X0, got.X0))
+    for total, size, seed in ((100, 16, 0), (33, 8, 3), (8, 8, 1)):
+        assert (list(port_arrays.get_batch_indices(total, size, seed))
+                == list(jax_arrays.get_batch_indices(total, size, seed)))

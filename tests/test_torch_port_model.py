@@ -199,7 +199,7 @@ def test_batch_fields_match_jax_batch_and_move_with_to():
 
 
 @pytest.mark.parametrize("cfg_kw", [
-    dict(use_mcb=True), dict(seq_axis="seq"),
+    dict(seq_axis="seq"),
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_settings_raise(cfg_kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -208,21 +208,26 @@ def test_unported_settings_raise(cfg_kw):
 
 @pytest.mark.parametrize("cfg_kw", [
     dict(only_obj=False), dict(remat_blocks=True), dict(only_obj=False, remat_blocks=True),
-], ids=lambda kw: "+".join(kw))
+    dict(use_mcb=True, mcb_out=24),
+], ids=lambda kw: "+".join(k for k in kw if k != "mcb_out"))
 def test_ported_settings_build_and_run(cfg_kw):
     cfg = ModelConfig(**TINY, **cfg_kw)
     model = AttModelX3(cfg, device="cpu")
     assert hasattr(model.MIL_NCE, "R") == (not cfg.only_obj)
+    assert hasattr(model, "cls") != cfg.use_mcb == hasattr(model, "cls_mcb")
     batch = batch_from_arrays(synthetic_arrays(cfg, 2, lv=4, lq=5, ls=10, seed=1), "cpu")
     out = model(batch)
     assert all(torch.isfinite(t).all() for t in out[:4])
     out[0].sum().backward()
-    assert model.cls[3].weight.grad is not None
+    head = model.cls_mcb if cfg.use_mcb else model.cls
+    assert head[3].weight.grad is not None
 
 
 def test_packed_batch_raises():
+    """A batch with some of the six packing fields and not the others, or
+    with packing fields and (B,) answers, is neither packed nor unpacked."""
     cfg = ModelConfig(**TINY)
     arrays = synthetic_arrays(cfg, 2, lv=4, lq=5, ls=10, seed=1)
     arrays["vis_seg"] = np.zeros((2, 4), np.int64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="packed batch"):
         AttModelX3(cfg, device="cpu")(batch_from_arrays(arrays, "cpu"))

@@ -6,7 +6,7 @@ compute dtype at both of its uses); the shipped dtypes are those
 ``data/batch.py`` documents; on the CPU nothing is pinned and no stream or
 event is made; a collated batch (int8 masks, int32 ids) gives the same
 logits as the same batch with the synthetic batches' int64 ids and int32
-masks.
+masks. Packed batches (their segment ids and positions int32) too.
 """
 
 import dataclasses
@@ -33,15 +33,18 @@ def _threads():
     torch.set_num_threads(1)
 
 
-@pytest.fixture(scope="module", params=["obj", "objrel"])
+@pytest.fixture(scope="module", params=["obj", "objrel", "packed"])
 def loader(request, tmp_path_factory):
+    """Unpacked obj-only and obj+rel batches, and packed rows (up to two
+    samples, whose six segment and position fields ship too)."""
     root = str(tmp_path_factory.mktemp("transfer_tree"))
     write_fixture(root, n_images=4, n_questions=16, seed=2, n_obj_range=(2, 5))
-    only_obj = request.param == "obj"
+    only_obj = request.param != "objrel"
     cfg = DataConfig(data_dir=root, maxlen=128 if only_obj else 256, topn=2, min_cnt=50,
                      only_obj=only_obj, pred_rel=True)
+    packing = dict(n_pack=2, pack_bucket=1) if request.param == "packed" else {}
     return BatchLoader(GQASuperNodeDataset("train", cfg), 3, shuffle=False, drop_last=False,
-                       num_threads=2)
+                       num_threads=2, **packing)
 
 
 def model_for(loader, dtype, seed=0):
