@@ -138,8 +138,25 @@ Phases, each of which must pass:
     sketches bitwise unchanged), and the predict CLI ``--mcb`` on a saved
     checkpoint against the in-process predict step.
 
+15. data parallel (``dp``, ROADMAP item 15): two ranks on the one card over
+    gloo with CUDA tensors (NCCL refuses two ranks on a device), worker
+    processes of this script (``--dp-rank``), built kernels shared: at full
+    width, f32 without dropout, one step on each half of a global batch
+    held against this process's step on the whole batch (loss within 1e-5
+    relative, every gradient within 1e-4 of its norm) for the obj-only
+    model (bs 128 as 64 + 64), dense and with the sparse table, and the
+    obj+rel model at maxlen 1600 (bs 4 as 2 + 2, through K4-K6); each
+    rank's launches those of one rank at its rows; then 3 bf16 steps with
+    dropout 0.5, dense and sparse, after which the ranks' parameters (and
+    table moments) are bitwise equal; as information the bytes summed a
+    step, the gradients' all-reduce over gloo on CUDA and over NCCL in a
+    group of one, a rank's step and its device idle share; last the
+    training CLI with ``--coordinator --num_processes 1`` (an NCCL group of
+    one) on a 512-question tree of the cli phase's kind, whose logged losses
+    must equal the run without those flags bitwise, one checkpoint written.
+
 ``--phases a,b`` (of card, k1, k3, k2, serving, training, k4, k56,
-objrel_serving, objrel_training, cli, train_cli, packed) runs only those, for work on one kernel,
+objrel_serving, objrel_training, cli, train_cli, packed, dp) runs only those, for work on one kernel,
 and then prints no last line. It prints one JSON line of kernels, the card's line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero without
 that last line; so does a machine without a CUDA device.
@@ -194,6 +211,9 @@ K2_PER_STEP = 24      # the backward of every K1 launch
 # the reference MIL_NCE), and the decoder's 1-token self-attention never
 # reads its Q and K projections (softmax over one key is 1)
 NO_GRAD_PARAMS = r"^MIL_NCE\.marco_mlp\.|\.dec_self_attention_\d+\.[QK]_proj\."
+# parameters whose true gradient is 0: a K projection's bias shifts every
+# key's score by one amount, which the softmax ignores
+SHIFT_FREE_PARAMS = r"\.K_proj\.0\.bias$"
 # the obj+rel point: bs 4, bucket (lv, ls, lq) = (36, 1506, 30). The visual
 # encoder runs at L 66 (K1, K2), the symbolic one at L 1,536 (K4, K5, K6)
 REL_B, REL_LV, REL_LS, REL_LQ = 4, 36, 1506, 30
@@ -922,18 +942,22 @@ def same_snapshot(a: list, b: list) -> bool:
         torch.equal(x, y) if torch.is_tensor(x) else x == y for x, y in zip(a, b))
 
 
-def one_step(cfg, batch, plain: bool = False, seed: int = 3) -> tuple:
+def one_step(cfg, batch, plain: bool = False, seed: int = 3, sparse: bool = False) -> tuple:
     """One training step from the weights of ``seed`` and a fixed dropout
-    generator: (loss, {name: gradient}, launches by kernel)."""
-    from structured_alignment_vqa_tpu_torch.parallel import TrainState, adam, make_train_step
+    generator (with the sparse GloVe-table optimizer when ``sparse``):
+    (loss, {name: gradient}, launches by kernel)."""
+    from structured_alignment_vqa_tpu_torch.parallel.train_step import (
+        create_train_state,
+        make_train_step,
+    )
 
     model = random_model(cfg, seed=seed)
-    opt = adam(model.parameters(), lr=1e-4)
-    step = make_train_step(model, opt, cfg)
+    state = create_train_state(model, 1e-4, sparse_table=sparse)
+    step = make_train_step(model, state.optimizer, cfg, sparse_table=sparse)
     gen = torch.Generator(device="cuda").manual_seed(11)
     before = launch_counts()
     with plain_path() if plain else contextlib.nullcontext():
-        metrics = step(TrainState(model, opt), batch, gen)
+        metrics = step(state, batch, gen)
     torch.cuda.synchronize()
     moved = {k: launch_counts()[k] - before[k] for k in before}
     return metrics["loss"].item(), {n: p.grad for n, p in model.named_parameters()}, moved
@@ -941,7 +965,10 @@ def one_step(cfg, batch, plain: bool = False, seed: int = 3) -> tuple:
 
 def steady_step_memory(cfg, batch) -> tuple:
     """:func:`step_memory` of a fresh dense training step's state."""
-    from structured_alignment_vqa_tpu_torch.parallel import create_train_state, make_train_step
+    from structured_alignment_vqa_tpu_torch.parallel.train_step import (
+        create_train_state,
+        make_train_step,
+    )
 
     model = random_model(cfg, seed=3)
     state = create_train_state(model, 1e-4)
@@ -970,27 +997,46 @@ def step_memory(state, step, batch, gen) -> tuple:
     return kept, torch.cuda.max_memory_allocated() - held
 
 
-def compare_steps(what: str, a: tuple, b: tuple, loss_tol: float, grad_tol: float) -> None:
-    """The loss of step ``a`` relative to step ``b``'s, and each gradient by
-    the norm of its difference over its own norm."""
-    err_loss = abs(a[0] - b[0]) / abs(b[0])
-    check(err_loss <= loss_tol, f"{what}: loss {a[0]:.7g} against {b[0]:.7g}, "
-          f"relative difference {err_loss:.3g} <= {loss_tol:g}")
-    errs = {}
+def grad_errors(a: tuple, b: tuple, shift_free: bool = False) -> dict:
+    """{name: (norm-relative, max-relative difference, finite)} of step
+    ``a``'s gradients against step ``b``'s (``compare_steps``); under the
+    key None the names with a gradient on one side only."""
+    errs = {None: []}
+    joint = sum(w.float().norm().item() ** 2 for w in b[1].values() if w is not None) ** 0.5
     for name, g in a[1].items():
         w = b[1][name]
         if g is None or w is None:
             if (g is None) != (w is None):
-                check(False, f"{what}: {name} has a gradient on one path only")
+                errs[None].append(name)
             continue
-        norm = w.float().norm().item()
+        norm = joint if shift_free and re.search(SHIFT_FREE_PARAMS, name) else \
+            w.float().norm().item()
         diff = (g - w).float().norm().item()
         errs[name] = (diff / norm if norm > 0 else diff, rel_err(g, w),
                       bool(torch.isfinite(g).all()))
-    worst = max(errs, key=lambda n: errs[n][0])
-    check(all(e[2] for e in errs.values()) and errs[worst][0] <= grad_tol,
-          f"{what}: {len(errs)} finite gradients, worst |difference|/|gradient| "
-          f"{errs[worst][0]:.3g} ({worst}) <= {grad_tol:g}")
+    return errs
+
+
+def compare_steps(what: str, a: tuple, b: tuple, loss_tol: float, grad_tol,
+                  shift_free: bool = False) -> None:
+    """The loss of step ``a`` relative to step ``b``'s, and each gradient by
+    the norm of its difference over its own norm, within ``grad_tol``: one
+    limit for every gradient, or a dict of limits by name. With ``shift_free`` the
+    K projections' biases, whose true gradient is 0 (the softmax ignores a
+    shift all keys share, so each side holds rounding noise alone), are
+    held by the norm of their difference over the norm of all of ``b``'s
+    gradients together."""
+    err_loss = abs(a[0] - b[0]) / abs(b[0])
+    check(err_loss <= loss_tol, f"{what}: loss {a[0]:.7g} against {b[0]:.7g}, "
+          f"relative difference {err_loss:.3g} <= {loss_tol:g}")
+    errs = grad_errors(a, b, shift_free)
+    for name in errs.pop(None, []):
+        check(False, f"{what}: {name} has a gradient on one path only")
+    limit = grad_tol if isinstance(grad_tol, dict) else dict.fromkeys(errs, grad_tol)
+    worst = max(errs, key=lambda n: errs[n][0] / limit[n])
+    check(all(e[2] for e in errs.values()) and all(errs[n][0] <= limit[n] for n in errs),
+          f"{what}: {len(errs)} finite gradients, nearest its limit |difference|/|gradient| "
+          f"{errs[worst][0]:.3g} ({worst}) <= {limit[worst]:.3g}")
     for name in sorted(errs, key=lambda n: -errs[n][0])[:4]:
         print(f"  {name}: norm-relative {errs[name][0]:.3g}, max-relative {errs[name][1]:.3g}",
               flush=True)
@@ -1010,7 +1056,11 @@ def f32_step_against_plain(cfg, batch, want: dict, what: str = "train f32") -> N
 
 
 def training_phase(card: str) -> dict:
-    from structured_alignment_vqa_tpu_torch.parallel import TrainState, adam, make_train_step
+    from structured_alignment_vqa_tpu_torch.parallel.train_step import (
+        TrainState,
+        adam,
+        make_train_step,
+    )
 
     cfg = full_config()
     model = random_model(cfg)
@@ -1181,7 +1231,11 @@ def rel_serving_phase(card: str) -> dict:
 
 
 def rel_training_phase(card: str) -> dict:
-    from structured_alignment_vqa_tpu_torch.parallel import TrainState, adam, make_train_step
+    from structured_alignment_vqa_tpu_torch.parallel.train_step import (
+        TrainState,
+        adam,
+        make_train_step,
+    )
 
     cfg = rel_config()
     model = random_model(cfg)
@@ -1242,7 +1296,7 @@ def rel_training_phase(card: str) -> dict:
     del plain_step, remat_step
     torch.cuda.empty_cache()
     # one step with the sparse GloVe-table optimizer through the flash path
-    from structured_alignment_vqa_tpu_torch.parallel import create_train_state
+    from structured_alignment_vqa_tpu_torch.parallel.train_step import create_train_state
 
     model = random_model(cfg)
     state = create_train_state(model, 1e-4, sparse_table=True)
@@ -1679,7 +1733,10 @@ def dense_against_sparse_step(cfg, batch, card: str) -> None:
     the same loss, the touched table rows within FIRST_STEP_ATOL, the
     untouched rows bitwise unchanged, every other parameter as the dense
     step left it."""
-    from structured_alignment_vqa_tpu_torch.parallel import create_train_state, make_train_step
+    from structured_alignment_vqa_tpu_torch.parallel.train_step import (
+        create_train_state,
+        make_train_step,
+    )
     from structured_alignment_vqa_tpu_torch.parallel.sparse_table import TABLE_NAME, remap_batch
     from structured_alignment_vqa_tpu_torch.train.loop import new_model
 
@@ -1726,7 +1783,10 @@ def table_other_breakdown(card: str) -> None:
     """The device-time breakdown and the memory of one dense and one sparse
     bf16 step at full width (1,843 classes, bs 128, bucket (36, 30, 98)):
     how much of "other" the table's dense Adam takes. Information only."""
-    from structured_alignment_vqa_tpu_torch.parallel import create_train_state, make_train_step
+    from structured_alignment_vqa_tpu_torch.parallel.train_step import (
+        create_train_state,
+        make_train_step,
+    )
 
     cfg = full_config()
     batch = full_batches(cfg, 1)[0]
@@ -1765,7 +1825,7 @@ def train_cli_phase(card: str) -> dict:
     from structured_alignment_vqa_tpu_torch.data.transfer import host_tensors
     from structured_alignment_vqa_tpu_torch.models import AttModelX3
     from structured_alignment_vqa_tpu_torch.ops.quant import quantize_state_dict
-    from structured_alignment_vqa_tpu_torch.parallel import (
+    from structured_alignment_vqa_tpu_torch.parallel.train_step import (
         TrainState,
         adam,
         create_train_state,
@@ -2074,7 +2134,7 @@ def packed_phase(card: str) -> dict:
     from structured_alignment_vqa_tpu_torch.data.packing import collate_packed
     from structured_alignment_vqa_tpu_torch.data.transfer import host_tensors
     from structured_alignment_vqa_tpu_torch.models import AttModelX3
-    from structured_alignment_vqa_tpu_torch.parallel import (
+    from structured_alignment_vqa_tpu_torch.parallel.train_step import (
         TrainState,
         adam,
         create_train_state,
@@ -2322,8 +2382,282 @@ def packed_phase(card: str) -> dict:
     return launches
 
 
+# the dp phase: two ranks on the one card over gloo with CUDA tensors (NCCL
+# refuses two ranks on one device), each a worker process running this
+# script with --dp-rank; the parent holds their f32 steps against its own
+# single-process step on the whole batch
+DP_WORLD = 2
+DP_BF16_STEPS = 3
+DP_LOSS_TOL = 1e-5
+# each gradient by the norm of its difference over its own norm; a wrong
+# reduction (a share counted world times, or missing) moves it by O(1)
+DP_GRAD_TOL = 1e-4
+# obj+rel at bs 4 only: a gradient may exceed DP_GRAD_TOL up to
+# DP_SPREAD_MULT times its own spread in the one process (the same
+# gradient from its plain path against its kernels: the same function
+# summed in other orders), and never above DP_GRAD_CAP; the phase prints
+# each of the largest errors beside that gradient's spread
+DP_SPREAD_MULT = 4
+DP_GRAD_CAP = 5e-3
+# the NCCL group of one: the training CLI on a tree of the cli phase's
+# kind, cut to 4 bs-128 steps an epoch so that two runs fit the phase
+DP_CLI_FIXTURE = dict(CLI_FIXTURE, n_questions=512, n_images=32)
+
+
+def batch_rows(batch, rank: int, world: int):
+    """Rank ``rank``'s rows of a global batch (rank-major halves)."""
+    n = batch.batch_size // world
+    return dataclasses.replace(batch, **{
+        f.name: getattr(batch, f.name)[rank * n:(rank + 1) * n]
+        for f in dataclasses.fields(batch) if getattr(batch, f.name) is not None})
+
+
+def state_digest(state) -> str:
+    """sha256 of every parameter and of the sparse table's Adam state."""
+    import hashlib
+
+    h = hashlib.sha256()
+    tensors = list(state.model.parameters())
+    if state.table_opt is not None:
+        tensors += [state.table_opt.count, state.table_opt.mu, state.table_opt.nu]
+    for t in tensors:
+        h.update(t.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_cases() -> list:
+    """(name, config, global batch, sparse) of the f32 steps held against
+    the single process: dropout 0, so that no mask is drawn."""
+    cfg = full_config(compute_dtype=torch.float32, dropout_rate=0.0)
+    rel = rel_config(compute_dtype=torch.float32, dropout_rate=0.0)
+    return [("obj-only f32", cfg, lambda: full_batches(cfg, 1)[0], False),
+            ("obj-only f32 sparse", cfg, lambda: full_batches(cfg, 1)[0], True),
+            ("obj+rel f32", rel, lambda: rel_batches(rel, 1)[0], False)]
+
+
+def dp_worker(rank: int, coordinator: str, out: str) -> int:
+    """One rank of the dp phase: the f32 steps (rank 0 saves its summed
+    gradients), then bf16 steps with dropout, dense and sparse, with their
+    digests, launches, times and the reduction's bytes and time."""
+    from structured_alignment_vqa_tpu_torch.parallel.mesh import init_distributed, shutdown
+    from structured_alignment_vqa_tpu_torch.parallel.sharding import all_reduce_grads
+    from structured_alignment_vqa_tpu_torch.parallel.train_step import (
+        create_train_state,
+        make_train_step,
+        shard_state,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = init_distributed(coordinator, DP_WORLD, rank, backend="gloo", device="cuda:0")
+    results = {}
+    try:
+        for name, cfg, make_batch, sparse in dp_cases():
+            model = random_model(cfg, seed=3)
+            state = shard_state(create_train_state(model, 1e-4, sparse_table=sparse), mesh)
+            step = make_train_step(model, state.optimizer, cfg, sparse_table=sparse, mesh=mesh)
+            batch = batch_rows(make_batch(), rank, DP_WORLD)
+            reset_launch_counts()
+            m = step(state, batch, torch.Generator(device="cuda").manual_seed(11))
+            torch.cuda.synchronize()
+            results[name] = {"loss": m["loss"].item(), "n": m["n"].item(),
+                             "launches": launch_counts(), "digest": state_digest(state),
+                             "reduced_bytes": step.reduced_bytes}
+            if rank == 0:
+                torch.save({n: p.grad.cpu() for n, p in model.named_parameters()
+                            if p.grad is not None}, f"{out}/grads_{len(results)}.pt")
+            del model, state, step, batch
+            torch.cuda.empty_cache()
+
+        for sparse in (False, True):
+            name = "obj-only bf16" + (" sparse" if sparse else "")
+            cfg = full_config()
+            model = random_model(cfg, seed=3)
+            state = shard_state(create_train_state(model, 1e-4, sparse_table=sparse), mesh)
+            step = make_train_step(model, state.optimizer, cfg, sparse_table=sparse, mesh=mesh)
+            gen = torch.Generator(device="cuda").manual_seed(7 + (rank << 32))
+            batches = [batch_rows(b, rank, DP_WORLD) for b in full_batches(cfg, DP_BF16_STEPS)]
+            step(state, batches[0], gen)            # warm-up step
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            metrics = [step(state, b, gen) for b in batches[1:]]
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {k: v / len(metrics) for k, v in launch_counts().items()}
+            grads = [p.grad for p in model.parameters() if p.grad is not None]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            all_reduce_grads(grads, mesh)           # the dense gradients alone, again
+            torch.cuda.synchronize()
+            reduce_dense_s = time.perf_counter() - t0
+            results[name] = {
+                "losses": [m["loss"].item() for m in metrics],
+                "skipped": sum(m["skipped"].item() for m in metrics),
+                "digest": state_digest(state), "launches_per_step": launches,
+                "step_s": seconds / len(metrics), "reduced_bytes": step.reduced_bytes,
+                "reduce_s": reduce_dense_s,
+                "reduce_bytes": sum(g.numel() * g.element_size() for g in grads)}
+            if rank == 0:
+                by_name = profile_device(lambda: step(state, batches[0], gen),
+                                         f"dp rank 0, one {name} step (gloo on CUDA)")
+                results[name]["profiled"] = bool(by_name)
+            else:
+                step(state, batches[0], gen)        # the profiled step's partner
+            torch.cuda.synchronize()
+            del model, state, step, batches, grads
+            torch.cuda.empty_cache()
+    finally:
+        shutdown(mesh)
+    torch.save(results, f"{out}/rank{rank}.pt")
+    return 0
+
+
+def nccl_one_rank_ms(nbytes: list) -> dict:
+    """ms of an all-reduce of each size in ``nbytes`` over NCCL in a group
+    of this process alone (CUDA events, 5 calls each)."""
+    import torch.distributed as dist
+
+    from structured_alignment_vqa_tpu_torch.parallel.dryrun import free_ports
+    from structured_alignment_vqa_tpu_torch.parallel.mesh import init_distributed, shutdown
+
+    mesh = init_distributed(f"127.0.0.1:{free_ports()[0]}", 1, 0, device="cuda:0")
+    try:
+        out = {}
+        for n in nbytes:
+            buf = torch.ones(n // 4, dtype=torch.float32, device="cuda")
+            out[n] = time_ms(lambda: dist.all_reduce(buf, group=mesh.group), iters=5, warmup=2)
+            del buf
+        return out
+    finally:
+        shutdown(mesh)
+
+
+def dp_against_spread(what: str, dp: tuple, single: tuple, plain: tuple) -> None:
+    """The ranks' step ``dp`` against the one process's ``single``, each
+    gradient held to the larger of DP_GRAD_TOL and DP_SPREAD_MULT times
+    that gradient's own spread (``plain`` against ``single``), capped at
+    DP_GRAD_CAP; prints the largest errors beside their spreads."""
+    spread = grad_errors(plain, single, True)
+    limit = {n: min(DP_GRAD_CAP, max(DP_GRAD_TOL, DP_SPREAD_MULT * spread[n][0]))
+             if n in spread else DP_GRAD_TOL for n in single[1]}
+    compare_steps(what, dp, single, DP_LOSS_TOL, limit, shift_free=True)
+    errs = grad_errors(dp, single, True)
+    errs.pop(None)
+    above = [n for n in errs if errs[n][0] > DP_GRAD_TOL]
+    print(f"  {len(above)} of {len(errs)} gradients above {DP_GRAD_TOL:g}; the largest, each "
+          "beside its own spread in the one process (plain path against kernels):", flush=True)
+    for n in sorted(errs, key=lambda n: -errs[n][0])[:6]:
+        own = spread[n][0] if n in spread else float("nan")
+        print(f"  {n}: ranks {errs[n][0]:.3g}, spread {own:.3g}, limit {limit[n]:.3g}",
+              flush=True)
+
+
+def dp_phase(card: str) -> dict:
+    """Data parallel (ROADMAP item 15) on the card: two gloo ranks against
+    one process at full width, bf16 ranks bitwise equal, the reduction's
+    bytes and times, and the training CLI in an NCCL group of one."""
+    import os
+    import tempfile
+
+    from structured_alignment_vqa_tpu_torch.data.fixtures import write_fixture
+    from structured_alignment_vqa_tpu_torch.parallel.dryrun import free_ports, launch_local
+    from structured_alignment_vqa_tpu_torch.train import main as train_main
+    from structured_alignment_vqa_tpu_torch.utils.checkpoint import saved_epochs
+
+    torch.cuda.empty_cache()
+    mib = 2.0 ** 20
+    with tempfile.TemporaryDirectory() as tmp:
+        coordinator = f"127.0.0.1:{free_ports()[0]}"
+        t0 = time.perf_counter()
+        outs = launch_local([[sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+                              coordinator, tmp] for r in range(DP_WORLD)], timeout=600)
+        print(f"dp: {DP_WORLD} ranks on cuda:0 over gloo ran in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        for r, text in enumerate(outs):
+            for line in text.splitlines():
+                print(f"dp rank {r}: {line}", flush=True)
+        ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=True) for r in range(DP_WORLD)]
+        for i, (name, cfg, make_batch, sparse) in enumerate(dp_cases(), 1):
+            got = ranks[0][name]
+            same = all(r[name]["digest"] == got["digest"] and r[name]["loss"] == got["loss"]
+                       for r in ranks)
+            want_launches = REL_STEP if "rel" in name else {
+                "K1": K1_PER_FORWARD, "K2": K2_PER_STEP, "K3": K3_PER_FORWARD}
+            want_launches = {**{k: 0 for k in got["launches"]}, **want_launches}
+            check(same and all(r[name]["launches"] == want_launches for r in ranks),
+                  f"dp {name}: {DP_WORLD} ranks hold bitwise-equal parameters and one global "
+                  f"loss {got['loss']:.7g} over n {got['n']:g}; launches a rank {got['launches']}"
+                  f" == {want_launches} (a single rank's at its rows)")
+            grads = torch.load(f"{tmp}/grads_{i}.pt", weights_only=True)
+            dp = (got["loss"], {n: g.to("cuda") for n, g in grads.items()}, got["launches"])
+            single = one_step(cfg, make_batch(), sparse=sparse)
+            for n in single[1]:
+                dp[1].setdefault(n, None)
+            what = f"dp {name}, {DP_WORLD} ranks against one process on the whole batch"
+            if "rel" in name:
+                dp_against_spread(what, dp, single,
+                                  one_step(cfg, make_batch(), sparse=sparse, plain=True))
+            else:
+                compare_steps(what, dp, single, DP_LOSS_TOL, DP_GRAD_TOL, shift_free=True)
+            print(f"dp {name}: {got['reduced_bytes'] / mib:.1f} MiB of gradient summed a step",
+                  flush=True)
+            del grads, dp, single
+            torch.cuda.empty_cache()
+        for name in ("obj-only bf16", "obj-only bf16 sparse"):
+            got = ranks[0][name]
+            want = {"K1": K1_PER_FORWARD, "K2": K2_PER_STEP, "K3": K3_PER_FORWARD,
+                    "K4": 0, "K5": 0, "K6": 0}
+            check(all(r[name]["digest"] == got["digest"] for r in ranks)
+                  and all(np.isfinite(got["losses"])) and got["skipped"] == 0
+                  and got["launches_per_step"] == want,
+                  f"dp {name}: {DP_BF16_STEPS} steps with dropout 0.5 (a generator a rank), "
+                  f"losses {['%.5f' % x for x in got['losses']]} finite, none skipped, the ranks "
+                  f"bitwise equal, launches a step a rank {got['launches_per_step']}")
+            print(f"dp {name}: {got['reduced_bytes'] / mib:.1f} MiB summed a step; a step "
+                  f"{got['step_s'] * 1e3:.1f} ms a rank; the dense gradients "
+                  f"({got['reduce_bytes'] / mib:.1f} MiB) summed over gloo on CUDA in "
+                  f"{got['reduce_s'] * 1e3:.1f} ms ({got['reduce_bytes'] / got['reduce_s'] / 1e9:.3f} "
+                  f"GB/s) on {card} (information only: loopback TCP through the host, not "
+                  "NVLink)", flush=True)
+        sizes = [ranks[0]["obj-only bf16"]["reduced_bytes"],
+                 ranks[0]["obj-only bf16 sparse"]["reduced_bytes"]]
+    nccl = nccl_one_rank_ms(sizes)
+    for n, ms in nccl.items():
+        print(f"dp: all-reduce of {n / mib:.1f} MiB over NCCL in a group of one: {ms:.4f} ms on "
+              f"{card} (information only: one rank moves nothing between cards)", flush=True)
+
+    # the training CLI in an NCCL group of one against the same run without
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        write_fixture(data, **DP_CLI_FIXTURE)
+        logged = {}
+        for name, extra in (("alone", []),
+                            ("nccl", ["--coordinator", f"127.0.0.1:{free_ports()[0]}",
+                                      "--num_processes", "1"])):
+            out = os.path.join(tmp, name)
+            argv = (["--data_dir_azure", data, "--output_dir", out, "--num_epochs", "1",
+                     "--cache_dir", os.path.join(tmp, f"{name}_cache")] + TRAIN_CLI_FLAGS + extra)
+            reset_launch_counts()
+            state = train_main.main(argv)
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            logged[name] = [v for _, _, v in logged_step_losses(out)]
+            epochs = saved_epochs(os.path.join(out, "checkpoints"))
+            print(f"dp: training CLI ({name}): {log_lines(out, 'mesh:')[0]}; "
+                  f"{log_lines(out, 'trained')[-1]}", flush=True)
+            del state
+            torch.cuda.empty_cache()
+        check(logged["nccl"] == logged["alone"] and len(logged["nccl"]) > 0 and epochs == [1]
+              and launches["K2"] == K2_PER_STEP * len(logged["nccl"]),
+              f"dp: the training CLI in an NCCL group of one logs the {len(logged['nccl'])} "
+              f"losses of the run without --coordinator bitwise, writes its checkpoint once "
+              f"({epochs}), {launches['K2']} K2 launches")
+    return launches
+
+
 PHASES = ("k1", "k3", "k2", "serving", "training", "k4", "k56", "objrel_serving",
-          "objrel_training", "cli", "train_cli", "packed")
+          "objrel_training", "cli", "train_cli", "packed", "dp")
 PORT = "structured_alignment_vqa_tpu_torch/csrc/"
 TPU = "structured_alignment_vqa_tpu/ops/"
 BF16 = str(torch.bfloat16)
@@ -2374,6 +2708,8 @@ def main(argv: list) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if argv[:1] == ["--dp-rank"] and len(argv) == 4:     # a worker of the dp phase
+        return dp_worker(int(argv[1]), argv[2], argv[3])
     phases = PHASES
     if argv[:1] == ["--phases"] and len(argv) == 2:
         phases = tuple(argv[1].split(","))
@@ -2404,7 +2740,8 @@ def main(argv: list) -> int:
                      "k56": k56_phase}
     path_phases = {"serving": serving_phase, "training": training_phase,
                    "objrel_serving": rel_serving_phase, "objrel_training": rel_training_phase,
-                   "cli": cli_phase, "train_cli": train_cli_phase, "packed": packed_phase}
+                   "cli": cli_phase, "train_cli": train_cli_phase, "packed": packed_phase,
+                   "dp": dp_phase}
     rows, by_path = {}, {}
     for phase in phases:
         t0 = time.perf_counter()

@@ -8,7 +8,9 @@ training and eval steps (``parallel.train_step``), the host data pipeline
 batch caches, fixtures; ``data/transfer.py`` moves batches to the card),
 the training CLI (``python -m structured_alignment_vqa_tpu_torch.train.main``,
 ``train/loop.py``; the sparse GloVe-table optimizer of
-``parallel/sparse_table.py``) and the predict and eval CLIs (``.train.predict``,
+``parallel/sparse_table.py``; data parallel over ranks and hosts,
+``parallel/{mesh,context,sharding}.py``, ``.train.launch``) and the predict
+and eval CLIs (``.train.predict``,
 with int8 serving from ``ops/quant.py``, / ``.train.evaluate``; checkpoints
 of ``utils.checkpoint``).
 The TPU package's six

@@ -17,6 +17,12 @@ Modules carry the reference's torch state-dict names
 ...), so ``models/convert.py`` output and the TPU package's
 ``export_state_dict(..., ddp_prefix=False)`` load with ``strict=True``.
 Parameters the reference defines but its forward never reads are omitted.
+
+Under a mesh of several ranks (``parallel/context.py``) the model computes
+what the TPU package's step computes on the global batch: the relation
+branch's objective and joint softmax run over every rank's records, the
+MCB norm over every rank's rows, and ``mil_obj``/``mil_rel`` are this
+rank's shares of the global terms (they sum over the ranks to them).
 """
 
 from __future__ import annotations
@@ -52,6 +58,8 @@ from structured_alignment_vqa_tpu_torch.ops.mil_nce import (
     mil_nce_rel_objective,
 )
 from structured_alignment_vqa_tpu_torch.ops.quant import QDense, quantized_lookup
+from structured_alignment_vqa_tpu_torch.parallel.context import distributed_mesh
+from structured_alignment_vqa_tpu_torch.parallel.sharding import gather_rows, gather_scores
 
 BOS_ID = 2  # decoder input token
 # the generator the MCB head's frozen count sketches are drawn from: the TPU
@@ -360,10 +368,21 @@ class MILNCEModule(nn.Module):
 
         pos_valid = micro_pos_rel_loc[..., 3] >= 0
         neg_valid = micro_neg_rel_loc[..., 3] >= 0
-        pos_scores = gathered_bilinear(micro_pos_rel_loc)
-        neg_scores = gathered_bilinear(micro_neg_rel_loc)
-        mil_rel = mil_nce_rel_objective(pos_scores.reshape(-1), pos_valid.reshape(-1),
-                                        neg_scores.reshape(-1), neg_valid.reshape(-1))
+        pos_scores = gathered_bilinear(micro_pos_rel_loc).reshape(-1)
+        neg_scores = gathered_bilinear(micro_neg_rel_loc).reshape(-1)
+        all_pos, all_pos_valid = pos_scores, pos_valid.reshape(-1)
+        all_neg, all_neg_valid = neg_scores, neg_valid.reshape(-1)
+        mesh = distributed_mesh()
+        if mesh is not None:
+            # the global batch's records in rank order, as the TPU package's
+            # global-batch step flattens them: the objective and the joint
+            # softmax below run over every rank's positives
+            all_pos, all_neg = gather_scores([pos_scores, neg_scores], mesh)
+            valids, _ = gather_rows([all_pos_valid, all_neg_valid], mesh)
+            all_pos_valid, all_neg_valid = (v.bool() for v in valids)
+        mil_rel = mil_nce_rel_objective(all_pos, all_pos_valid, all_neg, all_neg_valid)
+        if mesh is not None:
+            mil_rel = mil_rel / mesh.world   # every rank's share: see gather_scores
 
         # zero every positive-relation macro row, then add the softmax-weighted
         # relation embeddings; invalid records go to a spare row that is dropped
@@ -375,8 +394,11 @@ class MILNCEModule(nn.Module):
             (rows, safe_loc), new_macro.new_ones(()))[:, :ls]
         new_macro = new_macro * (1.0 - row_zero[..., None])
 
+        # each sample reads entry micro_loc of the compacted positives of the
+        # whole (global) batch, the reference's quirk: under a mesh, entries
+        # other ranks' samples wrote
         weights = compact_softmax_gather(
-            pos_scores.reshape(-1), pos_valid.reshape(-1),
+            all_pos, all_pos_valid,
             torch.where(pos_valid, micro_loc, torch.full_like(micro_loc, -1)).reshape(-1),
         ).reshape(b, k)
         contrib = weights[..., None].to(new_macro.dtype) * rel_fea[bi, micro_loc.clamp(0, k - 1)]

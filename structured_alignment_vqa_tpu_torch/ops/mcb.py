@@ -14,13 +14,18 @@ Quirks kept:
   ``output_dim`` to undo it; ``torch.fft.irfft`` divides by n too, so the
   ``* output_dim`` stays;
 * the L2 normalization runs over **dim 0**, the batch axis, padding rows
-  included (``AttModel_x3.py:468``).
+  included (``AttModel_x3.py:468``); under a mesh of several ranks
+  (``parallel/context.py``) over the global batch, as in the TPU package's
+  global-batch step: the sum of squares is summed over the ranks.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from structured_alignment_vqa_tpu_torch.parallel.context import distributed_mesh
+from structured_alignment_vqa_tpu_torch.parallel.sharding import sum_over_ranks
 
 
 def count_sketch_matrix(rng: np.random.Generator, input_dim: int, output_dim: int) -> np.ndarray:
@@ -46,5 +51,9 @@ def compact_bilinear_pooling(x1: torch.Tensor, x2: torch.Tensor, sketch1: torch.
     f2 = torch.fft.rfft(torch.matmul(x2.float(), sketch2.float()), dim=-1)
     cbp = torch.fft.irfft(f1 * f2, n=output_dim, dim=-1) * output_dim
     signed_sqrt = torch.sqrt(torch.relu(cbp)) - torch.sqrt(torch.relu(-cbp))
-    norm = torch.sqrt(torch.sum(torch.square(signed_sqrt), dim=0, keepdim=True))
+    sum_sq = torch.sum(torch.square(signed_sqrt), dim=0, keepdim=True)
+    mesh = distributed_mesh()
+    if mesh is not None:
+        sum_sq = sum_over_ranks(sum_sq, mesh)
+    norm = torch.sqrt(sum_sq)
     return signed_sqrt / torch.clamp(norm, min=1e-12)

@@ -5,11 +5,20 @@ The reference gathers only the *valid* candidate scores into ragged vectors
 and runs logsumexp and softmax over them. As in the TPU package, every slot
 is kept and invalid ones are masked to -inf, which is the same because
 exp(-inf) = 0; so shapes do not depend on the data.
+
+Under a mesh of several ranks (``parallel/context.py``) each function works
+on the global batch, as the TPU package's global-batch step does: the
+object term's mean runs over every rank's (B, O) and each rank returns its
+share; the relation functions take the scores the model gathered from
+every rank in rank order (``models/att_model_x3.py``).
 """
 
 from __future__ import annotations
 
 import torch
+
+from structured_alignment_vqa_tpu_torch.parallel.context import distributed_mesh
+from structured_alignment_vqa_tpu_torch.parallel.sharding import gather_scores, host_sum
 
 # Scores are clamped at this floor before logsumexp (reference ``.clamp(min=eps)``).
 MIL_EPS = 1e-6
@@ -30,14 +39,19 @@ def mil_nce_obj_objective(pos_scores: torch.Tensor, neg_scores: torch.Tensor) ->
     object validity mask. Everything (masked zeros included) is clamped at
     eps; the numerator logsumexps the positives beside an all-eps block, the
     denominator beside the negatives, along the object axis, over topN; the
-    result is the global mean of their difference.
+    result is the global mean of their difference; under a mesh of several
+    ranks, this rank's share of it (its sum over the global count).
     """
     pos_c = pos_scores.float().clamp_min(MIL_EPS)
     neg_c = neg_scores.float().clamp_min(MIL_EPS)
     eps_block = torch.full_like(neg_c, MIL_EPS)
     numerator = torch.logsumexp(torch.cat([pos_c, eps_block], dim=1), dim=2)
     denominator = torch.logsumexp(torch.cat([pos_c, neg_c], dim=1), dim=2)
-    return (numerator - denominator).mean()
+    diff = numerator - denominator
+    mesh = distributed_mesh()
+    if mesh is None:
+        return diff.mean()
+    return diff.sum() / host_sum([diff.numel()], mesh)[0]
 
 
 def mil_nce_rel_objective(pos_scores: torch.Tensor, pos_valid: torch.Tensor,
@@ -69,9 +83,10 @@ def compact_softmax_gather(scores: torch.Tensor, valid: torch.Tensor,
     entry ``micro_rel_loc`` of that compacted vector for each positive.
 
     ``scores`` (M,) raw scores in batch-major flattening, ``valid`` (M,)
-    booleans, ``gather_idx`` (M,) indices into the compacted vector. Returns
-    (M,) float32 weights; an index outside [0, M) or beyond the number of
-    valid entries gives 0.
+    booleans, ``gather_idx`` indices into the compacted vector (the same
+    length, or under a mesh this rank's slots of the global ``scores``).
+    Returns float32 weights shaped as ``gather_idx``; an index outside
+    [0, M) or beyond the number of valid entries gives 0.
     """
     m = scores.shape[0]
     clamped = scores.float().clamp_min(MIL_EPS)

@@ -1,9 +1,6 @@
-from structured_alignment_vqa_tpu_torch.parallel.train_step import (
-    TrainState,
-    adam,
-    create_train_state,
-    make_eval_step,
-    make_train_step,
-)
-
-__all__ = ["TrainState", "adam", "create_train_state", "make_eval_step", "make_train_step"]
+"""Train and eval steps (``train_step``), the sparse GloVe-table optimizer
+(``sparse_table``) and data parallelism (``mesh``, ``context``,
+``sharding``). The package re-exports nothing: the model's modules import
+``parallel.context`` and ``parallel.sharding``, and ``train_step`` imports
+the model, so a package that imported the step would import it into a
+half-built model module."""

@@ -24,6 +24,10 @@ momentum decays. The first update from fresh moments is dense Adam's
 exactly; later ones deviate once a row goes untouched with momentum in
 flight. Hence the path is opt-in (``--sparse_table``). It needs
 ``share_glove``: one table to segment the optimizer over.
+
+Data parallel, the table is replicated on every rank (the TPU package's
+replicate-when-sparse rule, its ``shard_state``): the ranks dedup the
+union of their ids, sum the block gradient and apply the same update.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from typing import Tuple
 import torch
 
 from structured_alignment_vqa_tpu_torch.data.batch import VQABatch
+from structured_alignment_vqa_tpu_torch.parallel.sharding import gather_rows
 
 # The shared table's state-dict name (``share_glove``; the same module also
 # answers to ``att_vis_grid.syb_emb.weight`` and ``att_syb.syb_emb.weight``).
@@ -74,20 +79,30 @@ def _dedup_ids(flat: torch.Tensor, vocab_size: int):
     return uids, pos, valid
 
 
-def remap_batch(batch: VQABatch, cfg) -> Tuple[VQABatch, torch.Tensor, torch.Tensor]:
+def remap_batch(batch: VQABatch, cfg, mesh=None) -> Tuple[VQABatch, torch.Tensor, torch.Tensor]:
     """Dedup the batch's GloVe ids and remap its id fields to positions in
     the (U, D) row block ``table[uids]``.
 
     Returns ``(remapped_batch, uids, valid)`` as :func:`_dedup_ids` gives
     them (U = the id fields' total size); each remapped field keeps its
-    dtype.
+    dtype. With a ``mesh`` of several ranks (``parallel/mesh.py``) the
+    dedup runs over the union of every rank's ids, as the TPU package's
+    over its global batch: every rank gets the same ``uids`` and
+    ``valid`` (U = the id slots of the global batch), so the ranks can sum
+    their block gradients and take one update.
     """
     fields = table_id_fields(cfg.only_obj)
     parts = [getattr(batch, f) for f in fields]
     # clamped: the embedded fields carry PAD=400000, never -1, but an id
     # out of range would index outside the bitmap
     flat = torch.cat([p.reshape(-1) for p in parts]).long().clamp(0, cfg.vocab_size - 1)
-    uids, inv, valid = _dedup_ids(flat, cfg.vocab_size)
+    if mesh is None or not mesh.distributed:
+        uids, inv, valid = _dedup_ids(flat, cfg.vocab_size)
+    else:
+        (every,), sizes = gather_rows([flat], mesh)
+        uids, inv, valid = _dedup_ids(every, cfg.vocab_size)
+        start = sum(row[0] for row in sizes[:mesh.rank])
+        inv = inv[start:start + flat.numel()]
     out = {}
     off = 0
     for f, p in zip(fields, parts):

@@ -1,5 +1,6 @@
 """Train and eval steps (counterpart of the TPU package's
-``parallel/train_step.py``), single device, dense parameters.
+``parallel/train_step.py``), on one device or as one rank of a
+data-parallel mesh.
 
 One training step is what the reference's batch loop does
 (``main_itp_ddp_tar_super_node.py:268-366``):
@@ -11,15 +12,25 @@ On the card the forward launches K1 (K4 above 512 keys) and K3 and the
 backward launches K2 (K5 and K6), the graph attentions' backwards; K3's
 backward is autograd of its composite, as in the TPU package. With
 ``sparse_table`` the shared GloVe table leaves the dense Adam and takes the
-lazy sparse update of ``parallel/sparse_table.py``. The data-parallel
-reduction and the mesh are not part of this slice (ROADMAP Queue 1 item
-15).
+lazy sparse update of ``parallel/sparse_table.py``.
+
+Data parallel (``mesh`` of several ranks, ``parallel/mesh.py``), a step
+equals the single-device step on the global batch, the ranks' rows
+concatenated in rank order, as the TPU package's GSPMD step does: every
+cross-sample term is global (``parallel/context.py``), each rank's loss is
+its share of the global loss, the gradients are summed over the ranks in
+flat buckets after the backward (``parallel/sharding.py:all_reduce_grads``;
+an explicit reduction rather than a ``DistributedDataParallel`` wrapper,
+which would not see the sparse table's block that ``functional_call`` puts
+in place of the table), and the skip-nonfinite guard reads the summed
+gradients, so every rank takes the same decision with no further
+collective. :func:`shard_state` replicates rank 0's state.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 from torch import nn
@@ -27,6 +38,14 @@ from torch.func import functional_call
 
 from structured_alignment_vqa_tpu_torch.data.batch import VQABatch
 from structured_alignment_vqa_tpu_torch.models.config import ModelConfig
+from structured_alignment_vqa_tpu_torch.parallel.context import use_mesh
+from structured_alignment_vqa_tpu_torch.parallel.mesh import Mesh
+from structured_alignment_vqa_tpu_torch.parallel.sharding import (
+    all_reduce_grads,
+    all_reduce_sum,
+    broadcast_,
+    shard_params,
+)
 from structured_alignment_vqa_tpu_torch.parallel.sparse_table import (
     TABLE_NAME,
     TableOpt,
@@ -102,6 +121,36 @@ def create_train_state(model: nn.Module, lr: float = 1e-4, warmup_steps: int = 0
                       table_opt=init_table_opt(table.detach(), table_moments_dtype))
 
 
+def shard_state(state: TrainState, mesh: Mesh) -> TrainState:
+    """Put ``state`` on the mesh: rank 0's parameters, buffers, Adam moments
+    and step counts, and the sparse table's ``count``, ``mu`` and ``nu``,
+    broadcast to every rank (in place; returns ``state``). The table is
+    replicated, the TPU package's replicate-when-sparse rule. A mesh
+    without a group leaves the state as it is."""
+    if mesh.group is None:
+        return state
+    shard_params(state.model, mesh)
+    if state.optimizer is not None:
+        broadcast_([t for per_param in state.optimizer.state.values()
+                    for t in per_param.values() if torch.is_tensor(t)], mesh)
+    if state.table_opt is not None:
+        topt = state.table_opt
+        broadcast_([topt.count, topt.mu, topt.nu], mesh)
+    return state
+
+
+def _global(values: Dict[str, torch.Tensor], mesh: Mesh,
+            extra: float = 0.0) -> Tuple[Dict[str, torch.Tensor], float]:
+    """Each metric summed over the ranks in one all-reduce (a rank's loss
+    terms are its shares of the global ones, its counts its own), and the
+    sum of ``extra``."""
+    keys = list(values)
+    stacked = torch.stack([values[k].detach().float() for k in keys]
+                          + [values[keys[0]].new_tensor(extra, dtype=torch.float32)])
+    summed = all_reduce_sum(stacked, mesh)
+    return {k: summed[i] for i, k in enumerate(keys)}, float(summed[-1])
+
+
 def _schedule_lr(optimizer: torch.optim.Optimizer) -> None:
     for group in optimizer.param_groups:
         warmup = group.get("warmup_steps", 0)
@@ -142,8 +191,8 @@ def _objective(model: nn.Module, cfg: ModelConfig, batch: VQABatch, generator,
 
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, cfg: ModelConfig,
                     with_milnce: bool = True, smooth_eps: float = 0.1,
-                    skip_nonfinite: bool = True,
-                    sparse_table: bool = False) -> Callable[..., Dict[str, torch.Tensor]]:
+                    skip_nonfinite: bool = True, sparse_table: bool = False,
+                    mesh: Optional[Mesh] = None) -> Callable[..., Dict[str, torch.Tensor]]:
     """Return ``step(state, batch, generator) -> metrics``.
 
     The step puts the model in train mode; every dropout mask is drawn from
@@ -166,7 +215,17 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, cfg: Mod
     group, as :func:`adam` stores them); the guard covers it too, and its decision reaches the table's update as a
     device flag. The state must come from ``create_train_state(...,
     sparse_table=True)``.
+
+    ``mesh`` (``parallel/mesh.py``): with several ranks each calls the step
+    on its own rows with its own generator (seeded per rank), and the step
+    is the single-device step on the global batch: the metrics are global
+    (the losses of the global batch, its counts), the gradients summed over
+    the ranks before the guard and the update, and the sparse table's
+    dedup runs over every rank's ids. ``step.reduced_bytes`` holds the
+    bytes of gradient the last step summed. With one rank, or none, the
+    step is the single-device step, bit for bit.
     """
+    distributed = mesh is not None and mesh.distributed
     table = None
     if sparse_table:
         if cfg.int8_serving:
@@ -180,20 +239,27 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, cfg: Mod
             raise ValueError("state holds another model or optimizer than this step's")
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        if table is None:
-            metrics = _objective(model, cfg, batch, generator, with_milnce, smooth_eps)
-            metrics["loss"].backward()
-            grads = [p.grad for p in params if p.grad is not None]
-        else:
-            if state.table_opt is None:
-                raise ValueError("sparse_table needs a state from "
-                                 "create_train_state(..., sparse_table=True)")
-            rbatch, uids, valid = remap_batch(batch, cfg)
-            rows = table.detach()[uids].requires_grad_(True)
-            metrics = _objective(model, cfg, rbatch, generator, with_milnce, smooth_eps,
-                                 table_rows=rows)
-            metrics["loss"].backward()
-            grads = [p.grad for p in params if p.grad is not None] + [rows.grad]
+        with use_mesh(mesh):
+            if table is None:
+                metrics = _objective(model, cfg, batch, generator, with_milnce, smooth_eps)
+                metrics["loss"].backward()
+                grads = [p.grad for p in params if p.grad is not None]
+            else:
+                if state.table_opt is None:
+                    raise ValueError("sparse_table needs a state from "
+                                     "create_train_state(..., sparse_table=True)")
+                rbatch, uids, valid = remap_batch(batch, cfg, mesh)
+                rows = table.detach()[uids].requires_grad_(True)
+                metrics = _objective(model, cfg, rbatch, generator, with_milnce, smooth_eps,
+                                     table_rows=rows)
+                metrics["loss"].backward()
+                grads = [p.grad for p in params if p.grad is not None] + [rows.grad]
+        if distributed:
+            metrics, n_grads = _global(metrics, mesh, extra=len(grads))
+            if n_grads != mesh.world * len(grads):
+                raise RuntimeError(f"the ranks hold {n_grads:g} gradients in all, this rank "
+                                   f"{len(grads)}: their graphs differ")
+            step.reduced_bytes = all_reduce_grads(grads, mesh)
         finite = _all_finite(grads) if skip_nonfinite else None
         if table is not None:
             group = optimizer.param_groups[0]
@@ -210,23 +276,31 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, cfg: Mod
         out["skipped"] = torch.tensor(0.0 if apply else 1.0, device=out["loss"].device)
         return out
 
+    step.reduced_bytes = 0
     return step
 
 
 def make_eval_step(model: nn.Module, cfg: ModelConfig, with_milnce: bool = True,
-                   smooth_eps: float = 0.1) -> Callable[[TrainState, VQABatch], Dict]:
+                   smooth_eps: float = 0.1,
+                   mesh: Optional[Mesh] = None) -> Callable[[TrainState, VQABatch], Dict]:
     """Return ``eval(state, batch) -> metric sums``: ``loss_sum`` and
     ``mil_sum`` (each the batch mean times ``n``), ``n_correct`` and ``n``,
     so that a caller can add them up over batches (reference eval loop,
     ``main:42-142``). The model runs in eval mode: no dropout, no mask drawn.
+    With a ``mesh`` of several ranks the sums are the global batch's, the
+    same on every rank (the TPU package's psum'd metrics).
     """
+    distributed = mesh is not None and mesh.distributed
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: VQABatch) -> Dict[str, torch.Tensor]:
         if state.model is not model:
             raise ValueError("state holds another model than this eval step's")
         model.eval()
-        m = _objective(model, cfg, batch, None, with_milnce, smooth_eps)
+        with use_mesh(mesh):
+            m = _objective(model, cfg, batch, None, with_milnce, smooth_eps)
+        if distributed:
+            m, _ = _global(m, mesh)
         return {"loss_sum": m["loss"] * m["n"], "mil_sum": m["mil_nce_loss"] * m["n"],
                 "n_correct": m["n_correct"], "n": m["n"]}
 

@@ -9,6 +9,15 @@ sink, batch replay, device-resident frozen batches, the sparse table.
 Batches reach the card through ``data/transfer.py`` (pinned copies on a
 side stream, two batches ahead), and metrics are read back ``metric_lag``
 steps late through pinned copies, so the host keeps queueing work.
+
+Data parallel (a ``Mesh`` of several ranks, ``parallel/mesh.py``), as the
+TPU package's ``train`` over several processes: each rank loads its stride
+of the samples (``batch_size`` over the host's ranks a step), the state is
+rank 0's (``shard_state``), the steps' metrics and the eval sums are
+global, log lines and metrics come from rank 0, rank 0 writes the
+checkpoints, and each rank keeps its own caches and resident batches. A
+training pass ends at the first step where a rank has run out of batches;
+an eval pass runs until every rank has (``lockstep``).
 """
 
 from __future__ import annotations
@@ -22,19 +31,24 @@ from typing import Optional
 import numpy as np
 import torch
 
+from structured_alignment_vqa_tpu_torch.data.batch import VQABatch
 from structured_alignment_vqa_tpu_torch.data.dataset import (
     BatchLoader,
+    BatchShape,
     DataConfig,
     GQASuperNodeDataset,
+    collate,
 )
 from structured_alignment_vqa_tpu_torch.data.transfer import BatchMover, HostFetch, shipped
-from structured_alignment_vqa_tpu_torch.device import resolve_device
 from structured_alignment_vqa_tpu_torch.models import AttModelX3, ModelConfig
 from structured_alignment_vqa_tpu_torch.models.att_model_x3 import GloVeEmbed
+from structured_alignment_vqa_tpu_torch.parallel.mesh import Mesh, check_axes, single_mesh
+from structured_alignment_vqa_tpu_torch.parallel.sharding import host_sum
 from structured_alignment_vqa_tpu_torch.parallel.train_step import (
     create_train_state,
     make_eval_step,
     make_train_step,
+    shard_state,
 )
 from structured_alignment_vqa_tpu_torch.utils.checkpoint import (
     latest_epoch,
@@ -51,8 +65,8 @@ _METRICS = ("loss_sum", "mil_sum", "n_correct", "n")
 @dataclasses.dataclass
 class TrainerConfig:
     """The TPU package's ``TrainerConfig``, field for field, with its
-    defaults. One configures what the port does not run yet: several
-    devices (``model_parallel``; ROADMAP Queue 1 item 15). ``n_pack > 1``
+    defaults. One configures what the port does not run yet: the model
+    axis (``model_parallel > 1``; ROADMAP Queue 1 item 15b). ``n_pack > 1``
     packs the training batches (``data/packing.py``; ``pack_bucket`` picks
     their bucket, None the largest) and evaluates val through the tight
     collate."""
@@ -138,6 +152,63 @@ def run_eval(eval_step, state, loader, logger, log_steps, tag="", metric_lag: in
     return loss_meter.avg, n_correct, n_total
 
 
+def padding_like(batch: VQABatch) -> VQABatch:
+    """A batch of ``batch``'s shapes, dtypes and device that holds padding
+    rows only: the rows ``collate`` writes for no sample
+    (``sample_valid`` 0, no object and no relation candidate)."""
+    shape = BatchShape(lv=batch.vis_fea.shape[1], ls=batch.macro_ipt.shape[1],
+                       lq=batch.q_ipt.shape[1], n_rel=batch.micro_pos_rel.shape[1])
+    rows = collate([None] * batch.batch_size, shape, batch.micro_pos_obj.shape[-1],
+                   batch.vis_fea.shape[-1])
+    like = {f.name: getattr(batch, f.name) for f in dataclasses.fields(batch)}
+    return VQABatch(**{k: None if v is None else
+                       torch.as_tensor(getattr(rows, k)).to(v.device, v.dtype)
+                       for k, v in like.items()})
+
+
+def lockstep(batches, mesh: Mesh, logger, what: str, pad: bool = False):
+    """``batches`` in step with the other ranks of ``mesh``: the ranks'
+    loaders can run out at different steps (each buckets its own samples),
+    and a step whose collectives one rank skips would hang the others. One
+    small all-reduce a step.
+
+    A training pass (``pad=False``) ends at the first step where any rank
+    has no batch: every rank drains what it has left (so that the caches
+    built on the way are published) and rank 0 logs how many batches the
+    ranks left over in all. An eval pass (``pad=True``) runs until every
+    rank is done, a rank that has run out stepping on
+    :func:`padding_like` its last batch, so that the global sums cover
+    every rank's samples. With one rank, ``batches`` as they are."""
+    if not mesh.distributed:
+        yield from batches
+        return
+    it = iter(batches)
+    last = None
+    while True:
+        batch = next(it, None)
+        done, never = host_sum([batch is None, batch is None and last is None], mesh)
+        if not done:
+            last = batch
+            yield batch
+            continue
+        if not pad or done == mesh.world:
+            break
+        if never:
+            raise ValueError(f"{what}: a rank has no batch at all to pad from "
+                             f"({int(never)} of {mesh.world} ranks)")
+        if batch is None:
+            batch = padding_like(last)
+        else:
+            last = batch
+        yield batch
+    if pad:
+        return
+    (left,) = host_sum([(batch is not None) + sum(1 for _ in it)], mesh)
+    if left:
+        logger.info("%s: the ranks stopped at the first step where one had no batch; "
+                    "%d batch(es) left over on the others", what, int(left))
+
+
 def new_model(model_cfg: ModelConfig, seed: int, device) -> AttModelX3:
     """The model with its initial weights drawn from ``seed`` (the global
     generators are left as they were)."""
@@ -154,30 +225,44 @@ def train(
     val_data_cfg: Optional[DataConfig] = None,
     glove_table: Optional[np.ndarray] = None,
     device=None,
+    mesh: Optional[Mesh] = None,
 ):
     """Full training run on ``device`` (``None``: the CUDA card, raising
-    without one); returns the final ``TrainState``.
+    without one), or as one rank of ``mesh`` on its device; returns the
+    final ``TrainState``.
 
     The TPU package draws a probe batch to build its parameters from; the
     port's modules need no sample batch, so none is drawn.
     """
     tc = trainer_cfg
-    device = resolve_device(device)
-    logger = setup_logging(tc.output_dir)
-    metrics_out = MetricLogger(tc.output_dir)
-    logger.info("device: %s%s", device,
-                f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
+    check_axes(tc.model_parallel)
+    mesh = mesh or single_mesh(device)
+    device, rank, world = mesh.device, mesh.rank, mesh.world
+    if tc.batch_size % mesh.local_world:
+        raise ValueError(f"batch_size {tc.batch_size} does not split over the host's "
+                         f"{mesh.local_world} ranks")
+    rows = tc.batch_size // mesh.local_world
+    logger = setup_logging(tc.output_dir, rank)
+    metrics_out = MetricLogger(tc.output_dir, rank)
+    logger.info("device: %s%s; mesh: %s over %d rank(s), %d row(s) a rank a step", device,
+                f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "",
+                mesh.shape, world, rows)
 
     train_ds = GQASuperNodeDataset("train", data_cfg)
     val_ds = GQASuperNodeDataset("val", val_data_cfg or data_cfg)
     model_cfg = model_cfg.replace(topn=data_cfg.topn, only_obj=data_cfg.only_obj)
     model = new_model(model_cfg, tc.seed, device)
 
-    cache = lambda split: f"{tc.cache_dir}/{split}" if tc.cache_dir else None  # noqa: E731
+    # each rank its own cache roots: a root publishes one loader's batches
+    shard = f"/rank{rank}of{world}" if world > 1 else ""
+
+    def cache(split):
+        return f"{tc.cache_dir}/{split}{shard}" if tc.cache_dir else None
+
     if tc.batch_replay and not tc.cache_dir:
         raise ValueError("batch_replay needs cache_dir for its on-disk root")
     train_loader = BatchLoader(
-        train_ds, tc.batch_size, shuffle=True, seed=tc.seed,
+        train_ds, rows, shuffle=True, seed=tc.seed, shard_idx=rank, num_shards=world,
         num_threads=tc.num_workers, num_procs=tc.num_procs, n_pack=tc.n_pack,
         pack_bucket=tc.pack_bucket, cache_dir=cache("train"),
         batch_replay_dir=cache("train_batches") if tc.batch_replay else None,
@@ -185,7 +270,8 @@ def train(
     # val order is fixed, so the val passes after the first stream the
     # materialized collated batches (data/batch_cache.py)
     val_loader = BatchLoader(
-        val_ds, tc.batch_size, shuffle=False, num_threads=tc.num_workers,
+        val_ds, rows, shuffle=False, shard_idx=rank, num_shards=world,
+        num_threads=tc.num_workers,
         num_procs=tc.num_procs, tight=tc.n_pack > 1, cache_dir=cache("val"),
         batch_cache_dir=cache("val_batches"),
     )
@@ -196,26 +282,29 @@ def train(
     if glove_table is not None:
         graft_glove(model, glove_table)
 
-    # the dropout masks: one generator seeded from seed + 1, its state saved
-    # with each checkpoint (the TPU package folds the step into its key)
-    rng = torch.Generator(device).manual_seed(tc.seed + 1)
+    # the dropout masks: one generator seeded from seed + 1 (and the rank
+    # above bit 32, so that no two ranks draw the same masks), its state
+    # saved with each checkpoint (the TPU package folds the step into its key)
+    rng = torch.Generator(device).manual_seed(tc.seed + 1 + (rank << 32))
     start_epoch = 0
     ckpt_dir = f"{tc.output_dir}/checkpoints"
     if tc.resume and latest_epoch(ckpt_dir) is not None:
-        state, start_epoch = restore_checkpoint(ckpt_dir, state, generator=rng)
+        state, start_epoch = restore_checkpoint(ckpt_dir, state, generator=rng, mesh=mesh)
         logger.info("resumed from epoch %d", start_epoch)
+    shard_state(state, mesh)
 
     train_step = make_train_step(
         model, state.optimizer, model_cfg, with_milnce=tc.with_milnce,
-        sparse_table=tc.sparse_table)
-    eval_step = make_eval_step(model, model_cfg, with_milnce=tc.with_milnce)
+        sparse_table=tc.sparse_table, mesh=mesh)
+    eval_step = make_eval_step(model, model_cfg, with_milnce=tc.with_milnce, mesh=mesh)
     # float32 features ship as bf16 when the model computes in bf16 (exact:
     # the model's own cast rounds identically, data/transfer.py)
     mover = BatchMover(device, bf16_features=model_cfg.compute_dtype == torch.bfloat16)
     timer = StepTimer()
 
-    def device_batches(loader):
-        return (ship.ready() for _, ship in shipped(loader, mover))
+    def device_batches(loader, what, pad=False):
+        return lockstep((ship.ready() for _, ship in shipped(loader, mover)), mesh, logger,
+                        what, pad)
 
     # device-resident frozen batches (TrainerConfig.resident_gb): pinned the
     # first epoch after the corresponding cache materializes
@@ -257,15 +346,16 @@ def train(
                 metrics_out.log("Avg MILNCE_loss", mil_meter.avg, int(state.step))
 
         if resident_train is not None:
-            batches = (resident_train[0][int(j)] for j in
-                       train_loader.replay_order(epoch, len(resident_train[0])))
+            batches = lockstep((resident_train[0][int(j)] for j in
+                                train_loader.replay_order(epoch, len(resident_train[0]))),
+                               mesh, logger, "train")
         else:
-            batches = device_batches(train_loader)
+            batches = device_batches(train_loader, "train")
         tracing = None
         t0 = time.perf_counter()
         n_steps = n_samples = 0
         for i, batch in enumerate(batches):
-            if tc.profile_steps and epoch == start_epoch:
+            if tc.profile_steps and epoch == start_epoch and rank == 0:
                 if i == tc.profile_start:
                     tracing = start_trace()
                 elif tracing is not None and i == tc.profile_start + tc.profile_steps:
@@ -290,7 +380,7 @@ def train(
         # the final epoch always evals
         if (epoch + 1) % tc.eval_every and epoch + 1 != tc.num_epochs:
             if (epoch + 1) % tc.checkpoint_every == 0:
-                save_checkpoint(ckpt_dir, state, epoch + 1, tc.max_checkpoints, rng)
+                save_checkpoint(ckpt_dir, state, epoch + 1, tc.max_checkpoints, rng, mesh)
             continue
         if resident_val is None and resident_budget > 0:
             # materializes on the first (streamed) val pass, resident after
@@ -299,14 +389,16 @@ def train(
                 resident_budget -= resident_val[1]
         val_loss, val_corr, val_n = run_eval(
             eval_step, state,
-            iter(resident_val[0]) if resident_val is not None else device_batches(val_loader),
+            lockstep(resident_val[0], mesh, logger, "val", pad=True)
+            if resident_val is not None else device_batches(val_loader, "val", pad=True),
             logger, tc.log_steps_val, "val")
         # train eval reuses the resident replay batches: the same content,
         # and the order does not change the summed metrics
         train_loss, tr_corr, tr_n = run_eval(
             eval_step, state,
-            iter(resident_train[0]) if resident_train is not None
-            else device_batches(train_loader),
+            lockstep(resident_train[0], mesh, logger, "train eval", pad=True)
+            if resident_train is not None
+            else device_batches(train_loader, "train eval", pad=True),
             logger, tc.log_steps, "train")
 
         val_acc = val_corr / max(val_n, 1)
@@ -325,7 +417,7 @@ def train(
         metrics_out.log("Train Acc", train_acc, epoch + 1)
 
         if (epoch + 1) % tc.checkpoint_every == 0:
-            save_checkpoint(ckpt_dir, state, epoch + 1, tc.max_checkpoints, rng)
+            save_checkpoint(ckpt_dir, state, epoch + 1, tc.max_checkpoints, rng, mesh)
 
     return state
 

@@ -5,7 +5,12 @@ average the log-softmaxes of the three classifier heads, cross-entropy
 against the label-smoothed one-hot answer, plus the negated MIL-NCE terms.
 
 Invalid samples stay in the batch with ``sample_valid=0``; the mean runs
-over the valid ones, floored at 1.
+over the valid ones, floored at 1. Under a mesh of several ranks
+(``parallel/context.py``) the mean is over the *global* batch, as in the
+TPU package's global-batch step: each rank returns its share, its own
+samples' sum over the global count of valid samples, and the shares sum
+over the ranks to the global loss and, through the backward, to its
+gradient.
 """
 
 from __future__ import annotations
@@ -16,6 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from structured_alignment_vqa_tpu_torch.ops.layers import label_smoothing
+from structured_alignment_vqa_tpu_torch.parallel.context import distributed_mesh
+from structured_alignment_vqa_tpu_torch.parallel.sharding import all_reduce_sum
 
 
 def ensemble_log_softmax(logits_concat, logits_vis, logits_syb) -> torch.Tensor:
@@ -27,12 +34,18 @@ def ensemble_log_softmax(logits_concat, logits_vis, logits_syb) -> torch.Tensor:
 
 def ensemble_smoothed_ce(logits_concat, logits_vis, logits_syb, answer, sample_valid,
                          smooth_eps: float = 0.1) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (mean loss over valid samples, per-sample ensemble log-softmax)."""
+    """Returns (mean loss over valid samples, per-sample ensemble log-softmax);
+    under a mesh of several ranks the loss is this rank's share of the
+    global mean."""
     log_sm = ensemble_log_softmax(logits_concat, logits_vis, logits_syb)
     one_hot = F.one_hot(answer.long(), log_sm.shape[-1]).float()
     per_sample = -(label_smoothing(one_hot, smooth_eps) * log_sm).sum(dim=-1)
     valid = sample_valid.float()
-    loss = (per_sample * valid).sum() / valid.sum().clamp_min(1.0)
+    count = valid.sum()
+    mesh = distributed_mesh()
+    if mesh is not None:
+        count = all_reduce_sum(count, mesh)
+    loss = (per_sample * valid).sum() / count.clamp_min(1.0)
     return loss, log_sm
 
 

@@ -14,9 +14,17 @@ CUDA card and fails without one. ``--bf16`` computes in torch.bfloat16.
 ``--use_pallas`` has no counterpart (the port launches its kernels on every
 CUDA tensor); the eval and predict CLIs log it as having no effect.
 ``--n_pack N --pack_bucket I`` packs up to N training samples a row;
-``--mcb`` builds the MCB head. Flags of what is not ported yet (several
-devices and hosts) raise ``NotImplementedError`` naming their ROADMAP
-item.
+``--mcb`` builds the MCB head. ``--model_parallel > 1`` (the model axis,
+not ported yet) raises ``NotImplementedError`` naming its ROADMAP item.
+
+Data parallel over hosts: ``--coordinator host0:port --num_processes H
+--process_id h`` keep the TPU package's meaning, one invocation a host.
+Each invocation starts one rank per visible card (as many as divide
+``--batch_size``, the TPU package's ``fitting_mesh`` rule), global rank
+``h * ranks a host + local rank``, over NCCL; with ``--platform cpu`` one
+rank over gloo. Each rank takes ``--batch_size / ranks a host`` rows a
+step, so a step takes ``--batch_size`` samples a host. ``--coordinator``
+with ``--num_processes 1`` forms a group of the host's ranks alone.
 """
 
 from __future__ import annotations
@@ -32,6 +40,12 @@ from structured_alignment_vqa_tpu_torch.data.vocab import load_answer_vocab
 from structured_alignment_vqa_tpu_torch.device import resolve_device
 from structured_alignment_vqa_tpu_torch.models.config import ModelConfig
 from structured_alignment_vqa_tpu_torch.models.glove import build_glove_table
+from structured_alignment_vqa_tpu_torch.parallel.mesh import (
+    check_axes,
+    fitting_data_size,
+    init_distributed,
+    shutdown,
+)
 from structured_alignment_vqa_tpu_torch.train.loop import TrainerConfig, train
 
 
@@ -87,11 +101,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model_v", type=int, default=3)
     p.add_argument("--pool", type=str, default="mean")
 
-    # distributed (not ported yet: ROADMAP Queue 1 item 15)
+    # distributed (the reference: ngpus/nr/num_nodes; here one invocation a
+    # host, one rank per card)
     p.add_argument("--coordinator", type=str, default=None,
                    help="host:port of process 0 for multi-host init")
-    p.add_argument("--num_processes", type=int, default=1)
-    p.add_argument("--process_id", type=int, default=0)
+    p.add_argument("--num_processes", type=int, default=1,
+                   help="hosts, one invocation each")
+    p.add_argument("--process_id", type=int, default=0,
+                   help="this host's index among them")
     p.add_argument("--model_parallel", type=int, default=1)
     p.add_argument("--num_workers", type=int, default=8,
                    help="loader threads")
@@ -155,15 +172,50 @@ def build_parser() -> argparse.ArgumentParser:
 
 def check_supported_flags(args) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item of each flag
-    whose feature the port does not have yet."""
-    unported = (
-        ((args.coordinator and args.num_processes > 1) or args.model_parallel > 1,
-         "--coordinator with --num_processes > 1, or --model_parallel > 1 (several "
-         "devices and hosts, ROADMAP Queue 1 item 15)"),
-    )
-    for bad, what in unported:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet")
+    whose feature the port does not have yet, and ``ValueError`` for
+    several hosts without a coordinator."""
+    check_axes(model_parallel=args.model_parallel)
+    if args.num_processes > 1 and not args.coordinator:
+        raise ValueError("--num_processes > 1 needs --coordinator (host:port of process 0)")
+
+
+def local_ranks(args) -> int:
+    """The ranks this invocation starts: one on the CPU, else one per
+    visible card, as many as divide ``--batch_size``."""
+    if args.platform == "cpu":
+        return 1
+    resolve_device(None)
+    return fitting_data_size(torch.cuda.device_count(), args.batch_size)
+
+
+def run_ranks(args, entry):
+    """``entry(args, mesh)`` on this invocation's ranks.
+
+    Without ``--coordinator``: once, with no mesh. With it: each local rank
+    joins the group of ``num_processes * local ranks`` ranks and calls
+    ``entry`` with its mesh; one local rank runs in this process (and its
+    result is returned), several are spawned processes (None is returned).
+    ``entry`` must be a module-level function, so that spawned ranks can
+    import it.
+    """
+    if not args.coordinator:
+        return entry(args, None)
+    n_local = local_ranks(args)
+    if n_local == 1:
+        return _rank(0, args, entry, 1)
+    torch.multiprocessing.spawn(_rank, args=(args, entry, n_local), nprocs=n_local)
+    return None
+
+
+def _rank(local_rank: int, args, entry, n_local: int):
+    mesh = init_distributed(
+        args.coordinator, args.num_processes * n_local, args.process_id * n_local + local_rank,
+        device="cpu" if args.platform == "cpu" else None, local_rank=local_rank,
+        local_world=n_local)
+    try:
+        return entry(args, mesh)
+    finally:
+        shutdown(mesh)
 
 
 def device_from_args(args) -> torch.device:
@@ -259,8 +311,9 @@ def configs_from_args(args) -> tuple[ModelConfig, DataConfig, DataConfig, Traine
 
 
 def main(argv=None):
-    """Train from the flags; returns the final ``TrainState``. The GloVe
-    vectors come from ``--glove_path`` or else
+    """Train from the flags; returns the final ``TrainState`` (rank 0's, or
+    None when the ranks run in spawned processes). The GloVe vectors come
+    from ``--glove_path`` or else
     ``<data_dir>/vector_cache/glove.6B.300d.{npy,txt}`` when present."""
     args = build_parser().parse_args(argv)
     if args.model_v != 3:
@@ -268,6 +321,12 @@ def main(argv=None):
             "model_v != 3: the ablation models (the TPU package's models.variants) are "
             "not ported yet (ROADMAP Queue 1 item 17); the training driver covers the "
             "production v3 path (as does the reference's maintained loss branch).")
+    check_supported_flags(args)
+    return run_ranks(args, train_from_args)
+
+
+def train_from_args(args, mesh=None):
+    """One rank's training run (:func:`run_ranks`)."""
     model_cfg, train_dc, val_dc, trainer_cfg = configs_from_args(args)
     glove_path = args.glove_path
     if glove_path is None:
@@ -277,9 +336,9 @@ def main(argv=None):
                 glove_path = c
                 break
     glove_table = build_glove_table(glove_path=glove_path) if glove_path else None
-    device = device_from_args(args)
     return train(model_cfg, train_dc, trainer_cfg, val_data_cfg=val_dc,
-                 glove_table=glove_table, device=device)
+                 glove_table=glove_table,
+                 device=device_from_args(args) if mesh is None else None, mesh=mesh)
 
 
 if __name__ == "__main__":

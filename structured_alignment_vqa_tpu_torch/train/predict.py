@@ -14,7 +14,8 @@ Runs on the CUDA card (and fails without one) unless ``--platform cpu``.
 ``--int8`` serves the checkpoint with int8 GloVe tables and heads
 (``ops/quant.py``), quantized once after loading. ``--mcb`` serves a model
 with the MCB head. ``--n_pack`` configures training and is ignored: the
-loader here packs nothing, as the TPU package's does not.
+loader here packs nothing, as the TPU package's does not. The CLI runs in
+one process, as the TPU package's does: ``--coordinator`` raises.
 """
 
 from __future__ import annotations
@@ -132,6 +133,8 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     model_cfg, train_dc, val_dc, trainer_cfg = configs_from_args(args)
+    if args.coordinator:
+        raise ValueError("the predict CLI runs in one process; it takes no --coordinator")
     device = device_from_args(args)
     dc = val_dc if args.split == "val" else train_dc
     logger = setup_logging(trainer_cfg.output_dir)

@@ -15,8 +15,13 @@ file. It holds:
 * ``table_opt`` (with the sparse table only): the table's Adam ``count``,
   ``mu`` and ``nu``, the moments in their own dtype;
 * ``generator`` (when the trainer passes one): the dropout generator's
-  state, so a resumed run draws the masks an uninterrupted one would;
+  state, so a resumed run draws the masks an uninterrupted one would; in a
+  data-parallel run also ``generators``, every rank's, gathered to rank 0;
 * ``step`` and ``epoch``.
+
+In a data-parallel run (``mesh`` of several ranks) rank 0 writes the file
+and every rank waits for it at a barrier; every rank reads it on resume
+and takes its own generator's state back.
 
 Loading a reference ``.pth`` or an orbax directory written by the TPU
 package is interop (ROADMAP Queue 1 item 18), not this module's.
@@ -30,6 +35,10 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+import torch.distributed as dist
+
+from structured_alignment_vqa_tpu_torch.parallel.mesh import Mesh
+from structured_alignment_vqa_tpu_torch.parallel.sharding import gather_rows
 from structured_alignment_vqa_tpu_torch.parallel.train_step import TrainState
 
 _NAME = re.compile(r"^epoch_(\d+)\.pt$")
@@ -67,10 +76,24 @@ def _untied_params(model: torch.nn.Module) -> Tuple[Dict[str, torch.Tensor], Dic
 
 def save_checkpoint(ckpt_dir: str, state: TrainState, epoch: int,
                     max_to_keep: Optional[int] = None,
-                    generator: Optional[torch.Generator] = None) -> str:
+                    generator: Optional[torch.Generator] = None,
+                    mesh: Optional[Mesh] = None) -> str:
     """Save params, optimizer state (the sparse table's too), step and epoch
     as epoch ``epoch``, and ``generator``'s state when given; with
-    ``max_to_keep``, delete the oldest epochs beyond it. Returns the path."""
+    ``max_to_keep``, delete the oldest epochs beyond it. Returns the path.
+    With a ``mesh`` of several ranks every rank calls this: rank 0 writes
+    the file with every rank's generator state, the others wait for it."""
+    path = checkpoint_path(ckpt_dir, epoch)
+    generators = None
+    if mesh is not None and mesh.distributed:
+        if generator is not None:
+            (every,), sizes = gather_rows([generator.get_state()], mesh, dtype=torch.uint8)
+            # clones: a view's storage offset would be saved with it, and
+            # Generator.set_state reads a state from the start of its storage
+            generators = [g.clone() for g in every.split([row[0] for row in sizes])]
+        if mesh.rank != 0:
+            dist.barrier(group=mesh.cpu_group)
+            return path
     os.makedirs(ckpt_dir, exist_ok=True)
     params, tied = _untied_params(state.model)
     payload = {"params": params, "tied": tied, "optimizer": state.optimizer.state_dict(),
@@ -81,13 +104,16 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, epoch: int,
                                 "nu": topt.nu.cpu()}
     if generator is not None:
         payload["generator"] = generator.get_state()
-    path = checkpoint_path(ckpt_dir, epoch)
+    if generators is not None:
+        payload["generators"] = generators
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
     if max_to_keep:
         for old in saved_epochs(ckpt_dir)[:-max_to_keep]:
             os.unlink(checkpoint_path(ckpt_dir, old))
+    if mesh is not None and mesh.distributed:
+        dist.barrier(group=mesh.cpu_group)
     return path
 
 
@@ -109,11 +135,13 @@ def _load_params(model: torch.nn.Module, payload: dict) -> None:
 
 
 def restore_checkpoint(ckpt_dir: str, state: TrainState, epoch: Optional[int] = None,
-                       generator: Optional[torch.Generator] = None
-                       ) -> Tuple[TrainState, int]:
+                       generator: Optional[torch.Generator] = None,
+                       mesh: Optional[Mesh] = None) -> Tuple[TrainState, int]:
     """Restore params, optimizer state (the sparse table's too) and step
     into ``state`` (in place), and ``generator``'s state when given and
-    saved; returns ``(state, epoch)``. ``epoch=None`` takes the latest."""
+    saved; returns ``(state, epoch)``. ``epoch=None`` takes the latest.
+    With a ``mesh`` of several ranks each rank takes its own generator's
+    state; a checkpoint saved by another number of ranks raises."""
     payload, epoch = _load(ckpt_dir, epoch)
     if (state.table_opt is None) != ("table_opt" not in payload):
         raise ValueError(f"{checkpoint_path(ckpt_dir, epoch)} and the state disagree on "
@@ -128,7 +156,14 @@ def restore_checkpoint(ckpt_dir: str, state: TrainState, epoch: Optional[int] = 
                                  f"{tuple(saved.shape)}, the state's {mine.dtype} "
                                  f"{tuple(mine.shape)} (--table_moments_bf16?)")
             mine.copy_(saved)
-    if generator is not None and "generator" in payload:
+    if generator is not None and mesh is not None and mesh.distributed:
+        saved = payload.get("generators", [payload["generator"]] if "generator" in payload
+                            else [])
+        if len(saved) != mesh.world:
+            raise ValueError(f"{checkpoint_path(ckpt_dir, epoch)} holds the dropout generators "
+                             f"of {len(saved)} rank(s); this run has {mesh.world}")
+        generator.set_state(saved[mesh.rank].clone())
+    elif generator is not None and "generator" in payload:
         generator.set_state(payload["generator"])
     state.step = int(payload["step"])
     return state, int(epoch)

@@ -17,10 +17,10 @@ from typing import Optional
 
 
 def setup_logging(output_dir: str, process_index: int = 0) -> logging.Logger:
-    """File + console logging on process 0, console-only elsewhere
-    (`main_itp_ddp_tar_super_node.py:160-171`)."""
+    """File + console logging on process 0; elsewhere warnings and errors
+    only, on the console (`main_itp_ddp_tar_super_node.py:160-171`)."""
     logger = logging.getLogger("savqa")
-    logger.setLevel(logging.INFO)
+    logger.setLevel(logging.INFO if process_index == 0 else logging.WARNING)
     logger.handlers.clear()
     fmt = logging.Formatter("%(asctime)s %(name)-12s %(levelname)-8s %(message)s", "%m-%d %H:%M")
     console = logging.StreamHandler()

@@ -41,7 +41,7 @@ from structured_alignment_vqa_tpu_torch.models.att_model_x3 import MCB_SKETCH_SE
 from structured_alignment_vqa_tpu_torch.models.convert import state_dict_from_jax
 from structured_alignment_vqa_tpu_torch.ops import mcb
 from structured_alignment_vqa_tpu_torch.ops.quant import quantize_state_dict
-from structured_alignment_vqa_tpu_torch.parallel import TrainState, adam, make_train_step
+from structured_alignment_vqa_tpu_torch.parallel.train_step import TrainState, adam, make_train_step
 from structured_alignment_vqa_tpu_torch.train import evaluate, predict
 from structured_alignment_vqa_tpu_torch.train.predict import ensemble_log_softmax
 from structured_alignment_vqa_tpu_torch.utils import checkpoint as ckpt

@@ -25,7 +25,7 @@ from structured_alignment_vqa_tpu_torch.models import AttModelX3, ModelConfig
 from structured_alignment_vqa_tpu_torch.models import att_model_x3 as port_x3
 from structured_alignment_vqa_tpu_torch.models.convert import state_dict_from_jax
 from structured_alignment_vqa_tpu_torch.ops import attention, mil_nce
-from structured_alignment_vqa_tpu_torch.parallel import TrainState, adam, make_train_step
+from structured_alignment_vqa_tpu_torch.parallel.train_step import TrainState, adam, make_train_step
 from test_torch_port_model import TINY, jax_batch, perturbed
 
 SCALAR_ATOL = 1e-6    # the objectives, on the same scores

@@ -32,7 +32,7 @@ import torch.nn.functional as F
 from structured_alignment_vqa_tpu.train import losses as jax_losses
 from structured_alignment_vqa_tpu_torch.models import AttModelX3, ModelConfig
 from structured_alignment_vqa_tpu_torch.models.convert import state_dict_from_jax
-from structured_alignment_vqa_tpu_torch.parallel import TrainState, adam, make_train_step
+from structured_alignment_vqa_tpu_torch.parallel.train_step import TrainState, adam, make_train_step
 from structured_alignment_vqa_tpu_torch.train.predict import make_predict_step
 from test_torch_port_model import TINY, build_pair
 

@@ -39,7 +39,7 @@ from structured_alignment_vqa_tpu_torch.data.fixtures import write_fixture
 from structured_alignment_vqa_tpu_torch.data.transfer import host_tensors
 from structured_alignment_vqa_tpu_torch.models import AttModelX3, ModelConfig
 from structured_alignment_vqa_tpu_torch.models.convert import GLOVE_SLOTS, state_dict_from_jax
-from structured_alignment_vqa_tpu_torch.parallel import (
+from structured_alignment_vqa_tpu_torch.parallel.train_step import (
     TrainState,
     adam,
     create_train_state,

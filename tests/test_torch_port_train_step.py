@@ -27,7 +27,7 @@ from structured_alignment_vqa_tpu_torch.data.synthetic import batch_from_arrays,
 from structured_alignment_vqa_tpu_torch.models import AttModelX3, ModelConfig
 from structured_alignment_vqa_tpu_torch.models.convert import state_dict_from_jax
 from structured_alignment_vqa_tpu_torch.ops.layers import label_smoothing
-from structured_alignment_vqa_tpu_torch.parallel import (
+from structured_alignment_vqa_tpu_torch.parallel.train_step import (
     TrainState,
     adam,
     make_eval_step,
