@@ -154,9 +154,23 @@ Phases, each of which must pass:
     training CLI with ``--coordinator --num_processes 1`` (an NCCL group of
     one) on a 512-question tree of the cli phase's kind, whose logged losses
     must equal the run without those flags bitwise, one checkpoint written.
+16. every card of a host and the reference's checkpoints (``host``, ROADMAP
+    items 15c and 18): the serving point's model (bs 128) out through
+    ``models/torch_export.save_pth`` and into a fresh model through
+    ``models/torch_import.import_torch_state_dict``: nothing unmatched, the
+    logits bitwise, int8 serving of both with equal answers, the file
+    holding the shared table once (its MiB and the save and load seconds
+    printed); two serving ranks on the one card over gloo (worker processes
+    of this script, ``--host-rank``), each running ``predict_from_args`` on
+    its stride of whole batches of a 512-question tree of the cli phase's
+    kind through the batch cache, float and ``--mcb``, whose answers file
+    must equal the one-process CLI's byte for byte (each rank's pairs/s as
+    information); the training CLI without ``--coordinator``, which must
+    take one rank and form no group, its logged losses bitwise those of
+    its NCCL group of one.
 
 ``--phases a,b`` (of card, k1, k3, k2, serving, training, k4, k56,
-objrel_serving, objrel_training, cli, train_cli, packed, dp) runs only those, for work on one kernel,
+objrel_serving, objrel_training, cli, train_cli, packed, dp, host) runs only those, for work on one kernel,
 and then prints no last line. It prints one JSON line of kernels, the card's line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero without
 that last line; so does a machine without a CUDA device.
@@ -1472,6 +1486,7 @@ def cli_phase(card: str) -> dict:
     from structured_alignment_vqa_tpu_torch.train.predict import (
         ensemble_log_softmax,
         make_predict_step,
+        numbered,
         serve,
     )
     from structured_alignment_vqa_tpu_torch.utils.checkpoint import (
@@ -1569,7 +1584,7 @@ def cli_phase(card: str) -> dict:
         mover = BatchMover("cuda", bf16_features=True)
         got_rows = {}
         serve(torch.inference_mode()(lambda batch: ensemble_log_softmax(model, batch)),
-              shipped(loader(batch_cache_dir=batch_cache), mover),
+              numbered(enumerate(loader(batch_cache_dir=batch_cache)), mover),
               lambda i, row: got_rows.__setitem__(i, np.array(row)), pipeline_depth=4)
         order = sorted(want_rows)
         ref = np.stack([want_rows[i] for i in order])
@@ -1650,7 +1665,8 @@ def cli_phase(card: str) -> dict:
         # the card's idle share over 3 batches of the CLI's serving loop,
         # fed from the batch cache
         cached_loader = loader(batch_cache_dir=batch_cache)
-        profile_device(lambda: serve(predict, islice(shipped(cached_loader, mover), 3),
+        profile_device(lambda: serve(predict,
+                                     islice(numbered(enumerate(cached_loader), mover), 3),
                                      lambda i, a: None, pipeline_depth=4),
                        f"3 bs-{B} batches of the predict CLI's serving loop, batch cache")
 
@@ -2628,6 +2644,19 @@ def dp_phase(card: str) -> dict:
               f"{card} (information only: one rank moves nothing between cards)", flush=True)
 
     # the training CLI in an NCCL group of one against the same run without
+    # --coordinator, which takes run_ranks' one-card branch: one rank
+    # (local_ranks), no group (init_distributed never called)
+    calls = {"init_distributed": 0, "local_ranks": []}
+    real_init, real_local = train_main.init_distributed, train_main.local_ranks
+
+    def counted_init(*a, **k):
+        calls["init_distributed"] += 1
+        return real_init(*a, **k)
+
+    def recorded_local(args):
+        calls["local_ranks"].append(real_local(args))
+        return calls["local_ranks"][-1]
+
     with tempfile.TemporaryDirectory() as tmp:
         data = os.path.join(tmp, "data")
         write_fixture(data, **DP_CLI_FIXTURE)
@@ -2639,9 +2668,14 @@ def dp_phase(card: str) -> dict:
             argv = (["--data_dir_azure", data, "--output_dir", out, "--num_epochs", "1",
                      "--cache_dir", os.path.join(tmp, f"{name}_cache")] + TRAIN_CLI_FLAGS + extra)
             reset_launch_counts()
-            state = train_main.main(argv)
+            with mock.patch.object(train_main, "init_distributed", counted_init), \
+                    mock.patch.object(train_main, "local_ranks", recorded_local):
+                state = train_main.main(argv)
             torch.cuda.synchronize()
             launches = launch_counts()
+            if name == "alone":
+                alone = (calls["init_distributed"], list(calls["local_ranks"]),
+                         torch.distributed.is_initialized())
             logged[name] = [v for _, _, v in logged_step_losses(out)]
             epochs = saved_epochs(os.path.join(out, "checkpoints"))
             print(f"dp: training CLI ({name}): {log_lines(out, 'mesh:')[0]}; "
@@ -2653,11 +2687,191 @@ def dp_phase(card: str) -> dict:
               f"dp: the training CLI in an NCCL group of one logs the {len(logged['nccl'])} "
               f"losses of the run without --coordinator bitwise, writes its checkpoint once "
               f"({epochs}), {launches['K2']} K2 launches")
+        check(alone == (0, [1], False) and calls["init_distributed"] == 1,
+              f"dp: the training CLI without --coordinator takes one rank and forms no group "
+              f"(init_distributed {alone[0]} times, local_ranks {alone[1]}, a group formed: "
+              f"{alone[2]})")
     return launches
 
 
+# the host phase: the reference .pth round trip at full width; two serving
+# ranks on the one card over gloo (worker processes of this script,
+# --host-rank), float and MCB, on a tree of the dp phase's size
+HOST_WORLD = 2
+
+
+def host_rank(rank: int, coordinator: str, argv_file: str) -> int:
+    """One serving rank of the host phase: ``predict_from_args`` on its
+    stride of the batches in a gloo group on cuda:0; prints its answers
+    and launches."""
+    from structured_alignment_vqa_tpu_torch.parallel.mesh import init_distributed, shutdown
+    from structured_alignment_vqa_tpu_torch.train import predict as predict_cli
+
+    with open(argv_file) as f:
+        args = predict_cli.build_predict_parser().parse_args(json.load(f))
+    mesh = init_distributed(coordinator, HOST_WORLD, rank, backend="gloo", device="cuda:0")
+    try:
+        reset_launch_counts()
+        n = predict_cli.predict_from_args(args, mesh)
+        torch.cuda.synchronize()
+        print("HOST_RANK " + json.dumps({"rank": rank, "answers": n,
+                                         "launches": launch_counts()}), flush=True)
+    finally:
+        shutdown(mesh)
+    return 0
+
+
+def pth_round_trip(card: str) -> None:
+    """The seeded full-width model out to a reference .pth and into a fresh
+    model: nothing unmatched, the logits bitwise, int8 answers equal, the
+    shared table written once."""
+    import os
+    import tempfile
+
+    from structured_alignment_vqa_tpu_torch.models import AttModelX3
+    from structured_alignment_vqa_tpu_torch.models.torch_export import export_state_dict, save_pth
+    from structured_alignment_vqa_tpu_torch.models.torch_import import import_torch_state_dict
+    from structured_alignment_vqa_tpu_torch.ops.quant import quantize_state_dict
+    from structured_alignment_vqa_tpu_torch.train.predict import make_predict_step
+
+    mib = 2.0 ** 20
+    cfg = full_config()
+    model = random_model(cfg, seed=5).eval()
+    batch = full_batches(cfg, 1)[0]
+    with torch.inference_mode():
+        want = model(batch)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "model_0.pth")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_pth(path, model)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        fresh = random_model(cfg, seed=6).eval()
+        t0 = time.perf_counter()
+        unmatched = import_torch_state_dict(torch.load(path, weights_only=True), fresh)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    with torch.inference_mode():
+        got = fresh(batch)
+    same = all(torch.equal(g, w) for g, w in zip(got, want) if w is not None)
+    table = cfg.vocab_size * cfg.glove_dim * 4
+    exported = export_state_dict(model)
+    besides = sum(t.numel() * 4 for k, t in exported.items() if not k.endswith("syb_emb.weight"))
+    check(unmatched == [] and same and size < table + besides + 16 * mib,
+          f"host: .pth round trip on the card: {len(exported)} keys, nothing unmatched "
+          f"({unmatched[:3]}), the bs-{B} logits bitwise; the file {size / mib:.1f} MiB "
+          f"holds the {table / mib:.1f} MiB table once beside {besides / mib:.1f} MiB of other "
+          f"tensors (three copies would be {(3 * table + besides) / mib:.1f}); saved in "
+          f"{save_s:.2f} s, loaded and imported in {load_s:.2f} s on {card}")
+    answers = []
+    for m in (model, fresh):
+        q = AttModelX3(cfg.replace(int8_serving=True))
+        q.load_state_dict(quantize_state_dict(m.state_dict()))
+        answers.append(make_predict_step(q)(batch))
+        del q
+    check(torch.equal(answers[0], answers[1]),
+          f"host: int8 serving of the loaded model answers as int8 of the original "
+          f"({int(answers[0].unique().numel())} distinct answers of {B})")
+    del model, fresh, exported, answers, want, got
+    torch.cuda.empty_cache()
+
+
+def host_phase(card: str) -> dict:
+    """Every card of a host and the reference's checkpoints (ROADMAP items
+    15c and 18) on the one card: the .pth round trip, and two serving ranks
+    against one process byte for byte (float and MCB), each rank launching
+    K1 and K3 for every batch it served. The path's launches are those of
+    the float run's two ranks, summed (each rank zeroes its counts just
+    before it serves). The training CLI without --coordinator is phase
+    dp's run "alone"."""
+    import os
+    import tempfile
+
+    from structured_alignment_vqa_tpu_torch.data.dataset import BatchLoader, GQASuperNodeDataset
+    from structured_alignment_vqa_tpu_torch.data.fixtures import write_fixture
+    from structured_alignment_vqa_tpu_torch.data.transfer import host_tensors
+    from structured_alignment_vqa_tpu_torch.models import AttModelX3, init_random_
+    from structured_alignment_vqa_tpu_torch.parallel.dryrun import launch_local
+    from structured_alignment_vqa_tpu_torch.parallel.mesh import free_ports
+    from structured_alignment_vqa_tpu_torch.parallel.train_step import TrainState, adam
+    from structured_alignment_vqa_tpu_torch.train import main as train_main
+    from structured_alignment_vqa_tpu_torch.train import predict as predict_cli
+    from structured_alignment_vqa_tpu_torch.utils.checkpoint import save_checkpoint
+
+    torch.cuda.empty_cache()
+    pth_round_trip(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        write_fixture(data, **DP_CLI_FIXTURE)
+
+        # two serving ranks against one process, float and MCB, the ranks
+        # reading the batch cache the one-process run wrote
+        commands, files = [], {}
+        ports = free_ports(2)
+        for (head, extra), port in zip((("float", []), ("mcb", ["--mcb"])), ports):
+            argv = (["--data_dir_azure", data, "--split", "train", "--num_workers",
+                     str(CLI_WORKERS), "--batch_cache_dir", os.path.join(tmp, "batches"),
+                     "--weight_dir", os.path.join(tmp, f"ckpt_{head}")] + CLI_FLAGS + extra)
+            cfg, train_dc, _, _ = train_main.configs_from_args(
+                predict_cli.build_predict_parser().parse_args(argv))
+            model = AttModelX3(cfg)
+            init_random_(model, torch.Generator(device="cuda").manual_seed(2))
+            first = next(iter(BatchLoader(GQASuperNodeDataset("train", train_dc), B,
+                                          shuffle=False)))
+            spread_answers_(model, host_tensors(first).to("cuda"))
+            save_checkpoint(os.path.join(tmp, f"ckpt_{head}"),
+                            TrainState(model, adam(model.parameters())), 1)
+            del model
+            torch.cuda.empty_cache()
+            one, two = (os.path.join(tmp, f"{head}_{n}") for n in ("one", "two"))
+            predict_cli.main(argv + ["--output_dir", one, "--out", f"{one}.jsonl"])
+            torch.cuda.empty_cache()
+            with open(f"{tmp}/{head}_argv.json", "w") as f:
+                json.dump(argv + ["--output_dir", two, "--out", f"{two}.jsonl"], f)
+            commands += [[sys.executable, os.path.abspath(__file__), "--host-rank", str(r),
+                          f"127.0.0.1:{port}", f"{tmp}/{head}_argv.json"]
+                         for r in range(HOST_WORLD)]
+            files[head] = (one, two)
+        t0 = time.perf_counter()
+        outs = launch_local(commands, timeout=600)
+        print(f"host: {len(commands)} serving ranks (2 groups of {HOST_WORLD}) on cuda:0 over "
+              f"gloo ran in {time.perf_counter() - t0:.1f} s", flush=True)
+        ranks = [json.loads(line[len("HOST_RANK "):]) for text in outs
+                 for line in text.splitlines() if line.startswith("HOST_RANK ")]
+        path = None
+        for i, (head, (one, two)) in enumerate(files.items()):
+            with open(f"{one}.jsonl", "rb") as f:
+                want = f.read()
+            with open(f"{two}.jsonl", "rb") as f:
+                got = f.read()
+            mine = ranks[i * HOST_WORLD:(i + 1) * HOST_WORLD]
+            answers = [json.loads(line) for line in want.decode().splitlines()]
+            # the one-process stream's batches: the last holds its last answer
+            n_batches = max(a["index"] for a in answers) // B + 1 if answers else 0
+            served = [len(range(r, n_batches, HOST_WORLD)) for r in range(HOST_WORLD)]
+            wants = [{**{k: 0 for k in counted_wrappers()}, "K1": K1_PER_FORWARD * n,
+                      "K3": K3_PER_FORWARD * n} for n in served]
+            ids = [a["answer_id"] for a in answers]
+            check(got == want and len(answers) > 0 and [r["rank"] for r in mine] == [0, 1]
+                  and [r["launches"] for r in mine] == wants,
+                  f"host: {HOST_WORLD} serving ranks ({head}), each its stride of whole "
+                  f"batches, write the one-process answers file byte for byte ({len(answers)} "
+                  f"answers, {len(set(ids))} distinct); launches a rank "
+                  f"{[r['launches'] for r in mine]} == {wants}: {K1_PER_FORWARD} K1 and "
+                  f"{K3_PER_FORWARD} K3 for each of the {served} batches a rank served of "
+                  f"the stream's {n_batches}")
+            if path is None:
+                path = {k: sum(r["launches"][k] for r in mine) for k in counted_wrappers()}
+            for line in log_lines(two, "predicted") + log_lines(two, "served"):
+                print(f"host: {head}, {HOST_WORLD} ranks: {line} (information only: two ranks "
+                      f"share {card})", flush=True)
+            print(f"host: {head}, one process: {log_lines(one, 'predicted')[0]}", flush=True)
+    return path
+
+
 PHASES = ("k1", "k3", "k2", "serving", "training", "k4", "k56", "objrel_serving",
-          "objrel_training", "cli", "train_cli", "packed", "dp")
+          "objrel_training", "cli", "train_cli", "packed", "dp", "host")
 PORT = "structured_alignment_vqa_tpu_torch/csrc/"
 TPU = "structured_alignment_vqa_tpu/ops/"
 BF16 = str(torch.bfloat16)
@@ -2710,6 +2924,8 @@ def main(argv: list) -> int:
         return 1
     if argv[:1] == ["--dp-rank"] and len(argv) == 4:     # a worker of the dp phase
         return dp_worker(int(argv[1]), argv[2], argv[3])
+    if argv[:1] == ["--host-rank"] and len(argv) == 4:   # a serving rank of the host phase
+        return host_rank(int(argv[1]), argv[2], argv[3])
     phases = PHASES
     if argv[:1] == ["--phases"] and len(argv) == 2:
         phases = tuple(argv[1].split(","))
@@ -2741,7 +2957,7 @@ def main(argv: list) -> int:
     path_phases = {"serving": serving_phase, "training": training_phase,
                    "objrel_serving": rel_serving_phase, "objrel_training": rel_training_phase,
                    "cli": cli_phase, "train_cli": train_cli_phase, "packed": packed_phase,
-                   "dp": dp_phase}
+                   "dp": dp_phase, "host": host_phase}
     rows, by_path = {}, {}
     for phase in phases:
         t0 = time.perf_counter()

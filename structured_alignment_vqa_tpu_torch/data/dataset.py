@@ -28,7 +28,7 @@ import dataclasses
 import json
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, List, Optional, Sequence, Tuple
+from typing import Callable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -640,8 +640,44 @@ class BatchLoader:
             if writer is not None:  # interrupted pass: no partial publish
                 writer.abort()
 
-    def _iter_build(self) -> Iterator[VQABatch]:
+    def strided(self, rank: int, n: int) -> Iterator[Tuple[int, VQABatch]]:
+        """``(i, batch)`` for batches ``i = rank, rank + n, ...`` of this
+        loader's stream (``shuffle=False``), so that ``n`` servers, each
+        with its ``rank``, serve the stream between them.
+
+        Through a valid batch cache a rank reads only its own batches.
+        Otherwise every rank runs the whole sample stream, since bucketing
+        decides where each batch ends, and collates only its own batches;
+        with ``batch_cache_dir`` rank 0 collates them all, to publish the
+        cache for later passes.
+        """
+        if self.shuffle:
+            raise ValueError("a strided stream needs shuffle=False")
+        cache = self.replay_cache()
+        if cache is not None:
+            self.last_dropped = cache.meta.get("n_samples_dropped", 0)
+            for i in range(rank, len(cache), n):
+                yield i, cache.batch(i)
+            return
+        mine = (lambda i: i % n == rank)
+        stream = (iter(self) if self.batch_cache_dir and rank == 0
+                  else self._iter_build(keep=mine))
+        for i, batch in enumerate(stream):
+            if mine(i):
+                yield i, batch
+
+    def _iter_build(self, keep: Optional[Callable[[int], bool]] = None
+                    ) -> Iterator[Optional[VQABatch]]:
+        """The batches of this epoch; with ``keep``, batch ``i`` is
+        collated only where ``keep(i)`` holds, and is None elsewhere."""
         idx = self._indices()
+        emitted = 0
+
+        def emit(collate_fn, *a):
+            nonlocal emitted
+            emitted += 1
+            return collate_fn(*a) if keep is None or keep(emitted - 1) else None
+
         topn = self.ds.cfg.topn
         pools: dict = {b: [] for b in self.buckets}
         open_pools: dict = {b: [] for b in self.buckets}
@@ -678,9 +714,8 @@ class BatchLoader:
                         break
                 if not placed:
                     if len(rows) >= self.batch_size:
-                        yield collate_packed(
-                            [r.samples for r in rows], bucket, topn, self.n_pack
-                        )
+                        yield emit(collate_packed,
+                                   [r.samples for r in rows], bucket, topn, self.n_pack)
                         rows = pools[bucket] = []
                         opens = open_pools[bucket] = []
                     row = PackedRow(bucket, self.n_pack)
@@ -693,7 +728,7 @@ class BatchLoader:
                 if len(pools[bucket]) >= self.batch_size:
                     batch_samples = pools[bucket][: self.batch_size]
                     pools[bucket] = pools[bucket][self.batch_size:]
-                    yield collate(batch_samples, bucket, topn)
+                    yield emit(collate, batch_samples, bucket, topn)
         self.last_dropped = n_invalid
         if self.drop_last:
             # samples stranded in under-full pools are real samples lost to
@@ -708,7 +743,7 @@ class BatchLoader:
                 if packing:
                     groups = [r.samples for r in pool]
                     groups += [None] * (self.batch_size - len(groups))
-                    yield collate_packed(groups, bucket, topn, self.n_pack)
+                    yield emit(collate_packed, groups, bucket, topn, self.n_pack)
                 else:
                     pad = [None] * (self.batch_size - len(pool))
-                    yield collate(pool + pad, bucket, topn)
+                    yield emit(collate, pool + pad, bucket, topn)

@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import argparse
 import os
-import socket
 import subprocess
 import sys
 import tempfile
@@ -30,6 +29,8 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
+
+from structured_alignment_vqa_tpu_torch.parallel.mesh import free_ports
 
 # the TPU package's dry-run model (__graft_entry__.py), dropout off so that
 # the ranks and the single process draw no masks
@@ -53,19 +54,6 @@ GRAD_RTOL = 1e-5
 PARAM_ATOL = 1e-5
 GRAD_FLOOR = 1e-4
 _MODULE = "structured_alignment_vqa_tpu_torch.parallel.dryrun"
-
-
-def free_ports(n: int = 1) -> List[int]:
-    """``n`` distinct free local ports (the sockets are held open together,
-    so no two of them can be the same)."""
-    socks = [socket.socket() for _ in range(n)]
-    try:
-        for s in socks:
-            s.bind(("127.0.0.1", 0))
-        return [s.getsockname()[1] for s in socks]
-    finally:
-        for s in socks:
-            s.close()
 
 
 def launch_local(commands: Sequence[List[str]], timeout: float) -> List[str]:

@@ -11,18 +11,20 @@ column/row-split FFN and heads (item 15b); both raise
 ``NotImplementedError``.
 
 :func:`init_distributed` forms the group over TCP from the training CLI's
-flags (``--coordinator host:port --num_processes N --process_id i``):
-NCCL between cards, gloo on the CPU. Host-side flags and counts travel on
-a gloo group beside it (``Mesh.cpu_group``), so that they need no copy to
-the device.
+flags (``--coordinator host:port --num_processes N --process_id i``), or
+at a port of this host that :func:`free_ports` finds, for the ranks of one
+host alone: NCCL between cards, gloo on the CPU. Host-side flags and
+counts travel on a gloo group beside it (``Mesh.cpu_group``), so that they
+need no copy to the device.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import socket
 import warnings
-from typing import Any, Optional
+from typing import Any, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -110,6 +112,19 @@ def fitting_data_size(n_devices: int, batch_size: int, model_parallel: int = 1,
             stacklevel=2,
         )
     return data_ax
+
+
+def free_ports(n: int = 1) -> List[int]:
+    """``n`` distinct free local ports (the sockets are held open together,
+    so no two of them can be the same)."""
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
 
 
 def init_distributed(coordinator: str, num_processes: int, process_id: int,

@@ -10,23 +10,36 @@ Usage:
 Runs on the CUDA card (and fails without one) unless ``--platform cpu``.
 ``--mcb`` evaluates a model with the MCB head; ``--n_pack`` configures
 training and is ignored (an unpacked loader, as in the TPU package).
-With ``--coordinator`` (``train/main.py``) the eval is process-sharded, as
-the TPU package's: each rank evaluates its stride of the split and the
-sums are global.
+The eval runs on every card of the host (``train/main.py:run_ranks``):
+rank r of n evaluates whole batches r, r + n, ... of the stream one
+process would evaluate (``BatchLoader.strided``), and the ranks' per-batch
+sums are added up in that stream's order, so that the eval over n cards
+covers one card's samples and logs its numbers, as the TPU package's one
+process over every local chip does. Over several hosts (``--coordinator``
+with ``--num_processes`` > 1) the eval is process-sharded, as the TPU
+package's: each rank evaluates its stride of the split and the sums are
+global.
 """
 
 from __future__ import annotations
 
 import datetime
+from itertools import zip_longest
 
 import torch
+import torch.distributed as dist
 
 from structured_alignment_vqa_tpu_torch.data.dataset import BatchLoader, GQASuperNodeDataset
 from structured_alignment_vqa_tpu_torch.data.transfer import BatchMover, shipped
 from structured_alignment_vqa_tpu_torch.models import AttModelX3
 from structured_alignment_vqa_tpu_torch.parallel.mesh import single_mesh
 from structured_alignment_vqa_tpu_torch.parallel.train_step import TrainState, make_eval_step
-from structured_alignment_vqa_tpu_torch.train.loop import lockstep, run_eval
+from structured_alignment_vqa_tpu_torch.train.loop import (
+    eval_metrics,
+    lockstep,
+    run_eval,
+    summarize_eval,
+)
 from structured_alignment_vqa_tpu_torch.train.main import (
     build_parser,
     check_supported_flags,
@@ -51,7 +64,8 @@ def main(argv=None):
 
 
 def evaluate_from_args(args, mesh=None):
-    """One rank's eval (``train/main.py:run_ranks``); returns (loss, accuracy)."""
+    """One rank's eval (``train/main.py:run_ranks``); returns (loss,
+    accuracy), the same on every rank."""
     model_cfg, train_dc, val_dc, trainer_cfg = configs_from_args(args)
     mesh = mesh or single_mesh(device_from_args(args))
     device = mesh.device
@@ -60,22 +74,39 @@ def evaluate_from_args(args, mesh=None):
     log_flags_without_effect(args, logger)
 
     ds = GQASuperNodeDataset(args.split, dc)
-    loader = BatchLoader(ds, trainer_cfg.batch_size // mesh.local_world, shuffle=False,
-                         shard_idx=mesh.rank, num_shards=mesh.world)
-
     model = AttModelX3(model_cfg, device=device)
     step = load_params_for_eval(args.weight_dir, model, args.weight_epoch)
     state = TrainState(model, optimizer=None, step=step)
-    eval_step = make_eval_step(model, model_cfg, with_milnce=trainer_cfg.with_milnce,
-                               mesh=mesh)
     mover = BatchMover(device, bf16_features=model_cfg.compute_dtype == torch.bfloat16)
 
-    loss, n_correct, n = run_eval(
-        eval_step, state,
-        lockstep((ship.ready() for _, ship in shipped(loader, mover)), mesh, logger, args.split,
-                 pad=True),
-        logger, trainer_cfg.log_steps_val, args.split,
-    )
+    if mesh.world == mesh.local_world:
+        # the ranks of one host: whole batches in stride, each rank's
+        # forward that of one process on its batches
+        loader = BatchLoader(ds, trainer_cfg.batch_size, shuffle=False)
+        eval_step = make_eval_step(model, model_cfg, with_milnce=trainer_cfg.with_milnce)
+        metrics = eval_metrics(eval_step, state, (
+            ship.ready() for _, ship in shipped(
+                (b for _, b in loader.strided(mesh.rank, mesh.world)), mover)))
+        if mesh.distributed:
+            ranks = [None] * mesh.world
+            dist.all_gather_object(ranks, list(metrics), group=mesh.cpu_group)
+            # batch r + k * n of the stream is rank r's k-th
+            metrics = [m for batch in zip_longest(*ranks) for m in batch if m is not None]
+            logger.info("%s: %d batch(es) over %d ranks, each its stride of whole batches",
+                        args.split, len(metrics), mesh.world)
+        loss, n_correct, n = summarize_eval(metrics, logger, trainer_cfg.log_steps_val,
+                                            args.split)
+    else:
+        loader = BatchLoader(ds, trainer_cfg.batch_size // mesh.local_world, shuffle=False,
+                             shard_idx=mesh.rank, num_shards=mesh.world)
+        eval_step = make_eval_step(model, model_cfg, with_milnce=trainer_cfg.with_milnce,
+                                   mesh=mesh)
+        loss, n_correct, n = run_eval(
+            eval_step, state,
+            lockstep((ship.ready() for _, ship in shipped(loader, mover)), mesh, logger,
+                     args.split, pad=True),
+            logger, trainer_cfg.log_steps_val, args.split,
+        )
     acc = n_correct / max(n, 1)
     logger.info(
         "Time %s, Eval[%s] Loss: %s, accuracy: %s/%s = %s",

@@ -114,7 +114,14 @@ class TrainerConfig:
 
 def run_eval(eval_step, state, loader, logger, log_steps, tag="", metric_lag: int = 4):
     """Eval pass over device batches; returns ``(avg_loss, n_correct, n)``
-    (replacing `main:380-404`).
+    (replacing `main:380-404`)."""
+    return summarize_eval(eval_metrics(eval_step, state, loader, metric_lag), logger,
+                          log_steps, tag)
+
+
+def eval_metrics(eval_step, state, loader, metric_lag: int = 4):
+    """Each batch's ``(loss_sum, mil_sum, n_correct, n)`` as floats, in
+    the order of ``loader``.
 
     Each batch's metric sums start their copy to pinned host memory as soon
     as the batch is queued and are read ``metric_lag`` batches later, when
@@ -122,15 +129,25 @@ def run_eval(eval_step, state, loader, logger, log_steps, tag="", metric_lag: in
     would hold the host until the card has finished everything queued, and
     the next batch would not be queued meanwhile.
     """
+    pending: deque = deque()
+    for batch in loader:
+        m = eval_step(state, batch)
+        pending.append(HostFetch(torch.stack([m[k].float() for k in _METRICS])))
+        if len(pending) > metric_lag:
+            yield tuple(float(v) for v in pending.popleft().result())
+    while pending:
+        yield tuple(float(v) for v in pending.popleft().result())
+
+
+def summarize_eval(metrics, logger, log_steps, tag=""):
+    """``(avg_loss, n_correct, n)`` over the batches' metric sums
+    (:func:`eval_metrics`), logging the running averages every
+    ``log_steps`` batches."""
     loss_meter = AverageMeter()
     mil_meter = AverageMeter()
     n_correct = 0.0
     n_total = 0.0
-    pending: deque = deque()
-
-    def drain(i, fetch):
-        nonlocal n_correct, n_total
-        loss_sum, mil_sum, correct, n = (float(v) for v in fetch.result())
+    for i, (loss_sum, mil_sum, correct, n) in enumerate(metrics):
         if n > 0:
             loss_meter.update(loss_sum / n, int(n))
             mil_meter.update(mil_sum / n, int(n))
@@ -141,14 +158,6 @@ def run_eval(eval_step, state, loader, logger, log_steps, tag="", metric_lag: in
                 "Time %s, %s Step [%d], Avg Loss: %s, Avg MILNCE_loss: %s",
                 datetime.datetime.now(), tag, i + 1, loss_meter.avg, mil_meter.avg,
             )
-
-    for i, batch in enumerate(loader):
-        m = eval_step(state, batch)
-        pending.append((i, HostFetch(torch.stack([m[k].float() for k in _METRICS]))))
-        if len(pending) > metric_lag:
-            drain(*pending.popleft())
-    while pending:
-        drain(*pending.popleft())
     return loss_meter.avg, n_correct, n_total
 
 

@@ -17,14 +17,18 @@ CUDA tensor); the eval and predict CLIs log it as having no effect.
 ``--mcb`` builds the MCB head. ``--model_parallel > 1`` (the model axis,
 not ported yet) raises ``NotImplementedError`` naming its ROADMAP item.
 
-Data parallel over hosts: ``--coordinator host0:port --num_processes H
---process_id h`` keep the TPU package's meaning, one invocation a host.
-Each invocation starts one rank per visible card (as many as divide
-``--batch_size``, the TPU package's ``fitting_mesh`` rule), global rank
-``h * ranks a host + local rank``, over NCCL; with ``--platform cpu`` one
-rank over gloo. Each rank takes ``--batch_size / ranks a host`` rows a
-step, so a step takes ``--batch_size`` samples a host. ``--coordinator``
-with ``--num_processes 1`` forms a group of the host's ranks alone.
+Data parallel: each invocation starts one rank per visible card, as many
+as divide ``--batch_size`` (the TPU package's ``fitting_mesh`` rule, which
+warns about idle cards), over NCCL; with ``--platform cpu``, or one usable
+card, it runs in this process with no group. Each rank takes
+``--batch_size / ranks a host`` rows a step, so a step takes
+``--batch_size`` samples a host. Without ``--coordinator`` the ranks are
+those of this host alone, joined at a local port. Over hosts,
+``--coordinator host0:port --num_processes H --process_id h`` keep the TPU
+package's meaning, one invocation a host, global rank ``h * ranks a host +
+local rank``; with ``--platform cpu`` one gloo rank a host.
+``--coordinator`` with ``--num_processes 1`` forms a group of the host's
+ranks alone even when it has one.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ from structured_alignment_vqa_tpu_torch.models.glove import build_glove_table
 from structured_alignment_vqa_tpu_torch.parallel.mesh import (
     check_axes,
     fitting_data_size,
+    free_ports,
     init_distributed,
     shutdown,
 )
@@ -189,27 +194,35 @@ def local_ranks(args) -> int:
 
 
 def run_ranks(args, entry):
-    """``entry(args, mesh)`` on this invocation's ranks.
+    """``entry(args, mesh)`` on this invocation's ``local_ranks(args)`` ranks.
 
-    Without ``--coordinator``: once, with no mesh. With it: each local rank
-    joins the group of ``num_processes * local ranks`` ranks and calls
-    ``entry`` with its mesh; one local rank runs in this process (and its
-    result is returned), several are spawned processes (None is returned).
+    Without ``--coordinator`` and with one local rank: once, in this
+    process, with no mesh. Otherwise each local rank joins a group and
+    calls ``entry`` with its mesh: with ``--coordinator``, the group of
+    ``num_processes * local ranks`` ranks there; without, the group of
+    this host's ranks alone at a local port found here once, before any
+    rank starts (``--coordinator 127.0.0.1:<port> --num_processes 1
+    --process_id 0``). One local rank runs in this process (and its result
+    is returned), several are spawned processes (None is returned).
     ``entry`` must be a module-level function, so that spawned ranks can
     import it.
     """
-    if not args.coordinator:
-        return entry(args, None)
     n_local = local_ranks(args)
+    group = (args.coordinator, args.num_processes, args.process_id)
+    if not args.coordinator:
+        if n_local == 1:
+            return entry(args, None)
+        group = (f"127.0.0.1:{free_ports()[0]}", 1, 0)
     if n_local == 1:
-        return _rank(0, args, entry, 1)
-    torch.multiprocessing.spawn(_rank, args=(args, entry, n_local), nprocs=n_local)
+        return _rank(0, args, entry, 1, group)
+    torch.multiprocessing.spawn(_rank, args=(args, entry, n_local, group), nprocs=n_local)
     return None
 
 
-def _rank(local_rank: int, args, entry, n_local: int):
+def _rank(local_rank: int, args, entry, n_local: int, group: tuple):
+    coordinator, num_processes, process_id = group
     mesh = init_distributed(
-        args.coordinator, args.num_processes * n_local, args.process_id * n_local + local_rank,
+        coordinator, num_processes * n_local, process_id * n_local + local_rank,
         device="cpu" if args.platform == "cpu" else None, local_rank=local_rank,
         local_world=n_local)
     try:

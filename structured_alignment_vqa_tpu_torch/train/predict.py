@@ -14,8 +14,18 @@ Runs on the CUDA card (and fails without one) unless ``--platform cpu``.
 ``--int8`` serves the checkpoint with int8 GloVe tables and heads
 (``ops/quant.py``), quantized once after loading. ``--mcb`` serves a model
 with the MCB head. ``--n_pack`` configures training and is ignored: the
-loader here packs nothing, as the TPU package's does not. The CLI runs in
-one process, as the TPU package's does: ``--coordinator`` raises.
+loader here packs nothing, as the TPU package's does not.
+
+The CLI serves on every card of the host (``train/main.py:run_ranks``, one
+rank a card, the TPU package's ``fitting_mesh`` rule; one rank on the CPU).
+Rank r of n serves whole batches in stride, r, r + n, ... of the stream
+one process would serve, each with the rows, bucket and ``index`` base it
+has there, so its answers are those of one process bitwise: the forward's
+cross-sample terms (the MCB norm over the batch, the relation rewrite's
+joint softmax) and K3's hidden split see the same batch. Rank 0 gathers
+every rank's answers and writes them in ``index`` order; one rank writes
+each answer as it is read back. ``--coordinator``
+raises: the TPU package's predict loader is not sharded by host.
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ from collections import deque
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from structured_alignment_vqa_tpu_torch.data.batch import VQABatch
@@ -36,9 +47,11 @@ from structured_alignment_vqa_tpu_torch.models import AttModelX3
 from structured_alignment_vqa_tpu_torch.ops.quant import quantize_state_dict
 from structured_alignment_vqa_tpu_torch.train.main import (
     build_parser,
+    check_supported_flags,
     configs_from_args,
     device_from_args,
     log_flags_without_effect,
+    run_ranks,
 )
 from structured_alignment_vqa_tpu_torch.utils.checkpoint import load_params_for_eval
 from structured_alignment_vqa_tpu_torch.utils.logging import setup_logging
@@ -66,13 +79,16 @@ def make_predict_step(model: torch.nn.Module) -> Callable[[VQABatch], torch.Tens
 
 
 def serve(predict, batches, write, pipeline_depth: int = 4, warmup_batches: int = 0) -> dict:
-    """Pipelined serving over ``batches`` of ``(host_batch, ShippedBatch)``
-    (``data/transfer.py:shipped``): while the card runs batch t, the shipper
-    thread copies batch t+1 and the host collates the next; each batch's
-    answers start their copy to pinned host memory when the batch is queued
-    and are read ``pipeline_depth`` batches later. ``write(index, row)`` is
-    called for each valid sample, in order, with its row of ``predict``'s
-    output read back (the answer id, for :func:`make_predict_step`).
+    """Pipelined serving over ``batches`` of ``(i, host_batch,
+    ShippedBatch)``, ``i`` the batch's place in its stream
+    (:func:`numbered`): while the card runs batch t, the shipper thread
+    copies batch t+1 and the host collates the next; each batch's answers
+    start their copy to pinned host memory when the batch is queued and are
+    read ``pipeline_depth`` batches later. ``write(index, row)`` is called
+    for each valid sample, in order, with its row of ``predict``'s output
+    read back (the answer id, for :func:`make_predict_step`). ``index``
+    counts every row of the stream's batches before, padding included:
+    every batch of a stream has the same rows.
 
     Returns ``{"n_out", "seconds", "n_timed", "seconds_all"}``: the clock of
     ``seconds`` restarts once ``warmup_batches`` batches have been drained;
@@ -82,7 +98,6 @@ def serve(predict, batches, write, pipeline_depth: int = 4, warmup_batches: int 
     pending: deque = deque()
     start = time.perf_counter()
     stats = {"n_out": 0, "n_drained": 0, "n_at_t0": 0, "t0": start}
-    index = 0
 
     def drain(fetch, valid, base):
         preds = fetch.result()        # waits for this batch's answers alone
@@ -95,10 +110,9 @@ def serve(predict, batches, write, pipeline_depth: int = 4, warmup_batches: int 
             stats["t0"] = time.perf_counter()
             stats["n_at_t0"] = stats["n_out"]
 
-    for host, ship in batches:
+    for i, host, ship in batches:
         valid = host.sample_valid
-        pending.append((HostFetch(predict(ship.ready())), valid, index))
-        index += len(valid)
+        pending.append((HostFetch(predict(ship.ready())), valid, i * len(valid)))
         if len(pending) >= max(pipeline_depth, 1):
             drain(*pending.popleft())
     while pending:
@@ -108,7 +122,23 @@ def serve(predict, batches, write, pipeline_depth: int = 4, warmup_batches: int 
             "n_timed": stats["n_out"] - stats["n_at_t0"], "seconds_all": end - start}
 
 
-def main(argv=None):
+def numbered(pairs, mover: BatchMover):
+    """``(i, host_batch, ShippedBatch)`` for the ``(i, host_batch)`` pairs
+    of ``pairs`` (``BatchLoader.strided``, or ``enumerate`` of a loader),
+    shipped as ``data/transfer.py:shipped`` ships them."""
+    places: deque = deque()
+
+    def hosts():
+        for i, batch in pairs:
+            places.append(i)
+            yield batch
+
+    for host, ship in shipped(hosts(), mover):
+        yield places.popleft(), host, ship
+
+
+def build_predict_parser():
+    """The training CLI's parser with the predict CLI's own flags."""
     parser = build_parser()
     parser.add_argument("--weight_dir", type=str, required=True)
     parser.add_argument("--weight_epoch", type=int, default=None)
@@ -130,14 +160,27 @@ def main(argv=None):
                         help="restart the throughput clock after this many "
                              "batches have drained (the answers themselves are "
                              "still written)")
-    args = parser.parse_args(argv)
+    return parser
 
-    model_cfg, train_dc, val_dc, trainer_cfg = configs_from_args(args)
+
+def main(argv=None):
+    args = build_predict_parser().parse_args(argv)
+    check_supported_flags(args)
     if args.coordinator:
-        raise ValueError("the predict CLI runs in one process; it takes no --coordinator")
-    device = device_from_args(args)
+        raise ValueError("the predict CLI serves the cards of one host; it takes no "
+                         "--coordinator")
+    return run_ranks(args, predict_from_args)
+
+
+def predict_from_args(args, mesh=None) -> int:
+    """One rank's serving (``train/main.py:run_ranks``): its stride of the
+    batches; rank 0 writes every rank's answers. Returns the answers
+    written on rank 0, the answers served elsewhere."""
+    model_cfg, train_dc, val_dc, trainer_cfg = configs_from_args(args)
+    device = device_from_args(args) if mesh is None else mesh.device
+    rank, n = (0, 1) if mesh is None else (mesh.rank, mesh.world)
     dc = val_dc if args.split == "val" else train_dc
-    logger = setup_logging(trainer_cfg.output_dir)
+    logger = setup_logging(trainer_cfg.output_dir, rank)
     log_flags_without_effect(args, logger)
 
     ds = GQASuperNodeDataset(args.split, dc)
@@ -158,29 +201,51 @@ def main(argv=None):
     predict = make_predict_step(model)
     mover = BatchMover(device, bf16_features=model_cfg.compute_dtype == torch.bfloat16)
 
-    sink = sys.stdout if args.out == "-" else open(args.out, "w")
+    sink = None
+    if rank == 0:
+        sink = sys.stdout if args.out == "-" else open(args.out, "w")
 
-    def write(index: int, answer) -> None:
-        aid = int(answer)
+    def write_line(index: int, aid: int) -> None:
         sink.write(json.dumps({"index": index, "answer_id": aid,
                                "answer": id2ans.get(aid, "<other>")}) + "\n")
 
+    # one rank writes each answer as it is read back; several keep theirs
+    # for rank 0 to write in index order
+    answers: list = []
+    write = ((lambda index, answer: write_line(index, int(answer))) if n == 1
+             else (lambda index, answer: answers.append((index, int(answer)))))
     try:
-        stats = serve(predict, shipped(loader, mover), write,
+        stats = serve(predict, numbered(loader.strided(rank, n), mover), write,
                       args.pipeline_depth, args.warmup_batches)
+        ranks = [stats]
+        if n > 1:
+            gathered = [None] * n if rank == 0 else None
+            dist.gather_object((answers, stats), gathered, dst=0, group=mesh.cpu_group)
+            if rank != 0:
+                return stats["n_out"]
+            for index, aid in sorted(a for rank_answers, _ in gathered for a in rank_answers):
+                write_line(index, aid)
+            ranks = [st for _, st in gathered]
     finally:
-        if sink is not sys.stdout:
+        if sink not in (None, sys.stdout):
             sink.close()
-    n_out, n_timed, dt = stats["n_out"], stats["n_timed"], stats["seconds"]
+    # the host's rates: every rank's answers over the slowest rank's time
+    n_out = sum(st["n_out"] for st in ranks)
+    n_timed = sum(st["n_timed"] for st in ranks)
+    dt = max(st["seconds"] for st in ranks)
+    dt_all = max(st["seconds_all"] for st in ranks)
     logger.info(
         "predicted %d answers%s in %.2fs (%.0f pairs/s); the whole stream in %.2fs "
-        "(%.0f pairs/s)",
+        "(%.0f pairs/s), on %d rank(s)",
         n_out,
         f" ({n_timed} timed after {args.warmup_batches}-batch warmup)"
         if n_timed != n_out else "",
-        dt, n_timed / max(dt, 1e-9), stats["seconds_all"],
-        n_out / max(stats["seconds_all"], 1e-9),
+        dt, n_timed / max(dt, 1e-9), dt_all, n_out / max(dt_all, 1e-9), n,
     )
+    if n > 1:
+        for r, st in enumerate(ranks):
+            logger.info("rank %d served %d answers in %.2fs (%.0f pairs/s)", r, st["n_out"],
+                        st["seconds_all"], st["n_out"] / max(st["seconds_all"], 1e-9))
     return n_out
 
 

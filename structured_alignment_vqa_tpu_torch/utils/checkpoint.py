@@ -23,8 +23,11 @@ In a data-parallel run (``mesh`` of several ranks) rank 0 writes the file
 and every rank waits for it at a barrier; every rank reads it on resume
 and takes its own generator's state back.
 
-Loading a reference ``.pth`` or an orbax directory written by the TPU
-package is interop (ROADMAP Queue 1 item 18), not this module's.
+The reference's ``model_{epoch}.pth`` goes in through
+``models/torch_import.py`` and out through ``models/torch_export.py``. An
+orbax directory written by the TPU package does not load here (orbax
+imports JAX): that package's ``models/torch_export.py:save_pth`` writes it
+as a ``.pth``, which ``models/torch_import.py`` reads.
 """
 
 from __future__ import annotations

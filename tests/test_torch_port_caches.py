@@ -182,3 +182,33 @@ def test_batch_replay_equals_jax_epoch_by_epoch(root, tmp_path):
         jl.set_epoch(epoch)
         pl.set_epoch(epoch)
         assert_same_batches(list(jl), list(pl))
+
+
+@pytest.mark.parametrize("kind", sorted(KINDS))
+@pytest.mark.parametrize("n", [2, 3])
+def test_strided_streams_partition_the_loader_stream(root, kind, n, tmp_path):
+    """Ranks 0..n-1 of ``BatchLoader.strided`` give batches r, r + n, ... of
+    the one-process stream with their ordinals: cold (every rank collating
+    its own batches), cold with a batch cache (rank 0 collating all and
+    publishing the cache, which then equals the one-process stream), and
+    through that cache."""
+    _, pds = datasets(root, kind)
+
+    def loader(cache=None):
+        return port_ds.BatchLoader(pds, 3, shuffle=False, drop_last=False, num_threads=2,
+                                   batch_cache_dir=cache)
+
+    want = list(loader())
+    assert len(want) > n
+    cache = str(tmp_path / "batches")
+    for ranks in ("cold", "publishing", "warm"):
+        got = {}
+        for r in range(n):
+            strided = list(loader(None if ranks == "cold" else cache).strided(r, n))
+            assert [i for i, _ in strided] == list(range(r, len(want), n)), (ranks, r)
+            got.update(strided)
+        assert_same_batches([got[i] for i in range(len(want))], want)
+    assert_same_batches(list(port_bc.valid_batch_cache(cache, loader(cache)._batch_fingerprint())),
+                        want)
+    with pytest.raises(ValueError, match="shuffle=False"):
+        next(port_ds.BatchLoader(pds, 3, shuffle=True).strided(0, n))

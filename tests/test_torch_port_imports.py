@@ -11,7 +11,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "structured_alignment_vqa_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "structured_alignment_vqa_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "structured_alignment_vqa_tpu")
 
 
 def _imported_modules(path: pathlib.Path):
@@ -52,8 +52,8 @@ def test_package_imports_without_jax_nvcc_or_triton():
         "import structured_alignment_vqa_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'triton',"
-        " 'structured_alignment_vqa_tpu')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'orbax',"
+        " 'triton', 'structured_alignment_vqa_tpu')]\n"
         "assert not bad, bad\n"
         "from structured_alignment_vqa_tpu_torch.ops import _build\n"
         "assert not _build._libs\n"

@@ -15,7 +15,15 @@
   batch counts differ; the ranks' samples are disjoint. One invocation
   that spawns two local ranks (``run_ranks``' branch for several cards a
   host, its card count stubbed to 2) writes the checkpoints of the two
-  single-rank invocations, bitwise.
+  single-rank invocations, bitwise, and so does one without
+  ``--coordinator`` (the host's ranks alone, at a local port).
+* With no ``--coordinator`` and the card count stubbed to 2, the eval CLI
+  (each rank its stride of whole batches) logs one process's loss and
+  counts, and the predict CLI (each rank its
+  stride of whole batches, cold and through the batch cache, obj-only and
+  ``--mcb``) writes one process's answers file byte for byte; a count of 3
+  at ``--batch_size 4`` warns about the idle card; predict still refuses
+  ``--coordinator``.
 * ``fitting_data_size`` equals the data axis of JAX's ``fitting_mesh``;
   the launcher's argv for both presets equals JAX's ``build_train_argv``
   but for the module; ``--dry_run`` prints one command a host.
@@ -99,14 +107,25 @@ from structured_alignment_vqa_tpu_torch.data.dataset import (  # noqa: E402
     GQASuperNodeDataset,
 )
 from structured_alignment_vqa_tpu_torch.data.fixtures import write_fixture  # noqa: E402
+from structured_alignment_vqa_tpu_torch.data.transfer import host_tensors  # noqa: E402
 from structured_alignment_vqa_tpu_torch.data.synthetic import synthetic_arrays  # noqa: E402
-from structured_alignment_vqa_tpu_torch.models import ModelConfig  # noqa: E402
+from structured_alignment_vqa_tpu_torch.models import (  # noqa: E402
+    AttModelX3,
+    ModelConfig,
+    init_random_,
+)
+from structured_alignment_vqa_tpu_torch.models.att_model_x3 import _Head  # noqa: E402
 from structured_alignment_vqa_tpu_torch.models.convert import state_dict_from_jax  # noqa: E402
 from structured_alignment_vqa_tpu_torch.parallel.mesh import fitting_data_size  # noqa: E402
-from structured_alignment_vqa_tpu_torch.train import launch  # noqa: E402
+from structured_alignment_vqa_tpu_torch.parallel.train_step import (  # noqa: E402
+    TrainState,
+    adam,
+)
+from structured_alignment_vqa_tpu_torch.train import evaluate, launch, predict  # noqa: E402
 from structured_alignment_vqa_tpu_torch.train import main as train_main  # noqa: E402
 from structured_alignment_vqa_tpu_torch.utils.checkpoint import (  # noqa: E402
     checkpoint_path,
+    save_checkpoint,
     saved_epochs,
 )
 from test_torch_port_model import JaxConfig, JaxModel, jax_batch, perturbed  # noqa: E402
@@ -176,14 +195,82 @@ SPAWN_TWO_LOCAL = ("import os, sys; os.environ['OMP_NUM_THREADS'] = '1'; "
                    "m.local_ranks = lambda args: 2; m.main(sys.argv[1:])")
 
 
-def _spawned(tmp, root, port):
+# the same for the eval and predict CLIs
+SPAWN_TWO_LOCAL_CLI = ("import os, sys; os.environ['OMP_NUM_THREADS'] = '1'; "
+                       "from structured_alignment_vqa_tpu_torch.train import main as m, {cli}; "
+                       "m.local_ranks = lambda args: 2; {cli}.main(sys.argv[1:])")
+
+
+def _spawned(tmp, root, port, name="spawned"):
     """The command for one invocation of two local ranks, 2 epochs, taking
-    the two single-rank invocations' rows a rank."""
-    out, cache = os.path.join(tmp, "spawned"), os.path.join(tmp, "spawned_cache")
-    argv = _cli_argv(root, out, cache, "--num_epochs", "2", "--coordinator",
-                     f"127.0.0.1:{port}", "--num_processes", "1", "--process_id", "0")
+    the two single-rank invocations' rows a rank; with no ``port``, without
+    ``--coordinator``."""
+    out, cache = os.path.join(tmp, name), os.path.join(tmp, f"{name}_cache")
+    group = () if port is None else ("--coordinator", f"127.0.0.1:{port}", "--num_processes",
+                                     "1", "--process_id", "0")
+    argv = _cli_argv(root, out, cache, "--num_epochs", "2", *group)
     argv[argv.index("--batch_size") + 1] = str(2 * CLI_ROWS)
     return [sys.executable, "-c", SPAWN_TWO_LOCAL, *argv]
+
+
+def _serving_argv(tmp, root, name, cli, *extra):
+    """The eval or predict CLI's flags over a checkpoint of random weights
+    (``--mcb`` among ``extra`` for the MCB head's): ``--batch_size 4`` to
+    eval (val holds a single batch of 8), 8 to predict."""
+    head = "mcb" if "--mcb" in extra else "concat"
+    argv = _cli_argv(root, os.path.join(tmp, name), os.path.join(tmp, f"{name}_cache"),
+                     "--weight_dir", os.path.join(tmp, f"weights_{head}"), *extra)
+    if cli == "predict":
+        argv[argv.index("--batch_size") + 1] = str(2 * CLI_ROWS)
+        argv += ["--split", "train", "--out", os.path.join(tmp, f"{name}.jsonl")]
+    return argv
+
+
+def _one_process_eval(tmp, root):
+    """The eval CLI in one process of one rank, as a process of its own
+    beside the spawned ranks (one thread, as they)."""
+    code = ("import os, sys; os.environ['OMP_NUM_THREADS'] = '1'; "
+            "from structured_alignment_vqa_tpu_torch.train import evaluate; "
+            "evaluate.main(sys.argv[1:])")
+    return [sys.executable, "-c", code, *_serving_argv(tmp, root, "eval_one", "evaluate")]
+
+
+def _spawned_cli(cli, argv):
+    return [sys.executable, "-c", SPAWN_TWO_LOCAL_CLI.format(cli=cli), *argv]
+
+
+def _save_random_weights(tmp, root):
+    """A checkpoint of seeded random weights for each head (concat, MCB),
+    each answer head's output bias shifted by minus its mean logits over
+    one batch, so that the answers spread over the classes."""
+    for head, extra in (("concat", ()), ("mcb", ("--mcb",))):
+        args = train_main.build_parser().parse_args(_cli_argv(root, "unused", "unused", *extra))
+        cfg, train_dc, _, _ = train_main.configs_from_args(args)
+        model = AttModelX3(cfg, device="cpu")
+        init_random_(model, torch.Generator().manual_seed(3))
+        batch = next(iter(BatchLoader(GQASuperNodeDataset("train", train_dc), 2 * CLI_ROWS,
+                                      shuffle=False)))
+        heads = [m for m in model.modules() if isinstance(m, _Head)]
+        outs = {}
+        hooks = [m.register_forward_hook(lambda m, _, out: outs.__setitem__(m, out))
+                 for m in heads]
+        with torch.no_grad():
+            model.eval()(host_tensors(batch))
+            for m in heads:
+                m[-1].bias.sub_(outs[m].mean(0))
+        for h in hooks:
+            h.remove()
+        save_checkpoint(os.path.join(tmp, f"weights_{head}"),
+                        TrainState(model, adam(model.parameters())), 1)
+
+
+# the serving runs of two local ranks without --coordinator: (name, CLI,
+# extra flags); "predict_cold" publishes its batch cache, "predict_warm"
+# reads the one the fixture's one-process run published
+SPAWNED_SERVING = (("eval_noflag", "evaluate", ()),
+                   ("predict_cold", "predict", ("--batch_cache_dir", "{tmp}/batches_cold")),
+                   ("predict_warm", "predict", ("--batch_cache_dir", "{tmp}/batches")),
+                   ("predict_mcb", "predict", ("--mcb",)))
 
 
 def _two_ranks(tmp, name, root, epochs, port):
@@ -205,11 +292,21 @@ def cli_runs(tmp_path_factory):
     tmp = str(tmp_path_factory.mktemp("dp_cli"))
     root = os.path.join(tmp, "data")
     write_fixture(root, n_images=8, n_questions=60, seed=1)
+    _save_random_weights(tmp, root)
+    predict.main(_serving_argv(tmp, root, "cache_pass", "predict", "--batch_cache_dir",
+                               f"{tmp}/batches"))
     ports = free_ports(3)
     launch_local(_two_ranks(tmp, "full", root, 2, ports[0])
                  + _two_ranks(tmp, "resumed", root, 1, ports[1])
-                 + [_spawned(tmp, root, ports[2])], timeout=300)
-    launch_local(_two_ranks(tmp, "resumed", root, 2, free_ports()[0]), timeout=300)
+                 + [_one_process_eval(tmp, root), _spawned(tmp, root, ports[2]),
+                    _spawned(tmp, root, None, "noflag")],
+                 timeout=300)
+    # the second batch: the serving runs beside the resumed epoch, so that
+    # no more than a dozen processes run at once
+    launch_local(_two_ranks(tmp, "resumed", root, 2, free_ports()[0])
+                 + [_spawned_cli(cli, _serving_argv(tmp, root, name, cli, *(
+                     e.format(tmp=tmp) for e in extra))) for name, cli, extra in SPAWNED_SERVING],
+                 timeout=300)
     states = {(name, r): torch.load(os.path.join(tmp, f"{name}_rank{r}_2.pt"))
               for name in ("full", "resumed") for r in range(2)}
     return tmp, root, states
@@ -289,6 +386,79 @@ def test_two_spawned_local_ranks_train_as_two_single_rank_invocations(cli_runs):
         for g, w in zip(got["generators"], want["generators"]):
             assert torch.equal(g, w), epoch
         assert got["step"] == want["step"] > 0
+
+
+def test_two_local_ranks_without_coordinator_train_as_two_single_rank_invocations(cli_runs):
+    """No ``--coordinator``: ``run_ranks`` forms the host's group at a local
+    port and writes, epoch by epoch, the two-process run's checkpoints."""
+    tmp, _, _ = cli_runs
+    assert "over 2 rank(s), 4 row(s) a rank a step" in _log(tmp, "noflag")
+    for epoch in (1, 2):
+        got, want = (torch.load(checkpoint_path(os.path.join(tmp, name, "checkpoints"), epoch),
+                                weights_only=True) for name in ("noflag", "full"))
+        assert len(got["generators"]) == 2
+        for key in ("params", "table_opt"):
+            assert got[key].keys() == want[key].keys()
+            for k, v in want[key].items():
+                assert torch.equal(got[key][k], v), (epoch, key, k)
+        for g, w in zip(got["generators"], want["generators"]):
+            assert torch.equal(g, w), epoch
+        assert got["step"] == want["step"] > 0
+
+
+EVAL_LINE = re.compile(r"Eval\[val\] Loss: ([^,]+), accuracy: ([0-9.]+)/([0-9.]+) =")
+
+
+def test_two_local_ranks_evaluate_as_one_process(cli_runs):
+    """The eval CLI over two spawned ranks, each its stride of whole
+    batches of val, logs one process's line: its loss and its counts,
+    which are every valid sample of one process's loader. (Two ranks of 2
+    rows each would keep other samples: the eval loader drops an
+    under-full batch of a bucket, as the TPU package's does.)"""
+    tmp, root, _ = cli_runs
+    (got,), (want,) = (EVAL_LINE.findall(_log(tmp, name)) for name in ("eval_noflag", "eval_one"))
+    args = train_main.build_parser().parse_args(_cli_argv(root, "unused", "unused"))
+    _, _, val_dc, _ = train_main.configs_from_args(args)
+    batches = list(BatchLoader(GQASuperNodeDataset("val", val_dc), CLI_ROWS, shuffle=False))
+    valid = sum(int(b.sample_valid.sum()) for b in batches)
+    assert got == want and float(want[2]) == valid > 0, (got, want, valid)
+    assert f"val: {len(batches)} batch(es) over 2 ranks" in _log(tmp, "eval_noflag")
+    assert len(batches) > 2
+
+
+@pytest.mark.parametrize("name", ["predict_cold", "predict_warm", "predict_mcb"])
+def test_two_local_ranks_write_one_process_answers_file(cli_runs, name):
+    """Two spawned ranks, each serving whole batches in stride, rank 0
+    writing: the answers file of one process byte for byte, cold (rank 0
+    publishing the batch cache), through a cache a one-process run
+    published (each rank reading its own batches) and with the MCB head,
+    whose norm spans the batch."""
+    tmp, root, _ = cli_runs
+    extra = ("--mcb",) if name == "predict_mcb" else ()
+    predict.main(_serving_argv(tmp, root, f"one_{name}", "predict", *extra))
+    with open(os.path.join(tmp, f"one_{name}.jsonl"), "rb") as f:
+        want = f.read()
+    with open(os.path.join(tmp, f"{name}.jsonl"), "rb") as f:
+        got = f.read()
+    answers = [json.loads(line) for line in want.decode().splitlines()]
+    assert got == want and len(answers) == 60
+    assert len({a["answer_id"] for a in answers}) > 1
+    assert "on 2 rank(s)" in _log(tmp, name)
+
+
+def test_an_idle_card_is_warned_about(monkeypatch):
+    """Three cards at ``--batch_size 4``: two ranks, one card idle."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    args = train_main.build_parser().parse_args(["--batch_size", "4"])
+    with pytest.warns(UserWarning, match=r"uses only 2 of 3 devices \(1 idle\)"):
+        assert train_main.local_ranks(args) == 2
+
+
+def test_predict_still_refuses_a_coordinator():
+    with pytest.raises(ValueError, match="takes no --coordinator"):
+        predict.main(["--platform", "cpu", "--weight_dir", "unused", "--coordinator",
+                      "127.0.0.1:1"])
 
 
 def test_no_sample_is_seen_twice_in_an_epoch(cli_runs):
