@@ -169,8 +169,24 @@ Phases, each of which must pass:
     take one rank and form no group, its logged losses bitwise those of
     its NCCL group of one.
 
+17. the ablation variants (``variants``, ROADMAP item 17a): all 17 names of
+    ``models/variants.VARIANTS`` through ``build_variant`` at the variant
+    eval CLI's defaults (hidden 512, 6 blocks, 8 heads, 407,000 x 300 GloVe
+    tables, f32, 1,843 classes, bs 64 at (lv, ls, lq) = (49, 250, 50), the
+    masks of each family as that CLI builds them; relatt over 250
+    vis-symbolic nodes; x3_ori at the obj+rel point), random weights from a
+    seed, one model at a time: five forwards each, whose K1, K3 and K4
+    launches and plain ``attention_core`` calls must equal the block plan's
+    (``VARIANT_FORWARD``); the kernel path against the plain path (logits
+    within 1e-3, equal answers, every K1/K3/K4 call at the model's own
+    inputs within tolerance); one f32 backward of x2_dec and of x5_dec_mil
+    (label-smoothed CE, plus the attention-MIL loss for x5) with the kernels
+    against one with the plain versions (gradients within 3e-2 of their
+    norms, K2 in it); as information the ms a request, pairs/s, bf16
+    answers against f32 plain, and the device time of one request of each.
+
 ``--phases a,b`` (of card, k1, k3, k2, serving, training, k4, k56,
-objrel_serving, objrel_training, cli, train_cli, packed, dp, host) runs only those, for work on one kernel,
+objrel_serving, objrel_training, cli, train_cli, packed, dp, host, variants) runs only those, for work on one kernel,
 and then prints no last line. It prints one JSON line of kernels, the card's line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero without
 that last line; so does a machine without a CUDA device.
@@ -236,6 +252,33 @@ REL_FORWARD = {"K1": 12, "K4": 12, "K3": 24, "K2": 0, "K5": 0, "K6": 0}
 REL_STEP = {"K1": 12, "K2": 12, "K4": 12, "K5": 12, "K6": 12, "K3": 24}
 # with remat_blocks each of the 12 encoder blocks runs its forward once more
 REL_STEP_REMAT = {"K1": 18, "K2": 12, "K4": 18, "K5": 12, "K6": 12, "K3": 36}
+# the variant eval CLI's defaults (train/evaluate_variants.py in the TPU
+# package): bs 64, maxlen_v 49, maxlen 300 of which maxlen_q 50 question
+# tokens and 250 scene-graph nodes
+VARIANT_B, VARIANT_LV, VARIANT_LS, VARIANT_LQ = 64, 49, 250, 50
+WIDE_C = 2048   # the region features' width: x2_fusion_dec_mil2's alignment blocks
+# K1, K3 and K4 launches and plain attention_core calls (attention weights
+# out, or no renorm: x2_mlp_dec's vanilla decoder cross-attention) of one
+# forward of each variant, from its block plan at 6 blocks (stages 2 and 4).
+# A 1-token self-attention computes no attention. x: 6 + 6 blocks; x2: 6 +
+# 7 (the symbolic branch re-runs blocks 0-2); the dec line: 6 encoder + 6
+# decoder cross-attentions a branch; x5: 6 + 6 self stacks, 6 alignment
+# blocks with weights out, 6 decoder blocks; x6: 2 + 2 + 1 (question) + 2 x
+# (6 + 6), 2 alignment blocks; x7: 2 + 2 + 3 joint + 2 question + 4 + 4, 3
+# alignment blocks; fusion_dec_mil(2): the x2_fusion_dec body's 24 and 3
+# alignment blocks (their FFNs 3 more K3, at C 2,048 in mil2); x3_ori: the
+# obj+rel point's 12 K1 + 12 K4 + 24 K3
+VARIANT_FORWARD = {
+    "x": (12, 12, 0, 0), "x2": (13, 13, 0, 0), "x2_pre": (13, 13, 0, 0),
+    "x2_distill": (13, 13, 0, 0), "x2_dec": (24, 24, 0, 0), "x2_dec_ori": (24, 24, 0, 0),
+    "x2_mlp_dec": (12, 24, 0, 12), "x2_syb_dec": (24, 24, 0, 0),
+    "x2_fusion_dec": (24, 24, 0, 0), "x2_fusion_dec_relatt": (24, 24, 0, 0),
+    "x2_fusion_dec_mil": (24, 27, 0, 3), "x2_fusion_dec_mil2": (24, 27, 0, 3),
+    "x3_ori": (12, 24, 12, 0), "x4_dec": (24, 24, 0, 0), "x5_dec_mil": (18, 24, 0, 6),
+    "x6_dec_mil": (29, 31, 0, 2), "x7_dec_mil": (17, 20, 0, 3),
+}
+# the variants whose backward (phase variants, c) and bf16 forward (d) are run
+VARIANT_STEPS = ("x2_dec", "x5_dec_mil")
 # K4's statistics m, z, b (f32 on both sides, sums in another order), and a
 # remat step against a plain one (the same kernels; only the embedding
 # tables' gradients are summed with atomics, in an order that can change)
@@ -402,38 +445,45 @@ def k3_phase(gen) -> dict:
     from structured_alignment_vqa_tpu_torch.ops import fused_ffn as k3
 
     rows = []
+    # (rows, C): 1,000 rows are no multiple of the bf16 kernel's 64-row tile;
+    # C 2,048 is the wide kernel (x2_fusion_dec_mil2's alignment FFN at the
+    # variant eval's bs 64 x 49 regions), 1,001 rows ragged in its 8-row tile
+    shapes = [(n, C) for n in (16384, 8448, 128, REL_B * REL_L, REL_B * (REL_LV + REL_LQ),
+                               REL_B, 1000)] + [(VARIANT_B * VARIANT_LV, WIDE_C), (1001, WIDE_C)]
     for dtype in (torch.bfloat16, torch.float32):
-        # 1,000 rows: no multiple of the bf16 kernel's 64-row tile
-        for n in (16384, 8448, 128, REL_B * REL_L, REL_B * (REL_LV + REL_LQ), REL_B, 1000):
+        for n, c in shapes:
             dev = "cuda"
-            x = torch.randn(n, C, generator=gen, device=dev).to(dtype)
-            w1 = (torch.randn(HIDDEN, C, generator=gen, device=dev) / C ** 0.5).to(dtype)
-            b1 = (0.05 * torch.randn(HIDDEN, generator=gen, device=dev)).to(dtype)
-            w2 = (torch.randn(C, HIDDEN, generator=gen, device=dev) / HIDDEN ** 0.5).to(dtype)
-            b2 = (0.05 * torch.randn(C, generator=gen, device=dev)).to(dtype)
-            gamma = 1 + 0.05 * torch.randn(C, generator=gen, device=dev)
-            beta = 0.05 * torch.randn(C, generator=gen, device=dev)
+            hidden = 4 * c
+            x = torch.randn(n, c, generator=gen, device=dev).to(dtype)
+            w1 = (torch.randn(hidden, c, generator=gen, device=dev) / c ** 0.5).to(dtype)
+            b1 = (0.05 * torch.randn(hidden, generator=gen, device=dev)).to(dtype)
+            w2 = (torch.randn(c, hidden, generator=gen, device=dev) / hidden ** 0.5).to(dtype)
+            b2 = (0.05 * torch.randn(c, generator=gen, device=dev)).to(dtype)
+            gamma = 1 + 0.05 * torch.randn(c, generator=gen, device=dev)
+            beta = 0.05 * torch.randn(c, generator=gen, device=dev)
             args = (x, w1, b1, w2, b2, gamma, beta)
             got = k3.fused_ffn(*args)
             want = k3.ffn_ln_plain(*args)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
-            n_split = k3.kernel_ffn_split(dtype, n, C, HIDDEN)[0]
-            path = "tensor-core" if dtype == torch.bfloat16 else "simt"
+            n_split = k3.kernel_ffn_split(dtype, n, c, hidden)[0]
+            path = ("wide simt" if c in k3.WIDE_WIDTHS
+                    else "tensor-core" if dtype == torch.bfloat16 else "simt")
+            label = f"rows={n}" if c == C else f"rows={n} C={c}"
             check(err <= TOL[dtype] and bool(torch.isfinite(got.float()).all()),
-                  f"K3 rows={n} {dtype}: {path} kernel, hidden width in {n_split} shard(s), "
+                  f"K3 {label} {dtype}: {path} kernel, hidden width in {n_split} shard(s), "
                   f"max|kernel-plain| {err:.3g} <= {TOL[dtype]:g}")
-            if n == 1000:
+            if n in (1000, 1001):
                 continue
             ms = time_ms(lambda: k3.fused_ffn(*args))
             plain_ms = time_ms(lambda: k3.ffn_ln_plain(*args))
             size = torch.finfo(dtype).bits // 8
-            nbytes = size * (2 * n * C + 2 * C * HIDDEN + HIDDEN + C) + 8 * C
-            bound_ms, bound_by = bound(nbytes, 4.0 * n * C * HIDDEN, dtype)
-            print(f"K3 rows={n} {dtype}: {path} kernel, {n_split} shard(s), {ms:.4f} ms"
-                  f"{previous('K3', f'rows={n}', dtype)}, plain {plain_ms:.4f} ms, "
+            nbytes = size * (2 * n * c + 2 * c * hidden + hidden + c) + 8 * c
+            bound_ms, bound_by = bound(nbytes, 4.0 * n * c * hidden, dtype)
+            print(f"K3 {label} {dtype}: {path} kernel, {n_split} shard(s), {ms:.4f} ms"
+                  f"{previous('K3', label, dtype)}, plain {plain_ms:.4f} ms, "
                   f"bound {bound_ms * 1e3:.2f} us ({bound_by})", flush=True)
-            rows.append(dict(label=f"rows={n}", dtype=dtype, err=err, ms=ms, plain_ms=plain_ms,
+            rows.append(dict(label=label, dtype=dtype, err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by))
     return {r["label"] + str(r["dtype"]): r for r in rows}
 
@@ -1400,10 +1450,11 @@ def spread_answers_(model, batch) -> None:
 
 @contextlib.contextmanager
 def recorded_kernel_inputs(seen: dict, counts: "dict | None" = None):
-    """Pass every launch of K1, K2 and K3 on to the kernel, keeping a copy of
-    the first arguments at each distinct shape (and renorm) in ``seen``,
-    keyed by kernel and shapes, and the number of launches at each in
-    ``counts`` when given."""
+    """Pass every launch of K1, K2, K3 and K4 on to the kernel, keeping a
+    copy of the first arguments at each distinct shape (and renorm) in
+    ``seen``, keyed by kernel and shapes, and the number of launches at each
+    in ``counts`` when given."""
+    from structured_alignment_vqa_tpu_torch.ops import flash_graph_attention as fl
     from structured_alignment_vqa_tpu_torch.ops import fused_ffn as k3
     from structured_alignment_vqa_tpu_torch.ops import fused_graph_attention as k1
 
@@ -1419,14 +1470,16 @@ def recorded_kernel_inputs(seen: dict, counts: "dict | None" = None):
 
     with mock.patch.object(k1, "_launch", recorder("K1", k1._launch)), \
             mock.patch.object(k1, "_launch_bwd", recorder("K2", k1._launch_bwd)), \
-            mock.patch.object(k3, "_launch", recorder("K3", k3._launch)):
+            mock.patch.object(k3, "_launch", recorder("K3", k3._launch)), \
+            mock.patch.object(fl, "_launch_forward", recorder("K4", fl._launch_forward)):
         yield
 
 
 def cli_kernels_against_plain(seen: dict, what: str = "cli") -> None:
-    """K1, K2 and K3 at every shape the CLIs gave them, on the model's own
-    inputs, against their plain versions (K2 output by output, relative to
-    each output's max)."""
+    """K1, K2, K3 and K4 at every shape the CLIs (or a phase's model) gave
+    them, on the model's own inputs, against their plain versions (K2 output
+    by output, relative to each output's max; K4's output)."""
+    from structured_alignment_vqa_tpu_torch.ops import flash_graph_attention as fl
     from structured_alignment_vqa_tpu_torch.ops import fused_ffn as k3
     from structured_alignment_vqa_tpu_torch.ops import fused_graph_attention as k1
 
@@ -1442,9 +1495,15 @@ def cli_kernels_against_plain(seen: dict, what: str = "cli") -> None:
                 got = k1.fused_graph_attention_ln(*args)
                 want = k1.graph_attention_ln_plain(*args)
                 shape = f"B {x.shape[0]} Tq {x.shape[1]} Tk {args[1].shape[1]} {args[-1]}"
+            elif key == "K4":   # args: ..., num_heads, renorm, emit
+                got = fl._launch_forward(*args)
+                want = fl.flash_graph_attention_plain(*args)
+                if args[-1] != "out":
+                    got, want = got[0], want[0]
+                shape = f"B {x.shape[0]} Tq {x.shape[1]} Tk {args[1].shape[1]} {args[-2]}"
             else:
                 got, want = k3.fused_ffn(*args), k3.ffn_ln_plain(*args)
-                shape = f"rows {x.numel() // x.shape[-1]}"
+                shape = f"rows {x.numel() // x.shape[-1]} C {x.shape[-1]}"
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         tol = TOL[x.dtype]
@@ -2870,8 +2929,246 @@ def host_phase(card: str) -> dict:
     return path
 
 
+# ------------------------------------------------------------------ variants
+
+
+def variant_config(name: str, dtype=torch.float32):
+    """The variant eval CLI's model config (hidden 512, 6 blocks, 8 heads,
+    407,000 x 300 GloVe tables, maxlen 300 / 50 / 49, dropout 0, 1,843
+    classes); x3_ori at the obj+rel point (``rel_config``, dropout 0, its
+    own tables)."""
+    from structured_alignment_vqa_tpu_torch.models import ModelConfig
+
+    if name == "x3_ori":
+        return rel_config(compute_dtype=dtype, dropout_rate=0.0, share_glove=False)
+    return ModelConfig(num_classes=1843, num_relations=310, vocab_size=407000, glove_dim=300,
+                       hidden_size=512, num_blocks=6, num_heads=8, dropout_rate=0.0,
+                       maxlen=300, maxlen_q=50, maxlen_v=49, stage1_blocks=2,
+                       stage2_blocks=4, compute_dtype=dtype)
+
+
+def variant_inputs(name: str, seed: int) -> tuple:
+    """The positional inputs of ``name``'s forward on the card, with the
+    masks of its family as the variant eval CLI builds them (square for the
+    dec family, fusion_dec_mil(2) and x2_dec_ori, 1-D for the others; the
+    visual rows all valid): bs 64, (lv, ls, lq) = (49, 250, 50), questions
+    of 8-50 tokens, scene graphs of 49-250 nodes at 5% density, x6's object
+    slots on distinct node rows (-1 padded), relatt's 250 vis-symbolic node
+    rows of which up to 49 link a region. x3_ori: bs 4 at the obj+rel
+    bucket (36, 1506, 30) (``rel_batches``), relation rows for its 1,260
+    object pairs (-1 where none) and 4 candidates a pair (10% PAD)."""
+    rng = np.random.default_rng(seed)
+    dev = "cuda"
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    if name == "x3_ori":
+        from structured_alignment_vqa_tpu_torch.models.variants import PAD_ID
+
+        cfg = variant_config(name)
+        bt = rel_batches(cfg, 1)[0]
+        b, o = bt.vis_fea.shape[:2]
+        pairs = o * (o - 1)
+        n_macro = bt.macro_mask.sum(dim=2).gt(0).sum(dim=1).cpu().numpy()
+        rel_loc = np.stack([rng.integers(-1, n, size=pairs) for n in n_macro])
+        pos_rel = rng.integers(0, cfg.num_relations, size=(b, pairs, 4))
+        pos_rel[rng.random((b, pairs, 4)) < 0.1] = PAD_ID
+        neg_rel = rng.integers(0, cfg.num_relations, size=(b, pairs, 4))
+        return (bt.vis_fea, bt.vis_mask, bt.q_ipt, bt.q_mask, bt.q_graph, bt.macro_ipt,
+                bt.macro_mask, bt.macro_graph, bt.macro_obj_loc, t(rel_loc), bt.micro_pos_obj,
+                bt.micro_neg_obj, bt.micro_obj_mask, t(pos_rel), t(neg_rel))
+
+    b, lv, ls, lq = VARIANT_B, VARIANT_LV, VARIANT_LS, VARIANT_LQ
+
+    def valid(lo: int, hi: int, length: int) -> np.ndarray:
+        n = rng.integers(lo, hi + 1, size=b)
+        return (np.arange(length)[None, :] < n[:, None]).astype(np.float32)
+
+    def graph(mask: np.ndarray, density: float) -> np.ndarray:
+        g = (rng.random((b, mask.shape[1], mask.shape[1])) < density).astype(np.float32)
+        g = np.maximum(g, np.eye(mask.shape[1], dtype=np.float32)[None])
+        return g * mask[:, :, None] * mask[:, None, :]
+
+    def ids(mask: np.ndarray) -> np.ndarray:
+        return (rng.integers(1, 400000, size=mask.shape) * mask).astype(np.int64)
+
+    def square(m: np.ndarray) -> np.ndarray:
+        return m[:, :, None] * m[:, None, :]
+
+    vis = rng.standard_normal((b, lv, WIDE_C)).astype(np.float32)
+    qm, sm = valid(min(8, lq), lq, lq), valid(lv, ls, ls)
+    q, s, qg, sg = ids(qm), ids(sm), graph(qm, 0.3), graph(sm, 0.05)
+    vm = np.ones((b, lv), np.float32)
+    if name in ("x", "x2", "x2_pre", "x2_distill"):
+        return tuple(map(t, (vis, q, qm, qg, s, sm, sg)))
+    if name in ("x4_dec", "x5_dec_mil", "x7_dec_mil", "x6_dec_mil"):
+        out = (vis, vm, q, qm, qg, s, sm, sg)
+        if name == "x6_dec_mil":
+            idx = np.full((b, lv), -1, np.int64)
+            for i in range(b):
+                k = int(rng.integers(min(10, lv), lv + 1))
+                idx[i, :k] = rng.choice(int(sm[i].sum()), size=k, replace=False)
+            out += (idx,)
+        return tuple(map(t, out))
+    if name == "x2_fusion_dec_relatt":
+        nm = valid(lv, ls, ls)
+        link = np.full((b, ls), -1, np.int64)
+        for i in range(b):
+            rows = np.sort(rng.choice(int(nm[i].sum()), size=lv, replace=False))
+            link[i, rows] = np.arange(lv)
+        return tuple(map(t, (vis, ids(nm), square(nm), link, graph(nm, 0.05), q, square(qm),
+                             qg, s, square(sm), sg)))
+    return tuple(map(t, (vis, square(vm), q, square(qm), qg, s, square(sm), sg)))
+
+
+@contextlib.contextmanager
+def counted_attention_core(calls: dict):
+    """Count the plain ``attention_core`` calls of the attention modules
+    (weights out, attention dropout, or no renorm) under ``calls["plain"]``."""
+    from structured_alignment_vqa_tpu_torch.ops import attention
+
+    real = attention.attention_core
+
+    def call(*args, **kw):
+        calls["plain"] += 1
+        return real(*args, **kw)
+
+    with mock.patch.object(attention, "attention_core", call):
+        yield
+
+
+def variant_logits(out) -> list:
+    """The logits of a variant's output: the tensor, or the leading (B, C)
+    tensors of its tuple."""
+    if torch.is_tensor(out):
+        return [out]
+    return [o for o in out if torch.is_tensor(o) and o.dim() == 2]
+
+
+def variant_step(model, args, loss_fn, plain: bool) -> tuple:
+    """(loss, {name: gradient or None}, launches) of one f32 backward."""
+    model.zero_grad(set_to_none=True)
+    reset_launch_counts()
+    with plain_path() if plain else contextlib.nullcontext():
+        loss = loss_fn(model(*args))
+        loss.backward()
+    torch.cuda.synchronize()
+    grads = {n: None if p.grad is None else p.grad.detach().clone()
+             for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads, launch_counts()
+
+
+def variant_loss(name: str, args, answer):
+    """The variant eval's label-smoothed CE; for x5 plus the attention-MIL
+    loss of its alignment weights, visual rows onto scene-graph columns."""
+    from structured_alignment_vqa_tpu_torch.train.att_mil_loss import att_mil_loss
+
+    def loss(out):
+        logits = variant_logits(out)[0]
+        log_sm = torch.log_softmax(logits.float(), dim=-1)
+        one_hot = torch.nn.functional.one_hot(answer, logits.shape[-1]).float()
+        ce = -((0.9 * one_hot + 0.1 / logits.shape[-1]) * log_sm).sum(-1).mean()
+        if name != "x5_dec_mil":
+            return ce
+        lv = args[0].shape[1]
+        idx = torch.where(torch.arange(lv, device=answer.device)[None] < 20,
+                          torch.arange(lv, device=answer.device)[None].expand(answer.shape[0], lv),
+                          torch.full((1, lv), -1, device=answer.device))
+        return ce + att_mil_loss([a[:, :, :lv, lv:] for a in out[1]], idx, args[7])
+    return loss
+
+
+def variants_phase(card: str) -> dict:
+    """The 17 ablation variants at the variant eval CLI's full width (f32):
+    (a) five forwards each, launches held to VARIANT_FORWARD; (b) the kernel
+    path against the plain path (logits, answers, every K1/K3/K4 input);
+    (c) one f32 backward of x2_dec and x5_dec_mil, kernels against plain
+    versions (K2 in it); (d) both in bf16 as information; (e) the device
+    time of one request of each."""
+    from structured_alignment_vqa_tpu_torch.models import init_random_
+    from structured_alignment_vqa_tpu_torch.models.variants import VARIANTS, build_variant
+
+    total = dict.fromkeys(counted_wrappers(), 0)
+    for seed, name in enumerate(VARIANTS):
+        cfg = variant_config(name)
+        model = build_variant(name, cfg)
+        init_random_(model, torch.Generator(device="cuda").manual_seed(seed))
+        model.eval()
+        args = variant_inputs(name, seed)
+        b = args[0].shape[0]
+        calls = {"plain": 0}
+        with torch.inference_mode():
+            model(*args)               # warm-up: cuBLAS handles, allocator
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            with counted_attention_core(calls):
+                t0 = time.perf_counter()
+                for _ in range(REQUESTS):
+                    out = model(*args)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+        launches = launch_counts()
+        total = {k: total[k] + launches[k] for k in total}
+        k1, k3, k4, plain = VARIANT_FORWARD[name]
+        want = dict(K1=k1, K2=0, K3=k3, K4=k4, K5=0, K6=0)
+        got = {k: v / REQUESTS for k, v in launches.items()}
+        check(got == want and calls["plain"] == plain * REQUESTS,
+              f"variants {name}: launches a forward {got} == {want}, plain attention_core "
+              f"calls {calls['plain'] / REQUESTS:g} == {plain}")
+        print(f"variants {name} f32 bs {b}: {seconds / REQUESTS * 1e3:.2f} ms a request, "
+              f"{REQUESTS * b / seconds:.1f} pairs/s on {card} (information only)", flush=True)
+
+        seen = {}
+        with torch.inference_mode():
+            with recorded_kernel_inputs(seen):
+                kernel_out = model(*args)
+            before = launch_counts()
+            with plain_path():
+                plain_out = model(*args)
+            check(before == launch_counts(), f"variants {name}: the plain path launched no kernel")
+        kl, pl = variant_logits(kernel_out), variant_logits(plain_out)
+        diff = max((a - c).abs().max().item() for a, c in zip(kl, pl))
+        finite = all(torch.isfinite(x).all().item() for x in kl)
+        check(finite and len(kl) == len(pl) and diff <= LOGIT_TOL_F32,
+              f"variants {name} f32: {len(kl)} logits, max|kernel - plain| {diff:.3g} <= "
+              f"{LOGIT_TOL_F32:g}")
+        same = min((a.argmax(-1) == c.argmax(-1)).float().mean().item() for a, c in zip(kl, pl))
+        check(same == 1.0, f"variants {name} f32: answers kernel == plain for {same:.4f} of {b}")
+        cli_kernels_against_plain(seen, f"variants {name}")
+        del seen, kernel_out, out
+
+        if name in VARIANT_STEPS:
+            answer = torch.from_numpy(np.random.default_rng(seed).integers(
+                1, cfg.num_classes, size=b)).to("cuda")
+            loss_fn = variant_loss(name, args, answer)
+            kernel = variant_step(model, args, loss_fn, plain=False)
+            check(kernel[2]["K2"] == kernel[2]["K1"] == k1 and kernel[2]["K4"] == k4,
+                  f"variants {name} f32 backward: launches {kernel[2]}, a K2 for each K1")
+            plain_step = variant_step(model, args, loss_fn, plain=True)
+            check(not any(plain_step[2].values()),
+                  f"variants {name} plain backward: launched no kernel ({plain_step[2]})")
+            compare_steps(f"variants {name} f32 backward, kernels against plain versions",
+                          kernel, plain_step, LOSS_TOL_F32, GRAD_TOL_F32, shift_free=True)
+            total["K2"] += kernel[2]["K2"]
+            model16 = build_variant(name, variant_config(name, torch.bfloat16))
+            model16.load_state_dict(model.state_dict())
+            with torch.inference_mode():
+                out16 = variant_logits(model16.eval()(*args))[0]
+            agree = (out16.argmax(-1) == pl[0].argmax(-1)).float().mean().item()
+            print(f"variants {name} bf16: answers agree with f32 plain on {agree:.4f} of {b} "
+                  "(information only)", flush=True)
+            del model16, out16
+            with torch.inference_mode():
+                profile_device(lambda: model(*args), f"one bs-{b} {name} f32 request")
+        del model, args, plain_out, kl, pl
+        torch.cuda.empty_cache()
+    return total
+
+
 PHASES = ("k1", "k3", "k2", "serving", "training", "k4", "k56", "objrel_serving",
-          "objrel_training", "cli", "train_cli", "packed", "dp", "host")
+          "objrel_training", "cli", "train_cli", "packed", "dp", "host", "variants")
 PORT = "structured_alignment_vqa_tpu_torch/csrc/"
 TPU = "structured_alignment_vqa_tpu/ops/"
 BF16 = str(torch.bfloat16)
@@ -2957,7 +3254,7 @@ def main(argv: list) -> int:
     path_phases = {"serving": serving_phase, "training": training_phase,
                    "objrel_serving": rel_serving_phase, "objrel_training": rel_training_phase,
                    "cli": cli_phase, "train_cli": train_cli_phase, "packed": packed_phase,
-                   "dp": dp_phase, "host": host_phase}
+                   "dp": dp_phase, "host": host_phase, "variants": variants_phase}
     rows, by_path = {}, {}
     for phase in phases:
         t0 = time.perf_counter()

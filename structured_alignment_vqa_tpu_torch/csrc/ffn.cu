@@ -516,7 +516,143 @@ ffn_ln_shard_sum_kernel(const float* __restrict__ partial, const bf16* __restric
   }
 }
 
+// ------------------------------------------------------------ wide rows
+//
+// C = 2048 (fusion_dec_mil2's alignment blocks run the FFN at the region
+// features' width): a 64-row tile of x alone would take 256 KB of shared
+// memory in bf16, so neither kernel above fits. This one keeps 8 rows a
+// block as f32 in shared memory and works on CUDA cores in both dtypes
+// (inputs widened to f32, h rounded to the input type before the second
+// product, as the tensor-core path does): phase A forms the 8 x 64 hidden
+// chunk, two rows and one hidden column a thread, from 32-wide slices of
+// W1; phase B adds h W2[:, chunk]^T into y, warp w owning row w whole
+// (64 columns a lane in registers), from 8-deep slices of W2; the warp
+// then adds b2 and x and runs the LayerNorm on its row. Every block reads
+// both weight matrices once (from L2 after the first blocks): slow, and
+// right first (wgmma over column tiles is work for a later change).
+
+constexpr int kWRows = 8;    // rows per block: one warp a row in phase B
+constexpr int kWRed = 32;    // C slice of W1 staged per step
+constexpr int kWRed2 = 8;    // hidden slice of W2 staged per step
+
+template <int C>
+constexpr size_t wide_smem_floats() {
+  return (size_t)kWRows * C                  // xs: the row tile, f32
+         + (size_t)kWRows * (kHidden + 1)    // hs: the hidden chunk
+         + (size_t)kWRed * (kHidden + 1)     // w1s: W1 slice, transposed
+         + (size_t)kWRed2 * C;               // w2s: W2 slice, transposed
+}
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(bf16 v) { return __bfloat162float(v); }
+template <typename T> __device__ __forceinline__ T narrow(float v);
+template <> __device__ __forceinline__ float narrow<float>(float v) { return v; }
+template <> __device__ __forceinline__ bf16 narrow<bf16>(float v) { return __float2bfloat16(v); }
+
+template <int C, typename T>
+__global__ void __launch_bounds__(kThreads)
+ffn_ln_wide_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restrict__ b1,
+                   const T* __restrict__ w2, const T* __restrict__ b2,
+                   const float* __restrict__ gamma, const float* __restrict__ beta,
+                   T* __restrict__ out, int N, int Hd) {
+  constexpr int HS = kHidden + 1;
+  constexpr int kCols = C / 32;  // output columns per lane
+  extern __shared__ float smem[];
+  float* xs = smem;
+  float* hs = xs + kWRows * C;
+  float* w1s = hs + kWRows * HS;
+  float* w2s = w1s + kWRed * HS;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int row0 = blockIdx.x * kWRows;
+  for (int i = tid; i < kWRows * C; i += kThreads) {
+    const int r = i / C, c = i - r * C;
+    xs[i] = row0 + r < N ? widen(x[(size_t)(row0 + r) * C + c]) : 0.f;
+  }
+  const int jj = tid & (kHidden - 1);   // phase A: hidden column
+  const int ar = 2 * (tid / kHidden);   // phase A: rows ar, ar + 1
+  float y[kCols];
+#pragma unroll
+  for (int t = 0; t < kCols; ++t) y[t] = 0.f;
+
+  for (int j0 = 0; j0 < Hd; j0 += kHidden) {
+    float h0 = 0.f, h1 = 0.f;
+    for (int k0 = 0; k0 < C; k0 += kWRed) {
+      __syncthreads();  // xs loaded; the previous slice's readers of w1s done
+      for (int i = tid; i < kWRed * kHidden; i += kThreads) {
+        const int kk = i % kWRed, j = i / kWRed;
+        w1s[kk * HS + j] = widen(w1[(size_t)(j0 + j) * C + k0 + kk]);
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int kk = 0; kk < kWRed; ++kk) {
+        const float w = w1s[kk * HS + jj];
+        h0 = fmaf(xs[ar * C + k0 + kk], w, h0);
+        h1 = fmaf(xs[(ar + 1) * C + k0 + kk], w, h1);
+      }
+    }
+    const float bb = widen(b1[j0 + jj]);
+    hs[ar * HS + jj] = widen(narrow<T>(fmaxf(h0 + bb, 0.f)));
+    hs[(ar + 1) * HS + jj] = widen(narrow<T>(fmaxf(h1 + bb, 0.f)));
+
+    for (int k0 = 0; k0 < kHidden; k0 += kWRed2) {
+      __syncthreads();  // hs written; the previous slice's readers of w2s done
+      for (int i = tid; i < kWRed2 * C; i += kThreads) {
+        const int kk = i % kWRed2, n = i / kWRed2;
+        w2s[kk * C + n] = widen(w2[(size_t)n * Hd + j0 + k0 + kk]);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < kWRed2; ++kk) {
+        const float a = hs[warp * HS + k0 + kk];
+#pragma unroll
+        for (int t = 0; t < kCols; ++t) y[t] = fmaf(a, w2s[kk * C + lane + 32 * t], y[t]);
+      }
+    }
+  }
+
+  // + b2 + x, then the LayerNorm of row `warp`
+  float s = 0.f;
+#pragma unroll
+  for (int t = 0; t < kCols; ++t) {
+    const int c = lane + 32 * t;
+    y[t] = (y[t] + widen(b2[c])) + xs[warp * C + c];
+    s += y[t];
+  }
+  const float mean = warp_sum(s) / (float)C;
+  float ss = 0.f;
+#pragma unroll
+  for (int t = 0; t < kCols; ++t) ss += (y[t] - mean) * (y[t] - mean);
+  const float var = warp_sum(ss) / (float)(C - 1);
+  const float sd = var > 0.f ? sqrtf(var) : 0.f;
+  if (row0 + warp < N) {
+#pragma unroll
+    for (int t = 0; t < kCols; ++t) {
+      const int c = lane + 32 * t;
+      out[(size_t)(row0 + warp) * C + c] =
+          narrow<T>(gamma[c] * (y[t] - mean) / (sd + kLnEps) + beta[c]);
+    }
+  }
+}
+
 // ----------------------------------------------------------------- launch
+
+template <int C, typename T>
+cudaError_t launch_wide(const void* x, const void* w1, const void* b1, const void* w2,
+                        const void* b2, const float* gamma, const float* beta, void* out, int N,
+                        int Hd, cudaStream_t stream) {
+  const size_t smem = wide_smem_floats<C>() * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(ffn_ln_wide_kernel<C, T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  ffn_ln_wide_kernel<C, T><<<(N + kWRows - 1) / kWRows, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w1), static_cast<const T*>(b1),
+      static_cast<const T*>(w2), static_cast<const T*>(b2), gamma, beta, static_cast<T*>(out),
+      N, Hd);
+  return cudaGetLastError();
+}
 
 template <int C>
 cudaError_t launch_f32(const void* x, const void* w1, const void* b1, const void* w2,
@@ -570,8 +706,9 @@ cudaError_t launch(const void* x, const void* w1, const void* b1, const void* w2
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. C must be 128, 256 or 512 and Hd a
-// multiple of 64; bf16 pointers must be 16-byte aligned. bf16 splits the
+// dtype: 0 = float32, 1 = bfloat16. C must be 128, 256, 512 or 2048 (the
+// wide kernel, both dtypes, n_split 1) and Hd a multiple of 64; bf16
+// pointers must be 16-byte aligned. bf16 splits the
 // Hd / 64 hidden chunks into n_split shards of per_split chunks, none empty
 // ((n_split - 1) per_split < Hd / 64 <= n_split per_split); with n_split > 1,
 // partial is (n_split, N, C) f32 scratch (else unused, may be null). f32
@@ -584,7 +721,7 @@ extern "C" int savqa_ffn_ln(const void* x, const void* w1, const void* b1, const
   const int chunks = Hd / kHidden;
   if (N <= 0 || Hd <= 0 || Hd % kHidden != 0 || n_split < 1 || per_split < 1 ||
       (n_split - 1) * per_split >= chunks || n_split * per_split < chunks ||
-      (dtype == 0 && n_split != 1) || (n_split > 1 && partial == nullptr))
+      ((dtype == 0 || C == 2048) && n_split != 1) || (n_split > 1 && partial == nullptr))
     return (int)cudaErrorInvalidValue;
   const auto* ga = static_cast<const float*>(gamma);
   const auto* be = static_cast<const float*>(beta);
@@ -594,6 +731,10 @@ extern "C" int savqa_ffn_ln(const void* x, const void* w1, const void* b1, const
     case 128: return (int)launch<128>(x, w1, b1, w2, b2, ga, be, out, pa, N, Hd, dtype, n_split, per_split, s);
     case 256: return (int)launch<256>(x, w1, b1, w2, b2, ga, be, out, pa, N, Hd, dtype, n_split, per_split, s);
     case 512: return (int)launch<512>(x, w1, b1, w2, b2, ga, be, out, pa, N, Hd, dtype, n_split, per_split, s);
+    case 2048:
+      if (dtype == 0) return (int)launch_wide<2048, float>(x, w1, b1, w2, b2, ga, be, out, N, Hd, s);
+      if (dtype == 1) return (int)launch_wide<2048, bf16>(x, w1, b1, w2, b2, ga, be, out, N, Hd, s);
+      return (int)cudaErrorInvalidValue;
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -161,26 +161,42 @@ class GloVeEmbed(nn.Module):
 class _Branch(nn.Module):
     """One encoder/decoder branch: three attention stages over (modality ++
     question) tokens, then a decoder of one token per pack slot (one on an
-    unpacked row) cross-attending into them."""
+    unpacked row) cross-attending into them.
+
+    The ablation variants (``models/variants.py``) set the TPU package's two
+    knobs of ``_EncoderDecoder``: ``mlp_relu=False`` makes the question
+    projection a bare Linear (the x2_dec line), ``dec_cross="vanilla"``
+    makes the decoder's cross-attention content-masked multi-head attention
+    with no dec_mask (x2_mlp_dec). Two more carry the reference forks'
+    parameter names: ``mlp_name`` names the question projection, and
+    ``pe_sequential`` says whether the positional table sits in a
+    Sequential (``syb_positional_encoding.0``), as it does by default
+    exactly when its output is dropped out."""
 
     def __init__(self, cfg: ModelConfig, pe_table_size: int, pe_dropout: bool,
-                 glove: Optional[GloVeEmbed], device=None):
+                 glove: Optional[GloVeEmbed], device=None, mlp_relu: bool = True,
+                 dec_cross: str = "graph", mlp_name: str = "syb_mlp",
+                 pe_sequential: Optional[bool] = None):
         super().__init__()
+        if dec_cross not in ("graph", "vanilla"):
+            raise ValueError(f"unknown dec_cross {dec_cross!r}")
         dt = cfg.compute_dtype
         h = cfg.hidden_size
         self.cfg = cfg
         self.syb_emb = (glove if glove is not None
                         else GloVeEmbed(cfg.vocab_size, cfg.glove_dim, dt, device,
                                         cfg.int8_serving))
-        self.syb_mlp = linear_relu(cfg.glove_dim, cfg.vis_fea_dim, dt, device)
+        self.mlp_name = mlp_name
+        self.add_module(mlp_name, linear_relu(cfg.glove_dim, cfg.vis_fea_dim, dt, device)
+                        if mlp_relu else Linear(cfg.glove_dim, cfg.vis_fea_dim, dt, device))
         self.syb_mlp2 = Linear(cfg.vis_fea_dim, h, dt, device)
         pe = Embedding(pe_table_size, h, zeros_pad=False, scale=False, dtype=dt, device=device)
-        # the visual branch's PE sits in a Sequential with its dropout
         self.syb_positional_encoding = (
-            nn.Sequential(pe, Dropout(cfg.dropout_rate)) if pe_dropout else pe
+            nn.Sequential(pe) if (pe_dropout if pe_sequential is None else pe_sequential) else pe
         )
-        self.pe_dropout = pe_dropout
+        self.pe_dropout = Dropout(cfg.dropout_rate) if pe_dropout else None
         self.fea_dropout = Dropout(cfg.dropout_rate)
+        self.dec_cross = dec_cross
         for i in range(cfg.num_blocks):
             self.add_module(f"enc_self_attention_{i}", GraphGuidedAttention(
                 h, cfg.num_heads, dtype=dt, device=device))
@@ -193,7 +209,8 @@ class _Branch(nn.Module):
         for i in range(cfg.num_blocks):
             self.add_module(f"dec_self_attention_{i}", MultiHeadAttention(
                 h, cfg.num_heads, causality=True, dtype=dt, device=device))
-            self.add_module(f"dec_vanilla_attention_{i}", GraphGuidedAttention(
+            cross = GraphGuidedAttention if dec_cross == "graph" else MultiHeadAttention
+            self.add_module(f"dec_vanilla_attention_{i}", cross(
                 h, cfg.num_heads, dtype=dt, device=device))
             self.add_module(f"dec_feed_forward_{i}", FeedForward(h, (4 * h, h), dt, device))
 
@@ -214,7 +231,7 @@ class _Branch(nn.Module):
         b = modality_fea.shape[0]
         h = cfg.hidden_size
 
-        q_fea = self.syb_mlp(self.syb_emb(q_ids))
+        q_fea = getattr(self, self.mlp_name)(self.syb_emb(q_ids))
         fea = self.syb_mlp2(torch.cat([modality_fea.to(dt), q_fea], dim=1))
         size = fea.shape[1]
         if mod_pos is None:
@@ -226,11 +243,9 @@ class _Branch(nn.Module):
             mod_count = ((mod_seg[:, None, :] == q_seg[:, :, None])
                          & (mod_seg[:, None, :] >= 0)).sum(dim=-1)     # (B, Lq)
             pos_ids = torch.cat([mod_pos, q_pos + mod_count.to(q_pos.dtype)], dim=1).long()
-        if self.pe_dropout:
-            pe_table, pe_drop = self.syb_positional_encoding
-            pe = pe_drop(pe_table(pos_ids), generator)
-        else:
-            pe = self.syb_positional_encoding(pos_ids)
+        pe = self.syb_positional_encoding(pos_ids)
+        if self.pe_dropout is not None:
+            pe = self.pe_dropout(pe, generator)
         fea = self.fea_dropout(fea + pe, generator)
 
         graph_diag, graph_cross, graph, dec_mask = build_stage_graphs(
@@ -257,7 +272,13 @@ class _Branch(nn.Module):
         for i in range(cfg.num_blocks):
             tok = dec.reshape(b * n_pack, 1, h)
             dec = getattr(self, f"dec_self_attention_{i}")(tok, tok, tok).reshape(b, n_pack, h)
-            dec = getattr(self, f"dec_vanilla_attention_{i}")(dec, fea, fea, dec_mask)
+            cross = getattr(self, f"dec_vanilla_attention_{i}")
+            if self.dec_cross == "vanilla":
+                if n_pack != 1:
+                    raise ValueError("the vanilla decoder cross-attention has no pack mask")
+                dec = cross(dec, fea, fea)
+            else:
+                dec = cross(dec, fea, fea, dec_mask)
             dec = getattr(self, f"dec_feed_forward_{i}")(dec)
         return dec  # (B, n_pack, hidden)
 

@@ -19,6 +19,14 @@ their plain versions on the CPU); everything else runs
 :func:`attention_core` in eager PyTorch. The
 1-token self-attention of the decoder computes no attention at all and
 reduces to ``query_mask * V(x)``.
+
+The ablation variants (``models/variants.py``) add three things: a module
+built with ``return_att`` also returns the attention weights, one with a
+``dropout_rate`` drops attention weights in train mode (the mask drawn
+from the ``generator`` passed to ``forward``), and a graph may broadcast
+over the query or key axis (a (B, Tq, 1) query-validity column). A call
+that returns weights or draws dropout runs :func:`attention_core` on every
+device, as the TPU package's dispatch does: the kernels compute neither.
 """
 
 from __future__ import annotations
@@ -74,11 +82,17 @@ def attention_core(
     graph: Optional[torch.Tensor] = None,
     renorm: Optional[str] = None,
     causal: bool = False,
+    dropout_rate: float = 0.0,
+    generator: Optional[torch.Generator] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Shared attention math of the three variants, in eager PyTorch.
 
     Returns ``(output (B, Tq, C) in q's dtype, att_weights (B, H, Tq, Tk))``;
-    ``att_weights`` is post-renorm and pre-query-mask.
+    ``att_weights`` is post-renorm and pre-query-mask. ``graph`` is
+    (B, Tq, Tk) or broadcasts to it. With ``dropout_rate > 0`` the weights
+    are dropped after the query mask and before the product with V, kept
+    ones scaled by ``1 / (1 - dropout_rate)``, the mask drawn from
+    ``generator``; the caller passes a rate only in train mode.
     """
     tq, tk = q.shape[1], k.shape[1]
     dh = q.shape[-1] // num_heads
@@ -102,6 +116,10 @@ def attention_core(
 
     att_weights = att
     att = att * query_mask.float()[:, None, :, None]
+    if dropout_rate > 0.0:
+        keep = torch.bernoulli(torch.full(att.shape, 1.0 - dropout_rate, device=att.device),
+                               generator=generator)
+        att = torch.where(keep.bool(), att / (1.0 - dropout_rate), torch.zeros_like(att))
     out = torch.matmul(att.to(vh.dtype).float(), vh.float())
     return _merge_heads(out).to(q.dtype), att_weights
 
@@ -109,17 +127,21 @@ def attention_core(
 class _AttentionBase(nn.Module):
     """ReLU'd Q/K/V projections (``Q_proj.0`` ...) + post-LN (``normalization``).
 
-    The serving slice has no attention dropout and no attention-weights
-    output (AttModelX3 uses neither); they come with the variants.
+    ``dropout_rate`` drops attention weights in train mode; ``return_att``
+    makes ``forward`` return ``(out, att_weights)``. AttModelX3 uses
+    neither; the MIL variants do.
     """
 
     renorm: Optional[str] = None
 
     def __init__(self, num_units: int, num_heads: int = 8, causality: bool = False,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 dropout_rate: float = 0.0, return_att: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.causality = causality
+        self.dropout_rate = dropout_rate
+        self.return_att = return_att
         self.Q_proj = linear_relu(num_units, num_units, dtype, device)
         self.K_proj = linear_relu(num_units, num_units, dtype, device)
         self.V_proj = linear_relu(num_units, num_units, dtype, device)
@@ -128,20 +150,31 @@ class _AttentionBase(nn.Module):
     def _finish(self, out, queries):
         return layer_norm(out + queries, self.normalization.gamma, self.normalization.beta)
 
-    def _run(self, queries, keys, values, graph):
+    def _run(self, queries, keys, values, graph, generator=None):
         renorm = self.renorm
+        b, tq, tk = queries.shape[0], queries.shape[1], keys.shape[1]
+        dropout_rate = self.dropout_rate if self.training else 0.0
         # 1-token self-attention (the decoder's): softmax over one key is 1,
         # so the block is LN(query_mask * V(x) + x). Exact only without a
         # graph and renorm, as in the TPU package.
-        if queries.shape[1] == 1 and keys.shape[1] == 1 and graph is None and renorm is None:
+        if tq == 1 and tk == 1 and graph is None and renorm is None and dropout_rate == 0.0:
             v = self.V_proj(values)
-            return self._finish(v * content_mask(queries)[..., None].to(v.dtype), queries)
+            out = self._finish(v * content_mask(queries)[..., None].to(v.dtype), queries)
+            if self.return_att:
+                return out, torch.ones(b, self.num_heads, 1, 1, device=out.device)
+            return out
 
         q, k, v = self.Q_proj(queries), self.K_proj(keys), self.V_proj(values)
         key_mask, query_mask = content_mask(keys), content_mask(queries)
-        if graph is not None and renorm is not None and not self.causality:
+        # The kernels return no attention weights and draw no dropout, so a
+        # call that asks for either runs attention_core on every device: the
+        # TPU package's dispatch rule (its kernels exclude return_att and a
+        # dropout rng alike), not a fallback from a failed launch.
+        if (graph is not None and renorm is not None and not self.causality
+                and not self.return_att and dropout_rate == 0.0):
             q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-            graph = graph.float().contiguous()
+            # the kernels read a whole (B, Tq, Tk) graph: expand a broadcast one
+            graph = graph.float().expand(b, tq, tk).contiguous()
             if keys.shape[1] > MAX_KEYS:
                 # long sequences: the K-blocked kernels, then residual + LayerNorm
                 out = flash_graph_attention(q, k, v, key_mask, query_mask, graph,
@@ -152,9 +185,13 @@ class _AttentionBase(nn.Module):
                 self.normalization.gamma, self.normalization.beta, self.num_heads, renorm,
             )
 
-        out, _ = attention_core(q, k, v, key_mask, query_mask, self.num_heads, graph=graph,
-                                renorm=renorm, causal=self.causality)
-        return self._finish(out, queries)
+        out, att = attention_core(q, k, v, key_mask, query_mask, self.num_heads, graph=graph,
+                                  renorm=renorm, causal=self.causality,
+                                  dropout_rate=dropout_rate, generator=generator)
+        out = self._finish(out, queries)
+        if self.return_att:
+            return out, att
+        return out
 
 
 class MultiHeadAttention(_AttentionBase):
@@ -162,8 +199,8 @@ class MultiHeadAttention(_AttentionBase):
 
     renorm = None
 
-    def forward(self, queries, keys, values):
-        return self._run(queries, keys, values, graph=None)
+    def forward(self, queries, keys, values, generator=None):
+        return self._run(queries, keys, values, None, generator)
 
 
 class GraphGuidedAttention(_AttentionBase):
@@ -171,8 +208,8 @@ class GraphGuidedAttention(_AttentionBase):
 
     renorm = "l1"
 
-    def forward(self, queries, keys, values, graph):
-        return self._run(queries, keys, values, graph=graph)
+    def forward(self, queries, keys, values, graph, generator=None):
+        return self._run(queries, keys, values, graph, generator)
 
 
 class GraphMaskAttention(_AttentionBase):
@@ -184,8 +221,9 @@ class GraphMaskAttention(_AttentionBase):
 
     renorm = "sum_eps"
 
-    def forward(self, queries, keys, values, graph=None):
+    def forward(self, queries, keys, values, graph=None, generator=None):
         if graph is None:
+            # mask-only attention: a ones graph, exact under the multiply
             graph = torch.ones(queries.shape[0], queries.shape[1], keys.shape[1],
                                device=queries.device)
-        return self._run(queries, keys, values, graph=graph)
+        return self._run(queries, keys, values, graph, generator)

@@ -7,7 +7,8 @@ Counterpart of the TPU package's ``ops/pallas_ffn.py`` (``_kernel``, entry
 On CUDA tensors :func:`fused_ffn` launches the kernel of ``csrc/ffn.cu``
 (bf16: ``mma.sync`` tiles of 64 rows; with few rows the hidden width is
 split over blocks by :func:`ffn_split` and a second kernel sums the shards,
-counted as one launch; f32: SIMT); on CPU tensors it runs
+counted as one launch; f32: SIMT; C 2048, either dtype: the wide SIMT
+kernel, 8 rows a block); on CPU tensors it runs
 :func:`ffn_ln_plain`, the same function in plain PyTorch, rounding where
 the kernel rounds: the hidden activation is cast to x's dtype before the
 second product and the residual is added in f32. The
@@ -28,7 +29,10 @@ from structured_alignment_vqa_tpu_torch.ops import _build
 from structured_alignment_vqa_tpu_torch.ops.dispatch import SM_COUNT, SMEM_LIMIT, use_kernel
 from structured_alignment_vqa_tpu_torch.ops.layers import layer_norm
 
-WIDTHS = (128, 256, 512)   # C values the kernel is compiled for
+WIDTHS = (128, 256, 512)   # C values the row-tile kernels are compiled for
+# C values past the row-tile kernels' shared memory: csrc/ffn.cu's wide
+# kernel (8 rows a block on CUDA cores, both dtypes, no hidden split)
+WIDE_WIDTHS = (2048,)
 HIDDEN_CHUNK = 64          # the hidden width must be a multiple of this
 TC_ROWS = 64               # rows per block of the bf16 tensor-core kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -66,8 +70,9 @@ def ffn_split(rows: int, c: int, hidden: int) -> tuple:
 
 def kernel_ffn_split(dtype, rows: int, c: int, hidden: int) -> tuple:
     """The split a call takes: :func:`ffn_split` on the bf16 tensor-core
-    kernel; float32's SIMT kernel walks every chunk in one block."""
-    if dtype == torch.bfloat16:
+    kernel; float32's SIMT kernel and the wide kernel walk every chunk in
+    one block."""
+    if dtype == torch.bfloat16 and c not in WIDE_WIDTHS:
         return ffn_split(rows, c, hidden)
     return 1, hidden // HIDDEN_CHUNK
 
@@ -96,8 +101,8 @@ def _check(x, w1, b1, w2, b2, gamma, beta) -> None:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     c = x.shape[-1]
     hd = w1.shape[0]
-    if c not in WIDTHS:
-        raise ValueError(f"the FFN kernel is built for C in {WIDTHS}, got {c}")
+    if c not in WIDTHS + WIDE_WIDTHS:
+        raise ValueError(f"the FFN kernel is built for C in {WIDTHS + WIDE_WIDTHS}, got {c}")
     if hd % HIDDEN_CHUNK:
         raise ValueError(f"hidden width {hd} is not a multiple of {HIDDEN_CHUNK}")
     want = {

@@ -331,9 +331,9 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.model_v != 3:
         raise SystemExit(
-            "model_v != 3: the ablation models (the TPU package's models.variants) are "
-            "not ported yet (ROADMAP Queue 1 item 17); the training driver covers the "
-            "production v3 path (as does the reference's maintained loss branch).")
+            "model_v != 3: use structured_alignment_vqa_tpu_torch.models.variants to "
+            "instantiate ablation models; the training driver covers the production v3 "
+            "path (as does the reference's maintained loss branch).")
     check_supported_flags(args)
     return run_ranks(args, train_from_args)
 

@@ -249,7 +249,8 @@ def test_sinusoid_table_equals_jax(zeros_pad, scale):
 def test_model_v_other_than_3_exits(root, tmp_path):
     args = tiny_args(root, str(tmp_path / "v2"))
     args[args.index("--model_v") + 1] = "2"
-    with pytest.raises(SystemExit, match="model_v != 3"):
+    with pytest.raises(SystemExit,
+                       match=r"model_v != 3: use structured_alignment_vqa_tpu_torch\.models\.variants"):
         train_main.main(args)
 
 
