@@ -185,8 +185,36 @@ Phases, each of which must pass:
     norms, K2 in it); as information the ms a request, pairs/s, bf16
     answers against f32 plain, and the device time of one request of each.
 
+18. the variant eval CLI (``variant_cli``, ROADMAP item 17b): on a fixture
+    tree of the cli phase's kind, ``train.evaluate_variants.main`` on the
+    card at its defaults (f32, hidden 512, 6 blocks, 8 heads, 407,000 x 300
+    tables, bs 64, maxlen 300 / 50 / 49, the val split's 640 questions)
+    for each variant it can call: x, x2, x2_pre, x2_distill and the dec
+    family on the ``itp_gt`` loader, x5, x6 and x7 on ``itp_bbox_q``, each
+    from a checkpoint of random weights (``--weight_dir``): the CLI's loss
+    within 1e-4 relative of the same model's in-process plain path over the
+    same batches, its correct count equal where no logit margin is below
+    1e-4, its K1 and K3 launches a batch the block plan's; as information
+    pairs/s, ms a batch, the loader's cold samples/s and the idle share of
+    3 batches (x, x2_dec, x5); every other loader preset through the loader
+    alone;
+19. ring and Ulysses sequence parallelism (``seq``, ROADMAP item 16): K4
+    with ``emit="partial"``, K5 and K6 at the ring's shard shape (768
+    queries into 768 keys, B 4, one sample's keys all masked) against their
+    plain versions, timed; then two gloo ranks on the one card (worker
+    processes of this script, ``--seq-rank``) as a (data 1, seq 2) mesh at
+    the obj+rel point (B 4, L 1,536, C 512, 8 heads), bf16 and f32, both
+    renorms: the ring's and Ulysses' out, dq, dk and dv against the
+    one-process K4/K5/K6 and against their own loop on the plain versions,
+    2 K4 + 2 K5 + 2 K6 launches a ring layer and 1 + 1 + 1 a Ulysses one;
+    one obj+rel f32 step at ``seq_parallel`` 2 (every encoder block on the
+    ring) against the one-process step, as the dp phase holds its ranks;
+    as information the ms of a forward and a backward and the bytes
+    rotated a layer.
+
 ``--phases a,b`` (of card, k1, k3, k2, serving, training, k4, k56,
-objrel_serving, objrel_training, cli, train_cli, packed, dp, host, variants) runs only those, for work on one kernel,
+objrel_serving, objrel_training, cli, train_cli, packed, dp, host, variants,
+variant_cli, seq) runs only those, for work on one kernel,
 and then prints no last line. It prints one JSON line of kernels, the card's line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero without
 that last line; so does a machine without a CUDA device.
@@ -3167,8 +3195,423 @@ def variants_phase(card: str) -> dict:
     return total
 
 
+# ---- the variant eval CLI (ROADMAP item 17b) -------------------------------
+
+# each variant the TPU package's variant eval CLI can call, with its family's
+# loader; the others (relatt, fusion_dec_mil(2), x3_ori, x4_dec) take other
+# inputs than its three call forms and fail there as in the TPU package
+VARIANT_CLI_RUNS = tuple((name, "itp_gt") for name in (
+    "x", "x2", "x2_pre", "x2_distill", "x2_dec", "x2_dec_ori", "x2_mlp_dec", "x2_syb_dec",
+    "x2_fusion_dec")) + tuple((name, "itp_bbox_q") for name in (
+        "x5_dec_mil", "x6_dec_mil", "x7_dec_mil"))
+VARIANT_CLI_PROFILED = ("x", "x2_dec", "x5_dec_mil")
+VARIANT_CLI_LOSS_RTOL = 1e-4
+# a sample whose two largest logits are closer than this may take either
+# answer on the two paths
+VARIANT_CLI_MARGIN = 1e-4
+VARIANT_CLI_FIXTURE = CLI_FIXTURE
+# every preset of data/node_graph_dataset.py:config_for_variant
+VARIANT_PRESETS = ("itp", "itp_gt", "itp_gt_loc", "itp_gt_bbox", "itp_gt_bbox_gtrel",
+                   "itp_gtWpred_bbox", "itp_GTRelPredNode_bbox", "itp_GTRelPredNode_bbox_freq",
+                   "itp_bbox_q", "itp_bbox_aug", "itp_bbox_visrel")
+
+
+def variant_cli_log(output_dir: str) -> dict:
+    """The loader's samples/s, the eval's pairs/s and ms a batch from the
+    variant eval CLI's log."""
+    import os
+
+    with open(os.path.join(output_dir, "training.log")) as f:
+        text = f.read()
+    out = {}
+    for key, pattern in (("samples_s", r"loader: .*\(([\d.]+) samples/s"),
+                         ("pairs_s", r"eval: .*\(([\d.]+) pairs/s"),
+                         ("batch_ms", r"eval: .*, ([\d.]+) ms a batch")):
+        found = re.findall(pattern, text)
+        out[key] = float(found[-1]) if found else float("nan")
+    return out
+
+
+def variant_cli_phase(card: str) -> dict:
+    """The variant eval CLI (``train.evaluate_variants.main``) on the card at
+    its default widths, each variant it can call against the same model's
+    in-process plain path on the same batches; the other loader presets
+    through the loader alone."""
+    import logging
+    import os
+    import shutil
+    import tempfile
+
+    from structured_alignment_vqa_tpu_torch.data.fixtures import write_fixture
+    from structured_alignment_vqa_tpu_torch.data.node_graph_dataset import (
+        NodeGraphDataset,
+        config_for_variant,
+    )
+    from structured_alignment_vqa_tpu_torch.models import init_random_
+    from structured_alignment_vqa_tpu_torch.models.variants import build_variant
+    from structured_alignment_vqa_tpu_torch.parallel.train_step import TrainState, adam
+    from structured_alignment_vqa_tpu_torch.train import evaluate_variants as ev
+    from structured_alignment_vqa_tpu_torch.utils.checkpoint import save_checkpoint
+    from structured_alignment_vqa_tpu_torch.utils.metrics import AverageMeter
+
+    total = dict.fromkeys(counted_wrappers(), 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        t0 = time.perf_counter()
+        write_fixture(data, **VARIANT_CLI_FIXTURE)
+        print(f"variant_cli: fixture tree ({VARIANT_CLI_FIXTURE['n_images']} images) written "
+              f"in {time.perf_counter() - t0:.1f} s", flush=True)
+        loaded = {}     # loader preset -> (dataset, the batches the CLI builds)
+        for seed, (name, loader) in enumerate(VARIANT_CLI_RUNS):
+            out, ckpt = os.path.join(tmp, f"out_{name}"), os.path.join(tmp, "ckpt")
+            argv = ["--data_dir_azure", data, "--output_dir", out, "--variant", name,
+                    "--loader", loader, "--split", "val", "--q_tar_fn", "val.tar",
+                    "--log_steps", "4", "--weight_dir", ckpt]
+            args = ev.build_parser().parse_args(argv)
+            if loader not in loaded:
+                ds = NodeGraphDataset("val", config_for_variant(
+                    loader, data, q_tar=args.q_tar_fn, maxlen=args.maxlen, min_cnt=args.min_cnt))
+                loaded[loader] = ds, ev.load_batches(ds, args)
+            ds, batches = loaded[loader]
+            model = build_variant(name, ev.model_config(args, ds))
+            init_random_(model, torch.Generator(device="cuda").manual_seed(seed))
+            save_checkpoint(ckpt, TrainState(model, adam(model.parameters())), epoch=1)
+
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            loss, acc = ev.main(argv)
+            cli_s = time.perf_counter() - t0
+            launches = launch_counts()
+            total = {k: total[k] + launches[k] for k in total}
+            shutil.rmtree(ckpt)
+
+            # the same model in-process on the plain path, over the batches
+            # the CLI builds, the sums read batch by batch
+            family = ev.family_of(name)
+            meter, corr, n, close = AverageMeter(), 0.0, 0.0, 0
+            with torch.inference_mode(), plain_path():
+                for b in batches:
+                    t = ev.batch_tensors(b, "cuda")
+                    logits = ev.variant_logits(model.eval(), family, t)
+                    top = logits.float().topk(2, dim=-1).values
+                    close += int(((top[:, 0] - top[:, 1] < VARIANT_CLI_MARGIN)
+                                  & (t["sample_valid"] > 0)).sum())
+                    s_loss, s_corr, s_n = ev.logit_sums(logits, t).tolist()
+                    if s_n > 0:
+                        meter.update(s_loss / s_n, int(s_n))
+                    corr, n = corr + s_corr, n + s_n
+            rel = abs(loss - meter.avg) / abs(meter.avg) if n else float("nan")
+            check(n > 0 and np.isfinite(loss) and rel <= VARIANT_CLI_LOSS_RTOL,
+                  f"variant_cli {name} ({loader}): the CLI's loss {loss:.7g} against the plain "
+                  f"path's {meter.avg:.7g} over {len(batches)} batches ({n:g} valid), relative "
+                  f"{rel:.3g} <= {VARIANT_CLI_LOSS_RTOL:g}")
+            cli_corr = round(acc * n)
+            check(abs(cli_corr - corr) <= close,
+                  f"variant_cli {name}: correct {cli_corr} against the plain path's {corr:g} "
+                  f"({close} valid sample(s) with a logit margin below {VARIANT_CLI_MARGIN:g})")
+            k1, k3, k4, _ = VARIANT_FORWARD[name]
+            want = dict(K1=k1, K2=0, K3=k3, K4=k4, K5=0, K6=0)
+            per_batch = {k: v / len(batches) for k, v in launches.items()}
+            check(per_batch == want, f"variant_cli {name}: launches a batch {per_batch} == {want}")
+            rates = variant_cli_log(out)
+            print(f"variant_cli {name} f32 bs {args.batch_size}: the CLI {cli_s:.1f} s in all, "
+                  f"eval {rates['pairs_s']:.1f} pairs/s, {rates['batch_ms']:.2f} ms a batch, "
+                  f"the loader cold {rates['samples_s']:.1f} samples/s, K1 {per_batch['K1']:g} "
+                  f"and K3 {per_batch['K3']:g} a batch on {card} (information only)", flush=True)
+            if name in VARIANT_CLI_PROFILED:
+                logger = logging.getLogger("variant_cli")
+                profile_device(lambda: ev.eval_batches(model, batches[:3], logger, 10 ** 6,
+                                                       family=family, device="cuda"),
+                               f"variant CLI {name}: its eval loop over 3 bs-{args.batch_size} "
+                               "batches")
+            del model
+            torch.cuda.empty_cache()
+
+        # the other presets of config_for_variant, through the loader alone
+        args = ev.build_parser().parse_args(["--data_dir_azure", data])
+        for preset in VARIANT_PRESETS:
+            if preset in loaded:
+                continue
+            ds = NodeGraphDataset("val", config_for_variant(
+                preset, data, q_tar="val.tar", maxlen=args.maxlen, min_cnt=args.min_cnt))
+            t0 = time.perf_counter()
+            batches = ev.load_batches(ds, args)
+            seconds = time.perf_counter() - t0
+            valid = int(sum(b["sample_valid"].sum() for b in batches))
+            shapes = {tuple(b["node_graph"].shape) for b in batches}
+            ls = args.maxlen - args.maxlen_q
+            check(valid > 0 and shapes == {(args.batch_size, ls, ls)},
+                  f"variant_cli loader {preset}: {valid} of {len(ds)} samples valid in "
+                  f"{len(batches)} batches of {shapes}; {len(ds) / seconds:.1f} samples/s cold "
+                  "(information)")
+    return total
+
+
+# ---- ring and Ulysses sequence parallelism (ROADMAP item 16) ---------------
+
+SEQ_WORLD = 2
+# launches of one attention call at seq 2: the ring's K4 (partial) once a
+# key block and K5, K6 once a block in the backward; Ulysses K4, K5, K6 once
+SEQ_CALL = {"ring": dict(K4=2, K5=2, K6=2), "ulysses": dict(K4=1, K5=1, K6=1)}
+# a rank's obj+rel step at seq 2: every encoder block's self-attention on
+# the ring (the visual encoder at L 66 too: 33 keys a block), the decoders'
+# one-query cross-attention on K1 (visual) and K4 (symbolic) as before
+SEQ_STEP = dict(K1=6, K2=6, K3=24, K4=6 + 12 * 2, K5=6 + 12 * 2, K6=6 + 12 * 2)
+SEQ_TIMED = 5
+# sample 2's keys and queries end here: its second 768-key block is wholly masked
+SEQ_MASKED_FROM = 700
+
+
+def seq_inputs(dtype):
+    """The obj+rel self-attention at B 4, L 1,536, C 512 (``flash_inputs``
+    "self L=1506+30", seeded), sample 2's keys and queries valid only below
+    ``SEQ_MASKED_FROM``, so that its second 768-key block is wholly masked;
+    a dy."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, key_mask, _, graph = flash_inputs(gen, "self L=1506+30", REL_L, REL_L, dtype)
+    key_mask[2, SEQ_MASKED_FROM:] = 0.0
+    dy = torch.randn(REL_B, REL_L, C, generator=gen, device="cuda").to(dtype)
+    return (q, k, v, key_mask, key_mask.clone(), graph), dy
+
+
+@contextlib.contextmanager
+def seq_plain_path():
+    """The ring and Ulysses loops with the plain versions of K4, K5 and K6."""
+    from structured_alignment_vqa_tpu_torch.ops import flash_graph_attention as fl
+    from structured_alignment_vqa_tpu_torch.ops import ring_attention as ra
+    from structured_alignment_vqa_tpu_torch.ops import ulysses_attention as ua
+
+    def plain_forward(q, k, v, key_mask, query_mask, graph, heads, renorm, emit):
+        return fl.flash_graph_attention_plain(q, k, v, key_mask, query_mask, graph, heads,
+                                              renorm, emit)
+
+    with mock.patch.object(ra, "flash_graph_attention", fl.flash_graph_attention_plain), \
+            mock.patch.object(ra, "flash_bwd_dq", fl.flash_bwd_dq_plain), \
+            mock.patch.object(ra, "flash_bwd_dkv", fl.flash_bwd_dkv_plain), \
+            mock.patch.object(ua, "_forward", plain_forward), \
+            mock.patch.object(ua, "flash_graph_attention_bwd", fl.flash_graph_attention_bwd_plain):
+        yield
+
+
+def attention_and_grads(fn, args, dy, renorm: str) -> tuple:
+    """(out, dq, dk, dv) of ``fn(q, k, v, key_mask, query_mask, graph, heads,
+    renorm)`` with ``dy`` the gradient of out."""
+    q, k, v = (t.detach().clone().requires_grad_(True) for t in args[:3])
+    out = fn(q, k, v, *args[3:], HEADS, renorm)
+    grads = torch.autograd.grad(out, (q, k, v), dy)
+    torch.cuda.synchronize()
+    return (out.detach(), *grads)
+
+
+def seq_against(what: str, got: tuple, want: tuple, dtype) -> None:
+    """out within K4's tolerance, dq, dk, dv within K5's and K6's."""
+    err = (got[0].float() - want[0].float()).abs().max().item()
+    check(err <= TOL[dtype] and bool(torch.isfinite(got[0].float()).all()),
+          f"{what} out: max|a-b| {err:.3g} <= {TOL[dtype]:g}")
+    for name, g, w in zip(("dq", "dk", "dv"), got[1:], want[1:]):
+        e = rel_err(g, w)
+        check(e <= K2_TOL[dtype] and bool(torch.isfinite(g.float()).all()),
+              f"{what} {name}: max|a-b|/max|b| {e:.3g} <= {K2_TOL[dtype]:g}")
+
+
+def seq_worker(rank: int, coordinator: str, out: str) -> int:
+    """One rank of the seq phase: ring and Ulysses on the obj+rel shape in
+    bf16 and f32 (against the one-process K4/K5/K6 and against their plain
+    loop), their times and bytes, then one obj+rel f32 step at seq 2 (rank
+    0 saves its gradients)."""
+    from structured_alignment_vqa_tpu_torch.ops import flash_graph_attention as fl
+    from structured_alignment_vqa_tpu_torch.ops import ring_attention as ra
+    from structured_alignment_vqa_tpu_torch.ops import ulysses_attention as ua
+    from structured_alignment_vqa_tpu_torch.parallel.mesh import init_distributed, shutdown
+    from structured_alignment_vqa_tpu_torch.parallel.sharding import seq_rotate
+    from structured_alignment_vqa_tpu_torch.parallel.train_step import (
+        create_train_state,
+        make_train_step,
+        shard_state,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = init_distributed(coordinator, SEQ_WORLD, rank, backend="gloo", device="cuda:0",
+                            seq_parallel=SEQ_WORLD)
+    path = dict.fromkeys(counted_wrappers(), 0)
+
+    def on_path(fn):
+        before = launch_counts()
+        result = fn()
+        torch.cuda.synchronize()
+        moved = {k: launch_counts()[k] - before[k] for k in before}
+        for k in path:
+            path[k] += moved[k]
+        return result, moved
+
+    impls = {"ring": ra.ring_graph_attention, "ulysses": ua.ulysses_graph_attention}
+    results = {}
+    try:
+        for dtype in (torch.bfloat16, torch.float32):
+            args, dy = seq_inputs(dtype)
+            for renorm in ("l1", "sum_eps"):
+                single = attention_and_grads(fl.flash_graph_attention, args, dy, renorm)
+                for impl, fn in impls.items():
+                    call = lambda *a: fn(*a, mesh)    # noqa: E731
+                    sent = seq_rotate.bytes
+                    got, moved = on_path(lambda: attention_and_grads(call, args, dy, renorm))
+                    rotated = seq_rotate.bytes - sent
+                    what = f"seq rank {rank} {impl} {dtype} {renorm}"
+                    want = dict.fromkeys(moved, 0) | SEQ_CALL[impl]
+                    check(moved == want, f"{what}: launches {moved} == {want}")
+                    seq_against(f"{what} against the one-process K4/K5/K6", got, single, dtype)
+                    before = launch_counts()
+                    with seq_plain_path():
+                        plain = attention_and_grads(call, args, dy, renorm)
+                    check(launch_counts() == before, f"{what}: the plain loop launched nothing")
+                    seq_against(f"{what} kernels against their plain loop", got, plain, dtype)
+                    if renorm == "l1":
+                        def fwd():
+                            return call(*args, HEADS, renorm)
+                        fwd_ms = time_ms(fwd, iters=SEQ_TIMED, warmup=1)
+                        both_ms = time_ms(lambda: attention_and_grads(call, args, dy, renorm),
+                                          iters=SEQ_TIMED, warmup=1)
+                        single_ms = time_ms(lambda: attention_and_grads(
+                            fl.flash_graph_attention, args, dy, renorm), iters=SEQ_TIMED,
+                            warmup=1)
+                        results[impl, str(dtype)] = dict(fwd_ms=fwd_ms, both_ms=both_ms,
+                                                         single_ms=single_ms, rotated=rotated)
+                        print(f"seq rank {rank} {impl} {dtype} B {REL_B} L {REL_L} C {C} H "
+                              f"{HEADS}: forward {fwd_ms:.3f} ms, forward + backward "
+                              f"{both_ms:.3f} ms (one process's K4 + K5 + K6 {single_ms:.3f} "
+                              f"ms), {rotated} bytes rotated a layer, launches a layer "
+                              f"{ {k: v for k, v in moved.items() if v} } (information only)",
+                              flush=True)
+                    del got, plain
+                del single
+            del args, dy
+            torch.cuda.empty_cache()
+
+        cfg = rel_config(compute_dtype=torch.float32, dropout_rate=0.0, seq_axis="seq")
+        model = random_model(cfg, seed=3)
+        state = shard_state(create_train_state(model, 1e-4), mesh)
+        step = make_train_step(model, state.optimizer, cfg, mesh=mesh)
+        batch = rel_batches(cfg, 1)[0]
+        t0 = time.perf_counter()
+        m, moved = on_path(lambda: step(state, batch, torch.Generator(device="cuda")
+                                        .manual_seed(11)))
+        results["step"] = dict(loss=m["loss"].item(), launches=moved,
+                               seconds=time.perf_counter() - t0)
+        if rank == 0:
+            torch.save({n: p.grad.cpu() for n, p in model.named_parameters()
+                        if p.grad is not None}, f"{out}/grads.pt")
+        del model, state, step, batch
+    finally:
+        shutdown(mesh)
+    results["path"] = path
+    results["failures"] = list(failures)
+    torch.save(results, f"{out}/rank{rank}.pt")
+    return 0
+
+
+def seq_shard_kernels(card: str) -> None:
+    """K4 (``emit="partial"``), K5 and K6 at the ring's shard shape: rank
+    1's 768 queries against the second 768-key block, where sample 2's keys
+    are all masked; against their plain versions, timed, with bounds."""
+    from structured_alignment_vqa_tpu_torch.ops import flash_graph_attention as fl
+
+    half = REL_L // SEQ_WORLD
+    for dtype in (torch.bfloat16, torch.float32):
+        (q, k, v, key_mask, query_mask, graph), dy = seq_inputs(dtype)
+        rows = slice(half, REL_L)
+        args = tuple(t[:, rows].contiguous() for t in (q, k, v, key_mask, query_mask)) + (
+            graph[:, rows, rows].contiguous(),)
+        label = f"ring shard Tq={half} Tk={half} (sample 2's keys all masked)"
+        check(float(args[3][2].sum()) == 0.0, f"K4 {label}: the block holds a wholly masked "
+              "sample")
+        k4_against_plain(label, args, HEADS)
+        size = torch.finfo(dtype).bits // 8
+        b, t = REL_B, half
+        ms = time_ms(lambda: fl.flash_graph_attention(*args, HEADS, "l1", "partial"))
+        plain_ms = time_ms(lambda: fl.flash_graph_attention_plain(*args, HEADS, "l1",
+                                                                  "partial"), iters=5)
+        # reads q, k, v and the graph block; writes a (f32) and m, z, b
+        nbytes = size * b * C * 3 * t + 4 * b * (t * t + 2 * t) + 4 * b * (C * t + 3 * HEADS * t)
+        bound_ms, bound_by = bound(nbytes, 4.0 * b * t * t * C, dtype)
+        print(f"K4 emit=partial {label} {dtype}: {fl.kernel_path(dtype, C // HEADS)} kernel, "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us "
+              f"({bound_by}); library: none (SDPA gives no m, z, b) on {card}", flush=True)
+        _, m, z, bsum = fl.flash_graph_attention(*args, HEADS, "l1", "stats")
+        out = fl.flash_graph_attention(*args, HEADS, "l1")
+        d_out, delta = fl.masked_grad_and_delta(out, dy[:, rows].contiguous(), args[4], HEADS)
+        bwd = (args[0], args[1], args[2], args[3], args[5], m, z, bsum, delta, d_out, HEADS, "l1")
+        stats_bytes = 4 * b * (t * t + t + 4 * HEADS * t)
+        for key, fn, plain, n_products, nb in (
+                ("K5", fl.flash_bwd_dq, fl.flash_bwd_dq_plain, 3,
+                 size * b * C * 5 * t + stats_bytes),
+                ("K6", fl.flash_bwd_dkv, fl.flash_bwd_dkv_plain, 4,
+                 size * b * C * 6 * t + stats_bytes)):
+            got, want = fn(*bwd), plain(*bwd)
+            got, want = (got,) if torch.is_tensor(got) else got, \
+                (want,) if torch.is_tensor(want) else want
+            e = max(rel_err(g, w) for g, w in zip(got, want))
+            check(e <= K2_TOL[dtype], f"{key} {label} {dtype}: max|kernel-plain|/max|plain| "
+                  f"{e:.3g} <= {K2_TOL[dtype]:g}")
+            kms = time_ms(lambda: fn(*bwd))
+            pms = time_ms(lambda: plain(*bwd), iters=5)
+            bms, bby = bound(nb, 2.0 * n_products * b * t * t * C, dtype)
+            print(f"{key} {label} {dtype} (one ring rotation): {kms:.4f} ms, plain {pms:.4f} ms, "
+                  f"bound {bms * 1e3:.2f} us ({bby}); library: none on {card}", flush=True)
+        del args, bwd
+        torch.cuda.empty_cache()
+
+
+def seq_phase(card: str) -> dict:
+    """Ring and Ulysses sequence parallelism (ROADMAP item 16) on the card:
+    two gloo ranks as a (data 1, seq 2) mesh at the obj+rel point, against
+    one process; K4's partial emit, K5 and K6 at the shard shape."""
+    import os
+    import tempfile
+
+    from structured_alignment_vqa_tpu_torch.parallel.dryrun import free_ports, launch_local
+
+    seq_shard_kernels(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        coordinator = f"127.0.0.1:{free_ports()[0]}"
+        t0 = time.perf_counter()
+        outs = launch_local([[sys.executable, os.path.abspath(__file__), "--seq-rank", str(r),
+                              coordinator, tmp] for r in range(SEQ_WORLD)], timeout=600)
+        print(f"seq: {SEQ_WORLD} ranks on cuda:0 over gloo as (data 1, seq {SEQ_WORLD}) ran in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        for r, text in enumerate(outs):
+            for line in text.splitlines():
+                print(f"seq rank {r}: {line}", flush=True)
+        ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=True) for r in range(SEQ_WORLD)]
+        grads = torch.load(f"{tmp}/grads.pt", weights_only=True)
+    for r, res in enumerate(ranks):
+        check(not res["failures"], f"seq rank {r}: every check of the rank passed "
+              f"({len(res['failures'])} failed)")
+        step = res["step"]
+        want = dict.fromkeys(step["launches"], 0) | SEQ_STEP
+        check(step["launches"] == want, f"seq rank {r}: the obj+rel step's launches "
+              f"{step['launches']} == {want}")
+    check(ranks[0]["step"]["loss"] == ranks[1]["step"]["loss"],
+          "seq: both ranks of the row log the same loss")
+    cfg = rel_config(compute_dtype=torch.float32, dropout_rate=0.0)
+    batch = rel_batches(cfg, 1)[0]
+    single = one_step(cfg, batch)
+    plain = one_step(cfg, batch, plain=True)
+    seq_step = (ranks[0]["step"]["loss"], {n: g.to("cuda") for n, g in grads.items()},
+                ranks[0]["step"]["launches"])
+    for n in single[1]:
+        seq_step[1].setdefault(n, None)
+    dp_against_spread("seq: the (data 1, seq 2) obj+rel f32 step against one process's",
+                      seq_step, single, plain)
+    print(f"seq: a rank's obj+rel f32 step {ranks[0]['step']['seconds']:.2f} s with the ring over "
+          f"gloo through the host on {card} (information only)", flush=True)
+    return {k: sum(res["path"][k] for res in ranks) for k in ranks[0]["path"]}
+
+
 PHASES = ("k1", "k3", "k2", "serving", "training", "k4", "k56", "objrel_serving",
-          "objrel_training", "cli", "train_cli", "packed", "dp", "host", "variants")
+          "objrel_training", "cli", "train_cli", "packed", "dp", "host", "variants",
+          "variant_cli", "seq")
 PORT = "structured_alignment_vqa_tpu_torch/csrc/"
 TPU = "structured_alignment_vqa_tpu/ops/"
 BF16 = str(torch.bfloat16)
@@ -3223,6 +3666,8 @@ def main(argv: list) -> int:
         return dp_worker(int(argv[1]), argv[2], argv[3])
     if argv[:1] == ["--host-rank"] and len(argv) == 4:   # a serving rank of the host phase
         return host_rank(int(argv[1]), argv[2], argv[3])
+    if argv[:1] == ["--seq-rank"] and len(argv) == 4:    # a rank of the seq phase
+        return seq_worker(int(argv[1]), argv[2], argv[3])
     phases = PHASES
     if argv[:1] == ["--phases"] and len(argv) == 2:
         phases = tuple(argv[1].split(","))
@@ -3254,7 +3699,8 @@ def main(argv: list) -> int:
     path_phases = {"serving": serving_phase, "training": training_phase,
                    "objrel_serving": rel_serving_phase, "objrel_training": rel_training_phase,
                    "cli": cli_phase, "train_cli": train_cli_phase, "packed": packed_phase,
-                   "dp": dp_phase, "host": host_phase, "variants": variants_phase}
+                   "dp": dp_phase, "host": host_phase, "variants": variants_phase,
+                   "variant_cli": variant_cli_phase, "seq": seq_phase}
     rows, by_path = {}, {}
     for phase in phases:
         t0 = time.perf_counter()

@@ -199,7 +199,8 @@ class _Branch(nn.Module):
         self.dec_cross = dec_cross
         for i in range(cfg.num_blocks):
             self.add_module(f"enc_self_attention_{i}", GraphGuidedAttention(
-                h, cfg.num_heads, dtype=dt, device=device))
+                h, cfg.num_heads, dtype=dt, device=device, seq_axis=cfg.seq_axis,
+                seq_impl=cfg.seq_impl))
             self.add_module(f"enc_feed_forward_{i}", FeedForward(h, (4 * h, h), dt, device))
         self.dec_emb = Embedding(cfg.num_classes, h, zeros_pad=True, scale=True, dtype=dt,
                                  device=device)

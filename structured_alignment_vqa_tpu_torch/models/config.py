@@ -3,8 +3,9 @@
 Same defaults and ``validate()`` as the reference dataclass, with a torch
 ``compute_dtype``. The TPU package's ``use_pallas_attention`` switch has no
 counterpart: the port launches its kernels on every CUDA tensor and runs
-their plain versions on CPU tensors. ``seq_impl`` arrives with sequence
-parallelism.
+their plain versions on CPU tensors. ``seq_axis`` and ``seq_impl`` make
+the encoders' self-attention sequence-parallel (ring or Ulysses) over the
+ambient mesh's axis of that name.
 
 The port covers the model obj-only and obj+rel (``only_obj=False``, with
 ``remat_blocks``), packed batches (obj-only), the MCB head (``use_mcb``),
@@ -65,7 +66,12 @@ class ModelConfig:
     compute_dtype: torch.dtype = torch.float32
     share_glove: bool = False    # one GloVe table instead of three copies
     remat_blocks: bool = False   # recompute each encoder block in the backward
+    # sequence-parallel encoder attention: the ambient mesh's axis to split
+    # the encoder sequence over (``ops/attention.py``), and "ring" (K/V
+    # rotate, graph row-sharded, any n dividing L) or "ulysses" (all-to-all
+    # head sharding, graph whole on every rank, n must divide num_heads)
     seq_axis: "str | None" = None
+    seq_impl: str = "ring"
     int8_serving: bool = False
 
     def replace(self, **kw) -> "ModelConfig":
@@ -79,8 +85,6 @@ class ModelConfig:
 
     def check_supported(self) -> None:
         """Raise for the settings the port does not cover yet."""
-        if self.seq_axis is not None:
-            raise NotImplementedError("seq_axis (ROADMAP Queue 1 item 16) is not ported yet")
         if self.compute_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute_dtype must be float32 or bfloat16, got {self.compute_dtype}")
 

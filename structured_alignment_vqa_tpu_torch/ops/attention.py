@@ -27,10 +27,21 @@ from the ``generator`` passed to ``forward``), and a graph may broadcast
 over the query or key axis (a (B, Tq, 1) query-validity column). A call
 that returns weights or draws dropout runs :func:`attention_core` on every
 device, as the TPU package's dispatch does: the kernels compute neither.
+
+Sequence parallelism (the TPU package's ``ops/attention.py:162-264``): a
+module built with ``seq_axis`` (the encoders' self-attention of
+AttModelX3 under ``ModelConfig.seq_axis``) runs graph self-attention with
+an l1 or sum_eps renorm, no causal mask, no weights out and no dropout
+draw, through ring (``seq_impl="ring"``, ``ops/ring_attention.py``) or
+Ulysses attention (``"ulysses"``, ``ops/ulysses_attention.py``) when the
+ambient mesh (``parallel/context.py``) has that axis with more than one
+rank; a length the axis does not divide warns and takes the
+single-device path, as in the TPU package.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional, Tuple
 
 import torch
@@ -49,6 +60,9 @@ from structured_alignment_vqa_tpu_torch.ops.layers import (
     layer_norm,
     linear_relu,
 )
+from structured_alignment_vqa_tpu_torch.ops.ring_attention import ring_graph_attention
+from structured_alignment_vqa_tpu_torch.ops.ulysses_attention import ulysses_graph_attention
+from structured_alignment_vqa_tpu_torch.parallel.context import current_mesh
 
 
 def content_mask(x: torch.Tensor) -> torch.Tensor:
@@ -129,19 +143,24 @@ class _AttentionBase(nn.Module):
 
     ``dropout_rate`` drops attention weights in train mode; ``return_att``
     makes ``forward`` return ``(out, att_weights)``. AttModelX3 uses
-    neither; the MIL variants do.
+    neither; the MIL variants do. ``seq_axis`` and ``seq_impl`` make graph
+    self-attention sequence-parallel over the ambient mesh's axis of that
+    name (module docstring).
     """
 
     renorm: Optional[str] = None
 
     def __init__(self, num_units: int, num_heads: int = 8, causality: bool = False,
                  dtype: torch.dtype = torch.float32, device=None,
-                 dropout_rate: float = 0.0, return_att: bool = False):
+                 dropout_rate: float = 0.0, return_att: bool = False,
+                 seq_axis: Optional[str] = None, seq_impl: str = "ring"):
         super().__init__()
         self.num_heads = num_heads
         self.causality = causality
         self.dropout_rate = dropout_rate
         self.return_att = return_att
+        self.seq_axis = seq_axis
+        self.seq_impl = seq_impl
         self.Q_proj = linear_relu(num_units, num_units, dtype, device)
         self.K_proj = linear_relu(num_units, num_units, dtype, device)
         self.V_proj = linear_relu(num_units, num_units, dtype, device)
@@ -175,6 +194,9 @@ class _AttentionBase(nn.Module):
             q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
             # the kernels read a whole (B, Tq, Tk) graph: expand a broadcast one
             graph = graph.float().expand(b, tq, tk).contiguous()
+            out = self._seq_parallel(q, k, v, key_mask, query_mask, graph, queries, keys)
+            if out is not None:
+                return self._finish(out, queries)
             if keys.shape[1] > MAX_KEYS:
                 # long sequences: the K-blocked kernels, then residual + LayerNorm
                 out = flash_graph_attention(q, k, v, key_mask, query_mask, graph,
@@ -192,6 +214,27 @@ class _AttentionBase(nn.Module):
         if self.return_att:
             return out, att
         return out
+
+    def _seq_parallel(self, q, k, v, key_mask, query_mask, graph, queries, keys):
+        """Ring or Ulysses attention over the ambient mesh's ``seq_axis``
+        (self-attention only), or None where the call takes the
+        single-device path."""
+        mesh = current_mesh()
+        if self.seq_axis is None or mesh is None or queries.shape != keys.shape:
+            return None
+        n_seq = mesh.shape.get(self.seq_axis, 1)
+        if n_seq <= 1:
+            return None
+        if queries.shape[1] % n_seq:
+            warnings.warn(
+                f"ring attention skipped: L={queries.shape[1]} not divisible by "
+                f"{self.seq_axis}={n_seq}; falling back to the single-device kernel (pick "
+                "bucket maxlens divisible by the seq axis)", stacklevel=3)
+            return None
+        seq_attention = (ulysses_graph_attention if self.seq_impl == "ulysses"
+                         else ring_graph_attention)
+        return seq_attention(q, k, v, key_mask, query_mask, graph, self.num_heads,
+                             self.renorm, mesh, self.seq_axis)
 
 
 class MultiHeadAttention(_AttentionBase):

@@ -3,7 +3,8 @@
 The model's cross-sample operations (the CE denominator, the MIL-NCE means
 and the relation branch's joint softmax, the MCB norm over the batch axis)
 find the mesh here, so that no ``forward`` signature carries it, as the
-TPU package's ring attention finds its mesh. The training and eval steps
+TPU package's ring attention finds its mesh; so do the port's ring and
+Ulysses attention (``ops/attention.py``). The training and eval steps
 wrap their work in :func:`use_mesh`; with no mesh, or a mesh of one rank,
 every operation is the single-device code.
 """
@@ -24,9 +25,15 @@ def current_mesh() -> Optional[Mesh]:
 
 
 def distributed_mesh() -> Optional[Mesh]:
-    """The ambient mesh when it has more than one rank, else None."""
+    """The ambient mesh's data column (``Mesh.data_view``) when the global
+    batch is split over more than one rank, else None: the ranks of a seq
+    row hold the same samples, so the cross-sample operations reduce over
+    the data column alone."""
     mesh = current_mesh()
-    return mesh if mesh is not None and mesh.distributed else None
+    if mesh is None:
+        return None
+    view = mesh.data_view()
+    return view if view.distributed else None
 
 
 @contextlib.contextmanager

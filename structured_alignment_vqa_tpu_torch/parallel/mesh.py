@@ -1,14 +1,18 @@
-"""The layout of a data-parallel run (counterpart of the TPU package's
-``parallel/mesh.py``).
+"""The layout of a data- and sequence-parallel run (counterpart of the TPU
+package's ``parallel/mesh.py``).
 
 The TPU package lays a ``jax.sharding.Mesh`` with axes (data, seq, model)
 over its devices. Here one process drives one device, and the processes
 form a ``torch.distributed`` group: :class:`Mesh` records that group's
-sizes, this process's place in it and its device. Only the data axis is
-ported: ``seq_parallel > 1`` is ring and Ulysses attention (ROADMAP Queue 1
-item 16) and ``model_parallel > 1`` the vocab-split tables and the
-column/row-split FFN and heads (item 15b); both raise
-``NotImplementedError``.
+sizes, this process's place in it and its device. The ranks form a (data,
+seq) grid, rank r at data ``r // seq`` and seq ``r % seq`` (the TPU
+package's reshape with model 1). The ranks of one seq row hold the same
+samples and split each encoder sequence between them (ring and Ulysses
+attention, ``ops/ring_attention.py``, ``ops/ulysses_attention.py``); each
+data column holds one rank of every row, and the global batch's reductions
+run over it (:meth:`Mesh.data_view`). ``model_parallel > 1``, the
+vocab-split tables and the column/row-split FFN and heads (ROADMAP Queue 1
+item 15b), raises ``NotImplementedError``.
 
 :func:`init_distributed` forms the group over TCP from the training CLI's
 flags (``--coordinator host:port --num_processes N --process_id i``), or
@@ -41,14 +45,16 @@ DEFAULT_TIMEOUT_S = 600
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """One process's view of a data-parallel run.
+    """One process's view of a data- and sequence-parallel run.
 
-    ``data`` is the number of ranks in the group (``seq`` and ``model`` are
-    1); ``rank`` the global rank; ``local_rank`` and ``local_world`` its
-    place among the ranks of its host; ``device`` the device it drives.
-    ``group`` carries the device tensors (gradients, scores, metrics),
-    ``cpu_group`` the host's flags and counts; both are None in a mesh of
-    one process without a group (:func:`single_mesh`).
+    ``data`` and ``seq`` are the axes' sizes (``model`` is 1); ``rank`` the
+    global rank; ``local_rank`` and ``local_world`` its place among the
+    ranks of its host; ``device`` the device it drives. ``group`` carries
+    the device tensors of every rank (the state's broadcast), ``cpu_group``
+    the host's flags and counts; both are None in a mesh of one process
+    without a group (:func:`single_mesh`). With ``seq > 1``, ``seq_group``
+    holds this rank's seq row, ``data_group`` (and ``data_cpu_group``) its
+    data column.
     """
 
     data: int
@@ -60,6 +66,9 @@ class Mesh:
     cpu_group: Any = None
     seq: int = 1
     model: int = 1
+    seq_group: Any = None
+    data_group: Any = None
+    data_cpu_group: Any = None
 
     @property
     def world(self) -> int:
@@ -67,9 +76,33 @@ class Mesh:
 
     @property
     def distributed(self) -> bool:
-        """More than one rank: the cross-sample operations reduce over the
-        group. With one rank they are the single-device code."""
+        """More than one rank. With one rank every operation is the
+        single-device code."""
         return self.world > 1
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.seq
+
+    @property
+    def seq_index(self) -> int:
+        return self.rank % self.seq
+
+    def seq_peer(self, offset: int) -> int:
+        """The global rank ``offset`` places along this rank's seq row."""
+        return self.data_index * self.seq + (self.seq_index + offset) % self.seq
+
+    def data_view(self) -> "Mesh":
+        """The mesh of this rank's data column: the ranks that hold the
+        global batch between them, one rank of each seq row, over which the
+        cross-sample operations and the gradients are reduced (the ranks of
+        a row hold the same samples; a sum over all ranks would count each
+        sample ``seq`` times). With ``seq == 1`` the mesh itself."""
+        if self.seq == 1:
+            return self
+        return dataclasses.replace(self, rank=self.data_index, seq=1, group=self.data_group,
+                                   cpu_group=self.data_cpu_group, seq_group=None,
+                                   data_group=None, data_cpu_group=None)
 
     @property
     def shape(self) -> dict:
@@ -77,10 +110,8 @@ class Mesh:
 
 
 def check_axes(model_parallel: int = 1, seq_parallel: int = 1) -> None:
-    if seq_parallel > 1:
-        raise NotImplementedError(
-            "seq_parallel > 1 (ring and Ulysses sequence parallelism) is not ported yet "
-            "(ROADMAP Queue 1 item 16)")
+    """Raise for the axes the port does not cover: the model axis (any
+    ``seq_parallel`` is covered)."""
     if model_parallel > 1:
         raise NotImplementedError(
             "model_parallel > 1 (the model axis: vocab-split tables, column/row-split FFN "
@@ -129,10 +160,13 @@ def free_ports(n: int = 1) -> List[int]:
 
 def init_distributed(coordinator: str, num_processes: int, process_id: int,
                      backend: Optional[str] = None, device=None,
-                     local_rank: int = 0, local_world: int = 1) -> Mesh:
+                     local_rank: int = 0, local_world: int = 1,
+                     seq_parallel: int = 1) -> Mesh:
     """Join the group of ``num_processes`` ranks at ``coordinator``
     (``host:port`` of rank 0, which listens there) as rank ``process_id``;
-    returns this rank's :class:`Mesh`.
+    returns this rank's :class:`Mesh`, a (``num_processes //
+    seq_parallel``, ``seq_parallel``) grid of (data, seq) with a subgroup
+    for each seq row and each data column.
 
     ``device=None`` is ``cuda:<local_rank>`` (raising without a card);
     ``backend=None`` is NCCL on a card and gloo on the CPU. Several ranks
@@ -153,9 +187,38 @@ def init_distributed(coordinator: str, num_processes: int, process_id: int,
                             world_size=num_processes, rank=process_id, timeout=timeout)
     cpu_group = (dist.group.WORLD if backend == "gloo"
                  else dist.new_group(backend="gloo", timeout=timeout))
-    return Mesh(data=num_processes, rank=process_id, local_rank=local_rank,
+    mesh = Mesh(data=num_processes, rank=process_id, local_rank=local_rank,
                 local_world=local_world, device=device, group=dist.group.WORLD,
                 cpu_group=cpu_group)
+    return grid(mesh, seq_parallel) if seq_parallel > 1 else mesh
+
+
+def grid(mesh: Mesh, seq_parallel: int) -> Mesh:
+    """The ranks of ``mesh``'s group laid out as a (world // seq_parallel,
+    seq_parallel) grid of (data, seq): rank r at data ``r // seq_parallel``
+    and seq ``r % seq_parallel``, with a subgroup for its seq row and one
+    for its data column (that one also on gloo, for host counts). Every
+    rank of the group calls it with the same ``seq_parallel``."""
+    world = mesh.world
+    if seq_parallel < 1 or world % seq_parallel:
+        raise ValueError(f"{world} ranks do not form rows of seq_parallel={seq_parallel}")
+    backend = dist.get_backend(mesh.group)
+    timeout = datetime.timedelta(seconds=DEFAULT_TIMEOUT_S)
+    n_data = world // seq_parallel
+    groups = {}
+    # every rank creates every subgroup, in one order
+    for d in range(n_data):
+        ranks = list(range(d * seq_parallel, (d + 1) * seq_parallel))
+        g = dist.new_group(ranks, backend=backend, timeout=timeout)
+        if mesh.rank in ranks:
+            groups["seq_group"] = g
+    for s in range(seq_parallel):
+        ranks = list(range(s, world, seq_parallel))
+        g = dist.new_group(ranks, backend=backend, timeout=timeout)
+        gc = g if backend == "gloo" else dist.new_group(ranks, backend="gloo", timeout=timeout)
+        if mesh.rank in ranks:
+            groups["data_group"], groups["data_cpu_group"] = g, gc
+    return dataclasses.replace(mesh, data=n_data, seq=seq_parallel, **groups)
 
 
 def shutdown(mesh: Optional[Mesh]) -> None:

@@ -8,13 +8,24 @@ Here each rank holds a full copy of the state (rank 0's, broadcast by
 :func:`shard_params`) and its own rows of the global batch
 (:func:`put_batch`), and the step calls the reductions itself.
 
-Every collective is built from ``all_reduce`` and ``broadcast``: PyTorch
-lists only those two (and ``barrier``) for gloo on CUDA tensors, so the
-same code runs on NCCL, on gloo over CUDA and on gloo over the CPU. An
+Every collective of the data axis is built from ``all_reduce`` and
+``broadcast``: PyTorch lists only those two (and ``barrier``) for gloo on
+CUDA tensors, so the same code runs on NCCL, on gloo over CUDA and on gloo
+over the CPU. An
 all-gather is an ``all_reduce`` of a zero-filled ``(world, n)`` buffer in
 which each rank writes its own row (x + 0 is x exactly), padded to the
 longest rank's length, which one small all-reduce of the sizes on the
 host's gloo group gives first.
+
+The seq axis's collectives (:func:`seq_all_gather`, :func:`seq_all_to_all`,
+:func:`seq_rotate`) run over a seq row's subgroup (``Mesh.seq_group``). On
+NCCL they take the device tensors; on gloo a CUDA tensor passes through
+pinned host memory first (gloo's send and receive hand its raw pointer to
+the TCP transport; its all-gather and all-to-all are staged alike), so
+that the same code runs on NCCL, on gloo over CUDA and on gloo over the
+CPU. The ring's step is one message a rank: its tensors'
+bytes packed into one buffer, sent to the previous rank of the row while
+the next rank's is received.
 
 The model axis (``param_pspec``: vocab-split tables, column/row-split FFN
 and head kernels) is not ported (ROADMAP Queue 1 item 15b).
@@ -232,3 +243,76 @@ def sum_over_ranks(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """``t`` summed over the ranks, with a gradient: each rank's output
     feeds its own rows, so the backward sums the ranks' gradients too."""
     return _SumOverRanks.apply(mesh, t)
+
+
+def _staged(t: torch.Tensor, group) -> bool:
+    """Whether ``t`` must pass through host memory on ``group``: a CUDA
+    tensor on a gloo group."""
+    return t.device.type == "cuda" and dist.get_backend(group) == "gloo"
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return host.copy_(t)
+
+
+@torch.no_grad()
+def seq_all_gather(x: torch.Tensor, mesh: Mesh, dim: int = 1) -> torch.Tensor:
+    """The shards ``x`` of the ranks of this rank's seq row, concatenated
+    in seq order along ``dim`` (no gradient)."""
+    group = mesh.seq_group
+    staged = _staged(x, group)
+    src = _to_host(x) if staged else x.contiguous()
+    parts = [torch.empty_like(src) for _ in range(mesh.seq)]
+    dist.all_gather(parts, src, group=group)
+    out = torch.cat(parts, dim=dim)
+    return out.to(x.device) if staged else out
+
+
+@torch.no_grad()
+def seq_all_to_all(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``all_to_all_single`` over this rank's seq row: ``x`` is (seq, ...)
+    and its slice j goes to the row's rank j; the result's slice i came
+    from the row's rank i."""
+    group = mesh.seq_group
+    staged = _staged(x, group)
+    src = _to_host(x) if staged else x.contiguous()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group)
+    return out.to(x.device) if staged else out
+
+
+@torch.no_grad()
+def seq_rotate(tensors: Sequence[torch.Tensor], mesh: Mesh) -> List[torch.Tensor]:
+    """One step of the ring: ``tensors`` sent to the previous rank of the
+    seq row and the next rank's received in their place (after t steps a
+    rank holds the blocks that started on the rank t places after it).
+    One message of all their bytes each way; :attr:`seq_rotate.bytes`
+    counts the bytes this rank sent."""
+    group = mesh.seq_group
+    flat = torch.cat([t.contiguous().reshape(-1).view(torch.uint8) for t in tensors])
+    staged = _staged(flat, group)
+    send = _to_host(flat) if staged else flat
+    recv = (torch.empty(send.shape, dtype=send.dtype, pin_memory=True) if staged
+            else torch.empty_like(send))
+    dst, src = mesh.seq_peer(-1), mesh.seq_peer(1)
+    if dist.get_backend(group) == "nccl":
+        reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, send, dst, group),
+                                       dist.P2POp(dist.irecv, recv, src, group)])
+    else:   # gloo: both posted before either waits
+        reqs = [dist.isend(send, dst, group=group), dist.irecv(recv, src, group=group)]
+    for req in reqs:
+        req.wait()
+    if staged:
+        recv = recv.to(flat.device)
+    seq_rotate.bytes += flat.numel()
+    out, off = [], 0
+    for t in tensors:
+        n = t.numel() * t.element_size()
+        # a copy: the view of another dtype needs its own aligned storage
+        out.append(recv[off:off + n].clone().view(t.dtype).reshape(t.shape))
+        off += n
+    return out
+
+
+seq_rotate.bytes = 0

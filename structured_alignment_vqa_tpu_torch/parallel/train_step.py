@@ -25,6 +25,15 @@ which would not see the sparse table's block that ``functional_call`` puts
 in place of the table), and the skip-nonfinite guard reads the summed
 gradients, so every rank takes the same decision with no further
 collective. :func:`shard_state` replicates rank 0's state.
+
+A mesh with a seq axis (``parallel/mesh.py``): the ranks of one seq row
+take the same rows with generators in the same state, and the encoders'
+graph attention splits each sequence between them (ring or Ulysses,
+``ops/attention.py``), returning the whole output to every rank of the
+row and, in the backward, the whole dq, dk and dv. So the ranks of a row
+hold the same gradients, and every reduction above runs over the data
+column (``Mesh.data_view``): the step is the single-device step on the
+global batch, as the TPU package's GSPMD step is.
 """
 
 from __future__ import annotations
@@ -225,7 +234,10 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, cfg: Mod
     bytes of gradient the last step summed. With one rank, or none, the
     step is the single-device step, bit for bit.
     """
-    distributed = mesh is not None and mesh.distributed
+    # the ranks of a seq row hold the same samples and, after the attention's
+    # all-gathers, the same gradients: reduce over the data column alone
+    dmesh = None if mesh is None else mesh.data_view()
+    distributed = dmesh is not None and dmesh.distributed
     table = None
     if sparse_table:
         if cfg.int8_serving:
@@ -248,18 +260,18 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, cfg: Mod
                 if state.table_opt is None:
                     raise ValueError("sparse_table needs a state from "
                                      "create_train_state(..., sparse_table=True)")
-                rbatch, uids, valid = remap_batch(batch, cfg, mesh)
+                rbatch, uids, valid = remap_batch(batch, cfg, dmesh)
                 rows = table.detach()[uids].requires_grad_(True)
                 metrics = _objective(model, cfg, rbatch, generator, with_milnce, smooth_eps,
                                      table_rows=rows)
                 metrics["loss"].backward()
                 grads = [p.grad for p in params if p.grad is not None] + [rows.grad]
         if distributed:
-            metrics, n_grads = _global(metrics, mesh, extra=len(grads))
-            if n_grads != mesh.world * len(grads):
+            metrics, n_grads = _global(metrics, dmesh, extra=len(grads))
+            if n_grads != dmesh.world * len(grads):
                 raise RuntimeError(f"the ranks hold {n_grads:g} gradients in all, this rank "
                                    f"{len(grads)}: their graphs differ")
-            step.reduced_bytes = all_reduce_grads(grads, mesh)
+            step.reduced_bytes = all_reduce_grads(grads, dmesh)
         finite = _all_finite(grads) if skip_nonfinite else None
         if table is not None:
             group = optimizer.param_groups[0]
@@ -290,7 +302,8 @@ def make_eval_step(model: nn.Module, cfg: ModelConfig, with_milnce: bool = True,
     With a ``mesh`` of several ranks the sums are the global batch's, the
     same on every rank (the TPU package's psum'd metrics).
     """
-    distributed = mesh is not None and mesh.distributed
+    dmesh = None if mesh is None else mesh.data_view()
+    distributed = dmesh is not None and dmesh.distributed
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: VQABatch) -> Dict[str, torch.Tensor]:
@@ -300,7 +313,7 @@ def make_eval_step(model: nn.Module, cfg: ModelConfig, with_milnce: bool = True,
         with use_mesh(mesh):
             m = _objective(model, cfg, batch, None, with_milnce, smooth_eps)
         if distributed:
-            m, _ = _global(m, mesh)
+            m, _ = _global(m, dmesh)
         return {"loss_sum": m["loss"] * m["n"], "mil_sum": m["mil_nce_loss"] * m["n"],
                 "n_correct": m["n_correct"], "n": m["n"]}
 

@@ -27,6 +27,7 @@ from structured_alignment_vqa_tpu_torch.data.synthetic import batch_from_arrays,
 from structured_alignment_vqa_tpu_torch.models import AttModelX3, ModelConfig
 from structured_alignment_vqa_tpu_torch.models import att_model_x3 as port_x3
 from structured_alignment_vqa_tpu_torch.models.convert import state_dict_from_jax
+from structured_alignment_vqa_tpu_torch.parallel.mesh import check_axes
 from structured_alignment_vqa_tpu_torch.train.predict import make_predict_step
 
 LOGIT_ATOL = 1e-4
@@ -202,8 +203,12 @@ def test_batch_fields_match_jax_batch_and_move_with_to():
     dict(seq_axis="seq"),
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_settings_raise(cfg_kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        AttModelX3(ModelConfig(**TINY, **cfg_kw), device="cpu")
+    # seq_axis is ported (ring and Ulysses attention, ROADMAP item 16): the
+    # model builds with it, and the axis still unported, the model axis
+    # (item 15b), raises for the mesh that seq_axis would run on
+    AttModelX3(ModelConfig(**TINY, **cfg_kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 15b"):
+        check_axes(model_parallel=2, seq_parallel=2)
 
 
 @pytest.mark.parametrize("cfg_kw", [
