@@ -210,11 +210,25 @@ Phases, each of which must pass:
     one obj+rel f32 step at ``seq_parallel`` 2 (every encoder block on the
     ring) against the one-process step, as the dp phase holds its ranks;
     as information the ms of a forward and a backward and the bytes
-    rotated a layer.
+    rotated a layer;
+20. the model axis (``model``, ROADMAP item 15b): K1's attention-only and
+    LayerNorm entries, K2 from d(o) and K3's partial and epilogue against
+    their plain versions at the main path's model-2 shapes (B 128, L 128,
+    4 heads of 64; 16,384 rows of 512, a hidden shard of 1,024), bf16 and
+    f32, timed beside their bounds; then two gloo ranks on the one card
+    (worker processes of this script, ``--model-rank``) as (data 1, model
+    2) at full width, the 407,000 x 300 table split by rows: the bf16
+    serving forward at bs 128 against one process's (logits within 2^-4
+    of their max, answers equal where the margin is clear), an f32
+    obj-only step at bs 32 and an f32 obj+rel step at bs 4 (K4, K5 and K6
+    on 4 heads) against one process's, as the dp phase holds its ranks;
+    each run's launches (every K1 and K3 as the model axis's entries), as
+    information a rank's parameter MiB against one process's, the bytes
+    through the model row's collectives and a rank's seconds.
 
 ``--phases a,b`` (of card, k1, k3, k2, serving, training, k4, k56,
 objrel_serving, objrel_training, cli, train_cli, packed, dp, host, variants,
-variant_cli, seq) runs only those, for work on one kernel,
+variant_cli, seq, model) runs only those, for work on one kernel,
 and then prints no last line. It prints one JSON line of kernels, the card's line, and last
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero without
 that last line; so does a machine without a CUDA device.
@@ -3608,10 +3622,320 @@ def seq_phase(card: str) -> dict:
           f"gloo through the host on {card} (information only)", flush=True)
     return {k: sum(res["path"][k] for res in ranks) for k in ranks[0]["path"]}
 
+MODEL_WORLD = 2
+MODEL_HEADS = HEADS // MODEL_WORLD     # a rank's heads at model 2: 4 of 64 columns
+MODEL_C = C // MODEL_WORLD
+MODEL_HIDDEN = HIDDEN // MODEL_WORLD   # a rank's FFN hidden shard
+MODEL_ROWS = 16384                     # the obj-only encoder's rows at bs 128 (128 x 128)
+MODEL_STEP_B = 32
+# launches of one forward and of one step on a rank at model 2: every K1 and
+# K3 of the one-process path becomes the model axis's entries (K1's
+# attention-only entry and its LayerNorm entry, K3's partial and epilogue),
+# every K2 K2's from-d(o) entry; K4, K5 and K6 run as they are, on 4 heads
+MODEL_FORWARD = {"K1 heads": 24, "K1 ln": 24, "K3 partial": 24, "K3 epilogue": 24}
+MODEL_STEP = dict(MODEL_FORWARD, **{"K2 from d(o)": 24})
+MODEL_REL_STEP = {"K1 heads": 12, "K1 ln": 12, "K3 partial": 24, "K3 epilogue": 24,
+                  "K2 from d(o)": 12, "K4": 12, "K5": 12, "K6": 12}
+MODEL_TIMED = 3
+
+
+def model_wrappers() -> dict:
+    """The wrappers of the model axis's entries of K1, K2 and K3, each
+    counting its launches."""
+    from structured_alignment_vqa_tpu_torch.ops import fused_ffn, fused_graph_attention as k1
+
+    return {"K1 heads": k1.graph_attention_heads, "K1 ln": k1.attention_ln,
+            "K2 from d(o)": k1.graph_attention_heads_bwd, "K3 partial": fused_ffn.ffn_partial,
+            "K3 epilogue": fused_ffn.ffn_epilogue}
+
+
+def model_counts() -> dict:
+    """Every kernel entry's launches: the six wrappers and the model axis's."""
+    return launch_counts() | {k: fn.launches for k, fn in model_wrappers().items()}
+
+
+def model_entries(card: str) -> dict:
+    """The model axis's entries of K1, K2 and K3 against their plain
+    versions at the main path's model-2 shapes (bf16 and f32), timed beside
+    their bounds: {entry: row of the bf16 run}."""
+    from structured_alignment_vqa_tpu_torch.ops import fused_ffn as k3
+    from structured_alignment_vqa_tpu_torch.ops import fused_graph_attention as k1
+
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    rows = {}
+
+    def row(entry, dtype, errs, tol, fn, plain, nbytes, ops, shape):
+        err = max(errs)
+        check(err <= tol, f"{entry} {shape} {dtype}: max|kernel-plain|/max|plain| {err:.3g} "
+              f"<= {tol:g}")
+        ms, plain_ms = time_ms(fn), time_ms(plain, iters=5)
+        bound_ms, bound_by = bound(nbytes, ops, dtype)
+        print(f"{entry} {shape} {dtype}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms * 1e3:.2f} us ({bound_by}); library: none on {card}", flush=True)
+        if dtype == torch.bfloat16:
+            rows[entry] = dict(name=entry, err=err, tolerance=tol, ms=ms, plain_ms=plain_ms,
+                               bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                               shape=f"bf16 {shape}")
+
+    for dtype in (torch.bfloat16, torch.float32):
+        size = torch.finfo(dtype).bits // 8
+        # K1's attention-only entry and K2 from d(o): B 128, L 128, 4 heads of 64
+        q, k, v, key_mask, query_mask, graph, *_ = k1_inputs(gen, 128, 128, dtype, B)
+        q, k, v = (t[..., :MODEL_C].contiguous() for t in (q, k, v))
+        args = (q, k, v, key_mask, query_mask, graph)
+        shape = f"B={B} L=128 C={MODEL_C} H={MODEL_HEADS}"
+        errs = []
+        for renorm in ("l1", "sum_eps"):
+            got = k1.graph_attention_heads(*args, MODEL_HEADS, renorm)
+            want = k1.graph_attention_plain(*args, MODEL_HEADS, renorm)
+            check(bool(torch.isfinite(got).all()), f"K1 heads {shape} {dtype} {renorm}: finite")
+            errs.append(rel_err(got, want))
+        nb = size * B * MODEL_C * 3 * 128 + 4 * B * (2 * 128 + 128 * 128) + 4 * B * 128 * MODEL_C
+        row("K1 heads", dtype, errs, TOL[dtype],
+            lambda: k1.graph_attention_heads(*args, MODEL_HEADS, "l1"),
+            lambda: k1.graph_attention_plain(*args, MODEL_HEADS, "l1"),
+            nb, 4.0 * B * 128 * 128 * MODEL_C, shape)
+        do = torch.randn(B, 128, MODEL_C, generator=gen, device="cuda").to(dtype)
+        errs = []
+        for renorm in ("l1", "sum_eps"):
+            got = k1.graph_attention_heads_bwd(*args, do, MODEL_HEADS, renorm)
+            want = k1.graph_attention_bwd_plain(*args, do, MODEL_HEADS, renorm)
+            errs += [rel_err(g, w) for g, w in zip(got, want)]
+            check(all(bool(torch.isfinite(g).all()) for g in got),
+                  f"K2 from d(o) {shape} {dtype} {renorm}: finite")
+        # reads q, k, v, dO, the masks and the f32 graph; writes dq, dk, dv.
+        # QK^T and the weights recomputed, dA, dV, dQ and dK: 5 products of 2 B Tq Tk C
+        nb = size * B * MODEL_C * 7 * 128 + 4 * B * (2 * 128 + 128 * 128)
+        row("K2 from d(o)", dtype, errs, K2_TOL[dtype],
+            lambda: k1.graph_attention_heads_bwd(*args, do, MODEL_HEADS, "l1"),
+            lambda: k1.graph_attention_bwd_plain(*args, do, MODEL_HEADS, "l1"),
+            nb, 10.0 * B * 128 * 128 * MODEL_C, shape)
+        del args, do
+        # K1's LayerNorm entry and K3's epilogue at 16,384 rows of 512
+        o = torch.randn(MODEL_ROWS, C, generator=gen, device="cuda")
+        res = torch.randn(MODEL_ROWS, C, generator=gen, device="cuda").to(dtype)
+        gamma = 1 + 0.05 * torch.randn(C, generator=gen, device="cuda")
+        beta = 0.05 * torch.randn(C, generator=gen, device="cuda")
+        b2 = (0.05 * torch.randn(C, generator=gen, device="cuda")).to(dtype)
+        shape = f"rows={MODEL_ROWS} C={C}"
+        nb = 4 * MODEL_ROWS * C + 2 * size * MODEL_ROWS * C + 8 * C
+        got, want = k1.attention_ln(o, res, gamma, beta), k1.attention_ln_plain(o, res, gamma, beta)
+        row("K1 ln", dtype, [rel_err(got, want)], TOL[dtype],
+            lambda: k1.attention_ln(o, res, gamma, beta),
+            lambda: k1.attention_ln_plain(o, res, gamma, beta), nb, 10.0 * MODEL_ROWS * C, shape)
+        got = k3.ffn_epilogue(o, res, b2, gamma, beta)
+        want = k3.ffn_epilogue_plain(o, res, b2, gamma, beta)
+        row("K3 epilogue", dtype, [rel_err(got, want)], TOL[dtype],
+            lambda: k3.ffn_epilogue(o, res, b2, gamma, beta),
+            lambda: k3.ffn_epilogue_plain(o, res, b2, gamma, beta), nb + size * C,
+            11.0 * MODEL_ROWS * C, shape)
+        del o, res
+        # K3's partial: 16,384 rows, C 512, a hidden shard of 1,024
+        x = torch.randn(MODEL_ROWS, C, generator=gen, device="cuda").to(dtype)
+        w1 = (torch.randn(MODEL_HIDDEN, C, generator=gen, device="cuda") / C ** 0.5).to(dtype)
+        b1 = (0.05 * torch.randn(MODEL_HIDDEN, generator=gen, device="cuda")).to(dtype)
+        w2 = (torch.randn(C, MODEL_HIDDEN, generator=gen, device="cuda") / HIDDEN ** 0.5).to(dtype)
+        shape = f"rows={MODEL_ROWS} C={C} hidden={MODEL_HIDDEN}"
+        got, want = k3.ffn_partial(x, w1, b1, w2), k3.ffn_partial_plain(x, w1, b1, w2)
+        check(bool(torch.isfinite(got).all()), f"K3 partial {shape} {dtype}: finite")
+        n_split = k3.kernel_ffn_split(dtype, MODEL_ROWS, C, MODEL_HIDDEN)[0]
+        print(f"K3 partial {shape} {dtype}: hidden shard in {n_split} block shard(s)", flush=True)
+        nb = size * (MODEL_ROWS * C + 2 * C * MODEL_HIDDEN + MODEL_HIDDEN) + 4 * MODEL_ROWS * C
+        row("K3 partial", dtype, [rel_err(got, want)], TOL[dtype],
+            lambda: k3.ffn_partial(x, w1, b1, w2), lambda: k3.ffn_partial_plain(x, w1, b1, w2),
+            nb, 4.0 * MODEL_ROWS * C * MODEL_HIDDEN, shape)
+        del x, w1, w2, got, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+def model_worker(rank: int, coordinator: str, out: str) -> int:
+    """One rank of the model phase, (data 1, model 2) over gloo on cuda:0:
+    a bf16 serving forward at bs 128, an f32 obj-only step at bs 32 and an
+    f32 obj+rel step at bs 4 (rank 0 saves the logits and the whole
+    gradients), with each run's launches, bytes over the model row and
+    seconds."""
+    from structured_alignment_vqa_tpu_torch.data.synthetic import synthetic_batch
+    from structured_alignment_vqa_tpu_torch.parallel.mesh import init_distributed, shutdown
+    from structured_alignment_vqa_tpu_torch.parallel.sharding import (
+        full_grads,
+        model_bytes,
+        shard_model,
+    )
+    from structured_alignment_vqa_tpu_torch.parallel.train_step import (
+        create_train_state,
+        make_train_step,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = init_distributed(coordinator, MODEL_WORLD, rank, backend="gloo", device="cuda:0",
+                            model_parallel=MODEL_WORLD)
+    path = dict.fromkeys(model_counts(), 0)
+    results = {}
+
+    def on_path(fn, timed_only: bool = False):
+        before, sent = model_counts(), model_bytes.sent
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        moved = {k: v - before[k] for k, v in model_counts().items()}
+        for k in path:   # a repeat that is only timed is not the path's run
+            path[k] += 0 if timed_only else moved[k]
+        return result, {k: v for k, v in moved.items() if v}, model_bytes.sent - sent, seconds
+
+    def sharded(cfg, seed):
+        # both ranks draw the same weights from the seed; each keeps its shard
+        model = random_model(cfg, seed=seed)
+        whole = sum(t.numel() * t.element_size() for t in model.state_dict().values())
+        shard_model(model, mesh)
+        mine = sum(t.numel() * t.element_size() for t in model.state_dict().values())
+        return model, whole, mine
+
+    try:
+        cfg = full_config()
+        model, whole, mine = sharded(cfg, 0)
+        model.eval()
+        batch = full_batches(cfg, 1)[0]
+        with torch.no_grad():
+            logits, moved, sent, _ = on_path(lambda: model(batch)[0])
+            seconds = [on_path(lambda: model(batch)[0], timed_only=True)[3]
+                       for _ in range(MODEL_TIMED)]
+        results["serve"] = dict(launches=moved, bytes=sent, seconds=min(seconds),
+                                whole=whole, mine=mine)
+        if rank == 0:
+            torch.save(logits.float().cpu(), f"{out}/logits.pt")
+        del model, logits
+        torch.cuda.empty_cache()
+
+        for name, cfg, batch_of in (
+                ("step", full_config(compute_dtype=torch.float32, dropout_rate=0.0),
+                 lambda c: synthetic_batch(c, MODEL_STEP_B, lv=36, lq=30, ls=98, seed=0)),
+                ("rel_step", rel_config(compute_dtype=torch.float32, dropout_rate=0.0),
+                 lambda c: rel_batches(c, 1)[0])):
+            model, _, _ = sharded(cfg, 3)
+            state = create_train_state(model, 1e-4)
+            step = make_train_step(model, state.optimizer, cfg, mesh=mesh)
+            batch = batch_of(cfg)
+            m, moved, sent, seconds = on_path(
+                lambda: step(state, batch, torch.Generator(device="cuda").manual_seed(11)))
+            grads = {n: g.cpu() for n, g in full_grads(model).items()}
+            results[name] = dict(loss=m["loss"].item(), skipped=m["skipped"].item(),
+                                 launches=moved, bytes=sent, seconds=seconds)
+            if rank == 0:
+                torch.save(grads, f"{out}/{name}_grads.pt")
+            del model, state, step, batch, grads
+            torch.cuda.empty_cache()
+    finally:
+        shutdown(mesh)
+    results["path"] = path
+    results["failures"] = list(failures)
+    torch.save(results, f"{out}/rank{rank}.pt")
+    return 0
+
+
+def model_phase(card: str) -> dict:
+    """The model axis (ROADMAP item 15b) on the card: its K1, K2 and K3
+    entries against their plain versions at the model-2 shapes; then two
+    gloo ranks on the one card as (data 1, model 2) at full width against
+    one process: the bf16 serving forward, an f32 obj-only step and an f32
+    obj+rel step (K4, K5, K6 on 4 heads)."""
+    import os
+    import tempfile
+
+    from structured_alignment_vqa_tpu_torch.parallel.dryrun import free_ports, launch_local
+
+    entries = model_entries(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        coordinator = f"127.0.0.1:{free_ports()[0]}"
+        t0 = time.perf_counter()
+        outs = launch_local([[sys.executable, os.path.abspath(__file__), "--model-rank", str(r),
+                              coordinator, tmp] for r in range(MODEL_WORLD)], timeout=600)
+        print(f"model: {MODEL_WORLD} ranks on cuda:0 over gloo as (data 1, model "
+              f"{MODEL_WORLD}) ran in {time.perf_counter() - t0:.1f} s", flush=True)
+        for r, text in enumerate(outs):
+            for line in text.splitlines():
+                print(f"model rank {r}: {line}", flush=True)
+        ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=True) for r in range(MODEL_WORLD)]
+        logits = torch.load(f"{tmp}/logits.pt", weights_only=True).to("cuda")
+        grads = {n: torch.load(f"{tmp}/{n}_grads.pt", weights_only=True)
+                 for n in ("step", "rel_step")}
+    for r, res in enumerate(ranks):
+        check(not res["failures"], f"model rank {r}: every check of the rank passed "
+              f"({len(res['failures'])} failed)")
+        for name, want in (("serve", MODEL_FORWARD), ("step", MODEL_STEP),
+                           ("rel_step", MODEL_REL_STEP)):
+            check(res[name]["launches"] == want, f"model rank {r} {name}: launches "
+                  f"{res[name]['launches']} == {want}")
+    for name in ("step", "rel_step"):
+        check(ranks[0][name]["loss"] == ranks[1][name]["loss"] and ranks[0][name]["skipped"] == 0,
+              f"model {name}: both ranks of the row log the same loss, no step skipped")
+
+    # the serving forward against one process's
+    cfg = full_config()
+    model = random_model(cfg, seed=0)
+    model.eval()
+    with torch.no_grad():
+        single = model(full_batches(cfg, 1)[0])[0].float()
+    del model
+    err = (logits - single).abs().max().item() / single.abs().max().item()
+    tol = TOL[torch.bfloat16]
+    top2 = single.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * err * single.abs().max()
+    same = (logits.argmax(-1) == single.argmax(-1))
+    check(err <= tol and bool(same[clear].all()),
+          f"model serving bf16 bs {B}: logits max|ranks-one|/max|one| {err:.3g} <= {tol:g}; "
+          f"answers equal on all {int(clear.sum())} rows whose top-2 margin exceeds twice that "
+          f"(equal on {int(same.sum())} of {B} rows)")
+
+    # the f32 steps against one process's, held as the dp phase holds its ranks
+    for name, cfg, batch in (
+            ("step", full_config(compute_dtype=torch.float32, dropout_rate=0.0), None),
+            ("rel_step", rel_config(compute_dtype=torch.float32, dropout_rate=0.0), None)):
+        from structured_alignment_vqa_tpu_torch.data.synthetic import synthetic_batch
+
+        batch = (synthetic_batch(cfg, MODEL_STEP_B, lv=36, lq=30, ls=98, seed=0)
+                 if name == "step" else rel_batches(cfg, 1)[0])
+        single = one_step(cfg, batch)
+        plain = one_step(cfg, batch, plain=True)
+        # every parameter's name: one with a gradient on one side only fails
+        mine = (ranks[0][name]["loss"], {n: grads[name][n].to("cuda") if n in grads[name]
+                                         else None for n in single[1]},
+                ranks[0][name]["launches"])
+        dp_against_spread(f"model: the (data 1, model 2) {name} f32 against one process's",
+                          mine, single, plain)
+        del single, plain, mine
+        torch.cuda.empty_cache()
+
+    serve = ranks[0]["serve"]
+    print(f"model: a rank holds {serve['mine'] / 2 ** 20:.1f} MiB of parameters and buffers "
+          f"against one process's {serve['whole'] / 2 ** 20:.1f} MiB", flush=True)
+    for name, what in (("serve", f"bf16 forward bs {B}"), ("step", f"f32 step bs {MODEL_STEP_B}"),
+                       ("rel_step", f"obj+rel f32 step bs {REL_B}")):
+        res = ranks[0][name]
+        print(f"model: {what}: {res['bytes'] / 2 ** 20:.1f} MiB through the model row's "
+              f"collectives a rank, launches {res['launches']}, {res['seconds']:.3f} s a rank "
+              f"(gloo through the host: information only) on {card}", flush=True)
+    path = {k: sum(res["path"][k] for res in ranks) for k in ranks[0]["path"]}
+    for key, entry in (("K1", "K1 heads"), ("K2", "K2 from d(o)"), ("K3", "K3 partial")):
+        entries[entry]["launches"] = path[entry]
+        path[key] += path[entry]
+    for entry in ("K1 ln", "K3 epilogue"):
+        entries[entry]["launches"] = path[entry]
+    check(all(path[k] > 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K1 ln",
+                                    "K3 epilogue")),
+          f"model: every kernel of the path launched: {path}")
+    model_phase.entries = entries
+    return {k: v for k, v in path.items() if k in counted_wrappers()}
+
+
+model_phase.entries = {}
+
 
 PHASES = ("k1", "k3", "k2", "serving", "training", "k4", "k56", "objrel_serving",
           "objrel_training", "cli", "train_cli", "packed", "dp", "host", "variants",
-          "variant_cli", "seq")
+          "variant_cli", "seq", "model")
 PORT = "structured_alignment_vqa_tpu_torch/csrc/"
 TPU = "structured_alignment_vqa_tpu/ops/"
 BF16 = str(torch.bfloat16)
@@ -3651,6 +3975,9 @@ def kernel_lines(rows: dict, by_path: dict) -> list:
             "launches_by_path": {p: counts[key] for p, counts in by_path.items()},
         }
         entry["max_abs_err_all_cases"] = max(r["err"] for r in mine.values())
+        # the model axis's entries of this kernel (phase model), each beside its bound
+        entry["model_axis_entries"] = [
+            dict(e) for n, e in model_phase.entries.items() if n.startswith(key + " ")]
         if "rel_err" in main_row:   # held relative to each output's max
             entry["max_rel_err"] = main_row["rel_err"]
             entry["max_rel_err_all_cases"] = max(r["rel_err"] for r in mine.values())
@@ -3668,6 +3995,8 @@ def main(argv: list) -> int:
         return host_rank(int(argv[1]), argv[2], argv[3])
     if argv[:1] == ["--seq-rank"] and len(argv) == 4:    # a rank of the seq phase
         return seq_worker(int(argv[1]), argv[2], argv[3])
+    if argv[:1] == ["--model-rank"] and len(argv) == 4:  # a rank of the model phase
+        return model_worker(int(argv[1]), argv[2], argv[3])
     phases = PHASES
     if argv[:1] == ["--phases"] and len(argv) == 2:
         phases = tuple(argv[1].split(","))
@@ -3700,7 +4029,7 @@ def main(argv: list) -> int:
                    "objrel_serving": rel_serving_phase, "objrel_training": rel_training_phase,
                    "cli": cli_phase, "train_cli": train_cli_phase, "packed": packed_phase,
                    "dp": dp_phase, "host": host_phase, "variants": variants_phase,
-                   "variant_cli": variant_cli_phase, "seq": seq_phase}
+                   "variant_cli": variant_cli_phase, "seq": seq_phase, "model": model_phase}
     rows, by_path = {}, {}
     for phase in phases:
         t0 = time.perf_counter()

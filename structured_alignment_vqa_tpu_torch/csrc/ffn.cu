@@ -65,7 +65,8 @@ __global__ void __launch_bounds__(kThreads)
 ffn_ln_f32_kernel(const float* __restrict__ x, const float* __restrict__ w1,
                   const float* __restrict__ b1, const float* __restrict__ w2,
                   const float* __restrict__ b2, const float* __restrict__ gamma,
-                  const float* __restrict__ beta, float* __restrict__ out, int N, int Hd) {
+                  const float* __restrict__ beta, float* __restrict__ out,
+                  float* __restrict__ partial, int N, int Hd) {
   constexpr int XS = C + 1;
   constexpr int HS = kHidden + 1;
   constexpr int W1S = kHidden + 1;
@@ -147,6 +148,17 @@ ffn_ln_f32_kernel(const float* __restrict__ x, const float* __restrict__ w1,
         }
       }
     }
+  }
+
+  if (partial != nullptr) {   // the model axis's partial y = h W2^T of this hidden shard
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = 4 * warp + r;
+      if (row0 + row >= N) continue;
+#pragma unroll
+      for (int t = 0; t < kCols; ++t) partial[(size_t)(row0 + row) * C + lane + 32 * t] = y[r][t];
+    }
+    return;
   }
 
   // + b2 + x, then LayerNorm over the row; each warp holds its 4 rows whole
@@ -351,7 +363,7 @@ ffn_ln_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   }
   cp_async_wait<0>();
 
-  if (gridDim.y > 1) {   // one shard of the hidden width: its f32 partial y, real rows only
+  if (partial != nullptr) {   // one shard of the hidden width: its f32 partial y, real rows only
     float* part = partial + ((size_t)blockIdx.y * N + row0) * C;
 #pragma unroll
     for (int rb = 0; rb < 4; ++rb)
@@ -453,12 +465,24 @@ ffn_ln_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
 // shard order, + b2 + x, then the LayerNorm; one warp a row, a lane owning
 // the 4-column chunks 4 lane + 128 i. The loads of kAhead shards are issued
 // before any is added, so a row waits for ceil(n_split / kAhead) round trips
-// to L2 and not n_split.
-template <int C>
+// to L2 and not n_split. With n_split 1 and T float or bf16 it is also the
+// model axis's epilogue (savqa_ffn_epilogue): y there is the partials summed
+// over the ranks.
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+
+__device__ __forceinline__ void store4(bf16* p, const float (&y)[4]) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]));
+}
+__device__ __forceinline__ void store4(float* p, const float (&y)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(y[0], y[1], y[2], y[3]);
+}
+
+template <int C, typename T>
 __global__ void __launch_bounds__(kThreads)
-ffn_ln_shard_sum_kernel(const float* __restrict__ partial, const bf16* __restrict__ x,
-                        const bf16* __restrict__ b2, const float* __restrict__ gamma,
-                        const float* __restrict__ beta, bf16* __restrict__ out, int N,
+ffn_ln_shard_sum_kernel(const float* __restrict__ partial, const T* __restrict__ x,
+                        const T* __restrict__ b2, const float* __restrict__ gamma,
+                        const float* __restrict__ beta, T* __restrict__ out, int N,
                         int n_split) {
   constexpr int kChunks = C / 128;
   constexpr int kAhead = 4;
@@ -494,7 +518,7 @@ ffn_ln_shard_sum_kernel(const float* __restrict__ partial, const bf16* __restric
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int c = 4 * lane + 128 * i + e;
-      v[i][e] = (v[i][e] + __bfloat162float(b2[c])) + __bfloat162float(x[(size_t)row * C + c]);
+      v[i][e] = (v[i][e] + to_f(b2[c])) + to_f(x[(size_t)row * C + c]);
       s += v[i][e];
     }
   const float mean = warp_sum(s) / (float)C;
@@ -505,14 +529,27 @@ ffn_ln_shard_sum_kernel(const float* __restrict__ partial, const bf16* __restric
     for (int e = 0; e < 4; ++e) ss += (v[i][e] - mean) * (v[i][e] - mean);
   const float var = warp_sum(ss) / (float)(C - 1);
   const float sd = var > 0.f ? sqrtf(var) : 0.f;
-  bf16* orow = out + (size_t)row * C;
+  T* orow = out + (size_t)row * C;
 #pragma unroll
   for (int i = 0; i < kChunks; ++i) {
     const int c = 4 * lane + 128 * i;
     float y[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) y[e] = gamma[c + e] * (v[i][e] - mean) / (sd + kLnEps) + beta[c + e];
-    *reinterpret_cast<uint2*>(orow + c) = make_uint2(pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]));
+    store4(orow + c, y);
+  }
+}
+
+// The model axis's sum of this rank's own hidden shards (ffn_split): out =
+// the n_split partials added in shard order, element by element.
+__global__ void __launch_bounds__(kThreads)
+ffn_partial_sum_kernel(const float* __restrict__ partial, float* __restrict__ out,
+                       size_t n, int n_split) {
+  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * kThreads) {
+    float v = partial[i];
+    for (int sp = 1; sp < n_split; ++sp) v += partial[(size_t)sp * n + i];
+    out[i] = v;
   }
 }
 
@@ -656,8 +693,8 @@ cudaError_t launch_wide(const void* x, const void* w1, const void* b1, const voi
 
 template <int C>
 cudaError_t launch_f32(const void* x, const void* w1, const void* b1, const void* w2,
-                       const void* b2, const float* gamma, const float* beta, void* out, int N,
-                       int Hd, cudaStream_t stream) {
+                       const void* b2, const float* gamma, const float* beta, void* out,
+                       float* partial, int N, int Hd, cudaStream_t stream) {
   const size_t smem = f32_smem_floats<C>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(ffn_ln_f32_kernel<C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -666,7 +703,7 @@ cudaError_t launch_f32(const void* x, const void* w1, const void* b1, const void
   ffn_ln_f32_kernel<C><<<blocks, kThreads, smem, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(w1),
       static_cast<const float*>(b1), static_cast<const float*>(w2),
-      static_cast<const float*>(b2), gamma, beta, static_cast<float*>(out), N, Hd);
+      static_cast<const float*>(b2), gamma, beta, static_cast<float*>(out), partial, N, Hd);
   return cudaGetLastError();
 }
 
@@ -688,7 +725,7 @@ cudaError_t launch_bf16(const void* x, const void* w1, const void* b1, const voi
       static_cast<const bf16*>(w2), b2b, gamma, beta, ob, partial, N, Hd, per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return err;
-  ffn_ln_shard_sum_kernel<C><<<(N + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
+  ffn_ln_shard_sum_kernel<C, bf16><<<(N + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
       partial, xb, b2b, gamma, beta, ob, N, n_split);
   return cudaGetLastError();
 }
@@ -697,7 +734,8 @@ template <int C>
 cudaError_t launch(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
                    const float* gamma, const float* beta, void* out, float* partial, int N,
                    int Hd, int dtype, int n_split, int per_split, cudaStream_t stream) {
-  if (dtype == 0) return launch_f32<C>(x, w1, b1, w2, b2, gamma, beta, out, N, Hd, stream);
+  if (dtype == 0)
+    return launch_f32<C>(x, w1, b1, w2, b2, gamma, beta, out, nullptr, N, Hd, stream);
   if (dtype == 1)
     return launch_bf16<C>(x, w1, b1, w2, b2, gamma, beta, out, partial, N, Hd, n_split,
                           per_split, stream);
@@ -725,7 +763,8 @@ extern "C" int savqa_ffn_ln(const void* x, const void* w1, const void* b1, const
     return (int)cudaErrorInvalidValue;
   const auto* ga = static_cast<const float*>(gamma);
   const auto* be = static_cast<const float*>(beta);
-  auto* pa = static_cast<float*>(partial);
+  // unsplit, the kernel finishes its rows itself (a null partial)
+  auto* pa = n_split > 1 ? static_cast<float*>(partial) : nullptr;
   auto s = static_cast<cudaStream_t>(stream);
   switch (C) {
     case 128: return (int)launch<128>(x, w1, b1, w2, b2, ga, be, out, pa, N, Hd, dtype, n_split, per_split, s);
@@ -735,6 +774,98 @@ extern "C" int savqa_ffn_ln(const void* x, const void* w1, const void* b1, const
       if (dtype == 0) return (int)launch_wide<2048, float>(x, w1, b1, w2, b2, ga, be, out, N, Hd, s);
       if (dtype == 1) return (int)launch_wide<2048, bf16>(x, w1, b1, w2, b2, ga, be, out, N, Hd, s);
       return (int)cudaErrorInvalidValue;
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+namespace {
+
+template <int C>
+cudaError_t launch_partial(const void* x, const void* w1, const void* b1, const void* w2,
+                           float* scratch, float* out, int N, int Hd, int dtype, int n_split,
+                           int per_split, cudaStream_t stream) {
+  if (dtype == 0)
+    return launch_f32<C>(x, w1, b1, w2, nullptr, nullptr, nullptr, nullptr, out, N, Hd, stream);
+  if (dtype != 1) return cudaErrorInvalidValue;
+  const size_t smem = TcSmem<C>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(ffn_ln_tc_kernel<C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + kTcRows - 1) / kTcRows, n_split);
+  ffn_ln_tc_kernel<C><<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
+      static_cast<const bf16*>(w2), nullptr, nullptr, nullptr, nullptr,
+      n_split > 1 ? scratch : out, N, Hd, per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return err;
+  const size_t n = (size_t)N * C;
+  const size_t want = (n + kThreads - 1) / kThreads;
+  const int blocks = want < 4 * 132 ? (int)want : 4 * 132;
+  ffn_partial_sum_kernel<<<blocks, kThreads, 0, stream>>>(scratch, out, n, n_split);
+  return cudaGetLastError();
+}
+
+template <int C>
+cudaError_t launch_epilogue(const float* y, const void* x, const void* b2, const float* gamma,
+                            const float* beta, void* out, int N, int dtype,
+                            cudaStream_t stream) {
+  const int blocks = (N + kWarps - 1) / kWarps;
+  if (dtype == 0)
+    ffn_ln_shard_sum_kernel<C, float><<<blocks, kThreads, 0, stream>>>(
+        y, static_cast<const float*>(x), static_cast<const float*>(b2), gamma, beta,
+        static_cast<float*>(out), N, 1);
+  else if (dtype == 1)
+    ffn_ln_shard_sum_kernel<C, bf16><<<blocks, kThreads, 0, stream>>>(
+        y, static_cast<const bf16*>(x), static_cast<const bf16*>(b2), gamma, beta,
+        static_cast<bf16*>(out), N, 1);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// The model axis (ops/fused_ffn.py:ffn_partial): out = relu(x W1^T + b1)
+// W2^T, (N, C) f32, for this rank's shard of the hidden width (W1 (Hd, C),
+// b1 (Hd,), W2 (C, Hd) of the shard), h rounded to x's type as in
+// savqa_ffn_ln; no b2, residual or LayerNorm. C 128, 256 or 512. bf16 may
+// split its own Hd / 64 chunks into n_split shards as savqa_ffn_ln does,
+// their partials in scratch ((n_split, N, C) f32) summed in shard order into
+// out; with n_split 1 scratch is unused (may be null). f32 takes n_split 1.
+extern "C" int savqa_ffn_partial(const void* x, const void* w1, const void* b1, const void* w2,
+                                 void* scratch, void* out, int N, int C, int Hd, int dtype,
+                                 int n_split, int per_split, void* stream) {
+  const int chunks = Hd / kHidden;
+  if (N <= 0 || Hd <= 0 || Hd % kHidden != 0 || n_split < 1 || per_split < 1 ||
+      (n_split - 1) * per_split >= chunks || n_split * per_split < chunks ||
+      (dtype == 0 && n_split != 1) || (n_split > 1 && scratch == nullptr) || out == nullptr)
+    return (int)cudaErrorInvalidValue;
+  auto* sc = static_cast<float*>(scratch);
+  auto* o = static_cast<float*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 128: return (int)launch_partial<128>(x, w1, b1, w2, sc, o, N, Hd, dtype, n_split, per_split, s);
+    case 256: return (int)launch_partial<256>(x, w1, b1, w2, sc, o, N, Hd, dtype, n_split, per_split, s);
+    case 512: return (int)launch_partial<512>(x, w1, b1, w2, sc, o, N, Hd, dtype, n_split, per_split, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The model axis's epilogue (ops/fused_ffn.py:ffn_epilogue): out = LN((y +
+// b2) + x) over rows, y (N, C) f32 the partials summed over the ranks, x and
+// b2 in out's type; the split path's shard-sum kernel with one shard.
+extern "C" int savqa_ffn_epilogue(const void* y, const void* x, const void* b2,
+                                  const void* gamma, const void* beta, void* out, int N, int C,
+                                  int dtype, void* stream) {
+  if (N <= 0) return (int)cudaErrorInvalidValue;
+  const auto* yf = static_cast<const float*>(y);
+  const auto* ga = static_cast<const float*>(gamma);
+  const auto* be = static_cast<const float*>(beta);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 128: return (int)launch_epilogue<128>(yf, x, b2, ga, be, out, N, dtype, s);
+    case 256: return (int)launch_epilogue<256>(yf, x, b2, ga, be, out, N, dtype, s);
+    case 512: return (int)launch_epilogue<512>(yf, x, b2, ga, be, out, N, dtype, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -34,6 +34,8 @@
 #include <cuda_bf16.h>
 #include <math.h>
 
+#include <type_traits>
+
 #include "mma_sm90.cuh"
 
 namespace {
@@ -74,8 +76,8 @@ graph_attention_ln_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const float* __restrict__ query_mask,
                           const float* __restrict__ graph, const T* __restrict__ residual,
                           const float* __restrict__ gamma, const float* __restrict__ beta,
-                          T* __restrict__ out, int Tq, int Tk, int C, int H, int renorm,
-                          float scale) {
+                          T* __restrict__ out, float* __restrict__ o_out, int Tq, int Tk,
+                          int C, int H, int renorm, float scale) {
   extern __shared__ float smem[];
   const int tile = min(kQTile, Tq);
   const int b = blockIdx.y;
@@ -170,6 +172,12 @@ graph_attention_ln_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     __syncthreads();  // acc of this head complete; qs, p and kv free
+  }
+
+  if (o_out != nullptr) {   // the attention output alone (savqa_graph_attention)
+    float* orows = o_out + ((size_t)b * Tq + row0) * C;
+    for (int i = tid; i < rows * C; i += kThreads) orows[i] = acc[i];
+    return;
   }
 
   // residual + LayerNorm, one warp per row
@@ -432,73 +440,77 @@ graph_attention_ln_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict_
   }
 }
 
-// out = LN(o + residual), one warp a row. With C a multiple of 128 (up to
-// 1,024) a lane holds its 4-float chunks c = 4 lane + 128 i in registers
-// (one read of o and of the residual, 16-byte and 8-byte loads); other
-// widths read the row three times, from L1 after the first.
+// out = LN(o + residual), one warp a row. bf16 with C a multiple of 128
+// (up to 1,024): a lane holds its 4-float chunks c = 4 lane + 128 i in
+// registers (one read of o and of the residual, 16-byte and 8-byte loads);
+// other widths and f32 read the row three times, from L1 after the first.
+// The tensor-core path's second kernel, and the model axis's LayerNorm
+// entry (savqa_attention_ln) after the heads are gathered.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-graph_attention_ln_epilogue_kernel(const float* __restrict__ o, const bf16* __restrict__ residual,
+graph_attention_ln_epilogue_kernel(const float* __restrict__ o, const T* __restrict__ residual,
                                    const float* __restrict__ gamma,
-                                   const float* __restrict__ beta, bf16* __restrict__ out,
+                                   const float* __restrict__ beta, T* __restrict__ out,
                                    int n_rows, int C) {
   constexpr int kMaxChunks = 8;
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= n_rows) return;
   const float* xr = o + (size_t)row * C;
-  const bf16* rr = residual + (size_t)row * C;
-  bf16* orow = out + (size_t)row * C;
-  if (C % 128 == 0 && C <= 128 * kMaxChunks) {
-    const int n_chunks = C / 128;
-    float x[kMaxChunks][4];
-    float s = 0.f;
+  const T* rr = residual + (size_t)row * C;
+  T* orow = out + (size_t)row * C;
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (C % 128 == 0 && C <= 128 * kMaxChunks) {
+      const int n_chunks = C / 128;
+      float x[kMaxChunks][4];
+      float s = 0.f;
 #pragma unroll
-    for (int i = 0; i < kMaxChunks; ++i) {
-      if (i >= n_chunks) break;
-      const int c = 4 * lane + 128 * i;
-      const float4 ov = *reinterpret_cast<const float4*>(xr + c);
-      const uint2 rv = *reinterpret_cast<const uint2*>(rr + c);   // a bf16 is the upper half of an f32
-      x[i][0] = ov.x + __uint_as_float(rv.x << 16);
-      x[i][1] = ov.y + __uint_as_float(rv.x & 0xffff0000u);
-      x[i][2] = ov.z + __uint_as_float(rv.y << 16);
-      x[i][3] = ov.w + __uint_as_float(rv.y & 0xffff0000u);
-      s += x[i][0] + x[i][1] + x[i][2] + x[i][3];
+      for (int i = 0; i < kMaxChunks; ++i) {
+        if (i >= n_chunks) break;
+        const int c = 4 * lane + 128 * i;
+        const float4 ov = *reinterpret_cast<const float4*>(xr + c);
+        const uint2 rv = *reinterpret_cast<const uint2*>(rr + c);   // a bf16 is the upper half of an f32
+        x[i][0] = ov.x + __uint_as_float(rv.x << 16);
+        x[i][1] = ov.y + __uint_as_float(rv.x & 0xffff0000u);
+        x[i][2] = ov.z + __uint_as_float(rv.y << 16);
+        x[i][3] = ov.w + __uint_as_float(rv.y & 0xffff0000u);
+        s += x[i][0] + x[i][1] + x[i][2] + x[i][3];
+      }
+      const float mean = warp_sum(s) / (float)C;
+      float ss = 0.f;
+#pragma unroll
+      for (int i = 0; i < kMaxChunks; ++i) {
+        if (i >= n_chunks) break;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ss += (x[i][e] - mean) * (x[i][e] - mean);
+      }
+      const float var = warp_sum(ss) / (float)(C - 1);
+      const float sd = var > 0.f ? sqrtf(var) : 0.f;
+#pragma unroll
+      for (int i = 0; i < kMaxChunks; ++i) {
+        if (i >= n_chunks) break;
+        const int c = 4 * lane + 128 * i;
+        float y[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) y[e] = gamma[c + e] * (x[i][e] - mean) / (sd + kLnEps) + beta[c + e];
+        *reinterpret_cast<uint2*>(orow + c) =
+            make_uint2(savqa::pack_bf16(y[0], y[1]), savqa::pack_bf16(y[2], y[3]));
+      }
+      return;
     }
-    const float mean = warp_sum(s) / (float)C;
-    float ss = 0.f;
-#pragma unroll
-    for (int i = 0; i < kMaxChunks; ++i) {
-      if (i >= n_chunks) break;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ss += (x[i][e] - mean) * (x[i][e] - mean);
-    }
-    const float var = warp_sum(ss) / (float)(C - 1);
-    const float sd = var > 0.f ? sqrtf(var) : 0.f;
-#pragma unroll
-    for (int i = 0; i < kMaxChunks; ++i) {
-      if (i >= n_chunks) break;
-      const int c = 4 * lane + 128 * i;
-      float y[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) y[e] = gamma[c + e] * (x[i][e] - mean) / (sd + kLnEps) + beta[c + e];
-      *reinterpret_cast<uint2*>(orow + c) =
-          make_uint2(savqa::pack_bf16(y[0], y[1]), savqa::pack_bf16(y[2], y[3]));
-    }
-    return;
   }
   float s = 0.f;
-  for (int c = lane; c < C; c += 32) s += xr[c] + __bfloat162float(rr[c]);
+  for (int c = lane; c < C; c += 32) s += xr[c] + to_float(rr[c]);
   const float mean = warp_sum(s) / (float)C;
   float ss = 0.f;
   for (int c = lane; c < C; c += 32) {
-    const float d = (xr[c] + __bfloat162float(rr[c])) - mean;
+    const float d = (xr[c] + to_float(rr[c])) - mean;
     ss += d * d;
   }
   const float var = warp_sum(ss) / (float)max(C - 1, 1);
   const float sd = var > 0.f ? sqrtf(var) : 0.f;
   for (int c = lane; c < C; c += 32)
-    orow[c] = __float2bfloat16_rn(
-        gamma[c] * ((xr[c] + __bfloat162float(rr[c])) - mean) / (sd + kLnEps) + beta[c]);
+    orow[c] = from_float<T>(gamma[c] * ((xr[c] + to_float(rr[c])) - mean) / (sd + kLnEps) + beta[c]);
 }
 
 inline int tc_warps(int Tq) { return Tq <= 16 ? 1 : 4; }
@@ -520,8 +532,8 @@ cudaError_t launch_tc_dh(const bf16* q, const bf16* k, const bf16* v, const floa
   kernel<<<grid, NW * 32, smem, stream>>>(q, k, v, key_mask, query_mask, graph, o, Tq, Tk, C,
                                           C / H, renorm, scale);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  graph_attention_ln_epilogue_kernel<<<(B * Tq + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
+  if (err != cudaSuccess || out == nullptr) return err;   // no out: the attention output alone
+  graph_attention_ln_epilogue_kernel<bf16><<<(B * Tq + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
       o, residual, gamma, beta, out, B * Tq, C);
   return cudaGetLastError();
 }
@@ -539,8 +551,8 @@ cudaError_t launch_tc(const bf16* q, const bf16* k, const bf16* v, const float* 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* key_mask,
                    const float* query_mask, const float* graph, const void* residual,
-                   const float* gamma, const float* beta, void* out, int B, int Tq, int Tk,
-                   int C, int H, int renorm, float scale, cudaStream_t stream) {
+                   const float* gamma, const float* beta, void* out, float* o_out, int B,
+                   int Tq, int Tk, int C, int H, int renorm, float scale, cudaStream_t stream) {
   const int tile = Tq < kQTile ? Tq : kQTile;
   const int dh = C / H;
   const size_t smem = sizeof(float) * ((size_t)tile * C + (size_t)tile * Tk +
@@ -553,7 +565,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* key
   graph_attention_ln_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), key_mask,
       query_mask, graph, static_cast<const T*>(residual), gamma, beta, static_cast<T*>(out),
-      Tq, Tk, C, H, renorm, scale);
+      o_out, Tq, Tk, C, H, renorm, scale);
   return cudaGetLastError();
 }
 
@@ -589,10 +601,68 @@ extern "C" int savqa_graph_attention_ln(const void* q, const void* k, const void
                     renorm, scale, s);
   }
   if (dtype == 0)
-    return (int)launch<float>(q, k, v, km, qm, g, residual, ga, be, out, B, Tq, Tk, C, H,
-                              renorm, scale, s);
+    return (int)launch<float>(q, k, v, km, qm, g, residual, ga, be, out, nullptr, B, Tq, Tk,
+                              C, H, renorm, scale, s);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(q, k, v, km, qm, g, residual, ga, be, out, B, Tq, Tk, C,
-                                      H, renorm, scale, s);
+    return (int)launch<__nv_bfloat16>(q, k, v, km, qm, g, residual, ga, be, out, nullptr, B,
+                                      Tq, Tk, C, H, renorm, scale, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The model axis (ops/fused_graph_attention.py:graph_attention_heads): the
+// attention output o (B, Tq, C) f32 of the H heads given, before any
+// residual or LayerNorm; C and H are this rank's columns and heads. The
+// tensor-core kernel alone, or the SIMT kernel writing o and skipping its
+// epilogue. The arguments otherwise as savqa_graph_attention_ln's.
+extern "C" int savqa_graph_attention(const void* q, const void* k, const void* v,
+                                     const void* key_mask, const void* query_mask,
+                                     const void* graph, void* o, int B, int Tq, int Tk, int C,
+                                     int H, int renorm, int dtype, int tensor_cores, float scale,
+                                     void* stream) {
+  if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || C % H != 0 || (renorm != 0 && renorm != 1) ||
+      o == nullptr || (tensor_cores && (dtype != 1 || (C / H) % 16 != 0 || C / H > 128)))
+    return (int)cudaErrorInvalidValue;
+  const auto* km = static_cast<const float*>(key_mask);
+  const auto* qm = static_cast<const float*>(query_mask);
+  const auto* g = static_cast<const float*>(graph);
+  auto* of = static_cast<float*>(o);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (tensor_cores) {
+    const int dh = C / H;
+    auto run = dh <= 16 ? launch_tc<16> : dh <= 32 ? launch_tc<32> : dh <= 64 ? launch_tc<64>
+                                                                               : launch_tc<128>;
+    return (int)run(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                    static_cast<const bf16*>(v), km, qm, g, nullptr, nullptr, nullptr, nullptr,
+                    of, B, Tq, Tk, C, H, renorm, scale, s);
+  }
+  if (dtype == 0)
+    return (int)launch<float>(q, k, v, km, qm, g, nullptr, nullptr, nullptr, nullptr, of, B, Tq,
+                              Tk, C, H, renorm, scale, s);
+  if (dtype == 1)
+    return (int)launch<__nv_bfloat16>(q, k, v, km, qm, g, nullptr, nullptr, nullptr, nullptr, of,
+                                      B, Tq, Tk, C, H, renorm, scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// out = LN(o + residual) over n_rows rows of C: o f32, residual and out of
+// dtype (0 float32, 1 bfloat16), gamma and beta f32 (the epilogue kernel of
+// the tensor-core path, as its own entry).
+extern "C" int savqa_attention_ln(const void* o, const void* residual, const void* gamma,
+                                  const void* beta, void* out, int n_rows, int C, int dtype,
+                                  void* stream) {
+  if (n_rows <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+  const auto* of = static_cast<const float*>(o);
+  const auto* ga = static_cast<const float*>(gamma);
+  const auto* be = static_cast<const float*>(beta);
+  auto s = static_cast<cudaStream_t>(stream);
+  const int blocks = (n_rows + kWarps - 1) / kWarps;
+  if (dtype == 0)
+    graph_attention_ln_epilogue_kernel<float><<<blocks, kThreads, 0, s>>>(
+        of, static_cast<const float*>(residual), ga, be, static_cast<float*>(out), n_rows, C);
+  else if (dtype == 1)
+    graph_attention_ln_epilogue_kernel<bf16><<<blocks, kThreads, 0, s>>>(
+        of, static_cast<const bf16*>(residual), ga, be, static_cast<bf16*>(out), n_rows, C);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }

@@ -184,7 +184,8 @@ graph_attention_ln_bwd_rows_kernel(
     const float* __restrict__ graph, const T* __restrict__ residual,
     const float* __restrict__ gamma, const T* __restrict__ dy, T* __restrict__ dq,
     T* __restrict__ dres, float* __restrict__ partials, float* __restrict__ dout,
-    float* __restrict__ stats, int Tq, int Tk, int C, int H, int renorm, float scale) {
+    float* __restrict__ stats, int Tq, int Tk, int C, int H, int renorm, float scale,
+    int from_do) {
   extern __shared__ float smem[];
   const int tile = min(kQTile, Tq);
   const int b = blockIdx.y;
@@ -211,105 +212,114 @@ graph_attention_ln_bwd_rows_kernel(
   const T* rb = residual + ((size_t)b * Tq + row0) * C;
   const T* dyb = dy + ((size_t)b * Tq + row0) * C;
 
-  // ---- 1. the forward output of every head, as K1 computes it ----
-  for (int h = 0; h < H; ++h) {
-    const int c0 = h * dh;
-    head_scores(qb, kb, km, qs, kv, p, rows, Tk, C, c0, dh, scale);
-    for (int r = warp; r < rows; r += kWarps) {
-      float* pr = p + r * Tk;
-      const float* gr = gb + (size_t)r * Tk;
-      row_softmax(pr, Tk, lane);
-      float n = 0.f;
-      for (int j = lane; j < Tk; j += 32) {
-        const float a = pr[j] * gr[j];
-        pr[j] = a;
-        n += renorm == 0 ? fabsf(a) : a;
-      }
-      n = warp_sum(n);
-      const float denom = renorm == 0 ? fmaxf(n, kL1Eps) : n + kSumEps;
-      const float qmr = qm[r];
-      for (int j = lane; j < Tk; j += 32) pr[j] = to_float(from_float<T>(pr[j] / denom * qmr));
+  if (from_do) {   // dy is dO itself (savqa_graph_attention_bwd): no forward, no LayerNorm
+    float* dob = dout + ((size_t)b * Tq + row0) * C;
+    for (int i = tid; i < rows * C; i += kThreads) {
+      const float d = to_float(dyb[i]);
+      acc[i] = d;
+      dob[i] = d;
     }
-    for (int j0 = 0; j0 < Tk; j0 += kKeyChunk) {
-      const int nk = min(kKeyChunk, Tk - j0);
-      __syncthreads();  // weights final; the previous chunk's readers of kv done
-      for (int i = tid; i < nk * dh; i += kThreads) {
-        const int j = i / dh, d = i - j * dh;
-        kv[j * (dh + 1) + d] = to_float(vb[(size_t)(j0 + j) * C + c0 + d]);
+  } else {
+    // ---- 1. the forward output of every head, as K1 computes it ----
+    for (int h = 0; h < H; ++h) {
+      const int c0 = h * dh;
+      head_scores(qb, kb, km, qs, kv, p, rows, Tk, C, c0, dh, scale);
+      for (int r = warp; r < rows; r += kWarps) {
+        float* pr = p + r * Tk;
+        const float* gr = gb + (size_t)r * Tk;
+        row_softmax(pr, Tk, lane);
+        float n = 0.f;
+        for (int j = lane; j < Tk; j += 32) {
+          const float a = pr[j] * gr[j];
+          pr[j] = a;
+          n += renorm == 0 ? fabsf(a) : a;
+        }
+        n = warp_sum(n);
+        const float denom = renorm == 0 ? fmaxf(n, kL1Eps) : n + kSumEps;
+        const float qmr = qm[r];
+        for (int j = lane; j < Tk; j += 32) pr[j] = to_float(from_float<T>(pr[j] / denom * qmr));
       }
-      __syncthreads();
-      for (int i = tid; i < rows * dh; i += kThreads) {
-        const int r = i / dh, d = i - r * dh;
-        const float* pr = p + r * Tk + j0;
-        float s = 0.f;
-        for (int j = 0; j < nk; ++j) s = fmaf(pr[j], kv[j * (dh + 1) + d], s);
-        float* a = acc + r * C + c0 + d;
-        *a = j0 == 0 ? s : *a + s;
+      for (int j0 = 0; j0 < Tk; j0 += kKeyChunk) {
+        const int nk = min(kKeyChunk, Tk - j0);
+        __syncthreads();  // weights final; the previous chunk's readers of kv done
+        for (int i = tid; i < nk * dh; i += kThreads) {
+          const int j = i / dh, d = i - j * dh;
+          kv[j * (dh + 1) + d] = to_float(vb[(size_t)(j0 + j) * C + c0 + d]);
+        }
+        __syncthreads();
+        for (int i = tid; i < rows * dh; i += kThreads) {
+          const int r = i / dh, d = i - r * dh;
+          const float* pr = p + r * Tk + j0;
+          float s = 0.f;
+          for (int j = 0; j < nk; ++j) s = fmaf(pr[j], kv[j * (dh + 1) + d], s);
+          float* a = acc + r * C + c0 + d;
+          *a = j0 == 0 ? s : *a + s;
+        }
       }
+      __syncthreads();  // acc of this head complete
     }
-    __syncthreads();  // acc of this head complete
-  }
 
-  // ---- 2. LayerNorm backward: acc becomes x - mean, then dO ----
-  for (int r = warp; r < rows; r += kWarps) {
-    float* xr = acc + r * C;
-    float s = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float x = xr[c] + to_float(rb[(size_t)r * C + c]);
-      xr[c] = x;
-      s += x;
+    // ---- 2. LayerNorm backward: acc becomes x - mean, then dO ----
+    for (int r = warp; r < rows; r += kWarps) {
+      float* xr = acc + r * C;
+      float s = 0.f;
+      for (int c = lane; c < C; c += 32) {
+        const float x = xr[c] + to_float(rb[(size_t)r * C + c]);
+        xr[c] = x;
+        s += x;
+      }
+      const float mean = warp_sum(s) / (float)C;
+      float ss = 0.f;
+      for (int c = lane; c < C; c += 32) {
+        const float d = xr[c] - mean;
+        xr[c] = d;
+        ss += d * d;
+      }
+      const float var = warp_sum(ss) / (float)max(C - 1, 1);
+      const float sd = var > 0.f ? sqrtf(var) : 0.f;
+      if (lane == 0) {
+        rowst[r * kStats + 0] = 1.f / (sd + kLnEps);
+        rowst[r * kStats + 1] = sd;
+        rowst[r * kStats + 2] = var > 0.f ? 1.f : 0.f;
+      }
     }
-    const float mean = warp_sum(s) / (float)C;
-    float ss = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float d = xr[c] - mean;
-      xr[c] = d;
-      ss += d * d;
+    __syncthreads();
+    // per-block dgamma / dbeta partials, one column per thread
+    float* part = partials + ((size_t)b * gridDim.x + blockIdx.x) * 2 * C;
+    for (int c = tid; c < C; c += kThreads) {
+      float sg = 0.f, sb = 0.f;
+      for (int r = 0; r < rows; ++r) {
+        const float g = to_float(dyb[(size_t)r * C + c]);
+        sb += g;
+        sg += g * (acc[r * C + c] * rowst[r * kStats + 0]);
+      }
+      part[c] = sg;
+      part[C + c] = sb;
     }
-    const float var = warp_sum(ss) / (float)max(C - 1, 1);
-    const float sd = var > 0.f ? sqrtf(var) : 0.f;
-    if (lane == 0) {
-      rowst[r * kStats + 0] = 1.f / (sd + kLnEps);
-      rowst[r * kStats + 1] = sd;
-      rowst[r * kStats + 2] = var > 0.f ? 1.f : 0.f;
-    }
-  }
-  __syncthreads();
-  // per-block dgamma / dbeta partials, one column per thread
-  float* part = partials + ((size_t)b * gridDim.x + blockIdx.x) * 2 * C;
-  for (int c = tid; c < C; c += kThreads) {
-    float sg = 0.f, sb = 0.f;
-    for (int r = 0; r < rows; ++r) {
-      const float g = to_float(dyb[(size_t)r * C + c]);
-      sb += g;
-      sg += g * (acc[r * C + c] * rowst[r * kStats + 0]);
-    }
-    part[c] = sg;
-    part[C + c] = sb;
-  }
-  __syncthreads();  // every reader of x - mean done
-  float* dob = dout + ((size_t)b * Tq + row0) * C;
-  for (int r = warp; r < rows; r += kWarps) {
-    float* xr = acc + r * C;
-    const float inv = rowst[r * kStats + 0];
-    const float sd = rowst[r * kStats + 1];
-    const bool nonzero = rowst[r * kStats + 2] != 0.f;
-    float sum_dxh = 0.f, ssum = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float dxh = to_float(dyb[(size_t)r * C + c]) * gamma[c];
-      sum_dxh += dxh;
-      ssum += dxh * xr[c];
-    }
-    const float mean_dxh = warp_sum(sum_dxh) / (float)C;
-    ssum = warp_sum(ssum);
-    const float coef = nonzero ? ssum * inv * inv / ((float)max(C - 1, 1) * sd) : 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float dxh = to_float(dyb[(size_t)r * C + c]) * gamma[c];
-      // dO enters the products in T: rounded once, here; dresidual is that value
-      const T dxt = from_float<T>((dxh - mean_dxh) * inv - xr[c] * coef);
-      xr[c] = to_float(dxt);
-      dob[(size_t)r * C + c] = to_float(dxt);
-      dres[((size_t)b * Tq + row0 + r) * C + c] = dxt;
+    __syncthreads();  // every reader of x - mean done
+    float* dob = dout + ((size_t)b * Tq + row0) * C;
+    for (int r = warp; r < rows; r += kWarps) {
+      float* xr = acc + r * C;
+      const float inv = rowst[r * kStats + 0];
+      const float sd = rowst[r * kStats + 1];
+      const bool nonzero = rowst[r * kStats + 2] != 0.f;
+      float sum_dxh = 0.f, ssum = 0.f;
+      for (int c = lane; c < C; c += 32) {
+        const float dxh = to_float(dyb[(size_t)r * C + c]) * gamma[c];
+        sum_dxh += dxh;
+        ssum += dxh * xr[c];
+      }
+      const float mean_dxh = warp_sum(sum_dxh) / (float)C;
+      ssum = warp_sum(ssum);
+      const float coef = nonzero ? ssum * inv * inv / ((float)max(C - 1, 1) * sd) : 0.f;
+      for (int c = lane; c < C; c += 32) {
+        const float dxh = to_float(dyb[(size_t)r * C + c]) * gamma[c];
+        // dO enters the products in T: rounded once, here; dresidual is that value
+        const T dxt = from_float<T>((dxh - mean_dxh) * inv - xr[c] * coef);
+        xr[c] = to_float(dxt);
+        dob[(size_t)r * C + c] = to_float(dxt);
+        dres[((size_t)b * Tq + row0 + r) * C + c] = dxt;
+      }
     }
   }
   __syncthreads();  // acc holds dO
@@ -516,7 +526,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* key
                    const float* query_mask, const float* graph, const void* residual,
                    const float* gamma, const void* dy, void* dq, void* dk, void* dv, void* dres,
                    float* partials, float* dout, float* stats, int B, int Tq, int Tk, int C,
-                   int H, int renorm, float scale, cudaStream_t stream) {
+                   int H, int renorm, float scale, int from_do, cudaStream_t stream) {
   const int tile = Tq < kQTile ? Tq : kQTile;
   const int dh = C / H;
   const size_t smem_a =
@@ -531,7 +541,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* key
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), key_mask,
       query_mask, graph, static_cast<const T*>(residual), gamma, static_cast<const T*>(dy),
       static_cast<T*>(dq), static_cast<T*>(dres), partials, dout, stats, Tq, Tk, C, H, renorm,
-      scale);
+      scale, from_do);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -663,7 +673,8 @@ graph_attention_ln_bwd_rows_tc_kernel(
     const float* __restrict__ graph, const bf16* __restrict__ residual,
     const float* __restrict__ gamma, const bf16* __restrict__ dy, bf16* __restrict__ dq,
     bf16* __restrict__ dres, float* __restrict__ partials, float* __restrict__ stats, int Tq,
-    int Tk, int C, int H, int dh, int renorm, float scale, int x_bytes, int y_bytes) {
+    int Tk, int C, int H, int dh, int renorm, float scale, int x_bytes, int y_bytes,
+    int from_do) {
   constexpr int kLd = DH + 8;
   constexpr int kKD = DH / 16;
   constexpr int kND = DH / 8;
@@ -796,6 +807,7 @@ graph_attention_ln_bwd_rows_tc_kernel(
         st[0] = m_b; st[1] = iz_b; st[2] = c1_b; st[3] = live_b / (r_b * r_b);
       }
     }
+    if (from_do) continue;   // dO is given: the output O is not needed
     // pass B: O = A V with A = P graph / r * qmask rounded to V's type
     float o[kND][4];
 #pragma unroll
@@ -830,102 +842,111 @@ graph_attention_ln_bwd_rows_tc_kernel(
   }
   __syncthreads();   // acc of every head complete; the ring is free
 
-  // ---- 2. LayerNorm backward: acc becomes x - mean; dO, rounded, goes to dOs ----
-  // Eight lanes share a row, four rows a warp at a time; a lane owns the
-  // 8-channel chunks sub, sub + 8, ... of its row (16-byte loads and stores).
-  const int sub = lane & 7;
-  const int n_chunks = C / 8;
-  constexpr int kRowsAtOnce = kTcRowThreads / 8;
-  for (int r = tid >> 3; r < kTcRows; r += kRowsAtOnce) {
-    const bool real = r < rows;
-    float* xr = acc + r * ldc;
-    float s = 0.f;
-    for (int ch = sub; ch < n_chunks; ch += 8) {
-      float x[8], res[8];
-      load8(x, xr + ch * 8);
-      if (real) load8(res, rb + (size_t)r * C + ch * 8);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        x[i] = real ? x[i] + res[i] : 0.f;
-        s += x[i];
+  if (from_do) {   // dy is dO itself (savqa_graph_attention_bwd); rows past the tile are zeros
+    for (int i = tid; i < kTcRows * (C / 8); i += kTcRowThreads) {
+      const int r = i / (C / 8), ch = i - r * (C / 8);
+      *reinterpret_cast<uint4*>(dOs + r * ldc + ch * 8) =
+          r < rows ? *reinterpret_cast<const uint4*>(dyb + (size_t)r * C + ch * 8)
+                   : make_uint4(0u, 0u, 0u, 0u);
+    }
+  } else {
+    // ---- 2. LayerNorm backward: acc becomes x - mean; dO, rounded, goes to dOs ----
+    // Eight lanes share a row, four rows a warp at a time; a lane owns the
+    // 8-channel chunks sub, sub + 8, ... of its row (16-byte loads and stores).
+    const int sub = lane & 7;
+    const int n_chunks = C / 8;
+    constexpr int kRowsAtOnce = kTcRowThreads / 8;
+    for (int r = tid >> 3; r < kTcRows; r += kRowsAtOnce) {
+      const bool real = r < rows;
+      float* xr = acc + r * ldc;
+      float s = 0.f;
+      for (int ch = sub; ch < n_chunks; ch += 8) {
+        float x[8], res[8];
+        load8(x, xr + ch * 8);
+        if (real) load8(res, rb + (size_t)r * C + ch * 8);
+  #pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          x[i] = real ? x[i] + res[i] : 0.f;
+          s += x[i];
+        }
+        store8(xr + ch * 8, x);
       }
-      store8(xr + ch * 8, x);
-    }
-    const float mean = group8_sum(s) / (float)C;
-    float ss = 0.f;
-    for (int ch = sub; ch < n_chunks; ch += 8) {
-      float x[8];
-      load8(x, xr + ch * 8);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        x[i] -= mean;
-        ss += x[i] * x[i];
+      const float mean = group8_sum(s) / (float)C;
+      float ss = 0.f;
+      for (int ch = sub; ch < n_chunks; ch += 8) {
+        float x[8];
+        load8(x, xr + ch * 8);
+  #pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          x[i] -= mean;
+          ss += x[i] * x[i];
+        }
+        store8(xr + ch * 8, x);
       }
-      store8(xr + ch * 8, x);
-    }
-    const float var = group8_sum(ss) / (float)max(C - 1, 1);
-    const float sd = var > 0.f ? sqrtf(var) : 0.f;
-    if (sub == 0) {
-      rowst[r * 4 + 0] = 1.f / (sd + kLnEps);
-      rowst[r * 4 + 1] = sd;
-      rowst[r * 4 + 2] = var > 0.f ? 1.f : 0.f;
-    }
-  }
-  __syncthreads();
-  // per-block dgamma / dbeta partials, one column per thread
-  float* part = partials + ((size_t)b * gridDim.x + blockIdx.x) * 2 * C;
-  for (int c = tid; c < C; c += kTcRowThreads) {
-    float sg = 0.f, sb = 0.f;
-    for (int r = 0; r < rows; ++r) {
-      const float gy = to_float(dyb[(size_t)r * C + c]);
-      sb += gy;
-      sg += gy * (acc[r * ldc + c] * rowst[r * 4 + 0]);
-    }
-    part[c] = sg;
-    part[C + c] = sb;
-  }
-  for (int r = tid >> 3; r < kTcRows; r += kRowsAtOnce) {
-    const bool real = r < rows;   // rows past the end of the tile enter the products as zeros
-    bf16* dor = dOs + r * ldc;
-    const float* xr = acc + r * ldc;
-    const float inv = rowst[r * 4 + 0];
-    const float sd = rowst[r * 4 + 1];
-    const bool nonzero = rowst[r * 4 + 2] != 0.f;
-    float sum_dxh = 0.f, ssum = 0.f;
-    for (int ch = sub; ch < n_chunks && real; ch += 8) {
-      float gy[8], ga[8], x[8];
-      load8(gy, dyb + (size_t)r * C + ch * 8);
-      load8(ga, gamma + ch * 8);
-      load8(x, xr + ch * 8);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float dxh = gy[i] * ga[i];
-        sum_dxh += dxh;
-        ssum += dxh * x[i];
+      const float var = group8_sum(ss) / (float)max(C - 1, 1);
+      const float sd = var > 0.f ? sqrtf(var) : 0.f;
+      if (sub == 0) {
+        rowst[r * 4 + 0] = 1.f / (sd + kLnEps);
+        rowst[r * 4 + 1] = sd;
+        rowst[r * 4 + 2] = var > 0.f ? 1.f : 0.f;
       }
     }
-    const float mean_dxh = group8_sum(sum_dxh) / (float)C;
-    ssum = group8_sum(ssum);
-    const float coef = real && nonzero ? ssum * inv * inv / ((float)max(C - 1, 1) * sd) : 0.f;
-    for (int ch = sub; ch < n_chunks; ch += 8) {
-      float dx[8];
-      if (real) {
+    __syncthreads();
+    // per-block dgamma / dbeta partials, one column per thread
+    float* part = partials + ((size_t)b * gridDim.x + blockIdx.x) * 2 * C;
+    for (int c = tid; c < C; c += kTcRowThreads) {
+      float sg = 0.f, sb = 0.f;
+      for (int r = 0; r < rows; ++r) {
+        const float gy = to_float(dyb[(size_t)r * C + c]);
+        sb += gy;
+        sg += gy * (acc[r * ldc + c] * rowst[r * 4 + 0]);
+      }
+      part[c] = sg;
+      part[C + c] = sb;
+    }
+    for (int r = tid >> 3; r < kTcRows; r += kRowsAtOnce) {
+      const bool real = r < rows;   // rows past the end of the tile enter the products as zeros
+      bf16* dor = dOs + r * ldc;
+      const float* xr = acc + r * ldc;
+      const float inv = rowst[r * 4 + 0];
+      const float sd = rowst[r * 4 + 1];
+      const bool nonzero = rowst[r * 4 + 2] != 0.f;
+      float sum_dxh = 0.f, ssum = 0.f;
+      for (int ch = sub; ch < n_chunks && real; ch += 8) {
         float gy[8], ga[8], x[8];
         load8(gy, dyb + (size_t)r * C + ch * 8);
         load8(ga, gamma + ch * 8);
         load8(x, xr + ch * 8);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) dx[i] = (gy[i] * ga[i] - mean_dxh) * inv - x[i] * coef;
-      } else {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) dx[i] = 0.f;
+  #pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float dxh = gy[i] * ga[i];
+          sum_dxh += dxh;
+          ssum += dxh * x[i];
+        }
       }
-      // dO enters the products as bf16: rounded once, here; dresidual is that value
-      const uint4 packed = make_uint4(pack_bf16(dx[0], dx[1]), pack_bf16(dx[2], dx[3]),
-                                      pack_bf16(dx[4], dx[5]), pack_bf16(dx[6], dx[7]));
-      *reinterpret_cast<uint4*>(dor + ch * 8) = packed;
-      if (real)
-        *reinterpret_cast<uint4*>(dres + ((size_t)b * Tq + row0 + r) * C + ch * 8) = packed;
+      const float mean_dxh = group8_sum(sum_dxh) / (float)C;
+      ssum = group8_sum(ssum);
+      const float coef = real && nonzero ? ssum * inv * inv / ((float)max(C - 1, 1) * sd) : 0.f;
+      for (int ch = sub; ch < n_chunks; ch += 8) {
+        float dx[8];
+        if (real) {
+          float gy[8], ga[8], x[8];
+          load8(gy, dyb + (size_t)r * C + ch * 8);
+          load8(ga, gamma + ch * 8);
+          load8(x, xr + ch * 8);
+  #pragma unroll
+          for (int i = 0; i < 8; ++i) dx[i] = (gy[i] * ga[i] - mean_dxh) * inv - x[i] * coef;
+        } else {
+  #pragma unroll
+          for (int i = 0; i < 8; ++i) dx[i] = 0.f;
+        }
+        // dO enters the products as bf16: rounded once, here; dresidual is that value
+        const uint4 packed = make_uint4(pack_bf16(dx[0], dx[1]), pack_bf16(dx[2], dx[3]),
+                                        pack_bf16(dx[4], dx[5]), pack_bf16(dx[6], dx[7]));
+        *reinterpret_cast<uint4*>(dor + ch * 8) = packed;
+        if (real)
+          *reinterpret_cast<uint4*>(dres + ((size_t)b * Tq + row0 + r) * C + ch * 8) = packed;
+      }
     }
   }
   __syncthreads();   // dOs complete; acc is dead and its room becomes the ring
@@ -1195,7 +1216,7 @@ cudaError_t launch_tc(const bf16* q, const bf16* k, const bf16* v, const float* 
                       const float* query_mask, const float* graph, const bf16* residual,
                       const float* gamma, const bf16* dy, bf16* dq, bf16* dk, bf16* dv,
                       bf16* dres, float* partials, float* stats, int B, int Tq, int Tk, int C,
-                      int H, int renorm, float scale, cudaStream_t stream) {
+                      int H, int renorm, float scale, int from_do, cudaStream_t stream) {
   const int dh = C / H;
   const int n_steps = (Tk + kStep - 1) / kStep;
   const size_t ring = sizeof(bf16) * 4 * kStep * (DH + 8);
@@ -1210,7 +1231,7 @@ cudaError_t launch_tc(const bf16* q, const bf16* k, const bf16* v, const float* 
   const dim3 grid_a((Tq + kTcRows - 1) / kTcRows, B);
   rows_kernel<<<grid_a, kTcRowThreads, smem_a, stream>>>(
       q, k, v, key_mask, query_mask, graph, residual, gamma, dy, dq, dres, partials, stats, Tq,
-      Tk, C, H, dh, renorm, scale, (int)x_bytes, (int)y_bytes);
+      Tk, C, H, dh, renorm, scale, (int)x_bytes, (int)y_bytes, from_do);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -1221,9 +1242,10 @@ cudaError_t launch_tc(const bf16* q, const bf16* k, const bf16* v, const float* 
                              (int)smem_b);
   if (err != cudaSuccess) return err;
   const dim3 grid_b((Tk + kTcKeys - 1) / kTcKeys, H, B);
-  // dO is dresidual: the rows launch wrote it rounded to bf16
+  // dO is dresidual (the rows launch wrote it rounded to bf16), or dy when given
   keys_kernel<<<grid_b, kTcKeyThreads, smem_b, stream>>>(
-      q, k, v, key_mask, graph, dres, stats, dk, dv, Tq, Tk, C, H, dh, renorm, scale);
+      q, k, v, key_mask, graph, from_do ? dy : dres, stats, dk, dv, Tq, Tk, C, H, dh, renorm,
+      scale);
   return cudaGetLastError();
 }
 
@@ -1261,14 +1283,55 @@ extern "C" int savqa_graph_attention_ln_bwd(
                     static_cast<const bf16*>(v), km, qm, g, static_cast<const bf16*>(residual),
                     ga, static_cast<const bf16*>(dy), static_cast<bf16*>(dq),
                     static_cast<bf16*>(dk), static_cast<bf16*>(dv), static_cast<bf16*>(dres), pa,
-                    st, B, Tq, Tk, C, H, renorm, scale, s);
+                    st, B, Tq, Tk, C, H, renorm, scale, 0, s);
   }
   if (dout == nullptr) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return (int)launch<float>(q, k, v, km, qm, g, residual, ga, dy, dq, dk, dv, dres, pa, dout_f,
-                              st, B, Tq, Tk, C, H, renorm, scale, s);
+                              st, B, Tq, Tk, C, H, renorm, scale, 0, s);
   if (dtype == 1)
     return (int)launch<__nv_bfloat16>(q, k, v, km, qm, g, residual, ga, dy, dq, dk, dv, dres, pa,
-                                      dout_f, st, B, Tq, Tk, C, H, renorm, scale, s);
+                                      dout_f, st, B, Tq, Tk, C, H, renorm, scale, 0, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The model axis (ops/fused_graph_attention.py:graph_attention_heads'
+// backward): dq, dk and dv of the H heads given from do, the gradient of
+// savqa_graph_attention's output o, in q's type: the rows launch without
+// the forward's output and the LayerNorm backward, then the keys launch.
+// dout ((B, Tq, C) f32) and stats ((B, H, Tq, 8) f32) are scratch; the
+// tensor-core keys launch reads do itself (dout unused, may be null).
+extern "C" int savqa_graph_attention_bwd(
+    const void* q, const void* k, const void* v, const void* key_mask, const void* query_mask,
+    const void* graph, const void* d_o, void* dq, void* dk, void* dv, void* dout, void* stats,
+    int B, int Tq, int Tk, int C, int H, int renorm, int dtype, int tensor_cores, float scale,
+    void* stream) {
+  if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || C % H != 0 || C / H > kMaxDh ||
+      (renorm != 0 && renorm != 1) || (tensor_cores && (dtype != 1 || (C / H) % 16 != 0)) ||
+      (!tensor_cores && dout == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const auto* km = static_cast<const float*>(key_mask);
+  const auto* qm = static_cast<const float*>(query_mask);
+  const auto* g = static_cast<const float*>(graph);
+  auto* dout_f = static_cast<float*>(dout);
+  auto* st = static_cast<float*>(stats);
+  auto s = static_cast<cudaStream_t>(stream);
+  const int dh = C / H;
+  if (tensor_cores) {
+    auto run = dh <= 16 ? launch_tc<16> : dh <= 32 ? launch_tc<32> : dh <= 64 ? launch_tc<64>
+                                                                               : launch_tc<128>;
+    return (int)run(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                    static_cast<const bf16*>(v), km, qm, g, nullptr, nullptr,
+                    static_cast<const bf16*>(d_o), static_cast<bf16*>(dq),
+                    static_cast<bf16*>(dk), static_cast<bf16*>(dv), nullptr, nullptr, st, B, Tq,
+                    Tk, C, H, renorm, scale, 1, s);
+  }
+  if (dtype == 0)
+    return (int)launch<float>(q, k, v, km, qm, g, nullptr, nullptr, d_o, dq, dk, dv, nullptr,
+                              nullptr, dout_f, st, B, Tq, Tk, C, H, renorm, scale, 1, s);
+  if (dtype == 1)
+    return (int)launch<__nv_bfloat16>(q, k, v, km, qm, g, nullptr, nullptr, d_o, dq, dk, dv,
+                                      nullptr, nullptr, dout_f, st, B, Tq, Tk, C, H, renorm,
+                                      scale, 1, s);
   return (int)cudaErrorInvalidValue;
 }

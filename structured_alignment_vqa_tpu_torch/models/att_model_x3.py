@@ -23,6 +23,13 @@ what the TPU package's step computes on the global batch: the relation
 branch's objective and joint softmax run over every rank's records, the
 MCB norm over every rank's rows, and ``mil_obj``/``mil_rel`` are this
 rank's shares of the global terms (they sum over the ranks to them).
+
+On the model axis (``parallel/sharding.py:shard_model``) each split layer
+computes its shard and the model row's collectives make it whole
+(``ops/layers.py``); two pairs stay split between their layers, as
+Megatron pairs a column-split layer with a row-split one: each branch's
+``syb_mlp`` into its ``syb_mlp2``, and ``MIL_NCE.ipt_mlp`` into the
+symbolic branch's ``syb_mlp2`` (:func:`link_model_splits`).
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from structured_alignment_vqa_tpu_torch.ops.layers import (
     Embedding,
     FeedForward,
     Linear,
+    dense_relu,
     linear_relu,
 )
 from structured_alignment_vqa_tpu_torch.ops.mcb import (
@@ -59,7 +67,12 @@ from structured_alignment_vqa_tpu_torch.ops.mil_nce import (
 )
 from structured_alignment_vqa_tpu_torch.ops.quant import QDense, quantized_lookup
 from structured_alignment_vqa_tpu_torch.parallel.context import distributed_mesh
-from structured_alignment_vqa_tpu_torch.parallel.sharding import gather_rows, gather_scores
+from structured_alignment_vqa_tpu_torch.parallel.sharding import (
+    gather_rows,
+    gather_scores,
+    scatter_columns,
+    vocab_lookup,
+)
 
 BOS_ID = 2  # decoder input token
 # the generator the MCB head's frozen count sketches are drawn from: the TPU
@@ -137,7 +150,11 @@ class GloVeEmbed(nn.Module):
 
     ``quantized``: the int8 serving layout (``ops/quant.py``), buffers
     ``weight_q`` int8 (vocab, dim) and ``weight_scale`` float32 (vocab,);
-    only the gathered rows are dequantized."""
+    only the gathered rows are dequantized. Split over the model axis by
+    vocab rows (both int8 buffers alike), each rank looks up the ids of its
+    rows and the model row sums them (``parallel/sharding.py:vocab_lookup``)."""
+
+    model_split = None
 
     def __init__(self, vocab_size: int, dim: int, dtype: torch.dtype = torch.float32,
                  device=None, quantized: bool = False):
@@ -153,9 +170,16 @@ class GloVeEmbed(nn.Module):
         nn.init.xavier_normal_(self.weight)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
         if self.quantized:
-            return quantized_lookup(self.weight_q, self.weight_scale, ids, self.compute_dtype)
-        return nn.functional.embedding(ids, self.weight).to(self.compute_dtype)
+            def lookup(i):
+                return quantized_lookup(self.weight_q, self.weight_scale, i, dt)
+        else:
+            def lookup(i):
+                return nn.functional.embedding(i, self.weight)
+        out = lookup(ids) if self.model_split is None else vocab_lookup(ids, self.model_split,
+                                                                         lookup)
+        return out.to(dt)
 
 
 class _Branch(nn.Module):
@@ -171,7 +195,12 @@ class _Branch(nn.Module):
     parameter names: ``mlp_name`` names the question projection, and
     ``pe_sequential`` says whether the positional table sits in a
     Sequential (``syb_positional_encoding.0``), as it does by default
-    exactly when its output is dropped out."""
+    exactly when its output is dropped out.
+
+    ``modality_local``: on the model axis, the modality features arrive as
+    this rank's columns (``MIL_NCE.ipt_mlp``'s, :func:`link_model_splits`)."""
+
+    modality_local = False
 
     def __init__(self, cfg: ModelConfig, pe_table_size: int, pe_dropout: bool,
                  glove: Optional[GloVeEmbed], device=None, mlp_relu: bool = True,
@@ -215,6 +244,24 @@ class _Branch(nn.Module):
                 h, cfg.num_heads, dtype=dt, device=device))
             self.add_module(f"dec_feed_forward_{i}", FeedForward(h, (4 * h, h), dt, device))
 
+    def _project(self, modality_fea, q_emb):
+        """``syb_mlp2`` of (modality features ++ the question's ``syb_mlp``
+        features). With ``syb_mlp2`` row-split on the model axis both parts
+        enter as this rank's columns: the question's straight from a
+        column-split ``syb_mlp``, no collective between the two layers."""
+        mlp = getattr(self, self.mlp_name)
+        split = self.syb_mlp2.model_split
+        if split is None or split.dim != 1:
+            return self.syb_mlp2(torch.cat([modality_fea, mlp(q_emb)], dim=1))
+        lin = mlp[0] if isinstance(mlp, nn.Sequential) else mlp
+        if lin.model_split is not None and lin.model_split.dim == 0:
+            q_fea = dense_relu(mlp, q_emb, local_out=True)
+        else:
+            q_fea = scatter_columns(mlp(q_emb), split.mesh)
+        if not self.modality_local:
+            modality_fea = scatter_columns(modality_fea, split.mesh)
+        return self.syb_mlp2(torch.cat([modality_fea, q_fea], dim=1), local_in=True)
+
     def _enc_block(self, i: int, fea, graph):
         """Encoder block ``i``: graph-guided self-attention, then the FFN.
         It draws no dropout mask, so recomputing it replays no generator."""
@@ -232,8 +279,7 @@ class _Branch(nn.Module):
         b = modality_fea.shape[0]
         h = cfg.hidden_size
 
-        q_fea = getattr(self, self.mlp_name)(self.syb_emb(q_ids))
-        fea = self.syb_mlp2(torch.cat([modality_fea.to(dt), q_fea], dim=1))
+        fea = self._project(modality_fea.to(dt), self.syb_emb(q_ids))
         size = fea.shape[1]
         if mod_pos is None:
             pos_ids = torch.arange(size, device=fea.device).expand(b, size)
@@ -306,7 +352,11 @@ class SymbolicEncoder(_Branch):
 
 class MILNCEModule(nn.Module):
     """Structured alignment: MIL-NCE grounding + super-node rewrite, object
-    branch and, unless ``cfg.only_obj``, relation branch."""
+    branch and, unless ``cfg.only_obj``, relation branch. ``ipt_out_local``:
+    on the model axis, ``ipt_mlp``'s columns stay this rank's for the
+    symbolic branch's row-split ``syb_mlp2`` (:func:`link_model_splits`)."""
+
+    ipt_out_local = False
 
     def __init__(self, cfg: ModelConfig, glove: Optional[GloVeEmbed] = None, device=None):
         super().__init__()
@@ -361,7 +411,7 @@ class MILNCEModule(nn.Module):
         else:
             new_macro, mil_rel = self._relation_branch(
                 new_macro, new_obj_fea, micro_pos_rel, micro_pos_rel_loc, micro_neg_rel_loc)
-        return self.ipt_mlp(new_macro), mil_obj, mil_rel
+        return dense_relu(self.ipt_mlp, new_macro, local_out=self.ipt_out_local), mil_obj, mil_rel
 
     def _relation_branch(self, new_macro, new_obj_fea, micro_pos_rel, micro_pos_rel_loc,
                          micro_neg_rel_loc):
@@ -542,6 +592,19 @@ class AttModelX3(nn.Module):
         else:
             logits_concat = self.cls(torch.cat([fea_syb, fea_vis], dim=-1), generator)
         return logits_concat, logits_vis, logits_syb, mil_obj, mil_rel
+
+
+def link_model_splits(model: nn.Module) -> None:
+    """Pair ``MIL_NCE.ipt_mlp`` with ``att_syb.syb_mlp2`` when the model
+    axis splits the first by columns and the second by rows: the symbolic
+    branch then takes ipt_mlp's columns as they are
+    (``parallel/sharding.py:shard_model`` calls this)."""
+    mil, syb = getattr(model, "MIL_NCE", None), getattr(model, "att_syb", None)
+    if not isinstance(mil, MILNCEModule) or not isinstance(syb, _Branch):
+        return
+    ipt, mlp2 = mil.ipt_mlp[0].model_split, syb.syb_mlp2.model_split
+    paired = ipt is not None and ipt.dim == 0 and mlp2 is not None and mlp2.dim == 1
+    mil.ipt_out_local = syb.modality_local = paired
 
 
 @torch.no_grad()

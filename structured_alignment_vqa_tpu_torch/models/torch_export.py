@@ -14,7 +14,9 @@ reference's forward never reads kept at the template's values. Tensors are
 float32 on the CPU, and names that share a tensor in the model share one
 storage, so ``torch.save`` writes the shared GloVe table once. An
 ``int8_serving`` model raises: the TPU package exports float parameters
-only.
+only. A model split over the model axis exports whole tensors (every rank
+of its model row calls :func:`export_state_dict`: the shards are gathered,
+``parallel/sharding.py:full_state_dict``).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from structured_alignment_vqa_tpu_torch.models.torch_import import (
     reference_names,
     strip_ddp,
 )
+from structured_alignment_vqa_tpu_torch.parallel.sharding import full_state_dict
 
 
 def export_state_dict(model: torch.nn.Module, template: Optional[Dict] = None,
@@ -41,7 +44,7 @@ def export_state_dict(model: torch.nn.Module, template: Optional[Dict] = None,
     if cfg.int8_serving:
         raise ValueError("an int8_serving model has no float parameters to export; "
                          "export the float model it was quantized from")
-    own = model.state_dict()
+    own = full_state_dict(model)
     tmpl = strip_ddp(template) if template is not None else None
 
     picked: Dict[str, torch.Tensor] = {}

@@ -24,7 +24,9 @@ no tensor is renamed or transposed. :func:`import_torch_state_dict`:
   dict does not carry its configuration);
 * raises ``ValueError`` naming a key whose shape is not the model's;
 * returns the keys it used nowhere and did not skip, as the TPU package's
-  import does.
+  import does;
+* into a model split over the model axis, copies each rank's shard of a
+  split tensor (the file holds whole tensors).
 
 The TPU package's orbax checkpoints do not load here, since orbax imports
 JAX: its ``models/torch_export.py:save_pth`` writes them as such a ``.pth``,
@@ -39,6 +41,7 @@ import numpy as np
 import torch
 
 from structured_alignment_vqa_tpu_torch.models.convert import GLOVE_SLOTS, name_map
+from structured_alignment_vqa_tpu_torch.parallel.sharding import split_of
 
 # modules the reference defines but its forward never reads
 # (`AttModel_x3.py:46-67,180-185,297,325-332`)
@@ -79,9 +82,15 @@ def _f32(x) -> torch.Tensor:
     return t.to("cpu", torch.float32)
 
 
-def _check_shape(name: str, target: torch.Tensor, value: torch.Tensor) -> None:
-    if tuple(target.shape) != tuple(value.shape):
-        raise ValueError(f"shape mismatch at {name}: the model holds {tuple(target.shape)}, "
+def _check_shape(name: str, target: torch.Tensor, value: torch.Tensor, splits=None) -> None:
+    """``target`` (this rank's shard, where ``splits`` splits it) must take
+    the whole ``value``."""
+    shape = list(target.shape)
+    split = (splits or {}).get(target.data_ptr())
+    if split is not None:
+        shape[split.dim] *= split.n
+    if tuple(shape) != tuple(value.shape):
+        raise ValueError(f"shape mismatch at {name}: the model holds {tuple(shape)}, "
                          f"the state dict {tuple(value.shape)}")
 
 
@@ -97,15 +106,24 @@ def import_torch_state_dict(state_dict: Dict, model: torch.nn.Module) -> List[st
     sd = strip_ddp(state_dict)
     own = model.state_dict(keep_vars=True)
     used = set()
+    # a split tensor takes this rank's shard of the whole value (by storage:
+    # share_glove's slots are one tensor)
+    splits = {own[name].data_ptr(): split for name, split in split_of(model).items()}
+
+    def put(name, value):
+        split = splits.get(own[name].data_ptr())
+        if split is not None:
+            value = split.local(value, split.dim)
+        own[name].copy_(value)
 
     if cfg.share_glove:
         present = [slot for slot in GLOVE_SLOTS if slot in sd]
         for slot in present:
             value = _f32(sd[slot])
-            _check_shape(slot, own[slot], value)
+            _check_shape(slot, own[slot], value, splits)
             if slot == present[0]:
                 first = value
-                own[slot].copy_(value)
+                put(slot, value)
             if torch.equal(value, first):
                 used.add(slot)
     pairs = (reference_names(cfg.num_blocks, cfg.only_obj, cfg.use_mcb)
@@ -114,8 +132,8 @@ def import_torch_state_dict(state_dict: Dict, model: torch.nn.Module) -> List[st
         if ref not in sd or mine not in own or (cfg.share_glove and mine in GLOVE_SLOTS):
             continue
         value = _f32(sd[ref])
-        _check_shape(ref, own[mine], value)
-        own[mine].copy_(value)
+        _check_shape(ref, own[mine], value, splits)
+        put(mine, value)
         used.add(ref)
 
     dead = (DEAD_PREFIXES + (("MIL_NCE.R",) if cfg.only_obj else ())

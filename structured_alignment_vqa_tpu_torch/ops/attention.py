@@ -52,17 +52,21 @@ from structured_alignment_vqa_tpu_torch.ops.fused_graph_attention import (
     L1_NORM_EPS,
     MAX_KEYS,
     SUM_NORM_EPS,
+    attention_ln,
     fused_graph_attention_ln,
+    graph_attention_heads,
 )
 from structured_alignment_vqa_tpu_torch.ops.layers import (
     NEG_MASK_VALUE,
     LNParams,
+    dense_relu,
     layer_norm,
     linear_relu,
 )
 from structured_alignment_vqa_tpu_torch.ops.ring_attention import ring_graph_attention
 from structured_alignment_vqa_tpu_torch.ops.ulysses_attention import ulysses_graph_attention
 from structured_alignment_vqa_tpu_torch.parallel.context import current_mesh
+from structured_alignment_vqa_tpu_torch.parallel.sharding import copy_to_model, gather_columns
 
 
 def content_mask(x: torch.Tensor) -> torch.Tensor:
@@ -169,6 +173,37 @@ class _AttentionBase(nn.Module):
     def _finish(self, out, queries):
         return layer_norm(out + queries, self.normalization.gamma, self.normalization.beta)
 
+    def _project(self, queries, keys, values, v_only: bool = False):
+        """``(q, k, v, heads, gather)``: the ReLU'd projections, the heads
+        this rank computes and what makes their output whole. Split over the
+        model axis, the projections are this rank's columns (each distinct
+        input passed once through ``copy_to_model``) and ``gather`` collects
+        the model row's columns; else all heads and the identity."""
+        split = self.Q_proj[0].model_split
+        if split is None:
+            v = self.V_proj(values)
+            if v_only:
+                return None, None, v, self.num_heads, lambda out: out
+            return self.Q_proj(queries), self.K_proj(keys), v, self.num_heads, lambda out: out
+        if self.num_heads % split.n:
+            raise NotImplementedError(
+                f"{self.num_heads} heads over a model axis of {split.n}: a rank would hold part "
+                "of a head (ROADMAP Queue 1 item 15b splits whole heads only)")
+        mesh = split.mesh
+        copies = {}
+
+        def local(proj, x):
+            if id(x) not in copies:
+                copies[id(x)] = copy_to_model(x, mesh)
+            return dense_relu(proj, copies[id(x)], copied=True, local_out=True)
+
+        v = local(self.V_proj, values)
+        heads = self.num_heads // split.n
+        if v_only:
+            return None, None, v, heads, lambda out: gather_columns(out, mesh)
+        return (local(self.Q_proj, queries), local(self.K_proj, keys), v, heads,
+                lambda out: gather_columns(out, mesh))
+
     def _run(self, queries, keys, values, graph, generator=None):
         renorm = self.renorm
         b, tq, tk = queries.shape[0], queries.shape[1], keys.shape[1]
@@ -177,13 +212,14 @@ class _AttentionBase(nn.Module):
         # so the block is LN(query_mask * V(x) + x). Exact only without a
         # graph and renorm, as in the TPU package.
         if tq == 1 and tk == 1 and graph is None and renorm is None and dropout_rate == 0.0:
-            v = self.V_proj(values)
-            out = self._finish(v * content_mask(queries)[..., None].to(v.dtype), queries)
+            _, _, v, _, whole = self._project(queries, keys, values, v_only=True)
+            v = whole(v * content_mask(queries)[..., None].to(v.dtype))
+            out = self._finish(v, queries)
             if self.return_att:
                 return out, torch.ones(b, self.num_heads, 1, 1, device=out.device)
             return out
 
-        q, k, v = self.Q_proj(queries), self.K_proj(keys), self.V_proj(values)
+        q, k, v, heads, whole = self._project(queries, keys, values)
         key_mask, query_mask = content_mask(keys), content_mask(queries)
         # The kernels return no attention weights and draw no dropout, so a
         # call that asks for either runs attention_core on every device: the
@@ -194,28 +230,34 @@ class _AttentionBase(nn.Module):
             q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
             # the kernels read a whole (B, Tq, Tk) graph: expand a broadcast one
             graph = graph.float().expand(b, tq, tk).contiguous()
-            out = self._seq_parallel(q, k, v, key_mask, query_mask, graph, queries, keys)
+            out = self._seq_parallel(q, k, v, key_mask, query_mask, graph, queries, keys, heads)
             if out is not None:
-                return self._finish(out, queries)
+                return self._finish(whole(out), queries)
             if keys.shape[1] > MAX_KEYS:
                 # long sequences: the K-blocked kernels, then residual + LayerNorm
-                out = flash_graph_attention(q, k, v, key_mask, query_mask, graph,
-                                            self.num_heads, renorm)
-                return self._finish(out, queries)
+                out = flash_graph_attention(q, k, v, key_mask, query_mask, graph, heads, renorm)
+                return self._finish(whole(out), queries)
+            if heads != self.num_heads:
+                # the model axis: this rank's heads, their outputs gathered,
+                # then the residual and the LayerNorm on every column
+                o = whole(graph_attention_heads(q, k, v, key_mask, query_mask, graph, heads,
+                                                renorm))
+                return attention_ln(o, queries.to(q.dtype), self.normalization.gamma,
+                                    self.normalization.beta)
             return fused_graph_attention_ln(
                 q, k, v, key_mask, query_mask, graph, queries.to(q.dtype).contiguous(),
                 self.normalization.gamma, self.normalization.beta, self.num_heads, renorm,
             )
 
-        out, att = attention_core(q, k, v, key_mask, query_mask, self.num_heads, graph=graph,
+        out, att = attention_core(q, k, v, key_mask, query_mask, heads, graph=graph,
                                   renorm=renorm, causal=self.causality,
                                   dropout_rate=dropout_rate, generator=generator)
-        out = self._finish(out, queries)
+        out = self._finish(whole(out), queries)
         if self.return_att:
             return out, att
         return out
 
-    def _seq_parallel(self, q, k, v, key_mask, query_mask, graph, queries, keys):
+    def _seq_parallel(self, q, k, v, key_mask, query_mask, graph, queries, keys, heads):
         """Ring or Ulysses attention over the ambient mesh's ``seq_axis``
         (self-attention only), or None where the call takes the
         single-device path."""
@@ -233,8 +275,8 @@ class _AttentionBase(nn.Module):
             return None
         seq_attention = (ulysses_graph_attention if self.seq_impl == "ulysses"
                          else ring_graph_attention)
-        return seq_attention(q, k, v, key_mask, query_mask, graph, self.num_heads,
-                             self.renorm, mesh, self.seq_axis)
+        return seq_attention(q, k, v, key_mask, query_mask, graph, heads, self.renorm, mesh,
+                             self.seq_axis)
 
 
 class MultiHeadAttention(_AttentionBase):

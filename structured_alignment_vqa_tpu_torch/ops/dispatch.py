@@ -31,3 +31,15 @@ def kernel_path(dtype, head_dim: int) -> str:
     multiple of 16, else ``"simt"`` (f32 FMAs): TF32 products would not hold
     the 1e-4 the float32 path is checked to."""
     return "tensor-core" if dtype == torch.bfloat16 and head_dim % 16 == 0 else "simt"
+
+
+def composite_backward(fn, ctx, grad_out):
+    """Autograd of ``fn`` on the saved inputs, for those that need a
+    gradient (the backward pass of an entry whose forward is a kernel)."""
+    inputs = [t.detach().requires_grad_(need)
+              for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+    wanted = [t for t in inputs if t.requires_grad]
+    with torch.enable_grad():
+        out = fn(*inputs)
+        grads = iter(torch.autograd.grad(out, wanted, grad_out.to(out.dtype)))
+    return tuple(next(grads) if t.requires_grad else None for t in inputs)

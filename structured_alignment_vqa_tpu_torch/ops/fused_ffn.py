@@ -16,6 +16,16 @@ backward on either device is autograd of :func:`ffn_ln_composite`, whose
 products run in x's dtype, as the TPU package's backward is the VJP of its
 ``_composite``: both pair a kernel forward with a composite backward.
 Weights are in ``nn.Linear`` layout: w1 (4C, C), w2 (C, 4C).
+
+The model axis (``ops/layers.py:FeedForward`` with its hidden width split
+over the model row) takes two more entries of the same kernels:
+:func:`ffn_partial`, the f32 ``relu(x W1s^T + b1s) W2s^T`` of this rank's
+hidden shard (the bf16 kernel may split its own shard over blocks, the
+partials summed in order by a second kernel), and, after the sum over the
+ranks, :func:`ffn_epilogue`, the shard-sum kernel with one partial: ``+ b2
++ x`` and the LayerNorm. Their backwards are autograd of
+:func:`ffn_partial_composite` (products in x's dtype) and of
+:func:`ffn_epilogue_plain`.
 """
 
 from __future__ import annotations
@@ -26,7 +36,12 @@ import torch
 import torch.nn.functional as F
 
 from structured_alignment_vqa_tpu_torch.ops import _build
-from structured_alignment_vqa_tpu_torch.ops.dispatch import SM_COUNT, SMEM_LIMIT, use_kernel
+from structured_alignment_vqa_tpu_torch.ops.dispatch import (
+    SM_COUNT,
+    SMEM_LIMIT,
+    composite_backward,
+    use_kernel,
+)
 from structured_alignment_vqa_tpu_torch.ops.layers import layer_norm
 
 WIDTHS = (128, 256, 512)   # C values the row-tile kernels are compiled for
@@ -86,6 +101,12 @@ def smem_bytes_tc(c: int) -> int:
         + 4 * 8 * TC_ROWS
 
 
+def ffn_epilogue_plain(y, x, b2, gamma, beta):
+    """Plain PyTorch version of :func:`ffn_epilogue`: ``LN((y + b2) + x)``
+    in f32 over the last axis (y f32), in x's dtype."""
+    return layer_norm((y + b2.float()) + x.float(), gamma, beta).to(x.dtype)
+
+
 def shard_sum_plain(partial, x, b2, gamma, beta):
     """Plain PyTorch version of the split path's second kernel: the shards'
     f32 partial ``h W2^T`` (n_split, rows, C) summed in shard order, ``+ b2
@@ -93,7 +114,20 @@ def shard_sum_plain(partial, x, b2, gamma, beta):
     y = partial[0]
     for part in partial[1:]:
         y = y + part
-    return layer_norm((y + b2.float()) + x.float(), gamma, beta).to(x.dtype)
+    return ffn_epilogue_plain(y, x, b2, gamma, beta)
+
+
+def ffn_partial_plain(x, w1, b1, w2):
+    """Plain PyTorch version of :func:`ffn_partial`: ``relu(x W1^T + b1)``
+    rounded to x's dtype, times ``W2^T``, f32 (..., C)."""
+    h = torch.relu(F.linear(x.float(), w1.float(), b1.float())).to(x.dtype)
+    return F.linear(h.float(), w2.float())
+
+
+def ffn_partial_composite(x, w1, b1, w2):
+    """:func:`ffn_partial` as ``ffn_ln_composite`` computes it, products in
+    x's dtype; its backward is the partial entry's."""
+    return F.linear(torch.relu(F.linear(x, w1, b1)), w2)
 
 
 def _check(x, w1, b1, w2, b2, gamma, beta) -> None:
@@ -169,13 +203,7 @@ class _FusedFFN(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        inputs = [t.detach().requires_grad_(need)
-                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
-        wanted = [t for t in inputs if t.requires_grad]
-        with torch.enable_grad():
-            out = ffn_ln_composite(*inputs)
-            grads = iter(torch.autograd.grad(out, wanted, grad_out))
-        return tuple(next(grads) if t.requires_grad else None for t in inputs)
+        return composite_backward(ffn_ln_composite, ctx, grad_out)
 
 
 def fused_ffn(x, w1, b1, w2, b2, gamma, beta):
@@ -189,3 +217,115 @@ def fused_ffn(x, w1, b1, w2, b2, gamma, beta):
 
 
 fused_ffn.launches = 0
+
+
+# ---- the model axis ---------------------------------------------------------
+
+def _check_partial(x, w1, b1, w2) -> None:
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    c, hd = x.shape[-1], w1.shape[0]
+    if c not in WIDTHS:
+        raise ValueError(f"the FFN partial is built for C in {WIDTHS}, got {c}")
+    if hd % HIDDEN_CHUNK:
+        raise ValueError(f"hidden shard {hd} is not a multiple of {HIDDEN_CHUNK}")
+    for name, t, shape in (("x", x, tuple(x.shape)), ("w1", w1, (hd, c)), ("b1", b1, (hd,)),
+                           ("w2", w2, (c, hd))):
+        if tuple(t.shape) != shape or t.dtype != x.dtype or t.device != x.device:
+            raise ValueError(f"{name}: expected {shape} {x.dtype} on {x.device}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _launch_partial(x, w1, b1, w2) -> torch.Tensor:
+    _check_partial(x, w1, b1, w2)
+    lib = _build.library("ffn")
+    fn = lib.savqa_ffn_partial
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    c = x.shape[-1]
+    rows, hidden = x.numel() // c, w1.shape[0]
+    n_split, per = kernel_ffn_split(x.dtype, rows, c, hidden)
+    out = torch.empty(*x.shape, dtype=torch.float32, device=x.device)
+    scratch = (torch.empty(n_split, rows, c, dtype=torch.float32, device=x.device)
+               if n_split > 1 else None)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        status = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                    None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+                    rows, c, hidden, _DTYPES[x.dtype], n_split, per, stream)
+    _build.check(status, "ffn_partial kernel")
+    ffn_partial.launches += 1
+    return out
+
+
+def _launch_epilogue(y, x, b2, gamma, beta) -> torch.Tensor:
+    c = x.shape[-1]
+    if x.dtype not in _DTYPES or c not in WIDTHS:
+        raise ValueError(f"the FFN epilogue is built for C in {WIDTHS}, f32 or bf16; got "
+                         f"{c} {x.dtype}")
+    for name, t, shape, dtype in (("y", y, tuple(x.shape), torch.float32),
+                                  ("b2", b2, (c,), x.dtype), ("gamma", gamma, (c,), torch.float32),
+                                  ("beta", beta, (c,), torch.float32)):
+        if tuple(t.shape) != shape or t.dtype != dtype or t.device != x.device:
+            raise ValueError(f"{name}: expected {shape} {dtype}, got {tuple(t.shape)} {t.dtype}")
+    lib = _build.library("ffn")
+    fn = lib.savqa_ffn_epilogue
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        status = fn(y.data_ptr(), x.data_ptr(), b2.data_ptr(), gamma.data_ptr(),
+                    beta.data_ptr(), out.data_ptr(), x.numel() // c, c, _DTYPES[x.dtype], stream)
+    _build.check(status, "ffn_epilogue kernel")
+    ffn_epilogue.launches += 1
+    return out
+
+
+class _FFNPartial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2):
+        ctx.save_for_backward(x, w1, b1, w2)
+        if not use_kernel(x):
+            return ffn_partial_plain(x, w1, b1, w2)
+        return _launch_partial(x, w1, b1, w2)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return composite_backward(ffn_partial_composite, ctx, grad_out)
+
+
+class _FFNEpilogue(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, x, b2, gamma, beta):
+        ctx.save_for_backward(y, x, b2, gamma, beta)
+        if not use_kernel(x):
+            return ffn_epilogue_plain(y, x, b2, gamma, beta)
+        return _launch_epilogue(y.contiguous(), x, b2, gamma, beta)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return composite_backward(ffn_epilogue_plain, ctx, grad_out)
+
+
+def ffn_partial(x, w1, b1, w2):
+    """``relu(x W1^T + b1) W2^T`` over the last axis of ``x``, f32 (...,
+    C), differentiable: one rank's share of the FFN on the model axis, w1
+    (Hs, C), b1 (Hs,), w2 (C, Hs) its hidden shard, in x's dtype. One
+    launch of ``csrc/ffn.cu:savqa_ffn_partial`` on CUDA tensors."""
+    return _FFNPartial.apply(x.contiguous(), w1.contiguous(), b1.contiguous(), w2.contiguous())
+
+
+ffn_partial.launches = 0
+
+
+def ffn_epilogue(y, x, b2, gamma, beta):
+    """``LN((y + b2) + x)`` over the last axis, in x's dtype,
+    differentiable: y f32, the ranks' :func:`ffn_partial` summed. One launch
+    of ``csrc/ffn.cu:savqa_ffn_epilogue`` on CUDA tensors."""
+    return _FFNEpilogue.apply(y, x.contiguous(), b2.contiguous(), gamma, beta)
+
+
+ffn_epilogue.launches = 0

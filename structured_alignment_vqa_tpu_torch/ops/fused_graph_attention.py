@@ -40,6 +40,16 @@ decoder's one-query calls take them too: a block is a chain of latencies
 whatever its rows, and theirs measured shorter than the SIMT kernels'.
 float32 and other head widths keep the SIMT kernels (TF32 would not hold
 the float32 path's 1e-4).
+
+The model axis splits the heads over the model row; the LayerNorm needs
+every column, so it runs after the heads' outputs are gathered. Three more
+entries of the same kernels serve it: :func:`graph_attention_heads`, the
+f32 attention output ``o`` of the heads given (K1's tensor-core kernel
+alone, or its SIMT kernel writing ``o`` and skipping its epilogue), whose
+backward is K2 from ``d(o)`` (the rows launch without the forward's output
+and the LayerNorm backward, then the keys launch); and
+:func:`attention_ln`, ``LN(o + residual)``, K1's epilogue kernel, whose
+backward is autograd of ``layer_norm``.
 """
 
 from __future__ import annotations
@@ -49,7 +59,12 @@ import ctypes
 import torch
 
 from structured_alignment_vqa_tpu_torch.ops import _build
-from structured_alignment_vqa_tpu_torch.ops.dispatch import SMEM_LIMIT, kernel_path, use_kernel
+from structured_alignment_vqa_tpu_torch.ops.dispatch import (
+    SMEM_LIMIT,
+    composite_backward,
+    kernel_path,
+    use_kernel,
+)
 from structured_alignment_vqa_tpu_torch.ops.layers import LN_EPS, NEG_MASK_VALUE, layer_norm
 
 # F.normalize(p=1) clamps the norm at 1e-12; the graph-mask variant adds 1e-7.
@@ -65,9 +80,10 @@ BWD_TC_ROWS = 32     # query rows per block of K2's tensor-core rows launch
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def graph_attention_ln_plain(q, k, v, key_mask, query_mask, graph, residual,
-                             gamma, beta, num_heads: int, renorm: str = "l1"):
-    """Plain PyTorch version of the kernel: (B, Tq, C) in q's dtype."""
+def graph_attention_plain(q, k, v, key_mask, query_mask, graph, num_heads: int,
+                          renorm: str = "l1"):
+    """Plain PyTorch version of :func:`graph_attention_heads`: the attention
+    output before the residual and the LayerNorm, (B, Tq, C) float32."""
     b, tq, c = q.shape
     tk = k.shape[1]
     dh = c // num_heads
@@ -85,8 +101,77 @@ def graph_attention_ln_plain(q, k, v, key_mask, query_mask, graph, residual,
         raise ValueError(f"unknown renorm mode: {renorm!r}")
     att = att * query_mask.float().reshape(b, 1, tq, 1)
     acc = torch.matmul(att.to(v.dtype).float(), vh.float())
-    acc = acc.transpose(1, 2).reshape(b, tq, c)
-    return layer_norm(acc + residual.float(), gamma, beta).to(q.dtype)
+    return acc.transpose(1, 2).reshape(b, tq, c)
+
+
+def attention_ln_plain(o, residual, gamma, beta):
+    """Plain PyTorch version of :func:`attention_ln`: ``LN(o + residual)``
+    in f32, in the residual's dtype."""
+    return layer_norm(o + residual.float(), gamma, beta).to(residual.dtype)
+
+
+def graph_attention_ln_plain(q, k, v, key_mask, query_mask, graph, residual,
+                             gamma, beta, num_heads: int, renorm: str = "l1"):
+    """Plain PyTorch version of the kernel: (B, Tq, C) in q's dtype."""
+    o = graph_attention_plain(q, k, v, key_mask, query_mask, graph, num_heads, renorm)
+    return attention_ln_plain(o, residual.to(q.dtype), gamma, beta)
+
+
+def _forward_parts(q, k, v, key_mask, query_mask, graph, num_heads: int, renorm: str):
+    """The forward's pieces the backwards need, recomputed from the inputs:
+    the heads of q, k, v, the softmax P, G = P graph, the renorm's divisor
+    r and live rows, the weights A (rounded to V's dtype) and the masks."""
+    if renorm not in RENORMS:
+        raise ValueError(f"unknown renorm mode: {renorm!r}")
+    b, tq, c = q.shape
+    tk = k.shape[1]
+    dh = c // num_heads
+
+    def heads(x, t):
+        return x.reshape(b, t, num_heads, dh).transpose(1, 2)
+
+    f = dict(qh=heads(q.float(), tq), kh=heads(k.float(), tk), vh=heads(v, tk),
+             key_fill=key_mask.reshape(b, 1, 1, tk) == 0,
+             qcol=query_mask.float().reshape(b, 1, tq, 1), gr=graph.float().unsqueeze(1),
+             scale=1.0 / dh ** 0.5, heads=heads)
+    scores = torch.matmul(f["qh"], f["kh"].transpose(-1, -2)) * f["scale"]
+    f["p"] = torch.softmax(scores.masked_fill(f["key_fill"], NEG_MASK_VALUE), dim=-1)
+    f["g"] = f["p"] * f["gr"]
+    rsum = f["g"].sum(dim=-1, keepdim=True)             # g >= 0: sum |g| == sum g
+    if renorm == "l1":
+        f["r"] = rsum.clamp_min(L1_NORM_EPS)
+        f["live"] = (rsum > L1_NORM_EPS).float()
+    else:
+        f["r"] = rsum + SUM_NORM_EPS
+        f["live"] = torch.ones_like(rsum)
+    f["a"] = (f["g"] / f["r"] * f["qcol"]).to(v.dtype).float()
+    return f
+
+
+def _attention_bwd(f, dx, q, renorm: str):
+    """dq, dk, dv in q's dtype from dO = ``dx`` (already in q's dtype)."""
+    b, tq, c = q.shape
+    tk = f["kh"].shape[2]
+
+    def merge(x, t):
+        return x.transpose(1, 2).reshape(b, t, c)
+
+    do = f["heads"](dx.float(), tq)
+    g, r, p = f["g"], f["r"], f["p"]
+    dv = torch.matmul(f["a"].transpose(-1, -2), do)
+    dn = torch.matmul(do, f["vh"].float().transpose(-1, -2)) * f["qcol"]
+    inner = (dn * g).sum(dim=-1, keepdim=True)
+    if renorm == "l1":
+        dg = dn / r - f["live"] * torch.sign(g) * inner / (r * r)
+    else:
+        dg = dn / r - inner / (r * r)
+    dp = dg * f["gr"]
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    ds = (ds.masked_fill(f["key_fill"], 0.0) * f["scale"]).to(q.dtype).float()
+    dq = torch.matmul(ds, f["kh"])
+    dk = torch.matmul(ds.transpose(-1, -2), f["qh"])
+    dt = q.dtype
+    return merge(dq, tq).to(dt), merge(dk, tk).to(dt), merge(dv, tk).to(dt)
 
 
 def graph_attention_ln_bwd_plain(q, k, v, key_mask, query_mask, graph, residual,
@@ -107,37 +192,10 @@ def graph_attention_ln_bwd_plain(q, k, v, key_mask, query_mask, graph, residual,
     dS once after the softmax backward, before dQ = dS K and dK = dS^T Q. In
     float32 none of these roundings does anything.
     """
-    if renorm not in RENORMS:
-        raise ValueError(f"unknown renorm mode: {renorm!r}")
     b, tq, c = q.shape
-    tk = k.shape[1]
-    dh = c // num_heads
-    scale = 1.0 / dh ** 0.5
-
-    def heads(x, t):
-        return x.reshape(b, t, num_heads, dh).transpose(1, 2)
-
-    def merge(x, t):
-        return x.transpose(1, 2).reshape(b, t, c)
-
-    qh, kh, vh = heads(q.float(), tq), heads(k.float(), tk), heads(v, tk)
-    key_fill = key_mask.reshape(b, 1, 1, tk) == 0
-    qcol = query_mask.float().reshape(b, 1, tq, 1)
-    gr = graph.float().unsqueeze(1)
-
-    # the forward, recomputed
-    scores = torch.matmul(qh, kh.transpose(-1, -2)) * scale
-    p = torch.softmax(scores.masked_fill(key_fill, NEG_MASK_VALUE), dim=-1)
-    g = p * gr
-    rsum = g.sum(dim=-1, keepdim=True)             # g >= 0: sum |g| == sum g
-    if renorm == "l1":
-        r = rsum.clamp_min(L1_NORM_EPS)
-        live = (rsum > L1_NORM_EPS).float()
-    else:
-        r = rsum + SUM_NORM_EPS
-        live = torch.ones_like(rsum)
-    a = (g / r * qcol).to(v.dtype).float()
-    x = merge(torch.matmul(a, vh.float()), tq) + residual.float()
+    f = _forward_parts(q, k, v, key_mask, query_mask, graph, num_heads, renorm)
+    x = (torch.matmul(f["a"], f["vh"].float()).transpose(1, 2).reshape(b, tq, c)
+         + residual.float())
 
     # LayerNorm backward (eps on the unbiased std; no d-std term on constant rows)
     xm = x - x.mean(dim=-1, keepdim=True)
@@ -155,24 +213,18 @@ def graph_attention_ln_bwd_plain(q, k, v, key_mask, query_mask, graph, residual,
         nonzero, xm * (ssum * inv * inv) / (max(c - 1, 1) * torch.where(nonzero, s, 1.0)),
         torch.zeros_like(xm))
 
-    # attention backward, all heads at once
     dx = dx.to(q.dtype)
-    do = heads(dx.float(), tq)
-    dv = torch.matmul(a.transpose(-1, -2), do)
-    dn = torch.matmul(do, vh.float().transpose(-1, -2)) * qcol
-    inner = (dn * g).sum(dim=-1, keepdim=True)
-    if renorm == "l1":
-        dg = dn / r - live * torch.sign(g) * inner / (r * r)
-    else:
-        dg = dn / r - inner / (r * r)
-    dp = dg * gr
-    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
-    ds = (ds.masked_fill(key_fill, 0.0) * scale).to(q.dtype).float()
-    dq = torch.matmul(ds, kh)
-    dk = torch.matmul(ds.transpose(-1, -2), qh)
-    dt = q.dtype
-    return (merge(dq, tq).to(dt), merge(dk, tk).to(dt), merge(dv, tk).to(dt), dx,
-            dgamma, dbeta)
+    dq, dk, dv = _attention_bwd(f, dx, q, renorm)
+    return dq, dk, dv, dx, dgamma, dbeta
+
+
+def graph_attention_bwd_plain(q, k, v, key_mask, query_mask, graph, do, num_heads: int,
+                              renorm: str = "l1"):
+    """Plain PyTorch version of :func:`graph_attention_heads`' backward:
+    ``(dq, dk, dv)`` in q's dtype from ``do``, the gradient of its output,
+    rounded to q's dtype first (as K2 rounds dO)."""
+    f = _forward_parts(q, k, v, key_mask, query_mask, graph, num_heads, renorm)
+    return _attention_bwd(f, do.to(q.dtype), q, renorm)
 
 
 def smem_bytes(tq: int, tk: int, c: int, num_heads: int) -> int:
@@ -253,6 +305,8 @@ def _check(q, k, v, key_mask, query_mask, graph, residual, gamma, beta,
     if dy is not None:
         want["dy"] = (dy, (b, tq, c), q.dtype)
     for name, (t, shape, dtype) in want.items():
+        if t is None:   # the model axis's entries take no residual or LayerNorm
+            continue
         if tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(f"{name}: expected {shape} {dtype}, got {tuple(t.shape)} {t.dtype}")
         if t.device != q.device:
@@ -402,3 +456,151 @@ def fused_graph_attention_ln(q, k, v, key_mask, query_mask, graph, residual,
 
 
 fused_graph_attention_ln.launches = 0
+
+
+# ---- the model axis ----------------------------------------------------------
+
+def _launch_heads(q, k, v, key_mask, query_mask, graph, num_heads: int,
+                  renorm: str) -> torch.Tensor:
+    _check(q, k, v, key_mask, query_mask, graph, None, None, None, num_heads, renorm)
+    lib = _build.library("graph_attention")
+    fn = lib.savqa_graph_attention
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    b, tq, c = q.shape
+    tk = k.shape[1]
+    dh = c // num_heads
+    o = torch.empty(b, tq, c, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(),
+                    query_mask.data_ptr(), graph.data_ptr(), o.data_ptr(), b, tq, tk, c,
+                    num_heads, RENORMS.index(renorm), _DTYPES[q.dtype],
+                    int(kernel_path(q.dtype, dh) == "tensor-core"), 1.0 / dh ** 0.5, stream)
+    _build.check(status, "graph_attention kernel")
+    graph_attention_heads.launches += 1
+    return o
+
+
+def _launch_heads_bwd(q, k, v, key_mask, query_mask, graph, do, num_heads: int,
+                      renorm: str):
+    _check(q, k, v, key_mask, query_mask, graph, None, None, None, num_heads, renorm, do)
+    lib = _build.library("graph_attention_bwd")
+    fn = lib.savqa_graph_attention_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    b, tq, c = q.shape
+    tk = k.shape[1]
+    dh = c // num_heads
+    tensor_cores = kernel_path(q.dtype, dh) == "tensor-core"
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    # scratch between the two launches: the row constants and, for the SIMT
+    # kernels, dO widened to f32 (the tensor-core keys launch reads do)
+    dout = None if tensor_cores else torch.empty(b, tq, c, dtype=torch.float32,
+                                                 device=q.device)
+    stats = torch.empty(b, num_heads, tq, N_STATS, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(),
+                    query_mask.data_ptr(), graph.data_ptr(), do.data_ptr(), dq.data_ptr(),
+                    dk.data_ptr(), dv.data_ptr(), None if dout is None else dout.data_ptr(),
+                    stats.data_ptr(), b, tq, tk, c, num_heads, RENORMS.index(renorm),
+                    _DTYPES[q.dtype], int(tensor_cores), 1.0 / dh ** 0.5, stream)
+    _build.check(status, "graph_attention_bwd kernel")
+    graph_attention_heads_bwd.launches += 1
+    return dq, dk, dv
+
+
+def graph_attention_heads_bwd(q, k, v, key_mask, query_mask, graph, do, num_heads: int,
+                              renorm: str = "l1"):
+    """Backward of :func:`graph_attention_heads` given ``do``, the gradient
+    of its output (rounded to q's dtype, as K2 rounds dO): ``(dq, dk,
+    dv)``. One launch of K2's from-d(o) entry on CUDA tensors
+    (``csrc/graph_attention_bwd.cu:savqa_graph_attention_bwd``)."""
+    do = do.to(q.dtype).contiguous()
+    if not use_kernel(q):
+        return graph_attention_bwd_plain(q, k, v, key_mask, query_mask, graph, do, num_heads,
+                                         renorm)
+    return _launch_heads_bwd(q, k, v, key_mask, query_mask, graph, do, num_heads, renorm)
+
+
+graph_attention_heads_bwd.launches = 0
+
+
+class _GraphAttentionHeads(torch.autograd.Function):
+    """K1's attention output of the heads given, whose backward is K2 from
+    d(o); the inputs are saved and the forward recomputed, as in K2."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, query_mask, graph, num_heads, renorm):
+        ctx.save_for_backward(q, k, v, key_mask, query_mask, graph)
+        ctx.num_heads, ctx.renorm = num_heads, renorm
+        if not use_kernel(q):
+            return graph_attention_plain(q, k, v, key_mask, query_mask, graph, num_heads, renorm)
+        return _launch_heads(q, k, v, key_mask, query_mask, graph, num_heads, renorm)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        dq, dk, dv = graph_attention_heads_bwd(*ctx.saved_tensors, grad_out, ctx.num_heads,
+                                               ctx.renorm)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def graph_attention_heads(q, k, v, key_mask, query_mask, graph, num_heads: int,
+                          renorm: str = "l1"):
+    """The graph attention of ``num_heads`` heads, before any residual or
+    LayerNorm: (B, Tq, C) float32, differentiable (shapes and dtypes as
+    :func:`fused_graph_attention_ln`'s, no residual, gamma or beta). On the
+    model axis C and the heads are this rank's. One launch of
+    ``csrc/graph_attention.cu:savqa_graph_attention`` on CUDA tensors."""
+    return _GraphAttentionHeads.apply(q, k, v, key_mask, query_mask, graph, num_heads, renorm)
+
+
+graph_attention_heads.launches = 0
+
+
+def _launch_attention_ln(o, residual, gamma, beta) -> torch.Tensor:
+    c = residual.shape[-1]
+    if residual.dtype not in _DTYPES:
+        raise TypeError(f"residual must be float32 or bfloat16, got {residual.dtype}")
+    for name, t, shape, dtype in (("o", o, tuple(residual.shape), torch.float32),
+                                  ("gamma", gamma, (c,), torch.float32),
+                                  ("beta", beta, (c,), torch.float32)):
+        if tuple(t.shape) != shape or t.dtype != dtype or t.device != residual.device:
+            raise ValueError(f"{name}: expected {shape} {dtype}, got {tuple(t.shape)} {t.dtype}")
+    lib = _build.library("graph_attention")
+    fn = lib.savqa_attention_ln
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    out = torch.empty_like(residual)
+    with torch.cuda.device(residual.device):
+        stream = torch.cuda.current_stream(residual.device).cuda_stream
+        status = fn(o.data_ptr(), residual.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                    out.data_ptr(), residual.numel() // c, c, _DTYPES[residual.dtype], stream)
+    _build.check(status, "attention_ln kernel")
+    attention_ln.launches += 1
+    return out
+
+
+class _AttentionLN(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, o, residual, gamma, beta):
+        ctx.save_for_backward(o, residual, gamma, beta)
+        if not use_kernel(residual):
+            return attention_ln_plain(o, residual, gamma, beta)
+        return _launch_attention_ln(o, residual, gamma, beta)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return composite_backward(attention_ln_plain, ctx, grad_out)
+
+
+def attention_ln(o, residual, gamma, beta):
+    """``LN(o + residual)`` (the reference LayerNorm) in f32, in the
+    residual's dtype, differentiable: o (..., C) f32, residual (..., C) f32
+    or bf16, gamma and beta (C,) f32. One launch of K1's epilogue kernel
+    (``csrc/graph_attention.cu:savqa_attention_ln``) on CUDA tensors."""
+    return _AttentionLN.apply(o.contiguous(), residual.contiguous(), gamma, beta)
+
+
+attention_ln.launches = 0

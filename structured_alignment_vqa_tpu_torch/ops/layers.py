@@ -11,6 +11,16 @@ Reference numerics kept on purpose:
 
 Parameters are kept in float32 and cast to the compute dtype where they are
 used, as ``nn.Dense(dtype=...)`` does in the TPU package.
+
+On the model axis (``parallel/sharding.py:shard_model``) a ``Linear``,
+``Embedding`` or ``FeedForward`` whose tensors are split holds its shard
+and a ``model_split``: a column-split Linear computes its columns of the
+output and gathers them (or leaves them local for a row-split consumer,
+``local_out``), a row-split one takes its columns of the input (or a
+column-split producer's, ``local_in``) and sums the ranks' products, a
+vocab-split table looks up the ids of its rows and sums the ranks' rows,
+and the FFN runs K3's partial and epilogue entries around a sum over the
+model row (``ops/fused_ffn.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +32,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from structured_alignment_vqa_tpu_torch.parallel.sharding import (
+    copy_to_model,
+    gather_columns,
+    reduce_from_model,
+    scatter_columns,
+    vocab_lookup,
+)
 
 # Mask fill value of the reference attention family: float(-2**32 + 1).
 NEG_MASK_VALUE = float(-(2**32) + 1)
@@ -107,17 +125,51 @@ class Dropout(nn.Module):
         return dropout(x, self.p, self.training, generator)
 
 
+def split_dense(x, split, product, bias, copied: bool = False, local_in: bool = False,
+                local_out: bool = False):
+    """A split dense layer: ``product(x)`` of this rank's weight shard and
+    ``bias`` (a whole vector), over the model row.
+
+    Column split (``split.dim == 0``): ``x`` is whole (``copied``: the
+    caller has passed it through ``copy_to_model``), the output's columns
+    are this rank's, gathered unless ``local_out``. Row split: ``x`` is
+    whole, or this rank's columns with ``local_in``; the ranks' products are
+    summed before the bias."""
+    mesh = split.mesh
+    if split.dim == 0:
+        y = product(x if copied else copy_to_model(x, mesh)) + split.local(bias)
+        return y if local_out else gather_columns(y, mesh)
+    y = reduce_from_model(product(x if local_in else scatter_columns(x, mesh)), mesh)
+    return y + bias
+
+
 class Linear(nn.Linear):
     """``nn.Linear`` that computes in ``dtype``: input, weight and bias are
-    cast at use, the stored parameters stay float32."""
+    cast at use, the stored parameters stay float32. Split over the model
+    axis, :func:`split_dense` (the flags as there)."""
+
+    model_split = None
 
     def __init__(self, fin: int, fout: int, dtype: torch.dtype = torch.float32, device=None):
         super().__init__(fin, fout, device=device)
         self.compute_dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, copied: bool = False, local_in: bool = False,
+                local_out: bool = False) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        if self.model_split is None:
+            return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        w = self.weight.to(dt)
+        return split_dense(x.to(dt), self.model_split, lambda v: F.linear(v, w),
+                           self.bias.to(dt), copied, local_in, local_out)
+
+
+def dense_relu(layer: nn.Module, x: torch.Tensor, **flags) -> torch.Tensor:
+    """``layer(x)`` of a :func:`linear_relu` (its ReLU after) or a bare
+    Linear, with :func:`split_dense`'s flags."""
+    if isinstance(layer, nn.Sequential):
+        return layer[1](layer[0](x, **flags))
+    return layer(x, **flags)
 
 
 def linear_relu(fin: int, fout: int, dtype: torch.dtype, device=None) -> nn.Sequential:
@@ -153,10 +205,28 @@ class FeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # imported here: ops/fused_ffn.py imports layer_norm from this module
-        from structured_alignment_vqa_tpu_torch.ops.fused_ffn import fused_ffn
+        from structured_alignment_vqa_tpu_torch.ops.fused_ffn import (
+            ffn_epilogue,
+            ffn_partial,
+            fused_ffn,
+        )
 
         dt = self.compute_dtype
         fc1 = self.conv1[0]
+        split = fc1.model_split
+        if split is not None and self.conv2.model_split is not None:
+            # the hidden width split over the model row: each rank's partial
+            # h W2^T of its shard (f32), summed over the row, then + b2 + x
+            # and the LayerNorm
+            x = x.to(dt)
+            part = ffn_partial(copy_to_model(x, split.mesh), fc1.weight.to(dt),
+                               split.local(fc1.bias).to(dt), self.conv2.weight.to(dt))
+            return ffn_epilogue(reduce_from_model(part, split.mesh), x,
+                                self.conv2.bias.to(dt), self.normalization.gamma,
+                                self.normalization.beta)
+        if split is not None or self.conv2.model_split is not None:
+            raise NotImplementedError("an FFN with one of its two products split over the "
+                                      "model axis")
         return fused_ffn(
             x.to(dt), fc1.weight.to(dt), fc1.bias.to(dt),
             self.conv2.weight.to(dt), self.conv2.bias.to(dt),
@@ -166,7 +236,10 @@ class FeedForward(nn.Module):
 
 class Embedding(nn.Module):
     """Learned lookup table (parameter ``lookup_table``) with optional zeroed
-    row 0, enforced on every lookup, and optional sqrt(d) scale."""
+    row 0, enforced on every lookup, and optional sqrt(d) scale. Split over
+    the model axis by vocab rows, :func:`~structured_alignment_vqa_tpu_torch.parallel.sharding.vocab_lookup`."""
+
+    model_split = None
 
     def __init__(self, vocab_size: int, num_units: int, zeros_pad: bool = True,
                  scale: bool = True, dtype: torch.dtype = torch.float32, device=None):
@@ -179,7 +252,11 @@ class Embedding(nn.Module):
         self.compute_dtype = dtype
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        out = F.embedding(ids, self.lookup_table)
+        if self.model_split is None:
+            out = F.embedding(ids, self.lookup_table)
+        else:
+            out = vocab_lookup(ids, self.model_split,
+                               lambda local: F.embedding(local, self.lookup_table))
         if self.zeros_pad:
             out = out.masked_fill((ids == 0).unsqueeze(-1), 0.0)
         out = out.to(self.compute_dtype)

@@ -62,7 +62,11 @@ class QDense(nn.Module):
     """Weight-only int8 linear layer, in place of ``ops/layers.py:Linear``
     at serving. Buffers (from :func:`quantize_state_dict`, not training):
     ``weight_q`` int8 (out, in), ``weight_scale`` float32 (out,), ``bias``
-    float32 (out,)."""
+    float32 (out,). On the model axis ``weight_q`` splits as the float
+    weight does and the scale and bias stay whole (the TPU package's
+    ``kernel_q`` and ``kernel_scale``): ``ops/layers.py:split_dense``."""
+
+    model_split = None
 
     def __init__(self, fin: int, fout: int, dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
@@ -73,8 +77,20 @@ class QDense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        y = torch.matmul(x.to(dt), self.weight_q.to(dt).t())
-        return y * self.weight_scale.to(dt) + self.bias.to(dt)
+        split = self.model_split
+        if split is None:
+            y = torch.matmul(x.to(dt), self.weight_q.to(dt).t())
+            return y * self.weight_scale.to(dt) + self.bias.to(dt)
+        # imported here: ops/layers.py's module imports nothing of this one
+        from structured_alignment_vqa_tpu_torch.ops.layers import split_dense
+
+        w = self.weight_q.to(dt).t()
+        scale = self.weight_scale.to(dt)
+        if split.dim == 0:   # this rank's output channels: their scales
+            return split_dense(x.to(dt), split, lambda v: torch.matmul(v, w) * split.local(scale),
+                               self.bias.to(dt))
+        return split_dense(x.to(dt), split, lambda v: torch.matmul(v, w) * scale,
+                           self.bias.to(dt))
 
 
 # The modules the int8 model holds quantized, matched by NAME, not by

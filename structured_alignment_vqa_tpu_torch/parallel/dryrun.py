@@ -1,5 +1,5 @@
-"""A data-parallel dry run over local processes (the port's counterpart of
-the TPU package's ``__graft_entry__.py:dryrun_multichip``).
+"""A data- and model-parallel dry run over local processes (the port's
+counterpart of the TPU package's ``__graft_entry__.py:dryrun_multichip``).
 
 ``dryrun_multichip(n)`` starts ``n`` processes that form a gloo group (on
 the CPU, or on one card with ``device="cuda:0"``), each holding its rows of
@@ -9,9 +9,13 @@ GloVe table. Each rank takes one dense step and, from the same weights,
 one step with the sparse table. The ranks must end with bitwise-equal
 parameters, gradients and sparse moments, and those must equal the
 single-process step on the whole batch, which this process takes
-(:func:`step_errors`). ::
+(:func:`step_errors`). With ``--model M`` the ranks form a (n / M, 1, M)
+grid of (data, seq, model), each holding its shard of the split parameters
+(``parallel/sharding.py:param_pspec``); each rank prints its place in the
+grid and its parameter bytes beside one process's, and the states compared
+are gathered whole. ::
 
-    python -m structured_alignment_vqa_tpu_torch.parallel.dryrun --n 2 [--device cuda:0]
+    python -m structured_alignment_vqa_tpu_torch.parallel.dryrun --n 2 [--model 2] [--device cuda:0]
 
 :func:`launch_local` starts and watches such processes; the tests and
 ``chip_smoke.py`` use it for their own workers.
@@ -112,10 +116,15 @@ def _arrays(world: int) -> Dict[str, np.ndarray]:
 
 def _steps(arrays: Dict[str, np.ndarray], device, mesh=None) -> dict:
     """One dense and one sparse step from the same weights; the state after
-    each, on the CPU."""
+    each, whole, on the CPU; with a model axis also each rank's place and
+    parameter bytes (``layout``)."""
     from structured_alignment_vqa_tpu_torch.data.synthetic import batch_from_arrays
     from structured_alignment_vqa_tpu_torch.models import AttModelX3, ModelConfig, init_random_
-    from structured_alignment_vqa_tpu_torch.parallel.sharding import put_batch
+    from structured_alignment_vqa_tpu_torch.parallel.sharding import (
+        full_grads,
+        full_state_dict,
+        put_batch,
+    )
     from structured_alignment_vqa_tpu_torch.parallel.train_step import (
         create_train_state,
         make_train_step,
@@ -128,15 +137,21 @@ def _steps(arrays: Dict[str, np.ndarray], device, mesh=None) -> dict:
         model = AttModelX3(cfg, device=device)
         init_random_(model, torch.Generator(device).manual_seed(0))
         state = create_train_state(model, LR, sparse_table=sparse)
+        whole = sum(t.numel() * t.element_size() for t in model.state_dict().values())
         if mesh is not None:
             shard_state(state, mesh)
+        if mesh is not None and not sparse:   # the sparse table stays whole
+            out["layout"] = dict(data=mesh.data_index, seq=mesh.seq_index,
+                                 model=mesh.model_index, shape=mesh.shape, whole=whole,
+                                 mine=sum(t.numel() * t.element_size()
+                                          for t in model.state_dict().values()))
         step = make_train_step(model, state.optimizer, cfg, sparse_table=sparse, mesh=mesh)
         batch = batch_from_arrays(arrays, "cpu")
         metrics = step(state, batch.to(device) if mesh is None else put_batch(batch, mesh))
-        saved = {k: v.detach().cpu().clone() for k, v in
-                 [*model.named_parameters(), *model.named_buffers()]}
-        saved.update({"grad." + k: p.grad.cpu().clone() for k, p in model.named_parameters()
-                      if p.grad is not None})
+        names = {k for k, _ in [*model.named_parameters(), *model.named_buffers()]}
+        saved = {k: v.detach().cpu().clone() for k, v in full_state_dict(model).items()
+                 if k in names}
+        saved.update({"grad." + k: g.cpu().clone() for k, g in full_grads(model).items()})
         if sparse:
             saved["table_opt.mu"] = state.table_opt.mu.cpu()
         out["sparse" if sparse else "dense"] = {
@@ -148,34 +163,46 @@ def _worker(argv: List[str]) -> None:
     from structured_alignment_vqa_tpu_torch.parallel.mesh import init_distributed, shutdown
 
     ap = argparse.ArgumentParser()
-    for flag in ("--rank", "--world"):
+    for flag in ("--rank", "--world", "--model"):
         ap.add_argument(flag, type=int, required=True)
     for flag in ("--coordinator", "--out", "--device"):
         ap.add_argument(flag, required=True)
     a = ap.parse_args(argv)
     torch.set_num_threads(1)
     torch.backends.cuda.matmul.allow_tf32 = False
-    mesh = init_distributed(a.coordinator, a.world, a.rank, backend="gloo", device=a.device)
+    mesh = init_distributed(a.coordinator, a.world, a.rank, backend="gloo", device=a.device,
+                            model_parallel=a.model)
     try:
-        rows = slice(a.rank * ROWS_PER_RANK, (a.rank + 1) * ROWS_PER_RANK)
-        local = {k: v[rows] for k, v in _arrays(a.world).items()}
+        # a data row's rows: the ranks of a model row take the same ones
+        d = mesh.data_index
+        rows = slice(d * ROWS_PER_RANK, (d + 1) * ROWS_PER_RANK)
+        local = {k: v[rows] for k, v in _arrays(mesh.data).items()}
         torch.save(_steps(local, torch.device(a.device), mesh), f"{a.out}/rank{a.rank}.pt")
     finally:
         shutdown(mesh)
 
 
-def dryrun_multichip(n_ranks: int = 2, device: str = "cpu", timeout: float = 300) -> dict:
+def dryrun_multichip(n_ranks: int = 2, device: str = "cpu", timeout: float = 300,
+                     model_parallel: int = 1) -> dict:
     """The dry run (module docstring); returns :func:`step_errors` of rank 0
     against the single process per step, and raises ``RuntimeError`` when
-    the ranks disagree with each other or an error exceeds its tolerance."""
+    the ranks disagree with each other or an error exceeds its tolerance.
+    With ``model_parallel`` > 1 it prints each rank's place in the grid and
+    its parameter bytes."""
     torch.backends.cuda.matmul.allow_tf32 = False
     with tempfile.TemporaryDirectory() as tmp:
         coordinator = f"127.0.0.1:{free_ports()[0]}"
         launch_local([[sys.executable, "-m", _MODULE, "--worker", "--rank", str(r),
-                       "--world", str(n_ranks), "--coordinator", coordinator, "--out", tmp,
-                       "--device", device] for r in range(n_ranks)], timeout)
+                       "--world", str(n_ranks), "--model", str(model_parallel),
+                       "--coordinator", coordinator, "--out", tmp, "--device", device]
+                      for r in range(n_ranks)], timeout)
         ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=True) for r in range(n_ranks)]
-    want = _steps(_arrays(n_ranks), torch.device(device))
+    for r, got in enumerate(ranks):
+        lay = got["layout"]
+        print(f"dryrun rank {r}: (data, seq, model) = ({lay['data']}, {lay['seq']}, "
+              f"{lay['model']}) of {lay['shape']}; parameter and buffer bytes {lay['mine']:,} "
+              f"of one process's {lay['whole']:,}")
+    want = _steps(_arrays(n_ranks // model_parallel), torch.device(device))
     summary = {}
     for case, ref in want.items():
         for r, got in enumerate(ranks[1:], 1):
@@ -215,11 +242,13 @@ def main(argv=None) -> None:
     if argv[:1] == ["--worker"]:
         _worker(argv[1:])
         return
-    ap = argparse.ArgumentParser(description="data-parallel dry run over local processes")
+    ap = argparse.ArgumentParser(description="data- and model-parallel dry run over local "
+                                             "processes")
     ap.add_argument("--n", type=int, default=2)
+    ap.add_argument("--model", type=int, default=1, help="the model axis's size")
     ap.add_argument("--device", default="cpu")
     a = ap.parse_args(argv)
-    for case, row in dryrun_multichip(a.n, a.device).items():
+    for case, row in dryrun_multichip(a.n, a.device, model_parallel=a.model).items():
         print(f"dryrun {case}: {row}")
 
 

@@ -1,18 +1,19 @@
-"""The layout of a data- and sequence-parallel run (counterpart of the TPU
-package's ``parallel/mesh.py``).
+"""The layout of a data-, sequence- and model-parallel run (counterpart of
+the TPU package's ``parallel/mesh.py``).
 
 The TPU package lays a ``jax.sharding.Mesh`` with axes (data, seq, model)
 over its devices. Here one process drives one device, and the processes
 form a ``torch.distributed`` group: :class:`Mesh` records that group's
 sizes, this process's place in it and its device. The ranks form a (data,
-seq) grid, rank r at data ``r // seq`` and seq ``r % seq`` (the TPU
-package's reshape with model 1). The ranks of one seq row hold the same
-samples and split each encoder sequence between them (ring and Ulysses
-attention, ``ops/ring_attention.py``, ``ops/ulysses_attention.py``); each
-data column holds one rank of every row, and the global batch's reductions
-run over it (:meth:`Mesh.data_view`). ``model_parallel > 1``, the
-vocab-split tables and the column/row-split FFN and heads (ROADMAP Queue 1
-item 15b), raises ``NotImplementedError``.
+seq, model) grid, rank r at data ``r // (seq * model)``, seq ``(r //
+model) % seq`` and model ``r % model`` (the TPU package's reshape, model
+innermost). The ranks of one seq row hold the same samples and split each
+encoder sequence between them (ring and Ulysses attention,
+``ops/ring_attention.py``, ``ops/ulysses_attention.py``); the ranks of one
+model row hold the same samples and each holds its shard of the split
+parameters (``parallel/sharding.py:param_pspec``); each data column holds
+one rank of every (seq, model) cell, and the global batch's reductions run
+over it (:meth:`Mesh.data_view`).
 
 :func:`init_distributed` forms the group over TCP from the training CLI's
 flags (``--coordinator host:port --num_processes N --process_id i``), or
@@ -45,16 +46,17 @@ DEFAULT_TIMEOUT_S = 600
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """One process's view of a data- and sequence-parallel run.
+    """One process's view of a data-, sequence- and model-parallel run.
 
-    ``data`` and ``seq`` are the axes' sizes (``model`` is 1); ``rank`` the
+    ``data``, ``seq`` and ``model`` are the axes' sizes; ``rank`` the
     global rank; ``local_rank`` and ``local_world`` its place among the
     ranks of its host; ``device`` the device it drives. ``group`` carries
     the device tensors of every rank (the state's broadcast), ``cpu_group``
     the host's flags and counts; both are None in a mesh of one process
     without a group (:func:`single_mesh`). With ``seq > 1``, ``seq_group``
-    holds this rank's seq row, ``data_group`` (and ``data_cpu_group``) its
-    data column.
+    holds this rank's seq row; with ``model > 1``, ``model_group`` (and
+    ``model_cpu_group``) its model row; with either, ``data_group`` (and
+    ``data_cpu_group``) its data column.
     """
 
     data: int
@@ -69,6 +71,8 @@ class Mesh:
     seq_group: Any = None
     data_group: Any = None
     data_cpu_group: Any = None
+    model_group: Any = None
+    model_cpu_group: Any = None
 
     @property
     def world(self) -> int:
@@ -82,40 +86,66 @@ class Mesh:
 
     @property
     def data_index(self) -> int:
-        return self.rank // self.seq
+        return self.rank // (self.seq * self.model)
 
     @property
     def seq_index(self) -> int:
-        return self.rank % self.seq
+        return (self.rank // self.model) % self.seq
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.model
 
     def seq_peer(self, offset: int) -> int:
         """The global rank ``offset`` places along this rank's seq row."""
-        return self.data_index * self.seq + (self.seq_index + offset) % self.seq
+        s = (self.seq_index + offset) % self.seq
+        return (self.data_index * self.seq + s) * self.model + self.model_index
 
     def data_view(self) -> "Mesh":
         """The mesh of this rank's data column: the ranks that hold the
-        global batch between them, one rank of each seq row, over which the
-        cross-sample operations and the gradients are reduced (the ranks of
-        a row hold the same samples; a sum over all ranks would count each
-        sample ``seq`` times). With ``seq == 1`` the mesh itself."""
-        if self.seq == 1:
+        global batch between them, one rank of each (seq, model) cell, over
+        which the cross-sample operations and the gradients are reduced
+        (the ranks of a seq or model row hold the same samples; a sum over
+        all ranks would count each sample ``seq * model`` times). With
+        ``seq == model == 1`` the mesh itself."""
+        if self.seq == 1 and self.model == 1:
             return self
-        return dataclasses.replace(self, rank=self.data_index, seq=1, group=self.data_group,
-                                   cpu_group=self.data_cpu_group, seq_group=None,
-                                   data_group=None, data_cpu_group=None)
+        return dataclasses.replace(self, rank=self.data_index, seq=1, model=1,
+                                   group=self.data_group, cpu_group=self.data_cpu_group,
+                                   seq_group=None, data_group=None, data_cpu_group=None,
+                                   model_group=None, model_cpu_group=None)
+
+    def model_view(self) -> "Mesh":
+        """The mesh of this rank's model row (its ``group`` the model row's):
+        the ranks that hold one sample between them, each a shard of the
+        split parameters."""
+        return dataclasses.replace(self, rank=self.model_index, data=self.model, seq=1, model=1,
+                                   group=self.model_group, cpu_group=self.model_cpu_group,
+                                   seq_group=None, data_group=None, data_cpu_group=None,
+                                   model_group=None, model_cpu_group=None)
 
     @property
     def shape(self) -> dict:
         return {DATA_AXIS: self.data, SEQ_AXIS: self.seq, MODEL_AXIS: self.model}
 
 
-def check_axes(model_parallel: int = 1, seq_parallel: int = 1) -> None:
-    """Raise for the axes the port does not cover: the model axis (any
-    ``seq_parallel`` is covered)."""
-    if model_parallel > 1:
+def check_axes(model_parallel: int = 1, seq_parallel: int = 1, hidden_size: int = 0,
+               num_heads: int = 1) -> None:
+    """Raise for the one layout the port refuses: the attention projections
+    split by columns over ``model_parallel`` (``hidden_size`` divisible by
+    it and at least 4 columns a rank, ``parallel/sharding.py:param_pspec``)
+    while ``num_heads`` does not divide by it. A rank would then hold part
+    of a head; GSPMD reshards that, the port does not. Every other
+    ``model_parallel`` and ``seq_parallel`` is covered."""
+    if model_parallel < 1 or seq_parallel < 1:
+        raise ValueError(f"axis sizes must be >= 1: model {model_parallel}, seq {seq_parallel}")
+    splits_heads = (model_parallel > 1 and hidden_size % model_parallel == 0
+                    and hidden_size >= 4 * model_parallel)
+    if splits_heads and num_heads % model_parallel:
         raise NotImplementedError(
-            "model_parallel > 1 (the model axis: vocab-split tables, column/row-split FFN "
-            "and heads) is not ported yet (ROADMAP Queue 1 item 15b)")
+            f"model_parallel={model_parallel} splits the attention projections' "
+            f"{hidden_size} columns but not num_heads={num_heads}: a rank would hold part of "
+            "a head (the model axis, ROADMAP Queue 1 item 15b, splits whole heads only)")
 
 
 def single_mesh(device=None) -> Mesh:
@@ -161,12 +191,13 @@ def free_ports(n: int = 1) -> List[int]:
 def init_distributed(coordinator: str, num_processes: int, process_id: int,
                      backend: Optional[str] = None, device=None,
                      local_rank: int = 0, local_world: int = 1,
-                     seq_parallel: int = 1) -> Mesh:
+                     seq_parallel: int = 1, model_parallel: int = 1) -> Mesh:
     """Join the group of ``num_processes`` ranks at ``coordinator``
     (``host:port`` of rank 0, which listens there) as rank ``process_id``;
-    returns this rank's :class:`Mesh`, a (``num_processes //
-    seq_parallel``, ``seq_parallel``) grid of (data, seq) with a subgroup
-    for each seq row and each data column.
+    returns this rank's :class:`Mesh`, a (``num_processes // (seq_parallel
+    * model_parallel)``, ``seq_parallel``, ``model_parallel``) grid of
+    (data, seq, model) with a subgroup for each seq row, model row and
+    data column (:func:`grid`).
 
     ``device=None`` is ``cuda:<local_rank>`` (raising without a card);
     ``backend=None`` is NCCL on a card and gloo on the CPU. Several ranks
@@ -190,35 +221,57 @@ def init_distributed(coordinator: str, num_processes: int, process_id: int,
     mesh = Mesh(data=num_processes, rank=process_id, local_rank=local_rank,
                 local_world=local_world, device=device, group=dist.group.WORLD,
                 cpu_group=cpu_group)
-    return grid(mesh, seq_parallel) if seq_parallel > 1 else mesh
+    if seq_parallel > 1 or model_parallel > 1:
+        return grid(mesh, seq_parallel, model_parallel)
+    return mesh
 
 
-def grid(mesh: Mesh, seq_parallel: int) -> Mesh:
-    """The ranks of ``mesh``'s group laid out as a (world // seq_parallel,
-    seq_parallel) grid of (data, seq): rank r at data ``r // seq_parallel``
-    and seq ``r % seq_parallel``, with a subgroup for its seq row and one
-    for its data column (that one also on gloo, for host counts). Every
-    rank of the group calls it with the same ``seq_parallel``."""
+def grid(mesh: Mesh, seq_parallel: int, model_parallel: int = 1) -> Mesh:
+    """The ranks of ``mesh``'s group laid out as a (world // (seq *
+    model), seq, model) grid of (data, seq, model): rank r at data ``r //
+    (seq * model)``, seq ``(r // model) % seq`` and model ``r % model``
+    (the TPU package's ``make_mesh`` reshape, model innermost), with a
+    subgroup for its seq row, its model row (also on gloo, for host flags)
+    and its data column (also on gloo, for host counts). Every rank of the
+    group calls it with the same sizes."""
     world = mesh.world
-    if seq_parallel < 1 or world % seq_parallel:
-        raise ValueError(f"{world} ranks do not form rows of seq_parallel={seq_parallel}")
+    inner = seq_parallel * model_parallel
+    if seq_parallel < 1 or model_parallel < 1 or world % inner:
+        raise ValueError(f"{world} ranks do not form rows of seq_parallel={seq_parallel} x "
+                         f"model_parallel={model_parallel}")
     backend = dist.get_backend(mesh.group)
     timeout = datetime.timedelta(seconds=DEFAULT_TIMEOUT_S)
-    n_data = world // seq_parallel
+    n_data = world // inner
+
+    def at(d, s, m):
+        return (d * seq_parallel + s) * model_parallel + m
+
     groups = {}
+
+    def make(ranks, names, cpu_twin):
+        g = dist.new_group(ranks, backend=backend, timeout=timeout)
+        gc = (g if backend == "gloo" else dist.new_group(ranks, backend="gloo", timeout=timeout)
+              ) if cpu_twin else None
+        if mesh.rank in ranks:
+            groups[names[0]] = g
+            if cpu_twin:
+                groups[names[1]] = gc
+
     # every rank creates every subgroup, in one order
-    for d in range(n_data):
-        ranks = list(range(d * seq_parallel, (d + 1) * seq_parallel))
-        g = dist.new_group(ranks, backend=backend, timeout=timeout)
-        if mesh.rank in ranks:
-            groups["seq_group"] = g
+    if seq_parallel > 1:
+        for d in range(n_data):
+            for m in range(model_parallel):
+                make([at(d, s, m) for s in range(seq_parallel)], ("seq_group",), False)
+    if model_parallel > 1:
+        for d in range(n_data):
+            for s in range(seq_parallel):
+                make([at(d, s, m) for m in range(model_parallel)],
+                     ("model_group", "model_cpu_group"), True)
     for s in range(seq_parallel):
-        ranks = list(range(s, world, seq_parallel))
-        g = dist.new_group(ranks, backend=backend, timeout=timeout)
-        gc = g if backend == "gloo" else dist.new_group(ranks, backend="gloo", timeout=timeout)
-        if mesh.rank in ranks:
-            groups["data_group"], groups["data_cpu_group"] = g, gc
-    return dataclasses.replace(mesh, data=n_data, seq=seq_parallel, **groups)
+        for m in range(model_parallel):
+            make([at(d, s, m) for d in range(n_data)], ("data_group", "data_cpu_group"), True)
+    return dataclasses.replace(mesh, data=n_data, seq=seq_parallel, model=model_parallel,
+                               **groups)
 
 
 def shutdown(mesh: Optional[Mesh]) -> None:

@@ -1,5 +1,5 @@
-"""Placing the state and the batches of a data-parallel run, and the
-collectives it needs (the data-axis half of the TPU package's
+"""Placing the state and the batches of a parallel run, and the
+collectives it needs (counterpart of the TPU package's
 ``parallel/sharding.py``).
 
 The TPU package replicates the parameters and shards every batch tensor's
@@ -27,13 +27,36 @@ CPU. The ring's step is one message a rank: its tensors'
 bytes packed into one buffer, sent to the previous rank of the row while
 the next rank's is received.
 
-The model axis (``param_pspec``: vocab-split tables, column/row-split FFN
-and head kernels) is not ported (ROADMAP Queue 1 item 15b).
+The model axis. :func:`param_pspec` is the TPU package's rule, by name
+and shape, on the port's state_dict names: the GloVe and embedding tables
+(and the int8 table with its per-row scales) split by vocab rows, 2-D
+kernels column-split where they widen (the attention projections, so the
+heads split too; ``fc1``, ``syb_mlp``, the heads' hidden layers) and
+row-split where they narrow (``fc2``, ``syb_mlp2``, ``cls_hidden``); the
+rest, and any dimension the axis does not divide, stays whole. A flax
+kernel is (in, out) and ``nn.Linear.weight`` (out, in): a column split is
+the port's dim 0, a row split its dim 1. :func:`shard_params` slices each
+rank's shard out of rank 0's broadcast and marks each split module with a
+:class:`Split`. GSPMD computes the single-device program on such a
+layout; here the split layers call Megatron's collectives over the model
+row (``Mesh.model_group``) themselves: :func:`copy_to_model` (identity,
+all-reduce backward) before a column-split layer, :func:`reduce_from_model`
+(all-reduce, identity backward) after a row-split one,
+:func:`gather_columns` (all-gather, this rank's slice backward) after a
+column-split layer whose consumer is whole, :func:`scatter_columns` (the
+reverse) before a row-split layer whose input is whole, and
+:func:`vocab_lookup` (the ids outside the shard masked, the local rows
+looked up, then reduced). A column-split layer's bias is replicated but
+each rank uses only its slice, so its gradient is partial
+(:func:`model_partial_grads`): the step sums it over the model row.
+:func:`full_state_dict` gathers the shards back into whole tensors, for
+checkpoints in the one-process layout.
 """
 
 from __future__ import annotations
 
-from typing import TYPE_CHECKING, Iterable, List, Sequence
+import dataclasses
+from typing import TYPE_CHECKING, Dict, Iterable, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -99,9 +122,14 @@ def broadcast_(tensors: Iterable[torch.Tensor], mesh: Mesh) -> None:
         dist.broadcast(t, src=0, group=_group(mesh, t))
 
 
-def shard_params(model: torch.nn.Module, mesh: Mesh) -> None:
-    """Every parameter and buffer of ``model`` replicated from rank 0."""
-    broadcast_(model.state_dict().values(), mesh)
+def shard_params(model: torch.nn.Module, mesh: Mesh, keep_whole: Sequence[str] = ()) -> None:
+    """Every parameter and buffer of ``model`` replicated from rank 0;
+    then, with ``mesh.model > 1``, each rank keeps its shard of the split
+    ones (:func:`shard_model`; ``keep_whole`` names stay replicated)."""
+    if mesh.group is not None:
+        broadcast_(model.state_dict().values(), mesh)
+    if mesh.model > 1:
+        shard_model(model, mesh, keep_whole)
 
 
 @torch.no_grad()
@@ -316,3 +344,265 @@ def seq_rotate(tensors: Sequence[torch.Tensor], mesh: Mesh) -> List[torch.Tensor
 
 
 seq_rotate.bytes = 0
+
+
+# ---- the model axis ----------------------------------------------------------
+
+# A vocab dimension below this size is not split (the TPU package's rule).
+MIN_SHARD_DIM = 1024
+
+
+def param_pspec(name: str, shape: Sequence[int], model_axis_size: int) -> Optional[int]:
+    """The dimension of the port's tensor ``name`` (a state_dict name) that
+    the model axis splits, or None where it stays whole: the TPU package's
+    ``param_pspec`` on the flax leaf ``name`` maps to
+    (``models/convert.py:name_map``). Tables (``syb_emb.weight``, int8
+    ``syb_emb.weight_q``, ``lookup_table``) and the int8 row scales
+    (``syb_emb.weight_scale``) split by vocab rows, dim 0, from
+    ``MIN_SHARD_DIM`` rows; a 2-D ``weight`` or int8 ``weight_q`` (out, in)
+    splits dim 0 (columns, flax ``P(None, 'model')``) where out >= in, and
+    dim 1 (rows, ``P('model', None)``) where in > out, when the axis
+    divides that dimension into at least 4 a rank."""
+    n = model_axis_size
+    if n <= 1:
+        return None
+    mod, _, leaf = name.rpartition(".")
+    glove = mod.rpartition(".")[2] == "syb_emb"
+    if (glove and leaf in ("weight", "weight_q")) or leaf == "lookup_table":
+        return 0 if shape[0] >= MIN_SHARD_DIM and shape[0] % n == 0 else None
+    if glove and leaf == "weight_scale":
+        return 0 if shape[0] >= MIN_SHARD_DIM and shape[0] % n == 0 else None
+    if leaf in ("weight", "weight_q") and len(shape) == 2:
+        fout, fin = shape
+        if fout >= fin and fout % n == 0 and fout >= 4 * n:
+            return 0
+        if fin > fout and fin % n == 0 and fin >= 4 * n:
+            return 1
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """How a module's tensors are split over the model row: ``dim`` of the
+    weight (0: columns of a Linear, or vocab rows of a table; 1: rows of a
+    Linear), ``n`` shards, this rank's ``index``, and ``mesh`` for the
+    model row's group. ``names`` are the module's tensors the split cuts,
+    ``shape0`` the first dimension of this rank's shard of them."""
+
+    dim: int
+    n: int
+    index: int
+    mesh: Mesh
+    names: tuple = ("weight",)
+    shape0: int = 0
+
+    def local(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This rank's shard of the whole ``t`` along ``dim``."""
+        size = t.shape[dim] // self.n
+        return t.narrow(dim, self.index * size, size)
+
+
+def _model_group(mesh: Mesh, t: torch.Tensor):
+    return mesh.model_cpu_group if t.device.type == "cpu" else mesh.model_group
+
+
+def _all_gather_model(t: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+    """The model row's shards ``t`` concatenated along ``dim`` in model
+    order (a CUDA tensor on gloo passes through pinned host memory)."""
+    group = _model_group(mesh, t)
+    staged = _staged(t, group)
+    src = _to_host(t) if staged else t.contiguous()
+    parts = [torch.empty_like(src) for _ in range(mesh.model)]
+    dist.all_gather(parts, src, group=group)
+    out = torch.cat(parts, dim=dim)
+    return out.to(t.device) if staged else out
+
+
+def _all_reduce_model(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    out = t.contiguous().clone()
+    dist.all_reduce(out, group=_model_group(mesh, out))
+    model_bytes.sent += out.numel() * out.element_size()
+    return out
+
+
+def model_bytes():
+    """The bytes this rank has passed to the model row's collectives so far
+    (``model_bytes.sent``): each all-reduce's tensor, each all-gather's
+    whole output."""
+    return model_bytes.sent
+
+
+model_bytes.sent = 0
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce_model(grad, ctx.mesh), None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return _all_reduce_model(x, mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        out = _all_gather_model(x, mesh, x.dim() - 1)
+        model_bytes.sent += out.numel() * out.element_size()
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh = ctx.mesh
+        size = grad.shape[-1] // mesh.model
+        return grad.narrow(-1, mesh.model_index * size, size).contiguous(), None
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        size = x.shape[-1] // mesh.model
+        return x.narrow(-1, mesh.model_index * size, size).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        out = _all_gather_model(grad, ctx.mesh, grad.dim() - 1)
+        model_bytes.sent += out.numel() * out.element_size()
+        return out, None
+
+
+def copy_to_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``x``, whose gradient is summed over the model row: the input of a
+    column-split layer, each rank's backward giving its part of dx."""
+    return _Copy.apply(x, mesh)
+
+
+def reduce_from_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``x`` summed over the model row (a row-split layer's partial
+    products); the gradient passes unchanged to every rank's part."""
+    return _Reduce.apply(x, mesh)
+
+
+def gather_columns(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The model row's column shards of ``x`` concatenated on the last axis;
+    the backward takes this rank's slice of the gradient."""
+    return _Gather.apply(x, mesh)
+
+
+def scatter_columns(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """This rank's column shard of the whole ``x`` (the input of a row-split
+    layer); the backward gathers the shards' gradients."""
+    if not x.requires_grad:
+        size = x.shape[-1] // mesh.model
+        return x.narrow(-1, mesh.model_index * size, size).contiguous()
+    return _Scatter.apply(x, mesh)
+
+
+def vocab_lookup(ids: torch.Tensor, split: Split, lookup) -> torch.Tensor:
+    """``lookup(local_ids)`` of a vocab-split table: the ids outside this
+    rank's rows read row 0 of the shard and are zeroed, then the ranks'
+    rows are summed (each id has one nonzero row: the sum is exact)."""
+    rows = split.shape0
+    local = ids - split.index * rows
+    inside = (local >= 0) & (local < rows)
+    out = lookup(torch.where(inside, local, torch.zeros_like(local)))
+    out = torch.where(inside.unsqueeze(-1), out, torch.zeros((), dtype=out.dtype,
+                                                              device=out.device))
+    return reduce_from_model(out, split.mesh)
+
+
+@torch.no_grad()
+def shard_model(model: torch.nn.Module, mesh: Mesh, keep_whole: Sequence[str] = ()) -> None:
+    """Keep this rank's shard of every tensor :func:`param_pspec` splits
+    (in place: a parameter keeps its identity) and mark its module with a
+    :class:`Split`. ``keep_whole``: names that stay replicated (the sparse
+    table). A tensor several names share is split once."""
+    from structured_alignment_vqa_tpu_torch.models.att_model_x3 import link_model_splits
+
+    n = mesh.model
+    state = model.state_dict(keep_vars=True)
+    done = {id(state[name]) for name in keep_whole}
+    for name, t in state.items():
+        dim = param_pspec(name, tuple(t.shape), n)
+        if dim is None or id(t) in done:
+            continue
+        done.add(id(t))
+        mod_name, _, leaf = name.rpartition(".")
+        module = model.get_submodule(mod_name)
+        prev = getattr(module, "model_split", None)
+        size = t.shape[dim] // n
+        t.data = t.data.narrow(dim, mesh.model_index * size, size).contiguous()
+        module.model_split = Split(dim, n, mesh.model_index, mesh,
+                                   (prev.names + (leaf,)) if prev is not None else (leaf,),
+                                   t.shape[0])
+    link_model_splits(model)
+
+
+def model_partial_grads(model: torch.nn.Module) -> List[torch.nn.Parameter]:
+    """The replicated parameters whose gradient each rank computes only in
+    part: the biases of column-split Linears (each rank adds its slice)."""
+    out = []
+    for m in model.modules():
+        split = getattr(m, "model_split", None)
+        bias = getattr(m, "bias", None)
+        if (split is not None and split.dim == 0 and isinstance(bias, torch.nn.Parameter)
+                and "bias" not in split.names):
+            out.append(bias)
+    return out
+
+
+def split_of(model: torch.nn.Module) -> Dict[str, Split]:
+    """state_dict name -> :class:`Split` of every split tensor of ``model``."""
+    out = {}
+    for mod_name, m in model.named_modules():
+        split = getattr(m, "model_split", None)
+        for leaf in split.names if split is not None else ():
+            out[f"{mod_name}.{leaf}" if mod_name else leaf] = split
+    return out
+
+
+@torch.no_grad()
+def unshard(t: torch.Tensor, split: Split, dim: int) -> torch.Tensor:
+    """The whole tensor of the model row's shards ``t`` (split on ``dim``)."""
+    return _all_gather_model(t.detach(), split.mesh, dim)
+
+
+@torch.no_grad()
+def full_state_dict(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """``model.state_dict()`` with every split tensor gathered whole, in
+    the one-process layout (every rank of the model row must call it). A
+    model with no split tensor gives its own state_dict."""
+    sd = model.state_dict()
+    # by storage: the tied names of one tensor (share_glove's slots) share it
+    splits = {sd[name].data_ptr(): split for name, split in split_of(model).items()}
+    if not splits:
+        return sd
+    whole = {}
+    for t in sd.values():
+        split = splits.get(t.data_ptr())
+        if split is not None and t.data_ptr() not in whole:
+            whole[t.data_ptr()] = unshard(t, split, split.dim)
+    return {name: whole.get(t.data_ptr(), t) for name, t in sd.items()}
+
+
+@torch.no_grad()
+def full_grads(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """Each parameter's gradient (the ones that have one), the split ones
+    gathered whole over the model row (every rank of it must call this)."""
+    splits = split_of(model)
+    return {n: unshard(p.grad, splits[n], splits[n].dim) if n in splits else p.grad.detach()
+            for n, p in model.named_parameters() if p.grad is not None}

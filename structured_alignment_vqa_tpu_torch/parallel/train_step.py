@@ -34,6 +34,18 @@ row and, in the backward, the whole dq, dk and dv. So the ranks of a row
 hold the same gradients, and every reduction above runs over the data
 column (``Mesh.data_view``): the step is the single-device step on the
 global batch, as the TPU package's GSPMD step is.
+
+A mesh with a model axis: :func:`shard_state` keeps each rank's shard of
+the split parameters and of their Adam moments (the sparse table and its
+moments stay whole, as in the TPU package); the ranks of a model row take
+the same rows with generators in the same state, so the replicated
+activations draw one dropout mask. Each split layer's collectives make its
+output and its input's gradient whole (``parallel/sharding.py``), so a
+replicated parameter gets the same gradient on every rank of the row, but
+for a column-split layer's bias, of which each rank computes its slice:
+those are summed over the model row first. The gradients are then summed
+over the data column only, and the skip-nonfinite decision is agreed over
+every rank, since a shard's NaN shows on its own rank alone.
 """
 
 from __future__ import annotations
@@ -53,7 +65,10 @@ from structured_alignment_vqa_tpu_torch.parallel.sharding import (
     all_reduce_grads,
     all_reduce_sum,
     broadcast_,
+    host_sum,
+    model_partial_grads,
     shard_params,
+    split_of,
 )
 from structured_alignment_vqa_tpu_torch.parallel.sparse_table import (
     TABLE_NAME,
@@ -134,17 +149,30 @@ def shard_state(state: TrainState, mesh: Mesh) -> TrainState:
     """Put ``state`` on the mesh: rank 0's parameters, buffers, Adam moments
     and step counts, and the sparse table's ``count``, ``mu`` and ``nu``,
     broadcast to every rank (in place; returns ``state``). The table is
-    replicated, the TPU package's replicate-when-sparse rule. A mesh
-    without a group leaves the state as it is."""
+    replicated, the TPU package's replicate-when-sparse rule. With a model
+    axis each rank then keeps its shard of the split parameters and of
+    their moments (``parallel/sharding.py:param_pspec``). A mesh without a
+    group leaves the state as it is."""
     if mesh.group is None:
         return state
-    shard_params(state.model, mesh)
     if state.optimizer is not None:
         broadcast_([t for per_param in state.optimizer.state.values()
                     for t in per_param.values() if torch.is_tensor(t)], mesh)
     if state.table_opt is not None:
         topt = state.table_opt
         broadcast_([topt.count, topt.mu, topt.nu], mesh)
+    whole = (TABLE_NAME,) if state.table_opt is not None else ()
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    shard_params(state.model, mesh, keep_whole=whole)
+    if state.optimizer is not None and mesh.model > 1:
+        splits = split_of(state.model)
+        for p, per_param in state.optimizer.state.items():
+            split = splits.get(names.get(id(p)))
+            if split is None:
+                continue
+            for key, t in per_param.items():
+                if torch.is_tensor(t) and t.dim() == p.dim() and t.shape != p.shape:
+                    per_param[key] = split.local(t, split.dim).contiguous()
     return state
 
 
@@ -234,10 +262,13 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, cfg: Mod
     bytes of gradient the last step summed. With one rank, or none, the
     step is the single-device step, bit for bit.
     """
-    # the ranks of a seq row hold the same samples and, after the attention's
-    # all-gathers, the same gradients: reduce over the data column alone
+    # the ranks of a seq or model row hold the same samples and, after the
+    # attention's and the split layers' collectives, the same gradients of
+    # the replicated parameters: reduce over the data column alone
     dmesh = None if mesh is None else mesh.data_view()
     distributed = dmesh is not None and dmesh.distributed
+    model_axis = mesh is not None and mesh.model > 1
+    partial = {id(p) for p in model_partial_grads(model)} if model_axis else set()
     table = None
     if sparse_table:
         if cfg.int8_serving:
@@ -266,6 +297,10 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, cfg: Mod
                                      table_rows=rows)
                 metrics["loss"].backward()
                 grads = [p.grad for p in params if p.grad is not None] + [rows.grad]
+        if partial:
+            # a column-split layer's bias: each rank holds its slice's gradient
+            all_reduce_grads([p.grad for p in params if id(p) in partial and p.grad is not None],
+                             mesh.model_view())
         if distributed:
             metrics, n_grads = _global(metrics, dmesh, extra=len(grads))
             if n_grads != dmesh.world * len(grads):
@@ -273,6 +308,10 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, cfg: Mod
                                    f"{len(grads)}: their graphs differ")
             step.reduced_bytes = all_reduce_grads(grads, dmesh)
         finite = _all_finite(grads) if skip_nonfinite else None
+        if finite is not None and model_axis:
+            # a split parameter's NaN shows on its own rank: every rank agrees
+            (bad,) = host_sum([0.0 if bool(finite) else 1.0], mesh)
+            finite = torch.tensor(bad == 0.0, device=finite.device)
         if table is not None:
             group = optimizer.param_groups[0]
             sparse_adam_update(table.data, state.table_opt, rows.grad, uids, valid,

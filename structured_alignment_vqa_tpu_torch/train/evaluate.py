@@ -18,7 +18,9 @@ covers one card's samples and logs its numbers, as the TPU package's one
 process over every local chip does. Over several hosts (``--coordinator``
 with ``--num_processes`` > 1) the eval is process-sharded, as the TPU
 package's: each rank evaluates its stride of the split and the sums are
-global.
+global. With ``--model_parallel N`` the strides are the data rows', and
+the N ranks of a row evaluate the same batches, each with its shard of the
+split parameters.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from structured_alignment_vqa_tpu_torch.data.dataset import BatchLoader, GQASupe
 from structured_alignment_vqa_tpu_torch.data.transfer import BatchMover, shipped
 from structured_alignment_vqa_tpu_torch.models import AttModelX3
 from structured_alignment_vqa_tpu_torch.parallel.mesh import single_mesh
+from structured_alignment_vqa_tpu_torch.parallel.sharding import shard_model
 from structured_alignment_vqa_tpu_torch.parallel.train_step import TrainState, make_eval_step
 from structured_alignment_vqa_tpu_torch.train.loop import (
     eval_metrics,
@@ -76,6 +79,8 @@ def evaluate_from_args(args, mesh=None):
     ds = GQASuperNodeDataset(args.split, dc)
     model = AttModelX3(model_cfg, device=device)
     step = load_params_for_eval(args.weight_dir, model, args.weight_epoch)
+    if mesh.model > 1:
+        shard_model(model, mesh)
     state = TrainState(model, optimizer=None, step=step)
     mover = BatchMover(device, bf16_features=model_cfg.compute_dtype == torch.bfloat16)
 
@@ -86,19 +91,22 @@ def evaluate_from_args(args, mesh=None):
         eval_step = make_eval_step(model, model_cfg, with_milnce=trainer_cfg.with_milnce)
         metrics = eval_metrics(eval_step, state, (
             ship.ready() for _, ship in shipped(
-                (b for _, b in loader.strided(mesh.rank, mesh.world)), mover)))
+                (b for _, b in loader.strided(mesh.data_index, mesh.data)), mover)))
         if mesh.distributed:
             ranks = [None] * mesh.world
             dist.all_gather_object(ranks, list(metrics), group=mesh.cpu_group)
-            # batch r + k * n of the stream is rank r's k-th
-            metrics = [m for batch in zip_longest(*ranks) for m in batch if m is not None]
+            # batch d + k * n of the stream is data row d's k-th (one rank
+            # of each model row)
+            metrics = [m for batch in zip_longest(*ranks[::mesh.model]) for m in batch
+                       if m is not None]
             logger.info("%s: %d batch(es) over %d ranks, each its stride of whole batches",
-                        args.split, len(metrics), mesh.world)
+                        args.split, len(metrics), mesh.data)
         loss, n_correct, n = summarize_eval(metrics, logger, trainer_cfg.log_steps_val,
                                             args.split)
     else:
-        loader = BatchLoader(ds, trainer_cfg.batch_size // mesh.local_world, shuffle=False,
-                             shard_idx=mesh.rank, num_shards=mesh.world)
+        local_data = max(mesh.local_world // mesh.model, 1)
+        loader = BatchLoader(ds, trainer_cfg.batch_size // local_data, shuffle=False,
+                             shard_idx=mesh.data_index, num_shards=mesh.data)
         eval_step = make_eval_step(model, model_cfg, with_milnce=trainer_cfg.with_milnce,
                                    mesh=mesh)
         loss, n_correct, n = run_eval(

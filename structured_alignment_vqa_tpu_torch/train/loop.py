@@ -65,8 +65,8 @@ _METRICS = ("loss_sum", "mil_sum", "n_correct", "n")
 @dataclasses.dataclass
 class TrainerConfig:
     """The TPU package's ``TrainerConfig``, field for field, with its
-    defaults. One configures what the port does not run yet: the model
-    axis (``model_parallel > 1``; ROADMAP Queue 1 item 15b). ``n_pack > 1``
+    defaults. ``model_parallel`` must equal the mesh's model axis
+    (``parallel/mesh.py``). ``n_pack > 1``
     packs the training batches (``data/packing.py``; ``pack_bucket`` picks
     their bucket, None the largest) and evaluates val through the tight
     collate."""
@@ -244,13 +244,19 @@ def train(
     port's modules need no sample batch, so none is drawn.
     """
     tc = trainer_cfg
-    check_axes(tc.model_parallel)
+    check_axes(tc.model_parallel, hidden_size=model_cfg.hidden_size,
+               num_heads=model_cfg.num_heads)
     mesh = mesh or single_mesh(device)
+    if mesh.model != tc.model_parallel:
+        raise ValueError(f"model_parallel={tc.model_parallel}, but the mesh's model axis is "
+                         f"{mesh.model}")
     device, rank, world = mesh.device, mesh.rank, mesh.world
-    if tc.batch_size % mesh.local_world:
+    # the ranks of a model row take the same rows: the data ranks split the batch
+    local_data = max(mesh.local_world // mesh.model, 1)
+    if tc.batch_size % local_data:
         raise ValueError(f"batch_size {tc.batch_size} does not split over the host's "
-                         f"{mesh.local_world} ranks")
-    rows = tc.batch_size // mesh.local_world
+                         f"{local_data} data rank(s)")
+    rows = tc.batch_size // local_data
     logger = setup_logging(tc.output_dir, rank)
     metrics_out = MetricLogger(tc.output_dir, rank)
     logger.info("device: %s%s; mesh: %s over %d rank(s), %d row(s) a rank a step", device,
@@ -271,7 +277,8 @@ def train(
     if tc.batch_replay and not tc.cache_dir:
         raise ValueError("batch_replay needs cache_dir for its on-disk root")
     train_loader = BatchLoader(
-        train_ds, rows, shuffle=True, seed=tc.seed, shard_idx=rank, num_shards=world,
+        train_ds, rows, shuffle=True, seed=tc.seed, shard_idx=mesh.data_index,
+        num_shards=mesh.data,
         num_threads=tc.num_workers, num_procs=tc.num_procs, n_pack=tc.n_pack,
         pack_bucket=tc.pack_bucket, cache_dir=cache("train"),
         batch_replay_dir=cache("train_batches") if tc.batch_replay else None,
@@ -279,7 +286,7 @@ def train(
     # val order is fixed, so the val passes after the first stream the
     # materialized collated batches (data/batch_cache.py)
     val_loader = BatchLoader(
-        val_ds, rows, shuffle=False, shard_idx=rank, num_shards=world,
+        val_ds, rows, shuffle=False, shard_idx=mesh.data_index, num_shards=mesh.data,
         num_threads=tc.num_workers,
         num_procs=tc.num_procs, tight=tc.n_pack > 1, cache_dir=cache("val"),
         batch_cache_dir=cache("val_batches"),
@@ -291,10 +298,11 @@ def train(
     if glove_table is not None:
         graft_glove(model, glove_table)
 
-    # the dropout masks: one generator seeded from seed + 1 (and the rank
-    # above bit 32, so that no two ranks draw the same masks), its state
-    # saved with each checkpoint (the TPU package folds the step into its key)
-    rng = torch.Generator(device).manual_seed(tc.seed + 1 + (rank << 32))
+    # the dropout masks: one generator seeded from seed + 1 (and the data
+    # rank above bit 32, so that no two data ranks draw the same masks and
+    # a model row draws one), its state saved with each checkpoint (the TPU
+    # package folds the step into its key)
+    rng = torch.Generator(device).manual_seed(tc.seed + 1 + (mesh.data_index << 32))
     start_epoch = 0
     ckpt_dir = f"{tc.output_dir}/checkpoints"
     if tc.resume and latest_epoch(ckpt_dir) is not None:

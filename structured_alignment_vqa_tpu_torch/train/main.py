@@ -14,8 +14,14 @@ CUDA card and fails without one. ``--bf16`` computes in torch.bfloat16.
 ``--use_pallas`` has no counterpart (the port launches its kernels on every
 CUDA tensor); the eval and predict CLIs log it as having no effect.
 ``--n_pack N --pack_bucket I`` packs up to N training samples a row;
-``--mcb`` builds the MCB head. ``--model_parallel > 1`` (the model axis,
-not ported yet) raises ``NotImplementedError`` naming its ROADMAP item.
+``--mcb`` builds the MCB head.
+
+The model axis: ``--model_parallel N`` splits the parameters over N ranks
+a data row (``parallel/sharding.py:param_pspec``), the ranks of a row
+taking the same samples; each invocation starts N ranks for every data
+rank (N gloo ranks on the CPU with ``--platform cpu``), rank r at data
+``r // N`` and model ``r % N``. A layout that would split a head between
+ranks raises ``NotImplementedError`` (``parallel/mesh.py:check_axes``).
 
 Data parallel: each invocation starts one rank per visible card, as many
 as divide ``--batch_size`` (the TPU package's ``fitting_mesh`` rule, which
@@ -176,21 +182,27 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def check_supported_flags(args) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item of each flag
-    whose feature the port does not have yet, and ``ValueError`` for
-    several hosts without a coordinator."""
-    check_axes(model_parallel=args.model_parallel)
+    """Raise ``NotImplementedError`` for the one model-axis layout the port
+    refuses (a head split between ranks), and ``ValueError`` for several
+    hosts without a coordinator."""
+    check_axes(model_parallel=args.model_parallel, hidden_size=args.hidden_size,
+               num_heads=args.num_heads)
     if args.num_processes > 1 and not args.coordinator:
         raise ValueError("--num_processes > 1 needs --coordinator (host:port of process 0)")
 
 
 def local_ranks(args) -> int:
-    """The ranks this invocation starts: one on the CPU, else one per
-    visible card, as many as divide ``--batch_size``."""
+    """The ranks this invocation starts: ``--model_parallel`` on the CPU,
+    else one per visible card, as many data rows of ``--model_parallel``
+    cards as divide ``--batch_size``."""
+    m = args.model_parallel
     if args.platform == "cpu":
-        return 1
+        return m
     resolve_device(None)
-    return fitting_data_size(torch.cuda.device_count(), args.batch_size)
+    cards = torch.cuda.device_count()
+    if cards < m:
+        raise ValueError(f"--model_parallel {m} needs {m} cards; this host has {cards}")
+    return fitting_data_size(cards, args.batch_size, model_parallel=m) * m
 
 
 def run_ranks(args, entry):
@@ -224,7 +236,7 @@ def _rank(local_rank: int, args, entry, n_local: int, group: tuple):
     mesh = init_distributed(
         coordinator, num_processes * n_local, process_id * n_local + local_rank,
         device="cpu" if args.platform == "cpu" else None, local_rank=local_rank,
-        local_world=n_local)
+        local_world=n_local, model_parallel=args.model_parallel)
     try:
         return entry(args, mesh)
     finally:

@@ -25,7 +25,10 @@ cross-sample terms (the MCB norm over the batch, the relation rewrite's
 joint softmax) and K3's hidden split see the same batch. Rank 0 gathers
 every rank's answers and writes them in ``index`` order; one rank writes
 each answer as it is read back. ``--coordinator``
-raises: the TPU package's predict loader is not sharded by host.
+raises: the TPU package's predict loader is not sharded by host. With
+``--model_parallel N`` the data rows take that stride and the N ranks of a
+row serve the same batches, each with its shard of the split parameters
+(``parallel/sharding.py:shard_model``): the answers are one process's.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from structured_alignment_vqa_tpu_torch.data.dataset import BatchLoader, GQASupe
 from structured_alignment_vqa_tpu_torch.data.transfer import BatchMover, HostFetch, shipped
 from structured_alignment_vqa_tpu_torch.models import AttModelX3
 from structured_alignment_vqa_tpu_torch.ops.quant import quantize_state_dict
+from structured_alignment_vqa_tpu_torch.parallel.sharding import shard_model
 from structured_alignment_vqa_tpu_torch.train.main import (
     build_parser,
     check_supported_flags,
@@ -178,9 +182,11 @@ def predict_from_args(args, mesh=None) -> int:
     written on rank 0, the answers served elsewhere."""
     model_cfg, train_dc, val_dc, trainer_cfg = configs_from_args(args)
     device = device_from_args(args) if mesh is None else mesh.device
-    rank, n = (0, 1) if mesh is None else (mesh.rank, mesh.world)
+    # the data rows stride the batches; the ranks of a model row serve the
+    # same whole batches, each with its shard of the split parameters
+    rank, n = (0, 1) if mesh is None else (mesh.data_index, mesh.data)
     dc = val_dc if args.split == "val" else train_dc
-    logger = setup_logging(trainer_cfg.output_dir, rank)
+    logger = setup_logging(trainer_cfg.output_dir, 0 if mesh is None else mesh.rank)
     log_flags_without_effect(args, logger)
 
     ds = GQASuperNodeDataset(args.split, dc)
@@ -198,11 +204,13 @@ def predict_from_args(args, mesh=None) -> int:
         quantized = quantize_state_dict(model.state_dict())
         model = AttModelX3(model_cfg.replace(int8_serving=True), device=device)
         model.load_state_dict(quantized)
+    if mesh is not None and mesh.model > 1:
+        shard_model(model, mesh)
     predict = make_predict_step(model)
     mover = BatchMover(device, bf16_features=model_cfg.compute_dtype == torch.bfloat16)
 
     sink = None
-    if rank == 0:
+    if mesh is None or mesh.rank == 0:
         sink = sys.stdout if args.out == "-" else open(args.out, "w")
 
     def write_line(index: int, aid: int) -> None:
@@ -212,17 +220,20 @@ def predict_from_args(args, mesh=None) -> int:
     # one rank writes each answer as it is read back; several keep theirs
     # for rank 0 to write in index order
     answers: list = []
-    write = ((lambda index, answer: write_line(index, int(answer))) if n == 1
+    alone = mesh is None or mesh.world == 1
+    write = ((lambda index, answer: write_line(index, int(answer))) if alone
              else (lambda index, answer: answers.append((index, int(answer)))))
     try:
         stats = serve(predict, numbered(loader.strided(rank, n), mover), write,
                       args.pipeline_depth, args.warmup_batches)
         ranks = [stats]
-        if n > 1:
-            gathered = [None] * n if rank == 0 else None
+        if not alone:
+            gathered = [None] * mesh.world if mesh.rank == 0 else None
             dist.gather_object((answers, stats), gathered, dst=0, group=mesh.cpu_group)
-            if rank != 0:
+            if mesh.rank != 0:
                 return stats["n_out"]
+            # one rank of each model row: its data row's answers
+            gathered = gathered[::mesh.model]
             for index, aid in sorted(a for rank_answers, _ in gathered for a in rank_answers):
                 write_line(index, aid)
             ranks = [st for _, st in gathered]

@@ -21,7 +21,12 @@ file. It holds:
 
 In a data-parallel run (``mesh`` of several ranks) rank 0 writes the file
 and every rank waits for it at a barrier; every rank reads it on resume
-and takes its own generator's state back.
+and takes its own generator's state back. A file is always in the
+one-process layout: on the model axis the shards of the split parameters
+and of their Adam moments are gathered whole before rank 0 writes them,
+and a resumed run reads them whole and slices its shards again
+(``parallel/train_step.py:shard_state``), so a ``--model_parallel 2``
+file serves in one process and the other way round.
 
 The reference's ``model_{epoch}.pth`` goes in through
 ``models/torch_import.py`` and out through ``models/torch_export.py``. An
@@ -41,7 +46,12 @@ import torch
 import torch.distributed as dist
 
 from structured_alignment_vqa_tpu_torch.parallel.mesh import Mesh
-from structured_alignment_vqa_tpu_torch.parallel.sharding import gather_rows
+from structured_alignment_vqa_tpu_torch.parallel.sharding import (
+    full_state_dict,
+    gather_rows,
+    split_of,
+    unshard,
+)
 from structured_alignment_vqa_tpu_torch.parallel.train_step import TrainState
 
 _NAME = re.compile(r"^epoch_(\d+)\.pt$")
@@ -63,11 +73,12 @@ def latest_epoch(ckpt_dir: str) -> Optional[int]:
     return epochs[-1] if epochs else None
 
 
-def _untied_params(model: torch.nn.Module) -> Tuple[Dict[str, torch.Tensor], Dict[str, str]]:
+def _untied_params(state_dict: Dict[str, torch.Tensor]
+                   ) -> Tuple[Dict[str, torch.Tensor], Dict[str, str]]:
     params: Dict[str, torch.Tensor] = {}
     tied: Dict[str, str] = {}
     first: Dict[tuple, str] = {}
-    for name, t in model.state_dict().items():
+    for name, t in state_dict.items():
         key = (t.device, t.data_ptr(), t.dtype, tuple(t.shape), tuple(t.stride()))
         if key in first:
             tied[name] = first[key]
@@ -75,6 +86,26 @@ def _untied_params(model: torch.nn.Module) -> Tuple[Dict[str, torch.Tensor], Dic
             first[key] = name
             params[name] = t.detach().to("cpu", copy=True)
     return params, tied
+
+
+def _full_optimizer_state(state: TrainState) -> dict:
+    """The optimizer's state_dict with the moments of split parameters
+    gathered whole (the live state is left as it is)."""
+    sd = state.optimizer.state_dict()
+    splits = split_of(state.model)
+    if not splits:
+        return sd
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    order = [p for group in state.optimizer.param_groups for p in group["params"]]
+    out = dict(sd, state=dict(sd["state"]))
+    for i, p in enumerate(order):
+        split = splits.get(names.get(id(p)))
+        if split is None or i not in sd["state"]:
+            continue
+        out["state"][i] = {k: unshard(t, split, split.dim)
+                           if torch.is_tensor(t) and t.shape == p.shape and t.dim() else t
+                           for k, t in sd["state"][i].items()}
+    return out
 
 
 def save_checkpoint(ckpt_dir: str, state: TrainState, epoch: int,
@@ -88,6 +119,9 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, epoch: int,
     the file with every rank's generator state, the others wait for it."""
     path = checkpoint_path(ckpt_dir, epoch)
     generators = None
+    # whole tensors (every rank of a model row takes part in the gathers)
+    whole = full_state_dict(state.model)
+    optimizer = _full_optimizer_state(state)
     if mesh is not None and mesh.distributed:
         if generator is not None:
             (every,), sizes = gather_rows([generator.get_state()], mesh, dtype=torch.uint8)
@@ -98,8 +132,8 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, epoch: int,
             dist.barrier(group=mesh.cpu_group)
             return path
     os.makedirs(ckpt_dir, exist_ok=True)
-    params, tied = _untied_params(state.model)
-    payload = {"params": params, "tied": tied, "optimizer": state.optimizer.state_dict(),
+    params, tied = _untied_params(whole)
+    payload = {"params": params, "tied": tied, "optimizer": optimizer,
                "step": int(state.step), "epoch": int(epoch)}
     if state.table_opt is not None:
         topt = state.table_opt
@@ -144,7 +178,8 @@ def restore_checkpoint(ckpt_dir: str, state: TrainState, epoch: Optional[int] = 
     into ``state`` (in place), and ``generator``'s state when given and
     saved; returns ``(state, epoch)``. ``epoch=None`` takes the latest.
     With a ``mesh`` of several ranks each rank takes its own generator's
-    state; a checkpoint saved by another number of ranks raises."""
+    state (or its data row's: a checkpoint of one generator a data row); a
+    checkpoint saved by another number of ranks raises."""
     payload, epoch = _load(ckpt_dir, epoch)
     if (state.table_opt is None) != ("table_opt" not in payload):
         raise ValueError(f"{checkpoint_path(ckpt_dir, epoch)} and the state disagree on "
@@ -162,10 +197,14 @@ def restore_checkpoint(ckpt_dir: str, state: TrainState, epoch: Optional[int] = 
     if generator is not None and mesh is not None and mesh.distributed:
         saved = payload.get("generators", [payload["generator"]] if "generator" in payload
                             else [])
-        if len(saved) != mesh.world:
+        # one a rank, or one a data row (the ranks of a model row draw alike)
+        if len(saved) == mesh.world:
+            generator.set_state(saved[mesh.rank].clone())
+        elif len(saved) == mesh.data:
+            generator.set_state(saved[mesh.data_index].clone())
+        else:
             raise ValueError(f"{checkpoint_path(ckpt_dir, epoch)} holds the dropout generators "
                              f"of {len(saved)} rank(s); this run has {mesh.world}")
-        generator.set_state(saved[mesh.rank].clone())
     elif generator is not None and "generator" in payload:
         generator.set_state(payload["generator"])
     state.step = int(payload["step"])
