@@ -19,9 +19,14 @@ Phases, each of which must pass:
    tensor-core kernel's unaligned graph loads, one has a sample whose keys
    are all masked, one walks 300 keys in five steps;
 4. K3 (FFN + LayerNorm) the same way at 16,384, 8,448 and 128 rows and at
-   obj+rel's 6,144, 264 and 4 rows; each line says how many shards of the
-   hidden width the bf16 kernel took; 1,000 rows checks a ragged last
-   64-row tile;
+   obj+rel's 6,144, 264 and 4 rows, at C 2,048 (3,136 rows), and in f32 at
+   the variants' 64, 3,136, 6,336 and 19,200 rows and as the model axis's
+   partial (16,384 rows, a hidden shard of 1,024); each line says which
+   path the call took (the bf16 row-tile kernel or the products path) and
+   into how many shards the hidden width was split; 1,000 and 1,001 rows
+   check ragged last tiles; one f32 and the wide calls run under
+   torch.profiler, which must see only kernels of csrc/ffn.cu (no library
+   GEMM);
 5. K2 (the backward of K1) against its plain PyTorch version at K1's
    shapes, bf16 and f32, both renorms, with all-zero graph rows and masked
    keys; in f32 also against torch.autograd of K1's plain version; each line
@@ -214,8 +219,9 @@ Phases, each of which must pass:
 20. the model axis (``model``, ROADMAP item 15b): K1's attention-only and
     LayerNorm entries, K2 from d(o) and K3's partial and epilogue against
     their plain versions at the main path's model-2 shapes (B 128, L 128,
-    4 heads of 64; 16,384 rows of 512, a hidden shard of 1,024), bf16 and
-    f32, timed beside their bounds; then two gloo ranks on the one card
+    4 heads of 64; 16,384 rows of 512, a hidden shard of 1,024), and K4 on
+    4 heads of 64 at the obj+rel point (SDPA beside it), bf16 and f32,
+    timed beside their bounds; then two gloo ranks on the one card
     (worker processes of this script, ``--model-rank``) as (data 1, model
     2) at full width, the 407,000 x 300 table split by rows: the bf16
     serving forward at bs 128 against one process's (logits within 2^-4
@@ -253,6 +259,8 @@ H100_BYTES_PER_S = 3.35e12
 # float32 outside them (TF32 is off in every comparison here)
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: 2 ** -4, torch.float32: 1e-4}   # max |kernel - plain| per output
+# what a library GEMM's kernels are named (cuBLAS, CUTLASS, nvjet on Hopper)
+LIBRARY_GEMM_MARKS = ("gemm", "cublas", "cutlass", "nvjet")
 # K2, max |kernel - plain| over max |plain|, per output. bf16 outputs (dq,
 # dk, dv, dresidual): both sides sum in f32 in different orders and round
 # once to bf16, so an element can land one bf16 ulp (2^-7 of its binade)
@@ -343,6 +351,22 @@ PREVIOUS_MS = {
     ("K3", "rows=6144", torch.bfloat16): 0.3851,
     ("K3", "rows=264", torch.bfloat16): 0.1992,
     ("K3", "rows=4", torch.bfloat16): 0.1836,
+    # K3's f32 SIMT kernel and its wide kernel (C 2,048), before the products
+    # path: PERF.md's "now" times, and the last run of this script with that
+    # kernel for the f32 shapes PERF.md does not list
+    ("K3", "rows=16384", torch.float32): 3.8742,
+    ("K3", "rows=8448", torch.float32): 2.0497,
+    ("K3", "rows=128", torch.float32): 1.2537,
+    ("K3", "rows=6144", torch.float32): 1.8581,
+    ("K3", "rows=264", torch.float32): 1.2537,
+    ("K3", "rows=4", torch.float32): 1.2356,
+    ("K3", "rows=64", torch.float32): 1.2503,
+    ("K3", "rows=3136", torch.float32): 1.2660,
+    ("K3", "rows=6336", torch.float32): 1.8528,
+    ("K3", "rows=19200", torch.float32): 5.2220,
+    ("K3", "partial rows=16384 hidden=1024", torch.float32): 1.9399,
+    ("K3", "rows=3136 C=2048", torch.float32): 62.0351,
+    ("K3", "rows=3136 C=2048", torch.bfloat16): 56.8247,
     ("K4", "self L=1536", torch.bfloat16): 1.1309,
     ("K4", "cross Tq=1 Lk=1536", torch.bfloat16): 0.2123,
     ("K4", "self L=1536", torch.float32): 1.1177,
@@ -483,50 +507,119 @@ def k1_phase(gen) -> dict:
     return {r["label"] + str(r["dtype"]): r for r in rows}
 
 
+# the variants' f32 rows of K3 at C 512 (scripts/variant_kernel_times.py):
+# a decoder token, 49 regions, 99 and 300 tokens a sample of bs 64
+VARIANT_K3_ROWS = (64, 3136, 6336, 19200)
+
+
+def k3_inputs(gen, n: int, c: int, dtype, hidden: int = 0) -> tuple:
+    """K3's arguments at n rows of C (hidden 4C unless given)."""
+    dev = "cuda"
+    hidden = hidden or 4 * c
+    x = torch.randn(n, c, generator=gen, device=dev).to(dtype)
+    w1 = (torch.randn(hidden, c, generator=gen, device=dev) / c ** 0.5).to(dtype)
+    b1 = (0.05 * torch.randn(hidden, generator=gen, device=dev)).to(dtype)
+    w2 = (torch.randn(c, hidden, generator=gen, device=dev) / hidden ** 0.5).to(dtype)
+    b2 = (0.05 * torch.randn(c, generator=gen, device=dev)).to(dtype)
+    gamma = 1 + 0.05 * torch.randn(c, generator=gen, device=dev)
+    beta = 0.05 * torch.randn(c, generator=gen, device=dev)
+    return x, w1, b1, w2, b2, gamma, beta
+
+
+def k3_path(dtype, n: int, c: int, hidden: int = 0) -> str:
+    """Which of K3's designs a call of n rows takes, and its tiles."""
+    from structured_alignment_vqa_tpu_torch.ops import fused_ffn as k3
+
+    if k3.ffn_path(dtype, c) == "row-tile":
+        return "row-tile tensor-core kernel"
+    tile_rows = k3.products_plan(n, c, hidden or 4 * c, dtype)[0]
+    return (f"products {'SIMT' if dtype == torch.float32 else 'mma'} kernels, "
+            f"tiles of {tile_rows} x 128")
+
+
+def k3_device_kernels(fn, what: str) -> None:
+    """Check that one call of ``fn`` under torch.profiler launches only
+    kernels of csrc/ffn.cu and no library GEMM."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = sorted({e.name for e in prof.events()
+                    if e.device_type == DeviceType.CUDA and not e.is_user_annotation})
+    foreign = [n for n in names if not any(mine in n for mine in ("ffn_ln_", "ffn_partial_sum"))
+               or any(mark in n.lower() for mark in LIBRARY_GEMM_MARKS)]
+    check(bool(names) and not foreign,
+          f"K3 {what}: the device ran {len(names)} kernel(s), all of csrc/ffn.cu "
+          f"({', '.join(n[:60] for n in names)}); foreign {foreign}")
+
+
 def k3_phase(gen) -> dict:
     from structured_alignment_vqa_tpu_torch.ops import fused_ffn as k3
 
     rows = []
-    # (rows, C): 1,000 rows are no multiple of the bf16 kernel's 64-row tile;
-    # C 2,048 is the wide kernel (x2_fusion_dec_mil2's alignment FFN at the
-    # variant eval's bs 64 x 49 regions), 1,001 rows ragged in its 8-row tile
-    shapes = [(n, C) for n in (16384, 8448, 128, REL_B * REL_L, REL_B * (REL_LV + REL_LQ),
-                               REL_B, 1000)] + [(VARIANT_B * VARIANT_LV, WIDE_C), (1001, WIDE_C)]
-    for dtype in (torch.bfloat16, torch.float32):
-        for n, c in shapes:
-            dev = "cuda"
+    # (rows, C, dtypes): 1,000 rows are no multiple of a 64- or 128-row tile;
+    # C 2,048 is x2_fusion_dec_mil2's alignment FFN at the variant eval's bs
+    # 64 x 49 regions, 1,001 rows ragged there; the variants' f32 rows
+    both = (torch.bfloat16, torch.float32)
+    shapes = [(n, C, both) for n in (16384, 8448, 128, REL_B * REL_L, REL_B * (REL_LV + REL_LQ),
+                                     REL_B, 1000)]
+    shapes += [(VARIANT_B * VARIANT_LV, WIDE_C, both), (1001, WIDE_C, both)]
+    shapes += [(n, C, (torch.float32,)) for n in VARIANT_K3_ROWS]
+    for dtype in both:
+        for n, c, dtypes in shapes:
+            if dtype not in dtypes:
+                continue
             hidden = 4 * c
-            x = torch.randn(n, c, generator=gen, device=dev).to(dtype)
-            w1 = (torch.randn(hidden, c, generator=gen, device=dev) / c ** 0.5).to(dtype)
-            b1 = (0.05 * torch.randn(hidden, generator=gen, device=dev)).to(dtype)
-            w2 = (torch.randn(c, hidden, generator=gen, device=dev) / hidden ** 0.5).to(dtype)
-            b2 = (0.05 * torch.randn(c, generator=gen, device=dev)).to(dtype)
-            gamma = 1 + 0.05 * torch.randn(c, generator=gen, device=dev)
-            beta = 0.05 * torch.randn(c, generator=gen, device=dev)
-            args = (x, w1, b1, w2, b2, gamma, beta)
+            args = k3_inputs(gen, n, c, dtype)
             got = k3.fused_ffn(*args)
             want = k3.ffn_ln_plain(*args)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             n_split = k3.kernel_ffn_split(dtype, n, c, hidden)[0]
-            path = ("wide simt" if c in k3.WIDE_WIDTHS
-                    else "tensor-core" if dtype == torch.bfloat16 else "simt")
+            path = k3_path(dtype, n, c)
             label = f"rows={n}" if c == C else f"rows={n} C={c}"
             check(err <= TOL[dtype] and bool(torch.isfinite(got.float()).all()),
-                  f"K3 {label} {dtype}: {path} kernel, hidden width in {n_split} shard(s), "
+                  f"K3 {label} {dtype}: {path}, hidden width in {n_split} shard(s), "
                   f"max|kernel-plain| {err:.3g} <= {TOL[dtype]:g}")
             if n in (1000, 1001):
                 continue
+            if (n, c) in ((16384, C), (VARIANT_B * VARIANT_LV, WIDE_C)) and (
+                    dtype == torch.float32 or c == WIDE_C):
+                k3_device_kernels(lambda: k3.fused_ffn(*args), f"{label} {dtype}")
             ms = time_ms(lambda: k3.fused_ffn(*args))
             plain_ms = time_ms(lambda: k3.ffn_ln_plain(*args))
             size = torch.finfo(dtype).bits // 8
             nbytes = size * (2 * n * c + 2 * c * hidden + hidden + c) + 8 * c
             bound_ms, bound_by = bound(nbytes, 4.0 * n * c * hidden, dtype)
-            print(f"K3 {label} {dtype}: {path} kernel, {n_split} shard(s), {ms:.4f} ms"
+            print(f"K3 {label} {dtype}: {path}, {n_split} shard(s), {ms:.4f} ms"
                   f"{previous('K3', label, dtype)}, plain {plain_ms:.4f} ms, "
                   f"bound {bound_ms * 1e3:.2f} us ({bound_by})", flush=True)
             rows.append(dict(label=label, dtype=dtype, err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by))
+
+    # the model axis's f32 partial of a hidden shard: 16,384 rows, shard 1,024
+    dtype, n, hidden = torch.float32, MODEL_ROWS, MODEL_HIDDEN
+    x, w1, b1, w2 = k3_inputs(gen, n, C, dtype, hidden)[:4]
+    got, want = k3.ffn_partial(x, w1, b1, w2), k3.ffn_partial_plain(x, w1, b1, w2)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    n_split = k3.kernel_ffn_split(dtype, n, C, hidden)[0]
+    label = f"partial rows={n} hidden={hidden}"
+    check(err <= TOL[dtype] and bool(torch.isfinite(got).all()),
+          f"K3 {label} {dtype}: {k3_path(dtype, n, C, hidden)}, hidden shard in {n_split} block "
+          f"shard(s), max|kernel-plain| {err:.3g} <= {TOL[dtype]:g}")
+    ms = time_ms(lambda: k3.ffn_partial(x, w1, b1, w2))
+    plain_ms = time_ms(lambda: k3.ffn_partial_plain(x, w1, b1, w2))
+    bound_ms, bound_by = bound(4 * (2 * n * C + 2 * C * hidden + hidden), 4.0 * n * C * hidden,
+                               dtype)
+    print(f"K3 {label} {dtype}: {k3_path(dtype, n, C, hidden)}, {n_split} shard(s), {ms:.4f} ms"
+          f"{previous('K3', label, dtype)}, plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms * 1e3:.2f} us ({bound_by})", flush=True)
+    rows.append(dict(label=label, dtype=dtype, err=err, ms=ms, plain_ms=plain_ms,
+                     bound_ms=bound_ms, bound_by=bound_by))
     return {r["label"] + str(r["dtype"]): r for r in rows}
 
 
@@ -736,7 +829,7 @@ def k4_phase(gen) -> dict:
     return {r["label"] + str(r["dtype"]): r for r in rows}
 
 
-def sdpa_yardstick(args) -> tuple:
+def sdpa_yardstick(args, heads: int = HEADS) -> tuple:
     """One library call beside K4, timed and used nowhere in the port:
     ``scaled_dot_product_attention`` with ``graph > 0 and key unmasked`` as a
     boolean mask. For a 0/1 graph it is K4's l1 output on every row that has
@@ -750,13 +843,13 @@ def sdpa_yardstick(args) -> tuple:
 
     q, k, v, key_mask, query_mask, graph = args
     b, tq, c = q.shape
-    dh = c // HEADS
-    qh, kh, vh = (t.reshape(b, t.shape[1], HEADS, dh).transpose(1, 2) for t in (q, k, v))
+    dh = c // heads
+    qh, kh, vh = (t.reshape(b, t.shape[1], heads, dh).transpose(1, 2) for t in (q, k, v))
     mask = ((graph > 0) & (key_mask[:, None, :] > 0))[:, None]
     call = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
     ms = time_ms(call)
     lib = call().transpose(1, 2).reshape(b, tq, c).float()
-    ours = fl.flash_graph_attention(*args, HEADS, "l1").float()
+    ours = fl.flash_graph_attention(*args, heads, "l1").float()
     rows = mask[:, 0].any(dim=-1) & (query_mask > 0)
     err = (lib - ours)[rows].abs().max().item() if bool(rows.any()) else 0.0
     return ms, err
@@ -932,7 +1025,7 @@ def profile_device(fn, what: str) -> dict:
     groups = {key: 0.0 for key, _ in markers}
     groups.update(gemm=0.0, other=0.0)
     def is_gemm(name: str) -> bool:   # cuBLAS's bf16 kernels on Hopper may be nvjet_*
-        return any(mark in name.lower() for mark in ("gemm", "nvjet", "cublas"))
+        return any(mark in name.lower() for mark in LIBRARY_GEMM_MARKS)
 
     for name, (_, us) in by_name.items():
         key = next((key for key, mark in markers if mark in name),
@@ -3658,23 +3751,26 @@ def model_entries(card: str) -> dict:
     """The model axis's entries of K1, K2 and K3 against their plain
     versions at the main path's model-2 shapes (bf16 and f32), timed beside
     their bounds: {entry: row of the bf16 run}."""
+    from structured_alignment_vqa_tpu_torch.ops import flash_graph_attention as fl
     from structured_alignment_vqa_tpu_torch.ops import fused_ffn as k3
     from structured_alignment_vqa_tpu_torch.ops import fused_graph_attention as k1
 
     gen = torch.Generator(device="cuda").manual_seed(77)
     rows = {}
 
-    def row(entry, dtype, errs, tol, fn, plain, nbytes, ops, shape):
+    def row(entry, dtype, errs, tol, fn, plain, nbytes, ops, shape, library=None):
         err = max(errs)
         check(err <= tol, f"{entry} {shape} {dtype}: max|kernel-plain|/max|plain| {err:.3g} "
               f"<= {tol:g}")
         ms, plain_ms = time_ms(fn), time_ms(plain, iters=5)
         bound_ms, bound_by = bound(nbytes, ops, dtype)
+        library_ms = None if library is None else library[0]
+        lib = "none" if library is None else (f"{library[1]} {library_ms:.4f} ms")
         print(f"{entry} {shape} {dtype}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bound_ms * 1e3:.2f} us ({bound_by}); library: none on {card}", flush=True)
+              f"{bound_ms * 1e3:.2f} us ({bound_by}); library: {lib} on {card}", flush=True)
         if dtype == torch.bfloat16:
             rows[entry] = dict(name=entry, err=err, tolerance=tol, ms=ms, plain_ms=plain_ms,
-                               bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                               bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
                                shape=f"bf16 {shape}")
 
     for dtype in (torch.bfloat16, torch.float32):
@@ -3745,6 +3841,23 @@ def model_entries(card: str) -> dict:
             lambda: k3.ffn_partial(x, w1, b1, w2), lambda: k3.ffn_partial_plain(x, w1, b1, w2),
             nb, 4.0 * MODEL_ROWS * C * MODEL_HIDDEN, shape)
         del x, w1, w2, got, want
+        # K4 on a rank's 4 heads of 64 at the obj+rel point (B 4, self L 1,536)
+        q, k, v, key_mask, query_mask, graph = flash_inputs(gen, "self L=1536", REL_L, REL_L,
+                                                            dtype)
+        q, k, v = (t[..., :MODEL_C].contiguous() for t in (q, k, v))
+        args = (q, k, v, key_mask, query_mask, graph)
+        shape = f"B={REL_B} L={REL_L} C={MODEL_C} H={MODEL_HEADS}"
+        k4_against_plain(shape, args, MODEL_HEADS)
+        got = fl.flash_graph_attention(*args, MODEL_HEADS, "l1")
+        want = fl.flash_graph_attention_plain(*args, MODEL_HEADS, "l1")
+        nb = size * REL_B * MODEL_C * 4 * REL_L + 4 * REL_B * (REL_L * REL_L + 2 * REL_L)
+        library_ms, _ = sdpa_yardstick(args, MODEL_HEADS)
+        row("K4 heads", dtype, [rel_err(got, want)], TOL[dtype],
+            lambda: fl.flash_graph_attention(*args, MODEL_HEADS, "l1"),
+            lambda: fl.flash_graph_attention_plain(*args, MODEL_HEADS, "l1"),
+            nb, 4.0 * REL_B * REL_L * REL_L * MODEL_C, shape,
+            library=(library_ms, "SDPA, the graph as a boolean mask"))
+        del args, got, want
         torch.cuda.empty_cache()
     return rows
 
@@ -3923,6 +4036,7 @@ def model_phase(card: str) -> dict:
         path[key] += path[entry]
     for entry in ("K1 ln", "K3 epilogue"):
         entries[entry]["launches"] = path[entry]
+    entries["K4 heads"]["launches"] = path["K4"]   # every K4 of the path runs on a rank's heads
     check(all(path[k] > 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K1 ln",
                                     "K3 epilogue")),
           f"model: every kernel of the path launched: {path}")

@@ -162,8 +162,10 @@ def k3_call(lib, gen, n: int):
     keep = (x, w1, b1, w2, b2, gamma, beta, out, partial)
     fn = lib.savqa_ffn_ln
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    args = [t.data_ptr() for t in keep] + [n, C, HIDDEN, 1, n_split, per,
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    # the row-tile kernel takes no hidden scratch and reads no tile rows
+    ptrs = [t.data_ptr() for t in keep]
+    args = ptrs[:8] + [None] + ptrs[8:] + [n, C, HIDDEN, 1, n_split, per, k3.PRODUCT_TILE,
                                            torch.cuda.current_stream().cuda_stream]
 
     def call(keep=keep):   # the inputs live as long as the call

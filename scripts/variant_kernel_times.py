@@ -10,8 +10,10 @@ eval CLI does (``train/evaluate_variants.py``, bs 64, hidden 512, 8 heads).
 Shapes (``chip_smoke.py`` phase ``variants``): K1 at B 64 self L 99 and
 300, one query into 99 and 300, 50 queries into 299 (x5's); K3 at 64,
 3,136, 6,336 and 19,200 rows of 512 (a decoder token, 49 regions, 99 and
-300 tokens a sample); K4 at x3_ori's B 4, self L 1,536 and one query into
-1,536. The card's name and power limit come first.
+300 tokens a sample) and at 3,136 rows of 2,048 (x2_fusion_dec_mil2's
+alignment FFN over 49 regions); K4 at x3_ori's B 4, self L 1,536 and one
+query into 1,536. The card's name and power limit come first, then
+ptxas's registers and spills of K3's kernels.
 """
 
 import os
@@ -26,7 +28,7 @@ import chip_smoke as cs  # noqa: E402
 VARIANT_B = 64
 K1_SHAPES = (("self L=99", 99, 99), ("self L=300", 300, 300), ("cross Tq=1 Lk=99", 1, 99),
              ("cross Tq=1 Lk=300", 1, 300), ("cross Tq=50 Lk=299 (x5)", 50, 299))
-K3_ROWS = (64, 3136, 6336, 19200)
+K3_SHAPES = ((64, 512), (3136, 512), (6336, 512), (19200, 512), (3136, 2048))   # (rows, C)
 K4_SHAPES = (("self L=1536", cs.REL_L, cs.REL_L), ("cross Tq=1 Lk=1536", 1, cs.REL_L))
 
 
@@ -44,6 +46,8 @@ def main() -> int:
     card = cs.card_line()
     print(f"card: {card}", flush=True)
     _build.build_all()
+    for line in _build.register_lines(_build.build_log("ffn")):
+        print(f"  ffn: {line}", flush=True)
     dtype, size = torch.float32, 4
     gen = torch.Generator(device="cuda").manual_seed(21)
     c, heads = cs.C, cs.HEADS
@@ -60,23 +64,19 @@ def main() -> int:
               f"{bound_ms * 1e3:.2f} us ({by}), max|kernel-plain| {err:.3g}; library: none",
               flush=True)
 
-    hidden = 4 * c
-    for rows in K3_ROWS:
-        x = torch.randn(rows, c, generator=gen, device="cuda")
-        w1 = torch.randn(hidden, c, generator=gen, device="cuda") / c ** 0.5
-        b1 = 0.05 * torch.randn(hidden, generator=gen, device="cuda")
-        w2 = torch.randn(c, hidden, generator=gen, device="cuda") / hidden ** 0.5
-        b2 = 0.05 * torch.randn(c, generator=gen, device="cuda")
-        gamma = 1 + 0.05 * torch.randn(c, generator=gen, device="cuda")
-        beta = 0.05 * torch.randn(c, generator=gen, device="cuda")
-        a = (x, w1, b1, w2, b2, gamma, beta)
+    for rows, width in K3_SHAPES:
+        a = cs.k3_inputs(gen, rows, width, dtype)
+        hidden = 4 * width
         err = (k3.fused_ffn(*a) - k3.ffn_ln_plain(*a)).abs().max().item()
-        cs.check(err <= cs.TOL[dtype], f"K3 f32 rows={rows}: max|kernel-plain| {err:.3g}")
+        label = f"rows={rows}" if width == c else f"rows={rows} C={width}"
+        cs.check(err <= cs.TOL[dtype], f"K3 f32 {label}: max|kernel-plain| {err:.3g}")
         ms = cs.time_ms(lambda: k3.fused_ffn(*a))
         plain_ms = cs.time_ms(lambda: k3.ffn_ln_plain(*a))
-        nbytes = size * (2 * rows * c + 2 * c * hidden + hidden + c) + 8 * c
-        bound_ms, by = cs.bound(nbytes, 4.0 * rows * c * hidden, dtype)
-        print(f"K3 f32 rows={rows}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        nbytes = size * (2 * rows * width + 2 * width * hidden + hidden + width) + 8 * width
+        bound_ms, by = cs.bound(nbytes, 4.0 * rows * width * hidden, dtype)
+        n_split = k3.kernel_ffn_split(dtype, rows, width, hidden)[0]
+        print(f"K3 f32 {label}: {cs.k3_path(dtype, rows, width)}, {n_split} shard(s), "
+              f"{ms:.4f} ms{cs.previous('K3', label, dtype)}, plain {plain_ms:.4f} ms, bound "
               f"{bound_ms * 1e3:.2f} us ({by}); library: none", flush=True)
 
     for label, tq, tk in K4_SHAPES:

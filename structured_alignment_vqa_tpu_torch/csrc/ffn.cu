@@ -9,26 +9,37 @@
 //   y   = W2 h + b2 + x              f32
 //   out = gamma (y - mean) / (std + 1e-8) + beta, std unbiased
 //
-// What bounds it on an H100: operations. At 16,384 rows, C 512, bf16 it does
-// 6.9e10 operations on ~37 MB (about 1,900 per byte, far above the ~295
-// ridge); at the decoder's 128 rows the 4 MB of weights bound it instead.
-// Far above either bound, what sets the bf16 path's time is the weight
-// bytes every block streams from L2 and the shared-memory traffic of
-// mma.sync's small tiles.
+// What bounds it on an H100: operations. At 16,384 rows, C 512 it does
+// 6.9e10 operations on ~37 MB in bf16 (about 1,900 per byte, far above the
+// ~295 ridge) and on ~75 MB in f32; at the decoder's 128 rows the 4 MB of
+// bf16 weights bound it instead. f32 has no tensor-core form that keeps
+// f32 products (TF32 keeps about 3 digits; the f32 path is held to 1e-4),
+// so its bound is FFMA on the CUDA cores, 67 TFLOP/s.
 //
-// Design. A block owns a tile of rows and walks the hidden width in chunks
-// of 64: the chunk h = relu(x W1[chunk]^T + b1) is built on chip and never
-// written to device memory, then y += h W2[:, chunk]^T is accumulated on
-// chip, so the residual and the LayerNorm finish in the block. Every block
-// reads both weight matrices once (from L2 after the first blocks).
+// Two designs, by dtype and width:
 //
-// bf16 runs on the tensor cores (below). float32 has no tensor-core form
-// that keeps f32 products, so it runs on CUDA cores: one block of 256
-// threads per 32 rows, FMAs from shared-memory slices of W1 and W2, y in
-// registers (each warp 4 whole rows). wgmma and TMA are not used.
+// * bf16 at C <= 512 (ffn_ln_tc_kernel, below): the TPU kernel's shape. A
+//   block owns 64 rows and walks the hidden width in chunks of 64 on the
+//   tensor cores: the chunk h = relu(x W1[chunk]^T + b1) is built on chip
+//   and never written to device memory, y += h W2[:, chunk]^T accumulates in
+//   registers, and the residual and the LayerNorm finish in the block.
+//
+// * float32 at every width, and bf16 at C 2,048 (the products path, further
+//   below): two kernels shaped like GEMMs, then the shard-sum kernel. The
+//   hidden activation goes through device memory: at 16,384 rows its round
+//   trip is 268 MB in f32 (~0.08 ms, 8% of the 1.03 ms bound), while a fused
+//   block would have to stream both weight matrices once per row tile (the
+//   old f32 kernel, 32 rows a block: 4.3 GB through L2) and, at C 2,048, a
+//   64-row tile of f32 y alone is 512 KB against a block's 227 KB. A GEMM
+//   tile of 128 x 128 reads each operand once per 128 rows or columns, and
+//   its register blocking (f32: 8 x 8 a thread, 4 FMAs per shared word) is
+//   what FFMA peak needs. wgmma and TMA are not used (bf16 C 2,048 is off
+//   every serving and training path; f32 cannot use them).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+
+#include <type_traits>
 
 #include "mma_sm90.cuh"
 
@@ -38,157 +49,12 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 32;       // rows per block
-constexpr int kHidden = 64;     // hidden chunk
+constexpr int kHidden = 64;     // hidden chunk: the unit of Hd and of a shard
 constexpr float kLnEps = 1e-8f;
 
 __device__ __forceinline__ float warp_sum(float x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
-}
-
-// ---------------------------------------------------------------- float32
-
-constexpr int kRed = 32;        // C slice of W1 staged per step
-constexpr int kRed2 = 16;       // hidden slice of W2 staged per step
-
-template <int C>
-constexpr size_t f32_smem_floats() {
-  return (size_t)kRows * (C + 1)          // xs: the row tile
-         + (size_t)kRows * (kHidden + 1)  // hs: the hidden chunk
-         + (size_t)kRed * (kHidden + 1)   // w1s: W1 slice, transposed
-         + (size_t)kRed2 * (C + 1);       // w2s: W2 slice, transposed
-}
-
-template <int C>
-__global__ void __launch_bounds__(kThreads)
-ffn_ln_f32_kernel(const float* __restrict__ x, const float* __restrict__ w1,
-                  const float* __restrict__ b1, const float* __restrict__ w2,
-                  const float* __restrict__ b2, const float* __restrict__ gamma,
-                  const float* __restrict__ beta, float* __restrict__ out,
-                  float* __restrict__ partial, int N, int Hd) {
-  constexpr int XS = C + 1;
-  constexpr int HS = kHidden + 1;
-  constexpr int W1S = kHidden + 1;
-  constexpr int W2S = C + 1;
-  constexpr int kCols = C / 32;  // output columns per lane
-  extern __shared__ float smem[];
-  float* xs = smem;
-  float* hs = xs + kRows * XS;
-  float* w1s = hs + kRows * HS;
-  float* w2s = w1s + kRed * W1S;
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int row0 = blockIdx.x * kRows;
-
-  for (int i = tid; i < kRows * C; i += kThreads) {
-    const int r = i / C, c = i - r * C;
-    xs[r * XS + c] = row0 + r < N ? x[(size_t)(row0 + r) * C + c] : 0.f;
-  }
-
-  // phase A mapping: rows 2*ay, 2*ay+1; hidden columns ax + 16*t
-  const int ax = tid & 15;
-  const int ay = tid >> 4;
-  float y[4][kCols];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int t = 0; t < kCols; ++t) y[r][t] = 0.f;
-
-  for (int j0 = 0; j0 < Hd; j0 += kHidden) {
-    // h = relu(x W1[j0:j0+64]^T + b1)
-    float hacc[2][4] = {};
-    for (int k0 = 0; k0 < C; k0 += kRed) {
-      __syncthreads();  // xs loaded; the previous slice's readers of w1s done
-      for (int i = tid; i < kRed * kHidden; i += kThreads) {
-        const int kk = i % kRed, jj = i / kRed;
-        w1s[kk * W1S + jj] = w1[(size_t)(j0 + jj) * C + k0 + kk];
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < kRed; ++kk) {
-        const float a0 = xs[(2 * ay) * XS + k0 + kk];
-        const float a1 = xs[(2 * ay + 1) * XS + k0 + kk];
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          const float w = w1s[kk * W1S + ax + 16 * t];
-          hacc[0][t] = fmaf(a0, w, hacc[0][t]);
-          hacc[1][t] = fmaf(a1, w, hacc[1][t]);
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const int jj = ax + 16 * t;
-        hs[(2 * ay + r) * HS + jj] = fmaxf(hacc[r][t] + b1[j0 + jj], 0.f);
-      }
-
-    // y += h W2[:, j0:j0+64]^T; warp owns rows 4*warp..4*warp+3
-    for (int k0 = 0; k0 < kHidden; k0 += kRed2) {
-      __syncthreads();  // hs written; the previous slice's readers of w2s done
-      for (int i = tid; i < kRed2 * C; i += kThreads) {
-        const int kk = i % kRed2, n = i / kRed2;
-        w2s[kk * W2S + n] = w2[(size_t)n * Hd + j0 + k0 + kk];
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < kRed2; ++kk) {
-        float a[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) a[r] = hs[(4 * warp + r) * HS + k0 + kk];
-#pragma unroll
-        for (int t = 0; t < kCols; ++t) {
-          const float w = w2s[kk * W2S + lane + 32 * t];
-#pragma unroll
-          for (int r = 0; r < 4; ++r) y[r][t] = fmaf(a[r], w, y[r][t]);
-        }
-      }
-    }
-  }
-
-  if (partial != nullptr) {   // the model axis's partial y = h W2^T of this hidden shard
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = 4 * warp + r;
-      if (row0 + row >= N) continue;
-#pragma unroll
-      for (int t = 0; t < kCols; ++t) partial[(size_t)(row0 + row) * C + lane + 32 * t] = y[r][t];
-    }
-    return;
-  }
-
-  // + b2 + x, then LayerNorm over the row; each warp holds its 4 rows whole
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = 4 * warp + r;
-    float s = 0.f;
-#pragma unroll
-    for (int t = 0; t < kCols; ++t) {
-      const int c = lane + 32 * t;
-      y[r][t] = (y[r][t] + b2[c]) + xs[row * XS + c];
-      s += y[r][t];
-    }
-    const float mean = warp_sum(s) / (float)C;
-    float ss = 0.f;
-#pragma unroll
-    for (int t = 0; t < kCols; ++t) {
-      const float d = y[r][t] - mean;
-      ss += d * d;
-    }
-    const float var = warp_sum(ss) / (float)(C - 1);
-    const float sd = var > 0.f ? sqrtf(var) : 0.f;
-    if (row0 + row < N) {
-#pragma unroll
-      for (int t = 0; t < kCols; ++t) {
-        const int c = lane + 32 * t;
-        out[(size_t)(row0 + row) * C + c] = gamma[c] * (y[r][t] - mean) / (sd + kLnEps) + beta[c];
-      }
-    }
-  }
 }
 
 // ------------------------------------------------------------------- bf16
@@ -222,6 +88,7 @@ ffn_ln_f32_kernel(const float* __restrict__ x, const float* __restrict__ w1,
 
 using bf16 = __nv_bfloat16;
 using savqa::cp_async16;
+using savqa::cp_async4;
 using savqa::cp_async_commit;
 using savqa::cp_async_wait;
 using savqa::frag_a_row;
@@ -461,13 +328,14 @@ ffn_ln_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
     }
 }
 
-// The split path's second kernel: per row, y = the shards' partial sums in
+// The split path's second kernel, and the last of the products path in
+// bf16 and at C 2,048 (below): per row, y = the shards' partial sums in
 // shard order, + b2 + x, then the LayerNorm; one warp a row, a lane owning
 // the 4-column chunks 4 lane + 128 i. The loads of kAhead shards are issued
 // before any is added, so a row waits for ceil(n_split / kAhead) round trips
-// to L2 and not n_split. With n_split 1 and T float or bf16 it is also the
-// model axis's epilogue (savqa_ffn_epilogue): y there is the partials summed
-// over the ranks.
+// to L2 and not n_split. No atomics: every run sums alike. With n_split 1
+// and T float or bf16 it is also the model axis's epilogue
+// (savqa_ffn_epilogue): y there is the partials summed over the ranks.
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 
@@ -485,7 +353,7 @@ ffn_ln_shard_sum_kernel(const float* __restrict__ partial, const T* __restrict__
                         const float* __restrict__ beta, T* __restrict__ out, int N,
                         int n_split) {
   constexpr int kChunks = C / 128;
-  constexpr int kAhead = 4;
+  constexpr int kAhead = C <= 512 ? 4 : 1;   // C 2,048: a lane's 64 sums and one shard's loads
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= N) return;
@@ -540,8 +408,8 @@ ffn_ln_shard_sum_kernel(const float* __restrict__ partial, const T* __restrict__
   }
 }
 
-// The model axis's sum of this rank's own hidden shards (ffn_split): out =
-// the n_split partials added in shard order, element by element.
+// The model axis's sum of this rank's own hidden shards (bf16): out = the
+// n_split partials added in shard order, element by element.
 __global__ void __launch_bounds__(kThreads)
 ffn_partial_sum_kernel(const float* __restrict__ partial, float* __restrict__ out,
                        size_t n, int n_split) {
@@ -553,159 +421,394 @@ ffn_partial_sum_kernel(const float* __restrict__ partial, float* __restrict__ ou
   }
 }
 
-// ------------------------------------------------------------ wide rows
-//
-// C = 2048 (fusion_dec_mil2's alignment blocks run the FFN at the region
-// features' width): a 64-row tile of x alone would take 256 KB of shared
-// memory in bf16, so neither kernel above fits. This one keeps 8 rows a
-// block as f32 in shared memory and works on CUDA cores in both dtypes
-// (inputs widened to f32, h rounded to the input type before the second
-// product, as the tensor-core path does): phase A forms the 8 x 64 hidden
-// chunk, two rows and one hidden column a thread, from 32-wide slices of
-// W1; phase B adds h W2[:, chunk]^T into y, warp w owning row w whole
-// (64 columns a lane in registers), from 8-deep slices of W2; the warp
-// then adds b2 and x and runs the LayerNorm on its row. Every block reads
-// both weight matrices once (from L2 after the first blocks): slow, and
-// right first (wgmma over column tiles is work for a later change).
-
-constexpr int kWRows = 8;    // rows per block: one warp a row in phase B
-constexpr int kWRed = 32;    // C slice of W1 staged per step
-constexpr int kWRed2 = 8;    // hidden slice of W2 staged per step
-
+// The f32 products path's last kernel at C 128-512: per row, y (one shard,
+// a k-ascending FMA chain over the whole hidden width) + b2 + x, then the
+// LayerNorm; one warp a row, lane l owning the columns l + 32 t, the sums
+// taken over t in order. These are the sums, in their order, of the f32
+// SIMT kernel this path replaced (ffn_ln_f32_kernel, 32 rows a block): f32
+// results at C <= 512 are the same bits as that kernel's, only faster.
 template <int C>
-constexpr size_t wide_smem_floats() {
-  return (size_t)kWRows * C                  // xs: the row tile, f32
-         + (size_t)kWRows * (kHidden + 1)    // hs: the hidden chunk
-         + (size_t)kWRed * (kHidden + 1)     // w1s: W1 slice, transposed
-         + (size_t)kWRed2 * C;               // w2s: W2 slice, transposed
-}
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(bf16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T narrow(float v);
-template <> __device__ __forceinline__ float narrow<float>(float v) { return v; }
-template <> __device__ __forceinline__ bf16 narrow<bf16>(float v) { return __float2bfloat16(v); }
-
-template <int C, typename T>
 __global__ void __launch_bounds__(kThreads)
-ffn_ln_wide_kernel(const T* __restrict__ x, const T* __restrict__ w1, const T* __restrict__ b1,
-                   const T* __restrict__ w2, const T* __restrict__ b2,
-                   const float* __restrict__ gamma, const float* __restrict__ beta,
-                   T* __restrict__ out, int N, int Hd) {
-  constexpr int HS = kHidden + 1;
-  constexpr int kCols = C / 32;  // output columns per lane
-  extern __shared__ float smem[];
-  float* xs = smem;
-  float* hs = xs + kWRows * C;
-  float* w1s = hs + kWRows * HS;
-  float* w2s = w1s + kWRed * HS;
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int row0 = blockIdx.x * kWRows;
-  for (int i = tid; i < kWRows * C; i += kThreads) {
-    const int r = i / C, c = i - r * C;
-    xs[i] = row0 + r < N ? widen(x[(size_t)(row0 + r) * C + c]) : 0.f;
-  }
-  const int jj = tid & (kHidden - 1);   // phase A: hidden column
-  const int ar = 2 * (tid / kHidden);   // phase A: rows ar, ar + 1
-  float y[kCols];
-#pragma unroll
-  for (int t = 0; t < kCols; ++t) y[t] = 0.f;
-
-  for (int j0 = 0; j0 < Hd; j0 += kHidden) {
-    float h0 = 0.f, h1 = 0.f;
-    for (int k0 = 0; k0 < C; k0 += kWRed) {
-      __syncthreads();  // xs loaded; the previous slice's readers of w1s done
-      for (int i = tid; i < kWRed * kHidden; i += kThreads) {
-        const int kk = i % kWRed, j = i / kWRed;
-        w1s[kk * HS + j] = widen(w1[(size_t)(j0 + j) * C + k0 + kk]);
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < kWRed; ++kk) {
-        const float w = w1s[kk * HS + jj];
-        h0 = fmaf(xs[ar * C + k0 + kk], w, h0);
-        h1 = fmaf(xs[(ar + 1) * C + k0 + kk], w, h1);
-      }
-    }
-    const float bb = widen(b1[j0 + jj]);
-    hs[ar * HS + jj] = widen(narrow<T>(fmaxf(h0 + bb, 0.f)));
-    hs[(ar + 1) * HS + jj] = widen(narrow<T>(fmaxf(h1 + bb, 0.f)));
-
-    for (int k0 = 0; k0 < kHidden; k0 += kWRed2) {
-      __syncthreads();  // hs written; the previous slice's readers of w2s done
-      for (int i = tid; i < kWRed2 * C; i += kThreads) {
-        const int kk = i % kWRed2, n = i / kWRed2;
-        w2s[kk * C + n] = widen(w2[(size_t)n * Hd + j0 + k0 + kk]);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < kWRed2; ++kk) {
-        const float a = hs[warp * HS + k0 + kk];
-#pragma unroll
-        for (int t = 0; t < kCols; ++t) y[t] = fmaf(a, w2s[kk * C + lane + 32 * t], y[t]);
-      }
-    }
-  }
-
-  // + b2 + x, then the LayerNorm of row `warp`
+ffn_ln_f32_epilogue_kernel(const float* __restrict__ y, const float* __restrict__ x,
+                           const float* __restrict__ b2, const float* __restrict__ gamma,
+                           const float* __restrict__ beta, float* __restrict__ out, int N) {
+  constexpr int kCols = C / 32;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= N) return;
+  const float* yr = y + (size_t)row * C;
+  const float* xr = x + (size_t)row * C;
+  float v[kCols];
   float s = 0.f;
 #pragma unroll
   for (int t = 0; t < kCols; ++t) {
     const int c = lane + 32 * t;
-    y[t] = (y[t] + widen(b2[c])) + xs[warp * C + c];
-    s += y[t];
+    v[t] = (yr[c] + b2[c]) + xr[c];
+    s += v[t];
   }
   const float mean = warp_sum(s) / (float)C;
   float ss = 0.f;
 #pragma unroll
-  for (int t = 0; t < kCols; ++t) ss += (y[t] - mean) * (y[t] - mean);
+  for (int t = 0; t < kCols; ++t) {
+    const float d = v[t] - mean;
+    ss += d * d;
+  }
   const float var = warp_sum(ss) / (float)(C - 1);
   const float sd = var > 0.f ? sqrtf(var) : 0.f;
-  if (row0 + warp < N) {
+  float* orow = out + (size_t)row * C;
 #pragma unroll
-    for (int t = 0; t < kCols; ++t) {
-      const int c = lane + 32 * t;
-      out[(size_t)(row0 + warp) * C + c] =
-          narrow<T>(gamma[c] * (y[t] - mean) / (sd + kLnEps) + beta[c]);
+  for (int t = 0; t < kCols; ++t) {
+    const int c = lane + 32 * t;
+    orow[c] = gamma[c] * (v[t] - mean) / (sd + kLnEps) + beta[c];
+  }
+}
+
+// ------------------------------------------------------- the products path
+//
+// float32 at C 128-2,048 and bf16 at C 2,048 (ops/fused_ffn.py:ffn_path
+// "products"), three kernels counted as one launch:
+//   1. hidden = relu(x W1^T + b1), (N, Hd) in x's type, into scratch;
+//   2. y_s = hidden[:, shard s] W2[:, shard s]^T for each of n_split shards
+//      of the hidden width, (n_split, N, C) f32, into scratch;
+//   3. + b2 + x and the LayerNorm: ffn_ln_f32_epilogue_kernel<C> (above) for
+//      f32 at C <= 512, which takes one shard; else ffn_ln_shard_sum_kernel
+//      <C, T>, the shards summed in order first. The model axis's partial
+//      entry ends after stage 2 instead (one shard written straight into
+//      its output, or ffn_partial_sum_kernel over several).
+// In f32 at C <= 512 both products are one k-ascending FMA chain per
+// output and the LayerNorm sums as the replaced f32 SIMT kernel did: this
+// path gives that kernel's results bit for bit, so every f32 check of the
+// port holds as it held.
+// Stages 1 and 2 are the same kernel: C = A B^T over one shard of k, A (M,
+// K) and B (N, K) both K-contiguous (nn.Linear's layout, and the hidden
+// scratch's), one tile of C a block of 256 threads, the k slices of A and
+// B streamed through a cp.async ring with one barrier a stage. Rows past M
+// and columns past N are zero-filled on the way in and not stored.
+//
+// What bounds it: FMAs. Both products are GEMMs far above the ridge, and
+// f32 has no tensor-core form that keeps 1e-4. What the design does about
+// it: 128 x 128 tiles (f32 also 64 x 128) read each operand once per tile,
+// not once per 32 rows as a fused block of rows would; register blocking
+// gives 4 FMAs per shared word; and the card is kept full with few rows by
+// two choices the wrapper makes from the shapes (ops/fused_ffn.py:
+// products_plan, estimated from scripts/k3_variants.py's times): the tile
+// height and, in bf16, the shards of the hidden width over blocks in stage
+// 2 (C 2,048 at 3,136 rows: 2). f32 takes one shard at C <= 512 (above)
+// and shards of 1,024 columns at C 2,048 (8 at 4C).
+// f32 reaches about 42 TFLOP/s of the 67 at 16,384 rows, C 512 (H100 SXM).
+//
+// f32 (ffn_ln_simt_product_kernel<BM>): FFMA on the CUDA cores. A stage
+// holds kSK k of A and of B k-major (a k: BM or 128 floats + 4 of
+// padding); thread (ty, tx) owns rows 4 ty + {0..3} (BM 128: and 64 + those)
+// and columns 4 tx + {0..3, 64..67} of the tile, and per k reads them as
+// float4 loads: 64 FMAs for 16 shared words, and the rows' words a warp
+// reads are one broadcast. The copies are 4-byte cp.async so that they can
+// transpose, a warp's lanes on one row's contiguous k. Two stages of 32 k
+// (BM 64: 16) measured faster than three or than 16 k.
+//
+// bf16 (ffn_ln_mma_product_kernel): mma.sync m16n8k16 as K2 and K4-K6. A
+// stage holds 64 k of 128 rows of A and of B, row-major (72 bf16 a row,
+// conflict-free ldmatrix), three stages; warp (wm, wn) owns rows 64 wm ..
+// 64 wm + 63 and columns 32 wn .. 32 wn + 31: per 16 k, 4 + 2 ldmatrix_x4
+// feed 16 mma.
+
+constexpr int kTile = 128;      // columns of a block's tile of C, and rows in bf16
+constexpr int kEpiHidden = 0;   // C = relu(A B^T + bias) in A's type
+constexpr int kEpiPartial = 1;  // C = A B^T in f32, shard blockIdx.z at z * split_stride
+
+constexpr int kHK = 64;                          // bf16: k a stage
+constexpr int kHLd = kHK + 8;                    // bf16: elements a row (144 bytes)
+constexpr int kHStage = 2 * kTile * kHLd;        // bf16: elements a stage, A then B
+constexpr int kMmaStages = 3;                    // bf16: depth of the cp.async ring
+constexpr size_t kMmaSmem = (size_t)kMmaStages * kHStage * sizeof(bf16);   // 110,592
+
+// f32, by the rows BM of the A tile: k a stage; floats a k of the k-major A
+// and B tiles, each padded by 4; floats a stage; bytes of the ring.
+constexpr int kSimtStages = 2;                   // f32: depth of the cp.async ring
+__host__ __device__ constexpr int simt_k(int bm) { return bm == 64 ? 16 : 32; }
+__host__ __device__ constexpr int simt_ald(int bm) { return bm + 4; }
+constexpr int kSBLd = kTile + 4;
+__host__ __device__ constexpr int simt_stage(int bm) { return simt_k(bm) * (simt_ald(bm) + kSBLd); }
+constexpr size_t simt_smem(int bm) { return (size_t)kSimtStages * simt_stage(bm) * sizeof(float); }
+
+template <int BM, int EPI>
+__global__ void __launch_bounds__(kThreads, 2)
+ffn_ln_simt_product_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                           const float* __restrict__ bias, float* __restrict__ out, int M,
+                           int N, int K, int k_split, size_t split_stride) {
+  constexpr int kSK = simt_k(BM);
+  constexpr int kALd = simt_ald(BM);
+  constexpr int TM = BM / 16;             // rows a thread: 4 ty + {0..3} (and 64 + those)
+  extern __shared__ __align__(16) float sp_smem[];
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * kTile;
+  const int k_begin = blockIdx.z * k_split;
+  const int steps = (min(K, k_begin + k_split) - k_begin) / kSK;
+
+  // element tid + 256 i of a rows x kSK slice: row tid / kSK + kPass i, k
+  // tid % kSK, so that a warp's copies read whole rows' contiguous k (a
+  // warp that spread over 8 rows x 4 k, free of bank conflicts, was
+  // slower). Offsets are 32-bit (the entry refuses larger operands),
+  // stepped by kPass rows, so that a stage's copies hold few registers.
+  constexpr int kPass = kThreads / kSK;   // rows a pass of the block copies
+  const int cr = tid / kSK, ck = tid % kSK;
+  const int a_left = M - m0 - cr, b_left = N - n0 - cr;   // rows left below this thread's first
+  const int a_first = (m0 + cr) * K + k_begin + ck, b_first = (n0 + cr) * K + k_begin + ck;
+  const int row_step = kPass * K;
+  auto load = [&](int stage, int step) {
+    float* as = sp_smem + stage * simt_stage(BM) + ck * kALd + cr;
+    float* bs = sp_smem + stage * simt_stage(BM) + kSK * kALd + ck * kSBLd + cr;
+    int ao = a_first + step * kSK, bo = b_first + step * kSK;
+#pragma unroll
+    for (int i = 0; i < kTile / kPass; ++i, ao += row_step, bo += row_step) {
+      if (kPass * i < BM)
+        cp_async4(as + kPass * i, A + (kPass * i < a_left ? ao : 0), kPass * i < a_left);
+      cp_async4(bs + kPass * i, B + (kPass * i < b_left ? bo : 0), kPass * i < b_left);
+    }
+  };
+
+  const int ty = tid >> 4, tx = tid & 15;
+  float acc[TM][8];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kSimtStages - 1; ++s) {
+    if (s < steps) load(s, s);
+    cp_async_commit();
+  }
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<kSimtStages - 2>();   // this step's slices have landed
+    __syncthreads();                // and every warp is done with the step before's
+    if (step + kSimtStages - 1 < steps) load((step + kSimtStages - 1) % kSimtStages, step + kSimtStages - 1);
+    cp_async_commit();              // empty at the tail, so the wait above stays uniform
+    const float* as = sp_smem + (step % kSimtStages) * simt_stage(BM);
+    const float* bs = as + kSK * kALd;
+#pragma unroll
+    for (int kk = 0; kk < kSK; ++kk) {
+      float a[TM], b[8];
+#pragma unroll
+      for (int h = 0; h < TM / 4; ++h) {
+        const float4 v = *reinterpret_cast<const float4*>(as + kk * kALd + 64 * h + 4 * ty);
+        a[4 * h] = v.x, a[4 * h + 1] = v.y, a[4 * h + 2] = v.z, a[4 * h + 3] = v.w;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 v = *reinterpret_cast<const float4*>(bs + kk * kSBLd + 64 * h + 4 * tx);
+        b[4 * h] = v.x, b[4 * h + 1] = v.y, b[4 * h + 2] = v.z, b[4 * h + 3] = v.w;
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+  cp_async_wait<0>();
+
+  float* o = out + (size_t)blockIdx.z * split_stride;
+  float bb[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int col = n0 + 4 * tx + (j < 4 ? j : 60 + j);
+    bb[j] = EPI == kEpiHidden && col < N ? bias[col] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int row = m0 + 4 * ty + (i < 4 ? i : 60 + i);
+    if (row >= M) continue;
+#pragma unroll
+    for (int jh = 0; jh < 2; ++jh) {
+      const int col = n0 + 64 * jh + 4 * tx;   // N is a multiple of 64: all 4 in or all out
+      if (col >= N) continue;
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        v[e] = acc[i][4 * jh + e];
+        if (EPI == kEpiHidden) v[e] = fmaxf(v[e] + bb[4 * jh + e], 0.f);
+      }
+      *reinterpret_cast<float4*>(o + (size_t)row * N + col) = make_float4(v[0], v[1], v[2], v[3]);
     }
   }
 }
 
-// ----------------------------------------------------------------- launch
+template <int EPI>
+__global__ void __launch_bounds__(kThreads, 2)
+ffn_ln_mma_product_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
+                          const bf16* __restrict__ bias, void* __restrict__ out, int M, int N,
+                          int K, int k_split, size_t split_stride) {
+  extern __shared__ __align__(16) unsigned char mp_smem[];
+  bf16* base = reinterpret_cast<bf16*>(mp_smem);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;
+  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
+  const int k_begin = blockIdx.z * k_split;
+  const int steps = (min(K, k_begin + k_split) - k_begin) / kHK;
+
+  // 16-byte chunk tid + 256 i of a 128 x kHK slice: row tid / (kHK / 8) +
+  // kPass i, k 8 (tid % (kHK / 8))
+  constexpr int kPass = kThreads / (kHK / 8);   // rows a pass of the block copies
+  const int cr = tid / (kHK / 8), cc = tid % (kHK / 8) * 8;
+  auto load = [&](int stage, int step) {
+    bf16* as = base + stage * kHStage;
+    bf16* bs = as + kTile * kHLd;
+    const int k = k_begin + step * kHK + cc;
+#pragma unroll
+    for (int i = 0; i < kTile / kPass; ++i) {
+      const int r = cr + kPass * i;
+      const bool va = m0 + r < M, vb = n0 + r < N;
+      cp_async16(as + r * kHLd + cc, va ? A + (size_t)(m0 + r) * K + k : A, va);
+      cp_async16(bs + r * kHLd + cc, vb ? B + (size_t)(n0 + r) * K + k : B, vb);
+    }
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb) acc[i][nb][0] = acc[i][nb][1] = acc[i][nb][2] = acc[i][nb][3] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kMmaStages - 1; ++s) {
+    if (s < steps) load(s, s);
+    cp_async_commit();
+  }
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<kMmaStages - 2>();
+    __syncthreads();
+    if (step + kMmaStages - 1 < steps) load((step + kMmaStages - 1) % kMmaStages, step + kMmaStages - 1);
+    cp_async_commit();
+    const bf16* as = base + (step % kMmaStages) * kHStage;
+    const bf16* bs = as + kTile * kHLd;
+#pragma unroll
+    for (int kk = 0; kk < kHK; kk += 16) {
+      uint32_t af[4][4], bq[2][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ldmatrix_x4(af[i], frag_a_row(as, kHLd, 64 * wm + 16 * i, kk, lane));
+#pragma unroll
+      for (int p = 0; p < 2; ++p) ldmatrix_x4(bq[p], frag_b_row(bs, kHLd, 32 * wn + 16 * p, kk, lane));
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          mma_bf16(acc[i][2 * p], af[i], bq[p][0], bq[p][1]);
+          mma_bf16(acc[i][2 * p + 1], af[i], bq[p][2], bq[p][3]);
+        }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int nb = 0; nb < 4; ++nb) {
+    const int col = n0 + 32 * wn + 8 * nb + 2 * t;   // N is a multiple of 64
+    if (col >= N) continue;
+    float ba = 0.f, bb = 0.f;
+    if (EPI == kEpiHidden) {
+      ba = __bfloat162float(bias[col]);
+      bb = __bfloat162float(bias[col + 1]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = m0 + 64 * wm + 16 * i + g + 8 * half;
+        if (row >= M) continue;
+        const float c0 = acc[i][nb][2 * half], c1 = acc[i][nb][2 * half + 1];
+        if (EPI == kEpiHidden)
+          *reinterpret_cast<uint32_t*>(static_cast<bf16*>(out) + (size_t)row * N + col) =
+              pack_bf16(fmaxf(c0 + ba, 0.f), fmaxf(c1 + bb, 0.f));
+        else
+          *reinterpret_cast<float2*>(static_cast<float*>(out) + (size_t)blockIdx.z * split_stride +
+                                     (size_t)row * N + col) = make_float2(c0, c1);
+      }
+  }
+}
+
+// Stage 1 or 2 of the products path: C (M, N) = A (M, K) B (N, K)^T in
+// tiles of tile_rows x 128 (f32: 64 or 128 rows; bf16: 128), the k range
+// cut into shards of k_split along blockIdx.z.
+template <int BM, int EPI>
+cudaError_t launch_simt(const float* A, const float* B, const float* bias, void* out, int M,
+                        int N, int K, int k_split, int n_split, size_t split_stride,
+                        cudaStream_t stream) {
+  constexpr size_t smem = simt_smem(BM);
+  cudaError_t err = cudaFuncSetAttribute(ffn_ln_simt_product_kernel<BM, EPI>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + kTile - 1) / kTile, (M + BM - 1) / BM, n_split);
+  ffn_ln_simt_product_kernel<BM, EPI><<<grid, kThreads, smem, stream>>>(
+      A, B, bias, static_cast<float*>(out), M, N, K, k_split, split_stride);
+  return cudaGetLastError();
+}
+
+template <int EPI>
+cudaError_t launch_product(const float* A, const float* B, const float* bias, void* out, int M,
+                           int N, int K, int k_split, int n_split, size_t split_stride,
+                           int tile_rows, cudaStream_t stream) {
+  if (tile_rows == 64)
+    return launch_simt<64, EPI>(A, B, bias, out, M, N, K, k_split, n_split, split_stride, stream);
+  if (tile_rows == 128)
+    return launch_simt<128, EPI>(A, B, bias, out, M, N, K, k_split, n_split, split_stride, stream);
+  return cudaErrorInvalidValue;
+}
+
+template <int EPI>
+cudaError_t launch_product(const bf16* A, const bf16* B, const bf16* bias, void* out, int M,
+                           int N, int K, int k_split, int n_split, size_t split_stride,
+                           int tile_rows, cudaStream_t stream) {
+  if (tile_rows != kTile) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(ffn_ln_mma_product_kernel<EPI>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kMmaSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile, n_split);
+  ffn_ln_mma_product_kernel<EPI><<<grid, kThreads, kMmaSmem, stream>>>(
+      A, B, bias, out, M, N, K, k_split, split_stride);
+  return cudaGetLastError();
+}
+
+// Stages 1 and 2: hidden (N, Hd) in T, then y (n_split, N, C) f32.
+template <typename T>
+cudaError_t launch_products(const void* x, const void* w1, const void* b1, const void* w2,
+                            void* hidden, float* y, int N, int C, int Hd, int n_split,
+                            int per_split, int tile_rows, cudaStream_t stream) {
+  const T* h = static_cast<const T*>(hidden);
+  cudaError_t err = launch_product<kEpiHidden>(static_cast<const T*>(x),
+                                               static_cast<const T*>(w1),
+                                               static_cast<const T*>(b1), hidden, N, Hd, C, C,
+                                               1, 0, tile_rows, stream);
+  if (err != cudaSuccess) return err;
+  return launch_product<kEpiPartial>(h, static_cast<const T*>(w2), static_cast<const T*>(nullptr),
+                                     y, N, C, Hd, per_split * kHidden, n_split, (size_t)N * C,
+                                     tile_rows, stream);
+}
 
 template <int C, typename T>
-cudaError_t launch_wide(const void* x, const void* w1, const void* b1, const void* w2,
-                        const void* b2, const float* gamma, const float* beta, void* out, int N,
-                        int Hd, cudaStream_t stream) {
-  const size_t smem = wide_smem_floats<C>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(ffn_ln_wide_kernel<C, T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+cudaError_t launch_products_ln(const void* x, const void* w1, const void* b1, const void* w2,
+                               const void* b2, const float* gamma, const float* beta, void* out,
+                               void* hidden, float* partial, int N, int Hd, int n_split,
+                               int per_split, int tile_rows, cudaStream_t stream) {
+  cudaError_t err = launch_products<T>(x, w1, b1, w2, hidden, partial, N, C, Hd, n_split,
+                                       per_split, tile_rows, stream);
   if (err != cudaSuccess) return err;
-  ffn_ln_wide_kernel<C, T><<<(N + kWRows - 1) / kWRows, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w1), static_cast<const T*>(b1),
-      static_cast<const T*>(w2), static_cast<const T*>(b2), gamma, beta, static_cast<T*>(out),
-      N, Hd);
+  if constexpr (std::is_same<T, float>::value && C <= 512) {
+    if (n_split == 1) {
+      ffn_ln_f32_epilogue_kernel<C><<<(N + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
+          partial, static_cast<const float*>(x), static_cast<const float*>(b2), gamma, beta,
+          static_cast<float*>(out), N);
+      return cudaGetLastError();
+    }
+  }
+  ffn_ln_shard_sum_kernel<C, T><<<(N + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
+      partial, static_cast<const T*>(x), static_cast<const T*>(b2), gamma, beta,
+      static_cast<T*>(out), N, n_split);
   return cudaGetLastError();
 }
 
-template <int C>
-cudaError_t launch_f32(const void* x, const void* w1, const void* b1, const void* w2,
-                       const void* b2, const float* gamma, const float* beta, void* out,
-                       float* partial, int N, int Hd, cudaStream_t stream) {
-  const size_t smem = f32_smem_floats<C>() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(ffn_ln_f32_kernel<C>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int blocks = (N + kRows - 1) / kRows;
-  ffn_ln_f32_kernel<C><<<blocks, kThreads, smem, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w1),
-      static_cast<const float*>(b1), static_cast<const float*>(w2),
-      static_cast<const float*>(b2), gamma, beta, static_cast<float*>(out), partial, N, Hd);
-  return cudaGetLastError();
-}
+// ----------------------------------------------------------------- launch
 
 template <int C>
 cudaError_t launch_bf16(const void* x, const void* w1, const void* b1, const void* w2,
@@ -722,7 +825,8 @@ cudaError_t launch_bf16(const void* x, const void* w1, const void* b1, const voi
   const dim3 grid((N + kTcRows - 1) / kTcRows, n_split);
   ffn_ln_tc_kernel<C><<<grid, kThreads, smem, stream>>>(
       xb, static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
-      static_cast<const bf16*>(w2), b2b, gamma, beta, ob, partial, N, Hd, per_split);
+      static_cast<const bf16*>(w2), b2b, gamma, beta, ob, n_split > 1 ? partial : nullptr, N,
+      Hd, per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return err;
   ffn_ln_shard_sum_kernel<C, bf16><<<(N + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
@@ -732,48 +836,66 @@ cudaError_t launch_bf16(const void* x, const void* w1, const void* b1, const voi
 
 template <int C>
 cudaError_t launch(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
-                   const float* gamma, const float* beta, void* out, float* partial, int N,
-                   int Hd, int dtype, int n_split, int per_split, cudaStream_t stream) {
+                   const float* gamma, const float* beta, void* out, void* hidden,
+                   float* partial, int N, int Hd, int dtype, int n_split, int per_split,
+                   int tile_rows, cudaStream_t stream) {
   if (dtype == 0)
-    return launch_f32<C>(x, w1, b1, w2, b2, gamma, beta, out, nullptr, N, Hd, stream);
-  if (dtype == 1)
+    return launch_products_ln<C, float>(x, w1, b1, w2, b2, gamma, beta, out, hidden, partial, N,
+                                        Hd, n_split, per_split, tile_rows, stream);
+  if (dtype != 1) return cudaErrorInvalidValue;
+  if constexpr (C == 2048)
+    return launch_products_ln<C, bf16>(x, w1, b1, w2, b2, gamma, beta, out, hidden, partial, N,
+                                       Hd, n_split, per_split, tile_rows, stream);
+  else
     return launch_bf16<C>(x, w1, b1, w2, b2, gamma, beta, out, partial, N, Hd, n_split,
                           per_split, stream);
-  return cudaErrorInvalidValue;
+}
+
+// Does (n_split, per_split) cut the Hd / 64 hidden chunks into shards with none empty?
+bool valid_split(int Hd, int n_split, int per_split) {
+  const int chunks = Hd / kHidden;
+  return Hd > 0 && Hd % kHidden == 0 && n_split >= 1 && per_split >= 1 &&
+         (n_split - 1) * per_split < chunks && n_split * per_split >= chunks;
+}
+
+// Do the products path's 32-bit element offsets reach every operand, a
+// row tile past the last row included?
+bool offsets_fit(int N, int C, int Hd) {
+  const long long rows = (long long)N + kTile, width = C > Hd ? C : Hd;
+  return rows * width <= 0x7fffffffLL && (long long)C * Hd <= 0x7fffffffLL;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. C must be 128, 256, 512 or 2048 (the
-// wide kernel, both dtypes, n_split 1) and Hd a multiple of 64; bf16
-// pointers must be 16-byte aligned. bf16 splits the
-// Hd / 64 hidden chunks into n_split shards of per_split chunks, none empty
-// ((n_split - 1) per_split < Hd / 64 <= n_split per_split); with n_split > 1,
-// partial is (n_split, N, C) f32 scratch (else unused, may be null). f32
-// takes n_split 1. Returns cudaGetLastError() after the launches (0 =
-// success).
+// dtype: 0 = float32, 1 = bfloat16. C must be 128, 256, 512 or 2048 and Hd
+// a multiple of 64; bf16 pointers must be 16-byte aligned. The Hd / 64
+// hidden chunks are cut into n_split shards of per_split chunks, none empty
+// ((n_split - 1) per_split < Hd / 64 <= n_split per_split); (N + 128)
+// max(C, Hd) must stay below 2^31. tile_rows: the rows of the products
+// path's tiles, 64 or 128 in f32, 128 in bf16 (unused by the row-tile kernel).
+//   bf16 at C <= 512 (the row-tile kernel): hidden is unused (may be null);
+//     with n_split > 1 partial is (n_split, N, C) f32 scratch, else unused.
+//   f32, and bf16 at C 2048 (the products path): hidden is (N, Hd) scratch
+//     in x's type and partial (n_split, N, C) f32 scratch, both required.
+// Returns cudaGetLastError() after the launches (0 = success).
 extern "C" int savqa_ffn_ln(const void* x, const void* w1, const void* b1, const void* w2,
                             const void* b2, const void* gamma, const void* beta, void* out,
-                            void* partial, int N, int C, int Hd, int dtype, int n_split,
-                            int per_split, void* stream) {
-  const int chunks = Hd / kHidden;
-  if (N <= 0 || Hd <= 0 || Hd % kHidden != 0 || n_split < 1 || per_split < 1 ||
-      (n_split - 1) * per_split >= chunks || n_split * per_split < chunks ||
-      ((dtype == 0 || C == 2048) && n_split != 1) || (n_split > 1 && partial == nullptr))
+                            void* hidden, void* partial, int N, int C, int Hd, int dtype,
+                            int n_split, int per_split, int tile_rows, void* stream) {
+  const bool products = dtype == 0 || C == 2048;
+  if (N <= 0 || !valid_split(Hd, n_split, per_split) || !offsets_fit(N, C, Hd) ||
+      (products && (hidden == nullptr || partial == nullptr)) ||
+      (n_split > 1 && partial == nullptr))
     return (int)cudaErrorInvalidValue;
   const auto* ga = static_cast<const float*>(gamma);
   const auto* be = static_cast<const float*>(beta);
-  // unsplit, the kernel finishes its rows itself (a null partial)
-  auto* pa = n_split > 1 ? static_cast<float*>(partial) : nullptr;
+  auto* pa = static_cast<float*>(partial);
   auto s = static_cast<cudaStream_t>(stream);
   switch (C) {
-    case 128: return (int)launch<128>(x, w1, b1, w2, b2, ga, be, out, pa, N, Hd, dtype, n_split, per_split, s);
-    case 256: return (int)launch<256>(x, w1, b1, w2, b2, ga, be, out, pa, N, Hd, dtype, n_split, per_split, s);
-    case 512: return (int)launch<512>(x, w1, b1, w2, b2, ga, be, out, pa, N, Hd, dtype, n_split, per_split, s);
-    case 2048:
-      if (dtype == 0) return (int)launch_wide<2048, float>(x, w1, b1, w2, b2, ga, be, out, N, Hd, s);
-      if (dtype == 1) return (int)launch_wide<2048, bf16>(x, w1, b1, w2, b2, ga, be, out, N, Hd, s);
-      return (int)cudaErrorInvalidValue;
+    case 128: return (int)launch<128>(x, w1, b1, w2, b2, ga, be, out, hidden, pa, N, Hd, dtype, n_split, per_split, tile_rows, s);
+    case 256: return (int)launch<256>(x, w1, b1, w2, b2, ga, be, out, hidden, pa, N, Hd, dtype, n_split, per_split, tile_rows, s);
+    case 512: return (int)launch<512>(x, w1, b1, w2, b2, ga, be, out, hidden, pa, N, Hd, dtype, n_split, per_split, tile_rows, s);
+    case 2048: return (int)launch<2048>(x, w1, b1, w2, b2, ga, be, out, hidden, pa, N, Hd, dtype, n_split, per_split, tile_rows, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -782,21 +904,26 @@ namespace {
 
 template <int C>
 cudaError_t launch_partial(const void* x, const void* w1, const void* b1, const void* w2,
-                           float* scratch, float* out, int N, int Hd, int dtype, int n_split,
-                           int per_split, cudaStream_t stream) {
-  if (dtype == 0)
-    return launch_f32<C>(x, w1, b1, w2, nullptr, nullptr, nullptr, nullptr, out, N, Hd, stream);
-  if (dtype != 1) return cudaErrorInvalidValue;
-  const size_t smem = TcSmem<C>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(ffn_ln_tc_kernel<C>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((N + kTcRows - 1) / kTcRows, n_split);
-  ffn_ln_tc_kernel<C><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
-      static_cast<const bf16*>(w2), nullptr, nullptr, nullptr, nullptr,
-      n_split > 1 ? scratch : out, N, Hd, per_split);
-  err = cudaGetLastError();
+                           void* hidden, float* scratch, float* out, int N, int Hd, int dtype,
+                           int n_split, int per_split, int tile_rows, cudaStream_t stream) {
+  cudaError_t err;
+  if (dtype == 0) {
+    err = launch_products<float>(x, w1, b1, w2, hidden, n_split > 1 ? scratch : out, N, C, Hd,
+                                 n_split, per_split, tile_rows, stream);
+  } else if (dtype == 1) {
+    const size_t smem = TcSmem<C>::bytes;
+    err = cudaFuncSetAttribute(ffn_ln_tc_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((N + kTcRows - 1) / kTcRows, n_split);
+    ffn_ln_tc_kernel<C><<<grid, kThreads, smem, stream>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
+        static_cast<const bf16*>(w2), nullptr, nullptr, nullptr, nullptr,
+        n_split > 1 ? scratch : out, N, Hd, per_split);
+    err = cudaGetLastError();
+  } else {
+    return cudaErrorInvalidValue;
+  }
   if (err != cudaSuccess || n_split == 1) return err;
   const size_t n = (size_t)N * C;
   const size_t want = (n + kThreads - 1) / kThreads;
@@ -828,25 +955,28 @@ cudaError_t launch_epilogue(const float* y, const void* x, const void* b2, const
 // The model axis (ops/fused_ffn.py:ffn_partial): out = relu(x W1^T + b1)
 // W2^T, (N, C) f32, for this rank's shard of the hidden width (W1 (Hd, C),
 // b1 (Hd,), W2 (C, Hd) of the shard), h rounded to x's type as in
-// savqa_ffn_ln; no b2, residual or LayerNorm. C 128, 256 or 512. bf16 may
-// split its own Hd / 64 chunks into n_split shards as savqa_ffn_ln does,
-// their partials in scratch ((n_split, N, C) f32) summed in shard order into
-// out; with n_split 1 scratch is unused (may be null). f32 takes n_split 1.
+// savqa_ffn_ln; no b2, residual or LayerNorm. C 128, 256 or 512. The Hd /
+// 64 chunks may be cut into n_split shards over blocks as in savqa_ffn_ln,
+// their partials in scratch ((n_split, N, C) f32) summed in shard order
+// into out; with n_split 1 scratch is unused (may be null). f32 takes the
+// products path in tiles of tile_rows (64 or 128), whose hidden ((N, Hd)
+// f32 scratch) is then required; bf16 the row-tile kernel, which leaves
+// hidden and tile_rows unused (hidden may be null).
 extern "C" int savqa_ffn_partial(const void* x, const void* w1, const void* b1, const void* w2,
-                                 void* scratch, void* out, int N, int C, int Hd, int dtype,
-                                 int n_split, int per_split, void* stream) {
-  const int chunks = Hd / kHidden;
-  if (N <= 0 || Hd <= 0 || Hd % kHidden != 0 || n_split < 1 || per_split < 1 ||
-      (n_split - 1) * per_split >= chunks || n_split * per_split < chunks ||
-      (dtype == 0 && n_split != 1) || (n_split > 1 && scratch == nullptr) || out == nullptr)
+                                 void* hidden, void* scratch, void* out, int N, int C, int Hd,
+                                 int dtype, int n_split, int per_split, int tile_rows,
+                                 void* stream) {
+  if (N <= 0 || !valid_split(Hd, n_split, per_split) || !offsets_fit(N, C, Hd) ||
+      (n_split > 1 && scratch == nullptr) ||
+      (dtype == 0 && hidden == nullptr) || out == nullptr)
     return (int)cudaErrorInvalidValue;
   auto* sc = static_cast<float*>(scratch);
   auto* o = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   switch (C) {
-    case 128: return (int)launch_partial<128>(x, w1, b1, w2, sc, o, N, Hd, dtype, n_split, per_split, s);
-    case 256: return (int)launch_partial<256>(x, w1, b1, w2, sc, o, N, Hd, dtype, n_split, per_split, s);
-    case 512: return (int)launch_partial<512>(x, w1, b1, w2, sc, o, N, Hd, dtype, n_split, per_split, s);
+    case 128: return (int)launch_partial<128>(x, w1, b1, w2, hidden, sc, o, N, Hd, dtype, n_split, per_split, tile_rows, s);
+    case 256: return (int)launch_partial<256>(x, w1, b1, w2, hidden, sc, o, N, Hd, dtype, n_split, per_split, tile_rows, s);
+    case 512: return (int)launch_partial<512>(x, w1, b1, w2, hidden, sc, o, N, Hd, dtype, n_split, per_split, tile_rows, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

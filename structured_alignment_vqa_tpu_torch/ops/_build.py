@@ -55,6 +55,20 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
+def _kernel_name(mangled: str) -> tuple:
+    """(name, template arguments) of a mangled kernel: the length-prefixed
+    identifier ending in ``_kernel`` whose prefix is its length (a hash in
+    the anonymous namespace's name may end in digits too)."""
+    for m in re.finditer(r"(?=(\d+)[A-Za-z_])", mangled):
+        digits = m.group(1)
+        start = m.start() + len(digits)
+        ident = mangled[start:start + int(digits)]
+        if ident.endswith("_kernel") and re.fullmatch(r"[A-Za-z_]\w*", ident):
+            t = re.match(r"I(.*?)E(?:E|v)", mangled[start + len(ident):])
+            return ident, t.group(1) if t else ""
+    return mangled, ""
+
+
 def register_lines(log: str) -> list:
     """ptxas's registers and spills per kernel from an nvcc -Xptxas -v log:
     ``["name<template args>: Used N registers, ...; S bytes spill stores, L
@@ -64,10 +78,9 @@ def register_lines(log: str) -> list:
         if "Compiling entry function" in line:
             mangled = line.split("'")[1] if "'" in line else line
             spills = ""
-            m = re.search(r"\d+([A-Za-z]\w*?_kernel)(?:I(.*?)E)?E", mangled)
-            name = mangled if m is None else m.group(1)
-            if m is not None and m.group(2):
-                args = re.findall(r"Li(\d+)|(13__nv_bfloat16)|^(f)$", m.group(2))
+            name, template = _kernel_name(mangled)
+            if template:
+                args = re.findall(r"Li(\d+)|(13__nv_bfloat16)|(f)", template)
                 name += "<" + ", ".join(a or ("bf16" if b else "float") for a, b, _ in args) + ">"
         elif "spill stores" in line:
             spills = line.strip()

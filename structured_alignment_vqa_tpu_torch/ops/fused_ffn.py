@@ -4,33 +4,55 @@ Counterpart of the TPU package's ``ops/pallas_ffn.py`` (``_kernel``, entry
 ``fused_ffn``): ``LN(W2 relu(W1 x + b1) + b2 + x)`` over rows, with the
 (rows, 4C) hidden activation kept on chip.
 
-On CUDA tensors :func:`fused_ffn` launches the kernel of ``csrc/ffn.cu``
-(bf16: ``mma.sync`` tiles of 64 rows; with few rows the hidden width is
-split over blocks by :func:`ffn_split` and a second kernel sums the shards,
-counted as one launch; f32: SIMT; C 2048, either dtype: the wide SIMT
-kernel, 8 rows a block); on CPU tensors it runs
-:func:`ffn_ln_plain`, the same function in plain PyTorch, rounding where
-the kernel rounds: the hidden activation is cast to x's dtype before the
-second product and the residual is added in f32. The
-backward on either device is autograd of :func:`ffn_ln_composite`, whose
-products run in x's dtype, as the TPU package's backward is the VJP of its
-``_composite``: both pair a kernel forward with a composite backward.
-Weights are in ``nn.Linear`` layout: w1 (4C, C), w2 (C, 4C).
+On CUDA tensors :func:`fused_ffn` launches the kernels of ``csrc/ffn.cu``;
+:func:`ffn_path` says which design a call takes. Both are bound by
+operations; what each does about it:
+
+* ``"row-tile"``, bf16 at C 128-512: the TPU kernel's shape on the tensor
+  cores (``mma.sync``), 64 rows a block, the hidden activation kept in
+  shared memory; with few rows the hidden width is split over blocks by
+  :func:`ffn_split` and a second kernel sums the shards.
+* ``"products"``, float32 at every width and bf16 at C 2,048: two kernels
+  shaped like GEMMs, ``relu(x W1^T + b1)`` into a hidden scratch of (rows,
+  Hd) in x's dtype, then its product with ``W2^T`` into f32 partials of
+  (n_split, rows, C), then the shard-sum kernel (``+ b2 + x`` and the
+  LayerNorm). Tiles of 128 (f32 also 64) x 128 read each weight once per
+  tile of rows, where the old fused f32 kernel streamed both weights
+  through every 32-row block; f32 runs FFMA on the CUDA cores (TF32 would
+  break the 1e-4 checks), bf16 ``mma.sync``. :func:`products_plan` picks
+  the tile height and, in bf16 and at C 2,048, the shards of the second
+  product's hidden width over blocks. In f32 at C up to 512 each output is
+  one FMA chain over the whole hidden width and the LayerNorm sums in the
+  old kernel's order: the results are the bits of the f32 kernel this path
+  replaced. The hidden round trip costs about 8% of the f32 bound at
+  16,384 rows.
+
+Every launch of either counts once. The wrapper allocates the scratch with
+``torch.empty`` (:func:`_scratch`); the kernels allocate nothing. On CPU
+tensors :func:`fused_ffn` runs :func:`ffn_ln_plain`, the same function in
+plain PyTorch, rounding where the kernels round: the hidden activation is
+cast to x's dtype before the second product and the residual is added in
+f32. The backward on either device is autograd of
+:func:`ffn_ln_composite`, whose products run in x's dtype, as the TPU
+package's backward is the VJP of its ``_composite``: both pair a kernel
+forward with a composite backward. Weights are in ``nn.Linear`` layout:
+w1 (4C, C), w2 (C, 4C).
 
 The model axis (``ops/layers.py:FeedForward`` with its hidden width split
 over the model row) takes two more entries of the same kernels:
 :func:`ffn_partial`, the f32 ``relu(x W1s^T + b1s) W2s^T`` of this rank's
-hidden shard (the bf16 kernel may split its own shard over blocks, the
-partials summed in order by a second kernel), and, after the sum over the
-ranks, :func:`ffn_epilogue`, the shard-sum kernel with one partial: ``+ b2
-+ x`` and the LayerNorm. Their backwards are autograd of
-:func:`ffn_partial_composite` (products in x's dtype) and of
-:func:`ffn_epilogue_plain`.
+hidden shard (bf16: the row-tile kernel, f32: the two products; either may
+split its own shard over blocks, the partials summed in order by a second
+kernel), and, after the sum over the ranks, :func:`ffn_epilogue`, the
+shard-sum kernel with one partial: ``+ b2 + x`` and the LayerNorm. Their
+backwards are autograd of :func:`ffn_partial_composite` (products in x's
+dtype) and of :func:`ffn_epilogue_plain`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -44,12 +66,13 @@ from structured_alignment_vqa_tpu_torch.ops.dispatch import (
 )
 from structured_alignment_vqa_tpu_torch.ops.layers import layer_norm
 
-WIDTHS = (128, 256, 512)   # C values the row-tile kernels are compiled for
-# C values past the row-tile kernels' shared memory: csrc/ffn.cu's wide
-# kernel (8 rows a block on CUDA cores, both dtypes, no hidden split)
+WIDTHS = (128, 256, 512)   # C values of the bf16 row-tile kernel and the model axis
+# C values past the row-tile kernel's shared memory: the products path in
+# both dtypes (x2_fusion_dec_mil2's alignment blocks)
 WIDE_WIDTHS = (2048,)
 HIDDEN_CHUNK = 64          # the hidden width must be a multiple of this
-TC_ROWS = 64               # rows per block of the bf16 tensor-core kernel
+TC_ROWS = 64               # rows per block of the bf16 row-tile kernel
+PRODUCT_TILE = 128         # columns (and at most rows) of a block's tile on the products path
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -70,26 +93,99 @@ def ffn_ln_composite(x, w1, b1, w2, b2, gamma, beta):
     return layer_norm(y + x, gamma, beta)
 
 
-def ffn_split(rows: int, c: int, hidden: int) -> tuple:
-    """``(n_split, chunks_per_split)`` of the bf16 kernel: how many shards
-    the ``hidden / 64`` hidden chunks are cut into, and the chunks of each.
-    A pure function of the shapes (C does not change it: the row tile is 64
-    rows at every width). One shard when the 64-row tiles alone fill the
-    card's 132 SMs, else as many as there are SMs per tile, none empty."""
-    tiles = -(-rows // TC_ROWS)
-    chunks = hidden // HIDDEN_CHUNK
+def ffn_path(dtype, c: int) -> str:
+    """Which design of ``csrc/ffn.cu`` a call takes: ``"row-tile"`` (bf16 at
+    C 128-512) or ``"products"`` (float32, and bf16 at C 2,048)."""
+    return "row-tile" if dtype == torch.bfloat16 and c in WIDTHS else "products"
+
+
+def _shards(tiles: int, chunks: int) -> tuple:
+    """``(n_split, chunks_per_split)``: one shard when ``tiles`` blocks alone
+    fill the card's 132 SMs, else as many as there are SMs per tile, none
+    empty."""
     want = max(1, min(chunks, SM_COUNT // tiles))
     per = -(-chunks // want)
     return -(-chunks // per), per
 
 
+def ffn_split(rows: int, c: int, hidden: int) -> tuple:
+    """``(n_split, chunks_per_split)`` of the bf16 row-tile kernel: how many
+    shards the ``hidden / 64`` hidden chunks are cut into, and the chunks of
+    each. A pure function of the shapes (C does not change it: the row tile
+    is 64 rows at every width)."""
+    return _shards(-(-rows // TC_ROWS), hidden // HIDDEN_CHUNK)
+
+
+# The products path's plan estimates its two products' time on the card:
+# blocks (tiles x shards) run in waves of one block an SM (two resident
+# blocks share an SM's FMA rate), each block taking CHUNK_S for every
+# 64-deep chunk of k it multiplies; every shard's f32 partial is written and
+# read once more at PARTIAL_BYTES_PER_S. Constants from
+# scripts/k3_variants.py on an H100 SXM.
+CHUNK_S = {(torch.float32, 128): 6.1e-6, (torch.float32, 64): 3.7e-6,
+           (torch.bfloat16, 128): 0.9e-6}   # by (dtype, tile rows); tiles 128 wide
+PARTIAL_BYTES_PER_S = 3e12
+WIDE_SHARD_CHUNKS = 16   # f32 at C 2,048: a shard spans 1,024 hidden columns
+
+
+def f32_shard_chunks(c: int, hidden: int) -> int:
+    """The chunks of 64 hidden columns in one shard of an f32 call: at C up
+    to 512 the whole hidden width, one FMA chain per output as in the f32
+    kernel this path replaced, so that its results are that kernel's bits
+    (and a row's output never depends on the rows beside it); at C 2,048
+    shards of 1,024 columns, which the SMs need there."""
+    chunks = hidden // HIDDEN_CHUNK
+    return chunks if c in WIDTHS else min(WIDE_SHARD_CHUNKS, chunks)
+
+
+@functools.lru_cache(maxsize=None)
+def products_plan(rows: int, c: int, hidden: int, dtype) -> tuple:
+    """``(tile_rows, n_split, chunks_per_split)`` of the products path: a
+    pure function of the shapes and the dtype. Its blocks own tiles of
+    ``tile_rows`` x 128 (f32: 64 or 128 rows, bf16: 128); the second
+    product cuts the ``hidden / 64`` chunks into ``n_split`` equal shards
+    over blocks, summed in order by a second kernel. The shards of f32 are
+    :func:`f32_shard_chunks` long, a function of C and the hidden width
+    alone; the tiles, and the shards of bf16 (C 2,048 only), are the choice
+    with the least estimated time: waves of blocks over the 132 SMs times
+    the chunks a block multiplies, for both products, plus the partials'
+    traffic (fewer shards, then taller tiles, on a tie)."""
+    f32 = dtype == torch.float32
+    chunks = hidden // HIDDEN_CHUNK
+    pers = [f32_shard_chunks(c, hidden)] if f32 else range(chunks, 0, -1)
+    partial_s = 8 * rows * c / PARTIAL_BYTES_PER_S
+    best, best_s = None, None
+    for tile_rows in (128, 64) if f32 else (128,):
+        chunk_s = CHUNK_S[dtype, tile_rows]
+        m_tiles = -(-rows // tile_rows)
+        hidden_s = -(-m_tiles * -(-hidden // PRODUCT_TILE) // SM_COUNT) * (c // 64) * chunk_s
+        for per in pers:   # shards n = ceil(chunks / per), fewest first
+            n = -(-chunks // per)
+            t = (hidden_s + -(-m_tiles * (c // PRODUCT_TILE) * n // SM_COUNT) * per * chunk_s
+                 + n * partial_s)
+            if best_s is None or t < best_s:
+                best, best_s = (tile_rows, -(-chunks // per), per), t
+    return best
+
+
 def kernel_ffn_split(dtype, rows: int, c: int, hidden: int) -> tuple:
-    """The split a call takes: :func:`ffn_split` on the bf16 tensor-core
-    kernel; float32's SIMT kernel and the wide kernel walk every chunk in
-    one block."""
-    if dtype == torch.bfloat16 and c not in WIDE_WIDTHS:
+    """The split a call takes: :func:`ffn_split` on the row-tile kernel,
+    :func:`products_plan`'s on the products path."""
+    if ffn_path(dtype, c) == "row-tile":
         return ffn_split(rows, c, hidden)
-    return 1, hidden // HIDDEN_CHUNK
+    return products_plan(rows, c, hidden, dtype)[1:]
+
+
+def smem_bytes_products(dtype, tile_rows: int = PRODUCT_TILE) -> int:
+    """Dynamic shared memory of one block of a products kernel (must match
+    ``simt_smem`` and ``kMmaSmem`` in ``csrc/ffn.cu``): a ring of A and B
+    slices; f32 two stages, k-major, 32 k a stage (16 with 64-row tiles), A
+    ``tile_rows`` and B 128 rows, each padded by 4 floats a k; bf16 three
+    stages of 64 k and 128 rows each, 8 elements of padding a row."""
+    if dtype == torch.float32:
+        depth = 16 if tile_rows == 64 else 32
+        return 2 * depth * (tile_rows + 4 + PRODUCT_TILE + 4) * 4
+    return 3 * 2 * PRODUCT_TILE * (64 + 8) * 2
 
 
 def smem_bytes_tc(c: int) -> int:
@@ -154,26 +250,74 @@ def _check(x, w1, b1, w2, b2, gamma, beta) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+def _check_aligned(*tensors) -> None:
+    """bf16 operands are copied 16 bytes at a time (``cp.async``)."""
+    for t in tensors:
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError("bf16 operands of the FFN kernel must be 16-byte aligned")
+
+
+def _scratch_shapes(x, hidden: int, n_split: int, entry: str) -> dict:
+    """The scratch a launch takes, by name: shape and dtype. The products
+    path writes the hidden activation (rows, Hd) in x's dtype; its LayerNorm
+    entry (``entry="ln"``) always, and either entry's split path, write f32
+    partials (n_split, rows, C)."""
+    c = x.shape[-1]
+    rows = x.numel() // c
+    products = ffn_path(x.dtype, c) == "products"
+    shapes = {}
+    if products:
+        shapes["hidden"] = ((rows, hidden), x.dtype)
+    if n_split > 1 or (products and entry == "ln"):
+        shapes["partial"] = ((n_split, rows, c), torch.float32)
+    return shapes
+
+
+def _scratch(x, hidden: int, n_split: int, entry: str) -> dict:
+    return {name: torch.empty(shape, dtype=dtype, device=x.device)
+            for name, (shape, dtype) in _scratch_shapes(x, hidden, n_split, entry).items()}
+
+
+def _check_scratch(scratch: dict, x, hidden: int, n_split: int, entry: str) -> None:
+    """Raise unless ``scratch`` holds exactly the buffers the launch writes,
+    each of its shape and dtype, contiguous on x's device."""
+    want = _scratch_shapes(x, hidden, n_split, entry)
+    if set(scratch) != set(want):
+        raise ValueError(f"scratch: expected {sorted(want)}, got {sorted(scratch)}")
+    for name, (shape, dtype) in want.items():
+        t = scratch[name]
+        if (tuple(t.shape) != shape or t.dtype != dtype or t.device != x.device
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} scratch: expected {shape} {dtype} contiguous on "
+                             f"{x.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def _ptr(scratch: dict, name: str):
+    t = scratch.get(name)
+    return None if t is None else t.data_ptr()
+
+
 def _launch(x, w1, b1, w2, b2, gamma, beta) -> torch.Tensor:
     _check(x, w1, b1, w2, b2, gamma, beta)
+    _check_aligned(x, w1, w2)
     lib = _build.library("ffn")
     fn = lib.savqa_ffn_ln
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     c = x.shape[-1]
     rows, hidden = x.numel() // c, w1.shape[0]
     n_split, per = kernel_ffn_split(x.dtype, rows, c, hidden)
+    tile_rows = products_plan(rows, c, hidden, x.dtype)[0]
     out = torch.empty_like(x)
-    # the shards' f32 partial y, summed by the second kernel
-    partial = (torch.empty(n_split, rows, c, dtype=torch.float32, device=x.device)
-               if n_split > 1 else None)
+    scratch = _scratch(x, hidden, n_split, "ln")
+    _check_scratch(scratch, x, hidden, n_split, "ln")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         status = fn(
             x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
-            None if partial is None else partial.data_ptr(),
-            rows, c, hidden, _DTYPES[x.dtype], n_split, per, stream,
+            gamma.data_ptr(), beta.data_ptr(), out.data_ptr(), _ptr(scratch, "hidden"),
+            _ptr(scratch, "partial"), rows, c, hidden, _DTYPES[x.dtype], n_split, per, tile_rows,
+            stream,
         )
     _build.check(status, "ffn_ln kernel")
     fused_ffn.launches += 1
@@ -240,21 +384,23 @@ def _check_partial(x, w1, b1, w2) -> None:
 
 def _launch_partial(x, w1, b1, w2) -> torch.Tensor:
     _check_partial(x, w1, b1, w2)
+    _check_aligned(x, w1, w2)
     lib = _build.library("ffn")
     fn = lib.savqa_ffn_partial
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     c = x.shape[-1]
     rows, hidden = x.numel() // c, w1.shape[0]
     n_split, per = kernel_ffn_split(x.dtype, rows, c, hidden)
+    tile_rows = products_plan(rows, c, hidden, x.dtype)[0]
     out = torch.empty(*x.shape, dtype=torch.float32, device=x.device)
-    scratch = (torch.empty(n_split, rows, c, dtype=torch.float32, device=x.device)
-               if n_split > 1 else None)
+    scratch = _scratch(x, hidden, n_split, "partial")
+    _check_scratch(scratch, x, hidden, n_split, "partial")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         status = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                    None if scratch is None else scratch.data_ptr(), out.data_ptr(),
-                    rows, c, hidden, _DTYPES[x.dtype], n_split, per, stream)
+                    _ptr(scratch, "hidden"), _ptr(scratch, "partial"), out.data_ptr(),
+                    rows, c, hidden, _DTYPES[x.dtype], n_split, per, tile_rows, stream)
     _build.check(status, "ffn_partial kernel")
     ffn_partial.launches += 1
     return out

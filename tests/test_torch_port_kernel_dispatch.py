@@ -282,7 +282,9 @@ def test_k3_split_is_a_pure_function_of_the_shapes(rows, hidden, want):
     for c in k3.WIDTHS:
         assert k3.ffn_split(rows, c, hidden) == want
         assert k3.ffn_split(rows, c, hidden) == want          # and says so twice
-    assert k3.kernel_ffn_split(torch.float32, rows, 512, hidden) == (1, hidden // 64)
+    # float32 takes the products path and its own rule (tests/test_torch_port_ffn_f32.py)
+    assert k3.kernel_ffn_split(torch.float32, rows, 512, hidden) == \
+        k3.products_plan(rows, 512, hidden, torch.float32)[1:]
 
 
 @pytest.mark.parametrize("hidden", [64, 192, 512, 2048, 4096])
