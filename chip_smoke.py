@@ -30,9 +30,12 @@ Phases, each of which must pass:
 5. K2 (the backward of K1) against its plain PyTorch version at K1's
    shapes, bf16 and f32, both renorms, with all-zero graph rows and masked
    keys; in f32 also against torch.autograd of K1's plain version; each line
-   says which kernels the shape took (tensor-core or SIMT), one bf16 shape
-   with a head width of 8 must take the SIMT kernels and still match, and
-   one with 65 keys checks the tensor-core kernels' unaligned graph loads;
+   says which kernels the shape took (tensor-core, f32 or SIMT), one bf16
+   shape with a head width of 8 must take the SIMT kernels and still match,
+   and one with 65 keys checks the tensor-core kernels' unaligned graph
+   loads; f32 also at the variants' shapes (B 64, self L 99 and 300, one
+   query into 99 and 300), and one f32 call under torch.profiler must run
+   only the f32 kernels of csrc/graph_attention_bwd.cu;
 6. the serving forward at full width (hidden 512, 6 blocks, 8 heads, 1,843
    classes, 407,000-row shared GloVe table, bf16, random weights from a seed)
    on five requests of 128 questions, bucket (lv, lq, ls) = (36, 30, 98):
@@ -47,7 +50,8 @@ Phases, each of which must pass:
    within tolerance; ten steps on one batch without dropout, whose loss
    must fall; a batch with a NaN feature, which must be skipped leaving the
    params and the Adam state bitwise as they were; and the device-time
-   breakdown of one step;
+   breakdown of one bf16 step and of one f32 step (the training CLI's
+   default compute), with the f32 step's rate;
 8. K4 (the flash graph attention) against its plain PyTorch version, bf16
    and f32, both renorms, every ``emit``, at B 4, C 512, 8 heads:
    self-attention at L 1,536 with ragged valid lengths and at L 1,506 + 30
@@ -55,8 +59,10 @@ Phases, each of which must pass:
    and an odd shape (Tq 200, Tk 700); the inputs hold masked keys, a fully
    masked 64-key tile, all-zero graph rows and a fully masked sample; the
    one-query shape, the odd shape and Tq 70 into 1,536 keys (two query
-   tiles) must go through the key split and its merge kernel in bf16, and a
-   bf16 shape with a head width of 8 through the SIMT kernel; each line says
+   tiles) must go through the key split and its merge kernel in bf16 and in
+   f32, and a bf16 shape with a head width of 8 through the SIMT kernel; an
+   f32 call and a split one under torch.profiler must run only the f32
+   kernel and the merge kernel; each line says
    which kernel and split the shape took; a bf16 shape with 701 keys checks
    the tensor-core kernel's unaligned graph copies;
 9. K5 and K6 (its backward: dQ, and dK with dV) on the same inputs against
@@ -78,8 +84,8 @@ Phases, each of which must pass:
     f32 step with the kernels against one with the plain versions; a step
     with ``remat_blocks`` against one without (same loss and gradients) and
     the peak memory of both; one step with the sparse GloVe-table optimizer
-    (finite, the same launches); the device-time breakdown of a step and of
-    a request;
+    (finite, the same launches); the device-time breakdown of a step, of an
+    f32 step (with its rate) and of a request;
 12. the predict and eval CLIs (``train.predict.main``, ``train.evaluate.main``)
     on a fixture tree written by the port's ``write_fixture`` (128 images,
     2,560 train and 640 val questions, 10-36 objects, 1,600 classes), the
@@ -335,9 +341,9 @@ VARIANT_STEPS = ("x2_dec", "x5_dec_mil")
 STATS_TOL = 1e-4
 REMAT_TOL = 1e-5
 # ms per launch of K4, K2, K5 and K6 (SIMT) and of K1 (SIMT) and K3 (the
-# WMMA kernel) these shapes ran before their bf16 paths were redesigned for
-# the tensor cores (this script, H100 80GB HBM3 at 700 W), printed beside
-# the new time; by (kernel, shape label, dtype)
+# WMMA kernel) these shapes ran before their paths were redesigned (this
+# script, H100 80GB HBM3 at 700 W), printed beside the new time; by
+# (kernel, shape label, dtype)
 PREVIOUS_MS = {
     ("K1", "self L=66", torch.bfloat16): 0.4282,
     ("K1", "self L=128", torch.bfloat16): 0.9538,
@@ -383,6 +389,25 @@ PREVIOUS_MS = {
     ("K6", "self L=1536", torch.bfloat16): 2.4198,
     ("K6", "cross Tq=1 Lk=1536", torch.bfloat16): 0.1070,
     ("K6", "self L=1536", torch.float32): 2.4403,
+    # K2's and K4's first f32 SIMT kernels, before their register-tiled
+    # redesign, for the f32 rows above lacks: this script's k2 and k4 phases
+    # and scripts/k24_f32_times.py on that tree, H100 80GB HBM3 at 700 W
+    ("K2", "self L=66", torch.float32): 1.6028,
+    ("K2", "cross Tq=1 Lk=128", torch.float32): 0.4593,
+    ("K2", "cross Tq=1 Lk=66", torch.float32): 0.3142,
+    ("K2", "self L=66 B=4", torch.float32): 0.4190,
+    ("K2", "cross Tq=1 Lk=66 B=4", torch.float32): 0.1841,
+    ("K2", "self L=99 B=64", torch.float32): 1.6996,
+    ("K2", "self L=300 B=64", torch.float32): 11.2185,
+    ("K2", "cross Tq=1 Lk=99 B=64", torch.float32): 0.3393,
+    ("K2", "cross Tq=1 Lk=300 B=64", torch.float32): 0.9170,
+    ("K2 from d(o)", "model", torch.float32): 1.3637,
+    ("K4", "self L=1506+30", torch.float32): 1.1112,
+    ("K4", "cross Tq=1 Lk=1536", torch.float32): 0.2055,
+    ("K4", "odd Tq=200 Tk=700", torch.float32): 0.1215,
+    ("K4", "split Tq=70 Tk=1536", torch.float32): 0.2541,
+    ("K4", "ring shard", torch.float32): 0.3533,
+    ("K4 heads", "model", torch.float32): 0.7290,
 }
 
 failures: list = []
@@ -537,23 +562,31 @@ def k3_path(dtype, n: int, c: int, hidden: int = 0) -> str:
             f"tiles of {tile_rows} x 128")
 
 
-def k3_device_kernels(fn, what: str) -> None:
-    """Check that one call of ``fn`` under torch.profiler launches only
-    kernels of csrc/ffn.cu and no library GEMM."""
+def device_kernels_only(fn, what: str, mine: tuple, source: str) -> None:
+    """Check that calls of ``fn`` under torch.profiler launch only kernels
+    whose names hold one of ``mine`` (the kernels of ``source``) and no
+    library GEMM. Three calls: after an earlier profile in the process the
+    profiler has been seen to miss the first kernels of a session."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fn()
         torch.cuda.synchronize()
     names = sorted({e.name for e in prof.events()
                     if e.device_type == DeviceType.CUDA and not e.is_user_annotation})
-    foreign = [n for n in names if not any(mine in n for mine in ("ffn_ln_", "ffn_partial_sum"))
+    foreign = [n for n in names if not any(m in n for m in mine)
                or any(mark in n.lower() for mark in LIBRARY_GEMM_MARKS)]
     check(bool(names) and not foreign,
-          f"K3 {what}: the device ran {len(names)} kernel(s), all of csrc/ffn.cu "
+          f"{what}: the device ran {len(names)} kernel(s), all of {source} "
           f"({', '.join(n[:60] for n in names)}); foreign {foreign}")
+
+
+def k3_device_kernels(fn, what: str) -> None:
+    """Check that one call of ``fn`` launches only kernels of csrc/ffn.cu."""
+    device_kernels_only(fn, f"K3 {what}", ("ffn_ln_", "ffn_partial_sum"), "csrc/ffn.cu")
 
 
 def k3_phase(gen) -> dict:
@@ -661,6 +694,25 @@ def k2_against_plain(label: str, args, dy, heads: int, renorm: str) -> tuple:
     return got, rel, err
 
 
+# K2's f32 rows at the variants' shapes (x2_dec's and x5_dec_mil's
+# backwards, bs 64): the encoders' self-attention at L 99 and 300, the
+# decoders' one query into 99 and 300 keys
+K2_VARIANT_SHAPES = (("self L=99 B=64", 99, 99, VARIANT_B), ("self L=300 B=64", 300, 300, VARIANT_B),
+                     ("cross Tq=1 Lk=99 B=64", 1, 99, VARIANT_B),
+                     ("cross Tq=1 Lk=300 B=64", 1, 300, VARIANT_B))
+K2_F32_KERNELS = ("graph_attention_ln_bwd_fwd_f32_kernel", "graph_attention_ln_bwd_ln_f32_kernel",
+                  "graph_attention_ln_bwd_dq_f32_kernel", "graph_attention_ln_bwd_dkv_f32_kernel")
+
+
+def k2_kernels(dtype, head_dim: int) -> str:
+    """Which of K2's designs a call takes."""
+    from structured_alignment_vqa_tpu_torch.ops import fused_graph_attention as k1
+
+    if k1.kernel_path(dtype, head_dim) == "tensor-core":
+        return "tensor-core kernels"
+    return "f32 kernels" if dtype == torch.float32 else "SIMT kernels"
+
+
 def k2_phase(gen) -> dict:
     from structured_alignment_vqa_tpu_torch.ops import fused_graph_attention as k1
 
@@ -674,11 +726,12 @@ def k2_phase(gen) -> dict:
 
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
-        for label, tq, tk, B in K1_SHAPES:
+        shapes = K1_SHAPES + (K2_VARIANT_SHAPES if dtype == torch.float32 else ())
+        for label, tq, tk, B in shapes:
             args, dy = k2_inputs(gen, tq, tk, dtype, B)
-            path = k1.kernel_path(dtype, C // HEADS)
-            want_path = "tensor-core" if dtype == torch.bfloat16 else "simt"
-            check(path == want_path, f"K2 {label} {dtype}: takes the {path} kernels")
+            path = k2_kernels(dtype, C // HEADS)
+            want_path = "tensor-core kernels" if dtype == torch.bfloat16 else "f32 kernels"
+            check(path == want_path, f"K2 {label} {dtype}: takes the {path}")
             err = rel = 0.0
             for renorm in ("l1", "sum_eps"):
                 got, r, e = k2_against_plain(label, args, dy, HEADS, renorm)
@@ -692,6 +745,11 @@ def k2_phase(gen) -> dict:
                     check(e <= K2_AUTOGRAD_TOL,
                           f"K2 {label} f32 {renorm}: max|kernel-autograd|/max|autograd| "
                           f"{e:.3g} <= {K2_AUTOGRAD_TOL:g}")
+            if dtype == torch.float32 and label in ("self L=128", "cross Tq=1 Lk=128"):
+                device_kernels_only(
+                    lambda: k1.fused_graph_attention_ln_bwd(*args, dy, HEADS, "l1"),
+                    f"K2 {label} {dtype}", K2_F32_KERNELS + ("elementwise", "reduce"),
+                    "csrc/graph_attention_bwd.cu's f32 kernels (and the sum of the partials)")
             ms = time_ms(lambda: k1.fused_graph_attention_ln_bwd(*args, dy, HEADS, "l1"))
             plain_ms = time_ms(lambda: k1.graph_attention_ln_bwd_plain(*args, dy, HEADS, "l1"))
             size = torch.finfo(dtype).bits // 8
@@ -700,7 +758,7 @@ def k2_phase(gen) -> dict:
             nbytes = (size * B * C * (5 * tq + 4 * tk) + 4 * B * (tq + tk + tq * tk) + 12 * C)
             # recomputed QK^T and AV, then dV, dA, dQ and dK: 6 products of 2 B Tq Tk C
             bound_ms, bound_by = bound(nbytes, 12.0 * B * tq * tk * C, dtype)
-            print(f"K2 {label} {dtype}: {path} kernels {ms:.4f} ms{previous('K2', label, dtype)}, "
+            print(f"K2 {label} {dtype}: {path} {ms:.4f} ms{previous('K2', label, dtype)}, "
                   f"plain {plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by})",
                   flush=True)
             rows.append(dict(label=label, dtype=dtype, err=err, rel_err=rel, ms=ms,
@@ -786,6 +844,15 @@ def k4_against_plain(label: str, args, heads: int) -> float:
     return err
 
 
+def k4_kernel(dtype, head_dim: int) -> str:
+    """Which of K4's kernels a call takes: tensor-core, f32 or SIMT."""
+    from structured_alignment_vqa_tpu_torch.ops import flash_graph_attention as fl
+
+    if fl.kernel_path(dtype, head_dim) == "tensor-core":
+        return "tensor-core"
+    return "f32" if dtype == torch.float32 else "SIMT"
+
+
 def k4_phase(gen) -> dict:
     from structured_alignment_vqa_tpu_torch.ops import flash_graph_attention as fl
 
@@ -799,12 +866,17 @@ def k4_phase(gen) -> dict:
     for dtype in (torch.bfloat16, torch.float32):
         for label, tq, tk in FLASH_SHAPES + (K4_SPLIT_SHAPE,):
             args = flash_inputs(gen, label, tq, tk, dtype)
-            path = fl.kernel_path(dtype, C // HEADS)
+            path = k4_kernel(dtype, C // HEADS)
             n_split = fl.kernel_key_split(dtype, C // HEADS, REL_B, HEADS, tq, tk)[0]
-            check(path == ("tensor-core" if dtype == torch.bfloat16 else "simt")
-                  and (n_split > 1) == (path == "tensor-core" and label in K4_SPLIT_LABELS),
+            check(path == ("tensor-core" if dtype == torch.bfloat16 else "f32")
+                  and (n_split > 1) == (label in K4_SPLIT_LABELS),
                   f"K4 {label} {dtype}: takes the {path} kernel, keys in {n_split} shard(s)")
             err = k4_against_plain(label, args, HEADS)
+            if dtype == torch.float32 and label in ("self L=1536", "cross Tq=1 Lk=1536"):
+                device_kernels_only(lambda: fl.flash_graph_attention(*args, HEADS, "l1"),
+                                    f"K4 {label} {dtype}",
+                                    ("flash_graph_attention_f32_kernel", "merge_partials_kernel"),
+                                    "csrc/flash_graph_attention.cu's f32 and merge kernels")
             ms = time_ms(lambda: fl.flash_graph_attention(*args, HEADS, "l1"))
             stats_ms = time_ms(lambda: fl.flash_graph_attention(*args, HEADS, "l1", "stats"))
             plain_ms = time_ms(lambda: fl.flash_graph_attention_plain(*args, HEADS, "l1"), iters=5)
@@ -914,7 +986,7 @@ def k56_phase(gen) -> dict:
             args = flash_inputs(gen, label, tq, tk, dtype)
             dy = torch.randn(REL_B, tq, C, generator=gen, device="cuda").to(dtype)
             path = fl.kernel_path(dtype, C // HEADS)
-            n_split = fl.kernel_key_split(dtype, C // HEADS, REL_B, HEADS, tq, tk)[0]
+            n_split = fl.dq_key_split(dtype, C // HEADS, REL_B, HEADS, tq, tk)[0]
             check(path == ("tensor-core" if dtype == torch.bfloat16 else "simt")
                   and (n_split > 1) == (path == "tensor-core" and label in K4_SPLIT_LABELS),
                   f"K5/K6 {label} {dtype}: take the {path} kernels, K5's keys in {n_split} "
@@ -990,10 +1062,11 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
-def profile_device(fn, what: str) -> dict:
+def profile_device(fn, what: str, host_top: int = 0) -> dict:
     """Device time by kernel over one call of ``fn`` (torch.profiler), and
-    the device's idle share of its wall time; returns {kernel name: (calls,
-    us)}. Information only."""
+    the device's idle share of its wall time (with ``host_top``, also the
+    ops that took the most host time themselves); returns {kernel name:
+    (calls, us)}. Information only."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1020,6 +1093,7 @@ def profile_device(fn, what: str) -> dict:
                ("K5 flash_graph_attention_bwd_dq", "flash_graph_attention_bwd_dq"),
                ("K6 flash_graph_attention_bwd_dkv", "flash_graph_attention_bwd_dkv"),
                ("K4 flash_graph_attention", "flash_graph_attention_kernel"),
+               ("K4 flash_graph_attention", "flash_graph_attention_f32_kernel"),
                ("K4 flash_graph_attention", "flash_graph_attention_tc_kernel"),
                ("K4 flash_graph_attention", "merge_partials_kernel"))
     groups = {key: 0.0 for key, _ in markers}
@@ -1037,6 +1111,9 @@ def profile_device(fn, what: str) -> dict:
         print(f"  {key}: {us / 1e3:.3f} ms ({us / busy:.3f} of device time)")
     for name, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]:
         print(f"  {us / 1e3:9.3f} ms  x{n:<4d} {name[:110]}")
+    if host_top:
+        for e in sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:host_top]:
+            print(f"  host {e.self_cpu_time_total / 1e3:9.3f} ms self x{e.count:<5d} {e.key[:100]}")
     return by_name
 
 
@@ -1254,6 +1331,39 @@ def f32_step_against_plain(cfg, batch, want: dict, what: str = "train f32") -> N
                   GRAD_TOL_F32)
 
 
+def f32_step_profile(cfg, batches: list, bs: int, what: str, card: str,
+                     host_top: int = 0) -> None:
+    """The f32 training step, the training CLI's default compute: steps/s
+    over ``batches`` after a warm-up step, and the device time by kernel and
+    idle share of one step (information only; ``host_top``: as
+    :func:`profile_device`)."""
+    from structured_alignment_vqa_tpu_torch.parallel.train_step import (
+        TrainState,
+        adam,
+        make_train_step,
+    )
+
+    model = random_model(cfg)
+    opt = adam(model.parameters(), lr=1e-4)
+    state = TrainState(model, opt)
+    step = make_train_step(model, opt, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    step(state, batches[0], gen)           # warm-up step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        step(state, b, gen)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    print(f"{what} train f32 bs {bs}: {len(batches)} steps in {seconds:.4f} s = "
+          f"{len(batches) / seconds:.3f} steps/s, {len(batches) * bs / seconds:.1f} samples/s "
+          f"on {card} (information only)", flush=True)
+    profile_device(lambda: step(state, batches[0], gen), f"one {what} f32 bs-{bs} training step",
+                   host_top)
+    del model, opt, state, step
+    torch.cuda.empty_cache()
+
+
 def training_phase(card: str) -> dict:
     from structured_alignment_vqa_tpu_torch.parallel.train_step import (
         TrainState,
@@ -1304,6 +1414,7 @@ def training_phase(card: str) -> dict:
     f32_step_against_plain(cfg32, full_batches(cfg32, 1)[0],
                            {"K1": K1_PER_FORWARD, "K2": K2_PER_STEP, "K3": K3_PER_FORWARD})
     torch.cuda.empty_cache()
+    f32_step_profile(cfg32, full_batches(cfg32, TRAIN_STEPS), B, "obj-only", card)
 
     # overfit one batch without dropout; then a poisoned batch is skipped
     cfg0 = full_config(dropout_rate=0.0)
@@ -1480,6 +1591,7 @@ def rel_training_phase(card: str) -> dict:
     batch = batches[0]
     f32_step_against_plain(cfg32, batch, REL_STEP, "obj+rel train f32")
     torch.cuda.empty_cache()
+    f32_step_profile(cfg32, rel_batches(cfg32, TRAIN_STEPS), REL_B, "obj+rel", card)
 
     # remat_blocks: the same step, each encoder block's forward run again in
     # the backward; bf16, as training runs
@@ -3642,8 +3754,9 @@ def seq_shard_kernels(card: str) -> None:
         # reads q, k, v and the graph block; writes a (f32) and m, z, b
         nbytes = size * b * C * 3 * t + 4 * b * (t * t + 2 * t) + 4 * b * (C * t + 3 * HEADS * t)
         bound_ms, bound_by = bound(nbytes, 4.0 * b * t * t * C, dtype)
-        print(f"K4 emit=partial {label} {dtype}: {fl.kernel_path(dtype, C // HEADS)} kernel, "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us "
+        print(f"K4 emit=partial {label} {dtype}: {k4_kernel(dtype, C // HEADS)} kernel, "
+              f"{ms:.4f} ms{previous('K4', 'ring shard', dtype)}, plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms * 1e3:.2f} us "
               f"({bound_by}); library: none (SDPA gives no m, z, b) on {card}", flush=True)
         _, m, z, bsum = fl.flash_graph_attention(*args, HEADS, "l1", "stats")
         out = fl.flash_graph_attention(*args, HEADS, "l1")
@@ -3766,8 +3879,9 @@ def model_entries(card: str) -> dict:
         bound_ms, bound_by = bound(nbytes, ops, dtype)
         library_ms = None if library is None else library[0]
         lib = "none" if library is None else (f"{library[1]} {library_ms:.4f} ms")
-        print(f"{entry} {shape} {dtype}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bound_ms * 1e3:.2f} us ({bound_by}); library: {lib} on {card}", flush=True)
+        print(f"{entry} {shape} {dtype}: {ms:.4f} ms{previous(entry, 'model', dtype)}, plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by}); library: {lib} "
+              f"on {card}", flush=True)
         if dtype == torch.bfloat16:
             rows[entry] = dict(name=entry, err=err, tolerance=tol, ms=ms, plain_ms=plain_ms,
                                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
@@ -4075,6 +4189,15 @@ KERNELS = (
 )
 
 
+# K2's and K4's float32 rows at the main path's shapes (their register-tiled kernels)
+def tol_f32(key: str) -> float:
+    return K2_TOL[torch.float32] if key == "K2" else TOL[torch.float32]
+
+
+F32_MAIN = {"K2": ("k2", "self L=128" + str(torch.float32), "f32 B=128 L=128 C=512 H=8"),
+            "K4": ("k4", "self L=1536" + str(torch.float32), "f32 B=4 L=1536 C=512 H=8")}
+
+
 def kernel_lines(rows: dict, by_path: dict) -> list:
     kernels = []
     for key, name, src, replaces, path, (phase, row), shape, tol in KERNELS:
@@ -4095,6 +4218,12 @@ def kernel_lines(rows: dict, by_path: dict) -> list:
         if "rel_err" in main_row:   # held relative to each output's max
             entry["max_rel_err"] = main_row["rel_err"]
             entry["max_rel_err_all_cases"] = max(r["rel_err"] for r in mine.values())
+        if key in F32_MAIN:
+            f32_phase, f32_row, f32_shape = F32_MAIN[key]
+            r = rows[f32_phase][f32_row]
+            entry["f32"] = {"shape": f32_shape, "max_abs_err": r["err"], "tolerance": tol_f32(key),
+                            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                            "bound_by": r["bound_by"], "library_ms": r.get("library_ms")}
         kernels.append(entry)
     return kernels
 

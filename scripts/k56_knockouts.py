@@ -129,7 +129,7 @@ def time_entries(lib, args, tq: int, tk: int) -> tuple:
     q, k = args[0], args[1]
     pointers = [a.data_ptr() for a in args]
     dh = C // HEADS
-    n_split, per = fl.kernel_key_split(q.dtype, dh, B, HEADS, tq, tk)
+    n_split, per = fl.dq_key_split(q.dtype, dh, B, HEADS, tq, tk)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(k)
     scratch = torch.empty(n_split, B, tq, C, device="cuda") if n_split > 1 else None
     stream = torch.cuda.current_stream().cuda_stream

@@ -75,16 +75,34 @@
 // * A zero-padded head: a head width of 48, 80, ... runs in the next
 //   instantiation (16, 32, 64, 128) with its upper channels staged as zeros.
 //
-// f32 inputs, and bf16 with a head width that is not a multiple of 16, take
-// the SIMT kernel below (f32 FMAs on CUDA cores from f32 tiles in shared
-// memory, one block of 256 threads per (batch, head, 64 query rows), no key
-// split): TF32 products would not hold the 1e-4 the f32 path is checked to.
+// f32 (csrc/simt_f32.cuh:flash_f32_body): FFMA on the CUDA
+// cores (TF32 products would not hold the 1e-4 the f32 path is checked to),
+// shaped as the bf16 kernel: a block of 4 warps owns 64 query rows (1 warp,
+// 16 rows, when Tq <= 16), K, V, the f32 graph tile and the key mask of each
+// 64-key step stream through a two-stage cp.async ring into swizzled shared
+// tiles, and each lane computes a 4 x 8 tile of scores (4 + 8 float4 loads
+// for 128 FMAs per 4 channels) and a 4 x (dh / 8) tile of the output. The
+// weights go to the second product through the warp's own rows of the
+// graph tile, which it has read by then: one warp barrier, no block
+// barrier. Each score, each output channel and z and b are summed in the
+// order of the first f32 kernel (one block of 256 threads per (batch, head,
+// 64 rows), a 4 x 4 thread tile, scalar V loads, the graph read from device
+// memory), so an unsplit call keeps its bits. Few-block calls (the
+// decoder's one query into 1,536 keys) split the keys into shards of four
+// steps, whatever the head count, and merge_partials_kernel<float> merges
+// them. What bounds it: at B 4, L 1,536, 8 heads, 19.3 GFLOP, 288 us at the
+// 67 TFLOP/s FFMA peak.
+//
+// bf16 with a head width that is not a multiple of 16 keeps the first SIMT
+// kernel below (one block of 256 threads per (batch, head, 64 query rows),
+// no key split).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 
 #include "mma_sm90.cuh"
+#include "simt_f32.cuh"
 
 namespace {
 
@@ -106,7 +124,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
   return __float2bfloat16_rn(x);
 }
 
-// ---- the SIMT kernel (f32; bf16 with a head width that is no multiple of 16) ----
+// ---- the first SIMT kernel (bf16 with a head width that is no multiple of 16) ----
 //
 // One block of 256 threads owns (batch, head, tile of 64 query rows) and
 // walks the keys 64 at a time; Q, K and V are staged in shared memory as
@@ -610,10 +628,11 @@ flash_graph_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restri
 // head, row, channel): m = max m_i, c_i = exp(m_i - m) (0 for a shard that
 // saw no key, m_i = -inf), z, b, a = sum c_i (z_i, b_i, a_i) in shard order;
 // then renorm, query mask and emit as the unsplit kernel.
+template <typename T>
 __global__ void __launch_bounds__(256)
 merge_partials_kernel(const float* __restrict__ a_part, const float* __restrict__ m_part,
                       const float* __restrict__ z_part, const float* __restrict__ b_part,
-                      const float* __restrict__ query_mask, bf16* __restrict__ out,
+                      const float* __restrict__ query_mask, T* __restrict__ out,
                       float* __restrict__ a_out, float* __restrict__ m_out,
                       float* __restrict__ z_out, float* __restrict__ b_out, int n_split, int B,
                       int H, int Tq, int dh, int renorm, int emit) {
@@ -646,7 +665,7 @@ merge_partials_kernel(const float* __restrict__ a_part, const float* __restrict_
   const int b = (int)(r / ((size_t)Tq * H));
   const float denom = renorm == 0 ? fmaxf(bs, kL1Eps * z) : bs + kSumEps * z;
   const float qm = query_mask[(size_t)b * Tq + row];
-  out[((size_t)b * Tq + row) * H * dh + h * dh + d] = __float2bfloat16_rn(a / denom * qm);
+  out[((size_t)b * Tq + row) * H * dh + h * dh + d] = from_float<T>(a / denom * qm);
 }
 
 struct TcArgs {
@@ -685,7 +704,7 @@ cudaError_t launch_tc(const TcArgs& p) {
   err = cudaGetLastError();
   if (err != cudaSuccess || !split) return err;
   const size_t total = n_rows * dh;
-  merge_partials_kernel<<<(unsigned)((total + 255) / 256), 256, 0, p.stream>>>(
+  merge_partials_kernel<bf16><<<(unsigned)((total + 255) / 256), 256, 0, p.stream>>>(
       p.scratch_a, sm, sm + p.n_split * n_rows, sm + 2 * p.n_split * n_rows, p.query_mask, out,
       a_out, p.m_out, p.z_out, p.b_out, p.n_split, p.B, p.H, p.Tq, dh, p.renorm, p.emit);
   return cudaGetLastError();
@@ -701,26 +720,93 @@ cudaError_t launch_tc_dh(const TcArgs& p) {
   return launch_tc<128, kTcWarps>(p);
 }
 
+// ---- the f32 kernel (csrc/simt_f32.cuh) ----
+
+template <int DH, int WARPS, int R>
+__global__ void __launch_bounds__(WARPS * 32, WARPS * R == 16 && DH <= 64 ? 2 : 1)
+flash_graph_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                 const float* __restrict__ v, const float* __restrict__ key_mask,
+                                 const float* __restrict__ query_mask,
+                                 const float* __restrict__ graph, float* __restrict__ out,
+                                 float* __restrict__ a_out, float* __restrict__ m_out,
+                                 float* __restrict__ z_out, float* __restrict__ b_out, int Tq,
+                                 int Tk, int C, int H, int dh, int renorm, int emit, float scale,
+                                 int n_split, int steps_per_split) {
+  savqa_f32::flash_f32_body<DH, WARPS, R>(q, k, v, key_mask, query_mask, graph, out, a_out, m_out,
+                                       z_out, b_out, 1, Tq, Tk, C, H, dh, renorm, emit, scale,
+                                       n_split, steps_per_split);
+}
+
+struct F32Args {
+  const float *q, *k, *v, *key_mask, *query_mask, *graph;
+  void* out;
+  float *m_out, *z_out, *b_out, *scratch_a, *scratch_stats;
+  int B, Tq, Tk, C, H, renorm, emit, n_split, steps_per_split;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <int DH, int WARPS, int R>
+cudaError_t launch_f32(const F32Args& p) {
+  constexpr int kRows = 4 * R * WARPS;
+  const size_t smem = sizeof(float) * savqa_f32::flash_smem_floats(DH, kRows);
+  auto kernel = flash_graph_attention_f32_kernel<DH, WARPS, R>;
+  // once a process: the one-query calls are short enough for the host's
+  // attribute calls to show
+  static const cudaError_t attributes = savqa_f32::allow_smem(kernel, smem);
+  if (attributes != cudaSuccess) return attributes;
+  cudaError_t err;
+  const int dh = p.C / p.H;
+  const int q_tiles = (p.Tq + kRows - 1) / kRows;
+  const dim3 grid(p.H, q_tiles * p.n_split, p.B);
+  const size_t n_rows = (size_t)p.B * p.H * p.Tq;
+  const bool split = p.n_split > 1;
+  float* out = p.emit == 2 ? nullptr : static_cast<float*>(p.out);
+  float* a_out = p.emit == 2 ? static_cast<float*>(p.out) : nullptr;
+  float* sm = p.scratch_stats;
+  kernel<<<grid, WARPS * 32, smem, p.stream>>>(
+      p.q, p.k, p.v, p.key_mask, p.query_mask, p.graph, out, split ? p.scratch_a : a_out,
+      split ? sm : p.m_out, split ? sm + p.n_split * n_rows : p.z_out,
+      split ? sm + 2 * p.n_split * n_rows : p.b_out, p.Tq, p.Tk, p.C, p.H, dh, p.renorm, p.emit,
+      p.scale, p.n_split, p.steps_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !split) return err;
+  const size_t total = n_rows * dh;
+  merge_partials_kernel<float><<<(unsigned)((total + 255) / 256), 256, 0, p.stream>>>(
+      p.scratch_a, sm, sm + p.n_split * n_rows, sm + 2 * p.n_split * n_rows, p.query_mask, out,
+      a_out, p.m_out, p.z_out, p.b_out, p.n_split, p.B, p.H, p.Tq, dh, p.renorm, p.emit);
+  return cudaGetLastError();
+}
+
+template <int WARPS, int R>
+cudaError_t launch_f32_dh(const F32Args& p) {
+  const int dh = p.C / p.H;
+  if (dh <= 32) return launch_f32<32, WARPS, R>(p);
+  if (dh <= 64) return launch_f32<64, WARPS, R>(p);
+  return launch_f32<128, WARPS, R>(p);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. renorm: 0 = l1, 1 = sum_eps.
 // emit: 0 = out, 1 = out + m, z, b, 2 = raw a (B, H, Tq, dh) f32 + m, z, b.
 // The head width C / H must be a multiple of 4 and at most 128. m, z and b
 // may be null with emit 0. bf16 with a head width that is a multiple of 16
-// takes the tensor-core kernel (64 query rows a block), with the key steps
-// (64 keys each) split into n_split shards of
-// steps_per_split steps, none of them empty; with n_split > 1 scratch_a
-// (n_split, B, H, Tq, dh) and scratch_stats (3, n_split, B, H, Tq) f32 hold
-// the partials between the two launches. Every other call takes the SIMT
-// kernel, which has no split (n_split must be 1). Returns
-// cudaGetLastError() after the launch.
+// takes the tensor-core kernel (64 query rows a block) and f32 the f32
+// kernel (q_tile query rows a block, 16 or 64), both with the key steps (64
+// keys each) split into n_split shards of steps_per_split steps, none of
+// them empty; with n_split > 1 scratch_a (n_split, B, H, Tq, dh) and
+// scratch_stats (3, n_split, B, H, Tq) f32 hold the partials between the two
+// launches. bf16 at other head widths takes the first SIMT kernel, which has
+// no split (n_split must be 1). Returns cudaGetLastError() after the launch.
 extern "C" int savqa_flash_graph_attention(const void* q, const void* k, const void* v,
                                            const void* key_mask, const void* query_mask,
                                            const void* graph, void* out, void* m_out,
                                            void* z_out, void* b_out, void* scratch_a,
                                            void* scratch_stats, int B, int Tq, int Tk, int C,
                                            int H, int renorm, int emit, int dtype, int n_split,
-                                           int steps_per_split, float scale, void* stream) {
+                                           int steps_per_split, int q_tile, float scale,
+                                           void* stream) {
   if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || C % H != 0 || (C / H) % 4 != 0 ||
       C / H > kMaxDh || (renorm != 0 && renorm != 1) || emit < 0 || emit > 2 || n_split < 1)
     return (int)cudaErrorInvalidValue;
@@ -731,24 +817,30 @@ extern "C" int savqa_flash_graph_attention(const void* q, const void* k, const v
   auto* zo = static_cast<float*>(z_out);
   auto* bo = static_cast<float*>(b_out);
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && (C / H) % 16 == 0) {
+  const bool tc = dtype == 1 && (C / H) % 16 == 0;
+  if (tc || dtype == 0) {
     const int n_steps = (Tk + kBK - 1) / kBK;
     if (steps_per_split < 1 ||
         (n_split - 1) * steps_per_split >= n_steps || n_split * steps_per_split < n_steps ||
         (n_split > 1 && (scratch_a == nullptr || scratch_stats == nullptr)))
       return (int)cudaErrorInvalidValue;
+  }
+  if (tc) {
     const TcArgs p{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                    static_cast<const bf16*>(v), km, qm, g, out, mo, zo, bo,
                    static_cast<float*>(scratch_a), static_cast<float*>(scratch_stats),
                    B, Tq, Tk, C, H, renorm, emit, n_split, steps_per_split, scale, s};
     return (int)launch_tc_dh(p);
   }
-  if (n_split != 1) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return (int)launch<float>(C / H, q, k, v, km, qm, g, out, mo, zo, bo, B, Tq, Tk, C, H,
-                              renorm, emit, scale, s);
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(C / H, q, k, v, km, qm, g, out, mo, zo, bo, B, Tq, Tk, C,
-                                      H, renorm, emit, scale, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    if (q_tile != 16 && q_tile != 64) return (int)cudaErrorInvalidValue;
+    const F32Args p{static_cast<const float*>(q), static_cast<const float*>(k),
+                    static_cast<const float*>(v), km, qm, g, out, mo, zo, bo,
+                    static_cast<float*>(scratch_a), static_cast<float*>(scratch_stats),
+                    B, Tq, Tk, C, H, renorm, emit, n_split, steps_per_split, scale, s};
+    return (int)(q_tile == 16 ? launch_f32_dh<1, 4>(p) : launch_f32_dh<4, 4>(p));
+  }
+  if (n_split != 1 || dtype != 1) return (int)cudaErrorInvalidValue;
+  return (int)launch<__nv_bfloat16>(C / H, q, k, v, km, qm, g, out, mo, zo, bo, B, Tq, Tk, C, H,
+                                    renorm, emit, scale, s);
 }

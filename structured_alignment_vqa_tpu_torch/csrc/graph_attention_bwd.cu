@@ -67,8 +67,35 @@
 //   c2, sum dP P from the rows launch) and dO (the bf16 dresidual), and dV
 //   += A^T dO and dK += dS^T Q accumulate in fragments.
 //
-// f32, and bf16 with another head width, take the SIMT kernels (TF32 would
-// not hold the 1e-4 the f32 path is checked to):
+// f32 takes four register-tiled FFMA kernels (TF32 would not
+// hold the 1e-4 the f32 path is checked to), counted as one launch, built
+// from csrc/simt_f32.cuh's tiles (a warp owns 16 rows, a lane a 4 x 4 or
+// 4 x 8 tile of scores and a 4 x (dh / 8) tile of an output; operands in
+// swizzled shared tiles filled by cp.async rings):
+// * forward, per (head, 64 query rows, batch): K4's f32 body with emit
+//   "stats", which computes K1's output O (its renorm written with the
+//   softmax sum z and b = sum e g: A = e g / max(b, 1e-12 z)) into f32
+//   scratch and m, z, b per (batch, head, row) into the stats scratch.
+// * LayerNorm backward, per (batch, row tile of bwd_row_tile rows), a warp
+//   a row: x = O + residual, dO = dresidual (f32), the tile's dgamma and
+//   dbeta partials. The entry from d(o) skips it.
+// * dq, per (head, 64 query rows, batch), keys 32 a step: with delta = dO .
+//   O per head row (dO . O = inner / r), both row sums of the renorm and
+//   softmax backwards are known before the first key: c1 = qmask / r, c2 =
+//   live delta / r (sum_eps: delta / r), dpp = sum dP P = delta (1 - live
+//   sum G / r). Per step S = Q K^T and dA = dO V^T, P dP = (dA c1 - c2
+//   sign(G)) G, dS = P dP - P dpp (0 on masked keys, scaled), dQ += dS K
+//   (dS through the warp's own rows of the graph tile). It writes m, 1 / z,
+//   c1, c2, dpp for the dkv kernel over the forward's m, z, b.
+// * dkv, per (head, 64 keys, batch), query rows 32 a step: S^T = K Q^T,
+//   dA^T = V dO^T, the weights A and dS^T from the rows' constants, dV +=
+//   A^T dO, dK += dS^T Q through a warp's transposed tile.
+// Nine FFMA products against the six of the bound; O and dO pass through
+// device memory (f32, ~67 MB at B 128, L 128, C 512) instead of the SIMT
+// rows launch's shared tile of all heads.
+//
+// bf16 with a head width that is not a multiple of 16 keeps the first SIMT
+// kernels (TF32 is not the question there; they were never redesigned):
 // * Rows launch, one block of 256 threads per (batch, tile of up to 16 query
 //   rows), all heads, as K1: the forward output of all heads into shared
 //   memory, the LayerNorm backward, then per head P, dA, dS in shared memory
@@ -82,6 +109,7 @@
 #include <math.h>
 
 #include "mma_sm90.cuh"
+#include "simt_f32.cuh"
 
 namespace {
 
@@ -565,6 +593,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* key
 using bf16 = __nv_bfloat16;
 using savqa::accumulate_ab;
 using savqa::cp_async16;
+using savqa::cp_async4;
 using savqa::cp_async_commit;
 using savqa::cp_async_wait;
 using savqa::fast_exp2;
@@ -1249,21 +1278,538 @@ cudaError_t launch_tc(const bf16* q, const bf16* k, const bf16* v, const float* 
   return cudaGetLastError();
 }
 
+
+// ---- the f32 kernels (csrc/simt_f32.cuh) ----
+
+namespace f32 = savqa_f32;
+
+constexpr int kF32Keys = 64;    // dkv: keys a block, 16 a warp
+constexpr int kF32Step = 32;    // dq: keys a step; dkv: query rows a step
+constexpr int kLnThreads = 256;
+constexpr int kF32MaxC = 2048;  // the LayerNorm backward's registers: 64 columns a lane
+
+__host__ __device__ constexpr int dq_stage_floats(int dh, int warps) {
+  return 2 * kF32Step * dh + 16 * warps * kF32Step + kF32Step;
+}
+__host__ __device__ constexpr int dq_smem_floats(int dh, int warps) {
+  return 2 * 16 * warps * dh + 2 * dq_stage_floats(dh, warps);
+}
+__host__ __device__ constexpr int dkv_stage_floats(int dh) {
+  return 2 * kF32Step * dh + kF32Step * kF32Keys + kF32Step * kStats;
+}
+__host__ __device__ constexpr int dkv_smem_floats(int dh) {
+  return 2 * kF32Keys * dh + 4 * kF32Step * 16 + 2 * dkv_stage_floats(dh);
+}
+
+// 1. K1's output O of every head and the forward's m, z, b (stats slots 0-2).
+template <int DH, int WARPS>
+__global__ void __launch_bounds__(WARPS * 32, WARPS == 4 && DH <= 64 ? 2 : 1)
+graph_attention_ln_bwd_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                      const float* __restrict__ v,
+                                      const float* __restrict__ key_mask,
+                                      const float* __restrict__ query_mask,
+                                      const float* __restrict__ graph, float* __restrict__ o,
+                                      float* __restrict__ stats, int Tq, int Tk, int C, int H,
+                                      int dh, int renorm, float scale) {
+  f32::flash_f32_body<DH, WARPS>(q, k, v, key_mask, query_mask, graph, o, nullptr, stats,
+                                 stats + 1, stats + 2, kStats, Tq, Tk, C, H, dh, renorm, 1, scale,
+                                 1, (Tk + f32::kStep - 1) / f32::kStep);
+}
+
+// 2. The LayerNorm backward of `tile` rows of batch element blockIdx.y, a
+// warp a row (columns lane + 32 k, k < NK): dO = dres, and the tile's
+// dgamma / dbeta partials, summed over the warps in warp order.
+// Shared memory: (kLnThreads / 32, 2, C) f32.
+template <int NK>
+__global__ void __launch_bounds__(kLnThreads)
+graph_attention_ln_bwd_ln_f32_kernel(const float* __restrict__ o, const float* __restrict__ residual,
+                                     const float* __restrict__ gamma, const float* __restrict__ dy,
+                                     float* __restrict__ dres, float* __restrict__ partials,
+                                     int Tq, int C, int tile) {
+  constexpr int kW = kLnThreads / 32;
+  extern __shared__ __align__(16) float red[];
+  const int b = blockIdx.y;
+  const int row0 = blockIdx.x * tile;
+  const int rows = min(tile, Tq - row0);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float sg[NK], sb[NK];
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk) sg[kk] = sb[kk] = 0.f;
+  for (int r = warp; r < rows; r += kW) {
+    const size_t at = ((size_t)b * Tq + row0 + r) * C;
+    float x[NK], gy[NK];
+    float s = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      const int c = lane + 32 * kk;
+      x[kk] = c < C ? o[at + c] + residual[at + c] : 0.f;
+      gy[kk] = c < C ? dy[at + c] : 0.f;
+      s += x[kk];
+    }
+    const float mean = warp_sum(s) / (float)C;
+    float ss = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      x[kk] = lane + 32 * kk < C ? x[kk] - mean : 0.f;
+      ss += x[kk] * x[kk];
+    }
+    const float var = warp_sum(ss) / (float)max(C - 1, 1);
+    const float sd = var > 0.f ? sqrtf(var) : 0.f;
+    const float inv = 1.f / (sd + kLnEps);
+    float sum_dxh = 0.f, ssum = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      const int c = lane + 32 * kk;
+      if (c >= C) continue;
+      sb[kk] += gy[kk];
+      sg[kk] += gy[kk] * (x[kk] * inv);
+      const float dxh = gy[kk] * gamma[c];
+      sum_dxh += dxh;
+      ssum += dxh * x[kk];
+    }
+    const float mean_dxh = warp_sum(sum_dxh) / (float)C;
+    ssum = warp_sum(ssum);
+    const float coef = var > 0.f ? ssum * inv * inv / ((float)max(C - 1, 1) * sd) : 0.f;
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      const int c = lane + 32 * kk;
+      if (c < C) dres[at + c] = (gy[kk] * gamma[c] - mean_dxh) * inv - x[kk] * coef;
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk) {
+    const int c = lane + 32 * kk;
+    if (c >= C) continue;
+    red[2 * warp * C + c] = sg[kk];
+    red[(2 * warp + 1) * C + c] = sb[kk];
+  }
+  __syncthreads();
+  float* part = partials + ((size_t)b * gridDim.x + blockIdx.x) * 2 * C;
+  for (int c = threadIdx.x; c < C; c += kLnThreads) {
+    float a = 0.f, bb = 0.f;
+    for (int w = 0; w < kW; ++w) {
+      a += red[2 * w * C + c];
+      bb += red[(2 * w + 1) * C + c];
+    }
+    part[c] = a;
+    part[C + c] = bb;
+  }
+}
+
+// 3. dQ of (head blockIdx.x, 16 WARPS query rows blockIdx.y, batch
+// blockIdx.z), keys 32 a step through a two-stage ring of (K, V, graph tile,
+// key mask); Q and dO staged once. Each warp first takes its rows' delta =
+// dO . O (8 lanes a row, float4 loads of O) and constants, and writes m,
+// 1 / z, c1, c2, dpp (stats slots 0-4) over the forward's m, z, b.
+// Shared memory: Qs, dOs (16 WARPS, DH) | two stages of Ks, Vs (32, DH), Gs
+// (16 WARPS, 32), kms (32).
+template <int DH, int WARPS>
+__global__ void __launch_bounds__(WARPS * 32, WARPS == 4 && DH <= 64 ? 2 : 1)
+graph_attention_ln_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                     const float* __restrict__ v,
+                                     const float* __restrict__ key_mask,
+                                     const float* __restrict__ query_mask,
+                                     const float* __restrict__ graph, const float* __restrict__ o,
+                                     const float* __restrict__ d_o, float* __restrict__ dq,
+                                     float* __restrict__ stats, int Tq, int Tk, int C, int H,
+                                     int dh, int renorm, float scale) {
+  constexpr int kBQ = 16 * WARPS;
+  constexpr int kThr = 32 * WARPS;
+  constexpr int kStageF = dq_stage_floats(DH, WARPS);
+  extern __shared__ __align__(16) float smem_dq[];
+  float* Qs = smem_dq;
+  float* dOs = Qs + kBQ * DH;
+  float* stages = dOs + kBQ * DH;
+
+  const int h = blockIdx.x;
+  const int q0 = blockIdx.y * kBQ;
+  const int b = blockIdx.z;
+  const int c0 = h * dh;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int ly = lane >> 3, lx = lane & 7;
+  const int wrow = warp * 16;
+  const int n_steps = (Tk + kF32Step - 1) / kF32Step;
+  const bool gvec = (Tk & 3) == 0;
+  const float* kb = k + (size_t)b * Tk * C;
+  const float* vb = v + (size_t)b * Tk * C;
+  const float* gb = graph + (size_t)b * Tq * Tk;
+  const float* km = key_mask + (size_t)b * Tk;
+
+  auto load_step = [&](int step) {
+    float* base = stages + (step & 1) * kStageF;
+    const int j0 = step * kF32Step;
+    f32::stage_tile<DH, kThr>(base, kb, j0, Tk, kF32Step, C, c0, dh, true, f32::Swz<DH>());
+    f32::stage_tile<DH, kThr>(base + kF32Step * DH, vb, j0, Tk, kF32Step, C, c0, dh, true,
+                              f32::Swz<DH>());
+    f32::stage_tile<kF32Step, kThr>(base + 2 * kF32Step * DH, gb, q0, Tq, kBQ, Tk, j0, Tk - j0,
+                                    gvec, f32::GSwz<kF32Step>());
+    float* kms = base + 2 * kF32Step * DH + kBQ * kF32Step;
+    for (int j = tid; j < kF32Step; j += kThr)
+      cp_async4(kms + j, km + (j0 + j < Tk ? j0 + j : 0), j0 + j < Tk);
+  };
+  f32::stage_tile<DH, kThr>(Qs, q + (size_t)b * Tq * C, q0, Tq, kBQ, C, c0, dh, true,
+                            f32::Swz<DH>());
+  f32::stage_tile<DH, kThr>(dOs, d_o + (size_t)b * Tq * C, q0, Tq, kBQ, C, c0, dh, true,
+                            f32::Swz<DH>());
+  load_step(0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();   // Q, dO and the first step's tiles have landed
+
+  // the rows' constants, from delta = dO . O of the head: each warp its rows
+  const bool active = q0 + wrow < Tq;
+  float cm[4], ciz[4], cc1[4], cc2[4], cdpp[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + wrow + ly + 4 * i;
+    const bool real = row < Tq;
+    float delta = 0.f;
+    if (real) {
+      const float* orow = o + ((size_t)b * Tq + row) * C + c0;
+#pragma unroll
+      for (int g = 0; g < DH / 32; ++g) {
+        const int d = 4 * lx + 32 * g;
+        if (d >= dh) continue;
+        const float4 o4 = *reinterpret_cast<const float4*>(orow + d);
+        const float4 d4 = *reinterpret_cast<const float4*>(dOs + f32::swz<DH>(wrow + ly + 4 * i, d));
+        delta = fmaf(d4.x, o4.x, delta);
+        delta = fmaf(d4.y, o4.y, delta);
+        delta = fmaf(d4.z, o4.z, delta);
+        delta = fmaf(d4.w, o4.w, delta);
+      }
+    }
+    delta += __shfl_xor_sync(0xffffffffu, delta, 1);
+    delta += __shfl_xor_sync(0xffffffffu, delta, 2);
+    delta += __shfl_xor_sync(0xffffffffu, delta, 4);
+    const float* st = stats + (((size_t)b * H + h) * Tq + (real ? row : 0)) * kStats;
+    const float m = real ? st[0] : 0.f, z = real ? st[1] : 1.f, bsum = real ? st[2] : 0.f;
+    const float rs = bsum / z;   // sum of G = P graph
+    const float rr = renorm == 0 ? fmaxf(rs, kL1Eps) : rs + kSumEps;
+    const float live = renorm == 0 ? (rs > kL1Eps ? 1.f : 0.f) : 1.f;
+    const float qm = real ? query_mask[(size_t)b * Tq + row] : 0.f;
+    cm[i] = m;
+    ciz[i] = 1.f / z;
+    cc1[i] = qm / rr;
+    cc2[i] = live * delta / rr;
+    cdpp[i] = delta * (1.f - live * (rs / rr));
+  }
+  __syncwarp();   // every lane has read its rows' m, z, b
+  if (lx == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + wrow + ly + 4 * i;
+      if (row >= Tq) continue;
+      float* st = stats + (((size_t)b * H + h) * Tq + row) * kStats;
+      st[kStM] = cm[i];
+      st[kStInvZ] = ciz[i];
+      st[kStC1] = cc1[i];
+      st[kStC2] = cc2[i];
+      st[kStDpp] = cdpp[i];
+      st[5] = st[6] = st[7] = 0.f;
+    }
+  }
+  float dqa[4][DH / 8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < DH / 8; ++e) dqa[i][e] = 0.f;
+
+  for (int step = 0; step < n_steps; ++step) {
+    if (step > 0) {
+      cp_async_wait<0>();
+      __syncthreads();   // this step's tiles have landed; the other stage is free
+    }
+    if (step + 1 < n_steps) load_step(step + 1);
+    cp_async_commit();
+    if (!active) continue;
+    float* base = stages + (step & 1) * kStageF;
+    const float* Ks = base;
+    const float* Vs = base + kF32Step * DH;
+    float* Gs = base + 2 * kF32Step * DH;
+    const float* kms = Gs + kBQ * kF32Step;
+    const int j0 = step * kF32Step;
+    float s[4][4], da[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[i][c] = da[i][c] = 0.f;
+    f32::tile_abt<DH, 4>(s, Qs, wrow, Ks, dh, ly, lx);     // S = Q K^T
+    f32::tile_abt<DH, 4>(da, dOs, wrow, Vs, dh, ly, lx);   // dA = dO V^T
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int j = lx + 8 * c;
+      const bool in = j0 + j < Tk;
+      const bool keep = in && kms[j] != 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float x = keep ? s[i][c] * scale : in ? kNegMask : -INFINITY;
+        const float p = expf(x - cm[i]) * ciz[i];
+        const float gq = p * Gs[f32::gswz<kF32Step>(wrow + ly + 4 * i, j)];
+        const float corr = renorm == 0 ? cc2[i] * sign_of(gq) : cc2[i];
+        const float pdp = (da[i][c] * cc1[i] - corr) * gq;   // P dP
+        s[i][c] = keep ? (pdp - p * cdpp[i]) * scale : 0.f;  // dS
+      }
+    }
+    __syncwarp();   // every lane has read its graph entries: the warp's rows take dS
+    float* pt = Gs + wrow * kF32Step;
+    f32::store_t<4>(pt, s, ly, lx);
+    __syncwarp();
+    f32::tile_pv<DH, kF32Step>(dqa, pt, Ks, ly, lx);   // dQ += dS K
+  }
+  cp_async_wait<0>();
+  if (!active) return;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + wrow + ly + 4 * i;
+    if (row >= Tq) continue;
+#pragma unroll
+    for (int g = 0; g < DH / 32; ++g) {
+      const int d = 4 * lx + 32 * g;
+      if (d >= dh) continue;
+      const float* a4 = dqa[i] + 4 * g;
+      *reinterpret_cast<float4*>(dq + ((size_t)b * Tq + row) * C + c0 + d) =
+          make_float4(a4[0], a4[1], a4[2], a4[3]);
+    }
+  }
+}
+
+// 4. dK and dV of (head blockIdx.x, 64 keys blockIdx.y, batch blockIdx.z),
+// 16 keys a warp; query rows 32 a step through a two-stage ring of (Q, dO,
+// graph tile, the rows' constants); K and V staged once.
+// Shared memory: Ks, Vs (64, DH) | bt (4 warps, 32, 16) | two stages of Qc,
+// dOc (32, DH), Gs (32, 64), sts (32, kStats).
+template <int DH>
+__global__ void __launch_bounds__(128, DH <= 64 ? 2 : 1)
+graph_attention_ln_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                      const float* __restrict__ v,
+                                      const float* __restrict__ key_mask,
+                                      const float* __restrict__ graph,
+                                      const float* __restrict__ d_o,
+                                      const float* __restrict__ stats, float* __restrict__ dk,
+                                      float* __restrict__ dv, int Tq, int Tk, int C, int H,
+                                      int dh, int renorm, float scale) {
+  constexpr int kThr = 128;
+  constexpr int kStageF = dkv_stage_floats(DH);
+  extern __shared__ __align__(16) float smem_kv[];
+  float* Ks = smem_kv;
+  float* Vs = Ks + kF32Keys * DH;
+  float* bt = Vs + kF32Keys * DH;
+  float* stages = bt + 4 * kF32Step * 16;
+
+  const int h = blockIdx.x;
+  const int j0 = blockIdx.y * kF32Keys;
+  const int b = blockIdx.z;
+  const int c0 = h * dh;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int ly = lane >> 3, lx = lane & 7;
+  const int n_steps = (Tq + kF32Step - 1) / kF32Step;
+  const bool gvec = (Tk & 3) == 0;
+  const float* qb = q + (size_t)b * Tq * C;
+  const float* dob = d_o + (size_t)b * Tq * C;
+  const float* gb = graph + (size_t)b * Tq * Tk;
+  const float* stb = stats + ((size_t)b * H + h) * Tq * kStats;
+
+  auto load_step = [&](int step) {
+    float* base = stages + (step & 1) * kStageF;
+    const int r0 = step * kF32Step;
+    f32::stage_tile<DH, kThr>(base, qb, r0, Tq, kF32Step, C, c0, dh, true, f32::Swz<DH>());
+    f32::stage_tile<DH, kThr>(base + kF32Step * DH, dob, r0, Tq, kF32Step, C, c0, dh, true,
+                              f32::Swz<DH>());
+    f32::stage_tile<kF32Keys, kThr>(base + 2 * kF32Step * DH, gb, r0, Tq, kF32Step, Tk, j0,
+                                    Tk - j0, gvec, f32::Swz<kF32Keys>());
+    float* sts = base + 2 * kF32Step * DH + kF32Step * kF32Keys;
+    for (int i = tid; i < kF32Step * 2; i += kThr) {   // kStats floats a row: two 16-byte copies
+      const int r = r0 + (i >> 1);
+      const bool valid = r < Tq;
+      cp_async16(sts + i * 4, stb + (size_t)(valid ? r : 0) * kStats + (i & 1) * 4, valid);
+    }
+  };
+  f32::stage_tile<DH, kThr>(Ks, k + (size_t)b * Tk * C, j0, Tk, kF32Keys, C, c0, dh, true,
+                            f32::Swz<DH>());
+  f32::stage_tile<DH, kThr>(Vs, v + (size_t)b * Tk * C, j0, Tk, kF32Keys, C, c0, dh, true,
+                            f32::Swz<DH>());
+  load_step(0);
+  cp_async_commit();
+
+  int kw[4];
+  bool keep[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    kw[i] = warp * 16 + ly + 4 * i;
+    const int key = j0 + kw[i];
+    keep[i] = key < Tk && key_mask[(size_t)b * Tk + key] != 0.f;
+  }
+  const bool active = j0 + warp * 16 < Tk;
+  float* pt = bt + warp * kF32Step * 16;
+  float dka[4][DH / 8], dva[4][DH / 8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < DH / 8; ++e) dka[i][e] = dva[i][e] = 0.f;
+
+  for (int step = 0; step < n_steps; ++step) {
+    cp_async_wait<0>();
+    __syncthreads();   // this step's tiles (and K, V) have landed; the other stage is free
+    if (step + 1 < n_steps) load_step(step + 1);
+    cp_async_commit();
+    if (!active) continue;
+    const float* base = stages + (step & 1) * kStageF;
+    const float* Qc = base;
+    const float* dOc = base + kF32Step * DH;
+    const float* Gs = base + 2 * kF32Step * DH;
+    const float* sts = Gs + kF32Step * kF32Keys;
+    float w[4][4], da[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) w[i][c] = da[i][c] = 0.f;
+    f32::tile_abt<DH, 4>(w, Ks, warp * 16, Qc, dh, ly, lx);    // S^T = K Q^T
+    f32::tile_abt<DH, 4>(da, Vs, warp * 16, dOc, dh, ly, lx);  // dA^T = V dO^T
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float* rc = sts + (lx + 8 * c) * kStats;   // zeros past Tq
+      const float m = rc[kStM], iz = rc[kStInvZ], c1 = rc[kStC1], c2 = rc[kStC2];
+      const float dpp = rc[kStDpp];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float x = keep[i] ? w[i][c] * scale : kNegMask;
+        const float p = expf(x - m) * iz;
+        const float gq = p * Gs[f32::swz<kF32Keys>(lx + 8 * c, kw[i])];
+        const float corr = renorm == 0 ? c2 * sign_of(gq) : c2;
+        const float pdp = (da[i][c] * c1 - corr) * gq;
+        w[i][c] = gq * c1;                                         // A
+        da[i][c] = keep[i] ? (pdp - p * dpp) * scale : 0.f;        // dS
+      }
+    }
+    __syncwarp();   // the previous step's readers of pt are done
+    f32::store_t<4>(pt, w, ly, lx);
+    __syncwarp();
+    f32::tile_pv<DH, kF32Step>(dva, pt, dOc, ly, lx);   // dV += A^T dO
+    __syncwarp();
+    f32::store_t<4>(pt, da, ly, lx);
+    __syncwarp();
+    f32::tile_pv<DH, kF32Step>(dka, pt, Qc, ly, lx);    // dK += dS^T Q
+  }
+  cp_async_wait<0>();
+  if (!active) return;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = j0 + kw[i];
+    if (key >= Tk) continue;
+#pragma unroll
+    for (int g = 0; g < DH / 32; ++g) {
+      const int d = 4 * lx + 32 * g;
+      if (d >= dh) continue;
+      const size_t at = ((size_t)b * Tk + key) * C + c0 + d;
+      const float* k4 = dka[i] + 4 * g;
+      const float* v4 = dva[i] + 4 * g;
+      *reinterpret_cast<float4*>(dk + at) = make_float4(k4[0], k4[1], k4[2], k4[3]);
+      *reinterpret_cast<float4*>(dv + at) = make_float4(v4[0], v4[1], v4[2], v4[3]);
+    }
+  }
+}
+
+struct F32Bwd {
+  const float *q, *k, *v, *key_mask, *query_mask, *graph, *residual, *gamma, *dy;
+  float *dq, *dk, *dv, *dres, *partials, *o, *stats;
+  int B, Tq, Tk, C, H, renorm, from_do, row_tile;
+  float scale;
+  cudaStream_t stream;
+};
+
+// The attributes of each f32 kernel are set once a process (the one-query
+// calls are short enough for the host's attribute calls to show); the
+// LayerNorm backward's for the widest C it takes.
+template <int NK>
+cudaError_t launch_ln_f32(const F32Bwd& p) {
+  const size_t smem = sizeof(float) * 2 * (kLnThreads / 32) * p.C;
+  static const cudaError_t attributes = f32::allow_smem(
+      graph_attention_ln_bwd_ln_f32_kernel<NK>, sizeof(float) * 2 * (kLnThreads / 32) * kF32MaxC);
+  if (attributes != cudaSuccess) return attributes;
+  const dim3 grid((p.Tq + p.row_tile - 1) / p.row_tile, p.B);
+  graph_attention_ln_bwd_ln_f32_kernel<NK><<<grid, kLnThreads, smem, p.stream>>>(
+      p.o, p.residual, p.gamma, p.dy, p.dres, p.partials, p.Tq, p.C, p.row_tile);
+  return cudaGetLastError();
+}
+
+template <int DH, int WARPS>
+cudaError_t launch_rows_f32(const F32Bwd& p) {
+  const int dh = p.C / p.H;
+  const dim3 grid(p.H, (p.Tq + 16 * WARPS - 1) / (16 * WARPS), p.B);
+  const size_t smem_f = sizeof(float) * f32::flash_smem_floats(DH, 16 * WARPS);
+  const size_t smem_q = sizeof(float) * dq_smem_floats(DH, WARPS);
+  const size_t smem_kv = sizeof(float) * dkv_smem_floats(DH);
+  auto fwd = graph_attention_ln_bwd_fwd_f32_kernel<DH, WARPS>;
+  auto dqk = graph_attention_ln_bwd_dq_f32_kernel<DH, WARPS>;
+  auto dkv = graph_attention_ln_bwd_dkv_f32_kernel<DH>;
+  static const cudaError_t attributes = [&] {
+    cudaError_t e = f32::allow_smem(fwd, smem_f);
+    if (e == cudaSuccess) e = f32::allow_smem(dqk, smem_q);
+    return e == cudaSuccess ? f32::allow_smem(dkv, smem_kv) : e;
+  }();
+  if (attributes != cudaSuccess) return attributes;
+  cudaError_t err;
+  fwd<<<grid, WARPS * 32, smem_f, p.stream>>>(p.q, p.k, p.v, p.key_mask, p.query_mask, p.graph,
+                                              p.o, p.stats, p.Tq, p.Tk, p.C, p.H, dh, p.renorm,
+                                              p.scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const float* d_o = p.dy;   // from d(o): dy is dO itself
+  if (!p.from_do) {
+    const int nk = (p.C + 31) / 32;
+    err = nk <= 4 ? launch_ln_f32<4>(p) : nk <= 8 ? launch_ln_f32<8>(p)
+        : nk <= 16 ? launch_ln_f32<16>(p) : nk <= 32 ? launch_ln_f32<32>(p) : launch_ln_f32<64>(p);
+    if (err != cudaSuccess) return err;
+    d_o = p.dres;
+  }
+  dqk<<<grid, WARPS * 32, smem_q, p.stream>>>(p.q, p.k, p.v, p.key_mask, p.query_mask, p.graph,
+                                              p.o, d_o, p.dq, p.stats, p.Tq, p.Tk, p.C, p.H, dh,
+                                              p.renorm, p.scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid_kv(p.H, (p.Tk + kF32Keys - 1) / kF32Keys, p.B);
+  dkv<<<grid_kv, 128, smem_kv, p.stream>>>(p.q, p.k, p.v, p.key_mask, p.graph, d_o, p.stats,
+                                           p.dk, p.dv, p.Tq, p.Tk, p.C, p.H, dh, p.renorm,
+                                           p.scale);
+  return cudaGetLastError();
+}
+
+// The four f32 kernels, forward and dq at 16 query rows a block when Tq <= 16.
+cudaError_t launch_f32(const F32Bwd& p) {
+  const int dh = p.C / p.H;
+  if (p.Tq <= 16) {
+    if (dh <= 32) return launch_rows_f32<32, 1>(p);
+    if (dh <= 64) return launch_rows_f32<64, 1>(p);
+    return launch_rows_f32<128, 1>(p);
+  }
+  if (dh <= 32) return launch_rows_f32<32, 4>(p);
+  if (dh <= 64) return launch_rows_f32<64, 4>(p);
+  return launch_rows_f32<128, 4>(p);
+}
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. renorm: 0 = l1, 1 = sum_eps.
 // tensor_cores != 0 (bf16 with a head width that is a multiple of 16 only)
 // takes the tensor-core kernels, 32 query rows a block in the rows launch;
-// 0 the SIMT kernels, min(16, Tq) rows a block.
-// partials: (B * ceil(Tq / rows a block), 2, C) f32, per-block dgamma / dbeta.
-// stats: (B, H, Tq, 8) f32 and, for the SIMT kernels only, dout: (B, Tq, C)
-// f32 are scratch passed between the two launches (the tensor-core keys
-// launch reads dO from dres). Returns cudaGetLastError() after the launches.
+// f32 the f32 kernels, whose LayerNorm backward writes one dgamma / dbeta
+// partial per row_tile rows (C at most 2,048, a head width that is a
+// multiple of 4); bf16 otherwise the first SIMT kernels, min(16, Tq) rows a
+// block. partials: (B * ceil(Tq / rows a block), 2, C) f32, per-block
+// dgamma / dbeta. stats: (B, H, Tq, 8) f32 and dout: (B, Tq, C) f32 are
+// scratch passed between the launches (the tensor-core keys launch reads
+// dO from dres and takes no dout; in f32 dout holds the forward's output O).
+// Returns cudaGetLastError() after the launches.
 extern "C" int savqa_graph_attention_ln_bwd(
     const void* q, const void* k, const void* v, const void* key_mask, const void* query_mask,
     const void* graph, const void* residual, const void* gamma, const void* dy, void* dq,
     void* dk, void* dv, void* dres, void* partials, void* dout, void* stats, int B, int Tq,
-    int Tk, int C, int H, int renorm, int dtype, int tensor_cores, float scale, void* stream) {
+    int Tk, int C, int H, int renorm, int dtype, int tensor_cores, int row_tile, float scale,
+    void* stream) {
   if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || C % H != 0 || C / H > kMaxDh ||
       (renorm != 0 && renorm != 1) || (tensor_cores && (dtype != 1 || (C / H) % 16 != 0)))
     return (int)cudaErrorInvalidValue;
@@ -1286,9 +1832,15 @@ extern "C" int savqa_graph_attention_ln_bwd(
                     st, B, Tq, Tk, C, H, renorm, scale, 0, s);
   }
   if (dout == nullptr) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return (int)launch<float>(q, k, v, km, qm, g, residual, ga, dy, dq, dk, dv, dres, pa, dout_f,
-                              st, B, Tq, Tk, C, H, renorm, scale, 0, s);
+  if (dtype == 0) {
+    if (dh % 4 != 0 || C > kF32MaxC || row_tile < 1) return (int)cudaErrorInvalidValue;
+    const F32Bwd p{static_cast<const float*>(q), static_cast<const float*>(k),
+                   static_cast<const float*>(v), km, qm, g, static_cast<const float*>(residual),
+                   ga, static_cast<const float*>(dy), static_cast<float*>(dq),
+                   static_cast<float*>(dk), static_cast<float*>(dv), static_cast<float*>(dres),
+                   pa, dout_f, st, B, Tq, Tk, C, H, renorm, 0, row_tile, scale, s};
+    return (int)launch_f32(p);
+  }
   if (dtype == 1)
     return (int)launch<__nv_bfloat16>(q, k, v, km, qm, g, residual, ga, dy, dq, dk, dv, dres, pa,
                                       dout_f, st, B, Tq, Tk, C, H, renorm, scale, 0, s);
@@ -1297,10 +1849,11 @@ extern "C" int savqa_graph_attention_ln_bwd(
 
 // The model axis (ops/fused_graph_attention.py:graph_attention_heads'
 // backward): dq, dk and dv of the H heads given from do, the gradient of
-// savqa_graph_attention's output o, in q's type: the rows launch without
-// the forward's output and the LayerNorm backward, then the keys launch.
-// dout ((B, Tq, C) f32) and stats ((B, H, Tq, 8) f32) are scratch; the
-// tensor-core keys launch reads do itself (dout unused, may be null).
+// savqa_graph_attention's output o, in q's type: the kernels above without
+// the LayerNorm backward (the first SIMT rows launch also skips the
+// forward's output). dout ((B, Tq, C) f32) and stats ((B, H, Tq, 8) f32) are
+// scratch; the tensor-core keys launch reads do itself (dout unused, may be
+// null).
 extern "C" int savqa_graph_attention_bwd(
     const void* q, const void* k, const void* v, const void* key_mask, const void* query_mask,
     const void* graph, const void* d_o, void* dq, void* dk, void* dv, void* dout, void* stats,
@@ -1326,9 +1879,15 @@ extern "C" int savqa_graph_attention_bwd(
                     static_cast<bf16*>(dk), static_cast<bf16*>(dv), nullptr, nullptr, st, B, Tq,
                     Tk, C, H, renorm, scale, 1, s);
   }
-  if (dtype == 0)
-    return (int)launch<float>(q, k, v, km, qm, g, nullptr, nullptr, d_o, dq, dk, dv, nullptr,
-                              nullptr, dout_f, st, B, Tq, Tk, C, H, renorm, scale, 1, s);
+  if (dtype == 0) {
+    if (dh % 4 != 0) return (int)cudaErrorInvalidValue;
+    const F32Bwd p{static_cast<const float*>(q), static_cast<const float*>(k),
+                   static_cast<const float*>(v), km, qm, g, nullptr, nullptr,
+                   static_cast<const float*>(d_o), static_cast<float*>(dq),
+                   static_cast<float*>(dk), static_cast<float*>(dv), nullptr, nullptr, dout_f,
+                   st, B, Tq, Tk, C, H, renorm, 1, 1, scale, s};
+    return (int)launch_f32(p);
+  }
   if (dtype == 1)
     return (int)launch<__nv_bfloat16>(q, k, v, km, qm, g, nullptr, nullptr, d_o, dq, dk, dv,
                                       nullptr, nullptr, dout_f, st, B, Tq, Tk, C, H, renorm,

@@ -2,9 +2,13 @@
 
 A wrapper runs its plain PyTorch version on CPU tensors and launches its
 CUDA kernel on CUDA tensors; there is no switch between the two. A launch
-that fails raises: nothing falls back to the plain version. K2, K4's
+that fails raises: nothing falls back to the plain version. K1, K2, K4's
 forward and its backward K5 and K6 each have two CUDA kernels, and
-:func:`kernel_path` says which one a call takes.
+:func:`kernel_path` says which one a call takes: the tensor cores for
+bfloat16 at head widths that are multiples of 16, else the CUDA cores
+("simt"). On the CUDA cores K2 and K4 in float32 run register-tiled
+kernels (``csrc/simt_f32.cuh``); bfloat16 at other head widths
+keeps their first SIMT kernels, as K1, K5 and K6 do in both dtypes.
 """
 
 from __future__ import annotations

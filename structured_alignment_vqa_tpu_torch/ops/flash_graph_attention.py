@@ -39,9 +39,14 @@ into 1,536 keys) K4 and K5 split the keys over more blocks
 f32 partial dQ (K5) to scratch and a second small kernel merges them
 (:func:`merge_partials_plain` and :func:`sum_dq_shards_plain` are their
 plain versions). One call counts as one launch whatever the split.
-float32, and bfloat16 with any other head width, keep the SIMT kernels (f32
-FMAs, no split): TF32 products would not hold the 1e-4 the float32 path is
-checked to.
+K4 in float32 runs FFMA on the CUDA cores in the tensor-core
+kernel's shape: 64 query rows a block (16 when Tq <= 16), K, V, the graph
+tile and the key mask through a two-stage ``cp.async`` ring, a 4 x 8 tile
+of scores a lane, and a key split of four steps a shard when the blocks do
+not fill the card (:func:`f32_plan`); an unsplit call gives the first f32
+kernel's bits. bfloat16 at other head widths, and K5 and K6 in float32,
+keep the first SIMT kernels (f32 FMAs, no split). TF32 products would not
+hold the 1e-4 the float32 path is checked to.
 """
 
 from __future__ import annotations
@@ -63,6 +68,7 @@ EMITS = ("out", "stats", "partial")
 MAX_HEAD_DIM = 128   # the kernels' register accumulators
 KEY_STEP = 64        # keys a block walks per step (both K4 kernels)
 TC_Q_TILE = 64       # query rows per block of the tensor-core kernel (kTcWarps x 16)
+F32_SPLIT_STEPS = 4  # key steps a shard of the f32 kernel, when it splits
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -149,11 +155,47 @@ def key_split(batch: int, num_heads: int, tq: int, tk: int) -> tuple:
     return -(-steps // per), per
 
 
+def f32_plan(batch: int, num_heads: int, tq: int, tk: int) -> tuple:
+    """``(q_tile, n_split, steps_per_split)`` of K4's float32 kernel, a pure
+    function of the shapes: 64 query rows a block (4 warps; 16 rows, one
+    warp, when ``tq <= 16``), and when the (head, query tile, batch) blocks
+    do not cover the card's 132 SMs the ``ceil(tk / 64)`` key steps cut into
+    shards of ``F32_SPLIT_STEPS`` steps (fewer steps: one shard of them
+    all). The shards do not depend on the head count, so a model rank's 4
+    heads sum each head's keys as one process's 8 heads do."""
+    q_tile = 16 if tq <= 16 else 64
+    blocks = batch * num_heads * -(-tq // q_tile)
+    steps = -(-tk // KEY_STEP)
+    if blocks >= SM_COUNT:
+        return q_tile, 1, steps
+    per = min(F32_SPLIT_STEPS, steps)
+    return q_tile, -(-steps // per), per
+
+
+def smem_bytes_f32(head_dim: int, q_tile: int) -> int:
+    """Dynamic shared memory of one block of K4's float32 kernel (must
+    match ``savqa_f32::flash_smem_floats``): the Q tile, then two stages of
+    K, V (64 keys), the graph tile and the key mask, head widths rounded up
+    to 32, 64 or 128."""
+    width = next(w for w in (32, 64, 128) if head_dim <= w)
+    stage = 2 * KEY_STEP * width + q_tile * KEY_STEP + KEY_STEP
+    return 4 * (q_tile * width + 2 * stage)
+
+
 def kernel_key_split(dtype, head_dim: int, batch: int, num_heads: int, tq: int,
                      tk: int) -> tuple:
-    """``(n_split, steps_per_split)`` a K4 or K5 call takes: :func:`key_split`
-    on the tensor-core kernels (K5's blocks and steps are K4's: 64 query
-    rows, 64 keys), one shard of every step on the SIMT kernels."""
+    """``(n_split, steps_per_split)`` a K4 call takes: :func:`f32_plan`'s on
+    the float32 kernel, else K5's (:func:`dq_key_split`)."""
+    if dtype == torch.float32:
+        return f32_plan(batch, num_heads, tq, tk)[1:]
+    return dq_key_split(dtype, head_dim, batch, num_heads, tq, tk)
+
+
+def dq_key_split(dtype, head_dim: int, batch: int, num_heads: int, tq: int,
+                 tk: int) -> tuple:
+    """``(n_split, steps_per_split)`` a K5 call takes: :func:`key_split` on
+    the tensor-core kernel (its blocks and steps are K4's: 64 query rows, 64
+    keys), one shard of every step on the SIMT kernel."""
     if kernel_path(dtype, head_dim) == "tensor-core":
         return key_split(batch, num_heads, tq, tk)
     return 1, -(-tk // KEY_STEP)
@@ -288,12 +330,13 @@ def _launch_forward(q, k, v, key_mask, query_mask, graph, num_heads: int, renorm
     _check(q, k, v, key_mask, graph, num_heads, renorm, {"query_mask": query_mask})
     fn = _build.library("flash_graph_attention").savqa_flash_graph_attention
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p]
     b, tq, c = q.shape
     tk = k.shape[1]
     dev = q.device
     dh = c // num_heads
     n_split, per = kernel_key_split(q.dtype, dh, b, num_heads, tq, tk)
+    q_tile = f32_plan(b, num_heads, tq, tk)[0] if q.dtype == torch.float32 else TC_Q_TILE
     scratch = [None, None]
     if n_split > 1:    # the shards' raw a and m, z, b between the two kernels
         scratch = [torch.empty(n_split, b, num_heads, tq, dh, dtype=torch.float32, device=dev),
@@ -311,7 +354,7 @@ def _launch_forward(q, k, v, key_mask, query_mask, graph, num_heads: int, renorm
             query_mask.data_ptr(), graph.data_ptr(), out.data_ptr(),
             *(None if s is None else s.data_ptr() for s in stats + scratch),
             b, tq, tk, c, num_heads, RENORMS.index(renorm), EMITS.index(emit),
-            _DTYPES[q.dtype], n_split, per, 1.0 / dh ** 0.5, stream,
+            _DTYPES[q.dtype], n_split, per, q_tile, 1.0 / dh ** 0.5, stream,
         )
     _build.check(status, "flash_graph_attention kernel")
     flash_graph_attention.launches += 1
@@ -367,7 +410,7 @@ def flash_bwd_dq(q, k, v, key_mask, graph, m, z, bsum, delta, d_out, num_heads: 
            {"m": m, "z": z, "b": bsum, "delta": delta, "d_out": d_out})
     b, tq, c = q.shape
     tk = k.shape[1]
-    n_split, per = kernel_key_split(q.dtype, c // num_heads, b, num_heads, tq, tk)
+    n_split, per = dq_key_split(q.dtype, c // num_heads, b, num_heads, tq, tk)
     scratch = None   # the shards' f32 partial dQ between the two kernels
     if n_split > 1:
         scratch = torch.empty(n_split, b, tq, c, dtype=torch.float32, device=q.device)

@@ -38,8 +38,15 @@ scores rebuilt from per-row maximum and sum in every pass over the keys
 instead of kept, dO handed to the keys launch as the bf16 dresidual. The
 decoder's one-query calls take them too: a block is a chain of latencies
 whatever its rows, and theirs measured shorter than the SIMT kernels'.
-float32 and other head widths keep the SIMT kernels (TF32 would not hold
-the float32 path's 1e-4).
+float32 takes four register-tiled FFMA kernels, counted as one: the
+forward recomputed by K4's f32 body into f32 scratch (output O and per-row
+m, z, b), the LayerNorm backward a warp a row (``bwd_row_tile`` rows a
+dgamma/dbeta partial), dQ over keys 32 at a time with both row sums of the
+renorm and softmax backwards known before the first key (from delta = dO .
+O), and dK, dV over query rows 32 at a time (64 keys a block); a head
+width that is a multiple of 4 and C at most ``F32_MAX_C``. bfloat16 at
+other head widths keeps the first SIMT kernels (TF32 would not hold the
+float32 path's 1e-4 either).
 
 The model axis splits the heads over the model row; the LayerNorm needs
 every column, so it runs after the heads' outputs are gathered. Three more
@@ -77,6 +84,8 @@ Q_TILE = 16          # query rows per block (csrc/graph_attention.cu, K2's first
 KEY_CHUNK = 64       # keys staged in shared memory at a time
 N_STATS = 8          # floats per (batch, head, query row) passed between K2's launches
 BWD_TC_ROWS = 32     # query rows per block of K2's tensor-core rows launch
+BWD_F32_ROWS = 64    # query rows per dgamma/dbeta partial of K2's f32 LayerNorm backward
+F32_MAX_C = 2048     # K2's f32 LayerNorm backward keeps 64 columns a lane in registers
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -259,10 +268,27 @@ def smem_bytes_bwd(tq: int, tk: int, c: int, num_heads: int) -> int:
 
 
 def bwd_row_tile(dtype, head_dim: int, tq: int) -> int:
-    """Query rows per block of K2's rows launch (one dgamma/dbeta partial each)."""
+    """Query rows per dgamma/dbeta partial of K2 (per block of its rows
+    launch or of its f32 LayerNorm backward)."""
     if kernel_path(dtype, head_dim) == "tensor-core":
         return BWD_TC_ROWS
+    if dtype == torch.float32:
+        return BWD_F32_ROWS
     return min(Q_TILE, tq)
+
+
+def smem_bytes_bwd_f32(tq: int, c: int, num_heads: int) -> int:
+    """Dynamic shared memory of the largest block of K2's f32 kernels (must
+    match ``csrc/graph_attention_bwd.cu``): the forward (K4's f32 body), dQ
+    and dK/dV, head widths rounded up to 32, 64 or 128, 16 query rows a
+    block when Tq <= 16 (else 64), and the LayerNorm backward's (8, 2, C)."""
+    dh = c // num_heads
+    w = next(x for x in (32, 64, 128) if dh <= x)
+    rows = 16 if tq <= 16 else 64
+    fwd = rows * w + 2 * (2 * 64 * w + rows * 64 + 64)
+    dq = 2 * rows * w + 2 * (2 * 32 * w + rows * 32 + 32)
+    dkv = 2 * 64 * w + 4 * 32 * 16 + 2 * (2 * 32 * w + 32 * 64 + 32 * N_STATS)
+    return 4 * max(fwd, dq, dkv, 2 * 8 * c)
 
 
 def smem_bytes_bwd_tc(tk: int, c: int, num_heads: int) -> int:
@@ -316,12 +342,18 @@ def _check(q, k, v, key_mask, query_mask, graph, residual, gamma, beta,
     tensor_cores = kernel_path(q.dtype, c // num_heads) == "tensor-core"
     if (dy is not None or tensor_cores) and c // num_heads > MAX_HEAD_DIM:
         raise ValueError(f"head width {c // num_heads} > {MAX_HEAD_DIM}")
+    if dy is not None and q.dtype == torch.float32 and (
+            (c // num_heads) % 4 or (residual is not None and c > F32_MAX_C)):
+        raise ValueError(f"K2 in float32 takes a head width that is a multiple of 4 and C at "
+                         f"most {F32_MAX_C}, got {c // num_heads} and {c}")
     if dy is None and tensor_cores:
         need = smem_bytes_tc(tq, tk, c, num_heads)
     elif dy is None:
         need = smem_bytes(tq, tk, c, num_heads)
-    elif kernel_path(q.dtype, c // num_heads) == "tensor-core":
+    elif tensor_cores:
         need = smem_bytes_bwd_tc(tk, c, num_heads)
+    elif q.dtype == torch.float32:
+        need = smem_bytes_bwd_f32(tq, c, num_heads)
     else:
         need = smem_bytes_bwd(tq, tk, c, num_heads)
     if need > SMEM_LIMIT:
@@ -363,18 +395,21 @@ def _launch_bwd(q, k, v, key_mask, query_mask, graph, residual, gamma, beta, dy,
     lib = _build.library("graph_attention_bwd")
     fn = lib.savqa_graph_attention_ln_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
     b, tq, c = q.shape
     tk = k.shape[1]
     dh = c // num_heads
     tensor_cores = kernel_path(q.dtype, dh) == "tensor-core"
-    tiles = -(-tq // bwd_row_tile(q.dtype, dh, tq))
+    row_tile = bwd_row_tile(q.dtype, dh, tq)
+    tiles = -(-tq // row_tile)
     dq, dres = torch.empty_like(q), torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    # scratch passed from the first launch to the second: per-(batch, head,
-    # row) softmax and renorm constants and, for the SIMT kernels, dO widened
-    # to f32 (the tensor-core keys launch reads the bf16 dresidual);
-    # per-block dgamma/dbeta partials, summed here
+    # scratch passed between the launches: per-(batch, head, row) softmax
+    # and renorm constants and, but for the tensor-core kernels, an f32
+    # (B, Tq, C): dO widened to f32 for the bf16 SIMT keys launch, the
+    # forward's output O for the f32 kernels (the tensor-core keys launch
+    # reads the bf16 dresidual, the f32 ones the f32 dresidual);
+    # per-tile dgamma/dbeta partials, summed here
     partials = torch.empty(b * tiles, 2, c, dtype=torch.float32, device=q.device)
     do = None
     if not tensor_cores:
@@ -389,7 +424,7 @@ def _launch_bwd(q, k, v, key_mask, query_mask, graph, residual, gamma, beta, dy,
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dres.data_ptr(),
             partials.data_ptr(), None if do is None else do.data_ptr(), stats.data_ptr(),
             b, tq, tk, c, num_heads, RENORMS.index(renorm), _DTYPES[q.dtype],
-            int(tensor_cores), 1.0 / dh ** 0.5, stream,
+            int(tensor_cores), row_tile, 1.0 / dh ** 0.5, stream,
         )
     _build.check(status, "graph_attention_ln_bwd kernel")
     fused_graph_attention_ln_bwd.launches += 1
@@ -494,8 +529,9 @@ def _launch_heads_bwd(q, k, v, key_mask, query_mask, graph, do, num_heads: int,
     dh = c // num_heads
     tensor_cores = kernel_path(q.dtype, dh) == "tensor-core"
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # scratch between the two launches: the row constants and, for the SIMT
-    # kernels, dO widened to f32 (the tensor-core keys launch reads do)
+    # scratch between the launches: the row constants and, but for the
+    # tensor-core kernels, an f32 (B, Tq, C): dO widened to f32 for the bf16
+    # SIMT kernels, the forward's output O for the f32 ones
     dout = None if tensor_cores else torch.empty(b, tq, c, dtype=torch.float32,
                                                  device=q.device)
     stats = torch.empty(b, num_heads, tq, N_STATS, dtype=torch.float32, device=q.device)

@@ -227,6 +227,14 @@ def new_model(model_cfg: ModelConfig, seed: int, device) -> AttModelX3:
         return AttModelX3(model_cfg, device=device)
 
 
+def replay_root(cache_dir: str, seed: int, shard: str = "") -> str:
+    """Where ``--batch_replay`` keeps a run's frozen batches under
+    ``cache_dir``: keyed by the shuffle seed, which draws their composition
+    (the batch cache's fingerprint, equal to the TPU package's, leaves the
+    seed out), and by the rank's ``shard`` suffix."""
+    return f"{cache_dir}/train_batches/seed{seed}{shard}"
+
+
 def train(
     model_cfg: ModelConfig,
     data_cfg: DataConfig,
@@ -281,7 +289,7 @@ def train(
         num_shards=mesh.data,
         num_threads=tc.num_workers, num_procs=tc.num_procs, n_pack=tc.n_pack,
         pack_bucket=tc.pack_bucket, cache_dir=cache("train"),
-        batch_replay_dir=cache("train_batches") if tc.batch_replay else None,
+        batch_replay_dir=replay_root(tc.cache_dir, tc.seed, shard) if tc.batch_replay else None,
     )
     # val order is fixed, so the val passes after the first stream the
     # materialized collated batches (data/batch_cache.py)

@@ -129,10 +129,15 @@ def test_k5_k6_kernel_path(dtype, head_dim, want):
     (torch.bfloat16, 64, 1536, 1536, (1, 24)),   # the encoder: 768 blocks, no split
     (torch.bfloat16, 64, 200, 700, (3, 4)),
     (torch.bfloat16, 8, 1, 1536, (1, 24)),       # SIMT: never split
-    (torch.float32, 64, 1, 1536, (1, 24)),
+    (torch.float32, 64, 1, 1536, (6, 4)),        # K4's f32 kernel: shards of 4 steps
 ])
 def test_k4_k5_key_split_on_the_tensor_cores_only(dtype, head_dim, tq, tk, want):
+    """K4's split (``kernel_key_split``); K5 splits on the tensor cores only
+    (``dq_key_split``): its f32 kernel takes every key in one shard."""
     assert flash.kernel_key_split(dtype, head_dim, 4, 8, tq, tk) == want
+    steps = -(-tk // flash.KEY_STEP)
+    want_k5 = (1, steps) if flash.kernel_path(dtype, head_dim) == "simt" else want
+    assert flash.dq_key_split(dtype, head_dim, 4, 8, tq, tk) == want_k5
 
 
 @pytest.mark.parametrize("bounds", [((0, 24), (24, 40)), ((0, 8), (8, 16), (16, 40)),
@@ -159,7 +164,7 @@ def test_sum_of_dq_shards_equals_the_unsplit_dq(rng, bounds):
 
 def test_dq_scratch_guard_accepts_what_the_wrapper_allocates():
     q = torch.zeros(4, 1, 512, dtype=torch.bfloat16)
-    n_split, per = flash.kernel_key_split(q.dtype, 64, 4, 8, 1, 1536)
+    n_split, per = flash.dq_key_split(q.dtype, 64, 4, 8, 1, 1536)
     flash._check_dq_scratch(torch.empty(n_split, 4, 1, 512), n_split, per, q, 1536)
     flash._check_dq_scratch(None, 1, 24, q, 1536)
 

@@ -8,6 +8,9 @@ The merge: ``merge_partials_plain`` over 2, 3 and 5 key shards of
 ``flash_graph_attention_plain(..., emit="partial")`` against the unsplit
 call, and against a fold of the JAX package's ``ring_attention._merge``; all
 float32, 1e-6 of each output's largest magnitude (sums in another order).
+The shards K4's float32 kernel cuts (``f32_plan``: 256 keys a shard) are
+held, merged, to the unsplit plain call and to the JAX package's
+``flash_graph_attention`` in interpret mode within 1e-5.
 """
 
 import jax.numpy as jnp
@@ -16,6 +19,9 @@ import pytest
 import torch
 
 from structured_alignment_vqa_tpu.ops.pallas_attention_bwd import fused_attention_bwd
+from structured_alignment_vqa_tpu.ops.pallas_flash_attention import (
+    flash_graph_attention as jax_flash_graph_attention,
+)
 from structured_alignment_vqa_tpu.ops.ring_attention import _merge as jax_merge
 from structured_alignment_vqa_tpu_torch.ops import flash_graph_attention as flash
 from structured_alignment_vqa_tpu_torch.ops import fused_ffn as k3
@@ -33,13 +39,14 @@ def _threads():
 def flash_inputs(rng, b=2, tq=7, tk=40, c=16):
     """K4's arguments, float32: sample 0 has every key of the second shard
     of five (keys 8-15) masked, sample 1 row 0 has an all-zero graph (a dead
-    row), row 1 of sample 0 is a padded query."""
+    row), row 1 of sample 0 (row 0 when it is the only one) is a padded
+    query."""
     q, k, v = (torch.from_numpy(np.maximum(rng.standard_normal((b, t, c)), 0).astype(np.float32))
                for t in (tq, tk, tk))
     key_mask = torch.from_numpy((rng.random((b, tk)) > 0.2).astype(np.float32))
     key_mask[0, 8:16] = 0.0
     query_mask = torch.ones(b, tq)
-    query_mask[0, 1] = 0.0
+    query_mask[0, min(1, tq - 1)] = 0.0
     graph = torch.from_numpy((rng.random((b, tq, tk)) > 0.5).astype(np.float32))
     graph[1, 0] = 0.0
     return q, k, v, key_mask, query_mask, graph
@@ -72,22 +79,47 @@ def close(got, want, name, tol=TOL):
 SHARDS = {2: ((0, 24), (24, 40)), 3: ((0, 8), (8, 16), (16, 40)),
           5: ((0, 8), (8, 16), (16, 24), (24, 32), (32, 40)),
           "empty": ((0, 16), (16, 16), (16, 40))}
+# (Tq, Tk) whose keys K4's float32 kernel splits at the obj+rel point (B 4, 8
+# heads): the decoder's one query into 1,536 keys (6 shards of 4 steps), two
+# query tiles into 1,536 (6) and Tq 200 into 700 keys (3, the last ragged)
+F32_SHARDS = {"f32 Tq=1 Tk=1536": (1, 1536), "f32 Tq=70 Tk=1536": (70, 1536),
+              "f32 Tq=200 Tk=700": (200, 700)}
+F32_TOL = 1e-5
+
+
+def f32_bounds(tq: int, tk: int) -> tuple:
+    """The key ranges of ``f32_plan``'s shards at B 4, 8 heads."""
+    _, n_split, per = flash.f32_plan(4, 8, tq, tk)
+    keys = per * flash.KEY_STEP
+    return tuple((i * keys, min(tk, (i + 1) * keys)) for i in range(n_split))
 
 
 @pytest.mark.parametrize("renorm", flash.RENORMS)
-@pytest.mark.parametrize("shards", list(SHARDS), ids=str)
+@pytest.mark.parametrize("shards", list(SHARDS) + list(F32_SHARDS), ids=str)
 def test_merged_shards_equal_the_unsplit_call(rng, shards, renorm):
     """Shard 2 of 3 and of 5 is fully masked in sample 0 (its m is the fill
-    value and the merge wipes it); "empty" holds a shard that saw no key."""
-    args = flash_inputs(rng)
-    a, m, z, bsum = flash.merge_partials_plain(*shard_partials(args, SHARDS[shards]))
+    value and the merge wipes it); "empty" holds a shard that saw no key.
+    The f32 kernel's shards: merged, against the unsplit call and against
+    the JAX package's K4 in interpret mode."""
+    if shards in F32_SHARDS:
+        tq, tk = F32_SHARDS[shards]
+        args, bounds, tol = flash_inputs(rng, tq=tq, tk=tk), f32_bounds(tq, tk), F32_TOL
+        assert len(bounds) > 1 and bounds[-1][1] == tk
+    else:
+        args, bounds, tol = flash_inputs(rng), SHARDS[shards], TOL
+    a, m, z, bsum = flash.merge_partials_plain(*shard_partials(args, bounds))
     want = flash.flash_graph_attention_plain(*args, HEADS, renorm, "partial")
     for name, g, w in zip(("a", "m", "z", "b"), (a, m, z, bsum), want):
-        close(g, w, name)
+        close(g, w, name, tol)
     assert float(bsum[1, :, 0].abs().max()) == 0.0          # the dead row stays dead
     out = flash._renormalise(a, z, bsum, args[4], renorm, torch.float32)
-    close(out, flash.flash_graph_attention_plain(*args, HEADS, renorm), "out")
-    assert float(out[0, 1].abs().max()) == 0.0 and float(out[1, 0].abs().max()) == 0.0
+    close(out, flash.flash_graph_attention_plain(*args, HEADS, renorm), "out", tol)
+    padded = (0, min(1, args[0].shape[1] - 1))
+    assert float(out[padded].abs().max()) == 0.0 and float(out[1, 0].abs().max()) == 0.0
+    if shards in F32_SHARDS:
+        jax_out = jax_flash_graph_attention(*(jnp.asarray(t.numpy()) for t in args), HEADS,
+                                            renorm, 8, 256, True)
+        close(out, torch.from_numpy(np.array(jax_out)), "out against JAX", tol)
 
 
 def test_merge_of_empty_shards_only_is_empty():
@@ -150,22 +182,94 @@ def test_key_split_leaves_no_shard_empty(blocks, tk):
     (torch.bfloat16, 40, "simt"), (torch.float32, 64, "simt"),
 ])
 def test_k4_kernel_path(dtype, head_dim, want):
-    """f32 keeps the SIMT kernel (TF32 would break 1e-4); so does a bf16
-    head width that is no multiple of 16."""
+    """f32 runs on the CUDA cores (TF32 would break 1e-4), in its own
+    register-tiled kernel; a bf16 head width that is no multiple of 16 keeps
+    the first SIMT kernel."""
     assert flash.kernel_path(dtype, head_dim) == want
+
+
+@pytest.mark.parametrize("batch,heads,tq,tk,want", [
+    (4, 8, 1536, 1536, (64, 1, 24)),   # the encoder: 768 blocks, no split
+    (4, 4, 1536, 1536, (64, 1, 24)),   # a model rank's 4 heads: 384 blocks
+    (4, 8, 768, 768, (64, 1, 12)),     # the ring's shard
+    (4, 8, 1, 1536, (16, 6, 4)),       # the decoder's one query: 32 blocks of one warp -> 192
+    (4, 4, 1, 1536, (16, 6, 4)),       # ... on 4 heads: the same shards
+    (4, 8, 70, 1536, (64, 6, 4)),      # two query tiles
+    (4, 8, 200, 700, (64, 3, 4)),      # 128 blocks: under the card, a ragged last shard
+    (1, 1, 1, 64, (16, 1, 1)),         # one step cannot be split
+    (1, 1, 1, 130, (16, 1, 3)),        # three steps: one shard of them all
+    (64, 8, 16, 300, (16, 1, 5)),      # 512 blocks of 16 rows
+])
+def test_f32_plan_is_a_pure_function_of_the_shapes(batch, heads, tq, tk, want):
+    """K4's float32 kernel: rows a block, then shards of four key steps when
+    the blocks do not cover the card, whatever the head count."""
+    assert flash.f32_plan(batch, heads, tq, tk) == want
+    assert flash.kernel_key_split(torch.float32, 64, batch, heads, tq, tk) == want[1:]
+
+
+@pytest.mark.parametrize("tk", [1, 63, 64, 65, 256, 257, 700, 1536, 4096])
+@pytest.mark.parametrize("blocks", [(1, 1, 1), (4, 8, 1), (4, 4, 1), (2, 8, 100), (16, 8, 64),
+                                    (4, 8, 1536)])
+def test_f32_key_split_leaves_no_shard_empty(blocks, tk):
+    batch, heads, tq = blocks
+    q_tile, n_split, per = flash.f32_plan(batch, heads, tq, tk)
+    steps = -(-tk // flash.KEY_STEP)
+    assert q_tile == (16 if tq <= 16 else 64)
+    assert n_split >= 1 and per >= 1
+    assert (n_split - 1) * per < steps <= n_split * per          # the kernel's own guard
+    if batch * heads * -(-tq // q_tile) >= flash.SM_COUNT:
+        assert n_split == 1
+    else:
+        assert per == min(flash.F32_SPLIT_STEPS, steps)
+    # K5's f32 kernel has no split; its plan says so
+    assert flash.dq_key_split(torch.float32, 64, batch, heads, tq, tk) == (1, steps)
+
+
+@pytest.mark.parametrize("head_dim,q_tile,blocks_an_sm", [
+    (64, 64, 2), (64, 16, 2), (32, 64, 3), (48, 64, 2), (128, 64, 1), (128, 16, 1),
+])
+def test_k4_f32_shared_memory_fits(head_dim, q_tile, blocks_an_sm):
+    """One block of K4's f32 kernel fits the 227 KB a block may use, and at
+    the model's head width of 64 two blocks (8 warps) share an SM, each
+    paying 1 KB of reserve."""
+    need = flash.smem_bytes_f32(head_dim, q_tile)
+    assert blocks_an_sm * (need + 1024) <= k1.SMEM_LIMIT < (blocks_an_sm + 1) * (need + 1024)
+    assert flash.smem_bytes_f32(64, 64) == 4 * (64 * 64 + 2 * (2 * 64 * 64 + 64 * 64 + 64))
 
 
 @pytest.mark.parametrize("dtype,head_dim,tq,want,tile", [
     (torch.bfloat16, 64, 128, "tensor-core", 32), (torch.bfloat16, 64, 66, "tensor-core", 32),
     (torch.bfloat16, 48, 16, "tensor-core", 32), (torch.bfloat16, 64, 1, "tensor-core", 32),
     (torch.bfloat16, 24, 128, "simt", 16), (torch.bfloat16, 8, 1, "simt", 1),
-    (torch.float32, 64, 128, "simt", 16), (torch.float32, 64, 9, "simt", 9),
+    (torch.float32, 64, 128, "simt", 64), (torch.float32, 64, 9, "simt", 64),
 ])
 def test_k2_kernel_path_and_row_tile(dtype, head_dim, tq, want, tile):
     """The row tile sets the number of dgamma/dbeta partials the rows launch
-    writes, so the wrapper alone decides the path and tells the kernel."""
+    (in f32 its LayerNorm backward) writes, so the wrapper alone
+    decides the path and tells the kernel."""
     assert k1.kernel_path(dtype, head_dim) == want
     assert k1.bwd_row_tile(dtype, head_dim, tq) == tile
+
+
+@pytest.mark.parametrize("c,heads,tq", [(512, 8, 128), (512, 8, 1), (512, 8, 300), (256, 4, 128),
+                                        (512, 4, 66), (2048, 16, 64), (1024, 8, 16)])
+def test_k2_f32_shared_memory_fits(c, heads, tq):
+    """Every f32 kernel of K2 fits the 227 KB a block may use, the largest
+    at the model's widths being the forward (K4's f32 body)."""
+    need = k1.smem_bytes_bwd_f32(tq, c, heads)
+    assert need <= k1.SMEM_LIMIT
+    if c // heads == 64 and tq > 16:
+        assert need == 4 * (64 * 64 + 2 * (2 * 64 * 64 + 64 * 64 + 64))
+
+
+@pytest.mark.parametrize("c,heads,match", [(24, 4, "multiple of 4"), (4096, 32, "at most 2048")])
+def test_k2_f32_refuses_what_its_kernels_do_not_take(c, heads, match):
+    """A head width that is no multiple of 4, or C above 2,048 (the
+    LayerNorm backward's registers), is refused before a launch."""
+    x = torch.zeros(1, 8, c)
+    with pytest.raises(ValueError, match=match):
+        k1._check(x, x, x, torch.ones(1, 8), torch.ones(1, 8), torch.ones(1, 8, 8), x,
+                  torch.ones(c), torch.zeros(c), heads, "l1", dy=x)
 
 
 def test_k2_tensor_core_shared_memory_leaves_two_blocks_an_sm():
