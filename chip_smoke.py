@@ -14,10 +14,16 @@ Phases, each of which must pass:
    card, bf16 and f32, at the serving shapes: B 128, C 512, 8 heads,
    self-attention at L 66 and 128, one-query cross-attention into 66 and
    128 keys, both renorms, and at the obj+rel shapes (B 4); each line says
-   which kernel the shape took (tensor-core or SIMT); a bf16 shape with a
-   head width of 8 must take the SIMT kernel, one with 65 keys checks the
-   tensor-core kernel's unaligned graph loads, one has a sample whose keys
-   are all masked, one walks 300 keys in five steps;
+   which kernel the shape took (tensor-core, f32 or SIMT); a bf16 shape
+   with a head width of 8 and an f32 one with a head width of 10 must take
+   the SIMT kernel, one with 65 keys checks the unaligned graph loads, one
+   has a sample whose keys are all masked, one walks 300 keys in five steps
+   (each in bf16 and f32); f32 also at the variants' shapes (B 64: self L 99
+   and 300, one query into 99 and 300, 50 queries into 299), and at every
+   f32 shape bit for bit: both entries against the first SIMT kernel on
+   the same inputs, the 8-head entry against two 4-head attention-only
+   halves and the LayerNorm entry; one f32 call under torch.profiler must
+   run only the f32 and LayerNorm kernels of csrc/graph_attention.cu;
 4. K3 (FFN + LayerNorm) the same way at 16,384, 8,448 and 128 rows and at
    obj+rel's 6,144, 264 and 4 rows, at C 2,048 (3,136 rows), and in f32 at
    the variants' 64, 3,136, 6,336 and 19,200 rows and as the model axis's
@@ -68,10 +74,11 @@ Phases, each of which must pass:
 9. K5 and K6 (its backward: dQ, and dK with dV) on the same inputs against
    their plain versions; in f32 also against torch.autograd of the eager
    ``attention_core``; each line says which kernels the shape took and how
-   many key shards K5 took; the one-query shape must go through K5's key
-   split and its sum kernel in bf16, a bf16 shape with a head width of 8
-   through the SIMT kernels, and a bf16 shape with 701 keys checks the
-   tensor-core kernels' unaligned graph copies;
+   many key shards K5 took (f32: K5's SIMT kernel, K6's f32 kernel, which
+   one call under torch.profiler must run alone); the one-query shape must
+   go through K5's key split and its sum kernel in bf16, a bf16 shape with
+   a head width of 8 through the SIMT kernels, and a bf16 shape with 701
+   keys checks the tensor-core kernels' unaligned graph copies;
 10. the obj+rel model at full width (``only_obj=False``, maxlen 1600,
     hidden_size_mil 64, 310 relations, otherwise as above) serving five
     requests of 4 questions at bucket (lv, ls, lq) = (36, 1506, 30), the
@@ -388,7 +395,6 @@ PREVIOUS_MS = {
     ("K5", "self L=1536", torch.float32): 2.0625,
     ("K6", "self L=1536", torch.bfloat16): 2.4198,
     ("K6", "cross Tq=1 Lk=1536", torch.bfloat16): 0.1070,
-    ("K6", "self L=1536", torch.float32): 2.4403,
     # K2's and K4's first f32 SIMT kernels, before their register-tiled
     # redesign, for the f32 rows above lacks: this script's k2 and k4 phases
     # and scripts/k24_f32_times.py on that tree, H100 80GB HBM3 at 700 W
@@ -408,6 +414,27 @@ PREVIOUS_MS = {
     ("K4", "split Tq=70 Tk=1536", torch.float32): 0.2541,
     ("K4", "ring shard", torch.float32): 0.3533,
     ("K4 heads", "model", torch.float32): 0.7290,
+    # K1's and K6's first f32 SIMT kernels, before their register-tiled
+    # redesign: the last full run of this script with them (the variants'
+    # K1 shapes: scripts/variant_kernel_times.py, the kernel alone), H100
+    # 80GB HBM3 at 700 W
+    ("K1", "self L=66", torch.float32): 0.4266,
+    ("K1", "self L=128", torch.float32): 0.9601,
+    ("K1", "cross Tq=1 Lk=66", torch.float32): 0.1015,
+    ("K1", "cross Tq=1 Lk=128", torch.float32): 0.1441,
+    ("K1", "self L=66 B=4", torch.float32): 0.1527,
+    ("K1", "cross Tq=1 Lk=66 B=4", torch.float32): 0.0800,
+    ("K1", "self L=99 B=64", torch.float32): 0.4661,
+    ("K1", "self L=300 B=64", torch.float32): 2.6512,
+    ("K1", "cross Tq=1 Lk=99 B=64", torch.float32): 0.1038,
+    ("K1", "cross Tq=1 Lk=300 B=64", torch.float32): 0.3361,
+    ("K1", "x5 Tq=50 Lk=299 B=64", torch.float32): 0.6811,
+    ("K1 heads", "model", torch.float32): 0.4370,
+    ("K6", "self L=1536", torch.float32): 2.4323,
+    ("K6", "self L=1506+30", torch.float32): 2.4221,
+    ("K6", "cross Tq=1 Lk=1536", torch.float32): 0.1159,
+    ("K6", "odd Tq=200 Tk=700", torch.float32): 0.2364,
+    ("K6", "ring shard", torch.float32): 0.8054,
 }
 
 failures: list = []
@@ -494,6 +521,43 @@ def k1_against_plain(label: str, args, heads: int) -> float:
     return err
 
 
+# K1's f32 rows at the variants' shapes (bs 64): the encoders'
+# self-attention at L 99 and 300, the decoders' one query into 99 and 300
+# keys, x5's 50 question tokens into 299
+K1_VARIANT_SHAPES = (("self L=99 B=64", 99, 99, VARIANT_B), ("self L=300 B=64", 300, 300, VARIANT_B),
+                     ("cross Tq=1 Lk=99 B=64", 1, 99, VARIANT_B),
+                     ("cross Tq=1 Lk=300 B=64", 1, 300, VARIANT_B),
+                     ("x5 Tq=50 Lk=299 B=64", 50, 299, VARIANT_B))
+K1_F32_KERNELS = ("graph_attention_ln_f32_kernel", "graph_attention_ln_epilogue_kernel")
+
+
+def k1_f32_bits(label: str, args) -> None:
+    """K1's f32 kernel bit for bit, both renorms: each entry against the
+    first SIMT kernel on the same inputs (the entries' "simt" path, which
+    takes every shape), and the 8-head full entry against two 4-head halves
+    of the attention-only entry followed by the LayerNorm entry (the model
+    axis's path at model 2)."""
+    from structured_alignment_vqa_tpu_torch.ops import fused_graph_attention as k1
+
+    q, k, v, key_mask, query_mask, graph, res, gamma, beta = args
+    half = C // 2
+    for renorm in ("l1", "sum_eps"):
+        o = k1.graph_attention_heads(q, k, v, key_mask, query_mask, graph, HEADS, renorm)
+        o_simt = k1._launch_heads(q, k, v, key_mask, query_mask, graph, HEADS, renorm, "simt")
+        full = k1.fused_graph_attention_ln(*args, HEADS, renorm)
+        full_simt = k1._launch(*args, HEADS, renorm, "simt")
+        halves = [k1.graph_attention_heads(*(t[..., cols].contiguous() for t in (q, k, v)),
+                                           key_mask, query_mask, graph, HEADS // 2, renorm)
+                  for cols in (slice(0, half), slice(half, C))]
+        ln = k1.attention_ln(torch.cat(halves, dim=-1), res, gamma, beta)
+        torch.cuda.synchronize()
+        check(torch.equal(o, o_simt) and torch.equal(full, full_simt),
+              f"K1 {label} f32 {renorm}: both entries equal the first SIMT kernel's bit for bit "
+              f"(max|f32 - SIMT| {(full - full_simt).abs().max().item():.3g})")
+        check(torch.equal(full, ln), f"K1 {label} f32 {renorm}: the 8-head entry equals two "
+              "4-head attention-only halves and the LayerNorm entry bit for bit")
+
+
 def k1_phase(gen) -> dict:
     from structured_alignment_vqa_tpu_torch.ops import fused_graph_attention as k1
 
@@ -505,20 +569,41 @@ def k1_phase(gen) -> dict:
     # 65 keys: two adjacent graph entries are not 8-byte aligned, so the
     # tensor-core kernel loads them one by one; sample 0 has every key masked
     # (each key then weighs exp(0) = 1 in the softmax, as in the plain version)
-    k1_against_plain("self L=65 B=4", k1_inputs(gen, 65, 65, torch.bfloat16, REL_B), HEADS)
-    k1_against_plain("self L=128 B=4 all keys of sample 0 masked",
-                     k1_inputs(gen, 128, 128, torch.bfloat16, REL_B, all_masked=True), HEADS)
-    k1_against_plain("cross Tq=1 Lk=300 B=4 (5 key steps)",
-                     k1_inputs(gen, 1, 300, torch.bfloat16, REL_B), HEADS)
+    # (f32: 65 keys leave a last key step of one key in both passes over them)
+    for dtype in (torch.bfloat16, torch.float32):
+        k1_against_plain("self L=65 B=4", k1_inputs(gen, 65, 65, dtype, REL_B), HEADS)
+        k1_against_plain("self L=128 B=4 all keys of sample 0 masked",
+                         k1_inputs(gen, 128, 128, dtype, REL_B, all_masked=True), HEADS)
+        k1_against_plain("cross Tq=1 Lk=300 B=4 (5 key steps)",
+                         k1_inputs(gen, 1, 300, dtype, REL_B), HEADS)
+
+    # f32 at a head width that is no multiple of 4 (12 heads of 10 at C
+    # 120) keeps the first SIMT kernel
+    path = k1.k1_path(torch.float32, 10)
+    check(path == "simt", f"K1 self L=66 B=4 C=120 heads=12 f32: head width 10 takes the {path} "
+          "kernel")
+    q, k, v, key_mask, query_mask, graph, res, gamma, beta = k1_inputs(gen, 66, 66, torch.float32,
+                                                                       REL_B)
+    q, k, v, res = (t[..., :120].contiguous() for t in (q, k, v, res))
+    k1_against_plain("self L=66 B=4 C=120 heads=12", (q, k, v, key_mask, query_mask, graph, res,
+                                                      gamma[:120].contiguous(),
+                                                      beta[:120].contiguous()), 12)
 
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
-        for label, tq, tk, B in K1_SHAPES:
+        shapes = K1_SHAPES + (K1_VARIANT_SHAPES if dtype == torch.float32 else ())
+        for label, tq, tk, B in shapes:
             args = k1_inputs(gen, tq, tk, dtype, B)
-            path = k1.kernel_path(dtype, C // HEADS)
-            want_path = "tensor-core" if dtype == torch.bfloat16 else "simt"
+            path = k1.k1_path(dtype, C // HEADS)
+            want_path = "tensor-core" if dtype == torch.bfloat16 else "f32"
             check(path == want_path, f"K1 {label} {dtype}: takes the {path} kernel")
             err = k1_against_plain(label, args, HEADS)
+            if dtype == torch.float32:
+                k1_f32_bits(label, args)
+            if dtype == torch.float32 and label in ("self L=128", "cross Tq=1 Lk=128"):
+                device_kernels_only(lambda: k1.fused_graph_attention_ln(*args, HEADS, "l1"),
+                                    f"K1 {label} {dtype}", K1_F32_KERNELS,
+                                    "csrc/graph_attention.cu's f32 and LayerNorm kernels")
             ms = time_ms(lambda: k1.fused_graph_attention_ln(*args, HEADS, "l1"))
             plain_ms = time_ms(lambda: k1.graph_attention_ln_plain(*args, HEADS, "l1"))
             size = torch.finfo(dtype).bits // 8
@@ -986,12 +1071,18 @@ def k56_phase(gen) -> dict:
             args = flash_inputs(gen, label, tq, tk, dtype)
             dy = torch.randn(REL_B, tq, C, generator=gen, device="cuda").to(dtype)
             path = fl.kernel_path(dtype, C // HEADS)
+            dkv_path = fl.dkv_kernel(dtype, C // HEADS)
             n_split = fl.dq_key_split(dtype, C // HEADS, REL_B, HEADS, tq, tk)[0]
             check(path == ("tensor-core" if dtype == torch.bfloat16 else "simt")
+                  and dkv_path == ("tensor-core" if dtype == torch.bfloat16 else "f32")
                   and (n_split > 1) == (path == "tensor-core" and label in K4_SPLIT_LABELS),
-                  f"K5/K6 {label} {dtype}: take the {path} kernels, K5's keys in {n_split} "
-                  "shard(s)")
+                  f"K5/K6 {label} {dtype}: K5 takes the {path} kernel, its keys in {n_split} "
+                  f"shard(s), K6 the {dkv_path} kernel")
             errs, abs_errs, bwd = k56_against_plain(label, args, dy, HEADS)
+            if dtype == torch.float32 and label == "self L=1536":
+                device_kernels_only(lambda: fl.flash_bwd_dkv(*bwd), f"K6 {label} {dtype}",
+                                    ("flash_graph_attention_bwd_dkv_f32_kernel",),
+                                    "csrc/flash_graph_attention_bwd.cu's K6 f32 kernel")
             size = torch.finfo(dtype).bits // 8
             stats_bytes = 4 * REL_B * (tq * tk + tk + 4 * HEADS * tq)
             for key, fn, plain, n_products, nbytes in (
@@ -1006,7 +1097,8 @@ def k56_phase(gen) -> dict:
                 plain_ms = time_ms(lambda: plain(*bwd), iters=5)
                 bound_ms, bound_by = bound(nbytes, 2.0 * n_products * REL_B * tq * tk * C, dtype)
                 shards = f", {n_split} key shard(s)" if key == "K5" else ""
-                print(f"{key} {label} {dtype}: {path} kernel{shards}, {ms:.4f} ms"
+                print(f"{key} {label} {dtype}: {path if key == 'K5' else dkv_path} "
+                      f"kernel{shards}, {ms:.4f} ms"
                       f"{previous(key, label, dtype)}, plain {plain_ms:.4f} ms, bound "
                       f"{bound_ms * 1e3:.2f} us ({bound_by})", flush=True)
                 rows.append(dict(kernel=key, label=label, dtype=dtype, err=abs_errs[key],
@@ -1089,6 +1181,7 @@ def profile_device(fn, what: str, host_top: int = 0) -> dict:
                ("K1 graph_attention_ln", "graph_attention_ln_kernel"),
                ("K1 graph_attention_ln", "graph_attention_ln_tc_kernel"),
                ("K1 graph_attention_ln", "graph_attention_ln_epilogue_kernel"),
+               ("K1 graph_attention_ln", "graph_attention_ln_f32_kernel"),
                ("K3 ffn_ln", "ffn_ln_"),
                ("K5 flash_graph_attention_bwd_dq", "flash_graph_attention_bwd_dq"),
                ("K6 flash_graph_attention_bwd_dkv", "flash_graph_attention_bwd_dkv"),
@@ -3777,7 +3870,8 @@ def seq_shard_kernels(card: str) -> None:
             kms = time_ms(lambda: fn(*bwd))
             pms = time_ms(lambda: plain(*bwd), iters=5)
             bms, bby = bound(nb, 2.0 * n_products * b * t * t * C, dtype)
-            print(f"{key} {label} {dtype} (one ring rotation): {kms:.4f} ms, plain {pms:.4f} ms, "
+            print(f"{key} {label} {dtype} (one ring rotation): {kms:.4f} ms"
+                  f"{previous(key, 'ring shard', dtype)}, plain {pms:.4f} ms, "
                   f"bound {bms * 1e3:.2f} us ({bby}); library: none on {card}", flush=True)
         del args, bwd
         torch.cuda.empty_cache()
@@ -4189,13 +4283,17 @@ KERNELS = (
 )
 
 
-# K2's and K4's float32 rows at the main path's shapes (their register-tiled kernels)
+# K1's, K2's, K4's and K6's float32 rows at the main path's shapes (their
+# register-tiled kernels)
 def tol_f32(key: str) -> float:
-    return K2_TOL[torch.float32] if key == "K2" else TOL[torch.float32]
+    return K2_TOL[torch.float32] if key in ("K2", "K6") else TOL[torch.float32]
 
 
-F32_MAIN = {"K2": ("k2", "self L=128" + str(torch.float32), "f32 B=128 L=128 C=512 H=8"),
-            "K4": ("k4", "self L=1536" + str(torch.float32), "f32 B=4 L=1536 C=512 H=8")}
+F32 = str(torch.float32)
+F32_MAIN = {"K1": ("k1", "self L=128" + F32, "f32 B=128 L=128 C=512 H=8"),
+            "K2": ("k2", "self L=128" + F32, "f32 B=128 L=128 C=512 H=8"),
+            "K4": ("k4", "self L=1536" + F32, "f32 B=4 L=1536 C=512 H=8"),
+            "K6": ("k56", "K6self L=1536" + F32, "f32 B=4 L=1536 C=512 H=8")}
 
 
 def kernel_lines(rows: dict, by_path: dict) -> list:

@@ -92,12 +92,28 @@
 // * A head width of 48, 80, ... runs in the next instantiation (16, 32, 64,
 //   128) with its upper channels staged as zeros.
 //
-// f32 inputs, and bf16 with a head width that is no multiple of 16, take the
-// SIMT kernels below (TF32 products would not hold the 1e-4 the f32 path is
-// checked to): blocks of 256 threads in a 16 x 16 grid, 64 x 64 score tiles
-// computed from float4 reads of f32 tiles staged in shared memory, every
-// product a plain FMA on CUDA cores in f32 (dO, V, K and Q are widened
-// first, as the TPU kernels widen them).
+// K6 in f32 takes a register-tiled FFMA kernel built from csrc/simt_f32.cuh's
+// tiles (TF32 products would not hold the 1e-4 the f32 path is checked to),
+// in the walk of K2's f32 dkv kernel (csrc/graph_attention_bwd.cu): one
+// block of 4 warps per (head, 64 keys, batch element), heads the fastest
+// grid axis, 16 keys a warp; K and V staged once; the query rows 32 a step
+// through a two-stage cp.async ring of (Q, dO, the graph tile, the rows' m,
+// z, b, delta), the copies of step j + 1 overlapping step j's products. A
+// lane owns a 4 x 4 tile of (key, row) entries: S^T = K Q^T and dN^T = V
+// dO^T by tile_abt, n and dS by row_terms and ds_entry's formula as the
+// SIMT kernels form them (each lane its rows' terms, from the staged m, z,
+// b, delta; the divisions by z and D through their reciprocals, div_rn),
+// then dV += N^T dO and dK += dS^T Q through the warp's transposed tile
+// (store_t, tile_pv). Each score is one ascending-d FMA chain and each dK
+// and dV entry one FMA chain over the query rows in ascending order, as in
+// the first f32 kernel, so it gives that kernel's bits. Two blocks an SM up
+// to head width 64 (91,136 bytes of shared memory a block at 64).
+//
+// K5 in f32, and K5 and K6 in bf16 with a head width that is no multiple of
+// 16, take the first SIMT kernels below: blocks of 256 threads in a 16 x 16
+// grid, 64 x 64 score tiles computed from float4 reads of f32 tiles staged
+// in shared memory, every product a plain FMA on CUDA cores in f32 (dO, V,
+// K and Q are widened first, as the TPU kernels widen them).
 // * K5: one block per (batch, head, tile of 64 query rows), walking the keys
 //   64 at a time. Thread (ty, tx) owns rows 4 ty .. 4 ty + 3; it computes S
 //   and dN for keys tx + 16 c together, turns them into dS with its rows'
@@ -123,6 +139,7 @@
 #include <math.h>
 
 #include "mma_sm90.cuh"
+#include "simt_f32.cuh"
 
 namespace {
 
@@ -194,6 +211,20 @@ __device__ __forceinline__ void ds_entry(float raw, float dn, float g, bool mask
   const float e = expf(s - t.m);
   const float p = e / t.z;
   const float n = e * g / t.D;
+  const float ds = n * (dn - t.c1) - p * t.c2;
+  *n_out = n;
+  *ds_out = masked ? 0.f : ds * scale;
+}
+
+// ds_entry with its two divisions by savqa_f32::div_rn (the same quotients),
+// from rz = 1 / z and rd = 1 / D.
+__device__ __forceinline__ void ds_entry_rcp(float raw, float dn, float g, bool masked,
+                                             const RowTerms& t, float rz, float rd, float scale,
+                                             float* n_out, float* ds_out) {
+  const float s = masked ? kNegMask : raw * scale;
+  const float e = expf(s - t.m);
+  const float p = savqa_f32::div_rn(e, t.z, rz);
+  const float n = savqa_f32::div_rn(e * g, t.D, rd);
   const float ds = n * (dn - t.c1) - p * t.c2;
   *n_out = n;
   *ds_out = masked ? 0.f : ds * scale;
@@ -547,6 +578,181 @@ cudaError_t launch_dkv(int dh, Args... args) {
   if (dh <= 32) return launch_dkv_ndh<T, 2>(args...);
   if (dh <= 64) return launch_dkv_ndh<T, 4>(args...);
   return launch_dkv_ndh<T, 8>(args...);
+}
+
+// ---- K6's f32 kernel (csrc/simt_f32.cuh) ----
+
+namespace f32 = savqa_f32;
+
+constexpr int kF32Keys = 64;   // keys a block, 16 a warp
+constexpr int kF32Rows = 32;   // query rows a step
+
+// Floats of one stage: Qc, dOc (32, DH), Gs (32, 64), the rows' m, z, b and
+// delta (4, 32); of a block: Ks, Vs (64, DH), the warps' transposed tiles
+// (4, 32, 16), two stages.
+__host__ __device__ constexpr int dkv_f32_stage_floats(int dh) {
+  return 2 * kF32Rows * dh + kF32Rows * kF32Keys + 4 * kF32Rows;
+}
+__host__ __device__ constexpr int dkv_f32_smem_floats(int dh) {
+  return 2 * kF32Keys * dh + 4 * kF32Rows * 16 + 2 * dkv_f32_stage_floats(dh);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(128, DH <= 64 ? 2 : 1)
+flash_graph_attention_bwd_dkv_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ key_mask, const float* __restrict__ graph,
+    const float* __restrict__ m_in, const float* __restrict__ z_in,
+    const float* __restrict__ b_in, const float* __restrict__ delta,
+    const float* __restrict__ dout, float* __restrict__ dk, float* __restrict__ dv, int Tq,
+    int Tk, int C, int H, int dh, int renorm, float scale) {
+  constexpr int kThr = 128;
+  constexpr int kStageF = dkv_f32_stage_floats(DH);
+  extern __shared__ __align__(16) float smem_kv[];
+  float* Ks = smem_kv;
+  float* Vs = Ks + kF32Keys * DH;
+  float* bt = Vs + kF32Keys * DH;
+  float* stages = bt + 4 * kF32Rows * 16;
+
+  const int h = blockIdx.x;
+  const int j0 = blockIdx.y * kF32Keys;
+  const int b = blockIdx.z;
+  const int c0 = h * dh;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int ly = lane >> 3, lx = lane & 7;
+  const int n_steps = (Tq + kF32Rows - 1) / kF32Rows;
+  const bool gvec = (Tk & 3) == 0;   // the graph's rows are 16-byte aligned
+  const float* qb = q + (size_t)b * Tq * C;
+  const float* dob = dout + (size_t)b * Tq * C;
+  const float* gb = graph + (size_t)b * Tq * Tk;
+  const size_t st0 = ((size_t)b * H + h) * Tq;   // this (batch, head)'s rows of m, z, b, delta
+
+  auto load_step = [&](int step) {
+    float* base = stages + (step & 1) * kStageF;
+    const int r0 = step * kF32Rows;
+    f32::stage_tile<DH, kThr>(base, qb, r0, Tq, kF32Rows, C, c0, dh, true, f32::Swz<DH>());
+    f32::stage_tile<DH, kThr>(base + kF32Rows * DH, dob, r0, Tq, kF32Rows, C, c0, dh, true,
+                              f32::Swz<DH>());
+    f32::stage_tile<kF32Keys, kThr>(base + 2 * kF32Rows * DH, gb, r0, Tq, kF32Rows, Tk, j0,
+                                    Tk - j0, gvec, f32::Swz<kF32Keys>());
+    float* raw = base + 2 * kF32Rows * DH + kF32Rows * kF32Keys;
+    for (int i = tid; i < 4 * kF32Rows; i += kThr) {   // (m, z, b, delta) x 32 rows
+      const int which = i / kF32Rows, r = r0 + i - which * kF32Rows;
+      const float* src = which == 0 ? m_in : which == 1 ? z_in : which == 2 ? b_in : delta;
+      const bool valid = r < Tq;
+      savqa::cp_async4(raw + i, src + st0 + (valid ? r : 0), valid);
+    }
+  };
+  f32::stage_tile<DH, kThr>(Ks, k + (size_t)b * Tk * C, j0, Tk, kF32Keys, C, c0, dh, true,
+                            f32::Swz<DH>());
+  f32::stage_tile<DH, kThr>(Vs, v + (size_t)b * Tk * C, j0, Tk, kF32Keys, C, c0, dh, true,
+                            f32::Swz<DH>());
+  load_step(0);
+  savqa::cp_async_commit();
+
+  int kw[4];
+  bool masked[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    kw[i] = warp * 16 + ly + 4 * i;
+    const int key = j0 + kw[i];
+    masked[i] = key >= Tk || key_mask[(size_t)b * Tk + key] == 0.f;   // past Tk: never written
+  }
+  const bool active = j0 + warp * 16 < Tk;
+  float* pt = bt + warp * kF32Rows * 16;
+  float dka[4][DH / 8], dva[4][DH / 8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < DH / 8; ++e) dka[i][e] = dva[i][e] = 0.f;
+
+  for (int step = 0; step < n_steps; ++step) {
+    savqa::cp_async_wait<0>();
+    __syncthreads();   // this step's tiles (and K, V) have landed; the other stage is free
+    if (step + 1 < n_steps) load_step(step + 1);
+    savqa::cp_async_commit();
+    if (!active) continue;
+    const float* base = stages + (step & 1) * kStageF;
+    const float* Qc = base;
+    const float* dOc = base + kF32Rows * DH;
+    const float* Gs = base + 2 * kF32Rows * DH;
+    const float* raw = Gs + kF32Rows * kF32Keys;
+    float w[4][4], dn[4][4];   // [key ly + 4 i][row lx + 8 c]
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) w[i][c] = dn[i][c] = 0.f;
+    f32::tile_abt<DH, 4>(w, Ks, warp * 16, Qc, dh, ly, lx);    // S^T = K Q^T
+    f32::tile_abt<DH, 4>(dn, Vs, warp * 16, dOc, dh, ly, lx);  // dN^T = V dO^T
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int r = lx + 8 * c;
+      const bool real = step * kF32Rows + r < Tq;
+      const RowTerms t = row_terms(raw[r], raw[kF32Rows + r], raw[2 * kF32Rows + r],
+                                   raw[3 * kF32Rows + r], renorm);   // zeros past Tq: unused
+      const float rz = 1.f / t.z, rd = 1.f / t.D;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float n, ds;
+        ds_entry_rcp(w[i][c], dn[i][c], Gs[f32::swz<kF32Keys>(r, kw[i])], masked[i], t, rz, rd,
+                     scale, &n, &ds);
+        w[i][c] = real ? n : 0.f;    // n and dS of key ly + 4 i, row lx + 8 c
+        dn[i][c] = real ? ds : 0.f;
+      }
+    }
+    __syncwarp();   // the previous step's readers of pt are done
+    f32::store_t<4>(pt, w, ly, lx);
+    __syncwarp();
+    f32::tile_pv<DH, kF32Rows>(dva, pt, dOc, ly, lx);   // dV += N^T dO
+    __syncwarp();
+    f32::store_t<4>(pt, dn, ly, lx);
+    __syncwarp();
+    f32::tile_pv<DH, kF32Rows>(dka, pt, Qc, ly, lx);    // dK += dS^T Q
+  }
+  savqa::cp_async_wait<0>();
+  if (!active) return;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = j0 + kw[i];
+    if (key >= Tk) continue;
+#pragma unroll
+    for (int g = 0; g < DH / 32; ++g) {
+      const int d = 4 * lx + 32 * g;
+      if (d >= dh) continue;
+      const size_t at = ((size_t)b * Tk + key) * C + c0 + d;
+      const float* k4 = dka[i] + 4 * g;
+      const float* v4 = dva[i] + 4 * g;
+      *reinterpret_cast<float4*>(dk + at) = make_float4(k4[0], k4[1], k4[2], k4[3]);
+      *reinterpret_cast<float4*>(dv + at) = make_float4(v4[0], v4[1], v4[2], v4[3]);
+    }
+  }
+}
+
+template <int DH>
+cudaError_t launch_dkv_f32_dh(const float* q, const float* k, const float* v,
+                              const float* key_mask, const float* graph, const float* m_in,
+                              const float* z_in, const float* b_in, const float* delta,
+                              const float* dout, float* dk, float* dv, int B, int Tq, int Tk,
+                              int C, int H, int renorm, float scale, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * dkv_f32_smem_floats(DH);
+  auto kernel = flash_graph_attention_bwd_dkv_f32_kernel<DH>;
+  // once a process: the one-query calls are short enough for the host's
+  // attribute calls to show
+  static const cudaError_t attributes = f32::allow_smem(kernel, smem);
+  if (attributes != cudaSuccess) return attributes;
+  const dim3 grid(H, (Tk + kF32Keys - 1) / kF32Keys, B);
+  kernel<<<grid, 128, smem, stream>>>(q, k, v, key_mask, graph, m_in, z_in, b_in, delta, dout,
+                                      dk, dv, Tq, Tk, C, H, C / H, renorm, scale);
+  return cudaGetLastError();
+}
+
+template <typename... Args>
+cudaError_t launch_dkv_f32(int dh, Args... args) {
+  if (dh <= 32) return launch_dkv_f32_dh<32>(args...);
+  if (dh <= 64) return launch_dkv_f32_dh<64>(args...);
+  return launch_dkv_f32_dh<128>(args...);
 }
 
 // ---- the tensor-core kernels (bf16, head width a multiple of 16) ----
@@ -1037,8 +1243,9 @@ bool tensor_cores(int dtype, int C, int H) { return dtype == 1 && (C / H) % 16 =
 // q, dout, dq (B, Tq, C) and k, v, dk, dv (B, Tk, C) in that type; key_mask
 // (B, Tk), graph (B, Tq, Tk), m, z, b, delta (B, H, Tq) f32. The head width
 // C / H must be a multiple of 4 and at most 128. bf16 with a head width
-// that is a multiple of 16 takes the tensor-core kernels, every other call
-// the SIMT kernels. Each returns cudaGetLastError() after its launches.
+// that is a multiple of 16 takes the tensor-core kernels; K6 in f32 its
+// register-tiled kernel; every other call the SIMT kernels. Each returns
+// cudaGetLastError() after its launches.
 //
 // K5 on the tensor cores splits the key steps (64 keys each) into n_split
 // shards of steps_per_split steps, none of them empty; with n_split > 1
@@ -1100,8 +1307,10 @@ extern "C" int savqa_flash_graph_attention_bwd_dkv(
     return (int)launch_dkv_tc_dh(p);
   }
   if (dtype == 0)
-    return (int)launch_dkv<float>(C / H, q, k, v, km, g, mi, zi, bi, de, dout, dk, dv, B, Tq,
-                                  Tk, C, H, renorm, scale, s);
+    return (int)launch_dkv_f32(C / H, static_cast<const float*>(q), static_cast<const float*>(k),
+                               static_cast<const float*>(v), km, g, mi, zi, bi, de,
+                               static_cast<const float*>(dout), static_cast<float*>(dk),
+                               static_cast<float*>(dv), B, Tq, Tk, C, H, renorm, scale, s);
   if (dtype == 1)
     return (int)launch_dkv<__nv_bfloat16>(C / H, q, k, v, km, g, mi, zi, bi, de, dout, dk, dv,
                                           B, Tq, Tk, C, H, renorm, scale, s);

@@ -12,23 +12,34 @@
 //   o^h  = sum_j a_j v_j^h            (f32 accumulation)
 //   out_i = LN(o + residual_i): gamma (x - mean) / (std + 1e-8) + beta, std unbiased
 //
-// What bounds it on an H100: bytes. At the serving shapes (B 128, C 512,
-// L <= 128, bf16) it does ~47 operations per byte read (Q, K, V, residual,
-// the f32 graph, the output), below the card's ~295 bf16 ops/byte ridge.
+// What bounds it on an H100: bytes in bf16. At the serving shapes (B 128,
+// C 512, L <= 128, bf16) it does ~47 operations per byte read (Q, K, V,
+// residual, the f32 graph, the output), below the card's ~295 bf16
+// ops/byte ridge. In f32 the operations bound it (64 us at B 128, L 128 at
+// the 67 TFLOP/s FFMA peak against ~53 us of bytes).
 //
-// bf16 with a head width that is a multiple of 16 (up to 128) takes the
-// tensor-core kernels below. The SIMT kernel (f32, other head widths):
-// one block of 256 threads owns (batch element, tile of up to 16
-// query rows) and loops over all H heads, so the LayerNorm epilogue sees
-// all C channels of its rows: the (rows, C) f32 attention output stays in
-// shared memory and only the normalised row is written. Per head, K and
-// then V stream through shared memory in chunks of 64 keys; the (rows, Lk)
-// score tile stays in shared memory (Lk <= 512: 32 KB at 16 rows), so no
-// score, weight or pre-LN output ever reaches device memory. One warp owns
-// a row for the softmax, renorm and LayerNorm reductions. Keys are exactly
-// the Lk given: the kernel needs no padding, so Tq != Tk (the decoder's
-// one-query cross-attention) runs through the same code. The products are
-// plain FMAs on CUDA cores: TF32 would not hold the f32 path's 1e-4.
+// Three designs, chosen by shape (ops/fused_graph_attention.py:k1_path):
+// * bf16 with a head width that is a multiple of 16 (up to 128): the
+//   tensor-core kernels below.
+// * f32 with a head width that is a multiple of 4 (up to 128): a
+//   register-tiled FFMA kernel (csrc/simt_f32.cuh's tiles) that sums as the
+//   first SIMT kernel does, then the epilogue kernel that the tensor-core
+//   path shares; its output is the SIMT kernel's bit for bit (see "the f32
+//   kernel" below).
+// * Every other call (bf16 at other head widths, f32 at a head width that
+//   is no multiple of 4 or above 128): the first SIMT kernel. One block of
+//   256 threads owns (batch element, tile of up to 16 query rows) and loops
+//   over all H heads, so the LayerNorm epilogue sees all C channels of its
+//   rows: the (rows, C) f32 attention output stays in shared memory and
+//   only the normalised row is written. Per head, K and then V stream
+//   through shared memory in chunks of 64 keys; the (rows, Lk) score tile
+//   stays in shared memory (Lk <= 512: 32 KB at 16 rows), so no score,
+//   weight or pre-LN output ever reaches device memory. One warp owns a row
+//   for the softmax, renorm and LayerNorm reductions. Keys are exactly the
+//   Lk given: the kernel needs no padding, so Tq != Tk (the decoder's
+//   one-query cross-attention) runs through the same code.
+// Every f32 product is a plain FMA on the CUDA cores: TF32 would not hold
+// the f32 path's 1e-4.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -37,6 +48,7 @@
 #include <type_traits>
 
 #include "mma_sm90.cuh"
+#include "simt_f32.cuh"
 
 namespace {
 
@@ -44,6 +56,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kQTile = 16;
 constexpr int kKeyChunk = 64;
+constexpr int kMaxKeys = 512;   // the f32 kernel's score rows
 constexpr float kNegMask = -4294967295.0f;  // float(-(2**32) + 1)
 constexpr float kL1Eps = 1e-12f;
 constexpr float kSumEps = 1e-7f;
@@ -548,6 +561,284 @@ cudaError_t launch_tc(const bf16* q, const bf16* k, const bf16* v, const float* 
              H, renorm, scale, stream);
 }
 
+// ---- the f32 kernel (csrc/simt_f32.cuh) ----
+//
+// graph_attention_ln_f32_kernel, one block of WARPS warps per (head, 16
+// WARPS query rows, batch element), heads the fastest grid axis, in three
+// passes whose every sum is the first SIMT kernel's (above), in its order,
+// so the output is that kernel's bit for bit:
+// 1. Scores. Keys stream 64 a step through a two-stage cp.async ring of
+//    (K tile, key mask); a lane owns a 4 x 8 tile of S = Q K^T (tile_abt:
+//    one ascending-d FMA chain per score, the SIMT kernel's), masked and
+//    scaled into the block's score rows P (rows, ld) in shared memory.
+// 2. Weights (f32_weights). Each warp its 16 rows, four at a time, the 32
+//    lanes over the keys j = lane + 32 t as the SIMT kernel's warp a row:
+//    the row maximum, z = sum e, a = e / z g, the renorm's sum of |a| (l1)
+//    or a (sum_eps), the weights a / denom * qmask into P (zeros past Tk),
+//    the warp sums in the same butterfly. The divisions by z and denom go
+//    through their reciprocals (savqa_f32::div_rn), the same quotients.
+// 3. O = A V. V streams through the ring; per 64-key step a lane's 4 x
+//    (dh / 8) tile of the step's partial sum starts from 0 and sums its keys
+//    in order (tile_pv_rows), then adds to O: the SIMT kernel's chunk sums.
+// O goes to f32 scratch and graph_attention_ln_epilogue_kernel adds the
+// residual and runs the LayerNorm as the SIMT kernel's epilogue does (one
+// warp a row, the same sums), counted as one launch with it. The
+// attention-only entry runs the first kernel alone, so a model rank's
+// heads followed by savqa_attention_ln give one process's bits. 64 rows a
+// block up to 192 keys, 48 up to 320, 32 up to 512 (two blocks an SM at
+// head width 64 whatever the keys), 16 when Tq <= 16 (the decoder's one
+// query); no key split, whatever the head count. Shared memory: Qs (16
+// WARPS, DH) | two stages of (K or V (64, DH), key mask (64)) | P (16 WARPS,
+// ld), ld = 64 ceil(Tk / 64) + 8.
+__host__ __device__ constexpr int f32_ld(int tk) { return (tk + 63) / 64 * 64 + 8; }
+__host__ __device__ constexpr int f32_smem_floats(int dh, int rows, int tk) {
+  return rows * dh + 2 * (64 * dh + 64) + rows * f32_ld(tk);
+}
+
+// Pass 2 of graph_attention_ln_f32_kernel for a warp's 16 score rows of P
+// (from row wrow of the block, query row q0 + wrow), four at a time: lane l
+// holds keys l + 32 t (t < KT) of each, as the first SIMT kernel's warp a
+// row does, and forms the row maximum, e = exp(s - m), z = sum e (the lane's
+// keys in order, then the butterfly), a = e / z g, the renorm's sum of |a|
+// (l1) or a (sum_eps) alike, and the weights a / denom * qmask into P
+// (zeros from Tk to width). Four rows at a time overlap their loads and
+// their butterflies.
+template <int KT>
+__device__ __forceinline__ void f32_weights(float* P, int ld, const float* __restrict__ gb,
+                                            const float* __restrict__ qmb, int q0, int wrow,
+                                            int Tq, int Tk, int width, int renorm, int lane) {
+  for (int r0 = wrow; r0 < wrow + 16; r0 += 4) {
+    if (q0 + r0 >= Tq) break;
+    float x[4][KT], g[4][KT];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = min(q0 + r0 + i, Tq - 1);   // past Tq: a real row's, never stored
+      const float* gr = gb + (size_t)row * Tk;
+#pragma unroll
+      for (int t = 0; t < KT; ++t) {
+        const int j = lane + 32 * t;
+        x[i][t] = j < Tk ? P[(r0 + i) * ld + j] : -INFINITY;
+        g[i][t] = j < Tk ? gr[j] : 0.f;
+      }
+    }
+    float m[4], z[4], n[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int t = 0; t < KT; ++t) mx = fmaxf(mx, x[i][t]);
+      m[i] = warp_max(mx);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float zz = 0.f;
+#pragma unroll
+      for (int t = 0; t < KT; ++t) {
+        if (lane + 32 * t >= Tk) break;
+        x[i][t] = expf(x[i][t] - m[i]);
+        zz += x[i][t];
+      }
+      z[i] = warp_sum(zz);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float rz = 1.f / z[i];
+      float nn = 0.f;
+#pragma unroll
+      for (int t = 0; t < KT; ++t) {
+        if (lane + 32 * t >= Tk) break;
+        const float a = savqa_f32::div_rn(x[i][t], z[i], rz) * g[i][t];
+        x[i][t] = a;
+        nn += renorm == 0 ? fabsf(a) : a;
+      }
+      n[i] = warp_sum(nn);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + r0 + i;
+      if (row >= Tq) break;
+      const float denom = renorm == 0 ? fmaxf(n[i], kL1Eps) : n[i] + kSumEps;
+      const float rd = 1.f / denom;
+      const float qmr = qmb[row];
+      float* pr = P + (r0 + i) * ld;
+#pragma unroll
+      for (int t = 0; t < KT; ++t) {
+        const int j = lane + 32 * t;
+        if (j < Tk) pr[j] = savqa_f32::div_rn(x[i][t], denom, rd) * qmr;
+      }
+      for (int j = Tk + lane; j < width; j += 32) pr[j] = 0.f;   // the last step's tail
+    }
+  }
+}
+
+template <int DH, int WARPS>
+__global__ void __launch_bounds__(WARPS * 32, DH <= 64 ? 2 : 1)
+graph_attention_ln_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, const float* __restrict__ key_mask,
+                              const float* __restrict__ query_mask,
+                              const float* __restrict__ graph, float* __restrict__ o, int Tq,
+                              int Tk, int C, int dh, int renorm, float scale) {
+  namespace f32 = savqa_f32;
+  constexpr int kRows = 16 * WARPS;
+  constexpr int kThr = 32 * WARPS;
+  constexpr int kStageF = 64 * DH + 64;
+  extern __shared__ __align__(16) float smem_k1[];
+  float* Qs = smem_k1;
+  float* ring = Qs + kRows * DH;
+  float* P = ring + 2 * kStageF;
+  const int ld = f32_ld(Tk);
+
+  const int h = blockIdx.x;
+  const int q0 = blockIdx.y * kRows;
+  const int b = blockIdx.z;
+  const int c0 = h * dh;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int ly = lane >> 3, lx = lane & 7;
+  const int wrow = warp * 16;
+  const int n_steps = (Tk + kStep - 1) / kStep;
+  const bool active = q0 + wrow < Tq;   // this warp holds a real row
+  const float* kb = k + (size_t)b * Tk * C;
+  const float* vb = v + (size_t)b * Tk * C;
+  const float* km = key_mask + (size_t)b * Tk;
+
+  // one pass over the keys through the ring: the copies of step j + 1
+  // overlap body(j)
+  auto key_pass = [&](const float* src, bool with_mask, auto body) {
+    auto load = [&](int step) {
+      float* base = ring + (step & 1) * kStageF;
+      f32::stage_tile<DH, kThr>(base, src, step * kStep, Tk, kStep, C, c0, dh, true,
+                                f32::Swz<DH>());
+      if (with_mask)
+        for (int j = tid; j < kStep; j += kThr) {
+          const int key = step * kStep + j;
+          f32::cp_async4(base + kStep * DH + j, km + (key < Tk ? key : 0), key < Tk);
+        }
+    };
+    load(0);
+    cp_async_commit();
+    for (int step = 0; step < n_steps; ++step) {
+      cp_async_wait<0>();
+      __syncthreads();   // this step's tiles (and Q) have landed; the other stage is free
+      if (step + 1 < n_steps) load(step + 1);
+      cp_async_commit();
+      if (active) body(step, ring + (step & 1) * kStageF);
+    }
+    cp_async_wait<0>();
+  };
+
+  // 1. the masked, scaled scores into P
+  f32::stage_tile<DH, kThr>(Qs, q + (size_t)b * Tq * C, q0, Tq, kRows, C, c0, dh, true,
+                            f32::Swz<DH>());
+  key_pass(kb, true, [&](int step, const float* Ks) {
+    const float* kms = Ks + kStep * DH;
+    float s[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) s[i][c] = 0.f;
+    f32::tile_abt<DH, 8>(s, Qs, wrow, Ks, dh, ly, lx);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int j = lx + 8 * c;
+      const bool masked = kms[j] == 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        P[(wrow + ly + 4 * i) * ld + step * kStep + j] = masked ? kNegMask : s[i][c] * scale;
+    }
+  });
+
+  // 2. the weights (every warp reads and writes only its own rows of P)
+  if (active) {
+    __syncwarp();
+    const int nt = (Tk + 31) / 32;
+    const float* gb = graph + (size_t)b * Tq * Tk;
+    const float* qmb = query_mask + (size_t)b * Tq;
+    if (nt <= 4)
+      f32_weights<4>(P, ld, gb, qmb, q0, wrow, Tq, Tk, n_steps * kStep, renorm, lane);
+    else if (nt <= 8)
+      f32_weights<8>(P, ld, gb, qmb, q0, wrow, Tq, Tk, n_steps * kStep, renorm, lane);
+    else if (nt <= 10)   // the variants' 300 keys
+      f32_weights<10>(P, ld, gb, qmb, q0, wrow, Tq, Tk, n_steps * kStep, renorm, lane);
+    else
+      f32_weights<16>(P, ld, gb, qmb, q0, wrow, Tq, Tk, n_steps * kStep, renorm, lane);
+    __syncwarp();
+  }
+
+  // 3. O = A V, a partial sum a 64-key step added to O as the SIMT kernel adds them
+  float acc[4][DH / 8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < DH / 8; ++e) acc[i][e] = 0.f;
+  __syncthreads();   // every warp's readers of the K ring are done
+  key_pass(vb, false, [&](int step, const float* Vs) {
+    float part[4][DH / 8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < DH / 8; ++e) part[i][e] = 0.f;
+    f32::tile_pv_rows<DH, kStep>(part, P + wrow * ld + step * kStep, ld, Vs, ly, lx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < DH / 8; ++e) acc[i][e] = step == 0 ? part[i][e] : acc[i][e] + part[i][e];
+  });
+  if (!active) return;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + wrow + ly + 4 * i;
+    if (row >= Tq) continue;
+#pragma unroll
+    for (int g = 0; g < DH / 32; ++g) {
+      const int d = 4 * lx + 32 * g;
+      if (d >= dh) continue;
+      *reinterpret_cast<float4*>(o + ((size_t)b * Tq + row) * C + c0 + d) =
+          make_float4(acc[i][4 * g], acc[i][4 * g + 1], acc[i][4 * g + 2], acc[i][4 * g + 3]);
+    }
+  }
+}
+
+// o = the attention output (B, Tq, C) f32; with out, then out = LN(o +
+// residual) in f32.
+template <int DH, int WARPS>
+cudaError_t launch_f32_dh(const float* q, const float* k, const float* v, const float* key_mask,
+                          const float* query_mask, const float* graph, const float* residual,
+                          const float* gamma, const float* beta, float* out, float* o, int B,
+                          int Tq, int Tk, int C, int H, int renorm, float scale,
+                          cudaStream_t stream) {
+  constexpr int kRows = 16 * WARPS;
+  auto kernel = graph_attention_ln_f32_kernel<DH, WARPS>;
+  // once a process, for the most keys K1 takes: the one-query calls are
+  // short enough for the host's attribute calls to show
+  static const cudaError_t attributes =
+      savqa_f32::allow_smem(kernel, sizeof(float) * f32_smem_floats(DH, kRows, kMaxKeys));
+  if (attributes != cudaSuccess) return attributes;
+  const size_t smem = sizeof(float) * f32_smem_floats(DH, kRows, Tk);
+  const dim3 grid(H, (Tq + kRows - 1) / kRows, B);
+  kernel<<<grid, WARPS * 32, smem, stream>>>(q, k, v, key_mask, query_mask, graph, o, Tq, Tk, C,
+                                             C / H, renorm, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || out == nullptr) return err;   // no out: the attention output alone
+  graph_attention_ln_epilogue_kernel<float><<<(B * Tq + kWarps - 1) / kWarps, kThreads, 0,
+                                              stream>>>(o, residual, gamma, beta, out, B * Tq, C);
+  return cudaGetLastError();
+}
+
+template <int WARPS>
+cudaError_t launch_f32(const float* q, const float* k, const float* v, const float* key_mask,
+                       const float* query_mask, const float* graph, const float* residual,
+                       const float* gamma, const float* beta, float* out, float* o, int B,
+                       int Tq, int Tk, int C, int H, int renorm, float scale,
+                       cudaStream_t stream) {
+  const int dh = C / H;
+  auto run = dh <= 32 ? launch_f32_dh<32, WARPS> : dh <= 64 ? launch_f32_dh<64, WARPS>
+                                                            : launch_f32_dh<128, WARPS>;
+  return run(q, k, v, key_mask, query_mask, graph, residual, gamma, beta, out, o, B, Tq, Tk, C,
+             H, renorm, scale, stream);
+}
+
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* key_mask,
                    const float* query_mask, const float* graph, const void* residual,
@@ -569,21 +860,33 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* key
   return cudaGetLastError();
 }
 
+// Whether `path` cannot take this call (see savqa_graph_attention_ln).
+bool bad_path(int dtype, int Tk, int C, int H, int path, int q_tile, const void* o) {
+  const int dh = C / H;
+  if (path == 1) return dtype != 1 || dh % 16 != 0 || dh > 128 || o == nullptr;
+  if (path == 2)
+    return dtype != 0 || dh % 4 != 0 || dh > 128 || o == nullptr || Tk > kMaxKeys ||
+           (q_tile != 16 && q_tile != 32 && q_tile != 48 && q_tile != 64);
+  return path != 0;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. renorm: 0 = l1, 1 = sum_eps.
-// tensor_cores != 0 (bf16 with a head width that is a multiple of 16, at
-// most 128, only) takes the tensor-core kernels, which need o: (B, Tq, C)
-// f32 scratch; 0 the SIMT kernel (o unused, may be null). Returns
-// cudaGetLastError() after the launches (0 = success).
+// dtype: 0 = float32, 1 = bfloat16. renorm: 0 = l1, 1 = sum_eps. path: 0 =
+// the first SIMT kernel (o unused, may be null); 1 = the tensor-core kernels
+// (bf16 with a head width that is a multiple of 16, at most 128); 2 = the
+// f32 kernel (f32 with a head width that is a multiple of 4, at most 128,
+// and at most 512 keys; q_tile query rows a block: 16, 32, 48 or 64). Paths 1 and 2 need o: (B, Tq, C)
+// f32 scratch. Returns cudaGetLastError() after the launches (0 = success).
 extern "C" int savqa_graph_attention_ln(const void* q, const void* k, const void* v,
                                         const void* key_mask, const void* query_mask,
                                         const void* graph, const void* residual,
                                         const void* gamma, const void* beta, void* out, void* o,
                                         int B, int Tq, int Tk, int C, int H, int renorm,
-                                        int dtype, int tensor_cores, float scale, void* stream) {
+                                        int dtype, int path, int q_tile, float scale,
+                                        void* stream) {
   if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || C % H != 0 || (renorm != 0 && renorm != 1) ||
-      (tensor_cores && (dtype != 1 || (C / H) % 16 != 0 || C / H > 128 || o == nullptr)))
+      bad_path(dtype, Tk, C, H, path, q_tile, o))
     return (int)cudaErrorInvalidValue;
   const auto* km = static_cast<const float*>(key_mask);
   const auto* qm = static_cast<const float*>(query_mask);
@@ -591,13 +894,21 @@ extern "C" int savqa_graph_attention_ln(const void* q, const void* k, const void
   const auto* ga = static_cast<const float*>(gamma);
   const auto* be = static_cast<const float*>(beta);
   auto s = static_cast<cudaStream_t>(stream);
-  if (tensor_cores) {
+  if (path == 1) {
     const int dh = C / H;
     auto run = dh <= 16 ? launch_tc<16> : dh <= 32 ? launch_tc<32> : dh <= 64 ? launch_tc<64>
                                                                                : launch_tc<128>;
     return (int)run(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                     static_cast<const bf16*>(v), km, qm, g, static_cast<const bf16*>(residual),
                     ga, be, static_cast<bf16*>(out), static_cast<float*>(o), B, Tq, Tk, C, H,
+                    renorm, scale, s);
+  }
+  if (path == 2) {
+    auto run = q_tile == 16 ? launch_f32<1> : q_tile == 32 ? launch_f32<2>
+             : q_tile == 48 ? launch_f32<3> : launch_f32<4>;
+    return (int)run(static_cast<const float*>(q), static_cast<const float*>(k),
+                    static_cast<const float*>(v), km, qm, g, static_cast<const float*>(residual),
+                    ga, be, static_cast<float*>(out), static_cast<float*>(o), B, Tq, Tk, C, H,
                     renorm, scale, s);
   }
   if (dtype == 0)
@@ -612,27 +923,34 @@ extern "C" int savqa_graph_attention_ln(const void* q, const void* k, const void
 // The model axis (ops/fused_graph_attention.py:graph_attention_heads): the
 // attention output o (B, Tq, C) f32 of the H heads given, before any
 // residual or LayerNorm; C and H are this rank's columns and heads. The
-// tensor-core kernel alone, or the SIMT kernel writing o and skipping its
-// epilogue. The arguments otherwise as savqa_graph_attention_ln's.
+// first kernel of path 1 or 2 alone, or the SIMT kernel writing o and
+// skipping its epilogue. The arguments otherwise as savqa_graph_attention_ln's.
 extern "C" int savqa_graph_attention(const void* q, const void* k, const void* v,
                                      const void* key_mask, const void* query_mask,
                                      const void* graph, void* o, int B, int Tq, int Tk, int C,
-                                     int H, int renorm, int dtype, int tensor_cores, float scale,
-                                     void* stream) {
+                                     int H, int renorm, int dtype, int path, int q_tile,
+                                     float scale, void* stream) {
   if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || C % H != 0 || (renorm != 0 && renorm != 1) ||
-      o == nullptr || (tensor_cores && (dtype != 1 || (C / H) % 16 != 0 || C / H > 128)))
+      o == nullptr || bad_path(dtype, Tk, C, H, path, q_tile, o))
     return (int)cudaErrorInvalidValue;
   const auto* km = static_cast<const float*>(key_mask);
   const auto* qm = static_cast<const float*>(query_mask);
   const auto* g = static_cast<const float*>(graph);
   auto* of = static_cast<float*>(o);
   auto s = static_cast<cudaStream_t>(stream);
-  if (tensor_cores) {
+  if (path == 1) {
     const int dh = C / H;
     auto run = dh <= 16 ? launch_tc<16> : dh <= 32 ? launch_tc<32> : dh <= 64 ? launch_tc<64>
                                                                                : launch_tc<128>;
     return (int)run(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                     static_cast<const bf16*>(v), km, qm, g, nullptr, nullptr, nullptr, nullptr,
+                    of, B, Tq, Tk, C, H, renorm, scale, s);
+  }
+  if (path == 2) {
+    auto run = q_tile == 16 ? launch_f32<1> : q_tile == 32 ? launch_f32<2>
+             : q_tile == 48 ? launch_f32<3> : launch_f32<4>;
+    return (int)run(static_cast<const float*>(q), static_cast<const float*>(k),
+                    static_cast<const float*>(v), km, qm, g, nullptr, nullptr, nullptr, nullptr,
                     of, B, Tq, Tk, C, H, renorm, scale, s);
   }
   if (dtype == 0)

@@ -1,5 +1,6 @@
-// Register-tiled float32 building blocks of K4's f32 kernel
-// (flash_graph_attention.cu) and K2's f32 kernels (graph_attention_bwd.cu):
+// Register-tiled float32 building blocks of the f32 kernels of K1
+// (graph_attention.cu), K2 (graph_attention_bwd.cu), K4
+// (flash_graph_attention.cu) and K6 (flash_graph_attention_bwd.cu):
 // FFMA on the CUDA cores (TF32 would not hold the 1e-4 the f32 path is
 // checked to), operands staged by cp.async into swizzled shared tiles.
 //
@@ -157,6 +158,49 @@ __device__ __forceinline__ void tile_pv(float (&o)[R][DH / 8], const float* pt, 
       }
     }
   }
+}
+
+// o[i][4g + e] += sum_{n < N} P[ly + 4i][n] V[n][4 lx + 32 g + e], one FMA
+// chain per output in ascending n, as tile_pv, with the weights row-major:
+// P (4 R rows, ld floats a row; ld = 8 mod 32 keeps a lane group's four
+// rows in four banks), read a float at a time (the 8 lanes of one ly read
+// one word). V row-major (N, DH), swz.
+template <int DH, int N>
+__device__ __forceinline__ void tile_pv_rows(float (&o)[4][DH / 8], const float* P, int ld,
+                                             const float* V, int ly, int lx) {
+#pragma unroll 8
+  for (int n = 0; n < N; ++n) {
+    float pr[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) pr[i] = P[(ly + 4 * i) * ld + n];
+#pragma unroll
+    for (int g = 0; g < DH / 32; ++g) {
+      const float4 v = *reinterpret_cast<const float4*>(V + swz<DH>(n, 4 * lx + 32 * g));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        o[i][4 * g + 0] = fmaf(pr[i], v.x, o[i][4 * g + 0]);
+        o[i][4 * g + 1] = fmaf(pr[i], v.y, o[i][4 * g + 1]);
+        o[i][4 * g + 2] = fmaf(pr[i], v.z, o[i][4 * g + 2]);
+        o[i][4 * g + 3] = fmaf(pr[i], v.w, o[i][4 * g + 3]);
+      }
+    }
+  }
+}
+
+// a / b rounded to nearest, the IEEE quotient, from rb = 1 / b rounded to
+// nearest: q = a rb corrected twice by its residual a - b q, each an exact
+// FMA (Markstein's correction), where the division takes MUFU.RCP, its
+// refinement and a range check. Exact while a and the quotient are normal
+// numbers; a subnormal one (a term 2^-126 below its row's largest, which
+// no sum of normal terms it enters can see) may land an ulp away. K1's and
+// K6's f32 kernels divide every key's term of a row by that row's z and D
+// (scripts/k6_f32_variants.py compares it with the division).
+__device__ __forceinline__ float div_rn(float a, float b, float rb) {
+  float q = a * rb;
+  float r = fmaf(-b, q, a);
+  q = fmaf(r, rb, q);
+  r = fmaf(-b, q, a);
+  return fmaf(r, rb, q);
 }
 
 // Maximum over the 8 lanes of one ly.

@@ -6,9 +6,12 @@ that fails raises: nothing falls back to the plain version. K1, K2, K4's
 forward and its backward K5 and K6 each have two CUDA kernels, and
 :func:`kernel_path` says which one a call takes: the tensor cores for
 bfloat16 at head widths that are multiples of 16, else the CUDA cores
-("simt"). On the CUDA cores K2 and K4 in float32 run register-tiled
-kernels (``csrc/simt_f32.cuh``); bfloat16 at other head widths
-keeps their first SIMT kernels, as K1, K5 and K6 do in both dtypes.
+("simt"). On the CUDA cores K1, K2, K4 and K6 in float32 run
+register-tiled FFMA kernels (``csrc/simt_f32.cuh``): K1 at head widths
+that are multiples of 4 up to 128 (``fused_graph_attention.k1_path``; other
+f32 widths keep its first SIMT kernel), K6 at every width it takes
+(``flash_graph_attention.dkv_kernel``). bfloat16 at other head widths keeps
+the first SIMT kernels, and so does K5 in float32.
 """
 
 from __future__ import annotations

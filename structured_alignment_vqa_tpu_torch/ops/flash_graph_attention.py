@@ -44,9 +44,15 @@ kernel's shape: 64 query rows a block (16 when Tq <= 16), K, V, the graph
 tile and the key mask through a two-stage ``cp.async`` ring, a 4 x 8 tile
 of scores a lane, and a key split of four steps a shard when the blocks do
 not fill the card (:func:`f32_plan`); an unsplit call gives the first f32
-kernel's bits. bfloat16 at other head widths, and K5 and K6 in float32,
-keep the first SIMT kernels (f32 FMAs, no split). TF32 products would not
-hold the 1e-4 the float32 path is checked to.
+kernel's bits. K6 in float32 runs FFMA in the walk of K2's float32 dkv
+kernel: 64 keys a block (16 a warp), the query rows 32 a step with Q, dO,
+the graph tile and the rows' m, z, b, delta through a two-stage
+``cp.async`` ring, S^T and dN^T as 4 x 4 tiles a lane, dV and dK through
+the warp's transposed tile; it sums every score and every dK, dV entry in
+the first f32 kernel's order and gives its bits. bfloat16 at other head
+widths, and K5 in float32, keep the first SIMT kernels (f32 FMAs, no
+split). TF32 products would not hold the 1e-4 the float32 path is checked
+to (:func:`dkv_kernel` names K6's kernel for a call).
 """
 
 from __future__ import annotations
@@ -180,6 +186,31 @@ def smem_bytes_f32(head_dim: int, q_tile: int) -> int:
     width = next(w for w in (32, 64, 128) if head_dim <= w)
     stage = 2 * KEY_STEP * width + q_tile * KEY_STEP + KEY_STEP
     return 4 * (q_tile * width + 2 * stage)
+
+
+DKV_F32_KEYS = 64   # keys a block of K6's float32 kernel, 16 a warp
+DKV_F32_ROWS = 32   # query rows a step
+
+
+def dkv_kernel(dtype, head_dim: int) -> str:
+    """Which of K6's kernels a call takes: ``"tensor-core"`` (bfloat16 at
+    head widths that are multiples of 16), ``"f32"`` (the register-tiled
+    FFMA kernel, every float32 call) or ``"simt"`` (the first SIMT kernel:
+    bfloat16 at other head widths)."""
+    if kernel_path(dtype, head_dim) == "tensor-core":
+        return "tensor-core"
+    return "f32" if dtype == torch.float32 else "simt"
+
+
+def smem_bytes_dkv_f32(head_dim: int) -> int:
+    """Dynamic shared memory of one block of K6's float32 kernel (must
+    match ``dkv_f32_smem_floats`` in ``csrc/flash_graph_attention_bwd.cu``):
+    K and V (64 keys), the warps' transposed (32, 16) tiles, then two stages
+    of Q, dO (32 rows), the (32, 64) graph tile and the rows' m, z, b,
+    delta; head widths rounded up to 32, 64 or 128."""
+    width = next(w for w in (32, 64, 128) if head_dim <= w)
+    stage = 2 * DKV_F32_ROWS * width + DKV_F32_ROWS * DKV_F32_KEYS + 4 * DKV_F32_ROWS
+    return 4 * (2 * DKV_F32_KEYS * width + 4 * DKV_F32_ROWS * 16 + 2 * stage)
 
 
 def kernel_key_split(dtype, head_dim: int, batch: int, num_heads: int, tq: int,

@@ -20,13 +20,25 @@ kernels take Tq != Tk (the decoder's one-query cross-attention) and at most
 ``ops/flash_graph_attention.py``), which the attention modules call above
 that.
 
-K1 has two paths (``dispatch.kernel_path``). bfloat16 with a head width
-that is a multiple of 16 (at most ``MAX_HEAD_DIM``) runs on the tensor
-cores: a kernel per (head, 64 query rows, batch element) forms O = A V with
-``mma.sync`` on bf16 tiles into f32 scratch, and a second kernel adds the
-residual and runs the LayerNorm, counted as one launch. float32 and other
-head widths take the SIMT kernel, which keeps all heads of 16 rows in one
-block.
+K1 has three paths (:func:`k1_path`, by dtype and head width). bfloat16
+with a head width that is a multiple of 16 (at most ``MAX_HEAD_DIM``) runs
+on the tensor cores: a kernel per (head, 64 query rows, batch element)
+forms O = A V with ``mma.sync`` on bf16 tiles into f32 scratch, and a
+second kernel adds the residual and runs the LayerNorm, counted as one
+launch. float32 with a head width that is a multiple of 4 (at most
+``MAX_HEAD_DIM``) runs a register-tiled FFMA kernel in the same shape
+(``csrc/simt_f32.cuh``'s tiles; a block per head and 64, 48, 32 or 16 query
+rows, :func:`f32_plan`): the scores into shared memory, then a warp a row
+forms the weights in the first SIMT kernel's order, then O = A V in its
+chunk sums, into f32 scratch, then the same LayerNorm kernel. Every sum
+is the first SIMT kernel's in its order, so its output is that kernel's
+bit for bit, and the float32 checks that pair two paths (data parallel,
+the model axis, packing) see the bits they saw. Every other call
+(bfloat16 at other head widths, float32 at a head width that is no
+multiple of 4 or above 128) takes the first SIMT kernel, which keeps all
+heads of 16 rows in one block. None of the port's presets reaches it: the
+hidden 2,048 blocks of the MIL variants return their attention weights
+and so run ``attention_core``.
 
 K2 has two pairs of kernels (``dispatch.kernel_path``), each a rows launch
 (the forward recomputed, the LayerNorm backward, dQ and per-row constants)
@@ -51,8 +63,9 @@ float32 path's 1e-4 either).
 The model axis splits the heads over the model row; the LayerNorm needs
 every column, so it runs after the heads' outputs are gathered. Three more
 entries of the same kernels serve it: :func:`graph_attention_heads`, the
-f32 attention output ``o`` of the heads given (K1's tensor-core kernel
-alone, or its SIMT kernel writing ``o`` and skipping its epilogue), whose
+f32 attention output ``o`` of the heads given (the first kernel of K1's
+tensor-core or f32 path alone, or its SIMT kernel writing ``o`` and
+skipping its epilogue), whose
 backward is K2 from ``d(o)`` (the rows launch without the forward's output
 and the LayerNorm backward, then the keys launch); and
 :func:`attention_ln`, ``LN(o + residual)``, K1's epilogue kernel, whose
@@ -236,8 +249,62 @@ def graph_attention_bwd_plain(q, k, v, key_mask, query_mask, graph, do, num_head
     return _attention_bwd(f, do.to(q.dtype), q, renorm)
 
 
+K1_PATHS = ("simt", "tensor-core", "f32")   # the C entries' path argument
+
+
+def k1_path(dtype, head_dim: int) -> str:
+    """Which of K1's CUDA kernels a call takes: ``"tensor-core"`` for
+    bfloat16 at head widths that are multiples of 16 (``kernel_path``),
+    ``"f32"`` (the register-tiled FFMA kernel of ``csrc/simt_f32.cuh``) for
+    float32 at head widths that are multiples of 4 up to ``MAX_HEAD_DIM``,
+    else ``"simt"`` (the first SIMT kernel). A choice by shape, not a
+    fallback: a launch that fails raises."""
+    if kernel_path(dtype, head_dim) == "tensor-core":
+        return "tensor-core"
+    if dtype == torch.float32 and head_dim % 4 == 0 and head_dim <= MAX_HEAD_DIM:
+        return "f32"
+    return "simt"
+
+
+def f32_plan(batch: int, num_heads: int, tq: int, tk: int) -> tuple:
+    """``(q_tile, n_split, steps_per_split)`` of K1's float32 kernel: 64
+    query rows a block up to 192 keys, 48 up to 320, 32 up to 512 (the most
+    rows that leave two blocks an SM at head width 64 beside the score rows
+    of their keys), 16 when
+    ``tq <= 16``, and one shard of every 64-key step, whatever the batch and
+    the head count: a split sized by the head count would sum a model
+    rank's 4 heads otherwise than one process's 8."""
+    del batch, num_heads   # the plan does not depend on them
+    q_tile = 16 if tq <= 16 else 64 if tk <= 192 else 48 if tk <= 320 else 32
+    return q_tile, 1, -(-tk // KEY_CHUNK)
+
+
+def smem_bytes_f32(tq: int, tk: int, c: int, num_heads: int) -> int:
+    """Dynamic shared memory of one block of K1's float32 kernel (must match
+    ``f32_smem_floats`` in ``csrc/graph_attention.cu``): the Q tile, two
+    stages of a K or V tile (64 keys) and the key mask, and the score rows
+    (64 ceil(Tk / 64) + 8 floats a row); head widths rounded up to 32, 64
+    or 128."""
+    dh = c // num_heads
+    width = next(w for w in (32, 64, 128) if dh <= w)
+    rows = f32_plan(1, num_heads, tq, tk)[0]
+    ld = -(-tk // KEY_CHUNK) * KEY_CHUNK + 8
+    return 4 * (rows * width + 2 * (KEY_CHUNK * width + KEY_CHUNK) + rows * ld)
+
+
+def o_scratch(q, num_heads: int, path: "str | None" = None):
+    """The f32 (B, Tq, C) scratch of the attention output that K1's
+    tensor-core and float32 paths (``path``, by default :func:`k1_path`'s)
+    pass to their LayerNorm kernel, or None on the SIMT path, which keeps it
+    in shared memory."""
+    if (path or k1_path(q.dtype, q.shape[-1] // num_heads)) == "simt":
+        return None
+    return torch.empty(*q.shape, dtype=torch.float32, device=q.device)
+
+
 def smem_bytes(tq: int, tk: int, c: int, num_heads: int) -> int:
-    """Dynamic shared memory of one K1 block (must match the kernel's layout)."""
+    """Dynamic shared memory of one block of K1's first SIMT kernel (must
+    match the kernel's layout)."""
     rows = min(Q_TILE, tq)
     dh = c // num_heads
     return 4 * (rows * c + rows * tk + rows * dh + KEY_CHUNK * (dh + 1))
@@ -348,6 +415,8 @@ def _check(q, k, v, key_mask, query_mask, graph, residual, gamma, beta,
                          f"most {F32_MAX_C}, got {c // num_heads} and {c}")
     if dy is None and tensor_cores:
         need = smem_bytes_tc(tq, tk, c, num_heads)
+    elif dy is None and k1_path(q.dtype, c // num_heads) == "f32":
+        need = smem_bytes_f32(tq, tk, c, num_heads)
     elif dy is None:
         need = smem_bytes(tq, tk, c, num_heads)
     elif tensor_cores:
@@ -361,19 +430,20 @@ def _check(q, k, v, key_mask, query_mask, graph, residual, gamma, beta,
 
 
 def _launch(q, k, v, key_mask, query_mask, graph, residual, gamma, beta,
-            num_heads: int, renorm: str) -> torch.Tensor:
+            num_heads: int, renorm: str, path: "str | None" = None) -> torch.Tensor:
+    """K1's launch; ``path`` as :func:`_launch_heads`'s."""
     _check(q, k, v, key_mask, query_mask, graph, residual, gamma, beta, num_heads, renorm)
     lib = _build.library("graph_attention")
     fn = lib.savqa_graph_attention_ln
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
     b, tq, c = q.shape
     tk = k.shape[1]
-    tensor_cores = kernel_path(q.dtype, c // num_heads) == "tensor-core"
+    path = path or k1_path(q.dtype, c // num_heads)
     out = torch.empty_like(q)
-    # the tensor-core path's attention output, f32, before the residual and
-    # the LayerNorm (its second kernel's input)
-    o = torch.empty(b, tq, c, dtype=torch.float32, device=q.device) if tensor_cores else None
+    # the attention output, f32, before the residual and the LayerNorm (the
+    # second kernel's input on the tensor-core and f32 paths)
+    o = o_scratch(q, num_heads, path)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = fn(
@@ -382,7 +452,8 @@ def _launch(q, k, v, key_mask, query_mask, graph, residual, gamma, beta,
             gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
             None if o is None else o.data_ptr(),
             b, tq, tk, c, num_heads, RENORMS.index(renorm), _DTYPES[q.dtype],
-            int(tensor_cores), 1.0 / (c // num_heads) ** 0.5, stream,
+            K1_PATHS.index(path), f32_plan(b, num_heads, tq, tk)[0],
+            1.0 / (c // num_heads) ** 0.5, stream,
         )
     _build.check(status, "graph_attention_ln kernel")
     fused_graph_attention_ln.launches += 1
@@ -496,12 +567,16 @@ fused_graph_attention_ln.launches = 0
 # ---- the model axis ----------------------------------------------------------
 
 def _launch_heads(q, k, v, key_mask, query_mask, graph, num_heads: int,
-                  renorm: str) -> torch.Tensor:
+                  renorm: str, path: "str | None" = None) -> torch.Tensor:
+    """The attention-only entry's launch; ``path`` (one of ``K1_PATHS``)
+    runs a kernel other than :func:`k1_path`'s where it takes the shape:
+    "simt" takes every shape, which lets a check hold the f32 kernel to the
+    first SIMT kernel bit for bit."""
     _check(q, k, v, key_mask, query_mask, graph, None, None, None, num_heads, renorm)
     lib = _build.library("graph_attention")
     fn = lib.savqa_graph_attention
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
     b, tq, c = q.shape
     tk = k.shape[1]
     dh = c // num_heads
@@ -511,7 +586,8 @@ def _launch_heads(q, k, v, key_mask, query_mask, graph, num_heads: int,
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(),
                     query_mask.data_ptr(), graph.data_ptr(), o.data_ptr(), b, tq, tk, c,
                     num_heads, RENORMS.index(renorm), _DTYPES[q.dtype],
-                    int(kernel_path(q.dtype, dh) == "tensor-core"), 1.0 / dh ** 0.5, stream)
+                    K1_PATHS.index(path or k1_path(q.dtype, dh)),
+                    f32_plan(b, num_heads, tq, tk)[0], 1.0 / dh ** 0.5, stream)
     _build.check(status, "graph_attention kernel")
     graph_attention_heads.launches += 1
     return o

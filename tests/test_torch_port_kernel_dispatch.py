@@ -348,14 +348,147 @@ def test_k2_plain_rounds_nothing_in_f32(rng):
     (torch.bfloat16, 64, 128, "tensor-core", 4), (torch.bfloat16, 64, 1, "tensor-core", 1),
     (torch.bfloat16, 48, 66, "tensor-core", 4), (torch.bfloat16, 16, 16, "tensor-core", 1),
     (torch.bfloat16, 8, 66, "simt", 4), (torch.bfloat16, 40, 17, "simt", 4),
-    (torch.float32, 64, 128, "simt", 4),
+    (torch.float32, 64, 128, "f32", 4),
 ])
 def test_k1_kernel_path(dtype, head_dim, tq, want, warps):
     """K1 takes the tensor-core kernels in bf16 at head widths that are
-    multiples of 16; f32 and other widths keep the SIMT kernel. The decoder's
-    one query takes blocks of one warp."""
-    assert k1.kernel_path(dtype, head_dim) == want
+    multiples of 16 and the register-tiled f32 kernel in f32; other bf16
+    widths keep the SIMT kernel. The decoder's one query takes blocks of
+    one warp."""
+    assert k1.k1_path(dtype, head_dim) == want
     assert k1.tc_warps(tq) == warps
+
+
+@pytest.mark.parametrize("dtype,head_dim,want", [
+    (torch.float32, 4, "f32"), (torch.float32, 8, "f32"), (torch.float32, 36, "f32"),
+    (torch.float32, 128, "f32"), (torch.float32, 10, "simt"), (torch.float32, 132, "simt"),
+    (torch.float32, 256, "simt"), (torch.bfloat16, 128, "tensor-core"),
+    (torch.bfloat16, 12, "simt"),
+])
+def test_k1_path_by_head_width(dtype, head_dim, want):
+    """f32 takes the register-tiled kernel at head widths that are multiples
+    of 4 up to 128 (the tiles' float4 rows and register accumulators) and
+    the first SIMT kernel otherwise, e.g. hidden 2,048 over 8 heads (256);
+    the choice is the shape's, and bf16's is unchanged."""
+    assert k1.k1_path(dtype, head_dim) == want
+    if dtype == torch.bfloat16:
+        assert k1.k1_path(dtype, head_dim) == k1.kernel_path(dtype, head_dim)
+
+
+@pytest.mark.parametrize("c,heads,tq,tk,rows,blocks_an_sm", [
+    (512, 8, 128, 128, 64, 2), (512, 8, 66, 66, 64, 2), (512, 8, 1, 128, 16, 4),
+    (256, 4, 128, 128, 64, 2), (512, 8, 99, 192, 64, 2), (512, 8, 300, 300, 48, 2),
+    (512, 8, 50, 299, 48, 2), (512, 8, 512, 512, 32, 2), (512, 16, 66, 66, 64, 3),
+    (1024, 8, 16, 128, 16, 2), (1024, 8, 128, 512, 32, 1),
+])
+def test_k1_f32_shared_memory_and_scratch(c, heads, tq, tk, rows, blocks_an_sm):
+    """One block of K1's f32 kernel (the Q tile, two stages of a K or V tile
+    and the key mask, the score rows of 64 ceil(Tk / 64) + 8 floats) fits
+    the 227 KB a block may use; at the model's head width of 64 two blocks
+    share an SM at every key count (48 rows a block above 192 keys, 32 above
+    320), each
+    paying 1 KB of reserve. The attention output goes to an f32 (B, Tq, C)
+    scratch."""
+    need = k1.smem_bytes_f32(tq, tk, c, heads)
+    width = next(w for w in (32, 64, 128) if c // heads <= w)
+    ld = -(-tk // 64) * 64 + 8
+    assert need == 4 * (rows * width + 2 * (64 * width + 64) + rows * ld)
+    assert k1.f32_plan(2, heads, tq, tk)[0] == rows
+    assert blocks_an_sm * (need + 1024) <= k1.SMEM_LIMIT < (blocks_an_sm + 1) * (need + 1024)
+    q = torch.zeros(2, tq, c)
+    o = k1.o_scratch(q, heads)
+    assert o.dtype == torch.float32 and tuple(o.shape) == (2, tq, c)
+    bf16_path = k1.k1_path(torch.bfloat16, c // heads)
+    assert (k1.o_scratch(q.bfloat16(), heads) is None) == (bf16_path == "simt")
+    assert k1.o_scratch(torch.zeros(2, tq, 120), 12) is None    # head width 10: SIMT
+
+
+@pytest.mark.parametrize("tq", [1, 16, 17, 128])
+@pytest.mark.parametrize("tk", [1, 64, 192, 193, 320, 321, 512])
+def test_k1_f32_leaves_two_blocks_an_sm_at_head_width_64(tq, tk):
+    """Whatever the keys (up to 512) and the rows, two blocks of K1's f32
+    kernel share an SM at head width 64, which its launch bounds ask for."""
+    assert 2 * (k1.smem_bytes_f32(tq, tk, 512, 8) + 1024) <= k1.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("tq,tk", [(128, 128), (66, 66), (1, 128), (1, 300), (300, 300),
+                                   (50, 299), (512, 512)])
+@pytest.mark.parametrize("batch", [4, 64, 128])
+def test_k1_f32_plan_is_the_same_at_4_and_8_heads(batch, tq, tk):
+    """K1's f32 kernel takes no key split and its row tile follows the rows
+    and keys alone, so a model rank's 4 heads sum each head's keys as one
+    process's 8 heads do."""
+    plan = k1.f32_plan(batch, 8, tq, tk)
+    assert plan == k1.f32_plan(batch, 4, tq, tk) == k1.f32_plan(batch, 1, tq, tk)
+    assert plan == (16 if tq <= 16 else 64 if tk <= 192 else 48 if tk <= 320 else 32, 1,
+                    -(-tk // 64))
+
+
+@pytest.mark.parametrize("head_dim,blocks_an_sm", [
+    (16, 3), (32, 3), (48, 2), (64, 2), (96, 1), (128, 1),
+])
+def test_k6_f32_shared_memory_fits(head_dim, blocks_an_sm):
+    """One block of K6's f32 kernel (K and V of 64 keys, the warps'
+    transposed tiles, two stages of Q, dO, the graph tile and the rows' m,
+    z, b, delta) fits the 227 KB a block may use; its launch bounds ask for
+    two blocks an SM up to head width 64, which its shared memory leaves
+    (each block paying 1 KB of reserve), and one above."""
+    need = flash.smem_bytes_dkv_f32(head_dim)
+    assert blocks_an_sm * (need + 1024) <= k1.SMEM_LIMIT < (blocks_an_sm + 1) * (need + 1024)
+    assert flash.smem_bytes_dkv_f32(64) == 4 * (2 * 64 * 64 + 4 * 32 * 16
+                                                + 2 * (2 * 32 * 64 + 32 * 64 + 4 * 32))
+    assert flash.dkv_kernel(torch.float32, head_dim) == "f32"
+    assert flash.dkv_kernel(torch.bfloat16, head_dim) == flash.kernel_path(torch.bfloat16,
+                                                                           head_dim)
+
+
+def identity_inputs(rng, b, tq, tk, c):
+    """K1's attention inputs, float32: sample 0 has every key masked, the
+    last sample's row 0 an all-zero graph (no neighbour), some queries are
+    padding."""
+    xq = rng.standard_normal((b, tq, c)).astype(np.float32)
+    xk = rng.standard_normal((b, tk, c)).astype(np.float32)
+    q = np.maximum(xq * 0.5 + 0.1, 0).astype(np.float32)
+    k = np.maximum(xk * 0.3 - 0.05, 0).astype(np.float32)
+    v = np.maximum(xk, 0).astype(np.float32)
+    km = (rng.random((b, tk)) > 0.2).astype(np.float32)
+    km[0] = 0.0
+    qm = (rng.random((b, tq)) > 0.15).astype(np.float32)
+    graph = (rng.random((b, tq, tk)) > 0.4).astype(np.float32)
+    graph[-1, 0] = 0.0
+    return q, k, v, km, qm, graph
+
+
+K1_IDENTITY_TOL = 1e-6   # f32 sums in another order, of each output's largest magnitude
+K1_JAX_TOL = 1e-5        # the JAX package's own kernel tests' tolerance
+
+
+@pytest.mark.parametrize("renorm", k1.RENORMS)
+@pytest.mark.parametrize("tq,tk", [(9, 9), (130, 130), (1, 300), (50, 299), (3, 512)])
+def test_k1_attention_equals_k4_out_and_jax(rng, monkeypatch, tq, tk, renorm):
+    """K1's renorm of softmax x graph and K4's online form of it agree:
+    e g / max(b, 1e-12 z) (l1) or e g / (b + 1e-7 z) (sum_eps) with z = sum
+    e, b = sum e g (a graph that is not negative). K1's plain attention
+    equals K4's plain ``emit="out"`` within 1e-6 at up to 512 keys, both
+    renorms, a sample whose keys are all masked and a row with no
+    neighbour; at the self-attention shapes both equal the JAX package's
+    ``fused_graph_attention`` in interpret mode within 1e-5."""
+    import structured_alignment_vqa_tpu.ops.pallas_attention as pa
+
+    heads = 4
+    args = identity_inputs(rng, 2, tq, tk, 32)
+    t = [torch.from_numpy(a) for a in args]
+    got = k1.graph_attention_plain(*t, heads, renorm)
+    want = flash.flash_graph_attention_plain(*t, heads, renorm, "out")
+    close(got, want, "K1 against K4", K1_IDENTITY_TOL)
+    assert float(got[-1, 0].abs().max()) == 0.0                 # no neighbour: 0
+    assert float(got[0].abs().max()) > 0.0                     # all keys masked: uniform
+    if tq == tk:
+        monkeypatch.setattr(pa, "INTERPRET_MODE", True)
+        jax_out = pa.fused_graph_attention(*(jnp.asarray(a) for a in args), heads, renorm)
+        jax_out = torch.from_numpy(np.array(jax_out))
+        close(got, jax_out, "K1 against JAX", K1_JAX_TOL)
+        close(want, jax_out, "K4 against JAX", K1_JAX_TOL)
 
 
 def test_k1_tensor_core_shared_memory_leaves_four_blocks_an_sm():
