@@ -392,7 +392,6 @@ PREVIOUS_MS = {
     ("K2", "self L=128", torch.float32): 3.7098,
     ("K5", "self L=1536", torch.bfloat16): 1.8865,
     ("K5", "cross Tq=1 Lk=1536", torch.bfloat16): 0.2748,
-    ("K5", "self L=1536", torch.float32): 2.0625,
     ("K6", "self L=1536", torch.bfloat16): 2.4198,
     ("K6", "cross Tq=1 Lk=1536", torch.bfloat16): 0.1070,
     # K2's and K4's first f32 SIMT kernels, before their register-tiled
@@ -435,6 +434,18 @@ PREVIOUS_MS = {
     ("K6", "cross Tq=1 Lk=1536", torch.float32): 0.1159,
     ("K6", "odd Tq=200 Tk=700", torch.float32): 0.2364,
     ("K6", "ring shard", torch.float32): 0.8054,
+    ("K6", "ring shard Tq=768 Tk=768", torch.float32): 0.8054,
+    ("K6", "self L=1536 4 heads", torch.float32): 1.5819,
+    # K5's first f32 SIMT kernel, before its register-tiled redesign:
+    # scripts/k5_f32_times.py on that tree (the ring rotation also phase
+    # seq's "ring shard"), H100 80GB HBM3 at 700 W
+    ("K5", "self L=1536", torch.float32): 2.0580,
+    ("K5", "self L=1506+30", torch.float32): 2.0507,
+    ("K5", "cross Tq=1 Lk=1536", torch.float32): 0.2989,
+    ("K5", "odd Tq=200 Tk=700", torch.float32): 0.2300,
+    ("K5", "ring shard Tq=768 Tk=768", torch.float32): 0.6672,
+    ("K5", "ring shard", torch.float32): 0.6672,
+    ("K5", "self L=1536 4 heads", torch.float32): 1.3752,
 }
 
 failures: list = []
@@ -556,6 +567,25 @@ def k1_f32_bits(label: str, args) -> None:
               f"(max|f32 - SIMT| {(full - full_simt).abs().max().item():.3g})")
         check(torch.equal(full, ln), f"K1 {label} f32 {renorm}: the 8-head entry equals two "
               "4-head attention-only halves and the LayerNorm entry bit for bit")
+
+
+def k5_f32_bits(label: str, args, dy, heads: int) -> None:
+    """K5's f32 kernel on an unsplit call, both renorms: its dQ against the
+    first SIMT kernel's on the same inputs (the launch's "simt" path, which
+    takes every shape in one shard), bit for bit."""
+    from structured_alignment_vqa_tpu_torch.ops import flash_graph_attention as fl
+
+    q, k, v, key_mask, query_mask, graph = args
+    for renorm in ("l1", "sum_eps"):
+        out, m, z, bsum = fl.flash_graph_attention(*args, heads, renorm, "stats")
+        d_out, delta = fl.masked_grad_and_delta(out, dy, query_mask, heads)
+        bwd = (q, k, v, key_mask, graph, m, z, bsum, delta, d_out, heads, renorm)
+        got = fl.flash_bwd_dq(*bwd)
+        simt = fl._launch_dq(*bwd, path="simt")
+        torch.cuda.synchronize()
+        check(torch.equal(got, simt),
+              f"K5 {label} f32 {renorm}: equals the first SIMT kernel's dQ bit for bit "
+              f"(max|f32 - SIMT| {(got - simt).abs().max().item():.3g})")
 
 
 def k1_phase(gen) -> dict:
@@ -862,6 +892,11 @@ FLASH_SHAPES = (("self L=1536", REL_L, REL_L), ("self L=1506+30", REL_L, REL_L),
                 ("cross Tq=1 Lk=1536", 1, REL_L), ("odd Tq=200 Tk=700", 200, 700))
 # K4 only: two query tiles that do not fill the card, so the keys are split
 K4_SPLIT_SHAPE = ("split Tq=70 Tk=1536", 70, REL_L)
+# K5 and K6 in f32 only, (label, Tq, Tk, heads): a ring rank's 768 queries
+# against a 768-key block (phase seq's rotation), a model rank's 4 heads of
+# 64 (phase model)
+K56_F32_SHAPES = (("ring shard Tq=768 Tk=768", REL_L // 2, REL_L // 2, HEADS),
+                  ("self L=1536 4 heads", REL_L, REL_L, HEADS // 2))
 # bf16 shapes whose blocks do not fill the card: the key split and its merge
 # kernel must take them
 K4_SPLIT_LABELS = ("cross Tq=1 Lk=1536", "odd Tq=200 Tk=700", K4_SPLIT_SHAPE[0])
@@ -1067,35 +1102,52 @@ def k56_phase(gen) -> dict:
 
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
-        for label, tq, tk in FLASH_SHAPES:
-            args = flash_inputs(gen, label, tq, tk, dtype)
-            dy = torch.randn(REL_B, tq, C, generator=gen, device="cuda").to(dtype)
-            path = fl.kernel_path(dtype, C // HEADS)
+        shapes = tuple((label, tq, tk, HEADS) for label, tq, tk in FLASH_SHAPES)
+        for label, tq, tk, heads in shapes + (K56_F32_SHAPES if dtype == torch.float32 else ()):
+            args = flash_inputs(gen, label.split(" 4 heads")[0], tq, tk, dtype)
+            width = C * heads // HEADS   # a model rank's columns on 4 heads
+            args = tuple(t[..., :width].contiguous() for t in args[:3]) + args[3:]
+            dy = torch.randn(REL_B, tq, width, generator=gen, device="cuda").to(dtype)
+            path = fl.dq_kernel(dtype, C // HEADS)
             dkv_path = fl.dkv_kernel(dtype, C // HEADS)
-            n_split = fl.dq_key_split(dtype, C // HEADS, REL_B, HEADS, tq, tk)[0]
-            check(path == ("tensor-core" if dtype == torch.bfloat16 else "simt")
-                  and dkv_path == ("tensor-core" if dtype == torch.bfloat16 else "f32")
-                  and (n_split > 1) == (path == "tensor-core" and label in K4_SPLIT_LABELS),
+            n_split = fl.dq_key_split(dtype, C // HEADS, REL_B, heads, tq, tk)[0]
+            plan_split = (fl.dq_f32_plan(REL_B, heads, tq, tk)[1] if dtype == torch.float32
+                          else fl.key_split(REL_B, heads, tq, tk)[0])
+            kind = "tensor-core" if dtype == torch.bfloat16 else "f32"
+            check(path == kind and dkv_path == kind and n_split == plan_split
+                  and (n_split > 1) == (label in K4_SPLIT_LABELS),
                   f"K5/K6 {label} {dtype}: K5 takes the {path} kernel, its keys in {n_split} "
                   f"shard(s), K6 the {dkv_path} kernel")
-            errs, abs_errs, bwd = k56_against_plain(label, args, dy, HEADS)
+            errs, abs_errs, bwd = k56_against_plain(label, args, dy, heads)
+            if dtype == torch.float32 and n_split == 1:
+                k5_f32_bits(label, args, dy, heads)
             if dtype == torch.float32 and label == "self L=1536":
                 device_kernels_only(lambda: fl.flash_bwd_dkv(*bwd), f"K6 {label} {dtype}",
                                     ("flash_graph_attention_bwd_dkv_f32_kernel",),
                                     "csrc/flash_graph_attention_bwd.cu's K6 f32 kernel")
+                device_kernels_only(lambda: fl.flash_bwd_dq(*bwd), f"K5 {label} {dtype}",
+                                    ("flash_graph_attention_bwd_dq_f32_kernel",),
+                                    "csrc/flash_graph_attention_bwd.cu's K5 f32 kernel")
+            if dtype == torch.float32 and label == "cross Tq=1 Lk=1536":
+                device_kernels_only(lambda: fl.flash_bwd_dq(*bwd), f"K5 {label} {dtype}",
+                                    ("flash_graph_attention_bwd_dq_f32_kernel",
+                                     "flash_graph_attention_bwd_dq_sum_kernel"),
+                                    "csrc/flash_graph_attention_bwd.cu's K5 f32 and shard-sum "
+                                    "kernels")
             size = torch.finfo(dtype).bits // 8
-            stats_bytes = 4 * REL_B * (tq * tk + tk + 4 * HEADS * tq)
+            stats_bytes = 4 * REL_B * (tq * tk + tk + 4 * heads * tq)
             for key, fn, plain, n_products, nbytes in (
                 # K5 reads q, dO (Tq), k, v (Tk), writes dq (Tq); three products
                 ("K5", fl.flash_bwd_dq, fl.flash_bwd_dq_plain, 3,
-                 size * REL_B * C * (3 * tq + 2 * tk) + stats_bytes),
+                 size * REL_B * width * (3 * tq + 2 * tk) + stats_bytes),
                 # K6 reads the same, writes dk and dv (Tk); four products
                 ("K6", fl.flash_bwd_dkv, fl.flash_bwd_dkv_plain, 4,
-                 size * REL_B * C * (2 * tq + 4 * tk) + stats_bytes),
+                 size * REL_B * width * (2 * tq + 4 * tk) + stats_bytes),
             ):
                 ms = time_ms(lambda: fn(*bwd))
                 plain_ms = time_ms(lambda: plain(*bwd), iters=5)
-                bound_ms, bound_by = bound(nbytes, 2.0 * n_products * REL_B * tq * tk * C, dtype)
+                bound_ms, bound_by = bound(nbytes, 2.0 * n_products * REL_B * tq * tk * width,
+                                           dtype)
                 shards = f", {n_split} key shard(s)" if key == "K5" else ""
                 print(f"{key} {label} {dtype}: {path if key == 'K5' else dkv_path} "
                       f"kernel{shards}, {ms:.4f} ms"
@@ -4283,16 +4335,17 @@ KERNELS = (
 )
 
 
-# K1's, K2's, K4's and K6's float32 rows at the main path's shapes (their
-# register-tiled kernels)
+# K1's, K2's, K4's, K5's and K6's float32 rows at the main path's shapes
+# (their register-tiled kernels)
 def tol_f32(key: str) -> float:
-    return K2_TOL[torch.float32] if key in ("K2", "K6") else TOL[torch.float32]
+    return K2_TOL[torch.float32] if key in ("K2", "K5", "K6") else TOL[torch.float32]
 
 
 F32 = str(torch.float32)
 F32_MAIN = {"K1": ("k1", "self L=128" + F32, "f32 B=128 L=128 C=512 H=8"),
             "K2": ("k2", "self L=128" + F32, "f32 B=128 L=128 C=512 H=8"),
             "K4": ("k4", "self L=1536" + F32, "f32 B=4 L=1536 C=512 H=8"),
+            "K5": ("k56", "K5self L=1536" + F32, "f32 B=4 L=1536 C=512 H=8"),
             "K6": ("k56", "K6self L=1536" + F32, "f32 B=4 L=1536 C=512 H=8")}
 
 

@@ -135,14 +135,15 @@ def time_entries(lib, args, tq: int, tk: int) -> tuple:
     stream = torch.cuda.current_stream().cuda_stream
     shape = [B, tq, tk, C, HEADS, 0, 1]
     k5, k6 = lib.savqa_flash_graph_attention_bwd_dq, lib.savqa_flash_graph_attention_bwd_dkv
-    for fn, n_ptr, n_int in ((k5, 12, 9), (k6, 12, 7)):
+    for fn, n_ptr, n_int in ((k5, 12, 11), (k6, 12, 7)):
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_float,
                                                                             ctypes.c_void_p]
 
     def call_k5():
         _build.check(k5(*pointers, dq.data_ptr(), None if scratch is None else scratch.data_ptr(),
-                        *shape, n_split, per, 1.0 / dh ** 0.5, stream), "K5")
+                        *shape, fl.DQ_PATHS.index("tensor-core"), fl.TC_Q_TILE, n_split, per,
+                        1.0 / dh ** 0.5, stream), "K5")
 
     def call_k6():
         _build.check(k6(*pointers, dk.data_ptr(), dv.data_ptr(), *shape, 1.0 / dh ** 0.5,

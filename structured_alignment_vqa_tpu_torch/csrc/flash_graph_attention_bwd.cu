@@ -86,8 +86,8 @@
 //   decoder's one query into 1,536 keys: 32 blocks), by the rule K4 uses
 //   (ops/flash_graph_attention.py:key_split): block (h, q-tile x n_split +
 //   shard, b) walks its shard of the key steps and writes its f32 partial
-//   dQ to scratch; flash_graph_attention_bwd_dq_sum_kernel adds the shards
-//   in shard order and rounds to bf16. Partials of dQ simply add: no
+//   dQ to scratch; flash_graph_attention_bwd_dq_sum_kernel<bf16> adds the
+//   shards in shard order and rounds to bf16. Partials of dQ simply add: no
 //   rescaling, no atomics, the same bits every run.
 // * A head width of 48, 80, ... runs in the next instantiation (16, 32, 64,
 //   128) with its upper channels staged as zeros.
@@ -109,11 +109,30 @@
 // the first f32 kernel, so it gives that kernel's bits. Two blocks an SM up
 // to head width 64 (91,136 bytes of shared memory a block at 64).
 //
-// K5 in f32, and K5 and K6 in bf16 with a head width that is no multiple of
-// 16, take the first SIMT kernels below: blocks of 256 threads in a 16 x 16
-// grid, 64 x 64 score tiles computed from float4 reads of f32 tiles staged
-// in shared memory, every product a plain FMA on CUDA cores in f32 (dO, V,
-// K and Q are widened first, as the TPU kernels widen them).
+// K5 in f32 takes a register-tiled FFMA kernel in the walk of K2's f32 dq
+// kernel: one block of 4 warps per (head, 64 query rows, batch element),
+// one warp of 16 rows when Tq <= 16, heads the fastest grid axis; Q and dO
+// staged once; the keys 32 a step through a two-stage cp.async ring of (K,
+// V, the graph tile, the key mask). A lane owns a 4 x 4 tile of (row, key)
+// entries: S = Q K^T and dN = dO V^T by tile_abt, dS by ds_entry_rcp from
+// its rows' terms (formed once, in registers), then dQ += dS K through the
+// warp's transposed tile, written over its rows of the graph tile (store_t,
+// tile_pv). Each score is one ascending-d FMA chain and each dQ entry one
+// FMA chain over the keys in ascending order, as in the first f32 kernel:
+// an unsplit call gives its bits. Two blocks an SM up to head width 64
+// (82,176 bytes of shared memory a block at 64). When the blocks do not
+// fill the card (the decoder's one query into 1,536 keys: 32 one-warp
+// blocks) the key steps are cut into shards of four
+// (ops/flash_graph_attention.py:dq_f32_plan), each block writes its f32
+// partial dQ to scratch and flash_graph_attention_bwd_dq_sum_kernel<float>
+// adds them in shard order.
+//
+// K5 and K6 in bf16 with a head width that is no multiple of 16 take the
+// first SIMT kernels below, and so does K5 in f32 where its caller names
+// that path (a check holding the f32 kernel to it): blocks of 256 threads
+// in a 16 x 16 grid, 64 x 64 score tiles computed from float4 reads of f32
+// tiles staged in shared memory, every product a plain FMA on CUDA cores in
+// f32 (dO, V, K and Q are widened first, as the TPU kernels widen them).
 // * K5: one block per (batch, head, tile of 64 query rows), walking the keys
 //   64 at a time. Thread (ty, tx) owns rows 4 ty .. 4 ty + 3; it computes S
 //   and dN for keys tx + 16 c together, turns them into dS with its rows'
@@ -755,6 +774,218 @@ cudaError_t launch_dkv_f32(int dh, Args... args) {
   return launch_dkv_f32_dh<128>(args...);
 }
 
+// dQ = the sum of n_split f32 partials (n_split, n), added in shard order
+// and rounded to T; one thread an element (K5's key split, both kernels).
+template <typename T>
+__global__ void __launch_bounds__(256)
+flash_graph_attention_bwd_dq_sum_kernel(const float* __restrict__ dq_part, T* __restrict__ dq,
+                                        int n_split, size_t n) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float acc = dq_part[i];
+  for (int sp = 1; sp < n_split; ++sp) acc += dq_part[(size_t)sp * n + i];
+  dq[i] = from_float<T>(acc);
+}
+
+template <typename T>
+cudaError_t launch_dq_sum(const float* dq_part, T* dq, int n_split, size_t n,
+                          cudaStream_t stream) {
+  flash_graph_attention_bwd_dq_sum_kernel<T><<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      dq_part, dq, n_split, n);
+  return cudaGetLastError();
+}
+
+// ---- K5's f32 kernel (csrc/simt_f32.cuh) ----
+
+constexpr int kDqF32Step = 32;   // keys a step
+
+// Floats of one stage: Ks, Vs (32, DH), Gs (16 WARPS, 32), the key mask
+// (32); of a block: Qs, dOs (16 WARPS, DH), two stages.
+__host__ __device__ constexpr int dq_f32_stage_floats(int dh, int warps) {
+  return 2 * kDqF32Step * dh + 16 * warps * kDqF32Step + kDqF32Step;
+}
+__host__ __device__ constexpr int dq_f32_smem_floats(int dh, int warps) {
+  return 2 * 16 * warps * dh + 2 * dq_f32_stage_floats(dh, warps);
+}
+
+// dQ of (head blockIdx.x, query tile and key shard blockIdx.y = qt n_split
+// + sp, batch blockIdx.z): 16 WARPS query rows, Q and dO staged once, the
+// shard's keys 32 a step through a two-stage ring of (K, V, graph tile, key
+// mask). Per step a lane forms S and dN for its 4 x 4 (row, key) tile by
+// tile_abt, dS by ds_entry_rcp from its rows' terms (held in registers),
+// writes dS over its warp's rows of the graph tile, read by then, and adds
+// dS K through that transposed tile (store_t, tile_pv). With one shard it
+// writes dQ, else its f32 partial at shard sp of dq_part (n_split, B, Tq, C).
+template <int DH, int WARPS>
+__global__ void __launch_bounds__(WARPS * 32, WARPS == 4 && DH <= 64 ? 2 : 1)
+flash_graph_attention_bwd_dq_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ key_mask, const float* __restrict__ graph,
+    const float* __restrict__ m_in, const float* __restrict__ z_in,
+    const float* __restrict__ b_in, const float* __restrict__ delta,
+    const float* __restrict__ dout, float* __restrict__ dq, float* __restrict__ dq_part, int Tq,
+    int Tk, int C, int H, int dh, int renorm, float scale, int n_split, int steps_per_split) {
+  constexpr int kBQ = 16 * WARPS;
+  constexpr int kThr = 32 * WARPS;
+  constexpr int kStageF = dq_f32_stage_floats(DH, WARPS);
+  extern __shared__ __align__(16) float smem_dq[];
+  float* Qs = smem_dq;
+  float* dOs = Qs + kBQ * DH;
+  float* stages = dOs + kBQ * DH;
+
+  const int h = blockIdx.x;
+  const int qt = blockIdx.y / n_split;
+  const int sp = blockIdx.y - qt * n_split;
+  const int b = blockIdx.z;
+  const int q0 = qt * kBQ;
+  const int c0 = h * dh;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int ly = lane >> 3, lx = lane & 7;
+  const int wrow = warp * 16;
+  const int n_steps = (Tk + kDqF32Step - 1) / kDqF32Step;
+  const int step_lo = sp * steps_per_split;
+  const int step_hi = min(n_steps, step_lo + steps_per_split);
+  const bool active = q0 + wrow < Tq;   // this warp holds a real row
+  const bool gvec = (Tk & 3) == 0;        // the graph's rows are 16-byte aligned
+  const float* kb = k + (size_t)b * Tk * C;
+  const float* vb = v + (size_t)b * Tk * C;
+  const float* gb = graph + (size_t)b * Tq * Tk;
+  const float* km = key_mask + (size_t)b * Tk;
+
+  auto load_step = [&](int step) {
+    float* base = stages + ((step - step_lo) & 1) * kStageF;
+    const int j0 = step * kDqF32Step;
+    f32::stage_tile<DH, kThr>(base, kb, j0, Tk, kDqF32Step, C, c0, dh, true, f32::Swz<DH>());
+    f32::stage_tile<DH, kThr>(base + kDqF32Step * DH, vb, j0, Tk, kDqF32Step, C, c0, dh, true,
+                              f32::Swz<DH>());
+    f32::stage_tile<kDqF32Step, kThr>(base + 2 * kDqF32Step * DH, gb, q0, Tq, kBQ, Tk, j0,
+                                      Tk - j0, gvec, f32::GSwz<kDqF32Step>());
+    float* kms = base + 2 * kDqF32Step * DH + kBQ * kDqF32Step;
+    for (int j = tid; j < kDqF32Step; j += kThr)
+      savqa::cp_async4(kms + j, km + (j0 + j < Tk ? j0 + j : 0), j0 + j < Tk);
+  };
+  f32::stage_tile<DH, kThr>(Qs, q + (size_t)b * Tq * C, q0, Tq, kBQ, C, c0, dh, true,
+                            f32::Swz<DH>());
+  f32::stage_tile<DH, kThr>(dOs, dout + (size_t)b * Tq * C, q0, Tq, kBQ, C, c0, dh, true,
+                            f32::Swz<DH>());
+  load_step(step_lo);
+  savqa::cp_async_commit();
+
+  // the terms of the lane's rows ly + 4 i, as the first kernel forms them
+  RowTerms rt[4];
+  float rz[4], rd[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + wrow + ly + 4 * i;
+    if (row < Tq) {
+      const size_t at = ((size_t)b * H + h) * Tq + row;
+      rt[i] = row_terms(m_in[at], z_in[at], b_in[at], delta[at], renorm);
+    } else {
+      rt[i] = row_terms(0.f, 1.f, 1.f, 0.f, renorm);
+    }
+    rz[i] = 1.f / rt[i].z;
+    rd[i] = 1.f / rt[i].D;
+  }
+  float dqa[4][DH / 8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < DH / 8; ++e) dqa[i][e] = 0.f;
+
+  for (int step = step_lo; step < step_hi; ++step) {
+    savqa::cp_async_wait<0>();
+    __syncthreads();   // this step's tiles (and Q, dO) have landed; the other stage is free
+    if (step + 1 < step_hi) load_step(step + 1);
+    savqa::cp_async_commit();
+    if (!active) continue;
+    float* base = stages + ((step - step_lo) & 1) * kStageF;
+    const float* Ks = base;
+    const float* Vs = base + kDqF32Step * DH;
+    float* Gs = base + 2 * kDqF32Step * DH;
+    const float* kms = Gs + kBQ * kDqF32Step;
+    float s[4][4], dn[4][4];   // [row ly + 4 i][key lx + 8 c]
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[i][c] = dn[i][c] = 0.f;
+    f32::tile_abt<DH, 4>(s, Qs, wrow, Ks, dh, ly, lx);     // S = Q K^T
+    f32::tile_abt<DH, 4>(dn, dOs, wrow, Vs, dh, ly, lx);   // dN = dO V^T
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int j = lx + 8 * c;
+      const bool masked = kms[j] == 0.f;   // 0 past Tk
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float n, ds;
+        ds_entry_rcp(s[i][c], dn[i][c], Gs[f32::gswz<kDqF32Step>(wrow + ly + 4 * i, j)], masked,
+                     rt[i], rz[i], rd[i], scale, &n, &ds);
+        s[i][c] = ds;
+      }
+    }
+    __syncwarp();   // every lane has read its graph entries: the warp's rows take dS
+    float* pt = Gs + wrow * kDqF32Step;
+    f32::store_t<4>(pt, s, ly, lx);
+    __syncwarp();
+    f32::tile_pv<DH, kDqF32Step>(dqa, pt, Ks, ly, lx);   // dQ += dS K
+  }
+  savqa::cp_async_wait<0>();
+  if (!active) return;
+  float* out = n_split > 1 ? dq_part + (size_t)sp * gridDim.z * Tq * C : dq;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + wrow + ly + 4 * i;
+    if (row >= Tq) continue;
+#pragma unroll
+    for (int g = 0; g < DH / 32; ++g) {
+      const int d = 4 * lx + 32 * g;
+      if (d >= dh) continue;
+      const float* a4 = dqa[i] + 4 * g;
+      *reinterpret_cast<float4*>(out + ((size_t)b * Tq + row) * C + c0 + d) =
+          make_float4(a4[0], a4[1], a4[2], a4[3]);
+    }
+  }
+}
+
+struct DqF32Args {
+  const float *q, *k, *v, *key_mask, *graph, *m, *z, *b, *delta, *dout;
+  float *dq, *scratch;
+  int B, Tq, Tk, C, H, renorm, n_split, steps_per_split;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <int DH, int WARPS>
+cudaError_t launch_dq_f32_dh(const DqF32Args& p) {
+  const size_t smem = sizeof(float) * dq_f32_smem_floats(DH, WARPS);
+  auto kernel = flash_graph_attention_bwd_dq_f32_kernel<DH, WARPS>;
+  // once a process, as K6's f32 kernel
+  static const cudaError_t attributes = f32::allow_smem(kernel, smem);
+  if (attributes != cudaSuccess) return attributes;
+  const dim3 grid(p.H, (p.Tq + 16 * WARPS - 1) / (16 * WARPS) * p.n_split, p.B);
+  kernel<<<grid, 32 * WARPS, smem, p.stream>>>(p.q, p.k, p.v, p.key_mask, p.graph, p.m, p.z,
+                                               p.b, p.delta, p.dout, p.dq, p.scratch, p.Tq, p.Tk,
+                                               p.C, p.H, p.C / p.H, p.renorm, p.scale, p.n_split,
+                                               p.steps_per_split);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || p.n_split == 1) return err;
+  return launch_dq_sum<float>(p.scratch, p.dq, p.n_split, (size_t)p.B * p.Tq * p.C, p.stream);
+}
+
+// 16 query rows (one warp) a block when q_tile is 16, else 64 (four).
+cudaError_t launch_dq_f32(const DqF32Args& p, int q_tile) {
+  const int dh = p.C / p.H;
+  if (q_tile == 16) {
+    if (dh <= 32) return launch_dq_f32_dh<32, 1>(p);
+    if (dh <= 64) return launch_dq_f32_dh<64, 1>(p);
+    return launch_dq_f32_dh<128, 1>(p);
+  }
+  if (dh <= 32) return launch_dq_f32_dh<32, 4>(p);
+  if (dh <= 64) return launch_dq_f32_dh<64, 4>(p);
+  return launch_dq_f32_dh<128, 4>(p);
+}
+
 // ---- the tensor-core kernels (bf16, head width a multiple of 16) ----
 
 using bf16 = __nv_bfloat16;
@@ -1160,18 +1391,6 @@ flash_graph_attention_bwd_dq_tc_kernel(
   }
 }
 
-// dQ = the sum of n_split f32 partials (n_split, n), added in shard order
-// and rounded to bf16; one thread an element.
-__global__ void __launch_bounds__(256)
-flash_graph_attention_bwd_dq_sum_kernel(const float* __restrict__ dq_part, bf16* __restrict__ dq,
-                                        int n_split, size_t n) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float acc = dq_part[i];
-  for (int sp = 1; sp < n_split; ++sp) acc += dq_part[(size_t)sp * n + i];
-  dq[i] = __float2bfloat16_rn(acc);
-}
-
 struct TcArgs {
   const bf16 *q, *k, *v, *dout;
   const float *key_mask, *graph, *m, *z, *b, *delta;
@@ -1208,10 +1427,7 @@ cudaError_t launch_dq_tc(const TcArgs& p) {
                                                p.steps_per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess || p.n_split == 1) return err;
-  const size_t n = (size_t)p.B * p.Tq * p.C;
-  flash_graph_attention_bwd_dq_sum_kernel<<<(unsigned)((n + 255) / 256), 256, 0, p.stream>>>(
-      p.scratch, p.dq, p.n_split, n);
-  return cudaGetLastError();
+  return launch_dq_sum<bf16>(p.scratch, p.dq, p.n_split, (size_t)p.B * p.Tq * p.C, p.stream);
 }
 
 cudaError_t launch_dkv_tc_dh(const TcArgs& p) {
@@ -1237,26 +1453,42 @@ bool bad_shape(int B, int Tq, int Tk, int C, int H, int renorm) {
 
 bool tensor_cores(int dtype, int C, int H) { return dtype == 1 && (C / H) % 16 == 0; }
 
+// Whether K5's `path` cannot take this call (see savqa_flash_graph_attention_bwd_dq).
+bool bad_dq_path(int dtype, int Tk, int C, int H, int path, int q_tile, int n_split,
+                 int steps_per_split, const void* scratch) {
+  if (path == 0) return n_split != 1 || (dtype != 0 && dtype != 1);
+  if (path == 1 && !tensor_cores(dtype, C, H)) return true;
+  if (path == 2 && (dtype != 0 || (q_tile != 16 && q_tile != 64))) return true;
+  if (path != 1 && path != 2) return true;
+  const int step = path == 1 ? kTile : kDqF32Step;
+  const int n_steps = (Tk + step - 1) / step;
+  return n_split < 1 || steps_per_split < 1 || (n_split - 1) * steps_per_split >= n_steps ||
+         n_split * steps_per_split < n_steps || (n_split > 1 && scratch == nullptr);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. renorm: 0 = l1, 1 = sum_eps.
 // q, dout, dq (B, Tq, C) and k, v, dk, dv (B, Tk, C) in that type; key_mask
 // (B, Tk), graph (B, Tq, Tk), m, z, b, delta (B, H, Tq) f32. The head width
-// C / H must be a multiple of 4 and at most 128. bf16 with a head width
-// that is a multiple of 16 takes the tensor-core kernels; K6 in f32 its
-// register-tiled kernel; every other call the SIMT kernels. Each returns
+// C / H must be a multiple of 4 and at most 128. Each returns
 // cudaGetLastError() after its launches.
 //
-// K5 on the tensor cores splits the key steps (64 keys each) into n_split
+// K5's path: 0 = the first SIMT kernel (either type, one shard); 1 = the
+// tensor-core kernel (bf16 with a head width that is a multiple of 16); 2 =
+// the f32 kernel (f32, q_tile = 16 or 64 query rows a block). Paths 1 and 2
+// split the key steps (64 keys each on path 1, 32 on path 2) into n_split
 // shards of steps_per_split steps, none of them empty; with n_split > 1
-// scratch (n_split, B, Tq, C) f32 holds the partials between its two
-// launches. The SIMT kernel has no split (n_split must be 1).
+// scratch (n_split, B, Tq, C) f32 holds the partials between their two
+// launches. q_tile is read on path 2 only.
 extern "C" int savqa_flash_graph_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* key_mask, const void* graph,
     const void* m_in, const void* z_in, const void* b_in, const void* delta, const void* dout,
     void* dq, void* scratch, int B, int Tq, int Tk, int C, int H, int renorm, int dtype,
-    int n_split, int steps_per_split, float scale, void* stream) {
-  if (bad_shape(B, Tq, Tk, C, H, renorm) || n_split < 1) return (int)cudaErrorInvalidValue;
+    int path, int q_tile, int n_split, int steps_per_split, float scale, void* stream) {
+  if (bad_shape(B, Tq, Tk, C, H, renorm) ||
+      bad_dq_path(dtype, Tk, C, H, path, q_tile, n_split, steps_per_split, scratch))
+    return (int)cudaErrorInvalidValue;
   const auto* km = static_cast<const float*>(key_mask);
   const auto* g = static_cast<const float*>(graph);
   const auto* mi = static_cast<const float*>(m_in);
@@ -1264,11 +1496,7 @@ extern "C" int savqa_flash_graph_attention_bwd_dq(
   const auto* bi = static_cast<const float*>(b_in);
   const auto* de = static_cast<const float*>(delta);
   auto s = static_cast<cudaStream_t>(stream);
-  if (tensor_cores(dtype, C, H)) {
-    const int n_steps = (Tk + kTile - 1) / kTile;
-    if (steps_per_split < 1 || (n_split - 1) * steps_per_split >= n_steps ||
-        n_split * steps_per_split < n_steps || (n_split > 1 && scratch == nullptr))
-      return (int)cudaErrorInvalidValue;
+  if (path == 1) {
     const TcArgs p{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                    static_cast<const bf16*>(v), static_cast<const bf16*>(dout), km, g, mi, zi,
                    bi, de, static_cast<bf16*>(dq), nullptr, nullptr,
@@ -1276,16 +1504,23 @@ extern "C" int savqa_flash_graph_attention_bwd_dq(
                    steps_per_split, scale, s};
     return (int)launch_dq_tc_dh(p);
   }
-  if (n_split != 1) return (int)cudaErrorInvalidValue;
+  if (path == 2) {
+    const DqF32Args p{static_cast<const float*>(q), static_cast<const float*>(k),
+                      static_cast<const float*>(v), km, g, mi, zi, bi, de,
+                      static_cast<const float*>(dout), static_cast<float*>(dq),
+                      static_cast<float*>(scratch), B, Tq, Tk, C, H, renorm, n_split,
+                      steps_per_split, scale, s};
+    return (int)launch_dq_f32(p, q_tile);
+  }
   if (dtype == 0)
     return (int)launch_dq<float>(C / H, q, k, v, km, g, mi, zi, bi, de, dout, dq, B, Tq, Tk, C,
                                  H, renorm, scale, s);
-  if (dtype == 1)
-    return (int)launch_dq<__nv_bfloat16>(C / H, q, k, v, km, g, mi, zi, bi, de, dout, dq, B, Tq,
-                                         Tk, C, H, renorm, scale, s);
-  return (int)cudaErrorInvalidValue;
+  return (int)launch_dq<__nv_bfloat16>(C / H, q, k, v, km, g, mi, zi, bi, de, dout, dq, B, Tq,
+                                       Tk, C, H, renorm, scale, s);
 }
 
+// K6: bf16 with a head width that is a multiple of 16 takes the tensor-core
+// kernel, f32 its register-tiled kernel, bf16 at other widths the SIMT kernel.
 extern "C" int savqa_flash_graph_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* key_mask, const void* graph,
     const void* m_in, const void* z_in, const void* b_in, const void* delta, const void* dout,

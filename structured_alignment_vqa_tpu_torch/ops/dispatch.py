@@ -6,12 +6,12 @@ that fails raises: nothing falls back to the plain version. K1, K2, K4's
 forward and its backward K5 and K6 each have two CUDA kernels, and
 :func:`kernel_path` says which one a call takes: the tensor cores for
 bfloat16 at head widths that are multiples of 16, else the CUDA cores
-("simt"). On the CUDA cores K1, K2, K4 and K6 in float32 run
+("simt"). On the CUDA cores K1, K2, K4, K5 and K6 in float32 run
 register-tiled FFMA kernels (``csrc/simt_f32.cuh``): K1 at head widths
 that are multiples of 4 up to 128 (``fused_graph_attention.k1_path``; other
-f32 widths keep its first SIMT kernel), K6 at every width it takes
-(``flash_graph_attention.dkv_kernel``). bfloat16 at other head widths keeps
-the first SIMT kernels, and so does K5 in float32.
+f32 widths keep its first SIMT kernel), K5 and K6 at every width they take
+(``flash_graph_attention.dq_kernel`` and ``dkv_kernel``). bfloat16 at other
+head widths keeps the first SIMT kernels.
 """
 
 from __future__ import annotations
@@ -35,7 +35,8 @@ def use_kernel(x: torch.Tensor) -> bool:
 def kernel_path(dtype, head_dim: int) -> str:
     """Which of its CUDA kernels K1, K2, K4, K5 or K6 takes: ``"tensor-core"``
     (``mma.sync`` on bf16 tiles) for bfloat16 with a head width that is a
-    multiple of 16, else ``"simt"`` (f32 FMAs): TF32 products would not hold
+    multiple of 16, else ``"simt"`` (f32 FMAs on the CUDA cores, in float32
+    the register-tiled kernels named above): TF32 products would not hold
     the 1e-4 the float32 path is checked to."""
     return "tensor-core" if dtype == torch.bfloat16 and head_dim % 16 == 0 else "simt"
 

@@ -49,10 +49,18 @@ kernel: 64 keys a block (16 a warp), the query rows 32 a step with Q, dO,
 the graph tile and the rows' m, z, b, delta through a two-stage
 ``cp.async`` ring, S^T and dN^T as 4 x 4 tiles a lane, dV and dK through
 the warp's transposed tile; it sums every score and every dK, dV entry in
-the first f32 kernel's order and gives its bits. bfloat16 at other head
-widths, and K5 in float32, keep the first SIMT kernels (f32 FMAs, no
-split). TF32 products would not hold the 1e-4 the float32 path is checked
-to (:func:`dkv_kernel` names K6's kernel for a call).
+the first f32 kernel's order and gives its bits. K5 in float32 runs FFMA
+in the walk of K2's float32 dq kernel: 64 query rows a block (16 when Tq <=
+16), Q and dO staged once, the keys 32 a step with K, V, the graph tile and
+the key mask through a two-stage ``cp.async`` ring, S and dN as 4 x 4
+tiles a lane, dQ through the warp's transposed tile; when the blocks do
+not fill the card its keys split into shards of four steps
+(:func:`dq_f32_plan`) whose f32 partials the shard-sum kernel adds. An
+unsplit call sums every score and every dQ entry in the first f32 kernel's
+order and gives its bits. bfloat16 at other head widths keeps the first
+SIMT kernels (f32 FMAs, no split). TF32 products would not hold the 1e-4
+the float32 path is checked to (:func:`dq_kernel` and :func:`dkv_kernel`
+name K5's and K6's kernel for a call).
 """
 
 from __future__ import annotations
@@ -213,6 +221,47 @@ def smem_bytes_dkv_f32(head_dim: int) -> int:
     return 4 * (2 * DKV_F32_KEYS * width + 4 * DKV_F32_ROWS * 16 + 2 * stage)
 
 
+DQ_PATHS = ("simt", "tensor-core", "f32")   # the C entry's path argument (K5)
+DQ_F32_STEP = 32    # keys a step of K5's float32 kernel
+SIMT_Q_TILE = 64    # query rows a block of the first SIMT kernels
+
+
+def dq_kernel(dtype, head_dim: int) -> str:
+    """Which of K5's kernels a call takes: ``"tensor-core"`` (bfloat16 at
+    head widths that are multiples of 16), ``"f32"`` (the register-tiled
+    FFMA kernel, every float32 call) or ``"simt"`` (the first SIMT kernel:
+    bfloat16 at other head widths)."""
+    return dkv_kernel(dtype, head_dim)
+
+
+def dq_f32_plan(batch: int, num_heads: int, tq: int, tk: int) -> tuple:
+    """``(q_tile, n_split, steps_per_split)`` of K5's float32 kernel, a pure
+    function of the shapes: 64 query rows a block (4 warps; 16 rows, one
+    warp, when ``tq <= 16``), and when the (head, query tile, batch) blocks
+    do not cover the card's 132 SMs the ``ceil(tk / 32)`` key steps cut into
+    shards of ``F32_SPLIT_STEPS`` steps (fewer steps: one shard of them
+    all). The shards do not depend on the head count, so a model rank's 4
+    heads sum each head's keys as one process's 8 heads do."""
+    q_tile = 16 if tq <= 16 else 64
+    blocks = batch * num_heads * -(-tq // q_tile)
+    steps = -(-tk // DQ_F32_STEP)
+    if blocks >= SM_COUNT:
+        return q_tile, 1, steps
+    per = min(F32_SPLIT_STEPS, steps)
+    return q_tile, -(-steps // per), per
+
+
+def smem_bytes_dq_f32(head_dim: int, q_tile: int) -> int:
+    """Dynamic shared memory of one block of K5's float32 kernel (must
+    match ``dq_f32_smem_floats`` in ``csrc/flash_graph_attention_bwd.cu``):
+    Q and dO (q_tile rows), then two stages of K, V (32 keys), the
+    (q_tile, 32) graph tile and the key mask; head widths rounded up to 32,
+    64 or 128."""
+    width = next(w for w in (32, 64, 128) if head_dim <= w)
+    stage = 2 * DQ_F32_STEP * width + q_tile * DQ_F32_STEP + DQ_F32_STEP
+    return 4 * (2 * q_tile * width + 2 * stage)
+
+
 def kernel_key_split(dtype, head_dim: int, batch: int, num_heads: int, tq: int,
                      tk: int) -> tuple:
     """``(n_split, steps_per_split)`` a K4 call takes: :func:`f32_plan`'s on
@@ -226,10 +275,19 @@ def dq_key_split(dtype, head_dim: int, batch: int, num_heads: int, tq: int,
                  tk: int) -> tuple:
     """``(n_split, steps_per_split)`` a K5 call takes: :func:`key_split` on
     the tensor-core kernel (its blocks and steps are K4's: 64 query rows, 64
-    keys), one shard of every step on the SIMT kernel."""
-    if kernel_path(dtype, head_dim) == "tensor-core":
-        return key_split(batch, num_heads, tq, tk)
-    return 1, -(-tk // KEY_STEP)
+    keys), :func:`dq_f32_plan`'s on the float32 kernel (steps of 32 keys),
+    one shard of every 64-key step on the SIMT kernel."""
+    return _dq_plan(dq_kernel(dtype, head_dim), batch, num_heads, tq, tk)[1:3]
+
+
+def _dq_plan(path: str, batch: int, num_heads: int, tq: int, tk: int) -> tuple:
+    """``(q_tile, n_split, steps_per_split, keys a step)`` of K5's kernel
+    ``path`` (one of ``DQ_PATHS``) at these shapes."""
+    if path == "f32":
+        return (*dq_f32_plan(batch, num_heads, tq, tk), DQ_F32_STEP)
+    if path == "tensor-core":
+        return (TC_Q_TILE, *key_split(batch, num_heads, tq, tk), KEY_STEP)
+    return SIMT_Q_TILE, 1, -(-tk // KEY_STEP), KEY_STEP
 
 
 def masked_grad_and_delta(out, dy, query_mask, num_heads: int):
@@ -411,11 +469,12 @@ def _call_backward(entry: str, outs: list, ints: list, q, k, v, key_mask, graph,
     _build.check(status, f"{entry} kernel")
 
 
-def _check_dq_scratch(scratch, n_split: int, per: int, q, tk: int) -> None:
+def _check_dq_scratch(scratch, n_split: int, per: int, q, tk: int,
+                      step: int = KEY_STEP) -> None:
     """What K5's launch needs of its split: shards that cover the key steps
-    with none empty, and with more than one shard an f32 scratch of
-    (n_split, B, Tq, C) on q's device for the partials."""
-    steps = -(-tk // KEY_STEP)
+    (of ``step`` keys) with none empty, and with more than one shard an f32
+    scratch of (n_split, B, Tq, C) on q's device for the partials."""
+    steps = -(-tk // step)
     if n_split < 1 or per < 1 or not (n_split - 1) * per < steps <= n_split * per:
         raise ValueError(f"{n_split} shard(s) of {per} step(s) do not cover {steps} key steps")
     if n_split == 1:
@@ -436,23 +495,35 @@ def flash_bwd_dq(q, k, v, key_mask, graph, m, z, bsum, delta, d_out, num_heads: 
     if not use_kernel(q):
         return flash_bwd_dq_plain(q, k, v, key_mask, graph, m, z, bsum, delta, d_out,
                                   num_heads, renorm)
-    args = (q, k, v, key_mask, graph, m, z, bsum, delta, d_out, num_heads, renorm)
-    _check(q, k, v, key_mask, graph, num_heads, renorm,
-           {"m": m, "z": z, "b": bsum, "delta": delta, "d_out": d_out})
-    b, tq, c = q.shape
-    tk = k.shape[1]
-    n_split, per = dq_key_split(q.dtype, c // num_heads, b, num_heads, tq, tk)
-    scratch = None   # the shards' f32 partial dQ between the two kernels
-    if n_split > 1:
-        scratch = torch.empty(n_split, b, tq, c, dtype=torch.float32, device=q.device)
-    _check_dq_scratch(scratch, n_split, per, q, tk)
-    dq = torch.empty_like(q)
-    _call_backward("savqa_flash_graph_attention_bwd_dq", [dq, scratch], [n_split, per], *args)
+    dq = _launch_dq(q, k, v, key_mask, graph, m, z, bsum, delta, d_out, num_heads, renorm)
     flash_bwd_dq.launches += 1
     return dq
 
 
 flash_bwd_dq.launches = 0
+
+
+def _launch_dq(q, k, v, key_mask, graph, m, z, bsum, delta, d_out, num_heads: int,
+               renorm: str, path: "str | None" = None):
+    """K5's launch: :func:`dq_kernel`'s kernel with its key split, or the
+    kernel ``path`` (one of ``DQ_PATHS``) names where it takes the shape:
+    "simt" takes every shape, in one shard, which lets a check hold the
+    float32 kernel to the first SIMT kernel bit for bit."""
+    args = (q, k, v, key_mask, graph, m, z, bsum, delta, d_out, num_heads, renorm)
+    _check(q, k, v, key_mask, graph, num_heads, renorm,
+           {"m": m, "z": z, "b": bsum, "delta": delta, "d_out": d_out})
+    b, tq, c = q.shape
+    tk = k.shape[1]
+    path = path or dq_kernel(q.dtype, c // num_heads)
+    q_tile, n_split, per, step = _dq_plan(path, b, num_heads, tq, tk)
+    scratch = None   # the shards' f32 partial dQ between the two kernels
+    if n_split > 1:
+        scratch = torch.empty(n_split, b, tq, c, dtype=torch.float32, device=q.device)
+    _check_dq_scratch(scratch, n_split, per, q, tk, step)
+    dq = torch.empty_like(q)
+    _call_backward("savqa_flash_graph_attention_bwd_dq", [dq, scratch],
+                   [DQ_PATHS.index(path), q_tile, n_split, per], *args)
+    return dq
 
 
 def flash_bwd_dkv(q, k, v, key_mask, graph, m, z, bsum, delta, d_out, num_heads: int,

@@ -119,9 +119,12 @@ def test_f32_plain_k5_k6_round_nothing(rng, renorm):
     (torch.bfloat16, 8, "simt"), (torch.bfloat16, 40, "simt"), (torch.float32, 64, "simt"),
 ])
 def test_k5_k6_kernel_path(dtype, head_dim, want):
-    """f32 keeps the SIMT kernels (TF32 would break 1e-4); so does a bf16
-    head width that is no multiple of 16."""
+    """f32 runs on the CUDA cores (TF32 would break 1e-4), in K5's and K6's
+    register-tiled f32 kernels; a bf16 head width that is no multiple of 16
+    keeps the first SIMT kernels."""
     assert flash.kernel_path(dtype, head_dim) == want
+    f32 = "f32" if dtype == torch.float32 else want
+    assert flash.dq_kernel(dtype, head_dim) == flash.dkv_kernel(dtype, head_dim) == f32
 
 
 @pytest.mark.parametrize("dtype,head_dim,tq,tk,want", [
@@ -132,12 +135,16 @@ def test_k5_k6_kernel_path(dtype, head_dim, want):
     (torch.float32, 64, 1, 1536, (6, 4)),        # K4's f32 kernel: shards of 4 steps
 ])
 def test_k4_k5_key_split_on_the_tensor_cores_only(dtype, head_dim, tq, tk, want):
-    """K4's split (``kernel_key_split``); K5 splits on the tensor cores only
-    (``dq_key_split``): its f32 kernel takes every key in one shard."""
+    """K4's split (``kernel_key_split``); K5's (``dq_key_split``): K4's on
+    the tensor cores, none on the bf16 SIMT kernel, and on its f32 kernel
+    shards of four 32-key steps (``dq_f32_plan``: 12 for the one query)."""
     assert flash.kernel_key_split(dtype, head_dim, 4, 8, tq, tk) == want
     steps = -(-tk // flash.KEY_STEP)
-    want_k5 = (1, steps) if flash.kernel_path(dtype, head_dim) == "simt" else want
+    want_k5 = {"simt": (1, steps), "tensor-core": want,
+               "f32": flash.dq_f32_plan(4, 8, tq, tk)[1:]}[flash.dq_kernel(dtype, head_dim)]
     assert flash.dq_key_split(dtype, head_dim, 4, 8, tq, tk) == want_k5
+    if dtype == torch.float32:
+        assert want_k5 == (12, 4)
 
 
 @pytest.mark.parametrize("bounds", [((0, 24), (24, 40)), ((0, 8), (8, 16), (16, 40)),
@@ -167,6 +174,19 @@ def test_dq_scratch_guard_accepts_what_the_wrapper_allocates():
     n_split, per = flash.dq_key_split(q.dtype, 64, 4, 8, 1, 1536)
     flash._check_dq_scratch(torch.empty(n_split, 4, 1, 512), n_split, per, q, 1536)
     flash._check_dq_scratch(None, 1, 24, q, 1536)
+
+
+def test_dq_scratch_guard_counts_the_f32_kernels_steps():
+    """K5's f32 plan counts 32-key steps: its 12 shards of 4 steps cover
+    1,536 keys, and the same shards counted in 64-key steps would leave
+    some empty."""
+    q = torch.zeros(4, 1, 512)
+    n_split, per = flash.dq_key_split(q.dtype, 64, 4, 8, 1, 1536)
+    assert (n_split, per) == (12, 4)
+    flash._check_dq_scratch(torch.empty(n_split, 4, 1, 512), n_split, per, q, 1536,
+                            flash.DQ_F32_STEP)
+    with pytest.raises(ValueError, match="do not cover"):
+        flash._check_dq_scratch(torch.empty(n_split, 4, 1, 512), n_split, per, q, 1536)
 
 
 @pytest.mark.parametrize("scratch,n_split,per,match", [

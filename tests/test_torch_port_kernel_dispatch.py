@@ -13,6 +13,7 @@ held, merged, to the unsplit plain call and to the JAX package's
 ``flash_graph_attention`` in interpret mode within 1e-5.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -221,8 +222,9 @@ def test_f32_key_split_leaves_no_shard_empty(blocks, tk):
         assert n_split == 1
     else:
         assert per == min(flash.F32_SPLIT_STEPS, steps)
-    # K5's f32 kernel has no split; its plan says so
-    assert flash.dq_key_split(torch.float32, 64, batch, heads, tq, tk) == (1, steps)
+    # K5's f32 kernel splits by its own plan (key steps of 32)
+    assert flash.dq_key_split(torch.float32, 64, batch, heads, tq, tk) == flash.dq_f32_plan(
+        batch, heads, tq, tk)[1:]
 
 
 @pytest.mark.parametrize("head_dim,q_tile,blocks_an_sm", [
@@ -440,6 +442,108 @@ def test_k6_f32_shared_memory_fits(head_dim, blocks_an_sm):
     assert flash.dkv_kernel(torch.float32, head_dim) == "f32"
     assert flash.dkv_kernel(torch.bfloat16, head_dim) == flash.kernel_path(torch.bfloat16,
                                                                            head_dim)
+
+
+@pytest.mark.parametrize("batch,heads,tq,tk,want", [
+    (4, 8, 1536, 1536, (64, 1, 48)),   # the encoder: 768 blocks, no split
+    (4, 4, 1536, 1536, (64, 1, 48)),   # a model rank's 4 heads: 384 blocks
+    (4, 8, 768, 768, (64, 1, 24)),     # the ring's rotation
+    (4, 8, 1, 1536, (16, 12, 4)),      # the decoder's one query: 32 blocks of one warp -> 384
+    (4, 4, 1, 1536, (16, 12, 4)),      # ... on 4 heads: the same shards
+    (2, 8, 1, 1536, (16, 12, 4)),      # ... on a data-parallel rank's 2 samples
+    (4, 8, 70, 1536, (64, 12, 4)),     # two query tiles
+    (4, 8, 200, 700, (64, 6, 4)),      # 128 blocks: under the card, a ragged last shard
+    (1, 1, 1, 32, (16, 1, 1)),         # one step cannot be split
+    (1, 1, 1, 100, (16, 1, 4)),        # four steps: one shard of them all
+    (64, 8, 16, 300, (16, 1, 10)),     # 512 blocks of 16 rows
+])
+def test_dq_f32_plan_is_a_pure_function_of_the_shapes(batch, heads, tq, tk, want):
+    """K5's float32 kernel: rows a block, then shards of four 32-key steps
+    when the blocks do not cover the card, whatever the head count; the
+    wrapper's split is this plan's."""
+    assert flash.dq_f32_plan(batch, heads, tq, tk) == want
+    assert flash.dq_key_split(torch.float32, 64, batch, heads, tq, tk) == want[1:]
+
+
+@pytest.mark.parametrize("batch,tq,tk", [
+    (4, 1536, 1536), (4, 1, 1536), (4, 768, 768), (4, 200, 700), (4, 70, 1536), (4, 1, 66),
+    (2, 1536, 1536), (2, 1, 1536), (1, 1, 1536),
+])
+def test_dq_f32_plan_is_the_same_at_4_and_8_heads(batch, tq, tk):
+    """At the obj+rel point (its encoder, decoder and ring calls; and a
+    data-parallel rank's share of the batch) a model rank's 4 heads take one
+    process's 8 heads' query tile and shards, so each head's dQ sums its
+    keys in the same order."""
+    assert flash.dq_f32_plan(batch, 4, tq, tk) == flash.dq_f32_plan(batch, 8, tq, tk)
+
+
+@pytest.mark.parametrize("tk", [1, 31, 32, 33, 128, 129, 700, 701, 1536, 4096])
+@pytest.mark.parametrize("blocks", [(1, 1, 1), (4, 8, 1), (4, 4, 1), (2, 8, 100), (16, 8, 64),
+                                    (4, 8, 1536)])
+def test_dq_f32_key_split_leaves_no_shard_empty(blocks, tk):
+    batch, heads, tq = blocks
+    q_tile, n_split, per = flash.dq_f32_plan(batch, heads, tq, tk)
+    steps = -(-tk // flash.DQ_F32_STEP)
+    assert q_tile == (16 if tq <= 16 else 64)
+    assert n_split >= 1 and per >= 1
+    assert (n_split - 1) * per < steps <= n_split * per          # the kernel's own guard
+    if batch * heads * -(-tq // q_tile) >= flash.SM_COUNT:
+        assert n_split == 1
+    else:
+        assert per == min(flash.F32_SPLIT_STEPS, steps)
+
+
+@pytest.mark.parametrize("head_dim,q_tile,blocks_an_sm", [
+    (64, 64, 2), (48, 64, 2), (32, 64, 4), (16, 64, 4), (128, 64, 1), (96, 64, 1),
+    (64, 16, 5), (128, 16, 2),
+])
+def test_k5_f32_shared_memory_fits(head_dim, q_tile, blocks_an_sm):
+    """One block of K5's f32 kernel (Q and dO, two stages of K, V, the
+    graph tile and the key mask) fits the 227 KB a block may use; at the
+    model's head width of 64 two blocks of 64 rows (8 warps) share an SM,
+    each paying 1 KB of reserve, as its launch bounds ask."""
+    need = flash.smem_bytes_dq_f32(head_dim, q_tile)
+    assert blocks_an_sm * (need + 1024) <= k1.SMEM_LIMIT < (blocks_an_sm + 1) * (need + 1024)
+    assert flash.smem_bytes_dq_f32(64, 64) == 4 * (2 * 64 * 64
+                                                   + 2 * (2 * 32 * 64 + 64 * 32 + 32))
+
+
+def test_k5_takes_the_f32_kernel_at_every_f32_width():
+    """Every float32 head width the kernels take (multiples of 4 up to 128)
+    runs K5's f32 kernel; bfloat16 keeps ``kernel_path``'s choice."""
+    for head_dim in range(4, flash.MAX_HEAD_DIM + 1, 4):
+        assert flash.dq_kernel(torch.float32, head_dim) == "f32"
+        assert flash.dq_kernel(torch.bfloat16, head_dim) == flash.kernel_path(torch.bfloat16,
+                                                                             head_dim)
+
+
+@pytest.mark.parametrize("renorm", flash.RENORMS)
+@pytest.mark.parametrize("tq,tk", [(1, 1536), (200, 700), (70, 1536)], ids=str)
+def test_k5_f32_shard_sum_equals_the_unsplit_dq_and_jax(rng, tq, tk, renorm):
+    """The key ranges K5's float32 kernel cuts at the obj+rel point (B 4, 8
+    heads: shards of 128 keys, the last ragged): the plain K5 on each range
+    with every row's statistics, summed in shard order, against the plain K5
+    over all keys and the JAX package's dQ (its K5 in interpret mode)."""
+    _, n_split, per = flash.dq_f32_plan(4, 8, tq, tk)
+    keys = per * flash.DQ_F32_STEP
+    bounds = [(i * keys, min(tk, (i + 1) * keys)) for i in range(n_split)]
+    assert n_split > 1 and bounds[-1][1] == tk
+    args = flash_inputs(rng, tq=tq, tk=tk)
+    q, k, v, key_mask, query_mask, graph = args
+    dy = torch.from_numpy(rng.standard_normal(tuple(q.shape)).astype(np.float32))
+    out, m, z, bsum = flash.flash_graph_attention_plain(*args, HEADS, renorm, "stats")
+    d_out, delta = flash.masked_grad_and_delta(out, dy, query_mask, HEADS)
+    stats = (m, z, bsum, delta, d_out, HEADS, renorm)
+    parts = torch.stack([flash.flash_bwd_dq_plain(
+        q, *(t[:, lo:hi].contiguous() for t in (k, v, key_mask)),
+        graph[:, :, lo:hi].contiguous(), *stats) for lo, hi in bounds])
+    got = flash.sum_dq_shards_plain(parts, torch.float32)
+    close(got, flash.flash_bwd_dq_plain(q, k, v, key_mask, graph, *stats), "dq", F32_TOL)
+    jq, jk, jv, jkm, jqm, jg = (jnp.asarray(t.numpy()) for t in args)
+    _, vjp = jax.vjp(lambda q_: jax_flash_graph_attention(q_, jk, jv, jkm, jqm, jg, HEADS, renorm,
+                                                          8, 256, True), jq)
+    close(got, torch.from_numpy(np.array(vjp(jnp.asarray(dy.numpy()))[0])), "dq against JAX",
+          F32_TOL)
 
 
 def identity_inputs(rng, b, tq, tk, c):
