@@ -229,21 +229,30 @@ Phases, each of which must pass:
     ring) against the one-process step, as the dp phase holds its ranks;
     as information the ms of a forward and a backward and the bytes
     rotated a layer;
-20. the model axis (``model``, ROADMAP item 15b): K1's attention-only and
-    LayerNorm entries, K2 from d(o) and K3's partial and epilogue against
-    their plain versions at the main path's model-2 shapes (B 128, L 128,
-    4 heads of 64; 16,384 rows of 512, a hidden shard of 1,024), and K4 on
-    4 heads of 64 at the obj+rel point (SDPA beside it), bf16 and f32,
-    timed beside their bounds; then two gloo ranks on the one card
-    (worker processes of this script, ``--model-rank``) as (data 1, model
-    2) at full width, the 407,000 x 300 table split by rows: the bf16
-    serving forward at bs 128 against one process's (logits within 2^-4
-    of their max, answers equal where the margin is clear), an f32
-    obj-only step at bs 32 and an f32 obj+rel step at bs 4 (K4, K5 and K6
-    on 4 heads) against one process's, as the dp phase holds its ranks;
-    each run's launches (every K1 and K3 as the model axis's entries), as
-    information a rank's parameter MiB against one process's, the bytes
-    through the model row's collectives and a rank's seconds.
+20. the model axis (``model``, ROADMAP items 15b and 15d): K1's
+    attention-only and LayerNorm entries, K2 from d(o) and K3's partial
+    and epilogue against their plain versions at the main path's model-2
+    shapes (B 128, L 128, 4 heads of 64; 16,384 rows of 512, a hidden
+    shard of 1,024), and K4 on 4 heads of 64 at the obj+rel point (SDPA
+    beside it); then at the model-16 shapes, where each of the 8 heads
+    spans two ranks and a rank computes one head: K1's attention-only
+    entry and K2 from d(o) on 1 head of 64, K3's partial on a hidden shard
+    of 128, K4, K5 and K6 on 1 head at the obj+rel point (their key
+    splits); bf16 and f32, timed beside their bounds; then two gloo ranks
+    on the one card (worker processes of this script, ``--model-rank``) as
+    (data 1, model 2), and sixteen as (data 1, model 16), at full width,
+    the 407,000 x 300 table split by rows at model 2 and whole at 16, 6
+    blocks (3 in model 16's obj+rel step): the bf16 serving forward at bs
+    128 against one process's (logits within 2^-4 of their max, answers
+    equal where the margin is clear), an f32 obj-only
+    step at bs 32 and an f32 obj+rel step (bs 4 at model 2, bs 2 at model
+    16; K4, K5 and K6 on a rank's heads) against one process's, as the dp
+    phase holds its ranks (at model 16 one process takes the ranks' ReLU
+    decisions in the attention projections, each taken against its own
+    within 1e-5 of its call's max|x|); each run's launches (every K1 and K3
+    as the model axis's entries), as information a rank's parameter MiB
+    against one process's, the bytes through the model row's collectives,
+    a rank's seconds and the card's memory in use.
 
 ``--phases a,b`` (of card, k1, k3, k2, serving, training, k4, k56,
 objrel_serving, objrel_training, cli, train_cli, packed, dp, host, variants,
@@ -257,6 +266,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -1363,16 +1373,20 @@ def same_snapshot(a: list, b: list) -> bool:
         torch.equal(x, y) if torch.is_tensor(x) else x == y for x, y in zip(a, b))
 
 
-def one_step(cfg, batch, plain: bool = False, seed: int = 3, sparse: bool = False) -> tuple:
+def one_step(cfg, batch, plain: bool = False, seed: int = 3, sparse: bool = False,
+             pins: "ReluPins | None" = None) -> tuple:
     """One training step from the weights of ``seed`` and a fixed dropout
-    generator (with the sparse GloVe-table optimizer when ``sparse``):
-    (loss, {name: gradient}, launches by kernel)."""
+    generator (with the sparse GloVe-table optimizer when ``sparse``, the
+    attention projections' ReLU decisions of ``pins`` when given, see
+    :func:`pin_relu_masks`): (loss, {name: gradient}, launches by kernel)."""
     from structured_alignment_vqa_tpu_torch.parallel.train_step import (
         create_train_state,
         make_train_step,
     )
 
     model = random_model(cfg, seed=seed)
+    if pins is not None:
+        pin_relu_masks(model, pins)
     state = create_train_state(model, 1e-4, sparse_table=sparse)
     step = make_train_step(model, state.optimizer, cfg, sparse_table=sparse)
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -3975,20 +3989,50 @@ def seq_phase(card: str) -> dict:
     return {k: sum(res["path"][k] for res in ranks) for k in ranks[0]["path"]}
 
 MODEL_WORLD = 2
-MODEL_HEADS = HEADS // MODEL_WORLD     # a rank's heads at model 2: 4 of 64 columns
-MODEL_C = C // MODEL_WORLD
-MODEL_HIDDEN = HIDDEN // MODEL_WORLD   # a rank's FFN hidden shard
+# the production model's 8 heads over 16 ranks: 32 columns a rank, so each
+# head spans two ranks and each rank computes the one head its columns
+# overlap (ops/attention.py, parallel/sharding.py:gather_heads)
+MODEL_WIDE = 16
+MODEL_HIDDEN = HIDDEN // MODEL_WORLD   # a rank's FFN hidden shard at model 2
 MODEL_ROWS = 16384                     # the obj-only encoder's rows at bs 128 (128 x 128)
 MODEL_STEP_B = 32
-# launches of one forward and of one step on a rank at model 2: every K1 and
+# the obj+rel step's batch at model 16 (REL_B at model 2)
+MODEL_WIDE_REL_B = 2
+# the depth of model 16's obj+rel step, for the script's time limit (its
+# 16 ranks took 128-160 s at 6 blocks): one block of each graph stage
+# (diagonal, cross, full), every width the production model's. Model 2's
+# runs keep 6: their time is the ranks' start (34.1 s at 6 blocks, 33.5 at
+# 3), and at 3 its unpinned f32 checks miss the dp rule (ROADMAP Queue 3)
+MODEL_WIDE_REL_CUT = dict(num_blocks=3, stage1_blocks=1, stage2_blocks=2)
+# launches a block of one forward and of one step on a rank: every K1 and
 # K3 of the one-process path becomes the model axis's entries (K1's
 # attention-only entry and its LayerNorm entry, K3's partial and epilogue),
-# every K2 K2's from-d(o) entry; K4, K5 and K6 run as they are, on 4 heads
-MODEL_FORWARD = {"K1 heads": 24, "K1 ln": 24, "K3 partial": 24, "K3 epilogue": 24}
-MODEL_STEP = dict(MODEL_FORWARD, **{"K2 from d(o)": 24})
-MODEL_REL_STEP = {"K1 heads": 12, "K1 ln": 12, "K3 partial": 24, "K3 epilogue": 24,
-                  "K2 from d(o)": 12, "K4": 12, "K5": 12, "K6": 12}
+# every K2 K2's from-d(o) entry; K4, K5 and K6 run as they are, on a rank's
+# heads
+MODEL_FORWARD = {"K1 heads": 4, "K1 ln": 4, "K3 partial": 4, "K3 epilogue": 4}
+MODEL_LAUNCHES = {
+    "serve": MODEL_FORWARD,
+    "step": dict(MODEL_FORWARD, **{"K2 from d(o)": 4}),
+    "rel_step": {"K1 heads": 2, "K1 ln": 2, "K3 partial": 4, "K3 epilogue": 4,
+                 "K2 from d(o)": 2, "K4": 2, "K5": 2, "K6": 2}}
 MODEL_TIMED = 3
+
+
+def model_configs(world: int) -> dict:
+    """The model phase's configurations at model ``world``: {run: config}."""
+    cut = MODEL_WIDE_REL_CUT if world == MODEL_WIDE else {}
+    return {"serve": full_config(),
+            "step": full_config(compute_dtype=torch.float32, dropout_rate=0.0),
+            "rel_step": rel_config(compute_dtype=torch.float32, dropout_rate=0.0, **cut)}
+
+
+def model_shapes(n: int) -> tuple:
+    """A model rank's share at model ``n``: (heads it computes, their
+    columns, its FFN hidden shard, the suffix of its entries' names)."""
+    from structured_alignment_vqa_tpu_torch.parallel.sharding import head_range
+
+    lo, hi = head_range(0, C // n, C // HEADS)
+    return hi - lo, (hi - lo) * (C // HEADS), HIDDEN // n, "" if n == MODEL_WORLD else f" m{n}"
 
 
 def model_wrappers() -> dict:
@@ -4006,149 +4050,199 @@ def model_counts() -> dict:
     return launch_counts() | {k: fn.launches for k, fn in model_wrappers().items()}
 
 
-def model_entries(card: str) -> dict:
-    """The model axis's entries of K1, K2 and K3 against their plain
-    versions at the main path's model-2 shapes (bf16 and f32), timed beside
-    their bounds: {entry: row of the bf16 run}."""
+def model_entries(card: str, n: int) -> dict:
+    """The model axis's entries of K1, K2 and K3, and K4 (at model 16 K5
+    and K6 too), against their plain versions at the main path's model-``n``
+    shapes (bf16 and f32), timed beside their bounds: {entry: row} of the
+    bf16 run at model 2, of both dtypes at model 16 (" f32" after the
+    name). The LayerNorm entries take whole rows, the same at any ``n``:
+    they run at model 2 only."""
     from structured_alignment_vqa_tpu_torch.ops import flash_graph_attention as fl
     from structured_alignment_vqa_tpu_torch.ops import fused_ffn as k3
     from structured_alignment_vqa_tpu_torch.ops import fused_graph_attention as k1
 
-    gen = torch.Generator(device="cuda").manual_seed(77)
+    heads, width, hidden, suffix = model_shapes(n)
+    gen = torch.Generator(device="cuda").manual_seed(77 + n)
     rows = {}
 
     def row(entry, dtype, errs, tol, fn, plain, nbytes, ops, shape, library=None):
         err = max(errs)
-        check(err <= tol, f"{entry} {shape} {dtype}: max|kernel-plain|/max|plain| {err:.3g} "
-              f"<= {tol:g}")
+        check(err <= tol, f"{entry}{suffix} {shape} {dtype}: max|kernel-plain|/max|plain| "
+              f"{err:.3g} <= {tol:g}")
         ms, plain_ms = time_ms(fn), time_ms(plain, iters=5)
         bound_ms, bound_by = bound(nbytes, ops, dtype)
         library_ms = None if library is None else library[0]
         lib = "none" if library is None else (f"{library[1]} {library_ms:.4f} ms")
-        print(f"{entry} {shape} {dtype}: {ms:.4f} ms{previous(entry, 'model', dtype)}, plain "
-              f"{plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by}); library: {lib} "
-              f"on {card}", flush=True)
-        if dtype == torch.bfloat16:
-            rows[entry] = dict(name=entry, err=err, tolerance=tol, ms=ms, plain_ms=plain_ms,
-                               bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                               shape=f"bf16 {shape}")
+        print(f"{entry}{suffix} {shape} {dtype}: {ms:.4f} ms{previous(entry, 'model', dtype)}, "
+              f"plain {plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by}); library: "
+              f"{lib} on {card}", flush=True)
+        if dtype == torch.bfloat16 or suffix:
+            name = entry + suffix + ("" if dtype == torch.bfloat16 else " f32")
+            rows[name] = dict(name=name, err=err, tolerance=tol, ms=ms, plain_ms=plain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                              shape=f"{'bf16' if dtype == torch.bfloat16 else 'f32'} {shape}")
 
     for dtype in (torch.bfloat16, torch.float32):
         size = torch.finfo(dtype).bits // 8
-        # K1's attention-only entry and K2 from d(o): B 128, L 128, 4 heads of 64
+        # K1's attention-only entry and K2 from d(o): B 128, L 128, a rank's heads of 64
         q, k, v, key_mask, query_mask, graph, *_ = k1_inputs(gen, 128, 128, dtype, B)
-        q, k, v = (t[..., :MODEL_C].contiguous() for t in (q, k, v))
+        q, k, v = (t[..., :width].contiguous() for t in (q, k, v))
         args = (q, k, v, key_mask, query_mask, graph)
-        shape = f"B={B} L=128 C={MODEL_C} H={MODEL_HEADS}"
+        shape = f"B={B} L=128 C={width} H={heads}"
         errs = []
         for renorm in ("l1", "sum_eps"):
-            got = k1.graph_attention_heads(*args, MODEL_HEADS, renorm)
-            want = k1.graph_attention_plain(*args, MODEL_HEADS, renorm)
-            check(bool(torch.isfinite(got).all()), f"K1 heads {shape} {dtype} {renorm}: finite")
+            got = k1.graph_attention_heads(*args, heads, renorm)
+            want = k1.graph_attention_plain(*args, heads, renorm)
+            check(bool(torch.isfinite(got).all()),
+                  f"K1 heads{suffix} {shape} {dtype} {renorm}: finite")
             errs.append(rel_err(got, want))
-        nb = size * B * MODEL_C * 3 * 128 + 4 * B * (2 * 128 + 128 * 128) + 4 * B * 128 * MODEL_C
+        nb = size * B * width * 3 * 128 + 4 * B * (2 * 128 + 128 * 128) + 4 * B * 128 * width
         row("K1 heads", dtype, errs, TOL[dtype],
-            lambda: k1.graph_attention_heads(*args, MODEL_HEADS, "l1"),
-            lambda: k1.graph_attention_plain(*args, MODEL_HEADS, "l1"),
-            nb, 4.0 * B * 128 * 128 * MODEL_C, shape)
-        do = torch.randn(B, 128, MODEL_C, generator=gen, device="cuda").to(dtype)
+            lambda: k1.graph_attention_heads(*args, heads, "l1"),
+            lambda: k1.graph_attention_plain(*args, heads, "l1"),
+            nb, 4.0 * B * 128 * 128 * width, shape)
+        do = torch.randn(B, 128, width, generator=gen, device="cuda").to(dtype)
         errs = []
         for renorm in ("l1", "sum_eps"):
-            got = k1.graph_attention_heads_bwd(*args, do, MODEL_HEADS, renorm)
-            want = k1.graph_attention_bwd_plain(*args, do, MODEL_HEADS, renorm)
+            got = k1.graph_attention_heads_bwd(*args, do, heads, renorm)
+            want = k1.graph_attention_bwd_plain(*args, do, heads, renorm)
             errs += [rel_err(g, w) for g, w in zip(got, want)]
             check(all(bool(torch.isfinite(g).all()) for g in got),
-                  f"K2 from d(o) {shape} {dtype} {renorm}: finite")
+                  f"K2 from d(o){suffix} {shape} {dtype} {renorm}: finite")
         # reads q, k, v, dO, the masks and the f32 graph; writes dq, dk, dv.
         # QK^T and the weights recomputed, dA, dV, dQ and dK: 5 products of 2 B Tq Tk C
-        nb = size * B * MODEL_C * 7 * 128 + 4 * B * (2 * 128 + 128 * 128)
+        nb = size * B * width * 7 * 128 + 4 * B * (2 * 128 + 128 * 128)
         row("K2 from d(o)", dtype, errs, K2_TOL[dtype],
-            lambda: k1.graph_attention_heads_bwd(*args, do, MODEL_HEADS, "l1"),
-            lambda: k1.graph_attention_bwd_plain(*args, do, MODEL_HEADS, "l1"),
-            nb, 10.0 * B * 128 * 128 * MODEL_C, shape)
+            lambda: k1.graph_attention_heads_bwd(*args, do, heads, "l1"),
+            lambda: k1.graph_attention_bwd_plain(*args, do, heads, "l1"),
+            nb, 10.0 * B * 128 * 128 * width, shape)
         del args, do
-        # K1's LayerNorm entry and K3's epilogue at 16,384 rows of 512
-        o = torch.randn(MODEL_ROWS, C, generator=gen, device="cuda")
-        res = torch.randn(MODEL_ROWS, C, generator=gen, device="cuda").to(dtype)
-        gamma = 1 + 0.05 * torch.randn(C, generator=gen, device="cuda")
-        beta = 0.05 * torch.randn(C, generator=gen, device="cuda")
-        b2 = (0.05 * torch.randn(C, generator=gen, device="cuda")).to(dtype)
-        shape = f"rows={MODEL_ROWS} C={C}"
-        nb = 4 * MODEL_ROWS * C + 2 * size * MODEL_ROWS * C + 8 * C
-        got, want = k1.attention_ln(o, res, gamma, beta), k1.attention_ln_plain(o, res, gamma, beta)
-        row("K1 ln", dtype, [rel_err(got, want)], TOL[dtype],
-            lambda: k1.attention_ln(o, res, gamma, beta),
-            lambda: k1.attention_ln_plain(o, res, gamma, beta), nb, 10.0 * MODEL_ROWS * C, shape)
-        got = k3.ffn_epilogue(o, res, b2, gamma, beta)
-        want = k3.ffn_epilogue_plain(o, res, b2, gamma, beta)
-        row("K3 epilogue", dtype, [rel_err(got, want)], TOL[dtype],
-            lambda: k3.ffn_epilogue(o, res, b2, gamma, beta),
-            lambda: k3.ffn_epilogue_plain(o, res, b2, gamma, beta), nb + size * C,
-            11.0 * MODEL_ROWS * C, shape)
-        del o, res
-        # K3's partial: 16,384 rows, C 512, a hidden shard of 1,024
+        if n == MODEL_WORLD:
+            # K1's LayerNorm entry and K3's epilogue at 16,384 rows of 512
+            o = torch.randn(MODEL_ROWS, C, generator=gen, device="cuda")
+            res = torch.randn(MODEL_ROWS, C, generator=gen, device="cuda").to(dtype)
+            gamma = 1 + 0.05 * torch.randn(C, generator=gen, device="cuda")
+            beta = 0.05 * torch.randn(C, generator=gen, device="cuda")
+            b2 = (0.05 * torch.randn(C, generator=gen, device="cuda")).to(dtype)
+            shape = f"rows={MODEL_ROWS} C={C}"
+            nb = 4 * MODEL_ROWS * C + 2 * size * MODEL_ROWS * C + 8 * C
+            got = k1.attention_ln(o, res, gamma, beta)
+            want = k1.attention_ln_plain(o, res, gamma, beta)
+            row("K1 ln", dtype, [rel_err(got, want)], TOL[dtype],
+                lambda: k1.attention_ln(o, res, gamma, beta),
+                lambda: k1.attention_ln_plain(o, res, gamma, beta), nb, 10.0 * MODEL_ROWS * C,
+                shape)
+            got = k3.ffn_epilogue(o, res, b2, gamma, beta)
+            want = k3.ffn_epilogue_plain(o, res, b2, gamma, beta)
+            row("K3 epilogue", dtype, [rel_err(got, want)], TOL[dtype],
+                lambda: k3.ffn_epilogue(o, res, b2, gamma, beta),
+                lambda: k3.ffn_epilogue_plain(o, res, b2, gamma, beta), nb + size * C,
+                11.0 * MODEL_ROWS * C, shape)
+            del o, res
+        # K3's partial: 16,384 rows, C 512, a rank's hidden shard
         x = torch.randn(MODEL_ROWS, C, generator=gen, device="cuda").to(dtype)
-        w1 = (torch.randn(MODEL_HIDDEN, C, generator=gen, device="cuda") / C ** 0.5).to(dtype)
-        b1 = (0.05 * torch.randn(MODEL_HIDDEN, generator=gen, device="cuda")).to(dtype)
-        w2 = (torch.randn(C, MODEL_HIDDEN, generator=gen, device="cuda") / HIDDEN ** 0.5).to(dtype)
-        shape = f"rows={MODEL_ROWS} C={C} hidden={MODEL_HIDDEN}"
+        w1 = (torch.randn(hidden, C, generator=gen, device="cuda") / C ** 0.5).to(dtype)
+        b1 = (0.05 * torch.randn(hidden, generator=gen, device="cuda")).to(dtype)
+        w2 = (torch.randn(C, hidden, generator=gen, device="cuda") / HIDDEN ** 0.5).to(dtype)
+        shape = f"rows={MODEL_ROWS} C={C} hidden={hidden}"
         got, want = k3.ffn_partial(x, w1, b1, w2), k3.ffn_partial_plain(x, w1, b1, w2)
-        check(bool(torch.isfinite(got).all()), f"K3 partial {shape} {dtype}: finite")
-        n_split = k3.kernel_ffn_split(dtype, MODEL_ROWS, C, MODEL_HIDDEN)[0]
-        print(f"K3 partial {shape} {dtype}: hidden shard in {n_split} block shard(s)", flush=True)
-        nb = size * (MODEL_ROWS * C + 2 * C * MODEL_HIDDEN + MODEL_HIDDEN) + 4 * MODEL_ROWS * C
+        check(bool(torch.isfinite(got).all()), f"K3 partial{suffix} {shape} {dtype}: finite")
+        n_split = k3.kernel_ffn_split(dtype, MODEL_ROWS, C, hidden)[0]
+        print(f"K3 partial{suffix} {shape} {dtype}: {k3_path(dtype, MODEL_ROWS, C, hidden)}, "
+              f"hidden shard in {n_split} block shard(s)", flush=True)
+        nb = size * (MODEL_ROWS * C + 2 * C * hidden + hidden) + 4 * MODEL_ROWS * C
         row("K3 partial", dtype, [rel_err(got, want)], TOL[dtype],
             lambda: k3.ffn_partial(x, w1, b1, w2), lambda: k3.ffn_partial_plain(x, w1, b1, w2),
-            nb, 4.0 * MODEL_ROWS * C * MODEL_HIDDEN, shape)
+            nb, 4.0 * MODEL_ROWS * C * hidden, shape)
         del x, w1, w2, got, want
-        # K4 on a rank's 4 heads of 64 at the obj+rel point (B 4, self L 1,536)
+        # K4 on a rank's heads of 64 at the obj+rel point (B 4, self L 1,536)
         q, k, v, key_mask, query_mask, graph = flash_inputs(gen, "self L=1536", REL_L, REL_L,
                                                             dtype)
-        q, k, v = (t[..., :MODEL_C].contiguous() for t in (q, k, v))
+        q, k, v = (t[..., :width].contiguous() for t in (q, k, v))
         args = (q, k, v, key_mask, query_mask, graph)
-        shape = f"B={REL_B} L={REL_L} C={MODEL_C} H={MODEL_HEADS}"
-        k4_against_plain(shape, args, MODEL_HEADS)
-        got = fl.flash_graph_attention(*args, MODEL_HEADS, "l1")
-        want = fl.flash_graph_attention_plain(*args, MODEL_HEADS, "l1")
-        nb = size * REL_B * MODEL_C * 4 * REL_L + 4 * REL_B * (REL_L * REL_L + 2 * REL_L)
-        library_ms, _ = sdpa_yardstick(args, MODEL_HEADS)
+        shape = f"B={REL_B} L={REL_L} C={width} H={heads}"
+        head_dim = C // HEADS
+        k4_split = fl.kernel_key_split(dtype, head_dim, REL_B, heads, REL_L, REL_L)[0]
+        print(f"K4 heads{suffix} {shape} {dtype}: {k4_kernel(dtype, head_dim)} kernel, keys in "
+              f"{k4_split} shard(s)", flush=True)
+        k4_against_plain(shape, args, heads)
+        got = fl.flash_graph_attention(*args, heads, "l1")
+        want = fl.flash_graph_attention_plain(*args, heads, "l1")
+        nb = size * REL_B * width * 4 * REL_L + 4 * REL_B * (REL_L * REL_L + 2 * REL_L)
+        library_ms, _ = sdpa_yardstick(args, heads)
         row("K4 heads", dtype, [rel_err(got, want)], TOL[dtype],
-            lambda: fl.flash_graph_attention(*args, MODEL_HEADS, "l1"),
-            lambda: fl.flash_graph_attention_plain(*args, MODEL_HEADS, "l1"),
-            nb, 4.0 * REL_B * REL_L * REL_L * MODEL_C, shape,
+            lambda: fl.flash_graph_attention(*args, heads, "l1"),
+            lambda: fl.flash_graph_attention_plain(*args, heads, "l1"),
+            nb, 4.0 * REL_B * REL_L * REL_L * width, shape,
             library=(library_ms, "SDPA, the graph as a boolean mask"))
-        del args, got, want
+        del got, want
+        if n != MODEL_WORLD:
+            # K5 and K6 on the rank's head: the phase k56 holds 4 heads at model 2
+            dy = torch.randn(REL_B, REL_L, width, generator=gen, device="cuda").to(dtype)
+            k5_split = fl.dq_key_split(dtype, head_dim, REL_B, heads, REL_L, REL_L)[0]
+            print(f"K5 heads{suffix} {shape} {dtype}: {fl.dq_kernel(dtype, head_dim)} kernel, "
+                  f"keys in {k5_split} shard(s); K6 the {fl.dkv_kernel(dtype, head_dim)} kernel",
+                  flush=True)
+            errs, _, bwd = k56_against_plain(shape, args, dy, heads)
+            stats_bytes = 4 * REL_B * (REL_L * REL_L + REL_L + 4 * heads * REL_L)
+            for key, fn, plain, n_products, nbytes in (
+                    ("K5", fl.flash_bwd_dq, fl.flash_bwd_dq_plain, 3,
+                     size * REL_B * width * 5 * REL_L + stats_bytes),
+                    ("K6", fl.flash_bwd_dkv, fl.flash_bwd_dkv_plain, 4,
+                     size * REL_B * width * 6 * REL_L + stats_bytes)):
+                row(f"{key} heads", dtype, [errs[key]], K2_TOL[dtype], lambda: fn(*bwd),
+                    lambda: plain(*bwd), nbytes,
+                    2.0 * n_products * REL_B * REL_L * REL_L * width, shape)
+            del dy, bwd
+        del args
         torch.cuda.empty_cache()
     return rows
 
 
-def model_worker(rank: int, coordinator: str, out: str) -> int:
-    """One rank of the model phase, (data 1, model 2) over gloo on cuda:0:
-    a bf16 serving forward at bs 128, an f32 obj-only step at bs 32 and an
-    f32 obj+rel step at bs 4 (rank 0 saves the logits and the whole
-    gradients), with each run's launches, bytes over the model row and
-    seconds."""
+def model_rel_b(world: int) -> int:
+    return REL_B if world == MODEL_WORLD else MODEL_WIDE_REL_B
+
+
+def model_worker(rank: int, coordinator: str, out: str, world: int) -> int:
+    """One rank of the model phase, (data 1, model ``world``) over gloo on
+    cuda:0: a bf16 serving forward at bs 128, an f32 obj-only step at bs 32
+    and an f32 obj+rel step (rank 0 saves the logits and the whole
+    gradients), with each run's launches, bytes over the model row, seconds
+    and the card's memory in use at its end (every rank's)."""
     from structured_alignment_vqa_tpu_torch.data.synthetic import synthetic_batch
     from structured_alignment_vqa_tpu_torch.parallel.mesh import init_distributed, shutdown
-    from structured_alignment_vqa_tpu_torch.parallel.sharding import (
-        full_grads,
-        model_bytes,
-        shard_model,
-    )
+    from structured_alignment_vqa_tpu_torch.parallel import sharding
     from structured_alignment_vqa_tpu_torch.parallel.train_step import (
         create_train_state,
         make_train_step,
     )
 
+    import os
+    import resource
+
+    # sixteen ranks share the card: segments that grow in place leave no
+    # reserved-but-unused blocks behind (set before this process's first
+    # allocation)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    mesh = init_distributed(coordinator, MODEL_WORLD, rank, backend="gloo", device="cuda:0",
-                            model_parallel=MODEL_WORLD)
+    mesh = init_distributed(coordinator, world, rank, backend="gloo", device="cuda:0",
+                            model_parallel=world)
     path = dict.fromkeys(model_counts(), 0)
     results = {}
 
+    def memory() -> dict:
+        """This rank's peak since the last call and the card's memory in
+        use now (every process's); frees what the last run left first."""
+        free, total = torch.cuda.mem_get_info()
+        out = dict(peak=torch.cuda.max_memory_allocated(), in_use=total - free)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return out
+
     def on_path(fn, timed_only: bool = False):
-        before, sent = model_counts(), model_bytes.sent
+        before, sent = model_counts(), sharding.model_bytes.sent
         t0 = time.perf_counter()
         result = fn()
         torch.cuda.synchronize()
@@ -4156,150 +4250,326 @@ def model_worker(rank: int, coordinator: str, out: str) -> int:
         moved = {k: v - before[k] for k, v in model_counts().items()}
         for k in path:   # a repeat that is only timed is not the path's run
             path[k] += 0 if timed_only else moved[k]
-        return result, {k: v for k, v in moved.items() if v}, model_bytes.sent - sent, seconds
+        return (result, {k: v for k, v in moved.items() if v},
+                sharding.model_bytes.sent - sent, seconds)
 
     def sharded(cfg, seed):
-        # both ranks draw the same weights from the seed; each keeps its shard
+        # every rank draws the same weights from the seed and keeps its shard
+        # (the bytes count the one shared GloVe table once)
         model = random_model(cfg, seed=seed)
-        whole = sum(t.numel() * t.element_size() for t in model.state_dict().values())
-        shard_model(model, mesh)
-        mine = sum(t.numel() * t.element_size() for t in model.state_dict().values())
-        return model, whole, mine
+        whole = model_bytes(model)
+        sharding.shard_model(model, mesh)
+        return model, whole, model_bytes(model)
 
+    configs = model_configs(world)
     try:
-        cfg = full_config()
+        cfg = configs["serve"]
         model, whole, mine = sharded(cfg, 0)
         model.eval()
         batch = full_batches(cfg, 1)[0]
         with torch.no_grad():
-            logits, moved, sent, _ = on_path(lambda: model(batch)[0])
-            seconds = [on_path(lambda: model(batch)[0], timed_only=True)[3]
-                       for _ in range(MODEL_TIMED)]
-        results["serve"] = dict(launches=moved, bytes=sent, seconds=min(seconds),
-                                whole=whole, mine=mine)
+            logits, moved, sent, seconds = on_path(lambda: model(batch)[0])
+            # at model 16 a forward takes seconds: its first run is timed alone
+            seconds = [seconds] if world != MODEL_WORLD else [
+                on_path(lambda: model(batch)[0], timed_only=True)[3] for _ in range(MODEL_TIMED)]
         if rank == 0:
             torch.save(logits.float().cpu(), f"{out}/logits.pt")
         del model, logits
-        torch.cuda.empty_cache()
+        results["serve"] = dict(launches=moved, bytes=sent, seconds=min(seconds),
+                                whole=whole, mine=mine, **memory())
 
-        for name, cfg, batch_of in (
-                ("step", full_config(compute_dtype=torch.float32, dropout_rate=0.0),
-                 lambda c: synthetic_batch(c, MODEL_STEP_B, lv=36, lq=30, ls=98, seed=0)),
-                ("rel_step", rel_config(compute_dtype=torch.float32, dropout_rate=0.0),
-                 lambda c: rel_batches(c, 1)[0])):
+        for name, batch_of in (
+                ("step", lambda c: synthetic_batch(c, MODEL_STEP_B, lv=36, lq=30, ls=98, seed=0)),
+                ("rel_step", lambda c: rel_batches(c, 1, model_rel_b(world))[0])):
+            cfg = configs[name]
             model, _, _ = sharded(cfg, 3)
+            masks = record_relu_masks(model) if world in MODEL_PINNED else None
             state = create_train_state(model, 1e-4)
             step = make_train_step(model, state.optimizer, cfg, mesh=mesh)
             batch = batch_of(cfg)
             m, moved, sent, seconds = on_path(
                 lambda: step(state, batch, torch.Generator(device="cuda").manual_seed(11)))
-            grads = {n: g.cpu() for n, g in full_grads(model).items()}
+            save_grads(model, rank, f"{out}/{name}_grads{rank}.pt")
+            if masks is not None:
+                torch.save(masks, f"{out}/{name}_masks{rank}.pt")
+            del model, state, step, batch, masks
             results[name] = dict(loss=m["loss"].item(), skipped=m["skipped"].item(),
-                                 launches=moved, bytes=sent, seconds=seconds)
-            if rank == 0:
-                torch.save(grads, f"{out}/{name}_grads.pt")
-            del model, state, step, batch, grads
-            torch.cuda.empty_cache()
+                                 launches=moved, bytes=sent, seconds=seconds, **memory())
     finally:
         shutdown(mesh)
     results["path"] = path
     results["failures"] = list(failures)
+    results["max_rss"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
     torch.save(results, f"{out}/rank{rank}.pt")
     return 0
 
 
-def model_phase(card: str) -> dict:
-    """The model axis (ROADMAP item 15b) on the card: its K1, K2 and K3
-    entries against their plain versions at the model-2 shapes; then two
-    gloo ranks on the one card as (data 1, model 2) at full width against
-    one process: the bf16 serving forward, an f32 obj-only step and an f32
-    obj+rel step (K4, K5, K6 on 4 heads)."""
+# an attention module's Q, K or V projection: Sequential(Linear, ReLU)
+PROJECTION = re.compile(r"_attention(_\d+)?\.[QKV]_proj$")
+
+
+def projections(model) -> dict:
+    """name -> the (Linear, ReLU) of every attention projection."""
+    return {n: m for n, m in model.named_modules() if PROJECTION.search(n)}
+
+
+def record_relu_masks(model) -> dict:
+    """{name: (split, [which ReLU inputs were positive, a tensor a call])}
+    of every attention projection, filled as ``model`` runs; on a model
+    rank a split projection's masks are its columns."""
+    masks = {}
+    for name, seq in projections(model).items():
+        calls = []
+        masks[name] = (seq[0].model_split is not None, calls)
+        seq[0].register_forward_hook(lambda _m, _i, out, calls=calls: calls.append(
+            (out > 0).cpu()))
+    return masks
+
+
+def whole_relu_masks(paths: list) -> dict:
+    """The masks :func:`record_relu_masks` gave each rank (files in model
+    order), a split projection's columns concatenated: {name: [mask a
+    call]}."""
+    parts = [torch.load(p, weights_only=True) for p in paths]
+    return {name: [torch.cat([p[name][1][i] for p in parts], -1) if split else call
+                   for i, call in enumerate(calls)]
+            for name, (split, calls) in parts[0].items()}
+
+
+# the model runs whose f32 steps one process holds taking the ranks' ReLU
+# decisions (model 16, whose obj+rel step at full depth missed the dp rule
+# by one decision at |x| <= 2e-7; ROADMAP Queue 3); a decision taken against
+# one process's own must have its input within KNIFE_EDGE of its call's
+# largest |x|, and at most KNIFE_EDGES of the decisions may be such
+MODEL_PINNED = (MODEL_WIDE,)
+KNIFE_EDGE = 1e-5
+KNIFE_EDGES = 1e-5
+
+
+class ReluPins:
+    """Attention projections' ReLU decisions recorded in one run
+    (:func:`whole_relu_masks`) for another to take, the count of that run's
+    decisions and each call where some differed: (projection, call, how
+    many, their largest |x|, that over the call's max|x|)."""
+
+    def __init__(self, masks: dict):
+        self.masks = masks
+        self.decisions = 0
+        self.flips = []
+
+    @property
+    def differ(self) -> int:
+        return sum(f[2] for f in self.flips)
+
+    @property
+    def worst(self) -> float:
+        return max((f[4] for f in self.flips), default=0.0)
+
+    def knife_edges_only(self) -> bool:
+        """Every pinned decision's input within rounding of 0, and few."""
+        return self.worst <= KNIFE_EDGE and self.differ <= KNIFE_EDGES * self.decisions
+
+
+def pin_relu_masks(model, pins: ReluPins) -> None:
+    """Make every attention projection's ReLU of ``model`` take the
+    decisions ``pins.masks`` holds (call by call): its output is the input
+    where the mask is set, else 0, and so is its gradient. ``pins`` records,
+    as the model runs, the decisions that differ from the model's own and
+    how far their inputs lie from 0 (:meth:`ReluPins.knife_edges_only`)."""
+    for name, seq in projections(model).items():
+        calls = iter(enumerate(pins.masks[name]))
+
+        def pin(_m, inputs, _out, name=name, calls=calls):
+            x = inputs[0]
+            i, keep = next(calls)
+            keep = keep.to(x.device)
+            flip = keep != (x > 0)
+            pins.decisions += flip.numel()
+            if bool(flip.any()):
+                edge = x[flip].abs().max().item()
+                pins.flips.append((name, i, int(flip.sum()), edge,
+                                   edge / x.abs().max().item()))
+            return torch.where(keep, x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+        seq[1].register_forward_hook(pin)
+
+
+def save_grads(model, rank: int, path: str) -> None:
+    """This rank's share of the gradients, for :func:`whole_grads`: its
+    shard of every split parameter, and on rank 0 the replicated ones too
+    (the same on every rank of the row once the step has summed the
+    partial ones)."""
+    from structured_alignment_vqa_tpu_torch.parallel.sharding import split_of
+
+    splits = split_of(model)
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+             if p.grad is not None and (n in splits or rank == 0)}
+    torch.save({"grads": grads, "dims": {n: splits[n].dim for n in grads if n in splits}}, path)
+
+
+def whole_grads(paths: list) -> dict:
+    """The whole gradients from the files :func:`save_grads` wrote, one a
+    rank in model order: split ones concatenated along their dim."""
+    parts = [torch.load(p, weights_only=True) for p in paths]
+    dims = parts[0]["dims"]
+    return {n: torch.cat([p["grads"][n] for p in parts], dims[n]) if n in dims else g
+            for n, g in parts[0]["grads"].items()}
+
+
+def model_ranks(world: int, card: str) -> tuple:
+    """``world`` ``--model-rank`` workers on cuda:0 as (data 1, model
+    ``world``): (each rank's results, rank 0's logits, the whole gradients
+    by step, the attention projections' ReLU masks by step where
+    ``world`` is in MODEL_PINNED, else None)."""
     import os
     import tempfile
 
     from structured_alignment_vqa_tpu_torch.parallel.dryrun import free_ports, launch_local
 
-    entries = model_entries(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
     with tempfile.TemporaryDirectory() as tmp:
         coordinator = f"127.0.0.1:{free_ports()[0]}"
         t0 = time.perf_counter()
         outs = launch_local([[sys.executable, os.path.abspath(__file__), "--model-rank", str(r),
-                              coordinator, tmp] for r in range(MODEL_WORLD)], timeout=600)
-        print(f"model: {MODEL_WORLD} ranks on cuda:0 over gloo as (data 1, model "
-              f"{MODEL_WORLD}) ran in {time.perf_counter() - t0:.1f} s", flush=True)
+                              coordinator, tmp, str(world)] for r in range(world)], timeout=600)
+        print(f"model: {world} ranks on cuda:0 over gloo as (data 1, model {world}) ran in "
+              f"{time.perf_counter() - t0:.1f} s, the card {(total - free) / 2 ** 30:.1f} GiB "
+              f"in use before they started, on {card}", flush=True)
         for r, text in enumerate(outs):
             for line in text.splitlines():
-                print(f"model rank {r}: {line}", flush=True)
-        ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=True) for r in range(MODEL_WORLD)]
+                print(f"model {world} rank {r}: {line}", flush=True)
+        ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=True) for r in range(world)]
         logits = torch.load(f"{tmp}/logits.pt", weights_only=True).to("cuda")
-        grads = {n: torch.load(f"{tmp}/{n}_grads.pt", weights_only=True)
+        grads = {n: whole_grads([f"{tmp}/{n}_grads{r}.pt" for r in range(world)])
                  for n in ("step", "rel_step")}
-    for r, res in enumerate(ranks):
-        check(not res["failures"], f"model rank {r}: every check of the rank passed "
-              f"({len(res['failures'])} failed)")
-        for name, want in (("serve", MODEL_FORWARD), ("step", MODEL_STEP),
-                           ("rel_step", MODEL_REL_STEP)):
-            check(res[name]["launches"] == want, f"model rank {r} {name}: launches "
-                  f"{res[name]['launches']} == {want}")
-    for name in ("step", "rel_step"):
-        check(ranks[0][name]["loss"] == ranks[1][name]["loss"] and ranks[0][name]["skipped"] == 0,
-              f"model {name}: both ranks of the row log the same loss, no step skipped")
+        masks = {n: whole_relu_masks([f"{tmp}/{n}_masks{r}.pt" for r in range(world)])
+                 for n in ("step", "rel_step")} if world in MODEL_PINNED else None
+    return ranks, logits, grads, masks
+
+
+def model_phase(card: str) -> dict:
+    """The model axis (ROADMAP items 15b and 15d) on the card: its K1, K2
+    and K3 entries and K4 against their plain versions at the model-2 and
+    model-16 shapes (K5 and K6 at model 16 too); then two gloo ranks on the
+    one card as (data 1, model 2) and sixteen as (data 1, model 16), the
+    production model's 8 heads each spanning two ranks, at full width
+    (:func:`model_configs` gives the depths) against one process: the bf16
+    serving forward, an f32 obj-only step and an f32 obj+rel step (K4, K5,
+    K6 on a rank's heads)."""
+    from structured_alignment_vqa_tpu_torch.data.synthetic import synthetic_batch
+
+    entries = {}
+    for n in (MODEL_WORLD, MODEL_WIDE):
+        entries |= model_entries(card, n)
+    runs = {n: model_ranks(n, card) for n in (MODEL_WORLD, MODEL_WIDE)}
+
+    for n, (ranks, *_) in runs.items():
+        for r, res in enumerate(ranks):
+            check(not res["failures"], f"model {n} rank {r}: every check of the rank passed "
+                  f"({len(res['failures'])} failed)")
+            for name, cfg in model_configs(n).items():
+                want = {k: v * cfg.num_blocks for k, v in MODEL_LAUNCHES[name].items()}
+                check(res[name]["launches"] == want, f"model {n} rank {r} {name}: launches "
+                      f"{res[name]['launches']} == {want} ({cfg.num_blocks} blocks)")
+        for name in ("step", "rel_step"):
+            check(all(res[name]["loss"] == ranks[0][name]["loss"] for res in ranks)
+                  and ranks[0][name]["skipped"] == 0,
+                  f"model {n} {name}: every rank of the row logs the same loss, no step skipped")
 
     # the serving forward against one process's
-    cfg = full_config()
-    model = random_model(cfg, seed=0)
-    model.eval()
-    with torch.no_grad():
-        single = model(full_batches(cfg, 1)[0])[0].float()
-    del model
-    err = (logits - single).abs().max().item() / single.abs().max().item()
     tol = TOL[torch.bfloat16]
-    top2 = single.topk(2, dim=-1).values
-    clear = (top2[:, 0] - top2[:, 1]) > 2 * err * single.abs().max()
-    same = (logits.argmax(-1) == single.argmax(-1))
-    check(err <= tol and bool(same[clear].all()),
-          f"model serving bf16 bs {B}: logits max|ranks-one|/max|one| {err:.3g} <= {tol:g}; "
-          f"answers equal on all {int(clear.sum())} rows whose top-2 margin exceeds twice that "
-          f"(equal on {int(same.sum())} of {B} rows)")
+    for n, (_, logits, *_) in runs.items():
+        cfg = model_configs(n)["serve"]
+        model = random_model(cfg, seed=0)
+        model.eval()
+        with torch.no_grad():
+            single = model(full_batches(cfg, 1)[0])[0].float()
+        del model
+        top2 = single.topk(2, dim=-1).values
+        err = (logits - single).abs().max().item() / single.abs().max().item()
+        clear = (top2[:, 0] - top2[:, 1]) > 2 * err * single.abs().max()
+        same = (logits.argmax(-1) == single.argmax(-1))
+        check(err <= tol and bool(same[clear].all()),
+              f"model {n} serving bf16 bs {B}, {cfg.num_blocks} blocks: logits "
+              f"max|ranks-one|/max|one| {err:.3g} <= "
+              f"{tol:g}; answers equal on all {int(clear.sum())} rows whose top-2 margin "
+              f"exceeds twice that (equal on {int(same.sum())} of {B} rows)")
 
-    # the f32 steps against one process's, held as the dp phase holds its ranks
-    for name, cfg, batch in (
-            ("step", full_config(compute_dtype=torch.float32, dropout_rate=0.0), None),
-            ("rel_step", rel_config(compute_dtype=torch.float32, dropout_rate=0.0), None)):
-        from structured_alignment_vqa_tpu_torch.data.synthetic import synthetic_batch
+    # the f32 steps against one process's, held as the dp phase holds its ranks. A
+    # ReLU input within rounding of 0 of an attention projection (a decoder's K or V
+    # into 1,536 keys) can fall on the other side on the ranks, whose sums run in
+    # another order, and move its weight's gradient by its whole term (ROADMAP Queue
+    # 3). At model 16 one process's steps take the ranks' ReLU decisions there, so
+    # that both sides differentiate the same function; each decision they take
+    # against their own must be such a knife edge
+    for name in ("step", "rel_step"):
+        for n, (ranks, _, grads, masks) in runs.items():
+            cfg = model_configs(n)[name]
+            bs = MODEL_STEP_B if name == "step" else model_rel_b(n)
+            batch = (synthetic_batch(cfg, bs, lv=36, lq=30, ls=98, seed=0) if name == "step"
+                     else rel_batches(cfg, 1, bs)[0])
+            pins = {route: ReluPins(masks[name]) for route in ("kernel", "plain")} if masks else {}
+            single = one_step(cfg, batch, pins=pins.get("kernel"))
+            plain = one_step(cfg, batch, plain=True, pins=pins.get("plain"))
+            for route, taken in pins.items():
+                for proj, call, count, edge, share in taken.flips:
+                    print(f"model {n} {name} one process's {route} path: {proj} call {call}: "
+                          f"{count} ReLU decision(s) pinned, the largest |x| {edge:.3g}, "
+                          f"{share:.3g} of the call's max|x|", flush=True)
+                check(taken.knife_edges_only(),
+                      f"model {n} {name}: one process's {route} path took the ranks' ReLU "
+                      f"decisions of the attention projections; {taken.differ} of its "
+                      f"{taken.decisions} differed (<= {KNIFE_EDGES:g} of them), each input within "
+                      f"{taken.worst:.3g} <= {KNIFE_EDGE:g} of its call's max|x|")
+            # every parameter's name: one with a gradient on one side only fails
+            mine = (ranks[0][name]["loss"], {p: grads[name][p].to("cuda")
+                                             if p in grads[name] else None for p in single[1]},
+                    ranks[0][name]["launches"])
+            dp_against_spread(f"model: the (data 1, model {n}) {name} f32 bs {bs}, "
+                              f"{cfg.num_blocks} blocks against one process's", mine, single,
+                              plain)
+            del mine, single, plain, batch
+            torch.cuda.empty_cache()
 
-        batch = (synthetic_batch(cfg, MODEL_STEP_B, lv=36, lq=30, ls=98, seed=0)
-                 if name == "step" else rel_batches(cfg, 1)[0])
-        single = one_step(cfg, batch)
-        plain = one_step(cfg, batch, plain=True)
-        # every parameter's name: one with a gradient on one side only fails
-        mine = (ranks[0][name]["loss"], {n: grads[name][n].to("cuda") if n in grads[name]
-                                         else None for n in single[1]},
-                ranks[0][name]["launches"])
-        dp_against_spread(f"model: the (data 1, model 2) {name} f32 against one process's",
-                          mine, single, plain)
-        del single, plain, mine
-        torch.cuda.empty_cache()
-
-    serve = ranks[0]["serve"]
-    print(f"model: a rank holds {serve['mine'] / 2 ** 20:.1f} MiB of parameters and buffers "
-          f"against one process's {serve['whole'] / 2 ** 20:.1f} MiB", flush=True)
-    for name, what in (("serve", f"bf16 forward bs {B}"), ("step", f"f32 step bs {MODEL_STEP_B}"),
-                       ("rel_step", f"obj+rel f32 step bs {REL_B}")):
-        res = ranks[0][name]
-        print(f"model: {what}: {res['bytes'] / 2 ** 20:.1f} MiB through the model row's "
-              f"collectives a rank, launches {res['launches']}, {res['seconds']:.3f} s a rank "
-              f"(gloo through the host: information only) on {card}", flush=True)
-    path = {k: sum(res["path"][k] for res in ranks) for k in ranks[0]["path"]}
+    path = {}
+    for n, (ranks, *_) in runs.items():
+        serve = ranks[0]["serve"]
+        print(f"model {n}: a rank holds {serve['mine'] / 2 ** 20:.1f} MiB of parameters and "
+              f"buffers against one process's {serve['whole'] / 2 ** 20:.1f} MiB; the ranks' "
+              f"peak resident host memory {sum(r['max_rss'] for r in ranks) / 2 ** 30:.1f} GiB "
+              f"summed", flush=True)
+        configs = model_configs(n)
+        for name, what in (("serve", f"bf16 forward bs {B}"),
+                           ("step", f"f32 step bs {MODEL_STEP_B}"),
+                           ("rel_step", f"obj+rel f32 step bs {model_rel_b(n)}")):
+            res = ranks[0][name]
+            print(f"model {n}: {what}, {configs[name].num_blocks} blocks: "
+                  f"{res['bytes'] / 2 ** 20:.1f} MiB through the model row's "
+                  f"collectives a rank, launches {res['launches']}, {res['seconds']:.3f} s a "
+                  f"rank, a rank's peak {max(r[name]['peak'] for r in ranks) / 2 ** 30:.2f} "
+                  f"GiB, {max(r[name]['in_use'] for r in ranks) / 2 ** 30:.1f} GiB of the card "
+                  f"in use at its end, all processes' (gloo through the host: information "
+                  f"only) on {card}", flush=True)
+        mine = {k: sum(res["path"][k] for res in ranks) for k in ranks[0]["path"]}
+        suffix = model_shapes(n)[3]
+        for entry in ("K1 heads", "K2 from d(o)", "K3 partial", "K1 ln", "K3 epilogue"):
+            for name in (entry + suffix, entry + suffix + " f32"):
+                if name in entries:
+                    entries[name]["launches"] = mine[entry]
+        # every K4, K5 and K6 of the path runs on a rank's heads
+        for key in ("K4", "K5", "K6"):
+            for name in (f"{key} heads{suffix}", f"{key} heads{suffix} f32"):
+                if name in entries:
+                    entries[name]["launches"] = mine[key]
+        check(all(mine[k] > 0 for k in ("K4", "K5", "K6", "K1 heads", "K2 from d(o)",
+                                        "K3 partial", "K1 ln", "K3 epilogue")),
+              f"model {n}: every kernel of the path launched: {mine}")
+        for k, v in mine.items():
+            path[k] = path.get(k, 0) + v
     for key, entry in (("K1", "K1 heads"), ("K2", "K2 from d(o)"), ("K3", "K3 partial")):
-        entries[entry]["launches"] = path[entry]
         path[key] += path[entry]
-    for entry in ("K1 ln", "K3 epilogue"):
-        entries[entry]["launches"] = path[entry]
-    entries["K4 heads"]["launches"] = path["K4"]   # every K4 of the path runs on a rank's heads
-    check(all(path[k] > 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K1 ln",
-                                    "K3 epilogue")),
-          f"model: every kernel of the path launched: {path}")
     model_phase.entries = entries
     return {k: v for k, v in path.items() if k in counted_wrappers()}
 
@@ -4379,6 +4649,15 @@ def kernel_lines(rows: dict, by_path: dict) -> list:
     return kernels
 
 
+def host_available_gib() -> float:
+    """The host's MemAvailable (/proc/meminfo), GiB."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2 ** 20
+    return float("nan")
+
+
 def main(argv: list) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4389,8 +4668,8 @@ def main(argv: list) -> int:
         return host_rank(int(argv[1]), argv[2], argv[3])
     if argv[:1] == ["--seq-rank"] and len(argv) == 4:    # a rank of the seq phase
         return seq_worker(int(argv[1]), argv[2], argv[3])
-    if argv[:1] == ["--model-rank"] and len(argv) == 4:  # a rank of the model phase
-        return model_worker(int(argv[1]), argv[2], argv[3])
+    if argv[:1] == ["--model-rank"] and len(argv) == 5:  # a rank of the model phase
+        return model_worker(int(argv[1]), argv[2], argv[3], int(argv[4]))
     phases = PHASES
     if argv[:1] == ["--phases"] and len(argv) == 2:
         phases = tuple(argv[1].split(","))
@@ -4431,8 +4710,10 @@ def main(argv: list) -> int:
             rows[phase] = kernel_phases[phase](gen)
         else:
             by_path[phase] = path_phases[phase](card)
+        gc.collect()   # a phase's models can sit in reference cycles
         torch.cuda.empty_cache()
-        print(f"phase {phase}: {time.perf_counter() - t0:.1f} s", flush=True)
+        print(f"phase {phase}: {time.perf_counter() - t0:.1f} s (the host's memory available "
+              f"{host_available_gib():.1f} GiB)", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
 
     if failures:

@@ -37,6 +37,15 @@ Ulysses attention (``"ulysses"``, ``ops/ulysses_attention.py``) when the
 ambient mesh (``parallel/context.py``) has that axis with more than one
 rank; a length the axis does not divide warns and takes the
 single-device path, as in the TPU package.
+
+The model axis (``parallel/sharding.py``) splits the Q/K/V projections by
+columns over a model row, whatever the head count (the TPU package's rule,
+whose GSPMD reshards the heads). Where the row's size divides the heads, a
+rank computes its own heads; where it does not, a head may span ranks, and
+a rank computes every head its columns overlap (``gather_heads``), keeps
+its columns of their output and gathers the row's. Under such a split
+Ulysses, whose rule the TPU package states on whole heads, runs on all
+heads of q, k and v gathered whole.
 """
 
 from __future__ import annotations
@@ -66,7 +75,12 @@ from structured_alignment_vqa_tpu_torch.ops.layers import (
 from structured_alignment_vqa_tpu_torch.ops.ring_attention import ring_graph_attention
 from structured_alignment_vqa_tpu_torch.ops.ulysses_attention import ulysses_graph_attention
 from structured_alignment_vqa_tpu_torch.parallel.context import current_mesh
-from structured_alignment_vqa_tpu_torch.parallel.sharding import copy_to_model, gather_columns
+from structured_alignment_vqa_tpu_torch.parallel.sharding import (
+    copy_to_model,
+    gather_columns,
+    gather_heads,
+    head_range,
+)
 
 
 def content_mask(x: torch.Tensor) -> torch.Tensor:
@@ -102,6 +116,7 @@ def attention_core(
     causal: bool = False,
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    drawn: Optional[Tuple[int, int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Shared attention math of the three variants, in eager PyTorch.
 
@@ -110,7 +125,10 @@ def attention_core(
     (B, Tq, Tk) or broadcasts to it. With ``dropout_rate > 0`` the weights
     are dropped after the query mask and before the product with V, kept
     ones scaled by ``1 / (1 - dropout_rate)``, the mask drawn from
-    ``generator``; the caller passes a rate only in train mode.
+    ``generator``; the caller passes a rate only in train mode. ``drawn =
+    (h_lo, h_hi, H)``: the heads are heads ``[h_lo, h_hi)`` of ``H``, and
+    the mask is drawn for all ``H`` and sliced, so that the ranks of a
+    model row that compute one head drop the same weights of it.
     """
     tq, tk = q.shape[1], k.shape[1]
     dh = q.shape[-1] // num_heads
@@ -135,8 +153,11 @@ def attention_core(
     att_weights = att
     att = att * query_mask.float()[:, None, :, None]
     if dropout_rate > 0.0:
-        keep = torch.bernoulli(torch.full(att.shape, 1.0 - dropout_rate, device=att.device),
+        shape = att.shape if drawn is None else (att.shape[0], drawn[2], *att.shape[2:])
+        keep = torch.bernoulli(torch.full(shape, 1.0 - dropout_rate, device=att.device),
                                generator=generator)
+        if drawn is not None:
+            keep = keep[:, drawn[0]:drawn[1]]
         att = torch.where(keep.bool(), att / (1.0 - dropout_rate), torch.zeros_like(att))
     out = torch.matmul(att.to(vh.dtype).float(), vh.float())
     return _merge_heads(out).to(q.dtype), att_weights
@@ -173,22 +194,27 @@ class _AttentionBase(nn.Module):
     def _finish(self, out, queries):
         return layer_norm(out + queries, self.normalization.gamma, self.normalization.beta)
 
-    def _project(self, queries, keys, values, v_only: bool = False):
-        """``(q, k, v, heads, gather)``: the ReLU'd projections, the heads
-        this rank computes and what makes their output whole. Split over the
-        model axis, the projections are this rank's columns (each distinct
-        input passed once through ``copy_to_model``) and ``gather`` collects
-        the model row's columns; else all heads and the identity."""
+    def _project(self, queries, keys, values, v_only: bool = False, all_heads: bool = False):
+        """``(q, k, v, heads, whole, drawn)``: the ReLU'd projections, the
+        heads this rank computes, what makes their output whole, and
+        ``attention_core``'s ``drawn`` (None: the mask of ``heads`` heads).
+        Split over the model axis, the projections are this rank's columns
+        (each distinct input passed once through ``copy_to_model``). Where
+        the axis divides the heads, a rank computes its ``num_heads / n``
+        heads and ``whole`` gathers the model row's columns; where it does
+        not, a head may span ranks, and a rank computes every head its
+        columns overlap (gathered by ``gather_heads``) and ``whole`` takes
+        its columns of their output and gathers them. ``all_heads`` (Ulysses
+        under such a split) gathers q, k and v whole instead, and the output
+        is whole as it is. Not split: all heads and the identity; ``v_only``
+        projects V alone."""
         split = self.Q_proj[0].model_split
         if split is None:
             v = self.V_proj(values)
             if v_only:
-                return None, None, v, self.num_heads, lambda out: out
-            return self.Q_proj(queries), self.K_proj(keys), v, self.num_heads, lambda out: out
-        if self.num_heads % split.n:
-            raise NotImplementedError(
-                f"{self.num_heads} heads over a model axis of {split.n}: a rank would hold part "
-                "of a head (ROADMAP Queue 1 item 15b splits whole heads only)")
+                return None, None, v, self.num_heads, lambda out: out, None
+            return (self.Q_proj(queries), self.K_proj(keys), v, self.num_heads,
+                    lambda out: out, None)
         mesh = split.mesh
         copies = {}
 
@@ -198,11 +224,25 @@ class _AttentionBase(nn.Module):
             return dense_relu(proj, copies[id(x)], copied=True, local_out=True)
 
         v = local(self.V_proj, values)
-        heads = self.num_heads // split.n
         if v_only:
-            return None, None, v, heads, lambda out: gather_columns(out, mesh)
-        return (local(self.Q_proj, queries), local(self.K_proj, keys), v, heads,
-                lambda out: gather_columns(out, mesh))
+            return None, None, v, None, lambda out: gather_columns(out, mesh), None
+        q, k = local(self.Q_proj, queries), local(self.K_proj, keys)
+        if self.num_heads % split.n == 0:
+            return (q, k, v, self.num_heads // split.n, lambda out: gather_columns(out, mesh),
+                    None)
+        if all_heads:
+            q, k, v = (gather_columns(t, mesh) for t in (q, k, v))
+            return q, k, v, self.num_heads, lambda out: out, None
+        cols = v.shape[-1]
+        head_dim = cols * split.n // self.num_heads
+        h_lo, h_hi = head_range(split.index, cols, head_dim)
+        q, k, v = (gather_heads(t, mesh, h_lo, h_hi, head_dim) for t in (q, k, v))
+        offset = split.index * cols - h_lo * head_dim
+
+        def whole(out):
+            return gather_columns(out[..., offset:offset + cols].contiguous(), mesh)
+
+        return q, k, v, h_hi - h_lo, whole, (h_lo, h_hi, self.num_heads)
 
     def _run(self, queries, keys, values, graph, generator=None):
         renorm = self.renorm
@@ -212,32 +252,38 @@ class _AttentionBase(nn.Module):
         # so the block is LN(query_mask * V(x) + x). Exact only without a
         # graph and renorm, as in the TPU package.
         if tq == 1 and tk == 1 and graph is None and renorm is None and dropout_rate == 0.0:
-            _, _, v, _, whole = self._project(queries, keys, values, v_only=True)
+            _, _, v, _, whole, _ = self._project(queries, keys, values, v_only=True)
             v = whole(v * content_mask(queries)[..., None].to(v.dtype))
             out = self._finish(v, queries)
             if self.return_att:
                 return out, torch.ones(b, self.num_heads, 1, 1, device=out.device)
             return out
 
-        q, k, v, heads, whole = self._project(queries, keys, values)
-        key_mask, query_mask = content_mask(keys), content_mask(queries)
         # The kernels return no attention weights and draw no dropout, so a
         # call that asks for either runs attention_core on every device: the
         # TPU package's dispatch rule (its kernels exclude return_att and a
         # dropout rng alike), not a fallback from a failed launch.
-        if (graph is not None and renorm is not None and not self.causality
-                and not self.return_att and dropout_rate == 0.0):
+        kernels = (graph is not None and renorm is not None and not self.causality
+                   and not self.return_att and dropout_rate == 0.0)
+        seq_mesh = self._seq_mesh(queries, keys) if kernels else None
+        q, k, v, heads, whole, drawn = self._project(
+            queries, keys, values, all_heads=seq_mesh is not None and self.seq_impl == "ulysses")
+        key_mask, query_mask = content_mask(keys), content_mask(queries)
+        if kernels:
             q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
             # the kernels read a whole (B, Tq, Tk) graph: expand a broadcast one
             graph = graph.float().expand(b, tq, tk).contiguous()
-            out = self._seq_parallel(q, k, v, key_mask, query_mask, graph, queries, keys, heads)
-            if out is not None:
+            if seq_mesh is not None:
+                seq_attention = (ulysses_graph_attention if self.seq_impl == "ulysses"
+                                 else ring_graph_attention)
+                out = seq_attention(q, k, v, key_mask, query_mask, graph, heads, self.renorm,
+                                    seq_mesh, self.seq_axis)
                 return self._finish(whole(out), queries)
             if keys.shape[1] > MAX_KEYS:
                 # long sequences: the K-blocked kernels, then residual + LayerNorm
                 out = flash_graph_attention(q, k, v, key_mask, query_mask, graph, heads, renorm)
                 return self._finish(whole(out), queries)
-            if heads != self.num_heads:
+            if self.Q_proj[0].model_split is not None:
                 # the model axis: this rank's heads, their outputs gathered,
                 # then the residual and the LayerNorm on every column
                 o = whole(graph_attention_heads(q, k, v, key_mask, query_mask, graph, heads,
@@ -251,16 +297,16 @@ class _AttentionBase(nn.Module):
 
         out, att = attention_core(q, k, v, key_mask, query_mask, heads, graph=graph,
                                   renorm=renorm, causal=self.causality,
-                                  dropout_rate=dropout_rate, generator=generator)
+                                  dropout_rate=dropout_rate, generator=generator, drawn=drawn)
         out = self._finish(whole(out), queries)
         if self.return_att:
             return out, att
         return out
 
-    def _seq_parallel(self, q, k, v, key_mask, query_mask, graph, queries, keys, heads):
-        """Ring or Ulysses attention over the ambient mesh's ``seq_axis``
-        (self-attention only), or None where the call takes the
-        single-device path."""
+    def _seq_mesh(self, queries, keys):
+        """The ambient mesh when ring or Ulysses attention over its
+        ``seq_axis`` takes this call (self-attention only), or None where
+        the call takes the single-device path."""
         mesh = current_mesh()
         if self.seq_axis is None or mesh is None or queries.shape != keys.shape:
             return None
@@ -273,10 +319,7 @@ class _AttentionBase(nn.Module):
                 f"{self.seq_axis}={n_seq}; falling back to the single-device kernel (pick "
                 "bucket maxlens divisible by the seq axis)", stacklevel=3)
             return None
-        seq_attention = (ulysses_graph_attention if self.seq_impl == "ulysses"
-                         else ring_graph_attention)
-        return seq_attention(q, k, v, key_mask, query_mask, graph, heads, self.renorm, mesh,
-                             self.seq_axis)
+        return mesh
 
 
 class MultiHeadAttention(_AttentionBase):

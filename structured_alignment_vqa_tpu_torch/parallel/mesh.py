@@ -131,21 +131,15 @@ class Mesh:
 
 def check_axes(model_parallel: int = 1, seq_parallel: int = 1, hidden_size: int = 0,
                num_heads: int = 1) -> None:
-    """Raise for the one layout the port refuses: the attention projections
-    split by columns over ``model_parallel`` (``hidden_size`` divisible by
-    it and at least 4 columns a rank, ``parallel/sharding.py:param_pspec``)
-    while ``num_heads`` does not divide by it. A rank would then hold part
-    of a head; GSPMD reshards that, the port does not. Every other
-    ``model_parallel`` and ``seq_parallel`` is covered."""
+    """Raise ``ValueError`` for axis sizes below 1, or for a ``hidden_size``
+    that ``num_heads`` does not divide. Every ``model_parallel`` is covered:
+    where it splits the attention projections' columns but not the heads, a
+    head spans ranks and each rank computes the heads its columns overlap
+    (``ops/attention.py``), as the TPU package's GSPMD reshards them."""
     if model_parallel < 1 or seq_parallel < 1:
         raise ValueError(f"axis sizes must be >= 1: model {model_parallel}, seq {seq_parallel}")
-    splits_heads = (model_parallel > 1 and hidden_size % model_parallel == 0
-                    and hidden_size >= 4 * model_parallel)
-    if splits_heads and num_heads % model_parallel:
-        raise NotImplementedError(
-            f"model_parallel={model_parallel} splits the attention projections' "
-            f"{hidden_size} columns but not num_heads={num_heads}: a rank would hold part of "
-            "a head (the model axis, ROADMAP Queue 1 item 15b, splits whole heads only)")
+    if hidden_size and hidden_size % num_heads:
+        raise ValueError(f"hidden_size={hidden_size} is not divisible by num_heads={num_heads}")
 
 
 def single_mesh(device=None) -> Mesh:

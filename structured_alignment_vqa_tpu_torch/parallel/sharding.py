@@ -43,8 +43,11 @@ row (``Mesh.model_group``) themselves: :func:`copy_to_model` (identity,
 all-reduce backward) before a column-split layer, :func:`reduce_from_model`
 (all-reduce, identity backward) after a row-split one,
 :func:`gather_columns` (all-gather, this rank's slice backward) after a
-column-split layer whose consumer is whole, :func:`scatter_columns` (the
-reverse) before a row-split layer whose input is whole, and
+column-split layer whose consumer is whole, :func:`gather_heads`
+(all-gather keeping the heads a rank's columns overlap, backward summed
+over the row) where the axis does not divide the heads and a head spans
+ranks, :func:`scatter_columns` (the reverse of :func:`gather_columns`)
+before a row-split layer whose input is whole, and
 :func:`vocab_lookup` (the ids outside the shard masked, the local rows
 looked up, then reduced). A column-split layer's bias is replicated but
 each rank uses only its slice, so its gradient is partial
@@ -501,6 +504,43 @@ def gather_columns(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The model row's column shards of ``x`` concatenated on the last axis;
     the backward takes this rank's slice of the gradient."""
     return _Gather.apply(x, mesh)
+
+
+class _GatherHeads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, lo, hi):
+        ctx.mesh, ctx.lo, ctx.hi, ctx.cols = mesh, lo, hi, x.shape[-1]
+        out = _all_gather_model(x, mesh, x.dim() - 1)
+        model_bytes.sent += out.numel() * out.element_size()
+        return out[..., lo:hi].contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, cols = ctx.mesh, ctx.cols
+        whole = grad.new_zeros(*grad.shape[:-1], cols * mesh.model)
+        whole[..., ctx.lo:ctx.hi] = grad
+        whole = _all_reduce_model(whole, mesh)
+        return whole.narrow(-1, mesh.model_index * cols, cols).contiguous(), None, None, None
+
+
+def gather_heads(x: torch.Tensor, mesh: Mesh, h_lo: int, h_hi: int,
+                 head_dim: int) -> torch.Tensor:
+    """Heads ``[h_lo, h_hi)`` (``head_dim`` columns each) of the model row's
+    column shards ``x`` concatenated on the last axis: the heads a rank's
+    columns overlap when a head spans several ranks.
+
+    The backward puts the heads' gradient back at their columns, zeros
+    elsewhere, sums it over the model row and keeps this rank's columns.
+    Two ranks that compute one head for different output columns each hold
+    only their share of its dq, dk and dv; the sum adds the shares (a slice,
+    as :func:`gather_columns`'s backward, would drop the other rank's)."""
+    return _GatherHeads.apply(x, mesh, h_lo * head_dim, h_hi * head_dim)
+
+
+def head_range(index: int, cols: int, head_dim: int) -> tuple:
+    """``(h_lo, h_hi)``: the heads that columns ``[index * cols, (index + 1)
+    * cols)`` overlap (``head_dim`` columns a head)."""
+    return index * cols // head_dim, -(-(index + 1) * cols // head_dim)
 
 
 def scatter_columns(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:

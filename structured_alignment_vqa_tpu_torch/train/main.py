@@ -20,8 +20,10 @@ The model axis: ``--model_parallel N`` splits the parameters over N ranks
 a data row (``parallel/sharding.py:param_pspec``), the ranks of a row
 taking the same samples; each invocation starts N ranks for every data
 rank (N gloo ranks on the CPU with ``--platform cpu``), rank r at data
-``r // N`` and model ``r % N``. A layout that would split a head between
-ranks raises ``NotImplementedError`` (``parallel/mesh.py:check_axes``).
+``r // N`` and model ``r % N``. Where N splits the attention projections'
+columns but not the heads (8 heads over 16 ranks at hidden 512), a head
+spans ranks and each rank computes the heads its columns overlap
+(``ops/attention.py``), as the TPU package's GSPMD reshards them.
 
 Data parallel: each invocation starts one rank per visible card, as many
 as divide ``--batch_size`` (the TPU package's ``fitting_mesh`` rule, which
@@ -182,9 +184,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def check_supported_flags(args) -> None:
-    """Raise ``NotImplementedError`` for the one model-axis layout the port
-    refuses (a head split between ranks), and ``ValueError`` for several
-    hosts without a coordinator."""
+    """Raise ``ValueError`` for axis sizes the mesh cannot take
+    (``parallel/mesh.py:check_axes``) and for several hosts without a
+    coordinator."""
     check_axes(model_parallel=args.model_parallel, hidden_size=args.hidden_size,
                num_heads=args.num_heads)
     if args.num_processes > 1 and not args.coordinator:

@@ -13,13 +13,17 @@ perturbed with numpy noise (off the LayerNorm knife edge); the TPU package's
 * the per-batch ensemble log-softmaxes agree within 1e-4;
 * the two eval CLIs give losses within 1e-4 and equal accuracies;
 * the port's checkpoint round-trips; every flag of the TPU package's parser
-  parses in the port's; unported flags raise naming their ROADMAP item; the
+  parses in the port's; unported flags raise naming their ROADMAP item;
+  with ``--model_parallel 4`` (a head split between ranks) over four spawned
+  ranks the CLIs give one process's answers and eval line; the
   sparse table's and packing's training flags change nothing here; and without
   ``--platform cpu`` and without a card the CLIs raise.
 """
 
 import json
 import os
+import re
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -43,6 +47,7 @@ from structured_alignment_vqa_tpu_torch.data.synthetic import synthetic_batch
 from structured_alignment_vqa_tpu_torch.data.transfer import host_tensors
 from structured_alignment_vqa_tpu_torch.models import AttModelX3, init_random_, tiny_test_config
 from structured_alignment_vqa_tpu_torch.models.convert import GLOVE_SLOTS, state_dict_from_jax
+from structured_alignment_vqa_tpu_torch.parallel.dryrun import launch_local
 from structured_alignment_vqa_tpu_torch.parallel.train_step import (
     TrainState,
     adam,
@@ -264,21 +269,76 @@ def test_every_jax_flag_parses_with_the_same_default_and_value():
     assert n == len(jp._actions) - 1
 
 
-# several hosts need a coordinator (data parallelism is ported: item 15);
-# the model axis is ported (item 15b) but for a head split between ranks:
-# hidden 16 over 4 ranks splits the projections, 2 heads do not divide
+# several hosts need a coordinator (data parallelism is ported: item 15)
 UNPORTED = [
     (["--num_processes", "2"], ValueError, "needs --coordinator"),
-    (["--model_parallel", "4"], NotImplementedError, "item 15b"),
 ]
+EVAL_LINE = re.compile(r"Eval\[val\] Loss: ([^,]+), accuracy: ([0-9.]+)/([0-9.]+) =")
+EVAL_RTOL = 1e-5
 
 
 @pytest.mark.parametrize("cli", ["predict", "evaluate"])
-@pytest.mark.parametrize("flags,error,item", UNPORTED, ids=["--coordinator", "--model_parallel"])
+@pytest.mark.parametrize("flags,error,item", UNPORTED, ids=["--coordinator"])
 def test_unported_flags_raise_naming_their_item(world, cli, flags, error, item):
     main = {"predict": predict.main, "evaluate": evaluate.main}[cli]
     with pytest.raises(error, match=item):
         main(world["args"] + ["--weight_dir", world["port_ckpt"]] + flags)
+
+
+@pytest.fixture(scope="module")
+def model_parallel_runs(world):
+    """The predict CLI (train split) and the eval CLI (val) on the world's
+    checkpoint, each in one process and with ``--model_parallel 4`` (four
+    spawned gloo ranks), all four side by side."""
+    tmp, runs = world["tmp"], []
+    for cli in ("predict", "evaluate"):
+        for tag, extra in (("one", ()), ("mp4", ("--model_parallel", "4"))):
+            out = str(tmp / f"{cli}_{tag}")
+            argv = world["args"] + ["--weight_dir", world["port_ckpt"], "--output_dir", out,
+                                    *extra]
+            if cli == "predict":
+                argv += ["--split", "train", "--out", f"{out}.jsonl"]
+            code = ("import os, sys; os.environ['OMP_NUM_THREADS'] = '1'; "
+                    f"from structured_alignment_vqa_tpu_torch.train import {cli}; "
+                    f"{cli}.main(sys.argv[1:])")
+            runs.append([sys.executable, "-c", code, *argv])
+    launch_local(runs, timeout=300)
+    return tmp
+
+
+@pytest.mark.parametrize("cli", ["predict", "evaluate"])
+def test_model_parallel_4_clis_equal_one_process(model_parallel_runs, scores, cli):
+    """hidden 16 over 4 model ranks splits the projections and its 2 heads
+    do not divide (a head split between ranks): the predict CLI writes one
+    process's answers file (but for near ties), the eval CLI logs one
+    process's line."""
+    tmp = model_parallel_runs
+    if cli == "predict":
+        want, got = (read_jsonl(tmp / f"predict_{tag}.jsonl") for tag in ("one", "mp4"))
+        assert len(want) == len(got) > 0
+        assert [w["index"] for w in want] == [g["index"] for g in got]
+        gaps = port_top2_gaps(scores)
+        assert all(gaps[w["index"]] < TIE_GAP for w, g in zip(want, got) if w != g)
+    else:
+        logs = []
+        for tag in ("one", "mp4"):
+            with open(tmp / f"evaluate_{tag}" / "training.log") as f:
+                logs.append(EVAL_LINE.findall(f.read()))
+        (want,), (got,) = logs
+        assert got[1:] == want[1:] and float(want[2]) > 0, (got, want)
+        assert abs(float(got[0]) - float(want[0])) <= EVAL_RTOL * abs(float(want[0]))
+
+
+def port_top2_gaps(scores):
+    """{sample index: the gap between the port's top two ensemble scores}
+    over the predict loader's stream (train split, in order)."""
+    gaps, base = {}, 0
+    for _, pscores, valid in scores:
+        top2 = np.sort(pscores, axis=-1)[:, -2:]
+        for j in np.flatnonzero(valid):
+            gaps[base + j] = float(top2[j, 1] - top2[j, 0])
+        base += len(valid)
+    return gaps
 
 
 @pytest.mark.parametrize("cli", ["predict", "evaluate"])

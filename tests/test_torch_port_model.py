@@ -205,12 +205,14 @@ def test_batch_fields_match_jax_batch_and_move_with_to():
 def test_unported_settings_raise(cfg_kw):
     # seq_axis is ported (ring and Ulysses attention, ROADMAP item 16): the
     # model builds with it; the model axis (item 15b) is ported too, and on
-    # the mesh that seq_axis would run on only the one layout it refuses, a
-    # head split between ranks, raises
+    # the mesh that seq_axis would run on a head split between ranks
+    # (hidden 16 over model 4, 2 heads; item 15d) passes as well: only
+    # sizes the mesh cannot take raise
     AttModelX3(ModelConfig(**TINY, **cfg_kw), device="cpu")
     check_axes(model_parallel=2, seq_parallel=2, hidden_size=16, num_heads=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 15b"):
-        check_axes(model_parallel=4, seq_parallel=2, hidden_size=16, num_heads=2)
+    check_axes(model_parallel=4, seq_parallel=2, hidden_size=16, num_heads=2)
+    with pytest.raises(ValueError, match="axis sizes must be >= 1"):
+        check_axes(model_parallel=0, seq_parallel=2, hidden_size=16, num_heads=2)
 
 
 @pytest.mark.parametrize("cfg_kw", [

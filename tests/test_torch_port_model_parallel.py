@@ -235,8 +235,8 @@ def port_cases(cases):
             for name, c in cases.items()}
 
 
-def jax_mesh_step(case):
-    """JAX's step on ``make_mesh(4, model_parallel=2)`` (state laid out by
+def jax_mesh_step(case, n_devices=WORLD, model_parallel=2):
+    """JAX's step on ``make_mesh(n_devices, model_parallel)`` (state laid out by
     its ``shard_state``, the batch by ``put_batch``): the metrics, the params
     after it and the gradients (Adam's first moment over 1 - b1), whole, by
     the port's names."""
@@ -248,7 +248,7 @@ def jax_mesh_step(case):
                      init_table_opt(table))
     else:
         opt_state = tx.init(params)
-    mesh = make_mesh(4, model_parallel=2)
+    mesh = make_mesh(n_devices, model_parallel=model_parallel)
     state = jax_shard_state(JaxState(step=jnp.zeros((), jnp.int32), params=params,
                                      opt_state=opt_state), mesh)
     step = jax_train_step(model, tx, model.cfg, sparse_table=case["sparse"], table_lr=LR)
@@ -282,15 +282,16 @@ def port_single_step(case):
     return out
 
 
-def jax_shards(jparams, n):
-    """{port name: [shard of device d for d in 0..3]} of the JAX package's
-    params laid out by its rules on ``make_mesh(4, model_parallel=n)``."""
-    mesh = make_mesh(4, model_parallel=n)
+def jax_shards(jparams, n, n_devices=WORLD, num_blocks=TINY_KW["num_blocks"]):
+    """{port name: [shard of device d for d in 0..n_devices-1]} of the JAX
+    package's params laid out by its rules on ``make_mesh(n_devices,
+    model_parallel=n)``."""
+    mesh = make_mesh(n_devices, model_parallel=n)
     placed = jax.tree_util.tree_map_with_path(
         lambda path, v: jax.device_put(v, NamedSharding(mesh, jax_pspec(path, v, n))), jparams)
     devices = list(mesh.devices.reshape(-1))
     out = {}
-    for tname, path, transpose in name_map(TINY_KW["num_blocks"]):
+    for tname, path, transpose in name_map(num_blocks):
         node = placed
         for key in path:
             node = node.get(key) if isinstance(node, dict) else None

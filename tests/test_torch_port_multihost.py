@@ -513,7 +513,13 @@ def test_launcher_dry_run_prints_one_command_a_host(capsys):
 
 
 def test_model_parallel_still_raises_naming_item_15b():
-    # the model axis is ported (tests/test_torch_port_model_parallel.py);
-    # what still raises is a head split between ranks: 8 heads over 16
-    with pytest.raises(NotImplementedError, match="item 15b"):
-        train_main.main(["--model_parallel", "16", "--platform", "cpu"])
+    # the model axis is ported (tests/test_torch_port_model_parallel.py),
+    # and a head split between ranks too (item 15d,
+    # tests/test_torch_port_model_parallel_heads.py): the production model's
+    # 8 heads over 16 ranks pass the flags' check, and on the CPU one
+    # invocation starts the 16 ranks of a data rank
+    train_main.check_axes(model_parallel=16, hidden_size=512, num_heads=8)
+    args = train_main.build_parser().parse_args(["--model_parallel", "16", "--platform", "cpu"])
+    assert (args.hidden_size, args.num_heads) == (512, 8)
+    train_main.check_supported_flags(args)
+    assert train_main.local_ranks(args) == 16

@@ -384,7 +384,9 @@ def test_seq_axis_is_supported_and_the_model_axis_still_raises():
     model = AttModelX3(ModelConfig(seq_axis="seq", seq_impl="ulysses", **TINY_KW),
                        device="cpu")
     assert model.att_syb.enc_self_attention_0.seq_impl == "ulysses"
-    # the model axis is ported; a head split between ranks still raises
+    # the model axis is ported, a head split between ranks too (item 15d:
+    # 3 heads over model 2); a hidden width the heads do not divide raises
     check_axes(model_parallel=2, seq_parallel=2, hidden_size=16, num_heads=2)
-    with pytest.raises(NotImplementedError, match="item 15b"):
+    check_axes(model_parallel=2, seq_parallel=2, hidden_size=24, num_heads=3)
+    with pytest.raises(ValueError, match="not divisible by num_heads"):
         check_axes(model_parallel=2, seq_parallel=2, hidden_size=16, num_heads=3)
