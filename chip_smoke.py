@@ -234,9 +234,10 @@ Phases, each of which must pass:
     and epilogue against their plain versions at the main path's model-2
     shapes (B 128, L 128, 4 heads of 64; 16,384 rows of 512, a hidden
     shard of 1,024), and K4 on 4 heads of 64 at the obj+rel point (SDPA
-    beside it); then at the model-16 shapes, where each of the 8 heads
-    spans two ranks and a rank computes one head: K1's attention-only
-    entry and K2 from d(o) on 1 head of 64, K3's partial on a hidden shard
+    beside K1's attention-only entry and K4); then at the model-16 shapes,
+    where each of the 8 heads spans two ranks and a rank computes one
+    head: K1's attention-only entry and K2 from d(o) on 1 head of 64, K3's
+    partial on a hidden shard
     of 128, K4, K5 and K6 on 1 head at the obj+rel point (their key
     splits); bf16 and f32, timed beside their bounds; then two gloo ranks
     on the one card (worker processes of this script, ``--model-rank``) as
@@ -247,12 +248,28 @@ Phases, each of which must pass:
     equal where the margin is clear), an f32 obj-only
     step at bs 32 and an f32 obj+rel step (bs 4 at model 2, bs 2 at model
     16; K4, K5 and K6 on a rank's heads) against one process's, as the dp
-    phase holds its ranks (at model 16 one process takes the ranks' ReLU
-    decisions in the attention projections, each taken against its own
-    within 1e-5 of its call's max|x|); each run's launches (every K1 and K3
+    phase holds its ranks (one process taking the ranks' decisions, as
+    below); each run's launches (every K1 and K3
     as the model axis's entries), as information a rank's parameter MiB
     against one process's, the bytes through the model row's collectives,
     a rank's seconds and the card's memory in use.
+
+Every f32 check that pairs two paths (the f32 logits of serving, obj+rel
+serving, the MCB head and the 17 variants, the training phases' f32 steps
+and the variants' f32 backwards, kernels against plain versions; the
+packed f32 isolation; the dp, seq and model f32 steps against one
+process's) makes its reference take the tested path's decisions outside
+the kernels: each ReLU's (input > 0) and each ``content_mask`` row's
+(sum != 0), recorded as the tested path runs and joined into one
+process's layout (a model row's columns, a data row's rows, a seq row's
+rank 0, a packed sample's slot and offsets). Each decision taken against
+the reference's own must have its input within 1e-5 of its call's largest
+|input|, and at most 1e-5 of the run's decisions may be such; each such
+call is printed ("... decision(s) pinned, the largest |x| ..."), and
+each check prints a ``pair check: {...}`` line (its largest error, its
+limit, the decisions pinned) that ``scripts/pair_checks_reordered.py``
+reads. An FFN's hidden ReLU is taken where it runs outside K3: in K3's
+backward, whose mask sets the gradient, and in its plain version.
 
 ``--phases a,b`` (of card, k1, k3, k2, serving, training, k4, k56,
 objrel_serving, objrel_training, cli, train_cli, packed, dp, host, variants,
@@ -691,17 +708,24 @@ def device_kernels_only(fn, what: str, mine: tuple, source: str) -> None:
     """Check that calls of ``fn`` under torch.profiler launch only kernels
     whose names hold one of ``mine`` (the kernels of ``source``) and no
     library GEMM. Three calls: after an earlier profile in the process the
-    profiler has been seen to miss the first kernels of a session."""
+    profiler has been seen to miss the first kernels of a session; a
+    session that saw no device kernel at all is profiled again, twice at
+    most (on one slow machine it missed all three calls)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            fn()
+    for attempt in range(3):
         torch.cuda.synchronize()
-    names = sorted({e.name for e in prof.events()
-                    if e.device_type == DeviceType.CUDA and not e.is_user_annotation})
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        names = sorted({e.name for e in prof.events()
+                        if e.device_type == DeviceType.CUDA and not e.is_user_annotation})
+        if names:
+            break
+        print(f"{what}: the profiler saw no device kernel in session {attempt + 1}",
+              flush=True)
     foreign = [n for n in names if not any(m in n for m in mine)
                or any(mark in n.lower() for mark in LIBRARY_GEMM_MARKS)]
     check(bool(names) and not foreign,
@@ -1031,14 +1055,15 @@ def k4_phase(gen) -> dict:
     return {r["label"] + str(r["dtype"]): r for r in rows}
 
 
-def sdpa_yardstick(args, heads: int = HEADS) -> tuple:
-    """One library call beside K4, timed and used nowhere in the port:
-    ``scaled_dot_product_attention`` with ``graph > 0 and key unmasked`` as a
-    boolean mask. For a 0/1 graph it is K4's l1 output on every row that has
-    an unmasked neighbour (the renorm of softmax x graph is the softmax over
-    the neighbours); on other rows it gives NaN where K4 gives 0 or the
-    fill-value average. Returns (ms, max |K4 - SDPA| over the rows both
-    define)."""
+def sdpa_yardstick(args, heads: int = HEADS, ours=None) -> tuple:
+    """One library call beside K4 (or ``ours()``, another kernel's
+    attention without a LayerNorm: K1's attention-only entry), timed and
+    used nowhere in the port: ``scaled_dot_product_attention`` with
+    ``graph > 0 and key unmasked`` as a boolean mask. For a 0/1 graph it is
+    the l1 output on every row that has an unmasked neighbour (the renorm
+    of softmax x graph is the softmax over the neighbours); on other rows
+    it gives NaN where the kernels give 0 or the fill-value average.
+    Returns (ms, max |kernel - SDPA| over the rows both define)."""
     import torch.nn.functional as F
 
     from structured_alignment_vqa_tpu_torch.ops import flash_graph_attention as fl
@@ -1051,7 +1076,7 @@ def sdpa_yardstick(args, heads: int = HEADS) -> tuple:
     call = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
     ms = time_ms(call)
     lib = call().transpose(1, 2).reshape(b, tq, c).float()
-    ours = fl.flash_graph_attention(*args, heads, "l1").float()
+    ours = (ours or (lambda: fl.flash_graph_attention(*args, heads, "l1")))().float()
     rows = mask[:, 0].any(dim=-1) & (query_mask > 0)
     err = (lib - ours)[rows].abs().max().item() if bool(rows.any()) else 0.0
     return ms, err
@@ -1272,6 +1297,328 @@ def profile_device(fn, what: str, host_top: int = 0) -> dict:
     return by_name
 
 
+# ---- the decisions of the f32 pair checks (ROADMAP Queue 3) ---------------
+
+# A check that pairs two f32 paths (ranks against one process, kernels
+# against their plain versions, a packed slot against its sample alone)
+# holds them near f32 rounding. A decision taken outside the kernels whose
+# input lies within rounding of its threshold can fall the other way on one
+# side and move a gradient or a logit by a whole term: the sign of a ReLU's
+# input, and whether a row that ops/attention.py:content_mask reads sums to
+# 0. So the path under test records its decisions, a join puts them into
+# one process's layout, and the reference takes them: both sides then
+# compute one function. Each decision the reference takes against its own
+# must be a knife edge, its input within KNIFE_EDGE of its call's largest
+# |input|, and at most KNIFE_EDGES of the run's decisions may be such: a
+# fault that moves decisions is refused, not copied.
+KNIFE_EDGE = 1e-5
+KNIFE_EDGES = 1e-5
+# the site of content_mask's decisions (a ReLU's site is its module's name)
+CONTENT_MASK = "content_mask"
+RELU = "ReLU"
+
+
+def relu_sites(model) -> dict:
+    """name -> (the layer before it, the ReLU) of every ``nn.ReLU`` of
+    ``model``; each follows its Linear in a Sequential (``linear_relu``,
+    the heads, the variants' MLPs). An FFN's ``conv1`` ReLU is not run as
+    a module: see :func:`ffn_relus`."""
+    before = {id(m): seq[i - 1] for seq in model.modules()
+              if isinstance(seq, torch.nn.Sequential) for i, m in enumerate(seq) if i}
+    return {name: (before.get(id(m)), m) for name, m in model.named_modules()
+            if isinstance(m, torch.nn.ReLU)}
+
+
+@contextlib.contextmanager
+def ffn_relus(model, relu):
+    """Route the FFNs' hidden ReLU, where it runs outside K3, through
+    ``relu(site, x)``, the site the name of the FFN's ``conv1`` ReLU module:
+    in the backward's recomputation (``ffn_ln_composite``,
+    ``ffn_partial_composite``), whose mask sets the gradient, and in the
+    plain version (``ffn_ln_plain``). K3's forward takes the decision
+    inside the kernel, where only the output's value, continuous in the
+    input, depends on it. An FFN is known by its ``conv1`` weight, which
+    an f32 call passes as it is: ``F.linear`` of it names the site that
+    the ``torch.relu`` after it takes."""
+    from structured_alignment_vqa_tpu_torch.ops import fused_ffn
+    from structured_alignment_vqa_tpu_torch.ops.layers import FeedForward
+
+    sites = {m.conv1[0].weight.data_ptr(): f"{name}.conv1.1"
+             for name, m in model.named_modules() if isinstance(m, FeedForward)}
+    last = [None]
+
+    class Functional:   # fused_ffn's F: linear notes the FFN of its weight
+        def __getattr__(self, name):
+            return getattr(torch.nn.functional, name)
+
+        @staticmethod
+        def linear(x, w, b=None):
+            last[0] = sites.get(w.data_ptr())
+            return torch.nn.functional.linear(x, w, b)
+
+    class Torch:        # fused_ffn's torch: relu takes that FFN's site
+        def __getattr__(self, name):
+            return getattr(torch, name)
+
+        @staticmethod
+        def relu(x):
+            site, last[0] = last[0], None
+            return torch.relu(x) if site is None else relu(site, x)
+
+    with mock.patch.object(fused_ffn, "F", Functional()), \
+            mock.patch.object(fused_ffn, "torch", Torch()):
+        yield
+
+
+@contextlib.contextmanager
+def recorded_decisions(model):
+    """Record the decisions ``model`` takes while the block runs: every
+    ReLU's (input > 0, a bool tensor a call) and every ``content_mask``
+    call's (its rows' |sum| in float32; the decision is != 0). Yields
+    ``{"calls": {site: [a call's record]}, "widths": {site: the width of
+    the ReLU's input in one process}}``: on a model rank a column-split
+    layer's ReLU sees this rank's columns only."""
+    from structured_alignment_vqa_tpu_torch.ops import attention
+
+    calls, widths, hooks = {}, {}, []
+    for name, (before, relu) in relu_sites(model).items():
+        widths[name] = getattr(before, "out_features", None)
+        calls[name] = []
+        hooks.append(relu.register_forward_hook(
+            lambda _m, inputs, _out, mine=calls[name]: mine.append(inputs[0].detach() > 0)))
+    calls[CONTENT_MASK] = []
+    real = attention.content_mask
+
+    def content_mask(x):
+        calls[CONTENT_MASK].append(x.detach().float().sum(dim=-1).abs())
+        return real(x)
+
+    def ffn_relu(site, x):
+        calls[site].append(x.detach() > 0)
+        return torch.relu(x)
+
+    try:
+        with mock.patch.object(attention, "content_mask", content_mask), \
+                ffn_relus(model, ffn_relu):
+            yield {"calls": calls, "widths": widths}
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def decisions_to_cpu(records: dict) -> dict:
+    return {"calls": {site: [c.cpu() for c in calls] for site, calls in records["calls"].items()},
+            "widths": records["widths"]}
+
+
+def join_model(parts: list) -> dict:
+    """One process's decisions from a model row's (a record a rank, in
+    model order): a column-split layer's columns concatenated; what every
+    rank of the row computes whole (the rows content_mask reads, a gathered
+    layer's ReLU) taken from rank 0."""
+    widths = parts[0]["widths"]
+    return {"calls": {site: [
+        torch.cat([p["calls"][site][i] for p in parts], -1)
+        if site != CONTENT_MASK and call.shape[-1] != widths[site] else call
+        for i, call in enumerate(calls)] for site, calls in parts[0]["calls"].items()}}
+
+
+def join_rows(parts: list) -> dict:
+    """One process's decisions from a data row's (a record a rank, in rank
+    order), each rank's batch rows the rank-major slice ``batch_rows`` cuts:
+    every call's records concatenated along the batch."""
+    return {"calls": {site: [torch.cat([p["calls"][site][i] for p in parts], 0)
+                             for i in range(len(calls))]
+                      for site, calls in parts[0]["calls"].items()}}
+
+
+def join_replicated(parts: list) -> tuple:
+    """(rank 0's decisions, whether every rank's equal them) of a seq row:
+    ring and Ulysses take the whole (B, L, C) tensors on every rank of the
+    row and return the whole output on each, so every decision outside the
+    kernels is taken on whole tensors, alike on every rank."""
+    first = parts[0]["calls"]
+    same = all(len(p["calls"][site]) == len(calls)
+               and all(torch.equal(a, b) for a, b in zip(p["calls"][site], calls))
+               for p in parts[1:] for site, calls in first.items())
+    return {"calls": first}, same
+
+
+class Pins:
+    """Decisions recorded on the path under test and joined into one
+    process's layout (``{"calls": {site: [a call's record]}}``; a record
+    may be a pair (record, defined) where only part of the call has a
+    counterpart, the rest taking its own), for a reference run to take
+    (:func:`pinned_decisions`); and what that run took: its decisions by
+    kind, each call where some differed from its own (kind, site, call, how
+    many, their largest |input|, that over the call's largest |input|), and
+    any call whose count or shape did not match."""
+
+    def __init__(self, records: dict):
+        self.calls = records["calls"]
+        self.taken = dict.fromkeys(self.calls, 0)
+        self.decisions = {RELU: 0, CONTENT_MASK: 0}
+        self.flips = []
+        self.mismatches = []
+
+    def differ(self, kind: str) -> int:
+        return sum(f[3] for f in self.flips if f[0] == kind)
+
+    @property
+    def pinned(self) -> int:
+        return sum(f[3] for f in self.flips)
+
+    @property
+    def worst(self) -> float:
+        return max((f[5] for f in self.flips), default=0.0)
+
+    @property
+    def largest(self) -> float:
+        return max((f[4] for f in self.flips), default=0.0)
+
+    def knife_edges_only(self) -> bool:
+        """Every call matched; every decision taken against the run's own
+        within rounding of its threshold, and few of all the run took."""
+        return (not self.mismatches and self.worst <= KNIFE_EDGE
+                and self.pinned <= KNIFE_EDGES * sum(self.decisions.values()))
+
+    def finish(self) -> None:
+        """Count a site whose recorded calls the run did not all take (once,
+        after the run)."""
+        for site, calls in self.calls.items():
+            if self.taken.get(site, 0) != len(calls):
+                self.mismatches.append(f"{site}: {len(calls)} calls recorded, "
+                                       f"{self.taken.get(site, 0)} taken")
+
+    def _next(self, site: str, shape):
+        calls = self.calls.get(site, ())
+        if not calls:   # the path under test took these inside a kernel
+            return None
+        i = self.taken[site]
+        self.taken[site] = i + 1
+        if i >= len(calls):
+            return None
+        rec, defined = calls[i] if isinstance(calls[i], tuple) else (calls[i], None)
+        if tuple(rec.shape) != tuple(shape):
+            self.mismatches.append(f"{site} call {i}: recorded {tuple(rec.shape)}, "
+                                   f"run {tuple(shape)}")
+            return None
+        return i, rec, defined
+
+    def _count(self, kind, site, i, flip, magnitude, scale, defined) -> None:
+        self.decisions[kind] += flip.numel() if defined is None else int(
+            defined.expand_as(flip).sum())
+        if bool(flip.any()):
+            edge = magnitude[flip].max().item()
+            self.flips.append((kind, site, i, int(flip.sum()), edge,
+                               edge / max(scale.max().item(), 1e-30)))
+
+    def relu(self, site: str, x: torch.Tensor) -> torch.Tensor:
+        """The decisions a ReLU of input ``x`` takes: the recorded ones."""
+        own = x > 0
+        got = self._next(site, x.shape)
+        if got is None:
+            return own
+        i, keep, defined = got
+        keep = keep.to(x.device)
+        if defined is not None:
+            defined = defined.to(x.device)
+            keep = torch.where(defined, keep, own)
+        size = x.detach().abs()
+        self._count(RELU, site, i, keep != own, size, size, defined)
+        return keep
+
+    def content_mask(self, x: torch.Tensor) -> torch.Tensor:
+        """The rows of ``x`` content_mask keeps: the recorded ones. The mask,
+        not only a derivative, is taken, so a row kept on one side only must
+        sum to within rounding of 0 on both: its |input| is the larger of
+        the two sides' |sum|."""
+        size = x.detach().float().sum(dim=-1).abs()
+        got = self._next(CONTENT_MASK, size.shape)
+        if got is None:
+            return size != 0
+        i, rec, defined = got
+        rec = rec.to(size.device)
+        if defined is not None:
+            defined = defined.to(size.device)
+            rec = torch.where(defined, rec, size)
+        keep = rec != 0
+        self._count(CONTENT_MASK, CONTENT_MASK, i, keep != (size != 0),
+                    torch.maximum(size, rec), size, defined)
+        return keep
+
+
+@contextlib.contextmanager
+def pinned_decisions(model, pins: Pins):
+    """Make ``model``, while the block runs, take the decisions ``pins``
+    holds, call by call: a ReLU's output is its input where the recorded
+    decision is set, else 0, and so is its gradient; content_mask keeps
+    the recorded rows. ``pins`` counts the decisions that differ from the
+    model's own and how far their inputs lie from the threshold."""
+    from structured_alignment_vqa_tpu_torch.ops import attention
+
+    def relu(name, x):
+        return torch.where(pins.relu(name, x), x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+    hooks = [m.register_forward_hook(lambda _m, inputs, _out, name=name: relu(name, inputs[0]))
+             for name, (_, m) in relu_sites(model).items()]
+    try:
+        with mock.patch.object(attention, "content_mask",
+                               lambda x: pins.content_mask(x).float()), \
+                ffn_relus(model, relu):
+            yield pins
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+@contextlib.contextmanager
+def decisions_taken(model, pins: "Pins | None" = None, record: "dict | None" = None):
+    """:func:`pinned_decisions` of ``pins``, or :func:`recorded_decisions`
+    into ``record``, or neither."""
+    if pins is not None:
+        with pinned_decisions(model, pins):
+            yield
+    elif record is not None:
+        with recorded_decisions(model) as decisions:
+            yield
+        record.update(decisions)
+    else:
+        yield
+
+
+def pins_hold(what: str, pins: Pins) -> None:
+    """Print each call where ``pins``' run took a decision against its own
+    (site, call, count, the largest |input| and its share of the call's
+    largest) and check the gate (:meth:`Pins.knife_edges_only`)."""
+    pins.finish()
+    for kind, site, call, count, edge, share in pins.flips:
+        print(f"{what}: {site} call {call}: {count} {kind} decision(s) pinned, the largest "
+              f"|x| {edge:.3g}, {share:.3g} of the call's max|x|", flush=True)
+    for line in pins.mismatches:
+        print(f"{what}: the runs' calls do not match: {line}", flush=True)
+    check(pins.knife_edges_only(),
+          f"{what} took the tested path's decisions: ReLU {pins.differ(RELU)} of "
+          f"{pins.decisions[RELU]} differed, content_mask rows {pins.differ(CONTENT_MASK)} of "
+          f"{pins.decisions[CONTENT_MASK]} (<= {KNIFE_EDGES:g} of all), "
+          f"each input within {pins.worst:.3g} <= {KNIFE_EDGE:g} of its call's max|x|, "
+          f"{len(pins.mismatches)} calls unmatched")
+
+
+def pair_line(check_name: str, err: float, limit: float, pins: list, what: str = "") -> None:
+    """One machine-readable line of an f32 pair check (read by
+    scripts/pair_checks_reordered.py): its largest error beside its limit
+    and the decisions its reference runs took against their own."""
+    print("pair check: " + json.dumps(dict(
+        check=check_name, err=err, limit=limit, what=what,
+        pinned=sum(p.pinned for p in pins),
+        decisions=sum(sum(p.decisions.values()) for p in pins),
+        content_mask_pinned=sum(p.differ(CONTENT_MASK) for p in pins),
+        largest_x=max((p.largest for p in pins), default=0.0),
+        largest_share=max((p.worst for p in pins), default=0.0),
+        gate=all(p.knife_edges_only() for p in pins))), flush=True)
+
+
 def full_config(**kw):
     """The production obj-only point: ``ModelConfig`` defaults, 1,843
     classes, one shared 407,000 x 300 GloVe table, bf16 compute."""
@@ -1337,19 +1684,27 @@ def serving_phase(card: str) -> dict:
     model32 = random_model(cfg.replace(compute_dtype=torch.float32))
     model32.load_state_dict(model.state_dict())
     predict32 = make_predict_step(model32)
+    # the plain path takes the kernel path's decisions (pinned_decisions)
     with torch.inference_mode():
-        kernel_logits = model32.eval()(batches[0])[:3]
+        with recorded_decisions(model32) as decisions:
+            kernel_logits = model32.eval()(batches[0])[:3]
         kernel_answers = predict32(batches[0])
         before = launch_counts()
+        pins = [Pins(decisions), Pins(decisions)]
         with plain_path():
-            plain_logits = model32(batches[0])[:3]
-            plain_answers = predict32(batches[0])
+            with pinned_decisions(model32, pins[0]):
+                plain_logits = model32(batches[0])[:3]
+            with pinned_decisions(model32, pins[1]):
+                plain_answers = predict32(batches[0])
             plain_bf16_answers = predict(batches[0])
         check(before == launch_counts(), "serving: the plain path launched no kernel")
+    for taken in pins:
+        pins_hold("serving f32: the plain path", taken)
     diff = max((a - b).abs().max().item() for a, b in zip(kernel_logits, plain_logits))
     finite = all(torch.isfinite(t).all().item() for t in kernel_logits)
     check(finite and diff <= LOGIT_TOL_F32,
           f"serving f32: max|logits kernel - plain| {diff:.3g} <= {LOGIT_TOL_F32:g}")
+    pair_line("serving f32 logits", diff, LOGIT_TOL_F32, pins)
     same = (kernel_answers == plain_answers).float().mean().item()
     check(same == 1.0, f"serving f32: answers kernel == plain for {same:.4f} of {B}")
     agree_bf16 = (answers[0] == plain_answers).float().mean().item()
@@ -1374,24 +1729,24 @@ def same_snapshot(a: list, b: list) -> bool:
 
 
 def one_step(cfg, batch, plain: bool = False, seed: int = 3, sparse: bool = False,
-             pins: "ReluPins | None" = None) -> tuple:
+             pins: "Pins | None" = None, record: "dict | None" = None) -> tuple:
     """One training step from the weights of ``seed`` and a fixed dropout
     generator (with the sparse GloVe-table optimizer when ``sparse``, the
-    attention projections' ReLU decisions of ``pins`` when given, see
-    :func:`pin_relu_masks`): (loss, {name: gradient}, launches by kernel)."""
+    decisions of ``pins`` when given, see :func:`pinned_decisions`; the
+    decisions it takes recorded into ``record`` when given): (loss, {name:
+    gradient}, launches by kernel)."""
     from structured_alignment_vqa_tpu_torch.parallel.train_step import (
         create_train_state,
         make_train_step,
     )
 
     model = random_model(cfg, seed=seed)
-    if pins is not None:
-        pin_relu_masks(model, pins)
     state = create_train_state(model, 1e-4, sparse_table=sparse)
     step = make_train_step(model, state.optimizer, cfg, sparse_table=sparse)
     gen = torch.Generator(device="cuda").manual_seed(11)
     before = launch_counts()
-    with plain_path() if plain else contextlib.nullcontext():
+    with plain_path() if plain else contextlib.nullcontext(), \
+            decisions_taken(model, pins, record):
         metrics = step(state, batch, gen)
     torch.cuda.synchronize()
     moved = {k: launch_counts()[k] - before[k] for k in before}
@@ -1453,14 +1808,15 @@ def grad_errors(a: tuple, b: tuple, shift_free: bool = False) -> dict:
 
 
 def compare_steps(what: str, a: tuple, b: tuple, loss_tol: float, grad_tol,
-                  shift_free: bool = False) -> None:
+                  shift_free: bool = False) -> tuple:
     """The loss of step ``a`` relative to step ``b``'s, and each gradient by
     the norm of its difference over its own norm, within ``grad_tol``: one
     limit for every gradient, or a dict of limits by name. With ``shift_free`` the
     K projections' biases, whose true gradient is 0 (the softmax ignores a
     shift all keys share, so each side holds rounding noise alone), are
     held by the norm of their difference over the norm of all of ``b``'s
-    gradients together."""
+    gradients together. Returns the gradient nearest its limit: (its
+    error, its limit, its name)."""
     err_loss = abs(a[0] - b[0]) / abs(b[0])
     check(err_loss <= loss_tol, f"{what}: loss {a[0]:.7g} against {b[0]:.7g}, "
           f"relative difference {err_loss:.3g} <= {loss_tol:g}")
@@ -1475,19 +1831,24 @@ def compare_steps(what: str, a: tuple, b: tuple, loss_tol: float, grad_tol,
     for name in sorted(errs, key=lambda n: -errs[n][0])[:4]:
         print(f"  {name}: norm-relative {errs[name][0]:.3g}, max-relative {errs[name][1]:.3g}",
               flush=True)
+    return errs[worst][0], limit[worst], worst
 
 
 def f32_step_against_plain(cfg, batch, want: dict, what: str = "train f32") -> None:
     """One f32 training step at full width with the kernels and one with the
     plain versions, from the same weights and the same generator seed (so
     the same dropout masks): the loss and every parameter's gradient."""
-    kernel = one_step(cfg, batch)
+    decisions = {}
+    kernel = one_step(cfg, batch, record=decisions)
     check(kernel[2] == {**{k: 0 for k in kernel[2]}, **want},
           f"{what} kernel step: launches {kernel[2]} == {want}")
-    plain = one_step(cfg, batch, plain=True)
+    pins = Pins(decisions)   # the plain path takes the kernel path's decisions
+    plain = one_step(cfg, batch, plain=True, pins=pins)
     check(not any(plain[2].values()), f"{what} plain step: launched no kernel ({plain[2]})")
-    compare_steps(f"{what}, kernels against plain versions", kernel, plain, LOSS_TOL_F32,
-                  GRAD_TOL_F32)
+    pins_hold(f"{what}: the plain path", pins)
+    err, limit, worst = compare_steps(f"{what}, kernels against plain versions", kernel, plain,
+                                      LOSS_TOL_F32, GRAD_TOL_F32)
+    pair_line(what, err, limit, [pins], worst)
 
 
 def f32_step_profile(cfg, batches: list, bs: int, what: str, card: str,
@@ -1682,18 +2043,26 @@ def rel_serving_phase(card: str) -> dict:
     model32 = random_model(cfg.replace(compute_dtype=torch.float32))
     model32.load_state_dict(model.state_dict())
     predict32 = make_predict_step(model32)
+    # the plain path takes the kernel path's decisions (pinned_decisions)
     with torch.inference_mode():
-        kernel_out = model32.eval()(batches[0])
+        with recorded_decisions(model32) as decisions:
+            kernel_out = model32.eval()(batches[0])
         kernel_answers = predict32(batches[0])
         before = launch_counts()
+        pins = [Pins(decisions), Pins(decisions)]
         with plain_path():
-            plain_out = model32(batches[0])
-            plain_answers = predict32(batches[0])
+            with pinned_decisions(model32, pins[0]):
+                plain_out = model32(batches[0])
+            with pinned_decisions(model32, pins[1]):
+                plain_answers = predict32(batches[0])
         check(before == launch_counts(), "obj+rel serving: the plain path launched no kernel")
+    for taken in pins:
+        pins_hold("obj+rel serving f32: the plain path", taken)
     diff = max((a - b).abs().max().item() for a, b in zip(kernel_out[:3], plain_out[:3]))
     finite = all(torch.isfinite(t).all().item() for t in kernel_out)
     check(finite and diff <= LOGIT_TOL_F32,
           f"obj+rel serving f32: max|logits kernel - plain| {diff:.3g} <= {LOGIT_TOL_F32:g}")
+    pair_line("obj+rel serving f32 logits", diff, LOGIT_TOL_F32, pins)
     same = (kernel_answers == plain_answers).float().mean().item()
     check(same == 1.0, f"obj+rel serving f32: answers kernel == plain for {same:.4f} of {REL_B}")
     return launches
@@ -2525,24 +2894,95 @@ def packed_rows(samples, n_rows: int):
     return [r.samples for r in rows]
 
 
-def slot_logits(model, groups, topn: int, bf16_features: bool):
+def join_packed(records: dict, groups) -> tuple:
+    """The decisions of each run of :func:`slot_logits`' samples alone (B
+    a run, in group order) from the packed run's: a sample's tokens sit at
+    its slot's offsets in its packed row (as ``packed_rows`` and
+    ``collate_packed`` place them) and at 0 alone, on the visual, macro and
+    question axes and on the encoders' (modality ++ question); its decoder
+    token and head rows at its slot (the decoder's self-attention runs at
+    (B * N_PACK, 1, C)). The rest of a row alone is padding, whose
+    decisions it takes as its own. Returns ([a run's records, each call a
+    pair (records, defined)], the calls whose axis was not found)."""
+    lv, ls, lq = PACK_SHAPE
+    places = []   # (row, slot, (offset, length) on the visual, macro and question axes)
+    for i, g in enumerate(groups):
+        vo = mo = qo = 0
+        for k, s in enumerate(g or []):
+            no, nm, nq = s.vis_fea.shape[0], len(s.macro_ids), len(s.q_ids)
+            places.append((i, k, (vo, no), (mo, nm), (qo, nq)))
+            vo, mo, qo = vo + no, mo + nm, qo + nq
+    # a token axis by its length: its segments (start alone and packed, axis)
+    axes = {lv: [(0, 2)], ls: [(0, 3)], lq: [(0, 4)], lv + lq: [(0, 2), (lv, 4)],
+            ls + lq: [(0, 3), (ls, 4)]}
+    rows = len(groups)
+
+    def source(chunk, shape):
+        """Each place of a run alone: its flat index into the packed call's
+        first two axes, -1 where it has none; None for another layout."""
+        if tuple(shape[:2]) in ((rows * N_PACK, 1), (rows, N_PACK)):   # slots
+            return torch.tensor([[p[0] * N_PACK + p[1]] for p in chunk])
+        if shape[0] != rows or shape[1] not in axes:
+            return None
+        src = torch.full((len(chunk), shape[1]), -1, dtype=torch.long)
+        for t, p in enumerate(chunk):
+            for start, axis in axes[shape[1]]:
+                off, n = p[axis]
+                src[t, start:start + n] = p[0] * shape[1] + start + off + torch.arange(n)
+        return src
+
+    runs, unmapped = [], []
+    for c in range(0, len(places), B):
+        chunk = places[c:c + B]
+        calls = {}
+        for site, recorded in records["calls"].items():
+            calls[site] = []
+            for i, rec in enumerate(recorded):
+                src = source(chunk, rec.shape)
+                if src is None:
+                    unmapped.append(f"{site} call {i} {tuple(rec.shape)}")
+                    src = torch.full((len(chunk), 1), -1, dtype=torch.long)
+                src = src.to(rec.device)
+                flat = rec.reshape(-1, *rec.shape[2:])
+                keep = flat[src.clamp_min(0)]
+                defined = (src >= 0).reshape(*src.shape, *[1] * (rec.dim() - 2))
+                calls[site].append((keep, defined))
+        runs.append({"calls": calls})
+    return runs, unmapped
+
+
+def slot_logits(model, groups, topn: int, bf16_features: bool, pins: "list | None" = None):
     """The model's three logits on ``groups`` packed into rows of PACK_SHAPE
     (B, N_PACK, C), and on each of their samples alone through the tight
-    collate at the same shape (n, C), in group order."""
+    collate at the same shape (n, C), in group order. Given a list
+    ``pins``, the runs alone take the packed run's decisions
+    (:func:`join_packed`; a Pins a run appended to it)."""
     from structured_alignment_vqa_tpu_torch.data.dataset import BatchShape
     from structured_alignment_vqa_tpu_torch.data.packing import collate_packed
     from structured_alignment_vqa_tpu_torch.data.transfer import host_tensors
 
     shape = BatchShape(*PACK_SHAPE)
 
-    def run(gs, n_pack):
+    def run(gs, n_pack, taking=None):
         batch = host_tensors(collate_packed(gs, shape, topn, n_pack), bf16_features).to("cuda")
-        with torch.inference_mode():
+        with torch.inference_mode(), \
+                pinned_decisions(model, taking) if taking else contextlib.nullcontext():
             return [t.float() for t in model.eval()(batch)[:3]]
 
-    packed = run(groups, N_PACK)
     alone = [s for g in groups for s in (g or [])]
-    tight = [run([[s] for s in alone[i:i + B]], 1) for i in range(0, len(alone), B)]
+    if pins is None:
+        packed = run(groups, N_PACK)
+        tight = [run([[s] for s in alone[i:i + B]], 1) for i in range(0, len(alone), B)]
+    else:
+        with recorded_decisions(model) as decisions:
+            packed = run(groups, N_PACK)
+        with torch.inference_mode():
+            joined, unmapped = join_packed(decisions, groups)
+        check(not unmapped, f"packed: every call's axis of the packed run found ({unmapped})")
+        taking = [Pins(d) for d in joined]
+        pins += taking
+        tight = [run([[s] for s in alone[i:i + B]], 1, p)
+                 for i, p in zip(range(0, len(alone), B), taking)]
     tight = [torch.cat([t[h][:, 0] for t in tight]) for h in range(3)]
     valid = torch.tensor([[k < len(g or []) for k in range(N_PACK)] for g in groups],
                          device="cuda")
@@ -2770,12 +3210,19 @@ def packed_phase(card: str) -> dict:
         blank = dataclasses.replace(blank, vis_fea=np.zeros_like(blank.vis_fea))
         groups += [None, [blank]]
         n_slots = sum(len(g or []) for g in groups)
+        # the samples alone take the packed run's decisions (join_packed)
         model = random_model(cfg.replace(compute_dtype=torch.float32))
-        err, same = isolation_err(*slot_logits(model, groups, cfg.topn, False), relative=False)
+        pins = []
+        err, same = isolation_err(*slot_logits(model, groups, cfg.topn, False, pins),
+                                  relative=False)
+        for r, taken in enumerate(pins):
+            pins_hold(f"packed: isolation f32, run alone {r}", taken)
         check(err <= ISOLATION_TOL_F32 and same == 1.0,
               f"packed: isolation f32 with the kernels, {n_slots} samples in {len(groups)} rows "
               f"of {PACK_SHAPE}: max|packed slot - the sample alone (tight)| {err:.3g} <= "
               f"{ISOLATION_TOL_F32:g}, answers equal for {same:.4f}")
+        pair_line("packed isolation f32", err, ISOLATION_TOL_F32, pins)
+        del pins
         model16 = random_model(cfg)
         model16.load_state_dict(model.state_dict())
         errs = {}
@@ -2817,15 +3264,23 @@ def packed_phase(card: str) -> dict:
         model32.load_state_dict(model.state_dict())
         predict32 = make_predict_step(model32)
         with torch.inference_mode():
-            kernel = [t.float() for t in model32.eval()(requests[0])[:3]]
+            with recorded_decisions(model32) as decisions:
+                kernel = [t.float() for t in model32.eval()(requests[0])[:3]]
             kernel_answers = predict32(requests[0])
+            pins = [Pins(decisions), Pins(decisions)]
             with plain_path():
-                plain = [t.float() for t in model32(requests[0])[:3]]
-                plain_answers = predict32(requests[0])
+                with pinned_decisions(model32, pins[0]):
+                    plain = [t.float() for t in model32(requests[0])[:3]]
+                with pinned_decisions(model32, pins[1]):
+                    plain_answers = predict32(requests[0])
+        for taken in pins:
+            pins_hold("packed: MCB f32: the plain path", taken)
         diff = max((a - b).abs().max().item() for a, b in zip(kernel, plain))
         check(diff <= LOGIT_TOL_F32 and bool(torch.equal(kernel_answers, plain_answers)),
               f"packed: MCB f32: max|logits kernel - plain| {diff:.3g} <= {LOGIT_TOL_F32:g}, "
               "answers identical")
+        pair_line("MCB f32 logits", diff, LOGIT_TOL_F32, pins)
+        del decisions, pins
         del model32
         sketches = [model.mcb.sketch1.clone(), model.mcb.sketch2.clone()]
         head = model.cls_mcb[0].weight.detach().clone()
@@ -2918,7 +3373,7 @@ def dp_cases() -> list:
 
 def dp_worker(rank: int, coordinator: str, out: str) -> int:
     """One rank of the dp phase: the f32 steps (rank 0 saves its summed
-    gradients), then bf16 steps with dropout, dense and sparse, with their
+    gradients, every rank the decisions it took), then bf16 steps with dropout, dense and sparse, with their
     digests, launches, times and the reduction's bytes and time."""
     from structured_alignment_vqa_tpu_torch.parallel.mesh import init_distributed, shutdown
     from structured_alignment_vqa_tpu_torch.parallel.sharding import all_reduce_grads
@@ -2939,7 +3394,8 @@ def dp_worker(rank: int, coordinator: str, out: str) -> int:
             step = make_train_step(model, state.optimizer, cfg, sparse_table=sparse, mesh=mesh)
             batch = batch_rows(make_batch(), rank, DP_WORLD)
             reset_launch_counts()
-            m = step(state, batch, torch.Generator(device="cuda").manual_seed(11))
+            with recorded_decisions(model) as decisions:
+                m = step(state, batch, torch.Generator(device="cuda").manual_seed(11))
             torch.cuda.synchronize()
             results[name] = {"loss": m["loss"].item(), "n": m["n"].item(),
                              "launches": launch_counts(), "digest": state_digest(state),
@@ -2947,7 +3403,8 @@ def dp_worker(rank: int, coordinator: str, out: str) -> int:
             if rank == 0:
                 torch.save({n: p.grad.cpu() for n, p in model.named_parameters()
                             if p.grad is not None}, f"{out}/grads_{len(results)}.pt")
-            del model, state, step, batch
+            torch.save(decisions_to_cpu(decisions), f"{out}/decisions_{len(results)}_{rank}.pt")
+            del model, state, step, batch, decisions
             torch.cuda.empty_cache()
 
         for sparse in (False, True):
@@ -3014,15 +3471,16 @@ def nccl_one_rank_ms(nbytes: list) -> dict:
         shutdown(mesh)
 
 
-def dp_against_spread(what: str, dp: tuple, single: tuple, plain: tuple) -> None:
+def dp_against_spread(what: str, dp: tuple, single: tuple, plain: tuple) -> tuple:
     """The ranks' step ``dp`` against the one process's ``single``, each
     gradient held to the larger of DP_GRAD_TOL and DP_SPREAD_MULT times
     that gradient's own spread (``plain`` against ``single``), capped at
-    DP_GRAD_CAP; prints the largest errors beside their spreads."""
+    DP_GRAD_CAP; prints the largest errors beside their spreads and returns
+    :func:`compare_steps`' nearest gradient."""
     spread = grad_errors(plain, single, True)
     limit = {n: min(DP_GRAD_CAP, max(DP_GRAD_TOL, DP_SPREAD_MULT * spread[n][0]))
              if n in spread else DP_GRAD_TOL for n in single[1]}
-    compare_steps(what, dp, single, DP_LOSS_TOL, limit, shift_free=True)
+    nearest = compare_steps(what, dp, single, DP_LOSS_TOL, limit, shift_free=True)
     errs = grad_errors(dp, single, True)
     errs.pop(None)
     above = [n for n in errs if errs[n][0] > DP_GRAD_TOL]
@@ -3032,6 +3490,7 @@ def dp_against_spread(what: str, dp: tuple, single: tuple, plain: tuple) -> None
         own = spread[n][0] if n in spread else float("nan")
         print(f"  {n}: ranks {errs[n][0]:.3g}, spread {own:.3g}, limit {limit[n]:.3g}",
               flush=True)
+    return nearest
 
 
 def dp_phase(card: str) -> dict:
@@ -3072,18 +3531,27 @@ def dp_phase(card: str) -> dict:
                   f" == {want_launches} (a single rank's at its rows)")
             grads = torch.load(f"{tmp}/grads_{i}.pt", weights_only=True)
             dp = (got["loss"], {n: g.to("cuda") for n, g in grads.items()}, got["launches"])
-            single = one_step(cfg, make_batch(), sparse=sparse)
+            # one process's steps take the ranks' decisions, their rows joined
+            decisions = join_rows([torch.load(f"{tmp}/decisions_{i}_{r}.pt", weights_only=True)
+                                   for r in range(DP_WORLD)])
+            pins = {"kernel": Pins(decisions)}
+            single = one_step(cfg, make_batch(), sparse=sparse, pins=pins["kernel"])
             for n in single[1]:
                 dp[1].setdefault(n, None)
             what = f"dp {name}, {DP_WORLD} ranks against one process on the whole batch"
             if "rel" in name:
-                dp_against_spread(what, dp, single,
-                                  one_step(cfg, make_batch(), sparse=sparse, plain=True))
+                pins["plain"] = Pins(decisions)
+                nearest = dp_against_spread(what, dp, single, one_step(
+                    cfg, make_batch(), sparse=sparse, plain=True, pins=pins["plain"]))
             else:
-                compare_steps(what, dp, single, DP_LOSS_TOL, DP_GRAD_TOL, shift_free=True)
+                nearest = compare_steps(what, dp, single, DP_LOSS_TOL, DP_GRAD_TOL,
+                                        shift_free=True)
+            for route, taken in pins.items():
+                pins_hold(f"dp {name}: one process's {route} path", taken)
+            pair_line(f"dp {name}", nearest[0], nearest[1], list(pins.values()), nearest[2])
             print(f"dp {name}: {got['reduced_bytes'] / mib:.1f} MiB of gradient summed a step",
                   flush=True)
-            del grads, dp, single
+            del grads, dp, single, decisions, pins
             torch.cuda.empty_cache()
         for name in ("obj-only bf16", "obj-only bf16 sparse"):
             got = ranks[0][name]
@@ -3452,11 +3920,14 @@ def variant_logits(out) -> list:
     return [o for o in out if torch.is_tensor(o) and o.dim() == 2]
 
 
-def variant_step(model, args, loss_fn, plain: bool) -> tuple:
-    """(loss, {name: gradient or None}, launches) of one f32 backward."""
+def variant_step(model, args, loss_fn, plain: bool, pins: "Pins | None" = None,
+                 record: "dict | None" = None) -> tuple:
+    """(loss, {name: gradient or None}, launches) of one f32 backward
+    (taking or recording decisions as :func:`one_step`)."""
     model.zero_grad(set_to_none=True)
     reset_launch_counts()
-    with plain_path() if plain else contextlib.nullcontext():
+    with plain_path() if plain else contextlib.nullcontext(), \
+            decisions_taken(model, pins, record):
         loss = loss_fn(model(*args))
         loss.backward()
     torch.cuda.synchronize()
@@ -3526,20 +3997,25 @@ def variants_phase(card: str) -> dict:
         print(f"variants {name} f32 bs {b}: {seconds / REQUESTS * 1e3:.2f} ms a request, "
               f"{REQUESTS * b / seconds:.1f} pairs/s on {card} (information only)", flush=True)
 
+        # the plain path takes the kernel path's decisions (pinned_decisions)
         seen = {}
         with torch.inference_mode():
-            with recorded_kernel_inputs(seen):
+            with recorded_kernel_inputs(seen), recorded_decisions(model) as decisions:
                 kernel_out = model(*args)
             before = launch_counts()
-            with plain_path():
+            pins = Pins(decisions)
+            with plain_path(), pinned_decisions(model, pins):
                 plain_out = model(*args)
             check(before == launch_counts(), f"variants {name}: the plain path launched no kernel")
+        pins_hold(f"variants {name} f32: the plain path", pins)
         kl, pl = variant_logits(kernel_out), variant_logits(plain_out)
         diff = max((a - c).abs().max().item() for a, c in zip(kl, pl))
         finite = all(torch.isfinite(x).all().item() for x in kl)
         check(finite and len(kl) == len(pl) and diff <= LOGIT_TOL_F32,
               f"variants {name} f32: {len(kl)} logits, max|kernel - plain| {diff:.3g} <= "
               f"{LOGIT_TOL_F32:g}")
+        pair_line(f"variants {name} f32 logits", diff, LOGIT_TOL_F32, [pins])
+        del decisions, pins
         same = min((a.argmax(-1) == c.argmax(-1)).float().mean().item() for a, c in zip(kl, pl))
         check(same == 1.0, f"variants {name} f32: answers kernel == plain for {same:.4f} of {b}")
         cli_kernels_against_plain(seen, f"variants {name}")
@@ -3549,14 +4025,20 @@ def variants_phase(card: str) -> dict:
             answer = torch.from_numpy(np.random.default_rng(seed).integers(
                 1, cfg.num_classes, size=b)).to("cuda")
             loss_fn = variant_loss(name, args, answer)
-            kernel = variant_step(model, args, loss_fn, plain=False)
+            decisions = {}
+            kernel = variant_step(model, args, loss_fn, plain=False, record=decisions)
             check(kernel[2]["K2"] == kernel[2]["K1"] == k1 and kernel[2]["K4"] == k4,
                   f"variants {name} f32 backward: launches {kernel[2]}, a K2 for each K1")
-            plain_step = variant_step(model, args, loss_fn, plain=True)
+            pins = Pins(decisions)
+            plain_step = variant_step(model, args, loss_fn, plain=True, pins=pins)
             check(not any(plain_step[2].values()),
                   f"variants {name} plain backward: launched no kernel ({plain_step[2]})")
-            compare_steps(f"variants {name} f32 backward, kernels against plain versions",
-                          kernel, plain_step, LOSS_TOL_F32, GRAD_TOL_F32, shift_free=True)
+            pins_hold(f"variants {name} f32 backward: the plain path", pins)
+            err, limit, worst = compare_steps(
+                f"variants {name} f32 backward, kernels against plain versions", kernel,
+                plain_step, LOSS_TOL_F32, GRAD_TOL_F32, shift_free=True)
+            pair_line(f"variants {name} f32 backward", err, limit, [pins], worst)
+            del decisions, pins
             total["K2"] += kernel[2]["K2"]
             model16 = build_variant(name, variant_config(name, torch.bfloat16))
             model16.load_state_dict(model.state_dict())
@@ -3797,7 +4279,7 @@ def seq_worker(rank: int, coordinator: str, out: str) -> int:
     """One rank of the seq phase: ring and Ulysses on the obj+rel shape in
     bf16 and f32 (against the one-process K4/K5/K6 and against their plain
     loop), their times and bytes, then one obj+rel f32 step at seq 2 (rank
-    0 saves its gradients)."""
+    0 saves its gradients, every rank the decisions it took)."""
     from structured_alignment_vqa_tpu_torch.ops import flash_graph_attention as fl
     from structured_alignment_vqa_tpu_torch.ops import ring_attention as ra
     from structured_alignment_vqa_tpu_torch.ops import ulysses_attention as ua
@@ -3873,14 +4355,16 @@ def seq_worker(rank: int, coordinator: str, out: str) -> int:
         step = make_train_step(model, state.optimizer, cfg, mesh=mesh)
         batch = rel_batches(cfg, 1)[0]
         t0 = time.perf_counter()
-        m, moved = on_path(lambda: step(state, batch, torch.Generator(device="cuda")
-                                        .manual_seed(11)))
+        with recorded_decisions(model) as decisions:
+            m, moved = on_path(lambda: step(state, batch, torch.Generator(device="cuda")
+                                            .manual_seed(11)))
         results["step"] = dict(loss=m["loss"].item(), launches=moved,
                                seconds=time.perf_counter() - t0)
         if rank == 0:
             torch.save({n: p.grad.cpu() for n, p in model.named_parameters()
                         if p.grad is not None}, f"{out}/grads.pt")
-        del model, state, step, batch
+        torch.save(decisions_to_cpu(decisions), f"{out}/decisions{rank}.pt")
+        del model, state, step, batch, decisions
     finally:
         shutdown(mesh)
     results["path"] = path
@@ -3965,6 +4449,9 @@ def seq_phase(card: str) -> dict:
                 print(f"seq rank {r}: {line}", flush=True)
         ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=True) for r in range(SEQ_WORLD)]
         grads = torch.load(f"{tmp}/grads.pt", weights_only=True)
+        decisions, same = join_replicated([torch.load(f"{tmp}/decisions{r}.pt",
+                                                      weights_only=True)
+                                           for r in range(SEQ_WORLD)])
     for r, res in enumerate(ranks):
         check(not res["failures"], f"seq rank {r}: every check of the rank passed "
               f"({len(res['failures'])} failed)")
@@ -3974,16 +4461,24 @@ def seq_phase(card: str) -> dict:
               f"{step['launches']} == {want}")
     check(ranks[0]["step"]["loss"] == ranks[1]["step"]["loss"],
           "seq: both ranks of the row log the same loss")
+    # one process's steps take the row's decisions: every one is taken on whole
+    # tensors, alike on both ranks (join_replicated)
+    check(same, "seq: both ranks of the row took the same decisions outside the kernels")
     cfg = rel_config(compute_dtype=torch.float32, dropout_rate=0.0)
     batch = rel_batches(cfg, 1)[0]
-    single = one_step(cfg, batch)
-    plain = one_step(cfg, batch, plain=True)
+    pins = {route: Pins(decisions) for route in ("kernel", "plain")}
+    single = one_step(cfg, batch, pins=pins["kernel"])
+    plain = one_step(cfg, batch, plain=True, pins=pins["plain"])
+    for route, taken in pins.items():
+        pins_hold(f"seq: one process's {route} path", taken)
     seq_step = (ranks[0]["step"]["loss"], {n: g.to("cuda") for n, g in grads.items()},
                 ranks[0]["step"]["launches"])
     for n in single[1]:
         seq_step[1].setdefault(n, None)
-    dp_against_spread("seq: the (data 1, seq 2) obj+rel f32 step against one process's",
-                      seq_step, single, plain)
+    err, limit, worst = dp_against_spread(
+        "seq: the (data 1, seq 2) obj+rel f32 step against one process's", seq_step, single,
+        plain)
+    pair_line("seq obj+rel", err, limit, list(pins.values()), worst)
     print(f"seq: a rank's obj+rel f32 step {ranks[0]['step']['seconds']:.2f} s with the ring over "
           f"gloo through the host on {card} (information only)", flush=True)
     return {k: sum(res["path"][k] for res in ranks) for k in ranks[0]["path"]}
@@ -4002,7 +4497,7 @@ MODEL_WIDE_REL_B = 2
 # 16 ranks took 128-160 s at 6 blocks): one block of each graph stage
 # (diagonal, cross, full), every width the production model's. Model 2's
 # runs keep 6: their time is the ranks' start (34.1 s at 6 blocks, 33.5 at
-# 3), and at 3 its unpinned f32 checks miss the dp rule (ROADMAP Queue 3)
+# 3)
 MODEL_WIDE_REL_CUT = dict(num_blocks=3, stage1_blocks=1, stage2_blocks=2)
 # launches a block of one forward and of one step on a rank: every K1 and
 # K3 of the one-process path becomes the model axis's entries (K1's
@@ -4097,10 +4592,16 @@ def model_entries(card: str, n: int) -> dict:
                   f"K1 heads{suffix} {shape} {dtype} {renorm}: finite")
             errs.append(rel_err(got, want))
         nb = size * B * width * 3 * 128 + 4 * B * (2 * 128 + 128 * 128) + 4 * B * 128 * width
+        # the entry has no LayerNorm: SDPA computes its function on the rows
+        # with a neighbour, as beside K4
+        library_ms, library_err = sdpa_yardstick(
+            args, heads, lambda: k1.graph_attention_heads(*args, heads, "l1"))
         row("K1 heads", dtype, errs, TOL[dtype],
             lambda: k1.graph_attention_heads(*args, heads, "l1"),
             lambda: k1.graph_attention_plain(*args, heads, "l1"),
-            nb, 4.0 * B * 128 * 128 * width, shape)
+            nb, 4.0 * B * 128 * 128 * width, shape,
+            library=(library_ms, f"SDPA, the graph as a boolean mask (max|K1 - SDPA| "
+                                 f"{library_err:.3g} on the rows with a neighbour)"))
         do = torch.randn(B, 128, width, generator=gen, device="cuda").to(dtype)
         errs = []
         for renorm in ("l1", "sum_eps"):
@@ -4283,16 +4784,15 @@ def model_worker(rank: int, coordinator: str, out: str, world: int) -> int:
                 ("rel_step", lambda c: rel_batches(c, 1, model_rel_b(world))[0])):
             cfg = configs[name]
             model, _, _ = sharded(cfg, 3)
-            masks = record_relu_masks(model) if world in MODEL_PINNED else None
             state = create_train_state(model, 1e-4)
             step = make_train_step(model, state.optimizer, cfg, mesh=mesh)
             batch = batch_of(cfg)
-            m, moved, sent, seconds = on_path(
-                lambda: step(state, batch, torch.Generator(device="cuda").manual_seed(11)))
+            with recorded_decisions(model) as decisions:
+                m, moved, sent, seconds = on_path(
+                    lambda: step(state, batch, torch.Generator(device="cuda").manual_seed(11)))
             save_grads(model, rank, f"{out}/{name}_grads{rank}.pt")
-            if masks is not None:
-                torch.save(masks, f"{out}/{name}_masks{rank}.pt")
-            del model, state, step, batch, masks
+            torch.save(decisions_to_cpu(decisions), f"{out}/{name}_decisions{rank}.pt")
+            del model, state, step, batch, decisions
             results[name] = dict(loss=m["loss"].item(), skipped=m["skipped"].item(),
                                  launches=moved, bytes=sent, seconds=seconds, **memory())
     finally:
@@ -4302,96 +4802,6 @@ def model_worker(rank: int, coordinator: str, out: str, world: int) -> int:
     results["max_rss"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
     torch.save(results, f"{out}/rank{rank}.pt")
     return 0
-
-
-# an attention module's Q, K or V projection: Sequential(Linear, ReLU)
-PROJECTION = re.compile(r"_attention(_\d+)?\.[QKV]_proj$")
-
-
-def projections(model) -> dict:
-    """name -> the (Linear, ReLU) of every attention projection."""
-    return {n: m for n, m in model.named_modules() if PROJECTION.search(n)}
-
-
-def record_relu_masks(model) -> dict:
-    """{name: (split, [which ReLU inputs were positive, a tensor a call])}
-    of every attention projection, filled as ``model`` runs; on a model
-    rank a split projection's masks are its columns."""
-    masks = {}
-    for name, seq in projections(model).items():
-        calls = []
-        masks[name] = (seq[0].model_split is not None, calls)
-        seq[0].register_forward_hook(lambda _m, _i, out, calls=calls: calls.append(
-            (out > 0).cpu()))
-    return masks
-
-
-def whole_relu_masks(paths: list) -> dict:
-    """The masks :func:`record_relu_masks` gave each rank (files in model
-    order), a split projection's columns concatenated: {name: [mask a
-    call]}."""
-    parts = [torch.load(p, weights_only=True) for p in paths]
-    return {name: [torch.cat([p[name][1][i] for p in parts], -1) if split else call
-                   for i, call in enumerate(calls)]
-            for name, (split, calls) in parts[0].items()}
-
-
-# the model runs whose f32 steps one process holds taking the ranks' ReLU
-# decisions (model 16, whose obj+rel step at full depth missed the dp rule
-# by one decision at |x| <= 2e-7; ROADMAP Queue 3); a decision taken against
-# one process's own must have its input within KNIFE_EDGE of its call's
-# largest |x|, and at most KNIFE_EDGES of the decisions may be such
-MODEL_PINNED = (MODEL_WIDE,)
-KNIFE_EDGE = 1e-5
-KNIFE_EDGES = 1e-5
-
-
-class ReluPins:
-    """Attention projections' ReLU decisions recorded in one run
-    (:func:`whole_relu_masks`) for another to take, the count of that run's
-    decisions and each call where some differed: (projection, call, how
-    many, their largest |x|, that over the call's max|x|)."""
-
-    def __init__(self, masks: dict):
-        self.masks = masks
-        self.decisions = 0
-        self.flips = []
-
-    @property
-    def differ(self) -> int:
-        return sum(f[2] for f in self.flips)
-
-    @property
-    def worst(self) -> float:
-        return max((f[4] for f in self.flips), default=0.0)
-
-    def knife_edges_only(self) -> bool:
-        """Every pinned decision's input within rounding of 0, and few."""
-        return self.worst <= KNIFE_EDGE and self.differ <= KNIFE_EDGES * self.decisions
-
-
-def pin_relu_masks(model, pins: ReluPins) -> None:
-    """Make every attention projection's ReLU of ``model`` take the
-    decisions ``pins.masks`` holds (call by call): its output is the input
-    where the mask is set, else 0, and so is its gradient. ``pins`` records,
-    as the model runs, the decisions that differ from the model's own and
-    how far their inputs lie from 0 (:meth:`ReluPins.knife_edges_only`)."""
-    for name, seq in projections(model).items():
-        calls = iter(enumerate(pins.masks[name]))
-
-        def pin(_m, inputs, _out, name=name, calls=calls):
-            x = inputs[0]
-            i, keep = next(calls)
-            keep = keep.to(x.device)
-            flip = keep != (x > 0)
-            pins.decisions += flip.numel()
-            if bool(flip.any()):
-                edge = x[flip].abs().max().item()
-                pins.flips.append((name, i, int(flip.sum()), edge,
-                                   edge / x.abs().max().item()))
-            return torch.where(keep, x, torch.zeros((), dtype=x.dtype, device=x.device))
-
-        seq[1].register_forward_hook(pin)
 
 
 def save_grads(model, rank: int, path: str) -> None:
@@ -4419,8 +4829,8 @@ def whole_grads(paths: list) -> dict:
 def model_ranks(world: int, card: str) -> tuple:
     """``world`` ``--model-rank`` workers on cuda:0 as (data 1, model
     ``world``): (each rank's results, rank 0's logits, the whole gradients
-    by step, the attention projections' ReLU masks by step where
-    ``world`` is in MODEL_PINNED, else None)."""
+    by step, the decisions the ranks took by step in one process's layout,
+    :func:`join_model`)."""
     import os
     import tempfile
 
@@ -4444,9 +4854,9 @@ def model_ranks(world: int, card: str) -> tuple:
         logits = torch.load(f"{tmp}/logits.pt", weights_only=True).to("cuda")
         grads = {n: whole_grads([f"{tmp}/{n}_grads{r}.pt" for r in range(world)])
                  for n in ("step", "rel_step")}
-        masks = {n: whole_relu_masks([f"{tmp}/{n}_masks{r}.pt" for r in range(world)])
-                 for n in ("step", "rel_step")} if world in MODEL_PINNED else None
-    return ranks, logits, grads, masks
+        decisions = {n: join_model([torch.load(f"{tmp}/{n}_decisions{r}.pt", weights_only=True)
+                                    for r in range(world)]) for n in ("step", "rel_step")}
+    return ranks, logits, grads, decisions
 
 
 def model_phase(card: str) -> dict:
@@ -4498,39 +4908,32 @@ def model_phase(card: str) -> dict:
               f"exceeds twice that (equal on {int(same.sum())} of {B} rows)")
 
     # the f32 steps against one process's, held as the dp phase holds its ranks. A
-    # ReLU input within rounding of 0 of an attention projection (a decoder's K or V
-    # into 1,536 keys) can fall on the other side on the ranks, whose sums run in
-    # another order, and move its weight's gradient by its whole term (ROADMAP Queue
-    # 3). At model 16 one process's steps take the ranks' ReLU decisions there, so
-    # that both sides differentiate the same function; each decision they take
-    # against their own must be such a knife edge
+    # decision within rounding of its threshold (a ReLU input of a decoder's K or V
+    # projection into 1,536 keys) can fall the other way on the ranks, whose sums
+    # run in another order, and move its weight's gradient by its whole term
+    # (ROADMAP Queue 3). One process's steps take the ranks' decisions, so that
+    # both sides differentiate the same function; each decision they take against
+    # their own must be a knife edge (pins_hold)
     for name in ("step", "rel_step"):
-        for n, (ranks, _, grads, masks) in runs.items():
+        for n, (ranks, _, grads, decisions) in runs.items():
             cfg = model_configs(n)[name]
             bs = MODEL_STEP_B if name == "step" else model_rel_b(n)
             batch = (synthetic_batch(cfg, bs, lv=36, lq=30, ls=98, seed=0) if name == "step"
                      else rel_batches(cfg, 1, bs)[0])
-            pins = {route: ReluPins(masks[name]) for route in ("kernel", "plain")} if masks else {}
-            single = one_step(cfg, batch, pins=pins.get("kernel"))
-            plain = one_step(cfg, batch, plain=True, pins=pins.get("plain"))
+            pins = {route: Pins(decisions[name]) for route in ("kernel", "plain")}
+            single = one_step(cfg, batch, pins=pins["kernel"])
+            plain = one_step(cfg, batch, plain=True, pins=pins["plain"])
             for route, taken in pins.items():
-                for proj, call, count, edge, share in taken.flips:
-                    print(f"model {n} {name} one process's {route} path: {proj} call {call}: "
-                          f"{count} ReLU decision(s) pinned, the largest |x| {edge:.3g}, "
-                          f"{share:.3g} of the call's max|x|", flush=True)
-                check(taken.knife_edges_only(),
-                      f"model {n} {name}: one process's {route} path took the ranks' ReLU "
-                      f"decisions of the attention projections; {taken.differ} of its "
-                      f"{taken.decisions} differed (<= {KNIFE_EDGES:g} of them), each input within "
-                      f"{taken.worst:.3g} <= {KNIFE_EDGE:g} of its call's max|x|")
+                pins_hold(f"model {n} {name}: one process's {route} path", taken)
             # every parameter's name: one with a gradient on one side only fails
             mine = (ranks[0][name]["loss"], {p: grads[name][p].to("cuda")
                                              if p in grads[name] else None for p in single[1]},
                     ranks[0][name]["launches"])
-            dp_against_spread(f"model: the (data 1, model {n}) {name} f32 bs {bs}, "
-                              f"{cfg.num_blocks} blocks against one process's", mine, single,
-                              plain)
-            del mine, single, plain, batch
+            err, limit, worst = dp_against_spread(
+                f"model: the (data 1, model {n}) {name} f32 bs {bs}, {cfg.num_blocks} blocks "
+                "against one process's", mine, single, plain)
+            pair_line(f"model {n} {name}", err, limit, list(pins.values()), worst)
+            del mine, single, plain, batch, pins
             torch.cuda.empty_cache()
 
     path = {}

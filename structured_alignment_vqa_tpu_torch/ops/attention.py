@@ -127,8 +127,9 @@ def attention_core(
     ones scaled by ``1 / (1 - dropout_rate)``, the mask drawn from
     ``generator``; the caller passes a rate only in train mode. ``drawn =
     (h_lo, h_hi, H)``: the heads are heads ``[h_lo, h_hi)`` of ``H``, and
-    the mask is drawn for all ``H`` and sliced, so that the ranks of a
-    model row that compute one head drop the same weights of it.
+    the mask is drawn for all ``H`` and sliced, so that a model row's
+    ranks, whether each computes whole heads or a head spans several, drop
+    one process's weights (the generator advances as in one process).
     """
     tq, tk = q.shape[1], k.shape[1]
     dh = q.shape[-1] // num_heads
@@ -197,7 +198,9 @@ class _AttentionBase(nn.Module):
     def _project(self, queries, keys, values, v_only: bool = False, all_heads: bool = False):
         """``(q, k, v, heads, whole, drawn)``: the ReLU'd projections, the
         heads this rank computes, what makes their output whole, and
-        ``attention_core``'s ``drawn`` (None: the mask of ``heads`` heads).
+        ``attention_core``'s ``drawn``: under a model split the rank's heads'
+        place among all ``num_heads``, so that every rank slices one
+        process's dropout mask; None where the heads are all of them.
         Split over the model axis, the projections are this rank's columns
         (each distinct input passed once through ``copy_to_model``). Where
         the axis divides the heads, a rank computes its ``num_heads / n``
@@ -228,8 +231,9 @@ class _AttentionBase(nn.Module):
             return None, None, v, None, lambda out: gather_columns(out, mesh), None
         q, k = local(self.Q_proj, queries), local(self.K_proj, keys)
         if self.num_heads % split.n == 0:
-            return (q, k, v, self.num_heads // split.n, lambda out: gather_columns(out, mesh),
-                    None)
+            per = self.num_heads // split.n
+            return (q, k, v, per, lambda out: gather_columns(out, mesh),
+                    (split.index * per, (split.index + 1) * per, self.num_heads))
         if all_heads:
             q, k, v = (gather_columns(t, mesh) for t in (q, k, v))
             return q, k, v, self.num_heads, lambda out: out, None

@@ -27,7 +27,12 @@ JAX references fit about a minute. Checks, float32:
 * a (data 1, seq 2, model 2) forward and a (data 1, model 4) forward within
   1e-5 of one process's logits;
 * a model-2 checkpoint and ``.pth`` load in one process bitwise, and a
-  one-process checkpoint loads into model-2 ranks bitwise.
+  one-process checkpoint loads into model-2 ranks bitwise;
+* graph attention with attention dropout and its weights returned, its 4
+  heads whole on each of the model-2 ranks (2 a rank): every rank draws
+  one process's (B, H, Tq, Tk) mask and slices its heads' share, so the
+  weights, the output and dx are one process's, and the two ranks' heads
+  drop different weights.
 """
 
 import os
@@ -35,19 +40,23 @@ import sys
 import tempfile
 from concurrent.futures import ThreadPoolExecutor
 
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
 
 from structured_alignment_vqa_tpu_torch.data.synthetic import batch_from_arrays, synthetic_arrays
-from structured_alignment_vqa_tpu_torch.models import AttModelX3, ModelConfig
+from structured_alignment_vqa_tpu_torch.models import AttModelX3, ModelConfig, init_random_
 from structured_alignment_vqa_tpu_torch.models.torch_export import save_pth
+from structured_alignment_vqa_tpu_torch.ops.attention import GraphGuidedAttention
 from structured_alignment_vqa_tpu_torch.parallel.context import use_mesh
 from structured_alignment_vqa_tpu_torch.parallel.dryrun import GRAD_FLOOR, free_ports, launch_local
 from structured_alignment_vqa_tpu_torch.parallel.mesh import grid, init_distributed, shutdown
 from structured_alignment_vqa_tpu_torch.parallel.sharding import (
     full_grads,
     full_state_dict,
+    shard_model,
     shard_params,
 )
 from structured_alignment_vqa_tpu_torch.parallel.sparse_table import TABLE_NAME
@@ -82,12 +91,40 @@ REL_KW = dict(TINY_KW, only_obj=False, maxlen=1024, hidden_size_mil=8)
 BUCKETS = {"obj": dict(lv=4, lq=5, ls=10), "rel": dict(lv=4, lq=5, ls=520)}
 SEQ_BUCKET = dict(lv=4, lq=4, ls=12)     # encoder lengths 8 and 16: both divide seq 2
 STEP_CASES = ("dense", "sparse")
+# graph attention with dropout, hidden 16 over 4 heads: whole heads at model 2
+DROPOUT = 0.3
+DROPOUT_HEADS = 4
 
 
 def _rows(arrays, mesh):
     """This rank's data row's share of the batch (rank-major)."""
     n = len(next(iter(arrays.values()))) // mesh.data
     return {k: v[mesh.data_index * n:(mesh.data_index + 1) * n] for k, v in arrays.items()}
+
+
+def dropout_attention(weights):
+    att = GraphGuidedAttention(16, DROPOUT_HEADS, device="cpu", dropout_rate=DROPOUT,
+                               return_att=True)
+    att.load_state_dict(weights)
+    return att.train()
+
+
+def dropout_run(att, inputs):
+    """``(out, weights, dx, the dropout masks drawn)`` of one training-mode
+    call with dropout drawn from a seeded generator, the loss ``sum(out *
+    dy)``."""
+    x = inputs["x"].clone().requires_grad_()
+    gen = torch.Generator().manual_seed(4)
+    draws, bernoulli = [], torch.bernoulli
+
+    def drawn(*a, **kw):
+        draws.append(bernoulli(*a, **kw))
+        return draws[-1]
+
+    with mock.patch.object(torch, "bernoulli", drawn):
+        out, weights = att(x, x, x, inputs["graph"], generator=gen)
+    (out * inputs["dy"]).sum().backward()
+    return out.detach(), weights.detach(), x.grad, draws
 
 
 # ---- the ranks: this file run as a script --------------------------------
@@ -152,6 +189,10 @@ def _worker(rank, coordinator, tmp):
         load_params_for_eval(f"{tmp}/ckpt_one", model)
         shard_params(model, dm)
         out["loaded"] = {k: v.clone() for k, v in model.state_dict().items()}
+        # attention dropout on whole heads over the model row of (data 2, model 2)
+        att = dropout_attention(inputs["dropout"]["weights"])
+        shard_model(att, dm)
+        out["dropout"] = dropout_run(att, inputs["dropout"])
         torch.save(out, f"{tmp}/rank{rank}.pt")
     finally:
         shutdown(base)
@@ -305,6 +346,19 @@ def jax_shards(jparams, n, n_devices=WORLD, num_blocks=TINY_KW["num_blocks"]):
     return out
 
 
+def _dropout_inputs():
+    gen = torch.Generator().manual_seed(31)
+    att = GraphGuidedAttention(16, DROPOUT_HEADS, device="cpu")
+    init_random_(att, gen)
+    x = torch.randn(2, 7, 16, generator=gen)
+    dy = torch.randn(2, 7, 16, generator=gen)
+    # padding rows: masked keys and queries, no gradient into their LayerNorm
+    # of an all-zero row (whose backward divides by its zero variance)
+    x[1, 5:] = dy[1, 5:] = 0.0
+    return {"weights": att.state_dict(), "x": x,
+            "graph": (torch.rand(2, 7, 7, generator=gen) > 0.4).float(), "dy": dy}
+
+
 @pytest.fixture(scope="module")
 def model_world():
     """The cases, what each rank holds after them, and the references:
@@ -315,11 +369,12 @@ def model_world():
     cases["sparse"] = dict(cases["dense"], name="sparse", sparse=True)
     seq_arrays = synthetic_arrays(ModelConfig(share_glove=True, **TINY_KW), BATCH, seed=5,
                                   **SEQ_BUCKET)
+    dropout = _dropout_inputs()
     with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(1) as pool:
         one = _model(TINY_KW, cases["dense"]["weights"])
         save_checkpoint(f"{tmp}/ckpt_one", create_train_state(one, LR), 1)
         done = spawn_ranks(pool, tmp, {**port_cases(cases), "seq_arrays": seq_arrays,
-                                       "steps": STEP_CASES})
+                                       "steps": STEP_CASES, "dropout": dropout})
         pa.INTERPRET_MODE = True
         try:
             want = {name: jax_mesh_step(cases[name]) for name in STEP_CASES}
@@ -333,6 +388,7 @@ def model_world():
             model = _model(TINY_KW, cases["dense"]["weights"]).eval()
             with torch.no_grad():
                 forwards[name] = model(batch_from_arrays(arrays, "cpu"))[0]
+        forwards["dropout"] = dropout_run(dropout_attention(dropout["weights"]), dropout)
         done.result()
         ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=True) for r in range(WORLD)]
         files = {"ckpt": torch.load(f"{tmp}/ckpt_mp/epoch_1.pt", weights_only=True),
@@ -434,3 +490,22 @@ def test_checkpoints_are_whole_both_ways(model_world):
             dim = param_pspec(name, tuple(one[name].shape), 2)
             want = one[name] if dim is None else one[name].chunk(2, dim)[r % 2]
             assert torch.equal(t, want), (r, name)
+
+
+def test_attention_dropout_over_whole_heads_draws_the_one_process_mask(model_world):
+    _, ranks, _, _, forwards, _, _ = model_world
+    out, weights, dx, (mask,) = forwards["dropout"]
+    per = DROPOUT_HEADS // 2
+    for rank, got in enumerate(ranks):
+        lo = (rank % 2) * per
+        g_out, g_weights, g_dx, g_draws = got["dropout"]
+        assert torch.allclose(g_weights, weights[:, lo:lo + per], rtol=0, atol=1e-6), rank
+        assert (g_out - out).abs().max().item() <= LOGIT_ATOL, rank
+        assert (g_dx - dx).abs().max().item() <= LOGIT_ATOL * dx.abs().max().item(), rank
+        # one draw of every head's mask, one process's, of which the rank
+        # keeps its heads' share
+        assert len(g_draws) == 1 and torch.equal(g_draws[0], mask), rank
+    # so the ranks of a model row drop different weights on their heads
+    # (each drawing a mask of its own heads' shape would drop the same)
+    kept = [ranks[r]["dropout"][3][0][:, (r % 2) * per:(r % 2 + 1) * per] for r in (0, 1)]
+    assert not torch.equal(kept[0], kept[1])
