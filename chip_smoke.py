@@ -23,7 +23,10 @@ Phases, each of which must pass:
    f32 shape bit for bit: both entries against the first SIMT kernel on
    the same inputs, the 8-head entry against two 4-head attention-only
    halves and the LayerNorm entry; one f32 call under torch.profiler must
-   run only the f32 and LayerNorm kernels of csrc/graph_attention.cu;
+   run only the f32 and LayerNorm kernels of csrc/graph_attention.cu; and
+   at the widths beyond the presets', timed beside their bounds: C 2,048 at
+   8 heads of 256 (the SIMT kernel, 8 rows a block at 512 keys), L 128 and
+   512, B 8, bf16 and f32, and a head of 33 (C 99) untimed;
 4. K3 (FFN + LayerNorm) the same way at 16,384, 8,448 and 128 rows and at
    obj+rel's 6,144, 264 and 4 rows, at C 2,048 (3,136 rows), and in f32 at
    the variants' 64, 3,136, 6,336 and 19,200 rows and as the model axis's
@@ -32,7 +35,11 @@ Phases, each of which must pass:
    into how many shards the hidden width was split; 1,000 and 1,001 rows
    check ragged last tiles; one f32 and the wide calls run under
    torch.profiler, which must see only kernels of csrc/ffn.cu (no library
-   GEMM);
+   GEMM); at 16,384 rows of C 384 (the row-tile kernel in bf16), 768, 1,024,
+   300 and 16 (the products path, its edge tiles and, at C 300, its bf16
+   copies element by element) in both dtypes, timed, at C 33 (1,000 rows,
+   odd widths everywhere) untimed, and the model axis's partial and
+   epilogue at C 768;
 5. K2 (the backward of K1) against its plain PyTorch version at K1's
    shapes, bf16 and f32, both renorms, with all-zero graph rows and masked
    keys; in f32 also against torch.autograd of K1's plain version; each line
@@ -41,7 +48,10 @@ Phases, each of which must pass:
    and one with 65 keys checks the tensor-core kernels' unaligned graph
    loads; f32 also at the variants' shapes (B 64, self L 99 and 300, one
    query into 99 and 300), and one f32 call under torch.profiler must run
-   only the f32 kernels of csrc/graph_attention_bwd.cu;
+   only the f32 kernels of csrc/graph_attention_bwd.cu; at K1's wide
+   shapes (the SIMT kernels, bf16 and f32), at C 2,048 with 16 heads in bf16
+   (the SIMT kernels: the tensor-core rows launch does not fit there), timed,
+   and at a head of 33 untimed;
 6. the serving forward at full width (hidden 512, 6 blocks, 8 heads, 1,843
    classes, 407,000-row shared GloVe table, bf16, random weights from a seed)
    on five requests of 128 questions, bucket (lv, lq, ls) = (36, 30, 98):
@@ -58,6 +68,13 @@ Phases, each of which must pass:
    params and the Adam state bitwise as they were; and the device-time
    breakdown of one bf16 step and of one f32 step (the training CLI's
    default compute), with the f32 step's rate;
+7a. the widths phase (``widths``): the obj-only model at hidden 768 with 12
+   heads (head width 64), full width otherwise: one bf16 request at bs 128
+   whose K1 and K3 launches must be the 512-wide request's (24 each), the
+   same weights' f32 logits against the plain path (1e-3, the plain path
+   taking the kernel path's decisions), one f32 training step at bs 32
+   against the plain path (3e-2 of each gradient's norm), the request's
+   pairs/s and the step's steps/s as information;
 8. K4 (the flash graph attention) against its plain PyTorch version, bf16
    and f32, both renorms, every ``emit``, at B 4, C 512, 8 heads:
    self-attention at L 1,536 with ragged valid lengths and at L 1,506 + 30
@@ -70,7 +87,9 @@ Phases, each of which must pass:
    f32 call and a split one under torch.profiler must run only the f32
    kernel and the merge kernel; each line says
    which kernel and split the shape took; a bf16 shape with 701 keys checks
-   the tensor-core kernel's unaligned graph copies;
+   the tensor-core kernel's unaligned graph copies; at head widths 256 (C
+   2,048, 8 heads) and 50 (C 300, 6 heads), L 1,536, B 2, bf16 and f32 (the
+   SIMT kernel), timed, and 33 (C 99, L 600) untimed;
 9. K5 and K6 (its backward: dQ, and dK with dV) on the same inputs against
    their plain versions; in f32 also against torch.autograd of the eager
    ``attention_core``; each line says which kernels the shape took and how
@@ -78,7 +97,9 @@ Phases, each of which must pass:
    one call under torch.profiler must run alone); the one-query shape must
    go through K5's key split and its sum kernel in bf16, a bf16 shape with
    a head width of 8 through the SIMT kernels, and a bf16 shape with 701
-   keys checks the tensor-core kernels' unaligned graph copies;
+   keys checks the tensor-core kernels' unaligned graph copies; at K4's
+   wide shapes (the SIMT kernels, 32 query rows a block or step at head
+   width 256), timed, and at a head of 33 untimed;
 10. the obj+rel model at full width (``only_obj=False``, maxlen 1600,
     hidden_size_mil 64, 310 relations, otherwise as above) serving five
     requests of 4 questions at bucket (lv, ls, lq) = (36, 1506, 30), the
@@ -346,6 +367,19 @@ REL_STEP_REMAT = {"K1": 18, "K2": 12, "K4": 18, "K5": 12, "K6": 12, "K3": 36}
 # package): bs 64, maxlen_v 49, maxlen 300 of which maxlen_q 50 question
 # tokens and 250 scene-graph nodes
 VARIANT_B, VARIANT_LV, VARIANT_LS, VARIANT_LQ = 64, 49, 250, 50
+# the widths the kernels take beyond the presets': the widest head (C 2,048
+# at 8 heads of 256; K2 also at 16 of 128, past its tensor-core rows
+# launch), a head of 50 (C 300 at 6 heads), and K3 at other C
+WIDE_HEADS, WIDE_B = 8, 8
+K12_WIDE_SHAPES = (("C=2048 H=8 L=128 B=8", 128, 128, 8), ("C=2048 H=8 L=512 B=8", 512, 512, 8))
+K2_WIDE16_SHAPES = (("C=2048 H=16 L=128 B=8", 128, 128, 16),
+                    ("C=2048 H=16 L=512 B=8", 512, 512, 16))
+FLASH_WIDE_B = 2
+FLASH_WIDE_SHAPES = (("C=2048 H=8 L=1536 B=2", 2048, 8), ("C=300 H=6 L=1536 B=2", 300, 6))
+K3_WIDE_CS = (384, 768, 1024, 300, 16)
+# the widths phase: obj-only at hidden 768 with 12 heads (BERT-base's and
+# LXMERT's width, arXiv 1908.07490), full width otherwise
+WIDTHS_HIDDEN, WIDTHS_HEADS, WIDTHS_TRAIN_B = 768, 12, 32
 WIDE_C = 2048   # the region features' width: x2_fusion_dec_mil2's alignment blocks
 # K1, K3 and K4 launches and plain attention_core calls (attention weights
 # out, or no renorm: x2_mlp_dec's vanilla decoder cross-attention) of one
@@ -524,8 +558,8 @@ K1_SHAPES = (("self L=66", 66, 66, B), ("self L=128", 128, 128, B),
              ("self L=66 B=4", 66, 66, REL_B), ("cross Tq=1 Lk=66 B=4", 1, 66, REL_B))
 
 
-def k1_inputs(gen, tq: int, tk: int, dtype, B: int = B, all_masked: bool = False):
-    """K1's arguments at (B, Tq, Tk, C): keys valid up to a ragged length per
+def k1_inputs(gen, tq: int, tk: int, dtype, B: int = B, all_masked: bool = False, c: int = C):
+    """K1's arguments at (B, Tq, Tk, c): keys valid up to a ragged length per
     sample (with ``all_masked``, every key of sample 0 masked)."""
     dev = "cuda"
     n_keys = torch.randint(1, tk + 1, (B,), generator=gen, device=dev)
@@ -535,11 +569,11 @@ def k1_inputs(gen, tq: int, tk: int, dtype, B: int = B, all_masked: bool = False
     query_mask = key_mask[:, :tq].contiguous() if tq == tk else torch.ones(B, tq, device=dev)
     graph = (torch.rand(B, tq, tk, generator=gen, device=dev) < 0.3).float()
     graph = graph * query_mask[:, :, None] * key_mask[:, None, :]
-    q, k, v = (torch.relu(torch.randn(B, t, C, generator=gen, device=dev)).to(dtype)
+    q, k, v = (torch.relu(torch.randn(B, t, c, generator=gen, device=dev)).to(dtype)
                for t in (tq, tk, tk))
-    res = torch.randn(B, tq, C, generator=gen, device=dev).to(dtype)
-    gamma = 1 + 0.05 * torch.randn(C, generator=gen, device=dev)
-    beta = 0.05 * torch.randn(C, generator=gen, device=dev)
+    res = torch.randn(B, tq, c, generator=gen, device=dev).to(dtype)
+    gamma = 1 + 0.05 * torch.randn(c, generator=gen, device=dev)
+    beta = 0.05 * torch.randn(c, generator=gen, device=dev)
     return q, k, v, key_mask, query_mask, graph, res, gamma, beta
 
 
@@ -671,7 +705,35 @@ def k1_phase(gen) -> dict:
                   flush=True)
             rows.append(dict(label=label, dtype=dtype, err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by))
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, tq, tk, heads in K12_WIDE_SHAPES:
+            rows.append(k1_wide_row(label, k1_inputs(gen, tq, tk, dtype, WIDE_B, c=WIDE_C),
+                                    heads))
+        k1_against_plain("self L=65 B=4 C=99 heads=3", k1_inputs(gen, 65, 65, dtype, REL_B, c=99),
+                         3)
     return {r["label"] + str(r["dtype"]): r for r in rows}
+
+
+def k1_wide_row(label: str, args, heads: int) -> dict:
+    """K1 at a width beyond the presets': its kernel against the plain
+    version, timed beside its bound."""
+    from structured_alignment_vqa_tpu_torch.ops import fused_graph_attention as k1
+
+    q, k = args[0], args[1]
+    b, tq, c = q.shape
+    tk, dtype = k.shape[1], q.dtype
+    path = k1.k1_path(dtype, c // heads)
+    err = k1_against_plain(label, args, heads)
+    ms = time_ms(lambda: k1.fused_graph_attention_ln(*args, heads, "l1"))
+    plain_ms = time_ms(lambda: k1.graph_attention_ln_plain(*args, heads, "l1"), iters=5)
+    size = torch.finfo(dtype).bits // 8
+    nbytes = size * b * c * (3 * tq + 2 * tk) + 4 * b * (tq + tk + tq * tk) + 8 * c
+    bound_ms, bound_by = bound(nbytes, 4.0 * b * tq * tk * c, dtype)
+    print(f"K1 {label} {dtype}: {path} kernel ({k1.simt_rows(tq, tk, c, heads)} rows a block), "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by})",
+          flush=True)
+    return dict(label=label, dtype=dtype, err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, wide=True)
 
 
 # the variants' f32 rows of K3 at C 512 (scripts/variant_kernel_times.py):
@@ -697,7 +759,7 @@ def k3_path(dtype, n: int, c: int, hidden: int = 0) -> str:
     """Which of K3's designs a call of n rows takes, and its tiles."""
     from structured_alignment_vqa_tpu_torch.ops import fused_ffn as k3
 
-    if k3.ffn_path(dtype, c) == "row-tile":
+    if k3.ffn_path(dtype, c, hidden or 4 * c) == "row-tile":
         return "row-tile tensor-core kernel"
     tile_rows = k3.products_plan(n, c, hidden or 4 * c, dtype)[0]
     return (f"products {'SIMT' if dtype == torch.float32 else 'mma'} kernels, "
@@ -750,6 +812,7 @@ def k3_phase(gen) -> dict:
                                      REL_B, 1000)]
     shapes += [(VARIANT_B * VARIANT_LV, WIDE_C, both), (1001, WIDE_C, both)]
     shapes += [(n, C, (torch.float32,)) for n in VARIANT_K3_ROWS]
+    shapes += [(16384, c, both) for c in K3_WIDE_CS] + [(1000, 33, both)]
     for dtype in both:
         for n, c, dtypes in shapes:
             if dtype not in dtypes:
@@ -766,7 +829,7 @@ def k3_phase(gen) -> dict:
             check(err <= TOL[dtype] and bool(torch.isfinite(got.float()).all()),
                   f"K3 {label} {dtype}: {path}, hidden width in {n_split} shard(s), "
                   f"max|kernel-plain| {err:.3g} <= {TOL[dtype]:g}")
-            if n in (1000, 1001):
+            if n in (1000, 1001):   # ragged tiles and odd widths: checked, not timed
                 continue
             if (n, c) in ((16384, C), (VARIANT_B * VARIANT_LV, WIDE_C)) and (
                     dtype == torch.float32 or c == WIDE_C):
@@ -780,7 +843,24 @@ def k3_phase(gen) -> dict:
                   f"{previous('K3', label, dtype)}, plain {plain_ms:.4f} ms, "
                   f"bound {bound_ms * 1e3:.2f} us ({bound_by})", flush=True)
             rows.append(dict(label=label, dtype=dtype, err=err, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound_ms, bound_by=bound_by))
+                             bound_ms=bound_ms, bound_by=bound_by, wide=c in K3_WIDE_CS))
+
+    # the model axis's entries at a width beyond the presets': C 768, a
+    # model-2 rank's hidden shard of 1,536, both dtypes (not timed)
+    for dtype in both:
+        x, w1, b1, w2, b2, gamma, beta = k3_inputs(gen, 3000, 768, dtype, 1536)
+        part, part_plain = k3.ffn_partial(x, w1, b1, w2), k3.ffn_partial_plain(x, w1, b1, w2)
+        out = k3.ffn_epilogue(part, x, b2, gamma, beta)
+        out_plain = k3.ffn_epilogue_plain(part, x, b2, gamma, beta)
+        torch.cuda.synchronize()
+        e_part = rel_err(part, part_plain)
+        e_out = (out.float() - out_plain.float()).abs().max().item()
+        check(e_part <= K2_TOL[dtype] and e_out <= TOL[dtype]
+              and bool(torch.isfinite(out.float()).all()),
+              f"K3 partial + epilogue rows=3000 C=768 hidden=1536 {dtype}: "
+              f"{k3_path(dtype, 3000, 768, 1536)}, partial max|kernel-plain|/max|plain| "
+              f"{e_part:.3g} <= {K2_TOL[dtype]:g}, epilogue max|kernel-plain| {e_out:.3g} <= "
+              f"{TOL[dtype]:g}")
 
     # the model axis's f32 partial of a hidden shard: 16,384 rows, shard 1,024
     dtype, n, hidden = torch.float32, MODEL_ROWS, MODEL_HIDDEN
@@ -805,14 +885,14 @@ def k3_phase(gen) -> dict:
     return {r["label"] + str(r["dtype"]): r for r in rows}
 
 
-def k2_inputs(gen, tq: int, tk: int, dtype, B: int = B):
+def k2_inputs(gen, tq: int, tk: int, dtype, B: int = B, c: int = C):
     """K1's arguments (``k1_inputs``) and a dy; for self-attention the first
     third of the rows get an all-zero graph (as the encoder's stage-1 graph
     on its modality rows)."""
-    args = k1_inputs(gen, tq, tk, dtype, B)
+    args = k1_inputs(gen, tq, tk, dtype, B, c=c)
     if tq == tk:
         args[5][:, : tq // 3] = 0.0
-    dy = torch.randn(B, tq, C, generator=gen, device="cuda").to(dtype)
+    dy = torch.randn(B, tq, c, generator=gen, device="cuda").to(dtype)
     return args, dy
 
 
@@ -917,7 +997,42 @@ def k2_phase(gen) -> dict:
     args, dy = k2_inputs(gen, 65, 65, torch.bfloat16, REL_B)
     for renorm in ("l1", "sum_eps"):
         k2_against_plain("self L=65 B=4", args, dy, HEADS, renorm)
+    for dtype in (torch.bfloat16, torch.float32):
+        shapes = K12_WIDE_SHAPES + (K2_WIDE16_SHAPES if dtype == torch.bfloat16 else ())
+        for label, tq, tk, heads in shapes:
+            args, dy = k2_inputs(gen, tq, tk, dtype, WIDE_B, c=WIDE_C)
+            rows.append(k2_wide_row(label, args, dy, heads))
+            del args, dy
+            torch.cuda.empty_cache()
+        args, dy = k2_inputs(gen, 65, 65, dtype, REL_B, c=99)
+        for renorm in ("l1", "sum_eps"):
+            k2_against_plain("self L=65 B=4 C=99 heads=3", args, dy, 3, renorm)
     return {r["label"] + str(r["dtype"]): r for r in rows}
+
+
+def k2_wide_row(label: str, args, dy, heads: int) -> dict:
+    """K2 at a width beyond the presets': against its plain version in both
+    renorms, timed beside its bound."""
+    from structured_alignment_vqa_tpu_torch.ops import fused_graph_attention as k1
+
+    q, k = args[0], args[1]
+    b, tq, c = q.shape
+    tk, dtype = k.shape[1], q.dtype
+    path = k1.k2_path(dtype, c // heads, tk, c, heads)
+    err = rel = 0.0
+    for renorm in ("l1", "sum_eps"):
+        _, r, e = k2_against_plain(label, args, dy, heads, renorm)
+        rel, err = max(rel, r), max(err, e)
+    ms = time_ms(lambda: k1.fused_graph_attention_ln_bwd(*args, dy, heads, "l1"), iters=5)
+    plain_ms = time_ms(lambda: k1.graph_attention_ln_bwd_plain(*args, dy, heads, "l1"), iters=3)
+    size = torch.finfo(dtype).bits // 8
+    nbytes = size * b * c * (5 * tq + 4 * tk) + 4 * b * (tq + tk + tq * tk) + 12 * c
+    bound_ms, bound_by = bound(nbytes, 12.0 * b * tq * tk * c, dtype)
+    print(f"K2 {label} {dtype}: {path} kernels "
+          f"({k1.bwd_row_tile(dtype, c // heads, tq, tk, c, heads)} rows a block), {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by})", flush=True)
+    return dict(label=label, dtype=dtype, err=err, rel_err=rel, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, wide=True)
 
 
 # (label, Tq, Tk): the symbolic encoder's self-attention, the decoder's one
@@ -936,15 +1051,14 @@ K56_F32_SHAPES = (("ring shard Tq=768 Tk=768", REL_L // 2, REL_L // 2, HEADS),
 K4_SPLIT_LABELS = ("cross Tq=1 Lk=1536", "odd Tq=200 Tk=700", K4_SPLIT_SHAPE[0])
 
 
-def flash_inputs(gen, label: str, tq: int, tk: int, dtype):
-    """K4's arguments at (REL_B, Tq, Tk, C), as the model makes them: keys
+def flash_inputs(gen, label: str, tq: int, tk: int, dtype, c: int = C, b: int = REL_B):
+    """K4's arguments at (b, Tq, Tk, c), as the model makes them: keys
     valid up to a ragged length per sample ("1506+30": both the modality
     part and the question part end in padding), keys 64-127 of sample 1
     masked as a whole tile, every key (and query) of the last sample masked,
     and the first third of the self-attention rows with an all-zero graph
     (the encoder's stage-1 graph on its modality rows)."""
     dev = "cuda"
-    b = REL_B
     pos = torch.arange(tk, device=dev)[None]
     if label == "self L=1506+30":
         n_mod = torch.randint(REL_LS * 3 // 5, REL_LS + 1, (b, 1), generator=gen, device=dev)
@@ -959,7 +1073,7 @@ def flash_inputs(gen, label: str, tq: int, tk: int, dtype):
     graph = (torch.rand(b, tq, tk, generator=gen, device=dev) < 0.3).float()
     if tq == tk:
         graph[:, : tq // 3] = 0.0
-    q, k, v = (torch.relu(torch.randn(b, t, C, generator=gen, device=dev)).to(dtype)
+    q, k, v = (torch.relu(torch.randn(b, t, c, generator=gen, device=dev)).to(dtype)
                for t in (tq, tk, tk))
     # padding rows of the model are relu(bias), not 0: nothing is zeroed here
     return q, k, v, key_mask, query_mask, graph
@@ -1052,6 +1166,32 @@ def k4_phase(gen) -> dict:
     # kernel copies its tiles 4 bytes at a time
     k4_against_plain("odd keys Tq=70 Tk=701",
                      flash_inputs(gen, "odd keys", 70, 701, torch.bfloat16), HEADS)
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, c, heads in FLASH_WIDE_SHAPES:
+            args = flash_inputs(gen, "self L=1536", REL_L, REL_L, dtype, c, FLASH_WIDE_B)
+            path = fl.k4_path(dtype, c // heads)
+            check(path == "simt", f"K4 {label} {dtype}: head width {c // heads} takes the "
+                  f"{path} kernel")
+            err = k4_against_plain(label, args, heads)
+            ms = time_ms(lambda: fl.flash_graph_attention(*args, heads, "l1"), iters=5)
+            plain_ms = time_ms(lambda: fl.flash_graph_attention_plain(*args, heads, "l1"),
+                               iters=3)
+            size = torch.finfo(dtype).bits // 8
+            b, t = FLASH_WIDE_B, REL_L
+            nbytes = size * b * c * 4 * t + 4 * b * (t * t + 2 * t)
+            bound_ms, bound_by = bound(nbytes, 4.0 * b * t * t * c, dtype)
+            library_ms, library_err = sdpa_yardstick(args, heads)
+            print(f"K4 {label} {dtype}: {path} kernel, {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"SDPA with the graph as a boolean mask {library_ms:.4f} ms (max|K4 - SDPA| on "
+                  f"rows with a neighbour {library_err:.3g}), bound {bound_ms * 1e3:.2f} us "
+                  f"({bound_by})", flush=True)
+            rows.append(dict(label=label, dtype=dtype, err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                             wide=True))
+            del args
+            torch.cuda.empty_cache()
+        k4_against_plain("self L=600 C=99 heads=3",
+                         flash_inputs(gen, "self L=600", 600, 600, dtype, 99, FLASH_WIDE_B), 3)
     return {r["label"] + str(r["dtype"]): r for r in rows}
 
 
@@ -1198,6 +1338,38 @@ def k56_phase(gen) -> dict:
     args = flash_inputs(gen, "odd keys", 70, 701, torch.bfloat16)
     dy = torch.randn(REL_B, 70, C, generator=gen, device="cuda").to(torch.bfloat16)
     k56_against_plain("odd keys Tq=70 Tk=701", args, dy, HEADS)
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, c, heads in FLASH_WIDE_SHAPES:
+            b, t = FLASH_WIDE_B, REL_L
+            args = flash_inputs(gen, "self L=1536", t, t, dtype, c, b)
+            dy = torch.randn(b, t, c, generator=gen, device="cuda").to(dtype)
+            paths = (fl.dq_kernel(dtype, c // heads), fl.dkv_kernel(dtype, c // heads))
+            check(paths == ("simt", "simt"), f"K5/K6 {label} {dtype}: head width {c // heads} "
+                  f"takes the {paths[0]} kernels")
+            errs, abs_errs, bwd = k56_against_plain(label, args, dy, heads)
+            size = torch.finfo(dtype).bits // 8
+            stats_bytes = 4 * b * (t * t + t + 4 * heads * t)
+            for key, fn, plain, n_products, nbytes in (
+                ("K5", fl.flash_bwd_dq, fl.flash_bwd_dq_plain, 3,
+                 size * b * c * 5 * t + stats_bytes),
+                ("K6", fl.flash_bwd_dkv, fl.flash_bwd_dkv_plain, 4,
+                 size * b * c * 6 * t + stats_bytes),
+            ):
+                ms = time_ms(lambda: fn(*bwd), iters=5)
+                plain_ms = time_ms(lambda: plain(*bwd), iters=3)
+                bound_ms, bound_by = bound(nbytes, 2.0 * n_products * b * t * t * c, dtype)
+                print(f"{key} {label} {dtype}: simt kernel ({fl.simt_rows(c // heads)} query "
+                      f"rows a {'block' if key == 'K5' else 'step'}), {ms:.4f} ms, plain "
+                      f"{plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by})",
+                      flush=True)
+                rows.append(dict(kernel=key, label=label, dtype=dtype, err=abs_errs[key],
+                                 rel_err=errs[key], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by, wide=True))
+            del args, bwd
+            torch.cuda.empty_cache()
+        args = flash_inputs(gen, "self L=600", 600, 600, dtype, 99, FLASH_WIDE_B)
+        dy = torch.randn(FLASH_WIDE_B, 600, 99, generator=gen, device="cuda").to(dtype)
+        k56_against_plain("self L=600 C=99 heads=3", args, dy, 3)
     return {r["kernel"] + r["label"] + str(r["dtype"]): r for r in rows}
 
 
@@ -1955,6 +2127,88 @@ def training_phase(card: str) -> dict:
     check(m["skipped"].item() == 1.0 and same_snapshot(kept, snapshot(model, opt)),
           f"train: a NaN feature gives skipped {m['skipped'].item():g} and leaves the params "
           "and the Adam state bitwise unchanged")
+    return launches
+
+
+def widths_phase(card: str) -> dict:
+    """The obj-only model at hidden 768 with 12 heads (head width 64),
+    ``full_config`` otherwise (hidden_size_mil 1,024, 6 blocks, maxlen 450,
+    the 407,000 x 300 table, seeded weights): one bf16 request at bs 128
+    whose launches must be the 512-wide request's (24 K1, 24 K3: no FFN or
+    attention left the kernels), the same weights' f32 logits against the
+    plain path, and one f32 training step at bs 32 against the plain path,
+    each at the limits of the serving and training phases."""
+    from structured_alignment_vqa_tpu_torch.data.synthetic import synthetic_batch
+    from structured_alignment_vqa_tpu_torch.parallel.train_step import (
+        TrainState,
+        adam,
+        make_train_step,
+    )
+    from structured_alignment_vqa_tpu_torch.train.predict import make_predict_step
+
+    what = f"widths hidden {WIDTHS_HIDDEN} heads {WIDTHS_HEADS}"
+    cfg = full_config(hidden_size=WIDTHS_HIDDEN, num_heads=WIDTHS_HEADS)
+    model = random_model(cfg)
+    batches = full_batches(cfg, 2)
+    predict = make_predict_step(model)
+    predict(batches[0])          # warm-up request
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    answers = predict(batches[1])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    for key, per in (("K1", K1_PER_FORWARD), ("K3", K3_PER_FORWARD), ("K2", 0), ("K4", 0),
+                     ("K5", 0), ("K6", 0)):
+        check(launches[key] == per, f"{what}: {key} launched {launches[key]} times in one bf16 "
+              f"bs-{B} request (want {per}, as at hidden {C})")
+    check(answers.shape == (B,) and int(answers.min()) >= 0
+          and int(answers.max()) < cfg.num_classes,
+          f"{what}: {B} answers in [0, {cfg.num_classes})")
+    print(f"{what} serving bf16 bs {B}: one request in {seconds:.4f} s = {B / seconds:.1f} "
+          f"pairs/s on {card} (information only)", flush=True)
+
+    model32 = random_model(cfg.replace(compute_dtype=torch.float32))
+    model32.load_state_dict(model.state_dict())
+    del model, predict
+    with torch.inference_mode():
+        with recorded_decisions(model32) as decisions:
+            kernel_logits = model32.eval()(batches[1])[:3]
+        before = launch_counts()
+        pins = Pins(decisions)
+        with plain_path(), pinned_decisions(model32, pins):
+            plain_logits = model32(batches[1])[:3]
+        check(before == launch_counts(), f"{what}: the plain path launched no kernel")
+    pins_hold(f"{what} serving f32: the plain path", pins)
+    diff = max((a - b).abs().max().item() for a, b in zip(kernel_logits, plain_logits))
+    finite = all(torch.isfinite(t).all().item() for t in kernel_logits)
+    check(finite and diff <= LOGIT_TOL_F32,
+          f"{what} serving f32: max|logits kernel - plain| {diff:.3g} <= {LOGIT_TOL_F32:g}")
+    pair_line(f"{what} serving f32 logits", diff, LOGIT_TOL_F32, [pins])
+    del model32, kernel_logits, plain_logits
+    torch.cuda.empty_cache()
+
+    cfg32 = cfg.replace(compute_dtype=torch.float32)
+    batch = synthetic_batch(cfg32, WIDTHS_TRAIN_B, lv=36, lq=30, ls=98, seed=0)
+    f32_step_against_plain(cfg32, batch,
+                           {"K1": K1_PER_FORWARD, "K2": K2_PER_STEP, "K3": K3_PER_FORWARD},
+                           f"{what} train f32 bs {WIDTHS_TRAIN_B}")
+    model = random_model(cfg32)
+    opt = adam(model.parameters(), lr=1e-4)
+    state = TrainState(model, opt)
+    step = make_train_step(model, opt, cfg32)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    step(state, batch, gen)           # warm-up step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(state, batch, gen)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    print(f"{what} train f32 bs {WIDTHS_TRAIN_B}: one step in {seconds:.4f} s = "
+          f"{1 / seconds:.3f} steps/s on {card} (information only)", flush=True)
+    del model, opt, state, step
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -4980,7 +5234,7 @@ def model_phase(card: str) -> dict:
 model_phase.entries = {}
 
 
-PHASES = ("k1", "k3", "k2", "serving", "training", "k4", "k56", "objrel_serving",
+PHASES = ("k1", "k3", "k2", "serving", "training", "widths", "k4", "k56", "objrel_serving",
           "objrel_training", "cli", "train_cli", "packed", "dp", "host", "variants",
           "variant_cli", "seq", "model")
 PORT = "structured_alignment_vqa_tpu_torch/csrc/"
@@ -5036,6 +5290,12 @@ def kernel_lines(rows: dict, by_path: dict) -> list:
             "launches_by_path": {p: counts[key] for p, counts in by_path.items()},
         }
         entry["max_abs_err_all_cases"] = max(r["err"] for r in mine.values())
+        # the widths beyond the presets' (the rows marked wide), each beside its bound
+        entry["wide_rows"] = [
+            {"shape": r["label"], "dtype": str(r["dtype"]), "max_abs_err": r["err"],
+             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+             "bound_by": r["bound_by"], "library_ms": r.get("library_ms")}
+            for r in mine.values() if r.get("wide")]
         # the model axis's entries of this kernel (phase model), each beside its bound
         entry["model_axis_entries"] = [
             dict(e) for n, e in model_phase.entries.items() if n.startswith(key + " ")]
@@ -5101,7 +5361,7 @@ def main(argv: list) -> int:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     kernel_phases = {"k1": k1_phase, "k3": k3_phase, "k2": k2_phase, "k4": k4_phase,
                      "k56": k56_phase}
-    path_phases = {"serving": serving_phase, "training": training_phase,
+    path_phases = {"serving": serving_phase, "training": training_phase, "widths": widths_phase,
                    "objrel_serving": rel_serving_phase, "objrel_training": rel_training_phase,
                    "cli": cli_phase, "train_cli": train_cli_phase, "packed": packed_phase,
                    "dp": dp_phase, "host": host_phase, "variants": variants_phase,

@@ -16,16 +16,23 @@
 // f32 products (TF32 keeps about 3 digits; the f32 path is held to 1e-4),
 // so its bound is FFMA on the CUDA cores, 67 TFLOP/s.
 //
-// Two designs, by dtype and width:
+// Two designs, by dtype and width (C from 1 to 2,048, any hidden width up
+// to 4 x 2,048):
 //
-// * bf16 at C <= 512 (ffn_ln_tc_kernel, below): the TPU kernel's shape. A
+// * bf16 at C 128, 256, 384 or 512 with a hidden width that is a multiple of
+//   64 (ffn_ln_tc_kernel, below): the TPU kernel's shape. A
 //   block owns 64 rows and walks the hidden width in chunks of 64 on the
 //   tensor cores: the chunk h = relu(x W1[chunk]^T + b1) is built on chip
 //   and never written to device memory, y += h W2[:, chunk]^T accumulates in
 //   registers, and the residual and the LayerNorm finish in the block.
 //
-// * float32 at every width, and bf16 at C 2,048 (the products path, further
-//   below): two kernels shaped like GEMMs, then the shard-sum kernel. The
+// * float32 at every width, and bf16 at every other width (the products
+//   path, further below): two kernels shaped like GEMMs, then the shard-sum
+//   kernel. C and the hidden width are runtime extents there: edge tiles
+//   zero-fill the rows, columns and k past the operands and store nothing
+//   past them, and the LayerNorm leaves the columns past C out of its sums.
+//   bf16 rows whose width is no multiple of 8 (or operands not 16-byte
+//   aligned) are copied element by element instead of by 16-byte cp.async. The
 //   hidden activation goes through device memory: at 16,384 rows its round
 //   trip is 268 MB in f32 (~0.08 ms, 8% of the 1.03 ms bound), while a fused
 //   block would have to stream both weight matrices once per row tile (the
@@ -39,7 +46,7 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
-#include <type_traits>
+#include <cstdint>
 
 #include "mma_sm90.cuh"
 
@@ -329,15 +336,20 @@ ffn_ln_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
 }
 
 // The split path's second kernel, and the last of the products path in
-// bf16 and at C 2,048 (below): per row, y = the shards' partial sums in
+// bf16 and at C above 512 (below): per row, y = the shards' partial sums in
 // shard order, + b2 + x, then the LayerNorm; one warp a row, a lane owning
-// the 4-column chunks 4 lane + 128 i. The loads of kAhead shards are issued
-// before any is added, so a row waits for ceil(n_split / kAhead) round trips
-// to L2 and not n_split. No atomics: every run sums alike. With n_split 1
-// and T float or bf16 it is also the model axis's epilogue
-// (savqa_ffn_epilogue): y there is the partials summed over the ranks.
+// the 4-column chunks 4 lane + 128 i (i < CMAX / 128; C <= CMAX, the columns
+// from C on left out of every sum and store). The loads of kAhead shards are
+// issued before any is added, so a row waits for ceil(n_split / kAhead)
+// round trips to L2 and not n_split. No atomics: every run sums alike. With
+// n_split 1 and T float or bf16 it is also the model axis's epilogue
+// (savqa_ffn_epilogue): y there is the partials summed over the ranks. C a
+// multiple of 4 moves 16 bytes of partials a load (and 16 or 8 of out a
+// store); other widths load and store element by element.
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store1(float* p, float y) { *p = y; }
+__device__ __forceinline__ void store1(bf16* p, float y) { *p = __float2bfloat16_rn(y); }
 
 __device__ __forceinline__ void store4(bf16* p, const float (&y)[4]) {
   *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]));
@@ -346,17 +358,18 @@ __device__ __forceinline__ void store4(float* p, const float (&y)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(y[0], y[1], y[2], y[3]);
 }
 
-template <int C, typename T>
+template <int CMAX, typename T>
 __global__ void __launch_bounds__(kThreads)
 ffn_ln_shard_sum_kernel(const float* __restrict__ partial, const T* __restrict__ x,
                         const T* __restrict__ b2, const float* __restrict__ gamma,
-                        const float* __restrict__ beta, T* __restrict__ out, int N,
+                        const float* __restrict__ beta, T* __restrict__ out, int N, int C,
                         int n_split) {
-  constexpr int kChunks = C / 128;
-  constexpr int kAhead = C <= 512 ? 4 : 1;   // C 2,048: a lane's 64 sums and one shard's loads
+  constexpr int kChunks = CMAX / 128;
+  constexpr int kAhead = CMAX <= 512 ? 4 : 1;   // wider: a lane's 32-64 sums and one shard's loads
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= N) return;
+  const bool vec = (C & 3) == 0;
   float v[kChunks][4];
 #pragma unroll
   for (int i = 0; i < kChunks; ++i) v[i][0] = v[i][1] = v[i][2] = v[i][3] = 0.f;
@@ -366,9 +379,18 @@ ffn_ln_shard_sum_kernel(const float* __restrict__ partial, const T* __restrict__
     for (int u = 0; u < kAhead; ++u)
 #pragma unroll
       for (int i = 0; i < kChunks; ++i)
-        if (sp0 + u < n_split)
-          p[u][i] = *reinterpret_cast<const float4*>(
-              partial + ((size_t)(sp0 + u) * N + row) * C + 4 * lane + 128 * i);
+        if (sp0 + u < n_split) {
+          const int c = 4 * lane + 128 * i;
+          const float* src = partial + ((size_t)(sp0 + u) * N + row) * C + c;
+          if (vec && c + 4 <= C) {
+            p[u][i] = *reinterpret_cast<const float4*>(src);
+          } else {
+            p[u][i].x = c < C ? src[0] : 0.f;
+            p[u][i].y = c + 1 < C ? src[1] : 0.f;
+            p[u][i].z = c + 2 < C ? src[2] : 0.f;
+            p[u][i].w = c + 3 < C ? src[3] : 0.f;
+          }
+        }
 #pragma unroll
     for (int u = 0; u < kAhead; ++u)
 #pragma unroll
@@ -386,26 +408,52 @@ ffn_ln_shard_sum_kernel(const float* __restrict__ partial, const T* __restrict__
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int c = 4 * lane + 128 * i + e;
-      v[i][e] = (v[i][e] + to_f(b2[c])) + to_f(x[(size_t)row * C + c]);
-      s += v[i][e];
+      if (c < C) {
+        v[i][e] = (v[i][e] + to_f(b2[c])) + to_f(x[(size_t)row * C + c]);
+        s += v[i][e];
+      }
     }
   const float mean = warp_sum(s) / (float)C;
   float ss = 0.f;
 #pragma unroll
   for (int i = 0; i < kChunks; ++i)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) ss += (v[i][e] - mean) * (v[i][e] - mean);
-  const float var = warp_sum(ss) / (float)(C - 1);
+    for (int e = 0; e < 4; ++e)
+      if (4 * lane + 128 * i + e < C) ss += (v[i][e] - mean) * (v[i][e] - mean);
+  const float var = warp_sum(ss) / (float)max(C - 1, 1);
   const float sd = var > 0.f ? sqrtf(var) : 0.f;
   T* orow = out + (size_t)row * C;
 #pragma unroll
   for (int i = 0; i < kChunks; ++i) {
     const int c = 4 * lane + 128 * i;
+    if (c >= C) continue;
     float y[4];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) y[e] = gamma[c + e] * (v[i][e] - mean) / (sd + kLnEps) + beta[c + e];
-    store4(orow + c, y);
+    for (int e = 0; e < 4; ++e)
+      y[e] = c + e < C ? gamma[c + e] * (v[i][e] - mean) / (sd + kLnEps) + beta[c + e] : 0.f;
+    if (vec && c + 4 <= C) {
+      store4(orow + c, y);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (c + e < C) store1(orow + c + e, y[e]);
+    }
   }
+}
+
+// The shard-sum kernel at the narrowest CMAX (128, 256, 512, 1,024 or
+// 2,048) that holds C.
+template <typename T>
+cudaError_t launch_shard_sum(const float* partial, const T* x, const T* b2, const float* gamma,
+                             const float* beta, T* out, int N, int C, int n_split,
+                             cudaStream_t stream) {
+  const int blocks = (N + kWarps - 1) / kWarps;
+  auto kernel = C <= 128 ? ffn_ln_shard_sum_kernel<128, T>
+              : C <= 256 ? ffn_ln_shard_sum_kernel<256, T>
+              : C <= 512 ? ffn_ln_shard_sum_kernel<512, T>
+              : C <= 1024 ? ffn_ln_shard_sum_kernel<1024, T> : ffn_ln_shard_sum_kernel<2048, T>;
+  kernel<<<blocks, kThreads, 0, stream>>>(partial, x, b2, gamma, beta, out, N, C, n_split);
+  return cudaGetLastError();
 }
 
 // The model axis's sum of this rank's own hidden shards (bf16): out = the
@@ -421,18 +469,20 @@ ffn_partial_sum_kernel(const float* __restrict__ partial, float* __restrict__ ou
   }
 }
 
-// The f32 products path's last kernel at C 128-512: per row, y (one shard,
-// a k-ascending FMA chain over the whole hidden width) + b2 + x, then the
-// LayerNorm; one warp a row, lane l owning the columns l + 32 t, the sums
-// taken over t in order. These are the sums, in their order, of the f32
-// SIMT kernel this path replaced (ffn_ln_f32_kernel, 32 rows a block): f32
-// results at C <= 512 are the same bits as that kernel's, only faster.
-template <int C>
+// The f32 products path's last kernel at C up to 512: per row, y (one
+// shard, a k-ascending FMA chain over the whole hidden width) + b2 + x,
+// then the LayerNorm; one warp a row, lane l owning the columns l + 32 t (t
+// < CMAX / 32, those from C on left out), the sums taken over t in order.
+// These are the sums, in their order, of the f32 SIMT kernel this path
+// replaced (ffn_ln_f32_kernel, 32 rows a block): f32 results at C 128, 256
+// and 512 are the same bits as that kernel's, only faster.
+template <int CMAX>
 __global__ void __launch_bounds__(kThreads)
 ffn_ln_f32_epilogue_kernel(const float* __restrict__ y, const float* __restrict__ x,
                            const float* __restrict__ b2, const float* __restrict__ gamma,
-                           const float* __restrict__ beta, float* __restrict__ out, int N) {
-  constexpr int kCols = C / 32;
+                           const float* __restrict__ beta, float* __restrict__ out, int N,
+                           int C) {
+  constexpr int kCols = CMAX / 32;
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= N) return;
@@ -443,36 +493,41 @@ ffn_ln_f32_epilogue_kernel(const float* __restrict__ y, const float* __restrict_
 #pragma unroll
   for (int t = 0; t < kCols; ++t) {
     const int c = lane + 32 * t;
-    v[t] = (yr[c] + b2[c]) + xr[c];
-    s += v[t];
+    if (c < C) {
+      v[t] = (yr[c] + b2[c]) + xr[c];
+      s += v[t];
+    }
   }
   const float mean = warp_sum(s) / (float)C;
   float ss = 0.f;
 #pragma unroll
   for (int t = 0; t < kCols; ++t) {
-    const float d = v[t] - mean;
-    ss += d * d;
+    if (lane + 32 * t < C) {
+      const float d = v[t] - mean;
+      ss += d * d;
+    }
   }
-  const float var = warp_sum(ss) / (float)(C - 1);
+  const float var = warp_sum(ss) / (float)max(C - 1, 1);
   const float sd = var > 0.f ? sqrtf(var) : 0.f;
   float* orow = out + (size_t)row * C;
 #pragma unroll
   for (int t = 0; t < kCols; ++t) {
     const int c = lane + 32 * t;
-    orow[c] = gamma[c] * (v[t] - mean) / (sd + kLnEps) + beta[c];
+    if (c < C) orow[c] = gamma[c] * (v[t] - mean) / (sd + kLnEps) + beta[c];
   }
 }
 
 // ------------------------------------------------------- the products path
 //
-// float32 at C 128-2,048 and bf16 at C 2,048 (ops/fused_ffn.py:ffn_path
-// "products"), three kernels counted as one launch:
+// float32 at every C and bf16 at every C but the row tile's
+// (ops/fused_ffn.py:ffn_path "products"), three kernels counted as one
+// launch:
 //   1. hidden = relu(x W1^T + b1), (N, Hd) in x's type, into scratch;
 //   2. y_s = hidden[:, shard s] W2[:, shard s]^T for each of n_split shards
 //      of the hidden width, (n_split, N, C) f32, into scratch;
-//   3. + b2 + x and the LayerNorm: ffn_ln_f32_epilogue_kernel<C> (above) for
-//      f32 at C <= 512, which takes one shard; else ffn_ln_shard_sum_kernel
-//      <C, T>, the shards summed in order first. The model axis's partial
+//   3. + b2 + x and the LayerNorm: ffn_ln_f32_epilogue_kernel (above) for
+//      f32 at C <= 512, which takes one shard; else ffn_ln_shard_sum_kernel,
+//      the shards summed in order first. The model axis's partial
 //      entry ends after stage 2 instead (one shard written straight into
 //      its output, or ffn_partial_sum_kernel over several).
 // In f32 at C <= 512 both products are one k-ascending FMA chain per
@@ -482,8 +537,11 @@ ffn_ln_f32_epilogue_kernel(const float* __restrict__ y, const float* __restrict_
 // Stages 1 and 2 are the same kernel: C = A B^T over one shard of k, A (M,
 // K) and B (N, K) both K-contiguous (nn.Linear's layout, and the hidden
 // scratch's), one tile of C a block of 256 threads, the k slices of A and
-// B streamed through a cp.async ring with one barrier a stage. Rows past M
-// and columns past N are zero-filled on the way in and not stored.
+// B streamed through a cp.async ring with one barrier a stage. Rows past M,
+// columns past N and k past the shard's end (K or the hidden width need be
+// no multiple of a stage's k) are zero-filled on the way in, and nothing
+// past M or N is stored; the zeros add exact zeros to every sum, so a width
+// that fills its tiles sums as before.
 //
 // What bounds it: FMAs. Both products are GEMMs far above the ridge, and
 // f32 has no tensor-core form that keeps 1e-4. What the design does about
@@ -494,7 +552,7 @@ ffn_ln_f32_epilogue_kernel(const float* __restrict__ y, const float* __restrict_
 // products_plan, estimated from scripts/k3_variants.py's times): the tile
 // height and, in bf16, the shards of the hidden width over blocks in stage
 // 2 (C 2,048 at 3,136 rows: 2). f32 takes one shard at C <= 512 (above)
-// and shards of 1,024 columns at C 2,048 (8 at 4C).
+// and shards of 1,024 columns above C 512 (8 at C 2,048's 4C).
 // f32 reaches about 42 TFLOP/s of the 67 at 16,384 rows, C 512 (H100 SXM).
 //
 // f32 (ffn_ln_simt_product_kernel<BM>): FFMA on the CUDA cores. A stage
@@ -543,7 +601,8 @@ ffn_ln_simt_product_kernel(const float* __restrict__ A, const float* __restrict_
   const int tid = threadIdx.x;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * kTile;
   const int k_begin = blockIdx.z * k_split;
-  const int steps = (min(K, k_begin + k_split) - k_begin) / kSK;
+  const int k_end = min(K, k_begin + k_split);
+  const int steps = (k_end - k_begin + kSK - 1) / kSK;
 
   // element tid + 256 i of a rows x kSK slice: row tid / kSK + kPass i, k
   // tid % kSK, so that a warp's copies read whole rows' contiguous k (a
@@ -559,11 +618,12 @@ ffn_ln_simt_product_kernel(const float* __restrict__ A, const float* __restrict_
     float* as = sp_smem + stage * simt_stage(BM) + ck * kALd + cr;
     float* bs = sp_smem + stage * simt_stage(BM) + kSK * kALd + ck * kSBLd + cr;
     int ao = a_first + step * kSK, bo = b_first + step * kSK;
+    const bool kv = k_begin + step * kSK + ck < k_end;
 #pragma unroll
     for (int i = 0; i < kTile / kPass; ++i, ao += row_step, bo += row_step) {
-      if (kPass * i < BM)
-        cp_async4(as + kPass * i, A + (kPass * i < a_left ? ao : 0), kPass * i < a_left);
-      cp_async4(bs + kPass * i, B + (kPass * i < b_left ? bo : 0), kPass * i < b_left);
+      const bool va = kv && kPass * i < a_left, vb = kv && kPass * i < b_left;
+      if (kPass * i < BM) cp_async4(as + kPass * i, A + (va ? ao : 0), va);
+      cp_async4(bs + kPass * i, B + (vb ? bo : 0), vb);
     }
   };
 
@@ -620,7 +680,7 @@ ffn_ln_simt_product_kernel(const float* __restrict__ A, const float* __restrict_
     if (row >= M) continue;
 #pragma unroll
     for (int jh = 0; jh < 2; ++jh) {
-      const int col = n0 + 64 * jh + 4 * tx;   // N is a multiple of 64: all 4 in or all out
+      const int col = n0 + 64 * jh + 4 * tx;
       if (col >= N) continue;
       float v[4];
 #pragma unroll
@@ -628,12 +688,22 @@ ffn_ln_simt_product_kernel(const float* __restrict__ A, const float* __restrict_
         v[e] = acc[i][4 * jh + e];
         if (EPI == kEpiHidden) v[e] = fmaxf(v[e] + bb[4 * jh + e], 0.f);
       }
-      *reinterpret_cast<float4*>(o + (size_t)row * N + col) = make_float4(v[0], v[1], v[2], v[3]);
+      float* dst = o + (size_t)row * N + col;
+      if ((N & 3) == 0 && col + 4 <= N) {
+        *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (col + e < N) dst[e] = v[e];
+      }
     }
   }
 }
 
-template <int EPI>
+// VEC: K is a multiple of 8 and A, B are 16-byte aligned, so the slices
+// move by 16-byte cp.async; else element by element (plain loads and
+// shared stores, which the barrier of the step that reads them orders).
+template <int EPI, bool VEC>
 __global__ void __launch_bounds__(kThreads, 2)
 ffn_ln_mma_product_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
                           const bf16* __restrict__ bias, void* __restrict__ out, int M, int N,
@@ -646,7 +716,8 @@ ffn_ln_mma_product_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B
   const int wm = warp >> 2, wn = warp & 3;
   const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
   const int k_begin = blockIdx.z * k_split;
-  const int steps = (min(K, k_begin + k_split) - k_begin) / kHK;
+  const int k_end = min(K, k_begin + k_split);
+  const int steps = (k_end - k_begin + kHK - 1) / kHK;
 
   // 16-byte chunk tid + 256 i of a 128 x kHK slice: row tid / (kHK / 8) +
   // kPass i, k 8 (tid % (kHK / 8))
@@ -659,9 +730,19 @@ ffn_ln_mma_product_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B
 #pragma unroll
     for (int i = 0; i < kTile / kPass; ++i) {
       const int r = cr + kPass * i;
-      const bool va = m0 + r < M, vb = n0 + r < N;
-      cp_async16(as + r * kHLd + cc, va ? A + (size_t)(m0 + r) * K + k : A, va);
-      cp_async16(bs + r * kHLd + cc, vb ? B + (size_t)(n0 + r) * K + k : B, vb);
+      if constexpr (VEC) {   // k_end is a multiple of 8: a chunk is all in or all out
+        const bool va = k < k_end && m0 + r < M, vb = k < k_end && n0 + r < N;
+        cp_async16(as + r * kHLd + cc, va ? A + (size_t)(m0 + r) * K + k : A, va);
+        cp_async16(bs + r * kHLd + cc, vb ? B + (size_t)(n0 + r) * K + k : B, vb);
+      } else {
+        const bf16 zero = __float2bfloat16_rn(0.f);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const bool ke = k + e < k_end;
+          as[r * kHLd + cc + e] = ke && m0 + r < M ? A[(size_t)(m0 + r) * K + k + e] : zero;
+          bs[r * kHLd + cc + e] = ke && n0 + r < N ? B[(size_t)(n0 + r) * K + k + e] : zero;
+        }
+      }
     }
   };
 
@@ -703,12 +784,14 @@ ffn_ln_mma_product_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B
 
 #pragma unroll
   for (int nb = 0; nb < 4; ++nb) {
-    const int col = n0 + 32 * wn + 8 * nb + 2 * t;   // N is a multiple of 64
+    const int col = n0 + 32 * wn + 8 * nb + 2 * t;
     if (col >= N) continue;
+    const bool two = col + 1 < N;             // the pair's second column is real
+    const bool packed = two && (N & 1) == 0;  // and the pair is one aligned store
     float ba = 0.f, bb = 0.f;
     if (EPI == kEpiHidden) {
       ba = __bfloat162float(bias[col]);
-      bb = __bfloat162float(bias[col + 1]);
+      if (two) bb = __bfloat162float(bias[col + 1]);
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -717,12 +800,25 @@ ffn_ln_mma_product_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B
         const int row = m0 + 64 * wm + 16 * i + g + 8 * half;
         if (row >= M) continue;
         const float c0 = acc[i][nb][2 * half], c1 = acc[i][nb][2 * half + 1];
-        if (EPI == kEpiHidden)
-          *reinterpret_cast<uint32_t*>(static_cast<bf16*>(out) + (size_t)row * N + col) =
-              pack_bf16(fmaxf(c0 + ba, 0.f), fmaxf(c1 + bb, 0.f));
-        else
-          *reinterpret_cast<float2*>(static_cast<float*>(out) + (size_t)blockIdx.z * split_stride +
-                                     (size_t)row * N + col) = make_float2(c0, c1);
+        if (EPI == kEpiHidden) {
+          bf16* dst = static_cast<bf16*>(out) + (size_t)row * N + col;
+          const float h0 = fmaxf(c0 + ba, 0.f), h1 = fmaxf(c1 + bb, 0.f);
+          if (packed) {
+            *reinterpret_cast<uint32_t*>(dst) = pack_bf16(h0, h1);
+          } else {
+            dst[0] = __float2bfloat16_rn(h0);
+            if (two) dst[1] = __float2bfloat16_rn(h1);
+          }
+        } else {
+          float* dst = static_cast<float*>(out) + (size_t)blockIdx.z * split_stride +
+                       (size_t)row * N + col;
+          if (packed) {
+            *reinterpret_cast<float2*>(dst) = make_float2(c0, c1);
+          } else {
+            dst[0] = c0;
+            if (two) dst[1] = c1;
+          }
+        }
       }
   }
 }
@@ -760,13 +856,14 @@ cudaError_t launch_product(const bf16* A, const bf16* B, const bf16* bias, void*
                            int N, int K, int k_split, int n_split, size_t split_stride,
                            int tile_rows, cudaStream_t stream) {
   if (tile_rows != kTile) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(ffn_ln_mma_product_kernel<EPI>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const bool vec = K % 8 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(B) % 16 == 0;
+  auto kernel = vec ? ffn_ln_mma_product_kernel<EPI, true> : ffn_ln_mma_product_kernel<EPI, false>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)kMmaSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile, n_split);
-  ffn_ln_mma_product_kernel<EPI><<<grid, kThreads, kMmaSmem, stream>>>(
-      A, B, bias, out, M, N, K, k_split, split_stride);
+  kernel<<<grid, kThreads, kMmaSmem, stream>>>(A, B, bias, out, M, N, K, k_split, split_stride);
   return cudaGetLastError();
 }
 
@@ -786,76 +883,66 @@ cudaError_t launch_products(const void* x, const void* w1, const void* b1, const
                                      tile_rows, stream);
 }
 
-template <int C, typename T>
+template <typename T>
 cudaError_t launch_products_ln(const void* x, const void* w1, const void* b1, const void* w2,
                                const void* b2, const float* gamma, const float* beta, void* out,
-                               void* hidden, float* partial, int N, int Hd, int n_split,
+                               void* hidden, float* partial, int N, int C, int Hd, int n_split,
                                int per_split, int tile_rows, cudaStream_t stream) {
   cudaError_t err = launch_products<T>(x, w1, b1, w2, hidden, partial, N, C, Hd, n_split,
                                        per_split, tile_rows, stream);
   if (err != cudaSuccess) return err;
-  if constexpr (std::is_same<T, float>::value && C <= 512) {
-    if (n_split == 1) {
-      ffn_ln_f32_epilogue_kernel<C><<<(N + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
-          partial, static_cast<const float*>(x), static_cast<const float*>(b2), gamma, beta,
-          static_cast<float*>(out), N);
-      return cudaGetLastError();
-    }
+  if (std::is_same<T, float>::value && C <= 512 && n_split == 1) {
+    const int blocks = (N + kWarps - 1) / kWarps;
+    auto kernel = C <= 128 ? ffn_ln_f32_epilogue_kernel<128>
+                : C <= 256 ? ffn_ln_f32_epilogue_kernel<256> : ffn_ln_f32_epilogue_kernel<512>;
+    kernel<<<blocks, kThreads, 0, stream>>>(partial, static_cast<const float*>(x),
+                                            static_cast<const float*>(b2), gamma, beta,
+                                            static_cast<float*>(out), N, C);
+    return cudaGetLastError();
   }
-  ffn_ln_shard_sum_kernel<C, T><<<(N + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
-      partial, static_cast<const T*>(x), static_cast<const T*>(b2), gamma, beta,
-      static_cast<T*>(out), N, n_split);
-  return cudaGetLastError();
+  return launch_shard_sum<T>(partial, static_cast<const T*>(x), static_cast<const T*>(b2), gamma,
+                             beta, static_cast<T*>(out), N, C, n_split, stream);
 }
 
 // ----------------------------------------------------------------- launch
 
+// Does a call take the bf16 row-tile kernel? (ops/fused_ffn.py:ffn_path)
+bool row_tile(int dtype, int C, int Hd) {
+  return dtype == 1 && (C == 128 || C == 256 || C == 384 || C == 512) && Hd % kHidden == 0;
+}
+
+// The row-tile kernel at C (shard partials into `partial` when n_split > 1).
 template <int C>
-cudaError_t launch_bf16(const void* x, const void* w1, const void* b1, const void* w2,
-                        const void* b2, const float* gamma, const float* beta, void* out,
-                        float* partial, int N, int Hd, int n_split, int per_split,
-                        cudaStream_t stream) {
+cudaError_t launch_tc(const void* x, const void* w1, const void* b1, const void* w2,
+                      const void* b2, const float* gamma, const float* beta, void* out,
+                      float* partial, int N, int Hd, int n_split, int per_split,
+                      cudaStream_t stream) {
   const size_t smem = TcSmem<C>::bytes;
   cudaError_t err = cudaFuncSetAttribute(ffn_ln_tc_kernel<C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const auto* xb = static_cast<const bf16*>(x);
-  const auto* b2b = static_cast<const bf16*>(b2);
-  auto* ob = static_cast<bf16*>(out);
   const dim3 grid((N + kTcRows - 1) / kTcRows, n_split);
   ffn_ln_tc_kernel<C><<<grid, kThreads, smem, stream>>>(
-      xb, static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
-      static_cast<const bf16*>(w2), b2b, gamma, beta, ob, n_split > 1 ? partial : nullptr, N,
-      Hd, per_split);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || n_split == 1) return err;
-  ffn_ln_shard_sum_kernel<C, bf16><<<(N + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
-      partial, xb, b2b, gamma, beta, ob, N, n_split);
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
+      static_cast<const bf16*>(w2), static_cast<const bf16*>(b2), gamma, beta,
+      static_cast<bf16*>(out), partial, N, Hd, per_split);
   return cudaGetLastError();
 }
 
-template <int C>
-cudaError_t launch(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
-                   const float* gamma, const float* beta, void* out, void* hidden,
-                   float* partial, int N, int Hd, int dtype, int n_split, int per_split,
-                   int tile_rows, cudaStream_t stream) {
-  if (dtype == 0)
-    return launch_products_ln<C, float>(x, w1, b1, w2, b2, gamma, beta, out, hidden, partial, N,
-                                        Hd, n_split, per_split, tile_rows, stream);
-  if (dtype != 1) return cudaErrorInvalidValue;
-  if constexpr (C == 2048)
-    return launch_products_ln<C, bf16>(x, w1, b1, w2, b2, gamma, beta, out, hidden, partial, N,
-                                       Hd, n_split, per_split, tile_rows, stream);
-  else
-    return launch_bf16<C>(x, w1, b1, w2, b2, gamma, beta, out, partial, N, Hd, n_split,
-                          per_split, stream);
+cudaError_t launch_tc_c(int C, const void* x, const void* w1, const void* b1, const void* w2,
+                        const void* b2, const float* gamma, const float* beta, void* out,
+                        float* partial, int N, int Hd, int n_split, int per_split,
+                        cudaStream_t stream) {
+  auto run = C == 128 ? launch_tc<128> : C == 256 ? launch_tc<256>
+           : C == 384 ? launch_tc<384> : launch_tc<512>;
+  return run(x, w1, b1, w2, b2, gamma, beta, out, partial, N, Hd, n_split, per_split, stream);
 }
 
-// Does (n_split, per_split) cut the Hd / 64 hidden chunks into shards with none empty?
+// Does (n_split, per_split) cut the ceil(Hd / 64) hidden chunks into shards with none empty?
 bool valid_split(int Hd, int n_split, int per_split) {
-  const int chunks = Hd / kHidden;
-  return Hd > 0 && Hd % kHidden == 0 && n_split >= 1 && per_split >= 1 &&
-         (n_split - 1) * per_split < chunks && n_split * per_split >= chunks;
+  const int chunks = (Hd + kHidden - 1) / kHidden;
+  return Hd > 0 && n_split >= 1 && per_split >= 1 && (n_split - 1) * per_split < chunks &&
+         n_split * per_split >= chunks;
 }
 
 // Do the products path's 32-bit element offsets reach every operand, a
@@ -865,137 +952,113 @@ bool offsets_fit(int N, int C, int Hd) {
   return rows * width <= 0x7fffffffLL && (long long)C * Hd <= 0x7fffffffLL;
 }
 
+constexpr int kMaxC = 2048;   // the shard-sum kernel's widest instance
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. C must be 128, 256, 512 or 2048 and Hd
-// a multiple of 64; bf16 pointers must be 16-byte aligned. The Hd / 64
-// hidden chunks are cut into n_split shards of per_split chunks, none empty
-// ((n_split - 1) per_split < Hd / 64 <= n_split per_split); (N + 128)
-// max(C, Hd) must stay below 2^31. tile_rows: the rows of the products
-// path's tiles, 64 or 128 in f32, 128 in bf16 (unused by the row-tile kernel).
-//   bf16 at C <= 512 (the row-tile kernel): hidden is unused (may be null);
-//     with n_split > 1 partial is (n_split, N, C) f32 scratch, else unused.
-//   f32, and bf16 at C 2048 (the products path): hidden is (N, Hd) scratch
-//     in x's type and partial (n_split, N, C) f32 scratch, both required.
+// dtype: 0 = float32, 1 = bfloat16. C from 1 to 2,048 and Hd at least 1;
+// the row-tile kernel (bf16 at C 128, 256, 384 or 512 with Hd a multiple of
+// 64) needs 16-byte aligned bf16 pointers, the products path takes any
+// (bf16 operands copied element by element where their rows or pointers are
+// not 16-byte aligned). The ceil(Hd / 64) hidden chunks are cut into n_split
+// shards of per_split chunks, none empty ((n_split - 1) per_split <
+// ceil(Hd / 64) <= n_split per_split); (N + 128) max(C, Hd) must stay below
+// 2^31. tile_rows: the rows of the products path's tiles, 64 or 128 in f32,
+// 128 in bf16 (unused by the row-tile kernel).
+//   the row-tile kernel: hidden is unused (may be null); with n_split > 1
+//     partial is (n_split, N, C) f32 scratch, else unused.
+//   the products path: hidden is (N, Hd) scratch in x's type and partial
+//     (n_split, N, C) f32 scratch, both required.
 // Returns cudaGetLastError() after the launches (0 = success).
 extern "C" int savqa_ffn_ln(const void* x, const void* w1, const void* b1, const void* w2,
                             const void* b2, const void* gamma, const void* beta, void* out,
                             void* hidden, void* partial, int N, int C, int Hd, int dtype,
                             int n_split, int per_split, int tile_rows, void* stream) {
-  const bool products = dtype == 0 || C == 2048;
-  if (N <= 0 || !valid_split(Hd, n_split, per_split) || !offsets_fit(N, C, Hd) ||
-      (products && (hidden == nullptr || partial == nullptr)) ||
-      (n_split > 1 && partial == nullptr))
+  const bool tc = row_tile(dtype, C, Hd);
+  if (N <= 0 || C <= 0 || C > kMaxC || (dtype != 0 && dtype != 1) ||
+      !valid_split(Hd, n_split, per_split) || !offsets_fit(N, C, Hd) ||
+      (!tc && (hidden == nullptr || partial == nullptr)) || (n_split > 1 && partial == nullptr))
     return (int)cudaErrorInvalidValue;
   const auto* ga = static_cast<const float*>(gamma);
   const auto* be = static_cast<const float*>(beta);
   auto* pa = static_cast<float*>(partial);
   auto s = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 128: return (int)launch<128>(x, w1, b1, w2, b2, ga, be, out, hidden, pa, N, Hd, dtype, n_split, per_split, tile_rows, s);
-    case 256: return (int)launch<256>(x, w1, b1, w2, b2, ga, be, out, hidden, pa, N, Hd, dtype, n_split, per_split, tile_rows, s);
-    case 512: return (int)launch<512>(x, w1, b1, w2, b2, ga, be, out, hidden, pa, N, Hd, dtype, n_split, per_split, tile_rows, s);
-    case 2048: return (int)launch<2048>(x, w1, b1, w2, b2, ga, be, out, hidden, pa, N, Hd, dtype, n_split, per_split, tile_rows, s);
-    default: return (int)cudaErrorInvalidValue;
+  if (tc) {
+    cudaError_t err = launch_tc_c(C, x, w1, b1, w2, b2, ga, be, out, n_split > 1 ? pa : nullptr,
+                                  N, Hd, n_split, per_split, s);
+    if (err != cudaSuccess || n_split == 1) return (int)err;
+    return (int)launch_shard_sum<bf16>(pa, static_cast<const bf16*>(x),
+                                       static_cast<const bf16*>(b2), ga, be,
+                                       static_cast<bf16*>(out), N, C, n_split, s);
   }
-}
-
-namespace {
-
-template <int C>
-cudaError_t launch_partial(const void* x, const void* w1, const void* b1, const void* w2,
-                           void* hidden, float* scratch, float* out, int N, int Hd, int dtype,
-                           int n_split, int per_split, int tile_rows, cudaStream_t stream) {
-  cudaError_t err;
-  if (dtype == 0) {
-    err = launch_products<float>(x, w1, b1, w2, hidden, n_split > 1 ? scratch : out, N, C, Hd,
-                                 n_split, per_split, tile_rows, stream);
-  } else if (dtype == 1) {
-    const size_t smem = TcSmem<C>::bytes;
-    err = cudaFuncSetAttribute(ffn_ln_tc_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((N + kTcRows - 1) / kTcRows, n_split);
-    ffn_ln_tc_kernel<C><<<grid, kThreads, smem, stream>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
-        static_cast<const bf16*>(w2), nullptr, nullptr, nullptr, nullptr,
-        n_split > 1 ? scratch : out, N, Hd, per_split);
-    err = cudaGetLastError();
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  if (err != cudaSuccess || n_split == 1) return err;
-  const size_t n = (size_t)N * C;
-  const size_t want = (n + kThreads - 1) / kThreads;
-  const int blocks = want < 4 * 132 ? (int)want : 4 * 132;
-  ffn_partial_sum_kernel<<<blocks, kThreads, 0, stream>>>(scratch, out, n, n_split);
-  return cudaGetLastError();
-}
-
-template <int C>
-cudaError_t launch_epilogue(const float* y, const void* x, const void* b2, const float* gamma,
-                            const float* beta, void* out, int N, int dtype,
-                            cudaStream_t stream) {
-  const int blocks = (N + kWarps - 1) / kWarps;
   if (dtype == 0)
-    ffn_ln_shard_sum_kernel<C, float><<<blocks, kThreads, 0, stream>>>(
-        y, static_cast<const float*>(x), static_cast<const float*>(b2), gamma, beta,
-        static_cast<float*>(out), N, 1);
-  else if (dtype == 1)
-    ffn_ln_shard_sum_kernel<C, bf16><<<blocks, kThreads, 0, stream>>>(
-        y, static_cast<const bf16*>(x), static_cast<const bf16*>(b2), gamma, beta,
-        static_cast<bf16*>(out), N, 1);
-  else
-    return cudaErrorInvalidValue;
-  return cudaGetLastError();
+    return (int)launch_products_ln<float>(x, w1, b1, w2, b2, ga, be, out, hidden, pa, N, C, Hd,
+                                          n_split, per_split, tile_rows, s);
+  return (int)launch_products_ln<bf16>(x, w1, b1, w2, b2, ga, be, out, hidden, pa, N, C, Hd,
+                                       n_split, per_split, tile_rows, s);
 }
-
-}  // namespace
 
 // The model axis (ops/fused_ffn.py:ffn_partial): out = relu(x W1^T + b1)
 // W2^T, (N, C) f32, for this rank's shard of the hidden width (W1 (Hd, C),
 // b1 (Hd,), W2 (C, Hd) of the shard), h rounded to x's type as in
-// savqa_ffn_ln; no b2, residual or LayerNorm. C 128, 256 or 512. The Hd /
-// 64 chunks may be cut into n_split shards over blocks as in savqa_ffn_ln,
-// their partials in scratch ((n_split, N, C) f32) summed in shard order
-// into out; with n_split 1 scratch is unused (may be null). f32 takes the
-// products path in tiles of tile_rows (64 or 128), whose hidden ((N, Hd)
-// f32 scratch) is then required; bf16 the row-tile kernel, which leaves
-// hidden and tile_rows unused (hidden may be null).
+// savqa_ffn_ln; no b2, residual or LayerNorm. C from 1 to 2,048. The
+// ceil(Hd / 64) chunks may be cut into n_split shards over blocks as in
+// savqa_ffn_ln, their partials in scratch ((n_split, N, C) f32) summed in
+// shard order into out; with n_split 1 scratch is unused (may be null).
+// The row-tile kernel (bf16 at its widths) leaves hidden and tile_rows
+// unused (hidden may be null); the products path (f32, and bf16 at other
+// widths) runs in tiles of tile_rows and needs hidden ((N, Hd) scratch in
+// x's type).
 extern "C" int savqa_ffn_partial(const void* x, const void* w1, const void* b1, const void* w2,
                                  void* hidden, void* scratch, void* out, int N, int C, int Hd,
                                  int dtype, int n_split, int per_split, int tile_rows,
                                  void* stream) {
-  if (N <= 0 || !valid_split(Hd, n_split, per_split) || !offsets_fit(N, C, Hd) ||
-      (n_split > 1 && scratch == nullptr) ||
-      (dtype == 0 && hidden == nullptr) || out == nullptr)
+  const bool tc = row_tile(dtype, C, Hd);
+  if (N <= 0 || C <= 0 || C > kMaxC || (dtype != 0 && dtype != 1) ||
+      !valid_split(Hd, n_split, per_split) || !offsets_fit(N, C, Hd) ||
+      (n_split > 1 && scratch == nullptr) || (!tc && hidden == nullptr) || out == nullptr)
     return (int)cudaErrorInvalidValue;
   auto* sc = static_cast<float*>(scratch);
   auto* o = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 128: return (int)launch_partial<128>(x, w1, b1, w2, hidden, sc, o, N, Hd, dtype, n_split, per_split, tile_rows, s);
-    case 256: return (int)launch_partial<256>(x, w1, b1, w2, hidden, sc, o, N, Hd, dtype, n_split, per_split, tile_rows, s);
-    case 512: return (int)launch_partial<512>(x, w1, b1, w2, hidden, sc, o, N, Hd, dtype, n_split, per_split, tile_rows, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  float* y = n_split > 1 ? sc : o;
+  cudaError_t err;
+  if (tc)
+    err = launch_tc_c(C, x, w1, b1, w2, nullptr, nullptr, nullptr, nullptr, y, N, Hd, n_split,
+                      per_split, s);
+  else if (dtype == 0)
+    err = launch_products<float>(x, w1, b1, w2, hidden, y, N, C, Hd, n_split, per_split,
+                                 tile_rows, s);
+  else
+    err = launch_products<bf16>(x, w1, b1, w2, hidden, y, N, C, Hd, n_split, per_split,
+                                tile_rows, s);
+  if (err != cudaSuccess || n_split == 1) return (int)err;
+  const size_t n = (size_t)N * C;
+  const size_t want = (n + kThreads - 1) / kThreads;
+  const int blocks = want < 4 * 132 ? (int)want : 4 * 132;
+  ffn_partial_sum_kernel<<<blocks, kThreads, 0, s>>>(sc, o, n, n_split);
+  return (int)cudaGetLastError();
 }
 
 // The model axis's epilogue (ops/fused_ffn.py:ffn_epilogue): out = LN((y +
 // b2) + x) over rows, y (N, C) f32 the partials summed over the ranks, x and
-// b2 in out's type; the split path's shard-sum kernel with one shard.
+// b2 in out's type; the split path's shard-sum kernel with one shard. C
+// from 1 to 2,048.
 extern "C" int savqa_ffn_epilogue(const void* y, const void* x, const void* b2,
                                   const void* gamma, const void* beta, void* out, int N, int C,
                                   int dtype, void* stream) {
-  if (N <= 0) return (int)cudaErrorInvalidValue;
+  if (N <= 0 || C <= 0 || C > kMaxC) return (int)cudaErrorInvalidValue;
   const auto* yf = static_cast<const float*>(y);
   const auto* ga = static_cast<const float*>(gamma);
   const auto* be = static_cast<const float*>(beta);
   auto s = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 128: return (int)launch_epilogue<128>(yf, x, b2, ga, be, out, N, dtype, s);
-    case 256: return (int)launch_epilogue<256>(yf, x, b2, ga, be, out, N, dtype, s);
-    case 512: return (int)launch_epilogue<512>(yf, x, b2, ga, be, out, N, dtype, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (dtype == 0)
+    return (int)launch_shard_sum<float>(yf, static_cast<const float*>(x),
+                                        static_cast<const float*>(b2), ga, be,
+                                        static_cast<float*>(out), N, C, 1, s);
+  if (dtype == 1)
+    return (int)launch_shard_sum<bf16>(yf, static_cast<const bf16*>(x),
+                                       static_cast<const bf16*>(b2), ga, be,
+                                       static_cast<bf16*>(out), N, C, 1, s);
+  return (int)cudaErrorInvalidValue;
 }

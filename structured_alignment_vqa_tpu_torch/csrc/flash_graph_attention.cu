@@ -93,9 +93,11 @@
 // them. What bounds it: at B 4, L 1,536, 8 heads, 19.3 GFLOP, 288 us at the
 // 67 TFLOP/s FFMA peak.
 //
-// bf16 with a head width that is not a multiple of 16 keeps the first SIMT
-// kernel below (one block of 256 threads per (batch, head, 64 query rows),
-// no key split).
+// Every other call keeps the first SIMT kernel below (one block of 256
+// threads per (batch, head, 64 query rows), no key split), in either
+// dtype: bf16 at a head width that is no multiple of 16 or above 128, f32
+// at a head width that is no multiple of 4 or above 128. It takes head
+// widths from 1 to 256 (16 output channels a thread at 256).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -110,7 +112,8 @@ constexpr int kThreads = 256;
 constexpr int kBQ = 64;        // query rows per block
 constexpr int kBK = 64;        // keys per step
 constexpr int kLdP = kBK + 4;  // row stride of the weight tile
-constexpr int kMaxDh = 128;
+constexpr int kMaxDh = 256;     // the SIMT kernel's widest head
+constexpr int kTcMaxDh = 128;   // the tensor-core and f32 kernels' widest head
 constexpr float kNegMask = -4294967295.0f;  // float(-(2**32) + 1)
 constexpr float kL1Eps = 1e-12f;
 constexpr float kSumEps = 1e-7f;
@@ -124,13 +127,15 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
   return __float2bfloat16_rn(x);
 }
 
-// ---- the first SIMT kernel (bf16 with a head width that is no multiple of 16) ----
+// ---- the first SIMT kernel (every call the two kernels below do not take) ----
 //
 // One block of 256 threads owns (batch, head, tile of 64 query rows) and
 // walks the keys 64 at a time; Q, K and V are staged in shared memory as
-// f32. The threads form a 16 x 16 grid: thread (ty, tx) owns query rows
-// 4 ty .. 4 ty + 3 and, of the scores, keys tx + 16 c, of the output,
-// channels tx + 16 i. Its rounded weights go through a (64, 64) tile in
+// f32, rows of the head width rounded up to 4 (the columns past it zero, so
+// the float4 products add exact zeros) plus 4 of padding. The threads form
+// a 16 x 16 grid: thread (ty, tx) owns query rows 4 ty .. 4 ty + 3 and, of
+// the scores, keys tx + 16 c, of the output, channels tx + 16 i (i < 16 at
+// head width 256). Its rounded weights go through a (64, 64) tile in
 // shared memory to the second product; the graph is read from device
 // memory, 64 bytes per row and half-warp.
 
@@ -152,14 +157,19 @@ __device__ __forceinline__ float dot4(const float4 a, const float4 b, float s) {
   return fmaf(a.w, b.w, s);
 }
 
-// Rows [row0, row0 + n) of head c0 of x (.., C) into dst (tile, ld) as f32;
-// rows from n to tile are zero.
+// The SIMT kernel's row stride: the head width rounded up to 4, plus 4.
+__host__ __device__ constexpr int simt_ld(int dh) { return (dh + 3) / 4 * 4 + 4; }
+
+// Rows [row0, row0 + n) of head c0 of x (.., C) into dst (tile, ld) as f32,
+// the head width rounded up to 4; rows from n to tile and columns from dh
+// to that width are zero.
 template <typename T>
 __device__ __forceinline__ void stage(float* dst, const T* __restrict__ x, int row0, int n,
                                       int tile, int C, int c0, int dh, int ld) {
-  for (int i = threadIdx.x; i < tile * dh; i += kThreads) {
-    const int r = i / dh, d = i - r * dh;
-    dst[r * ld + d] = r < n ? to_float(x[(size_t)(row0 + r) * C + c0 + d]) : 0.f;
+  const int dp = (dh + 3) / 4 * 4;
+  for (int i = threadIdx.x; i < tile * dp; i += kThreads) {
+    const int r = i / dp, d = i - r * dp;
+    dst[r * ld + d] = r < n && d < dh ? to_float(x[(size_t)(row0 + r) * C + c0 + d]) : 0.f;
   }
 }
 
@@ -175,7 +185,7 @@ flash_graph_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                              int renorm, int emit, float scale) {
   extern __shared__ __align__(16) float smem[];
   const int dh = C / H;
-  const int ld = dh + 4;
+  const int ld = simt_ld(dh);
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -329,7 +339,7 @@ cudaError_t launch_ndh(const void* q, const void* k, const void* v, const float*
                        const float* query_mask, const float* graph, void* out, float* m_out,
                        float* z_out, float* b_out, int B, int Tq, int Tk, int C, int H,
                        int renorm, int emit, float scale, cudaStream_t stream) {
-  const int ld = C / H + 4;
+  const int ld = simt_ld(C / H);
   const size_t smem = sizeof(float) * ((size_t)(kBQ + 2 * kBK) * ld + (size_t)kBQ * kLdP + kBK);
   cudaError_t err = cudaFuncSetAttribute(flash_graph_attention_kernel<T, NDH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -347,7 +357,8 @@ cudaError_t launch(int dh, Args... args) {
   if (dh <= 16) return launch_ndh<T, 1>(args...);
   if (dh <= 32) return launch_ndh<T, 2>(args...);
   if (dh <= 64) return launch_ndh<T, 4>(args...);
-  return launch_ndh<T, 8>(args...);
+  if (dh <= 128) return launch_ndh<T, 8>(args...);
+  return launch_ndh<T, 16>(args...);
 }
 
 
@@ -790,15 +801,16 @@ cudaError_t launch_f32_dh(const F32Args& p) {
 
 // dtype: 0 = float32, 1 = bfloat16. renorm: 0 = l1, 1 = sum_eps.
 // emit: 0 = out, 1 = out + m, z, b, 2 = raw a (B, H, Tq, dh) f32 + m, z, b.
-// The head width C / H must be a multiple of 4 and at most 128. m, z and b
-// may be null with emit 0. bf16 with a head width that is a multiple of 16
-// takes the tensor-core kernel (64 query rows a block) and f32 the f32
-// kernel (q_tile query rows a block, 16 or 64), both with the key steps (64
-// keys each) split into n_split shards of steps_per_split steps, none of
-// them empty; with n_split > 1 scratch_a (n_split, B, H, Tq, dh) and
-// scratch_stats (3, n_split, B, H, Tq) f32 hold the partials between the two
-// launches. bf16 at other head widths takes the first SIMT kernel, which has
-// no split (n_split must be 1). Returns cudaGetLastError() after the launch.
+// The head width C / H is at most 256. m, z and b may be null with emit 0.
+// bf16 with a head width that is a multiple of 16 up to 128 takes the
+// tensor-core kernel (64 query rows a block) and f32 with a head width that
+// is a multiple of 4 up to 128 the f32 kernel (q_tile query rows a block, 16
+// or 64), both with the key steps (64 keys each) split into n_split shards
+// of steps_per_split steps, none of them empty; with n_split > 1 scratch_a
+// (n_split, B, H, Tq, dh) and scratch_stats (3, n_split, B, H, Tq) f32 hold
+// the partials between the two launches. Every other call takes the first
+// SIMT kernel, which has no split (n_split must be 1). Returns
+// cudaGetLastError() after the launch.
 extern "C" int savqa_flash_graph_attention(const void* q, const void* k, const void* v,
                                            const void* key_mask, const void* query_mask,
                                            const void* graph, void* out, void* m_out,
@@ -807,8 +819,9 @@ extern "C" int savqa_flash_graph_attention(const void* q, const void* k, const v
                                            int H, int renorm, int emit, int dtype, int n_split,
                                            int steps_per_split, int q_tile, float scale,
                                            void* stream) {
-  if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || C % H != 0 || (C / H) % 4 != 0 ||
-      C / H > kMaxDh || (renorm != 0 && renorm != 1) || emit < 0 || emit > 2 || n_split < 1)
+  if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || C % H != 0 || C / H > kMaxDh ||
+      (renorm != 0 && renorm != 1) || emit < 0 || emit > 2 || n_split < 1 ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const auto* km = static_cast<const float*>(key_mask);
   const auto* qm = static_cast<const float*>(query_mask);
@@ -817,8 +830,10 @@ extern "C" int savqa_flash_graph_attention(const void* q, const void* k, const v
   auto* zo = static_cast<float*>(z_out);
   auto* bo = static_cast<float*>(b_out);
   auto s = static_cast<cudaStream_t>(stream);
-  const bool tc = dtype == 1 && (C / H) % 16 == 0;
-  if (tc || dtype == 0) {
+  const int dh = C / H;
+  const bool tc = dtype == 1 && dh % 16 == 0 && dh <= kTcMaxDh;
+  const bool f32k = dtype == 0 && dh % 4 == 0 && dh <= kTcMaxDh;
+  if (tc || f32k) {
     const int n_steps = (Tk + kBK - 1) / kBK;
     if (steps_per_split < 1 ||
         (n_split - 1) * steps_per_split >= n_steps || n_split * steps_per_split < n_steps ||
@@ -832,7 +847,7 @@ extern "C" int savqa_flash_graph_attention(const void* q, const void* k, const v
                    B, Tq, Tk, C, H, renorm, emit, n_split, steps_per_split, scale, s};
     return (int)launch_tc_dh(p);
   }
-  if (dtype == 0) {
+  if (f32k) {
     if (q_tile != 16 && q_tile != 64) return (int)cudaErrorInvalidValue;
     const F32Args p{static_cast<const float*>(q), static_cast<const float*>(k),
                     static_cast<const float*>(v), km, qm, g, out, mo, zo, bo,
@@ -840,7 +855,10 @@ extern "C" int savqa_flash_graph_attention(const void* q, const void* k, const v
                     B, Tq, Tk, C, H, renorm, emit, n_split, steps_per_split, scale, s};
     return (int)(q_tile == 16 ? launch_f32_dh<1, 4>(p) : launch_f32_dh<4, 4>(p));
   }
-  if (n_split != 1 || dtype != 1) return (int)cudaErrorInvalidValue;
-  return (int)launch<__nv_bfloat16>(C / H, q, k, v, km, qm, g, out, mo, zo, bo, B, Tq, Tk, C, H,
+  if (n_split != 1) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return (int)launch<float>(dh, q, k, v, km, qm, g, out, mo, zo, bo, B, Tq, Tk, C, H, renorm,
+                              emit, scale, s);
+  return (int)launch<__nv_bfloat16>(dh, q, k, v, km, qm, g, out, mo, zo, bo, B, Tq, Tk, C, H,
                                     renorm, emit, scale, s);
 }

@@ -166,7 +166,8 @@ constexpr int kThreads = 256;
 constexpr int kBQ = 64;        // query rows per tile
 constexpr int kBK = 64;        // keys per tile
 constexpr int kLdP = kBK + 4;  // row stride of the (rows, keys) tiles
-constexpr int kMaxDh = 128;
+constexpr int kMaxDh = 256;     // the SIMT kernels' widest head
+constexpr int kTcMaxDh = 128;   // the tensor-core and f32 kernels' widest head
 constexpr float kNegMask = -4294967295.0f;  // float(-(2**32) + 1)
 constexpr float kL1Eps = 1e-12f;
 constexpr float kSumEps = 1e-7f;
@@ -187,14 +188,19 @@ __device__ __forceinline__ float dot4(const float4 a, const float4 b, float s) {
   return fmaf(a.w, b.w, s);
 }
 
-// Rows [row0, row0 + n) of head c0 of x (.., C) into dst (tile, ld) as f32;
-// rows from n to tile are zero.
+// The SIMT kernels' row stride: the head width rounded up to 4, plus 4.
+__host__ __device__ constexpr int simt_ld(int dh) { return (dh + 3) / 4 * 4 + 4; }
+
+// Rows [row0, row0 + n) of head c0 of x (.., C) into dst (tile, ld) as f32,
+// the head width rounded up to 4; rows from n to tile and columns from dh
+// to that width are zero (so the float4 products add exact zeros).
 template <typename T>
 __device__ __forceinline__ void stage(float* dst, const T* __restrict__ x, int row0, int n,
                                       int tile, int C, int c0, int dh, int ld) {
-  for (int i = threadIdx.x; i < tile * dh; i += kThreads) {
-    const int r = i / dh, d = i - r * dh;
-    dst[r * ld + d] = r < n ? to_float(x[(size_t)(row0 + r) * C + c0 + d]) : 0.f;
+  const int dp = (dh + 3) / 4 * 4;
+  for (int i = threadIdx.x; i < tile * dp; i += kThreads) {
+    const int r = i / dp, d = i - r * dp;
+    dst[r * ld + d] = r < n && d < dh ? to_float(x[(size_t)(row0 + r) * C + c0 + d]) : 0.f;
   }
 }
 
@@ -249,8 +255,11 @@ __device__ __forceinline__ void ds_entry_rcp(float raw, float dn, float g, bool 
   *ds_out = masked ? 0.f : ds * scale;
 }
 
-// K5. Shared memory: Qs, Ds (kBQ, ld) | Ks, Vs (kBK, ld) | Ss (kBQ, kLdP) | kms (kBK)
-template <typename T, int NDH>
+// K5. A block owns 16 RPT query rows (RPT rows a thread: 4, or 2 at head
+// widths above 128, where 64 rows of Q and dO beside K and V would pass
+// the shared memory a block may use).
+// Shared memory: Qs, Ds (16 RPT, ld) | Ks, Vs (kBK, ld) | Ss (16 RPT, kLdP) | kms (kBK)
+template <typename T, int NDH, int RPT>
 __global__ void __launch_bounds__(kThreads, NDH <= 4 ? 2 : 1)
 flash_graph_attention_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -259,34 +268,35 @@ flash_graph_attention_bwd_dq_kernel(
     const float* __restrict__ b_in, const float* __restrict__ delta,
     const T* __restrict__ dout, T* __restrict__ dq, int Tq, int Tk, int C, int H, int renorm,
     float scale) {
+  constexpr int BQ = 16 * RPT;
   extern __shared__ __align__(16) float smem[];
   const int dh = C / H;
-  const int ld = dh + 4;
-  const int q0 = blockIdx.x * kBQ;
+  const int ld = simt_ld(dh);
+  const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int rows = min(kBQ, Tq - q0);
+  const int rows = min(BQ, Tq - q0);
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
   const int c0 = h * dh;
-  const bool active = ty * 4 < rows;
+  const bool active = ty * RPT < rows;
 
   float* Qs = smem;
-  float* Ds = Qs + kBQ * ld;
-  float* Ks = Ds + kBQ * ld;
+  float* Ds = Qs + BQ * ld;
+  float* Ks = Ds + BQ * ld;
   float* Vs = Ks + kBK * ld;
   float* Ss = Vs + kBK * ld;
-  float* kms = Ss + kBQ * kLdP;
+  float* kms = Ss + BQ * kLdP;
 
-  stage(Qs, q + (size_t)b * Tq * C, q0, rows, kBQ, C, c0, dh, ld);
-  stage(Ds, dout + (size_t)b * Tq * C, q0, rows, kBQ, C, c0, dh, ld);
+  stage(Qs, q + (size_t)b * Tq * C, q0, rows, BQ, C, c0, dh, ld);
+  stage(Ds, dout + (size_t)b * Tq * C, q0, rows, BQ, C, c0, dh, ld);
 
-  RowTerms rt[4];
-  float acc[4][NDH];
+  RowTerms rt[RPT];
+  float acc[RPT][NDH];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = ty * 4 + r;
+  for (int r = 0; r < RPT; ++r) {
+    const int row = ty * RPT + r;
     if (row < rows) {
       const size_t at = ((size_t)b * H + h) * Tq + q0 + row;
       rt[r] = row_terms(m_in[at], z_in[at], b_in[at], delta[at], renorm);
@@ -311,17 +321,17 @@ flash_graph_attention_bwd_dq_kernel(
     __syncthreads();
 
     if (active) {
-      float s[4][4], dn[4][4];
+      float s[RPT][4], dn[RPT][4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+      for (int r = 0; r < RPT; ++r)
 #pragma unroll
         for (int c = 0; c < 4; ++c) s[r][c] = dn[r][c] = 0.f;
       for (int d = 0; d < dh; d += 4) {
-        float4 qv[4], dv4[4], kv[4], vv[4];
+        float4 qv[RPT], dv4[RPT], kv[4], vv[4];
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          qv[r] = *reinterpret_cast<const float4*>(Qs + (ty * 4 + r) * ld + d);
-          dv4[r] = *reinterpret_cast<const float4*>(Ds + (ty * 4 + r) * ld + d);
+        for (int r = 0; r < RPT; ++r) {
+          qv[r] = *reinterpret_cast<const float4*>(Qs + (ty * RPT + r) * ld + d);
+          dv4[r] = *reinterpret_cast<const float4*>(Ds + (ty * RPT + r) * ld + d);
         }
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
@@ -329,7 +339,7 @@ flash_graph_attention_bwd_dq_kernel(
           vv[c] = *reinterpret_cast<const float4*>(Vs + (tx + 16 * c) * ld + d);
         }
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
+        for (int r = 0; r < RPT; ++r)
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             s[r][c] = dot4(qv[r], kv[c], s[r][c]);
@@ -337,8 +347,8 @@ flash_graph_attention_bwd_dq_kernel(
           }
       }
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int row = ty * 4 + r;
+      for (int r = 0; r < RPT; ++r) {
+        const int row = ty * RPT + r;
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int j = tx + 16 * c;
@@ -354,10 +364,10 @@ flash_graph_attention_bwd_dq_kernel(
 
     if (active) {
       for (int j = 0; j < kBK; j += 4) {
-        float4 sv[4];
+        float4 sv[RPT];
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
-          sv[r] = *reinterpret_cast<const float4*>(Ss + (ty * 4 + r) * kLdP + j);
+        for (int r = 0; r < RPT; ++r)
+          sv[r] = *reinterpret_cast<const float4*>(Ss + (ty * RPT + r) * kLdP + j);
 #pragma unroll
         for (int i = 0; i < NDH; ++i) {
           const int d = tx + 16 * i;
@@ -365,7 +375,7 @@ flash_graph_attention_bwd_dq_kernel(
             const float k0 = Ks[(j + 0) * ld + d], k1 = Ks[(j + 1) * ld + d];
             const float k2 = Ks[(j + 2) * ld + d], k3 = Ks[(j + 3) * ld + d];
 #pragma unroll
-            for (int r = 0; r < 4; ++r) {
+            for (int r = 0; r < RPT; ++r) {
               float a = acc[r][i];
               a = fmaf(sv[r].x, k0, a);
               a = fmaf(sv[r].y, k1, a);
@@ -379,8 +389,8 @@ flash_graph_attention_bwd_dq_kernel(
   }
 
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = ty * 4 + r;
+  for (int r = 0; r < RPT; ++r) {
+    const int row = ty * RPT + r;
     if (row >= rows) continue;
 #pragma unroll
     for (int i = 0; i < NDH; ++i) {
@@ -390,9 +400,12 @@ flash_graph_attention_bwd_dq_kernel(
   }
 }
 
-// K6. Shared memory: Ks, Vs (kBK, ld) | Qs, Ds (kBQ, ld) | Ns, Ss (kBQ, kLdP)
-//                    | terms (kBQ RowTerms) | kms (kBK)
-template <typename T, int NDH>
+// K6. The query rows pass 16 RI at a time (RI rows a thread: 4, or 2 at
+// head widths above 128, where 64 rows of Q and dO beside K and V would
+// pass the shared memory a block may use).
+// Shared memory: Ks, Vs (kBK, ld) | Qs, Ds (16 RI, ld) | Ns, Ss (16 RI, kLdP)
+//                | terms (16 RI RowTerms) | kms (kBK)
+template <typename T, int NDH, int RI>
 __global__ void __launch_bounds__(kThreads, NDH <= 4 ? 2 : 1)
 flash_graph_attention_bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -401,9 +414,10 @@ flash_graph_attention_bwd_dkv_kernel(
     const float* __restrict__ b_in, const float* __restrict__ delta,
     const T* __restrict__ dout, T* __restrict__ dk, T* __restrict__ dv, int Tq, int Tk, int C,
     int H, int renorm, float scale) {
+  constexpr int BQ = 16 * RI;
   extern __shared__ __align__(16) float smem[];
   const int dh = C / H;
-  const int ld = dh + 4;
+  const int ld = simt_ld(dh);
   const int j0 = blockIdx.x * kBK;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -417,11 +431,11 @@ flash_graph_attention_bwd_dkv_kernel(
   float* Ks = smem;
   float* Vs = Ks + kBK * ld;
   float* Qs = Vs + kBK * ld;
-  float* Ds = Qs + kBQ * ld;
-  float* Ns = Ds + kBQ * ld;
-  float* Ss = Ns + kBQ * kLdP;
-  RowTerms* terms = reinterpret_cast<RowTerms*>(Ss + kBQ * kLdP);
-  float* kms = reinterpret_cast<float*>(terms + kBQ);
+  float* Ds = Qs + BQ * ld;
+  float* Ns = Ds + BQ * ld;
+  float* Ss = Ns + BQ * kLdP;
+  RowTerms* terms = reinterpret_cast<RowTerms*>(Ss + BQ * kLdP);
+  float* kms = reinterpret_cast<float*>(terms + BQ);
 
   stage(Ks, k + (size_t)b * Tk * C, j0, nk, kBK, C, c0, dh, ld);
   stage(Vs, v + (size_t)b * Tk * C, j0, nk, kBK, C, c0, dh, ld);
@@ -437,12 +451,12 @@ flash_graph_attention_bwd_dkv_kernel(
   const T* qb = q + (size_t)b * Tq * C;
   const T* db = dout + (size_t)b * Tq * C;
 
-  for (int r0 = 0; r0 < Tq; r0 += kBQ) {
-    const int nr = min(kBQ, Tq - r0);
+  for (int r0 = 0; r0 < Tq; r0 += BQ) {
+    const int nr = min(BQ, Tq - r0);
     __syncthreads();  // Ks, Vs, kms written; the previous step's readers done
-    stage(Qs, qb, r0, nr, kBQ, C, c0, dh, ld);
-    stage(Ds, db, r0, nr, kBQ, C, c0, dh, ld);
-    for (int r = tid; r < kBQ; r += kThreads) {
+    stage(Qs, qb, r0, nr, BQ, C, c0, dh, ld);
+    stage(Ds, db, r0, nr, BQ, C, c0, dh, ld);
+    for (int r = tid; r < BQ; r += kThreads) {
       if (r < nr) {
         const size_t at = ((size_t)b * H + h) * Tq + r0 + r;
         terms[r] = row_terms(m_in[at], z_in[at], b_in[at], delta[at], renorm);
@@ -451,7 +465,7 @@ flash_graph_attention_bwd_dkv_kernel(
       }
     }
     // the graph tile, read along the keys; replaced by n below
-    for (int i = tid; i < kBQ * kBK; i += kThreads) {
+    for (int i = tid; i < BQ * kBK; i += kThreads) {
       const int r = i / kBK, j = i - r * kBK;
       Ns[r * kLdP + j] =
           (r < nr && j < nk) ? graph[((size_t)b * Tq + r0 + r) * Tk + j0 + j] : 0.f;
@@ -459,15 +473,15 @@ flash_graph_attention_bwd_dkv_kernel(
     __syncthreads();
 
     if (active) {
-      float s[4][4], dn[4][4];   // [row i][key c]
+      float s[RI][4], dn[RI][4];   // [row i][key c]
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int c = 0; c < 4; ++c) s[i][c] = dn[i][c] = 0.f;
       for (int d = 0; d < dh; d += 4) {
-        float4 qv[4], dv4[4], kv[4], vv[4];
+        float4 qv[RI], dv4[RI], kv[4], vv[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < RI; ++i) {
           qv[i] = *reinterpret_cast<const float4*>(Qs + (tx + 16 * i) * ld + d);
           dv4[i] = *reinterpret_cast<const float4*>(Ds + (tx + 16 * i) * ld + d);
         }
@@ -477,7 +491,7 @@ flash_graph_attention_bwd_dkv_kernel(
           vv[c] = *reinterpret_cast<const float4*>(Vs + (ty * 4 + c) * ld + d);
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < RI; ++i)
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             s[i][c] = dot4(qv[i], kv[c], s[i][c]);
@@ -485,7 +499,7 @@ flash_graph_attention_bwd_dkv_kernel(
           }
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RI; ++i) {
         const int row = tx + 16 * i;
         const RowTerms t = terms[row];
 #pragma unroll
@@ -502,7 +516,7 @@ flash_graph_attention_bwd_dkv_kernel(
     __syncthreads();  // Ns, Ss complete
 
     if (active) {
-      for (int r = 0; r < kBQ; ++r) {
+      for (int r = 0; r < BQ; ++r) {
         const float4 nv = *reinterpret_cast<const float4*>(Ns + r * kLdP + ty * 4);
         const float4 sv = *reinterpret_cast<const float4*>(Ss + r * kLdP + ty * 4);
 #pragma unroll
@@ -546,15 +560,17 @@ cudaError_t launch_dq_ndh(const void* q, const void* k, const void* v, const flo
                           const float* b_in, const float* delta, const void* dout, void* dq,
                           int B, int Tq, int Tk, int C, int H, int renorm, float scale,
                           cudaStream_t stream) {
-  const int ld = C / H + 4;
+  constexpr int kRpt = NDH <= 8 ? 4 : 2;   // rows a thread: 64 a block, 32 above head width 128
+  constexpr int kRows = 16 * kRpt;
+  const int ld = simt_ld(C / H);
   const size_t smem =
-      sizeof(float) * ((size_t)(2 * kBQ + 2 * kBK) * ld + (size_t)kBQ * kLdP + kBK);
-  cudaError_t err = cudaFuncSetAttribute(flash_graph_attention_bwd_dq_kernel<T, NDH>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+      sizeof(float) * ((size_t)(2 * kRows + 2 * kBK) * ld + (size_t)kRows * kLdP + kBK);
+  auto kernel = flash_graph_attention_bwd_dq_kernel<T, NDH, kRpt>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Tq + kBQ - 1) / kBQ, H, B);
-  flash_graph_attention_bwd_dq_kernel<T, NDH><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid((Tq + kRows - 1) / kRows, H, B);
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), key_mask,
       graph, m_in, z_in, b_in, delta, static_cast<const T*>(dout), static_cast<T*>(dq), Tq, Tk,
       C, H, renorm, scale);
@@ -567,16 +583,18 @@ cudaError_t launch_dkv_ndh(const void* q, const void* k, const void* v, const fl
                            const float* b_in, const float* delta, const void* dout, void* dk,
                            void* dv, int B, int Tq, int Tk, int C, int H, int renorm,
                            float scale, cudaStream_t stream) {
-  const int ld = C / H + 4;
-  const size_t smem = sizeof(float) * ((size_t)(2 * kBQ + 2 * kBK) * ld +
-                                       2 * (size_t)kBQ * kLdP + kBK) +
-                      sizeof(RowTerms) * kBQ;
-  cudaError_t err = cudaFuncSetAttribute(flash_graph_attention_bwd_dkv_kernel<T, NDH>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+  constexpr int kRi = NDH <= 8 ? 4 : 2;   // rows a step: 64, 32 above head width 128
+  constexpr int kRows = 16 * kRi;
+  const int ld = simt_ld(C / H);
+  const size_t smem = sizeof(float) * ((size_t)(2 * kRows + 2 * kBK) * ld +
+                                       2 * (size_t)kRows * kLdP + kBK) +
+                      sizeof(RowTerms) * kRows;
+  auto kernel = flash_graph_attention_bwd_dkv_kernel<T, NDH, kRi>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Tk + kBK - 1) / kBK, H, B);
-  flash_graph_attention_bwd_dkv_kernel<T, NDH><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), key_mask,
       graph, m_in, z_in, b_in, delta, static_cast<const T*>(dout), static_cast<T*>(dk),
       static_cast<T*>(dv), Tq, Tk, C, H, renorm, scale);
@@ -588,7 +606,8 @@ cudaError_t launch_dq(int dh, Args... args) {
   if (dh <= 16) return launch_dq_ndh<T, 1>(args...);
   if (dh <= 32) return launch_dq_ndh<T, 2>(args...);
   if (dh <= 64) return launch_dq_ndh<T, 4>(args...);
-  return launch_dq_ndh<T, 8>(args...);
+  if (dh <= 128) return launch_dq_ndh<T, 8>(args...);
+  return launch_dq_ndh<T, 16>(args...);
 }
 
 template <typename T, typename... Args>
@@ -596,7 +615,8 @@ cudaError_t launch_dkv(int dh, Args... args) {
   if (dh <= 16) return launch_dkv_ndh<T, 1>(args...);
   if (dh <= 32) return launch_dkv_ndh<T, 2>(args...);
   if (dh <= 64) return launch_dkv_ndh<T, 4>(args...);
-  return launch_dkv_ndh<T, 8>(args...);
+  if (dh <= 128) return launch_dkv_ndh<T, 8>(args...);
+  return launch_dkv_ndh<T, 16>(args...);
 }
 
 // ---- K6's f32 kernel (csrc/simt_f32.cuh) ----
@@ -1447,18 +1467,26 @@ cudaError_t launch_dq_tc_dh(const TcArgs& p) {
 }
 
 bool bad_shape(int B, int Tq, int Tk, int C, int H, int renorm) {
-  return B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || C % H != 0 || (C / H) % 4 != 0 ||
-         C / H > kMaxDh || (renorm != 0 && renorm != 1);
+  return B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || C % H != 0 || C / H > kMaxDh ||
+         (renorm != 0 && renorm != 1);
 }
 
-bool tensor_cores(int dtype, int C, int H) { return dtype == 1 && (C / H) % 16 == 0; }
+// The kernels of a call: the tensor-core ones (bf16, a head width that is a
+// multiple of 16 up to 128), the f32 ones (f32, a multiple of 4 up to 128),
+// else the first SIMT kernels.
+bool tensor_cores(int dtype, int C, int H) {
+  return dtype == 1 && (C / H) % 16 == 0 && C / H <= kTcMaxDh;
+}
+bool f32_kernels(int dtype, int C, int H) {
+  return dtype == 0 && (C / H) % 4 == 0 && C / H <= kTcMaxDh;
+}
 
 // Whether K5's `path` cannot take this call (see savqa_flash_graph_attention_bwd_dq).
 bool bad_dq_path(int dtype, int Tk, int C, int H, int path, int q_tile, int n_split,
                  int steps_per_split, const void* scratch) {
   if (path == 0) return n_split != 1 || (dtype != 0 && dtype != 1);
   if (path == 1 && !tensor_cores(dtype, C, H)) return true;
-  if (path == 2 && (dtype != 0 || (q_tile != 16 && q_tile != 64))) return true;
+  if (path == 2 && (!f32_kernels(dtype, C, H) || (q_tile != 16 && q_tile != 64))) return true;
   if (path != 1 && path != 2) return true;
   const int step = path == 1 ? kTile : kDqF32Step;
   const int n_steps = (Tk + step - 1) / step;
@@ -1471,12 +1499,12 @@ bool bad_dq_path(int dtype, int Tk, int C, int H, int path, int q_tile, int n_sp
 // dtype: 0 = float32, 1 = bfloat16. renorm: 0 = l1, 1 = sum_eps.
 // q, dout, dq (B, Tq, C) and k, v, dk, dv (B, Tk, C) in that type; key_mask
 // (B, Tk), graph (B, Tq, Tk), m, z, b, delta (B, H, Tq) f32. The head width
-// C / H must be a multiple of 4 and at most 128. Each returns
-// cudaGetLastError() after its launches.
+// C / H is at most 256. Each returns cudaGetLastError() after its launches.
 //
-// K5's path: 0 = the first SIMT kernel (either type, one shard); 1 = the
-// tensor-core kernel (bf16 with a head width that is a multiple of 16); 2 =
-// the f32 kernel (f32, q_tile = 16 or 64 query rows a block). Paths 1 and 2
+// K5's path: 0 = the first SIMT kernel (either type, every head width, one
+// shard); 1 = the tensor-core kernel (bf16 with a head width that is a
+// multiple of 16 up to 128); 2 = the f32 kernel (f32 with a head width that
+// is a multiple of 4 up to 128, q_tile = 16 or 64 query rows a block). Paths 1 and 2
 // split the key steps (64 keys each on path 1, 32 on path 2) into n_split
 // shards of steps_per_split steps, none of them empty; with n_split > 1
 // scratch (n_split, B, Tq, C) f32 holds the partials between their two
@@ -1519,8 +1547,9 @@ extern "C" int savqa_flash_graph_attention_bwd_dq(
                                        Tk, C, H, renorm, scale, s);
 }
 
-// K6: bf16 with a head width that is a multiple of 16 takes the tensor-core
-// kernel, f32 its register-tiled kernel, bf16 at other widths the SIMT kernel.
+// K6: bf16 with a head width that is a multiple of 16 up to 128 takes the
+// tensor-core kernel, f32 with a multiple of 4 up to 128 its register-tiled
+// kernel, every other call the SIMT kernel.
 extern "C" int savqa_flash_graph_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* key_mask, const void* graph,
     const void* m_in, const void* z_in, const void* b_in, const void* delta, const void* dout,
@@ -1541,11 +1570,14 @@ extern "C" int savqa_flash_graph_attention_bwd_dkv(
                    Tq, Tk, C, H, renorm, 1, 1, scale, s};
     return (int)launch_dkv_tc_dh(p);
   }
-  if (dtype == 0)
+  if (f32_kernels(dtype, C, H))
     return (int)launch_dkv_f32(C / H, static_cast<const float*>(q), static_cast<const float*>(k),
                                static_cast<const float*>(v), km, g, mi, zi, bi, de,
                                static_cast<const float*>(dout), static_cast<float*>(dk),
                                static_cast<float*>(dv), B, Tq, Tk, C, H, renorm, scale, s);
+  if (dtype == 0)
+    return (int)launch_dkv<float>(C / H, q, k, v, km, g, mi, zi, bi, de, dout, dk, dv, B, Tq,
+                                  Tk, C, H, renorm, scale, s);
   if (dtype == 1)
     return (int)launch_dkv<__nv_bfloat16>(C / H, q, k, v, km, g, mi, zi, bi, de, dout, dk, dv,
                                           B, Tq, Tk, C, H, renorm, scale, s);

@@ -26,15 +26,19 @@
 //   first SIMT kernel does, then the epilogue kernel that the tensor-core
 //   path shares; its output is the SIMT kernel's bit for bit (see "the f32
 //   kernel" below).
-// * Every other call (bf16 at other head widths, f32 at a head width that
-//   is no multiple of 4 or above 128): the first SIMT kernel. One block of
+// * Every other call (bf16 at other head widths and above 128, f32 at a
+//   head width that is no multiple of 4 or above 128; head widths up to
+//   256): the first SIMT kernel. One block of
 //   256 threads owns (batch element, tile of up to 16 query rows) and loops
 //   over all H heads, so the LayerNorm epilogue sees all C channels of its
 //   rows: the (rows, C) f32 attention output stays in shared memory and
 //   only the normalised row is written. Per head, K and then V stream
 //   through shared memory in chunks of 64 keys; the (rows, Lk) score tile
 //   stays in shared memory (Lk <= 512: 32 KB at 16 rows), so no score,
-//   weight or pre-LN output ever reaches device memory. One warp owns a row
+//   weight or pre-LN output ever reaches device memory. The tile is the
+//   caller's (ops/fused_graph_attention.py:simt_rows): 16 rows, or 8, 4, 2,
+//   1 where 16 rows of (C + Tk) floats do not fit (C 2,048 at 8 heads of
+//   256 and 512 keys: 8 rows). One warp owns a row
 //   for the softmax, renorm and LayerNorm reductions. Keys are exactly the
 //   Lk given: the kernel needs no padding, so Tq != Tk (the decoder's
 //   one-query cross-attention) runs through the same code.
@@ -90,9 +94,8 @@ graph_attention_ln_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const float* __restrict__ graph, const T* __restrict__ residual,
                           const float* __restrict__ gamma, const float* __restrict__ beta,
                           T* __restrict__ out, float* __restrict__ o_out, int Tq, int Tk,
-                          int C, int H, int renorm, float scale) {
+                          int C, int H, int renorm, float scale, int tile) {
   extern __shared__ float smem[];
-  const int tile = min(kQTile, Tq);
   const int b = blockIdx.y;
   const int row0 = blockIdx.x * tile;
   const int rows = min(tile, Tq - row0);
@@ -843,8 +846,8 @@ template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const float* key_mask,
                    const float* query_mask, const float* graph, const void* residual,
                    const float* gamma, const float* beta, void* out, float* o_out, int B,
-                   int Tq, int Tk, int C, int H, int renorm, float scale, cudaStream_t stream) {
-  const int tile = Tq < kQTile ? Tq : kQTile;
+                   int Tq, int Tk, int C, int H, int renorm, float scale, int tile,
+                   cudaStream_t stream) {
   const int dh = C / H;
   const size_t smem = sizeof(float) * ((size_t)tile * C + (size_t)tile * Tk +
                                        (size_t)tile * dh + (size_t)kKeyChunk * (dh + 1));
@@ -856,7 +859,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* key
   graph_attention_ln_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), key_mask,
       query_mask, graph, static_cast<const T*>(residual), gamma, beta, static_cast<T*>(out),
-      o_out, Tq, Tk, C, H, renorm, scale);
+      o_out, Tq, Tk, C, H, renorm, scale, tile);
   return cudaGetLastError();
 }
 
@@ -867,13 +870,15 @@ bool bad_path(int dtype, int Tk, int C, int H, int path, int q_tile, const void*
   if (path == 2)
     return dtype != 0 || dh % 4 != 0 || dh > 128 || o == nullptr || Tk > kMaxKeys ||
            (q_tile != 16 && q_tile != 32 && q_tile != 48 && q_tile != 64);
-  return path != 0;
+  return path != 0 || q_tile < 1 || q_tile > kQTile;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. renorm: 0 = l1, 1 = sum_eps. path: 0 =
-// the first SIMT kernel (o unused, may be null); 1 = the tensor-core kernels
+// the first SIMT kernel (o unused, may be null; q_tile query rows a block,
+// 1 to 16, its shared memory 4 q_tile (C + Tk + dh) + 256 (dh + 1) bytes);
+// 1 = the tensor-core kernels
 // (bf16 with a head width that is a multiple of 16, at most 128); 2 = the
 // f32 kernel (f32 with a head width that is a multiple of 4, at most 128,
 // and at most 512 keys; q_tile query rows a block: 16, 32, 48 or 64). Paths 1 and 2 need o: (B, Tq, C)
@@ -913,10 +918,10 @@ extern "C" int savqa_graph_attention_ln(const void* q, const void* k, const void
   }
   if (dtype == 0)
     return (int)launch<float>(q, k, v, km, qm, g, residual, ga, be, out, nullptr, B, Tq, Tk,
-                              C, H, renorm, scale, s);
+                              C, H, renorm, scale, q_tile, s);
   if (dtype == 1)
     return (int)launch<__nv_bfloat16>(q, k, v, km, qm, g, residual, ga, be, out, nullptr, B,
-                                      Tq, Tk, C, H, renorm, scale, s);
+                                      Tq, Tk, C, H, renorm, scale, q_tile, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -955,10 +960,10 @@ extern "C" int savqa_graph_attention(const void* q, const void* k, const void* v
   }
   if (dtype == 0)
     return (int)launch<float>(q, k, v, km, qm, g, nullptr, nullptr, nullptr, nullptr, of, B, Tq,
-                              Tk, C, H, renorm, scale, s);
+                              Tk, C, H, renorm, scale, q_tile, s);
   if (dtype == 1)
     return (int)launch<__nv_bfloat16>(q, k, v, km, qm, g, nullptr, nullptr, nullptr, nullptr, of,
-                                      B, Tq, Tk, C, H, renorm, scale, s);
+                                      B, Tq, Tk, C, H, renorm, scale, q_tile, s);
   return (int)cudaErrorInvalidValue;
 }
 

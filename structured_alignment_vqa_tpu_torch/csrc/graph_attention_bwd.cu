@@ -94,15 +94,21 @@
 // device memory (f32, ~67 MB at B 128, L 128, C 512) instead of the SIMT
 // rows launch's shared tile of all heads.
 //
-// bf16 with a head width that is not a multiple of 16 keeps the first SIMT
-// kernels (TF32 is not the question there; they were never redesigned):
+// The first SIMT kernels take every other call (path 0): bf16 at a head
+// width that is no multiple of 16 or above 128, or where the tensor-core
+// rows launch does not fit (C 2,048 at 16 heads: 32 rows of C + 8 f32 and
+// bf16), and f32 at a head width that is no multiple of 4 or above 128;
+// head widths up to 256 in both dtypes. They were never redesigned:
 // * Rows launch, one block of 256 threads per (batch, tile of up to 16 query
-//   rows), all heads, as K1: the forward output of all heads into shared
+//   rows; fewer where 16 rows of C + 2 Tk floats do not fit, the caller's
+//   choice, ops/fused_graph_attention.py:simt_rows), all heads, as K1: the
+//   forward output of all heads into shared
 //   memory, the LayerNorm backward, then per head P, dA, dS in shared memory
 //   and dQ; dO goes to the keys launch in f32 with, per (batch, head, row),
 //   the softmax max and sum, r, live, sum dN G and sum dP P.
-// * Keys launch, one block per (batch, head, tile of 32 keys), the query
-//   rows 16 at a time, dV and dK in registers. Plain FMAs on CUDA cores.
+// * Keys launch, one block per (batch, head, tile of 32 keys; 16 at head
+//   widths above 128), the query rows 16 at a time, dV and dK in registers
+//   (16 of each a thread). Plain FMAs on CUDA cores.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -117,10 +123,11 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kQTile = 16;      // K2a: query rows per block
 constexpr int kKeyChunk = 64;   // K2a: keys staged in shared memory at a time
-constexpr int kKTile = 32;      // K2b: keys per block
 constexpr int kQChunk = 16;     // K2b: query rows per step
-constexpr int kMaxDh = 128;
-constexpr int kPer = kKTile * kMaxDh / kThreads;  // K2b accumulators per thread
+constexpr int kMaxDh = 256;     // the SIMT kernels' widest head
+constexpr int kPer = 16;        // K2b accumulators a thread: KT keys x dh <= 16 x 256
+// K2b: keys per block, 32 up to head width 128, 16 above
+inline int keys_tile(int dh) { return dh <= 128 ? 32 : 16; }
 constexpr int kStats = 8;       // m, z, r, live, sum dN G, sum dP P, unused, unused
 constexpr float kNegMask = -4294967295.0f;  // float(-(2**32) + 1)
 constexpr float kL1Eps = 1e-12f;
@@ -213,9 +220,8 @@ graph_attention_ln_bwd_rows_kernel(
     const float* __restrict__ gamma, const T* __restrict__ dy, T* __restrict__ dq,
     T* __restrict__ dres, float* __restrict__ partials, float* __restrict__ dout,
     float* __restrict__ stats, int Tq, int Tk, int C, int H, int renorm, float scale,
-    int from_do) {
+    int from_do, int tile) {
   extern __shared__ float smem[];
-  const int tile = min(kQTile, Tq);
   const int b = blockIdx.y;
   const int row0 = blockIdx.x * tile;
   const int rows = min(tile, Tq - row0);
@@ -446,9 +452,9 @@ graph_attention_ln_bwd_rows_kernel(
   }
 }
 
-// Shared memory: ks, vs (kKTile, dh + 1) | qc, dc (kQChunk, dh)
-//                | aw, sw (kQChunk, kKTile + 1) | st (kQChunk, kStats) | qmc (kQChunk)
-template <typename T>
+// Shared memory: ks, vs (KT, dh + 1) | qc, dc (kQChunk, dh)
+//                | aw, sw (kQChunk, KT + 1) | st (kQChunk, kStats) | qmc (kQChunk)
+template <typename T, int KT>
 __global__ void __launch_bounds__(kThreads)
 graph_attention_ln_bwd_keys_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -457,8 +463,8 @@ graph_attention_ln_bwd_keys_kernel(
     const float* __restrict__ stats, T* __restrict__ dk, T* __restrict__ dv, int Tq, int Tk,
     int C, int H, int renorm, float scale) {
   extern __shared__ float smem[];
-  const int j0 = blockIdx.x * kKTile;
-  const int nk = min(kKTile, Tk - j0);
+  const int j0 = blockIdx.x * KT;
+  const int nk = min(KT, Tk - j0);
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int dh = C / H;
@@ -466,12 +472,12 @@ graph_attention_ln_bwd_keys_kernel(
   const int tid = threadIdx.x;
 
   float* ks = smem;
-  float* vs = ks + kKTile * (dh + 1);
-  float* qc = vs + kKTile * (dh + 1);
+  float* vs = ks + KT * (dh + 1);
+  float* qc = vs + KT * (dh + 1);
   float* dc = qc + kQChunk * dh;
   float* aw = dc + kQChunk * dh;
-  float* sw = aw + kQChunk * (kKTile + 1);
-  float* st = sw + kQChunk * (kKTile + 1);
+  float* sw = aw + kQChunk * (KT + 1);
+  float* st = sw + kQChunk * (KT + 1);
   float* qmc = st + kQChunk * kStats;
 
   const float* km = key_mask + (size_t)b * Tk + j0;
@@ -516,9 +522,9 @@ graph_attention_ln_bwd_keys_kernel(
       const float gj = graph[((size_t)b * Tq + r0 + r) * Tk + j0 + j];
       const float g = pj * gj;
       const float qmr = qmc[r];
-      aw[r * (kKTile + 1) + j] = to_float(from_float<T>(g / sr[2] * qmr));
+      aw[r * (KT + 1) + j] = to_float(from_float<T>(g / sr[2] * qmr));
       const float dp = d_graph_weight(da * qmr, g, sr[2], sr[3], sr[4], renorm) * gj;
-      sw[r * (kKTile + 1) + j] =
+      sw[r * (KT + 1) + j] =
           masked ? 0.f : to_float(from_float<T>(pj * (dp - sr[5]) * scale));
     }
     __syncthreads();
@@ -529,8 +535,8 @@ graph_attention_ln_bwd_keys_kernel(
         const int j = i / dh, d = i - j * dh;
         float sk = acc_k[u], sv = acc_v[u];
         for (int r = 0; r < nr; ++r) {
-          sv = fmaf(aw[r * (kKTile + 1) + j], dc[r * dh + d], sv);
-          sk = fmaf(sw[r * (kKTile + 1) + j], qc[r * dh + d], sk);
+          sv = fmaf(aw[r * (KT + 1) + j], dc[r * dh + d], sv);
+          sk = fmaf(sw[r * (KT + 1) + j], qc[r * dh + d], sk);
         }
         acc_k[u] = sk;
         acc_v[u] = sv;
@@ -554,8 +560,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* key
                    const float* query_mask, const float* graph, const void* residual,
                    const float* gamma, const void* dy, void* dq, void* dk, void* dv, void* dres,
                    float* partials, float* dout, float* stats, int B, int Tq, int Tk, int C,
-                   int H, int renorm, float scale, int from_do, cudaStream_t stream) {
-  const int tile = Tq < kQTile ? Tq : kQTile;
+                   int H, int renorm, float scale, int from_do, int tile, cudaStream_t stream) {
   const int dh = C / H;
   const size_t smem_a =
       sizeof(float) * ((size_t)tile * C + 2 * (size_t)tile * Tk + (size_t)tile * dh +
@@ -569,18 +574,21 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* key
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), key_mask,
       query_mask, graph, static_cast<const T*>(residual), gamma, static_cast<const T*>(dy),
       static_cast<T*>(dq), static_cast<T*>(dres), partials, dout, stats, Tq, Tk, C, H, renorm,
-      scale, from_do);
+      scale, from_do, tile);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
+  const int kt = keys_tile(dh);
   const size_t smem_b =
-      sizeof(float) * (2 * (size_t)kKTile * (dh + 1) + 2 * (size_t)kQChunk * dh +
-                       2 * (size_t)kQChunk * (kKTile + 1) + (size_t)kQChunk * kStats + kQChunk);
-  err = cudaFuncSetAttribute(graph_attention_ln_bwd_keys_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_b);
+      sizeof(float) * (2 * (size_t)kt * (dh + 1) + 2 * (size_t)kQChunk * dh +
+                       2 * (size_t)kQChunk * (kt + 1) + (size_t)kQChunk * kStats + kQChunk);
+  auto keys_kernel = kt == 32 ? graph_attention_ln_bwd_keys_kernel<T, 32>
+                              : graph_attention_ln_bwd_keys_kernel<T, 16>;
+  err = cudaFuncSetAttribute(keys_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_b);
   if (err != cudaSuccess) return err;
-  const dim3 grid_b((Tk + kKTile - 1) / kKTile, H, B);
-  graph_attention_ln_bwd_keys_kernel<T><<<grid_b, kThreads, smem_b, stream>>>(
+  const dim3 grid_b((Tk + kt - 1) / kt, H, B);
+  keys_kernel<<<grid_b, kThreads, smem_b, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), key_mask,
       query_mask, graph, dout, stats, static_cast<T*>(dk), static_cast<T*>(dv), Tq, Tk, C, H,
       renorm, scale);
@@ -1779,6 +1787,15 @@ cudaError_t launch_rows_f32(const F32Bwd& p) {
   return cudaGetLastError();
 }
 
+// Whether `path` cannot take a call of this dtype and head width (see
+// savqa_graph_attention_ln_bwd).
+bool bad_path(int dtype, int dh, int path, int row_tile) {
+  if (dtype != 0 && dtype != 1) return true;
+  if (path == 1) return dtype != 1 || dh % 16 != 0 || dh > 128;
+  if (path == 2) return dtype != 0 || dh % 4 != 0 || dh > 128 || row_tile < 1;
+  return path != 0 || dh > kMaxDh || row_tile < 1 || row_tile > kQTile;
+}
+
 // The four f32 kernels, forward and dq at 16 query rows a block when Tq <= 16.
 cudaError_t launch_f32(const F32Bwd& p) {
   const int dh = p.C / p.H;
@@ -1793,13 +1810,14 @@ cudaError_t launch_f32(const F32Bwd& p) {
 }
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. renorm: 0 = l1, 1 = sum_eps.
-// tensor_cores != 0 (bf16 with a head width that is a multiple of 16 only)
-// takes the tensor-core kernels, 32 query rows a block in the rows launch;
-// f32 the f32 kernels, whose LayerNorm backward writes one dgamma / dbeta
-// partial per row_tile rows (C at most 2,048, a head width that is a
-// multiple of 4); bf16 otherwise the first SIMT kernels, min(16, Tq) rows a
-// block. partials: (B * ceil(Tq / rows a block), 2, C) f32, per-block
+// dtype: 0 = float32, 1 = bfloat16. renorm: 0 = l1, 1 = sum_eps. path
+// (ops/fused_graph_attention.py:k2_path): 1 = the tensor-core kernels (bf16
+// with a head width that is a multiple of 16, at most 128), 32 query rows a
+// block in the rows launch; 2 = the f32 kernels (f32 with a head width that
+// is a multiple of 4, at most 128), whose LayerNorm backward writes one
+// dgamma / dbeta partial per row_tile rows; 0 = the first SIMT kernels
+// (either dtype, head widths up to 256), row_tile rows a block (1 to 16).
+// C is at most 2,048. partials: (B * ceil(Tq / rows a block), 2, C) f32, per-block
 // dgamma / dbeta. stats: (B, H, Tq, 8) f32 and dout: (B, Tq, C) f32 are
 // scratch passed between the launches (the tensor-core keys launch reads
 // dO from dres and takes no dout; in f32 dout holds the forward's output O).
@@ -1808,10 +1826,10 @@ extern "C" int savqa_graph_attention_ln_bwd(
     const void* q, const void* k, const void* v, const void* key_mask, const void* query_mask,
     const void* graph, const void* residual, const void* gamma, const void* dy, void* dq,
     void* dk, void* dv, void* dres, void* partials, void* dout, void* stats, int B, int Tq,
-    int Tk, int C, int H, int renorm, int dtype, int tensor_cores, int row_tile, float scale,
+    int Tk, int C, int H, int renorm, int dtype, int path, int row_tile, float scale,
     void* stream) {
-  if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || C % H != 0 || C / H > kMaxDh ||
-      (renorm != 0 && renorm != 1) || (tensor_cores && (dtype != 1 || (C / H) % 16 != 0)))
+  if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || C % H != 0 || C > kF32MaxC ||
+      (renorm != 0 && renorm != 1) || bad_path(dtype, C / H, path, row_tile))
     return (int)cudaErrorInvalidValue;
   const auto* km = static_cast<const float*>(key_mask);
   const auto* qm = static_cast<const float*>(query_mask);
@@ -1822,7 +1840,7 @@ extern "C" int savqa_graph_attention_ln_bwd(
   auto* st = static_cast<float*>(stats);
   auto s = static_cast<cudaStream_t>(stream);
   const int dh = C / H;
-  if (tensor_cores) {
+  if (path == 1) {
     auto run = dh <= 16 ? launch_tc<16> : dh <= 32 ? launch_tc<32> : dh <= 64 ? launch_tc<64>
                                                                                : launch_tc<128>;
     return (int)run(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
@@ -1832,8 +1850,7 @@ extern "C" int savqa_graph_attention_ln_bwd(
                     st, B, Tq, Tk, C, H, renorm, scale, 0, s);
   }
   if (dout == nullptr) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) {
-    if (dh % 4 != 0 || C > kF32MaxC || row_tile < 1) return (int)cudaErrorInvalidValue;
+  if (path == 2) {
     const F32Bwd p{static_cast<const float*>(q), static_cast<const float*>(k),
                    static_cast<const float*>(v), km, qm, g, static_cast<const float*>(residual),
                    ga, static_cast<const float*>(dy), static_cast<float*>(dq),
@@ -1841,10 +1858,11 @@ extern "C" int savqa_graph_attention_ln_bwd(
                    pa, dout_f, st, B, Tq, Tk, C, H, renorm, 0, row_tile, scale, s};
     return (int)launch_f32(p);
   }
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(q, k, v, km, qm, g, residual, ga, dy, dq, dk, dv, dres, pa,
-                                      dout_f, st, B, Tq, Tk, C, H, renorm, scale, 0, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return (int)launch<float>(q, k, v, km, qm, g, residual, ga, dy, dq, dk, dv, dres, pa,
+                              dout_f, st, B, Tq, Tk, C, H, renorm, scale, 0, row_tile, s);
+  return (int)launch<__nv_bfloat16>(q, k, v, km, qm, g, residual, ga, dy, dq, dk, dv, dres, pa,
+                                    dout_f, st, B, Tq, Tk, C, H, renorm, scale, 0, row_tile, s);
 }
 
 // The model axis (ops/fused_graph_attention.py:graph_attention_heads'
@@ -1853,15 +1871,16 @@ extern "C" int savqa_graph_attention_ln_bwd(
 // the LayerNorm backward (the first SIMT rows launch also skips the
 // forward's output). dout ((B, Tq, C) f32) and stats ((B, H, Tq, 8) f32) are
 // scratch; the tensor-core keys launch reads do itself (dout unused, may be
-// null).
+// null). path and row_tile as savqa_graph_attention_ln_bwd's (row_tile: the
+// SIMT rows launch's rows a block; unused otherwise).
 extern "C" int savqa_graph_attention_bwd(
     const void* q, const void* k, const void* v, const void* key_mask, const void* query_mask,
     const void* graph, const void* d_o, void* dq, void* dk, void* dv, void* dout, void* stats,
-    int B, int Tq, int Tk, int C, int H, int renorm, int dtype, int tensor_cores, float scale,
-    void* stream) {
-  if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || C % H != 0 || C / H > kMaxDh ||
-      (renorm != 0 && renorm != 1) || (tensor_cores && (dtype != 1 || (C / H) % 16 != 0)) ||
-      (!tensor_cores && dout == nullptr))
+    int B, int Tq, int Tk, int C, int H, int renorm, int dtype, int path, int row_tile,
+    float scale, void* stream) {
+  if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || C % H != 0 || C > kF32MaxC ||
+      (renorm != 0 && renorm != 1) || bad_path(dtype, C / H, path, row_tile) ||
+      (path != 1 && dout == nullptr))
     return (int)cudaErrorInvalidValue;
   const auto* km = static_cast<const float*>(key_mask);
   const auto* qm = static_cast<const float*>(query_mask);
@@ -1870,7 +1889,7 @@ extern "C" int savqa_graph_attention_bwd(
   auto* st = static_cast<float*>(stats);
   auto s = static_cast<cudaStream_t>(stream);
   const int dh = C / H;
-  if (tensor_cores) {
+  if (path == 1) {
     auto run = dh <= 16 ? launch_tc<16> : dh <= 32 ? launch_tc<32> : dh <= 64 ? launch_tc<64>
                                                                                : launch_tc<128>;
     return (int)run(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
@@ -1879,8 +1898,7 @@ extern "C" int savqa_graph_attention_bwd(
                     static_cast<bf16*>(dk), static_cast<bf16*>(dv), nullptr, nullptr, st, B, Tq,
                     Tk, C, H, renorm, scale, 1, s);
   }
-  if (dtype == 0) {
-    if (dh % 4 != 0) return (int)cudaErrorInvalidValue;
+  if (path == 2) {
     const F32Bwd p{static_cast<const float*>(q), static_cast<const float*>(k),
                    static_cast<const float*>(v), km, qm, g, nullptr, nullptr,
                    static_cast<const float*>(d_o), static_cast<float*>(dq),
@@ -1888,9 +1906,11 @@ extern "C" int savqa_graph_attention_bwd(
                    st, B, Tq, Tk, C, H, renorm, 1, 1, scale, s};
     return (int)launch_f32(p);
   }
-  if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(q, k, v, km, qm, g, nullptr, nullptr, d_o, dq, dk, dv,
-                                      nullptr, nullptr, dout_f, st, B, Tq, Tk, C, H, renorm,
-                                      scale, 1, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return (int)launch<float>(q, k, v, km, qm, g, nullptr, nullptr, d_o, dq, dk, dv, nullptr,
+                              nullptr, dout_f, st, B, Tq, Tk, C, H, renorm, scale, 1, row_tile,
+                              s);
+  return (int)launch<__nv_bfloat16>(q, k, v, km, qm, g, nullptr, nullptr, d_o, dq, dk, dv,
+                                    nullptr, nullptr, dout_f, st, B, Tq, Tk, C, H, renorm,
+                                    scale, 1, row_tile, s);
 }

@@ -7,11 +7,13 @@ forward and its backward K5 and K6 each have two CUDA kernels, and
 :func:`kernel_path` says which one a call takes: the tensor cores for
 bfloat16 at head widths that are multiples of 16, else the CUDA cores
 ("simt"). On the CUDA cores K1, K2, K4, K5 and K6 in float32 run
-register-tiled FFMA kernels (``csrc/simt_f32.cuh``): K1 at head widths
-that are multiples of 4 up to 128 (``fused_graph_attention.k1_path``; other
-f32 widths keep its first SIMT kernel), K5 and K6 at every width they take
-(``flash_graph_attention.dq_kernel`` and ``dkv_kernel``). bfloat16 at other
-head widths keeps the first SIMT kernels.
+register-tiled FFMA kernels (``csrc/simt_f32.cuh``) at head widths that are
+multiples of 4 up to 128 (``fused_graph_attention.k1_path`` and
+``k2_path``, ``flash_graph_attention.k4_path``, ``dq_kernel`` and
+``dkv_kernel``). Every other call keeps the first SIMT kernels: bfloat16 at
+a head width that is no multiple of 16 or above ``TC_MAX_HEAD_DIM``,
+float32 at a head width that is no multiple of 4 or above it. The attention
+kernels take head widths up to ``MAX_HEAD_DIM``.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import torch
 
 SM_COUNT = 132       # streaming multiprocessors of an H100 SXM
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on Hopper
+TC_MAX_HEAD_DIM = 128   # the tensor-core and register-tiled f32 kernels' widest head
+MAX_HEAD_DIM = 256      # the widest head K1-K6 take (the SIMT kernels' register accumulators)
 
 
 def use_kernel(x: torch.Tensor) -> bool:
@@ -35,10 +39,20 @@ def use_kernel(x: torch.Tensor) -> bool:
 def kernel_path(dtype, head_dim: int) -> str:
     """Which of its CUDA kernels K1, K2, K4, K5 or K6 takes: ``"tensor-core"``
     (``mma.sync`` on bf16 tiles) for bfloat16 with a head width that is a
-    multiple of 16, else ``"simt"`` (f32 FMAs on the CUDA cores, in float32
-    the register-tiled kernels named above): TF32 products would not hold
-    the 1e-4 the float32 path is checked to."""
-    return "tensor-core" if dtype == torch.bfloat16 and head_dim % 16 == 0 else "simt"
+    multiple of 16 up to ``TC_MAX_HEAD_DIM``, else ``"simt"`` (f32 FMAs on
+    the CUDA cores, in float32 the register-tiled kernels named above where
+    they take the width): TF32 products would not hold the 1e-4 the float32
+    path is checked to."""
+    if dtype == torch.bfloat16 and head_dim % 16 == 0 and head_dim <= TC_MAX_HEAD_DIM:
+        return "tensor-core"
+    return "simt"
+
+
+def f32_tiled(dtype, head_dim: int) -> bool:
+    """Whether a float32 call takes the register-tiled FFMA kernels
+    (``csrc/simt_f32.cuh``): a head width that is a multiple of 4 up to
+    ``TC_MAX_HEAD_DIM``."""
+    return dtype == torch.float32 and head_dim % 4 == 0 and head_dim <= TC_MAX_HEAD_DIM
 
 
 def composite_backward(fn, ctx, grad_out):

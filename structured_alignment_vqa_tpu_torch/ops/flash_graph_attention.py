@@ -57,10 +57,16 @@ tiles a lane, dQ through the warp's transposed tile; when the blocks do
 not fill the card its keys split into shards of four steps
 (:func:`dq_f32_plan`) whose f32 partials the shard-sum kernel adds. An
 unsplit call sums every score and every dQ entry in the first f32 kernel's
-order and gives its bits. bfloat16 at other head widths keeps the first
-SIMT kernels (f32 FMAs, no split). TF32 products would not hold the 1e-4
-the float32 path is checked to (:func:`dq_kernel` and :func:`dkv_kernel`
-name K5's and K6's kernel for a call).
+order and gives its bits. Every other call keeps the first SIMT kernels
+(f32 FMAs, no split), in either dtype: bfloat16 at a head width that is no
+multiple of 16 or above 128, float32 at a head width that is no multiple of
+4 or above 128 (:func:`k4_path`, :func:`dq_kernel` and :func:`dkv_kernel`
+name K4's, K5's and K6's kernel for a call). They stage rows of the head
+width rounded up to 4, the columns past it zero, and take head widths up to
+``MAX_HEAD_DIM`` (256: K5's blocks and K6's steps then hold 32 query rows,
+not 64, to fit their shared memory). TF32 products would not hold the 1e-4
+the float32 path is checked to. The wrappers raise above C ``MAX_C``
+(2,048) or that head width.
 """
 
 from __future__ import annotations
@@ -70,7 +76,13 @@ import ctypes
 import torch
 
 from structured_alignment_vqa_tpu_torch.ops import _build
-from structured_alignment_vqa_tpu_torch.ops.dispatch import SM_COUNT, kernel_path, use_kernel
+from structured_alignment_vqa_tpu_torch.ops.dispatch import (
+    MAX_HEAD_DIM,
+    SM_COUNT,
+    f32_tiled,
+    kernel_path,
+    use_kernel,
+)
 from structured_alignment_vqa_tpu_torch.ops.fused_graph_attention import (
     L1_NORM_EPS,
     RENORMS,
@@ -79,7 +91,7 @@ from structured_alignment_vqa_tpu_torch.ops.fused_graph_attention import (
 from structured_alignment_vqa_tpu_torch.ops.layers import NEG_MASK_VALUE
 
 EMITS = ("out", "stats", "partial")
-MAX_HEAD_DIM = 128   # the kernels' register accumulators
+MAX_C = 2048         # the widest C K4-K6 take, as K1's and K2's
 KEY_STEP = 64        # keys a block walks per step (both K4 kernels)
 TC_Q_TILE = 64       # query rows per block of the tensor-core kernel (kTcWarps x 16)
 F32_SPLIT_STEPS = 4  # key steps a shard of the f32 kernel, when it splits
@@ -169,6 +181,41 @@ def key_split(batch: int, num_heads: int, tq: int, tk: int) -> tuple:
     return -(-steps // per), per
 
 
+def k4_path(dtype, head_dim: int) -> str:
+    """Which of K4's kernels a call takes: ``"tensor-core"`` (bfloat16 at
+    head widths that are multiples of 16 up to 128), ``"f32"`` (the
+    register-tiled FFMA kernel: float32 at multiples of 4 up to 128) or
+    ``"simt"`` (the first SIMT kernel: every other call, either dtype)."""
+    if kernel_path(dtype, head_dim) == "tensor-core":
+        return "tensor-core"
+    return "f32" if f32_tiled(dtype, head_dim) else "simt"
+
+
+def simt_rows(head_dim: int) -> int:
+    """Query rows of a block of K4's and K5's SIMT kernels and of a step of
+    K6's: 64 at K4 (whatever the head width), 64 up to head width 128 and 32
+    above at K5 and K6, whose four (rows, head width) tiles would pass the
+    shared memory a block may use at 64."""
+    return SIMT_Q_TILE if head_dim <= 128 else SIMT_Q_TILE // 2
+
+
+def smem_bytes_simt(kernel: str, head_dim: int) -> int:
+    """Dynamic shared memory of one block of the SIMT kernel of ``kernel``
+    ("K4", "K5" or "K6"; must match ``launch_ndh``, ``launch_dq_ndh`` and
+    ``launch_dkv_ndh``): rows of the head width rounded up to 4, plus 4.
+    K4: Q (64 rows), K, V (64 keys), the weights (64, 68) and the key mask;
+    K5: Q and dO (rows), K, V, dS (rows, 68) and the key mask; K6: K, V, Q
+    and dO, n and dS (rows, 68), the key mask and 20 bytes of row terms a
+    row."""
+    ld = -(-head_dim // 4) * 4 + 4
+    if kernel == "K4":
+        return 4 * ((SIMT_Q_TILE + 2 * KEY_STEP) * ld + SIMT_Q_TILE * (KEY_STEP + 4) + KEY_STEP)
+    rows = simt_rows(head_dim)
+    if kernel == "K5":
+        return 4 * ((2 * rows + 2 * KEY_STEP) * ld + rows * (KEY_STEP + 4) + KEY_STEP)
+    return 4 * ((2 * rows + 2 * KEY_STEP) * ld + 2 * rows * (KEY_STEP + 4) + KEY_STEP) + 20 * rows
+
+
 def f32_plan(batch: int, num_heads: int, tq: int, tk: int) -> tuple:
     """``(q_tile, n_split, steps_per_split)`` of K4's float32 kernel, a pure
     function of the shapes: 64 query rows a block (4 warps; 16 rows, one
@@ -201,13 +248,9 @@ DKV_F32_ROWS = 32   # query rows a step
 
 
 def dkv_kernel(dtype, head_dim: int) -> str:
-    """Which of K6's kernels a call takes: ``"tensor-core"`` (bfloat16 at
-    head widths that are multiples of 16), ``"f32"`` (the register-tiled
-    FFMA kernel, every float32 call) or ``"simt"`` (the first SIMT kernel:
-    bfloat16 at other head widths)."""
-    if kernel_path(dtype, head_dim) == "tensor-core":
-        return "tensor-core"
-    return "f32" if dtype == torch.float32 else "simt"
+    """Which of K6's kernels a call takes: as :func:`k4_path`, the
+    tensor-core, the register-tiled f32 or the first SIMT kernel."""
+    return k4_path(dtype, head_dim)
 
 
 def smem_bytes_dkv_f32(head_dim: int) -> int:
@@ -227,11 +270,8 @@ SIMT_Q_TILE = 64    # query rows a block of the first SIMT kernels
 
 
 def dq_kernel(dtype, head_dim: int) -> str:
-    """Which of K5's kernels a call takes: ``"tensor-core"`` (bfloat16 at
-    head widths that are multiples of 16), ``"f32"`` (the register-tiled
-    FFMA kernel, every float32 call) or ``"simt"`` (the first SIMT kernel:
-    bfloat16 at other head widths)."""
-    return dkv_kernel(dtype, head_dim)
+    """Which of K5's kernels a call takes: as :func:`k4_path`."""
+    return k4_path(dtype, head_dim)
 
 
 def dq_f32_plan(batch: int, num_heads: int, tq: int, tk: int) -> tuple:
@@ -265,8 +305,9 @@ def smem_bytes_dq_f32(head_dim: int, q_tile: int) -> int:
 def kernel_key_split(dtype, head_dim: int, batch: int, num_heads: int, tq: int,
                      tk: int) -> tuple:
     """``(n_split, steps_per_split)`` a K4 call takes: :func:`f32_plan`'s on
-    the float32 kernel, else K5's (:func:`dq_key_split`)."""
-    if dtype == torch.float32:
+    the float32 kernel, else K5's (:func:`dq_key_split`; one shard on the
+    SIMT kernel)."""
+    if k4_path(dtype, head_dim) == "f32":
         return f32_plan(batch, num_heads, tq, tk)[1:]
     return dq_key_split(dtype, head_dim, batch, num_heads, tq, tk)
 
@@ -387,9 +428,11 @@ def _check(q, k, v, key_mask, graph, num_heads: int, renorm: str, extra: dict) -
     tk = k.shape[1]
     if c % num_heads:
         raise ValueError("C must be divisible by num_heads")
+    if c > MAX_C:
+        raise ValueError(f"C {c}: K4-K6 take C at most {MAX_C}")
     dh = c // num_heads
-    if dh % 4 or dh > MAX_HEAD_DIM:
-        raise ValueError(f"head width {dh} must be a multiple of 4 and at most {MAX_HEAD_DIM}")
+    if dh > MAX_HEAD_DIM:
+        raise ValueError(f"head width {dh} > {MAX_HEAD_DIM}, the widest K4-K6 take")
     want = {
         "q": (q, (b, tq, c), q.dtype), "k": (k, (b, tk, c), q.dtype),
         "v": (v, (b, tk, c), q.dtype),
@@ -425,7 +468,8 @@ def _launch_forward(q, k, v, key_mask, query_mask, graph, num_heads: int, renorm
     dev = q.device
     dh = c // num_heads
     n_split, per = kernel_key_split(q.dtype, dh, b, num_heads, tq, tk)
-    q_tile = f32_plan(b, num_heads, tq, tk)[0] if q.dtype == torch.float32 else TC_Q_TILE
+    q_tile = (f32_plan(b, num_heads, tq, tk)[0] if k4_path(q.dtype, dh) == "f32"
+              else TC_Q_TILE)
     scratch = [None, None]
     if n_split > 1:    # the shards' raw a and m, z, b between the two kernels
         scratch = [torch.empty(n_split, b, num_heads, tq, dh, dtype=torch.float32, device=dev),

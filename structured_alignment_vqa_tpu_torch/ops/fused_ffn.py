@@ -8,11 +8,13 @@ On CUDA tensors :func:`fused_ffn` launches the kernels of ``csrc/ffn.cu``;
 :func:`ffn_path` says which design a call takes. Both are bound by
 operations; what each does about it:
 
-* ``"row-tile"``, bf16 at C 128-512: the TPU kernel's shape on the tensor
-  cores (``mma.sync``), 64 rows a block, the hidden activation kept in
-  shared memory; with few rows the hidden width is split over blocks by
-  :func:`ffn_split` and a second kernel sums the shards.
-* ``"products"``, float32 at every width and bf16 at C 2,048: two kernels
+* ``"row-tile"``, bf16 at C 128, 256, 384 and 512 (``ROW_TILE_WIDTHS``)
+  with a hidden width that is a multiple of 64: the TPU kernel's shape on
+  the tensor cores (``mma.sync``), 64 rows a block, the hidden activation
+  kept in shared memory; with few rows the hidden width is split over
+  blocks by :func:`ffn_split` and a second kernel sums the shards.
+* ``"products"``, float32 at every width and bf16 at every other width
+  (C 2,048, 768, 300, 16, ...): two kernels
   shaped like GEMMs, ``relu(x W1^T + b1)`` into a hidden scratch of (rows,
   Hd) in x's dtype, then its product with ``W2^T`` into f32 partials of
   (n_split, rows, C), then the shard-sum kernel (``+ b2 + x`` and the
@@ -25,7 +27,14 @@ operations; what each does about it:
   one FMA chain over the whole hidden width and the LayerNorm sums in the
   old kernel's order: the results are the bits of the f32 kernel this path
   replaced. The hidden round trip costs about 8% of the f32 bound at
-  16,384 rows.
+  16,384 rows. C and the hidden width are runtime extents: edge tiles
+  zero-fill what lies past the operands, the LayerNorm leaves the columns
+  past C out, and bf16 rows that are not 16-byte aligned (C or the hidden
+  width no multiple of 8) are copied element by element.
+
+The kernels take C from 1 to ``MAX_C`` (2,048) and a hidden width from 1
+to ``MAX_HIDDEN`` (4 x 2,048), the domain of the model's widths; the
+wrapper raises outside it.
 
 Every launch of either counts once. The wrapper allocates the scratch with
 ``torch.empty`` (:func:`_scratch`); the kernels allocate nothing. On CPU
@@ -66,11 +75,13 @@ from structured_alignment_vqa_tpu_torch.ops.dispatch import (
 )
 from structured_alignment_vqa_tpu_torch.ops.layers import layer_norm
 
-WIDTHS = (128, 256, 512)   # C values of the bf16 row-tile kernel and the model axis
-# C values past the row-tile kernel's shared memory: the products path in
-# both dtypes (x2_fusion_dec_mil2's alignment blocks)
-WIDE_WIDTHS = (2048,)
-HIDDEN_CHUNK = 64          # the hidden width must be a multiple of this
+WIDTHS = (128, 256, 512)   # the preset widths: f32 at these C sums in one shard
+# C values of the bf16 row-tile kernel (its shared memory grows with C:
+# 318,464 bytes at C 768); every other C takes the products path
+ROW_TILE_WIDTHS = (128, 256, 384, 512)
+MAX_C = 2048               # the widest C (the shard-sum kernel's widest instance)
+MAX_HIDDEN = 4 * MAX_C     # the widest hidden width (FeedForward(h, (4h, h)) at C 2,048)
+HIDDEN_CHUNK = 64          # hidden columns a chunk; the last chunk may be shorter
 TC_ROWS = 64               # rows per block of the bf16 row-tile kernel
 PRODUCT_TILE = 128         # columns (and at most rows) of a block's tile on the products path
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -93,10 +104,19 @@ def ffn_ln_composite(x, w1, b1, w2, b2, gamma, beta):
     return layer_norm(y + x, gamma, beta)
 
 
-def ffn_path(dtype, c: int) -> str:
+def ffn_path(dtype, c: int, hidden: "int | None" = None) -> str:
     """Which design of ``csrc/ffn.cu`` a call takes: ``"row-tile"`` (bf16 at
-    C 128-512) or ``"products"`` (float32, and bf16 at C 2,048)."""
-    return "row-tile" if dtype == torch.bfloat16 and c in WIDTHS else "products"
+    C in ``ROW_TILE_WIDTHS`` with a hidden width, 4C unless given, that is a
+    multiple of 64) or ``"products"`` (float32, and bf16 at every other C)."""
+    hidden = 4 * c if hidden is None else hidden
+    if dtype == torch.bfloat16 and c in ROW_TILE_WIDTHS and hidden % HIDDEN_CHUNK == 0:
+        return "row-tile"
+    return "products"
+
+
+def _chunks(hidden: int) -> int:
+    """The hidden width's chunks of 64 columns, the last one short if need be."""
+    return -(-hidden // HIDDEN_CHUNK)
 
 
 def _shards(tiles: int, chunks: int) -> tuple:
@@ -132,10 +152,11 @@ def f32_shard_chunks(c: int, hidden: int) -> int:
     """The chunks of 64 hidden columns in one shard of an f32 call: at C up
     to 512 the whole hidden width, one FMA chain per output as in the f32
     kernel this path replaced, so that its results are that kernel's bits
-    (and a row's output never depends on the rows beside it); at C 2,048
-    shards of 1,024 columns, which the SMs need there."""
-    chunks = hidden // HIDDEN_CHUNK
-    return chunks if c in WIDTHS else min(WIDE_SHARD_CHUNKS, chunks)
+    at the preset widths (and a row's output never depends on the rows
+    beside it); above C 512 shards of 1,024 columns, which the SMs need at
+    C 2,048. A function of C and the hidden width alone."""
+    chunks = _chunks(hidden)
+    return chunks if c <= max(WIDTHS) else min(WIDE_SHARD_CHUNKS, chunks)
 
 
 @functools.lru_cache(maxsize=None)
@@ -151,17 +172,17 @@ def products_plan(rows: int, c: int, hidden: int, dtype) -> tuple:
     the chunks a block multiplies, for both products, plus the partials'
     traffic (fewer shards, then taller tiles, on a tie)."""
     f32 = dtype == torch.float32
-    chunks = hidden // HIDDEN_CHUNK
+    chunks = _chunks(hidden)
     pers = [f32_shard_chunks(c, hidden)] if f32 else range(chunks, 0, -1)
     partial_s = 8 * rows * c / PARTIAL_BYTES_PER_S
     best, best_s = None, None
     for tile_rows in (128, 64) if f32 else (128,):
         chunk_s = CHUNK_S[dtype, tile_rows]
         m_tiles = -(-rows // tile_rows)
-        hidden_s = -(-m_tiles * -(-hidden // PRODUCT_TILE) // SM_COUNT) * (c // 64) * chunk_s
+        hidden_s = -(-m_tiles * -(-hidden // PRODUCT_TILE) // SM_COUNT) * -(-c // 64) * chunk_s
         for per in pers:   # shards n = ceil(chunks / per), fewest first
             n = -(-chunks // per)
-            t = (hidden_s + -(-m_tiles * (c // PRODUCT_TILE) * n // SM_COUNT) * per * chunk_s
+            t = (hidden_s + -(-m_tiles * -(-c // PRODUCT_TILE) * n // SM_COUNT) * per * chunk_s
                  + n * partial_s)
             if best_s is None or t < best_s:
                 best, best_s = (tile_rows, -(-chunks // per), per), t
@@ -171,7 +192,7 @@ def products_plan(rows: int, c: int, hidden: int, dtype) -> tuple:
 def kernel_ffn_split(dtype, rows: int, c: int, hidden: int) -> tuple:
     """The split a call takes: :func:`ffn_split` on the row-tile kernel,
     :func:`products_plan`'s on the products path."""
-    if ffn_path(dtype, c) == "row-tile":
+    if ffn_path(dtype, c, hidden) == "row-tile":
         return ffn_split(rows, c, hidden)
     return products_plan(rows, c, hidden, dtype)[1:]
 
@@ -226,15 +247,20 @@ def ffn_partial_composite(x, w1, b1, w2):
     return F.linear(torch.relu(F.linear(x, w1, b1)), w2)
 
 
+def _check_widths(c: int, hd: int) -> None:
+    """Raise unless C and the hidden width lie in the kernels' domain."""
+    if not 1 <= c <= MAX_C:
+        raise ValueError(f"the FFN kernel takes C from 1 to {MAX_C}, got {c}")
+    if not 1 <= hd <= MAX_HIDDEN:
+        raise ValueError(f"the FFN kernel takes a hidden width from 1 to {MAX_HIDDEN}, got {hd}")
+
+
 def _check(x, w1, b1, w2, b2, gamma, beta) -> None:
     if x.dtype not in _DTYPES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     c = x.shape[-1]
     hd = w1.shape[0]
-    if c not in WIDTHS + WIDE_WIDTHS:
-        raise ValueError(f"the FFN kernel is built for C in {WIDTHS + WIDE_WIDTHS}, got {c}")
-    if hd % HIDDEN_CHUNK:
-        raise ValueError(f"hidden width {hd} is not a multiple of {HIDDEN_CHUNK}")
+    _check_widths(c, hd)
     want = {
         "x": (x, tuple(x.shape), x.dtype),
         "w1": (w1, (hd, c), x.dtype), "b1": (b1, (hd,), x.dtype),
@@ -251,7 +277,8 @@ def _check(x, w1, b1, w2, b2, gamma, beta) -> None:
 
 
 def _check_aligned(*tensors) -> None:
-    """bf16 operands are copied 16 bytes at a time (``cp.async``)."""
+    """The row-tile kernel copies its bf16 operands 16 bytes at a time
+    (``cp.async``); the products path takes any alignment."""
     for t in tensors:
         if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
             raise ValueError("bf16 operands of the FFN kernel must be 16-byte aligned")
@@ -264,7 +291,7 @@ def _scratch_shapes(x, hidden: int, n_split: int, entry: str) -> dict:
     partials (n_split, rows, C)."""
     c = x.shape[-1]
     rows = x.numel() // c
-    products = ffn_path(x.dtype, c) == "products"
+    products = ffn_path(x.dtype, c, hidden) == "products"
     shapes = {}
     if products:
         shapes["hidden"] = ((rows, hidden), x.dtype)
@@ -299,7 +326,8 @@ def _ptr(scratch: dict, name: str):
 
 def _launch(x, w1, b1, w2, b2, gamma, beta) -> torch.Tensor:
     _check(x, w1, b1, w2, b2, gamma, beta)
-    _check_aligned(x, w1, w2)
+    if ffn_path(x.dtype, x.shape[-1], w1.shape[0]) == "row-tile":
+        _check_aligned(x, w1, w2)
     lib = _build.library("ffn")
     fn = lib.savqa_ffn_ln
     fn.restype = ctypes.c_int
@@ -369,10 +397,7 @@ def _check_partial(x, w1, b1, w2) -> None:
     if x.dtype not in _DTYPES:
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     c, hd = x.shape[-1], w1.shape[0]
-    if c not in WIDTHS:
-        raise ValueError(f"the FFN partial is built for C in {WIDTHS}, got {c}")
-    if hd % HIDDEN_CHUNK:
-        raise ValueError(f"hidden shard {hd} is not a multiple of {HIDDEN_CHUNK}")
+    _check_widths(c, hd)
     for name, t, shape in (("x", x, tuple(x.shape)), ("w1", w1, (hd, c)), ("b1", b1, (hd,)),
                            ("w2", w2, (c, hd))):
         if tuple(t.shape) != shape or t.dtype != x.dtype or t.device != x.device:
@@ -384,7 +409,8 @@ def _check_partial(x, w1, b1, w2) -> None:
 
 def _launch_partial(x, w1, b1, w2) -> torch.Tensor:
     _check_partial(x, w1, b1, w2)
-    _check_aligned(x, w1, w2)
+    if ffn_path(x.dtype, x.shape[-1], w1.shape[0]) == "row-tile":
+        _check_aligned(x, w1, w2)
     lib = _build.library("ffn")
     fn = lib.savqa_ffn_partial
     fn.restype = ctypes.c_int
@@ -406,16 +432,21 @@ def _launch_partial(x, w1, b1, w2) -> torch.Tensor:
     return out
 
 
-def _launch_epilogue(y, x, b2, gamma, beta) -> torch.Tensor:
+def _check_epilogue(y, x, b2, gamma, beta) -> None:
     c = x.shape[-1]
-    if x.dtype not in _DTYPES or c not in WIDTHS:
-        raise ValueError(f"the FFN epilogue is built for C in {WIDTHS}, f32 or bf16; got "
+    if x.dtype not in _DTYPES or not 1 <= c <= MAX_C:
+        raise ValueError(f"the FFN epilogue takes C from 1 to {MAX_C}, f32 or bf16; got "
                          f"{c} {x.dtype}")
     for name, t, shape, dtype in (("y", y, tuple(x.shape), torch.float32),
                                   ("b2", b2, (c,), x.dtype), ("gamma", gamma, (c,), torch.float32),
                                   ("beta", beta, (c,), torch.float32)):
         if tuple(t.shape) != shape or t.dtype != dtype or t.device != x.device:
             raise ValueError(f"{name}: expected {shape} {dtype}, got {tuple(t.shape)} {t.dtype}")
+
+
+def _launch_epilogue(y, x, b2, gamma, beta) -> torch.Tensor:
+    _check_epilogue(y, x, b2, gamma, beta)
+    c = x.shape[-1]
     lib = _build.library("ffn")
     fn = lib.savqa_ffn_epilogue
     fn.restype = ctypes.c_int

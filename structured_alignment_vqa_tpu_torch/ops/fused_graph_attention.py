@@ -21,12 +21,12 @@ kernels take Tq != Tk (the decoder's one-query cross-attention) and at most
 that.
 
 K1 has three paths (:func:`k1_path`, by dtype and head width). bfloat16
-with a head width that is a multiple of 16 (at most ``MAX_HEAD_DIM``) runs
+with a head width that is a multiple of 16 (at most ``TC_MAX_HEAD_DIM``) runs
 on the tensor cores: a kernel per (head, 64 query rows, batch element)
 forms O = A V with ``mma.sync`` on bf16 tiles into f32 scratch, and a
 second kernel adds the residual and runs the LayerNorm, counted as one
 launch. float32 with a head width that is a multiple of 4 (at most
-``MAX_HEAD_DIM``) runs a register-tiled FFMA kernel in the same shape
+``TC_MAX_HEAD_DIM``) runs a register-tiled FFMA kernel in the same shape
 (``csrc/simt_f32.cuh``'s tiles; a block per head and 64, 48, 32 or 16 query
 rows, :func:`f32_plan`): the scores into shared memory, then a warp a row
 forms the weights in the first SIMT kernel's order, then O = A V in its
@@ -34,13 +34,19 @@ chunk sums, into f32 scratch, then the same LayerNorm kernel. Every sum
 is the first SIMT kernel's in its order, so its output is that kernel's
 bit for bit, and the float32 checks that pair two paths (data parallel,
 the model axis, packing) see the bits they saw. Every other call
-(bfloat16 at other head widths, float32 at a head width that is no
-multiple of 4 or above 128) takes the first SIMT kernel, which keeps all
-heads of 16 rows in one block. None of the port's presets reaches it: the
-hidden 2,048 blocks of the MIL variants return their attention weights
-and so run ``attention_core``.
+(bfloat16 at a head width that is no multiple of 16 or above 128, float32
+at a head width that is no multiple of 4 or above 128) takes the first
+SIMT kernel, which keeps all heads of up to 16 rows in one block
+(:func:`simt_rows`: fewer rows where 16 rows of C + Tk floats do not fit,
+as at C 2,048 with 8 heads of 256 and 512 keys). None of the port's
+presets reaches it: the hidden 2,048 blocks of the MIL variants return
+their attention weights and so run ``attention_core``.
 
-K2 has two pairs of kernels (``dispatch.kernel_path``), each a rows launch
+K1 and K2 take C up to ``MAX_C`` (2,048) and head widths up to
+``MAX_HEAD_DIM`` (256) at up to ``MAX_KEYS`` keys; the wrappers raise
+outside that domain.
+
+K2 has three designs (:func:`k2_path`), each a rows launch
 (the forward recomputed, the LayerNorm backward, dQ and per-row constants)
 and a keys launch (dK and dV summed over every query row, no atomics),
 counted as one. bfloat16 with a head width that is a multiple of 16 runs
@@ -56,9 +62,13 @@ m, z, b), the LayerNorm backward a warp a row (``bwd_row_tile`` rows a
 dgamma/dbeta partial), dQ over keys 32 at a time with both row sums of the
 renorm and softmax backwards known before the first key (from delta = dO .
 O), and dK, dV over query rows 32 at a time (64 keys a block); a head
-width that is a multiple of 4 and C at most ``F32_MAX_C``. bfloat16 at
-other head widths keeps the first SIMT kernels (TF32 would not hold the
-float32 path's 1e-4 either).
+width that is a multiple of 4 up to 128. Every other call keeps the first
+SIMT kernels, in either dtype (TF32 would not hold the float32 path's 1e-4
+either): bfloat16 at a head width that is no multiple of 16 or above 128,
+or where the tensor-core rows launch does not fit (C 2,048 at 16 heads),
+and float32 at a head width that is no multiple of 4 or above 128; their
+rows launch takes :func:`simt_bwd_rows` rows a block and their keys launch
+32 keys a block (16 above head width 128).
 
 The model axis splits the heads over the model row; the LayerNorm needs
 every column, so it runs after the heads' outputs are gathered. Three more
@@ -80,8 +90,11 @@ import torch
 
 from structured_alignment_vqa_tpu_torch.ops import _build
 from structured_alignment_vqa_tpu_torch.ops.dispatch import (
+    MAX_HEAD_DIM,
     SMEM_LIMIT,
+    TC_MAX_HEAD_DIM,
     composite_backward,
+    f32_tiled,
     kernel_path,
     use_kernel,
 )
@@ -92,13 +105,12 @@ L1_NORM_EPS = 1e-12
 SUM_NORM_EPS = 1e-7
 RENORMS = ("l1", "sum_eps")
 MAX_KEYS = 512
-MAX_HEAD_DIM = 128   # register accumulators of K2 and of K1's tensor-core kernel
-Q_TILE = 16          # query rows per block (csrc/graph_attention.cu, K2's first launch)
+MAX_C = 2048         # the widest C K1 and K2 take (K2's f32 LayerNorm backward registers)
+Q_TILE = 16          # query rows per block of the SIMT kernels (K1, K2's rows launch), at most
 KEY_CHUNK = 64       # keys staged in shared memory at a time
 N_STATS = 8          # floats per (batch, head, query row) passed between K2's launches
 BWD_TC_ROWS = 32     # query rows per block of K2's tensor-core rows launch
 BWD_F32_ROWS = 64    # query rows per dgamma/dbeta partial of K2's f32 LayerNorm backward
-F32_MAX_C = 2048     # K2's f32 LayerNorm backward keeps 64 columns a lane in registers
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -254,14 +266,15 @@ K1_PATHS = ("simt", "tensor-core", "f32")   # the C entries' path argument
 
 def k1_path(dtype, head_dim: int) -> str:
     """Which of K1's CUDA kernels a call takes: ``"tensor-core"`` for
-    bfloat16 at head widths that are multiples of 16 (``kernel_path``),
-    ``"f32"`` (the register-tiled FFMA kernel of ``csrc/simt_f32.cuh``) for
-    float32 at head widths that are multiples of 4 up to ``MAX_HEAD_DIM``,
-    else ``"simt"`` (the first SIMT kernel). A choice by shape, not a
-    fallback: a launch that fails raises."""
+    bfloat16 at head widths that are multiples of 16 up to
+    ``TC_MAX_HEAD_DIM`` (``kernel_path``), ``"f32"`` (the register-tiled
+    FFMA kernel of ``csrc/simt_f32.cuh``) for float32 at head widths that
+    are multiples of 4 up to ``TC_MAX_HEAD_DIM``, else ``"simt"`` (the
+    first SIMT kernel). A choice by shape, not a fallback: a launch that
+    fails raises."""
     if kernel_path(dtype, head_dim) == "tensor-core":
         return "tensor-core"
-    if dtype == torch.float32 and head_dim % 4 == 0 and head_dim <= MAX_HEAD_DIM:
+    if f32_tiled(dtype, head_dim):
         return "f32"
     return "simt"
 
@@ -302,12 +315,32 @@ def o_scratch(q, num_heads: int, path: "str | None" = None):
     return torch.empty(*q.shape, dtype=torch.float32, device=q.device)
 
 
+def _simt_smem(rows: int, tk: int, c: int, dh: int) -> int:
+    """Shared memory of a block of K1's first SIMT kernel of ``rows`` rows."""
+    return 4 * (rows * c + rows * tk + rows * dh + KEY_CHUNK * (dh + 1))
+
+
+def _fitting_rows(rows: int, need) -> int:
+    """``rows``, halved (rounding down, at least 1) until ``need(rows)`` bytes
+    of shared memory fit a block."""
+    while rows > 1 and need(rows) > SMEM_LIMIT:
+        rows //= 2
+    return rows
+
+
+def simt_rows(tq: int, tk: int, c: int, num_heads: int) -> int:
+    """Query rows a block of K1's first SIMT kernel: ``min(16, tq)``, halved
+    until its (rows, C) output, (rows, Tk) scores and K or V chunk fit the
+    shared memory a block may use (C 2,048 at 8 heads and 512 keys: 8). A
+    pure function of the shapes."""
+    dh = c // num_heads
+    return _fitting_rows(min(Q_TILE, tq), lambda rows: _simt_smem(rows, tk, c, dh))
+
+
 def smem_bytes(tq: int, tk: int, c: int, num_heads: int) -> int:
     """Dynamic shared memory of one block of K1's first SIMT kernel (must
-    match the kernel's layout)."""
-    rows = min(Q_TILE, tq)
-    dh = c // num_heads
-    return 4 * (rows * c + rows * tk + rows * dh + KEY_CHUNK * (dh + 1))
+    match the kernel's layout), at :func:`simt_rows` rows."""
+    return _simt_smem(simt_rows(tq, tk, c, num_heads), tk, c, c // num_heads)
 
 
 def tc_warps(tq: int) -> int:
@@ -327,21 +360,54 @@ def smem_bytes_tc(tq: int, tk: int, c: int, num_heads: int) -> int:
     return 2 * (16 * tc_warps(tq) + 4 * KEY_CHUNK) * width + 4 * 2 * steps * KEY_CHUNK
 
 
-def smem_bytes_bwd(tq: int, tk: int, c: int, num_heads: int) -> int:
-    """Dynamic shared memory of one block of K2's first launch (the larger)."""
-    rows = min(Q_TILE, tq)
-    dh = c // num_heads
+def _simt_bwd_smem(rows: int, tk: int, c: int, dh: int) -> int:
+    """Shared memory of a block of K2's SIMT rows launch of ``rows`` rows."""
     return 4 * (rows * c + 2 * rows * tk + rows * dh + KEY_CHUNK * (dh + 1) + rows * N_STATS)
 
 
-def bwd_row_tile(dtype, head_dim: int, tq: int) -> int:
+def simt_bwd_rows(tq: int, tk: int, c: int, num_heads: int) -> int:
+    """Query rows a block of K2's SIMT rows launch: ``min(16, tq)``, halved
+    until its (rows, C) tile and two (rows, Tk) tiles fit (C 2,048 at 8
+    heads and 512 keys: 8). A pure function of the shapes."""
+    dh = c // num_heads
+    return _fitting_rows(min(Q_TILE, tq), lambda rows: _simt_bwd_smem(rows, tk, c, dh))
+
+
+def smem_bytes_bwd(tq: int, tk: int, c: int, num_heads: int) -> int:
+    """Dynamic shared memory of one block of K2's first SIMT launch (the
+    larger), at :func:`simt_bwd_rows` rows."""
+    return _simt_bwd_smem(simt_bwd_rows(tq, tk, c, num_heads), tk, c, c // num_heads)
+
+
+K2_PATHS = ("simt", "tensor-core", "f32")   # the C entries' path argument
+
+
+def k2_path(dtype, head_dim: int, tk: "int | None" = None, c: "int | None" = None,
+            num_heads: "int | None" = None) -> str:
+    """Which of K2's designs a call takes: ``"tensor-core"`` for bfloat16 at
+    head widths that are multiples of 16 up to ``TC_MAX_HEAD_DIM`` whose
+    rows launch fits (given ``tk``, ``c`` and ``num_heads``; at C 2,048 with
+    16 heads its 32 rows of C + 8 f32 and bf16 do not), ``"f32"`` for
+    float32 at head widths that are multiples of 4 up to
+    ``TC_MAX_HEAD_DIM``, else ``"simt"``. A pure function of the shapes."""
+    if kernel_path(dtype, head_dim) == "tensor-core" and (
+            c is None or smem_bytes_bwd_tc(tk, c, num_heads) <= SMEM_LIMIT):
+        return "tensor-core"
+    return "f32" if f32_tiled(dtype, head_dim) else "simt"
+
+
+def bwd_row_tile(dtype, head_dim: int, tq: int, tk: "int | None" = None,
+                 c: "int | None" = None, num_heads: "int | None" = None) -> int:
     """Query rows per dgamma/dbeta partial of K2 (per block of its rows
-    launch or of its f32 LayerNorm backward)."""
-    if kernel_path(dtype, head_dim) == "tensor-core":
+    launch or of its f32 LayerNorm backward), by :func:`k2_path` (given
+    ``tk``, ``c`` and ``num_heads``; without them the SIMT rows launch is
+    taken to fit 16 rows)."""
+    path = k2_path(dtype, head_dim, tk, c, num_heads)
+    if path == "tensor-core":
         return BWD_TC_ROWS
-    if dtype == torch.float32:
+    if path == "f32":
         return BWD_F32_ROWS
-    return min(Q_TILE, tq)
+    return min(Q_TILE, tq) if c is None else simt_bwd_rows(tq, tk, c, num_heads)
 
 
 def smem_bytes_bwd_f32(tq: int, c: int, num_heads: int) -> int:
@@ -387,6 +453,10 @@ def _check(q, k, v, key_mask, query_mask, graph, residual, gamma, beta,
             "(K4, ops/flash_graph_attention.py), as the attention modules send them")
     if c % num_heads:
         raise ValueError("C must be divisible by num_heads")
+    if c > MAX_C:
+        raise ValueError(f"C {c}: K1 and K2 take C at most {MAX_C}")
+    if c // num_heads > MAX_HEAD_DIM:
+        raise ValueError(f"head width {c // num_heads} > {MAX_HEAD_DIM}, the widest K1 and K2 take")
     want = {
         "q": (q, (b, tq, c), q.dtype), "k": (k, (b, tk, c), q.dtype),
         "v": (v, (b, tk, c), q.dtype), "residual": (residual, (b, tq, c), q.dtype),
@@ -406,27 +476,31 @@ def _check(q, k, v, key_mask, query_mask, graph, residual, gamma, beta,
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    tensor_cores = kernel_path(q.dtype, c // num_heads) == "tensor-core"
-    if (dy is not None or tensor_cores) and c // num_heads > MAX_HEAD_DIM:
-        raise ValueError(f"head width {c // num_heads} > {MAX_HEAD_DIM}")
-    if dy is not None and q.dtype == torch.float32 and (
-            (c // num_heads) % 4 or (residual is not None and c > F32_MAX_C)):
-        raise ValueError(f"K2 in float32 takes a head width that is a multiple of 4 and C at "
-                         f"most {F32_MAX_C}, got {c // num_heads} and {c}")
-    if dy is None and tensor_cores:
+    dh = c // num_heads
+    path = k1_path(q.dtype, dh) if dy is None else k2_path(q.dtype, dh, tk, c, num_heads)
+    if dy is None and path == "tensor-core":
         need = smem_bytes_tc(tq, tk, c, num_heads)
-    elif dy is None and k1_path(q.dtype, c // num_heads) == "f32":
+    elif dy is None and path == "f32":
         need = smem_bytes_f32(tq, tk, c, num_heads)
     elif dy is None:
         need = smem_bytes(tq, tk, c, num_heads)
-    elif tensor_cores:
+    elif path == "tensor-core":
         need = smem_bytes_bwd_tc(tk, c, num_heads)
-    elif q.dtype == torch.float32:
+    elif path == "f32":
         need = smem_bytes_bwd_f32(tq, c, num_heads)
     else:
         need = smem_bytes_bwd(tq, tk, c, num_heads)
     if need > SMEM_LIMIT:
         raise ValueError(f"shapes need {need} bytes of shared memory")
+
+
+def _q_tile(path: str, b: int, tq: int, tk: int, c: int, num_heads: int) -> int:
+    """The C entries' ``q_tile`` on K1's ``path``: the SIMT kernel's
+    :func:`simt_rows`, the f32 kernel's :func:`f32_plan` rows (the
+    tensor-core kernels ignore it)."""
+    if path == "simt":
+        return simt_rows(tq, tk, c, num_heads)
+    return f32_plan(b, num_heads, tq, tk)[0]
 
 
 def _launch(q, k, v, key_mask, query_mask, graph, residual, gamma, beta,
@@ -452,7 +526,7 @@ def _launch(q, k, v, key_mask, query_mask, graph, residual, gamma, beta,
             gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
             None if o is None else o.data_ptr(),
             b, tq, tk, c, num_heads, RENORMS.index(renorm), _DTYPES[q.dtype],
-            K1_PATHS.index(path), f32_plan(b, num_heads, tq, tk)[0],
+            K1_PATHS.index(path), _q_tile(path, b, tq, tk, c, num_heads),
             1.0 / (c // num_heads) ** 0.5, stream,
         )
     _build.check(status, "graph_attention_ln kernel")
@@ -470,8 +544,8 @@ def _launch_bwd(q, k, v, key_mask, query_mask, graph, residual, gamma, beta, dy,
     b, tq, c = q.shape
     tk = k.shape[1]
     dh = c // num_heads
-    tensor_cores = kernel_path(q.dtype, dh) == "tensor-core"
-    row_tile = bwd_row_tile(q.dtype, dh, tq)
+    path = k2_path(q.dtype, dh, tk, c, num_heads)
+    row_tile = bwd_row_tile(q.dtype, dh, tq, tk, c, num_heads)
     tiles = -(-tq // row_tile)
     dq, dres = torch.empty_like(q), torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -483,7 +557,7 @@ def _launch_bwd(q, k, v, key_mask, query_mask, graph, residual, gamma, beta, dy,
     # per-tile dgamma/dbeta partials, summed here
     partials = torch.empty(b * tiles, 2, c, dtype=torch.float32, device=q.device)
     do = None
-    if not tensor_cores:
+    if path != "tensor-core":
         do = torch.empty(b, tq, c, dtype=torch.float32, device=q.device)
     stats = torch.empty(b, num_heads, tq, N_STATS, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -495,7 +569,7 @@ def _launch_bwd(q, k, v, key_mask, query_mask, graph, residual, gamma, beta, dy,
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dres.data_ptr(),
             partials.data_ptr(), None if do is None else do.data_ptr(), stats.data_ptr(),
             b, tq, tk, c, num_heads, RENORMS.index(renorm), _DTYPES[q.dtype],
-            int(tensor_cores), row_tile, 1.0 / dh ** 0.5, stream,
+            K2_PATHS.index(path), row_tile, 1.0 / dh ** 0.5, stream,
         )
     _build.check(status, "graph_attention_ln_bwd kernel")
     fused_graph_attention_ln_bwd.launches += 1
@@ -580,14 +654,14 @@ def _launch_heads(q, k, v, key_mask, query_mask, graph, num_heads: int,
     b, tq, c = q.shape
     tk = k.shape[1]
     dh = c // num_heads
+    path = path or k1_path(q.dtype, dh)
     o = torch.empty(b, tq, c, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(),
                     query_mask.data_ptr(), graph.data_ptr(), o.data_ptr(), b, tq, tk, c,
-                    num_heads, RENORMS.index(renorm), _DTYPES[q.dtype],
-                    K1_PATHS.index(path or k1_path(q.dtype, dh)),
-                    f32_plan(b, num_heads, tq, tk)[0], 1.0 / dh ** 0.5, stream)
+                    num_heads, RENORMS.index(renorm), _DTYPES[q.dtype], K1_PATHS.index(path),
+                    _q_tile(path, b, tq, tk, c, num_heads), 1.0 / dh ** 0.5, stream)
     _build.check(status, "graph_attention kernel")
     graph_attention_heads.launches += 1
     return o
@@ -599,11 +673,12 @@ def _launch_heads_bwd(q, k, v, key_mask, query_mask, graph, do, num_heads: int,
     lib = _build.library("graph_attention_bwd")
     fn = lib.savqa_graph_attention_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
     b, tq, c = q.shape
     tk = k.shape[1]
     dh = c // num_heads
-    tensor_cores = kernel_path(q.dtype, dh) == "tensor-core"
+    path = k2_path(q.dtype, dh, tk, c, num_heads)
+    tensor_cores = path == "tensor-core"
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # scratch between the launches: the row constants and, but for the
     # tensor-core kernels, an f32 (B, Tq, C): dO widened to f32 for the bf16
@@ -617,7 +692,8 @@ def _launch_heads_bwd(q, k, v, key_mask, query_mask, graph, do, num_heads: int,
                     query_mask.data_ptr(), graph.data_ptr(), do.data_ptr(), dq.data_ptr(),
                     dk.data_ptr(), dv.data_ptr(), None if dout is None else dout.data_ptr(),
                     stats.data_ptr(), b, tq, tk, c, num_heads, RENORMS.index(renorm),
-                    _DTYPES[q.dtype], int(tensor_cores), 1.0 / dh ** 0.5, stream)
+                    _DTYPES[q.dtype], K2_PATHS.index(path),
+                    bwd_row_tile(q.dtype, dh, tq, tk, c, num_heads), 1.0 / dh ** 0.5, stream)
     _build.check(status, "graph_attention_bwd kernel")
     graph_attention_heads_bwd.launches += 1
     return dq, dk, dv

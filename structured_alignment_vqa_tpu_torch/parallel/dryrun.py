@@ -2,7 +2,8 @@
 counterpart of the TPU package's ``__graft_entry__.py:dryrun_multichip``).
 
 ``dryrun_multichip(n)`` starts ``n`` processes that form a gloo group (on
-the CPU, or on one card with ``device="cuda:0"``), each holding its rows of
+one card, ``cuda:0``, unless the caller asks for the CPU with
+``device="cpu"``), each holding its rows of
 one global batch at tiny widths with all three graph stages (stage
 boundaries 1 and 2 of 3 blocks), both MIL-NCE branches and the shared
 GloVe table. Each rank takes one dense step and, from the same weights,
@@ -15,7 +16,7 @@ grid of (data, seq, model), each holding its shard of the split parameters
 grid and its parameter bytes beside one process's, and the states compared
 are gathered whole. ::
 
-    python -m structured_alignment_vqa_tpu_torch.parallel.dryrun --n 2 [--model 2] [--device cuda:0]
+    python -m structured_alignment_vqa_tpu_torch.parallel.dryrun --n 2 [--model 2] [--device cpu]
 
 :func:`launch_local` starts and watches such processes; the tests and
 ``chip_smoke.py`` use it for their own workers.
@@ -34,6 +35,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
+from structured_alignment_vqa_tpu_torch.device import resolve_device
 from structured_alignment_vqa_tpu_torch.parallel.mesh import free_ports
 
 # the TPU package's dry-run model (__graft_entry__.py), dropout off so that
@@ -182,13 +184,17 @@ def _worker(argv: List[str]) -> None:
         shutdown(mesh)
 
 
-def dryrun_multichip(n_ranks: int = 2, device: str = "cpu", timeout: float = 300,
+def dryrun_multichip(n_ranks: int = 2, device: "str | None" = None, timeout: float = 300,
                      model_parallel: int = 1) -> dict:
-    """The dry run (module docstring); returns :func:`step_errors` of rank 0
-    against the single process per step, and raises ``RuntimeError`` when
-    the ranks disagree with each other or an error exceeds its tolerance.
-    With ``model_parallel`` > 1 it prints each rank's place in the grid and
-    its parameter bytes."""
+    """The dry run (module docstring) on ``device``, by default the card
+    (``cuda:0``; ``RuntimeError`` without one); returns :func:`step_errors`
+    of rank 0 against the single process per step, and raises
+    ``RuntimeError`` when the ranks disagree with each other or an error
+    exceeds its tolerance. With ``model_parallel`` > 1 it prints each rank's
+    place in the grid and its parameter bytes."""
+    if device is None:
+        resolve_device(None)   # raises without a card
+        device = "cuda:0"
     torch.backends.cuda.matmul.allow_tf32 = False
     with tempfile.TemporaryDirectory() as tmp:
         coordinator = f"127.0.0.1:{free_ports()[0]}"
@@ -246,7 +252,8 @@ def main(argv=None) -> None:
                                              "processes")
     ap.add_argument("--n", type=int, default=2)
     ap.add_argument("--model", type=int, default=1, help="the model axis's size")
-    ap.add_argument("--device", default="cpu")
+    ap.add_argument("--device", default=None,
+                    help="'cpu' runs the ranks on the CPU; by default they share cuda:0")
     a = ap.parse_args(argv)
     for case, row in dryrun_multichip(a.n, a.device, model_parallel=a.model).items():
         print(f"dryrun {case}: {row}")

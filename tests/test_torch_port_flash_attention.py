@@ -221,8 +221,13 @@ def test_no_gradient_needed_emits_the_output_alone(rng, monkeypatch):
 def test_wrapper_checks_refuse_what_the_kernels_do_not_take():
     q = torch.zeros(1, 4, 12)
     args = (q, q, q, torch.ones(1, 4), torch.ones(1, 4, 4))
-    with pytest.raises(ValueError, match="multiple of 4"):
-        flash._check(*args, 2, "l1", {})               # head width 6
+    flash._check(*args, 2, "l1", {})                   # head width 6: the SIMT kernels take it
+    wide = torch.zeros(1, 4, 528)
+    with pytest.raises(ValueError, match="head width 264"):
+        flash._check(wide, wide, wide, *args[3:], 2, "l1", {})
+    wide = torch.zeros(1, 4, 2056)
+    with pytest.raises(ValueError, match="at most 2048"):
+        flash._check(wide, wide, wide, *args[3:], 8, "l1", {})
     with pytest.raises(ValueError, match="renorm"):
         flash._check(*args, 3, "l2", {})
     with pytest.raises(TypeError, match="float32 or bfloat16"):

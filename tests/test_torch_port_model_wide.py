@@ -36,3 +36,12 @@ def test_width_512_forward_and_answers_match_jax():
     """bs 2 on the serving bucket (lv, lq, ls) = (36, 30, 98): the visual
     encoder runs at L 66, the symbolic at L 128."""
     assert_forward_matches(*build_pair(WIDE, True, False, batch=2, bucket=(36, 30, 98), seed=0))
+
+
+def test_width_768_with_12_heads_forward_and_answers_match_jax_pallas():
+    """Hidden 768 with 12 heads (head width 64: BERT-base's and LXMERT's
+    width), 2 blocks, bs 2: logits within 1e-4 of the JAX model running its
+    Pallas kernels in interpret mode (the K3 and K1 widths the port's
+    kernels take since the presets' 512)."""
+    kw = dict(WIDE, hidden_size=768, num_heads=12)
+    assert_forward_matches(*build_pair(kw, True, True, batch=2, bucket=(6, 5, 12), seed=0))
