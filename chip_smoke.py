@@ -26,7 +26,12 @@ Phases, each of which must pass:
    run only the f32 and LayerNorm kernels of csrc/graph_attention.cu; and
    at the widths beyond the presets', timed beside their bounds: C 2,048 at
    8 heads of 256 (the SIMT kernel, 8 rows a block at 512 keys), L 128 and
-   512, B 8, bf16 and f32, and a head of 33 (C 99) untimed;
+   512, B 8, bf16 and f32, and a head of 33 (C 99) untimed; above that old
+   domain, from a generator of their own (so every row before them sees the
+   inputs it saw), at B 4, L 128 and 450, C 4,096 with 32 heads of 128 (the
+   tensor-core and f32 kernels, the LayerNorm at C 4,096) and with 8 heads
+   of 512, and C 2,560 with 8 heads of 320 (the wide path: the wide K4
+   kernel and the LayerNorm kernel, alone under torch.profiler), timed;
 4. K3 (FFN + LayerNorm) the same way at 16,384, 8,448 and 128 rows and at
    obj+rel's 6,144, 264 and 4 rows, at C 2,048 (3,136 rows), and in f32 at
    the variants' 64, 3,136, 6,336 and 19,200 rows and as the model axis's
@@ -39,7 +44,11 @@ Phases, each of which must pass:
    300 and 16 (the products path, its edge tiles and, at C 300, its bf16
    copies element by element) in both dtypes, timed, at C 33 (1,000 rows,
    odd widths everywhere) untimed, and the model axis's partial and
-   epilogue at C 768;
+   epilogue at C 768; above the old domain (their own generator) at 4,096
+   rows of C 2,056, 4,096 and 8,192 with hidden width 4C (the row kernel's
+   LayerNorm; at C 4,096 under torch.profiler), timed, at C 4,100 and at
+   64 rows of C 60,000 with hidden width 64 (the row kernel's unstaged
+   passes) untimed, and the model axis's entries at C 4,096;
 5. K2 (the backward of K1) against its plain PyTorch version at K1's
    shapes, bf16 and f32, both renorms, with all-zero graph rows and masked
    keys; in f32 also against torch.autograd of K1's plain version; each line
@@ -51,7 +60,11 @@ Phases, each of which must pass:
    only the f32 kernels of csrc/graph_attention_bwd.cu; at K1's wide
    shapes (the SIMT kernels, bf16 and f32), at C 2,048 with 16 heads in bf16
    (the SIMT kernels: the tensor-core rows launch does not fit there), timed,
-   and at a head of 33 untimed;
+   and at a head of 33 untimed; at K1's shapes above the old domain: C
+   4,096 with 32 heads (bf16 the SIMT kernels, f32 its f32 kernels with the
+   LayerNorm backward that reads rows in chunks), 8 heads of 512 and C 2,560
+   with 8 of 320 (the wide path), timed, one f32 call of each design under
+   torch.profiler;
 6. the serving forward at full width (hidden 512, 6 blocks, 8 heads, 1,843
    classes, 407,000-row shared GloVe table, bf16, random weights from a seed)
    on five requests of 128 questions, bucket (lv, lq, ls) = (36, 30, 98):
@@ -68,13 +81,6 @@ Phases, each of which must pass:
    params and the Adam state bitwise as they were; and the device-time
    breakdown of one bf16 step and of one f32 step (the training CLI's
    default compute), with the f32 step's rate;
-7a. the widths phase (``widths``): the obj-only model at hidden 768 with 12
-   heads (head width 64), full width otherwise: one bf16 request at bs 128
-   whose K1 and K3 launches must be the 512-wide request's (24 each), the
-   same weights' f32 logits against the plain path (1e-3, the plain path
-   taking the kernel path's decisions), one f32 training step at bs 32
-   against the plain path (3e-2 of each gradient's norm), the request's
-   pairs/s and the step's steps/s as information;
 8. K4 (the flash graph attention) against its plain PyTorch version, bf16
    and f32, both renorms, every ``emit``, at B 4, C 512, 8 heads:
    self-attention at L 1,536 with ragged valid lengths and at L 1,506 + 30
@@ -89,7 +95,9 @@ Phases, each of which must pass:
    which kernel and split the shape took; a bf16 shape with 701 keys checks
    the tensor-core kernel's unaligned graph copies; at head widths 256 (C
    2,048, 8 heads) and 50 (C 300, 6 heads), L 1,536, B 2, bf16 and f32 (the
-   SIMT kernel), timed, and 33 (C 99, L 600) untimed;
+   SIMT kernel), timed, and 33 (C 99, L 600) untimed; above the old domain
+   (their own generator) at head widths 320 (C 2,560) and 512 (C 4,096), 8
+   heads, the wide kernel, timed beside SDPA;
 9. K5 and K6 (its backward: dQ, and dK with dV) on the same inputs against
    their plain versions; in f32 also against torch.autograd of the eager
    ``attention_core``; each line says which kernels the shape took and how
@@ -99,7 +107,20 @@ Phases, each of which must pass:
    a head width of 8 through the SIMT kernels, and a bf16 shape with 701
    keys checks the tensor-core kernels' unaligned graph copies; at K4's
    wide shapes (the SIMT kernels, 32 query rows a block or step at head
-   width 256), timed, and at a head of 33 untimed;
+   width 256), timed, and at a head of 33 untimed; at K4's shapes above the
+   old domain (the wide kernels), timed;
+9a. the widths phase (``widths``, after K5 and K6: run before K4, its
+   hidden-4,096 point was followed by torch.profiler sessions of K4-K6 at
+   L 1,536 that saw no device kernel): the obj-only model at hidden 768 with 12
+   heads (head width 64) and at hidden 4,096 with 32 heads (head width 128,
+   K1's LayerNorm and K3 at C 4,096 with hidden width 16,384), full width
+   otherwise: one bf16 request at bs 128 whose K1 and K3 launches must be
+   the 512-wide request's (24 each), the same weights' f32 logits against
+   the plain path (1e-3, the plain path taking the kernel path's
+   decisions), one f32 training step at bs 32 against the plain path (3e-2
+   of each gradient's norm; at hidden 4,096 at 2 blocks, whose f32 weights,
+   gradients and Adam moments fit the card where 6 blocks' do not), the
+   request's pairs/s and the step's steps/s as information;
 10. the obj+rel model at full width (``only_obj=False``, maxlen 1600,
     hidden_size_mil 64, 310 relations, otherwise as above) serving five
     requests of 4 questions at bucket (lv, ls, lq) = (36, 1506, 30), the
@@ -377,9 +398,29 @@ K2_WIDE16_SHAPES = (("C=2048 H=16 L=128 B=8", 128, 128, 16),
 FLASH_WIDE_B = 2
 FLASH_WIDE_SHAPES = (("C=2048 H=8 L=1536 B=2", 2048, 8), ("C=300 H=6 L=1536 B=2", 300, 6))
 K3_WIDE_CS = (384, 768, 1024, 300, 16)
+# the widths above that domain (C 2,048, head width 256, FFN hidden 8,192):
+# K1 and K2 at B 4, L 128 and 450, at C 4,096 with 32 heads of 128 (the
+# hidden-4,096 point's: the tensor-core and f32 kernels per head, the
+# LayerNorm at C 4,096), with 8 heads of 512 and at C 2,560 with 8 heads of
+# 320 (the wide path); K4-K6 at B 2, L 1,536, head widths 320 and 512 (the
+# wide kernels); K3 at 4,096 rows of C 2,056 (just past the old edge), 4,096
+# and 8,192 with hidden width 4C, an odd C of 4,100 (checked, not timed) and
+# 64 rows of C 60,000 with hidden width 64 (the row kernel past the row it
+# stages in shared memory; checked, not timed)
+BEYOND_B = 4
+K12_BEYOND_SHAPES = tuple((f"C={c} H={h} L={t} B={BEYOND_B}", t, t, h, c)
+                          for c, h in ((4096, 32), (4096, 8), (2560, 8)) for t in (128, 450))
+FLASH_BEYOND_SHAPES = (("C=2560 H=8 L=1536 B=2", 2560, 8), ("C=4096 H=8 L=1536 B=2", 4096, 8))
+K3_BEYOND_ROWS, K3_BEYOND_CS, K3_ODD_C = 4096, (2056, 4096, 8192), 4100
+K3_UNSTAGED = (64, 60000, 64)   # rows, C, hidden width
 # the widths phase: obj-only at hidden 768 with 12 heads (BERT-base's and
 # LXMERT's width, arXiv 1908.07490), full width otherwise
 WIDTHS_HIDDEN, WIDTHS_HEADS, WIDTHS_TRAIN_B = 768, 12, 32
+# and at hidden 4,096 with 32 heads (LLaMA-7B's width and heads, arXiv
+# 2302.13971 Table 2): 5.29 B parameters at 6 blocks, so its f32 training
+# step runs at 2 blocks (stages 1 and 2), whose weights, gradients and
+# Adam's two moments (31 GB) fit the card where 6 blocks' (85 GB) do not
+WIDTHS_4K_HIDDEN, WIDTHS_4K_HEADS, WIDTHS_4K_TRAIN_BLOCKS = 4096, 32, 2
 WIDE_C = 2048   # the region features' width: x2_fusion_dec_mil2's alignment blocks
 # K1, K3 and K4 launches and plain attention_core calls (attention weights
 # out, or no renorm: x2_mlp_dec's vanilla decoder cross-attention) of one
@@ -711,25 +752,52 @@ def k1_phase(gen) -> dict:
                                     heads))
         k1_against_plain("self L=65 B=4 C=99 heads=3", k1_inputs(gen, 65, 65, dtype, REL_B, c=99),
                          3)
+    beyond = beyond_gen()
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, tq, tk, heads, c in K12_BEYOND_SHAPES:
+            args = k1_inputs(beyond, tq, tk, dtype, BEYOND_B, c=c)
+            want = k1_beyond_path(dtype, c // heads)
+            rows.append(k1_wide_row(label, args, heads, want))
+            if dtype == torch.float32 and (c // heads, tq) == (512, 128):
+                device_kernels_only(lambda: k1.fused_graph_attention_ln(*args, heads, "l1"),
+                                    f"K1 {label} {dtype}", K1_WIDE_KERNELS,
+                                    "the wide K4 kernel and K1's LayerNorm kernel")
+            del args
+            torch.cuda.empty_cache()
     return {r["label"] + str(r["dtype"]): r for r in rows}
 
 
-def k1_wide_row(label: str, args, heads: int) -> dict:
-    """K1 at a width beyond the presets': its kernel against the plain
-    version, timed beside its bound."""
+# the wide path of K1: the wide K4 kernel (emit 3), then K1's LayerNorm kernel
+K1_WIDE_KERNELS = ("flash_graph_attention_wide_kernel", "graph_attention_ln_epilogue_kernel")
+
+
+def k1_beyond_path(dtype, head_dim: int) -> str:
+    """The K1 path a shape above the old domain must take: the tensor-core
+    (bf16) or f32 kernel at head width 128, else the wide path."""
+    if head_dim == 128:
+        return "tensor-core" if dtype == torch.bfloat16 else "f32"
+    return "wide"
+
+
+def k1_wide_row(label: str, args, heads: int, want: str = "simt") -> dict:
+    """K1 at a width beyond the presets': its kernel (the path ``want``
+    names) against the plain version, timed beside its bound."""
     from structured_alignment_vqa_tpu_torch.ops import fused_graph_attention as k1
 
     q, k = args[0], args[1]
     b, tq, c = q.shape
     tk, dtype = k.shape[1], q.dtype
-    path = k1.k1_path(dtype, c // heads)
+    path = k1.k1_path(dtype, c // heads, tk, c)
+    check(path == want, f"K1 {label} {dtype}: head width {c // heads} takes the {path} kernel")
     err = k1_against_plain(label, args, heads)
     ms = time_ms(lambda: k1.fused_graph_attention_ln(*args, heads, "l1"))
     plain_ms = time_ms(lambda: k1.graph_attention_ln_plain(*args, heads, "l1"), iters=5)
     size = torch.finfo(dtype).bits // 8
     nbytes = size * b * c * (3 * tq + 2 * tk) + 4 * b * (tq + tk + tq * tk) + 8 * c
     bound_ms, bound_by = bound(nbytes, 4.0 * b * tq * tk * c, dtype)
-    print(f"K1 {label} {dtype}: {path} kernel ({k1.simt_rows(tq, tk, c, heads)} rows a block), "
+    how = {"simt": f"{k1.simt_rows(tq, tk, c, heads)} rows a block",
+           "wide": f"scores computed {-(-(c // heads) // 256)} time(s)"}.get(path, "per head")
+    print(f"K1 {label} {dtype}: {path} kernel ({how}), "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by})",
           flush=True)
     return dict(label=label, dtype=dtype, err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -813,54 +881,49 @@ def k3_phase(gen) -> dict:
     shapes += [(VARIANT_B * VARIANT_LV, WIDE_C, both), (1001, WIDE_C, both)]
     shapes += [(n, C, (torch.float32,)) for n in VARIANT_K3_ROWS]
     shapes += [(16384, c, both) for c in K3_WIDE_CS] + [(1000, 33, both)]
+
+    def run(gen, n: int, c: int, dtype) -> None:
+        """K3 at n rows of C (hidden 4C) against its plain version; timed
+        and kept in ``rows`` unless the rows are ragged or C odd."""
+        hidden = 4 * c
+        args = k3_inputs(gen, n, c, dtype)
+        got = k3.fused_ffn(*args)
+        want = k3.ffn_ln_plain(*args)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        n_split = k3.kernel_ffn_split(dtype, n, c, hidden)[0]
+        path = k3_path(dtype, n, c)
+        label = f"rows={n}" if c == C else f"rows={n} C={c}"
+        check(err <= TOL[dtype] and bool(torch.isfinite(got.float()).all()),
+              f"K3 {label} {dtype}: {path}, hidden width in {n_split} shard(s), "
+              f"max|kernel-plain| {err:.3g} <= {TOL[dtype]:g}")
+        if n in (1000, 1001):   # ragged tiles and odd widths: checked, not timed
+            return
+        if (n, c) in ((16384, C), (VARIANT_B * VARIANT_LV, WIDE_C), (K3_BEYOND_ROWS, 4096)) and (
+                dtype == torch.float32 or c != C):
+            k3_device_kernels(lambda: k3.fused_ffn(*args), f"{label} {dtype}")
+        ms = time_ms(lambda: k3.fused_ffn(*args))
+        plain_ms = time_ms(lambda: k3.ffn_ln_plain(*args))
+        size = torch.finfo(dtype).bits // 8
+        nbytes = size * (2 * n * c + 2 * c * hidden + hidden + c) + 8 * c
+        bound_ms, bound_by = bound(nbytes, 4.0 * n * c * hidden, dtype)
+        print(f"K3 {label} {dtype}: {path}, {n_split} shard(s), {ms:.4f} ms"
+              f"{previous('K3', label, dtype)}, plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms * 1e3:.2f} us ({bound_by})", flush=True)
+        rows.append(dict(label=label, dtype=dtype, err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         wide=c in K3_WIDE_CS + K3_BEYOND_CS))
+
     for dtype in both:
         for n, c, dtypes in shapes:
-            if dtype not in dtypes:
-                continue
-            hidden = 4 * c
-            args = k3_inputs(gen, n, c, dtype)
-            got = k3.fused_ffn(*args)
-            want = k3.ffn_ln_plain(*args)
-            torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            n_split = k3.kernel_ffn_split(dtype, n, c, hidden)[0]
-            path = k3_path(dtype, n, c)
-            label = f"rows={n}" if c == C else f"rows={n} C={c}"
-            check(err <= TOL[dtype] and bool(torch.isfinite(got.float()).all()),
-                  f"K3 {label} {dtype}: {path}, hidden width in {n_split} shard(s), "
-                  f"max|kernel-plain| {err:.3g} <= {TOL[dtype]:g}")
-            if n in (1000, 1001):   # ragged tiles and odd widths: checked, not timed
-                continue
-            if (n, c) in ((16384, C), (VARIANT_B * VARIANT_LV, WIDE_C)) and (
-                    dtype == torch.float32 or c == WIDE_C):
-                k3_device_kernels(lambda: k3.fused_ffn(*args), f"{label} {dtype}")
-            ms = time_ms(lambda: k3.fused_ffn(*args))
-            plain_ms = time_ms(lambda: k3.ffn_ln_plain(*args))
-            size = torch.finfo(dtype).bits // 8
-            nbytes = size * (2 * n * c + 2 * c * hidden + hidden + c) + 8 * c
-            bound_ms, bound_by = bound(nbytes, 4.0 * n * c * hidden, dtype)
-            print(f"K3 {label} {dtype}: {path}, {n_split} shard(s), {ms:.4f} ms"
-                  f"{previous('K3', label, dtype)}, plain {plain_ms:.4f} ms, "
-                  f"bound {bound_ms * 1e3:.2f} us ({bound_by})", flush=True)
-            rows.append(dict(label=label, dtype=dtype, err=err, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound_ms, bound_by=bound_by, wide=c in K3_WIDE_CS))
+            if dtype in dtypes:
+                run(gen, n, c, dtype)
 
     # the model axis's entries at a width beyond the presets': C 768, a
-    # model-2 rank's hidden shard of 1,536, both dtypes (not timed)
+    # model-2 rank's hidden shard of 1,536, both dtypes (not timed; C 4,096
+    # with a shard of 8,192 below)
     for dtype in both:
-        x, w1, b1, w2, b2, gamma, beta = k3_inputs(gen, 3000, 768, dtype, 1536)
-        part, part_plain = k3.ffn_partial(x, w1, b1, w2), k3.ffn_partial_plain(x, w1, b1, w2)
-        out = k3.ffn_epilogue(part, x, b2, gamma, beta)
-        out_plain = k3.ffn_epilogue_plain(part, x, b2, gamma, beta)
-        torch.cuda.synchronize()
-        e_part = rel_err(part, part_plain)
-        e_out = (out.float() - out_plain.float()).abs().max().item()
-        check(e_part <= K2_TOL[dtype] and e_out <= TOL[dtype]
-              and bool(torch.isfinite(out.float()).all()),
-              f"K3 partial + epilogue rows=3000 C=768 hidden=1536 {dtype}: "
-              f"{k3_path(dtype, 3000, 768, 1536)}, partial max|kernel-plain|/max|plain| "
-              f"{e_part:.3g} <= {K2_TOL[dtype]:g}, epilogue max|kernel-plain| {e_out:.3g} <= "
-              f"{TOL[dtype]:g}")
+        k3_model_axis(gen, 768, 1536, dtype)
 
     # the model axis's f32 partial of a hidden shard: 16,384 rows, shard 1,024
     dtype, n, hidden = torch.float32, MODEL_ROWS, MODEL_HIDDEN
@@ -882,7 +945,55 @@ def k3_phase(gen) -> dict:
           f"bound {bound_ms * 1e3:.2f} us ({bound_by})", flush=True)
     rows.append(dict(label=label, dtype=dtype, err=err, ms=ms, plain_ms=plain_ms,
                      bound_ms=bound_ms, bound_by=bound_by))
+    del x, w1, b1, w2, got, want
+
+    # above the old domain, from a generator of their own (the rows above
+    # see the inputs they saw before these were added)
+    beyond = beyond_gen()
+    for dtype in both:
+        for n, c in [(K3_BEYOND_ROWS, c) for c in K3_BEYOND_CS] + [(1000, K3_ODD_C)]:
+            run(beyond, n, c, dtype)
+            torch.cuda.empty_cache()
+    for dtype in both:
+        k3_model_axis(beyond, 4096, 8192, dtype)
+    # C 60,000 with a hidden width of 64: the row kernel's rows pass what it
+    # stages in shared memory, so each of its passes forms them again
+    n, c, hidden = K3_UNSTAGED
+    for dtype in both:
+        args = k3_inputs(beyond, n, c, dtype, hidden)
+        got, want = k3.fused_ffn(*args), k3.ffn_ln_plain(*args)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        check(err <= TOL[dtype] and bool(torch.isfinite(got.float()).all()),
+              f"K3 rows={n} C={c} hidden={hidden} {dtype}: {k3_path(dtype, n, c, hidden)}, "
+              f"max|kernel-plain| {err:.3g} <= {TOL[dtype]:g}")
     return {r["label"] + str(r["dtype"]): r for r in rows}
+
+
+def k3_model_axis(gen, c: int, hidden: int, dtype) -> None:
+    """The model axis's K3 entries at 3,000 rows of C with a rank's hidden
+    shard: the partial against its plain version, then the epilogue on it."""
+    from structured_alignment_vqa_tpu_torch.ops import fused_ffn as k3
+
+    x, w1, b1, w2, b2, gamma, beta = k3_inputs(gen, 3000, c, dtype, hidden)
+    part, part_plain = k3.ffn_partial(x, w1, b1, w2), k3.ffn_partial_plain(x, w1, b1, w2)
+    out = k3.ffn_epilogue(part, x, b2, gamma, beta)
+    out_plain = k3.ffn_epilogue_plain(part, x, b2, gamma, beta)
+    torch.cuda.synchronize()
+    e_part = rel_err(part, part_plain)
+    e_out = (out.float() - out_plain.float()).abs().max().item()
+    check(e_part <= K2_TOL[dtype] and e_out <= TOL[dtype]
+          and bool(torch.isfinite(out.float()).all()),
+          f"K3 partial + epilogue rows=3000 C={c} hidden={hidden} {dtype}: "
+          f"{k3_path(dtype, 3000, c, hidden)}, partial max|kernel-plain|/max|plain| "
+          f"{e_part:.3g} <= {K2_TOL[dtype]:g}, epilogue max|kernel-plain| {e_out:.3g} <= "
+          f"{TOL[dtype]:g}")
+
+
+def beyond_gen() -> torch.Generator:
+    """The generator of a kernel phase's rows above the old domain, apart
+    from the one its other rows draw from."""
+    return torch.Generator(device="cuda").manual_seed(4321)
 
 
 def k2_inputs(gen, tq: int, tk: int, dtype, B: int = B, c: int = C):
@@ -1007,18 +1118,48 @@ def k2_phase(gen) -> dict:
         args, dy = k2_inputs(gen, 65, 65, dtype, REL_B, c=99)
         for renorm in ("l1", "sum_eps"):
             k2_against_plain("self L=65 B=4 C=99 heads=3", args, dy, 3, renorm)
+    beyond = beyond_gen()
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, tq, tk, heads, c in K12_BEYOND_SHAPES:
+            args, dy = k2_inputs(beyond, tq, tk, dtype, BEYOND_B, c=c)
+            want = {"tensor-core": "simt"}.get(k1_beyond_path(dtype, c // heads),
+                                               k1_beyond_path(dtype, c // heads))
+            rows.append(k2_wide_row(label, args, dy, heads, want))
+            if dtype == torch.float32 and (c // heads, tq) in ((512, 128), (128, 128)):
+                kernels = K2_WIDE_KERNELS if c // heads == 512 else K2_F32_WIDE_C_KERNELS
+                device_kernels_only(
+                    lambda: k1.fused_graph_attention_ln_bwd(*args, dy, heads, "l1"),
+                    f"K2 {label} {dtype}", kernels + ("elementwise", "reduce"),
+                    "K2's kernels for this width (and torch's sums of the partials and of "
+                    "dO . o)")
+            del args, dy
+            torch.cuda.empty_cache()
     return {r["label"] + str(r["dtype"]): r for r in rows}
 
 
-def k2_wide_row(label: str, args, dy, heads: int) -> dict:
-    """K2 at a width beyond the presets': against its plain version in both
-    renorms, timed beside its bound."""
+# K2's wide path: the wide K4 kernel (o and its statistics), the LayerNorm
+# backward that reads rows in chunks, the wide K5 and K6
+K2_WIDE_KERNELS = ("flash_graph_attention_wide_kernel", "graph_attention_ln_bwd_ln_wide_kernel",
+                   "flash_graph_attention_bwd_dq_wide_kernel",
+                   "flash_graph_attention_bwd_dkv_wide_kernel")
+# K2's f32 kernels above C 2,048: the LayerNorm backward is the wide one
+K2_F32_WIDE_C_KERNELS = ("graph_attention_ln_bwd_fwd_f32_kernel",
+                         "graph_attention_ln_bwd_ln_wide_kernel",
+                         "graph_attention_ln_bwd_dq_f32_kernel",
+                         "graph_attention_ln_bwd_dkv_f32_kernel")
+
+
+def k2_wide_row(label: str, args, dy, heads: int, want: str = "simt") -> dict:
+    """K2 at a width beyond the presets': its design (the one ``want``
+    names) against its plain version in both renorms, timed beside its
+    bound."""
     from structured_alignment_vqa_tpu_torch.ops import fused_graph_attention as k1
 
     q, k = args[0], args[1]
     b, tq, c = q.shape
     tk, dtype = k.shape[1], q.dtype
     path = k1.k2_path(dtype, c // heads, tk, c, heads)
+    check(path == want, f"K2 {label} {dtype}: head width {c // heads} takes the {path} kernels")
     err = rel = 0.0
     for renorm in ("l1", "sum_eps"):
         _, r, e = k2_against_plain(label, args, dy, heads, renorm)
@@ -1166,32 +1307,42 @@ def k4_phase(gen) -> dict:
     # kernel copies its tiles 4 bytes at a time
     k4_against_plain("odd keys Tq=70 Tk=701",
                      flash_inputs(gen, "odd keys", 70, 701, torch.bfloat16), HEADS)
+    def wide_row(g, label: str, c: int, heads: int, dtype, want: str) -> None:
+        args = flash_inputs(g, "self L=1536", REL_L, REL_L, dtype, c, FLASH_WIDE_B)
+        path = fl.k4_path(dtype, c // heads)
+        check(path == want, f"K4 {label} {dtype}: head width {c // heads} takes the "
+              f"{path} kernel")
+        err = k4_against_plain(label, args, heads)
+        ms = time_ms(lambda: fl.flash_graph_attention(*args, heads, "l1"), iters=5)
+        plain_ms = time_ms(lambda: fl.flash_graph_attention_plain(*args, heads, "l1"),
+                           iters=3)
+        size = torch.finfo(dtype).bits // 8
+        b, t = FLASH_WIDE_B, REL_L
+        nbytes = size * b * c * 4 * t + 4 * b * (t * t + 2 * t)
+        bound_ms, bound_by = bound(nbytes, 4.0 * b * t * t * c, dtype)
+        library_ms, library_err = sdpa_yardstick(args, heads)
+        recompute = (f", scores computed {fl.wide_chunks(c // heads)} times"
+                     if path == "wide" else "")
+        print(f"K4 {label} {dtype}: {path} kernel{recompute}, {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, "
+              f"SDPA with the graph as a boolean mask {library_ms:.4f} ms (max|K4 - SDPA| on "
+              f"rows with a neighbour {library_err:.3g}), bound {bound_ms * 1e3:.2f} us "
+              f"({bound_by})", flush=True)
+        rows.append(dict(label=label, dtype=dtype, err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                         wide=True))
+
     for dtype in (torch.bfloat16, torch.float32):
         for label, c, heads in FLASH_WIDE_SHAPES:
-            args = flash_inputs(gen, "self L=1536", REL_L, REL_L, dtype, c, FLASH_WIDE_B)
-            path = fl.k4_path(dtype, c // heads)
-            check(path == "simt", f"K4 {label} {dtype}: head width {c // heads} takes the "
-                  f"{path} kernel")
-            err = k4_against_plain(label, args, heads)
-            ms = time_ms(lambda: fl.flash_graph_attention(*args, heads, "l1"), iters=5)
-            plain_ms = time_ms(lambda: fl.flash_graph_attention_plain(*args, heads, "l1"),
-                               iters=3)
-            size = torch.finfo(dtype).bits // 8
-            b, t = FLASH_WIDE_B, REL_L
-            nbytes = size * b * c * 4 * t + 4 * b * (t * t + 2 * t)
-            bound_ms, bound_by = bound(nbytes, 4.0 * b * t * t * c, dtype)
-            library_ms, library_err = sdpa_yardstick(args, heads)
-            print(f"K4 {label} {dtype}: {path} kernel, {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"SDPA with the graph as a boolean mask {library_ms:.4f} ms (max|K4 - SDPA| on "
-                  f"rows with a neighbour {library_err:.3g}), bound {bound_ms * 1e3:.2f} us "
-                  f"({bound_by})", flush=True)
-            rows.append(dict(label=label, dtype=dtype, err=err, ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                             wide=True))
-            del args
+            wide_row(gen, label, c, heads, dtype, "simt")
             torch.cuda.empty_cache()
         k4_against_plain("self L=600 C=99 heads=3",
                          flash_inputs(gen, "self L=600", 600, 600, dtype, 99, FLASH_WIDE_B), 3)
+    beyond = beyond_gen()
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, c, heads in FLASH_BEYOND_SHAPES:
+            wide_row(beyond, label, c, heads, dtype, "wide")
+            torch.cuda.empty_cache()
     return {r["label"] + str(r["dtype"]): r for r in rows}
 
 
@@ -1338,38 +1489,50 @@ def k56_phase(gen) -> dict:
     args = flash_inputs(gen, "odd keys", 70, 701, torch.bfloat16)
     dy = torch.randn(REL_B, 70, C, generator=gen, device="cuda").to(torch.bfloat16)
     k56_against_plain("odd keys Tq=70 Tk=701", args, dy, HEADS)
+    def wide_row(g, label: str, c: int, heads: int, dtype, want: str) -> None:
+        b, t = FLASH_WIDE_B, REL_L
+        args = flash_inputs(g, "self L=1536", t, t, dtype, c, b)
+        dy = torch.randn(b, t, c, generator=g, device="cuda").to(dtype)
+        paths = (fl.dq_kernel(dtype, c // heads), fl.dkv_kernel(dtype, c // heads))
+        check(paths == (want, want), f"K5/K6 {label} {dtype}: head width {c // heads} "
+              f"takes the {paths[0]} kernels")
+        errs, abs_errs, bwd = k56_against_plain(label, args, dy, heads)
+        size = torch.finfo(dtype).bits // 8
+        stats_bytes = 4 * b * (t * t + t + 4 * heads * t)
+        for key, fn, plain, n_products, nbytes in (
+            ("K5", fl.flash_bwd_dq, fl.flash_bwd_dq_plain, 3,
+             size * b * c * 5 * t + stats_bytes),
+            ("K6", fl.flash_bwd_dkv, fl.flash_bwd_dkv_plain, 4,
+             size * b * c * 6 * t + stats_bytes),
+        ):
+            ms = time_ms(lambda: fn(*bwd), iters=5)
+            plain_ms = time_ms(lambda: plain(*bwd), iters=3)
+            bound_ms, bound_by = bound(nbytes, 2.0 * n_products * b * t * t * c, dtype)
+            if want == "wide":
+                how = (f"wide kernel (scores and dN computed {fl.wide_chunks(c // heads)} "
+                       f"times)")
+            else:
+                how = (f"simt kernel ({fl.simt_rows(c // heads)} query rows a "
+                       f"{'block' if key == 'K5' else 'step'})")
+            print(f"{key} {label} {dtype}: {how}, {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by})",
+                  flush=True)
+            rows.append(dict(kernel=key, label=label, dtype=dtype, err=abs_errs[key],
+                             rel_err=errs[key], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, wide=True))
+
     for dtype in (torch.bfloat16, torch.float32):
         for label, c, heads in FLASH_WIDE_SHAPES:
-            b, t = FLASH_WIDE_B, REL_L
-            args = flash_inputs(gen, "self L=1536", t, t, dtype, c, b)
-            dy = torch.randn(b, t, c, generator=gen, device="cuda").to(dtype)
-            paths = (fl.dq_kernel(dtype, c // heads), fl.dkv_kernel(dtype, c // heads))
-            check(paths == ("simt", "simt"), f"K5/K6 {label} {dtype}: head width {c // heads} "
-                  f"takes the {paths[0]} kernels")
-            errs, abs_errs, bwd = k56_against_plain(label, args, dy, heads)
-            size = torch.finfo(dtype).bits // 8
-            stats_bytes = 4 * b * (t * t + t + 4 * heads * t)
-            for key, fn, plain, n_products, nbytes in (
-                ("K5", fl.flash_bwd_dq, fl.flash_bwd_dq_plain, 3,
-                 size * b * c * 5 * t + stats_bytes),
-                ("K6", fl.flash_bwd_dkv, fl.flash_bwd_dkv_plain, 4,
-                 size * b * c * 6 * t + stats_bytes),
-            ):
-                ms = time_ms(lambda: fn(*bwd), iters=5)
-                plain_ms = time_ms(lambda: plain(*bwd), iters=3)
-                bound_ms, bound_by = bound(nbytes, 2.0 * n_products * b * t * t * c, dtype)
-                print(f"{key} {label} {dtype}: simt kernel ({fl.simt_rows(c // heads)} query "
-                      f"rows a {'block' if key == 'K5' else 'step'}), {ms:.4f} ms, plain "
-                      f"{plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by})",
-                      flush=True)
-                rows.append(dict(kernel=key, label=label, dtype=dtype, err=abs_errs[key],
-                                 rel_err=errs[key], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                 bound_by=bound_by, wide=True))
-            del args, bwd
+            wide_row(gen, label, c, heads, dtype, "simt")
             torch.cuda.empty_cache()
         args = flash_inputs(gen, "self L=600", 600, 600, dtype, 99, FLASH_WIDE_B)
         dy = torch.randn(FLASH_WIDE_B, 600, 99, generator=gen, device="cuda").to(dtype)
         k56_against_plain("self L=600 C=99 heads=3", args, dy, 3)
+    beyond = beyond_gen()
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, c, heads in FLASH_BEYOND_SHAPES:
+            wide_row(beyond, label, c, heads, dtype, "wide")
+            torch.cuda.empty_cache()
     return {r["kernel"] + r["label"] + str(r["dtype"]): r for r in rows}
 
 
@@ -2131,13 +2294,29 @@ def training_phase(card: str) -> dict:
 
 
 def widths_phase(card: str) -> dict:
-    """The obj-only model at hidden 768 with 12 heads (head width 64),
+    """The obj-only model at hidden 768 with 12 heads (head width 64) and at
+    hidden 4,096 with 32 heads (head width 128; K1's and K2's LayerNorm and
+    K3 at C 4,096 with hidden width 16,384, above the old domain),
     ``full_config`` otherwise (hidden_size_mil 1,024, 6 blocks, maxlen 450,
-    the 407,000 x 300 table, seeded weights): one bf16 request at bs 128
-    whose launches must be the 512-wide request's (24 K1, 24 K3: no FFN or
-    attention left the kernels), the same weights' f32 logits against the
-    plain path, and one f32 training step at bs 32 against the plain path,
-    each at the limits of the serving and training phases."""
+    the 407,000 x 300 table, seeded weights): :func:`widths_point` at each.
+    Returns the hidden-4,096 request's launches."""
+    widths_point(card, WIDTHS_HIDDEN, WIDTHS_HEADS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return widths_point(card, WIDTHS_4K_HIDDEN, WIDTHS_4K_HEADS,
+                        train_blocks=WIDTHS_4K_TRAIN_BLOCKS)
+
+
+def widths_point(card: str, hidden: int, heads: int, train_blocks: int = 0) -> dict:
+    """One bf16 request at bs 128 whose launches must be the 512-wide
+    request's (24 K1, 24 K3: no FFN or attention left the kernels), the same
+    weights' f32 logits against the plain path, and one f32 training step
+    at bs 32 (at ``train_blocks`` blocks, stages 1 and 2, where given)
+    against the plain path, each at the limits of the serving and training
+    phases; the request's pairs/s and a step's steps/s as information.
+    Where the step is cut to fewer blocks the f32 model is built after the
+    bf16 one is freed, from the same seed (the same f32 weights: the
+    parameters are f32 at either compute dtype), and checked to hold them."""
     from structured_alignment_vqa_tpu_torch.data.synthetic import synthetic_batch
     from structured_alignment_vqa_tpu_torch.parallel.train_step import (
         TrainState,
@@ -2146,8 +2325,8 @@ def widths_phase(card: str) -> dict:
     )
     from structured_alignment_vqa_tpu_torch.train.predict import make_predict_step
 
-    what = f"widths hidden {WIDTHS_HIDDEN} heads {WIDTHS_HEADS}"
-    cfg = full_config(hidden_size=WIDTHS_HIDDEN, num_heads=WIDTHS_HEADS)
+    what = f"widths hidden {hidden} heads {heads}"
+    cfg = full_config(hidden_size=hidden, num_heads=heads)
     model = random_model(cfg)
     batches = full_batches(cfg, 2)
     predict = make_predict_step(model)
@@ -2169,9 +2348,21 @@ def widths_phase(card: str) -> dict:
     print(f"{what} serving bf16 bs {B}: one request in {seconds:.4f} s = {B / seconds:.1f} "
           f"pairs/s on {card} (information only)", flush=True)
 
-    model32 = random_model(cfg.replace(compute_dtype=torch.float32))
-    model32.load_state_dict(model.state_dict())
-    del model, predict
+    if train_blocks:
+        held = [p.detach().flatten()[:64].clone() for p in model.parameters()]
+        del model, predict
+        gc.collect()
+        torch.cuda.empty_cache()
+        model32 = random_model(cfg.replace(compute_dtype=torch.float32))
+        same = all(torch.equal(p.detach().flatten()[:64], h)
+                   for p, h in zip(model32.parameters(), held))
+        check(same and len(held) == len(list(model32.parameters())),
+              f"{what}: the f32 model built from the same seed holds the bf16 model's weights")
+        del held
+    else:
+        model32 = random_model(cfg.replace(compute_dtype=torch.float32))
+        model32.load_state_dict(model.state_dict())
+        del model, predict
     with torch.inference_mode():
         with recorded_decisions(model32) as decisions:
             kernel_logits = model32.eval()(batches[1])[:3]
@@ -2186,14 +2377,21 @@ def widths_phase(card: str) -> dict:
     check(finite and diff <= LOGIT_TOL_F32,
           f"{what} serving f32: max|logits kernel - plain| {diff:.3g} <= {LOGIT_TOL_F32:g}")
     pair_line(f"{what} serving f32 logits", diff, LOGIT_TOL_F32, [pins])
-    del model32, kernel_logits, plain_logits
+    del model32, kernel_logits, plain_logits, decisions, pins
+    gc.collect()
     torch.cuda.empty_cache()
 
     cfg32 = cfg.replace(compute_dtype=torch.float32)
+    per_block = K1_PER_FORWARD // cfg.num_blocks   # 2 encoders' and 2 decoders' calls a block
+    tag = f"train f32 bs {WIDTHS_TRAIN_B}"
+    if train_blocks:
+        cfg32 = cfg32.replace(num_blocks=train_blocks, stage1_blocks=1, stage2_blocks=2)
+        tag += f" at {train_blocks} blocks"
     batch = synthetic_batch(cfg32, WIDTHS_TRAIN_B, lv=36, lq=30, ls=98, seed=0)
-    f32_step_against_plain(cfg32, batch,
-                           {"K1": K1_PER_FORWARD, "K2": K2_PER_STEP, "K3": K3_PER_FORWARD},
-                           f"{what} train f32 bs {WIDTHS_TRAIN_B}")
+    n = per_block * cfg32.num_blocks
+    f32_step_against_plain(cfg32, batch, {"K1": n, "K2": n, "K3": n}, f"{what} {tag}")
+    gc.collect()
+    torch.cuda.empty_cache()
     model = random_model(cfg32)
     opt = adam(model.parameters(), lr=1e-4)
     state = TrainState(model, opt)
@@ -2205,7 +2403,7 @@ def widths_phase(card: str) -> dict:
     step(state, batch, gen)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    print(f"{what} train f32 bs {WIDTHS_TRAIN_B}: one step in {seconds:.4f} s = "
+    print(f"{what} {tag}: one step in {seconds:.4f} s = "
           f"{1 / seconds:.3f} steps/s on {card} (information only)", flush=True)
     del model, opt, state, step
     torch.cuda.empty_cache()
@@ -5234,7 +5432,7 @@ def model_phase(card: str) -> dict:
 model_phase.entries = {}
 
 
-PHASES = ("k1", "k3", "k2", "serving", "training", "widths", "k4", "k56", "objrel_serving",
+PHASES = ("k1", "k3", "k2", "serving", "training", "k4", "k56", "widths", "objrel_serving",
           "objrel_training", "cli", "train_cli", "packed", "dp", "host", "variants",
           "variant_cli", "seq", "model")
 PORT = "structured_alignment_vqa_tpu_torch/csrc/"

@@ -16,8 +16,7 @@
 // f32 products (TF32 keeps about 3 digits; the f32 path is held to 1e-4),
 // so its bound is FFMA on the CUDA cores, 67 TFLOP/s.
 //
-// Two designs, by dtype and width (C from 1 to 2,048, any hidden width up
-// to 4 x 2,048):
+// Two designs, by dtype and width (any C, any hidden width):
 //
 // * bf16 at C 128, 256, 384 or 512 with a hidden width that is a multiple of
 //   64 (ffn_ln_tc_kernel, below): the TPU kernel's shape. A
@@ -30,7 +29,8 @@
 //   path, further below): two kernels shaped like GEMMs, then the shard-sum
 //   kernel. C and the hidden width are runtime extents there: edge tiles
 //   zero-fill the rows, columns and k past the operands and store nothing
-//   past them, and the LayerNorm leaves the columns past C out of its sums.
+//   past them, and the LayerNorm leaves the columns past C out of its sums
+//   (above C 2,048 it runs a block a row, ffn_ln_row_kernel).
 //   bf16 rows whose width is no multiple of 8 (or operands not 16-byte
 //   aligned) are copied element by element instead of by 16-byte cp.async. The
 //   hidden activation goes through device memory: at 16,384 rows its round
@@ -441,12 +441,82 @@ ffn_ln_shard_sum_kernel(const float* __restrict__ partial, const T* __restrict__
   }
 }
 
+// The sum of a value over the block's 256 threads, the warps' sums added in
+// warp order (every thread gets it). red: kWarps floats of shared memory,
+// free again when every thread has returned.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  __syncthreads();   // the readers of red's last use are done
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = 0.f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) t += red[w];
+  return t;
+}
+
+// C above 2,048 (kMaxLaneC), where a warp's lanes cannot hold a row: one
+// block of 256 threads a row, thread t owning the columns t + 256 i. y =
+// the shards' partials in shard order, + b2 + x, then the reference
+// LayerNorm of the shard-sum kernel (mean; sum of squared deviations over
+// C - 1; std 0 where the variance is 0; 1e-8 on the std). Three passes over
+// the row: where C floats fit a block's shared memory (C up to kRowStage) y
+// is staged there in the first; above that each pass forms y again from the
+// partials (they are L2 hits at the row's size). Any C, any n_split.
+constexpr int kMaxLaneC = 2048;   // the shard-sum kernel's widest instance
+constexpr int kRowStage = 57344;  // floats of a row staged in shared memory, at most
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ffn_ln_row_kernel(const float* __restrict__ partial, const T* __restrict__ x,
+                  const T* __restrict__ b2, const float* __restrict__ gamma,
+                  const float* __restrict__ beta, T* __restrict__ out, int N, int C,
+                  int n_split, int staged) {
+  extern __shared__ __align__(16) float ys[];
+  __shared__ float red[kWarps];
+  const size_t at = (size_t)blockIdx.x * C;
+  const size_t shard = (size_t)N * C;
+  auto y_at = [&](int c) {
+    float v = partial[at + c];
+    for (int sp = 1; sp < n_split; ++sp) v += partial[sp * shard + at + c];
+    return (v + to_f(b2[c])) + to_f(x[at + c]);
+  };
+  float s = 0.f;
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+    const float v = y_at(c);
+    if (staged) ys[c] = v;
+    s += v;
+  }
+  const float mean = block_sum(s, red) / (float)C;
+  float ss = 0.f;
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+    const float d = (staged ? ys[c] : y_at(c)) - mean;
+    ss += d * d;
+  }
+  const float var = block_sum(ss, red) / (float)max(C - 1, 1);
+  const float sd = var > 0.f ? sqrtf(var) : 0.f;
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+    const float v = staged ? ys[c] : y_at(c);
+    store1(out + at + c, gamma[c] * (v - mean) / (sd + kLnEps) + beta[c]);
+  }
+}
+
 // The shard-sum kernel at the narrowest CMAX (128, 256, 512, 1,024 or
-// 2,048) that holds C.
+// 2,048) that holds C; above 2,048 the row kernel.
 template <typename T>
 cudaError_t launch_shard_sum(const float* partial, const T* x, const T* b2, const float* gamma,
                              const float* beta, T* out, int N, int C, int n_split,
                              cudaStream_t stream) {
+  if (C > kMaxLaneC) {
+    const int staged = C <= kRowStage;
+    const size_t smem = staged ? sizeof(float) * C : 0;
+    cudaError_t err = cudaFuncSetAttribute(ffn_ln_row_kernel<T>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    ffn_ln_row_kernel<T><<<N, kThreads, smem, stream>>>(partial, x, b2, gamma, beta, out, N, C,
+                                                        n_split, staged);
+    return cudaGetLastError();
+  }
   const int blocks = (N + kWarps - 1) / kWarps;
   auto kernel = C <= 128 ? ffn_ln_shard_sum_kernel<128, T>
               : C <= 256 ? ffn_ln_shard_sum_kernel<256, T>
@@ -607,12 +677,15 @@ ffn_ln_simt_product_kernel(const float* __restrict__ A, const float* __restrict_
   // element tid + 256 i of a rows x kSK slice: row tid / kSK + kPass i, k
   // tid % kSK, so that a warp's copies read whole rows' contiguous k (a
   // warp that spread over 8 rows x 4 k, free of bank conflicts, was
-  // slower). Offsets are 32-bit (the entry refuses larger operands),
+  // slower). Offsets are 32-bit from the block's first row of A and of B
+  // (a tile of 128 rows of K: the entry refuses K above 2^31 / 128),
   // stepped by kPass rows, so that a stage's copies hold few registers.
   constexpr int kPass = kThreads / kSK;   // rows a pass of the block copies
   const int cr = tid / kSK, ck = tid % kSK;
   const int a_left = M - m0 - cr, b_left = N - n0 - cr;   // rows left below this thread's first
-  const int a_first = (m0 + cr) * K + k_begin + ck, b_first = (n0 + cr) * K + k_begin + ck;
+  A += (size_t)m0 * K;
+  B += (size_t)n0 * K;
+  const int a_first = cr * K + k_begin + ck, b_first = cr * K + k_begin + ck;
   const int row_step = kPass * K;
   auto load = [&](int stage, int step) {
     float* as = sp_smem + stage * simt_stage(BM) + ck * kALd + cr;
@@ -945,25 +1018,24 @@ bool valid_split(int Hd, int n_split, int per_split) {
          n_split * per_split >= chunks;
 }
 
-// Do the products path's 32-bit element offsets reach every operand, a
-// row tile past the last row included?
-bool offsets_fit(int N, int C, int Hd) {
-  const long long rows = (long long)N + kTile, width = C > Hd ? C : Hd;
-  return rows * width <= 0x7fffffffLL && (long long)C * Hd <= 0x7fffffffLL;
+// Do the f32 product kernel's 32-bit element offsets, counted from a tile's
+// first row (128 rows of K = C or Hd), reach every element of its tile?
+// (Every other offset is 64-bit.)
+bool offsets_fit(int C, int Hd) {
+  const long long width = C > Hd ? C : Hd;
+  return (long long)kTile * width <= 0x7fffffffLL;
 }
-
-constexpr int kMaxC = 2048;   // the shard-sum kernel's widest instance
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. C from 1 to 2,048 and Hd at least 1;
+// dtype: 0 = float32, 1 = bfloat16. C and Hd at least 1, 128 max(C, Hd)
+// below 2^31;
 // the row-tile kernel (bf16 at C 128, 256, 384 or 512 with Hd a multiple of
 // 64) needs 16-byte aligned bf16 pointers, the products path takes any
 // (bf16 operands copied element by element where their rows or pointers are
 // not 16-byte aligned). The ceil(Hd / 64) hidden chunks are cut into n_split
 // shards of per_split chunks, none empty ((n_split - 1) per_split <
-// ceil(Hd / 64) <= n_split per_split); (N + 128) max(C, Hd) must stay below
-// 2^31. tile_rows: the rows of the products path's tiles, 64 or 128 in f32,
+// ceil(Hd / 64) <= n_split per_split). tile_rows: the rows of the products path's tiles, 64 or 128 in f32,
 // 128 in bf16 (unused by the row-tile kernel).
 //   the row-tile kernel: hidden is unused (may be null); with n_split > 1
 //     partial is (n_split, N, C) f32 scratch, else unused.
@@ -975,8 +1047,8 @@ extern "C" int savqa_ffn_ln(const void* x, const void* w1, const void* b1, const
                             void* hidden, void* partial, int N, int C, int Hd, int dtype,
                             int n_split, int per_split, int tile_rows, void* stream) {
   const bool tc = row_tile(dtype, C, Hd);
-  if (N <= 0 || C <= 0 || C > kMaxC || (dtype != 0 && dtype != 1) ||
-      !valid_split(Hd, n_split, per_split) || !offsets_fit(N, C, Hd) ||
+  if (N <= 0 || C <= 0 || (dtype != 0 && dtype != 1) ||
+      !valid_split(Hd, n_split, per_split) || !offsets_fit(C, Hd) ||
       (!tc && (hidden == nullptr || partial == nullptr)) || (n_split > 1 && partial == nullptr))
     return (int)cudaErrorInvalidValue;
   const auto* ga = static_cast<const float*>(gamma);
@@ -1001,7 +1073,7 @@ extern "C" int savqa_ffn_ln(const void* x, const void* w1, const void* b1, const
 // The model axis (ops/fused_ffn.py:ffn_partial): out = relu(x W1^T + b1)
 // W2^T, (N, C) f32, for this rank's shard of the hidden width (W1 (Hd, C),
 // b1 (Hd,), W2 (C, Hd) of the shard), h rounded to x's type as in
-// savqa_ffn_ln; no b2, residual or LayerNorm. C from 1 to 2,048. The
+// savqa_ffn_ln; no b2, residual or LayerNorm. C and Hd as savqa_ffn_ln's. The
 // ceil(Hd / 64) chunks may be cut into n_split shards over blocks as in
 // savqa_ffn_ln, their partials in scratch ((n_split, N, C) f32) summed in
 // shard order into out; with n_split 1 scratch is unused (may be null).
@@ -1014,8 +1086,8 @@ extern "C" int savqa_ffn_partial(const void* x, const void* w1, const void* b1, 
                                  int dtype, int n_split, int per_split, int tile_rows,
                                  void* stream) {
   const bool tc = row_tile(dtype, C, Hd);
-  if (N <= 0 || C <= 0 || C > kMaxC || (dtype != 0 && dtype != 1) ||
-      !valid_split(Hd, n_split, per_split) || !offsets_fit(N, C, Hd) ||
+  if (N <= 0 || C <= 0 || (dtype != 0 && dtype != 1) ||
+      !valid_split(Hd, n_split, per_split) || !offsets_fit(C, Hd) ||
       (n_split > 1 && scratch == nullptr) || (!tc && hidden == nullptr) || out == nullptr)
     return (int)cudaErrorInvalidValue;
   auto* sc = static_cast<float*>(scratch);
@@ -1042,12 +1114,12 @@ extern "C" int savqa_ffn_partial(const void* x, const void* w1, const void* b1, 
 
 // The model axis's epilogue (ops/fused_ffn.py:ffn_epilogue): out = LN((y +
 // b2) + x) over rows, y (N, C) f32 the partials summed over the ranks, x and
-// b2 in out's type; the split path's shard-sum kernel with one shard. C
-// from 1 to 2,048.
+// b2 in out's type; the split path's shard-sum kernel with one shard (the
+// row kernel above C 2,048). Any C.
 extern "C" int savqa_ffn_epilogue(const void* y, const void* x, const void* b2,
                                   const void* gamma, const void* beta, void* out, int N, int C,
                                   int dtype, void* stream) {
-  if (N <= 0 || C <= 0 || C > kMaxC) return (int)cudaErrorInvalidValue;
+  if (N <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
   const auto* yf = static_cast<const float*>(y);
   const auto* ga = static_cast<const float*>(gamma);
   const auto* be = static_cast<const float*>(beta);

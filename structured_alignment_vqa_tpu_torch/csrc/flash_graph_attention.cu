@@ -97,7 +97,8 @@
 // threads per (batch, head, 64 query rows), no key split), in either
 // dtype: bf16 at a head width that is no multiple of 16 or above 128, f32
 // at a head width that is no multiple of 4 or above 128. It takes head
-// widths from 1 to 256 (16 output channels a thread at 256).
+// widths from 1 to 256 (16 output channels a thread at 256); wider heads
+// take the wide kernel further below.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -359,6 +360,267 @@ cudaError_t launch(int dh, Args... args) {
   if (dh <= 64) return launch_ndh<T, 4>(args...);
   if (dh <= 128) return launch_ndh<T, 8>(args...);
   return launch_ndh<T, 16>(args...);
+}
+
+
+// ---- the wide kernel (head widths above 256, and K1's and K2's wide path) ----
+//
+// The SIMT kernel above keeps a whole head's Q, K and V rows in shared
+// memory and 16 output channels a thread in registers: 256 channels at most.
+// Above that the head's output channels are cut into chunks of kWideDh
+// (256) over blocks: block (q tile, head x chunk, batch) owns 64 query rows
+// and one chunk of the head's output channels. Its scores need the whole
+// head width, so per 64-key step it streams Q and K through shared memory
+// kScoreChunk (64) channels at a time into the same 16 x 16 thread grid of
+// 4 x 4 scores (each score one FMA chain over the head width in ascending
+// order, as the SIMT kernel sums it), then stages V's rows of its chunk and
+// runs the SIMT kernel's weights and second product on them. Every block of
+// a head computes the same scores, so m, z and b agree between its chunks
+// (chunk 0 writes them). The scores are recomputed ceil(dh / 256) times and
+// Q is read once a key step: the price of a head wider than a block's
+// registers, paid only above the old edge. No key split.
+// emit 3 ("o", K1's and K2's wide path): out is (B, Tq, C) f32, K1's
+// attention output before the residual, and m, z, b are written where
+// their pointers are not null. Its weights are K1's, rounded where K1
+// rounds them: a first pass over the keys takes the rows' m, z and b, and
+// the second forms each weight as K1 does, (e / z) g / r qmask with r =
+// max(b / z, 1e-12) (l1) or b / z + 1e-7 (sum_eps), rounds it to T and
+// adds it times V: the scores are computed once more for that.
+constexpr int kWideDh = 256;                 // output channels a block: 16 a thread
+constexpr int kScoreChunk = 64;              // channels of Q and K staged at a time
+constexpr int kLdC = kScoreChunk + 4;        // row stride of the staged channel chunks
+constexpr int kLdW = kWideDh + 4;            // row stride of the staged V chunk
+
+__host__ __device__ constexpr size_t wide_smem_bytes() {
+  return sizeof(float) * ((size_t)(kBQ + kBK) * kLdC + (size_t)kBK * kLdW + (size_t)kBQ * kLdP + kBK);
+}
+
+// s[r][c] = <q_(4 ty + r), k_(tx + 16 c)> over the head's dh channels from
+// c0, for the rows [q0, q0 + rows) of qb and the keys [j0, j0 + nk) of kb,
+// the channels kScoreChunk at a time through Qc (kBQ, kLdC) and Kc (kBK,
+// kLdC). Every thread takes part in the barriers; the first one also waits
+// for the readers of the step before.
+template <typename T>
+__device__ __forceinline__ void wide_scores(float (&s)[4][4], float* Qc, float* Kc,
+                                            const T* __restrict__ qb, const T* __restrict__ kb,
+                                            int q0, int rows, int j0, int nk, int C, int c0,
+                                            int dh, bool active) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
+  for (int dc = 0; dc < dh; dc += kScoreChunk) {
+    const int w = min(kScoreChunk, dh - dc);
+    __syncthreads();
+    stage(Qc, qb, q0, rows, kBQ, C, c0 + dc, w, kLdC);
+    stage(Kc, kb, j0, nk, kBK, C, c0 + dc, w, kLdC);
+    __syncthreads();
+    if (!active) continue;
+    const int wp = (w + 3) / 4 * 4;
+    for (int d = 0; d < wp; d += 4) {
+      float4 qv[4], kv[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) qv[r] = *reinterpret_cast<const float4*>(Qc + (ty * 4 + r) * kLdC + d);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) kv[c] = *reinterpret_cast<const float4*>(Kc + (tx + 16 * c) * kLdC + d);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[r][c] = dot4(qv[r], kv[c], s[r][c]);
+    }
+  }
+}
+
+// Shared memory: Qc (kBQ, kLdC) | Kc (kBK, kLdC) | Vs (kBK, kLdW) | Ps (kBQ, kLdP) | kms (kBK)
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_graph_attention_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                  const T* __restrict__ v, const float* __restrict__ key_mask,
+                                  const float* __restrict__ query_mask,
+                                  const float* __restrict__ graph, void* __restrict__ out,
+                                  float* __restrict__ m_out, float* __restrict__ z_out,
+                                  float* __restrict__ b_out, int Tq, int Tk, int C, int H,
+                                  int renorm, int emit, float scale) {
+  extern __shared__ __align__(16) float smem[];
+  const int dh = C / H;
+  const int n_chunks = (dh + kWideDh - 1) / kWideDh;
+  const int q0 = blockIdx.x * kBQ;
+  const int h = blockIdx.y / n_chunks;
+  const int o0 = (blockIdx.y - h * n_chunks) * kWideDh;   // the chunk's first channel in the head
+  const int ow = min(kWideDh, dh - o0);
+  const int b = blockIdx.z;
+  const int rows = min(kBQ, Tq - q0);
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int c0 = h * dh;
+  const bool active = ty * 4 < rows;
+
+  float* Qc = smem;
+  float* Kc = Qc + kBQ * kLdC;
+  float* Vs = Kc + kBK * kLdC;
+  float* Ps = Vs + kBK * kLdW;
+  float* kms = Ps + kBQ * kLdP;
+
+  float m[4], z[4], bs[4], acc[4][kWideDh / 16];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    m[r] = -INFINITY;
+    z[r] = 0.f;
+    bs[r] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kWideDh / 16; ++i) acc[r][i] = 0.f;
+  }
+
+  const T* qb = q + (size_t)b * Tq * C;
+  const T* kb = k + (size_t)b * Tk * C;
+  const T* vb = v + (size_t)b * Tk * C;
+  const float* km = key_mask + (size_t)b * Tk;
+  const float* gb = graph + ((size_t)b * Tq + q0) * Tk;
+
+  // pass 0 (emit 3 only): m, z and b; pass 1: the weights and O = A V
+  float den[4], qmr[4];   // K1's divisor and query mask of each row (emit 3)
+  for (int pass = emit == 3 ? 0 : 1; pass < 2; ++pass) {
+  const bool k1_weights = emit == 3 && pass == 1;
+  if (k1_weights) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = ty * 4 + r;
+      const float n = row < rows ? bs[r] / z[r] : 0.f;
+      den[r] = renorm == 0 ? fmaxf(n, kL1Eps) : n + kSumEps;
+      qmr[r] = row < rows ? query_mask[(size_t)b * Tq + q0 + row] : 0.f;
+    }
+  }
+  for (int j0 = 0; j0 < Tk; j0 += kBK) {
+    const int nk = min(kBK, Tk - j0);
+    float s[4][4];
+    wide_scores(s, Qc, Kc, qb, kb, q0, rows, j0, nk, C, c0, dh, active);
+    if (pass == 1) stage(Vs, vb, j0, nk, kBK, C, c0 + o0, ow, kLdW);
+    for (int j = tid; j < kBK; j += kThreads) kms[j] = j < nk ? km[j0 + j] : 0.f;
+    __syncthreads();
+
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int j = tx + 16 * c;
+      const bool in_range = j < nk;
+      const bool masked = kms[j] == 0.f;
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        s[r][c] = !in_range ? -INFINITY : masked ? kNegMask : s[r][c] * scale;
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = ty * 4 + r;
+      if (k1_weights) {   // m, z, b are final: K1's weight of each key
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int j = tx + 16 * c;
+          float w = 0.f;
+          if (row < rows && j < nk) {
+            const float a = expf(s[r][c] - m[r]) / z[r] * gb[(size_t)row * Tk + j0 + j];
+            w = a / den[r] * qmr[r];
+          }
+          Ps[row * kLdP + j] = to_float(from_float<T>(w));
+        }
+        continue;
+      }
+      const float mx = row_max(fmaxf(fmaxf(s[r][0], s[r][1]), fmaxf(s[r][2], s[r][3])));
+      const float m_new = fmaxf(m[r], mx);
+      const float alpha = expf(m[r] - m_new);
+      float sp = 0.f, spg = 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int j = tx + 16 * c;
+        const float p = expf(s[r][c] - m_new);
+        const float g = (row < rows && j < nk) ? gb[(size_t)row * Tk + j0 + j] : 0.f;
+        const float pg = p * g;
+        sp += p;
+        spg += pg;
+        if (pass == 1) Ps[row * kLdP + j] = to_float(from_float<T>(pg));
+      }
+      z[r] = z[r] * alpha + row_sum(sp);
+      bs[r] = bs[r] * alpha + row_sum(spg);
+      m[r] = m_new;
+#pragma unroll
+      for (int i = 0; i < kWideDh / 16; ++i) acc[r][i] *= alpha;
+    }
+    if (pass == 0) continue;
+    __syncthreads();  // Ps complete
+
+    if (active) {
+      for (int j = 0; j < kBK; j += 4) {
+        float4 pv[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pv[r] = *reinterpret_cast<const float4*>(Ps + (ty * 4 + r) * kLdP + j);
+#pragma unroll
+        for (int i = 0; i < kWideDh / 16; ++i) {
+          const int d = tx + 16 * i;
+          if (d < ow) {
+            const float v0 = Vs[(j + 0) * kLdW + d], v1 = Vs[(j + 1) * kLdW + d];
+            const float v2 = Vs[(j + 2) * kLdW + d], v3 = Vs[(j + 3) * kLdW + d];
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              float a = acc[r][i];
+              a = fmaf(pv[r].x, v0, a);
+              a = fmaf(pv[r].y, v1, a);
+              a = fmaf(pv[r].z, v2, a);
+              acc[r][i] = fmaf(pv[r].w, v3, a);
+            }
+          }
+        }
+      }
+    }
+  }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = ty * 4 + r;
+    if (row >= rows) continue;
+    const size_t stat_at = ((size_t)b * H + h) * Tq + q0 + row;
+    if (emit != 0 && o0 == 0 && tx == 0 && m_out != nullptr) {
+      m_out[stat_at] = m[r];
+      z_out[stat_at] = z[r];
+      b_out[stat_at] = bs[r];
+    }
+    const float denom = renorm == 0 ? fmaxf(bs[r], kL1Eps * z[r]) : bs[r] + kSumEps * z[r];
+    const float qm = query_mask[(size_t)b * Tq + q0 + row];
+    const size_t out_at = ((size_t)b * Tq + q0 + row) * C + c0 + o0;
+#pragma unroll
+    for (int i = 0; i < kWideDh / 16; ++i) {
+      const int d = tx + 16 * i;
+      if (d >= ow) continue;
+      if (emit == 2)
+        static_cast<float*>(out)[stat_at * dh + o0 + d] = acc[r][i];
+      else if (emit == 3)
+        static_cast<float*>(out)[out_at + d] = acc[r][i];
+      else
+        static_cast<T*>(out)[out_at + d] = from_float<T>(acc[r][i] / denom * qm);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, const float* key_mask,
+                        const float* query_mask, const float* graph, void* out, float* m_out,
+                        float* z_out, float* b_out, int B, int Tq, int Tk, int C, int H,
+                        int renorm, int emit, float scale, cudaStream_t stream) {
+  constexpr size_t smem = wide_smem_bytes();
+  auto kernel = flash_graph_attention_wide_kernel<T>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int n_chunks = (C / H + kWideDh - 1) / kWideDh;
+  const long long heads = (long long)H * n_chunks;
+  if (heads > 65535) return cudaErrorInvalidConfiguration;
+  const dim3 grid((Tq + kBQ - 1) / kBQ, (unsigned)heads, B);
+  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                           static_cast<const T*>(v), key_mask, query_mask, graph,
+                                           out, m_out, z_out, b_out, Tq, Tk, C, H, renorm, emit,
+                                           scale);
+  return cudaGetLastError();
 }
 
 
@@ -800,8 +1062,10 @@ cudaError_t launch_f32_dh(const F32Args& p) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. renorm: 0 = l1, 1 = sum_eps.
-// emit: 0 = out, 1 = out + m, z, b, 2 = raw a (B, H, Tq, dh) f32 + m, z, b.
-// The head width C / H is at most 256. m, z and b may be null with emit 0.
+// emit: 0 = out, 1 = out + m, z, b, 2 = raw a (B, H, Tq, dh) f32 + m, z, b,
+// 3 = out (B, Tq, C) f32 (+ m, z, b where they are not null). m, z and b may
+// be null with emit 0. Head widths above 256, and emit 3 at any head width,
+// take the wide kernel (no split: n_split must be 1).
 // bf16 with a head width that is a multiple of 16 up to 128 takes the
 // tensor-core kernel (64 query rows a block) and f32 with a head width that
 // is a multiple of 4 up to 128 the f32 kernel (q_tile query rows a block, 16
@@ -819,9 +1083,8 @@ extern "C" int savqa_flash_graph_attention(const void* q, const void* k, const v
                                            int H, int renorm, int emit, int dtype, int n_split,
                                            int steps_per_split, int q_tile, float scale,
                                            void* stream) {
-  if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || C % H != 0 || C / H > kMaxDh ||
-      (renorm != 0 && renorm != 1) || emit < 0 || emit > 2 || n_split < 1 ||
-      (dtype != 0 && dtype != 1))
+  if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || C % H != 0 || (renorm != 0 && renorm != 1) ||
+      emit < 0 || emit > 3 || n_split < 1 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const auto* km = static_cast<const float*>(key_mask);
   const auto* qm = static_cast<const float*>(query_mask);
@@ -831,6 +1094,14 @@ extern "C" int savqa_flash_graph_attention(const void* q, const void* k, const v
   auto* bo = static_cast<float*>(b_out);
   auto s = static_cast<cudaStream_t>(stream);
   const int dh = C / H;
+  if (dh > kMaxDh || emit == 3) {
+    if (n_split != 1) return (int)cudaErrorInvalidValue;
+    if (dtype == 0)
+      return (int)launch_wide<float>(q, k, v, km, qm, g, out, mo, zo, bo, B, Tq, Tk, C, H,
+                                     renorm, emit, scale, s);
+    return (int)launch_wide<__nv_bfloat16>(q, k, v, km, qm, g, out, mo, zo, bo, B, Tq, Tk, C,
+                                           H, renorm, emit, scale, s);
+  }
   const bool tc = dtype == 1 && dh % 16 == 0 && dh <= kTcMaxDh;
   const bool f32k = dtype == 0 && dh % 4 == 0 && dh <= kTcMaxDh;
   if (tc || f32k) {

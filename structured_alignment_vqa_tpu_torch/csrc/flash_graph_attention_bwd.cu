@@ -619,6 +619,405 @@ cudaError_t launch_dkv(int dh, Args... args) {
   return launch_dkv_ndh<T, 16>(args...);
 }
 
+// ---- the wide kernels (head widths above 256) ----
+//
+// K4's wide kernel (csrc/flash_graph_attention.cu) cuts a head's output
+// channels into chunks of kWideDh (256) over blocks; K5's and K6's do the
+// same with dQ and with dK, dV. A score and dN need the whole head width,
+// so a block streams Q, dO, K and V through shared memory kScoreChunk (64)
+// channels at a time into the SIMT kernels' 4 x 4 tiles (each one FMA chain
+// over the head width in ascending order), then stages the rows of its own
+// chunk (K for dQ; Q and dO for dK and dV) and runs the SIMT kernels' dS, n
+// and second products on them. The scores and dN are recomputed ceil(dh /
+// 256) times, once a chunk. Shapes otherwise as the SIMT kernels': K5 64
+// query rows a block walking the keys 64 at a time; K6 64 keys a block
+// walking the query rows 32 at a time (two a thread).
+constexpr int kWideDh = 256;                 // output channels a block: 16 a thread
+constexpr int kScoreChunk = 64;              // channels staged at a time for the scores
+constexpr int kLdC = kScoreChunk + 4;
+constexpr int kLdW = kWideDh + 4;
+constexpr int kWideRows = 32;                // K6: query rows a step
+
+__host__ __device__ constexpr size_t dq_wide_smem_bytes() {
+  return sizeof(float) * ((size_t)(2 * kBQ + 2 * kBK) * kLdC + (size_t)kBK * kLdW +
+                          (size_t)kBQ * kLdP + kBK);
+}
+__host__ __device__ constexpr size_t dkv_wide_smem_bytes() {
+  return sizeof(float) * ((size_t)(2 * kBK + 2 * kWideRows) * kLdC + 2 * (size_t)kWideRows * kLdW +
+                          2 * (size_t)kWideRows * kLdP + kBK) +
+         sizeof(RowTerms) * kWideRows;
+}
+
+// K5. Shared memory: Qc, Dc (kBQ, kLdC) | Kc, Vc (kBK, kLdC) | Ko (kBK, kLdW)
+//                    | Ss (kBQ, kLdP) | kms (kBK)
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_graph_attention_bwd_dq_wide_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ key_mask, const float* __restrict__ graph,
+    const float* __restrict__ m_in, const float* __restrict__ z_in,
+    const float* __restrict__ b_in, const float* __restrict__ delta,
+    const T* __restrict__ dout, T* __restrict__ dq, int Tq, int Tk, int C, int H, int renorm,
+    float scale) {
+  constexpr int RPT = 4;
+  extern __shared__ __align__(16) float smem[];
+  const int dh = C / H;
+  const int n_chunks = (dh + kWideDh - 1) / kWideDh;
+  const int q0 = blockIdx.x * kBQ;
+  const int h = blockIdx.y / n_chunks;
+  const int o0 = (blockIdx.y - h * n_chunks) * kWideDh;
+  const int ow = min(kWideDh, dh - o0);
+  const int b = blockIdx.z;
+  const int rows = min(kBQ, Tq - q0);
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int c0 = h * dh;
+  const bool active = ty * RPT < rows;
+
+  float* Qc = smem;
+  float* Dc = Qc + kBQ * kLdC;
+  float* Kc = Dc + kBQ * kLdC;
+  float* Vc = Kc + kBK * kLdC;
+  float* Ko = Vc + kBK * kLdC;
+  float* Ss = Ko + kBK * kLdW;
+  float* kms = Ss + kBQ * kLdP;
+
+  RowTerms rt[RPT];
+  float acc[RPT][kWideDh / 16];
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    const int row = ty * RPT + r;
+    if (row < rows) {
+      const size_t at = ((size_t)b * H + h) * Tq + q0 + row;
+      rt[r] = row_terms(m_in[at], z_in[at], b_in[at], delta[at], renorm);
+    } else {
+      rt[r] = row_terms(0.f, 1.f, 1.f, 0.f, renorm);
+    }
+#pragma unroll
+    for (int i = 0; i < kWideDh / 16; ++i) acc[r][i] = 0.f;
+  }
+
+  const T* qb = q + (size_t)b * Tq * C;
+  const T* db = dout + (size_t)b * Tq * C;
+  const T* kb = k + (size_t)b * Tk * C;
+  const T* vb = v + (size_t)b * Tk * C;
+  const float* km = key_mask + (size_t)b * Tk;
+  const float* gb = graph + ((size_t)b * Tq + q0) * Tk;
+
+  for (int j0 = 0; j0 < Tk; j0 += kBK) {
+    const int nk = min(kBK, Tk - j0);
+    float s[RPT][4], dn[RPT][4];
+#pragma unroll
+    for (int r = 0; r < RPT; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[r][c] = dn[r][c] = 0.f;
+    for (int dc = 0; dc < dh; dc += kScoreChunk) {
+      const int w = min(kScoreChunk, dh - dc);
+      __syncthreads();  // the readers of the chunk (and of the step) before are done
+      stage(Qc, qb, q0, rows, kBQ, C, c0 + dc, w, kLdC);
+      stage(Dc, db, q0, rows, kBQ, C, c0 + dc, w, kLdC);
+      stage(Kc, kb, j0, nk, kBK, C, c0 + dc, w, kLdC);
+      stage(Vc, vb, j0, nk, kBK, C, c0 + dc, w, kLdC);
+      __syncthreads();
+      if (!active) continue;
+      const int wp = (w + 3) / 4 * 4;
+      for (int d = 0; d < wp; d += 4) {
+        float4 qv[RPT], dv4[RPT], kv[4], vv[4];
+#pragma unroll
+        for (int r = 0; r < RPT; ++r) {
+          qv[r] = *reinterpret_cast<const float4*>(Qc + (ty * RPT + r) * kLdC + d);
+          dv4[r] = *reinterpret_cast<const float4*>(Dc + (ty * RPT + r) * kLdC + d);
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          kv[c] = *reinterpret_cast<const float4*>(Kc + (tx + 16 * c) * kLdC + d);
+          vv[c] = *reinterpret_cast<const float4*>(Vc + (tx + 16 * c) * kLdC + d);
+        }
+#pragma unroll
+        for (int r = 0; r < RPT; ++r)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            s[r][c] = dot4(qv[r], kv[c], s[r][c]);
+            dn[r][c] = dot4(dv4[r], vv[c], dn[r][c]);
+          }
+      }
+    }
+    stage(Ko, kb, j0, nk, kBK, C, c0 + o0, ow, kLdW);
+    for (int j = tid; j < kBK; j += kThreads) kms[j] = j < nk ? km[j0 + j] : 0.f;
+    __syncthreads();
+
+    if (active) {
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        const int row = ty * RPT + r;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int j = tx + 16 * c;
+          float n = 0.f, ds = 0.f;
+          if (row < rows && j < nk)
+            ds_entry(s[r][c], dn[r][c], gb[(size_t)row * Tk + j0 + j], kms[j] == 0.f, rt[r],
+                     scale, &n, &ds);
+          Ss[row * kLdP + j] = to_float(from_float<T>(ds));   // the bf16 operand
+        }
+      }
+    }
+    __syncthreads();  // Ss complete
+
+    if (active) {
+      for (int j = 0; j < kBK; j += 4) {
+        float4 sv[RPT];
+#pragma unroll
+        for (int r = 0; r < RPT; ++r)
+          sv[r] = *reinterpret_cast<const float4*>(Ss + (ty * RPT + r) * kLdP + j);
+#pragma unroll
+        for (int i = 0; i < kWideDh / 16; ++i) {
+          const int d = tx + 16 * i;
+          if (d < ow) {
+            const float k0 = Ko[(j + 0) * kLdW + d], k1 = Ko[(j + 1) * kLdW + d];
+            const float k2 = Ko[(j + 2) * kLdW + d], k3 = Ko[(j + 3) * kLdW + d];
+#pragma unroll
+            for (int r = 0; r < RPT; ++r) {
+              float a = acc[r][i];
+              a = fmaf(sv[r].x, k0, a);
+              a = fmaf(sv[r].y, k1, a);
+              a = fmaf(sv[r].z, k2, a);
+              acc[r][i] = fmaf(sv[r].w, k3, a);
+            }
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    const int row = ty * RPT + r;
+    if (row >= rows) continue;
+#pragma unroll
+    for (int i = 0; i < kWideDh / 16; ++i) {
+      const int d = tx + 16 * i;
+      if (d < ow) dq[((size_t)b * Tq + q0 + row) * C + c0 + o0 + d] = from_float<T>(acc[r][i]);
+    }
+  }
+}
+
+// K6. Shared memory: Kc, Vc (kBK, kLdC) | Qc, Dc (kWideRows, kLdC)
+//   | Qo, Do (kWideRows, kLdW) | Ns, Ss (kWideRows, kLdP) | kms (kBK) | terms (kWideRows)
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_graph_attention_bwd_dkv_wide_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ key_mask, const float* __restrict__ graph,
+    const float* __restrict__ m_in, const float* __restrict__ z_in,
+    const float* __restrict__ b_in, const float* __restrict__ delta,
+    const T* __restrict__ dout, T* __restrict__ dk, T* __restrict__ dv, int Tq, int Tk, int C,
+    int H, int renorm, float scale) {
+  constexpr int BQ = kWideRows;
+  constexpr int RI = BQ / 16;
+  extern __shared__ __align__(16) float smem[];
+  const int dh = C / H;
+  const int n_chunks = (dh + kWideDh - 1) / kWideDh;
+  const int j0 = blockIdx.x * kBK;
+  const int h = blockIdx.y / n_chunks;
+  const int o0 = (blockIdx.y - h * n_chunks) * kWideDh;
+  const int ow = min(kWideDh, dh - o0);
+  const int b = blockIdx.z;
+  const int nk = min(kBK, Tk - j0);
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int c0 = h * dh;
+  const bool active = ty * 4 < nk;
+
+  float* Kc = smem;
+  float* Vc = Kc + kBK * kLdC;
+  float* Qc = Vc + kBK * kLdC;
+  float* Dc = Qc + BQ * kLdC;
+  float* Qo = Dc + BQ * kLdC;
+  float* Do = Qo + BQ * kLdW;
+  float* Ns = Do + BQ * kLdW;
+  float* Ss = Ns + BQ * kLdP;
+  float* kms = Ss + BQ * kLdP;
+  RowTerms* terms = reinterpret_cast<RowTerms*>(kms + kBK);
+
+  for (int j = tid; j < kBK; j += kThreads)
+    kms[j] = j < nk ? key_mask[(size_t)b * Tk + j0 + j] : 0.f;
+
+  float acc_k[4][kWideDh / 16], acc_v[4][kWideDh / 16];
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int i = 0; i < kWideDh / 16; ++i) acc_k[c][i] = acc_v[c][i] = 0.f;
+
+  const T* qb = q + (size_t)b * Tq * C;
+  const T* db = dout + (size_t)b * Tq * C;
+  const T* kb = k + (size_t)b * Tk * C;
+  const T* vb = v + (size_t)b * Tk * C;
+
+  for (int r0 = 0; r0 < Tq; r0 += BQ) {
+    const int nr = min(BQ, Tq - r0);
+    float s[RI][4], dn[RI][4];   // [row i][key c]
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[i][c] = dn[i][c] = 0.f;
+    for (int dc = 0; dc < dh; dc += kScoreChunk) {
+      const int w = min(kScoreChunk, dh - dc);
+      __syncthreads();  // kms written; the readers of the chunk (and of the step) before done
+      stage(Kc, kb, j0, nk, kBK, C, c0 + dc, w, kLdC);
+      stage(Vc, vb, j0, nk, kBK, C, c0 + dc, w, kLdC);
+      stage(Qc, qb, r0, nr, BQ, C, c0 + dc, w, kLdC);
+      stage(Dc, db, r0, nr, BQ, C, c0 + dc, w, kLdC);
+      __syncthreads();
+      if (!active) continue;
+      const int wp = (w + 3) / 4 * 4;
+      for (int d = 0; d < wp; d += 4) {
+        float4 qv[RI], dv4[RI], kv[4], vv[4];
+#pragma unroll
+        for (int i = 0; i < RI; ++i) {
+          qv[i] = *reinterpret_cast<const float4*>(Qc + (tx + 16 * i) * kLdC + d);
+          dv4[i] = *reinterpret_cast<const float4*>(Dc + (tx + 16 * i) * kLdC + d);
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          kv[c] = *reinterpret_cast<const float4*>(Kc + (ty * 4 + c) * kLdC + d);
+          vv[c] = *reinterpret_cast<const float4*>(Vc + (ty * 4 + c) * kLdC + d);
+        }
+#pragma unroll
+        for (int i = 0; i < RI; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            s[i][c] = dot4(qv[i], kv[c], s[i][c]);
+            dn[i][c] = dot4(dv4[i], vv[c], dn[i][c]);
+          }
+      }
+    }
+    stage(Qo, qb, r0, nr, BQ, C, c0 + o0, ow, kLdW);
+    stage(Do, db, r0, nr, BQ, C, c0 + o0, ow, kLdW);
+    for (int r = tid; r < BQ; r += kThreads) {
+      if (r < nr) {
+        const size_t at = ((size_t)b * H + h) * Tq + r0 + r;
+        terms[r] = row_terms(m_in[at], z_in[at], b_in[at], delta[at], renorm);
+      } else {
+        terms[r] = row_terms(0.f, 1.f, 1.f, 0.f, renorm);
+      }
+    }
+    // the graph tile, read along the keys; replaced by n below
+    for (int i = tid; i < BQ * kBK; i += kThreads) {
+      const int r = i / kBK, j = i - r * kBK;
+      Ns[r * kLdP + j] =
+          (r < nr && j < nk) ? graph[((size_t)b * Tq + r0 + r) * Tk + j0 + j] : 0.f;
+    }
+    __syncthreads();
+
+    if (active) {
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        const int row = tx + 16 * i;
+        const RowTerms t = terms[row];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int j = ty * 4 + c;
+          float n = 0.f, ds = 0.f;
+          if (row < nr && j < nk)
+            ds_entry(s[i][c], dn[i][c], Ns[row * kLdP + j], kms[j] == 0.f, t, scale, &n, &ds);
+          Ns[row * kLdP + j] = to_float(from_float<T>(n));    // the bf16 operands
+          Ss[row * kLdP + j] = to_float(from_float<T>(ds));
+        }
+      }
+    }
+    __syncthreads();  // Ns, Ss complete
+
+    if (active) {
+      for (int r = 0; r < BQ; ++r) {
+        const float4 nv = *reinterpret_cast<const float4*>(Ns + r * kLdP + ty * 4);
+        const float4 sv = *reinterpret_cast<const float4*>(Ss + r * kLdP + ty * 4);
+#pragma unroll
+        for (int i = 0; i < kWideDh / 16; ++i) {
+          const int d = tx + 16 * i;
+          if (d < ow) {
+            const float dor = Do[r * kLdW + d];
+            const float qr = Qo[r * kLdW + d];
+            acc_v[0][i] = fmaf(nv.x, dor, acc_v[0][i]);
+            acc_v[1][i] = fmaf(nv.y, dor, acc_v[1][i]);
+            acc_v[2][i] = fmaf(nv.z, dor, acc_v[2][i]);
+            acc_v[3][i] = fmaf(nv.w, dor, acc_v[3][i]);
+            acc_k[0][i] = fmaf(sv.x, qr, acc_k[0][i]);
+            acc_k[1][i] = fmaf(sv.y, qr, acc_k[1][i]);
+            acc_k[2][i] = fmaf(sv.z, qr, acc_k[2][i]);
+            acc_k[3][i] = fmaf(sv.w, qr, acc_k[3][i]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int j = ty * 4 + c;
+    if (j >= nk) continue;
+#pragma unroll
+    for (int i = 0; i < kWideDh / 16; ++i) {
+      const int d = tx + 16 * i;
+      if (d >= ow) continue;
+      const size_t at = ((size_t)b * Tk + j0 + j) * C + c0 + o0 + d;
+      dk[at] = from_float<T>(acc_k[c][i]);
+      dv[at] = from_float<T>(acc_v[c][i]);
+    }
+  }
+}
+
+// Grid (tiles, heads x ceil(dh / 256) chunks, batch) of a wide kernel.
+inline cudaError_t wide_grid(dim3* grid, int tiles, int B, int C, int H) {
+  const long long heads = (long long)H * ((C / H + kWideDh - 1) / kWideDh);
+  if (heads > 65535) return cudaErrorInvalidConfiguration;
+  *grid = dim3(tiles, (unsigned)heads, B);
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t launch_dq_wide(const void* q, const void* k, const void* v, const float* key_mask,
+                           const float* graph, const float* m_in, const float* z_in,
+                           const float* b_in, const float* delta, const void* dout, void* dq,
+                           int B, int Tq, int Tk, int C, int H, int renorm, float scale,
+                           cudaStream_t stream) {
+  constexpr size_t smem = dq_wide_smem_bytes();
+  auto kernel = flash_graph_attention_bwd_dq_wide_kernel<T>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid;
+  err = wide_grid(&grid, (Tq + kBQ - 1) / kBQ, B, C, H);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), key_mask,
+      graph, m_in, z_in, b_in, delta, static_cast<const T*>(dout), static_cast<T*>(dq), Tq, Tk,
+      C, H, renorm, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dkv_wide(const void* q, const void* k, const void* v, const float* key_mask,
+                            const float* graph, const float* m_in, const float* z_in,
+                            const float* b_in, const float* delta, const void* dout, void* dk,
+                            void* dv, int B, int Tq, int Tk, int C, int H, int renorm,
+                            float scale, cudaStream_t stream) {
+  constexpr size_t smem = dkv_wide_smem_bytes();
+  auto kernel = flash_graph_attention_bwd_dkv_wide_kernel<T>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid;
+  err = wide_grid(&grid, (Tk + kBK - 1) / kBK, B, C, H);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), key_mask,
+      graph, m_in, z_in, b_in, delta, static_cast<const T*>(dout), static_cast<T*>(dk),
+      static_cast<T*>(dv), Tq, Tk, C, H, renorm, scale);
+  return cudaGetLastError();
+}
+
 // ---- K6's f32 kernel (csrc/simt_f32.cuh) ----
 
 namespace f32 = savqa_f32;
@@ -1467,8 +1866,7 @@ cudaError_t launch_dq_tc_dh(const TcArgs& p) {
 }
 
 bool bad_shape(int B, int Tq, int Tk, int C, int H, int renorm) {
-  return B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || C % H != 0 || C / H > kMaxDh ||
-         (renorm != 0 && renorm != 1);
+  return B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || C % H != 0 || (renorm != 0 && renorm != 1);
 }
 
 // The kernels of a call: the tensor-core ones (bf16, a head width that is a
@@ -1484,7 +1882,8 @@ bool f32_kernels(int dtype, int C, int H) {
 // Whether K5's `path` cannot take this call (see savqa_flash_graph_attention_bwd_dq).
 bool bad_dq_path(int dtype, int Tk, int C, int H, int path, int q_tile, int n_split,
                  int steps_per_split, const void* scratch) {
-  if (path == 0) return n_split != 1 || (dtype != 0 && dtype != 1);
+  if (path == 0 || path == 3) return n_split != 1 || (dtype != 0 && dtype != 1) ||
+                                     (path == 3) != (C / H > kMaxDh);
   if (path == 1 && !tensor_cores(dtype, C, H)) return true;
   if (path == 2 && (!f32_kernels(dtype, C, H) || (q_tile != 16 && q_tile != 64))) return true;
   if (path != 1 && path != 2) return true;
@@ -1498,10 +1897,11 @@ bool bad_dq_path(int dtype, int Tk, int C, int H, int path, int q_tile, int n_sp
 
 // dtype: 0 = float32, 1 = bfloat16. renorm: 0 = l1, 1 = sum_eps.
 // q, dout, dq (B, Tq, C) and k, v, dk, dv (B, Tk, C) in that type; key_mask
-// (B, Tk), graph (B, Tq, Tk), m, z, b, delta (B, H, Tq) f32. The head width
-// C / H is at most 256. Each returns cudaGetLastError() after its launches.
+// (B, Tk), graph (B, Tq, Tk), m, z, b, delta (B, H, Tq) f32. Each returns
+// cudaGetLastError() after its launches.
 //
-// K5's path: 0 = the first SIMT kernel (either type, every head width, one
+// K5's path: 0 = the first SIMT kernel (either type, head widths up to 256,
+// one shard); 3 = the wide kernel (either type, head widths above 256, one
 // shard); 1 = the tensor-core kernel (bf16 with a head width that is a
 // multiple of 16 up to 128); 2 = the f32 kernel (f32 with a head width that
 // is a multiple of 4 up to 128, q_tile = 16 or 64 query rows a block). Paths 1 and 2
@@ -1540,6 +1940,13 @@ extern "C" int savqa_flash_graph_attention_bwd_dq(
                       steps_per_split, scale, s};
     return (int)launch_dq_f32(p, q_tile);
   }
+  if (path == 3) {
+    if (dtype == 0)
+      return (int)launch_dq_wide<float>(q, k, v, km, g, mi, zi, bi, de, dout, dq, B, Tq, Tk, C,
+                                        H, renorm, scale, s);
+    return (int)launch_dq_wide<__nv_bfloat16>(q, k, v, km, g, mi, zi, bi, de, dout, dq, B, Tq,
+                                              Tk, C, H, renorm, scale, s);
+  }
   if (dtype == 0)
     return (int)launch_dq<float>(C / H, q, k, v, km, g, mi, zi, bi, de, dout, dq, B, Tq, Tk, C,
                                  H, renorm, scale, s);
@@ -1549,7 +1956,8 @@ extern "C" int savqa_flash_graph_attention_bwd_dq(
 
 // K6: bf16 with a head width that is a multiple of 16 up to 128 takes the
 // tensor-core kernel, f32 with a multiple of 4 up to 128 its register-tiled
-// kernel, every other call the SIMT kernel.
+// kernel, head widths above 256 the wide kernel, every other call the SIMT
+// kernel.
 extern "C" int savqa_flash_graph_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* key_mask, const void* graph,
     const void* m_in, const void* z_in, const void* b_in, const void* delta, const void* dout,
@@ -1563,6 +1971,15 @@ extern "C" int savqa_flash_graph_attention_bwd_dkv(
   const auto* bi = static_cast<const float*>(b_in);
   const auto* de = static_cast<const float*>(delta);
   auto s = static_cast<cudaStream_t>(stream);
+  if (C / H > kMaxDh) {
+    if (dtype == 0)
+      return (int)launch_dkv_wide<float>(q, k, v, km, g, mi, zi, bi, de, dout, dk, dv, B, Tq,
+                                         Tk, C, H, renorm, scale, s);
+    if (dtype == 1)
+      return (int)launch_dkv_wide<__nv_bfloat16>(q, k, v, km, g, mi, zi, bi, de, dout, dk, dv,
+                                                 B, Tq, Tk, C, H, renorm, scale, s);
+    return (int)cudaErrorInvalidValue;
+  }
   if (tensor_cores(dtype, C, H)) {
     const TcArgs p{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                    static_cast<const bf16*>(v), static_cast<const bf16*>(dout), km, g, mi, zi,

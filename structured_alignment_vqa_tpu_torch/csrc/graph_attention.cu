@@ -44,6 +44,11 @@
 //   one-query cross-attention) runs through the same code.
 // Every f32 product is a plain FMA on the CUDA cores: TF32 would not hold
 // the f32 path's 1e-4.
+// Head widths above 256, and SIMT calls whose single row of C does not fit
+// a block, take the wide path (ops/fused_graph_attention.py "wide"): the
+// wide kernel of csrc/flash_graph_attention.cu with emit 3 (K1's weights
+// in a second pass over the keys, the f32 attention output), then this
+// file's LayerNorm kernel (graph_attention_ln_epilogue_kernel, any C).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

@@ -94,11 +94,21 @@
 // device memory (f32, ~67 MB at B 128, L 128, C 512) instead of the SIMT
 // rows launch's shared tile of all heads.
 //
+// Head widths above 256, and SIMT calls whose single row does not fit a
+// block, take the wide path (ops/fused_graph_attention.py "wide"): the
+// wide K4 kernel with emit 3 (K1's output O and m, z, b), this file's
+// LayerNorm backward at any C (graph_attention_ln_bwd_ln_wide_kernel,
+// entry savqa_attention_ln_bwd), then K5's and K6's kernels
+// (csrc/flash_graph_attention_bwd.cu, the wide ones above 256) from dO =
+// dresidual and delta = dO . O. The f32 path above C 2,048 keeps its
+// kernels but takes that LayerNorm backward too.
+//
 // The first SIMT kernels take every other call (path 0): bf16 at a head
 // width that is no multiple of 16 or above 128, or where the tensor-core
-// rows launch does not fit (C 2,048 at 16 heads: 32 rows of C + 8 f32 and
-// bf16), and f32 at a head width that is no multiple of 4 or above 128;
-// head widths up to 256 in both dtypes. They were never redesigned:
+// rows launch does not fit (C 2,048 at 16 heads and C 4,096 at 32: 32 rows
+// of C + 8 f32 and bf16), and f32 at a head width that is no multiple of 4
+// or above 128; head widths up to 256 in both dtypes, any C whose rows fit.
+// They were never redesigned:
 // * Rows launch, one block of 256 threads per (batch, tile of up to 16 query
 //   rows; fewer where 16 rows of C + 2 Tk floats do not fit, the caller's
 //   choice, ops/fused_graph_attention.py:simt_rows), all heads, as K1: the
@@ -1405,6 +1415,89 @@ graph_attention_ln_bwd_ln_f32_kernel(const float* __restrict__ o, const float* _
   }
 }
 
+// 2'. The same LayerNorm backward at any C (the f32 path above C 2,048,
+// and K2's wide path in either type, ops/fused_graph_attention.py
+// "wide"): a tile of `tile` rows (at most kLnWideRows) of batch element
+// blockIdx.y. First a warp a row takes the row's mean, 1 / (std + 1e-8),
+// mean of dy gamma and the std term's coefficient in three passes over the
+// row (columns lane + 32 k); then a thread a column (c = tid + 256 k) walks
+// the tile's rows in order: dres = (dy gamma - mean dxh) inv - (x - mean)
+// coef in T, and the column's dgamma and dbeta partials. Nothing of size C
+// stays on chip. o f32, residual, dy and dres of type T.
+constexpr int kLnWideRows = 64;
+
+template <typename T>
+__global__ void __launch_bounds__(kLnThreads)
+graph_attention_ln_bwd_ln_wide_kernel(const float* __restrict__ o, const T* __restrict__ residual,
+                                      const float* __restrict__ gamma, const T* __restrict__ dy,
+                                      T* __restrict__ dres, float* __restrict__ partials, int Tq,
+                                      int C, int tile) {
+  constexpr int kW = kLnThreads / 32;
+  __shared__ float row_mean[kLnWideRows], row_inv[kLnWideRows], row_mdxh[kLnWideRows],
+      row_coef[kLnWideRows];
+  const int b = blockIdx.y;
+  const int row0 = blockIdx.x * tile;
+  const int rows = min(tile, Tq - row0);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int r = warp; r < rows; r += kW) {
+    const size_t at = ((size_t)b * Tq + row0 + r) * C;
+    float s = 0.f;
+    for (int c = lane; c < C; c += 32) s += o[at + c] + to_float(residual[at + c]);
+    const float mean = warp_sum(s) / (float)C;
+    float ss = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float x = (o[at + c] + to_float(residual[at + c])) - mean;
+      ss += x * x;
+    }
+    const float var = warp_sum(ss) / (float)max(C - 1, 1);
+    const float sd = var > 0.f ? sqrtf(var) : 0.f;
+    const float inv = 1.f / (sd + kLnEps);
+    float sum_dxh = 0.f, ssum = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float x = (o[at + c] + to_float(residual[at + c])) - mean;
+      const float dxh = to_float(dy[at + c]) * gamma[c];
+      sum_dxh += dxh;
+      ssum += dxh * x;
+    }
+    const float mean_dxh = warp_sum(sum_dxh) / (float)C;
+    ssum = warp_sum(ssum);
+    if (lane == 0) {
+      row_mean[r] = mean;
+      row_inv[r] = inv;
+      row_mdxh[r] = mean_dxh;
+      row_coef[r] = var > 0.f ? ssum * inv * inv / ((float)max(C - 1, 1) * sd) : 0.f;
+    }
+  }
+  __syncthreads();
+  float* part = partials + ((size_t)b * gridDim.x + blockIdx.x) * 2 * C;
+  for (int c = threadIdx.x; c < C; c += kLnThreads) {
+    float sg = 0.f, sb = 0.f;
+    const float gc = gamma[c];
+    for (int r = 0; r < rows; ++r) {
+      const size_t at = ((size_t)b * Tq + row0 + r) * C + c;
+      const float x = (o[at] + to_float(residual[at])) - row_mean[r];
+      const float gy = to_float(dy[at]);
+      sb += gy;
+      sg += gy * (x * row_inv[r]);
+      dres[at] = from_float<T>((gy * gc - row_mdxh[r]) * row_inv[r] - x * row_coef[r]);
+    }
+    part[c] = sg;
+    part[C + c] = sb;
+  }
+}
+
+template <typename T>
+cudaError_t launch_ln_wide(const float* o, const T* residual, const float* gamma, const T* dy,
+                           T* dres, float* partials, int B, int Tq, int C, int tile,
+                           cudaStream_t stream) {
+  if (tile < 1 || tile > kLnWideRows) return cudaErrorInvalidValue;
+  const dim3 grid((Tq + tile - 1) / tile, B);
+  graph_attention_ln_bwd_ln_wide_kernel<T><<<grid, kLnThreads, 0, stream>>>(
+      o, residual, gamma, dy, dres, partials, Tq, C, tile);
+  return cudaGetLastError();
+}
+
 // 3. dQ of (head blockIdx.x, 16 WARPS query rows blockIdx.y, batch
 // blockIdx.z), keys 32 a step through a two-stage ring of (K, V, graph tile,
 // key mask); Q and dO staged once. Each warp first takes its rows' delta =
@@ -1770,7 +1863,10 @@ cudaError_t launch_rows_f32(const F32Bwd& p) {
   const float* d_o = p.dy;   // from d(o): dy is dO itself
   if (!p.from_do) {
     const int nk = (p.C + 31) / 32;
-    err = nk <= 4 ? launch_ln_f32<4>(p) : nk <= 8 ? launch_ln_f32<8>(p)
+    err = p.C > kF32MaxC ? launch_ln_wide<float>(p.o, p.residual, p.gamma, p.dy, p.dres,
+                                                 p.partials, p.B, p.Tq, p.C, p.row_tile,
+                                                 p.stream)
+        : nk <= 4 ? launch_ln_f32<4>(p) : nk <= 8 ? launch_ln_f32<8>(p)
         : nk <= 16 ? launch_ln_f32<16>(p) : nk <= 32 ? launch_ln_f32<32>(p) : launch_ln_f32<64>(p);
     if (err != cudaSuccess) return err;
     d_o = p.dres;
@@ -1817,7 +1913,8 @@ cudaError_t launch_f32(const F32Bwd& p) {
 // is a multiple of 4, at most 128), whose LayerNorm backward writes one
 // dgamma / dbeta partial per row_tile rows; 0 = the first SIMT kernels
 // (either dtype, head widths up to 256), row_tile rows a block (1 to 16).
-// C is at most 2,048. partials: (B * ceil(Tq / rows a block), 2, C) f32, per-block
+// Any C (the f32 path's LayerNorm backward above C 2,048 is the wide one,
+// row_tile at most 64). partials: (B * ceil(Tq / rows a block), 2, C) f32, per-block
 // dgamma / dbeta. stats: (B, H, Tq, 8) f32 and dout: (B, Tq, C) f32 are
 // scratch passed between the launches (the tensor-core keys launch reads
 // dO from dres and takes no dout; in f32 dout holds the forward's output O).
@@ -1828,8 +1925,9 @@ extern "C" int savqa_graph_attention_ln_bwd(
     void* dk, void* dv, void* dres, void* partials, void* dout, void* stats, int B, int Tq,
     int Tk, int C, int H, int renorm, int dtype, int path, int row_tile, float scale,
     void* stream) {
-  if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || C % H != 0 || C > kF32MaxC ||
-      (renorm != 0 && renorm != 1) || bad_path(dtype, C / H, path, row_tile))
+  if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || C % H != 0 || (renorm != 0 && renorm != 1) ||
+      bad_path(dtype, C / H, path, row_tile) ||
+      (path == 2 && C > kF32MaxC && row_tile > kLnWideRows))
     return (int)cudaErrorInvalidValue;
   const auto* km = static_cast<const float*>(key_mask);
   const auto* qm = static_cast<const float*>(query_mask);
@@ -1878,9 +1976,8 @@ extern "C" int savqa_graph_attention_bwd(
     const void* graph, const void* d_o, void* dq, void* dk, void* dv, void* dout, void* stats,
     int B, int Tq, int Tk, int C, int H, int renorm, int dtype, int path, int row_tile,
     float scale, void* stream) {
-  if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || C % H != 0 || C > kF32MaxC ||
-      (renorm != 0 && renorm != 1) || bad_path(dtype, C / H, path, row_tile) ||
-      (path != 1 && dout == nullptr))
+  if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || C % H != 0 || (renorm != 0 && renorm != 1) ||
+      bad_path(dtype, C / H, path, row_tile) || (path != 1 && dout == nullptr))
     return (int)cudaErrorInvalidValue;
   const auto* km = static_cast<const float*>(key_mask);
   const auto* qm = static_cast<const float*>(query_mask);
@@ -1913,4 +2010,31 @@ extern "C" int savqa_graph_attention_bwd(
   return (int)launch<__nv_bfloat16>(q, k, v, km, qm, g, nullptr, nullptr, d_o, dq, dk, dv,
                                     nullptr, nullptr, dout_f, st, B, Tq, Tk, C, H, renorm,
                                     scale, 1, row_tile, s);
+}
+
+// K2's wide path (ops/fused_graph_attention.py "wide"), its LayerNorm
+// backward at any C: from o, K1's attention output (B, Tq, C) f32, the
+// residual, gamma and dy, dres = dO (B, Tq, C) and the dgamma / dbeta
+// partials (B * ceil(Tq / row_tile), 2, C) f32 of row_tile rows each (1 to
+// 64). residual, dy and dres of dtype (0 float32, 1 bfloat16). The
+// attention backward of that path is K5's and K6's kernels
+// (csrc/flash_graph_attention_bwd.cu).
+extern "C" int savqa_attention_ln_bwd(const void* o, const void* residual, const void* gamma,
+                                      const void* dy, void* dres, void* partials, int B, int Tq,
+                                      int C, int dtype, int row_tile, void* stream) {
+  if (B <= 0 || Tq <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+  const auto* of = static_cast<const float*>(o);
+  const auto* ga = static_cast<const float*>(gamma);
+  auto* pa = static_cast<float*>(partials);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch_ln_wide<float>(of, static_cast<const float*>(residual), ga,
+                                      static_cast<const float*>(dy), static_cast<float*>(dres),
+                                      pa, B, Tq, C, row_tile, s);
+  if (dtype == 1)
+    return (int)launch_ln_wide<__nv_bfloat16>(of, static_cast<const bf16*>(residual), ga,
+                                              static_cast<const bf16*>(dy),
+                                              static_cast<bf16*>(dres), pa, B, Tq, C, row_tile,
+                                              s);
+  return (int)cudaErrorInvalidValue;
 }

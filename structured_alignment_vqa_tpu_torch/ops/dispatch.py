@@ -12,8 +12,10 @@ multiples of 4 up to 128 (``fused_graph_attention.k1_path`` and
 ``k2_path``, ``flash_graph_attention.k4_path``, ``dq_kernel`` and
 ``dkv_kernel``). Every other call keeps the first SIMT kernels: bfloat16 at
 a head width that is no multiple of 16 or above ``TC_MAX_HEAD_DIM``,
-float32 at a head width that is no multiple of 4 or above it. The attention
-kernels take head widths up to ``MAX_HEAD_DIM``.
+float32 at a head width that is no multiple of 4 or above it, up to
+``SIMT_MAX_HEAD_DIM``. Wider heads take the wide kernels ("wide"), which
+cut a head's output channels into chunks of 256 over blocks. No kernel has
+an upper bound on C or on the head width.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ import torch
 SM_COUNT = 132       # streaming multiprocessors of an H100 SXM
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on Hopper
 TC_MAX_HEAD_DIM = 128   # the tensor-core and register-tiled f32 kernels' widest head
-MAX_HEAD_DIM = 256      # the widest head K1-K6 take (the SIMT kernels' register accumulators)
+SIMT_MAX_HEAD_DIM = 256  # the first SIMT kernels' widest head (register accumulators);
+                         # wider heads take the wide kernels
 
 
 def use_kernel(x: torch.Tensor) -> bool:

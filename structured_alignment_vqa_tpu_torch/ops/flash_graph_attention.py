@@ -63,10 +63,20 @@ multiple of 16 or above 128, float32 at a head width that is no multiple of
 4 or above 128 (:func:`k4_path`, :func:`dq_kernel` and :func:`dkv_kernel`
 name K4's, K5's and K6's kernel for a call). They stage rows of the head
 width rounded up to 4, the columns past it zero, and take head widths up to
-``MAX_HEAD_DIM`` (256: K5's blocks and K6's steps then hold 32 query rows,
-not 64, to fit their shared memory). TF32 products would not hold the 1e-4
-the float32 path is checked to. The wrappers raise above C ``MAX_C``
-(2,048) or that head width.
+``SIMT_MAX_HEAD_DIM`` (256: K5's blocks and K6's steps then hold 32 query
+rows, not 64, to fit their shared memory). TF32 products would not hold the
+1e-4 the float32 path is checked to.
+
+Head widths above 256 take the wide kernels ("wide", in either dtype): a
+head's output channels are cut into chunks of ``WIDE_CHUNK`` (256) over
+blocks, grid (tile, head x chunk, batch), and each block streams the whole
+head width through shared memory 64 channels at a time for its scores and
+dN, so the scores are recomputed ceil(dh / 256) times. The same wide forward
+with ``emit`` 3 (:func:`attention_o`: K1's weights in a second pass over
+the keys, K1's f32 output) and the wide K5 and K6
+(:func:`attention_o_backward`) serve K1's and K2's wide path
+(``ops/fused_graph_attention.py``). No kernel has an upper bound on C;
+their C entries never had one.
 """
 
 from __future__ import annotations
@@ -77,7 +87,7 @@ import torch
 
 from structured_alignment_vqa_tpu_torch.ops import _build
 from structured_alignment_vqa_tpu_torch.ops.dispatch import (
-    MAX_HEAD_DIM,
+    SIMT_MAX_HEAD_DIM,
     SM_COUNT,
     f32_tiled,
     kernel_path,
@@ -91,7 +101,9 @@ from structured_alignment_vqa_tpu_torch.ops.fused_graph_attention import (
 from structured_alignment_vqa_tpu_torch.ops.layers import NEG_MASK_VALUE
 
 EMITS = ("out", "stats", "partial")
-MAX_C = 2048         # the widest C K4-K6 take, as K1's and K2's
+EMIT_O = 3           # the C entry's emit of the f32 output (the wide kernel, K1's and K2's wide path)
+WIDE_CHUNK = 256     # output channels a block of the wide kernels
+MAX_GRID_Y = 65535   # the wide kernels' blocks of (head x chunk) along the grid's y
 KEY_STEP = 64        # keys a block walks per step (both K4 kernels)
 TC_Q_TILE = 64       # query rows per block of the tensor-core kernel (kTcWarps x 16)
 F32_SPLIT_STEPS = 4  # key steps a shard of the f32 kernel, when it splits
@@ -184,11 +196,38 @@ def key_split(batch: int, num_heads: int, tq: int, tk: int) -> tuple:
 def k4_path(dtype, head_dim: int) -> str:
     """Which of K4's kernels a call takes: ``"tensor-core"`` (bfloat16 at
     head widths that are multiples of 16 up to 128), ``"f32"`` (the
-    register-tiled FFMA kernel: float32 at multiples of 4 up to 128) or
+    register-tiled FFMA kernel: float32 at multiples of 4 up to 128),
+    ``"wide"`` (head widths above ``SIMT_MAX_HEAD_DIM``, either dtype) or
     ``"simt"`` (the first SIMT kernel: every other call, either dtype)."""
     if kernel_path(dtype, head_dim) == "tensor-core":
         return "tensor-core"
-    return "f32" if f32_tiled(dtype, head_dim) else "simt"
+    if f32_tiled(dtype, head_dim):
+        return "f32"
+    return "wide" if head_dim > SIMT_MAX_HEAD_DIM else "simt"
+
+
+def wide_chunks(head_dim: int) -> int:
+    """The chunks of ``WIDE_CHUNK`` output channels a head takes in the wide
+    kernels: their scores are computed this many times."""
+    return -(-head_dim // WIDE_CHUNK)
+
+
+def smem_bytes_wide(kernel: str) -> int:
+    """Dynamic shared memory of one block of the wide kernel of ``kernel``
+    ("K4", "K5" or "K6"; must match ``wide_smem_bytes``,
+    ``dq_wide_smem_bytes`` and ``dkv_wide_smem_bytes`` in ``csrc/``), the
+    same at every head width: rows of 64 channels (+ 4) for the scores, of
+    256 (+ 4) for the block's chunk. K4: Q, K (64 rows each), V's chunk, the
+    weights (64, 68), the key mask; K5: Q, dO, K, V, K's chunk, dS, the key
+    mask; K6: K, V (64 keys), Q, dO (32 rows), Q's and dO's chunks, n and dS
+    (32, 68), the key mask, 20 bytes of row terms a row."""
+    score, chunk, p = 4 * (KEY_STEP + 4), 4 * (WIDE_CHUNK + 4), 4 * (KEY_STEP + 4)
+    if kernel == "K4":
+        return 2 * 64 * score + 64 * chunk + 64 * p + 4 * KEY_STEP
+    if kernel == "K5":
+        return 4 * 64 * score + 64 * chunk + 64 * p + 4 * KEY_STEP
+    rows = 32
+    return (2 * 64 + 2 * rows) * score + 2 * rows * chunk + 2 * rows * p + 4 * KEY_STEP + 20 * rows
 
 
 def simt_rows(head_dim: int) -> int:
@@ -264,7 +303,7 @@ def smem_bytes_dkv_f32(head_dim: int) -> int:
     return 4 * (2 * DKV_F32_KEYS * width + 4 * DKV_F32_ROWS * 16 + 2 * stage)
 
 
-DQ_PATHS = ("simt", "tensor-core", "f32")   # the C entry's path argument (K5)
+DQ_PATHS = ("simt", "tensor-core", "f32", "wide")   # the C entry's path argument (K5)
 DQ_F32_STEP = 32    # keys a step of K5's float32 kernel
 SIMT_Q_TILE = 64    # query rows a block of the first SIMT kernels
 
@@ -328,7 +367,7 @@ def _dq_plan(path: str, batch: int, num_heads: int, tq: int, tk: int) -> tuple:
         return (*dq_f32_plan(batch, num_heads, tq, tk), DQ_F32_STEP)
     if path == "tensor-core":
         return (TC_Q_TILE, *key_split(batch, num_heads, tq, tk), KEY_STEP)
-    return SIMT_Q_TILE, 1, -(-tk // KEY_STEP), KEY_STEP
+    return SIMT_Q_TILE, 1, -(-tk // KEY_STEP), KEY_STEP   # the SIMT and wide kernels
 
 
 def masked_grad_and_delta(out, dy, query_mask, num_heads: int):
@@ -428,11 +467,7 @@ def _check(q, k, v, key_mask, graph, num_heads: int, renorm: str, extra: dict) -
     tk = k.shape[1]
     if c % num_heads:
         raise ValueError("C must be divisible by num_heads")
-    if c > MAX_C:
-        raise ValueError(f"C {c}: K4-K6 take C at most {MAX_C}")
-    dh = c // num_heads
-    if dh > MAX_HEAD_DIM:
-        raise ValueError(f"head width {dh} > {MAX_HEAD_DIM}, the widest K4-K6 take")
+    check_wide_grid(c // num_heads, num_heads)
     want = {
         "q": (q, (b, tq, c), q.dtype), "k": (k, (b, tk, c), q.dtype),
         "v": (v, (b, tk, c), q.dtype),
@@ -455,11 +490,19 @@ def _check(q, k, v, key_mask, graph, num_heads: int, renorm: str, extra: dict) -
             raise ValueError(f"{name} must be contiguous")
 
 
-def _launch_forward(q, k, v, key_mask, query_mask, graph, num_heads: int, renorm: str,
-                    emit: str):
-    if emit not in EMITS:
-        raise ValueError(f"unknown emit mode: {emit!r}")
-    _check(q, k, v, key_mask, graph, num_heads, renorm, {"query_mask": query_mask})
+def check_wide_grid(head_dim: int, num_heads: int) -> None:
+    """Raise where the wide kernels' (head x chunk) blocks would pass the
+    grid's y extent (``MAX_GRID_Y``): 65,535 heads of up to 256 channels."""
+    if head_dim > SIMT_MAX_HEAD_DIM and num_heads * wide_chunks(head_dim) > MAX_GRID_Y:
+        raise ValueError(f"{num_heads} heads x {wide_chunks(head_dim)} chunks of "
+                         f"{WIDE_CHUNK} channels > {MAX_GRID_Y} blocks along the grid's y")
+
+
+def _forward_call(q, k, v, key_mask, query_mask, graph, num_heads: int, renorm: str,
+                  emit: int, stats: bool):
+    """One call of K4's C entry, counted by none: ``emit`` its index (0-2 of
+    ``EMITS``, or ``EMIT_O``), ``stats`` whether m, z, b are written.
+    Returns ``out`` or ``(out, m, z, b)``."""
     fn = _build.library("flash_graph_attention").savqa_flash_graph_attention
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p]
@@ -467,31 +510,68 @@ def _launch_forward(q, k, v, key_mask, query_mask, graph, num_heads: int, renorm
     tk = k.shape[1]
     dev = q.device
     dh = c // num_heads
-    n_split, per = kernel_key_split(q.dtype, dh, b, num_heads, tq, tk)
-    q_tile = (f32_plan(b, num_heads, tq, tk)[0] if k4_path(q.dtype, dh) == "f32"
-              else TC_Q_TILE)
+    if emit == EMIT_O:
+        n_split, per, q_tile = 1, -(-tk // KEY_STEP), TC_Q_TILE   # the wide kernel, unsplit
+    else:
+        n_split, per = kernel_key_split(q.dtype, dh, b, num_heads, tq, tk)
+        q_tile = (f32_plan(b, num_heads, tq, tk)[0] if k4_path(q.dtype, dh) == "f32"
+                  else TC_Q_TILE)
     scratch = [None, None]
     if n_split > 1:    # the shards' raw a and m, z, b between the two kernels
         scratch = [torch.empty(n_split, b, num_heads, tq, dh, dtype=torch.float32, device=dev),
                    torch.empty(3, n_split, b, num_heads, tq, dtype=torch.float32, device=dev)]
-    if emit == "partial":
+    if emit == EMITS.index("partial"):
         out = torch.empty(b, num_heads, tq, c // num_heads, dtype=torch.float32, device=dev)
+    elif emit == EMIT_O:
+        out = torch.empty(b, tq, c, dtype=torch.float32, device=dev)
     else:
         out = torch.empty_like(q)
-    stats = [None] * 3 if emit == "out" else [
+    row_stats = [None] * 3 if not stats else [
         torch.empty(b, num_heads, tq, dtype=torch.float32, device=dev) for _ in range(3)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(),
             query_mask.data_ptr(), graph.data_ptr(), out.data_ptr(),
-            *(None if s is None else s.data_ptr() for s in stats + scratch),
-            b, tq, tk, c, num_heads, RENORMS.index(renorm), EMITS.index(emit),
+            *(None if s is None else s.data_ptr() for s in row_stats + scratch),
+            b, tq, tk, c, num_heads, RENORMS.index(renorm), emit,
             _DTYPES[q.dtype], n_split, per, q_tile, 1.0 / dh ** 0.5, stream,
         )
     _build.check(status, "flash_graph_attention kernel")
+    return (out, *row_stats) if stats else out
+
+
+def _launch_forward(q, k, v, key_mask, query_mask, graph, num_heads: int, renorm: str,
+                    emit: str):
+    if emit not in EMITS:
+        raise ValueError(f"unknown emit mode: {emit!r}")
+    _check(q, k, v, key_mask, graph, num_heads, renorm, {"query_mask": query_mask})
+    result = _forward_call(q, k, v, key_mask, query_mask, graph, num_heads, renorm,
+                           EMITS.index(emit), emit != "out")
     flash_graph_attention.launches += 1
-    return out if emit == "out" else (out, *stats)
+    return result
+
+
+def attention_o(q, k, v, key_mask, query_mask, graph, num_heads: int, renorm: str,
+                stats: bool = False):
+    """K1's attention output ``o`` (B, Tq, C) float32 by the wide forward
+    kernel (``emit`` 3), and with ``stats`` its m, z, b (B, H, Tq): K1's and
+    K2's wide path (``ops/fused_graph_attention.py``), counted there. A
+    first pass over the keys takes m, z and b, a second forms K1's weights
+    from them, rounded where K1 rounds them (``(e / z) g / r qmask`` in V's
+    dtype), and sums them times V."""
+    _check(q, k, v, key_mask, graph, num_heads, renorm, {"query_mask": query_mask})
+    return _forward_call(q, k, v, key_mask, query_mask, graph, num_heads, renorm, EMIT_O, stats)
+
+
+def attention_o_backward(q, k, v, key_mask, query_mask, graph, o, m, z, bsum, d_o,
+                         num_heads: int, renorm: str):
+    """``(dq, dk, dv)`` of :func:`attention_o` from ``d_o``, the gradient of
+    ``o`` in q's dtype: delta and the masked dO in torch, then K5's and K6's
+    kernels (the wide ones above head width 256), counted by the caller."""
+    d_out, delta = masked_grad_and_delta(o, d_o, query_mask, num_heads)
+    args = (q, k, v, key_mask, graph, m, z, bsum, delta, d_out.to(q.dtype), num_heads, renorm)
+    return (_launch_dq(*args), *_launch_dkv(*args))
 
 
 def _call_backward(entry: str, outs: list, ints: list, q, k, v, key_mask, graph, m, z, bsum,
@@ -551,8 +631,8 @@ def _launch_dq(q, k, v, key_mask, graph, m, z, bsum, delta, d_out, num_heads: in
                renorm: str, path: "str | None" = None):
     """K5's launch: :func:`dq_kernel`'s kernel with its key split, or the
     kernel ``path`` (one of ``DQ_PATHS``) names where it takes the shape:
-    "simt" takes every shape, in one shard, which lets a check hold the
-    float32 kernel to the first SIMT kernel bit for bit."""
+    "simt" takes every head width up to 256, in one shard, which lets a
+    check hold the float32 kernel to the first SIMT kernel bit for bit."""
     args = (q, k, v, key_mask, graph, m, z, bsum, delta, d_out, num_heads, renorm)
     _check(q, k, v, key_mask, graph, num_heads, renorm,
            {"m": m, "z": z, "b": bsum, "delta": delta, "d_out": d_out})
@@ -576,12 +656,19 @@ def flash_bwd_dkv(q, k, v, key_mask, graph, m, z, bsum, delta, d_out, num_heads:
     if not use_kernel(q):
         return flash_bwd_dkv_plain(q, k, v, key_mask, graph, m, z, bsum, delta, d_out,
                                    num_heads, renorm)
+    dk, dv = _launch_dkv(q, k, v, key_mask, graph, m, z, bsum, delta, d_out, num_heads, renorm)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def _launch_dkv(q, k, v, key_mask, graph, m, z, bsum, delta, d_out, num_heads: int,
+                renorm: str):
+    """K6's launch (:func:`dkv_kernel`'s kernel), counted by the caller."""
     _check(q, k, v, key_mask, graph, num_heads, renorm,
            {"m": m, "z": z, "b": bsum, "delta": delta, "d_out": d_out})
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _call_backward("savqa_flash_graph_attention_bwd_dkv", [dk, dv], [], q, k, v, key_mask, graph,
                    m, z, bsum, delta, d_out, num_heads, renorm)
-    flash_bwd_dkv.launches += 1
     return dk, dv
 
 

@@ -32,9 +32,15 @@ operations; what each does about it:
   past C out, and bf16 rows that are not 16-byte aligned (C or the hidden
   width no multiple of 8) are copied element by element.
 
-The kernels take C from 1 to ``MAX_C`` (2,048) and a hidden width from 1
-to ``MAX_HIDDEN`` (4 x 2,048), the domain of the model's widths; the
-wrapper raises outside it.
+The kernels take every C and every hidden width: above C ``LANE_MAX_C``
+(2,048), where a warp's lanes can no longer hold a row, the residual and
+LayerNorm run in a row kernel (one block a row, the row staged in shared
+memory up to 57,344 columns and formed again from the partials in each of
+its three passes above that), and the f32 products cut the hidden width
+into at most four shards (:func:`f32_shard_chunks`). The f32 product kernel
+counts its offsets in 32 bits from each tile's first row, so the wrapper
+raises only where 128 rows of C or of the hidden width pass 2^31 elements
+(``MAX_WIDTH``).
 
 Every launch of either counts once. The wrapper allocates the scratch with
 ``torch.empty`` (:func:`_scratch`); the kernels allocate nothing. On CPU
@@ -79,11 +85,11 @@ WIDTHS = (128, 256, 512)   # the preset widths: f32 at these C sums in one shard
 # C values of the bf16 row-tile kernel (its shared memory grows with C:
 # 318,464 bytes at C 768); every other C takes the products path
 ROW_TILE_WIDTHS = (128, 256, 384, 512)
-MAX_C = 2048               # the widest C (the shard-sum kernel's widest instance)
-MAX_HIDDEN = 4 * MAX_C     # the widest hidden width (FeedForward(h, (4h, h)) at C 2,048)
+LANE_MAX_C = 2048          # the shard-sum kernel's widest instance; wider rows take the row kernel
 HIDDEN_CHUNK = 64          # hidden columns a chunk; the last chunk may be shorter
 TC_ROWS = 64               # rows per block of the bf16 row-tile kernel
 PRODUCT_TILE = 128         # columns (and at most rows) of a block's tile on the products path
+MAX_WIDTH = (2 ** 31 - 1) // PRODUCT_TILE   # C and hidden width: a tile's 32-bit offsets
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -146,6 +152,7 @@ CHUNK_S = {(torch.float32, 128): 6.1e-6, (torch.float32, 64): 3.7e-6,
            (torch.bfloat16, 128): 0.9e-6}   # by (dtype, tile rows); tiles 128 wide
 PARTIAL_BYTES_PER_S = 3e12
 WIDE_SHARD_CHUNKS = 16   # f32 at C 2,048: a shard spans 1,024 hidden columns
+MAX_WIDE_SHARDS = 4      # f32 above C 2,048: at most this many shards
 
 
 def f32_shard_chunks(c: int, hidden: int) -> int:
@@ -154,9 +161,16 @@ def f32_shard_chunks(c: int, hidden: int) -> int:
     kernel this path replaced, so that its results are that kernel's bits
     at the preset widths (and a row's output never depends on the rows
     beside it); above C 512 shards of 1,024 columns, which the SMs need at
-    C 2,048. A function of C and the hidden width alone."""
+    C 2,048; above C 2,048 at least 1,024 columns and at most
+    ``MAX_WIDE_SHARDS`` shards, whose (shards, rows, C) f32 partials would
+    otherwise outgrow the card (16 shards of 57,600 rows at C 4,096: 15
+    GB). A function of C and the hidden width alone."""
     chunks = _chunks(hidden)
-    return chunks if c <= max(WIDTHS) else min(WIDE_SHARD_CHUNKS, chunks)
+    if c <= max(WIDTHS):
+        return chunks
+    if c <= LANE_MAX_C:
+        return min(WIDE_SHARD_CHUNKS, chunks)
+    return min(chunks, max(WIDE_SHARD_CHUNKS, -(-chunks // MAX_WIDE_SHARDS)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -248,11 +262,12 @@ def ffn_partial_composite(x, w1, b1, w2):
 
 
 def _check_widths(c: int, hd: int) -> None:
-    """Raise unless C and the hidden width lie in the kernels' domain."""
-    if not 1 <= c <= MAX_C:
-        raise ValueError(f"the FFN kernel takes C from 1 to {MAX_C}, got {c}")
-    if not 1 <= hd <= MAX_HIDDEN:
-        raise ValueError(f"the FFN kernel takes a hidden width from 1 to {MAX_HIDDEN}, got {hd}")
+    """Raise unless C and the hidden width are at least 1 and the f32
+    product kernel's 32-bit offsets reach a tile of 128 rows of either."""
+    for name, width in (("C", c), ("hidden width", hd)):
+        if not 1 <= width <= MAX_WIDTH:
+            raise ValueError(f"the FFN kernel takes a {name} from 1 to {MAX_WIDTH} (128 rows of "
+                             f"it within 2^31 elements), got {width}")
 
 
 def _check(x, w1, b1, w2, b2, gamma, beta) -> None:
@@ -434,8 +449,8 @@ def _launch_partial(x, w1, b1, w2) -> torch.Tensor:
 
 def _check_epilogue(y, x, b2, gamma, beta) -> None:
     c = x.shape[-1]
-    if x.dtype not in _DTYPES or not 1 <= c <= MAX_C:
-        raise ValueError(f"the FFN epilogue takes C from 1 to {MAX_C}, f32 or bf16; got "
+    if x.dtype not in _DTYPES or c < 1:
+        raise ValueError(f"the FFN epilogue takes a C of at least 1, f32 or bf16; got "
                          f"{c} {x.dtype}")
     for name, t, shape, dtype in (("y", y, tuple(x.shape), torch.float32),
                                   ("b2", b2, (c,), x.dtype), ("gamma", gamma, (c,), torch.float32),

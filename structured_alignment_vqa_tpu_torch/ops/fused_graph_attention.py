@@ -42,9 +42,26 @@ as at C 2,048 with 8 heads of 256 and 512 keys). None of the port's
 presets reaches it: the hidden 2,048 blocks of the MIL variants return
 their attention weights and so run ``attention_core``.
 
-K1 and K2 take C up to ``MAX_C`` (2,048) and head widths up to
-``MAX_HEAD_DIM`` (256) at up to ``MAX_KEYS`` keys; the wrappers raise
-outside that domain.
+K1 and K2 take every C and every head width at up to ``MAX_KEYS`` keys.
+Head widths above ``SIMT_MAX_HEAD_DIM`` (256), and SIMT calls whose single
+row of C does not fit a block's shared memory, take the wide path
+(:func:`k1_path` and :func:`k2_path` "wide"): K1 is the wide K4 forward
+with ``emit`` 3 (:func:`flash_graph_attention.attention_o`: the head's
+output channels in chunks of 256 over blocks, each streaming the whole head
+width through shared memory for its scores; a first pass over the keys
+for m, z and b, a second for K1's weights, rounded where K1 rounds them,
+and the f32 output) and then K1's LayerNorm kernel; K2 is that forward
+with its row statistics, a LayerNorm backward that reads each row in
+chunks (``csrc/graph_attention_bwd.cu:savqa_attention_ln_bwd``), then K5's
+and K6's kernels (the wide ones above 256, whose bfloat16 operands n and dS
+are K4-K6's). Each call counts as one launch of K1 or K2. C 4,096 at 32
+heads of 128 keeps the tensor-core
+(bfloat16) and register-tiled (float32) K1 kernels, which are per head;
+only their LayerNorm epilogue sees C, and it takes any C. K2's float32
+kernels take any C too (above 2,048 their LayerNorm backward is the one
+that reads rows in chunks); bfloat16 at C 4,096 with 32 heads takes the
+SIMT kernels (the tensor-core rows launch does not fit, as at C 2,048 with
+16 heads) with :func:`simt_bwd_rows` rows a block.
 
 K2 has three designs (:func:`k2_path`), each a rows launch
 (the forward recomputed, the LayerNorm backward, dQ and per-row constants)
@@ -90,7 +107,7 @@ import torch
 
 from structured_alignment_vqa_tpu_torch.ops import _build
 from structured_alignment_vqa_tpu_torch.ops.dispatch import (
-    MAX_HEAD_DIM,
+    SIMT_MAX_HEAD_DIM,
     SMEM_LIMIT,
     TC_MAX_HEAD_DIM,
     composite_backward,
@@ -105,7 +122,7 @@ L1_NORM_EPS = 1e-12
 SUM_NORM_EPS = 1e-7
 RENORMS = ("l1", "sum_eps")
 MAX_KEYS = 512
-MAX_C = 2048         # the widest C K1 and K2 take (K2's f32 LayerNorm backward registers)
+F32_LN_MAX_C = 2048  # K2's f32 LayerNorm backward holds a row in registers up to this C
 Q_TILE = 16          # query rows per block of the SIMT kernels (K1, K2's rows launch), at most
 KEY_CHUNK = 64       # keys staged in shared memory at a time
 N_STATS = 8          # floats per (batch, head, query row) passed between K2's launches
@@ -264,18 +281,23 @@ def graph_attention_bwd_plain(q, k, v, key_mask, query_mask, graph, do, num_head
 K1_PATHS = ("simt", "tensor-core", "f32")   # the C entries' path argument
 
 
-def k1_path(dtype, head_dim: int) -> str:
+def k1_path(dtype, head_dim: int, tk: "int | None" = None, c: "int | None" = None) -> str:
     """Which of K1's CUDA kernels a call takes: ``"tensor-core"`` for
     bfloat16 at head widths that are multiples of 16 up to
     ``TC_MAX_HEAD_DIM`` (``kernel_path``), ``"f32"`` (the register-tiled
     FFMA kernel of ``csrc/simt_f32.cuh``) for float32 at head widths that
-    are multiples of 4 up to ``TC_MAX_HEAD_DIM``, else ``"simt"`` (the
+    are multiples of 4 up to ``TC_MAX_HEAD_DIM``, ``"wide"`` above head
+    width ``SIMT_MAX_HEAD_DIM`` or where one row of the first SIMT kernel
+    does not fit a block (given ``tk`` and ``c``), else ``"simt"`` (the
     first SIMT kernel). A choice by shape, not a fallback: a launch that
     fails raises."""
     if kernel_path(dtype, head_dim) == "tensor-core":
         return "tensor-core"
     if f32_tiled(dtype, head_dim):
         return "f32"
+    if head_dim > SIMT_MAX_HEAD_DIM or (
+            c is not None and _simt_smem(1, tk, c, head_dim) > SMEM_LIMIT):
+        return "wide"
     return "simt"
 
 
@@ -309,8 +331,8 @@ def o_scratch(q, num_heads: int, path: "str | None" = None):
     """The f32 (B, Tq, C) scratch of the attention output that K1's
     tensor-core and float32 paths (``path``, by default :func:`k1_path`'s)
     pass to their LayerNorm kernel, or None on the SIMT path, which keeps it
-    in shared memory."""
-    if (path or k1_path(q.dtype, q.shape[-1] // num_heads)) == "simt":
+    in shared memory, and on the wide path, whose forward allocates it."""
+    if (path or k1_path(q.dtype, q.shape[-1] // num_heads)) in ("simt", "wide"):
         return None
     return torch.empty(*q.shape, dtype=torch.float32, device=q.device)
 
@@ -387,13 +409,20 @@ def k2_path(dtype, head_dim: int, tk: "int | None" = None, c: "int | None" = Non
     """Which of K2's designs a call takes: ``"tensor-core"`` for bfloat16 at
     head widths that are multiples of 16 up to ``TC_MAX_HEAD_DIM`` whose
     rows launch fits (given ``tk``, ``c`` and ``num_heads``; at C 2,048 with
-    16 heads its 32 rows of C + 8 f32 and bf16 do not), ``"f32"`` for
-    float32 at head widths that are multiples of 4 up to
-    ``TC_MAX_HEAD_DIM``, else ``"simt"``. A pure function of the shapes."""
+    16 heads, and C 4,096 with 32, its 32 rows of C + 8 f32 and bf16 do
+    not), ``"f32"`` for float32 at head widths that are multiples of 4 up to
+    ``TC_MAX_HEAD_DIM`` (any C), ``"wide"`` above head width
+    ``SIMT_MAX_HEAD_DIM`` or where one row of the SIMT rows launch does not
+    fit, else ``"simt"``. A pure function of the shapes."""
     if kernel_path(dtype, head_dim) == "tensor-core" and (
             c is None or smem_bytes_bwd_tc(tk, c, num_heads) <= SMEM_LIMIT):
         return "tensor-core"
-    return "f32" if f32_tiled(dtype, head_dim) else "simt"
+    if f32_tiled(dtype, head_dim):
+        return "f32"
+    if head_dim > SIMT_MAX_HEAD_DIM or (
+            c is not None and _simt_bwd_smem(1, tk, c, head_dim) > SMEM_LIMIT):
+        return "wide"
+    return "simt"
 
 
 def bwd_row_tile(dtype, head_dim: int, tq: int, tk: "int | None" = None,
@@ -405,7 +434,7 @@ def bwd_row_tile(dtype, head_dim: int, tq: int, tk: "int | None" = None,
     path = k2_path(dtype, head_dim, tk, c, num_heads)
     if path == "tensor-core":
         return BWD_TC_ROWS
-    if path == "f32":
+    if path in ("f32", "wide"):
         return BWD_F32_ROWS
     return min(Q_TILE, tq) if c is None else simt_bwd_rows(tq, tk, c, num_heads)
 
@@ -414,14 +443,16 @@ def smem_bytes_bwd_f32(tq: int, c: int, num_heads: int) -> int:
     """Dynamic shared memory of the largest block of K2's f32 kernels (must
     match ``csrc/graph_attention_bwd.cu``): the forward (K4's f32 body), dQ
     and dK/dV, head widths rounded up to 32, 64 or 128, 16 query rows a
-    block when Tq <= 16 (else 64), and the LayerNorm backward's (8, 2, C)."""
+    block when Tq <= 16 (else 64), and the LayerNorm backward's (8, 2, C)
+    up to C ``F32_LN_MAX_C`` (above it the LayerNorm backward keeps nothing
+    of size C on chip)."""
     dh = c // num_heads
     w = next(x for x in (32, 64, 128) if dh <= x)
     rows = 16 if tq <= 16 else 64
     fwd = rows * w + 2 * (2 * 64 * w + rows * 64 + 64)
     dq = 2 * rows * w + 2 * (2 * 32 * w + rows * 32 + 32)
     dkv = 2 * 64 * w + 4 * 32 * 16 + 2 * (2 * 32 * w + 32 * 64 + 32 * N_STATS)
-    return 4 * max(fwd, dq, dkv, 2 * 8 * c)
+    return 4 * max(fwd, dq, dkv, 2 * 8 * c if c <= F32_LN_MAX_C else 0)
 
 
 def smem_bytes_bwd_tc(tk: int, c: int, num_heads: int) -> int:
@@ -453,10 +484,6 @@ def _check(q, k, v, key_mask, query_mask, graph, residual, gamma, beta,
             "(K4, ops/flash_graph_attention.py), as the attention modules send them")
     if c % num_heads:
         raise ValueError("C must be divisible by num_heads")
-    if c > MAX_C:
-        raise ValueError(f"C {c}: K1 and K2 take C at most {MAX_C}")
-    if c // num_heads > MAX_HEAD_DIM:
-        raise ValueError(f"head width {c // num_heads} > {MAX_HEAD_DIM}, the widest K1 and K2 take")
     want = {
         "q": (q, (b, tq, c), q.dtype), "k": (k, (b, tk, c), q.dtype),
         "v": (v, (b, tk, c), q.dtype), "residual": (residual, (b, tq, c), q.dtype),
@@ -477,8 +504,15 @@ def _check(q, k, v, key_mask, query_mask, graph, residual, gamma, beta,
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     dh = c // num_heads
-    path = k1_path(q.dtype, dh) if dy is None else k2_path(q.dtype, dh, tk, c, num_heads)
-    if dy is None and path == "tensor-core":
+    path = k1_path(q.dtype, dh, tk, c) if dy is None else k2_path(q.dtype, dh, tk, c, num_heads)
+    if path == "wide":
+        from structured_alignment_vqa_tpu_torch.ops import flash_graph_attention as flash
+
+        flash.check_wide_grid(dh, num_heads)
+        kernels = ("K4",) if dy is None else ("K4", "K5", "K6")
+        need = max(flash.smem_bytes_wide(kn) if dh > SIMT_MAX_HEAD_DIM
+                   else flash.smem_bytes_simt(kn, dh) for kn in kernels)
+    elif dy is None and path == "tensor-core":
         need = smem_bytes_tc(tq, tk, c, num_heads)
     elif dy is None and path == "f32":
         need = smem_bytes_f32(tq, tk, c, num_heads)
@@ -507,13 +541,18 @@ def _launch(q, k, v, key_mask, query_mask, graph, residual, gamma, beta,
             num_heads: int, renorm: str, path: "str | None" = None) -> torch.Tensor:
     """K1's launch; ``path`` as :func:`_launch_heads`'s."""
     _check(q, k, v, key_mask, query_mask, graph, residual, gamma, beta, num_heads, renorm)
+    b, tq, c = q.shape
+    tk = k.shape[1]
+    path = path or k1_path(q.dtype, c // num_heads, tk, c)
+    if path == "wide":
+        out = _attention_ln_call(_wide_o(q, k, v, key_mask, query_mask, graph, num_heads, renorm),
+                                 residual, gamma, beta)
+        fused_graph_attention_ln.launches += 1
+        return out
     lib = _build.library("graph_attention")
     fn = lib.savqa_graph_attention_ln
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
-    b, tq, c = q.shape
-    tk = k.shape[1]
-    path = path or k1_path(q.dtype, c // num_heads)
     out = torch.empty_like(q)
     # the attention output, f32, before the residual and the LayerNorm (the
     # second kernel's input on the tensor-core and f32 paths)
@@ -534,18 +573,66 @@ def _launch(q, k, v, key_mask, query_mask, graph, residual, gamma, beta,
     return out
 
 
+def _wide_o(q, k, v, key_mask, query_mask, graph, num_heads: int, renorm: str,
+            stats: bool = False):
+    """The wide path's forward: K1's attention output o (B, Tq, C) f32 (and
+    with ``stats`` its m, z, b) by the wide K4 kernel."""
+    from structured_alignment_vqa_tpu_torch.ops import flash_graph_attention as flash
+
+    return flash.attention_o(q, k, v, key_mask, query_mask, graph, num_heads, renorm, stats)
+
+
+def _wide_attention_bwd(q, k, v, key_mask, query_mask, graph, o, m, z, bsum, d_o,
+                        num_heads: int, renorm: str):
+    """The wide path's attention backward: K5's and K6's kernels from the
+    gradient ``d_o`` of o (in q's dtype)."""
+    from structured_alignment_vqa_tpu_torch.ops import flash_graph_attention as flash
+
+    return flash.attention_o_backward(q, k, v, key_mask, query_mask, graph, o, m, z, bsum, d_o,
+                                      num_heads, renorm)
+
+
+def _launch_bwd_wide(q, k, v, key_mask, query_mask, graph, residual, gamma, beta, dy,
+                     num_heads: int, renorm: str, row_tile: int):
+    """K2's wide path: o and its statistics, the LayerNorm backward at any C
+    (``savqa_attention_ln_bwd``: dresidual = dO and the dgamma / dbeta
+    partials of ``row_tile`` rows), then K5 and K6."""
+    b, tq, c = q.shape
+    o, m, z, bsum = _wide_o(q, k, v, key_mask, query_mask, graph, num_heads, renorm, True)
+    dres = torch.empty_like(q)
+    partials = torch.empty(b * -(-tq // row_tile), 2, c, dtype=torch.float32, device=q.device)
+    fn = _build.library("graph_attention_bwd").savqa_attention_ln_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        status = fn(o.data_ptr(), residual.data_ptr(), gamma.data_ptr(), dy.data_ptr(),
+                    dres.data_ptr(), partials.data_ptr(), b, tq, c, _DTYPES[q.dtype], row_tile,
+                    stream)
+    _build.check(status, "attention_ln_bwd kernel")
+    dq, dk, dv = _wide_attention_bwd(q, k, v, key_mask, query_mask, graph, o, m, z, bsum, dres,
+                                     num_heads, renorm)
+    sums = partials.sum(dim=0)
+    return dq, dk, dv, dres, sums[0], sums[1]
+
+
 def _launch_bwd(q, k, v, key_mask, query_mask, graph, residual, gamma, beta, dy,
                 num_heads: int, renorm: str):
     _check(q, k, v, key_mask, query_mask, graph, residual, gamma, beta, num_heads, renorm, dy)
-    lib = _build.library("graph_attention_bwd")
-    fn = lib.savqa_graph_attention_ln_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
     b, tq, c = q.shape
     tk = k.shape[1]
     dh = c // num_heads
     path = k2_path(q.dtype, dh, tk, c, num_heads)
     row_tile = bwd_row_tile(q.dtype, dh, tq, tk, c, num_heads)
+    if path == "wide":
+        grads = _launch_bwd_wide(q, k, v, key_mask, query_mask, graph, residual, gamma, beta, dy,
+                                 num_heads, renorm, row_tile)
+        fused_graph_attention_ln_bwd.launches += 1
+        return grads
+    lib = _build.library("graph_attention_bwd")
+    fn = lib.savqa_graph_attention_ln_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
     tiles = -(-tq // row_tile)
     dq, dres = torch.empty_like(q), torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -644,17 +731,21 @@ def _launch_heads(q, k, v, key_mask, query_mask, graph, num_heads: int,
                   renorm: str, path: "str | None" = None) -> torch.Tensor:
     """The attention-only entry's launch; ``path`` (one of ``K1_PATHS``)
     runs a kernel other than :func:`k1_path`'s where it takes the shape:
-    "simt" takes every shape, which lets a check hold the f32 kernel to the
-    first SIMT kernel bit for bit."""
+    "simt" takes every shape whose row fits, which lets a check hold the
+    f32 kernel to the first SIMT kernel bit for bit."""
     _check(q, k, v, key_mask, query_mask, graph, None, None, None, num_heads, renorm)
+    b, tq, c = q.shape
+    tk = k.shape[1]
+    dh = c // num_heads
+    path = path or k1_path(q.dtype, dh, tk, c)
+    if path == "wide":
+        o = _wide_o(q, k, v, key_mask, query_mask, graph, num_heads, renorm)
+        graph_attention_heads.launches += 1
+        return o
     lib = _build.library("graph_attention")
     fn = lib.savqa_graph_attention
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
-    b, tq, c = q.shape
-    tk = k.shape[1]
-    dh = c // num_heads
-    path = path or k1_path(q.dtype, dh)
     o = torch.empty(b, tq, c, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -670,14 +761,20 @@ def _launch_heads(q, k, v, key_mask, query_mask, graph, num_heads: int,
 def _launch_heads_bwd(q, k, v, key_mask, query_mask, graph, do, num_heads: int,
                       renorm: str):
     _check(q, k, v, key_mask, query_mask, graph, None, None, None, num_heads, renorm, do)
-    lib = _build.library("graph_attention_bwd")
-    fn = lib.savqa_graph_attention_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
     b, tq, c = q.shape
     tk = k.shape[1]
     dh = c // num_heads
     path = k2_path(q.dtype, dh, tk, c, num_heads)
+    if path == "wide":
+        o, m, z, bsum = _wide_o(q, k, v, key_mask, query_mask, graph, num_heads, renorm, True)
+        grads = _wide_attention_bwd(q, k, v, key_mask, query_mask, graph, o, m, z, bsum, do,
+                                    num_heads, renorm)
+        graph_attention_heads_bwd.launches += 1
+        return grads
+    lib = _build.library("graph_attention_bwd")
+    fn = lib.savqa_graph_attention_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
     tensor_cores = path == "tensor-core"
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # scratch between the launches: the row constants and, but for the
@@ -756,6 +853,14 @@ def _launch_attention_ln(o, residual, gamma, beta) -> torch.Tensor:
                                   ("beta", beta, (c,), torch.float32)):
         if tuple(t.shape) != shape or t.dtype != dtype or t.device != residual.device:
             raise ValueError(f"{name}: expected {shape} {dtype}, got {tuple(t.shape)} {t.dtype}")
+    out = _attention_ln_call(o, residual, gamma, beta)
+    attention_ln.launches += 1
+    return out
+
+
+def _attention_ln_call(o, residual, gamma, beta) -> torch.Tensor:
+    """One launch of K1's LayerNorm kernel (any C), counted by the caller."""
+    c = residual.shape[-1]
     lib = _build.library("graph_attention")
     fn = lib.savqa_attention_ln
     fn.restype = ctypes.c_int
@@ -766,7 +871,6 @@ def _launch_attention_ln(o, residual, gamma, beta) -> torch.Tensor:
         status = fn(o.data_ptr(), residual.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
                     out.data_ptr(), residual.numel() // c, c, _DTYPES[residual.dtype], stream)
     _build.check(status, "attention_ln kernel")
-    attention_ln.launches += 1
     return out
 
 

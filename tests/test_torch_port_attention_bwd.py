@@ -157,8 +157,9 @@ def test_backward_wrapper_checks_dy():
     with pytest.raises(ValueError, match="dy"):
         k1._check(q, q, q, torch.ones(1, 3), torch.ones(1, 3), torch.ones(1, 3, 3), q,
                   torch.ones(16), torch.zeros(16), 2, "l1", dy=torch.zeros(1, 3, 8))
-    with pytest.raises(ValueError, match="head width"):
-        wide = torch.zeros(1, 3, 2 * (k1.MAX_HEAD_DIM + 1))
-        c = wide.shape[-1]
-        k1._check(wide, wide, wide, torch.ones(1, 3), torch.ones(1, 3), torch.ones(1, 3, 3),
-                  wide, torch.ones(c), torch.zeros(c), 1, "l1", dy=wide)
+    # a head wider than the SIMT kernels' 256 is taken, by the wide path
+    wide = torch.zeros(1, 3, 2 * (k1.SIMT_MAX_HEAD_DIM + 1))
+    c = wide.shape[-1]
+    k1._check(wide, wide, wide, torch.ones(1, 3), torch.ones(1, 3), torch.ones(1, 3, 3),
+              wide, torch.ones(c), torch.zeros(c), 1, "l1", dy=wide)
+    assert k1.k2_path(torch.float32, c, 3, c, 1) == "wide"

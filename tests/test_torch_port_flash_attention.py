@@ -219,15 +219,21 @@ def test_no_gradient_needed_emits_the_output_alone(rng, monkeypatch):
 
 
 def test_wrapper_checks_refuse_what_the_kernels_do_not_take():
+    """Heads wider than 256 (264; 257 at C 2,056) are taken, by the wide
+    kernels (C was never a limit of K4-K6's kernels); C not divisible by
+    the heads and another dtype are refused."""
     q = torch.zeros(1, 4, 12)
     args = (q, q, q, torch.ones(1, 4), torch.ones(1, 4, 4))
     flash._check(*args, 2, "l1", {})                   # head width 6: the SIMT kernels take it
-    wide = torch.zeros(1, 4, 528)
-    with pytest.raises(ValueError, match="head width 264"):
-        flash._check(wide, wide, wide, *args[3:], 2, "l1", {})
-    wide = torch.zeros(1, 4, 2056)
-    with pytest.raises(ValueError, match="at most 2048"):
-        flash._check(wide, wide, wide, *args[3:], 8, "l1", {})
+    for c, heads in ((528, 2), (2056, 8)):
+        wide = torch.zeros(1, 4, c)
+        flash._check(wide, wide, wide, *args[3:], heads, "l1", {})
+        assert flash.k4_path(torch.float32, c // heads) == "wide"
+    with pytest.raises(ValueError, match="divisible"):
+        flash._check(*args, 5, "l1", {})
+    half = q.half()
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash._check(half, half, half, *args[3:], 2, "l1", {})
     with pytest.raises(ValueError, match="renorm"):
         flash._check(*args, 3, "l2", {})
     with pytest.raises(TypeError, match="float32 or bfloat16"):

@@ -264,21 +264,22 @@ def test_k2_f32_shared_memory_fits(c, heads, tq):
         assert need == 4 * (64 * 64 + 2 * (2 * 64 * 64 + 64 * 64 + 64))
 
 
-@pytest.mark.parametrize("c,heads,match", [(24, 4, None), (4096, 32, "at most 2048"),
-                                           (2056, 8, "at most 2048"), (528, 2, "head width 264")])
+@pytest.mark.parametrize("c,heads,match", [(24, 4, "simt"), (4096, 32, "f32"),
+                                           (2056, 8, "wide"), (528, 2, "wide")])
 def test_k2_f32_refuses_what_its_kernels_do_not_take(c, heads, match):
-    """C above 2,048 or a head wider than 256 is refused before a launch; a
-    head width that is no multiple of 4 (6 here) is taken, by the SIMT
-    kernels."""
+    """Every width is taken before a launch, each by the design ``match``
+    names: a head width that is no multiple of 4 (6 here) by the SIMT
+    kernels, C 4,096 at head width 128 by the f32 kernels (their LayerNorm
+    backward the one that reads rows in chunks), heads wider than 256 (257
+    at C 2,056, 264) by the wide path; the shared memory fits."""
     x = torch.zeros(1, 8, c)
     args = (x, x, x, torch.ones(1, 8), torch.ones(1, 8), torch.ones(1, 8, 8), x,
             torch.ones(c), torch.zeros(c), heads, "l1")
-    if match is None:
-        k1._check(*args, dy=x)
-        assert k1.k2_path(torch.float32, c // heads, 8, c, heads) == "simt"
-        return
-    with pytest.raises(ValueError, match=match):
-        k1._check(*args, dy=x)
+    k1._check(*args, dy=x)
+    assert k1.k2_path(torch.float32, c // heads, 8, c, heads) == match
+    if match == "f32":
+        assert k1.smem_bytes_bwd_f32(8, c, heads) <= k1.SMEM_LIMIT
+        assert k1.bwd_row_tile(torch.float32, c // heads, 8, 8, c, heads) == k1.BWD_F32_ROWS
 
 
 def test_k2_tensor_core_shared_memory_leaves_two_blocks_an_sm():
@@ -287,19 +288,18 @@ def test_k2_tensor_core_shared_memory_leaves_two_blocks_an_sm():
     at 512 keys the block still fits."""
     assert 2 * (k1.smem_bytes_bwd_tc(128, 512, 8) + 1024) <= k1.SMEM_LIMIT
     assert k1.smem_bytes_bwd_tc(512, 512, 8) <= k1.SMEM_LIMIT
-    # C 2,048 at 16 heads: the rows launch's 32 rows of C do not fit, so the
-    # call takes the SIMT kernels; C 4,096 lies outside what K2 takes
+    # C 2,048 at 16 heads and C 4,096 at 32: the rows launch's 32 rows of C
+    # do not fit, so the call takes the SIMT kernels, 8 rows a block at 32 keys
     assert k1.smem_bytes_bwd_tc(32, 2048, 16) > k1.SMEM_LIMIT
     assert k1.k2_path(torch.bfloat16, 128, 32, 2048, 16) == "simt"
-    for c, heads, raises in ((2048, 16, False), (4096, 32, True)):
+    for c, heads in ((2048, 16), (4096, 32)):
         bf = torch.zeros(1, 32, c, dtype=torch.bfloat16)
         args = (bf, bf, bf, torch.ones(1, 32), torch.ones(1, 32), torch.ones(1, 32, 32), bf,
                 torch.ones(c), torch.zeros(c), heads, "l1")
-        if not raises:
-            k1._check(*args, dy=bf)
-            continue
-        with pytest.raises(ValueError, match="at most 2048"):
-            k1._check(*args, dy=bf)
+        k1._check(*args, dy=bf)
+        assert k1.k2_path(torch.bfloat16, 128, 32, c, heads) == "simt"
+        assert k1.smem_bytes_bwd(32, 32, c, heads) <= k1.SMEM_LIMIT
+    assert k1.simt_bwd_rows(32, 32, 4096, 32) == 8
 
 
 def bwd_inputs(rng, b=2, t=9, c=16):
@@ -528,7 +528,7 @@ def test_k5_takes_the_f32_kernel_at_every_f32_width():
     """Every float32 head width the f32 kernel takes (multiples of 4 up to
     128) runs K5's f32 kernel, every other one up to 256 the SIMT kernel;
     bfloat16 keeps ``kernel_path``'s choice."""
-    for head_dim in range(1, flash.MAX_HEAD_DIM + 1):
+    for head_dim in range(1, flash.SIMT_MAX_HEAD_DIM + 1):
         tiled = head_dim % 4 == 0 and head_dim <= 128
         assert flash.dq_kernel(torch.float32, head_dim) == ("f32" if tiled else "simt")
         assert flash.dq_kernel(torch.bfloat16, head_dim) == flash.kernel_path(torch.bfloat16,
@@ -617,22 +617,21 @@ def test_k1_tensor_core_shared_memory_leaves_four_blocks_an_sm():
     """At the model's shapes (C 512, 8 heads, up to 128 keys) four blocks of
     K1's tensor-core kernel (16 warps) share an SM's 227 KB, each paying 1 KB
     of reserve; 512 keys still fit; a head wider than 128 takes the SIMT
-    kernel and one wider than 256 is refused."""
+    kernel and one wider than 256 the wide path (the wide K4 kernel and the
+    LayerNorm kernel), whose shared memory fits."""
     assert 4 * (k1.smem_bytes_tc(128, 128, 512, 8) + 1024) <= k1.SMEM_LIMIT
     assert 4 * (k1.smem_bytes_tc(66, 66, 512, 8) + 1024) <= k1.SMEM_LIMIT
     assert k1.smem_bytes_tc(1, 512, 512, 8) <= k1.SMEM_LIMIT
     assert k1.smem_bytes_tc(128, 128, 512, 8) == 2 * (64 + 256) * 72 + 4 * 2 * 2 * 64
-    # a head of 144 is taken by the SIMT kernel; one of 264 lies outside K1's 256
+    # a head of 144 is taken by the SIMT kernel; one of 264 by the wide path
     assert k1.k1_path(torch.bfloat16, 144) == "simt"
-    for c, raises in ((288, False), (528, True)):
+    for c, wide in ((288, False), (528, True)):
         bf = torch.zeros(1, 4, c, dtype=torch.bfloat16)
         args = (bf, bf, bf, torch.ones(1, 4), torch.ones(1, 4), torch.ones(1, 4, 4), bf,
                 torch.ones(c), torch.zeros(c), 2, "l1")
-        if not raises:
-            k1._check(*args)
-            continue
-        with pytest.raises(ValueError, match="head width 264"):
-            k1._check(*args)
+        k1._check(*args)
+        assert k1.k1_path(torch.bfloat16, c // 2, 4, c) == ("wide" if wide else "simt")
+    assert flash.smem_bytes_wide("K4") <= k1.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("rows,hidden,want", [

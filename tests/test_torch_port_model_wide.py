@@ -5,11 +5,15 @@ Same weights and batches as test_torch_port_model.py; float32 on the CPU,
 logits within 1e-4.
 """
 
+import jax
+import jax.numpy as jnp
 import pytest
 import torch
 
 import structured_alignment_vqa_tpu.ops.pallas_attention as pa
+import test_torch_port_model as tm
 from test_torch_port_model import TINY, assert_forward_matches, build_pair
+from variant_port_cases import random_params
 
 # production widths (hidden 512, 8 heads, MIL 1024, 2048-d features), 2
 # blocks, a small vocabulary
@@ -45,3 +49,27 @@ def test_width_768_with_12_heads_forward_and_answers_match_jax_pallas():
     kernels take since the presets' 512)."""
     kw = dict(WIDE, hidden_size=768, num_heads=12)
     assert_forward_matches(*build_pair(kw, True, True, batch=2, bucket=(6, 5, 12), seed=0))
+
+
+def test_width_528_with_2_heads_forward_and_answers_match_jax_pallas():
+    """Hidden 528 with 2 heads (head width 264, past the first SIMT
+    kernels' 256: the wide path on the card), 1 block, tiny otherwise:
+    logits within 1e-4 of the JAX model running its Pallas kernels in
+    interpret mode. C above 2,048 at model level is held on the card
+    (``chip_smoke.py --phases widths``): a CPU model that wide costs about
+    65 C^2 parameters a block."""
+    kw = dict(TINY, hidden_size=528, num_heads=2, num_blocks=1, stage1_blocks=1,
+              stage2_blocks=1)
+    jcfg = tm.JaxConfig(share_glove=True, use_pallas_attention=True, **kw)
+    pcfg = tm.ModelConfig(share_glove=True, **kw)
+    arrays = tm.synthetic_arrays(pcfg, 2, lv=4, lq=5, ls=10, seed=0)
+    jb = tm.jax_batch(arrays)
+    jmodel = tm.JaxModel(jcfg)
+    # the params drawn at the init's shapes (jax.eval_shape): an eager init
+    # at this width takes half a minute on the CPU
+    params = random_params(jmodel, (jb,), {})
+    model = tm.AttModelX3(pcfg, device="cpu")
+    model.load_state_dict(tm.state_dict_from_jax(params, pcfg.num_blocks), strict=True)
+    model.eval()
+    assert_forward_matches(jmodel, jax.tree.map(jnp.asarray, params), jb, model,
+                           tm.batch_from_arrays(arrays, "cpu"))

@@ -1,13 +1,16 @@
-"""The widths the port's kernels take: the domain D of the JAX kernels.
+"""The widths the port's kernels take, over the domain D the kernels were
+first widened to.
 
 D: C (the hidden width) from 1 to 2,048, every head count whose head width
 C / heads is from 1 to 256, the FFN hidden width up to 4 x 2,048, both
 dtypes, at every length the attention modules send each kernel (K1 and K2
-up to 512 keys, K4-K6 above). On the CPU no kernel launches, so this file
-holds what decides a launch on the card:
+up to 512 keys, K4-K6 above). The kernels now take every width above D too
+(``tests/test_torch_port_widths_wide.py`` samples them). On the CPU no
+kernel launches, so this file holds what decides a launch on the card:
 
 * every wrapper's check takes every (C, heads) of D on small CPU tensors
-  (B 1, L 8), and raises just outside D, naming the limit;
+  (B 1, L 8), and just outside D takes the width too, its plan and shared
+  memory fitting;
 * every plan and shared-memory formula a call of D takes is a pure function
   of the shapes that fits the shared memory a block may use, at the
   lengths each kernel sees;
@@ -122,44 +125,52 @@ def test_attention_wrappers_take_every_c_and_head_width_of_the_domain(dtype):
                          {"m": stat, "z": stat, "b": stat, "delta": stat, "d_out": q})
 
 
-# ---- just outside D the wrappers raise, naming the limit ----------------------
+# ---- just outside D the wrappers take the width too ----------------------------
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("c,heads,match", [(2056, 8, "at most 2048"),
-                                           (528, 2, "head width 264 > 256")])
+@pytest.mark.parametrize("c,heads,match", [(2056, 8, "wide"), (528, 2, "wide")])
 def test_attention_wrappers_raise_just_outside_the_domain(dtype, c, heads, match):
+    """Just outside D (C 2,056 at 8 heads of 257; 2 heads of 264) every
+    attention wrapper takes the width: the calls take the ``match`` path
+    (the wide kernels), whose shared memory fits a block at every length."""
     q = torch.zeros(1, L, c, dtype=dtype)
     km, qm, graph = torch.ones(1, L), torch.ones(1, L), torch.ones(1, L, L)
     gamma, beta = torch.ones(c), torch.zeros(c)
     stat = torch.zeros(1, heads, L)
-    calls = (
-        lambda: k1._check(q, q, q, km, qm, graph, q, gamma, beta, heads, "l1"),
-        lambda: k1._check(q, q, q, km, qm, graph, q, gamma, beta, heads, "l1", dy=q),
-        lambda: k1._check(q, q, q, km, qm, graph, None, None, None, heads, "l1", q),
-        lambda: flash._check(q, q, q, km, graph, heads, "l1", {"query_mask": qm}),
-        lambda: flash._check(q, q, q, km, graph, heads, "l1",
-                             {"m": stat, "z": stat, "b": stat, "delta": stat, "d_out": q}),
-    )
-    for call in calls:
-        with pytest.raises(ValueError, match=match):
-            call()
+    k1._check(q, q, q, km, qm, graph, q, gamma, beta, heads, "l1")
+    k1._check(q, q, q, km, qm, graph, q, gamma, beta, heads, "l1", dy=q)
+    k1._check(q, q, q, km, qm, graph, None, None, None, heads, "l1", q)
+    flash._check(q, q, q, km, graph, heads, "l1", {"query_mask": qm})
+    flash._check(q, q, q, km, graph, heads, "l1",
+                 {"m": stat, "z": stat, "b": stat, "delta": stat, "d_out": q})
+    dh = c // heads
+    for tk in K12_LENGTHS:
+        assert k1.k1_path(dtype, dh, tk, c) == k1.k2_path(dtype, dh, tk, c, heads) == match
+    assert flash.k4_path(dtype, dh) == flash.dq_kernel(dtype, dh) == match
+    assert flash.kernel_key_split(dtype, dh, 1, heads, FLASH_L, FLASH_L)[0] == 1
+    assert max(flash.smem_bytes_wide(kn) for kn in ("K4", "K5", "K6")) <= SMEM_LIMIT
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
-@pytest.mark.parametrize("c,hidden,match", [(2056, 4 * 2056, "C from 1 to 2048"),
-                                            (16, MAX_HIDDEN + 64, "hidden width from 1 to 8192")])
+@pytest.mark.parametrize("c,hidden,match", [(2056, 4 * 2056, "products"),
+                                            (16, MAX_HIDDEN + 64, "products")])
 def test_k3_raises_just_outside_the_domain(dtype, c, hidden, match):
+    """Just outside D (C 2,056 with its 4C hidden width; a hidden width of
+    8,256) K3's three entries take the width, on the products path, with a
+    split that covers the hidden chunks and shared memory that fits."""
     x = torch.zeros(1, L, c, dtype=dtype)
     w1, b1 = torch.zeros(hidden, c, dtype=dtype), torch.zeros(hidden, dtype=dtype)
     w2, b2 = torch.zeros(c, hidden, dtype=dtype), torch.zeros(c, dtype=dtype)
     gamma, beta = torch.ones(c), torch.zeros(c)
-    with pytest.raises(ValueError, match=match):
-        k3._check(x, w1, b1, w2, b2, gamma, beta)
-    with pytest.raises(ValueError, match=match):
-        k3._check_partial(x, w1, b1, w2)
-    if c > MAX_C:
-        with pytest.raises(ValueError, match="C from 1 to 2048"):
-            k3._check_epilogue(torch.zeros(1, L, c), x, b2, gamma, beta)
+    k3._check(x, w1, b1, w2, b2, gamma, beta)
+    k3._check_partial(x, w1, b1, w2)
+    k3._check_epilogue(torch.zeros(1, L, c), x, b2, gamma, beta)
+    assert k3.ffn_path(dtype, c, hidden) == match
+    chunks = -(-hidden // k3.HIDDEN_CHUNK)
+    for rows in (L, 16384):
+        tile_rows, n_split, per = k3.products_plan(rows, c, hidden, dtype)
+        assert (n_split - 1) * per < chunks <= n_split * per
+        assert k3.smem_bytes_products(dtype, tile_rows) <= SMEM_LIMIT
 
 
 # ---- the plans and shared memory of every call of D ---------------------------
