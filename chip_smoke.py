@@ -421,6 +421,25 @@ WIDTHS_HIDDEN, WIDTHS_HEADS, WIDTHS_TRAIN_B = 768, 12, 32
 # step runs at 2 blocks (stages 1 and 2), whose weights, gradients and
 # Adam's two moments (31 GB) fit the card where 6 blocks' (85 GB) do not
 WIDTHS_4K_HIDDEN, WIDTHS_4K_HEADS, WIDTHS_4K_TRAIN_BLOCKS = 4096, 32, 2
+# and at hidden 2,048 with 8 heads of 256 (Gemma-2B's width and heads,
+# arXiv 2403.08295 Table 1), obj-only and obj+rel: serving only, K1's and
+# K4's tensor-core kernels at head width 256 (training there needs K2, K5
+# and K6 on the tensor cores above head width 128, which they do not take)
+WIDTHS_2K_HIDDEN, WIDTHS_2K_HEADS = 2048, 8
+# K1 and K4 at head width 256 beyond the widths rows (C 2,048, 8 heads):
+# the decoder's one query into 450 keys (K1, B 8) and into 1,536 keys (K4,
+# B 4: 32 blocks, so the keys are split); from a generator of their own
+K1_HEAD256_SHAPE = ("C=2048 H=8 Tq=1 Lk=450 B=8", 1, 450)
+K4_HEAD256_SHAPE = ("C=2048 H=8 Tq=1 Lk=1536 B=4", 1, REL_L)
+# K4's other forms, from a generator of their own (k4_paths_gen): the wide
+# kernel, which keeps head widths above 256 that are no multiple of 16
+# (bf16) or of 4 (f32), at 8 heads of 258 in either dtype; instance 256 at
+# 128 rows a block with its keys split, and the chunked kernels with theirs
+# (100 queries into 1,536 keys at B 2: 16 and 32 blocks, short of the SMs)
+K4_WIDE258_SHAPE = ("C=2064 H=8 L=1536 B=2", 2064, 8)
+K4_SPLIT_TQ = 100
+K4_SPLIT_SHAPES = (("C=2048 H=8 Tq=100 Lk=1536 B=2", 2048, 8),
+                   ("C=2560 H=8 Tq=100 Lk=1536 B=2", 2560, 8))
 WIDE_C = 2048   # the region features' width: x2_fusion_dec_mil2's alignment blocks
 # K1, K3 and K4 launches and plain attention_core calls (attention weights
 # out, or no renorm: x2_mlp_dec's vanilla decoder cross-attention) of one
@@ -748,8 +767,10 @@ def k1_phase(gen) -> dict:
                              bound_ms=bound_ms, bound_by=bound_by))
     for dtype in (torch.bfloat16, torch.float32):
         for label, tq, tk, heads in K12_WIDE_SHAPES:
+            # head width 256: K1's tensor-core kernel in bf16, the SIMT kernel in f32
+            want = "tensor-core" if dtype == torch.bfloat16 else "simt"
             rows.append(k1_wide_row(label, k1_inputs(gen, tq, tk, dtype, WIDE_B, c=WIDE_C),
-                                    heads))
+                                    heads, want))
         k1_against_plain("self L=65 B=4 C=99 heads=3", k1_inputs(gen, 65, 65, dtype, REL_B, c=99),
                          3)
     beyond = beyond_gen()
@@ -764,6 +785,25 @@ def k1_phase(gen) -> dict:
                                     "the wide K4 kernel and K1's LayerNorm kernel")
             del args
             torch.cuda.empty_cache()
+    head256 = head256_gen()
+    label, tq, tk = K1_HEAD256_SHAPE
+    rows.append(k1_wide_row(label, k1_inputs(head256, tq, tk, torch.bfloat16, WIDE_B, c=WIDE_C),
+                            WIDE_HEADS, "tensor-core"))
+    # the attention-only entry (the model axis's) takes the same kernel
+    for label, tq, tk in (("C=2048 H=8 L=512 B=8", 512, 512), K1_HEAD256_SHAPE):
+        args = k1_inputs(head256, tq, tk, torch.bfloat16, WIDE_B, c=WIDE_C)[:6]
+        err = 0.0
+        for renorm in ("l1", "sum_eps"):
+            got = k1.graph_attention_heads(*args, WIDE_HEADS, renorm)
+            want = k1.graph_attention_plain(*args, WIDE_HEADS, renorm)
+            torch.cuda.synchronize()
+            err = max(err, (got - want).abs().max().item())
+        path = k1.k1_path(torch.bfloat16, WIDE_C // WIDE_HEADS, tk, WIDE_C)
+        check(path == "tensor-core" and err <= TOL[torch.bfloat16],
+              f"K1 heads {label} {torch.bfloat16}: the {path} kernel, max|kernel-plain| "
+              f"{err:.3g} <= {TOL[torch.bfloat16]:g}")
+    del args
+    torch.cuda.empty_cache()
     return {r["label"] + str(r["dtype"]): r for r in rows}
 
 
@@ -839,12 +879,19 @@ def device_kernels_only(fn, what: str, mine: tuple, source: str) -> None:
     whose names hold one of ``mine`` (the kernels of ``source``) and no
     library GEMM. Three calls: after an earlier profile in the process the
     profiler has been seen to miss the first kernels of a session; a
-    session that saw no device kernel at all is profiled again, twice at
-    most (on one slow machine it missed all three calls)."""
+    session that saw no device kernel at all is profiled again, a second
+    later, four times at most (on one slow machine it missed all three
+    calls; in one run after the head-width-256 rows of phase k4, K6's f32
+    check saw none in all three sessions it then had and K5's none in its
+    first; cause not found). Each check's sessions are kept in
+    ``sessions`` and summed up at the end of the run
+    (:func:`profiler_sessions_line`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for attempt in range(3):
+    for attempt in range(5):
+        if attempt:
+            time.sleep(1.0)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(3):
@@ -856,11 +903,24 @@ def device_kernels_only(fn, what: str, mine: tuple, source: str) -> None:
             break
         print(f"{what}: the profiler saw no device kernel in session {attempt + 1}",
               flush=True)
+    device_kernels_only.sessions.append((what, attempt + 1))
     foreign = [n for n in names if not any(m in n for m in mine)
                or any(mark in n.lower() for mark in LIBRARY_GEMM_MARKS)]
     check(bool(names) and not foreign,
           f"{what}: the device ran {len(names)} kernel(s), all of {source} "
           f"({', '.join(n[:60] for n in names)}); foreign {foreign}")
+
+
+device_kernels_only.sessions = []   # (what, sessions it took) of each check, in order
+
+
+def profiler_sessions_line() -> str:
+    """How many profiler sessions the run's device_kernels_only checks
+    took: those that needed more than one, by name."""
+    runs = device_kernels_only.sessions
+    more = {what: n for what, n in runs if n > 1}
+    return (f"profiler checks: {len(runs)}, sessions {sum(n for _, n in runs)}, "
+            f"those that took more than one {more or 'none'}")
 
 
 def k3_device_kernels(fn, what: str) -> None:
@@ -994,6 +1054,18 @@ def beyond_gen() -> torch.Generator:
     """The generator of a kernel phase's rows above the old domain, apart
     from the one its other rows draw from."""
     return torch.Generator(device="cuda").manual_seed(4321)
+
+
+def head256_gen() -> torch.Generator:
+    """The generator of a kernel phase's rows at head width 256 added with
+    K1's and K4's tensor-core kernels there, apart from the others."""
+    return torch.Generator(device="cuda").manual_seed(2562)
+
+
+def k4_paths_gen() -> torch.Generator:
+    """The generator of K4's rows of the wide kernel at head width 258 and
+    of the split head-256 and chunked kernels, apart from the others."""
+    return torch.Generator(device="cuda").manual_seed(2583)
 
 
 def k2_inputs(gen, tq: int, tk: int, dtype, B: int = B, c: int = C):
@@ -1307,22 +1379,46 @@ def k4_phase(gen) -> dict:
     # kernel copies its tiles 4 bytes at a time
     k4_against_plain("odd keys Tq=70 Tk=701",
                      flash_inputs(gen, "odd keys", 70, 701, torch.bfloat16), HEADS)
-    def wide_row(g, label: str, c: int, heads: int, dtype, want: str) -> None:
-        args = flash_inputs(g, "self L=1536", REL_L, REL_L, dtype, c, FLASH_WIDE_B)
+    def wide_row(g, label: str, c: int, heads: int, dtype, want: str, tq: int = REL_L,
+                 b: int = FLASH_WIDE_B, split: "bool | None" = None) -> None:
+        """A row at B ``b``, ``tq`` queries into 1,536 keys: the kernel
+        ``want`` (and with ``split`` given, keys split or not), held
+        through every emit and both renorms, timed beside its plain
+        version, SDPA and its bound; kept in ``wide_rows``."""
+        t = REL_L
+        args = flash_inputs(g, "self L=1536" if tq == t else label, tq, t, dtype, c, b)
         path = fl.k4_path(dtype, c // heads)
-        check(path == want, f"K4 {label} {dtype}: head width {c // heads} takes the "
-              f"{path} kernel")
+        n_split = fl.kernel_key_split(dtype, c // heads, b, heads, tq, t)[0]
+        if split is None:
+            check(path == want, f"K4 {label} {dtype}: head width {c // heads} takes the "
+                  f"{path} kernel")
+        else:
+            check(path == want and (n_split > 1) == split,
+                  f"K4 {label} {dtype}: head width {c // heads} takes the {path} kernel, "
+                  f"keys in {n_split} shard(s)")
         err = k4_against_plain(label, args, heads)
         ms = time_ms(lambda: fl.flash_graph_attention(*args, heads, "l1"), iters=5)
         plain_ms = time_ms(lambda: fl.flash_graph_attention_plain(*args, heads, "l1"),
                            iters=3)
         size = torch.finfo(dtype).bits // 8
-        b, t = FLASH_WIDE_B, REL_L
-        nbytes = size * b * c * 4 * t + 4 * b * (t * t + 2 * t)
-        bound_ms, bound_by = bound(nbytes, 4.0 * b * t * t * c, dtype)
+        nbytes = size * b * c * 2 * (tq + t) + 4 * b * (tq * t + tq + t)
+        bound_ms, bound_by = bound(nbytes, 4.0 * b * tq * t * c, dtype)
         library_ms, library_err = sdpa_yardstick(args, heads)
-        recompute = (f", scores computed {fl.wide_chunks(c // heads)} times"
-                     if path == "wide" else "")
+        recompute = ""
+        if path == "wide":
+            recompute = f", scores computed {fl.wide_chunks(c // heads)} times"
+        elif path in ("tc-chunked", "f32-chunked"):
+            block_rows = (fl.tc_rows(dtype, c // heads, tq) if path == "tc-chunked"
+                          else fl.k4_f32_plan(c // heads, b, heads, tq, t)[0])
+            recompute = (f", scores computed {fl.wide_chunks(c // heads)} times "
+                         f"({'on the tensor cores' if path == 'tc-chunked' else 'FFMA'}), "
+                         f"{block_rows} rows a block, {n_split} key shard(s)")
+        elif path == "tensor-core":
+            recompute = (f" (instance {fl.tc_width(c // heads)}, "
+                         f"{fl.tc_rows(dtype, c // heads, tq)} rows a block, "
+                         f"{n_split} key shard(s))")
+        elif path == "f32":
+            recompute = f" ({fl.f32_step(c // heads)}-key steps, {n_split} key shard(s))"
         print(f"K4 {label} {dtype}: {path} kernel{recompute}, {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, "
               f"SDPA with the graph as a boolean mask {library_ms:.4f} ms (max|K4 - SDPA| on "
@@ -1334,14 +1430,36 @@ def k4_phase(gen) -> dict:
 
     for dtype in (torch.bfloat16, torch.float32):
         for label, c, heads in FLASH_WIDE_SHAPES:
-            wide_row(gen, label, c, heads, dtype, "simt")
+            # head width 256: the tensor-core (bf16) and f32 kernels; 50 the SIMT kernel
+            tiled = "tensor-core" if dtype == torch.bfloat16 else "f32"
+            wide_row(gen, label, c, heads, dtype, "simt" if c // heads == 50 else tiled)
             torch.cuda.empty_cache()
         k4_against_plain("self L=600 C=99 heads=3",
                          flash_inputs(gen, "self L=600", 600, 600, dtype, 99, FLASH_WIDE_B), 3)
     beyond = beyond_gen()
     for dtype in (torch.bfloat16, torch.float32):
         for label, c, heads in FLASH_BEYOND_SHAPES:
-            wide_row(beyond, label, c, heads, dtype, "wide")
+            # head widths 320 and 512: the chunked tensor-core (bf16) and f32 kernels
+            wide_row(beyond, label, c, heads, dtype,
+                     "tc-chunked" if dtype == torch.bfloat16 else "f32-chunked")
+            torch.cuda.empty_cache()
+    head256 = head256_gen()
+    label, tq, tk = K4_HEAD256_SHAPE
+    for dtype in (torch.bfloat16, torch.float32):
+        wide_row(head256, label, WIDE_C, WIDE_HEADS, dtype,
+                 "tensor-core" if dtype == torch.bfloat16 else "f32", tq, REL_B)
+        torch.cuda.empty_cache()
+    more = k4_paths_gen()
+    label, c, heads = K4_WIDE258_SHAPE
+    for dtype in (torch.bfloat16, torch.float32):
+        wide_row(more, label, c, heads, dtype, "wide", split=False)
+        torch.cuda.empty_cache()
+    for label, c, heads in K4_SPLIT_SHAPES:
+        chunked = c // heads > 256
+        for dtype in (torch.bfloat16, torch.float32) if chunked else (torch.bfloat16,):
+            want = ("tc-chunked" if dtype == torch.bfloat16 else "f32-chunked") if chunked \
+                else "tensor-core"
+            wide_row(more, label, c, heads, dtype, want, K4_SPLIT_TQ, split=True)
             torch.cuda.empty_cache()
     return {r["label"] + str(r["dtype"]): r for r in rows}
 
@@ -1574,6 +1692,15 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in counted_wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "paths"):
+            fn.paths.clear()
+
+
+def path_counts() -> dict:
+    """K1's and K4's launches by the kernel each took (their wrappers'
+    ``paths``, counted beside ``launches``)."""
+    wrappers = counted_wrappers()
+    return {key: dict(wrappers[key].paths) for key in ("K1", "K4")}
 
 
 def profile_device(fn, what: str, host_top: int = 0) -> dict:
@@ -2294,29 +2421,42 @@ def training_phase(card: str) -> dict:
 
 
 def widths_phase(card: str) -> dict:
-    """The obj-only model at hidden 768 with 12 heads (head width 64) and at
+    """The obj-only model at hidden 768 with 12 heads (head width 64), at
     hidden 4,096 with 32 heads (head width 128; K1's and K2's LayerNorm and
-    K3 at C 4,096 with hidden width 16,384, above the old domain),
-    ``full_config`` otherwise (hidden_size_mil 1,024, 6 blocks, maxlen 450,
-    the 407,000 x 300 table, seeded weights): :func:`widths_point` at each.
-    Returns the hidden-4,096 request's launches."""
+    K3 at C 4,096 with hidden width 16,384, above the old domain) and at
+    hidden 2,048 with 8 heads (head width 256: K1's tensor-core kernel, K3
+    at hidden width 8,192; serving only), ``full_config`` otherwise
+    (hidden_size_mil 1,024, 6 blocks, maxlen 450, the 407,000 x 300 table,
+    seeded weights): :func:`widths_point` at each; then the obj+rel model
+    at hidden 2,048 with 8 heads (:func:`widths_rel_point`: K4's
+    tensor-core kernel at head width 256). Returns the hidden-4,096
+    request's launches."""
     widths_point(card, WIDTHS_HIDDEN, WIDTHS_HEADS)
     gc.collect()
     torch.cuda.empty_cache()
-    return widths_point(card, WIDTHS_4K_HIDDEN, WIDTHS_4K_HEADS,
-                        train_blocks=WIDTHS_4K_TRAIN_BLOCKS)
+    launches = widths_point(card, WIDTHS_4K_HIDDEN, WIDTHS_4K_HEADS,
+                            train_blocks=WIDTHS_4K_TRAIN_BLOCKS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    widths_point(card, WIDTHS_2K_HIDDEN, WIDTHS_2K_HEADS, train=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    widths_rel_point(card, WIDTHS_2K_HIDDEN, WIDTHS_2K_HEADS)
+    return launches
 
 
-def widths_point(card: str, hidden: int, heads: int, train_blocks: int = 0) -> dict:
+def widths_point(card: str, hidden: int, heads: int, train_blocks: int = 0,
+                 train: bool = True) -> dict:
     """One bf16 request at bs 128 whose launches must be the 512-wide
-    request's (24 K1, 24 K3: no FFN or attention left the kernels), the same
-    weights' f32 logits against the plain path, and one f32 training step
-    at bs 32 (at ``train_blocks`` blocks, stages 1 and 2, where given)
-    against the plain path, each at the limits of the serving and training
-    phases; the request's pairs/s and a step's steps/s as information.
-    Where the step is cut to fewer blocks the f32 model is built after the
-    bf16 one is freed, from the same seed (the same f32 weights: the
-    parameters are f32 at either compute dtype), and checked to hold them."""
+    request's (24 K1, 24 K3: no FFN or attention left the kernels; every K1
+    on its tensor-core kernel), the same weights' f32 logits against the
+    plain path, and with ``train`` one f32 training step at bs 32 (at
+    ``train_blocks`` blocks, stages 1 and 2, where given) against the plain
+    path, each at the limits of the serving and training phases; the
+    request's pairs/s and a step's steps/s as information. Where the step
+    is cut to fewer blocks the f32 model is built after the bf16 one is
+    freed, from the same seed (the same f32 weights: the parameters are f32
+    at either compute dtype), and checked to hold them."""
     from structured_alignment_vqa_tpu_torch.data.synthetic import synthetic_batch
     from structured_alignment_vqa_tpu_torch.parallel.train_step import (
         TrainState,
@@ -2342,6 +2482,10 @@ def widths_point(card: str, hidden: int, heads: int, train_blocks: int = 0) -> d
                      ("K5", 0), ("K6", 0)):
         check(launches[key] == per, f"{what}: {key} launched {launches[key]} times in one bf16 "
               f"bs-{B} request (want {per}, as at hidden {C})")
+    paths = path_counts()["K1"]
+    check(paths == {"tensor-core": K1_PER_FORWARD},
+          f"{what}: K1's launches by kernel {paths} (want all {K1_PER_FORWARD} on the "
+          "tensor-core kernel)")
     check(answers.shape == (B,) and int(answers.min()) >= 0
           and int(answers.max()) < cfg.num_classes,
           f"{what}: {B} answers in [0, {cfg.num_classes})")
@@ -2380,6 +2524,8 @@ def widths_point(card: str, hidden: int, heads: int, train_blocks: int = 0) -> d
     del model32, kernel_logits, plain_logits, decisions, pins
     gc.collect()
     torch.cuda.empty_cache()
+    if not train:
+        return launches
 
     cfg32 = cfg.replace(compute_dtype=torch.float32)
     per_block = K1_PER_FORWARD // cfg.num_blocks   # 2 encoders' and 2 decoders' calls a block
@@ -2406,6 +2552,64 @@ def widths_point(card: str, hidden: int, heads: int, train_blocks: int = 0) -> d
     print(f"{what} {tag}: one step in {seconds:.4f} s = "
           f"{1 / seconds:.3f} steps/s on {card} (information only)", flush=True)
     del model, opt, state, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def widths_rel_point(card: str, hidden: int, heads: int) -> dict:
+    """The obj+rel model (``rel_config``: maxlen 1,600, hidden_size_mil 64)
+    at ``hidden`` and ``heads``: one bf16 request at bs 4 whose launches
+    must be the 512-wide request's (``REL_FORWARD``), every K1 and K4 on its
+    tensor-core kernel, then the same weights' f32 logits against the plain
+    path with its decisions pinned, at the serving phases' limit; the
+    request's pairs/s as information."""
+    from structured_alignment_vqa_tpu_torch.train.predict import make_predict_step
+
+    what = f"widths obj+rel hidden {hidden} heads {heads}"
+    cfg = rel_config(hidden_size=hidden, num_heads=heads)
+    model = random_model(cfg)
+    batches = rel_batches(cfg, 2)
+    predict = make_predict_step(model)
+    predict(batches[0])          # warm-up request
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    answers = predict(batches[1])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, paths = launch_counts(), path_counts()
+    for key, per in REL_FORWARD.items():
+        check(launches[key] == per, f"{what}: {key} launched {launches[key]} times in one bf16 "
+              f"bs-{REL_B} request (want {per}, as at hidden {C})")
+    for key in ("K1", "K4"):
+        check(paths[key] == {"tensor-core": REL_FORWARD[key]},
+              f"{what}: {key}'s launches by kernel {paths[key]} (want all "
+              f"{REL_FORWARD[key]} on the tensor-core kernel)")
+    check(answers.shape == (REL_B,) and int(answers.min()) >= 0
+          and int(answers.max()) < cfg.num_classes,
+          f"{what}: {REL_B} answers in [0, {cfg.num_classes})")
+    print(f"{what} serving bf16 bs {REL_B}: one request in {seconds:.4f} s = "
+          f"{REL_B / seconds:.1f} pairs/s on {card} (information only)", flush=True)
+
+    model32 = random_model(cfg.replace(compute_dtype=torch.float32))
+    model32.load_state_dict(model.state_dict())
+    del model, predict
+    with torch.inference_mode():
+        with recorded_decisions(model32) as decisions:
+            kernel_out = model32.eval()(batches[1])
+        before = launch_counts()
+        pins = Pins(decisions)
+        with plain_path(), pinned_decisions(model32, pins):
+            plain_out = model32(batches[1])
+        check(before == launch_counts(), f"{what}: the plain path launched no kernel")
+    pins_hold(f"{what} serving f32: the plain path", pins)
+    diff = max((a - b).abs().max().item() for a, b in zip(kernel_out[:3], plain_out[:3]))
+    finite = all(torch.isfinite(t).all().item() for t in kernel_out)
+    check(finite and diff <= LOGIT_TOL_F32,
+          f"{what} serving f32: max|logits kernel - plain| {diff:.3g} <= {LOGIT_TOL_F32:g}")
+    pair_line(f"{what} serving f32 logits", diff, LOGIT_TOL_F32, [pins])
+    del model32, kernel_out, plain_out, decisions, pins, batches
+    gc.collect()
     torch.cuda.empty_cache()
     return launches
 
@@ -5575,6 +5779,7 @@ def main(argv: list) -> int:
         torch.cuda.empty_cache()
         print(f"phase {phase}: {time.perf_counter() - t0:.1f} s (the host's memory available "
               f"{host_available_gib():.1f} GiB)", flush=True)
+    print(profiler_sessions_line(), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all", flush=True)
 
     if failures:

@@ -73,15 +73,29 @@
 //   order: no atomics, the same bits every run) and applies renorm, query
 //   mask and emit.
 // * A zero-padded head: a head width of 48, 80, ... runs in the next
-//   instantiation (16, 32, 64, 128) with its upper channels staged as zeros.
+//   instantiation (16, 32, 64, 128, 256) with its upper channels staged as
+//   zeros.
+// * Above head width 128 (instance 256) O's accumulators take 128
+//   registers a thread, so Q keeps a room of shared memory of its own and
+//   each 16-deep block of it is read with ldmatrix where Q K^T needs it
+//   (the Q fragments would be 64 registers more), and V's fragments
+//   are read two 8-wide blocks at a time. A stage is 86 KB at 256: two
+//   stages and Q (206 KB) are one block an SM. Instance 256 also runs 128
+//   query rows a block (8 warps; the graph read in fragments from device
+//   memory, as the tile would not fit): the rows share the K and V tiles.
+// * Above head width 256 the chunked kernel further below: a head's
+//   output channels in chunks of 256 over blocks, Q and K streamed 128
+//   channels a unit, the scores computed once per chunk.
 //
 // f32 (csrc/simt_f32.cuh:flash_f32_body): FFMA on the CUDA
 // cores (TF32 products would not hold the 1e-4 the f32 path is checked to),
 // shaped as the bf16 kernel: a block of 4 warps owns 64 query rows (1 warp,
 // 16 rows, when Tq <= 16), K, V, the f32 graph tile and the key mask of each
-// 64-key step stream through a two-stage cp.async ring into swizzled shared
-// tiles, and each lane computes a 4 x 8 tile of scores (4 + 8 float4 loads
-// for 128 FMAs per 4 channels) and a 4 x (dh / 8) tile of the output. The
+// 64-key step (32 keys at instance 256, where 64-key K and V tiles would
+// not fit beside Q) stream through a two-stage cp.async ring into swizzled
+// shared tiles, and each lane computes a 4 x 8 (4 x 4) tile of scores (4 +
+// 8 float4 loads for 128 FMAs per 4 channels) and a 4 x (dh / 8) tile of
+// the output; above head width 256 its chunked form further below. The
 // weights go to the second product through the warp's own rows of the
 // graph tile, which it has read by then: one warp barrier, no block
 // barrier. Each score, each output channel and z and b are summed in the
@@ -95,10 +109,10 @@
 //
 // Every other call keeps the first SIMT kernel below (one block of 256
 // threads per (batch, head, 64 query rows), no key split), in either
-// dtype: bf16 at a head width that is no multiple of 16 or above 128, f32
-// at a head width that is no multiple of 4 or above 128. It takes head
-// widths from 1 to 256 (16 output channels a thread at 256); wider heads
-// take the wide kernel further below.
+// dtype: bf16 at a head width that is no multiple of 16, f32 at one that is
+// no multiple of 4. It takes head widths from 1 to 256 (16 output channels
+// a thread at 256); wider heads take the wide kernel further below, which
+// also serves emit 3 (K1's and K2's wide path) at every head width.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -114,7 +128,7 @@ constexpr int kBQ = 64;        // query rows per block
 constexpr int kBK = 64;        // keys per step
 constexpr int kLdP = kBK + 4;  // row stride of the weight tile
 constexpr int kMaxDh = 256;     // the SIMT kernel's widest head
-constexpr int kTcMaxDh = 128;   // the tensor-core and f32 kernels' widest head
+constexpr int kTcMaxDh = 256;   // the tensor-core and f32 kernels' widest head
 constexpr float kNegMask = -4294967295.0f;  // float(-(2**32) + 1)
 constexpr float kL1Eps = 1e-12f;
 constexpr float kSumEps = 1e-7f;
@@ -630,6 +644,27 @@ using bf16 = __nv_bfloat16;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kTcStages = 2;   // stages of the ring of (K, V, graph, key mask) tiles
+
+// Whether the tensor-core kernel's instance DH keeps Q in shared memory (a
+// room of its own) rather than in registers.
+__host__ __device__ constexpr bool tc_q_smem(int dh) { return dh > 128; }
+
+// Whether the instance DH with BQ query rows reads its graph entries from
+// device memory in the fragments' pattern (load_graph_frag) rather than
+// staging the graph tile: above DH 128 at 128 rows (8 warps), where the tile
+// would not fit beside Q, K and V.
+__host__ __device__ constexpr bool tc_graph_frag(int dh, int bq) {
+  return tc_q_smem(dh) && bq > 64;
+}
+
+// Dynamic shared memory of the tensor-core kernel's instance DH with BQ
+// query rows: kTcStages stages of K, V, the graph tile (but with
+// tc_graph_frag) and the key mask, and Q's own room above DH 128.
+__host__ __device__ constexpr size_t tc_smem_bytes(int dh, int bq) {
+  return kTcStages * (sizeof(__nv_bfloat16) * 2 * kBK * (dh + 8) +
+                      sizeof(float) * ((tc_graph_frag(dh, bq) ? 0 : bq * (kBK + 8)) + kBK)) +
+         (tc_q_smem(dh) ? sizeof(__nv_bfloat16) * bq * (dh + 8) : 0);
+}
 using savqa::fast_exp2;
 using savqa::cp_async16;
 using savqa::cp_async4;
@@ -640,15 +675,179 @@ using savqa::frag_b_row;
 using savqa::frag_bt_row;
 using savqa::ldmatrix_x4;
 using savqa::ldmatrix_x4_trans;
+using savqa::load_graph_frag;
 using savqa::mma_bf16;
 using savqa::pack_bf16;
 using savqa::quad_max;
 using savqa::quad_sum;
 using savqa::stage_head_tile;
 
+// The running statistics of the two query rows a lane holds in the
+// tensor-core kernels' fragments (rows g and g + 8 of its warp's 16): m in
+// units of log 2 until the epilogue.
+struct TcRows {
+  float m_a = -INFINITY, m_b = -INFINITY, z_a = 0.f, z_b = 0.f, b_a = 0.f, b_b = 0.f;
+};
+
+// One 64-key step of the tensor-core kernels once s holds this warp's
+// scores Q K^T (16 rows x the keys [j0, j0 + 64)): kmask is the step's key
+// mask, Vs its V tile (row stride LDV) and graph_at(nb, gr) gives this
+// lane's four graph entries of 8-key block nb. Masks the scores and moves
+// the running maximum of both rows, forms e, e g and the row sums (s
+// becomes e g), rescales O and adds round(e g) V to it. Scores live in
+// units of log 2 (x = s scale log2(e), so e = 2^(x - m)); a masked key is
+// the fill value itself in those units, which keeps rows without a real key
+// at uniform weights and lets the epilogue give back the fill value
+// exactly. x = s * mul + fill is one FMA per score: (scale log2(e), 0) on a
+// real key, (0, fill) on a masked one, (0, -inf) past the last key.
+// V_PAIRS reads V's fragments two 8-wide blocks at a time (fewer live
+// registers) and skips O's blocks at or past ow; otherwise every block's
+// fragments are read before the products.
+template <int ND, int LDV, bool V_PAIRS, typename GraphAt>
+__device__ __forceinline__ void tc_step(float (&s)[kBK / 8][4], float (&o)[ND][4], TcRows& st,
+                                        const float* kmask, const bf16* Vs, int j0, int Tk,
+                                        float scale2, int t, int lane, int ow,
+                                        GraphAt graph_at) {
+  constexpr int kNS = kBK / 8;
+  const bool ragged = j0 + kBK > Tk;
+  float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+  for (int nb = 0; nb < kNS; ++nb) {
+    const int jl = nb * 8 + 2 * t;
+    const float2 kmv = *reinterpret_cast<const float2*>(kmask + jl);
+    float mul0 = kmv.x != 0.f ? scale2 : 0.f, fill0 = kmv.x != 0.f ? 0.f : kNegMask;
+    float mul1 = kmv.y != 0.f ? scale2 : 0.f, fill1 = kmv.y != 0.f ? 0.f : kNegMask;
+    if (ragged) {
+      if (j0 + jl >= Tk) { mul0 = 0.f; fill0 = -INFINITY; }
+      if (j0 + jl + 1 >= Tk) { mul1 = 0.f; fill1 = -INFINITY; }
+    }
+    s[nb][0] = fmaf(s[nb][0], mul0, fill0);
+    s[nb][1] = fmaf(s[nb][1], mul1, fill1);
+    s[nb][2] = fmaf(s[nb][2], mul0, fill0);
+    s[nb][3] = fmaf(s[nb][3], mul1, fill1);
+    mx_a = fmaxf(mx_a, fmaxf(s[nb][0], s[nb][1]));
+    mx_b = fmaxf(mx_b, fmaxf(s[nb][2], s[nb][3]));
+  }
+  const float mn_a = fmaxf(st.m_a, quad_max(mx_a));
+  const float mn_b = fmaxf(st.m_b, quad_max(mx_b));
+  const float alpha_a = fast_exp2(st.m_a - mn_a);
+  const float alpha_b = fast_exp2(st.m_b - mn_b);
+  st.m_a = mn_a;
+  st.m_b = mn_b;
+
+  float sz_a = 0.f, sz_b = 0.f, sb_a = 0.f, sb_b = 0.f;
+#pragma unroll
+  for (int nb = 0; nb < kNS; ++nb) {
+    float gr[4];
+    graph_at(nb, gr);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float e = fast_exp2(s[nb][c] - (c < 2 ? mn_a : mn_b));
+      const float eg = e * gr[c];
+      s[nb][c] = eg;
+      if (c < 2) { sz_a += e; sb_a += eg; } else { sz_b += e; sb_b += eg; }
+    }
+  }
+  st.z_a = st.z_a * alpha_a + sz_a;
+  st.z_b = st.z_b * alpha_b + sz_b;
+  st.b_a = st.b_a * alpha_a + sb_a;
+  st.b_b = st.b_b * alpha_b + sb_b;
+#pragma unroll
+  for (int i = 0; i < ND; ++i) {
+    o[i][0] *= alpha_a; o[i][1] *= alpha_a;
+    o[i][2] *= alpha_b; o[i][3] *= alpha_b;
+  }
+
+  // a += round(e g) V: the score fragments are the A operand as they are
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    uint32_t pf[4];
+    pf[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+    pf[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+    pf[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+    pf[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    if constexpr (V_PAIRS) {
+#pragma unroll
+      for (int nd = 0; nd < ND; nd += 2) {
+        if (nd * 8 >= ow) continue;
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, frag_bt_row(Vs, LDV, kk * 16, nd * 8, lane));
+        mma_bf16(o[nd], pf, vf[0], vf[1]);
+        mma_bf16(o[nd + 1], pf, vf[2], vf[3]);
+      }
+    } else {
+      uint32_t vf[ND / 2][4];
+#pragma unroll
+      for (int nd = 0; nd < ND; nd += 2)
+        ldmatrix_x4_trans(vf[nd / 2], frag_bt_row(Vs, LDV, kk * 16, nd * 8, lane));
+#pragma unroll
+      for (int nd = 0; nd < ND; nd += 2) {
+        mma_bf16(o[nd], pf, vf[nd / 2][0], vf[nd / 2][1]);
+        mma_bf16(o[nd + 1], pf, vf[nd / 2][2], vf[nd / 2][3]);
+      }
+    }
+  }
+}
+
+// The tensor-core kernels' epilogue for this lane's rows row_a and row_a +
+// 8: the row sums over the quad, m back to natural units (the fill value
+// comes back as it went in), m, z and b where a split or emit asks for them
+// (written by the blocks of the head's first chunk, o0 0), and O's channels
+// [o0, o0 + ow) of head h: raw into a_out at shard sp (a split, or emit 2),
+// else renormalised, masked and rounded into out.
+template <int ND>
+__device__ __forceinline__ void tc_epilogue(const float (&o)[ND][4], TcRows st, int row_a,
+                                            int t, int Tq, int C, int H, int dh, int h, int b,
+                                            int sp, int o0, int ow, int renorm, int emit,
+                                            int n_split, const float* __restrict__ query_mask,
+                                            bf16* __restrict__ out, float* __restrict__ a_out,
+                                            float* __restrict__ m_out, float* __restrict__ z_out,
+                                            float* __restrict__ b_out) {
+  const float z_a = quad_sum(st.z_a);
+  const float z_b = quad_sum(st.z_b);
+  const float b_a = quad_sum(st.b_a);
+  const float b_b = quad_sum(st.b_b);
+  const int c0 = h * dh;
+  const bool raw = n_split > 1 || emit == 2;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row_a + 8 * half;
+    if (row >= Tq) continue;
+    const float m2 = half == 0 ? st.m_a : st.m_b;
+    const float mr = m2 == kNegMask ? kNegMask : m2 * kLn2;
+    const float zr = half == 0 ? z_a : z_b;
+    const float br = half == 0 ? b_a : b_b;
+    const size_t stat_at = (((size_t)sp * gridDim.z + b) * H + h) * Tq + row;
+    if ((raw || emit == 1) && t == 0 && o0 == 0) {
+      m_out[stat_at] = mr;
+      z_out[stat_at] = zr;
+      b_out[stat_at] = br;
+    }
+    const float denom = renorm == 0 ? fmaxf(br, kL1Eps * zr) : br + kSumEps * zr;
+    const float qm = query_mask[(size_t)b * Tq + row];
+#pragma unroll
+    for (int i = 0; i < ND; ++i) {
+      const int d = i * 8 + 2 * t;
+      if (d >= ow) continue;
+      const float x = o[i][2 * half], y = o[i][2 * half + 1];
+      if (raw) {
+        *reinterpret_cast<float2*>(a_out + stat_at * dh + o0 + d) = make_float2(x, y);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(out + ((size_t)b * Tq + row) * C + c0 + o0 + d) =
+            __floats2bfloat162_rn(x / denom * qm, y / denom * qm);
+      }
+    }
+  }
+}
+
 // Shared memory, kTcStages stages of: Ks, Vs (kBK, DH + 8) bf16 | Gs (BQ,
-// kBK + 8) f32 | kms (kBK) f32. The Q tile (BQ, DH + 8) bf16 lands in the last
-// stage's room, is read into registers once, and gives the room up.
+// kBK + 8) f32 | kms (kBK) f32. Up to DH 128 the Q tile (BQ, DH + 8) bf16
+// lands in the last stage's room, is read into registers once, and gives the
+// room up. Above (DH 256: kQSmem) Q's fragments would take 64 registers a
+// thread beside O's 128, so the tile keeps a room of its own after the
+// stages and each 16-deep block of Q is read with ldmatrix where Q K^T needs
+// it; the second product's V fragments are read two 8-wide blocks at a time
+// for the same reason.
 // With n_split > 1 block (h, qt * n_split + sp, b) walks the key steps
 // [sp * steps_per_split, (sp + 1) * steps_per_split) and writes raw
 // partials at shard sp of a_out (n_split, B, H, Tq, dh) and m_out, z_out,
@@ -671,9 +870,12 @@ flash_graph_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restri
   constexpr int kNS = kBK / 8;   // 8-wide accumulator blocks of the scores
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int kLdG = kBK + 8;   // row stride of the graph tile: float2 reads hit 32 banks
-  constexpr int kStageBytes = 2 * kBK * kLd * 2 + (kBQt * kLdG + kBK) * 4;
+  constexpr bool kGFrag = tc_graph_frag(DH, kBQt);
+  constexpr int kGsRows = kGFrag ? 0 : kBQt;   // rows of the staged graph tile
+  constexpr int kStageBytes = 2 * kBK * kLd * 2 + (kGsRows * kLdG + kBK) * 4;
+  constexpr bool kQSmem = tc_q_smem(DH);
   static_assert(kBQt * kLd * 2 <= kStageBytes, "the Q tile fits a stage");
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw + (kTcStages - 1) * kStageBytes);
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw + (kQSmem ? kTcStages : kTcStages - 1) * kStageBytes);
 
   const int h = blockIdx.x;
   const int qt = blockIdx.y / n_split;
@@ -709,23 +911,29 @@ flash_graph_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restri
     stage_head_tile<DH, kThr>(Ks + kBK * kLd, vb, j0, Tk, kBK, C, c0, dh);
     // the graph tile of the block's rows: zeros past Tq and past Tk
     float* Gs = reinterpret_cast<float*>(Ks + 2 * kBK * kLd);
-    if (graph_quads) {
-      for (int i = tid; i < kBQt * (kBK / 4); i += kThr) {
-        const int r = i / (kBK / 4), j = j0 + (i - r * (kBK / 4)) * 4;
-        const bool valid = q0 + r < Tq && j < Tk;
-        cp_async16(Gs + r * kLdG + (j - j0), valid ? gtile + (size_t)r * Tk + j : graph, valid);
-      }
-    } else {
-      for (int i = tid; i < kBQt * kBK; i += kThr) {
-        const int r = i / kBK, j = j0 + (i - r * kBK);
-        const bool valid = q0 + r < Tq && j < Tk;
-        cp_async4(Gs + r * kLdG + (j - j0), valid ? gtile + (size_t)r * Tk + j : graph, valid);
+    if constexpr (!kGFrag) {
+      if (graph_quads) {
+        for (int i = tid; i < kBQt * (kBK / 4); i += kThr) {
+          const int r = i / (kBK / 4), j = j0 + (i - r * (kBK / 4)) * 4;
+          const bool valid = q0 + r < Tq && j < Tk;
+          cp_async16(Gs + r * kLdG + (j - j0), valid ? gtile + (size_t)r * Tk + j : graph, valid);
+        }
+      } else {
+        for (int i = tid; i < kBQt * kBK; i += kThr) {
+          const int r = i / kBK, j = j0 + (i - r * kBK);
+          const bool valid = q0 + r < Tq && j < Tk;
+          cp_async4(Gs + r * kLdG + (j - j0), valid ? gtile + (size_t)r * Tk + j : graph, valid);
+        }
       }
     }
-    float* kms = Gs + kBQt * kLdG;
+    float* kms = Gs + kGsRows * kLdG;
     for (int j = tid; j < kBK; j += kThr)
       cp_async4(kms + j, km + (j0 + j < Tk ? j0 + j : 0), j0 + j < Tk);
   };
+  // with kGFrag: this lane's two graph rows (any real row for one that is not)
+  const bool real_a = row_a < Tq, real_b = row_b < Tq;
+  const float* graph_a = graph + ((size_t)b * Tq + (real_a ? row_a : 0)) * Tk;
+  const float* graph_b = graph + ((size_t)b * Tq + (real_b ? row_b : 0)) * Tk;
 
   stage_head_tile<DH, kThr>(Qs, qb, q0, Tq, kBQt, C, c0, dh);
   for (int i = 0; i < kTcStages - 1; ++i) {   // one group of copies a step, empty past the end
@@ -734,15 +942,15 @@ flash_graph_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restri
   }
   cp_async_wait<kTcStages - 2>();
   __syncthreads();   // Q and the first step's tiles have landed
-  uint32_t qf[kKD][4];
-  if (active) {
+  uint32_t qf[kQSmem ? 1 : kKD][4];
+  if (!kQSmem && active) {
 #pragma unroll
     for (int kd = 0; kd < kKD; ++kd)
-      ldmatrix_x4(qf[kd], frag_a_row(Qs, kLd, warp * 16, kd * 16, lane));
+      ldmatrix_x4(qf[kQSmem ? 0 : kd], frag_a_row(Qs, kLd, warp * 16, kd * 16, lane));
   }
 
   float o[kND][4];
-  float m_a = -INFINITY, m_b = -INFINITY, z_a = 0.f, z_b = 0.f, b_a = 0.f, b_b = 0.f;
+  TcRows st;
 #pragma unroll
   for (int i = 0; i < kND; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
 
@@ -758,9 +966,12 @@ flash_graph_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restri
     const bf16* Ks = reinterpret_cast<const bf16*>(base);
     const bf16* Vs = Ks + kBK * kLd;
     const float* Gs = reinterpret_cast<const float*>(Vs + kBK * kLd);
-    const float* kmask = Gs + kBQt * kLdG;
+    const float* kmask = Gs + kGsRows * kLdG;
     const float* g_a = Gs + (warp * 16 + g) * kLdG + 2 * t;   // this lane's two graph rows
     const float* g_b = g_a + 8 * kLdG;
+    float gf[kGFrag ? kNS : 1][4];   // kGFrag: the step's graph entries, issued before Q K^T
+    if constexpr (kGFrag)
+      load_graph_frag<kNS>(gf, graph_a, graph_b, j0 + 2 * t, Tk, real_a, real_b, (Tk & 1) == 0);
 
     // S = Q K^T: 16 rows x 64 keys a warp
     float s[kNS][4];
@@ -768,6 +979,7 @@ flash_graph_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restri
     for (int nb = 0; nb < kNS; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
 #pragma unroll
     for (int kd = 0; kd < kKD; ++kd) {
+      if constexpr (kQSmem) ldmatrix_x4(qf[0], frag_a_row(Qs, kLd, warp * 16, kd * 16, lane));
 #pragma unroll
       uint32_t kf[kNS / 2][4];
 #pragma unroll
@@ -775,126 +987,185 @@ flash_graph_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restri
         ldmatrix_x4(kf[nb / 2], frag_b_row(Ks, kLd, nb * 8, kd * 16, lane));
 #pragma unroll
       for (int nb = 0; nb < kNS; nb += 2) {
-        mma_bf16(s[nb], qf[kd], kf[nb / 2][0], kf[nb / 2][1]);
-        mma_bf16(s[nb + 1], qf[kd], kf[nb / 2][2], kf[nb / 2][3]);
+        mma_bf16(s[nb], qf[kQSmem ? 0 : kd], kf[nb / 2][0], kf[nb / 2][1]);
+        mma_bf16(s[nb + 1], qf[kQSmem ? 0 : kd], kf[nb / 2][2], kf[nb / 2][3]);
       }
     }
 
-    // mask and the running maximum of both rows. Scores live in units of
-    // log 2 (x = s scale log2(e), so e = 2^(x - m)); a masked key is the fill
-    // value itself in those units, which keeps rows without a real key at
-    // uniform weights and lets the epilogue give back the fill value exactly.
-    // x = s * mul + fill is one FMA per score: (scale log2(e), 0) on a real
-    // key, (0, fill) on a masked one, (0, -inf) past the last key.
-    const bool ragged = j0 + kBK > Tk;
-    float mx_a = -INFINITY, mx_b = -INFINITY;
-#pragma unroll
-    for (int nb = 0; nb < kNS; ++nb) {
-      const int jl = nb * 8 + 2 * t;
-      const float2 kmv = *reinterpret_cast<const float2*>(kmask + jl);
-      float mul0 = kmv.x != 0.f ? scale2 : 0.f, fill0 = kmv.x != 0.f ? 0.f : kNegMask;
-      float mul1 = kmv.y != 0.f ? scale2 : 0.f, fill1 = kmv.y != 0.f ? 0.f : kNegMask;
-      if (ragged) {
-        if (j0 + jl >= Tk) { mul0 = 0.f; fill0 = -INFINITY; }
-        if (j0 + jl + 1 >= Tk) { mul1 = 0.f; fill1 = -INFINITY; }
+    auto graph_at = [&](int nb, float (&gr)[4]) {
+      if constexpr (kGFrag) {
+        gr[0] = gf[nb][0], gr[1] = gf[nb][1], gr[2] = gf[nb][2], gr[3] = gf[nb][3];
+      } else {
+        const float2 ga = *reinterpret_cast<const float2*>(g_a + nb * 8);
+        const float2 gb = *reinterpret_cast<const float2*>(g_b + nb * 8);
+        gr[0] = ga.x, gr[1] = ga.y, gr[2] = gb.x, gr[3] = gb.y;
       }
-      s[nb][0] = fmaf(s[nb][0], mul0, fill0);
-      s[nb][1] = fmaf(s[nb][1], mul1, fill1);
-      s[nb][2] = fmaf(s[nb][2], mul0, fill0);
-      s[nb][3] = fmaf(s[nb][3], mul1, fill1);
-      mx_a = fmaxf(mx_a, fmaxf(s[nb][0], s[nb][1]));
-      mx_b = fmaxf(mx_b, fmaxf(s[nb][2], s[nb][3]));
-    }
-    const float mn_a = fmaxf(m_a, quad_max(mx_a));
-    const float mn_b = fmaxf(m_b, quad_max(mx_b));
-    const float alpha_a = fast_exp2(m_a - mn_a);
-    const float alpha_b = fast_exp2(m_b - mn_b);
-    m_a = mn_a;
-    m_b = mn_b;
-
-    // e, e g and the row sums; s becomes e g
-    float sz_a = 0.f, sz_b = 0.f, sb_a = 0.f, sb_b = 0.f;
-#pragma unroll
-    for (int nb = 0; nb < kNS; ++nb) {
-      const float2 ga = *reinterpret_cast<const float2*>(g_a + nb * 8);
-      const float2 gb = *reinterpret_cast<const float2*>(g_b + nb * 8);
-      const float gr[4] = {ga.x, ga.y, gb.x, gb.y};
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float e = fast_exp2(s[nb][c] - (c < 2 ? mn_a : mn_b));
-        const float eg = e * gr[c];
-        s[nb][c] = eg;
-        if (c < 2) { sz_a += e; sb_a += eg; } else { sz_b += e; sb_b += eg; }
-      }
-    }
-    z_a = z_a * alpha_a + sz_a;
-    z_b = z_b * alpha_b + sz_b;
-    b_a = b_a * alpha_a + sb_a;
-    b_b = b_b * alpha_b + sb_b;
-#pragma unroll
-    for (int i = 0; i < kND; ++i) {
-      o[i][0] *= alpha_a; o[i][1] *= alpha_a;
-      o[i][2] *= alpha_b; o[i][3] *= alpha_b;
-    }
-
-    // a += round(e g) V: the score fragments are the A operand as they are
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t pf[4];
-      pf[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pf[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pf[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pf[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      uint32_t vf[kND / 2][4];
-#pragma unroll
-      for (int nd = 0; nd < kND; nd += 2)
-        ldmatrix_x4_trans(vf[nd / 2], frag_bt_row(Vs, kLd, kk * 16, nd * 8, lane));
-#pragma unroll
-      for (int nd = 0; nd < kND; nd += 2) {
-        mma_bf16(o[nd], pf, vf[nd / 2][0], vf[nd / 2][1]);
-        mma_bf16(o[nd + 1], pf, vf[nd / 2][2], vf[nd / 2][3]);
-      }
-    }
+    };
+    tc_step<kND, kLd, kQSmem>(s, o, st, kmask, Vs, j0, Tk, scale2, t, lane, DH, graph_at);
   }
   cp_async_wait<0>();
   if (!active) return;
+  tc_epilogue(o, st, row_a, t, Tq, C, H, dh, h, b, sp, 0, dh, renorm, emit, n_split, query_mask,
+              out, a_out, m_out, z_out, b_out);
+}
 
-  z_a = quad_sum(z_a);
-  z_b = quad_sum(z_b);
-  b_a = quad_sum(b_a);
-  b_b = quad_sum(b_b);
-  const bool raw = n_split > 1 || emit == 2;
+// ---- the chunked tensor-core kernel (bf16, head widths above 256) ----
+//
+// A head wider than 256 channels has O's 16 x dh f32 a warp past the
+// registers, and its K and V tiles past two stages of shared memory. So its
+// output channels are cut into chunks of kWideDh (256) over blocks, as the
+// wide SIMT kernel cuts them: block (head x chunk, q tile x key shard,
+// batch) owns 128 query rows and output channels [o0, o0 + 256) of one head.
+// Its scores need the whole head width: each 64-key step is walked as
+// ceil(dh / 128) units of the ring, unit d staging Q's and K's channels [128
+// d, 128 d + 128) (the last unit's channels past dh zeros) and adding Q
+// K^T over them to the warp's score fragments, the last unit also staging
+// the step's V chunk (64 keys x 256) and key mask and running the
+// tensor-core kernel's step on them (tc_step), then its epilogue for the
+// block's channels (tc_epilogue). Q is staged again at every step (it is an L2
+// hit): it does not fit beside the ring at every head width. The scores are
+// computed ceil(dh / 256) times, once per chunk, on the tensor cores;
+// chunk 0 writes m, z and b. Key split and merge as the tensor-core
+// kernel's: a chunk's raw a goes to its channels of the partial.
+// A block is 8 warps, 128 query rows: each K and V chunk staged serves
+// them all (64 rows measured 1.69x / 1.71x slower at head widths 320 / 512,
+// scripts/head256_rows.py). The graph tile would not fit beside Q, K and V:
+// the lanes read their graph entries from device memory in the fragments'
+// pattern (load_graph_frag), issued before the last unit's Q K^T.
+// Shared memory, two slots of: Vs (64, 264) bf16 | kms (64) f32 | Kc (64,
+// 136) bf16 | Qc (128, 136) bf16: 86,272 bytes each.
+constexpr int kChunkDc = 128;   // channels of Q and K a unit of the chunked kernel
+constexpr int kChunkWarps = 8;  // warps a block of the chunked kernels (bf16 and f32)
+
+__host__ __device__ constexpr size_t chunk_slot_bytes(int bq) {
+  return sizeof(__nv_bfloat16) * kBK * (kWideDh + 8) + sizeof(float) * kBK +
+         sizeof(__nv_bfloat16) * (kBK + bq) * (kChunkDc + 8);
+}
+
+template <int WARPS>
+__global__ void __launch_bounds__(WARPS * 32, 1)
+flash_graph_attention_tc_chunk_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                      const bf16* __restrict__ v,
+                                      const float* __restrict__ key_mask,
+                                      const float* __restrict__ query_mask,
+                                      const float* __restrict__ graph, bf16* __restrict__ out,
+                                      float* __restrict__ a_out, float* __restrict__ m_out,
+                                      float* __restrict__ z_out, float* __restrict__ b_out,
+                                      int Tq, int Tk, int C, int H, int dh, int renorm, int emit,
+                                      float scale, int n_split, int steps_per_split) {
+  constexpr int kBQt = WARPS * 16;
+  constexpr int kThr = WARPS * 32;
+  constexpr int kLdV = kWideDh + 8;
+  constexpr int kLdC = kChunkDc + 8;
+  constexpr int kND = kWideDh / 8;   // 8-wide accumulator blocks of the chunk's output
+  constexpr int kNS = kBK / 8;       // 8-wide accumulator blocks of the scores
+  constexpr int kSlot = (int)chunk_slot_bytes(kBQt);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+
+  const int n_chunks = (dh + kWideDh - 1) / kWideDh;
+  const int h = blockIdx.x / n_chunks;
+  const int o0 = (blockIdx.x - h * n_chunks) * kWideDh;   // the chunk's first channel in the head
+  const int ow = min(kWideDh, dh - o0);
+  const int qt = blockIdx.y / n_split;
+  const int sp = blockIdx.y - qt * n_split;
+  const int b = blockIdx.z;
+  const int q0 = qt * kBQt;
+  const int c0 = h * dh;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int n_dc = (dh + kChunkDc - 1) / kChunkDc;
+  const int n_steps = (Tk + kBK - 1) / kBK;
+  const int step_lo = sp * steps_per_split;
+  const int step_hi = min(n_steps, step_lo + steps_per_split);
+  const int n_units = (step_hi - step_lo) * n_dc;
+  const bool active = q0 + warp * 16 < Tq;
+  const float scale2 = scale * kLog2e;
+
+  const bf16* qb = q + (size_t)b * Tq * C;
+  const bf16* kb = k + (size_t)b * Tk * C;
+  const bf16* vb = v + (size_t)b * Tk * C;
+  const float* km = key_mask + (size_t)b * Tk;
+  const int row_a = q0 + warp * 16 + g;
+  const int row_b = row_a + 8;
+
+  auto slot = [&](int u) { return smem_raw + (u & 1) * kSlot; };
+  auto load_unit = [&](int u) {
+    unsigned char* base = slot(u);
+    const int step = step_lo + u / n_dc, dc = (u % n_dc) * kChunkDc;
+    const int j0 = step * kBK;
+    bf16* Vs = reinterpret_cast<bf16*>(base);
+    float* kms = reinterpret_cast<float*>(Vs + kBK * kLdV);
+    bf16* Kc = reinterpret_cast<bf16*>(kms + kBK);
+    bf16* Qc = Kc + kBK * kLdC;
+    stage_head_tile<kChunkDc, kThr>(Kc, kb, j0, Tk, kBK, C, c0 + dc, dh - dc);
+    stage_head_tile<kChunkDc, kThr>(Qc, qb, q0, Tq, kBQt, C, c0 + dc, dh - dc);
+    if (dc + kChunkDc < dh) return;   // not the step's last unit
+    stage_head_tile<kWideDh, kThr>(Vs, vb, j0, Tk, kBK, C, c0 + o0, ow);
+    for (int j = tid; j < kBK; j += kThr)
+      cp_async4(kms + j, km + (j0 + j < Tk ? j0 + j : 0), j0 + j < Tk);
+  };
+  // this lane's two graph rows (any real row for one that is not)
+  const bool real_a = row_a < Tq, real_b = row_b < Tq;
+  const float* graph_a = graph + ((size_t)b * Tq + (real_a ? row_a : 0)) * Tk;
+  const float* graph_b = graph + ((size_t)b * Tq + (real_b ? row_b : 0)) * Tk;
+
+  if (n_units > 0) load_unit(0);
+  cp_async_commit();
+
+  float o[kND][4], s[kNS][4];
+  TcRows st;
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = half == 0 ? row_a : row_b;
-    if (row >= Tq) continue;
-    // back to natural units; the fill value comes back as it went in
-    const float m2 = half == 0 ? m_a : m_b;
-    const float mr = m2 == kNegMask ? kNegMask : m2 * kLn2;
-    const float zr = half == 0 ? z_a : z_b;
-    const float br = half == 0 ? b_a : b_b;
-    const size_t stat_at = (((size_t)sp * gridDim.z + b) * H + h) * Tq + row;
-    if ((raw || emit == 1) && t == 0) {
-      m_out[stat_at] = mr;
-      z_out[stat_at] = zr;
-      b_out[stat_at] = br;
+  for (int i = 0; i < kND; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+
+  for (int u = 0; u < n_units; ++u) {
+    cp_async_wait<0>();
+    __syncthreads();   // this unit's tiles have landed; the other slot's readers are done
+    if (u + 1 < n_units) load_unit(u + 1);
+    cp_async_commit();
+    if (!active) continue;
+    const unsigned char* base = slot(u);
+    const bf16* Vs = reinterpret_cast<const bf16*>(base);
+    const float* kmask = reinterpret_cast<const float*>(Vs + kBK * kLdV);
+    const bf16* Kc = reinterpret_cast<const bf16*>(kmask + kBK);
+    const bf16* Qc = Kc + kBK * kLdC;
+    const int du = u % n_dc;
+    const int j0 = (step_lo + u / n_dc) * kBK;
+    if (du == 0) {
+#pragma unroll
+      for (int nb = 0; nb < kNS; ++nb) s[nb][0] = s[nb][1] = s[nb][2] = s[nb][3] = 0.f;
     }
-    const float denom = renorm == 0 ? fmaxf(br, kL1Eps * zr) : br + kSumEps * zr;
-    const float qm = query_mask[(size_t)b * Tq + row];
+    float gr[kNS][4];   // the step's graph entries of this lane's rows
+    if (du == n_dc - 1)
+      load_graph_frag<kNS>(gr, graph_a, graph_b, j0 + 2 * t, Tk, real_a, real_b,
+                           (Tk & 1) == 0);
+    // S += Q K^T over the unit's 128 channels
 #pragma unroll
-    for (int i = 0; i < kND; ++i) {
-      const int d = i * 8 + 2 * t;
-      if (d >= dh) continue;
-      const float x = o[i][2 * half], y = o[i][2 * half + 1];
-      if (raw) {
-        *reinterpret_cast<float2*>(a_out + stat_at * dh + d) = make_float2(x, y);
-      } else {
-        *reinterpret_cast<__nv_bfloat162*>(out + ((size_t)b * Tq + row) * C + c0 + d) =
-            __floats2bfloat162_rn(x / denom * qm, y / denom * qm);
+    for (int kd = 0; kd < kChunkDc / 16; ++kd) {
+      uint32_t qa[4], kf[kNS / 2][4];
+      ldmatrix_x4(qa, frag_a_row(Qc, kLdC, warp * 16, kd * 16, lane));
+#pragma unroll
+      for (int nb = 0; nb < kNS; nb += 2)
+        ldmatrix_x4(kf[nb / 2], frag_b_row(Kc, kLdC, nb * 8, kd * 16, lane));
+#pragma unroll
+      for (int nb = 0; nb < kNS; nb += 2) {
+        mma_bf16(s[nb], qa, kf[nb / 2][0], kf[nb / 2][1]);
+        mma_bf16(s[nb + 1], qa, kf[nb / 2][2], kf[nb / 2][3]);
       }
     }
+    if (du != n_dc - 1) continue;
+    tc_step<kND, kLdV, true>(s, o, st, kmask, Vs, j0, Tk, scale2, t, lane, ow,
+                             [&](int nb, float (&g4)[4]) {
+                               g4[0] = gr[nb][0], g4[1] = gr[nb][1];
+                               g4[2] = gr[nb][2], g4[3] = gr[nb][3];
+                             });
   }
+  cp_async_wait<0>();
+  if (!active) return;
+  tc_epilogue(o, st, row_a, t, Tq, C, H, dh, h, b, sp, o0, ow, renorm, emit, n_split,
+              query_mask, out, a_out, m_out, z_out, b_out);
 }
 
 // Combines the raw partials of n_split key shards, one thread per (batch,
@@ -951,18 +1222,26 @@ struct TcArgs {
   cudaStream_t stream;
 };
 
+// DH 0: the chunked kernel (head widths above 256), a block per (head x
+// chunk of 256 output channels), else the tensor-core kernel's instance DH.
 template <int DH, int WARPS>
 cudaError_t launch_tc(const TcArgs& p) {
   constexpr int kBQt = WARPS * 16;
-  const size_t smem = kTcStages * (sizeof(bf16) * 2 * kBK * (DH + 8) +
-                                   sizeof(float) * (kBQt * (kBK + 8) + kBK));
-  auto kernel = flash_graph_attention_tc_kernel<DH, WARPS>;
+  constexpr size_t smem = DH == 0 ? 2 * chunk_slot_bytes(kBQt) : tc_smem_bytes(DH, kBQt);
+  auto kernel = [] {
+    if constexpr (DH == 0)
+      return flash_graph_attention_tc_chunk_kernel<WARPS>;
+    else
+      return flash_graph_attention_tc_kernel<DH, WARPS>;
+  }();
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int dh = p.C / p.H;
   const int q_tiles = (p.Tq + kBQt - 1) / kBQt;
-  const dim3 grid(p.H, q_tiles * p.n_split, p.B);
+  const long long heads = DH == 0 ? (long long)p.H * ((dh + kWideDh - 1) / kWideDh) : p.H;
+  if (heads > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)heads, q_tiles * p.n_split, p.B);
   const size_t n_rows = (size_t)p.B * p.H * p.Tq;
   const bool split = p.n_split > 1;
   // unsplit: out or the raw a go where the caller wants them; split: to scratch
@@ -985,17 +1264,26 @@ cudaError_t launch_tc(const TcArgs& p) {
 
 constexpr int kTcWarps = 4;   // 64 query rows a block
 
-cudaError_t launch_tc_dh(const TcArgs& p) {
+// q_tile: query rows a block, 64, or 128 on instance 256; the chunked
+// kernel takes 128.
+cudaError_t launch_tc_dh(const TcArgs& p, int q_tile) {
   const int dh = p.C / p.H;
   if (dh <= 16) return launch_tc<16, kTcWarps>(p);
   if (dh <= 32) return launch_tc<32, kTcWarps>(p);
   if (dh <= 64) return launch_tc<64, kTcWarps>(p);
-  return launch_tc<128, kTcWarps>(p);
+  if (dh <= 128) return launch_tc<128, kTcWarps>(p);
+  if (dh <= 256) return q_tile == 128 ? launch_tc<256, 8>(p) : launch_tc<256, kTcWarps>(p);
+  return launch_tc<0, kChunkWarps>(p);
 }
 
 // ---- the f32 kernel (csrc/simt_f32.cuh) ----
 
-template <int DH, int WARPS, int R>
+// Keys a step of the f32 kernel's instance DH: 64, and 32 above head width
+// 128 (instance 256: Q's 64 KB and two stages of 32-key K and V tiles, 208
+// KB with the graph tiles, where 64-key tiles would take 352 KB).
+__host__ __device__ constexpr int f32_step(int dh) { return dh <= 128 ? 64 : 32; }
+
+template <int DH, int WARPS, int R, int STEP>
 __global__ void __launch_bounds__(WARPS * 32, WARPS * R == 16 && DH <= 64 ? 2 : 1)
 flash_graph_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                  const float* __restrict__ v, const float* __restrict__ key_mask,
@@ -1005,9 +1293,147 @@ flash_graph_attention_f32_kernel(const float* __restrict__ q, const float* __res
                                  float* __restrict__ z_out, float* __restrict__ b_out, int Tq,
                                  int Tk, int C, int H, int dh, int renorm, int emit, float scale,
                                  int n_split, int steps_per_split) {
-  savqa_f32::flash_f32_body<DH, WARPS, R>(q, k, v, key_mask, query_mask, graph, out, a_out, m_out,
+  savqa_f32::flash_f32_body<DH, WARPS, R, STEP>(q, k, v, key_mask, query_mask, graph, out, a_out, m_out,
                                        z_out, b_out, 1, Tq, Tk, C, H, dh, renorm, emit, scale,
                                        n_split, steps_per_split);
+}
+
+// ---- the chunked f32 kernel (f32, head widths above 256) ----
+//
+// The chunked tensor-core kernel's walk on flash_f32_body's tiles: block
+// (head x chunk of 256 output channels, q tile x key shard, batch), 4 R
+// WARPS query rows, 32-key steps. Each step is ceil(dh / 64) units of the
+// ring, unit d staging Q's and K's channels [64 d, 64 d + 64) (the last
+// unit's channels past dh zeros) and adding their products to the lane's 4
+// x 4 scores (tile_abt: one FMA chain per score over the head width, in
+// ascending channels), the last unit also staging the step's V chunk (32
+// keys x 256), graph tile and key mask and running flash_f32_body's step on
+// them (flash_f32_step: mask, running maximum, weights through the warp's
+// rows of the graph tile, tile_pv into a 4 x 32 output tile a lane), then
+// its epilogue (flash_f32_epilogue). Scores computed
+// ceil(dh / 256) times; chunk 0 writes m, z, b; key split and merge as
+// flash_f32_body's. Shared memory, two slots of Qc (rows, 64) | Kc (32, 64)
+// | Vs (32, 256) | Gs (rows, 32) | kms (32) f32: 65,664 bytes each at 64
+// rows.
+constexpr int kF32Dc = 64;          // channels of Q and K a unit stages
+constexpr int kF32ChunkStep = 32;   // keys a step
+
+__host__ __device__ constexpr int f32_chunk_slot_floats(int rows) {
+  return (rows + kF32ChunkStep) * kF32Dc + kF32ChunkStep * kWideDh + rows * kF32ChunkStep +
+         kF32ChunkStep;
+}
+
+template <int WARPS>
+__global__ void __launch_bounds__(WARPS * 32, 1)
+flash_graph_attention_f32_chunk_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                       const float* __restrict__ v,
+                                       const float* __restrict__ key_mask,
+                                       const float* __restrict__ query_mask,
+                                       const float* __restrict__ graph, float* __restrict__ out,
+                                       float* __restrict__ a_out, float* __restrict__ m_out,
+                                       float* __restrict__ z_out, float* __restrict__ b_out,
+                                       int Tq, int Tk, int C, int H, int dh, int renorm,
+                                       int emit, float scale, int n_split, int steps_per_split) {
+  namespace f32 = savqa_f32;
+  constexpr int R = 4;
+  constexpr int kBQ = 4 * R * WARPS;
+  constexpr int kThr = 32 * WARPS;
+  constexpr int kStepK = kF32ChunkStep;
+  constexpr int kNC = kStepK / 8;
+  constexpr int kSlotF = f32_chunk_slot_floats(kBQ);
+  extern __shared__ __align__(16) float smem_fc[];
+
+  const int n_chunks = (dh + kWideDh - 1) / kWideDh;
+  const int h = blockIdx.x / n_chunks;
+  const int o0 = (blockIdx.x - h * n_chunks) * kWideDh;
+  const int ow = min(kWideDh, dh - o0);
+  const int qt = blockIdx.y / n_split;
+  const int sp = blockIdx.y - qt * n_split;
+  const int b = blockIdx.z;
+  const int q0 = qt * kBQ;
+  const int c0 = h * dh;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int ly = lane >> 3, lx = lane & 7;
+  const int wrow = warp * 4 * R;
+  const int n_dc = (dh + kF32Dc - 1) / kF32Dc;
+  const int n_steps = (Tk + kStepK - 1) / kStepK;
+  const int step_lo = sp * steps_per_split;
+  const int step_hi = min(n_steps, step_lo + steps_per_split);
+  const int n_units = (step_hi - step_lo) * n_dc;
+  const bool active = q0 + wrow < Tq;
+  const bool gvec = (Tk & 3) == 0;
+
+  const float* qb = q + (size_t)b * Tq * C;
+  const float* kb = k + (size_t)b * Tk * C;
+  const float* vb = v + (size_t)b * Tk * C;
+  const float* gb = graph + (size_t)b * Tq * Tk;
+  const float* km = key_mask + (size_t)b * Tk;
+  auto load_unit = [&](int u) {
+    float* Qc = smem_fc + (u & 1) * kSlotF;
+    float* Kc = Qc + kBQ * kF32Dc;
+    float* Vs = Kc + kStepK * kF32Dc;
+    float* Gs = Vs + kStepK * kWideDh;
+    float* kms = Gs + kBQ * kStepK;
+    const int step = step_lo + u / n_dc, dc = (u % n_dc) * kF32Dc;
+    const int j0 = step * kStepK;
+    f32::stage_tile<kF32Dc, kThr>(Qc, qb, q0, Tq, kBQ, C, c0 + dc, dh - dc, true,
+                                  f32::Swz<kF32Dc>());
+    f32::stage_tile<kF32Dc, kThr>(Kc, kb, j0, Tk, kStepK, C, c0 + dc, dh - dc, true,
+                                  f32::Swz<kF32Dc>());
+    if (dc + kF32Dc < dh) return;   // not the step's last unit
+    f32::stage_tile<kWideDh, kThr>(Vs, vb, j0, Tk, kStepK, C, c0 + o0, ow, true,
+                                   f32::Swz<kWideDh>());
+    f32::stage_tile<kStepK, kThr>(Gs, gb, q0, Tq, kBQ, Tk, j0, Tk - j0, gvec,
+                                  f32::GSwz<kStepK>());
+    for (int j = tid; j < kStepK; j += kThr)
+      cp_async4(kms + j, km + (j0 + j < Tk ? j0 + j : 0), j0 + j < Tk);
+  };
+
+  if (n_units > 0) load_unit(0);
+  cp_async_commit();
+
+  float m[R], z[R], bs[R], acc[R][kWideDh / 8], s[R][kNC];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    m[i] = -INFINITY;
+    z[i] = 0.f;
+    bs[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < kWideDh / 8; ++e) acc[i][e] = 0.f;
+  }
+
+  for (int u = 0; u < n_units; ++u) {
+    cp_async_wait<0>();
+    __syncthreads();   // this unit's tiles have landed; the other slot's readers are done
+    if (u + 1 < n_units) load_unit(u + 1);
+    cp_async_commit();
+    if (!active) continue;
+    const float* Qc = smem_fc + (u & 1) * kSlotF;
+    const float* Kc = Qc + kBQ * kF32Dc;
+    const float* Vs = Kc + kStepK * kF32Dc;
+    float* Gs = const_cast<float*>(Vs + kStepK * kWideDh);
+    const float* kms = Gs + kBQ * kStepK;
+    const int du = u % n_dc;
+    if (du == 0) {
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int c = 0; c < kNC; ++c) s[i][c] = 0.f;
+    }
+    f32::tile_abt<kF32Dc, kNC, R>(s, Qc, wrow, Kc, kF32Dc, ly, lx);
+    if (du != n_dc - 1) continue;
+
+    const int nk = min(kStepK, Tk - (step_lo + u / n_dc) * kStepK);
+    f32::flash_f32_step<kWideDh, kStepK, R>(s, m, z, bs, acc, Gs, kms, Vs, nk, scale, wrow, ly,
+                                            lx);
+  }
+  cp_async_wait<0>();
+  if (!active) return;
+  f32::flash_f32_epilogue<kWideDh, R>(m, z, bs, acc, q0 + wrow + ly, lx, Tq, C, H, dh, h, b, sp,
+                                      o0, ow, 1, renorm, emit, n_split, query_mask, out, a_out,
+                                      m_out, z_out, b_out);
 }
 
 struct F32Args {
@@ -1019,11 +1445,20 @@ struct F32Args {
   cudaStream_t stream;
 };
 
+// DH 0: the chunked kernel (head widths above 256), a block per (head x
+// chunk of 256 output channels), else the f32 kernel's instance DH.
 template <int DH, int WARPS, int R>
 cudaError_t launch_f32(const F32Args& p) {
   constexpr int kRows = 4 * R * WARPS;
-  const size_t smem = sizeof(float) * savqa_f32::flash_smem_floats(DH, kRows);
-  auto kernel = flash_graph_attention_f32_kernel<DH, WARPS, R>;
+  constexpr int kStep = f32_step(DH == 0 ? kF32ChunkStep : DH);
+  const size_t smem = sizeof(float) * (DH == 0 ? 2 * f32_chunk_slot_floats(kRows)
+                                               : savqa_f32::flash_smem_floats(DH, kRows, kStep));
+  auto kernel = [] {
+    if constexpr (DH == 0)
+      return flash_graph_attention_f32_chunk_kernel<WARPS>;
+    else
+      return flash_graph_attention_f32_kernel<DH, WARPS, R, kStep>;
+  }();
   // once a process: the one-query calls are short enough for the host's
   // attribute calls to show
   static const cudaError_t attributes = savqa_f32::allow_smem(kernel, smem);
@@ -1031,7 +1466,9 @@ cudaError_t launch_f32(const F32Args& p) {
   cudaError_t err;
   const int dh = p.C / p.H;
   const int q_tiles = (p.Tq + kRows - 1) / kRows;
-  const dim3 grid(p.H, q_tiles * p.n_split, p.B);
+  const long long heads = DH == 0 ? (long long)p.H * ((dh + kWideDh - 1) / kWideDh) : p.H;
+  if (heads > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const dim3 grid((unsigned)heads, q_tiles * p.n_split, p.B);
   const size_t n_rows = (size_t)p.B * p.H * p.Tq;
   const bool split = p.n_split > 1;
   float* out = p.emit == 2 ? nullptr : static_cast<float*>(p.out);
@@ -1056,21 +1493,42 @@ cudaError_t launch_f32_dh(const F32Args& p) {
   const int dh = p.C / p.H;
   if (dh <= 32) return launch_f32<32, WARPS, R>(p);
   if (dh <= 64) return launch_f32<64, WARPS, R>(p);
-  return launch_f32<128, WARPS, R>(p);
+  if (dh <= 128) return launch_f32<128, WARPS, R>(p);
+  return launch_f32<256, WARPS, R>(p);
+}
+
+// The kernels the entry picks, by the names of flash_graph_attention.py's
+// k4_path, and the one this thread's last call launched (-1 before any).
+enum K4Path { kPathSimt, kPathWide, kPathTc, kPathTcChunked, kPathF32, kPathF32Chunked };
+thread_local int last_path = -1;
+
+// Records the path of a launch that succeeded.
+int launched(cudaError_t err, K4Path path) {
+  if (err == cudaSuccess) last_path = path;
+  return (int)err;
 }
 
 }  // namespace
 
+// The kernel that this thread's last call of savqa_flash_graph_attention
+// launched (0 simt, 1 wide, 2 tensor-core, 3 tc-chunked, 4 f32, 5
+// f32-chunked), -1 before any: the wrappers count launches by it.
+extern "C" int savqa_flash_graph_attention_last_path() { return last_path; }
+
 // dtype: 0 = float32, 1 = bfloat16. renorm: 0 = l1, 1 = sum_eps.
 // emit: 0 = out, 1 = out + m, z, b, 2 = raw a (B, H, Tq, dh) f32 + m, z, b,
 // 3 = out (B, Tq, C) f32 (+ m, z, b where they are not null). m, z and b may
-// be null with emit 0. Head widths above 256, and emit 3 at any head width,
-// take the wide kernel (no split: n_split must be 1).
-// bf16 with a head width that is a multiple of 16 up to 128 takes the
-// tensor-core kernel (64 query rows a block) and f32 with a head width that
-// is a multiple of 4 up to 128 the f32 kernel (q_tile query rows a block, 16
-// or 64), both with the key steps (64 keys each) split into n_split shards
-// of steps_per_split steps, none of them empty; with n_split > 1 scratch_a
+// be null with emit 0. Emit 3 at any head width, and head widths above 256
+// that are no multiple of 16 (bf16) or of 4 (f32), take the wide kernel (no
+// split: n_split must be 1).
+// bf16 with a head width that is a multiple of 16 takes the tensor-core
+// kernel (q_tile query rows a block: 64, or 128 above head width 128; 128
+// above 256) and f32 with a head width that is a multiple of 4 the f32
+// kernel (q_tile: 16 or 64; 128 above 256), above 256 their chunked forms,
+// all with the key
+// steps (64 keys each; the f32 kernels' are 32 above head width 128) split
+// into n_split shards of steps_per_split steps, none of them empty; with
+// n_split > 1 scratch_a
 // (n_split, B, H, Tq, dh) and scratch_stats (3, n_split, B, H, Tq) f32 hold
 // the partials between the two launches. Every other call takes the first
 // SIMT kernel, which has no split (n_split must be 1). Returns
@@ -1094,42 +1552,53 @@ extern "C" int savqa_flash_graph_attention(const void* q, const void* k, const v
   auto* bo = static_cast<float*>(b_out);
   auto s = static_cast<cudaStream_t>(stream);
   const int dh = C / H;
-  if (dh > kMaxDh || emit == 3) {
+  // bf16 at every multiple of 16, f32 at every multiple of 4 (above
+  // kTcMaxDh the chunked kernels); emit 3 always takes the wide kernel
+  const bool tc = dtype == 1 && dh % 16 == 0 && emit != 3;
+  const bool f32k = dtype == 0 && dh % 4 == 0 && emit != 3;
+  if (!tc && !f32k && (dh > kMaxDh || emit == 3)) {
     if (n_split != 1) return (int)cudaErrorInvalidValue;
     if (dtype == 0)
-      return (int)launch_wide<float>(q, k, v, km, qm, g, out, mo, zo, bo, B, Tq, Tk, C, H,
-                                     renorm, emit, scale, s);
-    return (int)launch_wide<__nv_bfloat16>(q, k, v, km, qm, g, out, mo, zo, bo, B, Tq, Tk, C,
-                                           H, renorm, emit, scale, s);
+      return launched(launch_wide<float>(q, k, v, km, qm, g, out, mo, zo, bo, B, Tq, Tk, C, H,
+                                         renorm, emit, scale, s), kPathWide);
+    return launched(launch_wide<__nv_bfloat16>(q, k, v, km, qm, g, out, mo, zo, bo, B, Tq, Tk,
+                                               C, H, renorm, emit, scale, s), kPathWide);
   }
-  const bool tc = dtype == 1 && dh % 16 == 0 && dh <= kTcMaxDh;
-  const bool f32k = dtype == 0 && dh % 4 == 0 && dh <= kTcMaxDh;
   if (tc || f32k) {
-    const int n_steps = (Tk + kBK - 1) / kBK;
+    const int step = f32k ? f32_step(dh) : kBK;
+    const int n_steps = (Tk + step - 1) / step;
     if (steps_per_split < 1 ||
         (n_split - 1) * steps_per_split >= n_steps || n_split * steps_per_split < n_steps ||
         (n_split > 1 && (scratch_a == nullptr || scratch_stats == nullptr)))
       return (int)cudaErrorInvalidValue;
   }
   if (tc) {
+    if (dh > kTcMaxDh ? q_tile != 128 : q_tile != 64 && (q_tile != 128 || dh <= 128))
+      return (int)cudaErrorInvalidValue;
     const TcArgs p{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                    static_cast<const bf16*>(v), km, qm, g, out, mo, zo, bo,
                    static_cast<float*>(scratch_a), static_cast<float*>(scratch_stats),
                    B, Tq, Tk, C, H, renorm, emit, n_split, steps_per_split, scale, s};
-    return (int)launch_tc_dh(p);
+    return launched(launch_tc_dh(p, q_tile), dh > kTcMaxDh ? kPathTcChunked : kPathTc);
   }
   if (f32k) {
-    if (q_tile != 16 && q_tile != 64) return (int)cudaErrorInvalidValue;
+    // above kTcMaxDh the chunked kernel at 128 rows a block (8 warps; 64
+    // measured 1.33x slower at head widths 320 and 512,
+    // scripts/k4_f32_head256_variants.py)
+    const bool chunked = dh > kTcMaxDh;
+    if (chunked ? q_tile != 128 : q_tile != 16 && q_tile != 64)
+      return (int)cudaErrorInvalidValue;
     const F32Args p{static_cast<const float*>(q), static_cast<const float*>(k),
                     static_cast<const float*>(v), km, qm, g, out, mo, zo, bo,
                     static_cast<float*>(scratch_a), static_cast<float*>(scratch_stats),
                     B, Tq, Tk, C, H, renorm, emit, n_split, steps_per_split, scale, s};
-    return (int)(q_tile == 16 ? launch_f32_dh<1, 4>(p) : launch_f32_dh<4, 4>(p));
+    if (chunked) return launched(launch_f32<0, kChunkWarps, 4>(p), kPathF32Chunked);
+    return launched(q_tile == 16 ? launch_f32_dh<1, 4>(p) : launch_f32_dh<4, 4>(p), kPathF32);
   }
   if (n_split != 1) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return (int)launch<float>(dh, q, k, v, km, qm, g, out, mo, zo, bo, B, Tq, Tk, C, H, renorm,
-                              emit, scale, s);
-  return (int)launch<__nv_bfloat16>(dh, q, k, v, km, qm, g, out, mo, zo, bo, B, Tq, Tk, C, H,
-                                    renorm, emit, scale, s);
+    return launched(launch<float>(dh, q, k, v, km, qm, g, out, mo, zo, bo, B, Tq, Tk, C, H,
+                                  renorm, emit, scale, s), kPathSimt);
+  return launched(launch<__nv_bfloat16>(dh, q, k, v, km, qm, g, out, mo, zo, bo, B, Tq, Tk, C,
+                                        H, renorm, emit, scale, s), kPathSimt);
 }

@@ -19,16 +19,16 @@
 // the 67 TFLOP/s FFMA peak against ~53 us of bytes).
 //
 // Three designs, chosen by shape (ops/fused_graph_attention.py:k1_path):
-// * bf16 with a head width that is a multiple of 16 (up to 128): the
+// * bf16 with a head width that is a multiple of 16 (up to 256): the
 //   tensor-core kernels below.
 // * f32 with a head width that is a multiple of 4 (up to 128): a
 //   register-tiled FFMA kernel (csrc/simt_f32.cuh's tiles) that sums as the
 //   first SIMT kernel does, then the epilogue kernel that the tensor-core
 //   path shares; its output is the SIMT kernel's bit for bit (see "the f32
 //   kernel" below).
-// * Every other call (bf16 at other head widths and above 128, f32 at a
-//   head width that is no multiple of 4 or above 128; head widths up to
-//   256): the first SIMT kernel. One block of
+// * Every other call (bf16 at other head widths, f32 at a head width that
+//   is no multiple of 4 or above 128; head widths up to 256): the first
+//   SIMT kernel. One block of
 //   256 threads owns (batch element, tile of up to 16 query rows) and loops
 //   over all H heads, so the LayerNorm epilogue sees all C channels of its
 //   rows: the (rows, C) f32 attention output stays in shared memory and
@@ -258,16 +258,24 @@ using savqa::frag_a_row;
 using savqa::ldmatrix_x4;
 using savqa::load_graph_frag;
 using savqa::product_abt;
+using savqa::product_abt_smem;
 using savqa::quad_max;
 using savqa::quad_sum;
 using savqa::stage_head_tile;
 
 constexpr int kStep = 64;         // keys a step
+constexpr int kTcMaxDh = 256;     // the widest head of the tensor-core kernel (instance 256)
 constexpr int kNS = kStep / 8;    // 8-wide accumulator blocks of a step
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared memory: Qs (16 NW, DH + 8) bf16 | ring: two stages of K, V
 // (64, DH + 8) bf16 | kmul, kfill (ceil(Tk / 64) * 64) f32
+// Instance 256 (head widths 144-256, zero-padded): O's accumulators are 128
+// registers a thread, so Q's fragments are read from Qs with ldmatrix where
+// Q K^T needs them (product_abt_smem) instead of held (64 registers), V's
+// two 8-wide blocks at a time, and pass B reads the graph after Q K^T; it
+// runs 64 or 128 query rows a block (4 or 8 warps), one block an SM either
+// way (173 or 207 KB at 512 keys), 128 above 128 rows (tc_warps).
 // Up to a head width of 64 the registers are capped for three blocks of 4
 // warps an SM (170 a thread; 209 uncapped left two): 0.0803 / 0.1205 ms
 // against 0.0942 / 0.1351 at L 66 / 128, B 128, spilling 12 bytes
@@ -285,6 +293,7 @@ graph_attention_ln_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict_
   constexpr int kLd = DH + 8;
   constexpr int kKD = DH / 16;
   constexpr int kND = DH / 8;
+  constexpr bool kQSmem = DH > 128;   // Q's fragments read from Qs where Q K^T needs them
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int n_steps = (Tk + kStep - 1) / kStep;
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
@@ -357,10 +366,13 @@ graph_attention_ln_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict_
     cp_async_wait<0>();
   };
 
-  uint32_t qf[kKD][4];
+  uint32_t qf[kQSmem ? 1 : kKD][4];
   // the step's masked scores (log 2 units) from Q K^T
   auto scores = [&](float (&s)[kNS][4], const bf16* Ks, int step) {
-    product_abt<DH, kNS>(s, qf, Ks, lane, Tk - step * kStep);
+    if constexpr (kQSmem)
+      product_abt_smem<DH, kNS>(s, Qs, warp * 16, Ks, lane, Tk - step * kStep);
+    else
+      product_abt<DH, kNS>(s, qf, Ks, lane, Tk - step * kStep);
 #pragma unroll
     for (int nb = 0; nb < kNS; ++nb) {
       const int j = step * kStep + nb * 8 + 2 * t;
@@ -381,10 +393,10 @@ graph_attention_ln_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict_
   float m_a = -INFINITY, m_b = -INFINITY, z_a = 0.f, z_b = 0.f, b_a = 0.f, b_b = 0.f;
   key_pass(true, resident, true, [&](int step, const bf16* Ks, const bf16*) {
     if (!active) return;
-    if (step == 0) {
+    if (!kQSmem && step == 0) {
 #pragma unroll
       for (int kd = 0; kd < kKD; ++kd)
-        ldmatrix_x4(qf[kd], frag_a_row(Qs, kLd, warp * 16, kd * 16, lane));
+        ldmatrix_x4(qf[kQSmem ? 0 : kd], frag_a_row(Qs, kLd, warp * 16, kd * 16, lane));
     }
     float gr[kNS][4], s[kNS][4];
     graph_step(gr, step);
@@ -435,8 +447,13 @@ graph_attention_ln_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict_
     if (!active) return;
     const int nk = Tk - step * kStep;
     float gr[kNS][4], s[kNS][4];
-    graph_step(gr, step);
-    scores(s, Ks, step);
+    if constexpr (kQSmem) {   // the graph's 32 registers live after Q K^T, not across it
+      scores(s, Ks, step);
+      graph_step(gr, step);
+    } else {
+      graph_step(gr, step);
+      scores(s, Ks, step);
+    }
 #pragma unroll
     for (int nb = 0; nb < kNS; ++nb) {
 #pragma unroll
@@ -534,8 +551,6 @@ graph_attention_ln_epilogue_kernel(const float* __restrict__ o, const T* __restr
     orow[c] = from_float<T>(gamma[c] * ((xr[c] + to_float(rr[c])) - mean) / (sd + kLnEps) + beta[c]);
 }
 
-inline int tc_warps(int Tq) { return Tq <= 16 ? 1 : 4; }
-
 template <int DH, int NW>
 cudaError_t launch_tc_dh(const bf16* q, const bf16* k, const bf16* v, const float* key_mask,
                          const float* query_mask, const float* graph, const bf16* residual,
@@ -559,12 +574,17 @@ cudaError_t launch_tc_dh(const bf16* q, const bf16* k, const bf16* v, const floa
   return cudaGetLastError();
 }
 
+// q_tile query rows a block: 16, 64 or (instance 256 only) 128, one warp
+// each 16 (ops/fused_graph_attention.py:tc_warps).
 template <int DH>
 cudaError_t launch_tc(const bf16* q, const bf16* k, const bf16* v, const float* key_mask,
                       const float* query_mask, const float* graph, const bf16* residual,
                       const float* gamma, const float* beta, bf16* out, float* o, int B, int Tq,
-                      int Tk, int C, int H, int renorm, float scale, cudaStream_t stream) {
-  auto run = tc_warps(Tq) == 1 ? launch_tc_dh<DH, 1> : launch_tc_dh<DH, 4>;
+                      int Tk, int C, int H, int renorm, float scale, int q_tile,
+                      cudaStream_t stream) {
+  auto run = q_tile == 16 ? launch_tc_dh<DH, 1> : launch_tc_dh<DH, 4>;
+  if constexpr (DH == 256)
+    if (q_tile == 128) run = launch_tc_dh<DH, 8>;
   return run(q, k, v, key_mask, query_mask, graph, residual, gamma, beta, out, o, B, Tq, Tk, C,
              H, renorm, scale, stream);
 }
@@ -871,7 +891,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* key
 // Whether `path` cannot take this call (see savqa_graph_attention_ln).
 bool bad_path(int dtype, int Tk, int C, int H, int path, int q_tile, const void* o) {
   const int dh = C / H;
-  if (path == 1) return dtype != 1 || dh % 16 != 0 || dh > 128 || o == nullptr;
+  if (path == 1)
+    return dtype != 1 || dh % 16 != 0 || dh > kTcMaxDh || o == nullptr ||
+           (q_tile != 16 && q_tile != 64 && (q_tile != 128 || dh <= 128));
   if (path == 2)
     return dtype != 0 || dh % 4 != 0 || dh > 128 || o == nullptr || Tk > kMaxKeys ||
            (q_tile != 16 && q_tile != 32 && q_tile != 48 && q_tile != 64);
@@ -883,8 +905,9 @@ bool bad_path(int dtype, int Tk, int C, int H, int path, int q_tile, const void*
 // dtype: 0 = float32, 1 = bfloat16. renorm: 0 = l1, 1 = sum_eps. path: 0 =
 // the first SIMT kernel (o unused, may be null; q_tile query rows a block,
 // 1 to 16, its shared memory 4 q_tile (C + Tk + dh) + 256 (dh + 1) bytes);
-// 1 = the tensor-core kernels
-// (bf16 with a head width that is a multiple of 16, at most 128); 2 = the
+// 1 = the tensor-core kernels (bf16 with a head width that is a multiple of
+// 16, at most 256; q_tile query rows a block: 16, 64, or 128 above head
+// width 128); 2 = the
 // f32 kernel (f32 with a head width that is a multiple of 4, at most 128,
 // and at most 512 keys; q_tile query rows a block: 16, 32, 48 or 64). Paths 1 and 2 need o: (B, Tq, C)
 // f32 scratch. Returns cudaGetLastError() after the launches (0 = success).
@@ -907,11 +930,11 @@ extern "C" int savqa_graph_attention_ln(const void* q, const void* k, const void
   if (path == 1) {
     const int dh = C / H;
     auto run = dh <= 16 ? launch_tc<16> : dh <= 32 ? launch_tc<32> : dh <= 64 ? launch_tc<64>
-                                                                               : launch_tc<128>;
+             : dh <= 128 ? launch_tc<128> : launch_tc<256>;
     return (int)run(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                     static_cast<const bf16*>(v), km, qm, g, static_cast<const bf16*>(residual),
                     ga, be, static_cast<bf16*>(out), static_cast<float*>(o), B, Tq, Tk, C, H,
-                    renorm, scale, s);
+                    renorm, scale, q_tile, s);
   }
   if (path == 2) {
     auto run = q_tile == 16 ? launch_f32<1> : q_tile == 32 ? launch_f32<2>
@@ -951,10 +974,10 @@ extern "C" int savqa_graph_attention(const void* q, const void* k, const void* v
   if (path == 1) {
     const int dh = C / H;
     auto run = dh <= 16 ? launch_tc<16> : dh <= 32 ? launch_tc<32> : dh <= 64 ? launch_tc<64>
-                                                                               : launch_tc<128>;
+             : dh <= 128 ? launch_tc<128> : launch_tc<256>;
     return (int)run(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                     static_cast<const bf16*>(v), km, qm, g, nullptr, nullptr, nullptr, nullptr,
-                    of, B, Tq, Tk, C, H, renorm, scale, s);
+                    of, B, Tq, Tk, C, H, renorm, scale, q_tile, s);
   }
   if (path == 2) {
     auto run = q_tile == 16 ? launch_f32<1> : q_tile == 32 ? launch_f32<2>

@@ -195,10 +195,39 @@ __device__ __forceinline__ void product_abt(float (&acc)[NB][4], const uint32_t 
   }
 }
 
+// product_abt with A read from shared memory where it is needed: the
+// warp's 16 rows from a_row0 of a row-major (rows, DH + 8) bf16 tile, one
+// 16-deep block at a time (above head width 128, where A's DH / 4 registers
+// a thread would not fit beside the output's DH / 2).
+template <int DH, int NB>
+__device__ __forceinline__ void product_abt_smem(float (&acc)[NB][4], const __nv_bfloat16* a_tile,
+                                                 int a_row0, const __nv_bfloat16* tile, int lane,
+                                                 int n_real) {
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb) acc[nb][0] = acc[nb][1] = acc[nb][2] = acc[nb][3] = 0.f;
+#pragma unroll
+  for (int kd = 0; kd < DH / 16; ++kd) {
+    uint32_t af[4];
+    ldmatrix_x4(af, frag_a_row(a_tile, DH + 8, a_row0, kd * 16, lane));
+    uint32_t bfr[NB / 2][4];
+#pragma unroll
+    for (int nb = 0; nb < NB; nb += 2)
+      if (nb * 8 < n_real) ldmatrix_x4(bfr[nb / 2], frag_b_row(tile, DH + 8, nb * 8, kd * 16, lane));
+#pragma unroll
+    for (int nb = 0; nb < NB; nb += 2) {
+      if (nb * 8 < n_real) {
+        mma_bf16(acc[nb], af, bfr[nb / 2][0], bfr[nb / 2][1]);
+        mma_bf16(acc[nb + 1], af, bfr[nb / 2][2], bfr[nb / 2][3]);
+      }
+    }
+  }
+}
+
 // out (16 x DH a warp) += W B: W (16 x 8 NB) accumulator fragments, rounded
 // to bf16 here and used as the A operand as they are, B the first 8 NB rows
 // of a row-major (rows, DH + 8) bf16 tile, of which the first n_real are
-// real (16-deep blocks past them are skipped: W is zero there).
+// real (16-deep blocks past them are skipped: W is zero there). Above head
+// width 128 B's fragments are read two 8-wide blocks at a time.
 template <int DH, int NB>
 __device__ __forceinline__ void accumulate_ab(float (&out)[DH / 8][4], const float (&w)[NB][4],
                                               const __nv_bfloat16* tile, int lane, int n_real) {
@@ -210,6 +239,16 @@ __device__ __forceinline__ void accumulate_ab(float (&out)[DH / 8][4], const flo
     wf[1] = pack_bf16(w[2 * kk][2], w[2 * kk][3]);
     wf[2] = pack_bf16(w[2 * kk + 1][0], w[2 * kk + 1][1]);
     wf[3] = pack_bf16(w[2 * kk + 1][2], w[2 * kk + 1][3]);
+    if constexpr (DH > 128) {
+#pragma unroll
+      for (int nd = 0; nd < DH / 8; nd += 2) {
+        uint32_t bfr[4];
+        ldmatrix_x4_trans(bfr, frag_bt_row(tile, DH + 8, kk * 16, nd * 8, lane));
+        mma_bf16(out[nd], wf, bfr[0], bfr[1]);
+        mma_bf16(out[nd + 1], wf, bfr[2], bfr[3]);
+      }
+      continue;
+    }
     uint32_t bfr[DH / 16][4];
 #pragma unroll
     for (int nd = 0; nd < DH / 8; nd += 2)

@@ -135,10 +135,13 @@ __device__ __forceinline__ void store_t(float* pt, const float (&s)[R][NC], int 
 // loads R / 4 + DH / 32 float4 for R DH / 8 FMAs. Unrolled by 8, n & 7 is
 // a constant of each copy of the body and so are the swizzles (by 4: 0.7497
 // against 0.6775 ms at K4's B 4, L 1,536, 8 heads; scripts/k4_f32_variants.py).
+// Above DH 128 by 2: eight V loads a copy kept 255 registers and 188 bytes
+// of spills at DH 256 (1.7805 ms against 1.6084 by 2 at K4's B 2, L 1,536;
+// scripts/k4_f32_head256_variants.py).
 template <int DH, int N, int R = 4>
 __device__ __forceinline__ void tile_pv(float (&o)[R][DH / 8], const float* pt, const float* V,
                                         int ly, int lx) {
-#pragma unroll 8
+#pragma unroll (DH > 128 ? 2 : 8)
   for (int n = 0; n < N; ++n) {
     float pr[R];
 #pragma unroll
@@ -230,13 +233,118 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
 }
 
-// Dynamic shared memory of flash_f32_body with `rows` query rows a block,
-// in floats: the Q tile, then two stages of (K, V, graph tile, key mask).
-__host__ __device__ constexpr int flash_stage_floats(int dh, int rows) {
-  return 2 * kStep * dh + rows * kStep + kStep;
+// Dynamic shared memory of flash_f32_body with `rows` query rows a block
+// and `step` keys a step, in floats: the Q tile, then two stages of (K, V,
+// graph tile, key mask).
+__host__ __device__ constexpr int flash_stage_floats(int dh, int rows, int step = kStep) {
+  return 2 * step * dh + rows * step + step;
 }
-__host__ __device__ constexpr int flash_smem_floats(int dh, int rows) {
-  return rows * dh + 2 * flash_stage_floats(dh, rows);
+__host__ __device__ constexpr int flash_smem_floats(int dh, int rows, int step = kStep) {
+  return rows * dh + 2 * flash_stage_floats(dh, rows, step);
+}
+
+// One key step of flash_f32_body (and of K4's chunked f32 kernel) once s
+// holds this lane's scores Q K^T of the step's keys, nk of them real: per
+// row, the scores masked and scaled; m_new = max(m, max_j s_j); alpha =
+// exp(m - m_new); p_j = exp(s_j - m_new); z = z alpha + sum p_j, b = b
+// alpha + sum p_j g_j with g_j from the graph tile Gs; a = a alpha + sum_j
+// (p_j g_j) v_j over the V tile Vs (AW channels a row), the weights passed
+// to the product through the warp's own rows of Gs, read by then. Keys lx
+// + 16 c' (c even) and lx + 8 + 16 c' (c odd) of a row sum as K4's first
+// kernel's lanes lx and lx + 8 (group8_sum).
+template <int AW, int STEP, int R>
+__device__ __forceinline__ void flash_f32_step(float (&s)[R][STEP / 8], float (&m)[R],
+                                               float (&z)[R], float (&bs)[R],
+                                               float (&acc)[R][AW / 8], float* Gs,
+                                               const float* kms, const float* Vs, int nk,
+                                               float scale, int wrow, int ly, int lx) {
+  constexpr int kNC = STEP / 8;   // a lane's columns of the scores
+#pragma unroll
+  for (int c = 0; c < kNC; ++c) {
+    const int j = lx + 8 * c;
+    const bool in_range = j < nk;
+    const bool masked = kms[j] == 0.f;
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+      s[i][c] = !in_range ? -INFINITY : masked ? kNegMask : s[i][c] * scale;
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    float mx = s[i][0];
+#pragma unroll
+    for (int c = 1; c < kNC; ++c) mx = fmaxf(mx, s[i][c]);
+    const float m_new = fmaxf(m[i], group8_max(mx));
+    const float alpha = expf(m[i] - m_new);
+    float sp_a = 0.f, sp_b = 0.f, spg_a = 0.f, spg_b = 0.f;
+#pragma unroll
+    for (int c = 0; c < kNC; ++c) {
+      const float p = expf(s[i][c] - m_new);
+      const float g = Gs[gswz<STEP>(wrow + ly + 4 * i, lx + 8 * c)];
+      const float pg = p * g;
+      if (c & 1) {
+        sp_b += p;
+        spg_b += pg;
+      } else {
+        sp_a += p;
+        spg_a += pg;
+      }
+      s[i][c] = pg;
+    }
+    z[i] = z[i] * alpha + group8_sum(sp_a, sp_b);
+    bs[i] = bs[i] * alpha + group8_sum(spg_a, spg_b);
+    m[i] = m_new;
+#pragma unroll
+    for (int e = 0; e < AW / 8; ++e) acc[i][e] *= alpha;
+  }
+  __syncwarp();   // every lane has read its graph entries: the warp's rows take the weights
+  float* pt = Gs + wrow * STEP;
+  store_t<kNC, R>(pt, s, ly, lx);
+  __syncwarp();
+  tile_pv<AW, STEP, R>(acc, pt, Vs, ly, lx);
+}
+
+// The epilogue of flash_f32_body (and of K4's chunked f32 kernel) for this
+// lane's rows row0 + 4 i: raw (n_split > 1 or emit 2) writes a and m, z, b
+// at shard sp; else out = a / denom * query_mask and, with emit 1, m, z,
+// b. a holds the head's channels [o0, o0 + ow) (a block of the head's
+// first chunk, o0 0, writes the statistics, to m_out[i * stat_stride], z_out
+// and b_out alike).
+template <int AW, int R>
+__device__ __forceinline__ void flash_f32_epilogue(
+    const float (&m)[R], const float (&z)[R], const float (&bs)[R], const float (&acc)[R][AW / 8],
+    int row0, int lx, int Tq, int C, int H, int dh, int h, int b, int sp, int o0, int ow,
+    int stat_stride, int renorm, int emit, int n_split, const float* __restrict__ query_mask,
+    float* __restrict__ out, float* __restrict__ a_out, float* __restrict__ m_out,
+    float* __restrict__ z_out, float* __restrict__ b_out) {
+  constexpr int kNG = AW / 32;
+  const int c0 = h * dh;
+  const bool raw = n_split > 1 || emit == 2;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int row = row0 + 4 * i;
+    if (row >= Tq) continue;
+    const size_t stat_at = (((size_t)sp * gridDim.z + b) * H + h) * Tq + row;
+    if ((raw || emit == 1) && lx == 0 && o0 == 0) {
+      m_out[stat_at * stat_stride] = m[i];
+      z_out[stat_at * stat_stride] = z[i];
+      b_out[stat_at * stat_stride] = bs[i];
+    }
+    const float denom = renorm == 0 ? fmaxf(bs[i], kL1Eps * z[i]) : bs[i] + kSumEps * z[i];
+    const float qm = query_mask[(size_t)b * Tq + row];
+#pragma unroll
+    for (int g = 0; g < kNG; ++g) {
+      const int d = 4 * lx + 32 * g;
+      if (d >= ow) continue;
+      const float* a4 = acc[i] + 4 * g;
+      if (raw)
+        *reinterpret_cast<float4*>(a_out + stat_at * dh + o0 + d) =
+            make_float4(a4[0], a4[1], a4[2], a4[3]);
+      else
+        *reinterpret_cast<float4*>(out + ((size_t)b * Tq + row) * C + c0 + o0 + d) =
+            make_float4(a4[0] / denom * qm, a4[1] / denom * qm, a4[2] / denom * qm,
+                        a4[3] / denom * qm);
+    }
+  }
 }
 
 // K4's float32 forward for one block: (head h = blockIdx.x, query tile and
@@ -252,7 +360,10 @@ __host__ __device__ constexpr int flash_smem_floats(int dh, int rows) {
 // flash_graph_attention_tc_kernel's: raw (n_split > 1 or emit 2) writes a
 // and m, z, b at shard sp; else out = a / denom * query_mask and, with emit
 // 1, m, z, b. Statistics go to m_out[i * stat_stride] (z_out, b_out alike).
-template <int DH, int WARPS, int R = 4>
+// STEP keys a step: 64, or 32 at head widths above 128, where two stages of
+// 64-key K and V tiles would not fit beside Q (a lane then owns a 4 x 4
+// tile of scores; steps_per_split counts STEP-key steps).
+template <int DH, int WARPS, int R = 4, int STEP = kStep>
 __device__ __forceinline__ void flash_f32_body(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ key_mask, const float* __restrict__ query_mask,
@@ -262,8 +373,8 @@ __device__ __forceinline__ void flash_f32_body(
     int n_split, int steps_per_split) {
   constexpr int kBQ = 4 * R * WARPS;
   constexpr int kThr = 32 * WARPS;
-  constexpr int kStageF = flash_stage_floats(DH, kBQ);
-  constexpr int kNG = DH / 32;
+  constexpr int kStageF = flash_stage_floats(DH, kBQ, STEP);
+  constexpr int kNC = STEP / 8;   // a lane's columns of the scores
   extern __shared__ __align__(16) float smem_f32[];
   float* Qs = smem_f32;
   float* stages = Qs + kBQ * DH;
@@ -279,7 +390,7 @@ __device__ __forceinline__ void flash_f32_body(
   const int warp = tid >> 5;
   const int ly = lane >> 3, lx = lane & 7;
   const int wrow = warp * 4 * R;
-  const int n_steps = (Tk + kStep - 1) / kStep;
+  const int n_steps = (Tk + STEP - 1) / STEP;
   const int step_lo = sp * steps_per_split;
   const int step_hi = min(n_steps, step_lo + steps_per_split);
   const bool active = q0 + wrow < Tq;   // this warp holds a real row
@@ -291,13 +402,13 @@ __device__ __forceinline__ void flash_f32_body(
   const float* km = key_mask + (size_t)b * Tk;
   auto load_step = [&](int step) {
     float* base = stages + ((step - step_lo) & 1) * kStageF;
-    const int j0 = step * kStep;
-    stage_tile<DH, kThr>(base, kb, j0, Tk, kStep, C, c0, dh, true, Swz<DH>());
-    stage_tile<DH, kThr>(base + kStep * DH, vb, j0, Tk, kStep, C, c0, dh, true, Swz<DH>());
-    stage_tile<kStep, kThr>(base + 2 * kStep * DH, gb, q0, Tq, kBQ, Tk, j0, Tk - j0, gvec,
-                            GSwz<kStep>());
-    float* kms = base + 2 * kStep * DH + kBQ * kStep;
-    for (int j = tid; j < kStep; j += kThr)
+    const int j0 = step * STEP;
+    stage_tile<DH, kThr>(base, kb, j0, Tk, STEP, C, c0, dh, true, Swz<DH>());
+    stage_tile<DH, kThr>(base + STEP * DH, vb, j0, Tk, STEP, C, c0, dh, true, Swz<DH>());
+    stage_tile<STEP, kThr>(base + 2 * STEP * DH, gb, q0, Tq, kBQ, Tk, j0, Tk - j0, gvec,
+                            GSwz<STEP>());
+    float* kms = base + 2 * STEP * DH + kBQ * STEP;
+    for (int j = tid; j < STEP; j += kThr)
       cp_async4(kms + j, km + (j0 + j < Tk ? j0 + j : 0), j0 + j < Tk);
   };
 
@@ -323,92 +434,24 @@ __device__ __forceinline__ void flash_f32_body(
     if (!active) continue;
     float* base = stages + ((step - step_lo) & 1) * kStageF;
     const float* Ks = base;
-    const float* Vs = base + kStep * DH;
-    float* Gs = base + 2 * kStep * DH;
-    const float* kms = Gs + kBQ * kStep;
-    const int nk = min(kStep, Tk - step * kStep);
+    const float* Vs = base + STEP * DH;
+    float* Gs = base + 2 * STEP * DH;
+    const float* kms = Gs + kBQ * STEP;
+    const int nk = min(STEP, Tk - step * STEP);
 
-    float s[R][8];
+    float s[R][kNC];
 #pragma unroll
     for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int c = 0; c < 8; ++c) s[i][c] = 0.f;
-    tile_abt<DH, 8, R>(s, Qs, wrow, Ks, dh, ly, lx);
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int j = lx + 8 * c;
-      const bool in_range = j < nk;
-      const bool masked = kms[j] == 0.f;
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-        s[i][c] = !in_range ? -INFINITY : masked ? kNegMask : s[i][c] * scale;
-    }
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      float mx = s[i][0];
-#pragma unroll
-      for (int c = 1; c < 8; ++c) mx = fmaxf(mx, s[i][c]);
-      const float m_new = fmaxf(m[i], group8_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      // keys lx + 16 c' (c even) and lx + 8 + 16 c' (c odd): the first
-      // kernel's lanes lx and lx + 8
-      float sp_a = 0.f, sp_b = 0.f, spg_a = 0.f, spg_b = 0.f;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const float p = expf(s[i][c] - m_new);
-        const float g = Gs[gswz<kStep>(wrow + ly + 4 * i, lx + 8 * c)];
-        const float pg = p * g;
-        if (c & 1) {
-          sp_b += p;
-          spg_b += pg;
-        } else {
-          sp_a += p;
-          spg_a += pg;
-        }
-        s[i][c] = pg;
-      }
-      z[i] = z[i] * alpha + group8_sum(sp_a, sp_b);
-      bs[i] = bs[i] * alpha + group8_sum(spg_a, spg_b);
-      m[i] = m_new;
-#pragma unroll
-      for (int e = 0; e < DH / 8; ++e) acc[i][e] *= alpha;
-    }
-    __syncwarp();   // every lane has read its graph entries: the warp's rows take the weights
-    float* pt = Gs + wrow * kStep;
-    store_t<8, R>(pt, s, ly, lx);
-    __syncwarp();
-    tile_pv<DH, kStep, R>(acc, pt, Vs, ly, lx);
+      for (int c = 0; c < kNC; ++c) s[i][c] = 0.f;
+    tile_abt<DH, kNC, R>(s, Qs, wrow, Ks, dh, ly, lx);
+    flash_f32_step<DH, STEP, R>(s, m, z, bs, acc, Gs, kms, Vs, nk, scale, wrow, ly, lx);
   }
   savqa::cp_async_wait<0>();
   if (!active) return;
-
-  const bool raw = n_split > 1 || emit == 2;
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int row = q0 + wrow + ly + 4 * i;
-    if (row >= Tq) continue;
-    const size_t stat_at = (((size_t)sp * gridDim.z + b) * H + h) * Tq + row;
-    if ((raw || emit == 1) && lx == 0) {
-      m_out[stat_at * stat_stride] = m[i];
-      z_out[stat_at * stat_stride] = z[i];
-      b_out[stat_at * stat_stride] = bs[i];
-    }
-    const float denom = renorm == 0 ? fmaxf(bs[i], kL1Eps * z[i]) : bs[i] + kSumEps * z[i];
-    const float qm = query_mask[(size_t)b * Tq + row];
-#pragma unroll
-    for (int g = 0; g < kNG; ++g) {
-      const int d = 4 * lx + 32 * g;
-      if (d >= dh) continue;
-      const float* a4 = acc[i] + 4 * g;
-      if (raw)
-        *reinterpret_cast<float4*>(a_out + stat_at * dh + d) =
-            make_float4(a4[0], a4[1], a4[2], a4[3]);
-      else
-        *reinterpret_cast<float4*>(out + ((size_t)b * Tq + row) * C + c0 + d) =
-            make_float4(a4[0] / denom * qm, a4[1] / denom * qm, a4[2] / denom * qm,
-                        a4[3] / denom * qm);
-    }
-  }
+  flash_f32_epilogue<DH, R>(m, z, bs, acc, q0 + wrow + ly, lx, Tq, C, H, dh, h, b, sp, 0, dh,
+                            stat_stride, renorm, emit, n_split, query_mask, out, a_out, m_out,
+                            z_out, b_out);
 }
 
 }  // namespace savqa_f32

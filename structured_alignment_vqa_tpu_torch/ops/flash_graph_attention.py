@@ -27,8 +27,10 @@ where the kernels round. Keys are exactly the Tk given (the TPU wrapper pads
 them to its tile with masked keys, which add to z on rows whose real keys
 are all masked; ``out`` and the gradients are the same).
 
-K4, K5 and K6 each have two kernels (``dispatch.kernel_path``). bfloat16
-with a head width that is a multiple of 16 runs on the tensor cores:
+K4, K5 and K6 each have two kernels (:func:`k4_path`; K5's and K6's
+:func:`k56_path`, ``dispatch.kernel_path``). bfloat16 with a head width
+that is a multiple of 16 (K4: any; K5 and K6: up to 128) runs on the
+tensor cores:
 ``mma.sync`` for every product on bf16 tiles that ``cp.async`` streams
 through a two-stage ring, one warp per 16 query rows (K4, K5) or 16 keys
 (K6), the weights or dS passed from one product to the next in registers
@@ -57,18 +59,26 @@ tiles a lane, dQ through the warp's transposed tile; when the blocks do
 not fill the card its keys split into shards of four steps
 (:func:`dq_f32_plan`) whose f32 partials the shard-sum kernel adds. An
 unsplit call sums every score and every dQ entry in the first f32 kernel's
-order and gives its bits. Every other call keeps the first SIMT kernels
-(f32 FMAs, no split), in either dtype: bfloat16 at a head width that is no
-multiple of 16 or above 128, float32 at a head width that is no multiple of
-4 or above 128 (:func:`k4_path`, :func:`dq_kernel` and :func:`dkv_kernel`
-name K4's, K5's and K6's kernel for a call). They stage rows of the head
+order and gives its bits. K4 above head width 128 keeps these designs:
+bfloat16 in the tensor-core kernel's instance 256 (Q in a room of shared
+memory of its own; 128 rows a block above 64 rows, :func:`tc_rows`),
+float32 in instance 256 of its f32 kernel (32-key steps), and above 256
+their chunked forms ("tc-chunked", "f32-chunked": a head's output channels
+in chunks of ``WIDE_CHUNK`` over blocks, Q and K streamed through the ring
+128 or 64 channels a unit, the scores computed once per chunk, 128 rows a
+block). Every other call keeps the first SIMT kernels (f32 FMAs, no
+split), in either dtype: bfloat16 at a head width that is no multiple of
+16 (K5, K6: or above 128), float32 at a head width that is no multiple of
+4 (K5, K6: or above 128) (:func:`k4_path`, :func:`dq_kernel` and
+:func:`dkv_kernel` name K4's, K5's and K6's kernel for a call). They stage rows of the head
 width rounded up to 4, the columns past it zero, and take head widths up to
 ``SIMT_MAX_HEAD_DIM`` (256: K5's blocks and K6's steps then hold 32 query
 rows, not 64, to fit their shared memory). TF32 products would not hold the
 1e-4 the float32 path is checked to.
 
-Head widths above 256 take the wide kernels ("wide", in either dtype): a
-head's output channels are cut into chunks of ``WIDE_CHUNK`` (256) over
+Head widths above 256 take the wide kernels ("wide", in either dtype; K4
+only at widths its chunked kernels do not take): a head's output channels
+are cut into chunks of ``WIDE_CHUNK`` (256) over
 blocks, grid (tile, head x chunk, batch), and each block streams the whole
 head width through shared memory 64 channels at a time for its scores and
 dN, so the scores are recomputed ceil(dh / 256) times. The same wide forward
@@ -81,16 +91,19 @@ their C entries never had one.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
 
 from structured_alignment_vqa_tpu_torch.ops import _build
 from structured_alignment_vqa_tpu_torch.ops.dispatch import (
+    K14_TC_MAX_HEAD_DIM,
     SIMT_MAX_HEAD_DIM,
     SM_COUNT,
     f32_tiled,
     kernel_path,
+    tc_width,
     use_kernel,
 )
 from structured_alignment_vqa_tpu_torch.ops.fused_graph_attention import (
@@ -101,6 +114,8 @@ from structured_alignment_vqa_tpu_torch.ops.fused_graph_attention import (
 from structured_alignment_vqa_tpu_torch.ops.layers import NEG_MASK_VALUE
 
 EMITS = ("out", "stats", "partial")
+# the C entry's kernels by code (savqa_flash_graph_attention_last_path)
+C_PATHS = ("simt", "wide", "tensor-core", "tc-chunked", "f32", "f32-chunked")
 EMIT_O = 3           # the C entry's emit of the f32 output (the wide kernel, K1's and K2's wide path)
 WIDE_CHUNK = 256     # output channels a block of the wide kernels
 MAX_GRID_Y = 65535   # the wide kernels' blocks of (head x chunk) along the grid's y
@@ -178,13 +193,13 @@ def merge_partials_plain(a, m, z, bsum):
     return (a * c[..., None]).sum(dim=0), m_all, (z * c).sum(dim=0), (bsum * c).sum(dim=0)
 
 
-def key_split(batch: int, num_heads: int, tq: int, tk: int) -> tuple:
+def key_split(batch: int, num_heads: int, tq: int, tk: int, q_tile: int = TC_Q_TILE) -> tuple:
     """``(n_split, steps_per_split)`` of the tensor-core kernel: how many
     shards the ``ceil(tk / 64)`` key steps are cut into, and the steps of
     each. A pure function of the shapes: 1 shard when the (batch, head,
-    64-row query tile) blocks alone cover the card's 132 SMs, else enough
-    shards for about two blocks an SM, none of them empty."""
-    blocks = batch * num_heads * -(-tq // TC_Q_TILE)
+    ``q_tile``-row query tile) blocks alone cover the card's 132 SMs, else
+    enough shards for about two blocks an SM, none of them empty."""
+    blocks = batch * num_heads * -(-tq // q_tile)
     steps = -(-tk // KEY_STEP)
     if blocks >= SM_COUNT:
         return 1, steps
@@ -195,15 +210,80 @@ def key_split(batch: int, num_heads: int, tq: int, tk: int) -> tuple:
 
 def k4_path(dtype, head_dim: int) -> str:
     """Which of K4's kernels a call takes: ``"tensor-core"`` (bfloat16 at
-    head widths that are multiples of 16 up to 128), ``"f32"`` (the
-    register-tiled FFMA kernel: float32 at multiples of 4 up to 128),
-    ``"wide"`` (head widths above ``SIMT_MAX_HEAD_DIM``, either dtype) or
-    ``"simt"`` (the first SIMT kernel: every other call, either dtype)."""
+    head widths that are multiples of 16 up to ``K14_TC_MAX_HEAD_DIM``,
+    256), ``"tc-chunked"`` (bfloat16 at multiples of 16 above 256: the
+    tensor-core kernel's chunked form, output channels in chunks of 256
+    over blocks), ``"f32"`` (the register-tiled FFMA kernel: float32 at
+    multiples of 4 up to 256), ``"f32-chunked"`` (float32 at multiples of 4
+    above 256: its chunked form), ``"wide"`` (every other head width above
+    ``SIMT_MAX_HEAD_DIM``, either dtype) or ``"simt"`` (the first SIMT
+    kernel: every other call, either dtype). K5 and K6 keep their own limit
+    (:func:`k56_path`)."""
+    if dtype == torch.bfloat16 and head_dim % 16 == 0:
+        return "tensor-core" if head_dim <= K14_TC_MAX_HEAD_DIM else "tc-chunked"
+    if dtype == torch.float32 and head_dim % 4 == 0:
+        return "f32" if head_dim <= K14_TC_MAX_HEAD_DIM else "f32-chunked"
+    return "wide" if head_dim > SIMT_MAX_HEAD_DIM else "simt"
+
+
+def k56_path(dtype, head_dim: int) -> str:
+    """Which of K5's and K6's kernels a call takes: ``"tensor-core"``
+    (bfloat16 at multiples of 16 up to ``TC_MAX_HEAD_DIM``, 128:
+    ``kernel_path``), ``"f32"`` (float32 at multiples of 4 up to 128:
+    ``f32_tiled``), ``"wide"`` above ``SIMT_MAX_HEAD_DIM``, else
+    ``"simt"``."""
     if kernel_path(dtype, head_dim) == "tensor-core":
         return "tensor-core"
     if f32_tiled(dtype, head_dim):
         return "f32"
     return "wide" if head_dim > SIMT_MAX_HEAD_DIM else "simt"
+
+
+F32_WIDTHS = (32, 64, 128, 256)      # the f32 kernel's instances
+CHUNK_ROWS = 128    # query rows a block of the chunked kernels (8 warps)
+CHUNK_DC = 128      # channels of Q and K a unit of the chunked tensor-core kernel stages
+F32_CHUNK_DC = 64   # the same of the chunked f32 kernel
+
+
+def smem_bytes_tc_chunked() -> int:
+    """Dynamic shared memory of one block of K4's chunked tensor-core kernel
+    (must match ``chunk_slot_bytes`` in ``csrc/flash_graph_attention.cu``),
+    the same at every head width: two slots of V's chunk (64, 264) bf16, the
+    key mask, and K's (64 keys) and Q's (128 rows) 128 channels (+ 8) bf16;
+    the graph is read in fragments."""
+    slot = (2 * KEY_STEP * (WIDE_CHUNK + 8) + 4 * KEY_STEP
+            + 2 * (KEY_STEP + CHUNK_ROWS) * (CHUNK_DC + 8))
+    return 2 * slot
+
+
+def smem_bytes_f32_chunked() -> int:
+    """Dynamic shared memory of one block of K4's chunked f32 kernel (must
+    match ``f32_chunk_slot_floats`` in ``csrc/flash_graph_attention.cu``),
+    the same at every head width: two slots of Q's and K's 64 channels (128
+    rows, 32 keys), V's chunk (32 keys x 256), the (128, 32) graph tile and
+    the key mask, f32."""
+    step = KEY_STEP // 2
+    slot = ((CHUNK_ROWS + step) * F32_CHUNK_DC + step * WIDE_CHUNK + CHUNK_ROWS * step
+            + step)
+    return 4 * 2 * slot
+
+
+def smem_bytes_tc(head_dim: int, q_tile: int = TC_Q_TILE) -> int:
+    """Dynamic shared memory of one block of K4's tensor-core kernel (must
+    match ``tc_smem_bytes`` in ``csrc/flash_graph_attention.cu``): two
+    stages of K and V (64 keys, bf16 rows of the instance's width + 8), the
+    (q_tile, 72) f32 graph tile (none above width 128 at 128 rows: read in
+    fragments) and the key mask; above width 128 the Q tile's own room."""
+    w = tc_width(head_dim)
+    graph = 0 if w > 128 and q_tile > TC_Q_TILE else q_tile * (KEY_STEP + 8)
+    stage = 2 * 2 * KEY_STEP * (w + 8) + 4 * (graph + KEY_STEP)
+    return 2 * stage + (2 * q_tile * (w + 8) if w > 128 else 0)
+
+
+def f32_step(head_dim: int) -> int:
+    """Keys a step of K4's float32 kernel: 64, 32 above head width 128
+    (must match ``f32_step`` in ``csrc/flash_graph_attention.cu``)."""
+    return KEY_STEP if head_dim <= 128 else KEY_STEP // 2
 
 
 def wide_chunks(head_dim: int) -> int:
@@ -255,17 +335,19 @@ def smem_bytes_simt(kernel: str, head_dim: int) -> int:
     return 4 * ((2 * rows + 2 * KEY_STEP) * ld + 2 * rows * (KEY_STEP + 4) + KEY_STEP) + 20 * rows
 
 
-def f32_plan(batch: int, num_heads: int, tq: int, tk: int) -> tuple:
+def f32_plan(batch: int, num_heads: int, tq: int, tk: int, step: int = KEY_STEP,
+             rows: int = 64) -> tuple:
     """``(q_tile, n_split, steps_per_split)`` of K4's float32 kernel, a pure
-    function of the shapes: 64 query rows a block (4 warps; 16 rows, one
-    warp, when ``tq <= 16``), and when the (head, query tile, batch) blocks
-    do not cover the card's 132 SMs the ``ceil(tk / 64)`` key steps cut into
-    shards of ``F32_SPLIT_STEPS`` steps (fewer steps: one shard of them
+    function of the shapes: ``rows`` query rows a block (64, 4 warps; 128, 8
+    warps, on the chunked kernel; 16 rows, one warp, when ``tq <= 16``), and
+    when the (head, query tile, batch) blocks do not cover the card's 132
+    SMs the ``ceil(tk / step)`` key steps (``step``: :func:`f32_step`) cut
+    into shards of ``F32_SPLIT_STEPS`` steps (fewer steps: one shard of them
     all). The shards do not depend on the head count, so a model rank's 4
     heads sum each head's keys as one process's 8 heads do."""
-    q_tile = 16 if tq <= 16 else 64
+    q_tile = 16 if tq <= 16 else rows
     blocks = batch * num_heads * -(-tq // q_tile)
-    steps = -(-tk // KEY_STEP)
+    steps = -(-tk // step)
     if blocks >= SM_COUNT:
         return q_tile, 1, steps
     per = min(F32_SPLIT_STEPS, steps)
@@ -275,10 +357,11 @@ def f32_plan(batch: int, num_heads: int, tq: int, tk: int) -> tuple:
 def smem_bytes_f32(head_dim: int, q_tile: int) -> int:
     """Dynamic shared memory of one block of K4's float32 kernel (must
     match ``savqa_f32::flash_smem_floats``): the Q tile, then two stages of
-    K, V (64 keys), the graph tile and the key mask, head widths rounded up
-    to 32, 64 or 128."""
-    width = next(w for w in (32, 64, 128) if head_dim <= w)
-    stage = 2 * KEY_STEP * width + q_tile * KEY_STEP + KEY_STEP
+    K, V (:func:`f32_step` keys), the graph tile and the key mask, head
+    widths rounded up to 32, 64, 128 or 256."""
+    width = next(w for w in F32_WIDTHS if head_dim <= w)
+    step = f32_step(width)
+    stage = 2 * step * width + q_tile * step + step
     return 4 * (q_tile * width + 2 * stage)
 
 
@@ -287,9 +370,10 @@ DKV_F32_ROWS = 32   # query rows a step
 
 
 def dkv_kernel(dtype, head_dim: int) -> str:
-    """Which of K6's kernels a call takes: as :func:`k4_path`, the
-    tensor-core, the register-tiled f32 or the first SIMT kernel."""
-    return k4_path(dtype, head_dim)
+    """Which of K6's kernels a call takes (:func:`k56_path`): the
+    tensor-core, the register-tiled f32, the first SIMT or the wide
+    kernel."""
+    return k56_path(dtype, head_dim)
 
 
 def smem_bytes_dkv_f32(head_dim: int) -> int:
@@ -309,8 +393,8 @@ SIMT_Q_TILE = 64    # query rows a block of the first SIMT kernels
 
 
 def dq_kernel(dtype, head_dim: int) -> str:
-    """Which of K5's kernels a call takes: as :func:`k4_path`."""
-    return k4_path(dtype, head_dim)
+    """Which of K5's kernels a call takes (:func:`k56_path`)."""
+    return k56_path(dtype, head_dim)
 
 
 def dq_f32_plan(batch: int, num_heads: int, tq: int, tk: int) -> tuple:
@@ -344,11 +428,44 @@ def smem_bytes_dq_f32(head_dim: int, q_tile: int) -> int:
 def kernel_key_split(dtype, head_dim: int, batch: int, num_heads: int, tq: int,
                      tk: int) -> tuple:
     """``(n_split, steps_per_split)`` a K4 call takes: :func:`f32_plan`'s on
-    the float32 kernel, else K5's (:func:`dq_key_split`; one shard on the
-    SIMT kernel)."""
-    if k4_path(dtype, head_dim) == "f32":
-        return f32_plan(batch, num_heads, tq, tk)[1:]
-    return dq_key_split(dtype, head_dim, batch, num_heads, tq, tk)
+    the float32 kernel (steps of :func:`f32_step` keys), :func:`key_split`
+    on the tensor-core kernel (the chunked forms counting a block per head
+    and chunk), one shard of every 64-key step on the SIMT and wide
+    kernels."""
+    path = k4_path(dtype, head_dim)
+    if path in ("f32", "f32-chunked"):
+        return k4_f32_plan(head_dim, batch, num_heads, tq, tk)[1:]
+    if path in ("tensor-core", "tc-chunked"):   # the chunked: a block per (head x chunk)
+        blocks_a_row = num_heads * (wide_chunks(head_dim) if path == "tc-chunked" else 1)
+        return key_split(batch, blocks_a_row, tq, tk, tc_rows(dtype, head_dim, tq))
+    return 1, -(-tk // KEY_STEP)
+
+
+def k4_f32_plan(head_dim: int, batch: int, num_heads: int, tq: int, tk: int) -> tuple:
+    """:func:`f32_plan` of the float32 kernel a K4 call at ``head_dim``
+    takes: 32-key steps above head width 128 and, on the chunked kernel
+    (above 256), a block per head and chunk of ``CHUNK_ROWS`` (128) rows
+    whatever Tq (8 warps: 64 rows measured 1.33x slower at head widths 320
+    and 512, ``scripts/k4_f32_head256_variants.py``)."""
+    if head_dim <= K14_TC_MAX_HEAD_DIM:
+        return f32_plan(batch, num_heads, tq, tk, f32_step(head_dim))
+    plan = f32_plan(batch, num_heads * wide_chunks(head_dim), tq, tk, f32_step(head_dim),
+                    CHUNK_ROWS)
+    return (CHUNK_ROWS, *plan[1:])
+
+
+def tc_rows(dtype, head_dim: int, tq: int) -> int:
+    """Query rows a block of K4's tensor-core kernel: 64; 128 at instance
+    256 (head widths 144-256) where more than 64 rows share the block's K
+    and V tiles (8 warps; the graph then read in fragments); 128 on the
+    chunked form (``CHUNK_ROWS``). ``scripts/head256_rows.py``: 0.4860
+    against 0.5804 ms at head width 256 with B 4, L 1,536 (at B 2 0.3148
+    against 0.3070: fewer blocks than two waves), 0.9093 against 1.5336 at
+    320."""
+    path = k4_path(dtype, head_dim)
+    if path == "tc-chunked" or (path == "tensor-core" and head_dim > 128 and tq > TC_Q_TILE):
+        return CHUNK_ROWS
+    return TC_Q_TILE
 
 
 def dq_key_split(dtype, head_dim: int, batch: int, num_heads: int, tq: int,
@@ -514,8 +631,8 @@ def _forward_call(q, k, v, key_mask, query_mask, graph, num_heads: int, renorm: 
         n_split, per, q_tile = 1, -(-tk // KEY_STEP), TC_Q_TILE   # the wide kernel, unsplit
     else:
         n_split, per = kernel_key_split(q.dtype, dh, b, num_heads, tq, tk)
-        q_tile = (f32_plan(b, num_heads, tq, tk)[0] if k4_path(q.dtype, dh) == "f32"
-                  else TC_Q_TILE)
+        q_tile = (k4_f32_plan(dh, b, num_heads, tq, tk)[0] if q.dtype == torch.float32
+                  else tc_rows(q.dtype, dh, tq))
     scratch = [None, None]
     if n_split > 1:    # the shards' raw a and m, z, b between the two kernels
         scratch = [torch.empty(n_split, b, num_heads, tq, dh, dtype=torch.float32, device=dev),
@@ -549,7 +666,24 @@ def _launch_forward(q, k, v, key_mask, query_mask, graph, num_heads: int, renorm
     result = _forward_call(q, k, v, key_mask, query_mask, graph, num_heads, renorm,
                            EMITS.index(emit), emit != "out")
     flash_graph_attention.launches += 1
+    flash_graph_attention.paths[_taken_path(q.dtype, q.shape[-1] // num_heads)] += 1
     return result
+
+
+def _taken_path(dtype, head_dim: int) -> str:
+    """The kernel the C entry's last call on this thread launched, by
+    :func:`k4_path`'s names; raises where it is not the one ``k4_path``
+    planned the call for."""
+    fn = _build.library("flash_graph_attention").savqa_flash_graph_attention_last_path
+    fn.restype = ctypes.c_int
+    fn.argtypes = []
+    code = fn()
+    taken = C_PATHS[code] if 0 <= code < len(C_PATHS) else f"code {code}"
+    planned = k4_path(dtype, head_dim)
+    if taken != planned:
+        raise RuntimeError(f"flash_graph_attention: the C entry launched the {taken} kernel, "
+                           f"the call was planned for the {planned} kernel")
+    return taken
 
 
 def attention_o(q, k, v, key_mask, query_mask, graph, num_heads: int, renorm: str,
@@ -736,3 +870,4 @@ def flash_graph_attention(q, k, v, key_mask, query_mask, graph, num_heads: int,
 
 
 flash_graph_attention.launches = 0
+flash_graph_attention.paths = collections.Counter()   # launches by the kernel the C entry took

@@ -21,11 +21,15 @@ kernels take Tq != Tk (the decoder's one-query cross-attention) and at most
 that.
 
 K1 has three paths (:func:`k1_path`, by dtype and head width). bfloat16
-with a head width that is a multiple of 16 (at most ``TC_MAX_HEAD_DIM``) runs
-on the tensor cores: a kernel per (head, 64 query rows, batch element)
-forms O = A V with ``mma.sync`` on bf16 tiles into f32 scratch, and a
-second kernel adds the residual and runs the LayerNorm, counted as one
-launch. float32 with a head width that is a multiple of 4 (at most
+with a head width that is a multiple of 16 (at most K1's own limit
+``K14_TC_MAX_HEAD_DIM``, 256; K2 keeps ``TC_MAX_HEAD_DIM``, 128) runs on
+the tensor cores: a kernel per (head, 64 query rows, batch element; 16
+rows for the decoder's few queries, 128 above head width 128 and 128 rows,
+:func:`tc_warps`) forms O = A V with ``mma.sync`` on bf16 tiles into f32
+scratch, and a second kernel adds the residual and runs the LayerNorm,
+counted as one launch. Above head width 128 (instance 256) Q's fragments
+are read from shared memory where Q K^T needs them, as O's take 128
+registers a thread. float32 with a head width that is a multiple of 4 (at most
 ``TC_MAX_HEAD_DIM``) runs a register-tiled FFMA kernel in the same shape
 (``csrc/simt_f32.cuh``'s tiles; a block per head and 64, 48, 32 or 16 query
 rows, :func:`f32_plan`): the scores into shared memory, then a warp a row
@@ -34,9 +38,9 @@ chunk sums, into f32 scratch, then the same LayerNorm kernel. Every sum
 is the first SIMT kernel's in its order, so its output is that kernel's
 bit for bit, and the float32 checks that pair two paths (data parallel,
 the model axis, packing) see the bits they saw. Every other call
-(bfloat16 at a head width that is no multiple of 16 or above 128, float32
-at a head width that is no multiple of 4 or above 128) takes the first
-SIMT kernel, which keeps all heads of up to 16 rows in one block
+(bfloat16 at a head width that is no multiple of 16, float32 at a head
+width that is no multiple of 4 or above 128) takes the first SIMT kernel,
+which keeps all heads of up to 16 rows in one block
 (:func:`simt_rows`: fewer rows where 16 rows of C + Tk floats do not fit,
 as at C 2,048 with 8 heads of 256 and 512 keys). None of the port's
 presets reaches it: the hidden 2,048 blocks of the MIL variants return
@@ -101,18 +105,21 @@ backward is autograd of ``layer_norm``.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
 
 from structured_alignment_vqa_tpu_torch.ops import _build
 from structured_alignment_vqa_tpu_torch.ops.dispatch import (
+    K14_TC_MAX_HEAD_DIM,
     SIMT_MAX_HEAD_DIM,
     SMEM_LIMIT,
     TC_MAX_HEAD_DIM,
     composite_backward,
     f32_tiled,
     kernel_path,
+    tc_width,
     use_kernel,
 )
 from structured_alignment_vqa_tpu_torch.ops.layers import LN_EPS, NEG_MASK_VALUE, layer_norm
@@ -283,15 +290,15 @@ K1_PATHS = ("simt", "tensor-core", "f32")   # the C entries' path argument
 
 def k1_path(dtype, head_dim: int, tk: "int | None" = None, c: "int | None" = None) -> str:
     """Which of K1's CUDA kernels a call takes: ``"tensor-core"`` for
-    bfloat16 at head widths that are multiples of 16 up to
-    ``TC_MAX_HEAD_DIM`` (``kernel_path``), ``"f32"`` (the register-tiled
-    FFMA kernel of ``csrc/simt_f32.cuh``) for float32 at head widths that
-    are multiples of 4 up to ``TC_MAX_HEAD_DIM``, ``"wide"`` above head
-    width ``SIMT_MAX_HEAD_DIM`` or where one row of the first SIMT kernel
-    does not fit a block (given ``tk`` and ``c``), else ``"simt"`` (the
-    first SIMT kernel). A choice by shape, not a fallback: a launch that
-    fails raises."""
-    if kernel_path(dtype, head_dim) == "tensor-core":
+    bfloat16 at head widths that are multiples of 16 up to K1's own limit
+    ``K14_TC_MAX_HEAD_DIM`` (256; K2 keeps ``TC_MAX_HEAD_DIM``), ``"f32"``
+    (the register-tiled FFMA kernel of ``csrc/simt_f32.cuh``) for float32 at
+    head widths that are multiples of 4 up to ``TC_MAX_HEAD_DIM`` (128),
+    ``"wide"`` above head width ``SIMT_MAX_HEAD_DIM`` or where one row of
+    the first SIMT kernel does not fit a block (given ``tk`` and ``c``),
+    else ``"simt"`` (the first SIMT kernel). A choice by shape, not a
+    fallback: a launch that fails raises."""
+    if dtype == torch.bfloat16 and head_dim % 16 == 0 and head_dim <= K14_TC_MAX_HEAD_DIM:
         return "tensor-core"
     if f32_tiled(dtype, head_dim):
         return "f32"
@@ -365,10 +372,16 @@ def smem_bytes(tq: int, tk: int, c: int, num_heads: int) -> int:
     return _simt_smem(simt_rows(tq, tk, c, num_heads), tk, c, c // num_heads)
 
 
-def tc_warps(tq: int) -> int:
+def tc_warps(tq: int, head_dim: int) -> int:
     """Warps (16 query rows each) per block of K1's tensor-core kernel: one
-    for the decoder's few queries, else four."""
-    return 1 if tq <= 16 else 4
+    for the decoder's few queries, else four; eight above head width 128
+    and 128 rows, where the rows share the block's K and V tiles (instance
+    256 is one block an SM by shared memory either way; at C 2,048 with 8
+    heads, B 8, L 512: 0.2532 against 0.3562 ms, at L 128 0.0469 against
+    0.0432; ``scripts/head256_rows.py``)."""
+    if tq <= 16:
+        return 1
+    return 8 if head_dim > 128 and tq > 128 else 4
 
 
 def smem_bytes_tc(tq: int, tk: int, c: int, num_heads: int) -> int:
@@ -377,9 +390,9 @@ def smem_bytes_tc(tq: int, tk: int, c: int, num_heads: int) -> int:
     two stages of K and V (64 keys), bf16 rows of the padded head width +
     8, and two f32 key-mask rows."""
     dh = c // num_heads
-    width = next(w for w in (16, 32, 64, 128) if dh <= w) + 8
+    width = tc_width(dh) + 8
     steps = -(-tk // KEY_CHUNK)
-    return 2 * (16 * tc_warps(tq) + 4 * KEY_CHUNK) * width + 4 * 2 * steps * KEY_CHUNK
+    return 2 * (16 * tc_warps(tq, dh) + 4 * KEY_CHUNK) * width + 4 * 2 * steps * KEY_CHUNK
 
 
 def _simt_bwd_smem(rows: int, tk: int, c: int, dh: int) -> int:
@@ -530,10 +543,12 @@ def _check(q, k, v, key_mask, query_mask, graph, residual, gamma, beta,
 
 def _q_tile(path: str, b: int, tq: int, tk: int, c: int, num_heads: int) -> int:
     """The C entries' ``q_tile`` on K1's ``path``: the SIMT kernel's
-    :func:`simt_rows`, the f32 kernel's :func:`f32_plan` rows (the
-    tensor-core kernels ignore it)."""
+    :func:`simt_rows`, the tensor-core kernel's 16 :func:`tc_warps` rows,
+    the f32 kernel's :func:`f32_plan` rows."""
     if path == "simt":
         return simt_rows(tq, tk, c, num_heads)
+    if path == "tensor-core":
+        return 16 * tc_warps(tq, c // num_heads)
     return f32_plan(b, num_heads, tq, tk)[0]
 
 
@@ -548,6 +563,7 @@ def _launch(q, k, v, key_mask, query_mask, graph, residual, gamma, beta,
         out = _attention_ln_call(_wide_o(q, k, v, key_mask, query_mask, graph, num_heads, renorm),
                                  residual, gamma, beta)
         fused_graph_attention_ln.launches += 1
+        fused_graph_attention_ln.paths[path] += 1
         return out
     lib = _build.library("graph_attention")
     fn = lib.savqa_graph_attention_ln
@@ -570,6 +586,7 @@ def _launch(q, k, v, key_mask, query_mask, graph, residual, gamma, beta,
         )
     _build.check(status, "graph_attention_ln kernel")
     fused_graph_attention_ln.launches += 1
+    fused_graph_attention_ln.paths[path] += 1
     return out
 
 
@@ -723,6 +740,7 @@ def fused_graph_attention_ln(q, k, v, key_mask, query_mask, graph, residual,
 
 
 fused_graph_attention_ln.launches = 0
+fused_graph_attention_ln.paths = collections.Counter()   # launches by k1_path
 
 
 # ---- the model axis ----------------------------------------------------------

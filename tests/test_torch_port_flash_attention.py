@@ -219,16 +219,18 @@ def test_no_gradient_needed_emits_the_output_alone(rng, monkeypatch):
 
 
 def test_wrapper_checks_refuse_what_the_kernels_do_not_take():
-    """Heads wider than 256 (264; 257 at C 2,056) are taken, by the wide
-    kernels (C was never a limit of K4-K6's kernels); C not divisible by
-    the heads and another dtype are refused."""
+    """Heads wider than 256 (264; 257 at C 2,056) are taken: by the wide
+    kernels, but K4's in f32 at 264, a multiple of 4, which takes its
+    chunked f32 kernel (C was never a limit of K4-K6's kernels); C not
+    divisible by the heads and another dtype are refused."""
     q = torch.zeros(1, 4, 12)
     args = (q, q, q, torch.ones(1, 4), torch.ones(1, 4, 4))
     flash._check(*args, 2, "l1", {})                   # head width 6: the SIMT kernels take it
-    for c, heads in ((528, 2), (2056, 8)):
+    for c, heads, k4 in ((528, 2, "f32-chunked"), (2056, 8, "wide")):
         wide = torch.zeros(1, 4, c)
         flash._check(wide, wide, wide, *args[3:], heads, "l1", {})
-        assert flash.k4_path(torch.float32, c // heads) == "wide"
+        assert flash.k4_path(torch.float32, c // heads) == k4
+        assert flash.dq_kernel(torch.float32, c // heads) == "wide"
     with pytest.raises(ValueError, match="divisible"):
         flash._check(*args, 5, "l1", {})
     half = q.half()

@@ -181,12 +181,20 @@ def test_key_split_leaves_no_shard_empty(blocks, tk):
     (torch.bfloat16, 64, "tensor-core"), (torch.bfloat16, 16, "tensor-core"),
     (torch.bfloat16, 48, "tensor-core"), (torch.bfloat16, 8, "simt"),
     (torch.bfloat16, 40, "simt"), (torch.float32, 64, "simt"),
+    (torch.bfloat16, 144, "simt"), (torch.bfloat16, 256, "simt"),
 ])
 def test_k4_kernel_path(dtype, head_dim, want):
     """f32 runs on the CUDA cores (TF32 would break 1e-4), in its own
     register-tiled kernel; a bf16 head width that is no multiple of 16 keeps
-    the first SIMT kernel."""
+    the first SIMT kernel. The shared ``kernel_path`` (K2's, K5's, K6's)
+    stops at 128; K4's own ``k4_path`` takes bf16 on the tensor cores at
+    every multiple of 16 up to 256."""
     assert flash.kernel_path(dtype, head_dim) == want
+    k4 = flash.k4_path(dtype, head_dim)
+    if dtype == torch.bfloat16:
+        assert k4 == ("tensor-core" if head_dim % 16 == 0 else "simt")
+    else:
+        assert k4 == "f32"
 
 
 @pytest.mark.parametrize("batch,heads,tq,tk,want", [
@@ -366,31 +374,39 @@ def test_k2_plain_rounds_nothing_in_f32(rng):
     (torch.bfloat16, 64, 128, "tensor-core", 4), (torch.bfloat16, 64, 1, "tensor-core", 1),
     (torch.bfloat16, 48, 66, "tensor-core", 4), (torch.bfloat16, 16, 16, "tensor-core", 1),
     (torch.bfloat16, 8, 66, "simt", 4), (torch.bfloat16, 40, 17, "simt", 4),
-    (torch.float32, 64, 128, "f32", 4),
+    (torch.float32, 64, 128, "f32", 4), (torch.bfloat16, 256, 128, "tensor-core", 4),
+    (torch.bfloat16, 256, 1, "tensor-core", 1), (torch.bfloat16, 136, 66, "simt", 4),
+    (torch.bfloat16, 256, 512, "tensor-core", 8), (torch.bfloat16, 128, 512, "tensor-core", 4),
 ])
 def test_k1_kernel_path(dtype, head_dim, tq, want, warps):
     """K1 takes the tensor-core kernels in bf16 at head widths that are
-    multiples of 16 and the register-tiled f32 kernel in f32; other bf16
-    widths keep the SIMT kernel. The decoder's one query takes blocks of
-    one warp."""
+    multiples of 16 up to 256 and the register-tiled f32 kernel in f32;
+    other bf16 widths keep the SIMT kernel. The decoder's one query takes
+    blocks of one warp."""
     assert k1.k1_path(dtype, head_dim) == want
-    assert k1.tc_warps(tq) == warps
+    assert k1.tc_warps(tq, head_dim) == warps
 
 
 @pytest.mark.parametrize("dtype,head_dim,want", [
     (torch.float32, 4, "f32"), (torch.float32, 8, "f32"), (torch.float32, 36, "f32"),
     (torch.float32, 128, "f32"), (torch.float32, 10, "simt"), (torch.float32, 132, "simt"),
     (torch.float32, 256, "simt"), (torch.bfloat16, 128, "tensor-core"),
-    (torch.bfloat16, 12, "simt"),
+    (torch.bfloat16, 12, "simt"), (torch.bfloat16, 144, "tensor-core"),
+    (torch.bfloat16, 256, "tensor-core"), (torch.bfloat16, 136, "simt"),
+    (torch.bfloat16, 272, "wide"),
 ])
 def test_k1_path_by_head_width(dtype, head_dim, want):
     """f32 takes the register-tiled kernel at head widths that are multiples
     of 4 up to 128 (the tiles' float4 rows and register accumulators) and
     the first SIMT kernel otherwise, e.g. hidden 2,048 over 8 heads (256);
-    the choice is the shape's, and bf16's is unchanged."""
+    bf16 takes the tensor-core kernel at multiples of 16 up to K1's own
+    limit, 256 (Gemma-2B's heads), above the shared ``kernel_path``'s 128;
+    the choice is the shape's."""
     assert k1.k1_path(dtype, head_dim) == want
     if dtype == torch.bfloat16:
-        assert k1.k1_path(dtype, head_dim) == k1.kernel_path(dtype, head_dim)
+        tc = head_dim % 16 == 0 and head_dim <= k1.K14_TC_MAX_HEAD_DIM
+        assert (k1.k1_path(dtype, head_dim) == "tensor-core") == tc
+        assert k1.K14_TC_MAX_HEAD_DIM == 256 and k1.TC_MAX_HEAD_DIM == 128
 
 
 @pytest.mark.parametrize("c,heads,tq,tk,rows,blocks_an_sm", [
@@ -616,21 +632,23 @@ def test_k1_attention_equals_k4_out_and_jax(rng, monkeypatch, tq, tk, renorm):
 def test_k1_tensor_core_shared_memory_leaves_four_blocks_an_sm():
     """At the model's shapes (C 512, 8 heads, up to 128 keys) four blocks of
     K1's tensor-core kernel (16 warps) share an SM's 227 KB, each paying 1 KB
-    of reserve; 512 keys still fit; a head wider than 128 takes the SIMT
-    kernel and one wider than 256 the wide path (the wide K4 kernel and the
-    LayerNorm kernel), whose shared memory fits."""
+    of reserve; 512 keys still fit; a head of 129-256 takes the tensor-core
+    kernel at multiples of 16 (else the SIMT kernel) and one wider than 256
+    the wide path (the wide K4 kernel and the LayerNorm kernel), whose
+    shared memory fits."""
     assert 4 * (k1.smem_bytes_tc(128, 128, 512, 8) + 1024) <= k1.SMEM_LIMIT
     assert 4 * (k1.smem_bytes_tc(66, 66, 512, 8) + 1024) <= k1.SMEM_LIMIT
     assert k1.smem_bytes_tc(1, 512, 512, 8) <= k1.SMEM_LIMIT
     assert k1.smem_bytes_tc(128, 128, 512, 8) == 2 * (64 + 256) * 72 + 4 * 2 * 2 * 64
-    # a head of 144 is taken by the SIMT kernel; one of 264 by the wide path
-    assert k1.k1_path(torch.bfloat16, 144) == "simt"
-    for c, wide in ((288, False), (528, True)):
+    # a head of 144 is taken by the tensor-core kernel (instance 256), one of
+    # 136 (no multiple of 16) by the SIMT kernel, one of 264 by the wide path
+    assert k1.k1_path(torch.bfloat16, 144) == "tensor-core"
+    for c, want in ((288, "tensor-core"), (272, "simt"), (528, "wide")):
         bf = torch.zeros(1, 4, c, dtype=torch.bfloat16)
         args = (bf, bf, bf, torch.ones(1, 4), torch.ones(1, 4), torch.ones(1, 4, 4), bf,
                 torch.ones(c), torch.zeros(c), 2, "l1")
         k1._check(*args)
-        assert k1.k1_path(torch.bfloat16, c // 2, 4, c) == ("wide" if wide else "simt")
+        assert k1.k1_path(torch.bfloat16, c // 2, 4, c) == want
     assert flash.smem_bytes_wide("K4") <= k1.SMEM_LIMIT
 
 

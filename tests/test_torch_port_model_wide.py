@@ -11,7 +11,9 @@ import pytest
 import torch
 
 import structured_alignment_vqa_tpu.ops.pallas_attention as pa
+import structured_alignment_vqa_tpu.ops.pallas_flash_attention as pfa
 import test_torch_port_model as tm
+from structured_alignment_vqa_tpu_torch.ops import attention as port_attention
 from test_torch_port_model import TINY, assert_forward_matches, build_pair
 from variant_port_cases import random_params
 
@@ -73,3 +75,37 @@ def test_width_528_with_2_heads_forward_and_answers_match_jax_pallas():
     model.eval()
     assert_forward_matches(jmodel, jax.tree.map(jnp.asarray, params), jb, model,
                            tm.batch_from_arrays(arrays, "cpu"))
+
+
+def test_obj_rel_width_512_with_2_heads_forward_matches_jax_pallas(monkeypatch):
+    """obj+rel at hidden 512 with 2 heads (head width 256: Gemma-2B's heads,
+    which K1's and K4's tensor-core kernels take on the card), 1 block,
+    tiny otherwise, maxlen 600 at bucket (4, 8, 520): the symbolic encoder
+    runs at L 528, past K1's 512 keys, so the flash path (K4's plain
+    version here) serves it. Logits within 1e-4 of the JAX model running
+    its Pallas kernels in interpret mode (its flash kernel's ``interpret``
+    argument set here, as the JAX package's flash tests set it)."""
+    from test_torch_port_mil_nce_rel import rel_arrays
+
+    real = pfa.flash_graph_attention
+    monkeypatch.setattr(pfa, "flash_graph_attention",
+                        lambda *a, **k: real(*a, **dict(k, interpret=True)))
+    widths = []   # the head widths of the port's flash calls
+    port_flash = port_attention.flash_graph_attention
+    monkeypatch.setattr(port_attention, "flash_graph_attention",
+                        lambda *a: widths.append(a[0].shape[-1] // a[6]) or port_flash(*a))
+
+    kw = dict(TINY, only_obj=False, maxlen=600, hidden_size=512, num_heads=2, num_blocks=1,
+              stage1_blocks=1, stage2_blocks=1)
+    jcfg = tm.JaxConfig(share_glove=True, use_pallas_attention=True, **kw)
+    pcfg = tm.ModelConfig(share_glove=True, **kw)
+    arrays = rel_arrays(pcfg, 2, (4, 8, 520), seed=7)
+    jb = tm.jax_batch(arrays)
+    jmodel = tm.JaxModel(jcfg)
+    params = random_params(jmodel, (jb,), {})
+    model = tm.AttModelX3(pcfg, device="cpu")
+    model.load_state_dict(tm.state_dict_from_jax(params, pcfg.num_blocks), strict=True)
+    model.eval()
+    assert_forward_matches(jmodel, jax.tree.map(jnp.asarray, params), jb, model,
+                           tm.batch_from_arrays(arrays, "cpu"))
+    assert widths and set(widths) == {256}

@@ -132,7 +132,8 @@ def test_attention_wrappers_take_every_c_and_head_width_of_the_domain(dtype):
 def test_attention_wrappers_raise_just_outside_the_domain(dtype, c, heads, match):
     """Just outside D (C 2,056 at 8 heads of 257; 2 heads of 264) every
     attention wrapper takes the width: the calls take the ``match`` path
-    (the wide kernels), whose shared memory fits a block at every length."""
+    (the wide kernels; K4 at 264, a multiple of 4, its chunked f32 kernel
+    in f32), whose shared memory fits a block at every length."""
     q = torch.zeros(1, L, c, dtype=dtype)
     km, qm, graph = torch.ones(1, L), torch.ones(1, L), torch.ones(1, L, L)
     gamma, beta = torch.ones(c), torch.zeros(c)
@@ -146,8 +147,16 @@ def test_attention_wrappers_raise_just_outside_the_domain(dtype, c, heads, match
     dh = c // heads
     for tk in K12_LENGTHS:
         assert k1.k1_path(dtype, dh, tk, c) == k1.k2_path(dtype, dh, tk, c, heads) == match
-    assert flash.k4_path(dtype, dh) == flash.dq_kernel(dtype, dh) == match
-    assert flash.kernel_key_split(dtype, dh, 1, heads, FLASH_L, FLASH_L)[0] == 1
+    assert flash.dq_kernel(dtype, dh) == match
+    chunked = dtype == torch.float32 and dh % 4 == 0
+    assert flash.k4_path(dtype, dh) == ("f32-chunked" if chunked else match)
+    split = flash.kernel_key_split(dtype, dh, 1, heads, FLASH_L, FLASH_L)
+    if chunked:   # a block per head and chunk of 128 rows: 52 blocks, under the card's 132
+        plan = flash.f32_plan(1, heads * flash.wide_chunks(dh), FLASH_L, FLASH_L, 32, 128)
+        assert split == plan[1:] == flash.k4_f32_plan(dh, 1, heads, FLASH_L, FLASH_L)[1:]
+        assert split[0] > 1
+    else:
+        assert split[0] == 1
     assert max(flash.smem_bytes_wide(kn) for kn in ("K4", "K5", "K6")) <= SMEM_LIMIT
 
 
@@ -218,28 +227,35 @@ def test_k4_k5_k6_plans_and_shared_memory_fit_every_head_width(dtype):
     """K4-K6 at L 1,600 and every head width of D, one or all query tiles:
     the key split covers the key steps with no shard empty, and the shared
     memory of the kernel each call takes fits a block (the tensor-core
-    kernels' is fixed by their 16-128 instances)."""
-    steps = -(-FLASH_L // flash.KEY_STEP)
+    kernels' is fixed by their instances: K4's 16-256, K5's and K6's
+    16-128). K5 and K6 keep their own paths, the same for both."""
     for c, heads in domain():
         dh = c // heads
         path = flash.k4_path(dtype, dh)
-        assert flash.dq_kernel(dtype, dh) == flash.dkv_kernel(dtype, dh) == path
+        assert flash.dq_kernel(dtype, dh) == flash.dkv_kernel(dtype, dh) == flash.k56_path(
+            dtype, dh)
+        step = flash.f32_step(dh) if path == "f32" else flash.KEY_STEP
+        steps = -(-FLASH_L // step)
         for tq in (1, FLASH_L):
             n_split, per = flash.kernel_key_split(dtype, dh, 1, heads, tq, FLASH_L)
             assert (n_split - 1) * per < steps <= n_split * per
             if path == "simt":
                 assert n_split == 1
     for dh in range(1, MAX_HEAD + 1):
-        path = flash.k4_path(dtype, dh)
-        if path == "f32":
-            need = max(flash.smem_bytes_f32(dh, 64), flash.smem_bytes_dq_f32(dh, 64),
-                       flash.smem_bytes_dkv_f32(dh))
-        elif path == "simt":
-            need = max(flash.smem_bytes_simt(kernel, dh) for kernel in ("K4", "K5", "K6"))
+        path, k56 = flash.k4_path(dtype, dh), flash.k56_path(dtype, dh)
+        need = [flash.smem_bytes_f32(dh, 64)] if path == "f32" else []
+        if path == "simt":
+            need.append(flash.smem_bytes_simt("K4", dh))
+        if path == "tensor-core":
+            assert dh % 16 == 0
+            need.append(flash.smem_bytes_tc(dh))
+        if k56 == "f32":
+            need += [flash.smem_bytes_dq_f32(dh, 64), flash.smem_bytes_dkv_f32(dh)]
+        elif k56 == "simt":
+            need += [flash.smem_bytes_simt(kernel, dh) for kernel in ("K5", "K6")]
         else:
             assert dh % 16 == 0 and dh <= 128
-            continue
-        assert need <= SMEM_LIMIT, (dh, path, need)
+        assert max(need) <= SMEM_LIMIT, (dh, path, need)
     assert flash.simt_rows(128) == 64 and flash.simt_rows(129) == 32
 
 

@@ -123,7 +123,9 @@ def test_attention_wrappers_take_c_and_head_widths_above_the_old_domain(dtype):
     (1, 8, C) tensors: the checks pass; K1's and K2's kernels fit at Tq, Tk
     in {1, 16, 128, 450, 512}, every head wider than 256 taking the wide
     path; K4-K6 take the wide kernels above 256, one shard, their shared
-    memory the same at every head width."""
+    memory the same at every head width, but for K4 in bf16 at multiples of
+    16 and f32 at multiples of 4, which take its chunked tensor-core and f32
+    kernels and their key splits."""
     km, qm, graph = torch.ones(1, 8), torch.ones(1, 8), torch.ones(1, 8, 8)
     for c, heads in wide_pairs():
         dh = c // heads
@@ -148,14 +150,23 @@ def test_attention_wrappers_take_c_and_head_widths_above_the_old_domain(dtype):
             row_tile = k1.bwd_row_tile(dtype, dh, tq, 512, c, heads)
             assert 1 <= row_tile <= k1.BWD_F32_ROWS
         path = flash.k4_path(dtype, dh)
-        assert flash.dq_kernel(dtype, dh) == flash.dkv_kernel(dtype, dh) == path
+        assert flash.dq_kernel(dtype, dh) == flash.dkv_kernel(dtype, dh) == flash.k56_path(
+            dtype, dh)
+        if dh > k1.SIMT_MAX_HEAD_DIM:
+            chunked = {torch.bfloat16: ("tc-chunked", 16), torch.float32: ("f32-chunked", 4)}
+            name, multiple = chunked[dtype]
+            assert path == (name if dh % multiple == 0 else "wide")
+            assert flash.dq_kernel(dtype, dh) == "wide"
+        steps = 1536 // (flash.f32_step(dh) if path.startswith("f32") else flash.KEY_STEP)
         for tq in FLASH_LENGTHS:
             n_split, per = flash.kernel_key_split(dtype, dh, 2, heads, tq, 1536)
-            assert (n_split - 1) * per < 24 <= n_split * per
+            assert (n_split - 1) * per < steps <= n_split * per
             if path == "wide":
                 assert n_split == 1 and flash.wide_chunks(dh) == -(-dh // 256)
     for kernel in ("K4", "K5", "K6"):
         assert flash.smem_bytes_wide(kernel) <= SMEM_LIMIT
+    assert flash.smem_bytes_tc_chunked() <= SMEM_LIMIT
+    assert flash.smem_bytes_f32_chunked() <= SMEM_LIMIT
 
 
 def test_k1_paths_at_the_model_point():
