@@ -327,6 +327,8 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
+import os
 import re
 import subprocess
 import sys
@@ -422,9 +424,10 @@ WIDTHS_HIDDEN, WIDTHS_HEADS, WIDTHS_TRAIN_B = 768, 12, 32
 # Adam's two moments (31 GB) fit the card where 6 blocks' (85 GB) do not
 WIDTHS_4K_HIDDEN, WIDTHS_4K_HEADS, WIDTHS_4K_TRAIN_BLOCKS = 4096, 32, 2
 # and at hidden 2,048 with 8 heads of 256 (Gemma-2B's width and heads,
-# arXiv 2403.08295 Table 1), obj-only and obj+rel: serving only, K1's and
-# K4's tensor-core kernels at head width 256 (training there needs K2, K5
-# and K6 on the tensor cores above head width 128, which they do not take)
+# arXiv 2403.08295 Table 1), obj-only and obj+rel: serving (K1's and K4's
+# tensor-core kernels at head width 256) and training (K2 composed of K1's
+# tensor-core or K4's f32 forward, its LayerNorm backward, K5 and K6; K5 and
+# K6 on their tensor-core and f32 kernels' instance 256)
 WIDTHS_2K_HIDDEN, WIDTHS_2K_HEADS = 2048, 8
 # K1 and K4 at head width 256 beyond the widths rows (C 2,048, 8 heads):
 # the decoder's one query into 450 keys (K1, B 8) and into 1,536 keys (K4,
@@ -440,6 +443,21 @@ K4_WIDE258_SHAPE = ("C=2064 H=8 L=1536 B=2", 2064, 8)
 K4_SPLIT_TQ = 100
 K4_SPLIT_SHAPES = (("C=2048 H=8 Tq=100 Lk=1536 B=2", 2048, 8),
                    ("C=2560 H=8 Tq=100 Lk=1536 B=2", 2560, 8))
+# K5's and K6's instance 256 beyond the widths rows, from a generator of
+# their own (k56_head256_gen): the decoder's one query into 1,536 keys at
+# head width 256 (B 4: 32 blocks, so K5's keys are split), the padded widths
+# (bf16 at 8 heads of 144, f32 at 8 heads of 132: instance 256, the upper
+# channels staged as zeros), and the wide kernels at 8 heads of 258
+K56_HEAD256_CROSS = ("C=2048 H=8 Tq=1 Lk=1536 B=4", 2048, 8)
+K56_PADDED_SHAPES = {torch.bfloat16: ("C=1152 H=8 L=1536 B=2", 1152, 8),
+                     torch.float32: ("C=1056 H=8 L=1536 B=2", 1056, 8)}
+# K2's first SIMT kernels above head width 128, from a generator of their
+# own (k2_simt_gen): 8 heads of 254 at C 2,032 (no multiple of 16 nor of
+# 4, so both dtypes keep them), B 8, L 128 (16 rows a block of the rows
+# launch) and 512 (8 rows), the keys launch's 16-key instance; the C 2,048
+# rows that drove them before now take the composed route
+K2_SIMT254_SHAPES = (("C=2032 H=8 L=128 B=8", 128, 128, 8, 2032),
+                     ("C=2032 H=8 L=512 B=8", 512, 512, 8, 2032))
 WIDE_C = 2048   # the region features' width: x2_fusion_dec_mil2's alignment blocks
 # K1, K3 and K4 launches and plain attention_core calls (attention weights
 # out, or no renorm: x2_mlp_dec's vanilla decoder cross-attention) of one
@@ -567,6 +585,22 @@ PREVIOUS_MS = {
     ("K5", "ring shard Tq=768 Tk=768", torch.float32): 0.6672,
     ("K5", "ring shard", torch.float32): 0.6672,
     ("K5", "self L=1536 4 heads", torch.float32): 1.3752,
+    # K2, K5 and K6 at head width 256 (and K2 at 16 and 32 heads of 128 in
+    # bf16) on their first SIMT kernels, before K5's and K6's instance 256
+    # and K2's composed route: PERF.md's widths and beyond rows (this
+    # script on that tree, H100 80GB HBM3 at 700 W)
+    ("K2", "C=2048 H=8 L=128 B=8", torch.bfloat16): 2.0844,
+    ("K2", "C=2048 H=8 L=512 B=8", torch.bfloat16): 23.0514,
+    ("K2", "C=2048 H=16 L=128 B=8", torch.bfloat16): 2.1857,
+    ("K2", "C=2048 H=16 L=512 B=8", torch.bfloat16): 23.6589,
+    ("K2", "C=2048 H=8 L=128 B=8", torch.float32): 2.2224,
+    ("K2", "C=2048 H=8 L=512 B=8", torch.float32): 24.6217,
+    ("K2", "C=4096 H=32 L=128 B=4", torch.bfloat16): 2.8034,
+    ("K2", "C=4096 H=32 L=450 B=4", torch.bfloat16): 19.4788,
+    ("K5", "C=2048 H=8 L=1536 B=2", torch.bfloat16): 6.6948,
+    ("K5", "C=2048 H=8 L=1536 B=2", torch.float32): 6.9201,
+    ("K6", "C=2048 H=8 L=1536 B=2", torch.bfloat16): 6.0631,
+    ("K6", "C=2048 H=8 L=1536 B=2", torch.float32): 6.3532,
 }
 
 failures: list = []
@@ -883,7 +917,11 @@ def device_kernels_only(fn, what: str, mine: tuple, source: str) -> None:
     later, four times at most (on one slow machine it missed all three
     calls; in one run after the head-width-256 rows of phase k4, K6's f32
     check saw none in all three sessions it then had and K5's none in its
-    first; cause not found). Each check's sessions are kept in
+    first; in whole runs with CUPTI kept set up between sessions two of
+    K4's, K5's and K6's f32 checks at L 1,536 none in all five, while for
+    tens of seconds a session saw any kernel, a torch op's too, one time in
+    four or five: ``main`` has CUPTI torn down after each session since).
+    Each check's sessions are kept in
     ``sessions`` and summed up at the end of the run
     (:func:`profiler_sessions_line`)."""
     from torch.autograd import DeviceType
@@ -1068,6 +1106,19 @@ def k4_paths_gen() -> torch.Generator:
     return torch.Generator(device="cuda").manual_seed(2583)
 
 
+def k2_simt_gen() -> torch.Generator:
+    """The generator of K2's rows of its first SIMT kernels above head
+    width 128 (``K2_SIMT254_SHAPES``), apart from the others."""
+    return torch.Generator(device="cuda").manual_seed(2541)
+
+
+def k56_head256_gen() -> torch.Generator:
+    """The generator of K5's and K6's rows of instance 256 beyond the
+    widths rows (the split one-query call, the padded widths) and of their
+    wide kernels at head width 258, apart from the others."""
+    return torch.Generator(device="cuda").manual_seed(2564)
+
+
 def k2_inputs(gen, tq: int, tk: int, dtype, B: int = B, c: int = C):
     """K1's arguments (``k1_inputs``) and a dy; for self-attention the first
     third of the rows get an all-zero graph (as the encoder's stage-1 graph
@@ -1085,14 +1136,27 @@ def rel_err(got, want) -> float:
     return (got.float() - want.float()).abs().max().item() / (scale if scale > 0 else 1.0)
 
 
+def k2_plain(args, heads: int):
+    """K2's plain version for the route the call takes: the composed
+    route's (which rounds n and dS where K5 and K6 round them) or K2's."""
+    from structured_alignment_vqa_tpu_torch.ops import fused_graph_attention as k1
+
+    q, k = args[0], args[1]
+    c = q.shape[-1]
+    if k1.k2_path(q.dtype, c // heads, k.shape[1], c, heads) == "composed":
+        return k1.graph_attention_ln_bwd_composed_plain
+    return k1.graph_attention_ln_bwd_plain
+
+
 def k2_against_plain(label: str, args, dy, heads: int, renorm: str) -> tuple:
-    """K2 against its plain version, output by output: (kernel outputs, the
-    largest relative and the largest absolute error)."""
+    """K2 against the plain version of its route (``k2_plain``), output by
+    output: (kernel outputs, the largest relative and the largest absolute
+    error)."""
     from structured_alignment_vqa_tpu_torch.ops import fused_graph_attention as k1
 
     dtype = args[0].dtype
     got = k1.fused_graph_attention_ln_bwd(*args, dy, heads, renorm)
-    want = k1.graph_attention_ln_bwd_plain(*args, dy, heads, renorm)
+    want = k2_plain(args, heads)(*args, dy, heads, renorm)
     torch.cuda.synchronize()
     rel = err = 0.0
     for name, g, w in zip(("dq", "dk", "dv", "dresidual", "dgamma", "dbeta"), got, want):
@@ -1184,7 +1248,7 @@ def k2_phase(gen) -> dict:
         shapes = K12_WIDE_SHAPES + (K2_WIDE16_SHAPES if dtype == torch.bfloat16 else ())
         for label, tq, tk, heads in shapes:
             args, dy = k2_inputs(gen, tq, tk, dtype, WIDE_B, c=WIDE_C)
-            rows.append(k2_wide_row(label, args, dy, heads))
+            rows.append(k2_wide_row(label, args, dy, heads, "composed"))
             del args, dy
             torch.cuda.empty_cache()
         args, dy = k2_inputs(gen, 65, 65, dtype, REL_B, c=99)
@@ -1194,8 +1258,8 @@ def k2_phase(gen) -> dict:
     for dtype in (torch.bfloat16, torch.float32):
         for label, tq, tk, heads, c in K12_BEYOND_SHAPES:
             args, dy = k2_inputs(beyond, tq, tk, dtype, BEYOND_B, c=c)
-            want = {"tensor-core": "simt"}.get(k1_beyond_path(dtype, c // heads),
-                                               k1_beyond_path(dtype, c // heads))
+            want = {"tensor-core": "composed"}.get(k1_beyond_path(dtype, c // heads),
+                                                   k1_beyond_path(dtype, c // heads))
             rows.append(k2_wide_row(label, args, dy, heads, want))
             if dtype == torch.float32 and (c // heads, tq) in ((512, 128), (128, 128)):
                 kernels = K2_WIDE_KERNELS if c // heads == 512 else K2_F32_WIDE_C_KERNELS
@@ -1204,6 +1268,13 @@ def k2_phase(gen) -> dict:
                     f"K2 {label} {dtype}", kernels + ("elementwise", "reduce"),
                     "K2's kernels for this width (and torch's sums of the partials and of "
                     "dO . o)")
+            del args, dy
+            torch.cuda.empty_cache()
+    simt = k2_simt_gen()
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, tq, tk, heads, c in K2_SIMT254_SHAPES:
+            args, dy = k2_inputs(simt, tq, tk, dtype, WIDE_B, c=c)
+            rows.append(k2_wide_row(label, args, dy, heads, "simt"))
             del args, dy
             torch.cuda.empty_cache()
     return {r["label"] + str(r["dtype"]): r for r in rows}
@@ -1221,10 +1292,14 @@ K2_F32_WIDE_C_KERNELS = ("graph_attention_ln_bwd_fwd_f32_kernel",
                          "graph_attention_ln_bwd_dkv_f32_kernel")
 
 
+TILED_PARTS = {"K5 tensor-core", "K6 tensor-core", "K5 f32", "K6 f32"}
+
+
 def k2_wide_row(label: str, args, dy, heads: int, want: str = "simt") -> dict:
     """K2 at a width beyond the presets': its design (the one ``want``
-    names) against its plain version in both renorms, timed beside its
-    bound."""
+    names) against the plain version of its route in both renorms, timed
+    beside its bound. On the composed route every K5 and K6 it launches
+    must take a tiled kernel (their C entries' report)."""
     from structured_alignment_vqa_tpu_torch.ops import fused_graph_attention as k1
 
     q, k = args[0], args[1]
@@ -1232,18 +1307,26 @@ def k2_wide_row(label: str, args, dy, heads: int, want: str = "simt") -> dict:
     tk, dtype = k.shape[1], q.dtype
     path = k1.k2_path(dtype, c // heads, tk, c, heads)
     check(path == want, f"K2 {label} {dtype}: head width {c // heads} takes the {path} kernels")
+    k1.fused_graph_attention_ln_bwd.parts.clear()
     err = rel = 0.0
     for renorm in ("l1", "sum_eps"):
         _, r, e = k2_against_plain(label, args, dy, heads, renorm)
         rel, err = max(rel, r), max(err, e)
+    if path == "composed":
+        parts = dict(k1.fused_graph_attention_ln_bwd.parts)
+        check(set(parts) <= TILED_PARTS and sum(parts.values()) == 4,
+              f"K2 {label} {dtype}: the composed route's K5 and K6 launches by kernel {parts} "
+              "(all on the tensor-core or f32 kernels)")
     ms = time_ms(lambda: k1.fused_graph_attention_ln_bwd(*args, dy, heads, "l1"), iters=5)
-    plain_ms = time_ms(lambda: k1.graph_attention_ln_bwd_plain(*args, dy, heads, "l1"), iters=3)
+    plain = k2_plain(args, heads)
+    plain_ms = time_ms(lambda: plain(*args, dy, heads, "l1"), iters=3)
     size = torch.finfo(dtype).bits // 8
     nbytes = size * b * c * (5 * tq + 4 * tk) + 4 * b * (tq + tk + tq * tk) + 12 * c
     bound_ms, bound_by = bound(nbytes, 12.0 * b * tq * tk * c, dtype)
     print(f"K2 {label} {dtype}: {path} kernels "
-          f"({k1.bwd_row_tile(dtype, c // heads, tq, tk, c, heads)} rows a block), {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by})", flush=True)
+          f"({k1.bwd_row_tile(dtype, c // heads, tq, tk, c, heads)} rows a block), {ms:.4f} ms"
+          f"{previous('K2', label, dtype)}, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms * 1e3:.2f} us ({bound_by})", flush=True)
     return dict(label=label, dtype=dtype, err=err, rel_err=rel, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, wide=True)
 
@@ -1607,33 +1690,43 @@ def k56_phase(gen) -> dict:
     args = flash_inputs(gen, "odd keys", 70, 701, torch.bfloat16)
     dy = torch.randn(REL_B, 70, C, generator=gen, device="cuda").to(torch.bfloat16)
     k56_against_plain("odd keys Tq=70 Tk=701", args, dy, HEADS)
-    def wide_row(g, label: str, c: int, heads: int, dtype, want: str) -> None:
-        b, t = FLASH_WIDE_B, REL_L
-        args = flash_inputs(g, "self L=1536", t, t, dtype, c, b)
-        dy = torch.randn(b, t, c, generator=g, device="cuda").to(dtype)
+    def wide_row(g, label: str, c: int, heads: int, dtype, want: str, b: int = FLASH_WIDE_B,
+                 tq: int = REL_L) -> None:
+        t = REL_L
+        args = flash_inputs(g, "self L=1536" if tq == t else "cross", tq, t, dtype, c, b)
+        dy = torch.randn(b, tq, c, generator=g, device="cuda").to(dtype)
         paths = (fl.dq_kernel(dtype, c // heads), fl.dkv_kernel(dtype, c // heads))
         check(paths == (want, want), f"K5/K6 {label} {dtype}: head width {c // heads} "
               f"takes the {paths[0]} kernels")
+        fl.flash_bwd_dq.paths.clear()
+        fl.flash_bwd_dkv.paths.clear()
         errs, abs_errs, bwd = k56_against_plain(label, args, dy, heads)
+        taken = (dict(fl.flash_bwd_dq.paths), dict(fl.flash_bwd_dkv.paths))
+        check(taken == ({want: 2}, {want: 2}), f"K5/K6 {label} {dtype}: launches by the kernel "
+              f"their C entries report {taken} (want 2 each on the {want} kernel)")
         size = torch.finfo(dtype).bits // 8
-        stats_bytes = 4 * b * (t * t + t + 4 * heads * t)
+        stats_bytes = 4 * b * (tq * t + t + 4 * heads * tq)
         for key, fn, plain, n_products, nbytes in (
             ("K5", fl.flash_bwd_dq, fl.flash_bwd_dq_plain, 3,
-             size * b * c * 5 * t + stats_bytes),
+             size * b * c * (3 * tq + 2 * t) + stats_bytes),
             ("K6", fl.flash_bwd_dkv, fl.flash_bwd_dkv_plain, 4,
-             size * b * c * 6 * t + stats_bytes),
+             size * b * c * (2 * tq + 4 * t) + stats_bytes),
         ):
             ms = time_ms(lambda: fn(*bwd), iters=5)
             plain_ms = time_ms(lambda: plain(*bwd), iters=3)
-            bound_ms, bound_by = bound(nbytes, 2.0 * n_products * b * t * t * c, dtype)
+            bound_ms, bound_by = bound(nbytes, 2.0 * n_products * b * tq * t * c, dtype)
             if want == "wide":
                 how = (f"wide kernel (scores and dN computed {fl.wide_chunks(c // heads)} "
                        f"times)")
-            else:
+            elif want == "simt":
                 how = (f"simt kernel ({fl.simt_rows(c // heads)} query rows a "
                        f"{'block' if key == 'K5' else 'step'})")
-            print(f"{key} {label} {dtype}: {how}, {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by})",
+            else:
+                how = f"{want} kernel, instance {'256' if c // heads > 128 else '<= 128'}"
+            if key == "K5":
+                how += f", {fl.dq_key_split(dtype, c // heads, b, heads, tq, t)[0]} key shard(s)"
+            print(f"{key} {label} {dtype}: {how}, {ms:.4f} ms{previous(key, label, dtype)}, "
+                  f"plain {plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by})",
                   flush=True)
             rows.append(dict(kernel=key, label=label, dtype=dtype, err=abs_errs[key],
                              rel_err=errs[key], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -1641,7 +1734,7 @@ def k56_phase(gen) -> dict:
 
     for dtype in (torch.bfloat16, torch.float32):
         for label, c, heads in FLASH_WIDE_SHAPES:
-            wide_row(gen, label, c, heads, dtype, "simt")
+            wide_row(gen, label, c, heads, dtype, fl.k56_path(dtype, c // heads))
             torch.cuda.empty_cache()
         args = flash_inputs(gen, "self L=600", 600, 600, dtype, 99, FLASH_WIDE_B)
         dy = torch.randn(FLASH_WIDE_B, 600, 99, generator=gen, device="cuda").to(dtype)
@@ -1651,6 +1744,19 @@ def k56_phase(gen) -> dict:
         for label, c, heads in FLASH_BEYOND_SHAPES:
             wide_row(beyond, label, c, heads, dtype, "wide")
             torch.cuda.empty_cache()
+    # instance 256 beyond the widths rows: the split one-query call, the
+    # padded widths; then the wide kernels just past 256 (no multiple of 16
+    # or 4 there, and above the instance)
+    more = k56_head256_gen()
+    kind = {torch.bfloat16: "tensor-core", torch.float32: "f32"}
+    for dtype in (torch.bfloat16, torch.float32):
+        label, c, heads = K56_HEAD256_CROSS
+        wide_row(more, label, c, heads, dtype, kind[dtype], b=REL_B, tq=1)
+        label, c, heads = K56_PADDED_SHAPES[dtype]
+        wide_row(more, label, c, heads, dtype, kind[dtype])
+        label, c, heads = K4_WIDE258_SHAPE
+        wide_row(more, label, c, heads, dtype, "wide")
+        torch.cuda.empty_cache()
     return {r["kernel"] + r["label"] + str(r["dtype"]): r for r in rows}
 
 
@@ -1692,15 +1798,20 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in counted_wrappers().values():
         fn.launches = 0
-        if hasattr(fn, "paths"):
-            fn.paths.clear()
+        for counter in ("paths", "parts"):
+            if hasattr(fn, counter):
+                getattr(fn, counter).clear()
 
 
 def path_counts() -> dict:
-    """K1's and K4's launches by the kernel each took (their wrappers'
-    ``paths``, counted beside ``launches``)."""
+    """K1's, K2's, K4's, K5's and K6's launches by the kernel or route each
+    took (their wrappers' ``paths``, counted beside ``launches``; K4's, K5's
+    and K6's as their C entries report it), and under "K2 parts" the K5
+    and K6 kernels K2's composed and wide routes launched."""
     wrappers = counted_wrappers()
-    return {key: dict(wrappers[key].paths) for key in ("K1", "K4")}
+    counts = {key: dict(wrappers[key].paths) for key in ("K1", "K2", "K4", "K5", "K6")}
+    counts["K2 parts"] = dict(wrappers["K2"].parts)
+    return counts
 
 
 def profile_device(fn, what: str, host_top: int = 0) -> dict:
@@ -2425,12 +2536,13 @@ def widths_phase(card: str) -> dict:
     hidden 4,096 with 32 heads (head width 128; K1's and K2's LayerNorm and
     K3 at C 4,096 with hidden width 16,384, above the old domain) and at
     hidden 2,048 with 8 heads (head width 256: K1's tensor-core kernel, K3
-    at hidden width 8,192; serving only), ``full_config`` otherwise
-    (hidden_size_mil 1,024, 6 blocks, maxlen 450, the 407,000 x 300 table,
-    seeded weights): :func:`widths_point` at each; then the obj+rel model
-    at hidden 2,048 with 8 heads (:func:`widths_rel_point`: K4's
-    tensor-core kernel at head width 256). Returns the hidden-4,096
-    request's launches."""
+    at hidden width 8,192, K2's composed route; a bf16 step too),
+    ``full_config`` otherwise (hidden_size_mil 1,024, 6 blocks, maxlen 450,
+    the 407,000 x 300 table, seeded weights): :func:`widths_point` at each;
+    then the obj+rel model at hidden 2,048 with 8 heads
+    (:func:`widths_rel_point`: K4's tensor-core kernel, K5 and K6 at head
+    width 256, serving and training). Returns the hidden-4,096 request's
+    launches."""
     widths_point(card, WIDTHS_HIDDEN, WIDTHS_HEADS)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2438,7 +2550,7 @@ def widths_phase(card: str) -> dict:
                             train_blocks=WIDTHS_4K_TRAIN_BLOCKS)
     gc.collect()
     torch.cuda.empty_cache()
-    widths_point(card, WIDTHS_2K_HIDDEN, WIDTHS_2K_HEADS, train=False)
+    widths_point(card, WIDTHS_2K_HIDDEN, WIDTHS_2K_HEADS, bf16_step=True)
     gc.collect()
     torch.cuda.empty_cache()
     widths_rel_point(card, WIDTHS_2K_HIDDEN, WIDTHS_2K_HEADS)
@@ -2446,17 +2558,20 @@ def widths_phase(card: str) -> dict:
 
 
 def widths_point(card: str, hidden: int, heads: int, train_blocks: int = 0,
-                 train: bool = True) -> dict:
+                 bf16_step: bool = False) -> dict:
     """One bf16 request at bs 128 whose launches must be the 512-wide
     request's (24 K1, 24 K3: no FFN or attention left the kernels; every K1
     on its tensor-core kernel), the same weights' f32 logits against the
-    plain path, and with ``train`` one f32 training step at bs 32 (at
-    ``train_blocks`` blocks, stages 1 and 2, where given) against the plain
-    path, each at the limits of the serving and training phases; the
-    request's pairs/s and a step's steps/s as information. Where the step
-    is cut to fewer blocks the f32 model is built after the bf16 one is
-    freed, from the same seed (the same f32 weights: the parameters are f32
-    at either compute dtype), and checked to hold them."""
+    plain path, and one f32 training step at bs 32 (at ``train_blocks``
+    blocks, stages 1 and 2, where given) against the plain path, each at
+    the limits of the serving and training phases, every K2 of the step on
+    its f32 kernels or its composed route (whose K5 and K6 take their f32
+    kernels); with ``bf16_step`` one bf16 step at bs 32 as well
+    (:func:`bf16_step_checks`); the request's pairs/s and a step's steps/s
+    as information. Where the step is cut to fewer blocks the f32 model is
+    built after the bf16 one is freed, from the same seed (the same f32
+    weights: the parameters are f32 at either compute dtype), and checked
+    to hold them."""
     from structured_alignment_vqa_tpu_torch.data.synthetic import synthetic_batch
     from structured_alignment_vqa_tpu_torch.parallel.train_step import (
         TrainState,
@@ -2524,8 +2639,6 @@ def widths_point(card: str, hidden: int, heads: int, train_blocks: int = 0,
     del model32, kernel_logits, plain_logits, decisions, pins
     gc.collect()
     torch.cuda.empty_cache()
-    if not train:
-        return launches
 
     cfg32 = cfg.replace(compute_dtype=torch.float32)
     per_block = K1_PER_FORWARD // cfg.num_blocks   # 2 encoders' and 2 decoders' calls a block
@@ -2535,7 +2648,9 @@ def widths_point(card: str, hidden: int, heads: int, train_blocks: int = 0,
         tag += f" at {train_blocks} blocks"
     batch = synthetic_batch(cfg32, WIDTHS_TRAIN_B, lv=36, lq=30, ls=98, seed=0)
     n = per_block * cfg32.num_blocks
+    reset_launch_counts()
     f32_step_against_plain(cfg32, batch, {"K1": n, "K2": n, "K3": n}, f"{what} {tag}")
+    k2_paths_tiled(f"{what} {tag}", {"K2": n}, torch.float32)
     gc.collect()
     torch.cuda.empty_cache()
     model = random_model(cfg32)
@@ -2553,7 +2668,83 @@ def widths_point(card: str, hidden: int, heads: int, train_blocks: int = 0,
           f"{1 / seconds:.3f} steps/s on {card} (information only)", flush=True)
     del model, opt, state, step
     torch.cuda.empty_cache()
+    if bf16_step:
+        gc.collect()
+        bf16_step_checks(card, cfg, synthetic_batch(cfg, WIDTHS_TRAIN_B, lv=36, lq=30, ls=98,
+                                                    seed=0),
+                         {**dict.fromkeys(("K4", "K5", "K6"), 0), "K1": K1_PER_FORWARD,
+                          "K2": K2_PER_STEP, "K3": K3_PER_FORWARD}, what, WIDTHS_TRAIN_B)
     return launches
+
+
+def k2_paths_tiled(what: str, want: dict, dtype) -> None:
+    """Every K2, K5 and K6 launch since the counts were last reset on a
+    tiled kernel, by the kernels the C entries report: K2 (``want["K2"]``
+    launches) on its tensor-core or f32 kernels or its composed route, and
+    every K5 and K6 of that route, and each direct K5 and K6 launch
+    (``want`` "K5", "K6"), on the tensor-core (bf16) or f32 kernels; none
+    on the SIMT or wide kernels."""
+    paths = path_counts()
+    kind = "tensor-core" if dtype == torch.bfloat16 else "f32"
+    k2 = paths["K2"]
+    composed = k2.get("composed", 0)
+    check(sum(k2.values()) == want["K2"] and set(k2) <= {"tensor-core", "f32", "composed"},
+          f"{what}: K2's launches by route {k2} (want all {want['K2']} on its tensor-core or "
+          "f32 kernels or its composed route)")
+    parts = paths["K2 parts"]
+    check(parts == ({f"K5 {kind}": composed, f"K6 {kind}": composed} if composed else {}),
+          f"{what}: the composed K2 route's K5 and K6 launches by kernel {parts} (want "
+          f"{composed} each on the {kind} kernels)")
+    for key in ("K5", "K6"):
+        got = paths[key]
+        n = want.get(key, 0)
+        check(got == ({kind: n} if n else {}),
+              f"{what}: {key}'s launches by kernel {got} (want all {n} on the {kind} kernel)")
+
+
+def bf16_step_checks(card: str, cfg, batch, want: dict, what: str, bs: int) -> None:
+    """One bf16 training step at ``cfg``'s width from seeded weights, after
+    a warm-up step: launches ``want`` by kernel, every K2, K5 and K6 on a
+    tiled kernel (:func:`k2_paths_tiled`), a finite loss, not skipped, and
+    every parameter with a gradient moved (the detached MIL_NCE.marco_mlp
+    and the decoder's unused 1-token Q/K projections have none), as the
+    training phases check; steps/s as information."""
+    from structured_alignment_vqa_tpu_torch.parallel.train_step import (
+        TrainState,
+        adam,
+        make_train_step,
+    )
+
+    model = random_model(cfg)
+    opt = adam(model.parameters(), lr=1e-4)
+    state = TrainState(model, opt)
+    step = make_train_step(model, opt, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    step(state, batch, gen)           # warm-up step
+    torch.cuda.synchronize()
+    before = [p.detach().clone() for p in model.parameters()]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    m = step(state, batch, gen)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    check(launches == want, f"{what} train bf16 bs {bs}: launches {launches} == {want}")
+    k2_paths_tiled(f"{what} train bf16 bs {bs}", want, torch.bfloat16)
+    loss = m["loss"].item()
+    check(math.isfinite(loss) and m["skipped"].item() == 0,
+          f"{what} train bf16 bs {bs}: loss {loss:.5f} finite, not skipped")
+    still = sorted(n for (n, p), a in zip(model.named_parameters(), before) if torch.equal(a, p))
+    no_grad = sorted(n for n, p in model.named_parameters() if p.grad is None)
+    check(still == no_grad and all(re.search(NO_GRAD_PARAMS, n) for n in still),
+          f"{what} train bf16 bs {bs}: every parameter with a gradient moved; the "
+          f"{len(still)} without one are the detached MIL_NCE.marco_mlp and the decoder's "
+          "unused 1-token Q/K projections")
+    print(f"{what} train bf16 bs {bs}: one step in {seconds:.4f} s = {1 / seconds:.3f} "
+          f"steps/s on {card} (information only)", flush=True)
+    del model, opt, state, step, before
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def widths_rel_point(card: str, hidden: int, heads: int) -> dict:
@@ -2561,8 +2752,16 @@ def widths_rel_point(card: str, hidden: int, heads: int) -> dict:
     at ``hidden`` and ``heads``: one bf16 request at bs 4 whose launches
     must be the 512-wide request's (``REL_FORWARD``), every K1 and K4 on its
     tensor-core kernel, then the same weights' f32 logits against the plain
-    path with its decisions pinned, at the serving phases' limit; the
-    request's pairs/s as information."""
+    path with its decisions pinned, at the serving phases' limit; then one
+    f32 training step at bs 4 against the plain path at the training
+    limits, its decisions pinned, and one bf16 step (:func:`bf16_step_checks`),
+    every K2, K5 and K6 of each on a tiled kernel; the request's pairs/s
+    and the steps' steps/s as information."""
+    from structured_alignment_vqa_tpu_torch.parallel.train_step import (
+        TrainState,
+        adam,
+        make_train_step,
+    )
     from structured_alignment_vqa_tpu_torch.train.predict import make_predict_step
 
     what = f"widths obj+rel hidden {hidden} heads {heads}"
@@ -2608,9 +2807,34 @@ def widths_rel_point(card: str, hidden: int, heads: int) -> dict:
     check(finite and diff <= LOGIT_TOL_F32,
           f"{what} serving f32: max|logits kernel - plain| {diff:.3g} <= {LOGIT_TOL_F32:g}")
     pair_line(f"{what} serving f32 logits", diff, LOGIT_TOL_F32, [pins])
-    del model32, kernel_out, plain_out, decisions, pins, batches
+    del model32, kernel_out, plain_out, decisions, pins
     gc.collect()
     torch.cuda.empty_cache()
+
+    cfg32 = cfg.replace(compute_dtype=torch.float32)
+    reset_launch_counts()
+    f32_step_against_plain(cfg32, batches[0], REL_STEP, f"{what} train f32 bs {REL_B}")
+    k2_paths_tiled(f"{what} train f32 bs {REL_B}", REL_STEP, torch.float32)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = random_model(cfg32)
+    opt = adam(model.parameters(), lr=1e-4)
+    state = TrainState(model, opt)
+    step = make_train_step(model, opt, cfg32)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    step(state, batches[0], gen)           # warm-up step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(state, batches[1], gen)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    print(f"{what} train f32 bs {REL_B}: one step in {seconds:.4f} s = {1 / seconds:.3f} "
+          f"steps/s on {card} (information only)", flush=True)
+    del model, opt, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    bf16_step_checks(card, cfg, batches[0], REL_STEP, what, REL_B)
+    del batches
     return launches
 
 
@@ -5149,12 +5373,13 @@ MODEL_ROWS = 16384                     # the obj-only encoder's rows at bs 128 (
 MODEL_STEP_B = 32
 # the obj+rel step's batch at model 16 (REL_B at model 2)
 MODEL_WIDE_REL_B = 2
-# the depth of model 16's obj+rel step, for the script's time limit (its
-# 16 ranks took 128-160 s at 6 blocks): one block of each graph stage
-# (diagonal, cross, full), every width the production model's. Model 2's
-# runs keep 6: their time is the ranks' start (34.1 s at 6 blocks, 33.5 at
-# 3)
-MODEL_WIDE_REL_CUT = dict(num_blocks=3, stage1_blocks=1, stage2_blocks=2)
+# the depth of model 16's runs, for the script's time limit (its 16 ranks
+# took 128-160 s with the obj+rel step at 6 blocks, and 137.1 s on a slow
+# host with it at 3 and the serving forward and obj-only step at 6): one
+# block of each graph stage (diagonal, cross, full), every width the
+# production model's. Model 2's runs keep 6: their time is the ranks'
+# start (34.1 s at 6 blocks, 33.5 at 3)
+MODEL_WIDE_CUT = dict(num_blocks=3, stage1_blocks=1, stage2_blocks=2)
 # launches a block of one forward and of one step on a rank: every K1 and
 # K3 of the one-process path becomes the model axis's entries (K1's
 # attention-only entry and its LayerNorm entry, K3's partial and epilogue),
@@ -5171,9 +5396,9 @@ MODEL_TIMED = 3
 
 def model_configs(world: int) -> dict:
     """The model phase's configurations at model ``world``: {run: config}."""
-    cut = MODEL_WIDE_REL_CUT if world == MODEL_WIDE else {}
-    return {"serve": full_config(),
-            "step": full_config(compute_dtype=torch.float32, dropout_rate=0.0),
+    cut = MODEL_WIDE_CUT if world == MODEL_WIDE else {}
+    return {"serve": full_config(**cut),
+            "step": full_config(compute_dtype=torch.float32, dropout_rate=0.0, **cut),
             "rel_step": rel_config(compute_dtype=torch.float32, dropout_rate=0.0, **cut)}
 
 
@@ -5746,6 +5971,12 @@ def main(argv: list) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # tear CUPTI down after each torch.profiler session (this process's
+    # setting): kept set up, it stopped delivering device activity for tens
+    # of seconds after the f32 rows at L 1,536 of phases k4 and k56 (each
+    # session then saw a kernel one time in four or five), and two checks
+    # of every whole run missed all five sessions
+    os.environ.setdefault("TEARDOWN_CUPTI", "1")
     from structured_alignment_vqa_tpu_torch.ops import _build
 
     t_start = time.perf_counter()

@@ -90,7 +90,12 @@
 //   shards in shard order and rounds to bf16. Partials of dQ simply add: no
 //   rescaling, no atomics, the same bits every run.
 // * A head width of 48, 80, ... runs in the next instantiation (16, 32, 64,
-//   128) with its upper channels staged as zeros.
+//   128, 256) with its upper channels staged as zeros.
+// * Instance 256 (head widths 144-256): a warp's 16 x 256 f32 accumulators
+//   take 128 registers a thread, so K6's dK and dV (256) and K5's dQ beside
+//   Q's and dO's fragments do not fit one warp; pairs of warps share the
+//   work (the pair kernels below: K6 splits dV from dK, K5 dQ's channels,
+//   the scores passed through shared memory).
 //
 // K6 in f32 takes a register-tiled FFMA kernel built from csrc/simt_f32.cuh's
 // tiles (TF32 products would not hold the 1e-4 the f32 path is checked to),
@@ -107,7 +112,9 @@
 // (store_t, tile_pv). Each score is one ascending-d FMA chain and each dK
 // and dV entry one FMA chain over the query rows in ascending order, as in
 // the first f32 kernel, so it gives that kernel's bits. Two blocks an SM up
-// to head width 64 (91,136 bytes of shared memory a block at 64).
+// to head width 64 (91,136 bytes of shared memory a block at 64). At
+// instance 256 (head widths 132-256) the pair kernel below: 32 keys a block,
+// dV and dK on two warps each.
 //
 // K5 in f32 takes a register-tiled FFMA kernel in the walk of K2's f32 dq
 // kernel: one block of 4 warps per (head, 64 query rows, batch element),
@@ -125,7 +132,9 @@
 // blocks) the key steps are cut into shards of four
 // (ops/flash_graph_attention.py:dq_f32_plan), each block writes its f32
 // partial dQ to scratch and flash_graph_attention_bwd_dq_sum_kernel<float>
-// adds them in shard order.
+// adds them in shard order. At instance 256 (head widths 132-256) Q and dO
+// take 128 KB, so the keys pass 16 a step (a 4 x 2 tile a lane), the
+// shards 8 steps (128 keys, as below 256).
 //
 // K5 and K6 in bf16 with a head width that is no multiple of 16 take the
 // first SIMT kernels below, and so does K5 in f32 where its caller names
@@ -167,7 +176,7 @@ constexpr int kBQ = 64;        // query rows per tile
 constexpr int kBK = 64;        // keys per tile
 constexpr int kLdP = kBK + 4;  // row stride of the (rows, keys) tiles
 constexpr int kMaxDh = 256;     // the SIMT kernels' widest head
-constexpr int kTcMaxDh = 128;   // the tensor-core and f32 kernels' widest head
+constexpr int kTcMaxDh = 256;   // the tensor-core and f32 kernels' widest head (instance 256)
 constexpr float kNegMask = -4294967295.0f;  // float(-(2**32) + 1)
 constexpr float kL1Eps = 1e-12f;
 constexpr float kSumEps = 1e-7f;
@@ -554,6 +563,21 @@ flash_graph_attention_bwd_dkv_kernel(
   }
 }
 
+// The kernels an entry picks, by the names of flash_graph_attention.py's
+// k56_path, and the head-width instance each launcher starts: 16 x NDH for
+// the first SIMT kernels, DH for the tiled ones (the pair kernels at 256), 0
+// for the wide kernels, which take any width. Each launcher notes its
+// kernel and instance here before it launches; the entries keep the note of
+// a launch that succeeded (launched) for the wrappers to read.
+enum K56Path { kK56Simt, kK56Wide, kK56Tc, kK56F32 };
+thread_local K56Path started_path = kK56Simt;
+thread_local int started_width = -1;
+
+void started(K56Path path, int width) {
+  started_path = path;
+  started_width = width;
+}
+
 template <typename T, int NDH>
 cudaError_t launch_dq_ndh(const void* q, const void* k, const void* v, const float* key_mask,
                           const float* graph, const float* m_in, const float* z_in,
@@ -570,6 +594,7 @@ cudaError_t launch_dq_ndh(const void* q, const void* k, const void* v, const flo
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Tq + kRows - 1) / kRows, H, B);
+  started(kK56Simt, 16 * NDH);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), key_mask,
       graph, m_in, z_in, b_in, delta, static_cast<const T*>(dout), static_cast<T*>(dq), Tq, Tk,
@@ -594,6 +619,7 @@ cudaError_t launch_dkv_ndh(const void* q, const void* k, const void* v, const fl
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Tk + kBK - 1) / kBK, H, B);
+  started(kK56Simt, 16 * NDH);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), key_mask,
       graph, m_in, z_in, b_in, delta, static_cast<const T*>(dout), static_cast<T*>(dk),
@@ -990,6 +1016,7 @@ cudaError_t launch_dq_wide(const void* q, const void* k, const void* v, const fl
   dim3 grid;
   err = wide_grid(&grid, (Tq + kBQ - 1) / kBQ, B, C, H);
   if (err != cudaSuccess) return err;
+  started(kK56Wide, 0);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), key_mask,
       graph, m_in, z_in, b_in, delta, static_cast<const T*>(dout), static_cast<T*>(dq), Tq, Tk,
@@ -1011,6 +1038,7 @@ cudaError_t launch_dkv_wide(const void* q, const void* k, const void* v, const f
   dim3 grid;
   err = wide_grid(&grid, (Tk + kBK - 1) / kBK, B, C, H);
   if (err != cudaSuccess) return err;
+  started(kK56Wide, 0);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), key_mask,
       graph, m_in, z_in, b_in, delta, static_cast<const T*>(dout), static_cast<T*>(dk),
@@ -1181,6 +1209,201 @@ cudaError_t launch_dkv_f32_dh(const float* q, const float* k, const float* v,
   static const cudaError_t attributes = f32::allow_smem(kernel, smem);
   if (attributes != cudaSuccess) return attributes;
   const dim3 grid(H, (Tk + kF32Keys - 1) / kF32Keys, B);
+  started(kK56F32, DH);
+  kernel<<<grid, 128, smem, stream>>>(q, k, v, key_mask, graph, m_in, z_in, b_in, delta, dout,
+                                      dk, dv, Tq, Tk, C, H, C / H, renorm, scale);
+  return cudaGetLastError();
+}
+
+// Barrier of the two warps of pair `pair` (named barrier 1 + pair, 64
+// threads): the pair kernels below pass a sub-step's scores from one warp
+// to the other through shared memory.
+__device__ __forceinline__ void pair_sync(int pair) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + pair) : "memory");
+}
+
+// K6 in f32 at instance 256 (head widths 132-256): dK's and dV's 4 x 32
+// accumulators a lane each (256 registers) do not fit one warp, so a key
+// group's dV and dK go to two warps. A block of 4 warps owns 32 keys (K and
+// V at 256 take 64 KB); warp w holds key group w & 1 and role w >> 1: role
+// 0 forms S^T = K Q^T, passes the raw scores to its partner through
+// shared memory (pair_sync) and adds N^T dO into dV; role 1 forms dN^T = V
+// dO^T, takes the scores and adds dS^T Q into dK. Every product is the one
+// FMA chain of the 64-key kernel above (ds_entry_rcp on the same raw
+// scores): its bits. Query rows 32 a step through the same two-stage ring.
+constexpr int kF32PairKeys = 32;   // keys a block of the pair kernel, 16 a key group
+
+__host__ __device__ constexpr int dkv_f32_pair_stage_floats(int dh) {
+  return 2 * kF32Rows * dh + kF32Rows * kF32PairKeys + 4 * kF32Rows;
+}
+// Ks, Vs (32, DH), the warps' transposed (32, 16) tiles, the pairs' (2, 32
+// lanes, 16) score exchange, two stages.
+__host__ __device__ constexpr int dkv_f32_pair_smem_floats(int dh) {
+  return 2 * kF32PairKeys * dh + 4 * kF32Rows * 16 + 2 * 32 * 16 +
+         2 * dkv_f32_pair_stage_floats(dh);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(128, 1)
+flash_graph_attention_bwd_dkv_f32_pair_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ key_mask, const float* __restrict__ graph,
+    const float* __restrict__ m_in, const float* __restrict__ z_in,
+    const float* __restrict__ b_in, const float* __restrict__ delta,
+    const float* __restrict__ dout, float* __restrict__ dk, float* __restrict__ dv, int Tq,
+    int Tk, int C, int H, int dh, int renorm, float scale) {
+  constexpr int kThr = 128;
+  constexpr int kKeys = kF32PairKeys;
+  constexpr int kStageF = dkv_f32_pair_stage_floats(DH);
+  extern __shared__ __align__(16) float smem_pair[];
+  float* Ks = smem_pair;
+  float* Vs = Ks + kKeys * DH;
+  float* bt = Vs + kKeys * DH;
+  float* xs = bt + 4 * kF32Rows * 16;
+  float* stages = xs + 2 * 32 * 16;
+
+  const int h = blockIdx.x;
+  const int j0 = blockIdx.y * kKeys;
+  const int b = blockIdx.z;
+  const int c0 = h * dh;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int kg = warp & 1;      // key group: keys kg 16 .. kg 16 + 15 of the block
+  const int role = warp >> 1;   // 0: S^T and dV, 1: dN^T and dK
+  const int ly = lane >> 3, lx = lane & 7;
+  const int n_steps = (Tq + kF32Rows - 1) / kF32Rows;
+  const bool gvec = (Tk & 3) == 0;
+  const float* qb = q + (size_t)b * Tq * C;
+  const float* dob = dout + (size_t)b * Tq * C;
+  const float* gb = graph + (size_t)b * Tq * Tk;
+  const size_t st0 = ((size_t)b * H + h) * Tq;
+
+  auto load_step = [&](int step) {
+    float* base = stages + (step & 1) * kStageF;
+    const int r0 = step * kF32Rows;
+    f32::stage_tile<DH, kThr>(base, qb, r0, Tq, kF32Rows, C, c0, dh, true, f32::Swz<DH>());
+    f32::stage_tile<DH, kThr>(base + kF32Rows * DH, dob, r0, Tq, kF32Rows, C, c0, dh, true,
+                              f32::Swz<DH>());
+    f32::stage_tile<kKeys, kThr>(base + 2 * kF32Rows * DH, gb, r0, Tq, kF32Rows, Tk, j0,
+                                 Tk - j0, gvec, f32::Swz<kKeys>());
+    float* raw = base + 2 * kF32Rows * DH + kF32Rows * kKeys;
+    for (int i = tid; i < 4 * kF32Rows; i += kThr) {   // (m, z, b, delta) x 32 rows
+      const int which = i / kF32Rows, r = r0 + i - which * kF32Rows;
+      const float* src = which == 0 ? m_in : which == 1 ? z_in : which == 2 ? b_in : delta;
+      const bool valid = r < Tq;
+      savqa::cp_async4(raw + i, src + st0 + (valid ? r : 0), valid);
+    }
+  };
+  f32::stage_tile<DH, kThr>(Ks, k + (size_t)b * Tk * C, j0, Tk, kKeys, C, c0, dh, true,
+                            f32::Swz<DH>());
+  f32::stage_tile<DH, kThr>(Vs, v + (size_t)b * Tk * C, j0, Tk, kKeys, C, c0, dh, true,
+                            f32::Swz<DH>());
+  load_step(0);
+  savqa::cp_async_commit();
+
+  int kw[4];
+  bool masked[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    kw[i] = kg * 16 + ly + 4 * i;
+    const int key = j0 + kw[i];
+    masked[i] = key >= Tk || key_mask[(size_t)b * Tk + key] == 0.f;
+  }
+  const bool active = j0 + kg * 16 < Tk;   // the same for both warps of a pair
+  float* pt = bt + warp * kF32Rows * 16;
+  float* xp = xs + kg * 32 * 16;           // the pair's raw scores: float4 slot (i, lane)
+  float acc[4][DH / 8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < DH / 8; ++e) acc[i][e] = 0.f;
+
+  for (int step = 0; step < n_steps; ++step) {
+    savqa::cp_async_wait<0>();
+    __syncthreads();   // this step's tiles (and K, V) have landed; the other stage is free
+    if (step + 1 < n_steps) load_step(step + 1);
+    savqa::cp_async_commit();
+    if (!active) continue;
+    const float* base = stages + (step & 1) * kStageF;
+    const float* Qc = base;
+    const float* dOc = base + kF32Rows * DH;
+    const float* Gs = base + 2 * kF32Rows * DH;
+    const float* raw = Gs + kF32Rows * kKeys;
+    float x[4][4];   // [key ly + 4 i][row lx + 8 c]: S^T (role 0) or dN^T (role 1)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) x[i][c] = 0.f;
+    f32::tile_abt<DH, 4>(x, role ? Vs : Ks, kg * 16, role ? dOc : Qc, dh, ly, lx);
+    if (role == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        *reinterpret_cast<float4*>(xp + (i * 32 + lane) * 4) =
+            make_float4(x[i][0], x[i][1], x[i][2], x[i][3]);
+    }
+    pair_sync(kg);
+    float sc[4][4];   // the raw scores
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (role == 0) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) sc[i][c] = x[i][c];
+      } else {
+        const float4 r4 = *reinterpret_cast<const float4*>(xp + (i * 32 + lane) * 4);
+        sc[i][0] = r4.x, sc[i][1] = r4.y, sc[i][2] = r4.z, sc[i][3] = r4.w;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int r = lx + 8 * c;
+      const bool real = step * kF32Rows + r < Tq;
+      const RowTerms t = row_terms(raw[r], raw[kF32Rows + r], raw[2 * kF32Rows + r],
+                                   raw[3 * kF32Rows + r], renorm);   // zeros past Tq: unused
+      const float rz = 1.f / t.z, rd = 1.f / t.D;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float n, ds;
+        ds_entry_rcp(sc[i][c], role ? x[i][c] : 0.f, Gs[f32::swz<kKeys>(r, kw[i])], masked[i],
+                     t, rz, rd, scale, &n, &ds);
+        x[i][c] = real ? (role ? ds : n) : 0.f;   // n (role 0) or dS (role 1)
+      }
+    }
+    __syncwarp();   // the previous step's readers of pt are done
+    f32::store_t<4>(pt, x, ly, lx);
+    __syncwarp();
+    f32::tile_pv<DH, kF32Rows>(acc, pt, role ? Qc : dOc, ly, lx);   // dV += N^T dO, dK += dS^T Q
+  }
+  savqa::cp_async_wait<0>();
+  if (!active) return;
+  float* out = role ? dk : dv;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = j0 + kw[i];
+    if (key >= Tk) continue;
+#pragma unroll
+    for (int g = 0; g < DH / 32; ++g) {
+      const int d = 4 * lx + 32 * g;
+      if (d >= dh) continue;
+      const float* a4 = acc[i] + 4 * g;
+      *reinterpret_cast<float4*>(out + ((size_t)b * Tk + key) * C + c0 + d) =
+          make_float4(a4[0], a4[1], a4[2], a4[3]);
+    }
+  }
+}
+
+template <int DH>
+cudaError_t launch_dkv_f32_pair(const float* q, const float* k, const float* v,
+                                const float* key_mask, const float* graph, const float* m_in,
+                                const float* z_in, const float* b_in, const float* delta,
+                                const float* dout, float* dk, float* dv, int B, int Tq, int Tk,
+                                int C, int H, int renorm, float scale, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * dkv_f32_pair_smem_floats(DH);
+  auto kernel = flash_graph_attention_bwd_dkv_f32_pair_kernel<DH>;
+  static const cudaError_t attributes = f32::allow_smem(kernel, smem);
+  if (attributes != cudaSuccess) return attributes;
+  const dim3 grid(H, (Tk + kF32PairKeys - 1) / kF32PairKeys, B);
+  started(kK56F32, DH);
   kernel<<<grid, 128, smem, stream>>>(q, k, v, key_mask, graph, m_in, z_in, b_in, delta, dout,
                                       dk, dv, Tq, Tk, C, H, C / H, renorm, scale);
   return cudaGetLastError();
@@ -1190,7 +1413,8 @@ template <typename... Args>
 cudaError_t launch_dkv_f32(int dh, Args... args) {
   if (dh <= 32) return launch_dkv_f32_dh<32>(args...);
   if (dh <= 64) return launch_dkv_f32_dh<64>(args...);
-  return launch_dkv_f32_dh<128>(args...);
+  if (dh <= 128) return launch_dkv_f32_dh<128>(args...);
+  return launch_dkv_f32_pair<256>(args...);
 }
 
 // dQ = the sum of n_split f32 partials (n_split, n), added in shard order
@@ -1218,10 +1442,14 @@ cudaError_t launch_dq_sum(const float* dq_part, T* dq, int n_split, size_t n,
 
 constexpr int kDqF32Step = 32;   // keys a step
 
-// Floats of one stage: Ks, Vs (32, DH), Gs (16 WARPS, 32), the key mask
-// (32); of a block: Qs, dOs (16 WARPS, DH), two stages.
+// Keys a step of instance DH: 32, 16 at 256, where two stages of 32-key K
+// and V tiles would not fit beside 64 rows of Q and dO (f32, 128 KB).
+__host__ __device__ constexpr int dq_f32_step(int dh) { return dh > 128 ? 16 : kDqF32Step; }
+
+// Floats of one stage: Ks, Vs (step, DH), Gs (16 WARPS, step), the key mask
+// (step); of a block: Qs, dOs (16 WARPS, DH), two stages.
 __host__ __device__ constexpr int dq_f32_stage_floats(int dh, int warps) {
-  return 2 * kDqF32Step * dh + 16 * warps * kDqF32Step + kDqF32Step;
+  return 2 * dq_f32_step(dh) * dh + 16 * warps * dq_f32_step(dh) + dq_f32_step(dh);
 }
 __host__ __device__ constexpr int dq_f32_smem_floats(int dh, int warps) {
   return 2 * 16 * warps * dh + 2 * dq_f32_stage_floats(dh, warps);
@@ -1229,8 +1457,9 @@ __host__ __device__ constexpr int dq_f32_smem_floats(int dh, int warps) {
 
 // dQ of (head blockIdx.x, query tile and key shard blockIdx.y = qt n_split
 // + sp, batch blockIdx.z): 16 WARPS query rows, Q and dO staged once, the
-// shard's keys 32 a step through a two-stage ring of (K, V, graph tile, key
-// mask). Per step a lane forms S and dN for its 4 x 4 (row, key) tile by
+// shard's keys 32 (16 at instance 256: dq_f32_step) a step through a
+// two-stage ring of (K, V, graph tile, key mask). Per step a lane forms S
+// and dN for its 4 x 4 (4 x 2 at 256) (row, key) tile by
 // tile_abt, dS by ds_entry_rcp from its rows' terms (held in registers),
 // writes dS over its warp's rows of the graph tile, read by then, and adds
 // dS K through that transposed tile (store_t, tile_pv). With one shard it
@@ -1247,6 +1476,8 @@ flash_graph_attention_bwd_dq_f32_kernel(
   constexpr int kBQ = 16 * WARPS;
   constexpr int kThr = 32 * WARPS;
   constexpr int kStageF = dq_f32_stage_floats(DH, WARPS);
+  constexpr int kStepK = dq_f32_step(DH);   // keys a step
+  constexpr int kNC = kStepK / 8;           // a lane's keys of a step
   extern __shared__ __align__(16) float smem_dq[];
   float* Qs = smem_dq;
   float* dOs = Qs + kBQ * DH;
@@ -1263,7 +1494,7 @@ flash_graph_attention_bwd_dq_f32_kernel(
   const int warp = tid >> 5;
   const int ly = lane >> 3, lx = lane & 7;
   const int wrow = warp * 16;
-  const int n_steps = (Tk + kDqF32Step - 1) / kDqF32Step;
+  const int n_steps = (Tk + kStepK - 1) / kStepK;
   const int step_lo = sp * steps_per_split;
   const int step_hi = min(n_steps, step_lo + steps_per_split);
   const bool active = q0 + wrow < Tq;   // this warp holds a real row
@@ -1275,14 +1506,14 @@ flash_graph_attention_bwd_dq_f32_kernel(
 
   auto load_step = [&](int step) {
     float* base = stages + ((step - step_lo) & 1) * kStageF;
-    const int j0 = step * kDqF32Step;
-    f32::stage_tile<DH, kThr>(base, kb, j0, Tk, kDqF32Step, C, c0, dh, true, f32::Swz<DH>());
-    f32::stage_tile<DH, kThr>(base + kDqF32Step * DH, vb, j0, Tk, kDqF32Step, C, c0, dh, true,
+    const int j0 = step * kStepK;
+    f32::stage_tile<DH, kThr>(base, kb, j0, Tk, kStepK, C, c0, dh, true, f32::Swz<DH>());
+    f32::stage_tile<DH, kThr>(base + kStepK * DH, vb, j0, Tk, kStepK, C, c0, dh, true,
                               f32::Swz<DH>());
-    f32::stage_tile<kDqF32Step, kThr>(base + 2 * kDqF32Step * DH, gb, q0, Tq, kBQ, Tk, j0,
-                                      Tk - j0, gvec, f32::GSwz<kDqF32Step>());
-    float* kms = base + 2 * kDqF32Step * DH + kBQ * kDqF32Step;
-    for (int j = tid; j < kDqF32Step; j += kThr)
+    f32::stage_tile<kStepK, kThr>(base + 2 * kStepK * DH, gb, q0, Tq, kBQ, Tk, j0, Tk - j0,
+                                  gvec, f32::GSwz<kStepK>());
+    float* kms = base + 2 * kStepK * DH + kBQ * kStepK;
+    for (int j = tid; j < kStepK; j += kThr)
       savqa::cp_async4(kms + j, km + (j0 + j < Tk ? j0 + j : 0), j0 + j < Tk);
   };
   f32::stage_tile<DH, kThr>(Qs, q + (size_t)b * Tq * C, q0, Tq, kBQ, C, c0, dh, true,
@@ -1321,33 +1552,33 @@ flash_graph_attention_bwd_dq_f32_kernel(
     if (!active) continue;
     float* base = stages + ((step - step_lo) & 1) * kStageF;
     const float* Ks = base;
-    const float* Vs = base + kDqF32Step * DH;
-    float* Gs = base + 2 * kDqF32Step * DH;
-    const float* kms = Gs + kBQ * kDqF32Step;
-    float s[4][4], dn[4][4];   // [row ly + 4 i][key lx + 8 c]
+    const float* Vs = base + kStepK * DH;
+    float* Gs = base + 2 * kStepK * DH;
+    const float* kms = Gs + kBQ * kStepK;
+    float s[4][kNC], dn[4][kNC];   // [row ly + 4 i][key lx + 8 c]
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[i][c] = dn[i][c] = 0.f;
-    f32::tile_abt<DH, 4>(s, Qs, wrow, Ks, dh, ly, lx);     // S = Q K^T
-    f32::tile_abt<DH, 4>(dn, dOs, wrow, Vs, dh, ly, lx);   // dN = dO V^T
+      for (int c = 0; c < kNC; ++c) s[i][c] = dn[i][c] = 0.f;
+    f32::tile_abt<DH, kNC>(s, Qs, wrow, Ks, dh, ly, lx);     // S = Q K^T
+    f32::tile_abt<DH, kNC>(dn, dOs, wrow, Vs, dh, ly, lx);   // dN = dO V^T
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
+    for (int c = 0; c < kNC; ++c) {
       const int j = lx + 8 * c;
       const bool masked = kms[j] == 0.f;   // 0 past Tk
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         float n, ds;
-        ds_entry_rcp(s[i][c], dn[i][c], Gs[f32::gswz<kDqF32Step>(wrow + ly + 4 * i, j)], masked,
+        ds_entry_rcp(s[i][c], dn[i][c], Gs[f32::gswz<kStepK>(wrow + ly + 4 * i, j)], masked,
                      rt[i], rz[i], rd[i], scale, &n, &ds);
         s[i][c] = ds;
       }
     }
     __syncwarp();   // every lane has read its graph entries: the warp's rows take dS
-    float* pt = Gs + wrow * kDqF32Step;
-    f32::store_t<4>(pt, s, ly, lx);
+    float* pt = Gs + wrow * kStepK;
+    f32::store_t<kNC>(pt, s, ly, lx);
     __syncwarp();
-    f32::tile_pv<DH, kDqF32Step>(dqa, pt, Ks, ly, lx);   // dQ += dS K
+    f32::tile_pv<DH, kStepK>(dqa, pt, Ks, ly, lx);   // dQ += dS K
   }
   savqa::cp_async_wait<0>();
   if (!active) return;
@@ -1383,6 +1614,7 @@ cudaError_t launch_dq_f32_dh(const DqF32Args& p) {
   static const cudaError_t attributes = f32::allow_smem(kernel, smem);
   if (attributes != cudaSuccess) return attributes;
   const dim3 grid(p.H, (p.Tq + 16 * WARPS - 1) / (16 * WARPS) * p.n_split, p.B);
+  started(kK56F32, DH);
   kernel<<<grid, 32 * WARPS, smem, p.stream>>>(p.q, p.k, p.v, p.key_mask, p.graph, p.m, p.z,
                                                p.b, p.delta, p.dout, p.dq, p.scratch, p.Tq, p.Tk,
                                                p.C, p.H, p.C / p.H, p.renorm, p.scale, p.n_split,
@@ -1398,11 +1630,13 @@ cudaError_t launch_dq_f32(const DqF32Args& p, int q_tile) {
   if (q_tile == 16) {
     if (dh <= 32) return launch_dq_f32_dh<32, 1>(p);
     if (dh <= 64) return launch_dq_f32_dh<64, 1>(p);
-    return launch_dq_f32_dh<128, 1>(p);
+    if (dh <= 128) return launch_dq_f32_dh<128, 1>(p);
+    return launch_dq_f32_dh<256, 1>(p);
   }
   if (dh <= 32) return launch_dq_f32_dh<32, 4>(p);
   if (dh <= 64) return launch_dq_f32_dh<64, 4>(p);
-  return launch_dq_f32_dh<128, 4>(p);
+  if (dh <= 128) return launch_dq_f32_dh<128, 4>(p);
+  return launch_dq_f32_dh<256, 4>(p);
 }
 
 // ---- the tensor-core kernels (bf16, head width a multiple of 16) ----
@@ -1463,17 +1697,17 @@ __device__ __forceinline__ void tc_entry(float raw, float dn, float g, bool keep
 // [j0, j0 + 64) into Gs (row stride LDG), zeros past Tq and past Tk;
 // 16-byte copies when Tk is a multiple of 4 (then four adjacent entries are
 // 16-byte aligned), else 4-byte ones.
-template <int LDG>
+template <int LDG, int THREADS = kTcThreads>
 __device__ __forceinline__ void stage_graph_tile(float* Gs, const float* __restrict__ gb, int r0,
                                                  int j0, int Tq, int Tk, const float* any) {
   if ((Tk & 3) == 0) {
-    for (int i = threadIdx.x; i < kTile * (kTile / 4); i += kTcThreads) {
+    for (int i = threadIdx.x; i < kTile * (kTile / 4); i += THREADS) {
       const int r = i / (kTile / 4), j = (i - r * (kTile / 4)) * 4;
       const bool valid = r0 + r < Tq && j0 + j < Tk;
       cp_async16(Gs + r * LDG + j, valid ? gb + (size_t)(r0 + r) * Tk + j0 + j : any, valid);
     }
   } else {
-    for (int i = threadIdx.x; i < kTile * kTile; i += kTcThreads) {
+    for (int i = threadIdx.x; i < kTile * kTile; i += THREADS) {
       const int r = i / kTile, j = i - r * kTile;
       const bool valid = r0 + r < Tq && j0 + j < Tk;
       cp_async4(Gs + r * LDG + j, valid ? gb + (size_t)(r0 + r) * Tk + j0 + j : any, valid);
@@ -1810,6 +2044,410 @@ flash_graph_attention_bwd_dq_tc_kernel(
   }
 }
 
+// ---- instance 256 of the tensor-core kernels: pairs of warps ----
+//
+// At head widths 144-256 (zero-padded to 256) a warp's 16 x 256 f32
+// accumulators take 128 registers a thread: K6's dK and dV together (256)
+// and K5's dQ beside Q's and dO's fragments (128 + 128) do not fit the 255
+// a thread may hold. So a block runs 8 warps in 4 pairs, each pair owning
+// the 16 keys (K6) or 16 query rows (K5) one warp owns below 256, and the
+// two warps of a pair split the work, each holding one A operand's
+// fragments (64 registers) and 128 (K6) or 64 (K5) accumulators:
+// * K6: warp p (role 0) holds K's fragments, forms S^T = K Q^T, e and n,
+//   passes e to warp p + 4 through shared memory and adds n^T dO into dV;
+//   warp p + 4 (role 1) holds V's fragments, forms dN^T = V dO^T, takes e,
+//   forms n (the same product e g / D) and dS, and adds dS^T Q into dK.
+//   Each warp does two of the four products of a sub-step, and the n and dS
+//   of an entry are tc_entry's: the same bits as the kernel above would
+//   give. 64 query rows a step (two stages: 174 KB) and 16 a sub-step.
+// * K5: warp p holds Q's fragments and forms S = Q K^T, warp p + 4 holds
+//   dO's and forms dN = dO V^T; each passes its product to the other, both
+//   form dS (tc_entry on the same values: the same dS), and warp p adds dS
+//   K into dQ's channels 0-127, warp p + 4 into 128-255. 64 keys a step, 32
+//   a sub-step, the key split as above.
+// The pass goes through a double-buffered room of shared memory beside the
+// two stages, with one 64-thread barrier of the pair a sub-step (pair_sync);
+// a warp writes buffer i & 1 of sub-step i only after the barrier of
+// sub-step i - 1, which its partner reaches after reading sub-step i - 2's.
+// No atomics: every run gives the same bits. One block (8 warps) an SM.
+constexpr int kPairThreads = 2 * kTcThreads;
+
+template <int DH>
+__host__ __device__ constexpr int dkv_pair_smem_bytes() {   // two stages | e: 2 x 4 pairs x 32 x 8 f32
+  return 2 * dkv_stage_bytes<DH>() + 2 * 4 * 32 * 8 * 4;
+}
+
+template <int DH>
+__host__ __device__ constexpr int dq_pair_smem_bytes() {    // two stages | S, dN: 2 x 8 warps x 32 x 16 f32
+  return 2 * dq_stage_bytes<DH>() + 2 * 8 * 32 * 16 * 4;
+}
+
+// out (16 x W a warp) += W B over B's channels [col0, col0 + W): as
+// accumulate_ab (B's fragments two 8-wide blocks at a time), for a warp
+// that owns W of the DH output channels.
+template <int DH, int NB, int W>
+__device__ __forceinline__ void accumulate_ab_cols(float (&out)[W / 8][4], const float (&w)[NB][4],
+                                                   const bf16* tile, int col0, int lane,
+                                                   int n_real) {
+#pragma unroll
+  for (int kk = 0; kk < NB / 2; ++kk) {
+    if (kk * 16 >= n_real) continue;
+    uint32_t wf[4];
+    wf[0] = savqa::pack_bf16(w[2 * kk][0], w[2 * kk][1]);
+    wf[1] = savqa::pack_bf16(w[2 * kk][2], w[2 * kk][3]);
+    wf[2] = savqa::pack_bf16(w[2 * kk + 1][0], w[2 * kk + 1][1]);
+    wf[3] = savqa::pack_bf16(w[2 * kk + 1][2], w[2 * kk + 1][3]);
+#pragma unroll
+    for (int nd = 0; nd < W / 8; nd += 2) {
+      uint32_t bfr[4];
+      savqa::ldmatrix_x4_trans(bfr, savqa::frag_bt_row(tile, DH + 8, kk * 16, col0 + nd * 8, lane));
+      savqa::mma_bf16(out[nd], wf, bfr[0], bfr[1]);
+      savqa::mma_bf16(out[nd + 1], wf, bfr[2], bfr[3]);
+    }
+  }
+}
+
+// K6 at instance 256, one block of 8 warps per (head, 64 keys, batch).
+template <int DH>
+__global__ void __launch_bounds__(kPairThreads, 1)
+flash_graph_attention_bwd_dkv_tc_pair_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const float* __restrict__ key_mask, const float* __restrict__ graph,
+    const float* __restrict__ m_in, const float* __restrict__ z_in,
+    const float* __restrict__ b_in, const float* __restrict__ delta,
+    const bf16* __restrict__ dout, bf16* __restrict__ dk, bf16* __restrict__ dv, int Tq, int Tk,
+    int C, int H, int dh, int renorm, float scale) {
+  constexpr int kLd = DH + 8;
+  constexpr int kKD = DH / 16;
+  constexpr int kND = DH / 8;
+  constexpr int kLdG = kTile + 4;
+  constexpr int kStage = dkv_stage_bytes<DH>();
+  constexpr int kNSub = kDkvSub / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+
+  const int h = blockIdx.x;
+  const int j0 = blockIdx.y * kTile;
+  const int b = blockIdx.z;
+  const int c0 = h * dh;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int pair = warp & 3;    // keys pair 16 .. pair 16 + 15 of the block
+  const int role = warp >> 2;   // 0: S^T, e, n and dV; 1: dN^T, dS and dK
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int key_a = j0 + pair * 16 + g;
+  const int key_b = key_a + 8;
+  const bool active = j0 + pair * 16 < Tk;
+  const bool keep_a = key_a < Tk && key_mask[(size_t)b * Tk + key_a] != 0.f;
+  const bool keep_b = key_b < Tk && key_mask[(size_t)b * Tk + key_b] != 0.f;
+  const float scale2 = scale * kLog2e;
+  const int n_steps = (Tq + kTile - 1) / kTile;
+
+  const bf16* qb = q + (size_t)b * Tq * C;
+  const bf16* dob = dout + (size_t)b * Tq * C;
+  const float* gb = graph + (size_t)b * Tq * Tk;
+  const size_t stat0 = ((size_t)b * H + h) * Tq;
+
+  auto load_step = [&](int step) {
+    unsigned char* base = smem_raw + (step & 1) * kStage;
+    const int r0 = step * kTile;
+    bf16* Qc = reinterpret_cast<bf16*>(base);
+    stage_head_tile<DH, kPairThreads>(Qc, qb, r0, Tq, kTile, C, c0, dh);
+    stage_head_tile<DH, kPairThreads>(Qc + kTile * kLd, dob, r0, Tq, kTile, C, c0, dh);
+    stage_graph_tile<kLdG, kPairThreads>(reinterpret_cast<float*>(Qc + 2 * kTile * kLd), gb, r0,
+                                         j0, Tq, Tk, graph);
+  };
+  auto terms_of = [&](int step) {
+    return reinterpret_cast<TcRowTerms*>(smem_raw + (step & 1) * kStage + 2 * kTile * kLd * 2 +
+                                         kTile * kLdG * 4);
+  };
+  float row_m = 0.f, row_z = 1.f, row_b = 1.f, row_delta = 0.f;
+  auto load_row_stats = [&](int step) {
+    const int r = step * kTile + tid;
+    if (tid < kTile && r < Tq) {
+      row_m = m_in[stat0 + r];
+      row_z = z_in[stat0 + r];
+      row_b = b_in[stat0 + r];
+      row_delta = delta[stat0 + r];
+    } else {
+      row_m = 0.f, row_z = 1.f, row_b = 1.f, row_delta = 0.f;
+    }
+  };
+  auto store_terms = [&](int step) {
+    if (tid < kTile) terms_of(step)[tid] = tc_row_terms(row_m, row_z, row_b, row_delta, renorm);
+  };
+
+  bf16* KVs = reinterpret_cast<bf16*>(smem_raw + kStage);
+  stage_head_tile<DH, kPairThreads>(KVs, k + (size_t)b * Tk * C, j0, Tk, kTile, C, c0, dh);
+  stage_head_tile<DH, kPairThreads>(KVs + kTile * kLd, v + (size_t)b * Tk * C, j0, Tk, kTile, C,
+                                    c0, dh);
+  load_step(0);
+  cp_async_commit();
+  load_row_stats(0);
+  store_terms(0);
+  cp_async_wait<0>();
+  __syncthreads();   // K, V, the first step's tiles and its terms have landed
+  uint32_t af[kKD][4];   // K's (role 0) or V's (role 1) 16 keys
+  if (active) {
+#pragma unroll
+    for (int kd = 0; kd < kKD; ++kd)
+      ldmatrix_x4(af[kd], frag_a_row(KVs + role * kTile * kLd, kLd, pair * 16, kd * 16, lane));
+  }
+  float acc[kND][4];   // dV (role 0) or dK (role 1)
+#pragma unroll
+  for (int i = 0; i < kND; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  float* xroom = reinterpret_cast<float*>(smem_raw + 2 * kStage);
+  int xsub = 0;   // sub-steps passed: the exchange buffer is xsub & 1
+
+  for (int step = 0; step < n_steps; ++step) {
+    cp_async_wait<0>();
+    __syncthreads();   // this step's tiles and terms have landed; the other stage is free
+    const bool more = step + 1 < n_steps;
+    if (more) load_step(step + 1);
+    cp_async_commit();
+    if (more) load_row_stats(step + 1);
+    if (active) {
+      const unsigned char* base = smem_raw + (step & 1) * kStage;
+      const bf16* Qc = reinterpret_cast<const bf16*>(base);
+      const bf16* dOc = Qc + kTile * kLd;
+      const float* g_col = reinterpret_cast<const float*>(dOc + kTile * kLd) + pair * 16 + g;
+      const TcRowTerms* terms = terms_of(step);
+      const int nr = Tq - step * kTile;
+#pragma unroll
+      for (int sub = 0; sub < kTile / kDkvSub; ++sub) {
+        const int h0 = sub * kDkvSub;
+        if (h0 >= nr) continue;   // both warps of a pair alike
+        const bf16* Qh = Qc + h0 * kLd;
+        const bf16* dOh = dOc + h0 * kLd;
+        float x[kNSub][4];
+        product_abt<DH, kNSub>(x, af, role ? dOh : Qh, lane, nr - h0);
+        float* xp = xroom + ((xsub & 1) * 4 + pair) * 32 * 8 + lane * 4;
+        ++xsub;
+        if (role == 0) {
+          float ev[kNSub][4];
+#pragma unroll
+          for (int nb = 0; nb < kNSub; ++nb) {
+#pragma unroll
+            for (int cc = 0; cc < 2; ++cc) {
+              const int r = h0 + nb * 8 + 2 * t + cc;
+              if (r >= nr) {
+                x[nb][cc] = x[nb][cc + 2] = ev[nb][cc] = ev[nb][cc + 2] = 0.f;
+                continue;
+              }
+              const TcRowTerms rt = terms[r];
+              ev[nb][cc] = fast_exp2(keep_a ? fmaf(x[nb][cc], scale2, -rt.m2) : rt.fill2);
+              ev[nb][cc + 2] = fast_exp2(keep_b ? fmaf(x[nb][cc + 2], scale2, -rt.m2) : rt.fill2);
+              x[nb][cc] = ev[nb][cc] * g_col[r * kLdG] * rt.inv_d;
+              x[nb][cc + 2] = ev[nb][cc + 2] * g_col[r * kLdG + 8] * rt.inv_d;
+            }
+          }
+#pragma unroll
+          for (int nb = 0; nb < kNSub; ++nb)
+            *reinterpret_cast<float4*>(xp + nb * 32 * 4) =
+                make_float4(ev[nb][0], ev[nb][1], ev[nb][2], ev[nb][3]);
+        }
+        pair_sync(pair);
+        if (role == 1) {
+#pragma unroll
+          for (int nb = 0; nb < kNSub; ++nb) {
+            const float4 e4 = *reinterpret_cast<const float4*>(xp + nb * 32 * 4);
+            const float ev[4] = {e4.x, e4.y, e4.z, e4.w};
+#pragma unroll
+            for (int cc = 0; cc < 2; ++cc) {
+              const int r = h0 + nb * 8 + 2 * t + cc;
+              if (r >= nr) {
+                x[nb][cc] = x[nb][cc + 2] = 0.f;
+                continue;
+              }
+              const TcRowTerms rt = terms[r];
+              const float n_a = ev[cc] * g_col[r * kLdG] * rt.inv_d;
+              const float n_b = ev[cc + 2] * g_col[r * kLdG + 8] * rt.inv_d;
+              x[nb][cc] = keep_a ? (n_a * (x[nb][cc] - rt.c1) - ev[cc] * rt.c2_z) * scale : 0.f;
+              x[nb][cc + 2] =
+                  keep_b ? (n_b * (x[nb][cc + 2] - rt.c1) - ev[cc + 2] * rt.c2_z) * scale : 0.f;
+            }
+          }
+        }
+        accumulate_ab<DH, kNSub>(acc, x, role ? Qh : dOh, lane, nr - h0);   // dV += n^T dO, dK += dS^T Q
+      }
+    }
+    if (more) store_terms(step + 1);
+  }
+  cp_async_wait<0>();
+  if (!active) return;
+  bf16* out = role ? dk : dv;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = half == 0 ? key_a : key_b;
+    if (key >= Tk) continue;
+#pragma unroll
+    for (int i = 0; i < kND; ++i) {
+      const int d = i * 8 + 2 * t;
+      if (d >= dh) continue;
+      *reinterpret_cast<__nv_bfloat162*>(out + ((size_t)b * Tk + key) * C + c0 + d) =
+          __floats2bfloat162_rn(acc[i][2 * half], acc[i][2 * half + 1]);
+    }
+  }
+}
+
+// K5 at instance 256, one block of 8 warps per (head, 64 query rows x key
+// shard, batch); the split and the partials as the kernel above.
+template <int DH>
+__global__ void __launch_bounds__(kPairThreads, 1)
+flash_graph_attention_bwd_dq_tc_pair_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const float* __restrict__ key_mask, const float* __restrict__ graph,
+    const float* __restrict__ m_in, const float* __restrict__ z_in,
+    const float* __restrict__ b_in, const float* __restrict__ delta,
+    const bf16* __restrict__ dout, bf16* __restrict__ dq, float* __restrict__ dq_part, int Tq,
+    int Tk, int C, int H, int dh, int renorm, float scale, int n_split, int steps_per_split) {
+  constexpr int kLd = DH + 8;
+  constexpr int kKD = DH / 16;
+  constexpr int kHalf = DH / 2;   // dQ's channels a warp
+  constexpr int kLdG = kTile + 8;
+  constexpr int kStage = dq_stage_bytes<DH>();
+  constexpr int kNSub = kDqSub / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+
+  const int h = blockIdx.x;
+  const int qt = blockIdx.y / n_split;
+  const int sp = blockIdx.y - qt * n_split;
+  const int b = blockIdx.z;
+  const int q0 = qt * kTile;
+  const int c0 = h * dh;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int pair = warp & 3;    // query rows pair 16 .. pair 16 + 15 of the block
+  const int role = warp >> 2;   // 0: S and dQ's first half, 1: dN and its second
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int n_steps = (Tk + kTile - 1) / kTile;
+  const int step_lo = sp * steps_per_split;
+  const int step_hi = min(n_steps, step_lo + steps_per_split);
+  const bool active = q0 + pair * 16 < Tq;
+  const int row_a = q0 + pair * 16 + g;
+  const int row_b = row_a + 8;
+  const float scale2 = scale * kLog2e;
+
+  const bf16* kb = k + (size_t)b * Tk * C;
+  const bf16* vb = v + (size_t)b * Tk * C;
+  const float* km = key_mask + (size_t)b * Tk;
+  const float* gb = graph + (size_t)b * Tq * Tk;
+
+  auto load_step = [&](int step) {
+    unsigned char* base = smem_raw + ((step - step_lo) & 1) * kStage;
+    const int j0 = step * kTile;
+    bf16* Ks = reinterpret_cast<bf16*>(base);
+    stage_head_tile<DH, kPairThreads>(Ks, kb, j0, Tk, kTile, C, c0, dh);
+    stage_head_tile<DH, kPairThreads>(Ks + kTile * kLd, vb, j0, Tk, kTile, C, c0, dh);
+    float* Gs = reinterpret_cast<float*>(Ks + 2 * kTile * kLd);
+    stage_graph_tile<kLdG, kPairThreads>(Gs, gb, q0, j0, Tq, Tk, graph);
+    float* kms = Gs + kTile * kLdG;
+    for (int j = tid; j < kTile; j += kPairThreads)
+      cp_async4(kms + j, km + (j0 + j < Tk ? j0 + j : 0), j0 + j < Tk);
+  };
+
+  bf16* QDs = reinterpret_cast<bf16*>(smem_raw + kStage);
+  stage_head_tile<DH, kPairThreads>(QDs, q + (size_t)b * Tq * C, q0, Tq, kTile, C, c0, dh);
+  stage_head_tile<DH, kPairThreads>(QDs + kTile * kLd, dout + (size_t)b * Tq * C, q0, Tq, kTile,
+                                    C, c0, dh);
+  if (step_lo < step_hi) load_step(step_lo);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();   // Q, dO and the first step's tiles have landed
+  uint32_t af[kKD][4];   // Q's (role 0) or dO's (role 1) 16 rows
+  if (active) {
+#pragma unroll
+    for (int kd = 0; kd < kKD; ++kd)
+      ldmatrix_x4(af[kd], frag_a_row(QDs + role * kTile * kLd, kLd, pair * 16, kd * 16, lane));
+  }
+  TcRowTerms rt[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = half == 0 ? row_a : row_b;
+    const size_t at = ((size_t)b * H + h) * Tq + (row < Tq ? row : 0);
+    rt[half] = tc_row_terms(m_in[at], z_in[at], b_in[at], delta[at], renorm);
+  }
+  float acc[kHalf / 8][4];
+#pragma unroll
+  for (int i = 0; i < kHalf / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  float* xroom = reinterpret_cast<float*>(smem_raw + 2 * kStage);
+  int xsub = 0;
+
+  for (int step = step_lo; step < step_hi; ++step) {
+    cp_async_wait<0>();
+    __syncthreads();   // this step's tiles have landed; the other stage is free
+    if (step + 1 < step_hi) load_step(step + 1);
+    cp_async_commit();
+    if (!active) continue;
+    const unsigned char* base = smem_raw + ((step - step_lo) & 1) * kStage;
+    const bf16* Ks = reinterpret_cast<const bf16*>(base);
+    const bf16* Vs = Ks + kTile * kLd;
+    const float* Gs = reinterpret_cast<const float*>(Vs + kTile * kLd);
+    const float* kmask = Gs + kTile * kLdG;
+    const float* g_a = Gs + (pair * 16 + g) * kLdG;
+    const float* g_b = g_a + 8 * kLdG;
+#pragma unroll
+    for (int sub = 0; sub < kTile / kDqSub; ++sub) {
+      const int k0 = sub * kDqSub;
+      float x[kNSub][4], y[kNSub][4];   // this warp's product (S or dN), its partner's
+      product_abt<DH, kNSub>(x, af, (role ? Vs : Ks) + k0 * kLd, lane, kDqSub);
+      float* room = xroom + (xsub & 1) * 8 * 32 * 16;
+      ++xsub;
+      float* mine = room + warp * 32 * 16 + lane * 4;
+      const float* theirs = room + (warp ^ 4) * 32 * 16 + lane * 4;
+#pragma unroll
+      for (int nb = 0; nb < kNSub; ++nb)
+        *reinterpret_cast<float4*>(mine + nb * 32 * 4) =
+            make_float4(x[nb][0], x[nb][1], x[nb][2], x[nb][3]);
+      pair_sync(pair);
+#pragma unroll
+      for (int nb = 0; nb < kNSub; ++nb) {
+        const float4 y4 = *reinterpret_cast<const float4*>(theirs + nb * 32 * 4);
+        y[nb][0] = y4.x, y[nb][1] = y4.y, y[nb][2] = y4.z, y[nb][3] = y4.w;
+      }
+#pragma unroll
+      for (int nb = 0; nb < kNSub; ++nb) {
+        const int jl = k0 + nb * 8 + 2 * t;
+        const float2 kmv = *reinterpret_cast<const float2*>(kmask + jl);
+        const float2 ga = *reinterpret_cast<const float2*>(g_a + jl);
+        const float2 gbv = *reinterpret_cast<const float2*>(g_b + jl);
+        const float gr[4] = {ga.x, ga.y, gbv.x, gbv.y};
+        const bool keep[2] = {kmv.x != 0.f, kmv.y != 0.f};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float n;
+          const float sv = role ? y[nb][c] : x[nb][c], dnv = role ? x[nb][c] : y[nb][c];
+          tc_entry(sv, dnv, gr[c], keep[c & 1], rt[c >> 1], scale2, scale, n, x[nb][c]);
+        }
+      }
+      accumulate_ab_cols<DH, kNSub, kHalf>(acc, x, Ks + k0 * kLd, role * kHalf, lane,
+                                           kDqSub);   // dQ += dS K, this warp's channels
+    }
+  }
+  cp_async_wait<0>();
+  if (!active) return;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = half == 0 ? row_a : row_b;
+    if (row >= Tq) continue;
+#pragma unroll
+    for (int i = 0; i < kHalf / 8; ++i) {
+      const int d = role * kHalf + i * 8 + 2 * t;
+      if (d >= dh) continue;
+      const float x = acc[i][2 * half], y = acc[i][2 * half + 1];
+      const size_t at = ((size_t)b * Tq + row) * C + c0 + d;
+      if (n_split > 1)
+        *reinterpret_cast<float2*>(dq_part + (size_t)sp * gridDim.z * Tq * C + at) =
+            make_float2(x, y);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(dq + at) = __floats2bfloat162_rn(x, y);
+    }
+  }
+}
+
 struct TcArgs {
   const bf16 *q, *k, *v, *dout;
   const float *key_mask, *graph, *m, *z, *b, *delta;
@@ -1827,6 +2465,7 @@ cudaError_t launch_dkv_tc(const TcArgs& p) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(p.H, (p.Tk + kTile - 1) / kTile, p.B);
+  started(kK56Tc, DH);
   kernel<<<grid, kTcThreads, smem, p.stream>>>(p.q, p.k, p.v, p.key_mask, p.graph, p.m, p.z, p.b,
                                                p.delta, p.dout, p.dk, p.dv, p.Tq, p.Tk, p.C, p.H,
                                                p.C / p.H, p.renorm, p.scale);
@@ -1840,10 +2479,42 @@ cudaError_t launch_dq_tc(const TcArgs& p) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(p.H, (p.Tq + kTile - 1) / kTile * p.n_split, p.B);
+  started(kK56Tc, DH);
   kernel<<<grid, kTcThreads, smem, p.stream>>>(p.q, p.k, p.v, p.key_mask, p.graph, p.m, p.z, p.b,
                                                p.delta, p.dout, p.dq, p.scratch, p.Tq, p.Tk, p.C,
                                                p.H, p.C / p.H, p.renorm, p.scale, p.n_split,
                                                p.steps_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || p.n_split == 1) return err;
+  return launch_dq_sum<bf16>(p.scratch, p.dq, p.n_split, (size_t)p.B * p.Tq * p.C, p.stream);
+}
+
+template <int DH>
+cudaError_t launch_dkv_tc_pair(const TcArgs& p) {
+  const int smem = dkv_pair_smem_bytes<DH>();
+  auto kernel = flash_graph_attention_bwd_dkv_tc_pair_kernel<DH>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.H, (p.Tk + kTile - 1) / kTile, p.B);
+  started(kK56Tc, DH);
+  kernel<<<grid, kPairThreads, smem, p.stream>>>(p.q, p.k, p.v, p.key_mask, p.graph, p.m, p.z,
+                                                 p.b, p.delta, p.dout, p.dk, p.dv, p.Tq, p.Tk,
+                                                 p.C, p.H, p.C / p.H, p.renorm, p.scale);
+  return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t launch_dq_tc_pair(const TcArgs& p) {
+  const int smem = dq_pair_smem_bytes<DH>();
+  auto kernel = flash_graph_attention_bwd_dq_tc_pair_kernel<DH>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.H, (p.Tq + kTile - 1) / kTile * p.n_split, p.B);
+  started(kK56Tc, DH);
+  kernel<<<grid, kPairThreads, smem, p.stream>>>(p.q, p.k, p.v, p.key_mask, p.graph, p.m, p.z,
+                                                 p.b, p.delta, p.dout, p.dq, p.scratch, p.Tq,
+                                                 p.Tk, p.C, p.H, p.C / p.H, p.renorm, p.scale,
+                                                 p.n_split, p.steps_per_split);
   err = cudaGetLastError();
   if (err != cudaSuccess || p.n_split == 1) return err;
   return launch_dq_sum<bf16>(p.scratch, p.dq, p.n_split, (size_t)p.B * p.Tq * p.C, p.stream);
@@ -1854,7 +2525,8 @@ cudaError_t launch_dkv_tc_dh(const TcArgs& p) {
   if (dh <= 16) return launch_dkv_tc<16>(p);
   if (dh <= 32) return launch_dkv_tc<32>(p);
   if (dh <= 64) return launch_dkv_tc<64>(p);
-  return launch_dkv_tc<128>(p);
+  if (dh <= 128) return launch_dkv_tc<128>(p);
+  return launch_dkv_tc_pair<256>(p);
 }
 
 cudaError_t launch_dq_tc_dh(const TcArgs& p) {
@@ -1862,7 +2534,8 @@ cudaError_t launch_dq_tc_dh(const TcArgs& p) {
   if (dh <= 16) return launch_dq_tc<16>(p);
   if (dh <= 32) return launch_dq_tc<32>(p);
   if (dh <= 64) return launch_dq_tc<64>(p);
-  return launch_dq_tc<128>(p);
+  if (dh <= 128) return launch_dq_tc<128>(p);
+  return launch_dq_tc_pair<256>(p);
 }
 
 bool bad_shape(int B, int Tq, int Tk, int C, int H, int renorm) {
@@ -1870,8 +2543,9 @@ bool bad_shape(int B, int Tq, int Tk, int C, int H, int renorm) {
 }
 
 // The kernels of a call: the tensor-core ones (bf16, a head width that is a
-// multiple of 16 up to 128), the f32 ones (f32, a multiple of 4 up to 128),
-// else the first SIMT kernels.
+// multiple of 16 up to 256; the pair kernels above 128), the f32 ones (f32,
+// a multiple of 4 up to 256; K6's pair kernel above 128), else the first
+// SIMT kernels (the wide ones above 256).
 bool tensor_cores(int dtype, int C, int H) {
   return dtype == 1 && (C / H) % 16 == 0 && C / H <= kTcMaxDh;
 }
@@ -1887,13 +2561,43 @@ bool bad_dq_path(int dtype, int Tk, int C, int H, int path, int q_tile, int n_sp
   if (path == 1 && !tensor_cores(dtype, C, H)) return true;
   if (path == 2 && (!f32_kernels(dtype, C, H) || (q_tile != 16 && q_tile != 64))) return true;
   if (path != 1 && path != 2) return true;
-  const int step = path == 1 ? kTile : kDqF32Step;
+  const int step = path == 1 ? kTile : dq_f32_step(C / H);
   const int n_steps = (Tk + step - 1) / step;
   return n_split < 1 || steps_per_split < 1 || (n_split - 1) * steps_per_split >= n_steps ||
          n_split * steps_per_split < n_steps || (n_split > 1 && scratch == nullptr);
 }
 
+// The kernel and instance this thread's last call of each entry launched
+// (-1 before any): [0] K5's, [1] K6's.
+thread_local int last_path[2] = {-1, -1};
+thread_local int last_width[2] = {-1, -1};
+
+// Keeps what the launcher noted (started) for a launch that succeeded; an
+// entry clears the note before it calls its launcher.
+int launched(int entry, cudaError_t err) {
+  if (err == cudaSuccess && started_width >= 0) {
+    last_path[entry] = started_path;
+    last_width[entry] = started_width;
+  }
+  return (int)err;
+}
+
 }  // namespace
+
+// The kernel that this thread's last call of savqa_flash_graph_attention_bwd_dq
+// (entry 0) or _dkv (entry 1) launched, as its launcher noted it: 0 simt, 1
+// wide, 2 tensor-core, 3 f32; -1 before any or for another entry. The
+// wrappers count launches by it.
+extern "C" int savqa_flash_graph_attention_bwd_last_path(int entry) {
+  return entry == 0 || entry == 1 ? last_path[entry] : -1;
+}
+
+// The head-width instance of that launch: 16-256 (the first SIMT and the
+// tiled kernels; 256 the pair kernels), 0 for the wide kernels; -1 before
+// any or for another entry. The wrappers hold it to the shape's plan.
+extern "C" int savqa_flash_graph_attention_bwd_last_width(int entry) {
+  return entry == 0 || entry == 1 ? last_width[entry] : -1;
+}
 
 // dtype: 0 = float32, 1 = bfloat16. renorm: 0 = l1, 1 = sum_eps.
 // q, dout, dq (B, Tq, C) and k, v, dk, dv (B, Tk, C) in that type; key_mask
@@ -1903,9 +2607,10 @@ bool bad_dq_path(int dtype, int Tk, int C, int H, int path, int q_tile, int n_sp
 // K5's path: 0 = the first SIMT kernel (either type, head widths up to 256,
 // one shard); 3 = the wide kernel (either type, head widths above 256, one
 // shard); 1 = the tensor-core kernel (bf16 with a head width that is a
-// multiple of 16 up to 128); 2 = the f32 kernel (f32 with a head width that
-// is a multiple of 4 up to 128, q_tile = 16 or 64 query rows a block). Paths 1 and 2
-// split the key steps (64 keys each on path 1, 32 on path 2) into n_split
+// multiple of 16 up to 256); 2 = the f32 kernel (f32 with a head width that
+// is a multiple of 4 up to 256, q_tile = 16 or 64 query rows a block). Paths 1 and 2
+// split the key steps (64 keys each on path 1, 32 on path 2, 16 there above
+// head width 128) into n_split
 // shards of steps_per_split steps, none of them empty; with n_split > 1
 // scratch (n_split, B, Tq, C) f32 holds the partials between their two
 // launches. q_tile is read on path 2 only.
@@ -1917,6 +2622,7 @@ extern "C" int savqa_flash_graph_attention_bwd_dq(
   if (bad_shape(B, Tq, Tk, C, H, renorm) ||
       bad_dq_path(dtype, Tk, C, H, path, q_tile, n_split, steps_per_split, scratch))
     return (int)cudaErrorInvalidValue;
+  started(kK56Simt, -1);
   const auto* km = static_cast<const float*>(key_mask);
   const auto* g = static_cast<const float*>(graph);
   const auto* mi = static_cast<const float*>(m_in);
@@ -1930,7 +2636,7 @@ extern "C" int savqa_flash_graph_attention_bwd_dq(
                    bi, de, static_cast<bf16*>(dq), nullptr, nullptr,
                    static_cast<float*>(scratch), B, Tq, Tk, C, H, renorm, n_split,
                    steps_per_split, scale, s};
-    return (int)launch_dq_tc_dh(p);
+    return launched(0, launch_dq_tc_dh(p));
   }
   if (path == 2) {
     const DqF32Args p{static_cast<const float*>(q), static_cast<const float*>(k),
@@ -1938,32 +2644,33 @@ extern "C" int savqa_flash_graph_attention_bwd_dq(
                       static_cast<const float*>(dout), static_cast<float*>(dq),
                       static_cast<float*>(scratch), B, Tq, Tk, C, H, renorm, n_split,
                       steps_per_split, scale, s};
-    return (int)launch_dq_f32(p, q_tile);
+    return launched(0, launch_dq_f32(p, q_tile));
   }
   if (path == 3) {
     if (dtype == 0)
-      return (int)launch_dq_wide<float>(q, k, v, km, g, mi, zi, bi, de, dout, dq, B, Tq, Tk, C,
-                                        H, renorm, scale, s);
-    return (int)launch_dq_wide<__nv_bfloat16>(q, k, v, km, g, mi, zi, bi, de, dout, dq, B, Tq,
-                                              Tk, C, H, renorm, scale, s);
+      return launched(0, launch_dq_wide<float>(q, k, v, km, g, mi, zi, bi, de, dout, dq, B, Tq,
+                                               Tk, C, H, renorm, scale, s));
+    return launched(0, launch_dq_wide<__nv_bfloat16>(q, k, v, km, g, mi, zi, bi, de, dout, dq, B,
+                                                     Tq, Tk, C, H, renorm, scale, s));
   }
   if (dtype == 0)
-    return (int)launch_dq<float>(C / H, q, k, v, km, g, mi, zi, bi, de, dout, dq, B, Tq, Tk, C,
-                                 H, renorm, scale, s);
-  return (int)launch_dq<__nv_bfloat16>(C / H, q, k, v, km, g, mi, zi, bi, de, dout, dq, B, Tq,
-                                       Tk, C, H, renorm, scale, s);
+    return launched(0, launch_dq<float>(C / H, q, k, v, km, g, mi, zi, bi, de, dout, dq, B, Tq,
+                                        Tk, C, H, renorm, scale, s));
+  return launched(0, launch_dq<__nv_bfloat16>(C / H, q, k, v, km, g, mi, zi, bi, de, dout, dq, B,
+                                              Tq, Tk, C, H, renorm, scale, s));
 }
 
-// K6: bf16 with a head width that is a multiple of 16 up to 128 takes the
-// tensor-core kernel, f32 with a multiple of 4 up to 128 its register-tiled
-// kernel, head widths above 256 the wide kernel, every other call the SIMT
-// kernel.
+// K6: bf16 with a head width that is a multiple of 16 up to 256 takes the
+// tensor-core kernel (the pair kernel above 128), f32 with a multiple of 4
+// up to 256 its register-tiled kernel (the pair kernel above 128), head
+// widths above 256 the wide kernel, every other call the SIMT kernel.
 extern "C" int savqa_flash_graph_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* key_mask, const void* graph,
     const void* m_in, const void* z_in, const void* b_in, const void* delta, const void* dout,
     void* dk, void* dv, int B, int Tq, int Tk, int C, int H, int renorm, int dtype, float scale,
     void* stream) {
   if (bad_shape(B, Tq, Tk, C, H, renorm)) return (int)cudaErrorInvalidValue;
+  started(kK56Simt, -1);
   const auto* km = static_cast<const float*>(key_mask);
   const auto* g = static_cast<const float*>(graph);
   const auto* mi = static_cast<const float*>(m_in);
@@ -1971,32 +2678,30 @@ extern "C" int savqa_flash_graph_attention_bwd_dkv(
   const auto* bi = static_cast<const float*>(b_in);
   const auto* de = static_cast<const float*>(delta);
   auto s = static_cast<cudaStream_t>(stream);
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   if (C / H > kMaxDh) {
     if (dtype == 0)
-      return (int)launch_dkv_wide<float>(q, k, v, km, g, mi, zi, bi, de, dout, dk, dv, B, Tq,
-                                         Tk, C, H, renorm, scale, s);
-    if (dtype == 1)
-      return (int)launch_dkv_wide<__nv_bfloat16>(q, k, v, km, g, mi, zi, bi, de, dout, dk, dv,
-                                                 B, Tq, Tk, C, H, renorm, scale, s);
-    return (int)cudaErrorInvalidValue;
+      return launched(1, launch_dkv_wide<float>(q, k, v, km, g, mi, zi, bi, de, dout, dk, dv, B,
+                                                Tq, Tk, C, H, renorm, scale, s));
+    return launched(1, launch_dkv_wide<__nv_bfloat16>(q, k, v, km, g, mi, zi, bi, de, dout, dk,
+                                                      dv, B, Tq, Tk, C, H, renorm, scale, s));
   }
   if (tensor_cores(dtype, C, H)) {
     const TcArgs p{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                    static_cast<const bf16*>(v), static_cast<const bf16*>(dout), km, g, mi, zi,
                    bi, de, nullptr, static_cast<bf16*>(dk), static_cast<bf16*>(dv), nullptr, B,
                    Tq, Tk, C, H, renorm, 1, 1, scale, s};
-    return (int)launch_dkv_tc_dh(p);
+    return launched(1, launch_dkv_tc_dh(p));
   }
   if (f32_kernels(dtype, C, H))
-    return (int)launch_dkv_f32(C / H, static_cast<const float*>(q), static_cast<const float*>(k),
-                               static_cast<const float*>(v), km, g, mi, zi, bi, de,
-                               static_cast<const float*>(dout), static_cast<float*>(dk),
-                               static_cast<float*>(dv), B, Tq, Tk, C, H, renorm, scale, s);
+    return launched(1, launch_dkv_f32(C / H, static_cast<const float*>(q),
+                                      static_cast<const float*>(k), static_cast<const float*>(v),
+                                      km, g, mi, zi, bi, de, static_cast<const float*>(dout),
+                                      static_cast<float*>(dk), static_cast<float*>(dv), B, Tq,
+                                      Tk, C, H, renorm, scale, s));
   if (dtype == 0)
-    return (int)launch_dkv<float>(C / H, q, k, v, km, g, mi, zi, bi, de, dout, dk, dv, B, Tq,
-                                  Tk, C, H, renorm, scale, s);
-  if (dtype == 1)
-    return (int)launch_dkv<__nv_bfloat16>(C / H, q, k, v, km, g, mi, zi, bi, de, dout, dk, dv,
-                                          B, Tq, Tk, C, H, renorm, scale, s);
-  return (int)cudaErrorInvalidValue;
+    return launched(1, launch_dkv<float>(C / H, q, k, v, km, g, mi, zi, bi, de, dout, dk, dv, B,
+                                         Tq, Tk, C, H, renorm, scale, s));
+  return launched(1, launch_dkv<__nv_bfloat16>(C / H, q, k, v, km, g, mi, zi, bi, de, dout, dk,
+                                               dv, B, Tq, Tk, C, H, renorm, scale, s));
 }

@@ -286,8 +286,9 @@ __global__ void __launch_bounds__(NW * 32, DH <= 64 ? 3 : 1)
 graph_attention_ln_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                              const bf16* __restrict__ v, const float* __restrict__ key_mask,
                              const float* __restrict__ query_mask,
-                             const float* __restrict__ graph, float* __restrict__ o, int Tq,
-                             int Tk, int C, int dh, int renorm, float scale) {
+                             const float* __restrict__ graph, float* __restrict__ o,
+                             float* __restrict__ stats, int Tq, int Tk, int C, int dh, int renorm,
+                             float scale) {
   constexpr int kThreadsTc = NW * 32;
   constexpr int kRowsTc = NW * 16;
   constexpr int kLd = DH + 8;
@@ -431,9 +432,26 @@ graph_attention_ln_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict_
   });
   float iz_a = 0.f, iz_b = 0.f, c1_a = 0.f, c1_b = 0.f;
   if (active) {
-    iz_a = 1.f / quad_sum(z_a);
-    iz_b = 1.f / quad_sum(z_b);
-    const float rs_a = quad_sum(b_a) * iz_a, rs_b = quad_sum(b_b) * iz_b;   // sum of P graph
+    const float zs_a = quad_sum(z_a), zs_b = quad_sum(z_b);
+    const float bs_a = quad_sum(b_a), bs_b = quad_sum(b_b);
+    if (stats != nullptr && t == 0) {
+      // pass A's m, z, b as K4 gives them (K2's composed route hands them to
+      // K5 and K6): m in natural units, exactly the fill where every key is
+      // masked (m = fill, whose e are all 1)
+      const size_t n = (size_t)gridDim.z * gridDim.x * Tq;
+      const size_t at = ((size_t)b * gridDim.x + blockIdx.x) * Tq + row0 + lrow_a;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        if (!(half == 0 ? real_a : real_b)) continue;
+        const float m2 = half == 0 ? m_a : m_b;
+        stats[at + 8 * half] = m2 == kNegMask ? kNegMask : m2 / kLog2e;
+        stats[n + at + 8 * half] = half == 0 ? zs_a : zs_b;
+        stats[2 * n + at + 8 * half] = half == 0 ? bs_a : bs_b;
+      }
+    }
+    iz_a = 1.f / zs_a;
+    iz_b = 1.f / zs_b;
+    const float rs_a = bs_a * iz_a, rs_b = bs_b * iz_b;   // sum of P graph
     const float r_a = renorm == 0 ? fmaxf(rs_a, kL1Eps) : rs_a + kSumEps;
     const float r_b = renorm == 0 ? fmaxf(rs_b, kL1Eps) : rs_b + kSumEps;
     c1_a = qm_a / r_a;
@@ -554,9 +572,9 @@ graph_attention_ln_epilogue_kernel(const float* __restrict__ o, const T* __restr
 template <int DH, int NW>
 cudaError_t launch_tc_dh(const bf16* q, const bf16* k, const bf16* v, const float* key_mask,
                          const float* query_mask, const float* graph, const bf16* residual,
-                         const float* gamma, const float* beta, bf16* out, float* o, int B,
-                         int Tq, int Tk, int C, int H, int renorm, float scale,
-                         cudaStream_t stream) {
+                         const float* gamma, const float* beta, bf16* out, float* o,
+                         float* stats, int B, int Tq, int Tk, int C, int H, int renorm,
+                         float scale, cudaStream_t stream) {
   const int n_steps = (Tk + kStep - 1) / kStep;
   const size_t smem = sizeof(bf16) * (NW * 16 + 4 * kStep) * (DH + 8) +
                       sizeof(float) * 2 * n_steps * kStep;
@@ -565,8 +583,8 @@ cudaError_t launch_tc_dh(const bf16* q, const bf16* k, const bf16* v, const floa
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(H, (Tq + NW * 16 - 1) / (NW * 16), B);
-  kernel<<<grid, NW * 32, smem, stream>>>(q, k, v, key_mask, query_mask, graph, o, Tq, Tk, C,
-                                          C / H, renorm, scale);
+  kernel<<<grid, NW * 32, smem, stream>>>(q, k, v, key_mask, query_mask, graph, o, stats, Tq,
+                                          Tk, C, C / H, renorm, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || out == nullptr) return err;   // no out: the attention output alone
   graph_attention_ln_epilogue_kernel<bf16><<<(B * Tq + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
@@ -579,14 +597,14 @@ cudaError_t launch_tc_dh(const bf16* q, const bf16* k, const bf16* v, const floa
 template <int DH>
 cudaError_t launch_tc(const bf16* q, const bf16* k, const bf16* v, const float* key_mask,
                       const float* query_mask, const float* graph, const bf16* residual,
-                      const float* gamma, const float* beta, bf16* out, float* o, int B, int Tq,
-                      int Tk, int C, int H, int renorm, float scale, int q_tile,
+                      const float* gamma, const float* beta, bf16* out, float* o, float* stats,
+                      int B, int Tq, int Tk, int C, int H, int renorm, float scale, int q_tile,
                       cudaStream_t stream) {
   auto run = q_tile == 16 ? launch_tc_dh<DH, 1> : launch_tc_dh<DH, 4>;
   if constexpr (DH == 256)
     if (q_tile == 128) run = launch_tc_dh<DH, 8>;
-  return run(q, k, v, key_mask, query_mask, graph, residual, gamma, beta, out, o, B, Tq, Tk, C,
-             H, renorm, scale, stream);
+  return run(q, k, v, key_mask, query_mask, graph, residual, gamma, beta, out, o, stats, B, Tq,
+             Tk, C, H, renorm, scale, stream);
 }
 
 // ---- the f32 kernel (csrc/simt_f32.cuh) ----
@@ -933,8 +951,8 @@ extern "C" int savqa_graph_attention_ln(const void* q, const void* k, const void
              : dh <= 128 ? launch_tc<128> : launch_tc<256>;
     return (int)run(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                     static_cast<const bf16*>(v), km, qm, g, static_cast<const bf16*>(residual),
-                    ga, be, static_cast<bf16*>(out), static_cast<float*>(o), B, Tq, Tk, C, H,
-                    renorm, scale, q_tile, s);
+                    ga, be, static_cast<bf16*>(out), static_cast<float*>(o), nullptr, B, Tq, Tk,
+                    C, H, renorm, scale, q_tile, s);
   }
   if (path == 2) {
     auto run = q_tile == 16 ? launch_f32<1> : q_tile == 32 ? launch_f32<2>
@@ -977,7 +995,7 @@ extern "C" int savqa_graph_attention(const void* q, const void* k, const void* v
              : dh <= 128 ? launch_tc<128> : launch_tc<256>;
     return (int)run(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                     static_cast<const bf16*>(v), km, qm, g, nullptr, nullptr, nullptr, nullptr,
-                    of, B, Tq, Tk, C, H, renorm, scale, q_tile, s);
+                    of, nullptr, B, Tq, Tk, C, H, renorm, scale, q_tile, s);
   }
   if (path == 2) {
     auto run = q_tile == 16 ? launch_f32<1> : q_tile == 32 ? launch_f32<2>
@@ -993,6 +1011,30 @@ extern "C" int savqa_graph_attention(const void* q, const void* k, const void* v
     return (int)launch<__nv_bfloat16>(q, k, v, km, qm, g, nullptr, nullptr, nullptr, nullptr, of,
                                       B, Tq, Tk, C, H, renorm, scale, q_tile, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The attention output o (B, Tq, C) f32 of the tensor-core kernel (bf16,
+// a head width that is a multiple of 16 up to 256; q_tile 16, 64 or, at
+// instance 256, 128 rows a block) and its pass A's row statistics, stats
+// (3, B, H, Tq) f32: m (natural units, as K4 gives it), z and b. K2's
+// composed route (ops/fused_graph_attention.py) hands them to K5 and K6.
+extern "C" int savqa_graph_attention_stats(const void* q, const void* k, const void* v,
+                                           const void* key_mask, const void* query_mask,
+                                           const void* graph, void* o, void* stats, int B,
+                                           int Tq, int Tk, int C, int H, int renorm, int q_tile,
+                                           float scale, void* stream) {
+  if (B <= 0 || Tq <= 0 || Tk <= 0 || H <= 0 || C % H != 0 || (renorm != 0 && renorm != 1) ||
+      o == nullptr || stats == nullptr || bad_path(1, Tk, C, H, 1, q_tile, o))
+    return (int)cudaErrorInvalidValue;
+  const int dh = C / H;
+  auto run = dh <= 16 ? launch_tc<16> : dh <= 32 ? launch_tc<32> : dh <= 64 ? launch_tc<64>
+           : dh <= 128 ? launch_tc<128> : launch_tc<256>;
+  return (int)run(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v), static_cast<const float*>(key_mask),
+                  static_cast<const float*>(query_mask), static_cast<const float*>(graph),
+                  nullptr, nullptr, nullptr, nullptr, static_cast<float*>(o),
+                  static_cast<float*>(stats), B, Tq, Tk, C, H, renorm, scale, q_tile,
+                  static_cast<cudaStream_t>(stream));
 }
 
 // out = LN(o + residual) over n_rows rows of C: o f32, residual and out of

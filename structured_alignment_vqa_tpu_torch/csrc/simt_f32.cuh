@@ -45,8 +45,11 @@ __device__ __forceinline__ int swz(int row, int col) {
   return row * W + (col ^ ((row & 7) << 2));
 }
 
+// (A 16-wide tile, K5's f32 instance 256, swaps its halves on rows 2 and 3
+// of every 4: the 4 rows a warp reads at once then fill 32 banks.)
 template <int W>
 __device__ __forceinline__ int gswz(int row, int col) {
+  if constexpr (W == 16) return row * W + (col ^ (((row >> 1) & 1) << 3));
   return row * W + (col ^ ((row & 3) << 3));
 }
 

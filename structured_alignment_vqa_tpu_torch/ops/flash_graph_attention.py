@@ -28,9 +28,8 @@ them to its tile with masked keys, which add to z on rows whose real keys
 are all masked; ``out`` and the gradients are the same).
 
 K4, K5 and K6 each have two kernels (:func:`k4_path`; K5's and K6's
-:func:`k56_path`, ``dispatch.kernel_path``). bfloat16 with a head width
-that is a multiple of 16 (K4: any; K5 and K6: up to 128) runs on the
-tensor cores:
+:func:`k56_path`). bfloat16 with a head width that is a multiple of 16
+(K4: any; K5 and K6: up to 256) runs on the tensor cores:
 ``mma.sync`` for every product on bf16 tiles that ``cp.async`` streams
 through a two-stage ring, one warp per 16 query rows (K4, K5) or 16 keys
 (K6), the weights or dS passed from one product to the next in registers
@@ -59,7 +58,13 @@ tiles a lane, dQ through the warp's transposed tile; when the blocks do
 not fill the card its keys split into shards of four steps
 (:func:`dq_f32_plan`) whose f32 partials the shard-sum kernel adds. An
 unsplit call sums every score and every dQ entry in the first f32 kernel's
-order and gives its bits. K4 above head width 128 keeps these designs:
+order and gives its bits. Above head width 128 (instance 256) K5's and
+K6's registers would not hold a warp's 16 x 256 accumulators beside its
+operands, so two warps share the work of one (pairs of warps, the scores
+passed between them through shared memory; ``csrc/flash_graph_attention_bwd.cu``):
+bfloat16 K6 splits dV from dK, K5 splits dQ's channels; float32 K6 splits
+dV from dK over 32 keys a block, and K5 in float32 takes 16-key steps. K4
+above head width 128 keeps these designs:
 bfloat16 in the tensor-core kernel's instance 256 (Q in a room of shared
 memory of its own; 128 rows a block above 64 rows, :func:`tc_rows`),
 float32 in instance 256 of its f32 kernel (32-key steps), and above 256
@@ -68,8 +73,8 @@ in chunks of ``WIDE_CHUNK`` over blocks, Q and K streamed through the ring
 128 or 64 channels a unit, the scores computed once per chunk, 128 rows a
 block). Every other call keeps the first SIMT kernels (f32 FMAs, no
 split), in either dtype: bfloat16 at a head width that is no multiple of
-16 (K5, K6: or above 128), float32 at a head width that is no multiple of
-4 (K5, K6: or above 128) (:func:`k4_path`, :func:`dq_kernel` and
+16, float32 at a head width that is no multiple of 4 (:func:`k4_path`,
+:func:`dq_kernel` and
 :func:`dkv_kernel` name K4's, K5's and K6's kernel for a call). They stage rows of the head
 width rounded up to 4, the columns past it zero, and take head widths up to
 ``SIMT_MAX_HEAD_DIM`` (256: K5's blocks and K6's steps then hold 32 query
@@ -99,10 +104,10 @@ import torch
 from structured_alignment_vqa_tpu_torch.ops import _build
 from structured_alignment_vqa_tpu_torch.ops.dispatch import (
     K14_TC_MAX_HEAD_DIM,
+    K56_TC_MAX_HEAD_DIM,
     SIMT_MAX_HEAD_DIM,
     SM_COUNT,
-    f32_tiled,
-    kernel_path,
+    kernel_path,  # noqa: F401  (K2's; the module's callers read it here)
     tc_width,
     use_kernel,
 )
@@ -116,6 +121,8 @@ from structured_alignment_vqa_tpu_torch.ops.layers import NEG_MASK_VALUE
 EMITS = ("out", "stats", "partial")
 # the C entry's kernels by code (savqa_flash_graph_attention_last_path)
 C_PATHS = ("simt", "wide", "tensor-core", "tc-chunked", "f32", "f32-chunked")
+# K5's and K6's entries' kernels by code (savqa_flash_graph_attention_bwd_last_path)
+C_PATHS_K56 = ("simt", "wide", "tensor-core", "f32")
 EMIT_O = 3           # the C entry's emit of the f32 output (the wide kernel, K1's and K2's wide path)
 WIDE_CHUNK = 256     # output channels a block of the wide kernels
 MAX_GRID_Y = 65535   # the wide kernels' blocks of (head x chunk) along the grid's y
@@ -228,13 +235,14 @@ def k4_path(dtype, head_dim: int) -> str:
 
 def k56_path(dtype, head_dim: int) -> str:
     """Which of K5's and K6's kernels a call takes: ``"tensor-core"``
-    (bfloat16 at multiples of 16 up to ``TC_MAX_HEAD_DIM``, 128:
-    ``kernel_path``), ``"f32"`` (float32 at multiples of 4 up to 128:
-    ``f32_tiled``), ``"wide"`` above ``SIMT_MAX_HEAD_DIM``, else
-    ``"simt"``."""
-    if kernel_path(dtype, head_dim) == "tensor-core":
+    (bfloat16 at multiples of 16 up to ``K56_TC_MAX_HEAD_DIM``, 256; above
+    128 the pair kernels of instance 256, head widths 144-240 with their
+    upper channels staged as zeros), ``"f32"`` (float32 at multiples of 4
+    up to 256, instance 256 above 128), ``"wide"`` above
+    ``SIMT_MAX_HEAD_DIM``, else ``"simt"``."""
+    if dtype == torch.bfloat16 and head_dim % 16 == 0 and head_dim <= K56_TC_MAX_HEAD_DIM:
         return "tensor-core"
-    if f32_tiled(dtype, head_dim):
+    if dtype == torch.float32 and head_dim % 4 == 0 and head_dim <= K56_TC_MAX_HEAD_DIM:
         return "f32"
     return "wide" if head_dim > SIMT_MAX_HEAD_DIM else "simt"
 
@@ -365,7 +373,7 @@ def smem_bytes_f32(head_dim: int, q_tile: int) -> int:
     return 4 * (q_tile * width + 2 * stage)
 
 
-DKV_F32_KEYS = 64   # keys a block of K6's float32 kernel, 16 a warp
+DKV_F32_KEYS = 64   # keys a block of K6's float32 kernel, 16 a warp (32 at instance 256)
 DKV_F32_ROWS = 32   # query rows a step
 
 
@@ -378,17 +386,41 @@ def dkv_kernel(dtype, head_dim: int) -> str:
 
 def smem_bytes_dkv_f32(head_dim: int) -> int:
     """Dynamic shared memory of one block of K6's float32 kernel (must
-    match ``dkv_f32_smem_floats`` in ``csrc/flash_graph_attention_bwd.cu``):
-    K and V (64 keys), the warps' transposed (32, 16) tiles, then two stages
-    of Q, dO (32 rows), the (32, 64) graph tile and the rows' m, z, b,
-    delta; head widths rounded up to 32, 64 or 128."""
-    width = next(w for w in (32, 64, 128) if head_dim <= w)
-    stage = 2 * DKV_F32_ROWS * width + DKV_F32_ROWS * DKV_F32_KEYS + 4 * DKV_F32_ROWS
-    return 4 * (2 * DKV_F32_KEYS * width + 4 * DKV_F32_ROWS * 16 + 2 * stage)
+    match ``dkv_f32_smem_floats`` and, at instance 256,
+    ``dkv_f32_pair_smem_floats`` in ``csrc/flash_graph_attention_bwd.cu``):
+    K and V (64 keys; 32 at 256), the warps' transposed (32, 16) tiles (at
+    256 also the two pairs' exchange of 32 lanes x 16 scores), then two
+    stages of Q, dO (32 rows), the (32, keys) graph tile and the rows' m,
+    z, b, delta; head widths rounded up to 32, 64, 128 or 256."""
+    width = next(w for w in F32_WIDTHS if head_dim <= w)
+    keys = DKV_F32_KEYS if width <= 128 else DKV_F32_KEYS // 2
+    stage = 2 * DKV_F32_ROWS * width + DKV_F32_ROWS * keys + 4 * DKV_F32_ROWS
+    exchange = 0 if width <= 128 else 2 * 32 * 16
+    return 4 * (2 * keys * width + 4 * DKV_F32_ROWS * 16 + exchange + 2 * stage)
+
+
+def smem_bytes_k56_tc(kernel: str, head_dim: int) -> int:
+    """Dynamic shared memory of one block of K5's ("K5") or K6's ("K6")
+    tensor-core kernel (must match ``dq_stage_bytes`` / ``dkv_stage_bytes``
+    and, at instance 256, ``dq_pair_smem_bytes`` / ``dkv_pair_smem_bytes``
+    in ``csrc/flash_graph_attention_bwd.cu``): two stages of bf16 (64,
+    width + 8) tiles (K and V; Q and dO), the f32 graph tile (64 x 72;
+    64 x 68) and the key mask or the rows' 32-byte terms; at 256 the pairs'
+    exchange (8 warps x 32 lanes x 16 f32, twice; 4 pairs x 32 x 8,
+    twice)."""
+    width = tc_width(head_dim)
+    bf16_tiles = 2 * 2 * KEY_STEP * (width + 8)
+    if kernel == "K5":
+        stage = bf16_tiles + 4 * (KEY_STEP * (KEY_STEP + 8) + KEY_STEP)
+        exchange = 2 * 8 * 32 * 16 * 4
+    else:
+        stage = bf16_tiles + 4 * KEY_STEP * (KEY_STEP + 4) + 32 * KEY_STEP
+        exchange = 2 * 4 * 32 * 8 * 4
+    return 2 * stage + (exchange if width > 128 else 0)
 
 
 DQ_PATHS = ("simt", "tensor-core", "f32", "wide")   # the C entry's path argument (K5)
-DQ_F32_STEP = 32    # keys a step of K5's float32 kernel
+DQ_F32_STEP = 32    # keys a step of K5's float32 kernel (16 at instance 256: dq_f32_step)
 SIMT_Q_TILE = 64    # query rows a block of the first SIMT kernels
 
 
@@ -397,31 +429,40 @@ def dq_kernel(dtype, head_dim: int) -> str:
     return k56_path(dtype, head_dim)
 
 
-def dq_f32_plan(batch: int, num_heads: int, tq: int, tk: int) -> tuple:
+def dq_f32_step(head_dim: int) -> int:
+    """Keys a step of K5's float32 kernel: 32, 16 above head width 128
+    (must match ``dq_f32_step`` in ``csrc/flash_graph_attention_bwd.cu``)."""
+    return DQ_F32_STEP if head_dim <= 128 else DQ_F32_STEP // 2
+
+
+def dq_f32_plan(batch: int, num_heads: int, tq: int, tk: int, head_dim: int = 64) -> tuple:
     """``(q_tile, n_split, steps_per_split)`` of K5's float32 kernel, a pure
     function of the shapes: 64 query rows a block (4 warps; 16 rows, one
     warp, when ``tq <= 16``), and when the (head, query tile, batch) blocks
-    do not cover the card's 132 SMs the ``ceil(tk / 32)`` key steps cut into
-    shards of ``F32_SPLIT_STEPS`` steps (fewer steps: one shard of them
-    all). The shards do not depend on the head count, so a model rank's 4
-    heads sum each head's keys as one process's 8 heads do."""
+    do not cover the card's 132 SMs the ``ceil(tk / step)`` key steps
+    (:func:`dq_f32_step`) cut into shards of 128 keys (``F32_SPLIT_STEPS``
+    steps of 32; fewer steps: one shard of them all). The shards do not
+    depend on the head count, so a model rank's 4 heads sum each head's
+    keys as one process's 8 heads do."""
     q_tile = 16 if tq <= 16 else 64
+    step = dq_f32_step(head_dim)
     blocks = batch * num_heads * -(-tq // q_tile)
-    steps = -(-tk // DQ_F32_STEP)
+    steps = -(-tk // step)
     if blocks >= SM_COUNT:
         return q_tile, 1, steps
-    per = min(F32_SPLIT_STEPS, steps)
+    per = min(F32_SPLIT_STEPS * DQ_F32_STEP // step, steps)
     return q_tile, -(-steps // per), per
 
 
 def smem_bytes_dq_f32(head_dim: int, q_tile: int) -> int:
     """Dynamic shared memory of one block of K5's float32 kernel (must
     match ``dq_f32_smem_floats`` in ``csrc/flash_graph_attention_bwd.cu``):
-    Q and dO (q_tile rows), then two stages of K, V (32 keys), the
-    (q_tile, 32) graph tile and the key mask; head widths rounded up to 32,
-    64 or 128."""
-    width = next(w for w in (32, 64, 128) if head_dim <= w)
-    stage = 2 * DQ_F32_STEP * width + q_tile * DQ_F32_STEP + DQ_F32_STEP
+    Q and dO (q_tile rows), then two stages of K, V (:func:`dq_f32_step`
+    keys), the (q_tile, step) graph tile and the key mask; head widths
+    rounded up to 32, 64, 128 or 256."""
+    width = next(w for w in F32_WIDTHS if head_dim <= w)
+    step = dq_f32_step(width)
+    stage = 2 * step * width + q_tile * step + step
     return 4 * (2 * q_tile * width + 2 * stage)
 
 
@@ -472,16 +513,17 @@ def dq_key_split(dtype, head_dim: int, batch: int, num_heads: int, tq: int,
                  tk: int) -> tuple:
     """``(n_split, steps_per_split)`` a K5 call takes: :func:`key_split` on
     the tensor-core kernel (its blocks and steps are K4's: 64 query rows, 64
-    keys), :func:`dq_f32_plan`'s on the float32 kernel (steps of 32 keys),
-    one shard of every 64-key step on the SIMT kernel."""
-    return _dq_plan(dq_kernel(dtype, head_dim), batch, num_heads, tq, tk)[1:3]
+    keys; at instance 256 too), :func:`dq_f32_plan`'s on the float32 kernel
+    (steps of 32 keys, 16 above head width 128), one shard of every 64-key
+    step on the SIMT and wide kernels."""
+    return _dq_plan(dq_kernel(dtype, head_dim), batch, num_heads, tq, tk, head_dim)[1:3]
 
 
-def _dq_plan(path: str, batch: int, num_heads: int, tq: int, tk: int) -> tuple:
+def _dq_plan(path: str, batch: int, num_heads: int, tq: int, tk: int, head_dim: int) -> tuple:
     """``(q_tile, n_split, steps_per_split, keys a step)`` of K5's kernel
     ``path`` (one of ``DQ_PATHS``) at these shapes."""
     if path == "f32":
-        return (*dq_f32_plan(batch, num_heads, tq, tk), DQ_F32_STEP)
+        return (*dq_f32_plan(batch, num_heads, tq, tk, head_dim), dq_f32_step(head_dim))
     if path == "tensor-core":
         return (TC_Q_TILE, *key_split(batch, num_heads, tq, tk), KEY_STEP)
     return SIMT_Q_TILE, 1, -(-tk // KEY_STEP), KEY_STEP   # the SIMT and wide kernels
@@ -755,10 +797,12 @@ def flash_bwd_dq(q, k, v, key_mask, graph, m, z, bsum, delta, d_out, num_heads: 
                                   num_heads, renorm)
     dq = _launch_dq(q, k, v, key_mask, graph, m, z, bsum, delta, d_out, num_heads, renorm)
     flash_bwd_dq.launches += 1
+    flash_bwd_dq.paths[last_paths["K5"]] += 1
     return dq
 
 
 flash_bwd_dq.launches = 0
+flash_bwd_dq.paths = collections.Counter()   # launches by the kernel the C entry took
 
 
 def _launch_dq(q, k, v, key_mask, graph, m, z, bsum, delta, d_out, num_heads: int,
@@ -773,7 +817,7 @@ def _launch_dq(q, k, v, key_mask, graph, m, z, bsum, delta, d_out, num_heads: in
     b, tq, c = q.shape
     tk = k.shape[1]
     path = path or dq_kernel(q.dtype, c // num_heads)
-    q_tile, n_split, per, step = _dq_plan(path, b, num_heads, tq, tk)
+    q_tile, n_split, per, step = _dq_plan(path, b, num_heads, tq, tk, c // num_heads)
     scratch = None   # the shards' f32 partial dQ between the two kernels
     if n_split > 1:
         scratch = torch.empty(n_split, b, tq, c, dtype=torch.float32, device=q.device)
@@ -781,6 +825,7 @@ def _launch_dq(q, k, v, key_mask, graph, m, z, bsum, delta, d_out, num_heads: in
     dq = torch.empty_like(q)
     _call_backward("savqa_flash_graph_attention_bwd_dq", [dq, scratch],
                    [DQ_PATHS.index(path), q_tile, n_split, per], *args)
+    _taken_k56("K5", path, c // num_heads)
     return dq
 
 
@@ -792,6 +837,7 @@ def flash_bwd_dkv(q, k, v, key_mask, graph, m, z, bsum, delta, d_out, num_heads:
                                    num_heads, renorm)
     dk, dv = _launch_dkv(q, k, v, key_mask, graph, m, z, bsum, delta, d_out, num_heads, renorm)
     flash_bwd_dkv.launches += 1
+    flash_bwd_dkv.paths[last_paths["K6"]] += 1
     return dk, dv
 
 
@@ -803,10 +849,54 @@ def _launch_dkv(q, k, v, key_mask, graph, m, z, bsum, delta, d_out, num_heads: i
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _call_backward("savqa_flash_graph_attention_bwd_dkv", [dk, dv], [], q, k, v, key_mask, graph,
                    m, z, bsum, delta, d_out, num_heads, renorm)
+    head_dim = q.shape[-1] // num_heads
+    _taken_k56("K6", dkv_kernel(q.dtype, head_dim), head_dim)
     return dk, dv
 
 
 flash_bwd_dkv.launches = 0
+flash_bwd_dkv.paths = collections.Counter()   # launches by the kernel the C entry took
+# the kernel the last K5 and K6 launch on this process took (``_taken_k56``),
+# read by their counters and by K2's composed and wide routes
+last_paths = {"K5": None, "K6": None}
+
+
+def k56_instance(path: str, head_dim: int) -> int:
+    """The head-width instance of K5's or K6's kernel ``path`` that a head
+    width runs in, as their C entries report it
+    (``savqa_flash_graph_attention_bwd_last_width``): 0 for the wide
+    kernels, which take any width; else the least of ``F32_WIDTHS`` (f32)
+    or of ``TC_WIDTHS`` (tensor-core, simt) that holds it, 256 being the
+    pair kernels."""
+    if path == "wide":
+        return 0
+    return next(w for w in F32_WIDTHS if head_dim <= w) if path == "f32" else tc_width(head_dim)
+
+
+def _taken_k56(kernel: str, planned: str, head_dim: int) -> None:
+    """Record the kernel the last call of K5's ("K5") or K6's ("K6") C
+    entry on this thread launched, by :func:`k56_path`'s names, in
+    ``last_paths``. Its launcher notes the kernel and the instance it
+    started; raises where either is not what the call was planned for
+    (``planned`` at :func:`k56_instance`)."""
+    lib = _build.library("flash_graph_attention_bwd")
+    entry = 0 if kernel == "K5" else 1
+    code, width = (_c_int_of(lib.savqa_flash_graph_attention_bwd_last_path, entry),
+                   _c_int_of(lib.savqa_flash_graph_attention_bwd_last_width, entry))
+    taken = C_PATHS_K56[code] if 0 <= code < len(C_PATHS_K56) else f"code {code}"
+    want = k56_instance(planned, head_dim)
+    if (taken, width) != (planned, want):
+        raise RuntimeError(f"{kernel}: the C entry launched the {taken} kernel at instance "
+                           f"{width}, the call was planned for the {planned} kernel at "
+                           f"instance {want} (head width {head_dim})")
+    last_paths[kernel] = taken
+
+
+def _c_int_of(fn, entry: int) -> int:
+    """``fn(entry)`` of a C function taking and returning an int."""
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int]
+    return fn(entry)
 
 
 def flash_graph_attention_bwd(q, k, v, key_mask, query_mask, graph, out, m, z, bsum, dy,

@@ -64,10 +64,10 @@ heads of 128 keeps the tensor-core
 only their LayerNorm epilogue sees C, and it takes any C. K2's float32
 kernels take any C too (above 2,048 their LayerNorm backward is the one
 that reads rows in chunks); bfloat16 at C 4,096 with 32 heads takes the
-SIMT kernels (the tensor-core rows launch does not fit, as at C 2,048 with
-16 heads) with :func:`simt_bwd_rows` rows a block.
+composed route below (the tensor-core rows launch does not fit, as at C
+2,048 with 16 heads).
 
-K2 has three designs (:func:`k2_path`), each a rows launch
+K2 has three designs of its own (:func:`k2_path`), each a rows launch
 (the forward recomputed, the LayerNorm backward, dQ and per-row constants)
 and a keys launch (dK and dV summed over every query row, no atomics),
 counted as one. bfloat16 with a head width that is a multiple of 16 runs
@@ -77,19 +77,30 @@ scores rebuilt from per-row maximum and sum in every pass over the keys
 instead of kept, dO handed to the keys launch as the bf16 dresidual. The
 decoder's one-query calls take them too: a block is a chain of latencies
 whatever its rows, and theirs measured shorter than the SIMT kernels'.
-float32 takes four register-tiled FFMA kernels, counted as one: the
+float32 (up to head width 128) takes four register-tiled FFMA kernels,
+counted as one: the
 forward recomputed by K4's f32 body into f32 scratch (output O and per-row
 m, z, b), the LayerNorm backward a warp a row (``bwd_row_tile`` rows a
 dgamma/dbeta partial), dQ over keys 32 at a time with both row sums of the
 renorm and softmax backwards known before the first key (from delta = dO .
 O), and dK, dV over query rows 32 at a time (64 keys a block); a head
-width that is a multiple of 4 up to 128. Every other call keeps the first
-SIMT kernels, in either dtype (TF32 would not hold the float32 path's 1e-4
-either): bfloat16 at a head width that is no multiple of 16 or above 128,
-or where the tensor-core rows launch does not fit (C 2,048 at 16 heads),
-and float32 at a head width that is no multiple of 4 or above 128; their
-rows launch takes :func:`simt_bwd_rows` rows a block and their keys launch
-32 keys a block (16 above head width 128).
+width that is a multiple of 4 up to 128. Every other call up to head width
+256 keeps the first SIMT kernels, in either dtype (TF32 would not hold the
+float32 path's 1e-4 either): bfloat16 at a head width that is no multiple
+of 16, and float32 at a head width that is no multiple of 4; their rows launch
+takes :func:`simt_bwd_rows` rows a block and their keys launch 32 keys a
+block (16 above head width 128). Above head width 128, and in bfloat16
+wherever the tensor-core rows launch does not fit (C 2,048 with 16 heads,
+C 4,096 with 32), K2 takes the composed route (:func:`k2_path`
+"composed"), the wide path's structure on tiled kernels: :func:`composed_o`
+(K1's tensor-core kernel writing its f32 output o and its pass A's m, z, b
+in bfloat16; K4's register-tiled kernel with ``emit="stats"`` in float32),
+the LayerNorm backward at any C (``savqa_attention_ln_bwd``), then K5 and
+K6 on their tensor-core or f32 kernels (instance 256 above 128), counted
+as one launch; its plain version
+(:func:`graph_attention_ln_bwd_composed_plain`) rounds n and dS where K5
+and K6 round them and is what the card's route is held to; on CPU tensors
+the wrapper runs :func:`graph_attention_ln_bwd_plain` on every route.
 
 The model axis splits the heads over the model row; the LayerNorm needs
 every column, so it runs after the heads' outputs are gathered. Three more
@@ -113,6 +124,7 @@ import torch
 from structured_alignment_vqa_tpu_torch.ops import _build
 from structured_alignment_vqa_tpu_torch.ops.dispatch import (
     K14_TC_MAX_HEAD_DIM,
+    K56_TC_MAX_HEAD_DIM,
     SIMT_MAX_HEAD_DIM,
     SMEM_LIMIT,
     TC_MAX_HEAD_DIM,
@@ -254,8 +266,17 @@ def graph_attention_ln_bwd_plain(q, k, v, key_mask, query_mask, graph, residual,
     f = _forward_parts(q, k, v, key_mask, query_mask, graph, num_heads, renorm)
     x = (torch.matmul(f["a"], f["vh"].float()).transpose(1, 2).reshape(b, tq, c)
          + residual.float())
+    dx, dgamma, dbeta = _ln_bwd(x, gamma, dy)
+    dx = dx.to(q.dtype)
+    dq, dk, dv = _attention_bwd(f, dx, q, renorm)
+    return dq, dk, dv, dx, dgamma, dbeta
 
-    # LayerNorm backward (eps on the unbiased std; no d-std term on constant rows)
+
+def _ln_bwd(x, gamma, dy):
+    """The reference LayerNorm's backward at its input x (f32, eps on the
+    unbiased std; no d-std term on constant rows): ``(dx, dgamma, dbeta)``,
+    all float32."""
+    c = x.shape[-1]
     xm = x - x.mean(dim=-1, keepdim=True)
     var = xm.square().sum(dim=-1, keepdim=True) / max(c - 1, 1)
     nonzero = var > 0.0
@@ -270,10 +291,31 @@ def graph_attention_ln_bwd_plain(q, k, v, key_mask, query_mask, graph, residual,
     dx = (dxh - dxh.mean(dim=-1, keepdim=True)) * inv - torch.where(
         nonzero, xm * (ssum * inv * inv) / (max(c - 1, 1) * torch.where(nonzero, s, 1.0)),
         torch.zeros_like(xm))
+    return dx, dgamma, dbeta
 
-    dx = dx.to(q.dtype)
-    dq, dk, dv = _attention_bwd(f, dx, q, renorm)
-    return dq, dk, dv, dx, dgamma, dbeta
+
+def graph_attention_ln_bwd_composed_plain(q, k, v, key_mask, query_mask, graph, residual,
+                                          gamma, beta, dy, num_heads: int, renorm: str = "l1"):
+    """Plain PyTorch version of K2's composed route (:func:`k2_path`
+    "composed"), rounding where it rounds: K1's attention output o (f32,
+    its weights rounded to V's dtype) and K4's row statistics m, z, b; the
+    LayerNorm backward at ``o + residual``, its dO rounded to q's dtype
+    (dresidual); then K5's and K6's plain versions from that dO, which
+    round n and dS to q's dtype as the operands of the second products. In
+    float32 nothing is rounded and it is :func:`graph_attention_ln_bwd_plain`
+    up to the order of sums. Returns ``(dq, dk, dv, dresidual, dgamma,
+    dbeta)`` as that function does."""
+    from structured_alignment_vqa_tpu_torch.ops import flash_graph_attention as flash
+
+    o = graph_attention_plain(q, k, v, key_mask, query_mask, graph, num_heads, renorm)
+    _, m, z, bsum = flash.flash_graph_attention_plain(q, k, v, key_mask, query_mask, graph,
+                                                      num_heads, renorm, "stats")
+    dx, dgamma, dbeta = _ln_bwd(o + residual.float(), gamma, dy)
+    dres = dx.to(q.dtype)
+    d_out, delta = flash.masked_grad_and_delta(o, dres, query_mask, num_heads)
+    args = (q, k, v, key_mask, graph, m, z, bsum, delta, d_out.to(q.dtype), num_heads, renorm)
+    return (flash.flash_bwd_dq_plain(*args), *flash.flash_bwd_dkv_plain(*args), dres, dgamma,
+            dbeta)
 
 
 def graph_attention_bwd_plain(q, k, v, key_mask, query_mask, graph, do, num_heads: int,
@@ -424,14 +466,20 @@ def k2_path(dtype, head_dim: int, tk: "int | None" = None, c: "int | None" = Non
     rows launch fits (given ``tk``, ``c`` and ``num_heads``; at C 2,048 with
     16 heads, and C 4,096 with 32, its 32 rows of C + 8 f32 and bf16 do
     not), ``"f32"`` for float32 at head widths that are multiples of 4 up to
-    ``TC_MAX_HEAD_DIM`` (any C), ``"wide"`` above head width
-    ``SIMT_MAX_HEAD_DIM`` or where one row of the SIMT rows launch does not
-    fit, else ``"simt"``. A pure function of the shapes."""
+    ``TC_MAX_HEAD_DIM`` (any C), ``"composed"`` for every other call that
+    K5's and K6's tiled kernels take (bfloat16 at multiples of 16 up to
+    ``K56_TC_MAX_HEAD_DIM``, 256, float32 at multiples of 4 up to 256:
+    :func:`composed_o`'s forward, the LayerNorm backward at any C, then K5
+    and K6), ``"wide"`` above head width ``SIMT_MAX_HEAD_DIM`` or where one
+    row of the SIMT rows launch does not fit, else ``"simt"``. A pure
+    function of the shapes."""
     if kernel_path(dtype, head_dim) == "tensor-core" and (
             c is None or smem_bytes_bwd_tc(tk, c, num_heads) <= SMEM_LIMIT):
         return "tensor-core"
     if f32_tiled(dtype, head_dim):
         return "f32"
+    if head_dim <= K56_TC_MAX_HEAD_DIM and head_dim % (16 if dtype == torch.bfloat16 else 4) == 0:
+        return "composed"
     if head_dim > SIMT_MAX_HEAD_DIM or (
             c is not None and _simt_bwd_smem(1, tk, c, head_dim) > SMEM_LIMIT):
         return "wide"
@@ -447,7 +495,7 @@ def bwd_row_tile(dtype, head_dim: int, tq: int, tk: "int | None" = None,
     path = k2_path(dtype, head_dim, tk, c, num_heads)
     if path == "tensor-core":
         return BWD_TC_ROWS
-    if path in ("f32", "wide"):
+    if path in ("f32", "wide", "composed"):
         return BWD_F32_ROWS
     return min(Q_TILE, tq) if c is None else simt_bwd_rows(tq, tk, c, num_heads)
 
@@ -525,6 +573,17 @@ def _check(q, k, v, key_mask, query_mask, graph, residual, gamma, beta,
         kernels = ("K4",) if dy is None else ("K4", "K5", "K6")
         need = max(flash.smem_bytes_wide(kn) if dh > SIMT_MAX_HEAD_DIM
                    else flash.smem_bytes_simt(kn, dh) for kn in kernels)
+    elif path == "composed":
+        from structured_alignment_vqa_tpu_torch.ops import flash_graph_attention as flash
+
+        if q.dtype == torch.bfloat16:
+            need = [smem_bytes_tc(tq, tk, c, num_heads)] + [
+                flash.smem_bytes_k56_tc(kn, dh) for kn in ("K5", "K6")]
+        else:
+            q_tile = flash.k4_f32_plan(dh, b, num_heads, tq, tk)[0]
+            need = [flash.smem_bytes_f32(dh, q_tile), flash.smem_bytes_dkv_f32(dh),
+                    flash.smem_bytes_dq_f32(dh, 16 if tq <= 16 else 64)]
+        need = max(need)
     elif dy is None and path == "tensor-core":
         need = smem_bytes_tc(tq, tk, c, num_heads)
     elif dy is None and path == "f32":
@@ -609,13 +668,43 @@ def _wide_attention_bwd(q, k, v, key_mask, query_mask, graph, o, m, z, bsum, d_o
                                       num_heads, renorm)
 
 
+def composed_o(q, k, v, key_mask, query_mask, graph, num_heads: int, renorm: str):
+    """The forward of K2's composed route: K1's attention output o (B, Tq,
+    C) float32 and the row statistics m, z, b (B, H, Tq) of a tiled
+    kernel. bfloat16: K1's tensor-core kernel (``savqa_graph_attention_stats``:
+    o as K1 forms it, weights rounded to bf16, and its pass A's m, z, b);
+    float32: K4's register-tiled kernel with ``emit="stats"`` (its output
+    is o: nothing is rounded in float32). Counted by the caller."""
+    from structured_alignment_vqa_tpu_torch.ops import flash_graph_attention as flash
+
+    if q.dtype == torch.float32:
+        return flash._forward_call(q, k, v, key_mask, query_mask, graph, num_heads, renorm,
+                                   flash.EMITS.index("stats"), True)
+    b, tq, c = q.shape
+    tk = k.shape[1]
+    o = torch.empty(b, tq, c, dtype=torch.float32, device=q.device)
+    stats = torch.empty(3, b, num_heads, tq, dtype=torch.float32, device=q.device)
+    fn = _build.library("graph_attention").savqa_graph_attention_stats
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(),
+                    query_mask.data_ptr(), graph.data_ptr(), o.data_ptr(), stats.data_ptr(),
+                    b, tq, tk, c, num_heads, RENORMS.index(renorm),
+                    16 * tc_warps(tq, c // num_heads), 1.0 / (c // num_heads) ** 0.5, stream)
+    _build.check(status, "graph_attention_stats kernel")
+    return (o, *stats.unbind(0))
+
+
 def _launch_bwd_wide(q, k, v, key_mask, query_mask, graph, residual, gamma, beta, dy,
-                     num_heads: int, renorm: str, row_tile: int):
-    """K2's wide path: o and its statistics, the LayerNorm backward at any C
+                     num_heads: int, renorm: str, row_tile: int, forward):
+    """K2's wide and composed paths: o and its statistics (``forward``:
+    :func:`_wide_o` or :func:`composed_o`), the LayerNorm backward at any C
     (``savqa_attention_ln_bwd``: dresidual = dO and the dgamma / dbeta
     partials of ``row_tile`` rows), then K5 and K6."""
     b, tq, c = q.shape
-    o, m, z, bsum = _wide_o(q, k, v, key_mask, query_mask, graph, num_heads, renorm, True)
+    o, m, z, bsum = forward(q, k, v, key_mask, query_mask, graph, num_heads, renorm)
     dres = torch.empty_like(q)
     partials = torch.empty(b * -(-tq // row_tile), 2, c, dtype=torch.float32, device=q.device)
     fn = _build.library("graph_attention_bwd").savqa_attention_ln_bwd
@@ -633,6 +722,13 @@ def _launch_bwd_wide(q, k, v, key_mask, query_mask, graph, residual, gamma, beta
     return dq, dk, dv, dres, sums[0], sums[1]
 
 
+def _route_forward(path: str):
+    """The forward of K2's ``path`` "wide" or "composed": o and m, z, b."""
+    if path == "composed":
+        return composed_o
+    return lambda *args: _wide_o(*args, stats=True)
+
+
 def _launch_bwd(q, k, v, key_mask, query_mask, graph, residual, gamma, beta, dy,
                 num_heads: int, renorm: str):
     _check(q, k, v, key_mask, query_mask, graph, residual, gamma, beta, num_heads, renorm, dy)
@@ -641,10 +737,12 @@ def _launch_bwd(q, k, v, key_mask, query_mask, graph, residual, gamma, beta, dy,
     dh = c // num_heads
     path = k2_path(q.dtype, dh, tk, c, num_heads)
     row_tile = bwd_row_tile(q.dtype, dh, tq, tk, c, num_heads)
-    if path == "wide":
+    if path in ("wide", "composed"):
         grads = _launch_bwd_wide(q, k, v, key_mask, query_mask, graph, residual, gamma, beta, dy,
-                                 num_heads, renorm, row_tile)
+                                 num_heads, renorm, row_tile, _route_forward(path))
         fused_graph_attention_ln_bwd.launches += 1
+        fused_graph_attention_ln_bwd.paths[path] += 1
+        _count_parts(fused_graph_attention_ln_bwd.parts)
         return grads
     lib = _build.library("graph_attention_bwd")
     fn = lib.savqa_graph_attention_ln_bwd
@@ -677,8 +775,18 @@ def _launch_bwd(q, k, v, key_mask, query_mask, graph, residual, gamma, beta, dy,
         )
     _build.check(status, "graph_attention_ln_bwd kernel")
     fused_graph_attention_ln_bwd.launches += 1
+    fused_graph_attention_ln_bwd.paths[path] += 1
     sums = partials.sum(dim=0)
     return dq, dk, dv, dres, sums[0], sums[1]
+
+
+def _count_parts(parts) -> None:
+    """Count the K5 and K6 kernels the last wide or composed K2 route
+    launched (their C entries' own report) into ``parts``."""
+    from structured_alignment_vqa_tpu_torch.ops import flash_graph_attention as flash
+
+    for kernel in ("K5", "K6"):
+        parts[f"{kernel} {flash.last_paths[kernel]}"] += 1
 
 
 def fused_graph_attention_ln_bwd(q, k, v, key_mask, query_mask, graph, residual,
@@ -687,7 +795,8 @@ def fused_graph_attention_ln_bwd(q, k, v, key_mask, query_mask, graph, residual,
     gradient of its output: ``(dq, dk, dv, dresidual, dgamma, dbeta)``.
 
     On CUDA tensors one call launches K2 (two kernels of
-    ``csrc/graph_attention_bwd.cu``, counted once); on CPU tensors it runs
+    ``csrc/graph_attention_bwd.cu``, or the kernels of its composed or wide
+    route, counted once); on CPU tensors it runs
     :func:`graph_attention_ln_bwd_plain`.
     """
     if not use_kernel(q):
@@ -698,6 +807,9 @@ def fused_graph_attention_ln_bwd(q, k, v, key_mask, query_mask, graph, residual,
 
 
 fused_graph_attention_ln_bwd.launches = 0
+fused_graph_attention_ln_bwd.paths = collections.Counter()   # launches by k2_path
+# the K5 and K6 kernels the wide and composed routes launched ("K5 tensor-core", ...)
+fused_graph_attention_ln_bwd.parts = collections.Counter()
 
 
 class _FusedGraphAttentionLN(torch.autograd.Function):
@@ -783,8 +895,9 @@ def _launch_heads_bwd(q, k, v, key_mask, query_mask, graph, do, num_heads: int,
     tk = k.shape[1]
     dh = c // num_heads
     path = k2_path(q.dtype, dh, tk, c, num_heads)
-    if path == "wide":
-        o, m, z, bsum = _wide_o(q, k, v, key_mask, query_mask, graph, num_heads, renorm, True)
+    if path in ("wide", "composed"):
+        o, m, z, bsum = _route_forward(path)(q, k, v, key_mask, query_mask, graph, num_heads,
+                                             renorm)
         grads = _wide_attention_bwd(q, k, v, key_mask, query_mask, graph, o, m, z, bsum, do,
                                     num_heads, renorm)
         graph_attention_heads_bwd.launches += 1

@@ -1,13 +1,15 @@
-"""K1 and K4 above head width 128: the routing and the plans, on the CPU.
+"""K1, K4, K5 and K6 above head width 128: the routing and the plans, on the CPU.
 
 K1's tensor-core kernel takes bfloat16 at head widths that are multiples of
 16 up to 256 (instance 256), K4's tensor-core kernel bfloat16 at every
 multiple of 16 (instance 256 up to 256, the chunked kernel above) and its
 register-tiled kernel float32 at every multiple of 4 (instance 256 in
-32-key steps up to 256, the chunked f32 kernel above).
-K2, K5 and K6 share ``dispatch.kernel_path`` and keep its limit of 128: the
-paths they took before K1 and K4 were given their own limit are pinned
-here, whatever K1's and K4's. The shared memory and the key split of each
+32-key steps up to 256, the chunked f32 kernel above). K5 and K6 have a
+limit of their own, 256 (``dispatch.K56_TC_MAX_HEAD_DIM``): their
+tensor-core kernels take bfloat16 at multiples of 16 and their f32 kernels
+float32 at multiples of 4 up to 256 (instance 256, pairs of warps), and K2
+above 128 is composed of a tiled forward, its LayerNorm backward, K5 and
+K6 (``k2_path`` "composed"). The shared memory and the key split of each
 new instance are pure functions mirrored from ``csrc/`` and held to the
 227 KB a block may use.
 """
@@ -32,22 +34,34 @@ def _threads():
     torch.set_num_threads(1)
 
 
-# the paths K2, K5 and K6 took at these head widths before this slice (8
-# heads, C = 8 x the head width): the SIMT kernels up to 256, the wide ones
-# above, in either dtype
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
-@pytest.mark.parametrize("head_dim,want", [(136, "simt"), (192, "simt"), (256, "simt"),
-                                           (320, "wide"), (512, "wide")])
-def test_k2_k5_k6_keep_their_paths_above_128(dtype, head_dim, want):
+# the paths K2, K5 and K6 take at these head widths (8 heads, C = 8 x the
+# head width): K5 and K6 the tensor-core kernels in bf16 at multiples of 16
+# and the f32 kernels in f32 at multiples of 4 up to 256, and K2 the
+# composed route there; the SIMT kernels at a bf16 width no multiple of 16;
+# the wide ones above 256, in either dtype
+@pytest.mark.parametrize("dtype,head_dim,want,want_k2", [
+    (torch.bfloat16, 136, "simt", "simt"), (torch.bfloat16, 144, "tensor-core", "composed"),
+    (torch.bfloat16, 192, "tensor-core", "composed"),
+    (torch.bfloat16, 256, "tensor-core", "composed"),
+    (torch.bfloat16, 320, "wide", "wide"), (torch.bfloat16, 512, "wide", "wide"),
+    (torch.float32, 136, "f32", "composed"), (torch.float32, 192, "f32", "composed"),
+    (torch.float32, 256, "f32", "composed"), (torch.float32, 320, "wide", "wide"),
+    (torch.float32, 512, "wide", "wide"),
+], ids=str)
+def test_k2_k5_k6_keep_their_paths_above_128(dtype, head_dim, want, want_k2):
     c = HEADS * head_dim
     assert flash.dq_kernel(dtype, head_dim) == want
     assert flash.dkv_kernel(dtype, head_dim) == want
-    assert flash.kernel_path(dtype, head_dim) == "simt"
+    assert flash.kernel_path(dtype, head_dim) == "simt"   # K2's own tensor-core limit: 128
     for tk in LENGTHS:
-        assert k1.k2_path(dtype, head_dim, tk, c, HEADS) == want
-    # K5's key split stays one shard of every 64-key step on those kernels
+        assert k1.k2_path(dtype, head_dim, tk, c, HEADS) == want_k2
+    # K5's key split: K4's rule on the tensor-core kernel, the f32 plan (16-key
+    # steps above 128) on the f32 kernel, one shard of every 64-key step else
     for tq in (1, FLASH_L):
-        assert flash.dq_key_split(dtype, head_dim, 4, HEADS, tq, FLASH_L) == (1, FLASH_L // 64)
+        want_split = {"tensor-core": flash.key_split(4, HEADS, tq, FLASH_L),
+                      "f32": flash.dq_f32_plan(4, HEADS, tq, FLASH_L, head_dim)[1:]}.get(
+            want, (1, FLASH_L // 64))
+        assert flash.dq_key_split(dtype, head_dim, 4, HEADS, tq, FLASH_L) == want_split
 
 
 @pytest.mark.parametrize("head_dim", [144, 192, 256, 320, 512])

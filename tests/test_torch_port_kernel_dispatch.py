@@ -297,15 +297,17 @@ def test_k2_tensor_core_shared_memory_leaves_two_blocks_an_sm():
     assert 2 * (k1.smem_bytes_bwd_tc(128, 512, 8) + 1024) <= k1.SMEM_LIMIT
     assert k1.smem_bytes_bwd_tc(512, 512, 8) <= k1.SMEM_LIMIT
     # C 2,048 at 16 heads and C 4,096 at 32: the rows launch's 32 rows of C
-    # do not fit, so the call takes the SIMT kernels, 8 rows a block at 32 keys
+    # do not fit, so the call takes the composed route (K1's tensor-core
+    # forward, the LayerNorm backward, K5 and K6 on the tensor cores); the
+    # SIMT kernels these shapes took before still fit, 8 rows a block at 32 keys
     assert k1.smem_bytes_bwd_tc(32, 2048, 16) > k1.SMEM_LIMIT
-    assert k1.k2_path(torch.bfloat16, 128, 32, 2048, 16) == "simt"
+    assert k1.k2_path(torch.bfloat16, 128, 32, 2048, 16) == "composed"
     for c, heads in ((2048, 16), (4096, 32)):
         bf = torch.zeros(1, 32, c, dtype=torch.bfloat16)
         args = (bf, bf, bf, torch.ones(1, 32), torch.ones(1, 32), torch.ones(1, 32, 32), bf,
                 torch.ones(c), torch.zeros(c), heads, "l1")
         k1._check(*args, dy=bf)
-        assert k1.k2_path(torch.bfloat16, 128, 32, c, heads) == "simt"
+        assert k1.k2_path(torch.bfloat16, 128, 32, c, heads) == "composed"
         assert k1.smem_bytes_bwd(32, 32, c, heads) <= k1.SMEM_LIMIT
     assert k1.simt_bwd_rows(32, 32, 4096, 32) == 8
 
@@ -542,13 +544,14 @@ def test_k5_f32_shared_memory_fits(head_dim, q_tile, blocks_an_sm):
 
 def test_k5_takes_the_f32_kernel_at_every_f32_width():
     """Every float32 head width the f32 kernel takes (multiples of 4 up to
-    128) runs K5's f32 kernel, every other one up to 256 the SIMT kernel;
-    bfloat16 keeps ``kernel_path``'s choice."""
+    256, instance 256 above 128) runs K5's f32 kernel, every other one up
+    to 256 the SIMT kernel; bfloat16 takes the tensor-core kernel at every
+    multiple of 16 up to 256, the SIMT kernel elsewhere."""
     for head_dim in range(1, flash.SIMT_MAX_HEAD_DIM + 1):
-        tiled = head_dim % 4 == 0 and head_dim <= 128
+        tiled = head_dim % 4 == 0
         assert flash.dq_kernel(torch.float32, head_dim) == ("f32" if tiled else "simt")
-        assert flash.dq_kernel(torch.bfloat16, head_dim) == flash.kernel_path(torch.bfloat16,
-                                                                             head_dim)
+        assert flash.dq_kernel(torch.bfloat16, head_dim) == (
+            "tensor-core" if head_dim % 16 == 0 else "simt")
 
 
 @pytest.mark.parametrize("renorm", flash.RENORMS)

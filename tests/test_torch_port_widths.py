@@ -227,8 +227,8 @@ def test_k4_k5_k6_plans_and_shared_memory_fit_every_head_width(dtype):
     """K4-K6 at L 1,600 and every head width of D, one or all query tiles:
     the key split covers the key steps with no shard empty, and the shared
     memory of the kernel each call takes fits a block (the tensor-core
-    kernels' is fixed by their instances: K4's 16-256, K5's and K6's
-    16-128). K5 and K6 keep their own paths, the same for both."""
+    kernels' is fixed by their instances: 16-256). K5 and K6 keep their own
+    paths, the same for both."""
     for c, heads in domain():
         dh = c // heads
         path = flash.k4_path(dtype, dh)
@@ -254,7 +254,8 @@ def test_k4_k5_k6_plans_and_shared_memory_fit_every_head_width(dtype):
         elif k56 == "simt":
             need += [flash.smem_bytes_simt(kernel, dh) for kernel in ("K5", "K6")]
         else:
-            assert dh % 16 == 0 and dh <= 128
+            assert dh % 16 == 0 and dh <= 256
+            need += [flash.smem_bytes_k56_tc(kernel, dh) for kernel in ("K5", "K6")]
         assert max(need) <= SMEM_LIMIT, (dh, path, need)
     assert flash.simt_rows(128) == 64 and flash.simt_rows(129) == 32
 

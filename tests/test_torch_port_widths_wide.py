@@ -172,13 +172,14 @@ def test_attention_wrappers_take_c_and_head_widths_above_the_old_domain(dtype):
 def test_k1_paths_at_the_model_point():
     """C 4,096 with 32 heads of 128 keeps the tensor-core (bf16) and
     register-tiled (f32) K1 kernels, whose shared memory does not grow with
-    C; K2 takes the SIMT kernels in bf16 (8 rows a block) and its f32
-    kernels in f32."""
+    C; K2 takes the composed route in bf16 (its tensor-core rows launch does
+    not fit; the SIMT kernels it took before keep 8 rows a block) and its
+    f32 kernels in f32."""
     for tk in (128, 450):
         assert k1.k1_path(torch.bfloat16, 128, tk, 4096) == "tensor-core"
         assert k1.k1_path(torch.float32, 128, tk, 4096) == "f32"
         assert k1.smem_bytes_tc(tk, tk, 4096, 32) == k1.smem_bytes_tc(tk, tk, 512, 4)
-        assert k1.k2_path(torch.bfloat16, 128, tk, 4096, 32) == "simt"
+        assert k1.k2_path(torch.bfloat16, 128, tk, 4096, 32) == "composed"
         assert k1.k2_path(torch.float32, 128, tk, 4096, 32) == "f32"
         assert k1.simt_bwd_rows(tk, tk, 4096, 32) == 8
 
